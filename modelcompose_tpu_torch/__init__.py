@@ -1,0 +1,26 @@
+"""modelcompose-tpu, PyTorch port: the multimodal composition runtime on
+CUDA (NVIDIA Hopper), held against the JAX package ``modelcompose_tpu``.
+
+The port mirrors the JAX package's module paths and public names.  Its two
+attention kernels are written by hand for ``sm_90a`` (``csrc/``); every
+other op is plain PyTorch.  On a CPU tensor each kernel wrapper runs the
+kernel's plain PyTorch version, so the whole port runs (slowly) on the CPU.
+
+Public API:
+    from modelcompose_tpu_torch import ModelConfig, MultimodalLM
+
+The package imports ``torch`` and never ``jax``: of the JAX package it
+imports only the framework-free ``modelcompose_tpu.config`` and
+``modelcompose_tpu.constants``.
+"""
+
+from modelcompose_tpu.config import ModelConfig, tiny_test_config  # noqa: F401
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    if name == "MultimodalLM":
+        from .models.model import MultimodalLM
+        return MultimodalLM
+    raise AttributeError(name)

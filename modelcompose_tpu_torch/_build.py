@@ -1,0 +1,98 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface.  On first use it is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library under
+``_build/`` (listed in .gitignore), keyed by a hash of the source and the
+flags, and loaded with ``ctypes``.  Nothing here runs at import time: a
+machine without ``nvcc`` imports the package and uses the kernels' plain
+PyTorch versions on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signature of every entry point: (argtypes, restype).  A pointer or the
+# stream passed as a 32-bit int would be cut, so every one is c_void_p.
+SIGNATURES = {
+    "flash_attention_fwd": {
+        "mc_flash_attention_fwd": (
+            [_P, _P, _P, _P, _P, _P, _P,  # q k v q_seg kv_seg out lse
+             _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
+             _F, _I, _I, _P], _I),        # sm_scale causal q_offset stream
+    },
+    "flash_decode": {
+        "mc_flash_decode_split_len": ([], _I),
+        "mc_flash_decode": (
+            [_P, _P, _P, _P, _P, _P,      # q kc vc ks vs kv_len
+             _P, _P, _P, _P,              # part_m part_l part_acc out
+             _I, _I, _I, _I, _I, _I, _I,  # B H Hkv S D layer quantized
+             _F, _P], _I),                # sm_scale stream
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}
+build_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; raise on failure."""
+    if name in _libs:
+        return _libs[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{name}-{digest}.so"
+    t0 = time.perf_counter()
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        build_log[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{build_log[name]}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    lib = ctypes.CDLL(str(out))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    build_seconds[name] = time.perf_counter() - t0
+    _libs[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,154 @@
+"""Top-level multimodal LM: towers + projectors + routed backbone + packing
+(counterpart of modelcompose_tpu/models/model.py).
+
+The class is a thin host-side container (params, configs, towers); all
+tensor work is in plain functions.  Pipeline per batch:
+
+1. ``encode_modal_inputs``: each modality's frozen tower and its
+   projector, with the prefix/suffix soft tokens attached;
+2. ``core.packing.plan_pack``: the host-side static-shape splice plan;
+3. ``assemble_embeds`` and the routed prefill + greedy decode.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from modelcompose_tpu.config import ModelConfig
+
+from ..core import generate as generation
+from ..core.llama import init_params, torch_dtype
+from ..core.packing import PackPlan, assemble_embeds, plan_pack
+from ..ops.routed_lora import (active_adapter_set, as_table,
+                               compact_active_adapters)
+from .projectors import apply_projector, init_projector, output_len
+from .towers import build_modal_encoders
+
+
+class MultimodalLM:
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
+                 encoders: Dict[str, Any],
+                 projectors: Dict[str, Dict[str, Any]]):
+        self.cfg = cfg
+        self.params = params
+        self.encoders = encoders
+        self.projectors = projectors
+        self.routing_table = cfg.routing_table()
+        self._compact_cache: Dict[Tuple[int, ...], Any] = {}
+
+    @classmethod
+    def random_init(cls, cfg: ModelConfig,
+                    generator: Optional[torch.Generator] = None,
+                    device=None) -> "MultimodalLM":
+        """Random weights made on ``device`` from ``generator`` (seed 0 on
+        the device when none is given)."""
+        device = torch.device(device if device is not None else
+                              (generator.device if generator is not None
+                               else "cpu"))
+        if generator is None:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(0)
+        params = init_params(cfg, generator, device)
+        encoders = build_modal_encoders(cfg, generator, device)
+        projectors = {
+            modal: init_projector(cfg.projector_type(modal), generator,
+                                  encoders[modal].hidden_size,
+                                  cfg.hidden_size,
+                                  dtype=torch_dtype(cfg.dtype), device=device)
+            for modal in cfg.modalities()}
+        return cls(cfg, params, encoders, projectors)
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["embed_tokens"].device
+
+    def decode_routing_table(self) -> Optional[torch.Tensor]:
+        """Routing table for decode steps, or None when the default row is
+        all zero (dense-folded params): decode then skips the adapter
+        branch instead of multiplying every LoRA stack by zero."""
+        table = np.asarray(self.routing_table)
+        return as_table(table, self.device) if table[0].any() else None
+
+    def feature_span_len(self, modal: str) -> int:
+        """Packed span of one instance: projector output + prefix/suffix."""
+        t = output_len(self.cfg.projector_type(modal),
+                       self.encoders[modal].feature_len)
+        return t + self.cfg.prefix_len(modal) + self.cfg.suffix_len(modal)
+
+    def encode_modal_inputs(self, modal_inputs: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+        """{modal: normalized raw inputs} -> {modal: [n, span, H]}
+        projected features with the prefix/suffix soft tokens attached."""
+        feats: Dict[str, torch.Tensor] = {}
+        embed_dtype = self.params["embed_tokens"].dtype
+        with torch.no_grad():
+            for modal, raw in modal_inputs.items():
+                x = self.encoders[modal].encode(raw)
+                x = apply_projector(self.cfg.projector_type(modal),
+                                    self.projectors[modal], x)
+                b = x.shape[0]
+                parts = []
+                prefix = (self.params.get("prefix_tokens") or {}).get(modal)
+                suffix = (self.params.get("suffix_tokens") or {}).get(modal)
+                if prefix is not None:
+                    parts.append(prefix[None].expand(b, *prefix.shape))
+                parts.append(x.to(embed_dtype))
+                if suffix is not None:
+                    parts.append(suffix[None].expand(b, *suffix.shape))
+                feats[modal] = torch.cat(parts, dim=1)
+        return feats
+
+    def prepare_batch(self, input_ids: Sequence[np.ndarray],
+                      modal_inputs: Dict[str, Any],
+                      labels: Optional[Sequence[np.ndarray]] = None,
+                      bucket_len: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, PackPlan]:
+        feats = self.encode_modal_inputs(modal_inputs)
+        feat_spans = {m: (int(f.shape[0]), int(f.shape[1]))
+                      for m, f in feats.items()}
+        plan = plan_pack(list(input_ids), feat_spans, labels=labels,
+                         bucket_len=bucket_len)
+        return assemble_embeds(self.params["embed_tokens"], plan, feats), plan
+
+    def generate(self, input_ids: Sequence[np.ndarray],
+                 modal_inputs: Dict[str, Any], max_new_tokens: int = 128,
+                 temperature: float = 0.0, num_beams: int = 1,
+                 bucket_len: Optional[int] = None, attn_impl: str = "auto",
+                 compact_adapters: bool = False, fold_decode=False,
+                 kv_quant: bool = False,
+                 timings: Optional[dict] = None) -> List[List[int]]:
+        """Greedy answers for a batch of prompts (EOS excluded).
+
+        ``fold_decode`` and ``kv_quant`` select the decode variant (see
+        core.generate.generate); ``timings`` receives the prefill and
+        decode seconds."""
+        if num_beams and num_beams > 1:
+            raise NotImplementedError(
+                "beam search is not ported yet: ROADMAP Queue 1, "
+                "sampling + beam")
+        embeds, plan = self.prepare_batch(input_ids, modal_inputs,
+                                          bucket_len=bucket_len)
+        route_ids = plan.route_ids if self.cfg.routing_active() else None
+        params, table = self.params, self.routing_table
+        if compact_adapters and route_ids is not None:
+            params, table = self._compacted(np.unique(route_ids))
+        with torch.no_grad():
+            return generation.generate(
+                params, self.cfg, embeds, lengths=plan.lengths,
+                route_ids=route_ids, routing_table=table,
+                segment_ids=plan.segment_ids, max_new_tokens=max_new_tokens,
+                temperature=temperature, attn_impl=attn_impl,
+                fold_decode=fold_decode, kv_quant=kv_quant, timings=timings)
+
+    def _compacted(self, route_classes):
+        """Adapter stacks gathered to the columns the batch's route classes
+        can reach, cached per active set (an eval run's modality mix is
+        constant, so the gather happens once)."""
+        active = active_adapter_set(self.routing_table, route_classes)
+        if active not in self._compact_cache:
+            self._compact_cache[active] = compact_active_adapters(
+                self.params, self.routing_table, active)
+        return self._compact_cache[active]
