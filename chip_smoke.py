@@ -7,35 +7,54 @@ Phases, one result line each; any failure raises and the script exits
 nonzero:
 
 1. device: the card's name and power limit, TF32 off for the comparisons;
-2. build: both hand-written kernels compiled by nvcc from ``csrc/``;
+2. build: every hand-written kernel compiled by nvcc from ``csrc/``, one
+   nvcc per source, all started together;
 3. K1 (flash-attention forward) against its plain PyTorch version;
 4. K2 (split-KV flash-decode) against its plain PyTorch version;
-5. the main path at Vicuna-7B width: a vision DAMC composition (CLIP
+5. the serving path at Vicuna-7B width: a vision DAMC composition (CLIP
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
    answering two image+question requests greedily through
    ``MultimodalLM.generate``; then prefill and teacher-forced decode on the
    plain path with the same weights and tokens, logits held to a bf16
-   tolerance.
+   tolerance;
+6. K3 (flash-attention dQ) and K4 (dK, dV) against their plain versions,
+   on K1's output and LSE, which are held against theirs at each of these
+   shapes too (the training path's among them);
+7. the training path at Vicuna-7B width: the vision DAMC stage-2 recipe
+   (bf16 base, modal+language LoRA r=128, 5+5 soft tokens, mlp2x_gelu
+   projector, remat) built through the train entry, four
+   ``make_train_step`` steps on two image+question+answer samples, one
+   accumulation window of two micro-batches through
+   ``make_grad_and_apply``, torch.profiler over one more step (device time
+   by kernel, the K1/K3/K4 shares; the table goes to
+   ``chiprun_out/train_profile.txt``), then the kernel path's loss and
+   gradients against the plain path's on one micro-batch.
 
 The line before the last is a JSON object with each kernel's launches on the
-main path, its largest error against the plain version and both times; the
+main paths, its largest error against the plain version and both times; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
 script exits nonzero and prints no result.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 K1_SOURCE = "modelcompose_tpu_torch/csrc/flash_attention_fwd.cu"
 K1_REPLACES = "modelcompose_tpu/ops/flash_attention.py:113"
 K2_SOURCE = "modelcompose_tpu_torch/csrc/flash_decode.cu"
 K2_REPLACES = "modelcompose_tpu/ops/flash_decode.py:50"
+K34_SOURCE = "modelcompose_tpu_torch/csrc/flash_attention_bwd.cu"
+K3_REPLACES = "modelcompose_tpu/ops/flash_attention.py:287"
+K4_REPLACES = "modelcompose_tpu/ops/flash_attention.py:328"
 
 # bf16 tolerances, relative to max |reference| on the compared rows: bf16
 # keeps 8 mantissa bits (~0.4% per rounding); the kernel and its plain
@@ -47,9 +66,15 @@ LSE_TOL = 1e-3      # fp32 statistics from identical bf16 operands
 # attentions (attention_reference vs the kernels' plain versions) gave
 # logits 4.6% apart at every step, the kernel path 4.1-4.8% from either.
 LOGIT_TOL = 8e-2
+# Kernel path against plain path on the 7B train step: the same random
+# network amplifies bf16 rounding (logits 4.6% apart between two plain
+# attentions), so gradients are compared by direction and size.
+GRAD_COS = 0.99
+GRAD_NORM_TOL = 0.05
 
 SEED = 0
 NEW_TOKENS = 32
+TRAIN_STEPS = 4
 
 
 def log(phase: str, **fields) -> None:
@@ -93,8 +118,10 @@ def phase_device():
 def phase_build():
     from modelcompose_tpu_torch import _build
     t0 = time.perf_counter()
-    for name in ("flash_attention_fwd", "flash_decode"):
-        _build.load(name)
+    names = sorted(_build.SIGNATURES)
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
+        list(pool.map(_build.load, names))
+    for name in names:
         log_lines = _build.build_log.get(name, "").splitlines()
         ptxas = [ln.strip() for ln in log_lines
                  if "registers" in ln or "spill" in ln]
@@ -126,24 +153,35 @@ def _k1_case(device, gen, *, B, Lq, S, H, Hkv, D, q_offset, lengths):
     kw = dict(causal=True, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
               q_offset=q_offset)
     out, lse = flash_attention_forward(q, k, v, **kw)
-    ref_out, ref_lse = flash_attention_reference(q, k, v, **kw)
-    torch.cuda.synchronize()
-    valid = q_seg != 0  # padding rows are garbage on both sides
-    err, rel = _rel_err(out, ref_out, valid)
-    lse_err = (lse.transpose(1, 2)[valid] - ref_lse.transpose(1, 2)[valid]
-               ).abs().max().item()
-    lse_tol = LSE_TOL * max(ref_lse.transpose(1, 2)[valid].abs().max().item(),
-                            1.0)
     name = f"B{B} Lq{Lq} S{S} H{H}/{Hkv} D{D} q_offset{q_offset}"
-    if not (rel <= ATTN_TOL and lse_err <= lse_tol):
-        raise AssertionError(f"K1 {name}: out rel err {rel:.3g} (tol "
-                             f"{ATTN_TOL}), lse err {lse_err:.3g} (tol "
-                             f"{lse_tol:.3g})")
+    err, rel, lse_err = _check_k1(name, q, k, v, kw, out, lse)
     ms = cuda_time_ms(lambda: flash_attention_forward(q, k, v, **kw))
     plain_ms = cuda_time_ms(lambda: flash_attention_reference(q, k, v, **kw))
     log("K1", case=repr(name), max_abs_err=f"{err:.4g}", rel_err=f"{rel:.3g}",
         lse_err=f"{lse_err:.3g}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
     return err, ms, plain_ms
+
+
+def _check_k1(name, q, k, v, kw, out, lse):
+    """K1's output and LSE against its plain version on the same inputs,
+    on valid rows (padding rows are garbage on both sides): (max abs err
+    of the output, its relative error, max abs err of the LSE)."""
+    import torch
+    from modelcompose_tpu_torch.ops.flash_attention import (
+        flash_attention_reference)
+    ref_out, ref_lse = flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    valid = kw["q_segment_ids"] != 0
+    err, rel = _rel_err(out, ref_out, valid)
+    lse_err = (lse.transpose(1, 2)[valid] - ref_lse.transpose(1, 2)[valid]
+               ).abs().max().item()
+    lse_tol = LSE_TOL * max(ref_lse.transpose(1, 2)[valid].abs().max().item(),
+                            1.0)
+    if not (rel <= ATTN_TOL and lse_err <= lse_tol):
+        raise AssertionError(f"K1 {name}: out rel err {rel:.3g} (tol "
+                             f"{ATTN_TOL}), lse err {lse_err:.3g} (tol "
+                             f"{lse_tol:.3g})")
+    return err, rel, lse_err
 
 
 def phase_k1(device, gen):
@@ -355,6 +393,323 @@ def phase_main_path(device, gen):
     return launches
 
 
+def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths):
+    """K1 forward against its plain version at the case's shape, then K3
+    and K4 on K1's output and LSE, with a cotangent zero on padding rows,
+    against their plain versions on valid rows."""
+    import torch
+    from modelcompose_tpu_torch.ops.flash_attention import (
+        _di, flash_attention_bwd_dkv, flash_attention_bwd_dkv_reference,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_reference,
+        flash_attention_forward)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+    q, k, v = rnd(B, L, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    kv_seg = (torch.arange(S, device=device)[None]
+              < torch.tensor(lengths, device=device)[:, None]).to(torch.int32)
+    q_seg = kv_seg[:, q_offset:q_offset + L].contiguous()
+    kw = dict(causal=True, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+              q_offset=q_offset)
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    name = f"B{B} L{L} S{S} H{H}/{Hkv} D{D} q_offset{q_offset}"
+    k1_err, k1_rel, k1_lse_err = _check_k1(name, q, k, v, kw, out, lse)
+    do = (rnd(B, L, H, D) * (q_seg != 0)[..., None, None]).contiguous()
+    di = _di(out, do)
+    args = (q, k, v, do, lse, di)
+    dq = flash_attention_bwd_dq(*args, **kw)
+    dk, dv = flash_attention_bwd_dkv(*args, **kw)
+    ref_dq = flash_attention_bwd_dq_reference(*args, **kw)
+    ref_dk, ref_dv = flash_attention_bwd_dkv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    q_valid, kv_valid = q_seg != 0, kv_seg != 0
+    errs = {n: _rel_err(g, w, rows) for n, g, w, rows in (
+        ("dq", dq, ref_dq, q_valid), ("dk", dk, ref_dk, kv_valid),
+        ("dv", dv, ref_dv, kv_valid))}
+    bad = {n: r for n, (_, r) in errs.items() if not r <= ATTN_TOL}
+    if bad:
+        raise AssertionError(f"K3/K4 {name}: rel err {bad} (tol {ATTN_TOL})")
+    res = {
+        "fwd": dict(max_abs_err=k1_err),
+        "dq": dict(max_abs_err=errs["dq"][0], ms=cuda_time_ms(
+            lambda: flash_attention_bwd_dq(*args, **kw)),
+            plain_ms=cuda_time_ms(
+                lambda: flash_attention_bwd_dq_reference(*args, **kw))),
+        "dkv": dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+                    ms=cuda_time_ms(
+                        lambda: flash_attention_bwd_dkv(*args, **kw)),
+                    plain_ms=cuda_time_ms(
+                        lambda: flash_attention_bwd_dkv_reference(*args,
+                                                                  **kw)))}
+    log("K3/K4", case=repr(name),
+        k1_rel_err=f"{k1_rel:.3g}", k1_lse_err=f"{k1_lse_err:.3g}",
+        rel_err=json.dumps({n: float(f"{r:.3g}") for n, (_, r) in
+                            errs.items()}),
+        k3_ms=f"{res['dq']['ms']:.4f}",
+        k3_plain_ms=f"{res['dq']['plain_ms']:.4f}",
+        k4_ms=f"{res['dkv']['ms']:.4f}",
+        k4_plain_ms=f"{res['dkv']['plain_ms']:.4f}")
+    return res
+
+
+def phase_k34(device, gen):
+    """K1, K3 and K4 at the training shapes: the train step's batch (B=2,
+    L=2048, 32 heads, D=128, causal; one row of 1391) and the
+    accumulation window's micro-batches (B=1, L=2048, rows of 1400 and
+    1100); then at a ragged length, with GQA group 4 and a query offset,
+    and at D=64.  Returns the K3/K4 results at the first shape, with the
+    largest error over all cases for K1 ('fwd'), K3 and K4."""
+    main = _k34_case(device, gen, B=2, L=2048, S=2048, H=32, Hkv=32, D=128,
+                     q_offset=0, lengths=[2048, 1391])
+    errs = {n: [main[n]["max_abs_err"]] for n in main}
+    for case in (dict(B=1, L=2048, S=2048, H=32, Hkv=32, D=128, q_offset=0,
+                      lengths=[1400]),
+                 dict(B=1, L=2048, S=2048, H=32, Hkv=32, D=128, q_offset=0,
+                      lengths=[1100]),
+                 dict(B=2, L=150, S=150, H=32, Hkv=32, D=128, q_offset=0,
+                      lengths=[150, 97]),
+                 dict(B=2, L=256, S=1024, H=32, Hkv=8, D=128, q_offset=768,
+                      lengths=[1024, 900]),
+                 dict(B=2, L=150, S=150, H=8, Hkv=4, D=64, q_offset=0,
+                      lengths=[150, 61])):
+        res = _k34_case(device, gen, **case)
+        for n in errs:
+            errs[n].append(res[n]["max_abs_err"])
+    return {n: dict(main[n], max_abs_err=max(errs[n])) for n in main}
+
+
+def _train_samples(cfg, rng):
+    """Two image+question+answer samples of about 1,400 and 1,100 packed
+    positions (the image is 576 patches + 5 + 5 soft tokens), labels on the
+    answer span only; random ids and pixels from ``rng``."""
+    import numpy as np
+    from modelcompose_tpu_torch.core.packing import (IGNORE_INDEX,
+                                                     MODAL_TOKEN_INDEXES)
+    img = MODAL_TOKEN_INDEXES["vision"]
+    ids, labels = [], []
+    for before, question, answer in ((100, 400, 313), (50, 250, 213)):
+        text = [rng.integers(3, cfg.vocab_size, n) for n in
+                (before, question, answer)]
+        ids.append(np.concatenate([[1], text[0], [img], text[1], text[2]]))
+        labels.append(np.concatenate([
+            np.full(2 + before + question, IGNORE_INDEX), text[2]]))
+    pixels = rng.normal(size=(2, 336, 336, 3)).astype(np.float32)
+    return {"input_ids": ids, "labels": labels,
+            "modal_inputs": {"vision": pixels}}
+
+
+def _flat(grads, paths):
+    import torch
+    return torch.cat([grads[p].float().reshape(-1) for p in paths])
+
+
+def _compare_grads(name, got, want):
+    import torch
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=0).item()
+    ratio = (got.norm() / want.norm()).item()
+    log("train", compare=name, cosine=f"{cos:.5f}", norm_ratio=f"{ratio:.5f}")
+    if not (cos >= GRAD_COS and abs(ratio - 1) <= GRAD_NORM_TOL):
+        raise AssertionError(f"{name}: kernel-path gradient cosine {cos:.4f} "
+                             f"(>= {GRAD_COS}), norm ratio {ratio:.4f} "
+                             f"(1 +- {GRAD_NORM_TOL})")
+    return {"cosine": cos, "norm_ratio": ratio}
+
+
+def phase_train(device):
+    """The DAMC stage-2 train step at Vicuna-7B width through the train
+    entry, then kernel-path against plain-path gradients."""
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_forward)
+    from modelcompose_tpu_torch.train.train_multimodal import (
+        build_arg_parser, build_model, build_model_config, make_batch)
+    from modelcompose_tpu_torch.train.trainer import (
+        TrainConfig, init_train_state, make_grad_and_apply, make_optimizer,
+        make_train_step, scale_grads, tree_leaves)
+
+    counters = (flash_attention_forward, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def read():
+        return {"flash_attention_fwd": flash_attention_forward.launches,
+                "flash_attention_bwd_dq": flash_attention_bwd_dq.launches,
+                "flash_attention_bwd_dkv": flash_attention_bwd_dkv.launches}
+
+    args = build_arg_parser().parse_args([
+        "--model_name_or_path", "vicuna-7b-v1.5", "--data_path", "-",
+        "--output_dir", "-", "--random_init_backbone", "--seed", str(SEED),
+        "--mm_vision_encoder", "clip-vit-large-patch14-336",
+        "--mm_projector_type", "mlp2x_gelu", "--mm_vision_select_layer", "-2",
+        "--lora_strategy", "modal+language", "--lora_r", "128",
+        "--lora_alpha", "256", "--local_prefix_tokens", "5",
+        "--local_suffix_tokens", "5", "--gradient_checkpointing", "True"])
+    t0 = time.perf_counter()
+    cfg = build_model_config(args)
+    with warnings.catch_warnings():  # random tower weights are the point
+        warnings.simplefilter("ignore")
+        model = build_model(args, cfg, device)
+    rng = np.random.default_rng(SEED)
+    collated = _train_samples(cfg, rng)
+    batch, layout = make_batch(model, collated)
+    micro = [make_batch(model, {
+        "input_ids": collated["input_ids"][i:i + 1],
+        "labels": collated["labels"][i:i + 1],
+        "modal_inputs": {"vision": collated["modal_inputs"]["vision"][
+            i:i + 1]}}) for i in range(2)]
+    tc = TrainConfig(learning_rate=2e-4, mm_projector_lr=2e-5,
+                     mm_language_lr=1e-5, warmup_ratio=0.0)
+    tx, _ = make_optimizer(cfg, tc, {"backbone": model.params,
+                                     "projectors": model.projectors})
+    state = init_train_state(cfg, tc, model.params, model.projectors, tx=tx)
+    params = state.params
+    vision = cfg.adapter_names().index("vision")
+    frozen = {"embed_tokens": params["backbone"]["embed_tokens"],
+              "attn.q.w": params["backbone"]["layers"]["attn"]["q"]["w"],
+              "tower.q.w": model.encoders["vision"].params["layers"]["q"]["w"],
+              "tower.patch": model.encoders["vision"].params[
+                  "patch_embedding"]}
+    trained = {"lora_b.q": params["backbone"]["layers"]["attn"]["q"][
+                   "lora_b"],
+               "lora_a.down": params["backbone"]["layers"]["mlp"]["down"][
+                   "lora_a"],
+               "projector.w0": params["projectors"]["vision"]["layers"][0][
+                   "w"],
+               "prefix": params["backbone"]["prefix_tokens"]["vision"]}
+    before = {n: t.detach().clone() for n, t in {**frozen, **trained}.items()}
+    positions = int((batch["segment_ids"] != 0).sum())
+    torch.cuda.synchronize()
+    log("train", setup_s=f"{time.perf_counter() - t0:.1f}",
+        bucket=tuple(batch["token_ids"].shape), positions=positions,
+        lengths=[int(x) for x in (batch["segment_ids"] != 0).sum(1)],
+        trainable_params=sum(p.numel() for _, p in tree_leaves(params)
+                             if p.requires_grad),
+        gpu_mem_gb=f"{torch.cuda.memory_allocated() / 2**30:.1f}")
+
+    step = make_train_step(cfg, tc, tx)
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, launches = [], [], []
+    for i in range(TRAIN_STEPS):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, layout)
+        losses.append(float(loss))  # synchronizes
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(read())
+        log("train", step=i, loss=f"{losses[-1]:.6f}",
+            step_s=f"{seconds[-1]:.4f}",
+            tokens_per_s=f"{positions / seconds[-1]:.1f}",
+            launches=json.dumps(launches[-1]))
+    peak = torch.cuda.max_memory_allocated()
+
+    grad_fn, apply_fn, _, grad_accum_fn = make_grad_and_apply(cfg, tc, tx)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss0, acc = grad_fn(state.params, *micro[0])
+    loss1, acc = grad_accum_fn(state.params, acc, *micro[1])
+    state = apply_fn(state, scale_grads(acc, 0.5))
+    torch.cuda.synchronize()
+    accum_s = time.perf_counter() - t0
+    accum_launches = read()
+    del acc
+    log("train", accum_window_s=f"{accum_s:.4f}",
+        micro_losses=[f"{float(loss0):.6f}", f"{float(loss1):.6f}"],
+        launches=json.dumps(accum_launches), steps_taken=state.step,
+        peak_mem_gb=f"{peak / 2**30:.2f}")
+
+    n_layers = cfg.num_hidden_layers
+    for i, counts in enumerate(launches + [accum_launches]):
+        if min(counts.values()) < n_layers \
+                or counts["flash_attention_fwd"] < 2 * n_layers:
+            raise AssertionError(f"step {i}: kernel launches {counts}: K1 "
+                                 f"must run twice per layer under remat, "
+                                 f"K3 and K4 once per layer")
+    if not all(np.isfinite(losses + [float(loss0), float(loss1)])):
+        raise AssertionError(f"non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not decrease: {losses}")
+    for n in frozen:
+        if not torch.equal(frozen[n], before[n]):
+            raise AssertionError(f"frozen {n} changed")
+    for n in trained:
+        if torch.equal(trained[n], before[n]):
+            raise AssertionError(f"trainable {n} did not change")
+    del before
+
+    _profile_step(step, state, batch, layout)
+
+    # The kernel path against the plain path on one micro-batch, same weights.
+    reset()
+    loss_k, grads_k = grad_fn(state.params, *micro[0])
+    k_launches = read()
+    plain_fn = make_grad_and_apply(cfg, tc, tx, attn_impl="reference")[0]
+    loss_p, grads_p = plain_fn(state.params, *micro[0])
+    if read() != k_launches:
+        raise AssertionError("the plain path launched a kernel")
+    lora_b = [p for p in grads_k if p[-1] == "lora_b"]
+    proj = [p for p in grads_k if p[0] == "projectors"]
+    soft = [p for p in grads_k if p[1] in ("prefix_tokens", "suffix_tokens")]
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    log("train", compare="loss", kernel=f"{float(loss_k):.6f}",
+        plain=f"{float(loss_p):.6f}", rel=f"{loss_rel:.3g}")
+    if not loss_rel <= GRAD_NORM_TOL:
+        raise AssertionError(f"kernel-path loss {float(loss_k)} vs plain "
+                             f"{float(loss_p)}")
+    parity = {"loss_rel": loss_rel}
+    for name, paths, select in (
+            ("projector", proj, None), ("soft_tokens", soft, None),
+            ("lora_b_vision_layer0", lora_b, 0),
+            ("lora_b_vision_layer31", lora_b, n_layers - 1)):
+        if select is None:
+            got, want = _flat(grads_k, paths), _flat(grads_p, paths)
+        else:
+            got = torch.cat([grads_k[p][select, vision].float().reshape(-1)
+                             for p in paths])
+            want = torch.cat([grads_p[p][select, vision].float().reshape(-1)
+                              for p in paths])
+        parity[name] = _compare_grads(name, got, want)
+    step_s = float(np.median(seconds[1:]))
+    return {"launches": launches, "accum_launches": accum_launches,
+            "losses": losses, "step_s": seconds,
+            "tokens_per_s": positions / step_s,
+            "peak_mem_gb": peak / 2**30, "parity": parity}
+
+
+def _profile_step(step, state, batch, layout):
+    """torch.profiler over one train step: device time by kernel, the K1,
+    K3 and K4 shares, written to chiprun_out/train_profile.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch, layout)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev = {e.key: e.device_time_total for e in events
+           if e.device_time_total > 0 and e.device_type.name == "CUDA"}
+    total = sum(dev.values())
+    share = {tag: sum(t for k, t in dev.items() if tag in k) / total
+             for tag in ("fa_fwd_kernel", "fa_bwd_dq_kernel",
+                         "fa_bwd_dkv_kernel")} if total else {}
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/train_profile.txt", "w") as f:
+        f.write(events.table(sort_by="cuda_time_total", row_limit=40))
+    log("profile", wall_s=f"{wall:.4f}", device_kernel_s=f"{total / 1e6:.4f}",
+        shares=json.dumps({k: round(v, 4) for k, v in share.items()}))
+
+
 def main() -> int:
     try:
         import torch
@@ -368,14 +723,34 @@ def main() -> int:
     k1 = phase_k1(device, gen)
     k2 = phase_k2(device, gen)
     launches = phase_main_path(device, gen)
+    gc.collect()
+    torch.cuda.empty_cache()  # the serving model is gone before training
+    k34 = phase_k34(device, gen)
+    train = phase_train(device)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    # Launches on the main paths: the serving run, plus every step of the
+    # training run (train steps and the accumulation window).
+    trained = train["launches"] + [train["accum_launches"]]
+
+    def train_launches(name):
+        return sum(c[name] for c in trained)
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=K1_SOURCE,
-             replaces=K1_REPLACES, launches=launches["flash_attention_fwd"],
-             **k1),
+             replaces=K1_REPLACES,
+             launches=launches["flash_attention_fwd"]
+             + train_launches("flash_attention_fwd"),
+             **dict(k1, max_abs_err=max(k1["max_abs_err"],
+                                        k34["fwd"]["max_abs_err"]))),
         dict(name="flash_decode", route="cuda", source=K2_SOURCE,
              replaces=K2_REPLACES, launches=launches["flash_decode"], **k2),
+        dict(name="flash_attention_bwd_dq", route="cuda", source=K34_SOURCE,
+             replaces=K3_REPLACES,
+             launches=train_launches("flash_attention_bwd_dq"), **k34["dq"]),
+        dict(name="flash_attention_bwd_dkv", route="cuda", source=K34_SOURCE,
+             replaces=K4_REPLACES,
+             launches=train_launches("flash_attention_bwd_dkv"),
+             **k34["dkv"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """modelcompose-tpu, PyTorch port: the multimodal composition runtime on
 CUDA (NVIDIA Hopper), held against the JAX package ``modelcompose_tpu``.
 
-The port mirrors the JAX package's module paths and public names.  Its two
-attention kernels are written by hand for ``sm_90a`` (``csrc/``); every
-other op is plain PyTorch.  On a CPU tensor each kernel wrapper runs the
+The port mirrors the JAX package's module paths and public names.  Its
+attention kernels (flash-attention forward and backward, flash-decode) are
+written by hand for ``sm_90a`` (``csrc/``); every other op is plain
+PyTorch.  On a CPU tensor each kernel wrapper runs the
 kernel's plain PyTorch version, so the whole port runs (slowly) on the CPU.
 
 Public API:

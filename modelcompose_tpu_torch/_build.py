@@ -39,6 +39,18 @@ SIGNATURES = {
              _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
              _F, _I, _I, _P], _I),        # sm_scale causal q_offset stream
     },
+    "flash_attention_bwd": {
+        "mc_flash_attention_bwd_dq": (
+            [_P, _P, _P, _P, _P, _P,      # q k v dout lse di
+             _P, _P, _P,                  # q_seg kv_seg dq
+             _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
+             _F, _I, _I, _P], _I),        # sm_scale causal q_offset stream
+        "mc_flash_attention_bwd_dkv": (
+            [_P, _P, _P, _P, _P, _P,      # q k v dout lse di
+             _P, _P, _P, _P,              # q_seg kv_seg dk dv
+             _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
+             _F, _I, _I, _P], _I),        # sm_scale causal q_offset stream
+    },
     "flash_decode": {
         "mc_flash_decode_split_len": ([], _I),
         "mc_flash_decode": (

@@ -16,6 +16,7 @@ import torch
 
 from .models.model import MultimodalLM
 from .models.towers import ClipVisionTower
+from .tree import tree_map_with_path
 
 
 def _leaf(a: np.ndarray, device, dtype, keep_fp32: bool) -> torch.Tensor:
@@ -43,6 +44,16 @@ def params_from_jax(tree: Any, device=None, dtype=None) -> Any:
             return type(node)(walk(v, False) for v in node)
         return _leaf(node, device, dtype, in_int8)
     return walk(tree, False)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """A tree of tensors -> the same tree of numpy arrays on the host.
+    numpy has no bf16, so a bf16 leaf becomes fp32 (exact); every other
+    leaf keeps its dtype."""
+    def leaf(_, t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map_with_path(leaf, tree)
 
 
 def model_from_jax(jax_model, device=None) -> MultimodalLM:

@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from modelcompose_tpu.config import ModelConfig
 
@@ -101,6 +102,31 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def reinit_lora_a(params: Params, generator: torch.Generator,
+                  dtype=None) -> Params:
+    """Fresh kaiming-uniform A (bound 1/sqrt(d_in)) for every ``lora_a``
+    leaf; B stays as it is.
+
+    A converted HF base has zero LoRA tensors, and training from A = 0 and
+    B = 0 gives identically zero LoRA gradients forever (dL/dA is
+    proportional to B, dL/dB to A); peft kaiming-initializes A when it
+    creates an adapter, and this is that step.  Returns a new tree; the
+    other leaves are shared."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for grp in ("attn", "mlp"):
+        group = {}
+        for name, p in layers[grp].items():
+            la = p["lora_a"]
+            bound = float(la.shape[-2]) ** -0.5
+            group[name] = {**p, "lora_a": torch.empty(
+                la.shape, dtype=dtype or la.dtype, device=la.device).uniform_(
+                    -bound, bound, generator=generator)}
+        layers[grp] = group
+    out["layers"] = layers
+    return out
+
+
 # ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
@@ -150,10 +176,15 @@ def _cache_parts(cache, val):
 # Decoder
 # ---------------------------------------------------------------------------
 
-def _layer_slice(tree, li: int):
+def _unbind_layers(tree, n: int):
+    """The stacked layer tree as ``n`` per-layer trees of views, split once
+    with ``unbind``: its backward stacks the per-layer gradients into one
+    buffer, where indexing each layer would allocate a zero tensor the size
+    of the whole stacked leaf per layer."""
     if isinstance(tree, dict):
-        return {k: _layer_slice(v, li) for k, v in tree.items()}
-    return tree[li]
+        parts = {k: _unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: part[i] for k, part in parts.items()} for i in range(n)]
+    return tree.unbind(0)
 
 
 def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
@@ -213,8 +244,10 @@ def forward_hidden(params: Params, cfg: ModelConfig, inputs_embeds, *,
     inputs_embeds: [B, L, H]; route: [B, L, A] adapter weights or None;
     positions: [B, L] absolute positions (default arange).  A decode step
     passes ``cache``, ``cache_write_pos`` and ``kv_lens``; a prefill that
-    fills the cache passes only ``cache``.  Returns (final hidden
-    [B, L, H], the cache, updated in place, or None)."""
+    fills the cache passes only ``cache``.  With ``cfg.remat`` and no cache
+    (training) each layer is checkpointed: its activations are recomputed
+    in the backward instead of kept.  Returns (final hidden [B, L, H], the
+    cache, updated in place, or None)."""
     B, L, _ = inputs_embeds.shape
     device = inputs_embeds.device
     if cache is not None and cache_write_pos is not None and kv_lens is None:
@@ -228,11 +261,17 @@ def forward_hidden(params: Params, cfg: ModelConfig, inputs_embeds, *,
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
     x = inputs_embeds
-    for li in range(cfg.num_hidden_layers):
-        x = _layer(cfg, _layer_slice(params["layers"], li), x, route, cos,
-                   sin, segment_ids=segment_ids, cache=cache, layer_idx=li,
-                   cache_write_pos=cache_write_pos, kv_lens=kv_lens,
-                   attn_impl=attn_impl)
+    layers = _unbind_layers(params["layers"], cfg.num_hidden_layers)
+    for li, lp in enumerate(layers):
+        def run(x, lp=lp, li=li):
+            return _layer(cfg, lp, x, route, cos, sin,
+                          segment_ids=segment_ids, cache=cache, layer_idx=li,
+                          cache_write_pos=cache_write_pos, kv_lens=kv_lens,
+                          attn_impl=attn_impl)
+        if cfg.remat and cache is None:
+            x = checkpoint(run, x, use_reentrant=False)
+        else:
+            x = run(x)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps), cache
 
 

@@ -45,6 +45,10 @@ _INDEX_TO_MODAL = {v: k for k, v in MODAL_TOKEN_INDEXES.items()}
 DEFAULT_BUCKETS = (512, 1024, 2048, 2304, 2560, 2816, 3072, 3328, 3584,
                    3840, 4096, 5120, 6144, 7168, 8192)
 
+# Training keeps the coarse power-of-two set (train/train_multimodal
+# .make_batch), as the JAX package does.
+TRAIN_BUCKETS = (512, 1024, 2048, 4096, 8192)
+
 
 def pick_bucket(length: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
     for b in buckets:

@@ -7,7 +7,12 @@ tensor work is in plain functions.  Pipeline per batch:
 1. ``encode_modal_inputs``: each modality's frozen tower and its
    projector, with the prefix/suffix soft tokens attached;
 2. ``core.packing.plan_pack``: the host-side static-shape splice plan;
-3. ``assemble_embeds`` and the routed prefill + greedy decode.
+3. ``assemble_embeds`` and the routed prefill + greedy decode, or the
+   forward and ``causal_lm_loss`` for training.
+
+Only the towers run without gradient: the projector and the soft tokens
+train, as in the JAX package (which stops the gradient at the tower
+output).
 """
 
 from __future__ import annotations
@@ -18,9 +23,10 @@ import numpy as np
 import torch
 
 from modelcompose_tpu.config import ModelConfig
+from modelcompose_tpu.constants import IGNORE_INDEX
 
 from ..core import generate as generation
-from ..core.llama import init_params, torch_dtype
+from ..core.llama import forward, init_params, torch_dtype
 from ..core.packing import PackPlan, assemble_embeds, plan_pack
 from ..ops.routed_lora import (active_adapter_set, as_table,
                                compact_active_adapters)
@@ -81,24 +87,17 @@ class MultimodalLM:
     def encode_modal_inputs(self, modal_inputs: Dict[str, Any]
                             ) -> Dict[str, torch.Tensor]:
         """{modal: normalized raw inputs} -> {modal: [n, span, H]}
-        projected features with the prefix/suffix soft tokens attached."""
+        projected features with the prefix/suffix soft tokens attached.
+        The frozen tower runs without gradient; the projector and the soft
+        tokens are differentiable."""
         feats: Dict[str, torch.Tensor] = {}
-        embed_dtype = self.params["embed_tokens"].dtype
-        with torch.no_grad():
-            for modal, raw in modal_inputs.items():
+        for modal, raw in modal_inputs.items():
+            with torch.no_grad():
                 x = self.encoders[modal].encode(raw)
-                x = apply_projector(self.cfg.projector_type(modal),
-                                    self.projectors[modal], x)
-                b = x.shape[0]
-                parts = []
-                prefix = (self.params.get("prefix_tokens") or {}).get(modal)
-                suffix = (self.params.get("suffix_tokens") or {}).get(modal)
-                if prefix is not None:
-                    parts.append(prefix[None].expand(b, *prefix.shape))
-                parts.append(x.to(embed_dtype))
-                if suffix is not None:
-                    parts.append(suffix[None].expand(b, *suffix.shape))
-                feats[modal] = torch.cat(parts, dim=1)
+            feats[modal] = attach_soft_tokens(
+                self.params, modal,
+                apply_projector(self.cfg.projector_type(modal),
+                                self.projectors[modal], x))
         return feats
 
     def prepare_batch(self, input_ids: Sequence[np.ndarray],
@@ -129,19 +128,38 @@ class MultimodalLM:
             raise NotImplementedError(
                 "beam search is not ported yet: ROADMAP Queue 1, "
                 "sampling + beam")
-        embeds, plan = self.prepare_batch(input_ids, modal_inputs,
-                                          bucket_len=bucket_len)
-        route_ids = plan.route_ids if self.cfg.routing_active() else None
-        params, table = self.params, self.routing_table
-        if compact_adapters and route_ids is not None:
-            params, table = self._compacted(np.unique(route_ids))
         with torch.no_grad():
+            embeds, plan = self.prepare_batch(input_ids, modal_inputs,
+                                              bucket_len=bucket_len)
+            route_ids = plan.route_ids if self.cfg.routing_active() else None
+            params, table = self.params, self.routing_table
+            if compact_adapters and route_ids is not None:
+                params, table = self._compacted(np.unique(route_ids))
             return generation.generate(
                 params, self.cfg, embeds, lengths=plan.lengths,
                 route_ids=route_ids, routing_table=table,
                 segment_ids=plan.segment_ids, max_new_tokens=max_new_tokens,
                 temperature=temperature, attn_impl=attn_impl,
                 fold_decode=fold_decode, kv_quant=kv_quant, timings=timings)
+
+    def loss(self, input_ids: Sequence[np.ndarray],
+             labels: Sequence[np.ndarray], modal_inputs: Dict[str, Any],
+             bucket_len: Optional[int] = None,
+             attn_impl: str = "auto") -> torch.Tensor:
+        """Mean shifted CE over the labelled positions of a packed batch,
+        differentiable in the backbone, projector and soft tokens."""
+        embeds, plan = self.prepare_batch(input_ids, modal_inputs,
+                                          labels=labels,
+                                          bucket_len=bucket_len)
+        route_ids = plan.route_ids if self.cfg.routing_active() else None
+        logits, _ = forward(
+            self.params, self.cfg, embeds, route_ids=route_ids,
+            routing_table=self.routing_table,
+            segment_ids=torch.as_tensor(plan.segment_ids,
+                                        device=embeds.device),
+            attn_impl=attn_impl)
+        return causal_lm_loss(logits, torch.as_tensor(plan.labels,
+                                                      device=embeds.device))
 
     def _compacted(self, route_classes):
         """Adapter stacks gathered to the columns the batch's route classes
@@ -152,3 +170,31 @@ class MultimodalLM:
             self._compact_cache[active] = compact_active_adapters(
                 self.params, self.routing_table, active)
         return self._compact_cache[active]
+
+
+def attach_soft_tokens(params: Dict[str, Any], modal: str,
+                       x: torch.Tensor) -> torch.Tensor:
+    """[n, T, H] projected features -> [n, prefix + T + suffix, H] in the
+    embedding dtype, with the modality's learned soft tokens."""
+    b = x.shape[0]
+    parts = []
+    prefix = (params.get("prefix_tokens") or {}).get(modal)
+    suffix = (params.get("suffix_tokens") or {}).get(modal)
+    if prefix is not None:
+        parts.append(prefix[None].expand(b, *prefix.shape))
+    parts.append(x.to(params["embed_tokens"].dtype))
+    if suffix is not None:
+        parts.append(suffix[None].expand(b, *suffix.shape))
+    return torch.cat(parts, dim=1)
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Shifted CE with IGNORE_INDEX masking, the mean over valid targets
+    (the JAX package's ``causal_lm_loss``)."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:].long()
+    valid = shift_labels != IGNORE_INDEX
+    safe = torch.where(valid, shift_labels, 0)
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return (nll * valid).sum() / valid.sum().clamp_min(1)

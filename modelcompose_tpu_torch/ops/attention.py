@@ -4,11 +4,13 @@
 Ragged batches are segment ids (0 = padding, real tokens >= 1); attention
 is allowed only within matching segments, optionally causal.
 
-``attention()`` and ``decode_attention()`` dispatch on the tensor: a CUDA
-tensor goes to the hand-written kernel (K1, ops/flash_attention.py; K2,
-ops/flash_decode.py), a CPU tensor to the plain version.  ``impl="reference"``
-asks for the plain version on any device, to check the kernel path
-against it.
+``attention()`` goes through the flash-attention autograd Function (K1
+forward, K3/K4 backward; ops/flash_attention.py) and ``decode_attention()``
+through K2 (ops/flash_decode.py): each launches its kernel on a CUDA
+tensor and runs the kernel's plain version on a CPU tensor, as the JAX
+package runs its Pallas kernels in interpret mode off the TPU.
+``impl="reference"`` asks for the plain attention on any device,
+differentiated by torch autograd, to check the kernel path against it.
 """
 
 from __future__ import annotations
@@ -55,15 +57,15 @@ def attention_reference(q, k, v, *, causal: bool = True,
 def attention(q, k, v, *, causal: bool = True, q_segment_ids=None,
               kv_segment_ids=None, q_offset: int = 0,
               sm_scale: Optional[float] = None, impl: str = "auto"):
-    """impl: 'auto' (kernel K1 on a CUDA tensor, plain on a CPU tensor) or
-    'reference' (plain everywhere)."""
-    if impl == "auto" and q.is_cuda:
+    """impl: 'auto' (the flash path: the kernels on a CUDA tensor, their
+    plain versions on a CPU tensor) or 'reference' (plain attention)."""
+    if impl == "auto":
         from .flash_attention import flash_attention
         return flash_attention(
             q, k, v, causal=causal, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, q_offset=q_offset,
             sm_scale=sm_scale)
-    if impl not in ("auto", "reference"):
+    if impl != "reference":
         raise ValueError(f"unknown attention impl {impl!r}")
     return attention_reference(
         q, k, v, causal=causal, q_segment_ids=q_segment_ids,

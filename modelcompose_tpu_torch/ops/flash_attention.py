@@ -1,15 +1,22 @@
-"""Flash-attention forward: the wrapper of kernel K1 and its plain version.
+"""Flash attention: the wrappers of kernels K1 (forward), K3 (dQ) and K4
+(dK, dV), their plain versions, and the autograd Function joining them.
 
 K1 (``csrc/flash_attention_fwd.cu``) replaces the Pallas TPU kernel
-``modelcompose_tpu/ops/flash_attention.py::_fa_kernel``.  Ragged batches are
-segment ids (0 = padding): attention runs only within equal nonzero
-segments, optionally causal with the query offset ``q_offset``.  The TPU's
-128-lane padding and lifted ``[B, 8, L]`` segment ids are not carried over:
-the kernel reads ``[B, L]`` segment ids and masks ragged edges itself.
+``modelcompose_tpu/ops/flash_attention.py::_fa_kernel``; K3 and K4
+(``csrc/flash_attention_bwd.cu``) replace ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel``.  Ragged batches are segment ids (0 = padding):
+attention runs only within equal nonzero segments, optionally causal with
+the query offset ``q_offset``.  The TPU's 128-lane padding and lifted
+``[B, 8, L]`` segment ids are not carried over: the kernels read ``[B, L]``
+segment ids and mask ragged edges themselves.  The LSE crosses from the
+forward to the backward at the true Lq.
 
-Numerics (flash-attn-2, as the JAX kernel): bf16 operands, fp32
-accumulation and softmax, P cast to bf16 before the P.V product.  Fully
-masked (padding) rows come out as a mean of V; callers ignore them.
+Numerics (flash-attn-2, as the JAX kernels): bf16 operands, fp32
+accumulation and softmax, P cast to bf16 before the P.V and P^T.dO
+products, dS cast to bf16 before dS.K and dS^T.Q.  Fully masked (padding)
+rows come out of the forward as a mean of V (callers ignore them) and get
+zero gradients: the backward masks P by a select, since exp(S - LSE) of a
+padding row is not 0.
 """
 
 from __future__ import annotations
@@ -46,11 +53,8 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
         k = k.repeat_interleave(H // Hkv, dim=2)
         v = v.repeat_interleave(H // Hkv, dim=2)
     s = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) * sm_scale
-    mask = (q_seg[:, :, None] == kv_seg[:, None, :]) & (kv_seg[:, None, :] != 0)
-    if causal:
-        q_pos = q_offset + torch.arange(Lq, device=q.device)
-        mask = mask & (q_pos[:, None] >= torch.arange(S, device=q.device))
-    s = torch.where(mask[:, None], s, NEG_INF)
+    s = torch.where(_mask(q_seg, kv_seg, causal, q_offset, Lq, S, q.device),
+                    s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
@@ -119,11 +123,207 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
 flash_attention_forward.launches = 0
 
 
+def _mask(q_seg, kv_seg, causal, q_offset, Lq, S, device):
+    """[B, 1, Lq, S] validity: segment match, kv segment != 0, causal."""
+    mask = (q_seg[:, :, None] == kv_seg[:, None, :]) & (kv_seg[:, None, :] != 0)
+    if causal:
+        q_pos = q_offset + torch.arange(Lq, device=device)
+        mask = mask & (q_pos[:, None] >= torch.arange(S, device=device))
+    return mask[:, None]
+
+
+def _bwd_scores(q, k, v, do, lse, di, causal, q_segment_ids, kv_segment_ids,
+                q_offset, sm_scale):
+    """P and dS [B, H, Lq, S] fp32 of the JAX backward kernels, with k/v
+    repeated to the q heads."""
+    B, Lq, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    q_seg = _segments(q_segment_ids, B, Lq, q.device)
+    kv_seg = _segments(kv_segment_ids, B, S, q.device)
+    if Hkv != H:
+        k = k.repeat_interleave(H // Hkv, dim=2)
+        v = v.repeat_interleave(H // Hkv, dim=2)
+    s = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) * sm_scale
+    mask = _mask(q_seg, kv_seg, causal, q_offset, Lq, S, q.device)
+    # A select, not an underflow: a padding row's LSE is about -1e30.
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("blhd,bshd->bhls", do.float(), v.float())
+    ds = p * (dp - di[..., None]) * sm_scale
+    return p, ds, k
+
+
+def _scale(sm_scale, D):
+    return D ** -0.5 if sm_scale is None else sm_scale
+
+
+def flash_attention_bwd_dq_reference(q, k, v, do, lse, di, *,
+                                     causal: bool = True, q_segment_ids=None,
+                                     kv_segment_ids=None, q_offset: int = 0,
+                                     sm_scale: Optional[float] = None):
+    """Plain PyTorch version of K3: dQ [B, Lq, H, D] in q.dtype."""
+    _, ds, k_rep = _bwd_scores(q, k, v, do, lse, di, causal, q_segment_ids,
+                               kv_segment_ids, q_offset,
+                               _scale(sm_scale, q.shape[-1]))
+    dq = torch.einsum("bhls,bshd->blhd", ds.to(k.dtype).float(),
+                      k_rep.float())
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, *,
+                                      causal: bool = True, q_segment_ids=None,
+                                      kv_segment_ids=None, q_offset: int = 0,
+                                      sm_scale: Optional[float] = None):
+    """Plain PyTorch version of K4: (dK, dV) [B, S, Hkv, D], each summed
+    over its GQA group in fp32."""
+    p, ds, _ = _bwd_scores(q, k, v, do, lse, di, causal, q_segment_ids,
+                           kv_segment_ids, q_offset,
+                           _scale(sm_scale, q.shape[-1]))
+    B, S, Hkv, D = k.shape
+    group = q.shape[2] // Hkv
+    dv = torch.einsum("bhls,blhd->bshd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhls,blhd->bshd", ds.to(q.dtype).float(), q.float())
+    dk = dk.reshape(B, S, Hkv, group, D).sum(3)
+    dv = dv.reshape(B, S, Hkv, group, D).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _di(o, do):
+    """Di = rowsum(O * dO) in fp32 from the saved (bf16) output, as the JAX
+    wrapper computes it outside the kernels: [B, H, Lq]."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, *,
+                                       causal: bool = True,
+                                       q_segment_ids=None,
+                                       kv_segment_ids=None,
+                                       q_offset: int = 0,
+                                       sm_scale: Optional[float] = None):
+    """The written-out formula of the JAX ``_flash_attention_backward``
+    (not autograd of the forward).  q, o, do: [B, Lq, H, D]; k, v:
+    [B, S, Hkv, D]; lse: [B, H, Lq].  Returns (dq, dk, dv)."""
+    kw = dict(causal=causal, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids, q_offset=q_offset,
+              sm_scale=sm_scale)
+    di = _di(o, do)
+    dq = flash_attention_bwd_dq_reference(q, k, v, do, lse, di, **kw)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, **kw)
+    return dq, dk, dv
+
+
+def _bwd_launch_args(q, k, v, do, lse, di, causal, q_segment_ids,
+                     kv_segment_ids, q_offset, sm_scale):
+    B, Lq, H, D = q.shape
+    S = k.shape[1]
+    q_seg = _segments(q_segment_ids, B, Lq, q.device).contiguous()
+    kv_seg = _segments(kv_segment_ids, B, S, q.device).contiguous()
+    _check_cuda_inputs(q, k, v, q_seg, kv_seg)
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
+        raise ValueError(f"dout {tuple(do.shape)} {do.dtype} must be a "
+                         f"contiguous {q.dtype} like q {tuple(q.shape)}")
+    for name, t in (("lse", lse), ("di", di)):
+        if t.shape != (B, H, Lq) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous fp32 [B, H, Lq] "
+                             f"on {q.device}")
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), q_seg.data_ptr(),
+            kv_seg.data_ptr()), (q_seg, kv_seg), (
+        B, H, k.shape[2], Lq, S, D, float(_scale(sm_scale, D)),
+        int(bool(causal)), int(q_offset),
+        torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool = True,
+                           q_segment_ids=None, kv_segment_ids=None,
+                           q_offset: int = 0,
+                           sm_scale: Optional[float] = None):
+    """Kernel K3 on a CUDA tensor, its plain version on a CPU tensor."""
+    kw = dict(causal=causal, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids, q_offset=q_offset,
+              sm_scale=sm_scale)
+    if not q.is_cuda:
+        return flash_attention_bwd_dq_reference(q, k, v, do, lse, di, **kw)
+    ptrs, _keep, sizes = _bwd_launch_args(q, k, v, do, lse, di, **kw)
+    lib = _build.load("flash_attention_bwd")
+    dq = torch.empty_like(q)
+    err = lib.mc_flash_attention_bwd_dq(*ptrs, dq.data_ptr(), *sizes)
+    _build.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool = True,
+                            q_segment_ids=None, kv_segment_ids=None,
+                            q_offset: int = 0,
+                            sm_scale: Optional[float] = None):
+    """Kernel K4 on a CUDA tensor, its plain version on a CPU tensor."""
+    kw = dict(causal=causal, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids, q_offset=q_offset,
+              sm_scale=sm_scale)
+    if not q.is_cuda:
+        return flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, **kw)
+    ptrs, _keep, sizes = _bwd_launch_args(q, k, v, do, lse, di, **kw)
+    lib = _build.load("flash_attention_bwd")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = lib.mc_flash_attention_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
+                                         *sizes)
+    _build.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
+                             q_segment_ids=None, kv_segment_ids=None,
+                             q_offset: int = 0,
+                             sm_scale: Optional[float] = None):
+    """(dq, dk, dv): Di in plain torch, then K3 and K4 (their plain versions
+    on CPU tensors)."""
+    kw = dict(causal=causal, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids, q_offset=q_offset,
+              sm_scale=sm_scale)
+    do = do.contiguous()
+    di = _di(o, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward; K3 and K4 backward (the JAX ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, q_offset, sm_scale):
+        out, lse = flash_attention_forward(
+            q, k, v, causal=causal, q_segment_ids=q_seg,
+            kv_segment_ids=kv_seg, q_offset=q_offset, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse, q_seg, kv_seg)
+        ctx.args = (causal, q_offset, sm_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, q_seg, kv_seg = ctx.saved_tensors
+        causal, q_offset, sm_scale = ctx.args
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, do, causal=causal, q_segment_ids=q_seg,
+            kv_segment_ids=kv_seg, q_offset=q_offset, sm_scale=sm_scale)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, q_segment_ids=None,
                     kv_segment_ids=None, q_offset: int = 0,
                     sm_scale: Optional[float] = None):
-    """Public entry, as in the JAX package: the output only."""
-    return flash_attention_forward(
-        q, k, v, causal=causal, q_segment_ids=q_segment_ids,
-        kv_segment_ids=kv_segment_ids, q_offset=q_offset,
-        sm_scale=sm_scale)[0]
+    """Public entry, as in the JAX package: the output only, differentiable
+    through K3 and K4."""
+    B, Lq, _, D = q.shape
+    q_seg = _segments(q_segment_ids, B, Lq, q.device)
+    kv_seg = _segments(kv_segment_ids, B, k.shape[1], q.device)
+    return _FlashAttention.apply(q, k, v, q_seg, kv_seg, bool(causal),
+                                 int(q_offset), float(_scale(sm_scale, D)))

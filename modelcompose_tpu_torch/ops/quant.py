@@ -15,20 +15,66 @@ from typing import Any, Dict
 import torch
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """2-D ``a @ b`` accumulated and returned in fp32: the fp32-output GEMM
+    for half-precision operands on the card, upcast operands elsewhere
+    (products of bf16 values are exact in fp32, so only the summation order
+    differs)."""
+    if a.is_cuda and a.dtype == b.dtype and a.dtype in _HALF:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``x [M, i] @ w [i, o]`` -> fp32, differentiable.
+
+    ``torch.mm(..., out_dtype=...)`` has no derivative, so the backward is
+    written out: dX = g W^T and dW = X^T g, each accumulated in fp32 and
+    cast to its input's dtype.  The fp32 cotangent is rounded to the
+    operands' half type first, on every device, so both products are the
+    same fp32-output GEMM as the forward.  This is the arithmetic of the
+    JAX package on a TPU: JAX transposes ``dot_general(x, w,
+    preferred_element_type=f32)`` into an fp32 x fp32 ``dot_general`` at
+    precision DEFAULT (the bf16 operand upcast) and a convert to the
+    operand's dtype, and XLA runs a DEFAULT-precision fp32 dot on a TPU as
+    one bf16 pass.  (XLA on a CPU keeps fp32 there: the JAX CPU gradient
+    differs from this one by g's bf16 rounding.)  dW is computed, and X
+    kept, only when W needs a gradient: a frozen base weight costs no dW
+    GEMM."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None,
+                              w if ctx.needs_input_grad[0] else None)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(g.to(w.dtype), w.t()).to(w.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(x.t(), g.to(x.dtype)).to(x.dtype)
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [..., i] @ w [i, o]`` with fp32 accumulation and an fp32 result
     (the JAX package's ``preferred_element_type=float32``).
 
     A bf16 product rounded to bf16 before a later add or cast would lose
-    mantissa the JAX path keeps, so half-precision operands on the card use
-    the fp32-output GEMM; elsewhere the operands are upcast (products of
-    bf16 values are exact in fp32, so only the summation order differs).
+    mantissa the JAX path keeps, so operands of one half type go through
+    ``_MatmulF32`` (the fp32-output GEMM on the card, with its own
+    backward); fp32 or mixed operands are plain (upcast) products.
     """
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
-    if x.is_cuda and x.dtype == w.dtype and x.dtype in (torch.bfloat16,
-                                                         torch.float16):
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    if x.dtype == w.dtype and x.dtype in _HALF:
+        y = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
 
@@ -47,7 +93,8 @@ def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
                    out_dtype=None) -> torch.Tensor:
     """y = x @ dequant(wq), fp32-accumulated; the per-column scale is an
     epilogue multiply.  ``out_dtype`` keeps the fp32 result when the
-    consumer wants it (logits, the adapter add)."""
+    consumer wants it (logits, the adapter add).  Differentiable through x
+    only: an int8 weight is frozen."""
     y = matmul_f32(x, wq["q"].to(x.dtype)) * wq["scale"][..., 0, :]
     return y.to(out_dtype or x.dtype)
 

@@ -137,8 +137,9 @@ def test_flash_bf16_operand_path():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_dispatch_matches_reference(dtype):
-    """attention() on CPU tensors is the plain reference, segment ids and
-    all, as the JAX package's XLA path."""
+    """attention() on CPU tensors (the flash path's plain versions),
+    segment ids and all, against the JAX package's attention() (its XLA
+    path off the TPU)."""
     rng = np.random.default_rng(12)
     q, k, v = (rng.normal(size=(2, 40, 4, 16)) for _ in range(3))
     seg = (np.arange(40)[None] < np.array([[40], [23]])).astype(np.int32)

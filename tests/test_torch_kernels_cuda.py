@@ -7,7 +7,10 @@ conftest is left out):
 
 Tolerance: bf16 outputs within 2e-2 of max |plain| on valid rows (the
 kernel rounds P at a running max and sums in another order); the LSE
-within 1e-3 of max(|LSE|, 1) (fp32 statistics of identical operands).
+within 1e-3 of max(|LSE|, 1) (fp32 statistics of identical operands);
+dQ, dK and dV within 2e-2 of max |plain| on valid rows (P and dS are
+rounded to bf16 before the second products, the sums run in another
+order).
 """
 
 import pytest
@@ -16,9 +19,12 @@ import torch
 from modelcompose_tpu_torch.core.llama import quantize_kv
 from modelcompose_tpu_torch.ops import attention
 from modelcompose_tpu_torch.ops.flash_attention import (
-    flash_attention_forward, flash_attention_reference)
+    _di, flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_backward_reference, flash_attention_forward,
+    flash_attention_reference)
 from modelcompose_tpu_torch.ops.flash_decode import (
     flash_decode_attention, flash_decode_reference)
+from modelcompose_tpu_torch.ops.quant import matmul_f32
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -136,3 +142,106 @@ def test_wrappers_raise_instead_of_falling_back():
         flash_decode_attention(q[:, :1].contiguous(), cache, cache,
                                torch.tensor([4], dtype=torch.int32,
                                             device="cuda"), 1, sm_scale=0.125)
+
+
+def _bwd_inputs(gen, B, Lq, S, H, Hkv, D, q_offset, lengths):
+    """q/k/v, the kernel forward's out and LSE, and a cotangent zeroed on
+    padding rows."""
+    q = _rnd(gen, B, Lq, H, D)
+    k, v = _rnd(gen, B, S, Hkv, D), _rnd(gen, B, S, Hkv, D)
+    kv_seg = (torch.arange(S, device="cuda")[None]
+              < torch.tensor(lengths, device="cuda")[:, None]).int()
+    q_seg = kv_seg[:, q_offset:q_offset + Lq].contiguous()
+    kw = dict(causal=True, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+              q_offset=q_offset)
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    do = _rnd(gen, B, Lq, H, D) * (q_seg != 0)[..., None, None]
+    return (q, k, v, out, lse, do.contiguous()), kw
+
+
+@pytest.mark.parametrize("B,Lq,S,H,Hkv,D,q_offset,lengths", [
+    (2, 2048, 2048, 32, 32, 128, 0, (2048, 1391)),
+    (2, 150, 150, 32, 32, 128, 0, (150, 97)),
+    (2, 256, 1024, 32, 8, 128, 768, (1024, 900)),
+    (2, 150, 150, 8, 4, 64, 0, (150, 61)),
+    (3, 200, 200, 8, 2, 64, 0, (200, 1, 130)),
+])
+def test_k3_k4_match_plain(B, Lq, S, H, Hkv, D, q_offset, lengths):
+    gen = torch.Generator(device="cuda").manual_seed(Lq + S + D)
+    (q, k, v, out, lse, do), kw = _bwd_inputs(gen, B, Lq, S, H, Hkv, D,
+                                              q_offset, lengths)
+    di = _di(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+    ref = flash_attention_backward_reference(q, k, v, out, lse, do, **kw)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    q_valid, kv_valid = kw["q_segment_ids"] != 0, kw["kv_segment_ids"] != 0
+    for got, want, rows in ((dq, ref[0], q_valid), (dk, ref[1], kv_valid),
+                            (dv, ref[2], kv_valid)):
+        assert torch.isfinite(got).all()
+        assert _rel(got[rows], want[rows]) <= 2e-2
+    # padding rows get zero gradients on both sides
+    assert not dq[~q_valid].any()
+
+
+def test_matmul_f32_backward_on_card():
+    """The fp32-output GEMM has no derivative of its own: the written-out
+    backward gives dX and dW in the operands' dtype, dW only on request."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = _rnd(gen, 3, 40, 64).requires_grad_()
+    w = _rnd(gen, 64, 48).requires_grad_()
+    g = torch.randn(3, 40, 48, generator=gen, device="cuda")
+    y = matmul_f32(x, w)
+    assert y.dtype == torch.float32
+    y.backward(g)
+    want_dx = (g.bfloat16().float() @ w.float().t()).bfloat16()
+    want_dw = (x.float().reshape(-1, 64).t()
+               @ g.bfloat16().float().reshape(-1, 48)).bfloat16()
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+    assert _rel(x.grad, want_dx) <= 1e-2 and _rel(w.grad, want_dw) <= 1e-2
+    # the same arithmetic as on the CPU (which the JAX tests hold)
+    xc, wc = (t.detach().cpu().requires_grad_() for t in (x, w))
+    matmul_f32(xc, wc).backward(g.cpu())
+    assert _rel(x.grad.cpu(), xc.grad) <= 1e-2
+    assert _rel(w.grad.cpu(), wc.grad) <= 1e-2
+    frozen = w.detach()
+    x.grad = None
+    matmul_f32(x, frozen).backward(g)
+    assert x.grad is not None and frozen.grad is None
+
+
+def test_attention_on_card_is_differentiable_through_k3_k4():
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (_rnd(gen, 2, 96, 4, 64).requires_grad_() for _ in range(3))
+    n3, n4 = flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches
+    out = attention.attention(q, k, v)
+    assert out.requires_grad and out.grad_fn is not None
+    out.float().square().sum().backward()
+    assert flash_attention_bwd_dq.launches == n3 + 1
+    assert flash_attention_bwd_dkv.launches == n4 + 1
+    assert all(t.grad is not None and t.grad.dtype == torch.bfloat16
+               for t in (q, k, v))
+    # the same gradients through the plain path and torch autograd
+    q2, k2, v2 = (t.detach().requires_grad_() for t in (q, k, v))
+    attention.attention(q2, k2, v2, impl="reference").float().square() \
+        .sum().backward()
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        assert _rel(a.grad, b.grad) <= 3e-2
+    assert flash_attention_bwd_dq.launches == n3 + 1  # plain: no launch
+
+
+def test_backward_wrappers_raise_instead_of_falling_back():
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q = _rnd(gen, 1, 16, 2, 64)
+    lse = torch.zeros(1, 2, 16, device="cuda")
+    for bad in (q.float(), _rnd(gen, 1, 16, 2, 96)):
+        lse_b = torch.zeros(1, 2, 16, device="cuda")
+        err = TypeError if bad.dtype == torch.float32 else ValueError
+        with pytest.raises(err):
+            flash_attention_bwd_dq(bad, bad, bad, bad, lse_b, lse_b)
+        with pytest.raises(err):
+            flash_attention_bwd_dkv(bad, bad, bad, bad, lse_b, lse_b)
+    with pytest.raises(ValueError):  # an LSE laid out [B, Lq, H]
+        flash_attention_bwd_dq(q, q, q, q, lse.transpose(1, 2), lse)
+    with pytest.raises(TypeError):
+        flash_attention(q.float(), q.float(), q.float())

@@ -1,5 +1,6 @@
-"""The port never imports JAX: its package runs the tiny slice end to end in
-a process where ``import jax`` fails."""
+"""The port never imports JAX: its package runs the tiny slice end to end
+(greedy generation, then a train step) in a process where ``import jax``
+fails."""
 
 import os
 import pathlib
@@ -34,6 +35,25 @@ pixels = np.random.default_rng(0).normal(size=(2, 28, 28, 3)).astype(np.float32)
 out = model.generate([np.array([1, 5, img, 9]), np.array([1, img])],
                      {"vision": pixels}, max_new_tokens=4, kv_quant=True)
 assert len(out) == 2 and all(len(o) <= 4 for o in out), out
+
+# one stage-2 train step of a fresh model, through the flash path
+from modelcompose_tpu_torch.train.train_multimodal import make_batch
+from modelcompose_tpu_torch.train.trainer import (
+    TrainConfig, init_train_state, make_optimizer, make_train_step)
+cfg = tiny_test_config(mm_vision_encoder="test:32x2", mm_hidden_size=32,
+                       local_prefix_tokens=2, local_suffix_tokens=2,
+                       mm_projector_type="mlp2x_gelu", remat=True)
+model = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(1))
+batch, layout = make_batch(model, {
+    "input_ids": [np.array([1, img, 9, 10]), np.array([1, 5, img, 11])],
+    "labels": [np.array([-100, -100, 9, 10]), np.array([-100, -100, -100, 11])],
+    "modal_inputs": {"vision": pixels}}, buckets=(16,))
+tc = TrainConfig(warmup_ratio=0.0, max_grad_norm=1.0, weight_decay=0.1)
+tx, _ = make_optimizer(cfg, tc, {"backbone": model.params,
+                                 "projectors": model.projectors})
+state = init_train_state(cfg, tc, model.params, model.projectors, tx=tx)
+state, loss = make_train_step(cfg, tc, tx)(state, batch, layout)
+assert state.step == 1 and torch.isfinite(loss), loss
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
 assert all(sys.modules[m] is None for m in loaded), loaded
 print("SLICE_OK", out)
