@@ -9,8 +9,11 @@ nonzero:
 1. device: the card's name and power limit, TF32 off for the comparisons;
 2. build: every hand-written kernel compiled by nvcc from ``csrc/``, one
    nvcc per source, all started together;
-3. K1 (flash-attention forward) against its plain PyTorch version;
-4. K2 (split-KV flash-decode) against its plain PyTorch version;
+3. K1 (flash-attention forward) against its plain PyTorch version, at
+   the vision path's 1,024 bucket and the composed path's 3,328;
+4. K2 (split-KV flash-decode) against its plain PyTorch version, over the
+   vision path's int8 cache of 1,056 positions and the composed path's
+   3,360;
 5. the serving path at Vicuna-7B width: a vision DAMC composition (CLIP
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
@@ -18,10 +21,23 @@ nonzero:
    ``MultimodalLM.generate``; then prefill and teacher-forced decode on the
    plain path with the same weights and tokens, logits held to a bf16
    tolerance;
-6. K3 (flash-attention dQ) and K4 (dK, dV) against their plain versions,
+6. composed: the MCUB-4 composition (``configs.mcub4_damc_7b``: CLIP,
+   BEATs + Q-Former, LanguageBind video and PointBERT towers, 9 stacked
+   adapter rows, online-merge-reset 0.25 each) at Vicuna-7B width with
+   random weights, in the same production variant plus the adapter stacks
+   compacted to the batch's columns: one four-modality request of 3,287
+   positions (the 3,328 bucket) answered with 32 greedy tokens; the time
+   of each tower and projector, prefill, decode, peak memory, the kernel
+   path's logits against the plain path's, and torch.profiler over the
+   towers + prefill (``chiprun_out/composed_profile.txt``);
+7. loader: four unimodal r=128 DAMC checkpoints and a sharded
+   Vicuna-layout base at full width and 2 layers, written to disk, merged
+   and loaded onto the card by the port; every loaded leaf held to what
+   was written, then the int8 + folded load answers the MCUB-4 request;
+8. K3 (flash-attention dQ) and K4 (dK, dV) against their plain versions,
    on K1's output and LSE, which are held against theirs at each of these
    shapes too (the training path's among them);
-7. the training path at Vicuna-7B width: the vision DAMC stage-2 recipe
+9. the training path at Vicuna-7B width: the vision DAMC stage-2 recipe
    (bf16 base, modal+language LoRA r=128, 5+5 soft tokens, mlp2x_gelu
    projector, remat) built through the train entry, four
    ``make_train_step`` steps on two image+question+answer samples, one
@@ -66,6 +82,10 @@ LSE_TOL = 1e-3      # fp32 statistics from identical bf16 operands
 # attentions (attention_reference vs the kernels' plain versions) gave
 # logits 4.6% apart at every step, the kernel path 4.1-4.8% from either.
 LOGIT_TOL = 8e-2
+# The composed path at the 3,328 bucket: on an H100 the two plain PyTorch
+# attentions gave MCUB-4 logits 3.4% (prefill) and up to 4.0% (decode)
+# apart, inside the same bound.
+COMPOSED_LOGIT_TOL = LOGIT_TOL
 # Kernel path against plain path on the 7B train step: the same random
 # network amplifies bf16 rounding (logits 4.6% apart between two plain
 # attentions), so gradients are compared by direction and size.
@@ -75,6 +95,16 @@ GRAD_NORM_TOL = 0.05
 SEED = 0
 NEW_TOKENS = 32
 TRAIN_STEPS = 4
+# The MCUB-4 prompt: 586 + 42 + 2,066 + 523 feature positions and 70 text
+# tokens, packed in the 3,328 bucket; K1 at its prefill shape.
+MCUB4_POSITIONS = 3287
+MCUB4_K1 = dict(B=1, Lq=3328, S=3328, H=32, Hkv=32, D=128, q_offset=0,
+                lengths=[MCUB4_POSITIONS])
+# Adapter rows a 4-modal MCUB-4 prompt reaches after the fold: all but the
+# dead 'default' (the JAX package's active_adapter_set gives the same on
+# this table: tests/test_torch_compose.py).
+MCUB4_ACTIVE = 8
+LOADER_LAYERS = 2
 
 
 def log(phase: str, **fields) -> None:
@@ -185,13 +215,14 @@ def _check_k1(name, q, k, v, kw, out, lse):
 
 
 def phase_k1(device, gen):
-    """K1 at the slice's bucket (B=2, 32 heads, D=128, Lq=S=1024, one row
-    padded), at a ragged length, with GQA group 4 and a query offset, and
-    at D=64."""
+    """K1 at the vision path's bucket (B=2, 32 heads, D=128, Lq=S=1024, one
+    row padded), at the composed path's (B=1, Lq=S=3328, 3287 valid), at a
+    ragged length, with GQA group 4 and a query offset, and at D=64."""
     main = _k1_case(device, gen, B=2, Lq=1024, S=1024, H=32, Hkv=32, D=128,
                     q_offset=0, lengths=[1024, 637])
     errs = [main[0]]
-    for case in (dict(B=2, Lq=150, S=150, H=32, Hkv=32, D=128, q_offset=0,
+    for case in (MCUB4_K1,
+                 dict(B=2, Lq=150, S=150, H=32, Hkv=32, D=128, q_offset=0,
                       lengths=[150, 97]),
                  dict(B=2, Lq=256, S=1024, H=32, Hkv=8, D=128, q_offset=768,
                       lengths=[1024, 900]),
@@ -241,8 +272,10 @@ def _k2_case(device, gen, *, B, NL, S, H, Hkv, D, kv_len, quantized, layer):
 
 def phase_k2(device, gen):
     """K2 on bf16 and int8 caches with S not a multiple of 128, GQA group
-    4 and per-row kv_len; then at the main path's shape (32 layers, 32 kv
-    heads, the 1024 bucket plus 32 new tokens, int8)."""
+    4 and per-row kv_len; then at the vision path's shape (32 layers, 32 kv
+    heads, the 1024 bucket plus 32 new tokens, int8) and at the composed
+    path's (the 3328 bucket plus 32, 14 splits of 256, at the first and the
+    last decode step's kv_len)."""
     errs = []
     for quantized in (False, True):
         errs.append(_k2_case(device, gen, B=2, NL=4, S=1000, H=32, Hkv=8,
@@ -254,6 +287,10 @@ def phase_k2(device, gen):
                     Hkv=32, D=128, kv_len=[660, 630], quantized=True,
                     layer=31)
     errs.append(main[0])
+    for kv_len in ([MCUB4_POSITIONS], [MCUB4_POSITIONS + NEW_TOKENS - 1]):
+        errs.append(_k2_case(device, gen, B=1, NL=32, S=3328 + NEW_TOKENS,
+                             H=32, Hkv=32, D=128, kv_len=kv_len,
+                             quantized=True, layer=31)[0])
     return {"max_abs_err": max(errs), "ms": main[1], "plain_ms": main[2]}
 
 
@@ -298,42 +335,60 @@ def _teacher_forced(model, ids, inputs, tokens, attn_impl, kv_quant=True):
     return torch.stack(steps, dim=1)  # [B, steps, V]
 
 
-def build_main_model(device, gen):
-    """The vision DAMC composition at Vicuna-7B width, random weights,
-    in the production decode variant (int8 base, default mix folded)."""
+def _perturb(params, gen):
+    """Small nonzero LoRA B and soft tokens, so every adapter changes the
+    answer."""
+    for grp in ("attn", "mlp"):
+        for p in params["layers"][grp].values():
+            p["lora_b"].normal_(0.0, 0.01, generator=gen)
+    for key in ("prefix_tokens", "suffix_tokens"):
+        for t in params[key].values():
+            t.normal_(0.0, 0.02, generator=gen)
+
+
+def build_served_model(cfg, device, gen, phase):
+    """``cfg`` at its full width with random weights, in the production
+    decode variant, in the loader's order: int8 base, then the default
+    adapter mix folded into W (generate adds the int8 KV cache and the
+    compaction).  Device memory is logged after each step."""
     import torch
-    from modelcompose_tpu_torch import ModelConfig, MultimodalLM
+    from modelcompose_tpu_torch import MultimodalLM
     from modelcompose_tpu_torch.ops.quant import quantize_backbone
     from modelcompose_tpu_torch.ops.routed_lora import fold_dense
 
+    def gib():
+        return f"{torch.cuda.memory_allocated() / 2**30:.1f}"
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings():  # random tower weights are the point
+        warnings.simplefilter("ignore")
+        model = MultimodalLM.random_init(cfg, gen, device)
+    mem = {"bf16": gib()}
+    with torch.no_grad():
+        _perturb(model.params, gen)
+        model.params = quantize_backbone(model.params)
+        mem["int8"] = gib()
+        model.params, table = fold_dense(model.params, model.routing_table)
+        model.routing_table = table.cpu().numpy()
+        mem["folded"] = gib()
+    torch.cuda.synchronize()
+    assert model.decode_routing_table() is None  # decode skips adapters
+    log(phase, setup_s=f"{time.perf_counter() - t0:.1f}",
+        layers=cfg.num_hidden_layers, hidden=cfg.hidden_size,
+        adapters=cfg.adapter_names(), gpu_mem_gb=json.dumps(mem),
+        setup_peak_gb=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
+    return model
+
+
+def build_main_model(device, gen):
+    """The vision DAMC composition at Vicuna-7B width."""
+    from modelcompose_tpu_torch import ModelConfig
     cfg = ModelConfig(lora_strategy="modal+language", lora_r=128,
                       lora_alpha=256, local_prefix_tokens=5,
                       local_suffix_tokens=5,
                       mm_vision_encoder="clip-vit-large-patch14-336",
                       mm_hidden_size=1024, dtype="bfloat16")
-    t0 = time.perf_counter()
-    with warnings.catch_warnings():  # random tower weights are the point
-        warnings.simplefilter("ignore")
-        model = MultimodalLM.random_init(cfg, gen, device)
-    with torch.no_grad():
-        # Small nonzero LoRA B, so the vision adapter changes the answer.
-        for grp in ("attn", "mlp"):
-            for p in model.params["layers"][grp].values():
-                p["lora_b"].normal_(0.0, 0.01, generator=gen)
-        for key in ("prefix_tokens", "suffix_tokens"):
-            for t in model.params[key].values():
-                t.normal_(0.0, 0.02, generator=gen)
-        # The production decode variant: int8 base, default mix folded.
-        model.params = quantize_backbone(model.params)
-        model.params, table = fold_dense(model.params, model.routing_table)
-        model.routing_table = table.cpu().numpy()
-    torch.cuda.synchronize()
-    assert model.decode_routing_table() is None  # decode skips adapters
-    log("main", setup_s=f"{time.perf_counter() - t0:.1f}",
-        layers=cfg.num_hidden_layers, hidden=cfg.hidden_size,
-        adapters=cfg.adapter_names(),
-        gpu_mem_gb=f"{torch.cuda.memory_allocated() / 2**30:.1f}")
-    return cfg, model
+    return cfg, build_served_model(cfg, device, gen, "main")
 
 
 def phase_main_path(device, gen):
@@ -364,9 +419,18 @@ def phase_main_path(device, gen):
     if launches["flash_decode"] < n_layers * decode_steps:
         raise AssertionError(f"K2 launched {launches} < "
                              f"{n_layers * decode_steps} times")
+    _compare_logits("main", model, ids, inputs, answers, LOGIT_TOL)
+    return launches
+
+
+def _compare_logits(phase, model, ids, inputs, answers, tol):
+    """Teacher-forced logits of the kernel path against the plain path on
+    the tokens ``generate`` returned, held to ``tol`` of max |logit|."""
+    import torch
+    device = model.device
     # generate() keeps feeding EOS to a finished row: pad the answers the
     # same way, and hold argmax to the tokens only up to the EOS step.
-    eos = cfg.eos_token_id
+    eos = model.cfg.eos_token_id
     tokens = torch.tensor([a + [eos] * (NEW_TOKENS - len(a)) for a in answers],
                           device=device)
     live = torch.arange(NEW_TOKENS, device=device)[None] <= torch.tensor(
@@ -376,7 +440,7 @@ def phase_main_path(device, gen):
         plain = _teacher_forced(model, ids, inputs, tokens, "reference")
     if not (torch.isfinite(kernel).all() and torch.isfinite(plain).all()):
         raise AssertionError("non-finite logits")
-    if kernel.shape != (len(ids), NEW_TOKENS, cfg.vocab_size):
+    if kernel.shape != (len(ids), NEW_TOKENS, model.cfg.vocab_size):
         raise AssertionError(f"logits shape {tuple(kernel.shape)}")
     if not torch.equal(kernel.argmax(-1)[live], tokens[live]):
         raise AssertionError("teacher-forced kernel path disagrees with the "
@@ -384,13 +448,244 @@ def phase_main_path(device, gen):
     scale = plain.abs().amax(dim=-1)  # [B, steps]
     rel = ((kernel - plain).abs().amax(dim=-1) / scale)
     agree = (plain.argmax(-1) == tokens)[live].float().mean().item()
-    log("main", prefill_logit_rel_err=f"{rel[:, 0].max().item():.3g}",
+    log(phase, prefill_logit_rel_err=f"{rel[:, 0].max().item():.3g}",
         decode_logit_rel_err=f"{rel[:, 1:].max().item():.3g}",
-        logit_tol=LOGIT_TOL, greedy_id_agreement=f"{agree:.4f}")
-    if rel.max().item() > LOGIT_TOL:
+        logit_tol=tol, greedy_id_agreement=f"{agree:.4f}")
+    if rel.max().item() > tol:
         raise AssertionError(f"kernel path logits differ from the plain path "
                              f"by {rel.max().item():.3g} of max |logit|")
-    return launches
+    return rel.max().item()
+
+
+def _mcub4_request(cfg, device, gen):
+    """One MCUB-4-shaped request: a 336 px image, 1,024 fbank frames x 128
+    bins, 8 video frames of 224 px, 8,192 points (xyz, rgb) and 70 text
+    tokens; ids on the host, inputs on the card."""
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.core.packing import MODAL_TOKEN_INDEXES
+    rng = np.random.default_rng(SEED)
+
+    def text(n):
+        return rng.integers(3, cfg.vocab_size, n)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    marks = [MODAL_TOKEN_INDEXES[m] for m in ("vision", "video", "audio",
+                                              "point")]
+    ids = [np.concatenate([[1], text(35), marks, text(34)])]
+    points = torch.cat([rnd(1, 8192, 3), torch.rand(
+        (1, 8192, 3), generator=gen, device=device)], dim=-1)
+    return ids, {
+        "vision": rnd(1, 336, 336, 3),
+        "audio": {"audio_inputs": rnd(1, 1024, 128),
+                  "audio_padding_mask": torch.zeros(
+                      (1, 1024), dtype=torch.bool, device=device)},
+        "video": rnd(1, 8, 224, 224, 3),
+        "point": points}
+
+
+def _time_towers(phase, model, inputs):
+    """Wall time of each tower and its projector (synchronized; the
+    farthest-point sampling is a host loop of small launches)."""
+    import torch
+    from modelcompose_tpu_torch.models.projectors import apply_projector
+    times = {}
+    for modal, raw in inputs.items():
+        spec = model.cfg.projector_type(modal)
+        with torch.no_grad():
+            for _ in range(2):  # the first pass warms up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x = model.encode_tower(modal, raw)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                y = apply_projector(spec, model.projectors[modal], x)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+        if not (x.is_cuda and torch.isfinite(y).all()):
+            raise AssertionError(f"{modal}: tower output off the card or "
+                                 f"not finite")
+        times[modal] = {"tower_ms": round((t1 - t0) * 1e3, 3),
+                        "projector_ms": round((t2 - t1) * 1e3, 3),
+                        "tokens": int(x.shape[1]), "out": int(y.shape[1])}
+    log(phase, towers=json.dumps(times))
+    return times
+
+
+def phase_composed(device, gen):
+    """The MCUB-4 composition at Vicuna-7B width: one four-modality request
+    answered with 32 greedy tokens in the production decode variant, then
+    the kernel path's logits against the plain path's."""
+    import torch
+    from modelcompose_tpu_torch.configs import MCUB4_SPANS, mcub4_damc_7b
+    from modelcompose_tpu_torch.ops.flash_attention import (
+        flash_attention_forward)
+    from modelcompose_tpu_torch.ops.flash_decode import flash_decode_attention
+
+    from modelcompose_tpu_torch.tree import tree_leaves
+
+    cfg = mcub4_damc_7b()
+    model = build_served_model(cfg, device, gen, "composed")
+    if any(leaf.device.type != "cuda" for enc in model.encoders.values()
+           for _, leaf in tree_leaves(enc.params)):
+        raise AssertionError("a tower's weights are off the card")
+    ids, inputs = _mcub4_request(cfg, device, gen)
+    towers = _time_towers("composed", model, inputs)
+    spans = {m: model.feature_span_len(m) for m in cfg.modalities()}
+    if spans != MCUB4_SPANS:
+        raise AssertionError(f"spans {spans} != {MCUB4_SPANS}")
+    with torch.no_grad():
+        embeds, plan = model.prepare_batch(ids, inputs)
+    if (int(plan.lengths[0]), embeds.shape[1]) != (MCUB4_POSITIONS, 3328):
+        raise AssertionError(f"packed {plan.lengths} in {embeds.shape[1]}")
+    del embeds
+    kw = dict(kv_quant=True, compact_adapters=True)
+    model.generate(ids, inputs, max_new_tokens=2, **kw)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_forward.launches = 0
+    flash_decode_attention.launches = 0
+    timings = {}
+    answers = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
+                             timings=timings, **kw)
+    launches = {"flash_attention_fwd": flash_attention_forward.launches,
+                "flash_decode": flash_decode_attention.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    active = list(model._compact_cache)
+    decode_steps = NEW_TOKENS - 1
+    log("composed", prefill_s=f"{timings['prefill_s']:.4f}",
+        decode_s=f"{timings['decode_s']:.4f}",
+        decode_tok_per_s=f"{decode_steps / timings['decode_s']:.2f}",
+        peak_mem_gb=f"{peak:.2f}", active_adapters=active,
+        answer_len=len(answers[0]), launches=json.dumps(launches))
+    if len(active) != 1 or len(active[0]) != MCUB4_ACTIVE:
+        raise AssertionError(f"compacted to {active}, want {MCUB4_ACTIVE} "
+                             f"columns")
+    n_layers = cfg.num_hidden_layers
+    if launches["flash_attention_fwd"] < n_layers:
+        raise AssertionError(f"K1 launched {launches} < {n_layers} times")
+    if launches["flash_decode"] < n_layers * decode_steps:
+        raise AssertionError(f"K2 launched {launches} < "
+                             f"{n_layers * decode_steps} times")
+    rel = _compare_logits("composed", model, ids, inputs, answers,
+                          COMPOSED_LOGIT_TOL)
+    prof = _profile("composed_prefill", lambda: model.generate(
+        ids, inputs, max_new_tokens=1, **kw), "composed_profile.txt")
+    return {"launches": launches, "towers": towers,
+            "prefill_s": timings["prefill_s"],
+            "decode_tok_per_s": decode_steps / timings["decode_s"],
+            "peak_mem_gb": peak, "logit_rel_err": rel, "profile": prof}
+
+
+def phase_loader(device, gen):
+    """Composed-checkpoint formats at full width, 2 layers: a Vicuna-layout
+    sharded base and four unimodal DAMC adapter directories (r=128, a
+    projector each) written to disk, merged by the port's merge
+    (online-merge-reset, 0.25 each), loaded onto the card by the port's
+    loader; every loaded leaf held to what was written, then the int8 +
+    folded load answers the MCUB-4 request."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.compose.convert import (params_to_adapter,
+                                                        params_to_hf_llama)
+    from modelcompose_tpu_torch.compose.merge import merge_checkpoints
+    from modelcompose_tpu_torch.configs import (MCUB4_RESET, MCUB4_TOWERS,
+                                                damc_unimodal)
+    from modelcompose_tpu_torch.core.llama import init_params, torch_dtype
+    from modelcompose_tpu_torch.models.loader import load_pretrained_model
+    from modelcompose_tpu_torch.models.projectors import init_projector
+    from modelcompose_tpu_torch.tree import tree_leaves
+
+    def save_bin(state, path, dtype=torch.float32):
+        """A flat numpy state dict as a torch pickle (the reference's
+        ``.bin`` layout)."""
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v)).to(dtype)
+                    for k, v in state.items()}, path)
+
+    t0 = time.perf_counter()
+    written = {}  # the composed adapter the merge should produce
+    # the checkpoints live in a gitignored directory of the checkout
+    with tempfile.TemporaryDirectory(prefix="tmp_loader_", dir=".") as root, \
+            torch.no_grad():
+        paths = []
+        for modal in MCUB4_TOWERS:
+            cfg = damc_unimodal(modal, num_hidden_layers=LOADER_LAYERS)
+            params = init_params(cfg, gen, device)
+            _perturb(params, gen)
+            proj = init_projector(cfg.projector_type(modal), gen,
+                                  cfg.projector_input_size(modal),
+                                  cfg.hidden_size,
+                                  dtype=torch_dtype(cfg.dtype), device=device)
+            state = params_to_adapter(params, cfg, {modal: proj})
+            paths.append(os.path.join(root, f"ckpt-{modal}"))
+            os.makedirs(paths[-1])
+            cfg.save(os.path.join(paths[-1], "config.json"))
+            save_bin(state, os.path.join(paths[-1], "adapter_model.bin"))
+            written.update({k.replace(".default.", f".default-{modal}."): v
+                            for k, v in state.items()})
+            del params, proj, state
+        base_cfg = damc_unimodal("vision", num_hidden_layers=LOADER_LAYERS)
+        base = params_to_hf_llama(init_params(base_cfg, gen, device),
+                                  base_cfg)
+        base_dir = os.path.join(root, "vicuna-7b-v1.5")
+        os.makedirs(base_dir)
+        keys = sorted(base)
+        shards = {"pytorch_model-00001-of-00002.bin": keys[::2],
+                  "pytorch_model-00002-of-00002.bin": keys[1::2]}
+        for name, ks in shards.items():  # bf16 shards, as released
+            save_bin({k: base[k] for k in ks}, os.path.join(base_dir, name),
+                     torch.bfloat16)
+        with open(os.path.join(base_dir, "pytorch_model.bin.index.json"),
+                  "w") as f:
+            json.dump({"weight_map": {k: n for n, ks in shards.items()
+                                      for k in ks}}, f)
+        t_write = time.perf_counter() - t0
+        merged = os.path.join(root, "mcub4-damc-multimodal")
+        merge_checkpoints(paths, merged, "online-merge-reset-" + MCUB4_RESET)
+        t_merge = time.perf_counter() - t0 - t_write
+
+        def load(**kw):
+            with warnings.catch_warnings():  # random towers
+                warnings.simplefilter("ignore")
+                return load_pretrained_model(
+                    merged, base_dir, load_tokenizer_fn=lambda _: None,
+                    device=device, **kw)[1]
+        model = load(load_8bit=False, fold_decode_dense=False)
+        t_load = time.perf_counter() - t0 - t_write - t_merge
+        cfg = model.cfg
+        off = [p for p, t in tree_leaves(
+                   {"p": model.params, "j": model.projectors,
+                    "e": {m: e.params for m, e in model.encoders.items()}})
+               if t.device.type != "cuda"]
+        if off:
+            raise AssertionError(f"leaves off the card: {off[:3]}")
+        got = params_to_adapter(model.params, cfg, model.projectors)
+        got_base = params_to_hf_llama(model.params, cfg)
+        bad = [k for k in written if not np.array_equal(got[k], written[k])]
+        bad += [k for k in base if not np.array_equal(got_base[k], base[k])]
+        # the rest are the composition's 'default' rows, which no
+        # checkpoint wrote: zero
+        bad += [k for k in set(got) - set(written)
+                if ".default." not in k or got[k].any()]
+        log("loader", layers=cfg.num_hidden_layers, hidden=cfg.hidden_size,
+            adapters=cfg.adapter_names(), leaves_checked=len(got)
+            + len(base), mismatched=len(bad), write_s=f"{t_write:.1f}",
+            merge_s=f"{t_merge:.1f}", load_s=f"{t_load:.1f}")
+        if bad:
+            raise AssertionError(f"loaded leaves differ from the written "
+                                 f"ones: {bad[:3]}")
+        del model
+        model = load(load_8bit=True, fold_decode_dense=True)
+        ids, inputs = _mcub4_request(cfg, device, gen)
+        answers = model.generate(ids, inputs, max_new_tokens=8,
+                                 kv_quant=True, compact_adapters=True)
+    log("loader", int8_folded_answer=answers[0],
+        total_s=f"{time.perf_counter() - t0:.1f}")
+    if not answers[0] or len(answers[0]) > 8:
+        raise AssertionError(f"the loaded model answered {answers}")
+    return {"leaves_checked": len(written) + len(base)}
 
 
 def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths):
@@ -645,7 +940,8 @@ def phase_train(device):
             raise AssertionError(f"trainable {n} did not change")
     del before
 
-    _profile_step(step, state, batch, layout)
+    _profile("train_step", lambda: step(state, batch, layout),
+             "train_profile.txt")
 
     # The kernel path against the plain path on one micro-batch, same weights.
     reset()
@@ -684,30 +980,39 @@ def phase_train(device):
             "peak_mem_gb": peak / 2**30, "parity": parity}
 
 
-def _profile_step(step, state, batch, layout):
-    """torch.profiler over one train step: device time by kernel, the K1,
-    K3 and K4 shares, written to chiprun_out/train_profile.txt."""
+# Kernel-name fragments of each profile split: the hand-written kernels,
+# and the library GEMMs (cuBLAS nvjet / xmma, magma) and convolutions.
+PROFILE_SPLITS = {"K1": ("fa_fwd_kernel",), "K2": ("fd_split_kernel",
+                                                  "fd_combine_kernel"),
+                  "K3": ("fa_bwd_dq_kernel",), "K4": ("fa_bwd_dkv_kernel",),
+                  "gemm": ("gemm", "nvjet"), "conv": ("conv",)}
+
+
+def _profile(name, fn, out_file):
+    """torch.profiler over one call of ``fn``: device time by kernel and
+    the shares of PROFILE_SPLITS, the table written to chiprun_out/."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(state, batch, layout)
+        fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = prof.key_averages()
     dev = {e.key: e.device_time_total for e in events
            if e.device_time_total > 0 and e.device_type.name == "CUDA"}
     total = sum(dev.values())
-    share = {tag: sum(t for k, t in dev.items() if tag in k) / total
-             for tag in ("fa_fwd_kernel", "fa_bwd_dq_kernel",
-                         "fa_bwd_dkv_kernel")} if total else {}
+    share = {name: round(sum(t for k, t in dev.items()
+                             if any(f in k.lower() for f in frags)) / total, 4)
+             for name, frags in PROFILE_SPLITS.items()} if total else {}
     os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/train_profile.txt", "w") as f:
+    with open(os.path.join("chiprun_out", out_file), "w") as f:
         f.write(events.table(sort_by="cuda_time_total", row_limit=40))
-    log("profile", wall_s=f"{wall:.4f}", device_kernel_s=f"{total / 1e6:.4f}",
-        shares=json.dumps({k: round(v, 4) for k, v in share.items()}))
+    log("profile", run=name, wall_s=f"{wall:.4f}",
+        device_kernel_s=f"{total / 1e6:.4f}", shares=json.dumps(share))
+    return {"wall_s": wall, "device_kernel_s": total / 1e6, "shares": share}
 
 
 def main() -> int:
@@ -724,26 +1029,35 @@ def main() -> int:
     k2 = phase_k2(device, gen)
     launches = phase_main_path(device, gen)
     gc.collect()
-    torch.cuda.empty_cache()  # the serving model is gone before training
+    torch.cuda.empty_cache()  # each served model is gone before the next
+    composed = phase_composed(device, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_loader(device, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
     k34 = phase_k34(device, gen)
     train = phase_train(device)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    # Launches on the main paths: the serving run, plus every step of the
-    # training run (train steps and the accumulation window).
+    # Launches on the main paths: the two serving runs, plus every step of
+    # the training run (train steps and the accumulation window).
     trained = train["launches"] + [train["accum_launches"]]
 
     def train_launches(name):
         return sum(c[name] for c in trained)
+
+    def served(name):
+        return launches[name] + composed["launches"][name]
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=K1_SOURCE,
              replaces=K1_REPLACES,
-             launches=launches["flash_attention_fwd"]
+             launches=served("flash_attention_fwd")
              + train_launches("flash_attention_fwd"),
              **dict(k1, max_abs_err=max(k1["max_abs_err"],
                                         k34["fwd"]["max_abs_err"]))),
         dict(name="flash_decode", route="cuda", source=K2_SOURCE,
-             replaces=K2_REPLACES, launches=launches["flash_decode"], **k2),
+             replaces=K2_REPLACES, launches=served("flash_decode"), **k2),
         dict(name="flash_attention_bwd_dq", route="cuda", source=K34_SOURCE,
              replaces=K3_REPLACES,
              launches=train_launches("flash_attention_bwd_dq"), **k34["dq"]),

@@ -9,13 +9,14 @@ JAX arrays into numpy (``np.asarray``), so this module never needs JAX.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from .models.model import MultimodalLM
-from .models.towers import ClipVisionTower
+from .models.towers import tower_class
 from .tree import tree_map_with_path
 
 
@@ -60,14 +61,17 @@ def model_from_jax(jax_model, device=None) -> MultimodalLM:
     """The port's MultimodalLM on the weights of a JAX MultimodalLM.
 
     ``jax_model`` needs ``cfg``, ``params``, ``projectors`` and
-    ``encoders[modal].spec`` / ``.params``, all with numpy leaves."""
+    ``encoders[modal].spec`` / ``.params`` (and optionally ``.cfg``), all
+    with numpy leaves."""
     cfg = jax_model.cfg
     encoders: Dict[str, Any] = {}
     for modal, enc in jax_model.encoders.items():
-        if modal != "vision":
-            raise NotImplementedError(
-                f"the {modal} tower is not ported yet (ROADMAP Queue 1)")
-        encoders[modal] = ClipVisionTower(
+        tower = tower_class(modal, enc.spec)(
             enc.spec, cfg, params=params_from_jax(enc.params, device))
+        if getattr(enc, "cfg", None) is not None:
+            # the tower's own config (a loaded BEATs tower reads its
+            # checkpoint's), as the port's config class
+            tower.cfg = type(tower.cfg)(**dataclasses.asdict(enc.cfg))
+        encoders[modal] = tower
     return MultimodalLM(cfg, params_from_jax(jax_model.params, device),
                         encoders, params_from_jax(jax_model.projectors, device))

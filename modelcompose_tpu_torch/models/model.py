@@ -78,11 +78,41 @@ class MultimodalLM:
         table = np.asarray(self.routing_table)
         return as_table(table, self.device) if table[0].any() else None
 
+    def modal_processors(self) -> Dict[str, Any]:
+        return {m: enc.modal_processor for m, enc in self.encoders.items()}
+
     def feature_span_len(self, modal: str) -> int:
-        """Packed span of one instance: projector output + prefix/suffix."""
-        t = output_len(self.cfg.projector_type(modal),
-                       self.encoders[modal].feature_len)
-        return t + self.cfg.prefix_len(modal) + self.cfg.suffix_len(modal)
+        """Packed span of one instance: projector output (video frames
+        flattened) + prefix/suffix."""
+        enc = self.encoders[modal]
+        t = enc.feature_len
+        if modal == "video":
+            t = enc.num_frames * enc.tokens_per_frame
+        t_out = output_len(self.cfg.projector_type(modal), t)
+        return t_out + self.cfg.prefix_len(modal) + self.cfg.suffix_len(modal)
+
+    def encode_tower(self, modal: str, raw) -> torch.Tensor:
+        """One modality's frozen tower, without gradient: [n, T, d].
+
+        Audio takes the fbank alone, a ``(fbank, padding_mask)`` pair or an
+        ``{"audio_inputs", "audio_padding_mask"}`` dict; BEATs' frame mask
+        is discarded, as the reference discards it.  Video [n, t, N, d] is
+        flattened to [n, t*N, d]."""
+        enc = self.encoders[modal]
+        with torch.no_grad():
+            if modal == "audio":
+                if isinstance(raw, dict):
+                    out = enc.encode(**raw)
+                elif isinstance(raw, tuple):
+                    out = enc.encode(*raw)
+                else:
+                    out = enc.encode(raw)
+                return out[0] if isinstance(out, tuple) else out
+            x = enc.encode(raw)
+            if modal == "video":
+                b, t, n, d = x.shape
+                x = x.reshape(b, t * n, d)
+            return x
 
     def encode_modal_inputs(self, modal_inputs: Dict[str, Any]
                             ) -> Dict[str, torch.Tensor]:
@@ -92,8 +122,7 @@ class MultimodalLM:
         tokens are differentiable."""
         feats: Dict[str, torch.Tensor] = {}
         for modal, raw in modal_inputs.items():
-            with torch.no_grad():
-                x = self.encoders[modal].encode(raw)
+            x = self.encode_tower(modal, raw)
             feats[modal] = attach_soft_tokens(
                 self.params, modal,
                 apply_projector(self.cfg.projector_type(modal),

@@ -1,8 +1,11 @@
 """Modality encoder towers (counterpart of modelcompose_tpu/models/towers.py).
 
-Each tower owns a frozen param tree and an ``encode``.  This slice ports
-the CLIP image tower; the other towers and checkpoint loading are later
-ROADMAP items and raise ``NotImplementedError`` naming them.
+Each tower owns a frozen param tree and an ``encode``; a spec that names a
+local checkpoint (a directory for CLIP and LanguageBind, a ``.pt`` file for
+BEATs and PointBERT) loads it through the tower's converter, a ``test:``
+spec builds a tiny tower, and any other spec gets random weights.
+ImageBind audio and EVA vision are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -15,8 +18,12 @@ import torch
 
 from modelcompose_tpu.config import ModelConfig
 
+from .audio_beats import BeatsAudioTower
+from .point_bert import PointBertTower
+from .video_languagebind import LanguageBindVideoTower
 from .vision_clip import (ClipVisionConfig, clip_vision_features,
-                          init_clip_vision)
+                          convert_hf_clip_vision, init_clip_vision,
+                          load_hf_dir_state)
 
 
 class ClipVisionTower:
@@ -46,14 +53,18 @@ class ClipVisionTower:
         self.spec = spec
         if params is None:
             if os.path.isdir(spec):
-                raise NotImplementedError(
-                    "loading tower checkpoints is not ported yet: ROADMAP "
-                    "Queue 1, loader + QA-loader CLI")
-            if generator is None:
-                generator = torch.Generator(device=device or "cpu")
-                generator.manual_seed(0)
-            params = init_clip_vision(self.cfg, generator, dtype, device)
+                params = self.load_model(dtype, device)
+            else:
+                if generator is None:
+                    generator = torch.Generator(device=device or "cpu")
+                    generator.manual_seed(0)
+                params = init_clip_vision(self.cfg, generator, dtype, device)
         self.params = params
+
+    def load_model(self, dtype=torch.float32, device=None) -> Dict[str, Any]:
+        """HF CLIPVisionModel weights from the ``spec`` directory."""
+        return convert_hf_clip_vision(load_hf_dir_state(self.spec), self.cfg,
+                                      dtype, device)
 
     @property
     def hidden_size(self) -> int:
@@ -64,6 +75,11 @@ class ClipVisionTower:
         n = self.cfg.num_patches
         return n if self.cfg.select_feature == "patch" else n + 1
 
+    @property
+    def modal_processor(self):
+        from ..data.image_processing import ClipImageProcessor
+        return ClipImageProcessor(size=self.cfg.image_size)
+
     def encode(self, pixels) -> torch.Tensor:
         """pixels: [B, H, W, 3] normalized -> [B, T, hidden]."""
         device = self.params["class_embedding"].device
@@ -71,24 +87,42 @@ class ClipVisionTower:
         return clip_vision_features(self.params, self.cfg, pixels)
 
 
+def tower_class(modal: str, spec: str):
+    """The tower class for one modality's encoder spec (the reference's
+    dispatch rules)."""
+    if modal == "vision":
+        if "eva" in spec.lower():
+            raise NotImplementedError(
+                f"the EVA vision tower {spec!r} is not ported yet: ROADMAP "
+                "Queue 1 item 7 (EVA vision)")
+        return ClipVisionTower
+    if modal == "audio":
+        if "VideoLLaMA" in spec or "imagebind" in spec.lower():
+            raise NotImplementedError(
+                f"the ImageBind audio tower {spec!r} is not ported yet: "
+                "ROADMAP Queue 1 item 8 (ImageBind audio)")
+        return BeatsAudioTower
+    if modal == "video":
+        return LanguageBindVideoTower
+    if modal == "point":
+        return PointBertTower
+    raise ValueError(f"unknown modality {modal!r}")
+
+
 def build_modal_encoders(cfg: ModelConfig,
                          generator: Optional[torch.Generator] = None,
                          device=None, dtype=torch.float32) -> Dict[str, Any]:
-    """One tower per configured modality, randomly initialized."""
+    """One tower per configured modality, made on ``device``: loaded where
+    the spec names a local checkpoint, random from ``generator``
+    otherwise."""
     encoders: Dict[str, Any] = {}
     for modal in cfg.modalities():
         spec = cfg.encoder_spec(modal)
-        if modal != "vision" or "eva" in spec.lower():
-            item = {"audio": "BEATs / ImageBind audio",
-                    "video": "LanguageBind video", "point": "PointBERT",
-                    "vision": "EVA"}[modal]
-            raise NotImplementedError(
-                f"the {modal} tower {spec!r} is not ported yet: ROADMAP "
-                f"Queue 1, {item}")
-        if "test" not in spec and not os.path.isdir(spec):
+        cls = tower_class(modal, spec)
+        if "test" not in spec and not os.path.exists(spec):
             warnings.warn(
-                f"{modal} encoder spec {spec!r} is not a local directory: "
+                f"{modal} encoder spec {spec!r} is not a local checkpoint: "
                 "tower weights are RANDOM-initialized", stacklevel=2)
-        encoders[modal] = ClipVisionTower(spec, cfg, generator=generator,
-                                          dtype=dtype, device=device)
+        encoders[modal] = cls(spec, cfg, generator=generator, dtype=dtype,
+                              device=device)
     return encoders

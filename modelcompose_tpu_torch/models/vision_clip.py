@@ -12,12 +12,17 @@ tower's is an einsum softmax, not a Pallas kernel.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from modelcompose_tpu.compose.state_io import load_state
+
 from ..ops.quant import matmul_f32
+from ..tree import numpy_to_torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,3 +152,68 @@ def clip_vision_features(params: Dict[str, Any], cfg: ClipVisionConfig,
     if cfg.select_feature == "cls_patch":
         return x
     raise ValueError(f"Unexpected select feature: {cfg.select_feature}")
+
+
+# ---------------------------------------------------------------------------
+# HF weight conversion
+# ---------------------------------------------------------------------------
+
+def load_hf_dir_state(directory: str) -> Dict[str, np.ndarray]:
+    """The state dict of an HF model directory (``model.safetensors``,
+    else ``pytorch_model.bin``), as numpy."""
+    for name in ("model.safetensors", "pytorch_model.bin"):
+        path = os.path.join(directory, name)
+        if os.path.exists(path):
+            return load_state(path)
+    raise FileNotFoundError(f"no model weights under {directory}")
+
+
+def stacked_dense_from(g, fmt: str, n: int) -> Dict[str, np.ndarray]:
+    """Layers 0..n-1 of torch Linears ``fmt.format(i=i)`` ([out, in]
+    weights, read through ``g``) stacked as ``{"w": [n, in, out], "b"}``."""
+    return {"w": np.stack([g(fmt.format(i=i) + ".weight").T
+                           for i in range(n)]),
+            "b": np.stack([g(fmt.format(i=i) + ".bias") for i in range(n)])}
+
+
+def stacked_ln_from(g, fmt: str, n: int) -> Dict[str, np.ndarray]:
+    """Layers 0..n-1 of LayerNorms stacked as ``{"scale", "bias"}``."""
+    return {"scale": np.stack([g(fmt.format(i=i) + ".weight")
+                               for i in range(n)]),
+            "bias": np.stack([g(fmt.format(i=i) + ".bias")
+                              for i in range(n)])}
+
+
+def convert_hf_clip_vision(state: Dict[str, np.ndarray],
+                           cfg: ClipVisionConfig, dtype=torch.float32,
+                           device=None) -> Dict[str, Any]:
+    """An HF CLIPVisionModel state dict (numpy, keys rooted at
+    ``vision_model.``) -> the stacked tree, as tensors of ``dtype`` on
+    ``device``."""
+    def g(key):
+        return np.asarray(state[f"vision_model.{key}"], np.float32)
+
+    L = cfg.num_hidden_layers
+
+    def dense(fmt):
+        return stacked_dense_from(g, "encoder.layers.{i}." + fmt, L)
+
+    def ln(fmt):
+        return stacked_ln_from(g, "encoder.layers.{i}." + fmt, L)
+
+    params = {
+        "class_embedding": g("embeddings.class_embedding"),
+        # torch conv weight [out, in, kh, kw] -> HWIO
+        "patch_embedding": g("embeddings.patch_embedding.weight")
+            .transpose(2, 3, 1, 0),
+        "position_embedding": g("embeddings.position_embedding.weight"),
+        "pre_layernorm": {"scale": g("pre_layrnorm.weight"),
+                          "bias": g("pre_layrnorm.bias")},
+        "layers": {
+            "ln1": ln("layer_norm1"), "ln2": ln("layer_norm2"),
+            "q": dense("self_attn.q_proj"), "k": dense("self_attn.k_proj"),
+            "v": dense("self_attn.v_proj"), "o": dense("self_attn.out_proj"),
+            "fc1": dense("mlp.fc1"), "fc2": dense("mlp.fc2"),
+        },
+    }
+    return numpy_to_torch(params, dtype, device)

@@ -113,16 +113,24 @@ def compact_active_adapters(params, routing_table, active):
     active columns, so prefill contracts only the adapters the batch's
     route classes can reach.
 
+    A contiguous run of columns (an online-merge composition drops only
+    'default', column 0) is a view of the stacks, so compaction holds no
+    second adapter tree; any other set is gathered into new stacks.
+
     Returns (params', routing_table' [n_classes, len(active)])."""
     if not active:  # routing degenerate: keep one (zero-weighted) column
         active = (0,)
     device = params["embed_tokens"].device
     idx = torch.tensor(list(active), device=device)
+    lo, n = active[0], len(active)
+    contiguous = tuple(active) == tuple(range(lo, lo + n))
+
+    def take(t):
+        return t.narrow(1, lo, n) if contiguous else t.index_select(1, idx)
 
     def slice_linear(p):
-        return {"w": p["w"],
-                "lora_a": p["lora_a"].index_select(1, idx),
-                "lora_b": p["lora_b"].index_select(1, idx)}
+        return {"w": p["w"], "lora_a": take(p["lora_a"]),
+                "lora_b": take(p["lora_b"])}
 
     table = as_table(routing_table, device).index_select(1, idx)
     return _map_linears(params, slice_linear), table

@@ -209,8 +209,7 @@ def make_batch(model: MultimodalLM, collated: Dict[str, Any],
             tower_pixels[modal] = torch.as_tensor(raw, device=device)
             feats[modal] = None  # span accounting below; not pre-encoded
             continue
-        with torch.no_grad():
-            feats[modal] = model.encoders[modal].encode(raw)
+        feats[modal] = model.encode_tower(modal, raw)
     spans = {}
     for modal, f in feats.items():
         span = model.feature_span_len(modal)

@@ -33,3 +33,13 @@ def tree_map_with_path(fn: Callable[[Path, Any], Any], tree, path: Path = ()):
         return type(tree)(tree_map_with_path(fn, v, path + (i,))
                           for i, v in enumerate(tree))
     return fn(path, tree)
+
+
+def numpy_to_torch(tree, dtype, device=None):
+    """A tree of numpy arrays -> the same tree of ``dtype`` tensors on
+    ``device`` (the checkpoint converters' last step)."""
+    import numpy as np
+    import torch
+    return tree_map_with_path(
+        lambda _, a: torch.from_numpy(np.array(a)).to(device=device,
+                                                      dtype=dtype), tree)

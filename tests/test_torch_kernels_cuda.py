@@ -52,6 +52,7 @@ def _rel(got, want):
     (1, 1, 77, 8, 8, 64, 76, (77,)),
     (2, 256, 1024, 32, 8, 128, 768, (1024, 900)),
     (3, 200, 200, 8, 2, 64, 0, (200, 1, 130)),
+    (1, 3328, 3328, 32, 32, 128, 0, (3287,)),  # the MCUB-4 prefill
 ])
 def test_k1_matches_plain(B, Lq, S, H, Hkv, D, q_offset, lengths):
     gen = torch.Generator(device="cuda").manual_seed(Lq + S)
@@ -92,6 +93,8 @@ def test_k1_segments_isolate_packed_samples():
     (32, 2, 1056, 32, 32, 128, (660, 630)),
     (2, 3, 257, 8, 1, 64, (1, 256, 257)),
     (3, 1, 100, 16, 8, 64, (100,)),
+    (32, 1, 3328 + 32, 32, 32, 128, (3287,)),  # MCUB-4 decode, first step
+    (32, 2, 3328 + 32, 32, 32, 128, (3318, 3300)),
 ])
 def test_k2_matches_plain(quantized, NL, B, S, H, Hkv, D, kv_len):
     gen = torch.Generator(device="cuda").manual_seed(S)

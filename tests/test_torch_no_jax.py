@@ -1,5 +1,6 @@
-"""The port never imports JAX: its package runs the tiny slice end to end
-(greedy generation, then a train step) in a process where ``import jax``
+"""The port never imports JAX: its package runs the tiny slices end to end
+(greedy generation, a train step, then four unimodal checkpoints merged,
+loaded and answering a 4-modality prompt) in a process where ``import jax``
 fails."""
 
 import os
@@ -54,6 +55,52 @@ tx, _ = make_optimizer(cfg, tc, {"backbone": model.params,
 state = init_train_state(cfg, tc, model.params, model.projectors, tx=tx)
 state, loss = make_train_step(cfg, tc, tx)(state, batch, layout)
 assert state.step == 1 and torch.isfinite(loss), loss
+
+# four unimodal checkpoints -> the port's merge -> the port's loader ->
+# one 4-modality greedy answer
+import os, tempfile
+from modelcompose_tpu.compose.state_io import save_state
+from modelcompose_tpu_torch.compose.convert import (params_to_adapter,
+                                                    params_to_hf_llama)
+from modelcompose_tpu_torch.compose.merge import merge_checkpoints
+from modelcompose_tpu_torch.models.loader import load_pretrained_model
+towers = {"vision": dict(mm_vision_encoder="test:32x2", mm_hidden_size=32),
+          "audio": dict(mm_audio_encoder="test:16x2", mm_audio_hidden_size=16,
+                        mm_audio_projector_type="qformer_4N_2L"),
+          "video": dict(mm_video_encoder="test:32x3", mm_video_hidden_size=32,
+                        mm_video_projector_type="mlp2x_gelu"),
+          "point": dict(mm_point_encoder="test:16x2", mm_point_hidden_size=16)}
+root = tempfile.mkdtemp()
+paths = []
+for i, (modal, kw) in enumerate(towers.items()):
+    cfg = tiny_test_config(local_prefix_tokens=1, local_suffix_tokens=1, **kw)
+    uni = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(i))
+    paths.append(os.path.join(root, modal))
+    os.makedirs(paths[-1])
+    cfg.save(os.path.join(paths[-1], "config.json"))
+    save_state(params_to_adapter(uni.params, cfg, uni.projectors),
+               os.path.join(paths[-1], "adapter_model.bin"))
+os.makedirs(os.path.join(root, "base"))
+save_state(params_to_hf_llama(uni.params, cfg),
+           os.path.join(root, "base", "pytorch_model.bin"))
+merged = os.path.join(root, "mcub4-multimodal")
+merge_checkpoints(paths, merged, "online-merge-reset-" + ",".join(
+    f"default-{m}=0.25" for m in towers))
+_, model, procs, _ = load_pretrained_model(
+    merged, os.path.join(root, "base"), load_tokenizer_fn=lambda b: None,
+    load_8bit=True, fold_decode_dense=True)
+assert sorted(procs) == sorted(towers)
+rng = np.random.default_rng(1)
+ids = [np.array([1, img, 5, MODAL_TOKEN_INDEXES["audio"], 7,
+                 MODAL_TOKEN_INDEXES["video"], 9,
+                 MODAL_TOKEN_INDEXES["point"], 11])]
+inputs = {"vision": rng.normal(size=(1, 28, 28, 3)).astype(np.float32),
+          "audio": procs["audio"](rng.normal(size=16000).astype(np.float32)),
+          "video": rng.normal(size=(1, 2, 28, 28, 3)).astype(np.float32),
+          "point": rng.normal(size=(1, 64, 6)).astype(np.float32)}
+out4 = model.generate(ids, inputs, max_new_tokens=4, compact_adapters=True,
+                      kv_quant=True)
+assert len(out4) == 1 and len(out4[0]) <= 4, out4
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
 assert all(sys.modules[m] is None for m in loaded), loaded
 print("SLICE_OK", out)
