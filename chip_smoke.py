@@ -10,10 +10,13 @@ nonzero:
 2. build: every hand-written kernel compiled by nvcc from ``csrc/``, one
    nvcc per source, all started together;
 3. K1 (flash-attention forward) against its plain PyTorch version, at
-   the vision path's 1,024 bucket and the composed path's 3,328;
+   the vision path's 1,024 bucket and the composed path's 3,328, with its
+   bound and the time of ``scaled_dot_product_attention`` on the same
+   inputs (the yardstick, never called by the port);
 4. K2 (split-KV flash-decode) against its plain PyTorch version, over the
    vision path's int8 cache of 1,056 positions and the composed path's
-   3,360;
+   3,360, timed cycling over the 32 layers of the stacked cache so that
+   each launch finds its layer cold in L2, as decode does;
 5. the serving path at Vicuna-7B width: a vision DAMC composition (CLIP
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
@@ -48,9 +51,18 @@ nonzero:
    gradients against the plain path's on one micro-batch.
 
 The line before the last is a JSON object with each kernel's launches on the
-main paths, its largest error against the plain version and both times; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
-script exits nonzero and prints no result.
+main paths, its largest error against the plain version, its time, the plain
+version's, the least time the card could take for the same work
+(``bound_ms``: the larger of the bytes over 3.35 TB/s and the operations over
+989 TFLOP/s bf16, counting the valid causal pairs and the valid cache bytes
+of this run's inputs; ``bound_by`` says which) and one library call's time
+(``library_ms``, or null where no call computes the same function).  Each
+row's own keys keep the shape and timing of earlier runs: K1 at the vision
+bucket and K2 over the vision cache (CUDA events over warm launches), K3/K4
+at the training batch; K1's and K2's ``mcub4`` hold the composed path's
+shape, and K2's ``*_cold`` keys its device time with every launch on a
+cold layer.  The last line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device the script exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -105,6 +117,10 @@ MCUB4_K1 = dict(B=1, Lq=3328, S=3328, H=32, Hkv=32, D=128, q_offset=0,
 # this table: tests/test_torch_compose.py).
 MCUB4_ACTIVE = 8
 LOADER_LAYERS = 2
+# Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores
+# and HBM3.  A card set below 700 W runs under them.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def log(phase: str, **fields) -> None:
@@ -125,6 +141,73 @@ def cuda_time_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_time_cycle_ms(fn, n: int, rounds: int = 3) -> float:
+    """Mean device time of ``fn(i)`` over ``rounds`` passes of i = 0..n-1
+    after a warm-up pass: with ``i`` a layer of a stacked cache larger than
+    L2, every launch finds its operands cold, as a decode step does."""
+    import torch
+    for i in range(n):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        for i in range(n):
+            fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (rounds * n)
+
+
+def device_time_cycle_ms(fn, n: int, rounds: int = 2) -> float:
+    """Device time of ``fn(i)`` per call, i cycling over 0..n-1 as in
+    ``cuda_time_cycle_ms``: the sum of its kernels' durations from
+    torch.profiler, so the host's launch gaps between calls (which event
+    timing of a kernel of a few microseconds measures instead) drop out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(n):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for i in range(n):
+                fn(i)
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages()
+                   if e.device_type.name == "CUDA")
+    return total_us / 1e3 / (rounds * n)
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms the card could take, what sets it)."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _valid_pairs(kw, Lq, S):
+    """Query-key pairs the mask keeps, summed over the batch."""
+    from modelcompose_tpu_torch.ops.flash_attention import _mask
+    q_seg, kv_seg = kw["q_segment_ids"], kw["kv_segment_ids"]
+    return int(_mask(q_seg, kv_seg, kw["causal"], kw["q_offset"], Lq, S,
+                     q_seg.device).sum())
+
+
+def _kernel_names(fn):
+    """Names of the device kernels one call of ``fn`` launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"
+                   and e.device_time_total > 0})
 
 
 def phase_device():
@@ -152,12 +235,35 @@ def phase_build():
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         list(pool.map(_build.load, names))
     for name in names:
-        log_lines = _build.build_log.get(name, "").splitlines()
-        ptxas = [ln.strip() for ln in log_lines
-                 if "registers" in ln or "spill" in ln]
         log("build", kernel=name, seconds=f"{_build.build_seconds[name]:.1f}",
-            ptxas=json.dumps(ptxas))
+            ptxas=json.dumps(_ptxas_report(_build.build_log.get(name, ""))))
+    k1, k2 = _build.load("flash_attention_fwd"), _build.load("flash_decode")
+    log("build", dynamic_smem_bytes=json.dumps({
+        "flash_attention_fwd D128": k1.mc_flash_attention_fwd_smem(128),
+        "flash_attention_fwd D64": k1.mc_flash_attention_fwd_smem(64),
+        "flash_decode D128 int8 G1": k2.mc_flash_decode_smem(128, 1),
+        "flash_decode D128 bf16 G1": k2.mc_flash_decode_smem(128, 0)}))
     log("build", total_seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def _ptxas_report(text: str):
+    """{instantiation: "registers, spills"} from nvcc's -Xptxas -v output:
+    the kernel's name and template arguments as mangled (``ILi128ELi1EaE``:
+    128, 1, int8)."""
+    import re
+    report, current = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '.*?([a-z]+_[a-z_]*_kernel)"
+                      r"(I\w*?E)E", ln)
+        if m:
+            current = m.group(1) + m.group(2)
+        elif current and "spill" in ln:
+            report[current] = ln.strip()
+        elif current and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            report[current] = f"{regs.group(1)} registers; " \
+                + report.get(current, "")
+    return report
 
 
 def _rel_err(got, want, rows=None):
@@ -168,7 +274,8 @@ def _rel_err(got, want, rows=None):
     return err, err / max(w.abs().max().item(), 1e-6)
 
 
-def _k1_case(device, gen, *, B, Lq, S, H, Hkv, D, q_offset, lengths):
+def _k1_case(device, gen, *, B, Lq, S, H, Hkv, D, q_offset, lengths,
+             library=False):
     import torch
     from modelcompose_tpu_torch.ops.flash_attention import (
         flash_attention_forward, flash_attention_reference)
@@ -187,9 +294,62 @@ def _k1_case(device, gen, *, B, Lq, S, H, Hkv, D, q_offset, lengths):
     err, rel, lse_err = _check_k1(name, q, k, v, kw, out, lse)
     ms = cuda_time_ms(lambda: flash_attention_forward(q, k, v, **kw))
     plain_ms = cuda_time_ms(lambda: flash_attention_reference(q, k, v, **kw))
+    # What the outputs need, each moved once: q and k on valid rows (a
+    # padding row reads no q, padding keys are masked for every row), all
+    # of V (a padding row's output is the mean of V), out and the LSE
+    # written, the segment ids read.
+    n_q, n_k = int((q_seg != 0).sum()), int((kv_seg != 0).sum())
+    nbytes = 2 * D * (H * n_q + Hkv * n_k) + 2 * (v.numel() + q.numel()) \
+        + 4 * B * H * Lq + 4 * (B * Lq + B * S)
+    bound_ms, bound_by = bound(4 * D * H * _valid_pairs(kw, Lq, S), nbytes)
+    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, share_of_bound=bound_ms / ms,
+               library_ms=_k1_library(q, k, v, kw, lengths) if library
+               else None)
     log("K1", case=repr(name), max_abs_err=f"{err:.4g}", rel_err=f"{rel:.3g}",
-        lse_err=f"{lse_err:.3g}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-    return err, ms, plain_ms
+        lse_err=f"{lse_err:.3g}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        share_of_bound=f"{bound_ms / ms:.3f}",
+        library_ms=None if res["library_ms"] is None
+        else f"{res['library_ms']:.4f}")
+    return res
+
+
+def _sdpa_inputs(q, k, v, kw, lengths, grad=False):
+    """The case's q/k/v as [B, H, L, D] views for
+    ``scaled_dot_product_attention``, with the causal flag at one row (on
+    its valid rows only) or a boolean segment + causal mask."""
+    from modelcompose_tpu_torch.ops.flash_attention import _mask
+    B, Lq, H, _ = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if Hkv != H:
+        k, v = (t.repeat_interleave(H // Hkv, dim=2) for t in (k, v))
+    if B == 1 and kw["q_offset"] == 0 and Lq == S:
+        n = lengths[0]
+        args = [t[:, :n].transpose(1, 2) for t in (q, k, v)]
+        extra = dict(is_causal=True)
+    else:
+        args = [t.transpose(1, 2) for t in (q, k, v)]
+        extra = dict(attn_mask=_mask(kw["q_segment_ids"],
+                                     kw["kv_segment_ids"], True,
+                                     kw["q_offset"], Lq, S, q.device))
+    if grad:
+        args = [t.detach().requires_grad_() for t in args]
+    return args, extra
+
+
+def _k1_library(q, k, v, kw, lengths):
+    """ms of one ``scaled_dot_product_attention`` call computing the same
+    attention (timed here only; the port never calls it), and the backend
+    PyTorch picked, read from the kernels it launched."""
+    import torch.nn.functional as F
+    args, extra = _sdpa_inputs(q, k, v, kw, lengths)
+    call = lambda: F.scaled_dot_product_attention(*args, **extra)  # noqa
+    ms = cuda_time_ms(call)
+    log("K1", library="scaled_dot_product_attention",
+        mask="is_causal" if "is_causal" in extra else "bool segment+causal",
+        kernels=json.dumps(_kernel_names(call)), library_ms=f"{ms:.4f}")
+    return ms
 
 
 def _check_k1(name, q, k, v, kw, out, lse):
@@ -216,20 +376,24 @@ def _check_k1(name, q, k, v, kw, out, lse):
 
 def phase_k1(device, gen):
     """K1 at the vision path's bucket (B=2, 32 heads, D=128, Lq=S=1024, one
-    row padded), at the composed path's (B=1, Lq=S=3328, 3287 valid), at a
-    ragged length, with GQA group 4 and a query offset, and at D=64."""
-    main = _k1_case(device, gen, B=2, Lq=1024, S=1024, H=32, Hkv=32, D=128,
-                    q_offset=0, lengths=[1024, 637])
-    errs = [main[0]]
-    for case in (MCUB4_K1,
-                 dict(B=2, Lq=150, S=150, H=32, Hkv=32, D=128, q_offset=0,
+    row padded; the JSON row's own keys, as in earlier runs), at the
+    composed path's (B=1, Lq=S=3328, 3287 valid; the row's ``mcub4``), each
+    beside SDPA, then at a ragged length, with GQA group 4 and a query
+    offset, and at D=64."""
+    vision = _k1_case(device, gen, B=2, Lq=1024, S=1024, H=32, Hkv=32,
+                      D=128, q_offset=0, lengths=[1024, 637], library=True)
+    mcub4 = _k1_case(device, gen, library=True, **MCUB4_K1)
+    errs = [mcub4["max_abs_err"], vision["max_abs_err"]]
+    for case in (dict(B=2, Lq=150, S=150, H=32, Hkv=32, D=128, q_offset=0,
                       lengths=[150, 97]),
                  dict(B=2, Lq=256, S=1024, H=32, Hkv=8, D=128, q_offset=768,
                       lengths=[1024, 900]),
                  dict(B=2, Lq=150, S=150, H=8, Hkv=4, D=64, q_offset=0,
                       lengths=[150, 61])):
-        errs.append(_k1_case(device, gen, **case)[0])
-    return {"max_abs_err": max(errs), "ms": main[1], "plain_ms": main[2]}
+        errs.append(_k1_case(device, gen, **case)["max_abs_err"])
+    return dict(vision, max_abs_err=max(errs),
+                shape="B2 Lq=S=1024 (1024, 637 valid)",
+                mcub4=dict(mcub4, shape="B1 Lq=S=3328 (3287 valid)"))
 
 
 def _k2_case(device, gen, *, B, NL, S, H, Hkv, D, kv_len, quantized, layer):
@@ -260,38 +424,71 @@ def _k2_case(device, gen, *, B, NL, S, H, Hkv, D, kv_len, quantized, layer):
         raise AssertionError(f"K2 {name}: rel err {rel:.3g} vs plain, "
                              f"{rel_loop:.3g} vs the chunked loop (tol "
                              f"{ATTN_TOL})")
-    ms = cuda_time_ms(lambda: flash_decode_attention(q, k, v, kv, layer,
-                                                     sm_scale=scale), 50)
-    plain_ms = cuda_time_ms(lambda: flash_decode_reference(
-        q, k, v, kv, layer, sm_scale=scale), 50)
+    # ms / plain_ms as in earlier runs: CUDA events over 50 launches on
+    # one layer, warm in L2 and paced by the host.  Cold: every launch on
+    # another layer, 2 x NL x B x S x Hkv x D bytes of cache, far above the
+    # 50 MB L2 at the main paths' shapes, timed by the kernels' device time
+    # and by events (which add the host's gaps between calls).
+    def kernel(i):
+        return flash_decode_attention(q, k, v, kv, i, sm_scale=scale)
+
+    def plain(i):
+        return flash_decode_reference(q, k, v, kv, i, sm_scale=scale)
+    ms = cuda_time_ms(lambda: kernel(layer), 50)
+    plain_ms = cuda_time_ms(lambda: plain(layer), 50)
+    device_ms_cold = device_time_cycle_ms(kernel, NL)
+    events_ms_cold = cuda_time_cycle_ms(kernel, NL)
+    plain_device_ms_cold = device_time_cycle_ms(plain, NL, rounds=1)
+    # the valid cache bytes (and their scales), q and out; 4 flops a key
+    # and head element (q.k and p.v)
+    n_valid = sum(min(n, S) for n in kv_len)
+    per_pos = 2 * Hkv * D * (1 if quantized else 2) \
+        + (2 * Hkv * 4 if quantized else 0)
+    bound_ms, bound_by = bound(4 * H * D * n_valid,
+                               n_valid * per_pos + 4 * q.numel() + 4 * B)
     log("K2", case=repr(name), max_abs_err=f"{err:.4g}", rel_err=f"{rel:.3g}",
-        rel_err_loop=f"{rel_loop:.3g}", ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}")
-    return err, ms, plain_ms
+        rel_err_loop=f"{rel_loop:.3g}", ms_warm_events=f"{ms:.4f}",
+        plain_ms_warm_events=f"{plain_ms:.4f}",
+        device_ms_cold=f"{device_ms_cold:.4f}",
+        events_ms_cold=f"{events_ms_cold:.4f}",
+        plain_device_ms_cold=f"{plain_device_ms_cold:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        share_of_bound_cold=f"{bound_ms / device_ms_cold:.3f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, share_of_bound=bound_ms / ms,
+                library_ms=None, device_ms_cold=device_ms_cold,
+                events_ms_cold=events_ms_cold,
+                plain_device_ms_cold=plain_device_ms_cold,
+                share_of_bound_cold=bound_ms / device_ms_cold)
 
 
 def phase_k2(device, gen):
     """K2 on bf16 and int8 caches with S not a multiple of 128, GQA group
-    4 and per-row kv_len; then at the vision path's shape (32 layers, 32 kv
-    heads, the 1024 bucket plus 32 new tokens, int8) and at the composed
-    path's (the 3328 bucket plus 32, 14 splits of 256, at the first and the
-    last decode step's kv_len)."""
+    4 and per-row kv_len; then at the vision path's shape (32 layers, 32
+    kv heads, the 1024 bucket plus 32 new tokens, int8; the JSON row's own
+    keys, as in earlier runs) and at the composed path's (the 3328 bucket
+    plus 32, 27 splits of 128, at the first and the last decode step's
+    kv_len; the row's ``mcub4`` and ``mcub4_last_step``)."""
     errs = []
     for quantized in (False, True):
         errs.append(_k2_case(device, gen, B=2, NL=4, S=1000, H=32, Hkv=8,
                              D=128, kv_len=[1000, 517], quantized=quantized,
-                             layer=2)[0])
+                             layer=2)["max_abs_err"])
     errs.append(_k2_case(device, gen, B=2, NL=4, S=333, H=8, Hkv=8, D=64,
-                         kv_len=[1, 333], quantized=True, layer=3)[0])
-    main = _k2_case(device, gen, B=2, NL=32, S=1024 + NEW_TOKENS, H=32,
-                    Hkv=32, D=128, kv_len=[660, 630], quantized=True,
-                    layer=31)
-    errs.append(main[0])
-    for kv_len in ([MCUB4_POSITIONS], [MCUB4_POSITIONS + NEW_TOKENS - 1]):
-        errs.append(_k2_case(device, gen, B=1, NL=32, S=3328 + NEW_TOKENS,
-                             H=32, Hkv=32, D=128, kv_len=kv_len,
-                             quantized=True, layer=31)[0])
-    return {"max_abs_err": max(errs), "ms": main[1], "plain_ms": main[2]}
+                         kv_len=[1, 333], quantized=True,
+                         layer=3)["max_abs_err"])
+    cases = [_k2_case(device, gen, B=1, NL=32, S=3328 + NEW_TOKENS, H=32,
+                      Hkv=32, D=128, kv_len=kv_len, quantized=True, layer=31)
+             for kv_len in ([MCUB4_POSITIONS],
+                            [MCUB4_POSITIONS + NEW_TOKENS - 1])]
+    vision = _k2_case(device, gen, B=2, NL=32, S=1024 + NEW_TOKENS, H=32,
+                      Hkv=32, D=128, kv_len=[660, 630], quantized=True,
+                      layer=31)
+    errs += [c["max_abs_err"] for c in cases] + [vision["max_abs_err"]]
+    return dict(vision, max_abs_err=max(errs),
+                shape="B2 int8 S=1056 kv_len 660/630",
+                mcub4=dict(cases[0], shape="B1 int8 S=3360 kv_len 3287"),
+                mcub4_last_step=dict(cases[1], shape="kv_len 3318"))
 
 
 def _requests(cfg, device, gen):
@@ -688,10 +885,13 @@ def phase_loader(device, gen):
     return {"leaves_checked": len(written) + len(base)}
 
 
-def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths):
+def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths,
+              library=False):
     """K1 forward against its plain version at the case's shape, then K3
     and K4 on K1's output and LSE, with a cotangent zero on padding rows,
-    against their plain versions on valid rows."""
+    against their plain versions on valid rows.  With ``library``, also
+    the backward of ``scaled_dot_product_attention`` through autograd,
+    which computes K3's and K4's outputs together."""
     import torch
     from modelcompose_tpu_torch.ops.flash_attention import (
         _di, flash_attention_bwd_dkv, flash_attention_bwd_dkv_reference,
@@ -737,6 +937,21 @@ def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths):
                     plain_ms=cuda_time_ms(
                         lambda: flash_attention_bwd_dkv_reference(*args,
                                                                   **kw)))}
+    # K3: S, dP and dQ products (6 D flops a valid pair); K4: S, dP, dV and
+    # dK (8 D).  Bytes: q, dO, LSE and Di on valid q rows and k, v on valid
+    # kv rows read once (a padding row's gradient is zero and needs none of
+    # them), the outputs written in full.
+    pairs = _valid_pairs(kw, L, S)
+    n_q, n_k = int(q_valid.sum()), int(kv_valid.sum())
+    io = 2 * D * (2 * H * n_q + 2 * Hkv * n_k) + 8 * H * n_q
+    for n, flops, nbytes in (("dq", 6, io + 2 * q.numel()),
+                             ("dkv", 8, io + 2 * (k.numel() + v.numel()))):
+        bms, by = bound(flops * D * H * pairs, nbytes)
+        res[n].update(bound_ms=bms, bound_by=by,
+                      share_of_bound=bms / res[n]["ms"], library_ms=None)
+    if library:
+        bwd_ms = _k34_library(q, k, v, do, kw, lengths)
+        res["dq"]["library_bwd_ms"] = res["dkv"]["library_bwd_ms"] = bwd_ms
     log("K3/K4", case=repr(name),
         k1_rel_err=f"{k1_rel:.3g}", k1_lse_err=f"{k1_lse_err:.3g}",
         rel_err=json.dumps({n: float(f"{r:.3g}") for n, (_, r) in
@@ -744,8 +959,28 @@ def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths):
         k3_ms=f"{res['dq']['ms']:.4f}",
         k3_plain_ms=f"{res['dq']['plain_ms']:.4f}",
         k4_ms=f"{res['dkv']['ms']:.4f}",
-        k4_plain_ms=f"{res['dkv']['plain_ms']:.4f}")
+        k4_plain_ms=f"{res['dkv']['plain_ms']:.4f}",
+        k3_bound_ms=f"{res['dq']['bound_ms']:.4f}",
+        k4_bound_ms=f"{res['dkv']['bound_ms']:.4f}")
     return res
+
+
+def _k34_library(q, k, v, do, kw, lengths):
+    """ms of the backward of one ``scaled_dot_product_attention`` call
+    (dQ, dK and dV together) through autograd, on the case's inputs."""
+    import torch.nn.functional as F
+    args, extra = _sdpa_inputs(q, k, v, kw, lengths, grad=True)
+    out = F.scaled_dot_product_attention(*args, **extra)
+    g = do.transpose(1, 2)
+
+    def bwd():
+        for t in args:
+            t.grad = None
+        out.backward(g, retain_graph=True)
+    ms = cuda_time_ms(bwd)
+    log("K3/K4", library="scaled_dot_product_attention backward",
+        kernels=json.dumps(_kernel_names(bwd)), library_bwd_ms=f"{ms:.4f}")
+    return ms
 
 
 def phase_k34(device, gen):
@@ -756,7 +991,7 @@ def phase_k34(device, gen):
     and at D=64.  Returns the K3/K4 results at the first shape, with the
     largest error over all cases for K1 ('fwd'), K3 and K4."""
     main = _k34_case(device, gen, B=2, L=2048, S=2048, H=32, Hkv=32, D=128,
-                     q_offset=0, lengths=[2048, 1391])
+                     q_offset=0, lengths=[2048, 1391], library=True)
     errs = {n: [main[n]["max_abs_err"]] for n in main}
     for case in (dict(B=1, L=2048, S=2048, H=32, Hkv=32, D=128, q_offset=0,
                       lengths=[1400]),
@@ -982,8 +1217,7 @@ def phase_train(device):
 
 # Kernel-name fragments of each profile split: the hand-written kernels,
 # and the library GEMMs (cuBLAS nvjet / xmma, magma) and convolutions.
-PROFILE_SPLITS = {"K1": ("fa_fwd_kernel",), "K2": ("fd_split_kernel",
-                                                  "fd_combine_kernel"),
+PROFILE_SPLITS = {"K1": ("fa_fwd_kernel",), "K2": ("fd_split_kernel",),
                   "K3": ("fa_bwd_dq_kernel",), "K4": ("fa_bwd_dkv_kernel",),
                   "gemm": ("gemm", "nvjet"), "conv": ("conv",)}
 
@@ -1038,8 +1272,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     k34 = phase_k34(device, gen)
     train = phase_train(device)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    if {"jax", "modelcompose_tpu"} & set(sys.modules):
+        raise AssertionError("the port imported jax or the JAX package")
     # Launches on the main paths: the two serving runs, plus every step of
     # the training run (train steps and the accumulation window).
     trained = train["launches"] + [train["accum_launches"]]

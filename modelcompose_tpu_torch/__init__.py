@@ -10,12 +10,13 @@ kernel's plain PyTorch version, so the whole port runs (slowly) on the CPU.
 Public API:
     from modelcompose_tpu_torch import ModelConfig, MultimodalLM
 
-The package imports ``torch`` and never ``jax``: of the JAX package it
-imports only the framework-free ``modelcompose_tpu.config`` and
-``modelcompose_tpu.constants``.
+The package imports ``torch`` and never ``jax``, and nothing of the JAX
+package: what it needs of the JAX package's framework-free modules
+(``config``, ``constants``, ``compose.state_io``, ``compose.ties``, the
+audio and video processors) it keeps as its own copies.
 """
 
-from modelcompose_tpu.config import ModelConfig, tiny_test_config  # noqa: F401
+from .config import ModelConfig, tiny_test_config  # noqa: F401
 
 __version__ = "0.1.0"
 

@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  On first use it is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``_build/`` (listed in .gitignore), keyed by a hash of the source and the
-flags, and loaded with ``ctypes``.  Nothing here runs at import time: a
-machine without ``nvcc`` imports the package and uses the kernels' plain
-PyTorch versions on CPU tensors.
+``_build/`` (listed in .gitignore), keyed by a hash of the source, of every
+``csrc/*.cuh`` it includes and of the flags, and loaded with ``ctypes``.
+Nothing here runs at import time: a machine without ``nvcc`` imports the
+package and uses the kernels' plain PyTorch versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -38,6 +39,11 @@ SIGNATURES = {
             [_P, _P, _P, _P, _P, _P, _P,  # q k v q_seg kv_seg out lse
              _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
              _F, _I, _I, _P], _I),        # sm_scale causal q_offset stream
+        "mc_flash_attention_fwd_mask_all": (
+            [_P, _P, _P, _P, _P, _P, _P,  # q k v q_seg kv_seg out lse
+             _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
+             _F, _I, _I, _P], _I),        # sm_scale causal q_offset stream
+        "mc_flash_attention_fwd_smem": ([_I], _I),  # D
     },
     "flash_attention_bwd": {
         "mc_flash_attention_bwd_dq": (
@@ -53,10 +59,12 @@ SIGNATURES = {
     },
     "flash_decode": {
         "mc_flash_decode_split_len": ([], _I),
+        "mc_flash_decode_smem": ([_I, _I], _I),  # D quantized
         "mc_flash_decode": (
             [_P, _P, _P, _P, _P, _P,      # q kc vc ks vs kv_len
-             _P, _P, _P, _P,              # part_m part_l part_acc out
-             _I, _I, _I, _I, _I, _I, _I,  # B H Hkv S D layer quantized
+             _P, _P, _P, _P, _P,          # part_m part_l part_acc counters out
+             _I, _I, _I, _I, _I, _I,      # NL B H Hkv S D
+             _I, _I,                      # layer quantized
              _F, _P], _I),                # sm_scale stream
     },
 }
@@ -77,12 +85,27 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(src: Path):
+    """``src`` and every ``csrc`` header it includes, transitively."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / h.decode() for h in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; raise on failure."""
     if name in _libs:
         return _libs[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    digest = hashlib.sha256(b"".join(f.read_bytes() for f in _sources(src))
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     t0 = time.perf_counter()

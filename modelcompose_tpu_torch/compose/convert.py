@@ -24,8 +24,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from modelcompose_tpu.config import ModelConfig
-
+from ..config import ModelConfig
 from ..core.llama import torch_dtype
 from ..models.projectors import parse_spec
 from ..tree import numpy_to_torch

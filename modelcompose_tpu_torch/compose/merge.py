@@ -1,7 +1,6 @@
 """Merge unimodal DAMC checkpoints into one composed checkpoint
 (counterpart of modelcompose_tpu/compose/merge.py; the same strategies and
-outputs, on the JAX package's numpy ``ties``, ``state_io`` and modality
-lookup):
+outputs, on the port's numpy ``ties`` and ``state_io``):
 
 - ``sum`` / ``mean``: elementwise over aligned keys;
 - ``ties-{sum,mean,max}``: trim, elect and disjoint-aggregate the shared
@@ -35,9 +34,27 @@ from typing import Dict, List
 
 import numpy as np
 
-from modelcompose_tpu.compose.merge import get_modal_from_config
-from modelcompose_tpu.compose.state_io import load_adapter_dir, save_state
-from modelcompose_tpu.compose.ties import convert_delta_to_ft, do_merging
+from .state_io import load_adapter_dir, save_state
+from .ties import convert_delta_to_ft, do_merging
+
+# Config keys that identify a checkpoint's modality (reference
+# merge_unimodal_modelcompose.py:15-21).
+MODAL_DICT = {
+    "mm_vision_encoder": "vision",
+    "mm_vision_tower": "vision",
+    "mm_vision2_encoder": "vision2",
+    "mm_vision2_tower": "vision2",
+    "mm_video_encoder": "video",
+    "mm_audio_encoder": "audio",
+    "mm_point_encoder": "point",
+}
+
+
+def get_modal_from_config(config: dict) -> str:
+    for key, modal in MODAL_DICT.items():
+        if isinstance(config.get(key), str) and config[key]:
+            return modal
+    raise AssertionError("No modality is recognized, please check the config.")
 
 
 def _merge_weights(weights: Dict[str, List[np.ndarray]], configs: List[dict],

@@ -14,7 +14,7 @@ they are not on disk the towers are random.
 
 from __future__ import annotations
 
-from modelcompose_tpu.config import ModelConfig
+from .config import ModelConfig
 
 MCUB4_RESET = ("default-vision=0.25,default-audio=0.25,default-video=0.25,"
                "default-point=0.25")

@@ -15,6 +15,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .config import ModelConfig
+from .devices import resolve_device
 from .models.model import MultimodalLM
 from .models.towers import tower_class
 from .tree import tree_map_with_path
@@ -62,8 +64,10 @@ def model_from_jax(jax_model, device=None) -> MultimodalLM:
 
     ``jax_model`` needs ``cfg``, ``params``, ``projectors`` and
     ``encoders[modal].spec`` / ``.params`` (and optionally ``.cfg``), all
-    with numpy leaves."""
-    cfg = jax_model.cfg
+    with numpy leaves.  The weights go to ``device`` (the card when None);
+    the config is rebuilt as the port's from the JAX config's dict."""
+    device = resolve_device(device)
+    cfg = ModelConfig.from_dict(jax_model.cfg.to_dict())
     encoders: Dict[str, Any] = {}
     for modal, enc in jax_model.encoders.items():
         tower = tower_class(modal, enc.spec)(

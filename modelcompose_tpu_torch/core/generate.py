@@ -16,8 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from modelcompose_tpu.config import ModelConfig
-
+from ..config import ModelConfig
 from ..ops.routed_lora import as_table, fold_dense
 from .llama import KVCache, forward, forward_hidden_routed, logits_from_hidden
 

@@ -18,8 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from modelcompose_tpu.config import ModelConfig
-
+from ..config import ModelConfig
 from ..ops.attention import attention, decode_attention
 from ..ops.norms import rms_norm
 from ..ops.quant import dequant_matmul, is_quantized, matmul_f32, quantize_int8

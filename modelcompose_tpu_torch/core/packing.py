@@ -27,8 +27,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from modelcompose_tpu.config import ROUTE_CLASS_INDEX
-from modelcompose_tpu.constants import IGNORE_INDEX, MODAL_TOKEN_INDEXES
+from ..config import ROUTE_CLASS_INDEX
+from ..constants import IGNORE_INDEX, MODAL_TOKEN_INDEXES
 
 _INDEX_TO_MODAL = {v: k for k, v in MODAL_TOKEN_INDEXES.items()}
 

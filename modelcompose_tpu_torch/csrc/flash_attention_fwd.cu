@@ -1,4 +1,5 @@
-// Flash-attention forward (kernel K1) for Hopper, sm_90a.
+// Flash-attention forward (kernel K1) for Hopper, sm_90a: TMA loads and
+// wgmma, one producer warp and two consumer warpgroups per block.
 //
 // Replaces the Pallas TPU kernel modelcompose_tpu/ops/flash_attention.py
 // `_fa_kernel` (driven by `_flash_attention_forward`):
@@ -7,16 +8,33 @@
 // q_offset + i >= j.  Padding rows (segment 0) come out as the mean of V,
 // as on the TPU; callers ignore them.
 //
-// What bounds it on the H100: tensor-core FLOPs.  At the prefill bucket
-// (Lq = S = 1024, D = 128) each (b, h) does 4*Lq*S*D/2 flops over only
-// 3*S*D*2 bytes of q/k/v, far above the ~295 flop/byte ridge.  The design
-// keeps the S = QK^T and P tiles in registers (mma.sync m16n8k16, bf16
-// operands, fp32 accumulators, online softmax in fp32) so nothing of size
-// Lq*S ever reaches device memory, and skips kv tiles wholly in the
-// future.  This first version is simple: one block per (64-row q tile,
-// head, batch), 4 warps of 16 q rows each, K/V tiles staged through shared
-// memory with plain 16-byte loads and no double buffering.  wgmma and TMA
-// come later.
+// What bounds it on the H100: tensor-core FLOPs.  At the MCUB-4 prefill
+// bucket (Lq = S = 3,328, 32 heads, D = 128) it does about 88 GFLOP of
+// causal work over 108 MB of q/k/v/o, far above the ~295 flop/byte ridge,
+// so the only road to the card's rate is wgmma fed by TMA.  The design:
+//   - one block per (128-row q tile, head, batch row), 384 threads: warp 0
+//     is the producer (setmaxnreg 40) and issues every load; warpgroups 1
+//     and 2 are consumers (setmaxnreg 232) and own 64 q rows each;
+//   - TMA tensor maps over the public layouts as 3-D [B][L][heads * D]
+//     with 64-column boxes and the 128-byte swizzle: a box never crosses
+//     into the next batch row, and rows past L arrive as zeros;
+//   - Q is loaded once; K and V pass through a ring of three stages with
+//     full/empty mbarriers, so the next tiles' loads overlap this tile's
+//     math (232,016 bytes of shared memory at D = 128);
+//   - S = Q K^T is wgmma m64nBNk16 with both operands in shared memory
+//     (K-major); the online softmax runs in fp32 with exp2f and the scale
+//     pre-multiplied by log2(e); P is cast to bf16 in registers (the JAX
+//     kernel's _gemm2_cast) and is the register A operand of wgmma
+//     m64nDk16 with V as the transposed (MN-major) B operand;
+//   - within a warpgroup the kv loop is pipelined: S of tile j and P.V of
+//     tile j-1 are issued together, and tile j's softmax runs while the
+//     tensor cores do that P.V;
+//   - the producer also stages each kv tile's segment ids and their min
+//     and max: a warp whose 16 q rows all share that one nonzero segment,
+//     with the tile wholly below its diagonal, skips the per-element mask;
+//   - kv tiles wholly in the future of a warpgroup's rows are skipped; q
+//     tiles run heaviest first (the q tile index is the slowest grid axis,
+//     reversed), so the causal tail is made of light blocks.
 //
 // Layouts (the JAX package's public layout, no padding, no lifted
 // segment ids): q [B, Lq, H, D], k/v [B, S, Hkv, D], all bf16 and
@@ -25,22 +43,164 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 128;  // 4 warps x 16 q rows
-constexpr float kNegInf = -1e30f;  // the JAX kernels' NEG_INF
+using namespace hopper;
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          const uint32_t b[2]) {
+constexpr int kBlockM = 128;   // q rows per block: two warpgroups of 64
+constexpr int kStages = 3;     // K/V ring depth
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kBox = 64;       // bf16 columns per TMA box: the 128-byte swizzle span
+// kv rows per tile: 128 beat 64 on the H100 (PERF.md), timed by
+// scripts/torch_kernel_ab.py from a copy of this file with 64 here.
+constexpr int kBlockN = 128;
+static_assert(kBlockN == 64 || kBlockN == 128, "kv tile of 64 or 128 rows");
+constexpr float kNegInf = -1e30f;    // the JAX kernels' NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory
+// (both K-major, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                             int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory
+// (both K-major, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the m16k16
+// fragment of each warp), B from shared memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t a[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A from registers (the m16k16
+// fragment of each warp), B from shared memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n128_tb(float* d, const uint32_t a[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, da, db, accumulate);
+  else
+    wgmma_ss_n128(d, da, db, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t a[4],
+                                            uint64_t db) {
+  if constexpr (N == 64)
+    wgmma_rs_n64_tb(d, a, db);
+  else
+    wgmma_rs_n128_tb(d, a, db);
 }
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
@@ -48,218 +208,336 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
+// Shared memory of one block, in bytes from a 1024-aligned base.  Q is
+// [2 halves][D/64 boxes][64 rows][128 B]; each K or V stage is
+// [D/64 boxes][BN rows][128 B].
+template <int D>
+struct Smem {
+  static constexpr int BN = kBlockN;
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kQ = 0;
+  static constexpr int kKVBytes = BN * D * 2;
+  static constexpr int kK = kQ + kBlockM * D * 2;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kSeg = kV + kStages * kKVBytes;  // int [kStages][BN]
+  static constexpr int kInfo = kSeg + kStages * BN * 4;  // int [kStages][2]
+  static constexpr int kBar = kInfo + kStages * 2 * 4;   // q, full[], empty[]
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+};
+
+__device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
 }
 
 template <int D>
-constexpr int smem_bytes() {
-  return (kBlockQ + 2 * kBlockK) * (D + 8) * 2 + kBlockK * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kThreads, 1)
+fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
               const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-              int H, int Hkv, int Lq, int S, float sm_scale, int causal,
-              int q_offset) {
-  // Rows padded by 8 bf16 (16 bytes) so the fragment loads of a warp hit
-  // 32 distinct banks.
-  constexpr int LD = D + 8;
-  constexpr int kVec = 8;            // bf16 per 16-byte load
-  constexpr int kChunks = D / kVec;  // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + kBlockQ * LD;
-  __nv_bfloat16* sV = sK + kBlockK * LD;
-  int* sSeg = reinterpret_cast<int*>(sV + kBlockK * LD);
+              int H, int Hkv, int Lq, int S, float scale_log2, int causal,
+              int q_offset, int n_qtiles, int mask_all) {
+  using L = Smem<D>;
+  constexpr int BN = kBlockN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sbase = smem_addr(smem);
+  int* sSeg = reinterpret_cast<int*>(smem + L::kSeg);
+  int* sInfo = reinterpret_cast<int*>(smem + L::kInfo);
+  const uint32_t bar_q = sbase + L::kBar;
+  const uint32_t bar_full = bar_q + 8;                 // + 8 * stage
+  const uint32_t bar_empty = bar_q + 8 * (1 + kStages);  // + 8 * stage
 
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (n_qtiles - 1 - static_cast<int>(blockIdx.z)) * kBlockM;
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // mma "groupID": fragment row
-  const int t4 = lane & 3;  // mma thread-in-group: fragment column pair
 
-  const long q_stride = (long)H * D;
-  const long kv_stride = (long)Hkv * D;
-  const __nv_bfloat16* qb = q + (long)b * Lq * q_stride + (long)h * D;
-  const __nv_bfloat16* kb = k + (long)b * S * kv_stride + (long)hk * D;
-  const __nv_bfloat16* vb = v + (long)b * S * kv_stride + (long)hk * D;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+  int n_tiles = (S + BN - 1) / BN;
+  if (causal) n_tiles = min(n_tiles, (q_offset + q0 + kBlockM - 1) / BN + 1);
 
-  for (int i = tid; i < kBlockQ * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * kVec;
-    uint4 val = zero;
-    if (q0 + r < Lq)
-      val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * q_stride + c);
-    *reinterpret_cast<uint4*>(sQ + r * LD + c) = val;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);  // every producer lane arrives
+      mbar_init(bar_empty + 8 * s, 8);  // every consumer warp arrives
+    }
+    fence_barrier_init();
   }
   __syncthreads();
 
-  // This warp's 16 q rows as A fragments, held for the whole kv loop.
-  const int wrow = warp * 16;
-  uint32_t qf[D / 16][4];
+  if (tid < 128) {
+    // ---------------------------------------------------------- producer
+    reg_dealloc<40>();
+    if (tid < 32) {
+      const int lane = tid;
+      if (lane == 0) {
+        prefetch_tensormap(&tq);
+        prefetch_tensormap(&tk);
+        prefetch_tensormap(&tv);
+        mbar_arrive_expect_tx(bar_q, kBlockM * D * 2);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p = sQ + (wrow + g) * LD + kk * 16 + t4 * 2;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-  }
-
-  // The two q rows this thread owns in the accumulator layout.
-  const int r0 = q0 + wrow + g;
-  const int r1 = r0 + 8;
-  const int seg0 = r0 < Lq ? q_seg[(long)b * Lq + r0] : 0;
-  const int seg1 = r1 < Lq ? q_seg[(long)b * Lq + r1] : 0;
-  const int pos0 = q_offset + r0;
-  const int pos1 = q_offset + r1;
-
-  float o[D / 8][4];
+        for (int half = 0; half < 2; ++half)
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  int n_tiles = (S + kBlockK - 1) / kBlockK;
-  if (causal) {  // skip kv tiles wholly in the future of every row
-    const int last_q = q_offset + q0 + kBlockQ - 1;
-    n_tiles = min(n_tiles, last_q / kBlockK + 1);
-  }
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBlockK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = tid; i < kBlockK * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * kVec;
-      uint4 kval = zero, vval = zero;  // zero rows past S: 0 * V, not NaN
-      if (k0 + r < S) {
-        kval = *reinterpret_cast<const uint4*>(kb + (k0 + r) * kv_stride + c);
-        vval = *reinterpret_cast<const uint4*>(vb + (k0 + r) * kv_stride + c);
+          for (int c = 0; c < L::kBoxes; ++c)
+            tma_load_3d(sbase + L::kQ + (half * L::kBoxes + c) * 64 * 128,
+                        &tq, bar_q, h * D + c * kBox, q0 + half * 64, b);
       }
-      *reinterpret_cast<uint4*>(sK + r * LD + c) = kval;
-      *reinterpret_cast<uint4*>(sV + r * LD + c) = vval;
-    }
-    if (tid < kBlockK)
-      sSeg[tid] = k0 + tid < S ? kv_seg[(long)b * S + k0 + tid] : 0;
-    __syncthreads();
-
-    // S = Q K^T: 16 x 64 per warp, 8 n-tiles of 8 kv columns.
-    float s[kBlockK / 8][4];
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
+        const int k0 = j * BN;
+        int mn = INT_MAX, mx = INT_MIN;
+        for (int i = lane; i < BN; i += 32) {
+          const int seg = k0 + i < S ? kv_seg[(long)b * S + k0 + i] : 0;
+          sSeg[s * BN + i] = seg;
+          mn = min(mn, seg);
+          mx = max(mx, seg);
+        }
+        mn = warp_min(mn);
+        mx = warp_max(mx);
+        if (lane == 0) {
+          sInfo[2 * s] = mn;
+          sInfo[2 * s + 1] = mx;
+          mbar_arrive_expect_tx(bar_full + 8 * s, 2 * L::kKVBytes);
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < kBlockK / 8; ++nt) {
-        const __nv_bfloat16* p = sK + (nt * 8 + g) * LD + kk * 16 + t4 * 2;
-        uint32_t bf[2];
-        bf[0] = *reinterpret_cast<const uint32_t*>(p);
-        bf[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-        mma_16816(s[nt], qf[kk], bf);
+          for (int c = 0; c < L::kBoxes; ++c) {
+            tma_load_3d(sbase + L::kK + s * L::kKVBytes + c * BN * 128, &tk,
+                        bar_full + 8 * s, hk * D + c * kBox, k0, b);
+            tma_load_3d(sbase + L::kV + s * L::kKVBytes + c * BN * 128, &tv,
+                        bar_full + 8 * s, hk * D + c * kBox, k0, b);
+          }
+        } else {
+          mbar_arrive(bar_full + 8 * s);
+        }
       }
     }
+  } else {
+    // --------------------------------------------------------- consumers
+    reg_alloc<232>();
+    const int cw = tid / 128 - 1;  // which 64 rows of the q tile
+    const int t = tid % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int g = lane / 4;   // accumulator row within the warp's 8
+    const int c4 = lane % 4;  // accumulator column pair
+    const int r0 = q0 + cw * 64 + warp * 16 + g;
+    const int r1 = r0 + 8;
+    const int seg0 = r0 < Lq ? q_seg[(long)b * Lq + r0] : 0;
+    const int seg1 = r1 < Lq ? q_seg[(long)b * Lq + r1] : 0;
+    const int q_mn = warp_min(min(seg0, seg1));
+    const int q_mx = warp_max(max(seg0, seg1));
+    const int pos0 = q_offset + r0, pos1 = q_offset + r1;
+    const int warp_pos = q_offset + q0 + cw * 64 + warp * 16;  // its first row
+    int n_mine = n_tiles;  // kv tiles these 64 rows read
+    if (causal) n_mine = min(n_tiles, (q_offset + q0 + cw * 64 + 63) / BN + 1);
 
-    // Scale, mask, and the online-softmax update in fp32.
-    float mx0 = kNegInf, mx1 = kNegInf;
+    float o[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float sc[BN / 2];       // S of the current tile, then its P in fp32
+    uint32_t pa[BN / 16][4];  // P in bf16: the A fragments of P.V
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    const uint32_t q_tile = sbase + L::kQ + cw * L::kBoxes * 64 * 128;
+
+    // S = Q K^T of the tile in stage s, 64 x BN per warpgroup, 16 columns
+    // of D per step (issued, not waited for).
+    auto issue_qk = [&](int s) {
+      const uint32_t k_tile = sbase + L::kK + s * L::kKVBytes;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = nt * 8 + t4 * 2 + e;
-        const int kseg = sSeg[col];
-        const int kpos = k0 + col;
-        const bool ok0 = kseg != 0 && kseg == seg0 && (!causal || pos0 >= kpos);
-        const bool ok1 = kseg != 0 && kseg == seg1 && (!causal || pos1 >= kpos);
-        s[nt][e] = ok0 ? s[nt][e] * sm_scale : kNegInf;
-        s[nt][2 + e] = ok1 ? s[nt][2 + e] * sm_scale : kNegInf;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, w = kk % 4;  // box, 32-byte step inside it
+        wgmma_ss<BN>(sc, sw128_desc(q_tile + c * 64 * 128 + w * 32, 16, 1024),
+                     sw128_desc(k_tile + c * BN * 128 + w * 32, 16, 1024),
+                     kk > 0);
       }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
-    float rs0 = 0.f, rs1 = 0.f;
+    };
+    // O += P V of the tile in stage s: the S accumulator of columns
+    // 16kk..16kk+15 is the A fragment of the kk-th 16-deep step.
+    auto issue_pv = [&](int s) {
+      const uint32_t v_tile = sbase + L::kV + s * L::kKVBytes;
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn0);
-      s[nt][1] = expf(s[nt][1] - mn0);
-      s[nt][2] = expf(s[nt][2] - mn1);
-      s[nt][3] = expf(s[nt][3] - mn1);
-      rs0 += s[nt][0] + s[nt][1];
-      rs1 += s[nt][2] + s[nt][3];
-    }
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
-    m0 = mn0;
-    m1 = mn1;
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs_tb<D>(o, pa[kk],
+                       sw128_desc(v_tile + kk * 16 * 128, BN * 128, 1024));
+    };
+    // Scale (log2 units), mask where the tile needs it, online softmax:
+    // sc becomes P, (m, l) move on, and (a0, a1) rescale O.
+    auto softmax = [&](int j, int s, float& a0, float& a1) {
+      const int k0 = j * BN;
+      const int k_mn = sInfo[2 * s], k_mx = sInfo[2 * s + 1];
+      const bool interior = !mask_all && k_mn != 0 && k_mn == k_mx &&
+                            q_mn == k_mn && q_mx == k_mn &&
+                            (!causal || k0 + BN - 1 <= warp_pos);
+      float mx0 = kNegInf, mx1 = kNegInf;
+      if (interior) {
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o[dt][0] *= a0;
-      o[dt][1] *= a0;
-      o[dt][2] *= a1;
-      o[dt][3] *= a1;
-    }
-
-    // O += P V with P cast to bf16 (the JAX kernel's _gemm2_cast).  The
-    // S accumulator layout is the A-fragment layout of P, two n-tiles per
-    // 16-wide k step.
+        for (int nt = 0; nt < BN / 8; ++nt) {
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+          for (int e = 0; e < 2; ++e) {
+            sc[nt * 4 + e] *= scale_log2;
+            sc[nt * 4 + 2 + e] *= scale_log2;
+            mx0 = fmaxf(mx0, sc[nt * 4 + e]);
+            mx1 = fmaxf(mx1, sc[nt * 4 + 2 + e]);
+          }
+        }
+      } else {
+        const int* seg = sSeg + s * BN;
+#pragma unroll
+        for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = nt * 8 + c4 * 2 + e;
+            const int kseg = seg[col];
+            const int kpos = k0 + col;
+            const bool ok0 =
+                kseg != 0 && kseg == seg0 && (!causal || pos0 >= kpos);
+            const bool ok1 =
+                kseg != 0 && kseg == seg1 && (!causal || pos1 >= kpos);
+            sc[nt * 4 + e] = ok0 ? sc[nt * 4 + e] * scale_log2 : kNegInf;
+            sc[nt * 4 + 2 + e] = ok1 ? sc[nt * 4 + 2 + e] * scale_log2 : kNegInf;
+            mx0 = fmaxf(mx0, sc[nt * 4 + e]);
+            mx1 = fmaxf(mx1, sc[nt * 4 + 2 + e]);
+          }
+        }
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      a0 = exp2f(m0 - mn0);
+      a1 = exp2f(m1 - mn1);
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        sc[nt * 4 + 0] = exp2f(sc[nt * 4 + 0] - mn0);
+        sc[nt * 4 + 1] = exp2f(sc[nt * 4 + 1] - mn0);
+        sc[nt * 4 + 2] = exp2f(sc[nt * 4 + 2] - mn1);
+        sc[nt * 4 + 3] = exp2f(sc[nt * 4 + 3] - mn1);
+        rs0 += sc[nt * 4 + 0] + sc[nt * 4 + 1];
+        rs1 += sc[nt * 4 + 2] + sc[nt * 4 + 3];
+      }
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+      l0 = l0 * a0 + rs0;
+      l1 = l1 * a1 + rs1;
+      m0 = mn0;
+      m1 = mn1;
+    };
+    // O to the new max, and P to bf16 (the JAX kernel's _gemm2_cast).
+    auto rescale_and_pack = [&](float a0, float a1) {
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* p = sV + (kk * 16 + t4 * 2) * LD + dt * 8 + g;
-        uint32_t bf[2];
-        bf[0] = pack_bf16(p[0], p[LD]);
-        bf[1] = pack_bf16(p[8 * LD], p[9 * LD]);
-        mma_16816(o[dt], pa, bf);
+        o[dt * 4 + 0] *= a0;
+        o[dt * 4 + 1] *= a0;
+        o[dt * 4 + 2] *= a1;
+        o[dt * 4 + 3] *= a1;
       }
-    }
-  }
-
-  const float sl0 = l0 == 0.f ? 1.f : l0;
-  const float sl1 = l1 == 0.f ? 1.f : l1;
-  __nv_bfloat16* ob = out + (long)b * Lq * q_stride + (long)h * D;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    if (r0 < Lq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * q_stride + c) =
-          pack_f32(o[dt][0] / sl0, o[dt][1] / sl0);
-    if (r1 < Lq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * q_stride + c) =
-          pack_f32(o[dt][2] / sl1, o[dt][3] / sl1);
-  }
-  if (t4 == 0) {
-    float* lb = lse + ((long)b * H + h) * Lq;
-    if (r0 < Lq) lb[r0] = m0 + logf(sl0);
-    if (r1 < Lq) lb[r1] = m1 + logf(sl1);
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        pa[kk][0] = pack_f32(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_f32(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_f32(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_f32(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    };
+
+    // Pipelined over the kv tiles: S of tile j and P.V of tile j-1 are
+    // issued together, and the softmax of tile j runs while the tensor
+    // cores do P.V.  A tile's stage is released once its P.V is done.
+    mbar_wait(bar_q, 0);
+    float a0, a1;
+    mbar_wait(bar_full, 0);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+    wgmma_fence();
+    issue_qk(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax(0, 0, a0, a1);
+    rescale_and_pack(a0, a1);
+    for (int j = 1; j < n_mine; ++j) {
+      const int s = j % kStages, s_prev = (j - 1) % kStages;
+      mbar_wait(bar_full + 8 * s, (j / kStages) & 1);
+      fence_regs(o);
+      fence_regs(pa);
+      fence_regs(sc);
+      wgmma_fence();
+      issue_qk(s);
+      wgmma_commit();
+      issue_pv(s_prev);
+      wgmma_commit();
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_wait<1>();  // S of tile j
+      fence_regs(sc);
+      softmax(j, s, a0, a1);
+      wgmma_wait<0>();  // P.V of tile j-1
+      fence_regs(o);
+      fence_regs(pa);
+      release(s_prev);
+      rescale_and_pack(a0, a1);
+    }
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+    issue_pv((n_mine - 1) % kStages);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    release((n_mine - 1) % kStages);
+    // kv tiles wholly in the future of these 64 rows: released unread
+    for (int j = n_mine; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(bar_full + 8 * s, (j / kStages) & 1);
+      release(s);
+    }
+
+    const float sl0 = l0 == 0.f ? 1.f : l0;
+    const float sl1 = l1 == 0.f ? 1.f : l1;
+    const float inv0 = 1.f / sl0, inv1 = 1.f / sl1;
+    const long q_stride = (long)H * D;
+    __nv_bfloat16* ob = out + (long)b * Lq * q_stride + (long)h * D;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const int c = dt * 8 + c4 * 2;
+      if (r0 < Lq)
+        *reinterpret_cast<uint32_t*>(ob + r0 * q_stride + c) =
+            pack_f32(o[dt * 4 + 0] * inv0, o[dt * 4 + 1] * inv0);
+      if (r1 < Lq)
+        *reinterpret_cast<uint32_t*>(ob + r1 * q_stride + c) =
+            pack_f32(o[dt * 4 + 2] * inv1, o[dt * 4 + 3] * inv1);
+    }
+    if (c4 == 0) {
+      // back to natural log; a row with no valid key keeps the -1e30 floor
+      float* lb = lse + ((long)b * H + h) * Lq;
+      if (r0 < Lq)
+        lb[r0] = (m0 == kNegInf ? kNegInf : m0 * kLn2) + logf(sl0);
+      if (r1 < Lq)
+        lb[r1] = (m1 == kNegInf ? kNegInf : m1 * kLn2) + logf(sl1);
+    }
   }
 }
 
@@ -267,20 +545,47 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_seg, const void* kv_seg, void* out,
                    void* lse, int B, int H, int Hkv, int Lq, int S,
-                   float sm_scale, int causal, int q_offset,
+                   float sm_scale, int causal, int q_offset, int mask_all,
                    cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
+  CUtensorMap tq, tk, tv;
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!make_map_3d(&tq, bf16, 2, q, (uint64_t)H * D, Lq, B, kBox, 64, sw) ||
+      !make_map_3d(&tk, bf16, 2, k, (uint64_t)Hkv * D, S, B, kBox, kBlockN,
+                   sw) ||
+      !make_map_3d(&tv, bf16, 2, v, (uint64_t)Hkv * D, S, B, kBox, kBlockN,
+                   sw))
+    return cudaErrorNotSupported;
+  constexpr int smem = Smem<D>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
       fa_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
+  const int n_qtiles = (Lq + kBlockM - 1) / kBlockM;
+  dim3 grid(H, B, n_qtiles);
   fa_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_seg),
+      tq, tk, tv, static_cast<const int*>(q_seg),
       static_cast<const int*>(kv_seg), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), H, Hkv, Lq, S, sm_scale, causal, q_offset);
+      static_cast<float*>(lse), H, Hkv, Lq, S, sm_scale * kLog2e, causal,
+      q_offset, n_qtiles, mask_all);
   return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const void* q_seg, const void* kv_seg, void* out,
+                     void* lse, int B, int H, int Hkv, int Lq, int S, int D,
+                     float sm_scale, int causal, int q_offset, int mask_all,
+                     void* stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Lq <= 0 || S <= 0 ||
+      B > 65535 || q_offset < 0 || (Lq + kBlockM - 1) / kBlockM > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return launch<128>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq, S,
+                       sm_scale, causal, q_offset, mask_all, s);
+  if (D == 64)
+    return launch<64>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq, S,
+                      sm_scale, causal, q_offset, mask_all, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -292,15 +597,21 @@ extern "C" int mc_flash_attention_fwd(const void* q, const void* k,
                                       int Lq, int S, int D, float sm_scale,
                                       int causal, int q_offset,
                                       void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Lq <= 0 || S <= 0 ||
-      B > 65535 || H > 65535)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch<128>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq, S,
-                       sm_scale, causal, q_offset, s);
-  if (D == 64)
-    return launch<64>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq, S,
-                      sm_scale, causal, q_offset, s);
-  return cudaErrorInvalidValue;
+  return dispatch(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq, S, D,
+                  sm_scale, causal, q_offset, 0, stream);
+}
+
+// The same with every kv tile through the per-element mask: the fast-path
+// test holds the two bit-equal.
+extern "C" int mc_flash_attention_fwd_mask_all(
+    const void* q, const void* k, const void* v, const void* q_seg,
+    const void* kv_seg, void* out, void* lse, int B, int H, int Hkv, int Lq,
+    int S, int D, float sm_scale, int causal, int q_offset, void* stream) {
+  return dispatch(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq, S, D,
+                  sm_scale, causal, q_offset, 1, stream);
+}
+
+// Dynamic shared memory of one block (bytes), for the build report.
+extern "C" int mc_flash_attention_fwd_smem(int D) {
+  return D == 128 ? Smem<128>::kAlloc : Smem<64>::kAlloc;
 }

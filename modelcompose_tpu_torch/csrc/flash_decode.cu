@@ -1,5 +1,5 @@
 // Flash-decode (kernel K2) for Hopper, sm_90a: one-token attention per
-// batch row over one layer of the layer-stacked KV cache.
+// batch row over one layer of the layer-stacked KV cache, in one launch.
 //
 // Replaces the Pallas TPU kernel modelcompose_tpu/ops/flash_decode.py
 // `_fd_kernel` (driven by `flash_decode_attention`); its semantics are
@@ -11,213 +11,459 @@
 // contractions, so the int8 bytes are what stream from memory.
 //
 // What bounds it on the H100: device-memory bytes.  A decode step reads
-// this layer's whole valid cache once (int8: 2 * kv_len * Hkv * D bytes
-// per row) and does only ~2 flops per byte.  The design is split-KV
-// flash-decoding: pass 1 has one block per (split of 256 positions, kv
-// head, batch row), so even a batch of 1-2 rows puts hundreds of blocks
-// on the 132 SMs; each block streams its split once with 8- or 16-byte
-// loads (a team of D/8 lanes per position), serves all `group` q heads of
-// its kv head from that one read (GQA), and writes partial (m, l, acc).
-// Splits past kv_len exit at once.  Pass 2 combines the splits.
+// this layer's valid cache once (int8: 2 * kv_len * Hkv * D bytes per row,
+// plus 8 bytes of scales per position and head) and does ~2 flops a byte.
+// At a batch of one the whole read fits in one wave of blocks, so a
+// launch costs the load plus one block's work after its data lands plus
+// the combine; the design shortens each:
+//   - split-KV: one block per (split of 128 positions, kv head, batch
+//     row), so even a batch of one puts hundreds of blocks on the 132 SMs
+//     (832 at the MCUB-4 decode, six per SM); splits past kv_len exit at
+//     once.  128 positions beat 256 at batch 1 and 2 (a chip probe,
+//     PERF.md): half the work per block after its data lands;
+//   - at block start one thread asks TMA for the split's whole K and V
+//     (64-row boxes of a 3-D map over [layer * B + b][S][Hkv * D], so
+//     nothing past the row's cache is read), one mbarrier per box: 32 KB
+//     in flight per int8 block;
+//   - eight warps, each one pass over its own 16 rows as soon as their box
+//     lands: per step a team of lanes reads 16 bytes each of a K row, the
+//     row's logit is reduced in the team and broadcast, and the same step
+//     folds the rows' V (four elements a lane) into a per-warp online
+//     softmax (running max, sum and accumulator), so there is no
+//     block-wide softmax pass; the warps merge through shared memory;
+//   - int8 becomes fp32 by a byte permute and an add (exact), not by the
+//     quarter-rate conversion unit;
+//   - the combine of the splits is fused: each block writes its partial
+//     (m, l, acc) and bumps an atomic counter of its (b, kv head); the
+//     last block to finish combines every split (a block-wide max, then
+//     each output element sums its weighted partials with the loads in
+//     flight together) and resets the counter, so a decode step is one
+//     launch per layer;
+//   - on the host, the tensor maps of a cache are encoded once and kept,
+//     and the shared-memory attribute is set once per instantiation, so a
+//     launch costs the host little more than the launch itself.
 // `layer` is an offset into the stacked cache, so no per-layer slice is
-// ever materialized, and any S is taken (the TPU kernel needed a multiple
-// of 128).
+// ever materialized, and any S is taken.
 //
 // Layouts: q [B, H, D] bf16; caches [NL, B, S, Hkv, D] bf16, or int8 with
 // fp32 scales [NL, B, S, Hkv] (the trailing 1 of [..., Hkv, 1] dropped);
 // kv_len [B] int32; partials m, l [B, H, n_splits] and acc
-// [B, H, n_splits, D] fp32; out [B, H, D] bf16.  D in {64, 128}; the GQA
-// group H / Hkv in {1, 2, 4, 8}.
+// [B, H, n_splits, D] fp32; counters [B * Hkv] uint32, zero between
+// launches; out [B, H, D] bf16.  D in {64, 128}; the GQA group H / Hkv in
+// {1, 2, 4, 8}.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSplit = 256;  // cache positions per pass-1 block
-constexpr float kNegInf = -1e30f;
+using namespace hopper;
 
-// Eight consecutive cache elements as fp32.
-__device__ __forceinline__ void load8(const int8_t* p, float f[8]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSplit = 128;               // cache positions per block
+constexpr int kBoxRows = 64;              // cache rows per TMA box
+constexpr int kBoxes = kSplit / kBoxRows;
+constexpr int kRowsPerWarp = kSplit / kWarps;
+constexpr float kNegInf = -1e30f;
+static_assert(kBoxRows % kRowsPerWarp == 0, "a warp's rows sit in one box");
+
+// Four int8 of a 32-bit word as fp32, exactly: each byte, biased to
+// unsigned, becomes the low mantissa byte of 2^23 (one byte permute), and
+// one add removes 2^23 + 128.  Integer and fp32 pipes only, where a plain
+// conversion would queue on the quarter-rate I2F unit.
+__device__ __forceinline__ void cvt4(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) f[e] = static_cast<float>(c[e]);
+  for (int e = 0; e < 4; ++e)
+    f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) -
+           8388736.f;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float f[8]) {
+__device__ __forceinline__ void cvt_bf16x2(uint32_t w, float* f) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+  f[0] = x.x;
+  f[1] = x.y;
+}
+
+// Sixteen bytes of a cache row as fp32 (16 int8 or 8 bf16).
+__device__ __forceinline__ void load16(const int8_t* p, float* f) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* c = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  cvt4(raw.x, f);
+  cvt4(raw.y, f + 4);
+  cvt4(raw.z, f + 8);
+  cvt4(raw.w, f + 12);
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  cvt_bf16x2(raw.x, f);
+  cvt_bf16x2(raw.y, f + 2);
+  cvt_bf16x2(raw.z, f + 4);
+  cvt_bf16x2(raw.w, f + 6);
+}
+
+// N (2 or 4) consecutive cache elements as fp32.
+template <int N>
+__device__ __forceinline__ void load_n(const int8_t* p, float* f) {
+  if constexpr (N == 4) {
+    cvt4(*reinterpret_cast<const uint32_t*>(p), f);
+  } else {
+    float t[4];
+    cvt4(*reinterpret_cast<const uint16_t*>(p), t);
+    f[0] = t[0];
+    f[1] = t[1];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_n(const __nv_bfloat16* p, float* f) {
+  if constexpr (N == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    cvt_bf16x2(raw.x, f);
+    cvt_bf16x2(raw.y, f + 2);
+  } else {
+    cvt_bf16x2(*reinterpret_cast<const uint32_t*>(p), f);
+  }
+}
+
+// Shared memory of one block, in bytes from a 128-aligned base.
+template <int D, int G, typename T>
+struct Smem {
+  static constexpr int kRow = D * static_cast<int>(sizeof(T));
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kSplit * kRow;
+  static constexpr int kScale = kV + kSplit * kRow;      // float [2][kSplit]
+  static constexpr int kAcc = kScale + 2 * kSplit * 4;   // float [kWarps][G][D]
+  static constexpr int kML = kAcc + kWarps * G * D * 4;  // float [2][kWarps][G]
+  static constexpr int kRed = kML + 2 * kWarps * G * 4;  // float [kWarps][G]
+  static constexpr int kBar = kRed + kWarps * G * 4 + 8;  // k[], v[]
+  static constexpr int kFlag = kBar + 2 * kBoxes * 8;
+  static constexpr int kBytes = kFlag + 16;
+  static constexpr int kAlloc = kBytes + 128;  // room to align the base
+};
+
+// Block-wide max of G values per thread; every thread gets the result.
+template <int G>
+__device__ __forceinline__ void block_max(float v[G], float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(c[e]);
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v[g] = fmaxf(v[g], __shfl_xor_sync(0xffffffffu, v[g], off));
+    if (lane == 0) red[warp * G + g] = v[g];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float r = red[g];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) r = fmaxf(r, red[w * G + g]);
+    v[g] = r;
+  }
 }
 
 template <int D, int G, typename T>
 __global__ void __launch_bounds__(kThreads)
-fd_split_kernel(const __nv_bfloat16* __restrict__ q,
-                const T* __restrict__ kc, const T* __restrict__ vc,
+fd_split_kernel(const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __nv_bfloat16* __restrict__ q,
                 const float* __restrict__ ks, const float* __restrict__ vs,
                 const int* __restrict__ kv_len, float* __restrict__ part_m,
                 float* __restrict__ part_l, float* __restrict__ part_acc,
-                int B, int H, int Hkv, int S, int n_splits, int layer,
-                float sm_scale) {
-  constexpr int kLanes = D / 8;             // lanes per cache position
-  constexpr int kTeams = kThreads / kLanes;  // positions in flight
-  __shared__ float sP[G][kSplit];
-  __shared__ float sAcc[kTeams][G * D];
-  __shared__ float sM[G], sL[G];
+                unsigned* __restrict__ counters,
+                __nv_bfloat16* __restrict__ out, int B, int H, int Hkv,
+                int S, int n_splits, int layer, float sm_scale) {
+  using L = Smem<D, G, T>;
+  constexpr int kLanes = L::kRow / 16;     // lanes per K row, 16 B each
+  constexpr int kElems = 16 / sizeof(T);   // K elements per lane
+  constexpr int kStep = 32 / kLanes;       // K rows per warp step
+  constexpr int kDims = D / 32;            // V elements per lane
+  static_assert(kRowsPerWarp % kStep == 0, "whole steps per warp");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  float* sScK = reinterpret_cast<float*>(smem + L::kScale);
+  float* sScV = sScK + kSplit;
+  float* sAcc = reinterpret_cast<float*>(smem + L::kAcc);
+  float* sM = reinterpret_cast<float*>(smem + L::kML);
+  float* sL = sM + kWarps * G;
+  float* sRed = reinterpret_cast<float*>(smem + L::kRed);
+  int* sLast = reinterpret_cast<int*>(smem + L::kFlag);
+  const T* sK = reinterpret_cast<const T*>(smem + L::kK);
+  const T* sV = reinterpret_cast<const T*>(smem + L::kV);
+  const uint32_t sbase = smem_addr(smem);
+  const uint32_t bar_k = sbase + L::kBar;     // + 8 * box
+  const uint32_t bar_v = bar_k + 8 * kBoxes;  // + 8 * box
 
   const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
   const int len = min(kv_len[b], S);
+  if (len <= 0) {  // nothing to attend to: the combine's empty-row output
+    if (sp == 0)
+      for (int i = tid; i < G * D; i += kThreads)
+        out[((long)b * H + hk * G) * D + i] = __float2bfloat16(0.f);
+    return;
+  }
   const int s0 = sp * kSplit;
   const int s1 = min(s0 + kSplit, len);
-  if (s0 >= s1) return;  // past kv_len: the combine pass skips this split
+  if (s0 >= s1) return;  // past kv_len: the combine skips this split
   const int n = s1 - s0;
+  const int n_live = (len + kSplit - 1) / kSplit;
+  const int boxes = (n + kBoxRows - 1) / kBoxRows;
 
-  const int tid = threadIdx.x;
-  const int team = tid / kLanes;
-  const int tl = tid % kLanes;
-  const int warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int i = 0; i < 2 * kBoxes; ++i) mbar_init(bar_k + 8 * i, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const int c2 = layer * B + b;
+    for (int i = 0; i < boxes; ++i) {
+      mbar_arrive_expect_tx(bar_k + 8 * i, kBoxRows * L::kRow);
+      tma_load_3d(sbase + L::kK + i * kBoxRows * L::kRow, &tk, bar_k + 8 * i,
+                  hk * D, s0 + i * kBoxRows, c2);
+      mbar_arrive_expect_tx(bar_v + 8 * i, kBoxRows * L::kRow);
+      tma_load_3d(sbase + L::kV + i * kBoxRows * L::kRow, &tv, bar_v + 8 * i,
+                  hk * D, s0 + i * kBoxRows, c2);
+    }
+  }
 
-  float qr[G][8];
+  // Scales of this split and this lane's slice of the q heads, while the
+  // cache is in flight.  Vector (layer, b, pos, hk) is at index
+  // ((layer * B + b) * S + pos) * Hkv + hk.
+  const long vec0 = ((long)layer * B + b) * S + s0;
+  for (int i = tid; i < n; i += kThreads) {
+    sScK[i] = ks != nullptr ? ks[(vec0 + i) * Hkv + hk] : 1.f;
+    sScV[i] = vs != nullptr ? vs[(vec0 + i) * Hkv + hk] : 1.f;
+  }
+  const int team = lane / kLanes, tl = lane % kLanes;
+  float qr[G][kElems];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const __nv_bfloat16* qp = q + ((long)b * H + hk * G + g) * D + tl * 8;
+    const __nv_bfloat16* qp = q + ((long)b * H + hk * G + g) * D + tl * kElems;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) qr[g][e] = __bfloat162float(qp[e]) * sm_scale;
+    for (int e = 0; e < kElems; ++e)
+      qr[g][e] = __bfloat162float(qp[e]) * sm_scale;
+  }
+  __syncthreads();  // scales visible
+
+  // One pass per warp over its rows: logits, then the online-softmax
+  // update of this warp's (m, l, acc) with the same rows' V.
+  float m[G], l[G], acc[G][kDims];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kDims; ++e) acc[g][e] = 0.f;
+  }
+  const int r_begin = warp * kRowsPerWarp;
+  if (r_begin < n) {
+    const int box = r_begin / kBoxRows;
+    mbar_wait(bar_k + 8 * box, 0);
+    mbar_wait(bar_v + 8 * box, 0);
+    const int r_end = min(n, r_begin + kRowsPerWarp);
+    for (int r0 = r_begin; r0 < r_end; r0 += kStep) {
+      // this team's row: its logit for every head, reduced in the team
+      const int r = r0 + team;
+      float kf[kElems];
+      load16(sK + r * D + tl * kElems, kf);  // rows past n: in the box, unused
+      float s[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+        for (int e = 0; e < kElems; e += 2) {
+          a0 += qr[g][e] * kf[e];
+          a1 += qr[g][e + 1] * kf[e + 1];
+        }
+        float dot = a0 + a1;
+#pragma unroll
+        for (int off = kLanes / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[g] = r < n ? dot * sScK[r] : kNegInf;
+      }
+      // every row of the step to every lane; then the softmax update
+      float p[kStep][G];
+      float mx[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) mx[g] = m[g];
+#pragma unroll
+      for (int rr = 0; rr < kStep; ++rr)
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          p[rr][g] = __shfl_sync(0xffffffffu, s[g], rr * kLanes);
+          mx[g] = fmaxf(mx[g], p[rr][g]);
+        }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float alpha = expf(m[g] - mx[g]);
+        m[g] = mx[g];
+        l[g] *= alpha;
+#pragma unroll
+        for (int e = 0; e < kDims; ++e) acc[g][e] *= alpha;
+      }
+#pragma unroll
+      for (int rr = 0; rr < kStep; ++rr) {
+        const int row = r0 + rr;
+        if (row < n) {  // warp-uniform
+          float vf[kDims];
+          load_n<kDims>(sV + row * D + lane * kDims, vf);
+          const float vsc = sScV[row];
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float e_ = expf(p[rr][g] - m[g]);
+            l[g] += e_;
+            const float w = e_ * vsc;
+#pragma unroll
+            for (int e = 0; e < kDims; ++e) acc[g][e] += w * vf[e];
+          }
+        }
+      }
+    }
   }
 
-  // Cache vector (layer, b, pos, hk) lives at index ((layer*B+b)*S+pos)*Hkv+hk.
-  const long row0 = ((long)layer * B + b) * S;
-
-  // Phase 1: logits of this split, one team of lanes per position.  The
-  // loop bound is uniform over the block so every lane of a warp reaches
-  // the shuffles; a team past the split's end computes on zeros.
-  for (int p0 = s0; p0 < s1; p0 += kTeams) {
-    const int p = p0 + team;
-    const long vec = (row0 + p) * Hkv + hk;
-    float kf[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (p < s1) load8(kc + vec * D + tl * 8, kf);
-    float dot[G];
+  // Merge the warps: each (g, d) of this split's partial.
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float acc = 0.f;
+  for (int g = 0; g < G; ++g) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc += qr[g][e] * kf[e];
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      dot[g] = acc;
-    }
-    if (tl == 0 && p < s1) {
-      const float scale = ks ? ks[vec] : 1.f;
-#pragma unroll
-      for (int g = 0; g < G; ++g) sP[g][p - s0] = dot[g] * scale;
-    }
-  }
-  __syncthreads();
-
-  // Phase 2: per-head max and sum over the split; sP becomes exp(s - m).
-  for (int g = warp; g < G; g += kThreads / 32) {
-    float m = kNegInf;
-    for (int i = lane; i < n; i += 32) m = fmaxf(m, sP[g][i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float l = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float p = expf(sP[g][i] - m);
-      sP[g][i] = p;
-      l += p;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      l += __shfl_xor_sync(0xffffffffu, l, off);
+    for (int e = 0; e < kDims; ++e)
+      sAcc[(warp * G + g) * D + lane * kDims + e] = acc[g][e];
     if (lane == 0) {
-      sM[g] = m;
-      sL[g] = l;
+      sM[warp * G + g] = m[g];
+      sL[warp * G + g] = l[g];
     }
   }
   __syncthreads();
-
-  // Phase 3: acc = sum_p p [* v_scale] v, per team, then across teams.
-  float acc[G][8];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
-  for (int p = s0 + team; p < s1; p += kTeams) {
-    const long vec = (row0 + p) * Hkv + hk;
-    float vf[8];
-    load8(vc + vec * D + tl * 8, vf);
-    const float scale = vs ? vs[vec] : 1.f;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float w = sP[g][p - s0] * scale;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[g][e] += w * vf[e];
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) sAcc[team][g * D + tl * 8 + e] = acc[g][e];
-  __syncthreads();
-
   for (int i = tid; i < G * D; i += kThreads) {
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < kTeams; ++t) sum += sAcc[t][i];
     const int g = i / D, d = i % D;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sM[w * G + g]);
+    float a = 0.f, ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = expf(sM[w * G + g] - mm);  // 0 for a warp with no rows
+      a += c * sAcc[(w * G + g) * D + d];
+      ll += c * sL[w * G + g];
+    }
     const long slot = ((long)b * H + hk * G + g) * n_splits + sp;
-    part_acc[slot * D + d] = sum;
+    part_acc[slot * D + d] = a;
+    if (d == 0) {
+      part_m[slot] = mm;
+      part_l[slot] = ll;
+    }
   }
-  if (tid < G) {
-    const long slot = ((long)b * H + hk * G + tid) * n_splits + sp;
-    part_m[slot] = sM[tid];
-    part_l[slot] = sL[tid];
+
+  // The last split of this (b, kv head) to finish combines them all.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned done = atomicAdd(&counters[b * Hkv + hk], 1u);
+    *sLast = done == static_cast<unsigned>(n_live - 1);
   }
+  __syncthreads();
+  if (!*sLast) return;
+  __threadfence();
+  const long base0 = ((long)b * H + hk * G) * n_splits;  // head g: + g * n_splits
+  float mx[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    mx[g] = -INFINITY;
+    for (int s = tid; s < n_live; s += kThreads)
+      mx[g] = fmaxf(mx[g], __ldcg(part_m + base0 + g * n_splits + s));
+  }
+  block_max<G>(mx, sRed);
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    const long base = base0 + g * n_splits;
+    float a = 0.f, ll = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < n_live; ++s) {
+      const float w = expf(__ldcg(part_m + base + s) - mx[g]);
+      ll += w * __ldcg(part_l + base + s);
+      a += w * __ldcg(part_acc + (base + s) * D + d);
+    }
+    out[((long)b * H + hk * G + g) * D + d] =
+        __float2bfloat16(a / fmaxf(ll, 1e-30f));
+  }
+  if (tid == 0) counters[b * Hkv + hk] = 0;  // ready for the next launch
 }
 
-// Pass 2: one block per (head, batch row), one thread per output element.
-__global__ void fd_combine_kernel(const float* __restrict__ part_m,
-                                  const float* __restrict__ part_l,
-                                  const float* __restrict__ part_acc,
-                                  const int* __restrict__ kv_len,
-                                  __nv_bfloat16* __restrict__ out, int H,
-                                  int S, int D, int n_splits) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int len = min(kv_len[b], S);
-  const int n_valid = (len + kSplit - 1) / kSplit;
-  const long base = ((long)b * H + h) * n_splits;
-  float m = -INFINITY;
-  for (int s = 0; s < n_valid; ++s) m = fmaxf(m, part_m[base + s]);
-  float l = 0.f, acc = 0.f;
-  for (int s = 0; s < n_valid; ++s) {
-    const float w = expf(part_m[base + s] - m);
-    l += w * part_l[base + s];
-    acc += w * part_acc[(base + s) * D + d];
+// The tensor map of a stacked cache [NL * B][S][Hkv * D] with a
+// [64][D] box, encoded once per cache and kept: a decode loop reuses the
+// same few caches for every step and layer.  Locked: ctypes releases the
+// GIL, so two host threads may launch at once.
+bool cache_map(CUtensorMap* map, const void* base, int elem_bytes,
+               uint64_t cols, uint64_t rows, uint64_t planes, uint32_t box0) {
+  struct Entry {
+    const void* base;
+    int elem_bytes;
+    uint64_t cols, rows, planes;
+    uint32_t box0;
+    CUtensorMap map;
+  };
+  static Entry entries[16];
+  static int n_entries = 0, next = 0;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < n_entries; ++i) {
+    const Entry& e = entries[i];
+    if (e.base == base && e.elem_bytes == elem_bytes && e.cols == cols &&
+        e.rows == rows && e.planes == planes && e.box0 == box0) {
+      *map = e.map;
+      return true;
+    }
   }
-  out[((long)b * H + h) * D + d] = __float2bfloat16(acc / fmaxf(l, 1e-30f));
+  const auto type = elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!make_map_3d(map, type, elem_bytes, base, cols, rows, planes, box0,
+                   kBoxRows, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return false;
+  entries[next] = Entry{base, elem_bytes, cols, rows, planes, box0, *map};
+  next = (next + 1) % 16;
+  n_entries = n_entries < 16 ? n_entries + 1 : 16;
+  return true;
 }
 
 template <int D, int G, typename T>
-cudaError_t launch_split(const void* q, const void* kc, const void* vc,
-                         const void* ks, const void* vs, const void* kv_len,
-                         void* part_m, void* part_l, void* part_acc, int B,
-                         int H, int Hkv, int S, int n_splits, int layer,
-                         float sm_scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* kc, const void* vc,
+                   const void* ks, const void* vs, const void* kv_len,
+                   void* part_m, void* part_l, void* part_acc,
+                   void* counters, void* out, int NL, int B, int H, int Hkv,
+                   int S, int n_splits, int layer, float sm_scale,
+                   cudaStream_t stream) {
+  const uint64_t planes = (uint64_t)NL * B;
+  CUtensorMap tk, tv;
+  if (!cache_map(&tk, kc, sizeof(T), (uint64_t)Hkv * D, S, planes, D) ||
+      !cache_map(&tv, vc, sizeof(T), (uint64_t)Hkv * D, S, planes, D))
+    return cudaErrorNotSupported;
+  constexpr int smem = Smem<D, G, T>::kAlloc;
+  static bool attribute_set = false;  // once per instantiation
+  if (!attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fd_split_kernel<D, G, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
   dim3 grid(n_splits, Hkv, B);
-  fd_split_kernel<D, G, T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(kv_len),
-      static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(part_acc), B, H, Hkv, S, n_splits, layer,
-      sm_scale);
+  fd_split_kernel<D, G, T><<<grid, kThreads, smem, stream>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<const int*>(kv_len), static_cast<float*>(part_m),
+      static_cast<float*>(part_l), static_cast<float*>(part_acc),
+      static_cast<unsigned*>(counters), static_cast<__nv_bfloat16*>(out), B,
+      H, Hkv, S, n_splits, layer, sm_scale);
   return cudaGetLastError();
 }
 
@@ -225,21 +471,22 @@ template <int D, typename T>
 cudaError_t dispatch_group(int G, const void* q, const void* kc,
                            const void* vc, const void* ks, const void* vs,
                            const void* kv_len, void* pm, void* pl, void* pa,
-                           int B, int H, int Hkv, int S, int n_splits,
-                           int layer, float sm_scale, cudaStream_t st) {
+                           void* cnt, void* out, int NL, int B, int H,
+                           int Hkv, int S, int n_splits, int layer,
+                           float sm_scale, cudaStream_t st) {
   switch (G) {
     case 1:
-      return launch_split<D, 1, T>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, B,
-                                   H, Hkv, S, n_splits, layer, sm_scale, st);
+      return launch<D, 1, T>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, cnt, out,
+                             NL, B, H, Hkv, S, n_splits, layer, sm_scale, st);
     case 2:
-      return launch_split<D, 2, T>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, B,
-                                   H, Hkv, S, n_splits, layer, sm_scale, st);
+      return launch<D, 2, T>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, cnt, out,
+                             NL, B, H, Hkv, S, n_splits, layer, sm_scale, st);
     case 4:
-      return launch_split<D, 4, T>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, B,
-                                   H, Hkv, S, n_splits, layer, sm_scale, st);
+      return launch<D, 4, T>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, cnt, out,
+                             NL, B, H, Hkv, S, n_splits, layer, sm_scale, st);
     case 8:
-      return launch_split<D, 8, T>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, B,
-                                   H, Hkv, S, n_splits, layer, sm_scale, st);
+      return launch<D, 8, T>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, cnt, out,
+                             NL, B, H, Hkv, S, n_splits, layer, sm_scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -249,42 +496,46 @@ cudaError_t dispatch_group(int G, const void* q, const void* kc,
 
 extern "C" int mc_flash_decode_split_len(void) { return kSplit; }
 
+// Dynamic shared memory of one block (bytes) at GQA group 1, for the build
+// report.
+extern "C" int mc_flash_decode_smem(int D, int quantized) {
+  if (D == 128)
+    return quantized ? Smem<128, 1, int8_t>::kAlloc
+                     : Smem<128, 1, __nv_bfloat16>::kAlloc;
+  return quantized ? Smem<64, 1, int8_t>::kAlloc
+                   : Smem<64, 1, __nv_bfloat16>::kAlloc;
+}
+
 extern "C" int mc_flash_decode(const void* q, const void* kc, const void* vc,
                                const void* ks, const void* vs,
                                const void* kv_len, void* part_m,
-                               void* part_l, void* part_acc, void* out,
-                               int B, int H, int Hkv, int S, int D,
-                               int layer, int quantized, float sm_scale,
-                               void* stream) {
+                               void* part_l, void* part_acc, void* counters,
+                               void* out, int NL, int B, int H, int Hkv,
+                               int S, int D, int layer, int quantized,
+                               float sm_scale, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || H % Hkv != 0 ||
-      S <= 0 || layer < 0 || (quantized && (!ks || !vs)))
+      S <= 0 || layer < 0 || layer >= NL || (quantized && (!ks || !vs)))
     return cudaErrorInvalidValue;
   const int G = H / Hkv;
   const int n_splits = (S + kSplit - 1) / kSplit;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (D == 128 && quantized)
-    err = dispatch_group<128, int8_t>(G, q, kc, vc, ks, vs, kv_len, part_m,
-                                      part_l, part_acc, B, H, Hkv, S,
-                                      n_splits, layer, sm_scale, st);
-  else if (D == 128)
-    err = dispatch_group<128, __nv_bfloat16>(
-        G, q, kc, vc, nullptr, nullptr, kv_len, part_m, part_l, part_acc, B,
-        H, Hkv, S, n_splits, layer, sm_scale, st);
-  else if (D == 64 && quantized)
-    err = dispatch_group<64, int8_t>(G, q, kc, vc, ks, vs, kv_len, part_m,
-                                     part_l, part_acc, B, H, Hkv, S,
-                                     n_splits, layer, sm_scale, st);
-  else if (D == 64)
-    err = dispatch_group<64, __nv_bfloat16>(
-        G, q, kc, vc, nullptr, nullptr, kv_len, part_m, part_l, part_acc, B,
-        H, Hkv, S, n_splits, layer, sm_scale, st);
-  else
-    return cudaErrorInvalidValue;
-  if (err != cudaSuccess) return err;
-  fd_combine_kernel<<<dim3(H, B), D, 0, st>>>(
-      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<const int*>(kv_len),
-      static_cast<__nv_bfloat16*>(out), H, S, D, n_splits);
-  return cudaGetLastError();
+    return dispatch_group<128, int8_t>(G, q, kc, vc, ks, vs, kv_len, part_m,
+                                       part_l, part_acc, counters, out, NL, B,
+                                       H, Hkv, S, n_splits, layer, sm_scale,
+                                       st);
+  if (D == 128)
+    return dispatch_group<128, __nv_bfloat16>(
+        G, q, kc, vc, nullptr, nullptr, kv_len, part_m, part_l, part_acc,
+        counters, out, NL, B, H, Hkv, S, n_splits, layer, sm_scale, st);
+  if (D == 64 && quantized)
+    return dispatch_group<64, int8_t>(G, q, kc, vc, ks, vs, kv_len, part_m,
+                                      part_l, part_acc, counters, out, NL, B,
+                                      H, Hkv, S, n_splits, layer, sm_scale,
+                                      st);
+  if (D == 64)
+    return dispatch_group<64, __nv_bfloat16>(
+        G, q, kc, vc, nullptr, nullptr, kv_len, part_m, part_l, part_acc,
+        counters, out, NL, B, H, Hkv, S, n_splits, layer, sm_scale, st);
+  return cudaErrorInvalidValue;
 }

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..devices import resolve_device
 from ..tree import numpy_to_torch
 from .vision_clip import _ln, _proj, stacked_dense_from, stacked_ln_from
 
@@ -308,11 +309,12 @@ class BeatsAudioTower:
             self.cfg = BeatsConfig()
         self.spec = spec
         if params is None:
+            device = resolve_device(device)
             if os.path.isfile(spec):
                 params = self.load_model(dtype, device)
             else:
                 if generator is None:
-                    generator = torch.Generator(device=device or "cpu")
+                    generator = torch.Generator(device=device)
                     generator.manual_seed(0)
                 params = init_beats(self.cfg, generator, dtype, device)
         self.params = params
@@ -337,7 +339,7 @@ class BeatsAudioTower:
 
     @property
     def modal_processor(self):
-        from modelcompose_tpu.data.audio_processing import BeatsAudioProcessor
+        from ..data.audio_processing import BeatsAudioProcessor
         return BeatsAudioProcessor(num_mel_bins=self.cfg.fbank_bins)
 
     def encode(self, audio_inputs, audio_padding_mask=None):

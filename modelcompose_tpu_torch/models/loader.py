@@ -18,11 +18,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from modelcompose_tpu.compose.state_io import load_adapter_dir, load_state
-from modelcompose_tpu.config import ModelConfig
-
 from ..compose.convert import hf_llama_to_params, load_adapter_into_params
+from ..compose.state_io import load_adapter_dir, load_state
+from ..config import ModelConfig
 from ..core.llama import torch_dtype
+from ..devices import resolve_device
 from ..ops.quant import quantize_backbone
 from ..ops.routed_lora import fold_dense
 from .model import MultimodalLM
@@ -101,7 +101,7 @@ def load_pretrained_model(model_path: str, model_base: Optional[str],
     if model_base is None:
         raise ValueError("composed checkpoints require --model-base "
                          "(the Vicuna base)")
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     with open(os.path.join(model_path, "config.json")) as f:
         cfg = ModelConfig.from_dict(json.load(f))
 

@@ -22,12 +22,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from modelcompose_tpu.config import ModelConfig
-from modelcompose_tpu.constants import IGNORE_INDEX
-
+from ..config import ModelConfig
+from ..constants import IGNORE_INDEX
 from ..core import generate as generation
 from ..core.llama import forward, init_params, torch_dtype
 from ..core.packing import PackPlan, assemble_embeds, plan_pack
+from ..devices import resolve_device
 from ..ops.routed_lora import (active_adapter_set, as_table,
                                compact_active_adapters)
 from .projectors import apply_projector, init_projector, output_len
@@ -49,11 +49,12 @@ class MultimodalLM:
     def random_init(cls, cfg: ModelConfig,
                     generator: Optional[torch.Generator] = None,
                     device=None) -> "MultimodalLM":
-        """Random weights made on ``device`` from ``generator`` (seed 0 on
-        the device when none is given)."""
-        device = torch.device(device if device is not None else
-                              (generator.device if generator is not None
-                               else "cpu"))
+        """Random weights made on ``device`` (the card when None) from
+        ``generator``, which must live there (seed 0 when none is given)."""
+        device = resolve_device(device)
+        if generator is not None and generator.device.type != device.type:
+            raise ValueError(f"generator on {generator.device}, weights on "
+                             f"{device}")
         if generator is None:
             generator = torch.Generator(device=device)
             generator.manual_seed(0)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..devices import resolve_device
 from ..tree import numpy_to_torch
 from .vision_clip import _ln, _proj, stacked_ln_from
 
@@ -294,11 +295,12 @@ class PointBertTower:
             self.cfg = PointBertConfig()
         self.spec = spec
         if params is None:
+            device = resolve_device(device)
             if os.path.isfile(spec):
                 params = self.load_model(dtype, device)
             else:
                 if generator is None:
-                    generator = torch.Generator(device=device or "cpu")
+                    generator = torch.Generator(device=device)
                     generator.manual_seed(0)
                 params = init_point_bert(self.cfg, generator, dtype, device)
         self.params = params

@@ -16,8 +16,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from modelcompose_tpu.config import ModelConfig
-
+from ..config import ModelConfig
+from ..devices import resolve_device
 from .audio_beats import BeatsAudioTower
 from .point_bert import PointBertTower
 from .video_languagebind import LanguageBindVideoTower
@@ -52,11 +52,12 @@ class ClipVisionTower:
             self.cfg = ClipVisionConfig(**select)
         self.spec = spec
         if params is None:
+            device = resolve_device(device)
             if os.path.isdir(spec):
                 params = self.load_model(dtype, device)
             else:
                 if generator is None:
-                    generator = torch.Generator(device=device or "cpu")
+                    generator = torch.Generator(device=device)
                     generator.manual_seed(0)
                 params = init_clip_vision(self.cfg, generator, dtype, device)
         self.params = params
@@ -112,9 +113,10 @@ def tower_class(modal: str, spec: str):
 def build_modal_encoders(cfg: ModelConfig,
                          generator: Optional[torch.Generator] = None,
                          device=None, dtype=torch.float32) -> Dict[str, Any]:
-    """One tower per configured modality, made on ``device``: loaded where
-    the spec names a local checkpoint, random from ``generator``
-    otherwise."""
+    """One tower per configured modality, made on ``device`` (the card when
+    None): loaded where the spec names a local checkpoint, random from
+    ``generator`` otherwise."""
+    device = resolve_device(device)
     encoders: Dict[str, Any] = {}
     for modal in cfg.modalities():
         spec = cfg.encoder_spec(modal)

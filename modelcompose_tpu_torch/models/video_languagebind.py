@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..devices import resolve_device
 from ..tree import numpy_to_torch
 from .vision_clip import (_ln, _proj, load_hf_dir_state, quick_gelu,
                           stacked_dense_from, stacked_ln_from)
@@ -224,11 +225,12 @@ class LanguageBindVideoTower:
             self.cfg = LanguageBindVideoConfig(select_layer=select_layer)
         self.spec = spec
         if params is None:
+            device = resolve_device(device)
             if os.path.isdir(spec):
                 params = self.load_model(dtype, device)
             else:
                 if generator is None:
-                    generator = torch.Generator(device=device or "cpu")
+                    generator = torch.Generator(device=device)
                     generator.manual_seed(0)
                 params = init_languagebind_video(self.cfg, generator, dtype,
                                                  device)
@@ -258,7 +260,7 @@ class LanguageBindVideoTower:
 
     @property
     def modal_processor(self):
-        from modelcompose_tpu.data.video_processing import (
+        from ..data.video_processing import (
             LanguageBindVideoProcessor)
         return LanguageBindVideoProcessor(num_frames=self.cfg.num_frames,
                                           size=self.cfg.image_size)

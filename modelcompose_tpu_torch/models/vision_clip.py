@@ -19,8 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from modelcompose_tpu.compose.state_io import load_state
-
+from ..compose.state_io import load_state
 from ..ops.quant import matmul_f32
 from ..tree import numpy_to_torch
 

@@ -1,7 +1,7 @@
 """Flash attention: the wrappers of kernels K1 (forward), K3 (dQ) and K4
 (dK, dV), their plain versions, and the autograd Function joining them.
 
-K1 (``csrc/flash_attention_fwd.cu``) replaces the Pallas TPU kernel
+K1 (``csrc/flash_attention_fwd.cu``, TMA + wgmma) replaces the Pallas TPU kernel
 ``modelcompose_tpu/ops/flash_attention.py::_fa_kernel``; K3 and K4
 (``csrc/flash_attention_bwd.cu``) replace ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel``.  Ragged batches are segment ids (0 = padding):
@@ -89,6 +89,28 @@ def _check_cuda_inputs(q, k, v, q_seg, kv_seg):
         raise ValueError("segment ids must be [B, Lq] and [B, S]")
 
 
+def _k1_launch(q, k, v, causal, q_segment_ids, kv_segment_ids, q_offset,
+               sm_scale, mask_all=False):
+    """Launch K1 on CUDA tensors, with every tile through the mask when
+    ``mask_all``.  (out, lse)."""
+    B, Lq, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    q_seg = _segments(q_segment_ids, B, Lq, q.device).contiguous()
+    kv_seg = _segments(kv_segment_ids, B, S, q.device).contiguous()
+    _check_cuda_inputs(q, k, v, q_seg, kv_seg)
+    lib = _build.load("flash_attention_fwd")
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    entry = (lib.mc_flash_attention_fwd_mask_all if mask_all
+             else lib.mc_flash_attention_fwd)
+    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(),
+                kv_seg.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, Hkv,
+                Lq, S, D, float(_scale(sm_scale, D)), int(bool(causal)),
+                int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_fwd")
+    return out, lse
+
+
 def flash_attention_forward(q, k, v, *, causal: bool = True,
                             q_segment_ids=None, kv_segment_ids=None,
                             q_offset: int = 0,
@@ -100,24 +122,23 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
             q, k, v, causal=causal, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, q_offset=q_offset,
             sm_scale=sm_scale)
-    B, Lq, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
-    if sm_scale is None:
-        sm_scale = D ** -0.5
-    q_seg = _segments(q_segment_ids, B, Lq, q.device).contiguous()
-    kv_seg = _segments(kv_segment_ids, B, S, q.device).contiguous()
-    _check_cuda_inputs(q, k, v, q_seg, kv_seg)
-    lib = _build.load("flash_attention_fwd")
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    err = lib.mc_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(),
-        kv_seg.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, Hkv, Lq, S,
-        D, float(sm_scale), int(bool(causal)), int(q_offset),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention_fwd")
+    res = _k1_launch(q, k, v, causal, q_segment_ids, kv_segment_ids,
+                     q_offset, sm_scale)
     flash_attention_forward.launches += 1
-    return out, lse
+    return res
+
+
+def flash_attention_forward_mask_all(q, k, v, *, causal: bool = True,
+                                     q_segment_ids=None, kv_segment_ids=None,
+                                     q_offset: int = 0,
+                                     sm_scale: Optional[float] = None):
+    """K1 with every kv tile through the per-element mask, for the test
+    that holds the unmasked fast path to it on the card.  Not counted as a
+    launch."""
+    if not q.is_cuda:
+        raise ValueError("the masked-path K1 runs only on a CUDA tensor")
+    return _k1_launch(q, k, v, causal, q_segment_ids, kv_segment_ids,
+                      q_offset, sm_scale, mask_all=True)
 
 
 flash_attention_forward.launches = 0

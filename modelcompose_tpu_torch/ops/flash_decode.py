@@ -3,7 +3,8 @@
 K2 (``csrc/flash_decode.cu``) replaces the Pallas TPU kernel
 ``modelcompose_tpu/ops/flash_decode.py::_fd_kernel``: single-token attention
 per batch row over layer ``layer_idx`` of the layer-stacked KV cache,
-masked to ``pos < kv_len[b]``.  On the TPU that kernel was opt-in and lost
+masked to ``pos < kv_len[b]``, in one launch (the split-KV partials are
+combined by the last block of each row and kv head).  On the TPU that kernel was opt-in and lost
 to the XLA loop; on the card the kernel is the decode path, and the loop
 (ops/attention.decode_attention) defines its semantics.
 
@@ -22,6 +23,29 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30
+
+# K2's scratch, one set per CUDA stream: the fp32 split partials and the
+# int32 counters of the fused combine, one per (row, kv head), which the
+# kernel leaves at zero.  Launches on one stream run one after another (a
+# decode step's layers), so they share it; a launch on another stream gets
+# its own.  A stream keeps only its last shape's set.
+_SCRATCH = {}
+
+
+def _scratch(device, stream: int, B: int, H: int, Hkv: int, n_splits: int,
+             D: int):
+    """(m, l [B, H, n_splits], acc [B, H, n_splits, D] fp32, counters
+    [B * Hkv] zeroed int32) for this launch shape on ``stream``."""
+    shape = (B, H, Hkv, n_splits, D)
+    cached = _SCRATCH.get((device, stream))
+    if cached is None or cached[0] != shape:
+        cached = _SCRATCH[(device, stream)] = (shape, (
+            torch.empty((B, H, n_splits), dtype=torch.float32, device=device),
+            torch.empty((B, H, n_splits), dtype=torch.float32, device=device),
+            torch.empty((B, H, n_splits, D), dtype=torch.float32,
+                        device=device),
+            torch.zeros(B * Hkv, dtype=torch.int32, device=device)))
+    return cached[1]
 
 
 def _parts(cache):
@@ -113,11 +137,9 @@ def flash_decode_attention(q, k_cache, v_cache, kv_len, layer_idx: int, *,
         raise ValueError(f"layer_idx {layer_idx} outside the {NL}-layer cache")
     lib = _build.load("flash_decode")
     n_splits = -(-S // lib.mc_flash_decode_split_len())
-    part_m = torch.empty((B, H, n_splits), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, H, n_splits, D), dtype=torch.float32,
-                           device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part_m, part_l, part_acc, counters = _scratch(q.device, stream, B, H,
+                                                  Hkv, n_splits, D)
     out = torch.empty_like(q)
     quantized = k_s is not None
     err = lib.mc_flash_decode(
@@ -125,8 +147,9 @@ def flash_decode_attention(q, k_cache, v_cache, kv_len, layer_idx: int, *,
         k_s.data_ptr() if quantized else None,
         v_s.data_ptr() if quantized else None, kv_len.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), B, H, Hkv, S, D, int(layer_idx), int(quantized),
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+        counters.data_ptr(), out.data_ptr(), NL, B, H, Hkv, S, D,
+        int(layer_idx), int(quantized),
+        float(sm_scale), stream)
     _build.check(err, "flash_decode")
     flash_decode_attention.launches += 1
     return out

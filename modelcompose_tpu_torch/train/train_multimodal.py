@@ -41,11 +41,11 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from modelcompose_tpu.config import ModelConfig
-from modelcompose_tpu.constants import MODAL_TOKEN_INDEXES
-
+from ..config import ModelConfig
+from ..constants import MODAL_TOKEN_INDEXES
 from ..core.llama import init_params, torch_dtype
 from ..core.packing import TRAIN_BUCKETS, pick_bucket, plan_pack
+from ..devices import resolve_device
 from ..models.model import MultimodalLM
 from ..models.projectors import init_projector, output_len
 from ..models.towers import build_modal_encoders
@@ -169,7 +169,7 @@ def build_model(args, cfg: ModelConfig, device=None) -> MultimodalLM:
         raise NotImplementedError(
             "loading a stage-1 projector is not ported yet: ROADMAP Queue 1 "
             "item 2 (loader)")
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     # a TRAINED tower keeps float32 weights (they join the optimizer)

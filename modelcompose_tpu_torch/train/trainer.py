@@ -31,15 +31,13 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from modelcompose_tpu.config import ModelConfig
-from modelcompose_tpu.constants import IGNORE_INDEX
-
+from ..config import ModelConfig
+from ..constants import IGNORE_INDEX
 from ..core.llama import (forward, forward_hidden_routed, logits_from_hidden,
                           torch_dtype)
 from ..core.packing import assemble_embeds
 from ..models.model import attach_soft_tokens, causal_lm_loss
 from ..models.projectors import apply_projector
-
 from ..tree import Path, tree_leaves, tree_map_with_path
 
 

@@ -1,0 +1,239 @@
+#!/usr/bin/env python3
+"""K1 and K2 of the PyTorch port against an earlier version of their
+sources, on one CUDA card, in turns (old, new, new, old), plus K1's
+kv-tile probe (64 against 128 rows) and K2's split probe (256 against 128
+positions per block), in turns.
+
+    python3 scripts/torch_kernel_ab.py --old DIR
+
+DIR is the root of a checkout of the earlier commit (``git archive``).  Its
+kernels are called through its own wrappers (``ops/flash_attention.py``,
+``ops/flash_decode.py``) and built by its own ``_build.py`` into DIR, so
+nothing of it enters this tree and any earlier checkout whose wrappers take
+the same arguments can be compared.  The probes build a copy of this tree's
+source with the other tile or split length into DIR.  Shapes are the main
+paths': K1 at the MCUB-4 prefill bucket (B=1, Lq=S=3,328, 3,287 valid, 32
+heads, D=128, causal) and the vision bucket (B=2, 1,024, rows of 1,024 and
+637); K2 over the int8 cache of the MCUB-4 decode (B=1, 32 layers, S=3,360,
+kv_len 3,287) and the vision decode (B=2, S=1,056, kv_len 660/630), each
+launch on the next of the 32 layers so that every read is cold in L2, and
+once more on one warm layer.  K2 is timed three ways: CUDA events around
+the loop (the host's launch gaps included), its kernels' device time from
+torch.profiler, and the host's time to enqueue a call.  Prints one JSON
+line per measurement and writes them all to ``chiprun_out/kernel_ab.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib
+import json
+import os
+import subprocess
+import sys
+import time
+import types
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from chip_smoke import cuda_time_cycle_ms, device_time_cycle_ms  # noqa: E402
+from modelcompose_tpu_torch import _build  # noqa: E402
+from modelcompose_tpu_torch.core.llama import quantize_kv  # noqa: E402
+from modelcompose_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from modelcompose_tpu_torch.ops import flash_decode as fd  # noqa: E402
+
+K1_CASES = {"mcub4_3328": (1, 3328, 32, 128, [3287]),
+            "vision_1024": (2, 1024, 32, 128, [1024, 637])}
+K2_CASES = {"mcub4_3360": (1, 3328 + 32, [3287]),
+            "vision_1056": (2, 1024 + 32, [660, 630])}
+NL, H, D = 32, 32, 128
+
+
+def old_wrappers(root):
+    """The earlier checkout's K1 and K2 wrapper modules, imported as
+    ``old_port.ops.*`` without running its package ``__init__`` (only the
+    wrappers and their ``_build`` are loaded)."""
+    pkg = os.path.join(root, "modelcompose_tpu_torch")
+    for name, path in (("old_port", pkg),
+                       ("old_port.ops", os.path.join(pkg, "ops"))):
+        mod = types.ModuleType(name)
+        mod.__path__ = [path]
+        sys.modules[name] = mod
+    return (importlib.import_module("old_port.ops.flash_attention"),
+            importlib.import_module("old_port.ops.flash_decode"))
+
+
+def variant(scratch, name, line, value):
+    """``csrc/<name>.cu`` of this tree with ``line`` set to ``value``,
+    built into ``scratch`` and loaded with the port's signatures."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    if line not in src:
+        raise RuntimeError(f"{name}.cu no longer defines {line!r}")
+    new_line = line.rsplit("=", 1)[0] + f"= {value};"
+    path = os.path.join(scratch, f"{name}_{value}.cu")
+    with open(path, "w") as f:
+        f.write(src.replace(line, new_line))
+    out = path[:-3] + ".so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                    "-o", out, path], check=True, capture_output=True)
+    lib = ctypes.CDLL(out)
+    for fn, (argtypes, restype) in _build.SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def _host_us(fn, n, calls=320):
+    """Host microseconds to enqueue one fn(i) call (no synchronization
+    inside the loop; the card runs behind)."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(calls):
+        fn(c % n)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def lib_k1(lib, q, k, v, seg):
+    """K1 from ``lib`` (this tree's C interface), causal, one segment."""
+    B, L, H_, D_ = q.shape
+    out, lse = torch.empty_like(q), torch.empty((B, H_, L), device="cuda")
+
+    def call(_):
+        err = lib.mc_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+            seg.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H_, H_, L, L,
+            D_, D_ ** -0.5, 1, 0, _stream())
+        if err:
+            raise RuntimeError(f"K1 variant: CUDA error {err}")
+        return out, lse
+    return call
+
+
+def lib_k2(lib, q, k, v, kv):
+    """K2 from ``lib`` (this tree's C interface) with its own scratch."""
+    kq = k["q"]
+    NL_, B, S = kq.shape[:3]
+    n_splits = -(-S // lib.mc_flash_decode_split_len())
+    pm = torch.empty((B, H, n_splits), device="cuda")
+    pl = torch.empty_like(pm)
+    pa = torch.empty((B, H, n_splits, D), device="cuda")
+    cnt = torch.zeros(B * H, dtype=torch.int32, device="cuda")
+    out = torch.empty_like(q)
+
+    def call(i):
+        err = lib.mc_flash_decode(
+            q.data_ptr(), kq.data_ptr(), v["q"].data_ptr(),
+            k["scale"].data_ptr(), v["scale"].data_ptr(), kv.data_ptr(),
+            pm.data_ptr(), pl.data_ptr(), pa.data_ptr(), cnt.data_ptr(),
+            out.data_ptr(), NL_, B, H, H, S, D, i, 1, D ** -0.5, _stream())
+        if err:
+            raise RuntimeError(f"K2 variant: CUDA error {err}")
+        return out
+    return call
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--old", required=True,
+                    help="root of a checkout of the earlier sources")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    old_fa, old_fd = old_wrappers(args.old)
+    bn64 = variant(args.old, "flash_attention_fwd",
+                   "constexpr int kBlockN = 128;", 64)
+    split256 = variant(args.old, "flash_decode", "constexpr int kSplit = 128;",
+                       256)
+    device_time_cycle_ms(lambda _: torch.ones(1, device="cuda").sum(), 1, 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+
+    def emit(**row):
+        row["card"] = card
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    for name, (B, L, H_, D_, lengths) in K1_CASES.items():
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        q, k, v = rnd(B, L, H_, D_), rnd(B, L, H_, D_), rnd(B, L, H_, D_)
+        seg = (torch.arange(L, device="cuda")[None]
+               < torch.tensor(lengths, device="cuda")[:, None]).int()
+        kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+        valid = seg != 0
+        versions = {
+            "old": lambda _: old_fa.flash_attention_forward(q, k, v, **kw),
+            "new": lambda _: fa.flash_attention_forward(q, k, v, **kw),
+            "bn64": lib_k1(bn64, q, k, v, seg)}
+        new_out = versions["new"](0)[0]
+        diffs = {who: float((versions[who](0)[0][valid].float()
+                             - new_out[valid].float()).abs().max())
+                 for who in ("old", "bn64")}
+        for a in ("old", "bn64"):
+            times = {a: [], "new": []}
+            for who in (a, "new", "new", a):
+                times[who].append(cuda_time_cycle_ms(versions[who], 1, 20))
+            emit(kernel="K1", case=name, compare=f"{a} vs new", ms=times,
+                 max_abs_diff_from_new=diffs[a])
+
+    for name, (B, S, kv_len) in K2_CASES.items():
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        q = rnd(B, 1, H, D)
+        k, v = quantize_kv(rnd(NL, B, S, H, D)), quantize_kv(rnd(NL, B, S, H,
+                                                                   D))
+        kv = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        scale = D ** -0.5
+        versions = {
+            "old": lambda i: old_fd.flash_decode_attention(
+                q, k, v, kv, i, sm_scale=scale),
+            "new": lambda i: fd.flash_decode_attention(q, k, v, kv, i,
+                                                       sm_scale=scale),
+            "old_warm": lambda _: old_fd.flash_decode_attention(
+                q, k, v, kv, NL - 1, sm_scale=scale),
+            "new_warm": lambda _: fd.flash_decode_attention(
+                q, k, v, kv, NL - 1, sm_scale=scale),
+            "split256": lib_k2(split256, q, k, v, kv)}
+        new_out = versions["new"](5).float()
+        diffs = {who: float((versions[who](5).float() - new_out).abs().max())
+                 for who in ("old", "split256")}
+        for a, b, n in (("old", "new", NL), ("old_warm", "new_warm", 50),
+                        ("split256", "new", NL)):
+            times = {a: [], b: []}
+            device = {a: [], b: []}
+            host = {a: [], b: []}
+            for who in (a, b, b, a):
+                times[who].append(cuda_time_cycle_ms(versions[who], n,
+                                                     3 if n == NL else 1))
+                device[who].append(device_time_cycle_ms(versions[who], n, 2))
+                host[who].append(_host_us(versions[who], n))
+            emit(kernel="K2", case=name, compare=f"{a} vs {b}",
+                 cold=n == NL, ms_events=times, ms_device=device,
+                 host_us_per_call=host,
+                 max_abs_diff_from_new=diffs[a.split("_")[0]])
+        del k, v
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "kernel_ab.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,6 +28,7 @@ from modelcompose_tpu.core.llama import init_params as jax_init_params
 
 from modelcompose_tpu_torch.compose import convert as tconvert
 from modelcompose_tpu_torch.compose.merge import merge_checkpoints
+from modelcompose_tpu_torch.config import ModelConfig as PortConfig
 from modelcompose_tpu_torch.convert import params_from_jax, params_to_numpy
 from modelcompose_tpu_torch.models import loader as tloader
 from modelcompose_tpu_torch.tree import tree_leaves
@@ -58,6 +59,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+def _port(cfg):
+    """The port's config from the JAX config's dict: each package gets
+    its own config class."""
+    return PortConfig.from_dict(cfg.to_dict())
+
 
 
 def _perturbed(tree, seed, scale=0.1):
@@ -115,7 +122,7 @@ def test_hf_llama_to_params_matches_jax(dtype):
     cfg = _unimodal_cfg("vision", dtype=dtype)
     state = jconvert.params_to_hf_llama(_perturbed(jax_init_params(
         cfg, jax.random.PRNGKey(0)), 1), cfg)
-    _assert_same_tree(tconvert.hf_llama_to_params(state, cfg),
+    _assert_same_tree(tconvert.hf_llama_to_params(state, _port(cfg)),
                       jconvert.hf_llama_to_params(state, cfg))
 
 
@@ -169,9 +176,9 @@ def test_load_adapter_into_params_matches_jax(composed_dir):
     jproj_params = {}
     want_left = jconvert.load_adapter_into_params(jparams, adapter, cfg,
                                                   jproj_params)
-    tparams = tconvert.hf_llama_to_params(base, cfg)
+    tparams = tconvert.hf_llama_to_params(base, _port(cfg))
     tproj_params = {}
-    got_left = tconvert.load_adapter_into_params(tparams, adapter, cfg,
+    got_left = tconvert.load_adapter_into_params(tparams, adapter, _port(cfg),
                                                  tproj_params)
     assert got_left == want_left and len(got_left) == 3
     _assert_same_tree(tparams, jparams)
@@ -179,7 +186,8 @@ def test_load_adapter_into_params_matches_jax(composed_dir):
     assert sorted(tproj_params) == sorted(MODALS)
     with pytest.raises(KeyError, match="unknown"):
         tconvert.load_adapter_into_params(
-            tconvert.hf_llama_to_params(base, cfg), adapter, cfg, {},
+            tconvert.hf_llama_to_params(base, _port(cfg)), adapter,
+            _port(cfg), {},
             strict=True)
 
 
@@ -193,9 +201,9 @@ def test_exporters_match_jax(composed_dir):
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
     tprojs = params_from_jax(jax.tree.map(np.asarray, jprojs))
     for got, want in (
-            (tconvert.params_to_adapter(tparams, cfg, tprojs),
+            (tconvert.params_to_adapter(tparams, _port(cfg), tprojs),
              jconvert.params_to_adapter(jparams, cfg, jprojs)),
-            (tconvert.params_to_hf_llama(tparams, cfg),
+            (tconvert.params_to_hf_llama(tparams, _port(cfg)),
              jconvert.params_to_hf_llama(jparams, cfg))):
         assert sorted(got) == sorted(want)  # jax.tree.map sorts dicts
         for k in want:
@@ -331,18 +339,20 @@ def _write_towers(root):
     rng = np.random.default_rng(7)
     cfg = _unimodal_cfg("vision")
     for spec, tower_cfg, temporal in (
-            ("test:32x2", ClipVisionTower("test:32x2", cfg).cfg, False),
-            ("test:32x3", LanguageBindVideoTower("test:32x3").cfg, True)):
+            ("test:32x2",
+             ClipVisionTower("test:32x2", cfg, device="cpu").cfg, False),
+            ("test:32x3",
+             LanguageBindVideoTower("test:32x3", device="cpu").cfg, True)):
         os.makedirs(os.path.join(root, spec))
         save_state(_clip_state(tower_cfg, rng, temporal),
                    os.path.join(root, spec, "pytorch_model.bin"))
-    beats = BeatsAudioTower("test:16x2").cfg
+    beats = BeatsAudioTower("test:16x2", device="cpu").cfg
     torch.save({"cfg": {k: v for k, v in dataclasses.asdict(beats).items()
                         if k != "fbank_bins"},
                 "model": {k: torch.from_numpy(v) for k, v in
                           _beats_state(beats, rng).items()}},
                os.path.join(root, "test:16x2"))
-    point = PointBertTower("test:24x2").cfg
+    point = PointBertTower("test:24x2", device="cpu").cfg
     torch.save({k: torch.from_numpy(v) for k, v in
                 _point_state(point, rng).items()},
                os.path.join(root, "test:24x2"))
@@ -394,7 +404,8 @@ def test_composed_greedy_ids_match_jax(composed_model_dirs, monkeypatch,
     kw = dict(load_tokenizer_fn=_no_tokenizer, load_8bit=load_8bit,
               fold_decode_dense=fold)
     _, jm, jprocs, jlen = jloader.load_pretrained_model(merged, base, **kw)
-    _, tm, tprocs, tlen = tloader.load_pretrained_model(merged, base, **kw)
+    _, tm, tprocs, tlen = tloader.load_pretrained_model(merged, base,
+                                                        device="cpu", **kw)
     assert tlen == jlen and sorted(tprocs) == sorted(jprocs)
     np.testing.assert_array_equal(np.asarray(tm.routing_table),
                                   np.asarray(jm.routing_table))
@@ -422,7 +433,7 @@ def test_composition_changes_the_answer(composed_model_dirs, monkeypatch):
     root, merged, base = composed_model_dirs
     monkeypatch.chdir(root)
     _, tm, _, _ = tloader.load_pretrained_model(
-        merged, base, load_tokenizer_fn=_no_tokenizer)
+        merged, base, load_tokenizer_fn=_no_tokenizer, device="cpu")
     ids, inputs = _requests()
     before = tm.generate(ids, inputs, max_new_tokens=8, bucket_len=64)
     tm.routing_table = np.asarray(tm.routing_table) * np.where(

@@ -72,7 +72,7 @@ def _pair(seed, **overrides):
                            local_prefix_tokens=2, local_suffix_tokens=2,
                            **overrides)
     jm = _perturb(JaxLM.random_init(cfg, jax.random.PRNGKey(seed)), seed)
-    return jm, model_from_jax(_numpy_model(jm))
+    return jm, model_from_jax(_numpy_model(jm), device="cpu")
 
 
 @pytest.fixture(scope="module")

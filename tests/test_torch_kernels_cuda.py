@@ -21,9 +21,9 @@ from modelcompose_tpu_torch.ops import attention
 from modelcompose_tpu_torch.ops.flash_attention import (
     _di, flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
     flash_attention_backward_reference, flash_attention_forward,
-    flash_attention_reference)
+    flash_attention_forward_mask_all, flash_attention_reference)
 from modelcompose_tpu_torch.ops.flash_decode import (
-    flash_decode_attention, flash_decode_reference)
+    _SCRATCH, flash_decode_attention, flash_decode_reference)
 from modelcompose_tpu_torch.ops.quant import matmul_f32
 
 pytestmark = pytest.mark.requires_cuda
@@ -73,6 +73,72 @@ def test_k1_matches_plain(B, Lq, S, H, Hkv, D, q_offset, lengths):
         want_lse.abs().max().item(), 1.0)
 
 
+def _check_k1(q, k, v, kw, out, lse):
+    ref, ref_lse = flash_attention_reference(q, k, v, **kw)
+    valid = kw["q_segment_ids"] != 0
+    assert torch.isfinite(out[valid]).all()
+    assert _rel(out[valid], ref[valid]) <= 2e-2
+    got_lse = lse.transpose(1, 2)[valid]
+    want_lse = ref_lse.transpose(1, 2)[valid]
+    assert (got_lse - want_lse).abs().max().item() <= 1e-3 * max(
+        want_lse.abs().max().item(), 1.0)
+
+
+def _packed_segments(B, L, bounds):
+    """[B, L] segment ids 1, 2, 3... changing at ``bounds`` (the same in
+    every row), padding (0) from the last bound on."""
+    seg = torch.zeros((B, L), dtype=torch.int32, device="cuda")
+    start = 0
+    for i, end in enumerate(bounds):
+        seg[:, start:end] = i + 1
+        start = end
+    return seg
+
+
+@pytest.mark.parametrize("name,B,L,H,Hkv,D,bounds,causal", [
+    # Lq and S multiples of neither 128 nor 64
+    ("ragged", 1, 77, 4, 4, 64, (77,), True),
+    ("ragged_d128", 2, 333, 8, 8, 128, (333,), True),
+    # a segment boundary inside a tile; three packed segments in one row
+    ("boundary", 1, 256, 4, 4, 128, (100, 256), True),
+    ("three_segments", 2, 300, 8, 8, 64, (70, 190, 290), True),
+    ("three_segments_full", 2, 300, 8, 8, 128, (70, 190, 290), False),
+    # B = 2 where a 128-row TMA box would run into the next batch row
+    ("batch_edge", 2, 100, 4, 4, 128, (100,), True),
+    # GQA groups 4 and 8, D = 64
+    ("gqa4", 1, 260, 32, 8, 128, (260,), True),
+    ("gqa8", 2, 200, 32, 4, 128, (150, 200), True),
+    ("d64", 2, 513, 16, 16, 64, (513,), True),
+])
+def test_k1_edges_match_plain(name, B, L, H, Hkv, D, bounds, causal):
+    gen = torch.Generator(device="cuda").manual_seed(L * H + D)
+    q = _rnd(gen, B, L, H, D)
+    k, v = _rnd(gen, B, L, Hkv, D), _rnd(gen, B, L, Hkv, D)
+    seg = _packed_segments(B, L, bounds)
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    _check_k1(q, k, v, kw, out, lse)
+    if name == "batch_edge":  # row 1 alone gives row 1 of the batch
+        alone, _ = flash_attention_forward(
+            q[1:].contiguous(), k[1:].contiguous(), v[1:].contiguous(),
+            causal=True)
+        assert torch.equal(alone[0], out[1])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_k1_fast_path_equals_masked_path(causal):
+    """Interior tiles skip the per-element mask; forcing the mask on every
+    tile gives the same bits, and both match the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (_rnd(gen, 2, 640, 8, 128) for _ in range(3))
+    seg = _packed_segments(2, 640, (384, 640))
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    fast = flash_attention_forward(q, k, v, **kw)
+    masked = flash_attention_forward_mask_all(q, k, v, **kw)
+    assert torch.equal(fast[0], masked[0]) and torch.equal(fast[1], masked[1])
+    _check_k1(q, k, v, kw, *fast)
+
+
 def test_k1_segments_isolate_packed_samples():
     """Two samples packed in one row (segments 1 and 2) attend only within
     themselves: the second equals the sample run alone."""
@@ -109,6 +175,68 @@ def test_k2_matches_plain(quantized, NL, B, S, H, Hkv, D, kv_len):
         loop = attention.decode_attention(q, k, v, lens, layer_idx=layer,
                                           impl="reference")
         assert _rel(out, ref) <= 2e-2 and _rel(out, loop) <= 2e-2
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_k2_split_edges_and_groups(quantized, group):
+    """kv_len of 1, exactly one split of 128 positions and one +- 1, two
+    splits and two +- 1, and several splits, for every GQA group, in one
+    batch."""
+    D, Hkv = 128, 4
+    lens = (1, 127, 128, 129, 256, 255, 257, 700)
+    gen = torch.Generator(device="cuda").manual_seed(group)
+    q = _rnd(gen, len(lens), 1, Hkv * group, D)
+    k, v = (_rnd(gen, 2, len(lens), 700, Hkv, D) for _ in range(2))
+    if quantized:
+        k, v = quantize_kv(k), quantize_kv(v)
+    kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = flash_decode_attention(q, k, v, kv, 1, sm_scale=D ** -0.5)
+    ref = flash_decode_reference(q, k, v, kv, 1, sm_scale=D ** -0.5)
+    assert torch.isfinite(out).all() and _rel(out, ref) <= 2e-2
+
+
+def test_k2_counters_reset_between_launches():
+    """The fused combine's counters are back at zero after each launch, so
+    two launches in a row on the same counters agree."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q = _rnd(gen, 2, 1, 8, 128)
+    k, v = (quantize_kv(_rnd(gen, 3, 2, 1100, 8, 128)) for _ in range(2))
+    kv = torch.tensor([1100, 513], dtype=torch.int32, device="cuda")
+    first = flash_decode_attention(q, k, v, kv, 2, sm_scale=0.088)
+    second = flash_decode_attention(q, k, v, kv, 2, sm_scale=0.088)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert not any(sc[3].any() for key, (_, sc) in _SCRATCH.items()
+                   if key[0] == q.device)
+    ref = flash_decode_reference(q, k, v, kv, 2, sm_scale=0.088)
+    assert _rel(first, ref) <= 2e-2
+
+
+def test_k2_concurrent_streams_keep_their_own_scratch():
+    """Launches of one shape on two streams at once, on different data:
+    each stream has its own partials and counters, so both stay right."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases = []
+    for _ in range(2):
+        q = _rnd(gen, 2, 1, 16, 128)
+        k, v = (quantize_kv(_rnd(gen, 4, 2, 1500, 16, 128)) for _ in range(2))
+        kv = torch.tensor([1500, 777], dtype=torch.int32, device="cuda")
+        cases.append((q, k, v, kv))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for layer in range(4):
+        for i, (stream, (q, k, v, kv)) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(stream):
+                outs[i].append(flash_decode_attention(q, k, v, kv, layer,
+                                                      sm_scale=0.088))
+    torch.cuda.synchronize()
+    for (q, k, v, kv), got in zip(cases, outs):
+        for layer, out in enumerate(got):
+            ref = flash_decode_reference(q, k, v, kv, layer, sm_scale=0.088)
+            assert _rel(out, ref) <= 2e-2
+    assert {key[1] for key in _SCRATCH} >= {s.cuda_stream for s in streams}
 
 
 def test_dispatchers_launch_the_kernels_and_count():

@@ -19,6 +19,7 @@ from modelcompose_tpu.config import tiny_test_config
 from modelcompose_tpu.core import llama as jllama
 from modelcompose_tpu.ops.quant import quantize_backbone as jax_quantize
 
+from modelcompose_tpu_torch.config import ModelConfig as PortConfig
 from modelcompose_tpu_torch.convert import params_from_jax
 from modelcompose_tpu_torch.core import llama
 from modelcompose_tpu_torch.core.generate import _decode_step, _prefill
@@ -26,6 +27,12 @@ from modelcompose_tpu_torch.core.generate import _decode_step, _prefill
 jgen = importlib.import_module("modelcompose_tpu.core.generate")
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _port(cfg):
+    """The port's config from the JAX config's dict: each package gets
+    its own config class."""
+    return PortConfig.from_dict(cfg.to_dict())
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -91,7 +98,7 @@ def test_forward_logits_match_jax(dtype, quantized, routed):
     embeds, route_ids, seg, _ = _inputs(cfg, 0)
     table = cfg.routing_table() if routed else None
     t_dt = llama.torch_dtype(dtype)
-    got, cache = llama.forward(tp, cfg, _t(embeds, t_dt),
+    got, cache = llama.forward(tp, _port(cfg), _t(embeds, t_dt),
                                route_ids=_t(route_ids), routing_table=table,
                                segment_ids=_t(seg))
     want, _ = jllama.forward(jp, cfg, _j(embeds, jnp.dtype(dtype)),
@@ -117,7 +124,7 @@ def test_composed_online_merge_table_matches_jax():
     tp = _to_torch(jp)
     embeds, route_ids, seg, _ = _inputs(cfg, 1, L=16, classes=(0, 1, 2, 3, 4))
     table = cfg.routing_table()
-    got, _ = llama.forward(tp, cfg, _t(embeds), route_ids=_t(route_ids),
+    got, _ = llama.forward(tp, _port(cfg), _t(embeds), route_ids=_t(route_ids),
                            routing_table=table, segment_ids=_t(seg))
     want, _ = jllama.forward(jp, cfg, _j(embeds), route_ids=_j(route_ids),
                              routing_table=table, segment_ids=_j(seg))
@@ -138,11 +145,11 @@ def test_prefill_then_decode_matches_one_shot_and_jax(kv_quant):
     next_tok = np.array([7, 11], np.int32)
     cache_len = 16
 
-    logits0, cache = _prefill(tp, cfg, _t(embeds), _t(route_ids),
+    logits0, cache = _prefill(tp, _port(cfg), _t(embeds), _t(route_ids),
                               _t(table), _t(seg), _t(lengths), cache_len,
                               kv_quant=kv_quant)
     assert isinstance(cache.k, dict) == kv_quant
-    logits1, cache, kv_lens = _decode_step(tp, cfg, cache, _t(next_tok),
+    logits1, cache, kv_lens = _decode_step(tp, _port(cfg), cache, _t(next_tok),
                                            _t(lengths), _t(table))
     assert kv_lens.tolist() == (lengths + 1).tolist()
 
@@ -163,7 +170,7 @@ def test_prefill_then_decode_matches_one_shot_and_jax(kv_quant):
         full[b, :n], routes[b, :n] = embeds[b, :n], route_ids[b, :n]
         full[b, n] = tok_emb[b]
     seg1 = (np.arange(11)[None] < (lengths + 1)[:, None]).astype(np.int32)
-    one_shot, _ = llama.forward(tp, cfg, _t(full), route_ids=_t(routes),
+    one_shot, _ = llama.forward(tp, _port(cfg), _t(full), route_ids=_t(routes),
                                 routing_table=table, segment_ids=_t(seg1))
     last = one_shot[torch.arange(2), torch.from_numpy(lengths).long()]
     tol = 1e-4 if not kv_quant else 3e-2  # int8 k/v: ~1/254 per vector
@@ -174,7 +181,7 @@ def test_prefill_then_decode_matches_one_shot_and_jax(kv_quant):
 def test_kv_cache_and_quantize_kv_match_jax():
     cfg = tiny_test_config()
     for quantized in (False, True):
-        got = llama.KVCache.zeros(cfg, 3, 20, quantized=quantized)
+        got = llama.KVCache.zeros(_port(cfg), 3, 20, quantized=quantized)
         want = jllama.KVCache.zeros(cfg, 3, 20, quantized=quantized)
         for g, w in ((got.k, want.k), (got.v, want.v)):
             g_leaves = g.values() if quantized else [g]
@@ -197,7 +204,7 @@ def test_init_params_tree_matches_jax(dtype):
                            local_prefix_tokens=3, local_suffix_tokens=2,
                            dtype=dtype)
     gen = torch.Generator().manual_seed(0)
-    got = llama.init_params(cfg, gen, "cpu")
+    got = llama.init_params(_port(cfg), gen, "cpu")
     want = jllama.init_params(cfg, jax.random.PRNGKey(0))
     g_leaves = jax.tree_util.tree_leaves_with_path(
         jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[-1]),
@@ -214,7 +221,7 @@ def test_init_params_tree_matches_jax(dtype):
 
 
 def test_chunked_prefill_is_not_ported_yet():
-    cfg = tiny_test_config()
+    cfg = _port(tiny_test_config())
     tp = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     cache = llama.KVCache.zeros(cfg, 1, 8)
     with pytest.raises(NotImplementedError, match="chunked prefill"):

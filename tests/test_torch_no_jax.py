@@ -1,13 +1,18 @@
-"""The port never imports JAX: its package runs the tiny slices end to end
-(greedy generation, a train step, then four unimodal checkpoints merged,
-loaded and answering a 4-modality prompt) in a process where ``import jax``
-fails."""
+"""The port never imports JAX nor the JAX package: its package runs the tiny
+slices end to end (greedy generation, a train step, then four unimodal
+checkpoints merged, loaded and answering a 4-modality prompt) in a process
+where ``import jax`` and ``import modelcompose_tpu`` fail, and no file of it
+(nor ``chip_smoke.py``) imports either.  Its entry points put a model on the
+card unless asked for the CPU, and raise where there is no card."""
 
 import os
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
+import torch
 
 import modelcompose_tpu_torch
 
@@ -17,6 +22,7 @@ ROOT = PKG.parent
 SLICE = r"""
 import sys
 sys.modules["jax"] = None  # any "import jax" now raises ImportError
+sys.modules["modelcompose_tpu"] = None  # and so does the JAX package
 import numpy as np
 import torch
 from modelcompose_tpu_torch import MultimodalLM, tiny_test_config
@@ -27,7 +33,7 @@ from modelcompose_tpu_torch.ops.routed_lora import fold_dense
 cfg = tiny_test_config(mm_vision_encoder="test:32x2", mm_hidden_size=32,
                        local_prefix_tokens=2, local_suffix_tokens=2,
                        dtype="bfloat16")
-model = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(0))
+model = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(0), "cpu")
 model.params = quantize_backbone(model.params)
 model.params, table = fold_dense(model.params, model.routing_table)
 model.routing_table = table.numpy()
@@ -44,7 +50,7 @@ from modelcompose_tpu_torch.train.trainer import (
 cfg = tiny_test_config(mm_vision_encoder="test:32x2", mm_hidden_size=32,
                        local_prefix_tokens=2, local_suffix_tokens=2,
                        mm_projector_type="mlp2x_gelu", remat=True)
-model = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(1))
+model = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(1), "cpu")
 batch, layout = make_batch(model, {
     "input_ids": [np.array([1, img, 9, 10]), np.array([1, 5, img, 11])],
     "labels": [np.array([-100, -100, 9, 10]), np.array([-100, -100, -100, 11])],
@@ -59,7 +65,7 @@ assert state.step == 1 and torch.isfinite(loss), loss
 # four unimodal checkpoints -> the port's merge -> the port's loader ->
 # one 4-modality greedy answer
 import os, tempfile
-from modelcompose_tpu.compose.state_io import save_state
+from modelcompose_tpu_torch.compose.state_io import save_state
 from modelcompose_tpu_torch.compose.convert import (params_to_adapter,
                                                     params_to_hf_llama)
 from modelcompose_tpu_torch.compose.merge import merge_checkpoints
@@ -74,7 +80,8 @@ root = tempfile.mkdtemp()
 paths = []
 for i, (modal, kw) in enumerate(towers.items()):
     cfg = tiny_test_config(local_prefix_tokens=1, local_suffix_tokens=1, **kw)
-    uni = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(i))
+    uni = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(i),
+                                   "cpu")
     paths.append(os.path.join(root, modal))
     os.makedirs(paths[-1])
     cfg.save(os.path.join(paths[-1], "config.json"))
@@ -88,7 +95,7 @@ merge_checkpoints(paths, merged, "online-merge-reset-" + ",".join(
     f"default-{m}=0.25" for m in towers))
 _, model, procs, _ = load_pretrained_model(
     merged, os.path.join(root, "base"), load_tokenizer_fn=lambda b: None,
-    load_8bit=True, fold_decode_dense=True)
+    load_8bit=True, fold_decode_dense=True, device="cpu")
 assert sorted(procs) == sorted(towers)
 rng = np.random.default_rng(1)
 ids = [np.array([1, img, 5, MODAL_TOKEN_INDEXES["audio"], 7,
@@ -101,7 +108,7 @@ inputs = {"vision": rng.normal(size=(1, 28, 28, 3)).astype(np.float32),
 out4 = model.generate(ids, inputs, max_new_tokens=4, compact_adapters=True,
                       kv_quant=True)
 assert len(out4) == 1 and len(out4[0]) <= 4, out4
-loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "modelcompose_tpu")]
 assert all(sys.modules[m] is None for m in loaded), loaded
 print("SLICE_OK", out)
 """
@@ -115,9 +122,61 @@ def test_slice_runs_with_jax_blocked():
     assert "SLICE_OK" in proc.stdout
 
 
-def test_no_file_of_the_port_imports_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    offenders = [str(f) for f in files if pattern.search(f.read_text())]
-    assert not offenders
-    assert len(files) > 15
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("what,pattern", [
+    ("jax", r"^\s*(import jax|from jax)\b"),
+    # the JAX package by any spelling: import modelcompose_tpu(.x), from
+    # modelcompose_tpu(.x) import, importlib of "modelcompose_tpu(.x)"
+    ("the JAX package", r"(^\s*(import|from)\s+modelcompose_tpu(\.|\s|$))"
+                        r"|import_module\(\s*[\"']modelcompose_tpu(\.|[\"'])"),
+])
+def test_no_file_of_the_port_imports(what, pattern):
+    regex = re.compile(pattern, re.M)
+    offenders = [str(f) for f in PORT_FILES if regex.search(f.read_text())]
+    assert not offenders, f"import {what}: {offenders}"
+    assert len(PORT_FILES) > 15
+
+
+@pytest.mark.parametrize("entry", [
+    "random_init", "load_pretrained_model", "build_model", "model_from_jax",
+    "build_modal_encoders", "ClipVisionTower", "BeatsAudioTower",
+    "LanguageBindVideoTower", "PointBertTower"])
+def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
+    """No device means the card; without one each entry point raises before
+    it builds anything on the CPU."""
+    from modelcompose_tpu_torch import MultimodalLM, tiny_test_config
+    from modelcompose_tpu_torch.convert import model_from_jax
+    from modelcompose_tpu_torch.models import towers
+    from modelcompose_tpu_torch.models.loader import load_pretrained_model
+    from modelcompose_tpu_torch.train import train_multimodal
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_test_config()
+    (tmp_path / "c-multimodal").mkdir()
+    cfg.save(str(tmp_path / "c-multimodal" / "config.json"))
+    args = train_multimodal.build_arg_parser().parse_args([
+        "--model_name_or_path", "-", "--data_path", "-", "--output_dir", "-",
+        "--random_init_backbone"])
+    call = {
+        "random_init": lambda: MultimodalLM.random_init(cfg),
+        "load_pretrained_model": lambda: load_pretrained_model(
+            str(tmp_path / "c-multimodal"), str(tmp_path)),
+        "build_model": lambda: train_multimodal.build_model(args, cfg),
+        "model_from_jax": lambda: model_from_jax(None),
+        "build_modal_encoders": lambda: towers.build_modal_encoders(
+            tiny_test_config(mm_vision_encoder="test:32x2")),
+        "ClipVisionTower": lambda: towers.ClipVisionTower("test:32x2", cfg),
+        "BeatsAudioTower": lambda: towers.BeatsAudioTower("test:16x2"),
+        "LanguageBindVideoTower": lambda: towers.LanguageBindVideoTower(
+            "test:32x3"),
+        "PointBertTower": lambda: towers.PointBertTower("test:16x2"),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+def test_resolve_device():
+    from modelcompose_tpu_torch.devices import resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)

@@ -27,6 +27,7 @@ from modelcompose_tpu.models import video_languagebind as jvideo
 from modelcompose_tpu.models.vision_clip import \
     convert_hf_clip_vision as j_convert_clip
 
+from modelcompose_tpu_torch.config import ModelConfig as PortConfig
 from modelcompose_tpu_torch.convert import params_from_jax, params_to_numpy
 from modelcompose_tpu_torch.models import audio_beats as tbeats
 from modelcompose_tpu_torch.models import point_bert as tpoint
@@ -48,6 +49,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+def _port(cfg):
+    """The port's config from the JAX config's dict: each package gets
+    its own config class."""
+    return PortConfig.from_dict(cfg.to_dict())
+
 
 
 def _randomize(tree, seed):
@@ -99,7 +106,7 @@ def _assert_same_tree(got_torch, want_jax):
 # ---------------------------------------------------------------------------
 
 def _beats_cfg():
-    return tbeats.BeatsAudioTower("test:16x2").cfg
+    return tbeats.BeatsAudioTower("test:16x2", device="cpu").cfg
 
 
 @pytest.mark.parametrize("dtype,masked", [
@@ -130,7 +137,7 @@ def test_beats_matches_jax(dtype, masked):
 
 
 def test_beats_tower_encode_returns_valid_mask():
-    tower = tbeats.BeatsAudioTower("test:16x2")
+    tower = tbeats.BeatsAudioTower("test:16x2", device="cpu")
     fbank = np.random.default_rng(0).normal(size=(1, 64, 8))
     mask = np.zeros((1, 64), bool)
     mask[0, 60:] = True
@@ -210,7 +217,7 @@ def test_beats_tower_loads_a_pt_checkpoint(tmp_path):
                 "model": {k: torch.from_numpy(v) for k, v in state.items()}},
                path)
     jtower = jbeats.BeatsAudioTower(path)
-    ttower = tbeats.BeatsAudioTower(path)
+    ttower = tbeats.BeatsAudioTower(path, device="cpu")
     assert dataclasses.asdict(ttower.cfg) == dataclasses.asdict(jtower.cfg)
     _assert_same_tree(ttower.params, jtower.params)
 
@@ -221,7 +228,7 @@ def test_beats_tower_loads_a_pt_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_languagebind_video_matches_jax(dtype):
-    cfg = tvideo.LanguageBindVideoTower("test:32x3").cfg
+    cfg = tvideo.LanguageBindVideoTower("test:32x3", device="cpu").cfg
     jcfg = jvideo.LanguageBindVideoConfig(**dataclasses.asdict(cfg))
     tree = _randomize(jvideo.init_languagebind_video(
         jcfg, jax.random.PRNGKey(0)), 3)
@@ -272,7 +279,7 @@ def _clip_state(cfg, rng, temporal=False):
 
 
 def test_convert_languagebind_video_matches_jax():
-    cfg = tvideo.LanguageBindVideoTower("test:32x3").cfg
+    cfg = tvideo.LanguageBindVideoTower("test:32x3", device="cpu").cfg
     state = _clip_state(cfg, np.random.default_rng(5), temporal=True)
     want = jvideo.convert_languagebind_video(
         state, jvideo.LanguageBindVideoConfig(**dataclasses.asdict(cfg)))
@@ -287,9 +294,11 @@ def test_clip_and_video_towers_load_hf_directories(tmp_path, monkeypatch):
                            mm_video_encoder="test:32x3")
     rng = np.random.default_rng(6)
     for spec, temporal, tower_cfg in (
-            ("test:32x2", False, ClipVisionTower("test:32x2", cfg).cfg),
+            ("test:32x2", False,
+             ClipVisionTower("test:32x2", _port(cfg), device="cpu").cfg),
             ("test:32x3", True,
-             tvideo.LanguageBindVideoTower("test:32x3", cfg).cfg)):
+             tvideo.LanguageBindVideoTower("test:32x3", _port(cfg),
+                                          device="cpu").cfg)):
         (tmp_path / spec).mkdir()
         torch.save({k: torch.from_numpy(v) for k, v in
                     _clip_state(tower_cfg, rng, temporal).items()},
@@ -297,7 +306,7 @@ def test_clip_and_video_towers_load_hf_directories(tmp_path, monkeypatch):
     from modelcompose_tpu.models.towers import \
         build_modal_encoders as j_build
     want = j_build(cfg)
-    got = build_modal_encoders(cfg)
+    got = build_modal_encoders(_port(cfg), device="cpu")
     for modal in ("vision", "video"):
         _assert_same_tree(got[modal].params, want[modal].params)
 
@@ -352,8 +361,9 @@ def test_knn_groups_match_jax_as_sets():
 @pytest.mark.parametrize("dtype,max_pool", [
     (torch.float32, False), (torch.float32, True), (torch.bfloat16, False)])
 def test_point_bert_matches_jax(dtype, max_pool):
-    cfg = dataclasses.replace(tpoint.PointBertTower("test:16x2").cfg,
-                              use_max_pool=max_pool)
+    cfg = dataclasses.replace(
+        tpoint.PointBertTower("test:16x2", device="cpu").cfg,
+        use_max_pool=max_pool)
     jcfg = jpoint.PointBertConfig(**dataclasses.asdict(cfg))
     tree = _randomize(jpoint.init_point_bert(jcfg, jax.random.PRNGKey(0)), 10)
     jp, tp = _pair(tree, dtype)
@@ -401,7 +411,7 @@ def _point_state(cfg, rng):
 
 
 def test_convert_point_bert_matches_jax(tmp_path, monkeypatch):
-    cfg = tpoint.PointBertTower("test:16x2").cfg
+    cfg = tpoint.PointBertTower("test:16x2", device="cpu").cfg
     state = _point_state(cfg, np.random.default_rng(12))
     jcfg = jpoint.PointBertConfig(**dataclasses.asdict(cfg))
     want = jpoint.convert_point_bert(state, jcfg)
@@ -412,7 +422,8 @@ def test_convert_point_bert_matches_jax(tmp_path, monkeypatch):
     torch.save({"state_dict": {"module.point_encoder." + k:
                                torch.from_numpy(v) for k, v in state.items()}},
                "test:16x2")
-    _assert_same_tree(tpoint.PointBertTower("test:16x2").params, want)
+    _assert_same_tree(
+        tpoint.PointBertTower("test:16x2", device="cpu").params, want)
 
 
 def test_point_processor_matches_jax():
@@ -471,7 +482,8 @@ def test_build_modal_encoders_builds_every_tower():
                            mm_audio_encoder="test:16x2",
                            mm_video_encoder="test:32x3",
                            mm_point_encoder="test:16x2")
-    encs = build_modal_encoders(cfg, torch.Generator().manual_seed(0))
+    encs = build_modal_encoders(_port(cfg), torch.Generator().manual_seed(0),
+                                device="cpu")
     assert {m: type(e).__name__ for m, e in encs.items()} == {
         "vision": "ClipVisionTower", "audio": "BeatsAudioTower",
         "video": "LanguageBindVideoTower", "point": "PointBertTower"}
@@ -485,7 +497,7 @@ def test_build_modal_encoders_builds_every_tower():
 def test_unported_towers_raise_naming_their_item(modal, spec, item):
     cfg = tiny_test_config(**{f"mm_{modal}_encoder": spec})
     with pytest.raises(NotImplementedError, match=item):
-        build_modal_encoders(cfg)
+        build_modal_encoders(_port(cfg), device="cpu")
 
 
 def test_clip_image_processor_matches_jax():

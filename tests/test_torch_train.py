@@ -40,6 +40,8 @@ from modelcompose_tpu.ops.routed_lora import routed_lora_matmul as j_rlm
 from modelcompose_tpu.train import train_multimodal as jentry
 from modelcompose_tpu.train import trainer as jtrainer
 
+from modelcompose_tpu_torch.config import ModelConfig as PortConfig
+from modelcompose_tpu_torch.config import tiny_test_config as port_tiny_config
 from modelcompose_tpu_torch.convert import (model_from_jax, params_from_jax,
                                             params_to_numpy)
 from modelcompose_tpu_torch.core.llama import reinit_lora_a
@@ -59,6 +61,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+def _port(cfg):
+    """The port's config from the JAX config's dict: each package gets
+    its own config class."""
+    return PortConfig.from_dict(cfg.to_dict())
+
 
 
 def _np(tree):
@@ -84,7 +92,8 @@ def _jax_model(cfg, seed=0):
     random init (the JAX one compiles every op eagerly, seconds on the
     CPU), with nonzero LoRA B and soft tokens so every trainable leaf gets
     a gradient; ``jax_encoders`` are JAX towers on the same weights."""
-    tm = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(seed))
+    tm = MultimodalLM.random_init(_port(cfg),
+                                  torch.Generator().manual_seed(seed), "cpu")
     rng = np.random.default_rng(seed)
     params = params_to_numpy(tm.params)
     for grp in ("attn", "mlp"):
@@ -208,7 +217,7 @@ def test_multimodal_loss_grads_match_jax():
         jax.tree.map(jnp.asarray, nm.params),
         jax.tree.map(jnp.asarray, nm.projectors))
 
-    tm = model_from_jax(nm)
+    tm = model_from_jax(nm, device="cpu")
     la = tm.params["layers"]["attn"]["q"]
     leaves = {"lora_a": la["lora_a"], "lora_b": la["lora_b"],
               "prefix": tm.params["prefix_tokens"]["vision"],
@@ -269,7 +278,8 @@ def test_optimizer_matches_optax(case):
     jparams = jax.tree.map(jnp.asarray, tree)
     jstate = jtx.init(jparams)
     tparams = params_from_jax(tree)
-    tx, labels = trainer.make_optimizer(cfg, trainer.TrainConfig(**tc_kw),
+    tx, labels = trainer.make_optimizer(_port(cfg),
+                                        trainer.TrainConfig(**tc_kw),
                                         tparams)
     tstate = tx.init(tparams)
     assert set(trainer.tree_leaves(tstate["mu"])) or case == "stage1_frozen"
@@ -317,7 +327,7 @@ def test_adapter_row_lrs_match_jax(strategy):
         reset_scaling_weights="default-vision=0.5,default-audio=0.5")
     for kw in (dict(learning_rate=1e-3, mm_language_lr=1e-5),
                dict(tune_mm_mlp_adapter=True)):
-        got = trainer.adapter_row_lrs(cfg, trainer.TrainConfig(**kw))
+        got = trainer.adapter_row_lrs(_port(cfg), trainer.TrainConfig(**kw))
         want = jtrainer.adapter_row_lrs(cfg, jtrainer.TrainConfig(**kw))
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
@@ -346,7 +356,8 @@ def test_labels_match_jax(case):
     nm = _jax_model(cfg)
     tree = {"backbone": nm.params, "projectors": nm.projectors,
             "towers": {"vision": nm.encoders["vision"].params}}
-    _, got = trainer.make_optimizer(cfg, trainer.TrainConfig(**tc_kw),
+    _, got = trainer.make_optimizer(_port(cfg),
+                                    trainer.TrainConfig(**tc_kw),
                                     params_from_jax(tree))
     _, want = jtrainer.make_optimizer(cfg, jtrainer.TrainConfig(**tc_kw),
                                       tree)
@@ -408,7 +419,7 @@ def test_train_steps_match_jax(case):
         cfg, jtc, jtx, attn_impl="pallas", donate=False,
         vision_tower_cfg=jm.encoders["vision"].cfg if tower else None)
 
-    tm = model_from_jax(nm)
+    tm = model_from_jax(nm, device="cpu")
     batch, layout = entry.make_batch(tm, col, buckets=(16,),
                                      tower_train=tower)
     assert layout == jlayout
@@ -419,13 +430,14 @@ def test_train_steps_match_jax(case):
                                       np.asarray(jbatch[key]), key)
     tc = trainer.TrainConfig(**tc_kw)
     towers = {"vision": tm.encoders["vision"].params} if tower else None
-    tx, labels = trainer.make_optimizer(cfg, tc, {
+    tx, labels = trainer.make_optimizer(_port(cfg), tc, {
         "backbone": tm.params, "projectors": tm.projectors,
         **({"towers": towers} if tower else {})})
-    state = trainer.init_train_state(cfg, tc, tm.params, tm.projectors,
+    state = trainer.init_train_state(_port(cfg), tc, tm.params,
+                                     tm.projectors,
                                      tower_params=towers, tx=tx)
     step = trainer.make_train_step(
-        cfg, tc, tx,
+        _port(cfg), tc, tx,
         vision_tower_cfg=tm.encoders["vision"].cfg if tower else None)
 
     for _ in range(2):
@@ -460,8 +472,8 @@ def test_train_steps_match_jax(case):
 # ---------------------------------------------------------------------------
 
 def _port_grads(cfg, nm, col, tc, buckets=(16,)):
-    tm = model_from_jax(nm)
-    tm.cfg = cfg
+    tm = model_from_jax(nm, device="cpu")
+    tm.cfg = cfg = _port(cfg)
     tx, _ = trainer.make_optimizer(cfg, tc, {"backbone": tm.params,
                                              "projectors": tm.projectors})
     state = trainer.init_train_state(cfg, tc, tm.params, tm.projectors,
@@ -550,11 +562,11 @@ def test_build_model_and_entry_flags():
         {a.dest for a in jentry.build_arg_parser()._actions}
     cfg = entry.build_model_config(args)
     assert cfg.remat and cfg.lora_r == 4 and jargs.lora_r == 64
-    cfg = tiny_test_config(**{k: getattr(cfg, k) for k in (
+    cfg = port_tiny_config(**{k: getattr(cfg, k) for k in (
         "mm_vision_encoder", "mm_projector_type", "lora_strategy", "lora_r",
         "lora_alpha", "local_prefix_tokens", "local_suffix_tokens",
         "remat")})
-    model = entry.build_model(args, cfg)
+    model = entry.build_model(args, cfg, "cpu")
     assert cfg.mm_hidden_size == 32
     assert model.params["layers"]["attn"]["q"]["w"]["q"].dtype == torch.int8
     assert model.encoders["vision"].params["class_embedding"].dtype == \
@@ -564,7 +576,7 @@ def test_build_model_and_entry_flags():
     assert batch["token_ids"].shape == (2, 512)  # the smallest train bucket
     # a trained tower keeps fp32 weights and runs inside the step
     args.mm_vision_tower_lr = 1e-4
-    model = entry.build_model(args, cfg)
+    model = entry.build_model(args, cfg, "cpu")
     assert all(t.dtype == torch.float32 for _, t in trainer.tree_leaves(
         model.encoders["vision"].params))
     batch, layout2 = entry.make_batch(model, _collated(), tower_train=True)
@@ -572,4 +584,4 @@ def test_build_model_and_entry_flags():
     assert batch["tower_pixels"]["vision"].shape == (2, 28, 28, 3)
     args.random_init_backbone = False
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        entry.build_model(args, cfg)
+        entry.build_model(args, cfg, "cpu")
