@@ -39,7 +39,9 @@ nonzero:
    was written, then the int8 + folded load answers the MCUB-4 request;
 8. K3 (flash-attention dQ) and K4 (dK, dV) against their plain versions,
    on K1's output and LSE, which are held against theirs at each of these
-   shapes too (the training path's among them);
+   shapes too: the shape K3/K4 have been timed at since their port, the
+   train step's batch and its micro-batches, with SDPA's backward beside
+   them (a boolean mask at B=2, ``is_causal`` at B=1);
 9. the training path at Vicuna-7B width: the vision DAMC stage-2 recipe
    (bf16 base, modal+language LoRA r=128, 5+5 soft tokens, mlp2x_gelu
    projector, remat) built through the train entry, four
@@ -59,9 +61,10 @@ of this run's inputs; ``bound_by`` says which) and one library call's time
 (``library_ms``, or null where no call computes the same function).  Each
 row's own keys keep the shape and timing of earlier runs: K1 at the vision
 bucket and K2 over the vision cache (CUDA events over warm launches), K3/K4
-at the training batch; K1's and K2's ``mcub4`` hold the composed path's
-shape, and K2's ``*_cold`` keys its device time with every launch on a
-cold layer.  The last line is ``{"ok": true, "device": {...}}``.  Without a
+at B=2, L=2,048 with rows of 2,048 and 1,391; K1's and K2's ``mcub4`` hold
+the composed path's shape, K2's ``*_cold`` keys its device time with every
+launch on a cold layer, and K3's and K4's ``train_batch`` and
+``micro_batch`` the train step's shapes.  The last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits nonzero and prints no result.
 """
 
@@ -238,11 +241,15 @@ def phase_build():
         log("build", kernel=name, seconds=f"{_build.build_seconds[name]:.1f}",
             ptxas=json.dumps(_ptxas_report(_build.build_log.get(name, ""))))
     k1, k2 = _build.load("flash_attention_fwd"), _build.load("flash_decode")
+    k34 = _build.load("flash_attention_bwd")
     log("build", dynamic_smem_bytes=json.dumps({
         "flash_attention_fwd D128": k1.mc_flash_attention_fwd_smem(128),
         "flash_attention_fwd D64": k1.mc_flash_attention_fwd_smem(64),
         "flash_decode D128 int8 G1": k2.mc_flash_decode_smem(128, 1),
-        "flash_decode D128 bf16 G1": k2.mc_flash_decode_smem(128, 0)}))
+        "flash_decode D128 bf16 G1": k2.mc_flash_decode_smem(128, 0),
+        "flash_attention_bwd dq D128": k34.mc_flash_attention_bwd_smem(0, 128),
+        "flash_attention_bwd dkv D128":
+            k34.mc_flash_attention_bwd_smem(1, 128)}))
     log("build", total_seconds=f"{time.perf_counter() - t0:.1f}")
 
 
@@ -950,8 +957,9 @@ def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths,
         res[n].update(bound_ms=bms, bound_by=by,
                       share_of_bound=bms / res[n]["ms"], library_ms=None)
     if library:
-        bwd_ms = _k34_library(q, k, v, do, kw, lengths)
-        res["dq"]["library_bwd_ms"] = res["dkv"]["library_bwd_ms"] = bwd_ms
+        bwd = _k34_library(q, k, v, do, kw, lengths)
+        res["dq"].update(bwd)
+        res["dkv"].update(bwd)
     log("K3/K4", case=repr(name),
         k1_rel_err=f"{k1_rel:.3g}", k1_lse_err=f"{k1_lse_err:.3g}",
         rel_err=json.dumps({n: float(f"{r:.3g}") for n, (_, r) in
@@ -966,37 +974,56 @@ def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths,
 
 
 def _k34_library(q, k, v, do, kw, lengths):
-    """ms of the backward of one ``scaled_dot_product_attention`` call
-    (dQ, dK and dV together) through autograd, on the case's inputs."""
+    """The backward of one ``scaled_dot_product_attention`` call (dQ, dK
+    and dV together) through autograd, on the case's inputs: with a
+    boolean mask, ``{"library_bwd_ms": ms}``; with ``is_causal`` on the
+    valid rows of one batch row, ``{"library_bwd_causal_ms": ms}``; and
+    the backend PyTorch picked, from the autograd node's name (the
+    profiler shows no device kernels for a backward run by autograd)."""
     import torch.nn.functional as F
     args, extra = _sdpa_inputs(q, k, v, kw, lengths, grad=True)
     out = F.scaled_dot_product_attention(*args, **extra)
-    g = do.transpose(1, 2)
+    g = do[:, :args[0].shape[2]].transpose(1, 2)
 
     def bwd():
         for t in args:
             t.grad = None
         out.backward(g, retain_graph=True)
     ms = cuda_time_ms(bwd)
+    backend = type(out.grad_fn).__name__
+    causal = "is_causal" in extra
     log("K3/K4", library="scaled_dot_product_attention backward",
-        kernels=json.dumps(_kernel_names(bwd)), library_bwd_ms=f"{ms:.4f}")
-    return ms
+        mask="is_causal" if causal else "bool segment+causal",
+        backend=backend, library_bwd_ms=f"{ms:.4f}")
+    key = "library_bwd_causal" if causal else "library_bwd"
+    return {f"{key}_ms": ms, f"{key}_backend": backend}
+
+
+# The train step's batch: the two samples of _train_samples (1,400 and
+# 1,100 positions) in the 2,048 bucket; its micro-batches are its rows.
+TRAIN_ROWS = [1400, 1100]
 
 
 def phase_k34(device, gen):
-    """K1, K3 and K4 at the training shapes: the train step's batch (B=2,
-    L=2048, 32 heads, D=128, causal; one row of 1391) and the
-    accumulation window's micro-batches (B=1, L=2048, rows of 1400 and
-    1100); then at a ragged length, with GQA group 4 and a query offset,
-    and at D=64.  Returns the K3/K4 results at the first shape, with the
+    """K1, K3 and K4 at the training shapes, 32 heads, D=128, causal:
+    B=2, L=2,048 with rows of 2,048 and 1,391 (the JSON row's own keys,
+    the shape K3/K4 have been timed at since their port, beside SDPA's
+    backward with a boolean mask), the train step's batch (B=2, L=2,048,
+    rows of 1,400 and 1,100: the row's ``train_batch``) and its
+    accumulation window's micro-batches (B=1, rows of 1,400 and 1,100; the
+    first is the row's ``micro_batch``, beside SDPA's ``is_causal``
+    backward on its valid rows); then at a ragged length, with GQA group 4
+    and a query offset, and at D=64.  Returns the K3/K4 results with the
     largest error over all cases for K1 ('fwd'), K3 and K4."""
-    main = _k34_case(device, gen, B=2, L=2048, S=2048, H=32, Hkv=32, D=128,
-                     q_offset=0, lengths=[2048, 1391], library=True)
-    errs = {n: [main[n]["max_abs_err"]] for n in main}
-    for case in (dict(B=1, L=2048, S=2048, H=32, Hkv=32, D=128, q_offset=0,
-                      lengths=[1400]),
-                 dict(B=1, L=2048, S=2048, H=32, Hkv=32, D=128, q_offset=0,
-                      lengths=[1100]),
+    shape = dict(S=2048, L=2048, H=32, Hkv=32, D=128, q_offset=0)
+    main = _k34_case(device, gen, B=2, lengths=[2048, 1391], library=True,
+                     **shape)
+    train = _k34_case(device, gen, B=2, lengths=TRAIN_ROWS, **shape)
+    micro = _k34_case(device, gen, B=1, lengths=TRAIN_ROWS[:1], library=True,
+                      **shape)
+    errs = {n: [r[n]["max_abs_err"] for r in (main, train, micro)]
+            for n in main}
+    for case in (dict(B=1, lengths=TRAIN_ROWS[1:], **shape),
                  dict(B=2, L=150, S=150, H=32, Hkv=32, D=128, q_offset=0,
                       lengths=[150, 97]),
                  dict(B=2, L=256, S=1024, H=32, Hkv=8, D=128, q_offset=768,
@@ -1006,7 +1033,19 @@ def phase_k34(device, gen):
         res = _k34_case(device, gen, **case)
         for n in errs:
             errs[n].append(res[n]["max_abs_err"])
-    return {n: dict(main[n], max_abs_err=max(errs[n])) for n in main}
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")
+    out = {"fwd": dict(max_abs_err=max(errs["fwd"]))}
+    for n in ("dq", "dkv"):
+        out[n] = dict(
+            main[n], max_abs_err=max(errs[n]),
+            shape="B2 L=2048 (2048, 1391 valid)",
+            train_batch=dict({k: train[n][k] for k in timed},
+                             shape="B2 L=2048 (1400, 1100 valid)"),
+            micro_batch=dict({k: micro[n][k] for k in timed},
+                             shape="B1 L=2048 (1400 valid)",
+                             **{k: v for k, v in micro[n].items()
+                                if k.startswith("library_bwd_causal")}))
+    return out
 
 
 def _train_samples(cfg, rng):

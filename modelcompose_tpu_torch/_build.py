@@ -46,16 +46,19 @@ SIGNATURES = {
         "mc_flash_attention_fwd_smem": ([_I], _I),  # D
     },
     "flash_attention_bwd": {
-        "mc_flash_attention_bwd_dq": (
+        **{f"mc_flash_attention_bwd_dq{tail}": (
             [_P, _P, _P, _P, _P, _P,      # q k v dout lse di
              _P, _P, _P,                  # q_seg kv_seg dq
              _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
-             _F, _I, _I, _P], _I),        # sm_scale causal q_offset stream
-        "mc_flash_attention_bwd_dkv": (
+             _F, _I, _I, _P], _I)         # sm_scale causal q_offset stream
+           for tail in ("", "_mask_all")},
+        **{f"mc_flash_attention_bwd_dkv{tail}": (
             [_P, _P, _P, _P, _P, _P,      # q k v dout lse di
              _P, _P, _P, _P,              # q_seg kv_seg dk dv
              _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
-             _F, _I, _I, _P], _I),        # sm_scale causal q_offset stream
+             _F, _I, _I, _P], _I)         # sm_scale causal q_offset stream
+           for tail in ("", "_mask_all")},
+        "mc_flash_attention_bwd_smem": ([_I, _I], _I),  # dkv D
     },
     "flash_decode": {
         "mc_flash_decode_split_len": ([], _I),

@@ -1,4 +1,5 @@
-// Flash-attention backward (kernels K3 and K4) for Hopper, sm_90a.
+// Flash-attention backward (kernels K3 and K4) for Hopper, sm_90a: TMA loads
+// and stores, wgmma, one producer warp and two consumer warpgroups per block.
 //
 // K3 replaces the Pallas TPU kernel modelcompose_tpu/ops/flash_attention.py
 // `_bwd_dq_kernel`, K4 replaces `_bwd_dkv_kernel` (both driven by
@@ -10,157 +11,172 @@
 // The mask is a select, not an underflow: a padding row's LSE is about
 // -1e30, so exp(S - LSE) there is not 0 and must be masked explicitly.
 //
-// What bounds it on the H100: tensor-core FLOPs, as for the forward (K1).
-// Each (q tile, kv tile) pair does four 64x64xD products in K4 (S, dP, dV,
-// dK) and three in K3 (S, dP, dQ), over bytes that are read once per tile.
-// Nothing of size Lq*S reaches device memory: S, P, dP and dS live in
-// registers as mma.sync m16n8k16 accumulators (bf16 operands, fp32
-// accumulation), and the accumulator layout of S and dS is already the
-// A-fragment layout of the second product, as P is for P.V in K1.
-//
-// Design, simple first:
-// - K3: one block per (64-row q tile, q head, batch), 4 warps of 16 q rows.
-//   Q and dO tiles stay in shared memory; the block loops over kv tiles,
-//   skipping those wholly in the causal future (the Pallas `_causal_skip`
-//   with q_offset), and keeps the dQ accumulator in fp32 registers.
-// - K4: one block per (64-row kv tile, KV head, batch), 4 warps of 16 kv
-//   rows.  It loops over the q heads of its GQA group and over the q tiles
-//   from the first one that can see this kv tile, so the group sum of the
-//   JAX wrapper happens in registers: dK/dV are written once as
-//   [B, S, Hkv, D], with no atomics and no [B, H, S, D] buffer, and the
-//   result is deterministic.
-// - Numerics of the bf16-operand contract: P is cast to bf16 before
-//   dV += P^T dO, dS is cast to bf16 before dK += dS^T Q and dQ += dS K;
-//   the accumulators are fp32 and dQ/dK/dV are written as bf16.
-// - Tiles are staged through shared memory with plain 16-byte loads, no
-//   double buffering; wgmma and TMA are later work.
+// What bounds them on the H100: tensor-core FLOPs.  At B = 2, L = 2,048,
+// 32 heads, D = 128, causal, K3 does 6 D and K4 8 D flops per valid
+// (q, kv) pair (75 and 100 GFLOP) over ~70 MB of inputs, far above the
+// ~295 flop/byte ridge, so the road to the card's rate is wgmma fed by TMA.
+// Both kernels are built from the forward's (K1) pieces:
+//   - 384 threads: warp 0 is the producer (setmaxnreg 24) and issues every
+//     load; warpgroups 1 and 2 are consumers (setmaxnreg 240) and own 64
+//     rows each of the block's 128;
+//   - TMA tensor maps over the public layouts as 3-D [B][L][heads * D],
+//     64-column boxes, 128-byte swizzle: a box never crosses into the next
+//     batch row, rows past L arrive as zeros, and the stores of the
+//     results (through the block's own operand tiles in shared memory)
+//     drop rows past L;
+//   - the block's own rows are loaded once; the other side streams through
+//     a ring of stages with full/empty mbarriers, each stage carrying its
+//     rows' segment ids with their min and max (and for K4 the LSE, scaled
+//     by log2(e) for exp2f, and Di);
+//   - products where both operands are tiles are wgmma from shared memory,
+//     K-major; the second products take the just-computed P^T or dS (dS^T)
+//     from registers in bf16 (the JAX kernels' _gemm2_cast) as the A
+//     operand and the streamed tile as the MN-major B operand, as K1 does
+//     with P.V;
+//   - per tile a warpgroup issues its two score products together, turns
+//     the first into P while the tensor cores do the second, and leaves
+//     the tile's last accumulating product (dQ in K3, dK in K4) in flight
+//     across the next tile's score products;
+//   - the producer fetches the next tile's segment ids (and LSE, Di) into
+//     registers while it waits for a free stage;
+//   - a warp whose 16 rows all share the tile's one nonzero segment, with
+//     the tile wholly on the past side of its diagonal, skips the
+//     per-element mask (the `_mask_all` entries force it, for the test that
+//     holds the two bit-equal); tiles a warpgroup cannot see (causal
+//     future, all padding) are released unread, a tile of padding rows is
+//     not even loaded, and a block whose own rows are all padding writes
+//     zeros and exits (a ragged batch's padded tail costs next to nothing);
+//   - the heaviest blocks launch first (the causal tail is light blocks).
+// K3: one block per (128-row q tile, q head, batch row); Q, dO, LSE and Di
+// stay, K, V and the kv segment ids stream in kBlockN-row tiles; S = Q K^T
+// and dP = dO V^T, then dQ += dS K.
+// K4: one block per (128-row kv tile, KV head, batch row); K and V stay, Q
+// and dO stream in 64-row tiles over every q head of the GQA group, from
+// the first q tile that can see the block's rows; S^T = K Q^T and
+// dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q.  The group sum stays
+// in the fp32 accumulators: dK/dV are written once as [B, S, Hkv, D], with
+// no atomics and no [B, H, S, D] buffer, and the result is deterministic.
 //
 // Layouts (the JAX package's public layout): q, dO [B, Lq, H, D];
 // k, v [B, S, Hkv, D], all bf16 and contiguous; LSE, Di fp32 [B, H, Lq];
 // segment ids int32 [B, Lq] / [B, S]; dq [B, Lq, H, D], dk/dv
 // [B, S, Hkv, D] bf16.  GQA: kv head = h / (H / Hkv).  D in {64, 128}.
-// Rows past Lq or S are zero-filled and masked (their segment is 0).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;   // rows a block owns: q rows (K3), kv rows (K4)
-constexpr int kThreads = 128;  // 4 warps x 16 rows
+using namespace hopper;
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int kRows = 128;     // rows a block owns: two warpgroups of 64
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kBox = 64;       // bf16 columns per TMA box: the 128-byte swizzle span
+constexpr int kHalf = 64 * 128;  // bytes of one 64-row, 64-column box
+constexpr float kLog2e = 1.4426950408889634f;
+// K3's kv rows per tile, timed against the other length by
+// scripts/torch_kernel_ab.py from a copy of this file.
+constexpr int kBlockN = 64;
+static_assert(kBlockN == 64 || kBlockN == 128, "kv tile of 64 or 128 rows");
+constexpr int kStagesDq = kBlockN == 64 ? 4 : 2;  // ring depth in ~128 KB
+constexpr int kBlockQ = 64;    // K4's q rows per tile
+constexpr int kStagesDkv = 4;
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy `rows` rows of a bf16 matrix with row stride `stride` (elements),
-// starting at row r0, into shared memory with leading dimension D + 8;
-// rows at or past `limit` are zero (0 * x, never NaN).
-template <int D, int rows>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long stride, int r0, int limit,
-                                          int tid) {
-  constexpr int LD = D + 8;  // 16 bytes of padding: conflict-free fragments
-  constexpr int kChunks = D / 8;
-  for (int i = tid; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (long)(r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// acc[16 x 8*NT] += A B^T for this warp: A is 16 rows of sA from row
-// a_row, B is the 8*NT rows of sB; both are [rows, D] in shared memory,
-// the contraction runs over D.
-template <int D, int NT>
-__device__ __forceinline__ void gemm_abt(float acc[NT][4],
-                                         const __nv_bfloat16* sA, int a_row,
-                                         const __nv_bfloat16* sB, int g,
-                                         int t4) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* pa = sA + (a_row + g) * LD + kk * 16 + t4 * 2;
-    uint32_t a[4];
-    a[0] = *reinterpret_cast<const uint32_t*>(pa);
-    a[1] = *reinterpret_cast<const uint32_t*>(pa + 8 * LD);
-    a[2] = *reinterpret_cast<const uint32_t*>(pa + 8);
-    a[3] = *reinterpret_cast<const uint32_t*>(pa + 8 * LD + 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const __nv_bfloat16* pb = sB + (nt * 8 + g) * LD + kk * 16 + t4 * 2;
-      uint32_t b[2];
-      b[0] = *reinterpret_cast<const uint32_t*>(pb);
-      b[1] = *reinterpret_cast<const uint32_t*>(pb + 8);
-      mma_16816(acc[nt], a, b);
-    }
-  }
-}
-
-// out[16 x D] += P sB for this warp: P is a 16 x 8*NT fp32 accumulator
-// (cast to bf16 here), sB holds 8*NT rows of [rows, D]; the contraction
-// runs over those rows.  The accumulator layout of two neighbouring n-tiles
-// is the A-fragment layout of one 16-wide k step.
-template <int D, int NT>
-__device__ __forceinline__ void gemm_pb(float out[D / 8][4],
-                                        float p[NT][4],
-                                        const __nv_bfloat16* sB, int g,
-                                        int t4) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_f32(p[2 * kk][0], p[2 * kk][1]);
-    a[1] = pack_f32(p[2 * kk][2], p[2 * kk][3]);
-    a[2] = pack_f32(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[3] = pack_f32(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const __nv_bfloat16* pb = sB + (kk * 16 + t4 * 2) * LD + dt * 8 + g;
-      uint32_t b[2];
-      b[0] = pack_bf16(pb[0], pb[LD]);
-      b[1] = pack_bf16(pb[8 * LD], pb[9 * LD]);
-      mma_16816(out[dt], a, b);
-    }
-  }
-}
-
+// Shared memory of K3's block, in bytes from a 1024-aligned base.  Q and dO
+// are [2 halves][D/64 boxes][64 rows][128 B]; each K or V stage is
+// [D/64 boxes][BN rows][128 B].
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long stride,
-                                           int r0, int r1, int limit,
-                                           float acc[D / 8][4],
-                                           int t4) {
+struct SmemDq {
+  static constexpr int BN = kBlockN;
+  static constexpr int kStages = kStagesDq;
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + kRows * D * 2;
+  static constexpr int kKVBytes = BN * D * 2;
+  static constexpr int kK = kDO + kRows * D * 2;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kSeg = kV + kStages * kKVBytes;   // int [kStages][BN]
+  static constexpr int kInfo = kSeg + kStages * BN * 4;   // int [kStages][2]
+  static constexpr int kLive = kInfo + kStages * 2 * 4;   // int [2][4]
+  static constexpr int kBar = kLive + 8 * 4;              // q, full[], empty[]
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+};
+
+// Shared memory of K4's block.  K and V are [2 halves][D/64 boxes][64 rows]
+// [128 B]; each Q or dO stage is [D/64 boxes][BQ rows][128 B].
+template <int D>
+struct SmemDkv {
+  static constexpr int BQ = kBlockQ;
+  static constexpr int kStages = kStagesDkv;
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kRows * D * 2;
+  static constexpr int kQBytes = BQ * D * 2;
+  static constexpr int kQ = kV + kRows * D * 2;
+  static constexpr int kDO = kQ + kStages * kQBytes;
+  static constexpr int kSeg = kDO + kStages * kQBytes;   // int [kStages][BQ]
+  static constexpr int kLse = kSeg + kStages * BQ * 4;    // float [kStages][BQ]
+  static constexpr int kDi = kLse + kStages * BQ * 4;     // float [kStages][BQ]
+  static constexpr int kInfo = kDi + kStages * BQ * 4;    // int [kStages][2]
+  static constexpr int kLive = kInfo + kStages * 2 * 4;   // int [2][4]
+  static constexpr int kBar = kLive + 8 * 4;              // kv, full[], empty[]
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+};
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// Whether any of the 64 rows of warpgroup `cw` is valid, given this warp's
+// answer: the four warps meet on named barrier 1 + cw.
+__device__ __forceinline__ bool warpgroup_any(bool mine, int* flags, int cw,
+                                              int warp, int lane) {
+  const bool warp_any = __any_sync(0xffffffffu, mine);
+  if (lane == 0) flags[cw * 4 + warp] = warp_any;
+  bar_sync(1 + cw, 128);
+  return flags[cw * 4] | flags[cw * 4 + 1] | flags[cw * 4 + 2] |
+         flags[cw * 4 + 3];
+}
+
+// Zeros into rows [r0, min(r0 + kRows, L)) of head `head` of a
+// [B][L][heads][D] bf16 tensor, 16 bytes a store: the gradient of a block
+// whose own rows are all padding.
+template <int D>
+__device__ __forceinline__ void zero_rows(__nv_bfloat16* base, int b, int L,
+                                          int heads, int head, int r0,
+                                          int tid) {
+  constexpr int kChunks = D / 8;
+  for (int i = tid; i < kRows * kChunks; i += kThreads) {
+    const int r = r0 + i / kChunks;
+    if (r < L)
+      *reinterpret_cast<uint4*>(
+          base + (((long)b * L + r) * heads + head) * D + (i % kChunks) * 8) =
+          make_uint4(0, 0, 0, 0);
+  }
+}
+
+// A 64 x D fp32 accumulator of this warpgroup, rounded to bf16, into the
+// swizzled 64-row box layout at `tile` ([D/64 boxes][64 rows][128 B]).
+template <int D>
+__device__ __forceinline__ void stage_rows(uint8_t* tile, const float* acc,
+                                           int warp, int g, int c4) {
+  const int row0 = warp * 16 + g, row1 = row0 + 8;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    if (r0 < limit)
-      *reinterpret_cast<uint32_t*>(base + r0 * stride + c) =
-          pack_f32(acc[dt][0], acc[dt][1]);
-    if (r1 < limit)
-      *reinterpret_cast<uint32_t*>(base + r1 * stride + c) =
-          pack_f32(acc[dt][2], acc[dt][3]);
+    const int box = dt / 8, col = (dt % 8) * 8 + c4 * 2;
+    uint8_t* base = tile + box * kHalf;
+    *reinterpret_cast<uint32_t*>(base + sw128_offset(row0, col)) =
+        pack_f32(acc[dt * 4 + 0], acc[dt * 4 + 1]);
+    *reinterpret_cast<uint32_t*>(base + sw128_offset(row1, col)) =
+        pack_f32(acc[dt * 4 + 2], acc[dt * 4 + 3]);
   }
 }
 
@@ -168,306 +184,789 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long stride,
 // K3: dQ
 // ---------------------------------------------------------------------------
 
-constexpr int kTileK3 = 64;  // kv columns per inner tile
-
 template <int D>
-constexpr int dq_smem_bytes() {
-  return (2 * kBlockM + 2 * kTileK3) * (D + 8) * 2 + kTileK3 * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tdq,
+                 __nv_bfloat16* __restrict__ dq_out,
                  const float* __restrict__ lse, const float* __restrict__ di,
                  const int* __restrict__ q_seg,
-                 const int* __restrict__ kv_seg,
-                 __nv_bfloat16* __restrict__ dq, int H, int Hkv, int Lq,
-                 int S, float sm_scale, int causal, int q_offset) {
-  constexpr int LD = D + 8;
-  constexpr int NT = kTileK3 / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sdO = sQ + kBlockM * LD;
-  __nv_bfloat16* sK = sdO + kBlockM * LD;
-  __nv_bfloat16* sV = sK + kTileK3 * LD;
-  int* sSeg = reinterpret_cast<int*>(sV + kTileK3 * LD);
+                 const int* __restrict__ kv_seg, int H, int Hkv, int Lq,
+                 int S, float sm_scale, float scale_log2, int causal,
+                 int q_offset, int n_qtiles, int mask_all) {
+  using L = SmemDq<D>;
+  constexpr int BN = kBlockN;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sbase = smem_addr(smem);
+  int* sSeg = reinterpret_cast<int*>(smem + L::kSeg);
+  int* sInfo = reinterpret_cast<int*>(smem + L::kInfo);
+  const uint32_t bar_q = sbase + L::kBar;
+  const uint32_t bar_full = bar_q + 8;                   // + 8 * stage
+  const uint32_t bar_empty = bar_q + 8 * (1 + kStages);  // + 8 * stage
 
-  const int q0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (n_qtiles - 1 - static_cast<int>(blockIdx.z)) * kRows;
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // mma groupID: fragment row
-  const int t4 = lane & 3;  // mma thread-in-group: fragment column pair
 
-  const long q_stride = (long)H * D;
-  const long kv_stride = (long)Hkv * D;
-  const long q_off = (long)b * Lq * q_stride + (long)h * D;
-  const __nv_bfloat16* kb = k + (long)b * S * kv_stride + (long)hk * D;
-  const __nv_bfloat16* vb = v + (long)b * S * kv_stride + (long)hk * D;
+  int n_tiles = (S + BN - 1) / BN;
+  if (causal) n_tiles = min(n_tiles, (q_offset + q0 + kRows - 1) / BN + 1);
 
-  load_tile<D, kBlockM>(sQ, q + q_off, q_stride, q0, Lq, tid);
-  load_tile<D, kBlockM>(sdO, dout + q_off, q_stride, q0, Lq, tid);
-
-  // The two q rows this thread owns in the accumulator layout.
-  const int wrow = warp * 16;
-  const int r0 = q0 + wrow + g;
-  const int r1 = r0 + 8;
-  const long row_base = ((long)b * H + h) * Lq;
-  const int seg0 = r0 < Lq ? q_seg[(long)b * Lq + r0] : 0;
-  const int seg1 = r1 < Lq ? q_seg[(long)b * Lq + r1] : 0;
-  const float lse0 = r0 < Lq ? lse[row_base + r0] : 0.f;
-  const float lse1 = r1 < Lq ? lse[row_base + r1] : 0.f;
-  const float di0 = r0 < Lq ? di[row_base + r0] : 0.f;
-  const float di1 = r1 < Lq ? di[row_base + r1] : 0.f;
-  const int pos0 = q_offset + r0;
-  const int pos1 = q_offset + r1;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  int n_tiles = (S + kTileK3 - 1) / kTileK3;
-  if (causal) {  // skip kv tiles wholly in the future of every row
-    const int last_q = q_offset + q0 + kBlockM - 1;
-    n_tiles = min(n_tiles, last_q / kTileK3 + 1);
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);  // every producer lane arrives
+      mbar_init(bar_empty + 8 * s, 8);  // every consumer warp arrives
+    }
+    fence_barrier_init();
+  }
+  if (!__syncthreads_or(tid < kRows && q0 + tid < Lq &&
+                        q_seg[(long)b * Lq + q0 + tid] != 0)) {
+    zero_rows<D>(dq_out, b, Lq, H, h, q0, tid);  // 128 padding rows
+    return;
   }
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kTileK3;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, kTileK3>(sK, kb, kv_stride, k0, S, tid);
-    load_tile<D, kTileK3>(sV, vb, kv_stride, k0, S, tid);
-    if (tid < kTileK3)
-      sSeg[tid] = k0 + tid < S ? kv_seg[(long)b * S + k0 + tid] : 0;
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
+  if (tid < 128) {
+    // ---------------------------------------------------------- producer
+    reg_dealloc<24>();
+    if (tid < 32) {
+      const int lane = tid;
+      if (lane == 0) {
+        prefetch_tensormap(&tq);
+        prefetch_tensormap(&tdo);
+        prefetch_tensormap(&tk);
+        prefetch_tensormap(&tv);
+        mbar_arrive_expect_tx(bar_q, 2 * kRows * D * 2);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-    gemm_abt<D, NT>(s, sQ, wrow, sK, g, t4);    // S = Q K^T
-    gemm_abt<D, NT>(dp, sdO, wrow, sV, g, t4);  // dP = dO V^T
-
-    // dS = P (dP - Di) scale with P = where(mask, exp(S scale - LSE), 0).
+        for (int half = 0; half < 2; ++half)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+          for (int c = 0; c < L::kBoxes; ++c) {
+            const uint32_t off = (half * L::kBoxes + c) * kHalf;
+            tma_load_3d(sbase + L::kQ + off, &tq, bar_q, h * D + c * kBox,
+                        q0 + half * 64, b);
+            tma_load_3d(sbase + L::kDO + off, &tdo, bar_q, h * D + c * kBox,
+                        q0 + half * 64, b);
+          }
+      }
+      // this lane's kv segment ids of the next tile, fetched while the
+      // ring is full
+      int seg_r[BN / 32];
+      auto fetch = [&](int j) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = nt * 8 + t4 * 2 + e;
-        const int kseg = sSeg[col];
-        const int kpos = k0 + col;
-        const bool ok0 = kseg != 0 && kseg == seg0 && (!causal || pos0 >= kpos);
-        const bool ok1 = kseg != 0 && kseg == seg1 && (!causal || pos1 >= kpos);
-        const float p0 = ok0 ? expf(s[nt][e] * sm_scale - lse0) : 0.f;
-        const float p1 = ok1 ? expf(s[nt][2 + e] * sm_scale - lse1) : 0.f;
-        s[nt][e] = p0 * (dp[nt][e] - di0) * sm_scale;
-        s[nt][2 + e] = p1 * (dp[nt][2 + e] - di1) * sm_scale;
+        for (int u = 0; u < BN / 32; ++u) {
+          const int r = j * BN + lane + 32 * u;
+          seg_r[u] = r < S ? kv_seg[(long)b * S + r] : 0;
+        }
+      };
+      fetch(0);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const int k0 = j * BN;
+        int mn = INT_MAX, mx = INT_MIN;
+#pragma unroll
+        for (int u = 0; u < BN / 32; ++u) {
+          mn = min(mn, seg_r[u]);
+          mx = max(mx, seg_r[u]);
+        }
+        mn = warp_min(mn);
+        mx = warp_max(mx);
+        mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
+#pragma unroll
+        for (int u = 0; u < BN / 32; ++u)
+          sSeg[s * BN + lane + 32 * u] = seg_r[u];
+        if (j + 1 < n_tiles) fetch(j + 1);
+        if (lane == 0) {
+          sInfo[2 * s] = mn;
+          sInfo[2 * s + 1] = mx;
+          if (mn == 0 && mx == 0) {  // all padding: nobody reads the tile
+            mbar_arrive(bar_full + 8 * s);
+            continue;
+          }
+          mbar_arrive_expect_tx(bar_full + 8 * s, 2 * L::kKVBytes);
+#pragma unroll
+          for (int c = 0; c < L::kBoxes; ++c) {
+            tma_load_3d(sbase + L::kK + s * L::kKVBytes + c * BN * 128, &tk,
+                        bar_full + 8 * s, hk * D + c * kBox, k0, b);
+            tma_load_3d(sbase + L::kV + s * L::kKVBytes + c * BN * 128, &tv,
+                        bar_full + 8 * s, hk * D + c * kBox, k0, b);
+          }
+        } else {
+          mbar_arrive(bar_full + 8 * s);
+        }
       }
     }
-    gemm_pb<D, NT>(acc, s, sK, g, t4);  // dQ += dS K (dS cast to bf16)
-  }
+  } else {
+    // --------------------------------------------------------- consumers
+    reg_alloc<240>();
+    const int cw = tid / 128 - 1;  // which 64 rows of the q tile
+    const int t = tid % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int g = lane / 4;   // accumulator row within the warp's 8
+    const int c4 = lane % 4;  // accumulator column pair
+    const int r0 = q0 + cw * 64 + warp * 16 + g;
+    const int r1 = r0 + 8;
+    const long row_base = ((long)b * H + h) * Lq;
+    const int seg0 = r0 < Lq ? q_seg[(long)b * Lq + r0] : 0;
+    const int seg1 = r1 < Lq ? q_seg[(long)b * Lq + r1] : 0;
+    const float lse0 = r0 < Lq ? lse[row_base + r0] * kLog2e : 0.f;
+    const float lse1 = r1 < Lq ? lse[row_base + r1] * kLog2e : 0.f;
+    const float di0 = r0 < Lq ? di[row_base + r0] : 0.f;
+    const float di1 = r1 < Lq ? di[row_base + r1] : 0.f;
+    const int q_mn = warp_min(min(seg0, seg1));
+    const int q_mx = warp_max(max(seg0, seg1));
+    const int pos0 = q_offset + r0, pos1 = q_offset + r1;
+    const int warp_pos = q_offset + q0 + cw * 64 + warp * 16;  // its first row
+    int n_mine = n_tiles;  // kv tiles these 64 rows read
+    if (causal) n_mine = min(n_tiles, (q_offset + q0 + cw * 64 + 63) / BN + 1);
+    // a warpgroup of padding rows has dQ = 0 and reads no tile
+    if (!warpgroup_any(seg0 != 0 || seg1 != 0,
+                       reinterpret_cast<int*>(smem + L::kLive), cw, warp,
+                       lane))
+      n_mine = 0;
 
-  store_rows<D>(dq + q_off, q_stride, r0, r1, Lq, acc, t4);
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    float sc[BN / 2];           // S of the tile, then P in fp32
+    float dp[BN / 2];           // dP of the tile, then dS
+    uint32_t da[BN / 16][4];    // dS in bf16: the A fragments of dS.K
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 16; ++i) da[i][0] = da[i][1] = da[i][2] = da[i][3] = 0u;
+    const uint32_t q_tile = sbase + L::kQ + cw * L::kBoxes * kHalf;
+    const uint32_t do_tile = sbase + L::kDO + cw * L::kBoxes * kHalf;
+
+    // S = Q K^T and dP = dO V^T of the tile in stage s, 64 x BN each, 16
+    // columns of D per step (issued, not waited for).
+    auto issue_s = [&](int s) {
+      const uint32_t k_tile = sbase + L::kK + s * L::kKVBytes;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, w = kk % 4;  // box, 32-byte step inside it
+        wgmma_ss<BN>(sc, sw128_desc(q_tile + c * kHalf + w * 32, 16, 1024),
+                     sw128_desc(k_tile + c * BN * 128 + w * 32, 16, 1024),
+                     kk > 0);
+      }
+    };
+    auto issue_dp = [&](int s) {
+      const uint32_t v_tile = sbase + L::kV + s * L::kKVBytes;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, w = kk % 4;
+        wgmma_ss<BN>(dp, sw128_desc(do_tile + c * kHalf + w * 32, 16, 1024),
+                     sw128_desc(v_tile + c * BN * 128 + w * 32, 16, 1024),
+                     kk > 0);
+      }
+    };
+    // dQ += dS K: K of stage s is the MN-major B operand (16 kv rows a step).
+    auto issue_dq = [&](int s) {
+      const uint32_t k_tile = sbase + L::kK + s * L::kKVBytes;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs_tb<D>(dq, da[kk],
+                       sw128_desc(k_tile + kk * 16 * 128, BN * 128, 1024));
+    };
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    };
+
+    mbar_wait(bar_q, 0);
+    int pending = -1;  // stage whose dS.K is still in flight
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(bar_full + 8 * s, (j / kStages) & 1);
+      const int k_mn = sInfo[2 * s], k_mx = sInfo[2 * s + 1];
+      if (j >= n_mine || (k_mn == 0 && k_mx == 0)) {  // nothing to see
+        if (pending >= 0) {  // a run of skipped tiles must not hold the ring
+          wgmma_wait<0>();
+          fence_regs(dq);
+          fence_regs(da);
+          release(pending);
+          pending = -1;
+        }
+        release(s);
+        continue;
+      }
+      const int k0 = j * BN;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      issue_s(s);
+      wgmma_commit();
+      issue_dp(s);
+      wgmma_commit();
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_wait<1>();  // S of this tile, and dS.K of the last one
+      fence_regs(sc);
+      fence_regs(dq);
+      fence_regs(da);
+      if (pending >= 0) release(pending);
+      // P = where(mask, exp2(S scale log2(e) - LSE log2(e)), 0)
+      const bool interior = !mask_all && k_mn != 0 && k_mn == k_mx &&
+                            q_mn == k_mn && q_mx == k_mn &&
+                            (!causal || k0 + BN - 1 <= warp_pos);
+      if (interior) {
+#pragma unroll
+        for (int nt = 0; nt < BN / 8; ++nt) {
+          sc[nt * 4 + 0] = exp2f(fmaf(sc[nt * 4 + 0], scale_log2, -lse0));
+          sc[nt * 4 + 1] = exp2f(fmaf(sc[nt * 4 + 1], scale_log2, -lse0));
+          sc[nt * 4 + 2] = exp2f(fmaf(sc[nt * 4 + 2], scale_log2, -lse1));
+          sc[nt * 4 + 3] = exp2f(fmaf(sc[nt * 4 + 3], scale_log2, -lse1));
+        }
+      } else {
+        const int* seg = sSeg + s * BN;
+#pragma unroll
+        for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = nt * 8 + c4 * 2 + e;
+            const int kseg = seg[col];
+            const int kpos = k0 + col;
+            const bool ok0 =
+                kseg != 0 && kseg == seg0 && (!causal || pos0 >= kpos);
+            const bool ok1 =
+                kseg != 0 && kseg == seg1 && (!causal || pos1 >= kpos);
+            const float p0 = exp2f(fmaf(sc[nt * 4 + e], scale_log2, -lse0));
+            const float p1 =
+                exp2f(fmaf(sc[nt * 4 + 2 + e], scale_log2, -lse1));
+            sc[nt * 4 + e] = ok0 ? p0 : 0.f;
+            sc[nt * 4 + 2 + e] = ok1 ? p1 : 0.f;
+          }
+        }
+      }
+      wgmma_wait<0>();  // dP of this tile
+      fence_regs(dp);
+      // dS = P (dP - Di) scale, then to bf16 (the JAX kernel's _gemm2_cast)
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        dp[nt * 4 + 0] = sc[nt * 4 + 0] * (dp[nt * 4 + 0] - di0) * sm_scale;
+        dp[nt * 4 + 1] = sc[nt * 4 + 1] * (dp[nt * 4 + 1] - di0) * sm_scale;
+        dp[nt * 4 + 2] = sc[nt * 4 + 2] * (dp[nt * 4 + 2] - di1) * sm_scale;
+        dp[nt * 4 + 3] = sc[nt * 4 + 3] * (dp[nt * 4 + 3] - di1) * sm_scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        da[kk][0] = pack_f32(dp[8 * kk + 0], dp[8 * kk + 1]);
+        da[kk][1] = pack_f32(dp[8 * kk + 2], dp[8 * kk + 3]);
+        da[kk][2] = pack_f32(dp[8 * kk + 4], dp[8 * kk + 5]);
+        da[kk][3] = pack_f32(dp[8 * kk + 6], dp[8 * kk + 7]);
+      }
+      fence_regs(da);
+      fence_regs(dq);
+      wgmma_fence();
+      issue_dq(s);
+      wgmma_commit();
+      fence_regs(dq);
+      fence_regs(da);
+      pending = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(da);
+    if (pending >= 0) release(pending);
+
+    // dQ of these 64 rows in bf16 through this warpgroup's own Q tile
+    // (no other warpgroup reads it), out by TMA stores.
+    bar_sync(1 + cw, 128);  // every warp's products are done with Q
+    stage_rows<D>(smem + L::kQ + cw * L::kBoxes * kHalf, dq, warp, g, c4);
+    fence_proxy_async();
+    bar_sync(1 + cw, 128);
+    if (t == 0 && q0 + cw * 64 < Lq) {
+#pragma unroll
+      for (int c = 0; c < L::kBoxes; ++c)
+        tma_store_3d(&tdq, q_tile + c * kHalf, h * D + c * kBox,
+                     q0 + cw * 64, b);
+      tma_store_commit_and_wait();
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
 // K4: dK, dV
 // ---------------------------------------------------------------------------
 
-// q rows per inner tile: 32 at D = 128 keeps the two fp32 [16 x D]
-// accumulators (dK, dV) and the two [16 x tile] score tiles within the
-// register file; 64 at D = 64.
 template <int D>
-__host__ __device__ constexpr int dkv_tile() {
-  return D == 128 ? 32 : 64;
-}
-
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * kBlockM + 2 * dkv_tile<D>()) * (D + 8) * 2
-         + 3 * dkv_tile<D>() * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ di,
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tdk,
+                  const __grid_constant__ CUtensorMap tdv,
+                  __nv_bfloat16* __restrict__ dk_out,
+                  __nv_bfloat16* __restrict__ dv_out,
+                  const float* __restrict__ lse, const float* __restrict__ di,
                   const int* __restrict__ q_seg,
-                  const int* __restrict__ kv_seg,
-                  __nv_bfloat16* __restrict__ dk,
-                  __nv_bfloat16* __restrict__ dv, int H, int Hkv, int Lq,
-                  int S, float sm_scale, int causal, int q_offset) {
-  constexpr int LD = D + 8;
-  constexpr int BN = dkv_tile<D>();
-  constexpr int NT = BN / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kBlockM * LD;
-  __nv_bfloat16* sQ = sV + kBlockM * LD;
-  __nv_bfloat16* sdO = sQ + BN * LD;
-  float* sLse = reinterpret_cast<float*>(sdO + BN * LD);
-  float* sDi = sLse + BN;
-  int* sSeg = reinterpret_cast<int*>(sDi + BN);
+                  const int* __restrict__ kv_seg, int H, int Hkv, int Lq,
+                  int S, float sm_scale, float scale_log2, int causal,
+                  int q_offset, int mask_all) {
+  using L = SmemDkv<D>;
+  constexpr int BQ = kBlockQ;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sbase = smem_addr(smem);
+  int* sSeg = reinterpret_cast<int*>(smem + L::kSeg);
+  float* sLse = reinterpret_cast<float*>(smem + L::kLse);
+  float* sDi = reinterpret_cast<float*>(smem + L::kDi);
+  int* sInfo = reinterpret_cast<int*>(smem + L::kInfo);
+  const uint32_t bar_kv = sbase + L::kBar;
+  const uint32_t bar_full = bar_kv + 8;
+  const uint32_t bar_empty = bar_kv + 8 * (1 + kStages);
 
-  const int k0 = blockIdx.x * kBlockM;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  // kv tile 0 is seen by every q row (causal): the heaviest blocks first
+  const int k0 = static_cast<int>(blockIdx.z) * kRows;
   const int group = H / Hkv;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
 
-  const long q_stride = (long)H * D;
-  const long kv_stride = (long)Hkv * D;
-  const long kv_off = (long)b * S * kv_stride + (long)hk * D;
-  load_tile<D, kBlockM>(sK, k + kv_off, kv_stride, k0, S, tid);
-  load_tile<D, kBlockM>(sV, v + kv_off, kv_stride, k0, S, tid);
+  const int n_qtiles = (Lq + BQ - 1) / BQ;
+  // first q tile whose last row can see kv row k0 (causal):
+  // q_offset + q0 + BQ - 1 >= k0
+  const int first = causal ? min(max(k0 - q_offset, 0) / BQ, n_qtiles) : 0;
+  const int per_head = n_qtiles - first;
+  const int n_tiles = group * per_head;
 
-  // The two kv rows this thread owns in the accumulator layout.
-  const int wrow = warp * 16;
-  const int kr0 = k0 + wrow + g;
-  const int kr1 = kr0 + 8;
-  const int kseg0 = kr0 < S ? kv_seg[(long)b * S + kr0] : 0;
-  const int kseg1 = kr1 < S ? kv_seg[(long)b * S + kr1] : 0;
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    dk_acc[dt][0] = dk_acc[dt][1] = dk_acc[dt][2] = dk_acc[dt][3] = 0.f;
-    dv_acc[dt][0] = dv_acc[dt][1] = dv_acc[dt][2] = dv_acc[dt][3] = 0.f;
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);
+      mbar_init(bar_empty + 8 * s, 8);
+    }
+    fence_barrier_init();
+  }
+  if (!__syncthreads_or(tid < kRows && k0 + tid < S &&
+                        kv_seg[(long)b * S + k0 + tid] != 0)) {
+    zero_rows<D>(dk_out, b, S, Hkv, hk, k0, tid);  // 128 padding rows
+    zero_rows<D>(dv_out, b, S, Hkv, hk, k0, tid);
+    return;
   }
 
-  const int n_q_tiles = (Lq + BN - 1) / BN;
-  // First q tile whose last row can see kv row k0 (causal): q_offset +
-  // q0 + BN - 1 >= k0.
-  const int first = causal ? max(k0 - q_offset, 0) / BN : 0;
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const long q_off = (long)b * Lq * q_stride + (long)h * D;
-    const long row_base = ((long)b * H + h) * Lq;
-    for (int i = first; i < n_q_tiles; ++i) {
-      const int q0 = i * BN;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile<D, BN>(sQ, q + q_off, q_stride, q0, Lq, tid);
-      load_tile<D, BN>(sdO, dout + q_off, q_stride, q0, Lq, tid);
-      if (tid < BN) {
-        const int r = q0 + tid;
-        sSeg[tid] = r < Lq ? q_seg[(long)b * Lq + r] : 0;
-        sLse[tid] = r < Lq ? lse[row_base + r] : 0.f;
-        sDi[tid] = r < Lq ? di[row_base + r] : 0.f;
+  if (tid < 128) {
+    // ---------------------------------------------------------- producer
+    reg_dealloc<24>();
+    if (tid < 32) {
+      const int lane = tid;
+      if (lane == 0) {
+        prefetch_tensormap(&tk);
+        prefetch_tensormap(&tv);
+        prefetch_tensormap(&tq);
+        prefetch_tensormap(&tdo);
+        mbar_arrive_expect_tx(bar_kv, 2 * kRows * D * 2);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int c = 0; c < L::kBoxes; ++c) {
+            const uint32_t off = (half * L::kBoxes + c) * kHalf;
+            tma_load_3d(sbase + L::kK + off, &tk, bar_kv, hk * D + c * kBox,
+                        k0 + half * 64, b);
+            tma_load_3d(sbase + L::kV + off, &tv, bar_kv, hk * D + c * kBox,
+                        k0 + half * 64, b);
+          }
       }
-      __syncthreads();
+      // this lane's rows of the next q tile (segment id, LSE log2(e), Di),
+      // fetched while the ring is full
+      int seg_r[BQ / 32];
+      float lse_r[BQ / 32], di_r[BQ / 32];
+      auto fetch = [&](int j) {
+        const int h = hk * group + j / per_head;
+        const int q0 = (first + j % per_head) * BQ;
+        const long row_base = ((long)b * H + h) * Lq;
+#pragma unroll
+        for (int u = 0; u < BQ / 32; ++u) {
+          const int r = q0 + lane + 32 * u;
+          const bool in = r < Lq;
+          seg_r[u] = in ? q_seg[(long)b * Lq + r] : 0;
+          lse_r[u] = in ? lse[row_base + r] * kLog2e : 0.f;
+          di_r[u] = in ? di[row_base + r] : 0.f;
+        }
+      };
+      if (n_tiles > 0) fetch(0);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const int h = hk * group + j / per_head;
+        const int q0 = (first + j % per_head) * BQ;
+        int mn = INT_MAX, mx = INT_MIN;
+#pragma unroll
+        for (int u = 0; u < BQ / 32; ++u) {
+          mn = min(mn, seg_r[u]);
+          mx = max(mx, seg_r[u]);
+        }
+        mn = warp_min(mn);
+        mx = warp_max(mx);
+        mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
+#pragma unroll
+        for (int u = 0; u < BQ / 32; ++u) {
+          sSeg[s * BQ + lane + 32 * u] = seg_r[u];
+          sLse[s * BQ + lane + 32 * u] = lse_r[u];
+          sDi[s * BQ + lane + 32 * u] = di_r[u];
+        }
+        if (j + 1 < n_tiles) fetch(j + 1);
+        if (lane == 0) {
+          sInfo[2 * s] = mn;
+          sInfo[2 * s + 1] = mx;
+          if (mn == 0 && mx == 0) {  // all padding: nobody reads the tile
+            mbar_arrive(bar_full + 8 * s);
+            continue;
+          }
+          mbar_arrive_expect_tx(bar_full + 8 * s, 2 * L::kQBytes);
+#pragma unroll
+          for (int c = 0; c < L::kBoxes; ++c) {
+            tma_load_3d(sbase + L::kQ + s * L::kQBytes + c * BQ * 128, &tq,
+                        bar_full + 8 * s, h * D + c * kBox, q0, b);
+            tma_load_3d(sbase + L::kDO + s * L::kQBytes + c * BQ * 128, &tdo,
+                        bar_full + 8 * s, h * D + c * kBox, q0, b);
+          }
+        } else {
+          mbar_arrive(bar_full + 8 * s);
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    reg_alloc<240>();
+    const int cw = tid / 128 - 1;  // which 64 kv rows of the block
+    const int t = tid % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int g = lane / 4, c4 = lane % 4;
+    const int kv_w0 = k0 + cw * 64;  // first kv row of this warpgroup
+    const int r0 = kv_w0 + warp * 16 + g;  // the kv rows of this thread
+    const int r1 = r0 + 8;
+    const int kseg0 = r0 < S ? kv_seg[(long)b * S + r0] : 0;
+    const int kseg1 = r1 < S ? kv_seg[(long)b * S + r1] : 0;
+    const int k_mn = warp_min(min(kseg0, kseg1));
+    const int k_mx = warp_max(max(kseg0, kseg1));
+    const int warp_last = kv_w0 + warp * 16 + 15;  // its last kv row
+    // a warpgroup of padding rows has dK = dV = 0 and reads no tile
+    const bool live = warpgroup_any(kseg0 != 0 || kseg1 != 0,
+                                    reinterpret_cast<int*>(smem + L::kLive),
+                                    cw, warp, lane);
 
-      // P^T = where(mask, exp(S^T scale - LSE), 0): rows kv, columns q.
-      float s[NT][4];
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      gemm_abt<D, NT>(s, sK, wrow, sQ, g, t4);  // S^T = K Q^T
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    float sc[BQ / 2];         // S^T of the tile, then P^T in fp32
+    float dp[BQ / 2];         // dP^T of the tile, then dS^T
+    uint32_t pa[BQ / 16][4];  // P^T in bf16: the A fragments of P^T.dO
+    uint32_t da[BQ / 16][4];  // dS^T in bf16: the A fragments of dS^T.Q
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+    for (int i = 0; i < BQ / 2; ++i) sc[i] = dp[i] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = nt * 8 + t4 * 2 + e;
-          const int qseg = sSeg[col];
+    for (int i = 0; i < BQ / 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[i][e] = da[i][e] = 0u;
+    const uint32_t k_tile = sbase + L::kK + cw * L::kBoxes * kHalf;
+    const uint32_t v_tile = sbase + L::kV + cw * L::kBoxes * kHalf;
+
+    // S^T = K Q^T and dP^T = V dO^T of the tile in stage s, 64 x BQ each.
+    auto issue_s = [&](int s) {
+      const uint32_t q_tile = sbase + L::kQ + s * L::kQBytes;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, w = kk % 4;
+        wgmma_ss<BQ>(sc, sw128_desc(k_tile + c * kHalf + w * 32, 16, 1024),
+                     sw128_desc(q_tile + c * BQ * 128 + w * 32, 16, 1024),
+                     kk > 0);
+      }
+    };
+    auto issue_dp = [&](int s) {
+      const uint32_t do_tile = sbase + L::kDO + s * L::kQBytes;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, w = kk % 4;
+        wgmma_ss<BQ>(dp, sw128_desc(v_tile + c * kHalf + w * 32, 16, 1024),
+                     sw128_desc(do_tile + c * BQ * 128 + w * 32, 16, 1024),
+                     kk > 0);
+      }
+    };
+    // dV += P^T dO and dK += dS^T Q: dO and Q of stage s are the MN-major
+    // B operands (16 q rows a step).
+    auto issue_dv = [&](int s) {
+      const uint32_t do_tile = sbase + L::kDO + s * L::kQBytes;
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs_tb<D>(dv, pa[kk],
+                       sw128_desc(do_tile + kk * 16 * 128, BQ * 128, 1024));
+    };
+    auto issue_dk = [&](int s) {
+      const uint32_t q_tile = sbase + L::kQ + s * L::kQBytes;
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs_tb<D>(dk, da[kk],
+                       sw128_desc(q_tile + kk * 16 * 128, BQ * 128, 1024));
+    };
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    };
+
+    mbar_wait(bar_kv, 0);
+    // Per tile: S^T and dP^T issued together; P^T from S^T while the
+    // tensor cores do dP^T; dS^T; then dV and dK issued together, dK left
+    // in flight across the next tile's S^T and dP^T.  Only dS^T's
+    // fragments stay live across tiles, and P^T's bf16 fragments are made
+    // after dS^T: the accumulators and one tile's scores fill the 240
+    // registers (dV issued before dS^T, to overlap it, held 16 more and
+    // ran slower).
+    int pending = -1;  // stage whose dK product is still in flight
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(bar_full + 8 * s, (j / kStages) & 1);
+      const int q0 = (first + j % per_head) * BQ;
+      const int q_mn = sInfo[2 * s], q_mx = sInfo[2 * s + 1];
+      if (!live || (q_mn == 0 && q_mx == 0) ||
+          (causal && q_offset + q0 + BQ - 1 < kv_w0)) {  // nothing to see
+        if (pending >= 0) {  // a run of skipped tiles must not hold the ring
+          wgmma_wait<0>();
+          fence_regs(dk);
+          fence_regs(da);
+          release(pending);
+          pending = -1;
+        }
+        release(s);
+        continue;
+      }
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      issue_s(s);
+      wgmma_commit();
+      issue_dp(s);
+      wgmma_commit();
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_wait<1>();  // S^T of this tile, and dK of the last one
+      fence_regs(sc);
+      fence_regs(dk);
+      fence_regs(da);
+      if (pending >= 0) release(pending);
+      // P^T = where(mask, exp2(S^T scale log2(e) - LSE log2(e)), 0): rows
+      // are kv, columns q.
+      const float* lse2 = sLse + s * BQ;
+      const bool interior = !mask_all && q_mn != 0 && q_mn == q_mx &&
+                            k_mn == q_mn && k_mx == q_mn &&
+                            (!causal || q_offset + q0 >= warp_last);
+      if (interior) {
+#pragma unroll
+        for (int nt = 0; nt < BQ / 8; ++nt) {
+          const float2 l =
+              *reinterpret_cast<const float2*>(lse2 + nt * 8 + c4 * 2);
+          sc[nt * 4 + 0] = exp2f(fmaf(sc[nt * 4 + 0], scale_log2, -l.x));
+          sc[nt * 4 + 1] = exp2f(fmaf(sc[nt * 4 + 1], scale_log2, -l.y));
+          sc[nt * 4 + 2] = exp2f(fmaf(sc[nt * 4 + 2], scale_log2, -l.x));
+          sc[nt * 4 + 3] = exp2f(fmaf(sc[nt * 4 + 3], scale_log2, -l.y));
+        }
+      } else {
+        const int* qs = sSeg + s * BQ;
+#pragma unroll
+        for (int nt = 0; nt < BQ / 8; ++nt) {
+          const int col = nt * 8 + c4 * 2;
+          const float2 l = *reinterpret_cast<const float2*>(lse2 + col);
+          const int2 qseg = *reinterpret_cast<const int2*>(qs + col);
           const int qpos = q_offset + q0 + col;
-          const float l = sLse[col];
-          const bool ok0 = kseg0 != 0 && qseg == kseg0 && (!causal || qpos >= kr0);
-          const bool ok1 = kseg1 != 0 && qseg == kseg1 && (!causal || qpos >= kr1);
-          s[nt][e] = ok0 ? expf(s[nt][e] * sm_scale - l) : 0.f;
-          s[nt][2 + e] = ok1 ? expf(s[nt][2 + e] * sm_scale - l) : 0.f;
+          const bool ok00 = kseg0 != 0 && qseg.x == kseg0 &&
+                            (!causal || qpos >= r0);
+          const bool ok01 = kseg0 != 0 && qseg.y == kseg0 &&
+                            (!causal || qpos + 1 >= r0);
+          const bool ok10 = kseg1 != 0 && qseg.x == kseg1 &&
+                            (!causal || qpos >= r1);
+          const bool ok11 = kseg1 != 0 && qseg.y == kseg1 &&
+                            (!causal || qpos + 1 >= r1);
+          const float p00 = exp2f(fmaf(sc[nt * 4 + 0], scale_log2, -l.x));
+          const float p01 = exp2f(fmaf(sc[nt * 4 + 1], scale_log2, -l.y));
+          const float p10 = exp2f(fmaf(sc[nt * 4 + 2], scale_log2, -l.x));
+          const float p11 = exp2f(fmaf(sc[nt * 4 + 3], scale_log2, -l.y));
+          sc[nt * 4 + 0] = ok00 ? p00 : 0.f;
+          sc[nt * 4 + 1] = ok01 ? p01 : 0.f;
+          sc[nt * 4 + 2] = ok10 ? p10 : 0.f;
+          sc[nt * 4 + 3] = ok11 ? p11 : 0.f;
         }
       }
-      gemm_pb<D, NT>(dv_acc, s, sdO, g, t4);  // dV += P^T dO (P in bf16)
+      wgmma_wait<0>();  // dP^T of this tile
+      fence_regs(dp);
+      // dS^T = P^T (dP^T - Di) scale; then P^T and dS^T to bf16
+      const float* dis = sDi + s * BQ;
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt) {
+        const float2 d =
+            *reinterpret_cast<const float2*>(dis + nt * 8 + c4 * 2);
+        dp[nt * 4 + 0] = sc[nt * 4 + 0] * (dp[nt * 4 + 0] - d.x) * sm_scale;
+        dp[nt * 4 + 1] = sc[nt * 4 + 1] * (dp[nt * 4 + 1] - d.y) * sm_scale;
+        dp[nt * 4 + 2] = sc[nt * 4 + 2] * (dp[nt * 4 + 2] - d.x) * sm_scale;
+        dp[nt * 4 + 3] = sc[nt * 4 + 3] * (dp[nt * 4 + 3] - d.y) * sm_scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        pa[kk][0] = pack_f32(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_f32(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_f32(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_f32(sc[8 * kk + 6], sc[8 * kk + 7]);
+        da[kk][0] = pack_f32(dp[8 * kk + 0], dp[8 * kk + 1]);
+        da[kk][1] = pack_f32(dp[8 * kk + 2], dp[8 * kk + 3]);
+        da[kk][2] = pack_f32(dp[8 * kk + 4], dp[8 * kk + 5]);
+        da[kk][3] = pack_f32(dp[8 * kk + 6], dp[8 * kk + 7]);
+      }
+      fence_regs(pa);
+      fence_regs(da);
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+      issue_dv(s);
+      wgmma_commit();
+      issue_dk(s);
+      wgmma_commit();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+      wgmma_wait<1>();  // dV of this tile (dK left in flight)
+      fence_regs(dv);
+      fence_regs(pa);
+      pending = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(pa);
+    fence_regs(da);
+    if (pending >= 0) release(pending);
 
-      float dp[NT][4];
+    // dK and dV of these 64 rows in bf16 through this warpgroup's own K and
+    // V tiles (no other warpgroup reads them), out by TMA stores.
+    bar_sync(1 + cw, 128);  // every warp's products are done with K, V
+    stage_rows<D>(smem + L::kK + cw * L::kBoxes * kHalf, dk, warp, g, c4);
+    stage_rows<D>(smem + L::kV + cw * L::kBoxes * kHalf, dv, warp, g, c4);
+    fence_proxy_async();
+    bar_sync(1 + cw, 128);
+    if (t == 0 && kv_w0 < S) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-      gemm_abt<D, NT>(dp, sV, wrow, sdO, g, t4);  // dP^T = V dO^T
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float d = sDi[nt * 8 + t4 * 2 + e];
-          dp[nt][e] = s[nt][e] * (dp[nt][e] - d) * sm_scale;
-          dp[nt][2 + e] = s[nt][2 + e] * (dp[nt][2 + e] - d) * sm_scale;
-        }
+      for (int c = 0; c < L::kBoxes; ++c) {
+        tma_store_3d(&tdk, k_tile + c * kHalf, hk * D + c * kBox, kv_w0, b);
+        tma_store_3d(&tdv, v_tile + c * kHalf, hk * D + c * kBox, kv_w0, b);
       }
-      gemm_pb<D, NT>(dk_acc, dp, sQ, g, t4);  // dK += dS^T Q (dS in bf16)
+      tma_store_commit_and_wait();
     }
   }
-
-  store_rows<D>(dk + kv_off, kv_stride, kr0, kr1, S, dk_acc, t4);
-  store_rows<D>(dv + kv_off, kv_stride, kr0, kr1, S, dv_acc, t4);
 }
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *di, *q_seg, *kv_seg;
   int B, H, Hkv, Lq, S;
   float sm_scale;
-  int causal, q_offset;
+  int causal, q_offset, mask_all;
   cudaStream_t stream;
 };
 
+constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+constexpr CUtensorMapSwizzle kSw128 = CU_TENSOR_MAP_SWIZZLE_128B;
+
+// A [B][L][heads * D] bf16 tensor map with a [64 columns] x [rows] box.
+bool map_rows(CUtensorMap* map, const void* base, int B, int L, int heads,
+              int D, int rows) {
+  return make_map_3d(map, kBf16, 2, base, (uint64_t)heads * D, L, B, kBox,
+                     rows, kSw128);
+}
+
 template <int D>
 cudaError_t launch_dq(const Args& a, void* dq) {
-  constexpr int smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.Lq + kBlockM - 1) / kBlockM, a.H, a.B);
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!map_rows(&tq, a.q, a.B, a.Lq, a.H, D, 64) ||
+      !map_rows(&tdo, a.dout, a.B, a.Lq, a.H, D, 64) ||
+      !map_rows(&tdq, dq, a.B, a.Lq, a.H, D, 64) ||
+      !map_rows(&tk, a.k, a.B, a.S, a.Hkv, D, kBlockN) ||
+      !map_rows(&tv, a.v, a.B, a.S, a.Hkv, D, kBlockN))
+    return cudaErrorNotSupported;
+  constexpr int smem = SmemDq<D>::kAlloc;
+  static bool attribute_set = false;  // once per instantiation
+  if (!attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  const int n_qtiles = (a.Lq + kRows - 1) / kRows;
+  dim3 grid(a.H, a.B, n_qtiles);
   fa_bwd_dq_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<const int*>(a.q_seg), static_cast<const int*>(a.kv_seg),
-      static_cast<__nv_bfloat16*>(dq), a.H, a.Hkv, a.Lq, a.S, a.sm_scale,
-      a.causal, a.q_offset);
+      tq, tk, tv, tdo, tdq, static_cast<__nv_bfloat16*>(dq),
+      static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.di), static_cast<const int*>(a.q_seg),
+      static_cast<const int*>(a.kv_seg), a.H, a.Hkv, a.Lq, a.S, a.sm_scale,
+      a.sm_scale * kLog2e, a.causal, a.q_offset, n_qtiles, a.mask_all);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
-  constexpr int smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.S + kBlockM - 1) / kBlockM, a.Hkv, a.B);
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  if (!map_rows(&tq, a.q, a.B, a.Lq, a.H, D, kBlockQ) ||
+      !map_rows(&tdo, a.dout, a.B, a.Lq, a.H, D, kBlockQ) ||
+      !map_rows(&tk, a.k, a.B, a.S, a.Hkv, D, 64) ||
+      !map_rows(&tv, a.v, a.B, a.S, a.Hkv, D, 64) ||
+      !map_rows(&tdk, dk, a.B, a.S, a.Hkv, D, 64) ||
+      !map_rows(&tdv, dv, a.B, a.S, a.Hkv, D, 64))
+    return cudaErrorNotSupported;
+  constexpr int smem = SmemDkv<D>::kAlloc;
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  dim3 grid(a.Hkv, a.B, (a.S + kRows - 1) / kRows);
   fa_bwd_dkv_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<const int*>(a.q_seg), static_cast<const int*>(a.kv_seg),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.H,
-      a.Hkv, a.Lq, a.S, a.sm_scale, a.causal, a.q_offset);
+      tq, tk, tv, tdo, tdk, tdv, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.di), static_cast<const int*>(a.q_seg),
+      static_cast<const int*>(a.kv_seg), a.H, a.Hkv, a.Lq, a.S, a.sm_scale,
+      a.sm_scale * kLog2e, a.causal, a.q_offset, a.mask_all);
   return cudaGetLastError();
 }
 
-bool valid(int B, int H, int Hkv, int Lq, int S) {
+bool valid(int B, int H, int Hkv, int Lq, int S, int q_offset) {
   return B > 0 && H > 0 && Hkv > 0 && H % Hkv == 0 && Lq > 0 && S > 0 &&
-         B <= 65535 && H <= 65535;
+         B <= 65535 && q_offset >= 0 && (Lq + kRows - 1) / kRows <= 65535 &&
+         (S + kRows - 1) / kRows <= 65535;
+}
+
+int dq_entry(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* di, const void* q_seg,
+             const void* kv_seg, void* dq, int B, int H, int Hkv, int Lq,
+             int S, int D, float sm_scale, int causal, int q_offset,
+             int mask_all, void* stream) {
+  if (!valid(B, H, Hkv, Lq, S, q_offset)) return cudaErrorInvalidValue;
+  const Args a{q, k, v, dout, lse, di, q_seg, kv_seg, B, H, Hkv, Lq, S,
+               sm_scale, causal, q_offset, mask_all,
+               static_cast<cudaStream_t>(stream)};
+  if (D == 128) return launch_dq<128>(a, dq);
+  if (D == 64) return launch_dq<64>(a, dq);
+  return cudaErrorInvalidValue;
+}
+
+int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* di, const void* q_seg,
+              const void* kv_seg, void* dk, void* dv, int B, int H, int Hkv,
+              int Lq, int S, int D, float sm_scale, int causal, int q_offset,
+              int mask_all, void* stream) {
+  if (!valid(B, H, Hkv, Lq, S, q_offset)) return cudaErrorInvalidValue;
+  const Args a{q, k, v, dout, lse, di, q_seg, kv_seg, B, H, Hkv, Lq, S,
+               sm_scale, causal, q_offset, mask_all,
+               static_cast<cudaStream_t>(stream)};
+  if (D == 128) return launch_dkv<128>(a, dk, dv);
+  if (D == 64) return launch_dkv<64>(a, dk, dv);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -477,12 +976,8 @@ extern "C" int mc_flash_attention_bwd_dq(
     const void* lse, const void* di, const void* q_seg, const void* kv_seg,
     void* dq, int B, int H, int Hkv, int Lq, int S, int D, float sm_scale,
     int causal, int q_offset, void* stream) {
-  if (!valid(B, H, Hkv, Lq, S)) return cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, lse, di, q_seg, kv_seg, B, H, Hkv, Lq, S,
-               sm_scale, causal, q_offset, static_cast<cudaStream_t>(stream)};
-  if (D == 128) return launch_dq<128>(a, dq);
-  if (D == 64) return launch_dq<64>(a, dq);
-  return cudaErrorInvalidValue;
+  return dq_entry(q, k, v, dout, lse, di, q_seg, kv_seg, dq, B, H, Hkv, Lq,
+                  S, D, sm_scale, causal, q_offset, 0, stream);
 }
 
 extern "C" int mc_flash_attention_bwd_dkv(
@@ -490,10 +985,33 @@ extern "C" int mc_flash_attention_bwd_dkv(
     const void* lse, const void* di, const void* q_seg, const void* kv_seg,
     void* dk, void* dv, int B, int H, int Hkv, int Lq, int S, int D,
     float sm_scale, int causal, int q_offset, void* stream) {
-  if (!valid(B, H, Hkv, Lq, S)) return cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, lse, di, q_seg, kv_seg, B, H, Hkv, Lq, S,
-               sm_scale, causal, q_offset, static_cast<cudaStream_t>(stream)};
-  if (D == 128) return launch_dkv<128>(a, dk, dv);
-  if (D == 64) return launch_dkv<64>(a, dk, dv);
-  return cudaErrorInvalidValue;
+  return dkv_entry(q, k, v, dout, lse, di, q_seg, kv_seg, dk, dv, B, H, Hkv,
+                   Lq, S, D, sm_scale, causal, q_offset, 0, stream);
+}
+
+// The same with every tile through the per-element mask: the fast-path
+// test holds the two bit-equal.
+extern "C" int mc_flash_attention_bwd_dq_mask_all(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* di, const void* q_seg, const void* kv_seg,
+    void* dq, int B, int H, int Hkv, int Lq, int S, int D, float sm_scale,
+    int causal, int q_offset, void* stream) {
+  return dq_entry(q, k, v, dout, lse, di, q_seg, kv_seg, dq, B, H, Hkv, Lq,
+                  S, D, sm_scale, causal, q_offset, 1, stream);
+}
+
+extern "C" int mc_flash_attention_bwd_dkv_mask_all(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* di, const void* q_seg, const void* kv_seg,
+    void* dk, void* dv, int B, int H, int Hkv, int Lq, int S, int D,
+    float sm_scale, int causal, int q_offset, void* stream) {
+  return dkv_entry(q, k, v, dout, lse, di, q_seg, kv_seg, dk, dv, B, H, Hkv,
+                   Lq, S, D, sm_scale, causal, q_offset, 1, stream);
+}
+
+// Dynamic shared memory of one block (bytes) of K3 (dkv = 0) or K4, for
+// the build report.
+extern "C" int mc_flash_attention_bwd_smem(int dkv, int D) {
+  if (dkv) return D == 128 ? SmemDkv<128>::kAlloc : SmemDkv<64>::kAlloc;
+  return D == 128 ? SmemDq<128>::kAlloc : SmemDq<64>::kAlloc;
 }

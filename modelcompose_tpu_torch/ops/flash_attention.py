@@ -3,8 +3,8 @@
 
 K1 (``csrc/flash_attention_fwd.cu``, TMA + wgmma) replaces the Pallas TPU kernel
 ``modelcompose_tpu/ops/flash_attention.py::_fa_kernel``; K3 and K4
-(``csrc/flash_attention_bwd.cu``) replace ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel``.  Ragged batches are segment ids (0 = padding):
+(``csrc/flash_attention_bwd.cu``, TMA + wgmma) replace ``_bwd_dq_kernel``
+and ``_bwd_dkv_kernel``.  Ragged batches are segment ids (0 = padding):
 attention runs only within equal nonzero segments, optionally causal with
 the query offset ``q_offset``.  The TPU's 128-lane padding and lifted
 ``[B, 8, L]`` segment ids are not carried over: the kernels read ``[B, L]``
@@ -239,9 +239,11 @@ def _bwd_launch_args(q, k, v, do, lse, di, causal, q_segment_ids,
     q_seg = _segments(q_segment_ids, B, Lq, q.device).contiguous()
     kv_seg = _segments(kv_segment_ids, B, S, q.device).contiguous()
     _check_cuda_inputs(q, k, v, q_seg, kv_seg)
-    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous() \
+            or do.data_ptr() % 16 or do.device != q.device:
         raise ValueError(f"dout {tuple(do.shape)} {do.dtype} must be a "
-                         f"contiguous {q.dtype} like q {tuple(q.shape)}")
+                         f"contiguous, 16-byte aligned {q.dtype} like q "
+                         f"{tuple(q.shape)}")
     for name, t in (("lse", lse), ("di", di)):
         if t.shape != (B, H, Lq) or t.dtype != torch.float32 \
                 or not t.is_contiguous() or t.device != q.device:
@@ -255,6 +257,31 @@ def _bwd_launch_args(q, k, v, do, lse, di, causal, q_segment_ids,
         torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def _k3_launch(q, k, v, do, lse, di, mask_all=False, **kw):
+    """Launch K3 on CUDA tensors, with every tile through the mask when
+    ``mask_all``: dQ."""
+    ptrs, _keep, sizes = _bwd_launch_args(q, k, v, do, lse, di, **kw)
+    lib = _build.load("flash_attention_bwd")
+    dq = torch.empty_like(q)
+    entry = (lib.mc_flash_attention_bwd_dq_mask_all if mask_all
+             else lib.mc_flash_attention_bwd_dq)
+    _build.check(entry(*ptrs, dq.data_ptr(), *sizes), "flash_attention_bwd_dq")
+    return dq
+
+
+def _k4_launch(q, k, v, do, lse, di, mask_all=False, **kw):
+    """Launch K4 on CUDA tensors, with every tile through the mask when
+    ``mask_all``: (dK, dV)."""
+    ptrs, _keep, sizes = _bwd_launch_args(q, k, v, do, lse, di, **kw)
+    lib = _build.load("flash_attention_bwd")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    entry = (lib.mc_flash_attention_bwd_dkv_mask_all if mask_all
+             else lib.mc_flash_attention_bwd_dkv)
+    _build.check(entry(*ptrs, dk.data_ptr(), dv.data_ptr(), *sizes),
+                 "flash_attention_bwd_dkv")
+    return dk, dv
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool = True,
                            q_segment_ids=None, kv_segment_ids=None,
                            q_offset: int = 0,
@@ -265,11 +292,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool = True,
               sm_scale=sm_scale)
     if not q.is_cuda:
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, di, **kw)
-    ptrs, _keep, sizes = _bwd_launch_args(q, k, v, do, lse, di, **kw)
-    lib = _build.load("flash_attention_bwd")
-    dq = torch.empty_like(q)
-    err = lib.mc_flash_attention_bwd_dq(*ptrs, dq.data_ptr(), *sizes)
-    _build.check(err, "flash_attention_bwd_dq")
+    dq = _k3_launch(q, k, v, do, lse, di, **kw)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -287,17 +310,28 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool = True,
               sm_scale=sm_scale)
     if not q.is_cuda:
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, **kw)
-    ptrs, _keep, sizes = _bwd_launch_args(q, k, v, do, lse, di, **kw)
-    lib = _build.load("flash_attention_bwd")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = lib.mc_flash_attention_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
-                                         *sizes)
-    _build.check(err, "flash_attention_bwd_dkv")
+    res = _k4_launch(q, k, v, do, lse, di, **kw)
     flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    return res
 
 
 flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_mask_all(q, k, v, do, lse, di, *,
+                                 causal: bool = True, q_segment_ids=None,
+                                 kv_segment_ids=None, q_offset: int = 0,
+                                 sm_scale: Optional[float] = None):
+    """K3 and K4 with every tile through the per-element mask, for the test
+    that holds their unmasked fast path to it on the card: (dQ, dK, dV).
+    Not counted as launches."""
+    if not q.is_cuda:
+        raise ValueError("the masked-path K3/K4 run only on a CUDA tensor")
+    kw = dict(causal=causal, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids, q_offset=q_offset,
+              sm_scale=sm_scale)
+    return (_k3_launch(q, k, v, do, lse, di, mask_all=True, **kw),
+            *_k4_launch(q, k, v, do, lse, di, mask_all=True, **kw))
 
 
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,

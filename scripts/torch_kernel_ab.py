@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""K1 and K2 of the PyTorch port against an earlier version of their
-sources, on one CUDA card, in turns (old, new, new, old), plus K1's
-kv-tile probe (64 against 128 rows) and K2's split probe (256 against 128
-positions per block), in turns.
+"""K1-K4 of the PyTorch port against an earlier version of their sources,
+on one CUDA card, in turns (old, new, new, old), plus K1's kv-tile probe
+(64 against 128 rows), K2's split probe (256 against 128 positions per
+block) and K3's kv-tile probe (128 against 64 rows), in turns.
 
     python3 scripts/torch_kernel_ab.py --old DIR
 
@@ -17,9 +17,13 @@ heads, D=128, causal) and the vision bucket (B=2, 1,024, rows of 1,024 and
 637); K2 over the int8 cache of the MCUB-4 decode (B=1, 32 layers, S=3,360,
 kv_len 3,287) and the vision decode (B=2, S=1,056, kv_len 660/630), each
 launch on the next of the 32 layers so that every read is cold in L2, and
-once more on one warm layer.  K2 is timed three ways: CUDA events around
-the loop (the host's launch gaps included), its kernels' device time from
-torch.profiler, and the host's time to enqueue a call.  Prints one JSON
+once more on one warm layer; K3 (dQ) and K4 (dK, dV) at the smoke's `ms`
+shape (B=2, L=2,048, rows of 2,048 and 1,391, 32 heads, D=128, causal),
+the train step's batch (B=2, rows of 1,400 and 1,100) and its
+micro-batches (B=1, one of those rows each), on K1's output and LSE.  K2
+is timed three ways: CUDA events around the loop (the host's launch gaps
+included), its kernels' device time from torch.profiler, and the host's
+time to enqueue a call.  Prints one JSON
 line per measurement and writes them all to ``chiprun_out/kernel_ab.json``.
 """
 
@@ -50,13 +54,17 @@ K1_CASES = {"mcub4_3328": (1, 3328, 32, 128, [3287]),
             "vision_1024": (2, 1024, 32, 128, [1024, 637])}
 K2_CASES = {"mcub4_3360": (1, 3328 + 32, [3287]),
             "vision_1056": (2, 1024 + 32, [660, 630])}
+K34_CASES = {"ms_2048": (2, 2048, [2048, 1391]),
+             "train_2048": (2, 2048, [1400, 1100]),
+             "micro_1400": (1, 2048, [1400]),
+             "micro_1100": (1, 2048, [1100])}
 NL, H, D = 32, 32, 128
 
 
 def old_wrappers(root):
-    """The earlier checkout's K1 and K2 wrapper modules, imported as
-    ``old_port.ops.*`` without running its package ``__init__`` (only the
-    wrappers and their ``_build`` are loaded)."""
+    """The earlier checkout's wrapper modules (K1, K3 and K4; K2), imported
+    as ``old_port.ops.*`` without running its package ``__init__`` (only
+    the wrappers and their ``_build`` are loaded)."""
     pkg = os.path.join(root, "modelcompose_tpu_torch")
     for name, path in (("old_port", pkg),
                        ("old_port.ops", os.path.join(pkg, "ops"))):
@@ -143,6 +151,56 @@ def lib_k2(lib, q, k, v, kv):
     return call
 
 
+def lib_k3(lib, q, k, v, do, lse, di, seg):
+    """K3 from ``lib`` (this tree's C interface), causal, one segment."""
+    B, L, H_, D_ = q.shape
+    dq = torch.empty_like(q)
+
+    def call(_):
+        err = lib.mc_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), seg.data_ptr(), seg.data_ptr(),
+            dq.data_ptr(), B, H_, H_, L, L, D_, D_ ** -0.5, 1, 0, _stream())
+        if err:
+            raise RuntimeError(f"K3 variant: CUDA error {err}")
+        return dq
+    return call
+
+
+def ab_k34(old_fa, bn_probe, gen, emit):
+    """K3 and K4, old against new in turns, and K3's kv-tile probe."""
+    for name, (B, L, lengths) in K34_CASES.items():
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        q, k, v = rnd(B, L, H, D), rnd(B, L, H, D), rnd(B, L, H, D)
+        seg = (torch.arange(L, device="cuda")[None]
+               < torch.tensor(lengths, device="cuda")[:, None]).int()
+        kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+        out, lse = fa.flash_attention_forward(q, k, v, **kw)
+        do = (rnd(B, L, H, D) * (seg != 0)[..., None, None]).contiguous()
+        di = fa._di(out, do)
+        args = (q, k, v, do, lse, di)
+        valid = seg != 0
+        k3 = {"old": lambda _: old_fa.flash_attention_bwd_dq(*args, **kw),
+              "new": lambda _: fa.flash_attention_bwd_dq(*args, **kw),
+              "bn_probe": lib_k3(bn_probe, *args, seg)}
+        k4 = {"old": lambda _: old_fa.flash_attention_bwd_dkv(*args, **kw),
+              "new": lambda _: fa.flash_attention_bwd_dkv(*args, **kw)}
+        new3, new4 = k3["new"](0), k4["new"](0)
+        for kernel, versions, others in (("K3", k3, ("old", "bn_probe")),
+                                         ("K4", k4, ("old",))):
+            for a in others:
+                got = versions[a](0)
+                pairs = [(got, new3)] if kernel == "K3" else zip(got, new4)
+                diff = max(float((g[valid].float() - w[valid].float())
+                                 .abs().max()) for g, w in pairs)
+                times = {a: [], "new": []}
+                for who in (a, "new", "new", a):
+                    times[who].append(cuda_time_cycle_ms(versions[who], 1, 20))
+                emit(kernel=kernel, case=name, compare=f"{a} vs new",
+                     ms=times, max_abs_diff_from_new=diff)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", required=True,
@@ -160,6 +218,8 @@ def main() -> int:
                    "constexpr int kBlockN = 128;", 64)
     split256 = variant(args.old, "flash_decode", "constexpr int kSplit = 128;",
                        256)
+    bn128 = variant(args.old, "flash_attention_bwd",
+                    "constexpr int kBlockN = 64;", 128)
     device_time_cycle_ms(lambda _: torch.ones(1, device="cuda").sum(), 1, 1)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -228,6 +288,8 @@ def main() -> int:
                  host_us_per_call=host,
                  max_abs_diff_from_new=diffs[a.split("_")[0]])
         del k, v
+
+    ab_k34(old_fa, bn128, gen, emit)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "kernel_ab.json"), "w") as f:

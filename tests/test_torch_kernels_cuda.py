@@ -10,7 +10,7 @@ kernel rounds P at a running max and sums in another order); the LSE
 within 1e-3 of max(|LSE|, 1) (fp32 statistics of identical operands);
 dQ, dK and dV within 2e-2 of max |plain| on valid rows (P and dS are
 rounded to bf16 before the second products, the sums run in another
-order).
+order) and zero on padding rows.
 """
 
 import pytest
@@ -20,8 +20,9 @@ from modelcompose_tpu_torch.core.llama import quantize_kv
 from modelcompose_tpu_torch.ops import attention
 from modelcompose_tpu_torch.ops.flash_attention import (
     _di, flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
-    flash_attention_backward_reference, flash_attention_forward,
-    flash_attention_forward_mask_all, flash_attention_reference)
+    flash_attention_bwd_mask_all, flash_attention_backward_reference,
+    flash_attention_forward, flash_attention_forward_mask_all,
+    flash_attention_reference)
 from modelcompose_tpu_torch.ops.flash_decode import (
     _SCRATCH, flash_decode_attention, flash_decode_reference)
 from modelcompose_tpu_torch.ops.quant import matmul_f32
@@ -290,20 +291,10 @@ def _bwd_inputs(gen, B, Lq, S, H, Hkv, D, q_offset, lengths):
     return (q, k, v, out, lse, do.contiguous()), kw
 
 
-@pytest.mark.parametrize("B,Lq,S,H,Hkv,D,q_offset,lengths", [
-    (2, 2048, 2048, 32, 32, 128, 0, (2048, 1391)),
-    (2, 150, 150, 32, 32, 128, 0, (150, 97)),
-    (2, 256, 1024, 32, 8, 128, 768, (1024, 900)),
-    (2, 150, 150, 8, 4, 64, 0, (150, 61)),
-    (3, 200, 200, 8, 2, 64, 0, (200, 1, 130)),
-])
-def test_k3_k4_match_plain(B, Lq, S, H, Hkv, D, q_offset, lengths):
-    gen = torch.Generator(device="cuda").manual_seed(Lq + S + D)
-    (q, k, v, out, lse, do), kw = _bwd_inputs(gen, B, Lq, S, H, Hkv, D,
-                                              q_offset, lengths)
-    di = _di(out, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+def _check_k3_k4(args, kw, dq, dk, dv):
+    """dQ, dK and dV against the plain versions on valid rows, and zero on
+    padding rows (a padding row's P is masked to 0 on both sides)."""
+    q, k, v, out, lse, do = args
     ref = flash_attention_backward_reference(q, k, v, out, lse, do, **kw)
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
     q_valid, kv_valid = kw["q_segment_ids"] != 0, kw["kv_segment_ids"] != 0
@@ -311,8 +302,62 @@ def test_k3_k4_match_plain(B, Lq, S, H, Hkv, D, q_offset, lengths):
                             (dv, ref[2], kv_valid)):
         assert torch.isfinite(got).all()
         assert _rel(got[rows], want[rows]) <= 2e-2
-    # padding rows get zero gradients on both sides
     assert not dq[~q_valid].any()
+    assert not dk[~kv_valid].any() and not dv[~kv_valid].any()
+
+
+@pytest.mark.parametrize("name,B,Lq,S,H,Hkv,D,q_offset,lengths", [
+    ("ms_shape", 2, 2048, 2048, 32, 32, 128, 0, (2048, 1391)),
+    # the accumulation window's micro-batches
+    ("micro_1400", 1, 2048, 2048, 32, 32, 128, 0, (1400,)),
+    ("micro_1100", 1, 2048, 2048, 32, 32, 128, 0, (1100,)),
+    ("ragged", 2, 150, 150, 32, 32, 128, 0, (150, 97)),
+    ("q_offset_gqa4", 2, 256, 1024, 32, 8, 128, 768, (1024, 900)),
+    ("gqa8", 2, 300, 300, 32, 4, 128, 0, (300, 211)),
+    ("d64_gqa2", 2, 150, 150, 8, 4, 64, 0, (150, 61)),
+    ("d64_one_valid_row", 3, 200, 200, 8, 2, 64, 0, (200, 1, 130)),
+    # B = 2 with the last row shorter than a tile: a 128-row TMA box of
+    # batch row 0 would run into row 1
+    ("batch_edge", 2, 100, 100, 4, 4, 128, 0, (100, 100)),
+])
+def test_k3_k4_match_plain(name, B, Lq, S, H, Hkv, D, q_offset, lengths):
+    gen = torch.Generator(device="cuda").manual_seed(Lq + S + D)
+    args, kw = _bwd_inputs(gen, B, Lq, S, H, Hkv, D, q_offset, lengths)
+    q, k, v, out, lse, do = args
+    di = _di(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+    _check_k3_k4(args, kw, dq, dk, dv)
+    if name == "batch_edge":  # row 1 alone gives row 1 of the batch
+        one = [t[1:].contiguous() for t in (q, k, v, do, lse, di)]
+        kw1 = dict(kw, q_segment_ids=kw["q_segment_ids"][1:].contiguous(),
+                   kv_segment_ids=kw["kv_segment_ids"][1:].contiguous())
+        alone = (flash_attention_bwd_dq(*one, **kw1),
+                 *flash_attention_bwd_dkv(*one, **kw1))
+        for a, batch in zip(alone, (dq, dk, dv)):
+            assert torch.equal(a[0], batch[1])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_k3_k4_fast_path_equals_masked_path(causal):
+    """Interior tiles skip the per-element mask; forcing the mask on every
+    tile gives the same bits for dQ, dK and dV, and both match the plain
+    versions.  Two packed segments, one boundary inside a tile, GQA 2."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    B, L, H, Hkv, D = 2, 640, 8, 4, 128
+    q = _rnd(gen, B, L, H, D)
+    k, v = _rnd(gen, B, L, Hkv, D), _rnd(gen, B, L, Hkv, D)
+    seg = _packed_segments(B, L, (384, 600))  # 40 padding rows
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    do = (_rnd(gen, B, L, H, D) * (seg != 0)[..., None, None]).contiguous()
+    di = _di(out, do)
+    fast = (flash_attention_bwd_dq(q, k, v, do, lse, di, **kw),
+            *flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw))
+    masked = flash_attention_bwd_mask_all(q, k, v, do, lse, di, **kw)
+    for f, m in zip(fast, masked):
+        assert torch.equal(f, m)
+    _check_k3_k4((q, k, v, out, lse, do), kw, *fast)
 
 
 def test_matmul_f32_backward_on_card():
