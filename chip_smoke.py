@@ -15,8 +15,9 @@ nonzero:
    inputs (the yardstick, never called by the port);
 4. K2 (split-KV flash-decode) against its plain PyTorch version, over the
    vision path's int8 cache of 1,056 positions and the composed path's
-   3,360, timed cycling over the 32 layers of the stacked cache so that
-   each launch finds its layer cold in L2, as decode does;
+   3,360, and at beam search's shape (a bf16 cache of 3 rows of 3,360),
+   timed cycling over the 32 layers of the stacked cache so that each
+   launch finds its layer cold in L2, as decode does;
 5. the serving path at Vicuna-7B width: a vision DAMC composition (CLIP
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
@@ -33,10 +34,22 @@ nonzero:
    of each tower and projector, prefill, decode, peak memory, the kernel
    path's logits against the plain path's, and torch.profiler over the
    towers + prefill (``chiprun_out/composed_profile.txt``);
+6b. decode variants on phase 6's model and request: sampled (temperature
+   0.2), sampled with top-p 0.7 (every drawn token inside its step's
+   nucleus), the ``concat`` fold (its ids against the unfolded decode's),
+   beam search and beam sampling (3 beams, 16 tokens, K2 over a bf16
+   cache of 3 rows), each with its answer, launches, decode tokens/s and
+   peak memory;
 7. loader: four unimodal r=128 DAMC checkpoints and a sharded
    Vicuna-layout base at full width and 2 layers, written to disk, merged
    and loaded onto the card by the port; every loaded leaf held to what
    was written, then the int8 + folded load answers the MCUB-4 request;
+7b. qa-loader: the eval entry (``eval_model``, as ``python -m
+   modelcompose_tpu_torch.eval.model_multimodal_qa_loader`` runs it) on
+   phase 7's merged checkpoint, then its question loop
+   (``run_questions``) on phase 6's 32-layer model, each over an audio, a
+   point-cloud and a text-only question, by beam search under the
+   benchmark protocol and sampled with top-p; seconds per question;
 8. K3 (flash-attention dQ) and K4 (dK, dV) against their plain versions,
    on K1's output and LSE, which are held against theirs at each of these
    shapes too: the shape K3/K4 have been timed at since their port, the
@@ -64,7 +77,9 @@ bucket and K2 over the vision cache (CUDA events over warm launches), K3/K4
 at B=2, L=2,048 with rows of 2,048 and 1,391; K1's and K2's ``mcub4`` hold
 the composed path's shape, K2's ``*_cold`` keys its device time with every
 launch on a cold layer, and K3's and K4's ``train_batch`` and
-``micro_batch`` the train step's shapes.  The last line is ``{"ok": true, "device": {...}}``.  Without a
+``micro_batch`` the train step's shapes, and K2's ``beam`` beam search's;
+K1's and K2's ``launches_by_path`` split the launches by phase.  The last
+line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits nonzero and prints no result.
 """
 
@@ -75,6 +90,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -110,6 +126,13 @@ GRAD_NORM_TOL = 0.05
 SEED = 0
 NEW_TOKENS = 32
 TRAIN_STEPS = 4
+# The decode variants: beam search's width and length, the sampling knobs
+NUM_BEAMS = 3
+BEAM_TOKENS = 16
+SAMPLE_TEMPERATURE = 0.2
+SAMPLE_TOP_P = 0.7
+BEAM_SAMPLE_TEMPERATURE = 0.7
+QA_TOKENS = 16  # --max-new-tokens of the question-file runs
 # The MCUB-4 prompt: 586 + 42 + 2,066 + 523 feature positions and 70 text
 # tokens, packed in the 3,328 bucket; K1 at its prefill shape.
 MCUB4_POSITIONS = 3287
@@ -491,11 +514,17 @@ def phase_k2(device, gen):
     vision = _k2_case(device, gen, B=2, NL=32, S=1024 + NEW_TOKENS, H=32,
                       Hkv=32, D=128, kv_len=[660, 630], quantized=True,
                       layer=31)
-    errs += [c["max_abs_err"] for c in cases] + [vision["max_abs_err"]]
+    # beam search's shape: a bf16 cache (beam search never quantizes it)
+    # tiled to num_beams rows, at the first decode step of MCUB-4
+    beam = _k2_case(device, gen, B=NUM_BEAMS, NL=32, S=3328 + NEW_TOKENS,
+                    H=32, Hkv=32, D=128, kv_len=[MCUB4_POSITIONS] * NUM_BEAMS,
+                    quantized=False, layer=31)
+    errs += [c["max_abs_err"] for c in cases + [vision, beam]]
     return dict(vision, max_abs_err=max(errs),
                 shape="B2 int8 S=1056 kv_len 660/630",
                 mcub4=dict(cases[0], shape="B1 int8 S=3360 kv_len 3287"),
-                mcub4_last_step=dict(cases[1], shape="kv_len 3318"))
+                mcub4_last_step=dict(cases[1], shape="kv_len 3318"),
+                beam=dict(beam, shape="B3 bf16 S=3360 kv_len 3287"))
 
 
 def _requests(cfg, device, gen):
@@ -515,11 +544,15 @@ def _requests(cfg, device, gen):
     return ids, {"vision": pixels}
 
 
-def _teacher_forced(model, ids, inputs, tokens, attn_impl, kv_quant=True):
-    """Prefill + decode fed the given tokens; fp32 logits of every step."""
+def _teacher_forced(model, ids, inputs, tokens, attn_impl, kv_quant=True,
+                    fold_concat=False):
+    """Prefill + decode fed the given tokens; fp32 logits of every step.
+    With ``fold_concat`` the decode steps run the default-route adapters
+    folded into one concatenated pair, as ``fold_decode='concat'`` does."""
     import numpy as np
     import torch
     from modelcompose_tpu_torch.core.generate import _decode_step, _prefill
+    from modelcompose_tpu_torch.ops.routed_lora import fold_decode_adapters
     embeds, plan = model.prepare_batch(ids, inputs)
     route_ids = torch.as_tensor(plan.route_ids, device=embeds.device)
     lengths = torch.as_tensor(plan.lengths, device=embeds.device)
@@ -530,11 +563,15 @@ def _teacher_forced(model, ids, inputs, tokens, attn_impl, kv_quant=True):
                              table, seg, lengths,
                              embeds.shape[1] + NEW_TOKENS, attn_impl,
                              kv_quant=kv_quant)
+    decode_params, decode_table = model.params, model.decode_routing_table()
+    if fold_concat:
+        decode_params, decode_table = fold_decode_adapters(model.params,
+                                                           table[0])
     steps, kv_lens = [logits], lengths
     for t in range(tokens.shape[1] - 1):
         logits, cache, kv_lens = _decode_step(
-            model.params, model.cfg, cache, tokens[:, t], kv_lens,
-            model.decode_routing_table(), attn_impl)
+            decode_params, model.cfg, cache, tokens[:, t], kv_lens,
+            decode_table, attn_impl)
         steps.append(logits)
     return torch.stack(steps, dim=1)  # [B, steps, V]
 
@@ -778,18 +815,216 @@ def phase_composed(device, gen):
     return {"launches": launches, "towers": towers,
             "prefill_s": timings["prefill_s"],
             "decode_tok_per_s": decode_steps / timings["decode_s"],
-            "peak_mem_gb": peak, "logit_rel_err": rel, "profile": prof}
+            "peak_mem_gb": peak, "logit_rel_err": rel,
+            "profile": prof}, model, (ids, inputs)
 
 
-def phase_loader(device, gen):
+def _attention_counters():
+    """(reset, read) of K1's and K2's launch counts."""
+    from modelcompose_tpu_torch.ops.flash_attention import (
+        flash_attention_forward)
+    from modelcompose_tpu_torch.ops.flash_decode import flash_decode_attention
+
+    def reset():
+        flash_attention_forward.launches = 0
+        flash_decode_attention.launches = 0
+
+    def read():
+        return {"flash_attention_fwd": flash_attention_forward.launches,
+                "flash_decode": flash_decode_attention.launches}
+    return reset, read
+
+
+class _DecodeShapes:
+    """Records (batch rows, cache dtype) of every K2 launch while active,
+    through the wrapper's input check (the launch counts stay the
+    wrapper's own)."""
+
+    def __enter__(self):
+        from modelcompose_tpu_torch.ops import flash_decode
+        self.module, self.check = flash_decode, flash_decode._check_cuda_inputs
+        self.seen = set()
+
+        def check(q, k_q, *rest):
+            self.seen.add((int(k_q.shape[1]), str(k_q.dtype)))
+            return self.check(q, k_q, *rest)
+        flash_decode._check_cuda_inputs = check
+        return self
+
+    def __exit__(self, *exc):
+        self.module._check_cuda_inputs = self.check
+
+
+def _variant(name, model, ids, inputs, **kw):
+    """One ``MultimodalLM.generate`` call of a decode variant with its
+    answer, K1/K2 launches, the batch rows and cache dtype K2 ran at,
+    decode tokens/s and peak memory; the launch minimums of phase 6."""
+    import torch
+    reset, read = _attention_counters()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    timings = {}
+    with _DecodeShapes() as shapes:
+        answers = model.generate(ids, inputs, timings=timings, **kw)
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_layers = model.cfg.num_hidden_layers
+    steps = launches["flash_decode"] // n_layers  # decode steps run
+    res = {"answer": answers[0], "launches": launches,
+           "k2_rows_dtype": sorted(shapes.seen),
+           "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
+           "decode_steps": steps,
+           "decode_tok_per_s": steps / timings["decode_s"],
+           "peak_mem_gb": peak}
+    log("decode_variants", variant=name, answer=answers[0],
+        launches=json.dumps(launches), k2_at=json.dumps(res["k2_rows_dtype"]),
+        prefill_s=f"{timings['prefill_s']:.4f}",
+        decode_s=f"{timings['decode_s']:.4f}", decode_steps=steps,
+        decode_tok_per_s=f"{res['decode_tok_per_s']:.2f}",
+        peak_mem_gb=f"{peak:.2f}")
+    want_steps = (kw["max_new_tokens"] - 1 if kw.get("num_beams", 1) == 1
+                  else max(len(answers[0]) - 1, 1))
+    if len(answers) != 1 or len(answers[0]) > kw["max_new_tokens"]:
+        raise AssertionError(f"{name}: answers {answers}")
+    if launches["flash_attention_fwd"] < n_layers:
+        raise AssertionError(f"{name}: K1 launched {launches} < {n_layers} "
+                             f"times")
+    if launches["flash_decode"] < n_layers * want_steps:
+        raise AssertionError(f"{name}: K2 launched {launches} < "
+                             f"{n_layers * want_steps} times")
+    return res, answers
+
+
+def _nucleus_check(model, ids, inputs, answers):
+    """Every token variant (b) drew lies in the top-p nucleus of its step's
+    logits, recomputed by teacher forcing on the kernel path (the same
+    computation as the run: no compaction, the same cache length); the
+    share that also lies in the plain path's nucleus is reported."""
+    import torch
+    from modelcompose_tpu_torch.core.sampling import top_p_filter
+    eos = model.cfg.eos_token_id
+    tokens = torch.tensor([a + [eos] * (NEW_TOKENS - len(a)) for a in answers],
+                          device=model.device)
+    n_live = min(len(answers[0]) + 1, NEW_TOKENS)  # the EOS step included
+    lowest = torch.finfo(torch.float32).min
+    inside = {}
+    with torch.no_grad():
+        for impl in ("auto", "reference"):
+            logits = _teacher_forced(model, ids, inputs, tokens, impl)
+            kept = top_p_filter(logits / SAMPLE_TEMPERATURE,
+                                SAMPLE_TOP_P) > lowest
+            hit = kept.gather(-1, tokens[..., None])[..., 0][:, :n_live]
+            inside[impl] = (int(hit.sum()), int(kept[:, :n_live].sum(-1)
+                                                .float().mean()))
+    log("decode_variants", variant="b nucleus", tokens=n_live,
+        inside_kernel_path=inside["auto"][0],
+        inside_plain_path=inside["reference"][0],
+        mean_nucleus_size=inside["auto"][1])
+    if inside["auto"][0] != n_live:
+        raise AssertionError(f"sampled tokens outside the top-p nucleus: "
+                             f"{n_live - inside['auto'][0]} of {n_live}")
+    return {"tokens": n_live, "inside_kernel_path": inside["auto"][0],
+            "inside_plain_path": inside["reference"][0]}
+
+
+def _concat_check(model, ids, inputs, unfolded, concat):
+    """Variant (c) against the unfolded decode on the same weights: the ids
+    must agree; where they diverge, both decoders are teacher-forced on the
+    unfolded run's tokens, their logits held to COMPOSED_LOGIT_TOL, and the
+    diverging step named."""
+    import torch
+    if unfolded == concat:
+        log("decode_variants", variant="c concat vs unfolded",
+            identical_tokens=len(concat))
+        return {"identical": True, "tokens": len(concat)}
+    step = next(i for i, (a, b) in enumerate(zip(unfolded + [None],
+                                                  concat + [None])) if a != b)
+    eos = model.cfg.eos_token_id
+    tokens = torch.tensor([unfolded + [eos] * (NEW_TOKENS - len(unfolded))],
+                          device=model.device)
+    with torch.no_grad():
+        plain = _teacher_forced(model, ids, inputs, tokens, "auto")
+        folded = _teacher_forced(model, ids, inputs, tokens, "auto",
+                                 fold_concat=True)
+    rel = ((folded - plain).abs().amax(-1) / plain.abs().amax(-1)).max()
+    top2 = plain[0, step].topk(2).values
+    log("decode_variants", variant="c concat vs unfolded", diverge_step=step,
+        unfolded_token=unfolded[step] if step < len(unfolded) else "eos",
+        concat_token=concat[step] if step < len(concat) else "eos",
+        top2_gap=f"{(top2[0] - top2[1]).item():.4g}",
+        logit_rel_err=f"{rel.item():.3g}", logit_tol=COMPOSED_LOGIT_TOL)
+    if rel.item() > COMPOSED_LOGIT_TOL:
+        raise AssertionError(f"concat-fold logits differ from the unfolded "
+                             f"decode by {rel.item():.3g} of max |logit|")
+    return {"identical": False, "diverge_step": step,
+            "logit_rel_err": rel.item()}
+
+
+def phase_decode_variants(model, request):
+    """Phase 6's MCUB-4 model answering its request through the other
+    decode variants: sampled (a), sampled with top-p (b, every draw inside
+    its step's nucleus), the ``concat`` fold (c, against the unfolded
+    decode on the same weights), beam search (d, K2 over a bf16 cache of
+    NUM_BEAMS rows) and beam sampling (e)."""
+    import torch
+    ids, inputs = request
+    cfg = model.cfg
+
+    def gen(seed):
+        return torch.Generator(device=model.device).manual_seed(seed)
+    out, answers = {}, {}
+    sampled = dict(max_new_tokens=NEW_TOKENS, kv_quant=True,
+                   temperature=SAMPLE_TEMPERATURE)
+    out["a_sampled"], _ = _variant(
+        "a sampled", model, ids, inputs, top_p=1.0, generator=gen(1),
+        compact_adapters=True, **sampled)
+    out["b_top_p"], answers["b"] = _variant(
+        "b top_p", model, ids, inputs, top_p=SAMPLE_TOP_P, generator=gen(2),
+        **sampled)
+    out["b_top_p"]["nucleus"] = _nucleus_check(model, ids, inputs,
+                                               answers["b"])
+    # (c) needs a live default route: the folded base with the routing
+    # table's default row restored, so decode runs the adapter branch
+    folded_table = model.routing_table
+    model.routing_table = cfg.routing_table()
+    try:
+        greedy = dict(max_new_tokens=NEW_TOKENS, kv_quant=True)
+        out["c_unfolded"], answers["c0"] = _variant(
+            "c unfolded", model, ids, inputs, fold_decode=False, **greedy)
+        out["c_concat"], answers["c"] = _variant(
+            "c concat", model, ids, inputs, fold_decode="concat", **greedy)
+        out["c_concat"]["vs_unfolded"] = _concat_check(
+            model, ids, inputs, answers["c0"][0], answers["c"][0])
+    finally:
+        model.routing_table = folded_table
+    beams = dict(max_new_tokens=BEAM_TOKENS, num_beams=NUM_BEAMS,
+                 compact_adapters=True)
+    out["d_beam"], _ = _variant("d beam", model, ids, inputs, **beams)
+    out["e_beam_sample"], _ = _variant(
+        "e beam sample", model, ids, inputs, generator=gen(3),
+        temperature=BEAM_SAMPLE_TEMPERATURE, **beams)
+    for key in ("d_beam", "e_beam_sample"):
+        if out[key]["k2_rows_dtype"] != [(NUM_BEAMS, "torch.bfloat16")]:
+            raise AssertionError(f"{key}: K2 ran at "
+                                 f"{out[key]['k2_rows_dtype']}, want "
+                                 f"{NUM_BEAMS} bf16 rows")
+    for key in ("a_sampled", "b_top_p", "c_unfolded", "c_concat"):
+        if out[key]["k2_rows_dtype"] != [(1, "torch.int8")]:
+            raise AssertionError(f"{key}: K2 ran at "
+                                 f"{out[key]['k2_rows_dtype']}")
+    return out
+
+
+def phase_loader(device, gen, root):
     """Composed-checkpoint formats at full width, 2 layers: a Vicuna-layout
     sharded base and four unimodal DAMC adapter directories (r=128, a
-    projector each) written to disk, merged by the port's merge
+    projector each) written under ``root``, merged by the port's merge
     (online-merge-reset, 0.25 each), loaded onto the card by the port's
     loader; every loaded leaf held to what was written, then the int8 +
-    folded load answers the MCUB-4 request."""
-    import tempfile
-
+    folded load answers the MCUB-4 request.  Returns the merged
+    checkpoint's and the base's directories."""
     import numpy as np
     import torch
     from modelcompose_tpu_torch.compose.convert import (params_to_adapter,
@@ -810,9 +1045,7 @@ def phase_loader(device, gen):
 
     t0 = time.perf_counter()
     written = {}  # the composed adapter the merge should produce
-    # the checkpoints live in a gitignored directory of the checkout
-    with tempfile.TemporaryDirectory(prefix="tmp_loader_", dir=".") as root, \
-            torch.no_grad():
+    with torch.no_grad():
         paths = []
         for modal in MCUB4_TOWERS:
             cfg = damc_unimodal(modal, num_hidden_layers=LOADER_LAYERS)
@@ -889,7 +1122,143 @@ def phase_loader(device, gen):
         total_s=f"{time.perf_counter() - t0:.1f}")
     if not answers[0] or len(answers[0]) > 8:
         raise AssertionError(f"the loaded model answered {answers}")
-    return {"leaves_checked": len(written) + len(base)}
+    return merged, base_dir
+
+
+class WordHashTokenizer:
+    """A stand-in for the Vicuna tokenizer (the card's machine has no
+    ``transformers``): BOS, then one id per word from the word's CRC32,
+    with ``</s>`` as EOS; ``decode`` writes the ids as ``t<id>``."""
+    bos_token_id, eos_token_id, pad_token_id = 1, 2, 0
+    model_max_length = 2048
+
+    def __init__(self, vocab_size: int = 32000):
+        self.vocab_size = vocab_size
+
+    def __call__(self, text, **_):
+        import re
+        import types
+        import zlib
+        ids = [self.bos_token_id]
+        for part in re.split(r"(</s>)", text):
+            if part == "</s>":
+                ids.append(self.eos_token_id)
+            elif part:
+                ids.extend(3 + zlib.crc32(w.encode()) % (self.vocab_size - 3)
+                           for w in part.split())
+        return types.SimpleNamespace(input_ids=ids)
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"t{int(i)}" for i in ids)
+
+
+def _question_file(root, rng):
+    """Three MCUB-4-style questions: a 10.24 s clip as a 16-bit .wav (read
+    by ``wave``), an 8,192-point cloud as .npy, and text only (the card's
+    machine has neither PIL nor cv2 for images and videos)."""
+    import wave
+
+    import numpy as np
+    wav, npy = os.path.join(root, "clip.wav"), os.path.join(root, "cloud.npy")
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((rng.normal(size=163840) * 3000).astype(
+            np.int16).tobytes())
+    np.save(npy, np.concatenate([rng.normal(size=(8192, 3)),
+                                 rng.random((8192, 3))], 1).astype(np.float32))
+    questions = [
+        ("<audio>\nWhat is making this sound?", {"audio": [wav]}),
+        ("<point>\nWhat is this object? Answer in one word.",
+         {"point": [npy]}),
+        ("Which instrument is usually tuned to A440 first?", {})]
+    path = os.path.join(root, "questions.json")
+    with open(path, "w") as f:
+        json.dump([{"id": f"q{i}", "conversations": [
+            {"from": "human", "value": v}, {"from": "gpt", "value": None}],
+            "modal_inputs": m} for i, (v, m) in enumerate(questions)], f)
+    return path, len(questions)
+
+
+# The two question-file runs: beam search under the benchmark protocol,
+# and sampling with top-p in the CLI's default conversation mode (the
+# benchmark protocol would force greedy decoding)
+QA_RUNS = {"beam": ["--protocol", "benchmark", "--num-beams",
+                    str(NUM_BEAMS)],
+           "sampled": ["--temperature", str(SAMPLE_TEMPERATURE), "--top-p",
+                       str(SAMPLE_TOP_P)]}
+QA_KEYS = ["question_id", "prompt", "text", "answer_id", "model_id",
+           "metadata"]
+
+
+def phase_qa_loader(device, root, merged, base_dir, model):
+    """The eval entry on the card: ``eval_model`` (what ``python -m
+    modelcompose_tpu_torch.eval.model_multimodal_qa_loader`` runs) on
+    phase 7's merged checkpoint (width 4,096, 2 layers), then
+    ``run_questions`` on phase 6's 32-layer MCUB-4 model, each over the
+    same three questions in both QA_RUNS; one answer line per question
+    with the reference's keys, K1 and K2 launched, seconds per
+    question."""
+    import numpy as np
+    from modelcompose_tpu_torch.eval import model_multimodal_qa_loader as qa
+    reset, read = _attention_counters()
+    qfile, n_q = _question_file(root, np.random.default_rng(SEED))
+    tokenizer = WordHashTokenizer()
+    out, totals = {}, {"flash_attention_fwd": 0, "flash_decode": 0}
+    load_s = []  # eval_model's load, timed apart from its questions
+    loader = qa.load_pretrained_model
+
+    def timed_load(*args, **kw):
+        t0 = time.perf_counter()
+        res = loader(*args, **kw)
+        load_s.append(time.perf_counter() - t0)
+        return res
+    for target in ("checkpoint_2_layers", "mcub4_32_layers"):
+        for run, flags in QA_RUNS.items():
+            answers = os.path.join(root, f"answers-{target}-{run}.jsonl")
+            args = qa.parse_args([
+                "--model-path", merged, "--model-base", base_dir,
+                "--question-file", qfile, "--answers-file", answers,
+                "--max-new-tokens", str(QA_TOKENS)] + flags)
+            reset()
+            load_s.clear()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():  # random towers
+                warnings.simplefilter("ignore")
+                if target == "checkpoint_2_layers":
+                    qa.load_pretrained_model = timed_load
+                    try:
+                        qa.eval_model(args, device=device,
+                                      load_tokenizer_fn=lambda _: tokenizer)
+                    finally:
+                        qa.load_pretrained_model = loader
+                else:
+                    qa.run_questions(args, tokenizer, model,
+                                     model.modal_processors(),
+                                     "mcub4-damc-multimodal")
+            seconds = time.perf_counter() - t0 - sum(load_s)
+            launches = read()
+            with open(answers) as f:
+                lines = [json.loads(line) for line in f]
+            key = f"{target}/{run}"
+            out[key] = {"load_s": sum(load_s), "questions_s": seconds,
+                        "s_per_question": seconds / n_q,
+                        "launches": launches,
+                        "texts": [line["text"] for line in lines]}
+            log("qa_loader", run=key, load_s=f"{sum(load_s):.2f}",
+                s_per_question=f"{seconds / n_q:.3f}",
+                launches=json.dumps(launches),
+                answers=json.dumps([line["text"] for line in lines]))
+            if [line["question_id"] for line in lines] != \
+                    [f"q{i}" for i in range(n_q)] \
+                    or any(list(line) != QA_KEYS for line in lines):
+                raise AssertionError(f"{key}: answer lines {lines}")
+            if min(launches.values()) == 0:
+                raise AssertionError(f"{key}: kernels launched {launches}")
+            for k in totals:
+                totals[k] += launches[k]
+    return out, totals
 
 
 def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths,
@@ -1294,43 +1663,69 @@ def main() -> int:
         import modelcompose_tpu_torch  # noqa: F401
     except ImportError as e:
         raise SystemExit(f"chip_smoke: run from the repository root ({e})")
-    device = phase_device()
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+    device = timed("device", phase_device)
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    phase_build()
-    k1 = phase_k1(device, gen)
-    k2 = phase_k2(device, gen)
-    launches = phase_main_path(device, gen)
+    timed("build", phase_build)
+    k1 = timed("k1", phase_k1, device, gen)
+    k2 = timed("k2", phase_k2, device, gen)
+    launches = timed("main", phase_main_path, device, gen)
     gc.collect()
     torch.cuda.empty_cache()  # each served model is gone before the next
-    composed = phase_composed(device, gen)
+    composed, mcub4_model, request = timed("composed", phase_composed,
+                                           device, gen)
+    variants = timed("decode_variants", phase_decode_variants, mcub4_model,
+                     request)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_loader(device, gen)
+    # the checkpoints live in a gitignored directory of the checkout
+    with tempfile.TemporaryDirectory(prefix="tmp_loader_", dir=".") as root:
+        merged, base_dir = timed("loader", phase_loader, device, gen, root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, qa_launches = timed("qa_loader", phase_qa_loader, device, root,
+                               merged, base_dir, mcub4_model)
+    del mcub4_model, request
     gc.collect()
     torch.cuda.empty_cache()
-    k34 = phase_k34(device, gen)
-    train = phase_train(device)
+    k34 = timed("k34", phase_k34, device, gen)
+    train = timed("train", phase_train, device)
+    log("seconds", phases=json.dumps(seconds),
+        total=f"{time.perf_counter() - t_start:.1f}")
     if {"jax", "modelcompose_tpu"} & set(sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
-    # Launches on the main paths: the two serving runs, plus every step of
-    # the training run (train steps and the accumulation window).
+    # Launches on the main paths: the two serving runs, the decode variants
+    # and the question-file runs, plus every step of the training run
+    # (train steps and the accumulation window).
     trained = train["launches"] + [train["accum_launches"]]
 
     def train_launches(name):
-        return sum(c[name] for c in trained)
+        return sum(c.get(name, 0) for c in trained)
 
-    def served(name):
-        return launches[name] + composed["launches"][name]
+    def by_path(name):
+        return {"main": launches[name], "composed": composed["launches"][name],
+                "decode_variants": sum(v["launches"][name]
+                                       for v in variants.values()),
+                "qa_loader": qa_launches[name], "train": train_launches(name)}
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=K1_SOURCE,
              replaces=K1_REPLACES,
-             launches=served("flash_attention_fwd")
-             + train_launches("flash_attention_fwd"),
+             launches=sum(by_path("flash_attention_fwd").values()),
+             launches_by_path=by_path("flash_attention_fwd"),
              **dict(k1, max_abs_err=max(k1["max_abs_err"],
                                         k34["fwd"]["max_abs_err"]))),
         dict(name="flash_decode", route="cuda", source=K2_SOURCE,
-             replaces=K2_REPLACES, launches=served("flash_decode"), **k2),
+             replaces=K2_REPLACES,
+             launches=sum(by_path("flash_decode").values()),
+             launches_by_path=by_path("flash_decode"), **k2),
         dict(name="flash_attention_bwd_dq", route="cuda", source=K34_SOURCE,
              replaces=K3_REPLACES,
              launches=train_launches("flash_attention_bwd_dq"), **k34["dq"]),

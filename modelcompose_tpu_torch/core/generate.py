@@ -1,11 +1,12 @@
-"""Greedy generation with a preallocated KV cache (counterpart of
-modelcompose_tpu/core/generate.py).
+"""Greedy/temperature generation with a preallocated KV cache (counterpart
+of modelcompose_tpu/core/generate.py).
 
 Prefill runs the full routed multimodal forward once and fills the cache;
 decode steps run with the 'default' route class only, matching the
 reference's decode semantics.  The decode loop is a Python loop that keeps
-the argmax and the EOS/done mask on the device, with no per-step host
-sync, and fetches the tokens once at the end.
+the token choice (argmax, or a draw from an explicit ``torch.Generator``)
+and the EOS/done mask on the device, with no per-step host sync, and
+fetches the tokens once at the end.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
-from ..ops.routed_lora import as_table, fold_dense
+from ..ops.routed_lora import as_table, fold_decode_adapters, fold_dense
 from .llama import KVCache, forward, forward_hidden_routed, logits_from_hidden
+from .sampling import categorical, top_p_filter
 
 
 def _prefill(params, cfg: ModelConfig, inputs_embeds, route_ids,
@@ -64,36 +66,11 @@ def _sync_clock(device) -> float:
     return time.perf_counter()
 
 
-def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
-             route_ids=None, routing_table=None, segment_ids=None,
-             max_new_tokens: int = 128, eos_token_id: Optional[int] = None,
-             temperature: float = 0.0, cache_len: Optional[int] = None,
-             attn_impl: str = "auto", fold_decode=False,
-             kv_quant: bool = False, timings: Optional[dict] = None):
-    """Greedy token ids for a packed, right-padded batch.
-
-    Args:
-      inputs_embeds: [B, L, H] packed prompt embeddings.
-      lengths: [B] true prompt lengths.
-      route_ids: [B, L] route classes (None = all default).
-      segment_ids: [B, L]; defaults to positions < lengths.
-      fold_decode: False, or 'dense' (fold the default adapter mix into W
-        and rebase the routing table: prefill stays identical, decode skips
-        the adapter branch; see ops/routed_lora.fold_dense).
-      kv_quant: int8 KV cache.
-      timings: if a dict, receives 'prefill_s' and 'decode_s' (host clock
-        around device-synchronized phases).
-
-    Returns a list of per-sample lists of generated ids (EOS excluded).
-    """
-    if temperature and temperature > 0.0:
-        raise NotImplementedError(
-            "sampling is not ported yet: ROADMAP Queue 1, sampling + beam")
-    if fold_decode not in (False, "dense"):
-        raise NotImplementedError(
-            f"fold_decode={fold_decode!r}: only False and 'dense' are ported")
-    B, L, _ = inputs_embeds.shape
-    device = inputs_embeds.device
+def _prepare(inputs_embeds, lengths, segment_ids, route_ids,
+             max_new_tokens: int, cache_len: Optional[int]):
+    """Defaults and device placement shared by generate and beam search:
+    (cache_len, lengths int32, segment_ids int32, route_ids)."""
+    L, device = inputs_embeds.shape[1], inputs_embeds.device
     if cache_len is None:
         cache_len = L + max_new_tokens
     lengths = _on(lengths, device, torch.int32)
@@ -104,6 +81,46 @@ def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
         segment_ids = _on(segment_ids, device, torch.int32)
     if route_ids is not None:
         route_ids = _on(route_ids, device)
+    return cache_len, lengths, segment_ids, route_ids
+
+
+def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
+             route_ids=None, routing_table=None, segment_ids=None,
+             max_new_tokens: int = 128, eos_token_id: Optional[int] = None,
+             temperature: float = 0.0, top_p: float = 1.0,
+             generator: Optional[torch.Generator] = None,
+             cache_len: Optional[int] = None,
+             attn_impl: str = "auto", fold_decode=False,
+             kv_quant: bool = False, timings: Optional[dict] = None):
+    """Greedy or sampled token ids for a packed, right-padded batch.
+
+    Args:
+      inputs_embeds: [B, L, H] packed prompt embeddings.
+      lengths: [B] true prompt lengths.
+      route_ids: [B, L] route classes (None = all default).
+      segment_ids: [B, L]; defaults to positions < lengths.
+      temperature: > 0 samples softmax(logits / temperature), top-p
+        filtered when ``top_p < 1``; draws come from ``generator``, which
+        lives on the embeddings' device (seed 0 there when None).
+      fold_decode: False; True/'concat' (compact the default-route adapters
+        into one low-rank pair for decode, held beside the full stacks; see
+        ops/routed_lora.fold_decode_adapters); or 'dense' (fold the default
+        adapter mix into W and rebase the routing table: prefill stays
+        identical, decode skips the adapter branch; see
+        ops/routed_lora.fold_dense).
+      kv_quant: int8 KV cache.
+      timings: if a dict, receives 'prefill_s' and 'decode_s' (host clock
+        around device-synchronized phases).
+
+    Returns a list of per-sample lists of generated ids (EOS excluded).
+    """
+    if fold_decode not in (False, True, "concat", "dense"):
+        raise ValueError(f"fold_decode={fold_decode!r}")
+    B, L, _ = inputs_embeds.shape
+    device = inputs_embeds.device
+    cache_len, lengths, segment_ids, route_ids = _prepare(
+        inputs_embeds, lengths, segment_ids, route_ids, max_new_tokens,
+        cache_len)
     eos = cfg.eos_token_id if eos_token_id is None else eos_token_id
 
     decode_params, decode_table = params, routing_table
@@ -126,12 +143,35 @@ def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
         t1 = _sync_clock(device)
         timings["prefill_s"] = t1 - t0
 
+    if fold_decode in (True, "concat") and routing_table is not None:
+        # One concatenated low-rank pair of the default-route adapters, so
+        # a step stops reading the inactive adapter rows.
+        decode_params, decode_table = fold_decode_adapters(params,
+                                                           routing_table[0])
+
+    do_sample = bool(temperature and temperature > 0.0)
+    use_top_p = do_sample and top_p is not None and top_p < 1.0
+    if do_sample and generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def pick(logits):
+        # Deliberately not sampling.sample_logits: its greedy gate and the
+        # unconditional top-p sort belong to the serving engines; this
+        # loop samples for any temperature > 0 and sorts only when
+        # top_p < 1, as the JAX decode loop does.
+        if not do_sample:
+            return logits.argmax(-1)
+        scaled = logits / temperature
+        if use_top_p:
+            scaled = top_p_filter(scaled.float(), top_p)
+        return categorical(generator, scaled)
+
     eos_id = torch.tensor(-1 if eos is None else int(eos), device=device)
     done = torch.zeros(B, dtype=torch.bool, device=device)
     kv_lens = lengths
     steps = []
     for step in range(max_new_tokens):
-        tokens = torch.where(done, eos_id, logits.argmax(-1))
+        tokens = torch.where(done, eos_id, pick(logits))
         done = done | (tokens == eos_id)
         steps.append(tokens)
         if step == max_new_tokens - 1:

@@ -9,7 +9,7 @@ the shortest side (bicubic, long side truncated), center crop, rescale
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -53,3 +53,27 @@ class ClipImageProcessor:
             img = self._center_crop(self._resize_shortest(img))
             out.append((np.asarray(img, np.float32) / 255.0 - mean) / std)
         return np.stack(out)
+
+
+def expand2square(img, background_color: Tuple[int, ...]):
+    """Pad a PIL image to a square with the dataset image mean (reference:
+    mm_utils.py:14-25)."""
+    from PIL import Image
+    w, h = img.size
+    if w == h:
+        return img
+    side = max(w, h)
+    result = Image.new(img.mode, (side, side), background_color)
+    result.paste(img, ((side - w) // 2 if h > w else 0,
+                       (side - h) // 2 if w > h else 0))
+    return result
+
+
+def process_images(images: Iterable, image_processor: ClipImageProcessor,
+                   image_aspect_ratio: Optional[str] = None) -> np.ndarray:
+    """PIL images -> [B, size, size, 3], padded to squares first with
+    ``image_aspect_ratio='pad'`` (reference: mm_utils.py:28-40)."""
+    if image_aspect_ratio == "pad":
+        bg = tuple(int(x * 255) for x in image_processor.image_mean)
+        images = [expand2square(img, bg) for img in images]
+    return image_processor(list(images))

@@ -7,8 +7,8 @@ tensor work is in plain functions.  Pipeline per batch:
 1. ``encode_modal_inputs``: each modality's frozen tower and its
    projector, with the prefix/suffix soft tokens attached;
 2. ``core.packing.plan_pack``: the host-side static-shape splice plan;
-3. ``assemble_embeds`` and the routed prefill + greedy decode, or the
-   forward and ``causal_lm_loss`` for training.
+3. ``assemble_embeds`` and the routed prefill + decode (greedy, sampled
+   or beam search), or the forward and ``causal_lm_loss`` for training.
 
 Only the towers run without gradient: the projector and the soft tokens
 train, as in the JAX package (which stops the gradient at the tower
@@ -25,6 +25,7 @@ import torch
 from ..config import ModelConfig
 from ..constants import IGNORE_INDEX
 from ..core import generate as generation
+from ..core.beam import beam_generate
 from ..core.llama import forward, init_params, torch_dtype
 from ..core.packing import PackPlan, assemble_embeds, plan_pack
 from ..devices import resolve_device
@@ -144,20 +145,22 @@ class MultimodalLM:
 
     def generate(self, input_ids: Sequence[np.ndarray],
                  modal_inputs: Dict[str, Any], max_new_tokens: int = 128,
-                 temperature: float = 0.0, num_beams: int = 1,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 num_beams: int = 1,
+                 generator: Optional[torch.Generator] = None,
                  bucket_len: Optional[int] = None, attn_impl: str = "auto",
                  compact_adapters: bool = False, fold_decode=False,
                  kv_quant: bool = False,
                  timings: Optional[dict] = None) -> List[List[int]]:
-        """Greedy answers for a batch of prompts (EOS excluded).
+        """Answers for a batch of prompts (EOS excluded): greedy, sampled
+        (``temperature > 0``, ``top_p``, draws from ``generator`` on the
+        model's device), or beam search / beam sampling for one prompt
+        (``num_beams > 1``, as HF dispatches it).
 
-        ``fold_decode`` and ``kv_quant`` select the decode variant (see
-        core.generate.generate); ``timings`` receives the prefill and
-        decode seconds."""
-        if num_beams and num_beams > 1:
-            raise NotImplementedError(
-                "beam search is not ported yet: ROADMAP Queue 1, "
-                "sampling + beam")
+        ``fold_decode`` and ``kv_quant`` select the decode variant of
+        greedy and sampled decode (see core.generate.generate); beam
+        search decodes over a bf16 cache, as the JAX package's does.
+        ``timings`` receives the prefill and decode seconds."""
         with torch.no_grad():
             embeds, plan = self.prepare_batch(input_ids, modal_inputs,
                                               bucket_len=bucket_len)
@@ -165,12 +168,25 @@ class MultimodalLM:
             params, table = self.params, self.routing_table
             if compact_adapters and route_ids is not None:
                 params, table = self._compacted(np.unique(route_ids))
+            if num_beams and num_beams > 1:
+                # scoring length = the raw text ids (modal placeholders
+                # unexpanded), matching HF's input_ids-based normalization
+                return beam_generate(
+                    params, self.cfg, embeds, lengths=plan.lengths,
+                    route_ids=route_ids, routing_table=table,
+                    segment_ids=plan.segment_ids, num_beams=num_beams,
+                    max_new_tokens=max_new_tokens,
+                    scoring_prompt_len=len(np.asarray(input_ids[0])),
+                    temperature=temperature, top_p=top_p,
+                    generator=generator, attn_impl=attn_impl,
+                    timings=timings)
             return generation.generate(
                 params, self.cfg, embeds, lengths=plan.lengths,
                 route_ids=route_ids, routing_table=table,
                 segment_ids=plan.segment_ids, max_new_tokens=max_new_tokens,
-                temperature=temperature, attn_impl=attn_impl,
-                fold_decode=fold_decode, kv_quant=kv_quant, timings=timings)
+                temperature=temperature, top_p=top_p, generator=generator,
+                attn_impl=attn_impl, fold_decode=fold_decode,
+                kv_quant=kv_quant, timings=timings)
 
     def loss(self, input_ids: Sequence[np.ndarray],
              labels: Sequence[np.ndarray], modal_inputs: Dict[str, Any],

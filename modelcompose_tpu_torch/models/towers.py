@@ -112,19 +112,25 @@ def tower_class(modal: str, spec: str):
 
 def build_modal_encoders(cfg: ModelConfig,
                          generator: Optional[torch.Generator] = None,
-                         device=None, dtype=torch.float32) -> Dict[str, Any]:
+                         device=None, dtype=torch.float32,
+                         dtype_per_modal: Optional[Dict[str, Any]] = None
+                         ) -> Dict[str, Any]:
     """One tower per configured modality, made on ``device`` (the card when
     None): loaded where the spec names a local checkpoint, random from
-    ``generator`` otherwise."""
+    ``generator`` otherwise.  ``dtype`` is every tower's parameter dtype;
+    ``dtype_per_modal`` overrides it for the named modalities (a trained
+    tower keeps float32 weights while the frozen towers beside it keep
+    ``dtype``)."""
     device = resolve_device(device)
     encoders: Dict[str, Any] = {}
     for modal in cfg.modalities():
+        mdt = (dtype_per_modal or {}).get(modal, dtype)
         spec = cfg.encoder_spec(modal)
         cls = tower_class(modal, spec)
         if "test" not in spec and not os.path.exists(spec):
             warnings.warn(
                 f"{modal} encoder spec {spec!r} is not a local checkpoint: "
                 "tower weights are RANDOM-initialized", stacklevel=2)
-        encoders[modal] = cls(spec, cfg, generator=generator, dtype=dtype,
+        encoders[modal] = cls(spec, cfg, generator=generator, dtype=mdt,
                               device=device)
     return encoders

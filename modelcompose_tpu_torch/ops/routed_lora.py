@@ -66,6 +66,40 @@ def _map_linears(params, fn):
     return out
 
 
+def fold_decode_adapters(params, default_route):
+    """Compact the stacked adapters to the decode-time 'default' mix.
+
+    Every decode token takes the default route, whose row is static for a
+    generation: only its nonzero columns are ever read.  They are
+    concatenated into one low-rank pair ``[N, 1, d_in, R]`` x
+    ``[N, 1, R, d_out]`` with the coefficients scaled into B (rounded to
+    B's dtype first, as the JAX package's weakly typed scalar is), so a
+    step reads only the active adapters and no routing gather.  int8
+    ``w`` dicts pass through; the copies sit beside the full stacks.
+
+    default_route: [n_adapters] routing-table row 0 (numpy or tensor).
+    Returns (decode_params, decode_routing_table [1, 1] fp32 ones).
+    """
+    row = default_route.cpu().numpy() if isinstance(
+        default_route, torch.Tensor) else np.asarray(default_route)
+    support = [int(i) for i in np.nonzero(row)[0]]
+
+    def fold_linear(p):
+        la, lb = p["lora_a"], p["lora_b"]
+        if not support:  # routing inactive: keep a zeroed rank-r branch
+            a, b = la[:, :1] * 0, lb[:, :1] * 0
+        else:
+            a = torch.cat([la[:, i] for i in support], dim=2)[:, None]
+            b = torch.cat([lb[:, i] * torch.tensor(float(row[i]),
+                                                   dtype=lb.dtype)
+                           for i in support], dim=1)[:, None]
+        return {"w": p["w"], "lora_a": a, "lora_b": b}
+
+    table = torch.ones((1, 1), dtype=torch.float32,
+                       device=params["embed_tokens"].device)
+    return _map_linears(params, fold_linear), table
+
+
 def fold_dense(params, routing_table):
     """Fold the default-route adapter mix densely into every base weight
     and rebase the routing table so prefill stays numerically identical.

@@ -5,10 +5,10 @@ The flags are the JAX entry's (the reference's names).  Ported:
 ``build_arg_parser``, ``build_model_config``, ``build_model`` with
 ``--random_init_backbone`` and ``--quantize_frozen_base``, and
 ``make_batch`` (frozen towers without gradient, the static-shape pack plan
-with labels, the training buckets).  Not ported yet (ROADMAP Queue 1,
-training): ``train()`` itself (dataset, collator, modality-grouped sampler,
-step checkpoints, resume, adapter/projector export) and loading HF base or
-stage-1 projector weights (ROADMAP Queue 1 item 2, the loader).
+with labels, the training buckets).  Not ported yet (ROADMAP Queue 1 item
+11, training): ``train()`` itself (modality-grouped sampler, step
+checkpoints, resume, adapter/projector export; the dataset and collator
+are ``data/dataset``) and loading HF base or stage-1 projector weights.
 
 The stage-2 step, as the vision DAMC recipe runs it::
 
@@ -164,19 +164,22 @@ def build_model(args, cfg: ModelConfig, device=None) -> MultimodalLM:
     if not args.random_init_backbone:
         raise NotImplementedError(
             "loading HF base weights is not ported yet: ROADMAP Queue 1 item "
-            "2 (loader); pass --random_init_backbone")
+            "11 (training); pass --random_init_backbone")
     if args.pretrain_mm_mlp_adapter:
         raise NotImplementedError(
             "loading a stage-1 projector is not ported yet: ROADMAP Queue 1 "
-            "item 2 (loader)")
+            "item 11 (training)")
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    # a TRAINED tower keeps float32 weights (they join the optimizer)
-    tower_dtype = torch.float32 \
-        if getattr(args, "mm_vision_tower_lr", None) is not None \
-        else torch_dtype(getattr(args, "tower_dtype", "bfloat16"))
-    encoders = build_modal_encoders(cfg, gen, device, dtype=tower_dtype)
+    # a TRAINED vision tower keeps float32 weights (they join the
+    # optimizer); the frozen towers beside it keep --tower_dtype
+    overrides = {"vision": torch.float32} \
+        if getattr(args, "mm_vision_tower_lr", None) is not None else None
+    encoders = build_modal_encoders(
+        cfg, gen, device,
+        dtype=torch_dtype(getattr(args, "tower_dtype", "bfloat16")),
+        dtype_per_modal=overrides)
     for modal, enc in encoders.items():
         setter = {"vision": "mm_hidden_size", "audio": "mm_audio_hidden_size",
                   "video": "mm_video_hidden_size",

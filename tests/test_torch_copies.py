@@ -220,3 +220,234 @@ def test_video_processor_matches_jax(frames, size):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(tvideo.uniform_frame_indices(31, 8),
                                   jvideo.uniform_frame_indices(31, 8))
+
+
+# ---------------------------------------------------------------------------
+# The eval entry's data pipeline: conversation templates, tokenization,
+# preprocess, the dataset and collator, image padding, the stop string
+# ---------------------------------------------------------------------------
+
+import modelcompose_tpu.data.conversation as jconv  # noqa: E402
+import modelcompose_tpu.data.dataset as jdataset  # noqa: E402
+import modelcompose_tpu.data.image_processing as jimage  # noqa: E402
+import modelcompose_tpu.data.preprocess as jpre  # noqa: E402
+import modelcompose_tpu.data.tokenization as jtok  # noqa: E402
+import modelcompose_tpu.eval.generation_utils as jgen  # noqa: E402
+import modelcompose_tpu_torch.data.conversation as tconv  # noqa: E402
+import modelcompose_tpu_torch.data.dataset as tdataset  # noqa: E402
+import modelcompose_tpu_torch.data.image_processing as timage  # noqa: E402
+import modelcompose_tpu_torch.data.preprocess as tpre  # noqa: E402
+import modelcompose_tpu_torch.data.tokenization as ttok  # noqa: E402
+import modelcompose_tpu_torch.eval.generation_utils as tgen  # noqa: E402
+from tests.fake_tokenizer import FakeLlamaTokenizer  # noqa: E402
+
+TEMPLATES = sorted(jconv.conv_templates)
+
+
+def _rendered(conv_module, name):
+    conv = conv_module.conv_templates[name].copy()
+    conv.append_message(conv.roles[0], "<image>\nWhat is shown?")
+    conv.append_message(conv.roles[1], "A cat.")
+    conv.append_message(conv.roles[0], "And the sound?")
+    conv.append_message(conv.roles[1], None)
+    return conv.get_prompt()
+
+
+@pytest.mark.parametrize("name", TEMPLATES)
+def test_conversation_templates_match_jax(name):
+    assert sorted(tconv.conv_templates) == TEMPLATES
+    j, t = jconv.conv_templates[name], tconv.conv_templates[name]
+    assert (t.system, t.roles, t.offset, t.sep_style.name, t.sep, t.sep2,
+            t.version) == (j.system, j.roles, j.offset, j.sep_style.name,
+                           j.sep, j.sep2, j.version)
+    assert _rendered(tconv, name) == _rendered(jconv, name)
+    assert tgen.stop_str_for(t) == jgen.stop_str_for(j)
+    assert tconv.default_conversation.get_prompt() \
+        == jconv.default_conversation.get_prompt()
+
+
+@pytest.mark.parametrize("prompt", [
+    "<image>\nWhat is this?", "plain text only", "a <audio> b <video> c",
+    "<point><image>x</s>y", "<image>", ""])
+def test_tokenization_matches_jax(prompt):
+    tok = FakeLlamaTokenizer()
+    for fmt in (None, "np", "pt"):
+        got = ttok.tokenizer_modal_token(prompt, tok, return_tensors=fmt)
+        want = jtok.tokenizer_modal_token(prompt, tok, return_tensors=fmt)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+        got = ttok.tokenizer_image_token(prompt, tok, return_tensors=fmt)
+        want = jtok.tokenizer_image_token(prompt, tok, return_tensors=fmt)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    seps = ["<image>", "<audio>"]
+    assert ttok.split_string_by_list(prompt, seps) \
+        == jtok.split_string_by_list(prompt, seps)
+    for path in ("ckpts/merged-multimodal/", "a/b/checkpoint-300", "x"):
+        assert ttok.get_model_name_from_path(path) \
+            == jtok.get_model_name_from_path(path)
+
+
+def _sources(plain):
+    if plain:
+        return [[{"from": "human", "value": "<image>\n"},
+                 {"from": "gpt", "value": "a red car"}]]
+    return [[{"from": "human", "value": "<image>\nWhat is it?"},
+             {"from": "gpt", "value": "A car."},
+             {"from": "human", "value": "Which colour?"},
+             {"from": "gpt", "value": "Red."}],
+            [{"from": "gpt", "value": "skipped lead"},
+             {"from": "human", "value": "<audio> and <video>?"},
+             {"from": "gpt", "value": ""}]]
+
+
+@pytest.mark.parametrize("name", ["vicuna_v1", "llava_v1", "llama_2",
+                                  "mpt", "plain", "v0"])
+@pytest.mark.parametrize("has_image", [False, True])
+def test_preprocess_matches_jax(name, has_image):
+    tok = FakeLlamaTokenizer()
+    outs = []
+    for conv_module, pre in ((jconv, jpre), (tconv, tpre)):
+        saved = conv_module.default_conversation
+        conv_module.default_conversation = conv_module.conv_templates[name]
+        try:
+            outs.append(pre.preprocess(_sources(name == "plain"), tok,
+                                       has_image=has_image))
+        finally:
+            conv_module.default_conversation = saved
+    want, got = outs
+    for key in ("input_ids", "labels"):
+        assert len(got[key]) == len(want[key])
+        for g, w in zip(got[key], want[key]):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_split_list_matches_jax(n):
+    for length in range(12):
+        lst = list(range(length))
+        assert tdataset.split_list(lst, n) == jdataset.split_list(lst, n)
+        for k in range(n):
+            assert tdataset.get_chunk(lst, n, k) == jdataset.get_chunk(
+                lst, n, k)
+
+
+def _image(path, size):
+    from PIL import Image
+    rng = np.random.default_rng(size[0])
+    Image.fromarray(rng.integers(0, 256, size[::-1] + (3,),
+                                 dtype=np.uint8)).save(path)
+    return str(path)
+
+
+@pytest.mark.parametrize("aspect", [None, "pad"])
+def test_image_padding_matches_jax(tmp_path, aspect):
+    from PIL import Image
+    imgs = [Image.open(_image(tmp_path / f"{w}.png", (w, 30))).convert("RGB")
+            for w in (30, 50, 17)]
+    np.testing.assert_array_equal(
+        timage.expand2square(imgs[1], (1, 2, 3)),
+        jimage.expand2square(imgs[1], (1, 2, 3)))
+    got = timage.process_images(imgs, timage.ClipImageProcessor(size=28),
+                                image_aspect_ratio=aspect)
+    want = jimage.process_images(imgs, jimage.ClipImageProcessor(size=28),
+                                 image_aspect_ratio=aspect)
+    np.testing.assert_array_equal(got, want)
+
+
+def _clips(path):
+    """A stand-in video processor: a path -> [1, T, 2, 2, 3] with T from
+    the name (one frame for a .jpg, as the real processor gives)."""
+    t = 1 if path.endswith(".jpg") else 3
+    return np.full((1, t, 2, 2, 3), len(path), np.float32)
+
+
+def test_dataset_and_collator_match_jax(tmp_path):
+    img = _image(tmp_path / "i.png", (40, 30))
+    data = [{"id": i, "conversations": [
+        {"from": "human", "value": v}, {"from": "gpt", "value": ""}],
+        "modal_inputs": m} for i, (v, m) in enumerate([
+            ("<image>\nWhat?", {"vision": [img]}),
+            ("<video>\nWhen?", {"video": ["a.jpg"]}),
+            ("<video>\nHow?", {"video": ["clip.mp4"]}),
+            ("<audio>\n<point>\nWhy?", {"audio": ["x.wav"],
+                                       "point": ["p.npy"]}),
+            ("text only", {})])]
+    path = tmp_path / "q.json"
+    path.write_text(json.dumps(data))
+    tok = FakeLlamaTokenizer()
+    procs = {"vision": timage.ClipImageProcessor(size=28), "video": _clips,
+             "audio": lambda items: (np.ones((len(items), 4, 2)),
+                                     np.zeros((len(items), 4), bool)),
+             "point": lambda items: np.full((len(items), 3), 7.0)}
+    cfg = {"vision": {"image_aspect_ratio": "pad"}}
+    saved = (jconv.default_conversation, tconv.default_conversation)
+    jconv.default_conversation = jconv.conv_templates["vicuna_v1"]
+    tconv.default_conversation = tconv.conv_templates["vicuna_v1"]
+    try:
+        for chunks, idx in ((1, 0), (2, 1)):
+            jd = jdataset.ChunkedMultimodalDataset(str(path), tok, None, procs,
+                                                   chunks, idx)
+            td = tdataset.ChunkedMultimodalDataset(str(path), tok, None, procs,
+                                                   chunks, idx)
+            assert len(td) == len(jd)
+            jcol = jdataset.DataCollatorForSupervisedDataset(tok, procs, cfg)
+            tcol = tdataset.DataCollatorForSupervisedDataset(tok, procs, cfg)
+            for start in range(0, len(td), 3):
+                rows = range(start, min(start + 3, len(td)))
+                want = jcol([jd[i] for i in rows])
+                got = tcol([td[i] for i in rows])
+                assert sorted(got) == sorted(want)
+                for key in ("input_ids", "labels"):
+                    for g, w in zip(got[key], want[key]):
+                        np.testing.assert_array_equal(g, w)
+                assert sorted(got.get("modal_inputs", {})) == sorted(
+                    want.get("modal_inputs", {}))
+                for m, w in want.get("modal_inputs", {}).items():
+                    g = got["modal_inputs"][m]
+                    if isinstance(w, dict):  # audio: fbank and mask
+                        assert sorted(g) == sorted(w)
+                        g, w = [g[k] for k in sorted(g)], [w[k] for k in
+                                                           sorted(w)]
+                    for a, b in zip(g if isinstance(g, list) else [g],
+                                    w if isinstance(w, list) else [w]):
+                        np.testing.assert_array_equal(a, b)
+        # the collator tiles a one-frame clip to the batch's frame count
+        full = tcol([tdataset.ChunkedMultimodalDataset(
+            str(path), tok, None, procs)[i] for i in (1, 2)])
+        assert full["modal_inputs"]["video"].shape == (2, 3, 2, 2, 3)
+        # eval never resamples: a broken image raises
+        data[0]["modal_inputs"] = {"vision": [img + ".missing"]}
+        path.write_text(json.dumps(data))
+        for mod in (jdataset, tdataset):
+            with pytest.raises(FileNotFoundError):
+                mod.ChunkedMultimodalDataset(str(path), tok, None, procs)[0]
+    finally:
+        jconv.default_conversation, tconv.default_conversation = saved
+    assert tdataset.MultimodalDataset(str(path), tok).modality_lengths \
+        == jdataset.MultimodalDataset(str(path), tok).modality_lengths
+
+
+def test_generate_text_matches_jax():
+    """generate_text passes a generator where the JAX one passes a key;
+    tokenization, the greedy gate and the stop-string strip are the same."""
+    class Model:
+        def __init__(self):
+            self.calls = []
+
+        def generate(self, ids, modal_inputs, **kw):
+            self.calls.append((np.asarray(ids[0]).tolist(), kw))
+            return [[5, 9, 2]]
+
+    class Tok(FakeLlamaTokenizer):
+        def decode(self, ids, skip_special_tokens=True):
+            return super().decode(ids) + " ###"
+    jm, tm = Model(), Model()
+    kw = dict(temperature=1e-5, max_new_tokens=4, stop_str="###",
+              num_beams=2, top_p=0.7)
+    want = jgen.generate_text(jm, Tok(), "<image>\nhi", {}, rng="key", **kw)
+    got = tgen.generate_text(tm, Tok(), "<image>\nhi", {}, generator="gen",
+                             **kw)
+    assert got == want == "t5 t9 t2"
+    (jids, jkw), (tids, tkw) = jm.calls[0], tm.calls[0]
+    assert tids == jids and tkw.pop("generator") == "gen" \
+        and jkw.pop("rng") == "key"
+    assert tkw == jkw and tkw["temperature"] == 0.0

@@ -204,8 +204,26 @@ def test_assemble_embeds_matches_jax():
 
 
 def test_sampling_raises_not_implemented(pair):
-    _, tm = pair
+    """Sampling is ported and no longer raises: draws follow the generator,
+    and each row's first token lies in the JAX nucleus of its prompt's
+    logits (tests/test_torch_sampling.py holds the filter and the draw)."""
+    from modelcompose_tpu.core.sampling import top_p_filter
+    jm, tm = pair
     ids, inputs = _batch()
-    with pytest.raises(NotImplementedError, match="sampling"):
-        tm.generate(ids, inputs, max_new_tokens=2, bucket_len=32,
-                    temperature=0.7)
+    kw = dict(max_new_tokens=4, bucket_len=32, temperature=0.7, top_p=0.5)
+    runs = [tm.generate(ids, inputs, **kw,
+                        generator=torch.Generator().manual_seed(s))
+            for s in (0, 0, 1, 2, 3)]
+    assert runs[0] == runs[1]
+    assert any(r != runs[0] for r in runs[2:])
+    embeds, plan = jm.prepare_batch(ids, inputs, bucket_len=32)
+    logits, _ = jax_generate._prefill(
+        jm.params, jm.cfg, embeds, jnp.asarray(plan.route_ids),
+        jnp.asarray(jm.routing_table), jnp.asarray(plan.segment_ids),
+        jnp.asarray(plan.lengths), 36, "auto", False)
+    nucleus = np.asarray(top_p_filter(logits / 0.7, jnp.float32(0.5))) \
+        > np.finfo(np.float32).min
+    for run in runs:
+        for b, row in enumerate(run):
+            assert len(row) <= 4
+            assert not row or nucleus[b, row[0]]

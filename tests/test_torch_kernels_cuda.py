@@ -162,6 +162,7 @@ def test_k1_segments_isolate_packed_samples():
     (3, 1, 100, 16, 8, 64, (100,)),
     (32, 1, 3328 + 32, 32, 32, 128, (3287,)),  # MCUB-4 decode, first step
     (32, 2, 3328 + 32, 32, 32, 128, (3318, 3300)),
+    (32, 3, 3328 + 32, 32, 32, 128, (3287,) * 3),  # MCUB-4 beam search, B=3
 ])
 def test_k2_matches_plain(quantized, NL, B, S, H, Hkv, D, kv_len):
     gen = torch.Generator(device="cuda").manual_seed(S)
@@ -195,6 +196,35 @@ def test_k2_split_edges_and_groups(quantized, group):
     out = flash_decode_attention(q, k, v, kv, 1, sm_scale=D ** -0.5)
     ref = flash_decode_reference(q, k, v, kv, 1, sm_scale=D ** -0.5)
     assert torch.isfinite(out).all() and _rel(out, ref) <= 2e-2
+
+
+def test_beam_gather_on_card_matches_cpu():
+    """The in-place parent-beam gather on a bf16 beam cache on the card
+    gives the CPU's rows, in the same buffers, and K2 over the gathered
+    cache agrees with the plain version over the CPU's."""
+    from modelcompose_tpu_torch.core import beam
+    from modelcompose_tpu_torch.core.llama import KVCache
+    gen = torch.Generator().manual_seed(5)
+    k, v = (torch.randn((4, 1, 300, 8, 64), generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    cpu = beam._tile_beams(KVCache(k=k, v=v), 3)
+    for t in (cpu.k, cpu.v):  # generated rows differ per beam
+        t[:, :, 200:230] = torch.randn(t[:, :, 200:230].shape,
+                                       generator=gen).to(torch.bfloat16)
+    card = KVCache(k=cpu.k.cuda(), v=cpu.v.cuda())
+    ptrs = (card.k.data_ptr(), card.v.data_ptr())
+    for idx in ([2, 2, 0], [1, 0, 1]):
+        beam._gather_beams(cpu, torch.tensor(idx), 200, 230)
+        beam._gather_beams(card, torch.tensor(idx, device="cuda"), 200, 230)
+        assert torch.equal(card.k.cpu(), cpu.k)
+        assert torch.equal(card.v.cpu(), cpu.v)
+    assert (card.k.data_ptr(), card.v.data_ptr()) == ptrs
+    q = torch.randn((3, 1, 8, 64), generator=gen).to(torch.bfloat16)
+    lens = torch.tensor([230] * 3, dtype=torch.int32)
+    out = flash_decode_attention(q.cuda(), card.k, card.v, lens.cuda(), 2,
+                                 sm_scale=0.125)
+    ref = flash_decode_reference(q, cpu.k, cpu.v, lens, 2, sm_scale=0.125)
+    assert _rel(out.cpu(), ref) <= 2e-2
 
 
 def test_k2_counters_reset_between_launches():

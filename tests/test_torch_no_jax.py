@@ -1,8 +1,9 @@
 """The port never imports JAX nor the JAX package: its package runs the tiny
 slices end to end (greedy generation, a train step, then four unimodal
-checkpoints merged, loaded and answering a 4-modality prompt) in a process
-where ``import jax`` and ``import modelcompose_tpu`` fail, and no file of it
-(nor ``chip_smoke.py``) imports either.  Its entry points put a model on the
+checkpoints merged, loaded and answering a 4-modality prompt, then the eval
+entry answering a question file greedily, sampled and by beam search) in a
+process where ``import jax`` and ``import modelcompose_tpu`` fail, and no
+file of it (nor ``chip_smoke.py``) imports either.  Its entry points put a model on the
 card unless asked for the CPU, and raise where there is no card."""
 
 import os
@@ -108,6 +109,35 @@ inputs = {"vision": rng.normal(size=(1, 28, 28, 3)).astype(np.float32),
 out4 = model.generate(ids, inputs, max_new_tokens=4, compact_adapters=True,
                       kv_quant=True)
 assert len(out4) == 1 and len(out4[0]) <= 4, out4
+
+# the eval entry on the merged checkpoint: audio, point and text-only
+# questions, answered greedily, sampled and by beam search
+import json, wave
+from modelcompose_tpu_torch.eval.model_multimodal_qa_loader import (
+    eval_model, parse_args)
+from tests.fake_tokenizer import FakeLlamaTokenizer
+with wave.open(os.path.join(root, "a.wav"), "wb") as w:
+    w.setnchannels(1); w.setsampwidth(2); w.setframerate(16000)
+    w.writeframes((rng.normal(size=16000) * 3000).astype(np.int16).tobytes())
+np.save(os.path.join(root, "p.npy"), rng.normal(size=(64, 6)).astype(np.float32))
+qfile = os.path.join(root, "q.json")
+with open(qfile, "w") as f:
+    json.dump([{"id": i, "conversations": [{"from": "human", "value": v},
+                                           {"from": "gpt", "value": None}],
+                "modal_inputs": m} for i, (v, m) in enumerate([
+        ("<audio>\nWhat?", {"audio": [os.path.join(root, "a.wav")]}),
+        ("<point>\nWhat?", {"point": [os.path.join(root, "p.npy")]}),
+        ("Why?", {})])], f)
+for mode in (["--protocol", "benchmark"], ["--temperature", "0.7", "--top-p",
+             "0.9"], ["--protocol", "benchmark", "--num-beams", "2"]):
+    args = parse_args(["--model-path", merged, "--model-base",
+                       os.path.join(root, "base"), "--question-file", qfile,
+                       "--answers-file", os.path.join(root, "ans.jsonl"),
+                       "--max-new-tokens", "3"] + mode)
+    eval_model(args, load_tokenizer_fn=lambda b: FakeLlamaTokenizer(),
+               device="cpu")
+    with open(args.answers_file) as f:
+        assert [json.loads(l)["question_id"] for l in f] == [0, 1, 2]
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "modelcompose_tpu")]
 assert all(sys.modules[m] is None for m in loaded), loaded
 print("SLICE_OK", out)
@@ -137,17 +167,23 @@ def test_no_file_of_the_port_imports(what, pattern):
     offenders = [str(f) for f in PORT_FILES if regex.search(f.read_text())]
     assert not offenders, f"import {what}: {offenders}"
     assert len(PORT_FILES) > 15
+    names = {str(f.relative_to(PKG)) for f in PORT_FILES if PKG in f.parents}
+    assert {"core/sampling.py", "core/beam.py", "data/conversation.py",
+            "data/tokenization.py", "data/preprocess.py", "data/dataset.py",
+            "eval/generation_utils.py",
+            "eval/model_multimodal_qa_loader.py"} <= names
 
 
 @pytest.mark.parametrize("entry", [
     "random_init", "load_pretrained_model", "build_model", "model_from_jax",
     "build_modal_encoders", "ClipVisionTower", "BeatsAudioTower",
-    "LanguageBindVideoTower", "PointBertTower"])
+    "LanguageBindVideoTower", "PointBertTower", "eval_model"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """No device means the card; without one each entry point raises before
     it builds anything on the CPU."""
     from modelcompose_tpu_torch import MultimodalLM, tiny_test_config
     from modelcompose_tpu_torch.convert import model_from_jax
+    from modelcompose_tpu_torch.eval import model_multimodal_qa_loader as qa
     from modelcompose_tpu_torch.models import towers
     from modelcompose_tpu_torch.models.loader import load_pretrained_model
     from modelcompose_tpu_torch.train import train_multimodal
@@ -171,6 +207,9 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "LanguageBindVideoTower": lambda: towers.LanguageBindVideoTower(
             "test:32x3"),
         "PointBertTower": lambda: towers.PointBertTower("test:16x2"),
+        "eval_model": lambda: qa.eval_model(qa.parse_args([
+            "--model-path", str(tmp_path / "c-multimodal"), "--model-base",
+            str(tmp_path), "--question-file", "-"])),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -583,5 +583,36 @@ def test_build_model_and_entry_flags():
     assert layout2 == layout and batch["encoder_features"] == {}
     assert batch["tower_pixels"]["vision"].shape == (2, 28, 28, 3)
     args.random_init_backbone = False
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         entry.build_model(args, cfg, "cpu")
+
+
+@pytest.mark.parametrize("vision_trains", [True, False])
+def test_build_model_tower_dtypes_match_jax(vision_trains):
+    """A vision + audio config: with --mm_vision_tower_lr only the vision
+    tower is fp32 and the frozen audio tower beside it keeps --tower_dtype
+    (bf16), floating leaf for floating leaf as the JAX entry builds them."""
+    argv = ["--model_name_or_path", "none", "--data_path", "-",
+            "--output_dir", "-", "--random_init_backbone",
+            "--mm_vision_encoder", "test:32x2", "--mm_audio_encoder",
+            "test:16x2", "--lora_strategy", "modal+language", "--lora_r", "4",
+            "--lora_alpha", "8"]
+    if vision_trains:
+        argv += ["--mm_vision_tower_lr", "1e-4"]
+    keys = dict(mm_vision_encoder="test:32x2", mm_audio_encoder="test:16x2",
+                lora_strategy="modal+language", lora_r=4, lora_alpha=8)
+    model = entry.build_model(entry.build_arg_parser().parse_args(argv),
+                              port_tiny_config(**keys), "cpu")
+    jm = jentry.build_model(jentry.build_arg_parser().parse_args(argv),
+                            tiny_test_config(**keys))
+    want_dtype = {"vision": "float32" if vision_trains else "bfloat16",
+                  "audio": "bfloat16"}
+    for modal, want in want_dtype.items():
+        got = [str(t.dtype).replace("torch.", "") for _, t in
+               trainer.tree_leaves(model.encoders[modal].params)
+               if t.is_floating_point()]
+        jax_dtypes = [str(a.dtype) for a in jax.tree.leaves(
+            jm.encoders[modal].params) if jnp.issubdtype(a.dtype,
+                                                         jnp.floating)]
+        assert sorted(got) == sorted(jax_dtypes), modal
+        assert set(got) == {want}, modal
