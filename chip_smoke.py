@@ -63,7 +63,26 @@ nonzero:
    ``make_grad_and_apply``, torch.profiler over one more step (device time
    by kernel, the K1/K3/K4 shares; the table goes to
    ``chiprun_out/train_profile.txt``), then the kernel path's loss and
-   gradients against the plain path's on one micro-batch.
+   gradients against the plain path's on one micro-batch;
+10. train_entry: the DAMC train entry (``train()``, what ``python -m
+   modelcompose_tpu_torch.train.train_multimodal`` runs) at Vicuna-7B v1.5
+   width and depth: a random fp16 base written to disk in the released
+   layout (two shards, index, config.json), a 48-sample point dataset
+   (8,192 x 6 clouds), stage 1 as ``run_pretrain_point.sh`` (B=16, 3
+   steps, projector only), stage 2 as ``run_finetune_point_damc.sh`` on
+   its export (B=4, 4 steps, checkpoint-4), the same flags resumed to 6
+   steps, then the export loaded by ``load_pretrained_model`` and one
+   point question decoded greedily; base write and load, setup, step,
+   loader-wait, checkpoint and restore seconds, positions/s, peak memory,
+   export bytes, a profile of one stage-2 step
+   (``chiprun_out/train_entry_profile.txt``); K1 (twice a layer under
+   remat), K3 and K4 on every micro-batch, frozen leaves bit-unchanged,
+   the trained ones changed, the restored state and the served leaves
+   bit-equal to the checkpoint and the trained state, ``train()``'s steady
+   window equal to the steps seen; then K1 + K3 + K4 and K2 against their
+   plain versions at the inputs the path gave them.  The PointBERT tower
+   is random from SEED 0 in both the trainer (bf16) and the loader (fp32):
+   the same draws.
 
 The line before the last is a JSON object with each kernel's launches on the
 main paths, its largest error against the plain version, its time, the plain
@@ -78,7 +97,7 @@ at B=2, L=2,048 with rows of 2,048 and 1,391; K1's and K2's ``mcub4`` hold
 the composed path's shape, K2's ``*_cold`` keys its device time with every
 launch on a cold layer, and K3's and K4's ``train_batch`` and
 ``micro_batch`` the train step's shapes, and K2's ``beam`` beam search's;
-K1's and K2's ``launches_by_path`` split the launches by phase.  The last
+each kernel's ``launches_by_path`` splits its launches by phase.  The last
 line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits nonzero and prints no result.
 """
@@ -835,24 +854,43 @@ def _attention_counters():
     return reset, read
 
 
-class _DecodeShapes:
-    """Records (batch rows, cache dtype) of every K2 launch while active,
-    through the wrapper's input check (the launch counts stay the
-    wrapper's own)."""
+class _KernelInputs:
+    """Records, while active, the inputs the kernels are launched at,
+    through the wrappers' input checks (the launch counts stay the
+    wrappers' own): for every distinct K1/K3/K4 shape ``(B, Lq, H, D, S,
+    Hkv)`` its first call's (q, kv) segment ids, and for every distinct K2
+    cache ``(NL, B, S, Hkv, D, H, dtype)`` its first call's kv_len.  The
+    copies stay on the device: recording adds no host sync."""
 
     def __enter__(self):
-        from modelcompose_tpu_torch.ops import flash_decode
-        self.module, self.check = flash_decode, flash_decode._check_cuda_inputs
-        self.seen = set()
+        from modelcompose_tpu_torch.ops import flash_attention, flash_decode
+        self.modules = (flash_attention, flash_decode)
+        attention_check, decode_check = self.checks = tuple(
+            m._check_cuda_inputs for m in self.modules)
+        self.attention, self.decode = {}, {}
 
-        def check(q, k_q, *rest):
-            self.seen.add((int(k_q.shape[1]), str(k_q.dtype)))
-            return self.check(q, k_q, *rest)
-        flash_decode._check_cuda_inputs = check
+        def attention(q, k, v, q_seg, kv_seg):
+            key = tuple(q.shape) + tuple(k.shape[1:3])
+            if key not in self.attention:
+                self.attention[key] = (q_seg.clone(), kv_seg.clone())
+            return attention_check(q, k, v, q_seg, kv_seg)
+
+        def decode(q, k_q, v_q, k_s, v_s, kv_len):
+            key = tuple(k_q.shape) + (q.shape[2], str(k_q.dtype))
+            if key not in self.decode:
+                self.decode[key] = kv_len.clone()
+            return decode_check(q, k_q, v_q, k_s, v_s, kv_len)
+        flash_attention._check_cuda_inputs = attention
+        flash_decode._check_cuda_inputs = decode
         return self
 
     def __exit__(self, *exc):
-        self.module._check_cuda_inputs = self.check
+        for module, check in zip(self.modules, self.checks):
+            module._check_cuda_inputs = check
+
+    def decode_rows_dtype(self):
+        """Sorted (batch rows, cache dtype) of the K2 launches seen."""
+        return sorted({(key[1], key[-1]) for key in self.decode})
 
 
 def _variant(name, model, ids, inputs, **kw):
@@ -866,14 +904,14 @@ def _variant(name, model, ids, inputs, **kw):
     torch.cuda.reset_peak_memory_stats()
     reset()
     timings = {}
-    with _DecodeShapes() as shapes:
+    with _KernelInputs() as shapes:
         answers = model.generate(ids, inputs, timings=timings, **kw)
     launches = read()
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_layers = model.cfg.num_hidden_layers
     steps = launches["flash_decode"] // n_layers  # decode steps run
     res = {"answer": answers[0], "launches": launches,
-           "k2_rows_dtype": sorted(shapes.seen),
+           "k2_rows_dtype": shapes.decode_rows_dtype(),
            "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
            "decode_steps": steps,
            "decode_tok_per_s": steps / timings["decode_s"],
@@ -1657,6 +1695,581 @@ def _profile(name, fn, out_file):
     return {"wall_s": wall, "device_kernel_s": total / 1e6, "shares": share}
 
 
+# The train_entry phase: Vicuna-7B v1.5 at full width and depth (its
+# config.json), and the point recipes' flags
+# (scripts/model_composition/train/run_pretrain_point.sh,
+# run_finetune_point_damc.sh) cut in steps.
+VICUNA_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                 num_hidden_layers=32, num_attention_heads=32,
+                 num_key_value_heads=32, max_position_embeddings=4096,
+                 rms_norm_eps=1e-5, rope_theta=10000.0)
+ENTRY_SAMPLES = 48
+ENTRY_FLAGS = ["--mm_point_encoder", "point_bert_v1.2.pt",
+               "--mm_point_projector_type", "mlp2x_gelu", "--bf16", "True",
+               "--gradient_checkpointing", "True", "--warmup_ratio", "0.03",
+               "--logging_steps", "1", "--model_max_length", "2048",
+               "--seed", str(SEED)]
+STAGE1_FLAGS = ["--version", "plain", "--tune_mm_mlp_adapter", "True",
+                "--per_device_train_batch_size", "16",
+                "--learning_rate", "2e-3", "--max_steps", "3"]
+STAGE2_FLAGS = ["--version", "v1", "--lora_strategy", "modal+language",
+                "--lora_r", "128", "--lora_alpha", "256",
+                "--mm_projector_lr", "2e-5", "--mm_language_lr", "1e-5",
+                "--local_prefix_tokens", "5", "--local_suffix_tokens", "5",
+                "--per_device_train_batch_size", "4",
+                "--learning_rate", "2e-4", "--save_steps", "4"]
+ENTRY_STEPS = {"stage1": 3, "stage2": 4, "stage2_resumed": 6}
+# 13.5 GB of base, a 3.9 GB step checkpoint, 5.3 GB of fp32 adapter export
+# (.bin, and .safetensors where the package imports)
+ENTRY_DISK_GB = 24
+WORDS = ("red blue small large round flat wooden metal chair table lamp "
+         "vase plane car cup bottle guitar shelf sofa bed mug bowl airplane "
+         "with four legs a handle two wings on top of the and it is").split()
+
+
+def _gb(nbytes):
+    return nbytes / 1e9
+
+
+def _dir_bytes(path, pattern="*"):
+    import glob
+    return sum(os.path.getsize(p) for p in glob.glob(os.path.join(path,
+                                                                  pattern))
+               if os.path.isfile(p))
+
+
+def _host_room(path):
+    """(free disk GB at ``path``, available host RAM GB)."""
+    import shutil
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) for line in f
+                     if line.startswith("MemAvailable"))
+    return _gb(shutil.disk_usage(path).free), avail * 1024 / 1e9
+
+
+def _write_vicuna_base(base_dir, device):
+    """A Vicuna-7B v1.5 directory from SEED: two fp16 shards with their
+    index and the Llama config.json, as the released one has them; weights
+    N(0, 0.02), norms 1.  Returns (seconds, bytes)."""
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    H, I, V = (VICUNA_7B[k] for k in ("hidden_size", "intermediate_size",
+                                      "vocab_size"))
+    shapes = {"model.embed_tokens.weight": (V, H),
+              "model.norm.weight": (H,), "lm_head.weight": (V, H)}
+    for i in range(VICUNA_7B["num_hidden_layers"]):
+        pre = f"model.layers.{i}."
+        for name in ("q", "k", "v", "o"):
+            shapes[f"{pre}self_attn.{name}_proj.weight"] = (H, H)
+        shapes[f"{pre}mlp.gate_proj.weight"] = (I, H)
+        shapes[f"{pre}mlp.up_proj.weight"] = (I, H)
+        shapes[f"{pre}mlp.down_proj.weight"] = (H, I)
+        shapes[f"{pre}input_layernorm.weight"] = (H,)
+        shapes[f"{pre}post_attention_layernorm.weight"] = (H,)
+    keys = list(shapes)
+    half = len(keys) // 2
+    shards = {"pytorch_model-00001-of-00002.bin": keys[:half],
+              "pytorch_model-00002-of-00002.bin": keys[half:]}
+    os.makedirs(base_dir)
+    for name, ks in shards.items():
+        state = {}
+        for k in ks:
+            if len(shapes[k]) == 1:
+                t = torch.ones(shapes[k], dtype=torch.float16)
+            else:
+                t = (torch.randn(shapes[k], generator=gen, device=device)
+                     * 0.02).half().cpu()
+            state[k] = t
+        torch.save(state, os.path.join(base_dir, name))
+        del state
+    with open(os.path.join(base_dir, "pytorch_model.bin.index.json"),
+              "w") as f:
+        json.dump({"weight_map": {k: n for n, ks in shards.items()
+                                  for k in ks}}, f)
+    with open(os.path.join(base_dir, "config.json"), "w") as f:
+        json.dump(dict(VICUNA_7B, architectures=["LlamaForCausalLM"],
+                       model_type="llama", torch_dtype="float16"), f)
+    return time.perf_counter() - t0, _dir_bytes(base_dir)
+
+
+def _point_dataset(root, rng):
+    """ENTRY_SAMPLES clouds of 8,192 x 6 (xyz normal, rgb uniform) as .npy,
+    with a stage-1 json of plain captions and a stage-2 json of v1
+    question-answer conversations over the same clouds."""
+    import numpy as np
+    plain, v1 = [], []
+
+    def words(n):
+        return " ".join(rng.choice(WORDS, n))
+    for i in range(ENTRY_SAMPLES):
+        path = os.path.join(root, f"cloud{i:02d}.npy")
+        np.save(path, np.concatenate([rng.normal(size=(8192, 3)),
+                                      rng.random((8192, 3))], 1)
+                .astype(np.float32))
+        plain.append({"id": i, "conversations": [
+            {"from": "human", "value": "<point>\n"},
+            {"from": "gpt", "value": words(int(rng.integers(8, 24)))}],
+            "modal_inputs": {"point": [path]}})
+        v1.append({"id": i, "conversations": [
+            {"from": "human", "value": "<point>\nWhat is this object? "
+                                       "Describe it in detail."},
+            {"from": "gpt", "value": words(int(rng.integers(20, 60)))}],
+            "modal_inputs": {"point": [path]}})
+    paths = {}
+    for name, data in (("stage1", plain), ("stage2", v1)):
+        paths[name] = os.path.join(root, f"point_{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(data, f)
+    return paths
+
+
+def _kernel_counters():
+    """(reset, read) of the launch counts of K1-K4."""
+    from modelcompose_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_forward)
+    from modelcompose_tpu_torch.ops.flash_decode import flash_decode_attention
+    fns = {"flash_attention_fwd": flash_attention_forward,
+           "flash_decode": flash_decode_attention,
+           "flash_attention_bwd_dq": flash_attention_bwd_dq,
+           "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
+
+    def reset():
+        for fn in fns.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in fns.items()}
+    return reset, read
+
+
+def _trainable(model):
+    """{path: leaf} of the leaves a train run updates."""
+    from modelcompose_tpu_torch.tree import tree_leaves
+    return {p: t for p, t in tree_leaves({"backbone": model.params,
+                                          "projectors": model.projectors})
+            if t.requires_grad}
+
+
+class _EntryProbe:
+    """Instruments one ``train()`` call of the train entry from outside:
+    times ``build_model`` (the base load), captures the model and hands it
+    to ``watch(model, cfg)``, whose result (the leaves to hold after the
+    run) it keeps, records every step's launches (counter differences, the
+    counts are never reset here) and seconds (synchronized), profiles one
+    chosen step, times the step checkpoint's write and the restore, and
+    holds the restored state to the checkpoint's files."""
+
+    def __init__(self, entry, read, device, profile_step=None, watch=None):
+        self.entry, self.read, self.device = entry, read, device
+        self.profile_step, self.watch = profile_step, watch
+        self.steps, self.model, self.watched = [], None, None
+        self.times = {}
+        self.restored_step = None
+        self.profile = None
+
+    def __enter__(self):
+        import torch
+        e = self.entry
+        self.saved = {n: getattr(e, n) for n in (
+            "build_model", "make_train_step", "save_step_checkpoint",
+            "restore_step_checkpoint")}
+        originals = dict(self.saved)
+
+        def build_model(args, cfg, device=None):
+            t0 = time.perf_counter()
+            model = originals["build_model"](args, cfg, device)
+            torch.cuda.synchronize()
+            self.times["build_model_s"] = time.perf_counter() - t0
+            self.model = model
+            if self.watch is not None:
+                self.watched = self.watch(model, cfg)
+            return model
+
+        def make_train_step(*a, **kw):
+            step = originals["make_train_step"](*a, **kw)
+
+            def probed(state, batch, layout):
+                before = self.read()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if len(self.steps) == self.profile_step:
+                    out = []
+                    self.profile = _profile(
+                        "train_entry_step",
+                        lambda: out.append(step(state, batch, layout)),
+                        "train_entry_profile.txt")
+                    result = out[0]
+                else:
+                    result = step(state, batch, layout)
+                torch.cuda.synchronize()
+                after = self.read()
+                self.steps.append({
+                    "s": time.perf_counter() - t0,
+                    "profiled": len(self.steps) == self.profile_step,
+                    "bucket": tuple(batch["token_ids"].shape),
+                    "launches": {k: after[k] - before[k] for k in after}})
+                return result
+            return probed
+
+        def save_step_checkpoint(output_dir, step, state, tx):
+            t0 = time.perf_counter()
+            path = originals["save_step_checkpoint"](output_dir, step, state,
+                                                     tx)
+            self.times["checkpoint_write_s"] = time.perf_counter() - t0
+            self.times["checkpoint_bytes"] = _dir_bytes(path)
+            return path
+
+        def restore_step_checkpoint(ckpt_dir, state, tx):
+            from modelcompose_tpu_torch.train import checkpoint as ck
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = originals["restore_step_checkpoint"](ckpt_dir, state, tx)
+            torch.cuda.synchronize()
+            self.times["restore_s"] = time.perf_counter() - t0
+            self.restored_step = state.step
+            saved = torch.load(os.path.join(ckpt_dir, ck.PARAMS_FILE),
+                               map_location=self.device, weights_only=True)
+            opt = torch.load(os.path.join(ckpt_dir, ck.OPT_FILE),
+                             map_location=self.device, weights_only=True)
+            live = {ck.path_key(p): t for p, t in
+                    ck.tree_leaves(state.params) if tx.trains(p)}
+            moments = {m: {ck.path_key(p): t for p, t in
+                           state.opt_state[m].items()} for m in ("mu", "nu")}
+            bad = [k for k in live if not torch.equal(live[k].detach(),
+                                                      saved[k])]
+            bad += [f"{m}:{k}" for m in moments for k in moments[m]
+                    if not torch.equal(moments[m][k], opt[m][k])]
+            if bad or set(live) != set(saved):
+                raise AssertionError(f"restored state differs from "
+                                     f"{ckpt_dir}: {bad[:3]}")
+            self.times["restore_checked_leaves"] = len(live)
+            del saved, opt
+            return state
+
+        for name, fn in (("build_model", build_model),
+                         ("make_train_step", make_train_step),
+                         ("save_step_checkpoint", save_step_checkpoint),
+                         ("restore_step_checkpoint",
+                          restore_step_checkpoint)):
+            setattr(e, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.entry, name, fn)
+
+
+def phase_train_entry(device, gen, root):
+    """The DAMC train entry at Vicuna-7B width and depth from a base on
+    disk: stage 1 (projector pretrain, B=16, 3 steps), stage 2 on its
+    export (modal+language LoRA r=128, 5+5 soft tokens, B=4, 4 steps and
+    checkpoint-4), the same flags resumed to 6 steps, then the export
+    loaded by ``load_pretrained_model`` and one point question decoded
+    greedily by ``run_questions``; after the path, each kernel against its
+    plain version at the inputs the path gave it."""
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.compose.convert import projector_to_reference
+    from modelcompose_tpu_torch.compose.state_io import load_state
+    from modelcompose_tpu_torch.train import train_multimodal as entry
+
+    reset, read = _kernel_counters()
+    out = {}
+    disk, ram = _host_room(root)
+    log("train_entry", free_disk_gb=f"{disk:.1f}",
+        host_ram_avail_gb=f"{ram:.1f}")
+    if disk < ENTRY_DISK_GB:
+        raise RuntimeError(f"train_entry needs {ENTRY_DISK_GB} GB of disk in "
+                           f"the checkout (the base, a step checkpoint and "
+                           f"the exports); {disk:.1f} GB free")
+    base_dir = os.path.join(root, "vicuna-7b-v1.5")
+    write_s, base_bytes = _write_vicuna_base(base_dir, device)
+    data = _point_dataset(root, np.random.default_rng(SEED))
+    out["base"] = {"write_s": write_s, "gb": _gb(base_bytes)}
+    log("train_entry", base_write_s=f"{write_s:.1f}",
+        base_gb=f"{_gb(base_bytes):.2f}", samples=ENTRY_SAMPLES)
+    n_layers = VICUNA_7B["num_hidden_layers"]
+    tokenizer = WordHashTokenizer()
+    dirs = {"stage1": os.path.join(root, "point-stage1"),
+            "stage2": os.path.join(root, "point-damc-multimodal")}
+
+    def run(stage, profile_step=None, watch=None):
+        name = "stage1" if stage == "stage1" else "stage2"
+        flags = ["--model_name_or_path", base_dir, "--data_path", data[name],
+                 "--output_dir", dirs[name]] + ENTRY_FLAGS + (
+            STAGE1_FLAGS if name == "stage1" else STAGE2_FLAGS + [
+                "--pretrain_mm_mlp_adapter",
+                os.path.join(dirs["stage1"], "mm_projector.bin")]) + [
+            "--max_steps", str(ENTRY_STEPS[stage])]
+        args = entry.build_arg_parser().parse_args(flags)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # train()'s own steady window starts after the profiled step
+        skip = 1 if profile_step is None else profile_step + 1
+        with _EntryProbe(entry, read, device, profile_step, watch) as probe, \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the random PointBERT tower
+            t0 = time.perf_counter()
+            res = entry.train(args, tokenizer=tokenizer, device=device,
+                              time_skip=skip)
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        steps = probe.steps
+        # the profiled step's time holds the profiler's: not timed
+        step_s = [None if s["profiled"] else s["s"] for s in steps]
+        timed_s = [s for s in step_s[1:] if s is not None]
+        positions = res["positions"]
+        waits = [t["loader_wait"] for t in res["loop_trace"]]
+        row = {"wall_s": wall, "build_model_s": probe.times["build_model_s"],
+               "setup_s": res["setup_seconds"], "step_s": step_s,
+               "steady_step_s": float(np.median(timed_s)),
+               "positions": positions,
+               "positions_per_s": [p / s if s else None
+                                   for p, s in zip(positions, step_s)],
+               "buckets": [s["bucket"] for s in steps],
+               "loader_wait_s": waits, "losses": res["losses"],
+               "peak_gb": peak / 2**30,
+               "export_s": res["export_seconds"],
+               "export_bytes": _dir_bytes(dirs[name], "adapter_model.*")
+               + _dir_bytes(dirs[name], "mm_projector.*"),
+               "launches": [s["launches"] for s in steps],
+               "start_step": res["start_step"]}
+        row.update({k: v for k, v in probe.times.items()
+                    if k != "build_model_s"})
+        if probe.profile is not None:
+            row["profile"] = probe.profile
+        # train()'s own steady window (its whole loop: loader wait,
+        # make_batch, the step) covers the steps after the first ``skip``
+        window = steps[skip:]
+        if res.get("steady_steps") != len(window) \
+                or res["steady_bucket_tokens"] != sum(
+                    int(np.prod(s["bucket"])) for s in window):
+            raise AssertionError(
+                f"{stage}: steady window of {res.get('steady_steps')} steps "
+                f"and {res.get('steady_bucket_tokens')} bucket positions, "
+                f"the probe saw {[s['bucket'] for s in window]}")
+        row["loop_steady_s_per_step"] = (res["steady_seconds"]
+                                         / res["steady_steps"])
+        log("train_entry", stage=stage,
+            build_model_s=f"{row['build_model_s']:.1f}",
+            setup_s=f"{row['setup_s']:.1f}",
+            step_s=json.dumps([s and round(s, 4) for s in step_s]),
+            steady_step_s=f"{row['steady_step_s']:.4f}",
+            loop_steady_s_per_step=f"{row['loop_steady_s_per_step']:.4f}",
+            positions_per_s=json.dumps([p and round(p) for p in
+                                        row["positions_per_s"]]),
+            buckets=json.dumps(row["buckets"]),
+            loader_wait_s=json.dumps([round(w, 4) for w in waits]),
+            losses=json.dumps([round(x, 5) for x in res["losses"]]),
+            peak_gb=f"{row['peak_gb']:.2f}", export_s=f"{row['export_s']:.1f}",
+            export_gb=f"{_gb(row['export_bytes']):.3f}",
+            **{k: (f"{v:.2f}" if isinstance(v, float) else v)
+               for k, v in probe.times.items() if k != "build_model_s"})
+        # every micro-batch ran the kernels: K1 twice a layer under
+        # remat, K3 and K4 once
+        for i, counts in enumerate(row["launches"]):
+            if counts["flash_attention_fwd"] < 2 * n_layers \
+                    or counts["flash_attention_bwd_dq"] != n_layers \
+                    or counts["flash_attention_bwd_dkv"] != n_layers:
+                raise AssertionError(f"{stage} step {i}: launches {counts}")
+        if len(steps) != res["steps"] - res["start_step"] \
+                or not np.isfinite(res["losses"]).all():
+            raise AssertionError(f"{stage}: {len(steps)} steps, losses "
+                                 f"{res['losses']}")
+        out[stage] = row
+        return probe, res
+
+    # stage 1 trains the projector only, stage 2 the LoRA A and B of both
+    # adapter rows, the projector and the soft tokens; the base, the
+    # embedding and the tower stay bit-unchanged
+    def watch_leaves(stage):
+        def watch(m, cfg):
+            layers, tower = m.params["layers"], m.encoders["point"].params
+            frozen = {"attn.q.w": layers["attn"]["q"]["w"],
+                      "mlp.down.w": layers["mlp"]["down"]["w"],
+                      "embed_tokens": m.params["embed_tokens"],
+                      "tower.blocks.qkv.w": tower["blocks"]["qkv"]["w"],
+                      "tower.conv1.w": tower["encoder"]["conv1"]["w"]}
+            trained = {"projector.w0": m.projectors["point"]["layers"][0]["w"],
+                       "projector.b1": m.projectors["point"]["layers"][1]["b"]}
+            lora = {f"{k}.{n}": layers[g][n][k] for g, n in
+                    (("attn", "q"), ("mlp", "down"))
+                    for k in ("lora_a", "lora_b")}
+            if stage == "stage1":
+                frozen.update(lora)
+            else:
+                trained.update(lora, prefix=m.params["prefix_tokens"]["point"],
+                               suffix=m.params["suffix_tokens"]["point"])
+            if stage == "stage2":  # its projector is stage 1's export
+                ref = projector_to_reference(
+                    cfg.projector_type("point"), m.projectors["point"],
+                    "model.modal_projectors.point")
+                want = load_state(os.path.join(dirs["stage1"],
+                                               "mm_projector.bin"))
+                if sorted(ref) != sorted(want) or not all(
+                        np.array_equal(ref[k], want[k]) for k in ref):
+                    raise AssertionError("stage 2's projector before its "
+                                         "first step is not stage 1's export")
+            return {"frozen": frozen, "trained": trained, "before": {
+                n: t.detach().clone() for n, t in {**frozen,
+                                                   **trained}.items()}}
+        return watch
+
+    with _KernelInputs() as inputs:
+        reset()  # the path's launches: from here to the served answer
+        for stage in ("stage1", "stage2"):
+            # a profile of stage 2's second step
+            probe, res = run(stage, watch=watch_leaves(stage),
+                             profile_step=1 if stage == "stage2" else None)
+            watch = probe.watched
+            before = watch["before"]
+            for n, t in watch["frozen"].items():
+                if not torch.equal(t.detach(), before[n]):
+                    raise AssertionError(f"{stage}: frozen {n} changed")
+            for n, t in watch["trained"].items():
+                t = t.detach()
+                # each LoRA adapter row ('default', 'point') on its own
+                parts = [(i, t[:, i], before[n][:, i])
+                         for i in range(t.shape[1])] \
+                    if n.startswith("lora") else [(None, t, before[n])]
+                for i, now, was in parts:
+                    if torch.equal(now, was):
+                        raise AssertionError(f"{stage}: {n} (row {i}) did "
+                                             "not change")
+            trained = _trainable(probe.model)
+            if stage == "stage1" and any(p[0] != "projectors"
+                                         for p in trained):
+                raise AssertionError(f"stage 1 trains {sorted(trained)[:3]}")
+            log("train_entry", stage=stage,
+                frozen_unchanged=sorted(watch["frozen"]),
+                trained_changed=sorted(watch["trained"]),
+                trainable_leaves=len(trained),
+                trainable_params=sum(t.numel() for t in trained.values()))
+            del probe, res, watch, before, trained
+
+        probe, res = run("stage2_resumed")
+        if probe.restored_step != ENTRY_STEPS["stage2"] \
+                or res["start_step"] != ENTRY_STEPS["stage2"] \
+                or not res["resumed_from"].endswith(
+                    f"checkpoint-{ENTRY_STEPS['stage2']}"):
+            raise AssertionError(f"resume: step {probe.restored_step}, "
+                                 f"{res['resumed_from']}")
+        trained = _trainable(probe.model)
+        del probe
+        out["serve"] = _serve_entry_export(device, root, dirs, base_dir,
+                                           tokenizer, trained)
+        launches = read()
+    log("train_entry", launches=json.dumps(launches))
+    if launches["flash_decode"] == 0:
+        raise AssertionError(f"the served answer ran no K2: {launches}")
+    out["launches"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["kernel_checks"] = _entry_kernel_checks(device, gen, inputs)
+    return out
+
+
+def _serve_entry_export(device, root, dirs, base_dir, tokenizer, trained):
+    """Phase 10's stage-2 export loaded by ``load_pretrained_model``, every
+    leaf of ``trained`` (emptied here, so the trained state is gone before
+    the answer) held bit-equal to the loaded one, then one point question
+    answered greedily by ``run_questions``."""
+    import torch
+    from modelcompose_tpu_torch.eval import model_multimodal_qa_loader as qa
+    from modelcompose_tpu_torch.models.loader import load_pretrained_model
+    from modelcompose_tpu_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tok, served, procs, _ = load_pretrained_model(
+            dirs["stage2"], base_dir, load_tokenizer_fn=lambda _: tokenizer,
+            device=device)
+    load_s = time.perf_counter() - t0
+    loaded = dict(tree_leaves({"backbone": served.params,
+                               "projectors": served.projectors}))
+    bad = [p for p, t in trained.items()
+           if not torch.equal(loaded[p], t.detach())]
+    n_trained = len(trained)
+    kinds = {p[-1] if p[0] == "backbone" and p[1] == "layers" else p[0]
+             if p[0] == "projectors" else p[1] for p in trained}
+    trained.clear()
+    if bad or kinds != {"lora_a", "lora_b", "projectors", "prefix_tokens",
+                        "suffix_tokens"}:
+        raise AssertionError(f"loaded leaves differ from the trained ones: "
+                             f"{bad[:3]} ({sorted(kinds)})")
+    if any(t.requires_grad for t in loaded.values()):
+        raise AssertionError("the served model carries trainable leaves")
+    qfile = os.path.join(root, "point_question.json")
+    with open(qfile, "w") as f:
+        json.dump([{"id": "p0", "conversations": [
+            {"from": "human", "value": "<point>\nWhat is this object?"},
+            {"from": "gpt", "value": None}],
+            "modal_inputs": {"point": [os.path.join(root, "cloud00.npy")]}}],
+            f)
+    answers = os.path.join(root, "point_answers.jsonl")
+    qargs = qa.parse_args(["--model-path", dirs["stage2"], "--model-base",
+                           base_dir, "--question-file", qfile,
+                           "--answers-file", answers, "--max-new-tokens",
+                           str(QA_TOKENS), "--protocol", "benchmark"])
+    t0 = time.perf_counter()
+    qa.run_questions(qargs, tok, served, procs, "point-damc-multimodal")
+    q_s = time.perf_counter() - t0
+    with open(answers) as f:
+        lines = [json.loads(line) for line in f]
+    del served, loaded
+    log("train_entry", served_load_s=f"{load_s:.1f}",
+        s_per_question=f"{q_s:.3f}", leaves_checked=n_trained,
+        answer=json.dumps(lines[0]["text"]))
+    if [line["question_id"] for line in lines] != ["p0"] \
+            or list(lines[0]) != QA_KEYS or not lines[0]["text"]:
+        raise AssertionError(f"answer lines {lines}")
+    return {"load_s": load_s, "s_per_question": q_s,
+            "answer": lines[0]["text"], "leaves_checked": n_trained}
+
+
+def _entry_kernel_checks(device, gen, inputs):
+    """Each kernel against its plain version at the inputs phase 10 ran it
+    at (``inputs``, a ``_KernelInputs``): K1 with K3 and K4 on its output
+    (``_k34_case``) at every attention shape, with the row lengths of the
+    first micro-batch or prefill at that shape, and K2 (``_k2_case``) at
+    every cache shape with its first decode step's kv_len; the cases'
+    own tolerances.  Returns the largest error per kernel."""
+    import torch
+    errs = {"fwd": [], "dq": [], "dkv": [], "decode": []}
+    for (B, L, H, D, S, Hkv), (q_seg, kv_seg) in inputs.attention.items():
+        lengths = (kv_seg != 0).sum(1)
+        prefix = (torch.arange(S, device=kv_seg.device)[None]
+                  < lengths[:, None]).to(kv_seg.dtype)
+        # _k34_case rebuilds each row as one valid prefix, query offset 0
+        if L != S or not torch.equal(q_seg, kv_seg) \
+                or not torch.equal(kv_seg, prefix):
+            raise AssertionError(f"train_entry: attention B{B} L{L} S{S} "
+                                 "is not one valid prefix a row")
+        res = _k34_case(device, gen, B=B, L=L, S=S, H=H, Hkv=Hkv, D=D,
+                        q_offset=0, lengths=lengths.tolist())
+        for n in ("fwd", "dq", "dkv"):
+            errs[n].append(res[n]["max_abs_err"])
+    for (NL, B, S, Hkv, D, H, dtype), kv_len in inputs.decode.items():
+        res = _k2_case(device, gen, B=B, NL=NL, S=S, H=H, Hkv=Hkv, D=D,
+                       kv_len=kv_len.tolist(),
+                       quantized=dtype == str(torch.int8), layer=NL - 1)
+        errs["decode"].append(res["max_abs_err"])
+    if not all(errs.values()):
+        raise AssertionError(f"train_entry: no kernel inputs recorded for "
+                             f"{[n for n, e in errs.items() if not e]}")
+    shapes = [f"B{k[0]} L{k[1]}" for k in inputs.attention] + [
+        f"{k[-1]} B{k[1]} S{k[2]}" for k in inputs.decode]
+    out = {n: max(e) for n, e in errs.items()}
+    log("train_entry", kernel_checks=json.dumps(shapes),
+        max_abs_err=json.dumps({n: float(f"{e:.4g}") for n, e in
+                                out.items()}))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1698,13 +2311,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     k34 = timed("k34", phase_k34, device, gen)
     train = timed("train", phase_train, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="tmp_entry_", dir=".") as root:
+        entry = timed("train_entry", phase_train_entry, device, gen, root)
     log("seconds", phases=json.dumps(seconds),
         total=f"{time.perf_counter() - t_start:.1f}")
     if {"jax", "modelcompose_tpu"} & set(sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     # Launches on the main paths: the two serving runs, the decode variants
-    # and the question-file runs, plus every step of the training run
-    # (train steps and the accumulation window).
+    # and the question-file runs, every step of the training run (train
+    # steps and the accumulation window), and the train entry's two stages
+    # with the served answer of its export.
     trained = train["launches"] + [train["accum_launches"]]
 
     def train_launches(name):
@@ -1714,25 +2332,39 @@ def main() -> int:
         return {"main": launches[name], "composed": composed["launches"][name],
                 "decode_variants": sum(v["launches"][name]
                                        for v in variants.values()),
-                "qa_loader": qa_launches[name], "train": train_launches(name)}
+                "qa_loader": qa_launches[name], "train": train_launches(name),
+                "train_entry": entry["launches"][name]}
+
+    def train_paths(name):
+        return {"train": train_launches(name),
+                "train_entry": entry["launches"][name]}
+
+    def worst(row, key):  # the largest error, phase 10's shapes included
+        return dict(row, max_abs_err=max(row["max_abs_err"],
+                                         entry["kernel_checks"][key]))
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=K1_SOURCE,
              replaces=K1_REPLACES,
              launches=sum(by_path("flash_attention_fwd").values()),
              launches_by_path=by_path("flash_attention_fwd"),
-             **dict(k1, max_abs_err=max(k1["max_abs_err"],
-                                        k34["fwd"]["max_abs_err"]))),
+             **worst(dict(k1, max_abs_err=max(k1["max_abs_err"],
+                                              k34["fwd"]["max_abs_err"])),
+                     "fwd")),
         dict(name="flash_decode", route="cuda", source=K2_SOURCE,
              replaces=K2_REPLACES,
              launches=sum(by_path("flash_decode").values()),
-             launches_by_path=by_path("flash_decode"), **k2),
+             launches_by_path=by_path("flash_decode"),
+             **worst(k2, "decode")),
         dict(name="flash_attention_bwd_dq", route="cuda", source=K34_SOURCE,
              replaces=K3_REPLACES,
-             launches=train_launches("flash_attention_bwd_dq"), **k34["dq"]),
+             launches=sum(train_paths("flash_attention_bwd_dq").values()),
+             launches_by_path=train_paths("flash_attention_bwd_dq"),
+             **worst(k34["dq"], "dq")),
         dict(name="flash_attention_bwd_dkv", route="cuda", source=K34_SOURCE,
              replaces=K4_REPLACES,
-             launches=train_launches("flash_attention_bwd_dkv"),
-             **k34["dkv"]),
+             launches=sum(train_paths("flash_attention_bwd_dkv").values()),
+             launches_by_path=train_paths("flash_attention_bwd_dkv"),
+             **worst(k34["dkv"], "dkv")),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

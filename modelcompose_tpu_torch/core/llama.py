@@ -85,20 +85,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "norm": torch.ones((H,), dtype=dtype, device=device),
         "lm_head": _normal((H, V), 0.02, dtype, generator, device),
     }
-    # Learned per-modality prefix/suffix soft tokens, zero-initialized.
-    prefix, suffix = {}, {}
-    for m in cfg.modalities():
-        if cfg.prefix_len(m):
-            prefix[m] = torch.zeros((cfg.prefix_len(m), H), dtype=dtype,
-                                    device=device)
-        if cfg.suffix_len(m):
-            suffix[m] = torch.zeros((cfg.suffix_len(m), H), dtype=dtype,
-                                    device=device)
-    if prefix:
-        params["prefix_tokens"] = prefix
-    if suffix:
-        params["suffix_tokens"] = suffix
+    params.update(init_soft_tokens(cfg, device))
     return params
+
+
+def init_soft_tokens(cfg: ModelConfig, device=None) -> Params:
+    """The learned per-modality prefix/suffix soft tokens, zero, in
+    ``cfg.dtype``: ``{"prefix_tokens": {modal: [P, H]}, "suffix_tokens":
+    ...}`` with the empty groups left out."""
+    dtype = torch_dtype(cfg.dtype)
+    out: Params = {}
+    for kind, length in (("prefix_tokens", cfg.prefix_len),
+                         ("suffix_tokens", cfg.suffix_len)):
+        group = {m: torch.zeros((length(m), cfg.hidden_size), dtype=dtype,
+                                device=device)
+                 for m in cfg.modalities() if length(m)}
+        if group:
+            out[kind] = group
+    return out
 
 
 def reinit_lora_a(params: Params, generator: torch.Generator,

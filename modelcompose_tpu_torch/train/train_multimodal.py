@@ -1,34 +1,28 @@
-"""DAMC training entry: flags, model and batch builders (counterpart of
-modelcompose_tpu/train/train_multimodal.py).
+"""DAMC training entry (counterpart of
+modelcompose_tpu/train/train_multimodal.py): stage-1 projector pretrain
+(``--tune_mm_mlp_adapter True``) and stage-2 DAMC finetune
+(``--lora_strategy modal+language``) on one device, with the reference's
+flag names, modality-grouped length sampling, the warmup + cosine schedule
+with per-group rates, static-shape bucketed packing, step checkpoints with
+resume, and the adapter_model / mm_projector exports in the reference key
+layout.  The global batch is ``--per_device_train_batch_size`` (one GPU).
 
-The flags are the JAX entry's (the reference's names).  Ported:
-``build_arg_parser``, ``build_model_config``, ``build_model`` with
-``--random_init_backbone`` and ``--quantize_frozen_base``, and
-``make_batch`` (frozen towers without gradient, the static-shape pack plan
-with labels, the training buckets).  Not ported yet (ROADMAP Queue 1 item
-11, training): ``train()`` itself (modality-grouped sampler, step
-checkpoints, resume, adapter/projector export; the dataset and collator
-are ``data/dataset``) and loading HF base or stage-1 projector weights.
+DAMC stage 2 on point clouds, as ``run_finetune_point_damc.sh`` runs it::
 
-The stage-2 step, as the vision DAMC recipe runs it::
+    python -m modelcompose_tpu_torch.train.train_multimodal \\
+        --model_name_or_path ckpts/vicuna-7b-v1.5 --version v1 \\
+        --data_path data/point_train.json --output_dir out/point-multimodal \\
+        --mm_point_encoder point_bert_v1.2.pt \\
+        --mm_point_projector_type mlp2x_gelu \\
+        --pretrain_mm_mlp_adapter out/point-stage1/mm_projector.bin \\
+        --lora_strategy modal+language --lora_r 128 --lora_alpha 256 \\
+        --local_prefix_tokens 5 --local_suffix_tokens 5 \\
+        --learning_rate 2e-4 --mm_projector_lr 2e-5 --mm_language_lr 1e-5 \\
+        --per_device_train_batch_size 4 --bf16 True \\
+        --gradient_checkpointing True
 
-    args = build_arg_parser().parse_args([
-        "--model_name_or_path", "vicuna-7b", "--data_path", "-",
-        "--output_dir", "-", "--random_init_backbone",
-        "--mm_vision_encoder", "openai/clip-vit-large-patch14-336",
-        "--mm_projector_type", "mlp2x_gelu", "--mm_vision_select_layer", "-2",
-        "--lora_strategy", "modal+language", "--lora_r", "128",
-        "--lora_alpha", "256", "--local_prefix_tokens", "5",
-        "--local_suffix_tokens", "5", "--gradient_checkpointing", "True"])
-    cfg = build_model_config(args)
-    model = build_model(args, cfg, device="cuda")
-    batch, layout = make_batch(model, collated)
-    tc = TrainConfig(learning_rate=2e-4, mm_projector_lr=2e-5,
-                     mm_language_lr=1e-5, warmup_ratio=0.0)
-    tx, _ = make_optimizer(cfg, tc, {"backbone": model.params,
-                                     "projectors": model.projectors})
-    state = init_train_state(cfg, tc, model.params, model.projectors, tx=tx)
-    state, loss = make_train_step(cfg, tc, tx)(state, batch, layout)
+The CLI runs on the card and loads the base's tokenizer (``transformers``);
+``train(args, tokenizer=..., device=...)`` takes both from the caller.
 """
 
 from __future__ import annotations
@@ -36,20 +30,35 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from ..compose.convert import hf_llama_to_params, projector_from_reference
+from ..compose.state_io import load_state
 from ..config import ModelConfig
 from ..constants import MODAL_TOKEN_INDEXES
-from ..core.llama import init_params, torch_dtype
+from ..core.llama import (init_params, init_soft_tokens, reinit_lora_a,
+                          torch_dtype)
 from ..core.packing import TRAIN_BUCKETS, pick_bucket, plan_pack
+from ..data import conversation as conversation_lib
+from ..data.dataset import DataCollatorForSupervisedDataset, MultimodalDataset
+from ..data.loader import PrefetchLoader
 from ..devices import resolve_device
+from ..models.loader import load_hf_llama_dir, load_tokenizer
 from ..models.model import MultimodalLM
 from ..models.projectors import init_projector, output_len
-from ..models.towers import build_modal_encoders
+from ..models.towers import ClipVisionTower, build_modal_encoders
 from ..ops.quant import quantize_backbone
+from .checkpoint import (latest_checkpoint, restore_step_checkpoint,
+                         save_adapter_checkpoint, save_full_checkpoint,
+                         save_projector_checkpoint, save_step_checkpoint)
+from .sampler import (get_length_grouped_indices,
+                      get_modality_length_grouped_indices)
+from .trainer import (TrainConfig, init_train_state, make_grad_and_apply,
+                      make_optimizer, make_train_step, scale_grads)
 
 
 def _flag(s: str) -> bool:
@@ -157,18 +166,26 @@ def build_model_config(args) -> ModelConfig:
     return ModelConfig(**cfg_kwargs)
 
 
+def _frozen_base(args, cfg: ModelConfig) -> bool:
+    """The base weights stay frozen: a LoRA strategy, or stage 1."""
+    return cfg.lora_strategy is not None or args.tune_mm_mlp_adapter
+
+
 def build_model(args, cfg: ModelConfig, device=None) -> MultimodalLM:
-    """Towers, backbone and projectors made on ``device`` from a generator
-    seeded with ``--seed``; the towers' hidden sizes are written into
-    ``cfg``."""
-    if not args.random_init_backbone:
-        raise NotImplementedError(
-            "loading HF base weights is not ported yet: ROADMAP Queue 1 item "
-            "11 (training); pass --random_init_backbone")
-    if args.pretrain_mm_mlp_adapter:
-        raise NotImplementedError(
-            "loading a stage-1 projector is not ported yet: ROADMAP Queue 1 "
-            "item 11 (training)")
+    """Towers, backbone and projectors on ``device`` (the card when None);
+    the towers' hidden sizes are written into ``cfg``.  Random weights come
+    from one generator seeded with ``--seed``, drawn in this order: towers,
+    then backbone (or LoRA A), then projectors.
+
+    The backbone is random with ``--random_init_backbone``; otherwise it is
+    the HF Llama base at ``--model_name_or_path`` in ``cfg.dtype``, with
+    zero soft tokens for the configured modalities, as a random backbone
+    has them (the JAX entry leaves them out of a loaded base) and, where
+    the adapters train (a LoRA strategy outside stage 1), fresh kaiming
+    LoRA A.  ``--quantize_frozen_base`` int8-quantizes the dense
+    base weights where they are frozen.  ``--pretrain_mm_mlp_adapter`` (a
+    stage-1 ``mm_projector`` export) replaces the random projector of each
+    modality it holds."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -185,15 +202,32 @@ def build_model(args, cfg: ModelConfig, device=None) -> MultimodalLM:
                   "video": "mm_video_hidden_size",
                   "point": "mm_point_hidden_size"}[modal]
         setattr(cfg, setter, enc.hidden_size)
-    params = init_params(cfg, gen, device)
-    if getattr(args, "quantize_frozen_base", False) and (
-            cfg.lora_strategy is not None or args.tune_mm_mlp_adapter):
+    if args.random_init_backbone:
+        params = init_params(cfg, gen, device)
+    else:
+        params = hf_llama_to_params(load_hf_llama_dir(args.model_name_or_path),
+                                    cfg, device=device)
+        params.update(init_soft_tokens(cfg, device))
+        if cfg.lora_strategy not in (None, "none") \
+                and not args.tune_mm_mlp_adapter:
+            # the converter's LoRA is zero, and A = B = 0 gets zero
+            # gradients forever: peft's kaiming A
+            params = reinit_lora_a(params, gen)
+    if args.quantize_frozen_base and _frozen_base(args, cfg):
         params = quantize_backbone(params)
+    dtype = torch_dtype(cfg.dtype)
     projectors = {
         modal: init_projector(cfg.projector_type(modal), gen,
                               encoders[modal].hidden_size, cfg.hidden_size,
-                              dtype=torch_dtype(cfg.dtype), device=device)
+                              dtype=dtype, device=device)
         for modal in cfg.modalities()}
+    if args.pretrain_mm_mlp_adapter:
+        state = load_state(args.pretrain_mm_mlp_adapter)
+        for modal in cfg.modalities():
+            prefix = f"model.modal_projectors.{modal}"
+            if any(k.startswith(prefix) for k in state):
+                projectors[modal] = projector_from_reference(
+                    cfg.projector_type(modal), state, prefix, dtype, device)
     return MultimodalLM(cfg, params, encoders, projectors)
 
 
@@ -251,3 +285,211 @@ def make_batch(model: MultimodalLM, collated: Dict[str, Any],
     if tower_pixels:
         batch["tower_pixels"] = tower_pixels
     return batch, tuple(plan.feat_layout)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(args, tokenizer=None, device=None,
+          time_skip: int = 0) -> Dict[str, Any]:
+    """Train on one device (the card when ``device`` is None), then export
+    by stage: ``mm_projector`` (stage 1), ``adapter_model`` (a LoRA
+    strategy) or the full backbone (``lora_strategy`` absent).
+
+    ``--max_steps``, ``--save_steps`` and the warmup count optimizer steps
+    (HF semantics), each ``--gradient_accumulation_steps`` micro-batches.
+    A ``checkpoint-*`` in ``--output_dir`` is resumed from: the run
+    regenerates each consumed epoch's order from the same seed and skips
+    the trained batches.  Losses stay on the device until logging and the
+    end, so the loop never waits for a step to finish.
+
+    Returns the JAX entry's keys: ``losses`` (per micro-batch),
+    ``final_loss``, ``steps`` (micro-batches), ``optimizer_steps`` and
+    ``train_loop_seconds`` (the loop, synchronized at its end); with
+    ``time_skip`` N > 0 also ``steady_seconds``, ``steady_steps`` and
+    ``steady_bucket_tokens`` over the micro-batches after the first N,
+    between two synchronizations.  And: ``setup_seconds`` (call to the
+    loop), ``export_seconds``, ``resumed_from`` and ``start_step`` (the
+    optimizer step restored), ``positions`` (per micro-batch, the packed
+    positions that are not padding) and ``loop_trace`` (per micro-batch,
+    the host seconds of the loader wait, ``make_batch`` and the step's
+    dispatch)."""
+    t_call = time.perf_counter()
+    device = resolve_device(device)
+    conversation_lib.default_conversation = \
+        conversation_lib.conv_templates[args.version]
+    cfg = build_model_config(args)
+    if args.quantize_frozen_base and not _frozen_base(args, cfg):
+        raise ValueError(
+            "--quantize_frozen_base requires frozen base weights "
+            "(a lora_strategy, or stage-1 --tune_mm_mlp_adapter)")
+    model = build_model(args, cfg, device)
+    if tokenizer is None:
+        tokenizer = load_tokenizer(args.model_name_or_path)
+    tokenizer.model_max_length = args.model_max_length
+    dataset = MultimodalDataset(args.data_path, tokenizer)
+    collator = DataCollatorForSupervisedDataset(
+        tokenizer, model.modal_processors(),
+        {"vision": {"image_aspect_ratio": args.image_aspect_ratio}})
+
+    B = args.per_device_train_batch_size
+    accum = max(args.gradient_accumulation_steps, 1)
+    n = len(dataset)
+    if n < B:
+        raise ValueError(f"dataset has {n} samples < the batch {B}: the "
+                         "epoch loader would yield zero batches")
+    steps_per_epoch = max(n // (B * accum), 1)
+    total_steps = args.max_steps if args.max_steps > 0 else \
+        int(steps_per_epoch * args.num_train_epochs)
+    tc = TrainConfig(
+        learning_rate=args.learning_rate,
+        mm_projector_lr=args.mm_projector_lr,
+        mm_language_lr=args.mm_language_lr,
+        mm_vision_tower_lr=args.mm_vision_tower_lr,
+        mm_vision_tower_layerwise_lr_decay=(
+            args.mm_vision_tower_layerwise_lr_decay),
+        warmup_ratio=args.warmup_ratio, total_steps=total_steps,
+        weight_decay=args.weight_decay,
+        tune_mm_mlp_adapter=args.tune_mm_mlp_adapter,
+        loss_chunk=args.loss_chunk, adam_mu_dtype=args.adam_mu_dtype)
+
+    tower_train = tc.mm_vision_tower_lr is not None \
+        and "vision" in model.encoders
+    if tower_train and not isinstance(model.encoders["vision"],
+                                      ClipVisionTower):
+        # the layerwise decay walks the CLIP layout (as the reference walks
+        # vision_model.encoder.layers, llava_trainer.py:98-132)
+        raise NotImplementedError(
+            "--mm_vision_tower_lr supports the CLIP vision tower only "
+            f"(got {type(model.encoders['vision']).__name__})")
+    tower_params = {"vision": model.encoders["vision"].params} \
+        if tower_train else None
+    vision_cfg = model.encoders["vision"].cfg if tower_train else None
+    train_tree = {"backbone": model.params, "projectors": model.projectors}
+    if tower_params is not None:
+        train_tree["towers"] = tower_params
+    tx, _ = make_optimizer(cfg, tc, train_tree)
+    state = init_train_state(cfg, tc, model.params, model.projectors,
+                             tower_params=tower_params, tx=tx)
+    if accum > 1:
+        grad_fn, apply_fn, _, grad_accum_fn = make_grad_and_apply(
+            cfg, tc, tx, vision_tower_cfg=vision_cfg)
+        # One running gradient total (the sum so far, added to in place),
+        # never a list of per-micro-batch gradients.
+        acc: Dict[str, Any] = {"total": None, "n": 0}
+
+        def step_fn(state, batch, layout):
+            if acc["total"] is None:
+                loss, acc["total"] = grad_fn(state.params, batch, layout)
+            else:
+                loss, acc["total"] = grad_accum_fn(state.params, acc["total"],
+                                                   batch, layout)
+            acc["n"] += 1
+            if acc["n"] < accum:
+                return state, loss  # state unchanged mid-window
+            total = scale_grads(acc["total"], 1.0 / accum)
+            acc["total"], acc["n"] = None, 0
+            return apply_fn(state, total), loss
+    else:
+        step_fn = make_train_step(cfg, tc, tx, vision_tower_cfg=vision_cfg)
+
+    resume = latest_checkpoint(args.output_dir)
+    if resume:
+        print(f"[train] resuming from {resume}", flush=True)
+        restore_step_checkpoint(resume, state, tx)
+
+    rng = np.random.default_rng(args.seed)
+    # state.step counts optimizer steps, the loop micro-batches
+    start_opt = state.step
+    start_step = step_idx = to_skip = start_opt * accum
+    total_micro = total_steps * accum
+    losses, positions, trace = [], [], []
+    t_steady = None
+    steady_tokens = 0  # bucket positions of the steady window
+    setup_seconds = time.perf_counter() - t_call
+    t0 = time.perf_counter()
+    while step_idx < total_micro:
+        if args.group_by_modality_length:
+            order = get_modality_length_grouped_indices(
+                dataset.modality_lengths, B, 1, rng)
+        else:
+            order = get_length_grouped_indices(
+                [abs(l) for l in dataset.modality_lengths], B, 1, rng)
+        if to_skip:  # resume: epochs and batches trained before
+            epoch_batches = max((len(order) - B) // B + 1, 0)
+            if to_skip >= epoch_batches:
+                to_skip -= epoch_batches
+                continue
+            order = order[to_skip * B:]
+            to_skip = 0
+        loader = PrefetchLoader(dataset, order, B, collator,
+                                num_workers=args.dataloader_num_workers,
+                                prefetch=4)
+        t_mark = time.perf_counter()
+        for collated in loader:
+            if step_idx >= total_micro:
+                break
+            t_a = time.perf_counter()
+            batch, layout = make_batch(model, collated,
+                                       tower_train=tower_train)
+            t_b = time.perf_counter()
+            state, loss = step_fn(state, batch, layout)
+            t_c = time.perf_counter()
+            trace.append({"loader_wait": t_a - t_mark,
+                          "make_batch": t_b - t_a, "dispatch": t_c - t_b})
+            t_mark = t_c
+            step_idx += 1
+            if t_steady is not None:
+                steady_tokens += batch["token_ids"].numel()
+            losses.append(loss)
+            positions.append((batch["segment_ids"] != 0).sum())
+            if time_skip and step_idx == start_step + time_skip:
+                _sync(device)
+                t_steady = time.perf_counter()
+            if step_idx % (args.logging_steps * accum) == 0:
+                avg = np.mean([float(l) for l in
+                               losses[-args.logging_steps * accum:]])
+                rate = (step_idx - start_step) / (time.perf_counter() - t0)
+                print(f"[train] step {step_idx // accum}/{total_steps} "
+                      f"loss {avg:.4f} ({rate:.2f} it/s)", flush=True)
+            # save on optimizer-step boundaries only: a mid-window save
+            # would drop the running gradient total on resume
+            if args.save_steps and step_idx % (args.save_steps * accum) == 0:
+                save_step_checkpoint(args.output_dir, step_idx // accum,
+                                     state, tx)
+    _sync(device)
+    t_loop_end = time.perf_counter()
+    losses = [float(l) for l in losses]
+
+    t_export = time.perf_counter()
+    backbone = state.params["backbone"]
+    projectors = state.params["projectors"]
+    if args.tune_mm_mlp_adapter:
+        save_projector_checkpoint(args.output_dir, cfg, projectors)
+    elif cfg.lora_strategy is None:
+        save_full_checkpoint(args.output_dir, cfg, backbone, projectors)
+    else:
+        save_adapter_checkpoint(args.output_dir, cfg, backbone, projectors)
+    result = {"final_loss": losses[-1] if losses else None,
+              "steps": step_idx, "optimizer_steps": step_idx // accum,
+              "losses": losses, "train_loop_seconds": t_loop_end - t0,
+              "setup_seconds": setup_seconds,
+              "export_seconds": time.perf_counter() - t_export,
+              "resumed_from": resume, "start_step": start_opt,
+              "positions": [int(p) for p in positions],
+              "loop_trace": trace}
+    if t_steady is not None and step_idx > start_step + time_skip:
+        result["steady_seconds"] = t_loop_end - t_steady
+        result["steady_steps"] = step_idx - start_step - time_skip
+        result["steady_bucket_tokens"] = steady_tokens
+    return result
+
+
+def main(argv=None) -> None:
+    train(build_arg_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -451,3 +451,108 @@ def test_generate_text_matches_jax():
     assert tids == jids and tkw.pop("generator") == "gen" \
         and jkw.pop("rng") == "key"
     assert tkw == jkw and tkw["temperature"] == 0.0
+
+
+# ---------------------------------------------------------------------------
+# The train entry's sampler and prefetch loader
+# ---------------------------------------------------------------------------
+
+import modelcompose_tpu.data.loader as jloader  # noqa: E402
+import modelcompose_tpu.train.sampler as jsampler  # noqa: E402
+import modelcompose_tpu_torch.data.loader as tloader  # noqa: E402
+import modelcompose_tpu_torch.train.sampler as tsampler  # noqa: E402
+
+
+def _lengths(seed, n, signed):
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 400, n)
+    if signed:  # text-only samples are negative
+        lengths = np.where(rng.random(n) < 0.3, -lengths, lengths)
+    return [int(x) for x in lengths]
+
+
+@pytest.mark.parametrize("seed,n,signed", [(0, 1, False), (1, 7, False),
+                                           (2, 37, True), (3, 64, True),
+                                           (4, 13, True)])
+def test_sampler_matches_jax(seed, n, signed):
+    """Every function of the sampler copy gives the JAX module's indices in
+    the JAX module's order, for the same lengths and generator seed."""
+    lengths = _lengths(seed, n, signed)
+    for num_chunks in (1, 2, 3):
+        idx = list(range(n))[:n - n % num_chunks] or [0]
+        assert tsampler.split_to_even_chunks(idx, lengths, num_chunks) \
+            == jsampler.split_to_even_chunks(idx, lengths, num_chunks)
+    for batch, world in ((1, 1), (4, 1), (3, 2)):
+        for fn in ("get_length_grouped_indices",
+                   "get_modality_length_grouped_indices"):
+            if fn == "get_length_grouped_indices" and signed:
+                lens = [abs(x) for x in lengths]
+            else:
+                lens = lengths
+            got = getattr(tsampler, fn)(lens, batch, world,
+                                        np.random.default_rng(seed))
+            want = getattr(jsampler, fn)(lens, batch, world,
+                                         np.random.default_rng(seed))
+            assert got == want and sorted(got) == list(range(n)), fn
+
+
+def test_modality_sampler_keeps_groups_apart():
+    """Mixed-sign lengths: every full megabatch is all multimodal or all
+    text-only, as in the JAX module (the tail megabatch mixes both)."""
+    lengths = _lengths(5, 40, True)
+    order = tsampler.get_modality_length_grouped_indices(
+        lengths, 4, 1, np.random.default_rng(0))
+    assert order == jsampler.get_modality_length_grouped_indices(
+        lengths, 4, 1, np.random.default_rng(0))
+    n_mm = sum(x > 0 for x in lengths)
+    # each group's last megabatch (full or not) goes to the mixed tail
+    tail = (n_mm % 4 or 4) + ((len(lengths) - n_mm) % 4 or 4)
+    for i in range(0, len(order) - tail, 4):
+        signs = {lengths[j] > 0 for j in order[i:i + 4]}
+        assert len(signs) == 1, order[i:i + 4]
+    with pytest.raises(AssertionError):
+        tsampler.get_modality_length_grouped_indices([3, 0], 1, 1)
+
+
+@pytest.mark.parametrize("num_workers", [0, 4])
+def test_prefetch_loader_matches_jax(num_workers):
+    """The same batches in the same order as the JAX loader, the trailing
+    partial batch dropped, with synchronous and threaded collation."""
+    import threading
+    import time
+
+    def collate(items):
+        time.sleep(0.002 * (items[0] % 3))  # finish out of order
+        return {"ids": list(items), "thread": threading.current_thread().name}
+
+    dataset = list(range(100, 123))
+    order = list(np.random.default_rng(0).permutation(len(dataset)))
+    kw = dict(num_workers=num_workers, prefetch=2)
+    got = list(tloader.PrefetchLoader(dataset, order, 4, collate, **kw))
+    want = list(jloader.PrefetchLoader(dataset, order, 4, collate, **kw))
+    assert len(tloader.PrefetchLoader(dataset, order, 4, collate, **kw)) \
+        == len(got) == 5
+    assert [b["ids"] for b in got] == [b["ids"] for b in want] == [
+        [dataset[i] for i in order[j:j + 4]] for j in range(0, 20, 4)]
+    main = threading.current_thread().name
+    assert all((b["thread"] == main) == (num_workers == 0) for b in got)
+
+
+def test_prefetch_loader_raises_and_stops_early():
+    """A collate error reaches the consumer, and a consumer that stops
+    early leaves no worker thread running."""
+    import threading
+
+    def bad(items):
+        if 7 in items:
+            raise ValueError("bad sample")
+        return items
+    before = threading.active_count()
+    with pytest.raises(ValueError, match="bad sample"):
+        list(tloader.PrefetchLoader(list(range(12)), range(12), 2, bad,
+                                    num_workers=3))
+    it = iter(tloader.PrefetchLoader(list(range(40)), range(40), 2,
+                                     lambda x: x, num_workers=3, prefetch=1))
+    assert next(it) == [0, 1]
+    it.close()
+    assert threading.active_count() == before

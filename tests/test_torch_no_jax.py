@@ -1,7 +1,8 @@
 """The port never imports JAX nor the JAX package: its package runs the tiny
 slices end to end (greedy generation, a train step, then four unimodal
 checkpoints merged, loaded and answering a 4-modality prompt, then the eval
-entry answering a question file greedily, sampled and by beam search) in a
+entry answering a question file greedily, sampled and by beam search, then
+the train entry training, checkpointing and resuming) in a
 process where ``import jax`` and ``import modelcompose_tpu`` fail, and no
 file of it (nor ``chip_smoke.py``) imports either.  Its entry points put a model on the
 card unless asked for the CPU, and raise where there is no card."""
@@ -138,6 +139,34 @@ for mode in (["--protocol", "benchmark"], ["--temperature", "0.7", "--top-p",
                device="cpu")
     with open(args.answers_file) as f:
         assert [json.loads(l)["question_id"] for l in f] == [0, 1, 2]
+
+# the train entry: two stage-2 steps from a random tiny base, then resume
+# to three from the step checkpoint
+from modelcompose_tpu_torch.train.train_multimodal import (build_arg_parser,
+                                                            train)
+data = os.path.join(root, "train.json")
+with open(data, "w") as f:
+    json.dump([{"id": i, "conversations": [
+        {"from": "human", "value": "<point>\nWhat?"},
+        {"from": "gpt", "value": f"thing {i}"}],
+        "modal_inputs": {"point": [os.path.join(root, "p.npy")]}}
+        for i in range(4)], f)
+with open(os.path.join(root, "base", "config.json"), "w") as f:
+    json.dump({k: getattr(cfg, k) for k in ("vocab_size", "hidden_size",
+               "intermediate_size", "num_hidden_layers",
+               "num_attention_heads", "num_key_value_heads")}, f)
+argv = ["--model_name_or_path", os.path.join(root, "base"), "--version", "v1",
+        "--data_path", data, "--output_dir", os.path.join(root, "point-out"),
+        "--mm_point_encoder", "test:16x2", "--lora_strategy", "modal+language",
+        "--lora_r", "4", "--lora_alpha", "8", "--bf16", "False",
+        "--per_device_train_batch_size", "2", "--save_steps", "2",
+        "--gradient_checkpointing", "True"]
+res = train(build_arg_parser().parse_args(argv + ["--max_steps", "2"]),
+            tokenizer=FakeLlamaTokenizer(), device="cpu")
+res2 = train(build_arg_parser().parse_args(argv + ["--max_steps", "3"]),
+             tokenizer=FakeLlamaTokenizer(), device="cpu")
+assert res["steps"] == 2 and res2["start_step"] == 2 and res2["steps"] == 3
+assert os.path.exists(os.path.join(root, "point-out", "adapter_model.bin"))
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "modelcompose_tpu")]
 assert all(sys.modules[m] is None for m in loaded), loaded
 print("SLICE_OK", out)
@@ -170,14 +199,15 @@ def test_no_file_of_the_port_imports(what, pattern):
     names = {str(f.relative_to(PKG)) for f in PORT_FILES if PKG in f.parents}
     assert {"core/sampling.py", "core/beam.py", "data/conversation.py",
             "data/tokenization.py", "data/preprocess.py", "data/dataset.py",
-            "eval/generation_utils.py",
-            "eval/model_multimodal_qa_loader.py"} <= names
+            "eval/generation_utils.py", "eval/model_multimodal_qa_loader.py",
+            "data/loader.py", "train/sampler.py", "train/checkpoint.py",
+            "train/train_multimodal.py"} <= names
 
 
 @pytest.mark.parametrize("entry", [
     "random_init", "load_pretrained_model", "build_model", "model_from_jax",
     "build_modal_encoders", "ClipVisionTower", "BeatsAudioTower",
-    "LanguageBindVideoTower", "PointBertTower", "eval_model"])
+    "LanguageBindVideoTower", "PointBertTower", "eval_model", "train"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """No device means the card; without one each entry point raises before
     it builds anything on the CPU."""
@@ -210,6 +240,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "eval_model": lambda: qa.eval_model(qa.parse_args([
             "--model-path", str(tmp_path / "c-multimodal"), "--model-base",
             str(tmp_path), "--question-file", "-"])),
+        "train": lambda: train_multimodal.train(args),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

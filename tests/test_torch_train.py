@@ -546,7 +546,7 @@ def test_reinit_lora_a():
     assert out["embed_tokens"] is params["embed_tokens"]
 
 
-def test_build_model_and_entry_flags():
+def test_build_model_and_entry_flags(tmp_path):
     args = entry.build_arg_parser().parse_args([
         "--model_name_or_path", "none", "--data_path", "-",
         "--output_dir", "-", "--random_init_backbone",
@@ -582,9 +582,30 @@ def test_build_model_and_entry_flags():
     batch, layout2 = entry.make_batch(model, _collated(), tower_train=True)
     assert layout2 == layout and batch["encoder_features"] == {}
     assert batch["tower_pixels"]["vision"].shape == (2, 28, 28, 3)
+    # an HF base on disk: its weights int8-quantized, fresh LoRA A within
+    # the kaiming bound, B zero, zero soft tokens
+    from modelcompose_tpu_torch.compose.convert import params_to_hf_llama
+    from modelcompose_tpu_torch.compose.state_io import save_state
+    from modelcompose_tpu_torch.ops.quant import quantize_int8
+    hf = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(3),
+                                  "cpu").params
+    (tmp_path / "base").mkdir()
+    save_state(params_to_hf_llama(hf, cfg),
+               str(tmp_path / "base" / "pytorch_model.bin"))
     args.random_init_backbone = False
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        entry.build_model(args, cfg, "cpu")
+    args.model_name_or_path = str(tmp_path / "base")
+    model = entry.build_model(args, cfg, "cpu")
+    for grp, name in (("attn", "q"), ("mlp", "down")):
+        p = model.params["layers"][grp][name]
+        want = quantize_int8(hf["layers"][grp][name]["w"])
+        assert torch.equal(p["w"]["q"], want["q"])
+        assert torch.equal(p["w"]["scale"], want["scale"])
+        bound = p["lora_a"].shape[-2] ** -0.5
+        assert float(p["lora_a"].abs().max()) <= bound
+        assert p["lora_a"].std() > 0 and not p["lora_b"].any()
+    assert torch.equal(model.params["embed_tokens"], hf["embed_tokens"])
+    assert not model.params["prefix_tokens"]["vision"].any()
+    assert model.params["suffix_tokens"]["vision"].shape == (1, 64)
 
 
 @pytest.mark.parametrize("vision_trains", [True, False])
