@@ -82,7 +82,25 @@ nonzero:
    window equal to the steps seen; then K1 + K3 + K4 and K2 against their
    plain versions at the inputs the path gave them.  The PointBERT tower
    is random from SEED 0 in both the trainer (bf16) and the loader (fp32):
-   the same draws.
+   the same draws;
+11. serve (run after 7b, on phase 6's model and phase 7's merged
+   checkpoint): the model worker with the continuous-batching slot engine
+   (8 slots of 3,456 positions, int8 pool) answering 12 requests (audio,
+   video, point, text and the MCUB-4 request; greedy and sampled; one
+   cancelled by its client, one ending on a stop string) with chunked
+   admission (512-position chunks), then with one-shot admission; per
+   request the time to first token and tokens, the tick's median and p95,
+   aggregate tokens/s, the in-flight slots' longest stall during each
+   admission, peak memory, K1/K2 launches; every stream ended, and every
+   greedy answer whole and equal to a solo run of the same request (a
+   one-shot slot's to ``generate(kv_quant=True)``, a chunked slot's to
+   ``prefill_chunked(kv_quant=True)`` and greedy steps) or leaving it at a
+   named near tie; K1 at the admission's chunk shapes (beside SDPA with
+   ``causal_lower_right``, both also timed from a CUDA graph) and K2 on
+   the pool at its fullest step's kv_len, against their plain versions;
+   then the micro-batching worker packing 4 requests into one
+   ``generate_stream``, and the chat CLI (``serve/cli.main``) on phase 7's
+   checkpoint with two turns on stdin.
 
 The line before the last is a JSON object with each kernel's launches on the
 main paths, its largest error against the plain version, its time, the plain
@@ -97,9 +115,11 @@ at B=2, L=2,048 with rows of 2,048 and 1,391; K1's and K2's ``mcub4`` hold
 the composed path's shape, K2's ``*_cold`` keys its device time with every
 launch on a cold layer, and K3's and K4's ``train_batch`` and
 ``micro_batch`` the train step's shapes, and K2's ``beam`` beam search's;
-each kernel's ``launches_by_path`` splits its launches by phase.  The last
-line is ``{"ok": true, "device": {...}}``.  Without a
-CUDA device the script exits nonzero and prints no result.
+K1's ``serve_chunks`` and K2's ``serve_pool`` hold phase 11's; each
+kernel's ``launches_by_path`` splits its launches by phase.  A time that
+could not be taken is null.  The last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device the script exits nonzero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -224,7 +244,46 @@ def device_time_cycle_ms(fn, n: int, rounds: int = 2) -> float:
         torch.cuda.synchronize()
     total_us = sum(e.device_time_total for e in prof.key_averages()
                    if e.device_type.name == "CUDA")
-    return total_us / 1e3 / (rounds * n)
+    # a profile that recorded no kernel measured nothing: not a time of 0
+    return total_us / 1e3 / (rounds * n) if total_us > 0 else None
+
+
+def graph_time_ms(fn, n: int = 20, replays: int = 5):
+    """Device time of one ``fn()`` with the host's launch gaps taken out:
+    ``n`` calls captured into one CUDA graph, replayed ``replays`` times
+    between two events.  None, with the reason logged, when ``fn`` cannot
+    be captured."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            for _ in range(n):
+                fn()
+    except Exception as e:  # noqa: BLE001 — reported as not measured
+        log("graph", not_captured=repr(e)[:200])
+        torch.cuda.synchronize()
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * replays)
+
+
+def _ms(t):
+    return "not_measured" if t is None else f"{t:.4f}"
 
 
 def bound(flops: float, nbytes: float):
@@ -448,9 +507,6 @@ def phase_k1(device, gen):
 def _k2_case(device, gen, *, B, NL, S, H, Hkv, D, kv_len, quantized, layer):
     import torch
     from modelcompose_tpu_torch.core.llama import quantize_kv
-    from modelcompose_tpu_torch.ops.attention import decode_attention
-    from modelcompose_tpu_torch.ops.flash_decode import (
-        flash_decode_attention, flash_decode_reference)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device,
@@ -460,6 +516,20 @@ def _k2_case(device, gen, *, B, NL, S, H, Hkv, D, kv_len, quantized, layer):
     if quantized:
         k, v = quantize_kv(k), quantize_kv(v)
     kv = torch.tensor(kv_len, dtype=torch.int32, device=device)
+    return _k2_measure(q, k, v, kv, layer)
+
+
+def _k2_measure(q, k, v, kv, layer):
+    """K2 against its plain version and the chunked loop on the given
+    inputs (a bf16 or int8 stacked cache), then its times and bound."""
+    import torch
+    from modelcompose_tpu_torch.ops.attention import decode_attention
+    from modelcompose_tpu_torch.ops.flash_decode import (
+        flash_decode_attention, flash_decode_reference)
+    quantized = isinstance(k, dict)
+    NL, B, S, Hkv, D = (k["q"] if quantized else k).shape
+    H = q.shape[2]
+    kv_len = kv.tolist()
     scale = D ** -0.5
     out = flash_decode_attention(q, k, v, kv, layer, sm_scale=scale)
     ref = flash_decode_reference(q, k, v, kv, layer, sm_scale=scale)
@@ -580,8 +650,9 @@ def _teacher_forced(model, ids, inputs, tokens, attn_impl, kv_quant=True,
                             device=embeds.device)
     logits, cache = _prefill(model.params, model.cfg, embeds, route_ids,
                              table, seg, lengths,
-                             embeds.shape[1] + NEW_TOKENS, attn_impl,
-                             kv_quant=kv_quant)
+                             embeds.shape[1] + max(NEW_TOKENS,
+                                                   tokens.shape[1]),
+                             attn_impl, kv_quant=kv_quant)
     decode_params, decode_table = model.params, model.decode_routing_table()
     if fold_concat:
         decode_params, decode_table = fold_decode_adapters(model.params,
@@ -1297,6 +1368,630 @@ def phase_qa_loader(device, root, merged, base_dir, model):
             for k in totals:
                 totals[k] += launches[k]
     return out, totals
+
+
+# The serve phase: phase 6's model behind the model worker.  The slot pool
+# holds the 3,328 bucket and 128 new tokens a slot; an admission is
+# prefilled in chunks of 512 positions (the MCUB-4 prompt: 6 chunks and a
+# tail of 256).  K1's shapes on that admission (Lq, S): the first full
+# chunk, the heaviest, and the tail.
+SERVE_SLOTS = 8
+SERVE_CACHE_LEN = 3456
+SERVE_CHUNK = 512
+SERVE_K1_CHUNKS = [(512, 512), (512, 3072), (256, 3328)]
+SERVE_CANCEL_AFTER = 4  # the cancelled request's client leaves after these
+# The stop-string request stops on its solo answer's token at this step
+# (early: a chunked admission attends over its int8 prefix, so a slot may
+# leave the solo answer at a later near tie).
+SERVE_STOP_STEP = 1
+SERVE_TIMEOUT_S = 300  # a run's streams must all end within this
+# (name, wave, modality, sampled, new tokens).  Wave 1 fills 7 slots; the
+# MCUB-4 request (vision needs PIL, which the card's machine lacks, so it
+# goes to the engine itself) is admitted while they decode and fills the
+# 8th; wave 3 queues for the slots they free.
+SERVE_REQUESTS = [
+    ("audio_greedy", 1, "audio", False, 40),
+    ("video_greedy", 1, "video", False, 40),
+    ("point_greedy", 1, "point", False, 36),
+    ("text_stop", 1, None, False, 32),  # ends on a stop string
+    ("text_greedy_1", 1, None, False, 48),
+    ("text_sampled_1", 1, None, True, 40),
+    ("audio_cancelled", 1, "audio", True, 32),
+    ("mcub4", 2, "mcub4", False, 48),
+    ("text_greedy_2", 3, None, False, 32),
+    ("text_greedy_3", 3, None, False, 40),
+    ("point_sampled", 3, "point", True, 36),
+    ("video_sampled", 3, "video", True, 32),
+]
+SERVE_WAVES = [[n for n, w, *_ in SERVE_REQUESTS if w == wave]
+               for wave in (1, 2, 3)]
+SERVE_QUESTIONS = {
+    "audio": "<audio>\nWhat is making this sound?",
+    "video": "<video>\nWhat happens in this video?",
+    "point": "<point>\nWhat is this object? Answer in one word.",
+    None: ["Which instrument is usually tuned to A440 first?",
+           "Name three primary colors.", "What is the capital of France?",
+           "Describe a quiet morning in one sentence.",
+           "How many legs does a spider have?"]}
+
+
+def _chat(question):
+    """The vicuna_v1 prompt of one question, as the web UI builds it."""
+    from modelcompose_tpu_torch.data.conversation import conv_templates
+    conv = conv_templates["vicuna_v1"].copy()
+    conv.append_message(conv.roles[0], question)
+    conv.append_message(conv.roles[1], None)
+    return conv.get_prompt()
+
+
+def _serve_requests(rng):
+    """SERVE_REQUESTS as worker request dicts (MCUB-4's aside), with the
+    media as the wire carries them (host arrays: a 10.24 s clip, 8 frames
+    of 224 px, 8,192 points)."""
+    import numpy as np
+    media = {"audio": (rng.normal(size=163840) * 0.1).astype(np.float32),
+             "video": rng.normal(size=(8, 224, 224, 3)).astype(np.float32),
+             "point": np.concatenate([rng.normal(size=(8192, 3)),
+                                      rng.random((8192, 3))],
+                                     1).astype(np.float32)}
+    out, n_text = {}, 0
+    for name, _, modal, sampled, budget in SERVE_REQUESTS:
+        if modal is None:
+            question = SERVE_QUESTIONS[None][n_text % 5]
+            n_text += 1
+        else:
+            question = SERVE_QUESTIONS.get(modal)
+        r = {"prompt": _chat(question), "max_new_tokens": budget,
+             "temperature": SAMPLE_TEMPERATURE if sampled else 0.0,
+             "top_p": SAMPLE_TOP_P if sampled else 1.0}
+        if modal in media:
+            r["modal_inputs"] = {modal: [media[modal]]}
+        out[name] = r
+    return out
+
+
+class _SlotProbe:
+    """Wraps, from outside and on the instance, a SlotDecoder's ``admit``
+    (each admission's host window and the slots in flight then), ``sample``
+    (the time each tick's ids reach the host: its sync point) and ``step``
+    (steps taken, and the kv_len K2 reads at the fullest step)."""
+
+    def __init__(self, dec):
+        self.admits, self.ticks, self.active, self.steps = [], [], [], 0
+        self.fullest, self.kv_fullest = -1, None
+        admit, sample, step = dec.admit, dec.sample, dec.step
+
+        def admit_probe(slot, ids, modal_inputs, tick_cb=None):
+            n, t0 = int(dec.active.sum()), time.perf_counter()
+            L = admit(slot, ids, modal_inputs, tick_cb=tick_cb)
+            self.admits.append({"L": L, "in_flight": n, "start": t0,
+                                "end": time.perf_counter()})
+            return L
+
+        def sample_probe(*args):
+            out = sample(*args)
+            self.ticks.append(time.perf_counter())
+            self.active.append(int(dec.active.sum()))
+            return out
+
+        def step_probe(tokens):
+            n = int(dec.active.sum())
+            if n > self.fullest:
+                self.fullest, self.kv_fullest = n, dec.kv_lens + 1
+            self.steps += 1
+            return step(tokens)
+        dec.admit, dec.sample, dec.step = admit_probe, sample_probe, step_probe
+
+    def timeline(self, max_slots):
+        """(tick gaps outside admissions in ms, with the median decode
+        tokens/s of the ticks among them that stepped every slot: a rate
+        of selected ticks, not of the run; per admission with slots in
+        flight: its positions and the longest gap between two ticks
+        around or inside it, the stall those slots saw)."""
+        import numpy as np
+        pairs = list(zip(self.ticks, self.ticks[1:]))
+
+        def overlaps(t0, t1, a):
+            return t1 >= a["start"] and t0 <= a["end"]
+        free, full = [], []
+        for (t0, t1), n in zip(pairs, self.active):
+            if not any(overlaps(t0, t1, a) for a in self.admits):
+                free.append((t1 - t0) * 1e3)
+                if n == max_slots:
+                    full.append(n / (t1 - t0))
+        # an admission stalls the slots in flight only once they tick
+        stalls = [{"positions": a["L"], "stall_s": max(
+            t1 - t0 for t0, t1 in pairs if overlaps(t0, t1, a))}
+            for a in self.admits if a["in_flight"]
+            and any(t0 < a["start"] for t0, _ in pairs)]
+        tick = {"median_ms": float(np.median(free)) if free else None,
+                "p95_ms": float(np.percentile(free, 95)) if free else None,
+                "n": len(free), "all_slots_ticks": len(full),
+                "all_slots_tick_median_tok_per_s": float(np.median(full))
+                if full else None}
+        return tick, stalls
+
+
+def _consume(rec, stream, cancel_after=None):
+    """Read one request's stream (wire chunks, or engine events when
+    ``rec['events']``), stamping each token's arrival."""
+    rec["times"] = []
+    try:
+        for item in stream:
+            rec["times"].append(time.perf_counter())
+            if rec.get("events"):
+                rec.setdefault("tokens", []).append(item)
+            else:
+                rec["last"] = json.loads(item[:-1])
+            if cancel_after and len(rec["times"]) >= cancel_after:
+                stream.close()  # the client leaves: the row is cancelled
+                break
+    except Exception as e:  # noqa: BLE001 — reported with the request
+        rec["error"] = repr(e)
+
+
+def _engine_events(events, deadline_s=300):
+    """An engine's events queue as a stream of token ids."""
+    deadline = time.perf_counter() + deadline_s
+    while time.perf_counter() < deadline:
+        kind, payload = events.get(timeout=deadline_s)
+        if kind == "error":
+            raise payload
+        if kind == "done":
+            return
+        yield payload
+    raise TimeoutError("engine stream incomplete")
+
+
+def _wire_tokens(rec, prompt):
+    """The ids of a wire stream's last text (WordHashTokenizer writes each
+    as ``t<id>``)."""
+    return [int(w[1:]) for w in rec["last"]["text"][len(prompt):].split()]
+
+
+def _serve_run(part, worker, requests, waves, mcub4=None, stop_str=None):
+    """``waves`` of requests through ``worker``, the second wave started
+    once the first has its first tokens (MCUB-4, ``mcub4`` prepared,
+    straight into the engine; the others through
+    ``ModelWorker.generate_stream``); per request its time to first token,
+    tokens and ids; aggregate tokens/s over the whole run, peak memory,
+    K1/K2 launches; the ticks and stalls when the worker has a slot engine,
+    else the packed decode's median step.  Every stream must end within
+    SERVE_TIMEOUT_S."""
+    import threading
+
+    import numpy as np
+    import torch
+    reset, read = _attention_counters()
+    slots = hasattr(worker.engine, "decoder")
+    probe = _SlotProbe(worker.engine.decoder) if slots else None
+    if mcub4 is not None:  # MCUB-4 goes to the engine with its inputs ready
+        prepare = worker.engine.prepare
+        worker.engine.prepare = lambda r: r["prepared"] \
+            if "prepared" in r else prepare(r)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    recs, threads = {}, {}
+    t_start = time.perf_counter()
+
+    def start(name):
+        rec = recs[name] = {"submit": time.perf_counter()}
+        if name == "mcub4":
+            rec["events"] = True
+            stream = _engine_events(worker.engine.submit(
+                {"prepared": mcub4}))
+        else:
+            r = dict(requests[name])
+            if name == "text_stop":
+                r["stop"] = stop_str
+            stream = worker.generate_stream(r)
+        t = threads[name] = threading.Thread(
+            target=_consume, args=(rec, stream), kwargs={
+                "cancel_after": SERVE_CANCEL_AFTER
+                if name == "audio_cancelled" else None}, daemon=True)
+        t.start()
+    for i, names in enumerate(waves):
+        for name in names:
+            start(name)
+        deadline = time.perf_counter() + SERVE_TIMEOUT_S
+        while i == 0 and len(waves) > 1 \
+                and time.perf_counter() < deadline and not all(
+                    recs[n].get("times") or "error" in recs[n]
+                    for n in names):
+            time.sleep(0.01)
+    deadline = time.perf_counter() + SERVE_TIMEOUT_S
+    for t in threads.values():
+        t.join(max(0.0, deadline - time.perf_counter()))
+    hung = [n for n, t in threads.items() if t.is_alive()]
+    if hung:
+        raise AssertionError(f"{part}: streams still open after "
+                             f"{SERVE_TIMEOUT_S} s: {hung}")
+    torch.cuda.synchronize()
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"requests": {}, "launches": launches, "peak_mem_gb": peak,
+           "seconds": time.perf_counter() - t_start}
+    for name, rec in recs.items():
+        if "error" in rec or (rec.get("last") or {}).get("error_code"):
+            raise AssertionError(f"{part}/{name}: {rec.get('error') or rec}")
+        if not rec["times"]:
+            raise AssertionError(f"{part}/{name}: no token")
+        out["requests"][name] = {
+            "ttft_s": rec["times"][0] - rec["submit"],
+            "tokens": len(rec["times"]),
+            "ids": rec.get("tokens") or _wire_tokens(
+                rec, requests[name]["prompt"])}
+    first = min(r["times"][0] for r in recs.values())
+    last = max(r["times"][-1] for r in recs.values())
+    n_tokens = sum(len(r["times"]) for r in recs.values())
+    out["aggregate_tok_per_s"] = n_tokens / (last - first)
+    if probe is not None:
+        out["tick"], out["stalls"] = probe.timeline(
+            worker.engine.decoder.max_slots)
+        out["steps"], out["kv_fullest"] = probe.steps, probe.kv_fullest
+    else:  # the packed decode's step, from its longest request's tokens
+        longest = max(recs.values(), key=lambda r: len(r["times"]))["times"]
+        out["step_median_ms"] = float(np.median(np.diff(longest))) * 1e3 \
+            if len(longest) > 1 else None
+    log("serve", part=part, seconds=f"{out['seconds']:.2f}",
+        aggregate_tok_per_s=f"{out['aggregate_tok_per_s']:.2f}",
+        tokens=n_tokens, peak_mem_gb=f"{peak:.2f}",
+        launches=json.dumps(launches), tick=json.dumps(out.get("tick")),
+        steps=out.get("steps"), step_median_ms=out.get("step_median_ms"))
+    for name, r in out["requests"].items():
+        log("serve", part=part, request=name,
+            ttft_s=f"{r['ttft_s']:.3f}", tokens=r["tokens"])
+    if probe is not None:
+        log("serve", part=part, stalls=json.dumps(
+            [{"positions": a["positions"],
+              "stall_s": round(a["stall_s"], 4)} for a in out["stalls"]]))
+    return out
+
+
+def _slot_vs_solo(part, name, got, solo, solo_logits, budget, whole=True):
+    """A greedy slot's answer against the solo run of the same request:
+    equal, or the first divergence named, where the solo run's top-2 logit
+    gap at that step (``solo_logits(step)``, fp32 [V]) must be under
+    LOGIT_TOL of max |logit|: the pool's GEMMs run at M=8 and the solo's
+    at M=1, so a near tie may break the other way.  With ``whole`` the
+    answer must not be cut short: as long as the solo answer when it
+    equals it, its budget when it leaves it (the random model's greedy
+    answers run to their budgets: no EOS is drawn)."""
+    n = len(got)
+    if got == solo[:n]:
+        if whole and n != len(solo):
+            raise AssertionError(f"{part}/{name}: {n} tokens, a cut copy "
+                                 f"of the solo answer's {len(solo)}")
+        return {"equal": True, "tokens": n}
+    step = next(i for i, (a, b) in enumerate(zip(got, solo + [None]))
+                if a != b)
+    logits = solo_logits(step)
+    top2 = logits.topk(2).values
+    gap = ((top2[0] - top2[1]) / logits.abs().max()).item()
+    log("serve", part=part, request=name, diverge_step=step,
+        slot_token=got[step], solo_token=solo[step] if step < len(solo)
+        else "eos", solo_top2_gap_rel=f"{gap:.4g}", tol=LOGIT_TOL)
+    if gap > LOGIT_TOL:
+        raise AssertionError(f"{part}/{name}: slot answer leaves the solo "
+                             f"run at step {step}, top-2 gap {gap:.3g} of "
+                             f"max |logit|")
+    if whole and n != budget:
+        raise AssertionError(f"{part}/{name}: {n} tokens of {budget} after "
+                             f"leaving the solo answer at step {step}")
+    return {"equal": False, "diverge_step": step, "top2_gap_rel": gap}
+
+
+def _solo_chunked(model, ids, inputs, budget):
+    """Greedy answer of one request computed as a chunked slot admission
+    computes it, alone: ``prefill_chunked(kv_quant=True)`` in SERVE_CHUNK
+    pieces into an int8 cache of SERVE_CACHE_LEN, then greedy decode steps
+    over it; with each step's fp32 logits."""
+    import torch
+    from modelcompose_tpu_torch.core.generate import (_decode_step,
+                                                      prefill_chunked)
+    from modelcompose_tpu_torch.ops.routed_lora import as_table
+    with torch.inference_mode():
+        embeds, plan = model.prepare_batch(ids, inputs)
+        dev = embeds.device
+        route_ids = (torch.as_tensor(plan.route_ids, device=dev)
+                     if model.cfg.routing_active() else None)
+        logits, cache = prefill_chunked(
+            model.params, model.cfg, embeds, route_ids,
+            as_table(model.routing_table, dev), plan.lengths,
+            SERVE_CACHE_LEN, chunk=SERVE_CHUNK, kv_quant=True)
+        kv_lens = torch.as_tensor(plan.lengths, dtype=torch.int32,
+                                  device=dev)
+        answer, steps = [], []
+        for _ in range(budget):
+            steps.append(logits[0].float())
+            tok = logits[0].argmax()
+            if int(tok) == model.cfg.eos_token_id:
+                break
+            answer.append(int(tok))
+            logits, cache, kv_lens = _decode_step(
+                model.params, model.cfg, cache, tok[None].to(torch.int32),
+                kv_lens, model.decode_routing_table())
+    return answer, steps
+
+
+def _k1_chunk_case(device, gen, cfg, Lq, S):
+    """K1 on one chunk of an int8-pool admission as the path runs it (the
+    heads of ``cfg``): no segment ids, q_offset = S - Lq, k/v the
+    dequantized prefix [0, S) of an int8 stacked cache
+    (``core.llama._used_prefix``); against its plain version, with its
+    time, the plain version's, the bound and SDPA with
+    ``causal_lower_right`` (the library call that computes a chunk)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    from torch.profiler import ProfilerActivity, profile
+
+    from modelcompose_tpu_torch.core.llama import _used_prefix, quantize_kv
+    from modelcompose_tpu_torch.ops.flash_attention import (
+        flash_attention_forward, flash_attention_reference)
+    H, Hkv, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+    cache = [quantize_kv(rnd(1, 1, SERVE_CACHE_LEN, Hkv, D))
+             for _ in range(2)]
+    k, v = (_used_prefix(c, 0, S, torch.bfloat16) for c in cache)
+    q = rnd(1, Lq, H, D)
+    off = S - Lq
+    ones = [torch.ones((1, n), dtype=torch.int32, device=device)
+            for n in (Lq, S)]
+    kw = dict(causal=True, q_segment_ids=ones[0], kv_segment_ids=ones[1],
+              q_offset=off)
+    out, lse = flash_attention_forward(q, k, v, causal=True, q_offset=off)
+    name = f"chunk Lq{Lq} S{S} q_offset{off}"
+    err, rel, lse_err = _check_k1(name, q, k, v, kw, out, lse)
+    k1 = lambda: flash_attention_forward(  # noqa: E731
+        q, k, v, causal=True, q_offset=off)
+    ms = cuda_time_ms(k1)
+    plain_ms = cuda_time_ms(lambda: flash_attention_reference(
+        q, k, v, causal=True, q_offset=off))
+    args = [t.transpose(1, 2) for t in (q, k, v)]
+    mask = causal_lower_right(Lq, S)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        *args, attn_mask=mask)
+    library_ms = cuda_time_ms(sdpa)
+    # events time a launch of a small shape by the host's pace; the device
+    # time of each call comes from replaying it from a CUDA graph (the
+    # profiler drops some of K1's and SDPA's kernel records at these
+    # shapes: its sum once read K1 at 1.02 of the bound)
+    device_ms = graph_time_ms(k1)
+    library_device_ms = graph_time_ms(sdpa)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sdpa()  # the aten ops under the call name SDPA's backend
+    library_ops = sorted({e.key for e in prof.key_averages()
+                          if "attention" in e.key})
+    # q, k, v read once, O and the fp32 LSE written once (a chunk has no
+    # segment ids)
+    nbytes = 2 * D * (H * Lq + Hkv * S) + 2 * (v.numel() + q.numel()) \
+        + 4 * H * Lq
+    bound_ms, bound_by = bound(4 * D * H * _valid_pairs(kw, Lq, S), nbytes)
+    share = bound_ms / device_ms if device_ms else None
+    log("K1", case=repr(name), max_abs_err=f"{err:.4g}", rel_err=f"{rel:.3g}",
+        lse_err=f"{lse_err:.3g}", ms=f"{ms:.4f}", device_ms=_ms(device_ms),
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, share_of_bound=share,
+        library="sdpa causal_lower_right", library_ms=f"{library_ms:.4f}",
+        library_device_ms=_ms(library_device_ms),
+        library_ops=json.dumps(library_ops))
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=share, library_ms=library_ms,
+                library_device_ms=library_device_ms,
+                library_ops=library_ops, shape=name)
+
+
+def _serve_kernel_checks(device, gen, shapes, decoder, kv_fullest):
+    """K1 at the chunk shapes the chunked admissions ran (checked against
+    ``shapes``, a ``_KernelInputs``) and K2 on the pool itself at the
+    kv_len of its fullest step, each against its plain version."""
+    import torch
+    from modelcompose_tpu_torch.ops.flash_decode import flash_decode_attention
+    cfg = decoder.cfg
+    H, Hkv, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    seen = {(key[1], key[4]) for key in shapes.attention
+            if key[0] == 1 and key[2:4] == (H, D)}
+    missing = [c for c in SERVE_K1_CHUNKS if c not in seen]
+    pool = (cfg.num_hidden_layers, SERVE_SLOTS, SERVE_CACHE_LEN, Hkv, D, H,
+            str(torch.int8))
+    if missing or pool not in shapes.decode:
+        raise AssertionError(f"serve: K1 ran at {sorted(seen)}, missing "
+                             f"{missing}; K2 at {sorted(shapes.decode)}")
+    k1 = {f"Lq{Lq} S{S}": _k1_chunk_case(device, gen, cfg, Lq, S)
+          for Lq, S in SERVE_K1_CHUNKS}
+    q = torch.randn((SERVE_SLOTS, 1, H, D), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    kv = torch.tensor(kv_fullest, dtype=torch.int32, device=device)
+    NL = cfg.num_hidden_layers
+    with torch.inference_mode():  # the pool is made in inference mode
+        k2 = _k2_measure(q, decoder.cache.k, decoder.cache.v, kv, NL - 1)
+        # the profiler's cold time cross-checked by a CUDA graph of one
+        # launch on each layer in turn
+        graph_ms = graph_time_ms(lambda: [flash_decode_attention(
+            q, decoder.cache.k, decoder.cache.v, kv, i, sm_scale=D ** -0.5)
+            for i in range(NL)])
+    k2["graph_ms_cold"] = graph_ms / NL if graph_ms is not None else None
+    log("K2", case="serve pool", graph_ms_cold=_ms(k2["graph_ms_cold"]))
+    k2["shape"] = f"int8 B{SERVE_SLOTS} S{SERVE_CACHE_LEN} kv_len {kv_fullest}"
+    return k1, k2
+
+
+def phase_serve(device, gen, model, request, root, merged, base_dir):
+    """The serving stack on phase 6's MCUB-4 model: the continuous-batching
+    worker (8 slots of 3,456 positions, int8 pool) with chunked admission,
+    then with one-shot admission, each answering SERVE_REQUESTS (one
+    four-modality MCUB-4 request through the engine, the rest through
+    ``ModelWorker.generate_stream``'s wire chunks, no HTTP hop), every
+    greedy answer held to its solo ``generate``; the kernels at the
+    chunk and pool shapes; then the micro-batching worker packing 4
+    requests into one ``generate_stream``, and ``serve/cli.main`` on
+    phase 7's merged checkpoint with two turns on stdin."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.serve import cli
+    from modelcompose_tpu_torch.serve.model_worker import ModelWorker
+    tokenizer = WordHashTokenizer()
+    requests = _serve_requests(np.random.default_rng(SEED))
+
+    def worker(**kw):
+        return ModelWorker(
+            "http://controller", "http://worker", "mcub4-damc-multimodal",
+            base_dir, no_register=True, limit_concurrency=SERVE_SLOTS,
+            loader=lambda *_: (tokenizer, model, model.modal_processors(),
+                               2048), **kw)
+    slot_kw = dict(continuous_batching=True, slot_cache_len=SERVE_CACHE_LEN,
+                   slot_kv_quant=True)
+    first = worker(prefill_chunk=SERVE_CHUNK, **slot_kw)
+    # every greedy request's ids and decoded inputs, and its solo answers:
+    # a one-shot admission prefills as ``generate(kv_quant=True)`` does; a
+    # chunked one attends over its own dequantized int8 prefix
+    greedy = {}
+    for name, _, _, sampled, budget in SERVE_REQUESTS:
+        if not sampled:
+            ids, inputs = request if name == "mcub4" else \
+                first._prepare_request(requests[name])[:2]
+            greedy[name] = (list(ids) if name == "mcub4" else [ids], inputs,
+                            budget)
+    t0 = time.perf_counter()
+    solos = {"one_shot": {name: model.generate(
+        ids, inputs, max_new_tokens=budget, kv_quant=True)[0]
+        for name, (ids, inputs, budget) in greedy.items()}}
+    t1 = time.perf_counter()
+    chunked = {name: _solo_chunked(model, ids, inputs, budget)
+               for name, (ids, inputs, budget) in greedy.items()}
+    solos["chunked"] = {n: a for n, (a, _) in chunked.items()}
+    log("serve", solo_s=f"{t1 - t0:.1f}",
+        solo_chunked_s=f"{time.perf_counter() - t1:.1f}",
+        solo_lens=json.dumps({p: {n: len(a) for n, a in s.items()}
+                              for p, s in solos.items()}))
+
+    def solo_logits(part, name):
+        if part == "chunked":
+            return lambda step: chunked[name][1][step]
+        ids, inputs, _ = greedy[name]
+        tokens = (solos[part][name] + [0])  # the EOS step's input is unused
+
+        def at(step):
+            with torch.no_grad():
+                return _teacher_forced(model, ids, inputs, torch.tensor(
+                    [tokens[:step + 1]], device=model.device), "auto")[0, step]
+        return at
+    # a word's start: the wire text is "t<id> t<id> ..."
+    stop_strs = {p: f" t{s['text_stop'][SERVE_STOP_STEP]}"
+                 for p, s in solos.items()}
+    mcub4 = (request[0][0], request[1], 48, 0.0, 1.0)
+    parts = {}
+    with _KernelInputs() as shapes:
+        parts["chunked"] = _serve_run("chunked", first, requests, SERVE_WAVES,
+                                      mcub4, stop_strs["chunked"])
+    first.engine.stop()  # no thread touches the card while K1 is captured
+    k1, k2 = _serve_kernel_checks(device, gen, shapes, first.engine.decoder,
+                                  parts["chunked"]["kv_fullest"])
+    del first
+    second = worker(prefill_chunk=None, **slot_kw)
+    parts["one_shot"] = _serve_run("one_shot", second, requests, SERVE_WAVES,
+                                   mcub4, stop_strs["one_shot"])
+    second.engine.stop()
+    del second
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {}
+    for part in ("chunked", "one_shot"):
+        res = parts[part]
+        reqs = res["requests"]
+        if reqs["audio_cancelled"]["tokens"] >= requests[
+                "audio_cancelled"]["max_new_tokens"]:
+            raise AssertionError(f"{part}: the cancelled request ran on")
+        n_layers = model.cfg.num_hidden_layers
+        if res["launches"]["flash_decode"] != n_layers * res["steps"] \
+                or res["launches"]["flash_attention_fwd"] < n_layers * len(
+                    SERVE_REQUESTS):
+            raise AssertionError(f"{part}: launches {res['launches']} for "
+                                 f"{res['steps']} steps")
+        for name, (_, _, budget) in greedy.items():
+            checks[f"{part}/{name}"] = _slot_vs_solo(
+                part, name, reqs[name]["ids"], solos[part][name],
+                solo_logits(part, name), budget, whole=name != "text_stop")
+        # the stop string ends the request, unless the slot left the solo
+        # answer (at a near tie, checked above) before reaching it
+        stop = checks[f"{part}/text_stop"]
+        stopped = len(reqs["text_stop"]["ids"]) <= SERVE_STOP_STEP
+        log("serve", part=part, text_stop_stopped=stopped,
+            tokens=reqs["text_stop"]["tokens"])
+        if not stopped and stop.get("diverge_step", SERVE_STOP_STEP + 1) \
+                > SERVE_STOP_STEP:
+            raise AssertionError(f"{part}: the stop string "
+                                 f"{stop_strs[part]!r} did not end the "
+                                 f"request")
+    # the micro-batching worker: 4 requests coalesced into one packed
+    # generate_stream (a wide window so that they meet)
+    third = worker(continuous_batching=False)
+    third.engine.batch_wait_s = 1.0
+    calls = []
+    stream = model.generate_stream
+
+    def counted(ids, inputs, **kw):
+        calls.append(len(ids))
+        return stream(ids, inputs, **kw)
+    model.generate_stream = counted
+    batch = ["point_greedy", "text_greedy_1", "text_sampled_1",
+             "text_greedy_2"]
+    try:
+        with _KernelInputs() as packed:
+            parts["batching"] = _serve_run("batching", third, requests,
+                                           [batch])
+    finally:
+        del model.generate_stream
+    if calls != [len(batch)]:
+        raise AssertionError(f"batching: generate_stream calls {calls}")
+    if packed.decode_rows_dtype() != [(len(batch), "torch.bfloat16")]:
+        raise AssertionError(f"batching: K2 at {packed.decode_rows_dtype()}")
+    del third
+    # the terminal client on phase 7's merged checkpoint: two turns on
+    # stdin, a point cloud, greedy
+    reset, read = _attention_counters()
+    reset()
+    argv = ["--model-path", merged, "--model-base", base_dir, "--point-file",
+            os.path.join(root, "cloud.npy"), "--temperature", "0",
+            "--max-new-tokens", str(QA_TOKENS)]
+    out, stdin = io.StringIO(), sys.stdin
+    t0 = time.perf_counter()
+    try:
+        sys.stdin = io.StringIO("What is this object?\nWhat color is it?\n")
+        with contextlib.redirect_stdout(out), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            cli.main(argv, load_tokenizer_fn=lambda _: tokenizer)
+    finally:
+        sys.stdin = stdin
+    answers = [ln.split("ASSISTANT: ", 1)[1] for ln in
+               out.getvalue().splitlines() if "ASSISTANT: " in ln]
+    parts["cli"] = {"seconds": time.perf_counter() - t0, "answers": answers,
+                    "launches": read()}
+    log("serve", part="cli", seconds=f"{parts['cli']['seconds']:.2f}",
+        answers=json.dumps(answers), launches=json.dumps(read()))
+    if len(answers) != 2 or not all(answers) \
+            or min(parts["cli"]["launches"].values()) == 0:
+        raise AssertionError(f"cli: {out.getvalue()!r}")
+    launches = {k: sum(p["launches"][k] for p in parts.values())
+                for k in ("flash_attention_fwd", "flash_decode")}
+    log("serve", launches=json.dumps(launches), greedy_vs_solo=json.dumps(
+        {k: v.get("diverge_step", "equal") for k, v in checks.items()}))
+    return {"parts": parts, "launches": launches, "vs_solo": checks,
+            "k1_chunks": k1, "k2_pool": k2,
+            "max_abs_err": {"fwd": max(c["max_abs_err"] for c in k1.values()),
+                            "decode": k2["max_abs_err"]}}
 
 
 def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths,
@@ -2306,6 +3001,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         _, qa_launches = timed("qa_loader", phase_qa_loader, device, root,
                                merged, base_dir, mcub4_model)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve = timed("serve", phase_serve, device, gen, mcub4_model,
+                      request, root, merged, base_dir)
     del mcub4_model, request
     gc.collect()
     torch.cuda.empty_cache()
@@ -2332,21 +3031,25 @@ def main() -> int:
         return {"main": launches[name], "composed": composed["launches"][name],
                 "decode_variants": sum(v["launches"][name]
                                        for v in variants.values()),
-                "qa_loader": qa_launches[name], "train": train_launches(name),
+                "qa_loader": qa_launches[name],
+                "serve": serve["launches"][name],
+                "train": train_launches(name),
                 "train_entry": entry["launches"][name]}
 
     def train_paths(name):
         return {"train": train_launches(name),
                 "train_entry": entry["launches"][name]}
 
-    def worst(row, key):  # the largest error, phase 10's shapes included
-        return dict(row, max_abs_err=max(row["max_abs_err"],
-                                         entry["kernel_checks"][key]))
+    def worst(row, key):  # the largest error, phases 10-11's shapes included
+        return dict(row, max_abs_err=max(
+            row["max_abs_err"], entry["kernel_checks"][key],
+            serve["max_abs_err"].get(key, 0.0)))
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=K1_SOURCE,
              replaces=K1_REPLACES,
              launches=sum(by_path("flash_attention_fwd").values()),
              launches_by_path=by_path("flash_attention_fwd"),
+             serve_chunks=serve["k1_chunks"],
              **worst(dict(k1, max_abs_err=max(k1["max_abs_err"],
                                               k34["fwd"]["max_abs_err"])),
                      "fwd")),
@@ -2354,7 +3057,7 @@ def main() -> int:
              replaces=K2_REPLACES,
              launches=sum(by_path("flash_decode").values()),
              launches_by_path=by_path("flash_decode"),
-             **worst(k2, "decode")),
+             serve_pool=serve["k2_pool"], **worst(k2, "decode")),
         dict(name="flash_attention_bwd_dq", route="cuda", source=K34_SOURCE,
              replaces=K3_REPLACES,
              launches=sum(train_paths("flash_attention_bwd_dq").values()),

@@ -1,18 +1,20 @@
 """Greedy/temperature generation with a preallocated KV cache (counterpart
 of modelcompose_tpu/core/generate.py).
 
-Prefill runs the full routed multimodal forward once and fills the cache;
-decode steps run with the 'default' route class only, matching the
-reference's decode semantics.  The decode loop is a Python loop that keeps
+Prefill runs the full routed multimodal forward once and fills the cache
+(``_prefill``), or in chunks with work between them (``prefill_chunked``,
+the slot engine's admission); decode steps run with the 'default' route
+class only, matching the reference's decode semantics.  ``generate`` keeps
 the token choice (argmax, or a draw from an explicit ``torch.Generator``)
 and the EOS/done mask on the device, with no per-step host sync, and
-fetches the tokens once at the end.
+fetches the tokens once at the end; ``generate_stream`` fetches the [B]
+token ids every step, since it hands each token out as it decodes.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,7 +22,7 @@ import torch
 from ..config import ModelConfig
 from ..ops.routed_lora import as_table, fold_decode_adapters, fold_dense
 from .llama import KVCache, forward, forward_hidden_routed, logits_from_hidden
-from .sampling import categorical, top_p_filter
+from .sampling import categorical, sample_step, top_p_filter
 
 
 def _prefill(params, cfg: ModelConfig, inputs_embeds, route_ids,
@@ -40,6 +42,53 @@ def _prefill(params, cfg: ModelConfig, inputs_embeds, route_ids,
     rows = torch.arange(B, device=hidden.device)
     last_h = hidden[rows, lengths.long() - 1][:, None]
     return logits_from_hidden(params, last_h)[:, 0], cache
+
+
+def prefill_chunked(params, cfg: ModelConfig, inputs_embeds, route_ids,
+                    routing_table, lengths, cache_len: int,
+                    chunk: int = 256, attn_impl: str = "auto",
+                    tick_cb=None, kv_quant: bool = False):
+    """Chunked prefill of one right-padded prompt (the slot engine's
+    admission): ``chunk``-position pieces (full chunks, then a ragged
+    tail), with ``tick_cb()`` run after each so the caller can interleave
+    work.  With ``kv_quant=False`` it gives ``_prefill``'s (last-position
+    fp32 logits [1, V], cache); causal masking with the query offset
+    exposes exactly the written prefix, so no segment ids are needed.
+
+    ``kv_quant=True`` quantizes each chunk's k/v into an int8 cache at
+    append time and later chunks attend over the dequantized prefix (the
+    int8-KV decode approximation, one phase earlier): the transient is
+    the int8 cache, a quarter of the bf16 one's bytes."""
+    B, L, _ = inputs_embeds.shape
+    if B != 1:
+        raise ValueError("chunked prefill takes one prompt (batch 1)")
+    device = inputs_embeds.device
+    chunk = max(1, min(chunk, L))
+    sizes = [chunk] * (L // chunk) + ([L % chunk] if L % chunk else [])
+    cache = KVCache.zeros(cfg, B, cache_len, quantized=kv_quant,
+                          device=device)
+    if routing_table is not None:
+        routing_table = as_table(routing_table, device)
+    if route_ids is not None:
+        route_ids = _on(route_ids, device)
+    last_idx = int(_on(lengths, "cpu")[0]) - 1
+    logits, off = None, 0
+    for size in sizes:
+        # write k/v at [off, off + size) in place and attend causally with
+        # query offset ``off``
+        rc = None if route_ids is None else route_ids[:, off:off + size]
+        hidden, _ = forward_hidden_routed(
+            params, cfg, inputs_embeds[:, off:off + size], route_ids=rc,
+            routing_table=routing_table,
+            positions=(off + torch.arange(size, device=device))[None],
+            cache=cache, cache_write_pos=off, attn_impl=attn_impl)
+        if off <= last_idx < off + size:
+            logits = logits_from_hidden(
+                params, hidden[:, last_idx - off][:, None])[:, 0]
+        off += size
+        if tick_cb is not None:
+            tick_cb()
+    return logits, cache
 
 
 def _decode_step(params, cfg: ModelConfig, cache, tokens, kv_lens,
@@ -68,8 +117,9 @@ def _sync_clock(device) -> float:
 
 def _prepare(inputs_embeds, lengths, segment_ids, route_ids,
              max_new_tokens: int, cache_len: Optional[int]):
-    """Defaults and device placement shared by generate and beam search:
-    (cache_len, lengths int32, segment_ids int32, route_ids)."""
+    """Defaults and device placement shared by generate, generate_stream
+    and beam search: (cache_len, lengths int32, segment_ids int32,
+    route_ids)."""
     L, device = inputs_embeds.shape[1], inputs_embeds.device
     if cache_len is None:
         cache_len = L + max_new_tokens
@@ -82,6 +132,22 @@ def _prepare(inputs_embeds, lengths, segment_ids, route_ids,
     if route_ids is not None:
         route_ids = _on(route_ids, device)
     return cache_len, lengths, segment_ids, route_ids
+
+
+def _eos(cfg: ModelConfig, eos_token_id: Optional[int]) -> Optional[int]:
+    """The id that ends a row: ``eos_token_id`` when given, else the
+    config's (None: no row ends early)."""
+    return cfg.eos_token_id if eos_token_id is None else eos_token_id
+
+
+def _decode_tables(routing_table, device):
+    """(prefill table, decode table) on ``device``: decode skips the
+    adapter branch (None) when the default row is all zero, as it is for
+    dense-folded params, instead of multiplying it by zero."""
+    if routing_table is None:
+        return None, None
+    table = as_table(routing_table, device)
+    return table, (table if bool(table[0].any()) else None)
 
 
 def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
@@ -121,19 +187,13 @@ def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
     cache_len, lengths, segment_ids, route_ids = _prepare(
         inputs_embeds, lengths, segment_ids, route_ids, max_new_tokens,
         cache_len)
-    eos = cfg.eos_token_id if eos_token_id is None else eos_token_id
+    eos = _eos(cfg, eos_token_id)
 
-    decode_params, decode_table = params, routing_table
-    if routing_table is not None:
-        routing_table = as_table(routing_table, device)
-        decode_table = routing_table
-        if fold_decode == "dense":
-            params, routing_table = fold_dense(params, routing_table)
-            decode_params, decode_table = params, None
-        elif not bool(routing_table[0].any()):
-            # Already-folded params: the default row is all zero, so decode
-            # skips the adapter branch instead of multiplying it by zero.
-            decode_table = None
+    routing_table, decode_table = _decode_tables(routing_table, device)
+    if routing_table is not None and fold_decode == "dense":
+        params, routing_table = fold_dense(params, routing_table)
+        decode_table = None
+    decode_params = params
 
     t0 = _sync_clock(device) if timings is not None else 0.0
     logits, cache = _prefill(params, cfg, inputs_embeds, route_ids,
@@ -189,3 +249,68 @@ def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
             row = row[:row.index(eos)]
         outputs.append(row)
     return outputs
+
+
+def generate_stream(params, cfg: ModelConfig, inputs_embeds, *, lengths,
+                    emit, max_new_tokens: Sequence[int],
+                    temperatures: Sequence[float],
+                    top_ps: Optional[Sequence[float]] = None,
+                    generator: torch.Generator, route_ids=None,
+                    routing_table=None, segment_ids=None, cancelled=None,
+                    eos_token_id: Optional[int] = None,
+                    attn_impl: str = "auto") -> None:
+    """Streaming decode of a packed batch: one prefill, then a decode loop
+    that calls ``emit(b, ("token", id))`` for each row's token the step it
+    decodes and ``emit(b, ("done", None))`` once per row (EOS, its
+    ``max_new_tokens[b]``, or ``cancelled(b)`` true; rows with a budget of
+    0 or less are done before the prefill).  Per-row temperature and top-p
+    draw on the device (``sampling.sample_step``, greedy rows bit-identical
+    to argmax) from ``generator``; one host fetch of the [B] ids a step.
+    The loop ends as soon as every row is done."""
+    B = inputs_embeds.shape[0]
+    device = inputs_embeds.device
+    done = [False] * B
+    for b in range(B):
+        if max_new_tokens[b] <= 0:
+            done[b] = True
+            emit(b, ("done", None))
+    if all(done):
+        return
+    steps = max(max_new_tokens)
+    cache_len, lengths, segment_ids, route_ids = _prepare(
+        inputs_embeds, lengths, segment_ids, route_ids, steps, None)
+    eos = _eos(cfg, eos_token_id)
+    routing_table, decode_table = _decode_tables(routing_table, device)
+    logits, cache = _prefill(params, cfg, inputs_embeds, route_ids,
+                             routing_table, segment_ids, lengths, cache_len,
+                             attn_impl)
+    temps = torch.tensor(list(temperatures), dtype=torch.float32,
+                         device=device)
+    tps = torch.tensor([1.0] * B if top_ps is None else list(top_ps),
+                       dtype=torch.float32, device=device)
+    kv_lens = lengths
+    for step in range(steps):
+        sampled = sample_step(generator, logits, temps, tps).cpu().numpy()
+        tokens = np.zeros(B, np.int32)
+        for b in range(B):
+            if not done[b] and cancelled is not None and cancelled(b):
+                done[b] = True
+                emit(b, ("done", None))
+            if done[b]:
+                tokens[b] = eos if eos is not None else 0
+                continue
+            tok = int(sampled[b])
+            tokens[b] = tok
+            if eos is not None and tok == eos:
+                done[b] = True
+                emit(b, ("done", None))
+                continue
+            emit(b, ("token", tok))
+            if step == max_new_tokens[b] - 1:
+                done[b] = True
+                emit(b, ("done", None))
+        if all(done):
+            return
+        logits, cache, kv_lens = _decode_step(
+            params, cfg, cache, torch.from_numpy(tokens).to(device), kv_lens,
+            decode_table, attn_impl)

@@ -179,6 +179,17 @@ def _cache_parts(cache, val):
 # Decoder
 # ---------------------------------------------------------------------------
 
+def _used_prefix(cache, layer_idx: int, used: int, dtype) -> torch.Tensor:
+    """Positions [0, used) of one layer of the stacked cache, [B, used, Hkv,
+    D]: of a bf16 cache a view (contiguous at B=1, a leading slice of one
+    row), of an int8 cache only that prefix dequantized (q * scale in fp32,
+    then ``dtype``)."""
+    if isinstance(cache, dict):
+        return (cache["q"][layer_idx, :, :used].float()
+                * cache["scale"][layer_idx, :, :used]).to(dtype)
+    return cache[layer_idx, :, :used].contiguous()
+
+
 def _unbind_layers(tree, n: int):
     """The stacked layer tree as ``n`` per-layer trees of views, split once
     with ``unbind``: its backward stacks the per-layer gradients into one
@@ -193,13 +204,20 @@ def _unbind_layers(tree, n: int):
 def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
            cache: Optional[KVCache], layer_idx: int, cache_write_pos,
            kv_lens, attn_impl: str):
-    """One decoder block, in one of three modes:
+    """One decoder block, in one of four modes:
 
     - no cache: prefill or training, attention within segment ids;
     - ``cache`` and no ``cache_write_pos``: prefill that also writes this
       layer's k/v at positions [0, L) of the stacked cache;
+    - ``cache`` and an int ``cache_write_pos`` with no ``kv_lens``: one
+      chunk of a chunked prefill, written at [cache_write_pos, +L), then
+      attending causally with that query offset over the used prefix
+      [0, cache_write_pos + L) of the cache;
     - ``cache``, ``cache_write_pos`` [B] and ``kv_lens`` [B]: decode of one
       token, written at its slot, attending over the stacked cache.
+
+    Decode is the mode with ``kv_lens`` (the JAX dispatch rule), so a
+    1-token chunk never falls into it.
     """
     B, L, _ = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -215,7 +233,7 @@ def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
     v = lin(ap["v"], h).view(B, L, nkv, hd)
     q, k = apply_rope(q, k, cos, sin)
 
-    if cache is not None and cache_write_pos is not None:
+    if cache is not None and kv_lens is not None:
         # Decode: write the token's slot IN PLACE (cache[layer, b, pos[b]]),
         # which saves a copy of the multi-GB cache per step.
         rows = torch.arange(B, device=x.device)
@@ -223,6 +241,18 @@ def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
             c[layer_idx, rows, cache_write_pos] = val[:, 0].to(c.dtype)
         attn_out = decode_attention(q, cache.k, cache.v, kv_lens,
                                     layer_idx=layer_idx, impl=attn_impl)
+    elif cache is not None and cache_write_pos is not None:
+        # A prefill chunk: write [off, off + L) in place, then attend with
+        # the query offset over the used prefix only (causality would mask
+        # the rest of the cache anyway).
+        off = int(cache_write_pos)
+        used = off + L
+        for c, val in _cache_parts(cache.k, k) + _cache_parts(cache.v, v):
+            c[layer_idx, :, off:used] = val.to(c.dtype)
+        k_used, v_used = (_used_prefix(c, layer_idx, used, x.dtype)
+                          for c in (cache.k, cache.v))
+        attn_out = attention(q, k_used, v_used, causal=True, q_offset=off,
+                             impl=attn_impl)
     else:
         if cache is not None:  # prefill: fill positions [0, L) of this layer
             for c, val in _cache_parts(cache.k, k) + _cache_parts(cache.v, v):
@@ -247,16 +277,14 @@ def forward_hidden(params: Params, cfg: ModelConfig, inputs_embeds, *,
     inputs_embeds: [B, L, H]; route: [B, L, A] adapter weights or None;
     positions: [B, L] absolute positions (default arange).  A decode step
     passes ``cache``, ``cache_write_pos`` and ``kv_lens``; a prefill that
-    fills the cache passes only ``cache``.  With ``cfg.remat`` and no cache
+    fills the cache passes only ``cache``; a chunk of a chunked prefill
+    passes ``cache`` and its first position as an int ``cache_write_pos``
+    (its query offset), and its positions.  With ``cfg.remat`` and no cache
     (training) each layer is checkpointed: its activations are recomputed
     in the backward instead of kept.  Returns (final hidden [B, L, H], the
     cache, updated in place, or None)."""
     B, L, _ = inputs_embeds.shape
     device = inputs_embeds.device
-    if cache is not None and cache_write_pos is not None and kv_lens is None:
-        raise NotImplementedError(
-            "chunked prefill (a cache write at an offset without kv_lens) is "
-            "not ported yet: ROADMAP Queue 1, chunked prefill + slot engine")
     if positions is None:
         positions = torch.arange(L, device=device).expand(B, L)
     if segment_ids is None:

@@ -28,6 +28,7 @@ from ..core import generate as generation
 from ..core.beam import beam_generate
 from ..core.llama import forward, init_params, torch_dtype
 from ..core.packing import PackPlan, assemble_embeds, plan_pack
+from ..core.sampling import entropy_seed
 from ..devices import resolve_device
 from ..ops.routed_lora import (active_adapter_set, as_table,
                                compact_active_adapters)
@@ -187,6 +188,40 @@ class MultimodalLM:
                 temperature=temperature, top_p=top_p, generator=generator,
                 attn_impl=attn_impl, fold_decode=fold_decode,
                 kv_quant=kv_quant, timings=timings)
+
+    def generate_stream(self, input_ids: Sequence[np.ndarray],
+                        modal_inputs: Dict[str, Any], *,
+                        max_new_tokens: Sequence[int],
+                        temperatures: Sequence[float], emit,
+                        rng_seed: Optional[int] = None,
+                        bucket_len: Optional[int] = None,
+                        cancelled=None, top_ps=None) -> None:
+        """Batched streaming decode (the serving worker's micro-batch): one
+        packed prefill, then each row's tokens emitted the step they decode,
+        as ``emit(i, ("token", id))`` and one ``emit(i, ("done", None))``;
+        per-row ``max_new_tokens``, temperature, top-p and EOS are honoured,
+        and a row whose ``cancelled(i)`` turns true is masked done (the
+        batch stops once every row is).  Draws come from a
+        ``torch.Generator`` on the model's device seeded by ``rng_seed``,
+        else by OS entropy (see core.generate.generate_stream)."""
+        if all(n <= 0 for n in max_new_tokens):  # nothing to encode
+            for i in range(len(input_ids)):
+                emit(i, ("done", None))
+            return
+        generator = torch.Generator(device=self.device).manual_seed(
+            rng_seed if rng_seed is not None else entropy_seed())
+        with torch.no_grad():
+            embeds, plan = self.prepare_batch(input_ids, modal_inputs,
+                                              bucket_len=bucket_len)
+            generation.generate_stream(
+                self.params, self.cfg, embeds, lengths=plan.lengths,
+                route_ids=(plan.route_ids if self.cfg.routing_active()
+                           else None),
+                routing_table=self.routing_table,
+                segment_ids=plan.segment_ids, emit=emit,
+                max_new_tokens=list(max_new_tokens),
+                temperatures=list(temperatures), top_ps=top_ps,
+                generator=generator, cancelled=cancelled)
 
     def loss(self, input_ids: Sequence[np.ndarray],
              labels: Sequence[np.ndarray], modal_inputs: Dict[str, Any],

@@ -556,3 +556,121 @@ def test_prefetch_loader_raises_and_stops_early():
     assert next(it) == [0, 1]
     it.close()
     assert threading.active_count() == before
+
+
+# ---------------------------------------------------------------------------
+# The serving plane's copies: build_logger, the controller, the web UI, the
+# registration and message scripts (no model code in any of them)
+# ---------------------------------------------------------------------------
+
+import ast  # noqa: E402
+import asyncio  # noqa: E402
+import importlib  # noqa: E402
+import inspect  # noqa: E402
+import time  # noqa: E402
+
+import modelcompose_tpu.serve.controller as jcontroller  # noqa: E402
+import modelcompose_tpu.utils.logging as jlogging  # noqa: E402
+import modelcompose_tpu_torch.serve.controller as tcontroller  # noqa: E402
+import modelcompose_tpu_torch.utils.logging as tlogging  # noqa: E402
+
+
+def _code(source: str) -> str:
+    """The module's AST without its docstring (the copies' docstrings name
+    the port)."""
+    tree = ast.parse(source)
+    if tree.body and isinstance(tree.body[0], ast.Expr) \
+            and isinstance(tree.body[0].value, ast.Constant):
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name", ["controller", "web_server",
+                                  "register_worker", "test_message"])
+def test_serve_copies_are_the_originals(name):
+    j = importlib.import_module(f"modelcompose_tpu.serve.{name}")
+    t = importlib.import_module(f"modelcompose_tpu_torch.serve.{name}")
+    assert _code(inspect.getsource(t)) == _code(inspect.getsource(j))
+
+
+def test_build_logger_is_the_original():
+    assert _code(inspect.getsource(tlogging.build_logger)) \
+        == _code(inspect.getsource(jlogging.build_logger))
+    a = tlogging.build_logger("torch_copy_check", "model_worker.log")
+    assert a.name == "torch_copy_check" and a.level == 20
+    assert any(type(h).__name__ == "TimedRotatingFileHandler"
+               for h in a.handlers)
+
+
+@pytest.fixture(params=["jax", "torch"])
+def controller_mod(request):
+    return {"jax": jcontroller, "torch": tcontroller}[request.param]
+
+
+def test_controller_register_and_dispatch(controller_mod):
+    c = controller_mod.Controller("shortest_queue")
+    assert c.register_worker("http://w1", True, {"model_names": ["m"],
+                                                 "speed": 1,
+                                                 "queue_length": 0})
+    assert c.register_worker("http://w2", True, {"model_names": ["m"],
+                                                 "speed": 1,
+                                                 "queue_length": 5})
+    assert not c.register_worker("http://w3", True, None)
+    assert c.list_models() == ["m"]
+    # the shortest queue wins and gets its queue bumped
+    assert c.get_worker_address("m") == "http://w1"
+    assert c.worker_info["http://w1"].queue_length == 1
+    assert c.get_worker_address("nope") == ""
+
+
+def test_controller_heartbeat_expiry(controller_mod):
+    c = controller_mod.Controller()
+    c.register_worker("http://w1", True, {"model_names": ["m"], "speed": 1,
+                                          "queue_length": 0})
+    c.register_worker("http://w2", False, {"model_names": ["n"], "speed": 1,
+                                           "queue_length": 0})
+    assert c.receive_heart_beat("http://w1", 3)
+    assert c.worker_info["http://w1"].queue_length == 3
+    for info in c.worker_info.values():
+        info.last_heart_beat = time.time() - 1000
+    c.remove_stale_workers()
+    assert list(c.worker_info) == ["http://w2"]  # unchecked: kept
+    assert not c.receive_heart_beat("http://w1", 0)  # -> re-register
+
+
+def test_controller_lottery_dispatch(controller_mod):
+    c = controller_mod.Controller("lottery")
+    for name, speed in (("http://w1", 1), ("http://w2", 3)):
+        c.register_worker(name, True, {"model_names": ["m"], "speed": speed,
+                                       "queue_length": 0})
+    picks = [c.get_worker_address("m", np.random.default_rng(i))
+             for i in range(40)]
+    assert set(picks) == {"http://w1", "http://w2"}
+    want = [jcontroller.Controller.get_worker_address(
+        c, "m", np.random.default_rng(i)) for i in range(40)]
+    assert picks == want
+
+
+def test_controller_http_api(controller_mod):
+    from aiohttp.test_utils import TestClient, TestServer
+
+    async def run():
+        app = controller_mod.build_app(controller_mod.Controller())
+        async with TestClient(TestServer(app)) as client:
+            r = await client.post("/register_worker", json={
+                "worker_name": "http://w1", "check_heart_beat": True,
+                "worker_status": {"model_names": ["m"], "speed": 1,
+                                  "queue_length": 0}})
+            assert (await r.json())["exist"]
+            r = await client.post("/list_models", json={})
+            assert (await r.json())["models"] == ["m"]
+            r = await client.post("/get_worker_address", json={"model": "m"})
+            assert (await r.json())["address"] == "http://w1"
+            r = await client.post("/receive_heart_beat", json={
+                "worker_name": "http://w1", "queue_length": 2})
+            assert (await r.json())["exist"]
+            r = await client.post("/worker_generate_stream",
+                                  json={"model": "nope"})
+            chunk = json.loads((await r.read()).split(b"\0")[0])
+            assert chunk["error_code"] == 2
+    asyncio.run(run())

@@ -451,3 +451,99 @@ def test_backward_wrappers_raise_instead_of_falling_back():
         flash_attention_bwd_dq(q, q, q, q, lse.transpose(1, 2), lse)
     with pytest.raises(TypeError):
         flash_attention(q.float(), q.float(), q.float())
+
+
+# ---------------------------------------------------------------------------
+# The serving path's new inputs: K1 on prefill chunks over the stacked cache,
+# K2 over the slot pool, the in-place splice
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("Lq,S,q_offset", [
+    (512, 512, 0), (512, 3072, 2560), (256, 3328, 3072)])
+def test_k1_on_a_prefill_chunk_matches_plain(quantized, Lq, S, q_offset):
+    """A chunk of a chunked admission: no segment ids, causality bottom-right
+    aligned (q_offset = S - Lq), k/v the used prefix of layer 1 of a stacked
+    cache of 3,456 positions: a view of the bf16 cache (no copy: the
+    wrapper's checks pass on it) or the dequantized prefix of an int8 one."""
+    from modelcompose_tpu_torch.core.llama import _used_prefix
+    gen = torch.Generator(device="cuda").manual_seed(S + quantized)
+    cache = {n: _rnd(gen, 2, 1, 3456, 32, 128) for n in ("k", "v")}
+    if quantized:
+        cache = {n: quantize_kv(c) for n, c in cache.items()}
+    k, v = (_used_prefix(cache[n], 1, S, torch.bfloat16) for n in ("k", "v"))
+    if not quantized:
+        assert k.data_ptr() == cache["k"][1].data_ptr()  # a view
+    q = _rnd(gen, 1, Lq, 32, 128)
+    kw = dict(causal=True, q_offset=q_offset)
+    before = flash_attention_forward.launches
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    assert flash_attention_forward.launches == before + 1
+    ref, ref_lse = flash_attention_reference(q, k, v, **kw)
+    assert torch.isfinite(out).all() and _rel(out, ref) <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3 * max(
+        ref_lse.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_k2_over_the_slot_pool_matches_plain(quantized):
+    """8 slots of 3,456 positions with unequal kv_len, idle rows at 1: every
+    row finite and within 2e-2 of the plain version."""
+    lens = (1, 1, 700, 3300, 1, 40, 2048, 1)
+    gen = torch.Generator(device="cuda").manual_seed(3456)
+    q = _rnd(gen, 8, 1, 32, 128)
+    k, v = (_rnd(gen, 2, 8, 3456, 32, 128) for _ in range(2))
+    if quantized:
+        k, v = quantize_kv(k), quantize_kv(v)
+    kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for layer in (0, 1):
+        out = flash_decode_attention(q, k, v, kv, layer, sm_scale=128 ** -0.5)
+        ref = flash_decode_reference(q, k, v, kv, layer, sm_scale=128 ** -0.5)
+        assert torch.isfinite(out).all() and _rel(out, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("pool_int8,small_int8", [
+    (False, False), (True, True), (True, False)])
+def test_splice_on_card_matches_cpu(pool_int8, small_int8):
+    """The slot splice on the card writes the CPU's bytes into the pool's
+    own buffers.  A bf16 admission into an int8 pool is quantized on the
+    card first: the card rounds its scale (amax / 127) apart from the CPU
+    in the last place, so there the spliced row is held to the card's own
+    ``quantize_kv`` bit for bit and to the CPU's within one int8 step."""
+    from modelcompose_tpu_torch.core.llama import KVCache
+    from modelcompose_tpu_torch.serve.slot_engine import _splice_slot
+    gen = torch.Generator().manual_seed(9)
+
+    def cache(batch, quantized):
+        parts = [torch.randn((2, batch, 64, 8, 128), generator=gen)
+                 .to(torch.bfloat16) for _ in range(2)]
+        return [quantize_kv(p) if quantized else p for p in parts]
+
+    def on(parts, device):
+        return KVCache(*[{n: t.to(device) for n, t in p.items()}
+                         if isinstance(p, dict) else p.to(device)
+                         for p in parts])
+    big, small = cache(4, pool_int8), cache(1, small_int8)
+    cpu, card = on(big, "cpu"), on(big, "cuda")
+    ptrs = [t.data_ptr() for p in (card.k, card.v)
+            for t in (p.values() if isinstance(p, dict) else [p])]
+    _splice_slot(cpu, on(small, "cpu"), 2)
+    _splice_slot(card, on(small, "cuda"), 2)
+    requantized = pool_int8 and not small_int8
+    for i, (got, want) in enumerate(((card.k, cpu.k), (card.v, cpu.v))):
+        if requantized:
+            row = quantize_kv(small[i].cuda())
+            for n in got:
+                assert torch.equal(got[n][:, 2], row[n][:, 0])
+                keep = [r for r in range(4) if r != 2]
+                assert torch.equal(got[n][:, keep].cpu(), want[n][:, keep])
+            assert (got["q"].cpu().int() - want["q"].int()).abs().max() <= 1
+            torch.testing.assert_close(got["scale"].cpu(), want["scale"],
+                                       rtol=1e-6, atol=0)
+            continue
+        pairs = [(got[n], want[n]) for n in got] if isinstance(got, dict) \
+            else [(got, want)]
+        for g, w in pairs:
+            assert torch.equal(g.cpu(), w)
+    assert ptrs == [t.data_ptr() for p in (card.k, card.v)
+                    for t in (p.values() if isinstance(p, dict) else [p])]

@@ -221,10 +221,23 @@ def test_init_params_tree_matches_jax(dtype):
 
 
 def test_chunked_prefill_is_not_ported_yet():
-    cfg = _port(tiny_test_config())
+    """(The name predates the port of chunked prefill.)  A cache write at
+    an offset without ``kv_lens`` is a prefill chunk: chunks of 3 and 1
+    positions (a 1-token chunk is not a decode step: decode is the mode
+    with ``kv_lens``) give the one-shot prefill's hidden states and cache
+    rows."""
+    cfg = _port(tiny_test_config(dtype="float32"))
     tp = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    cache = llama.KVCache.zeros(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        llama.forward_hidden(tp, cfg, torch.zeros(1, 4, cfg.hidden_size),
-                             cache=cache,
-                             cache_write_pos=torch.zeros(1, dtype=torch.int32))
+    x = torch.randn((1, 4, cfg.hidden_size),
+                    generator=torch.Generator().manual_seed(1)) * 0.1
+    whole = llama.KVCache.zeros(cfg, 1, 8)
+    want, _ = llama.forward_hidden(tp, cfg, x, cache=whole)
+    chunked = llama.KVCache.zeros(cfg, 1, 8)
+    got = [llama.forward_hidden(tp, cfg, x[:, a:b], cache=chunked,
+                                cache_write_pos=a,
+                                positions=torch.arange(a, b)[None])[0]
+           for a, b in ((0, 3), (3, 4))]
+    torch.testing.assert_close(torch.cat(got, 1), want, rtol=1e-5, atol=1e-5)
+    for part in ("k", "v"):
+        torch.testing.assert_close(getattr(chunked, part),
+                                   getattr(whole, part), rtol=1e-5, atol=1e-5)

@@ -2,7 +2,8 @@
 slices end to end (greedy generation, a train step, then four unimodal
 checkpoints merged, loaded and answering a 4-modality prompt, then the eval
 entry answering a question file greedily, sampled and by beam search, then
-the train entry training, checkpointing and resuming) in a
+the train entry training, checkpointing and resuming, then a chunked
+admission into the slot pool and two slot ticks) in a
 process where ``import jax`` and ``import modelcompose_tpu`` fail, and no
 file of it (nor ``chip_smoke.py``) imports either.  Its entry points put a model on the
 card unless asked for the CPU, and raise where there is no card."""
@@ -167,10 +168,36 @@ res2 = train(build_arg_parser().parse_args(argv + ["--max_steps", "3"]),
              tokenizer=FakeLlamaTokenizer(), device="cpu")
 assert res["steps"] == 2 and res2["start_step"] == 2 and res2["steps"] == 3
 assert os.path.exists(os.path.join(root, "point-out", "adapter_model.bin"))
+# a chunked admission into the int8 slot pool and two slot ticks
+from modelcompose_tpu_torch.serve.slot_engine import SlotDecoder
+cfg = tiny_test_config(mm_vision_encoder="test:32x2", mm_hidden_size=32)
+model = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(2), "cpu")
+dec = SlotDecoder(model, max_slots=2, cache_len=32, kv_quant=True,
+                  prefill_chunk=8, device="cpu")
+ticks = []
+dec.admit(0, np.array([1, img, 5]), {"vision": pixels[:1]})
+dec.admit(1, np.array([1, 7, 8]), {},
+          tick_cb=lambda: ticks.append(dec.step(dec.host_logits().argmax(-1))))
+dec.step(dec.host_logits().argmax(-1))
+dec.step(dec.host_logits().argmax(-1))
+assert len(ticks) == 4 and dec.kv_lens.tolist()[1] == 3 + 2, dec.kv_lens
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "modelcompose_tpu")]
 assert all(sys.modules[m] is None for m in loaded), loaded
 print("SLICE_OK", out)
 """
+
+
+@pytest.mark.parametrize("module", ["serve.model_worker", "serve.cli"])
+def test_serving_entry_help_runs_with_jax_blocked(module):
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['modelcompose_tpu'] = None\n"
+            f"runpy.run_module('modelcompose_tpu_torch.{module}', "
+            "run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code, "--help"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert "--model-path" in proc.stdout and "--device" in proc.stdout
 
 
 def test_slice_runs_with_jax_blocked():
@@ -201,13 +228,18 @@ def test_no_file_of_the_port_imports(what, pattern):
             "data/tokenization.py", "data/preprocess.py", "data/dataset.py",
             "eval/generation_utils.py", "eval/model_multimodal_qa_loader.py",
             "data/loader.py", "train/sampler.py", "train/checkpoint.py",
-            "train/train_multimodal.py"} <= names
+            "train/train_multimodal.py", "utils/logging.py",
+            "serve/slot_engine.py", "serve/model_worker.py", "serve/cli.py",
+            "serve/controller.py", "serve/web_server.py",
+            "serve/register_worker.py", "serve/test_message.py",
+            "serve/demo_app.py"} <= names
 
 
 @pytest.mark.parametrize("entry", [
     "random_init", "load_pretrained_model", "build_model", "model_from_jax",
     "build_modal_encoders", "ClipVisionTower", "BeatsAudioTower",
-    "LanguageBindVideoTower", "PointBertTower", "eval_model", "train"])
+    "LanguageBindVideoTower", "PointBertTower", "eval_model", "train",
+    "SlotDecoder", "ModelWorker", "cli"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """No device means the card; without one each entry point raises before
     it builds anything on the CPU."""
@@ -216,7 +248,9 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     from modelcompose_tpu_torch.eval import model_multimodal_qa_loader as qa
     from modelcompose_tpu_torch.models import towers
     from modelcompose_tpu_torch.models.loader import load_pretrained_model
+    from modelcompose_tpu_torch.serve import cli, model_worker, slot_engine
     from modelcompose_tpu_torch.train import train_multimodal
+    cpu_model = MultimodalLM.random_init(tiny_test_config(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_test_config()
     (tmp_path / "c-multimodal").mkdir()
@@ -241,6 +275,13 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             "--model-path", str(tmp_path / "c-multimodal"), "--model-base",
             str(tmp_path), "--question-file", "-"])),
         "train": lambda: train_multimodal.train(args),
+        "SlotDecoder": lambda: slot_engine.SlotDecoder(cpu_model),
+        "ModelWorker": lambda: model_worker.ModelWorker(
+            "http://c", "http://w", str(tmp_path / "c-multimodal"),
+            str(tmp_path), no_register=True),
+        "cli": lambda: cli.main([
+            "--model-path", str(tmp_path / "c-multimodal"), "--model-base",
+            str(tmp_path)]),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
