@@ -100,7 +100,28 @@ nonzero:
    the pool at its fullest step's kv_len, against their plain versions;
    then the micro-batching worker packing 4 requests into one
    ``generate_stream``, and the chat CLI (``serve/cli.main``) on phase 7's
-   checkpoint with two turns on stdin.
+   checkpoint with two turns on stdin;
+12. the last towers, the text encoder and the eval entries (run after 11):
+   (a) ``towers``: EVA02-CLIP-L-14-336 (23 of 24 layers, 577 tokens),
+   EVA01-CLIP-g-14 at 224 and 336 (257 and 577 tokens), ImageBind-huge
+   audio (3 clips of 229 tokens from a 10 s waveform through the port's
+   processor, whose host ms it also times) and the text CLIP encoder at
+   ViT-L/14 text width (77 tokens), each alone at full size with random
+   fp32 weights: median ms at B=1 and B=4 (text also B=8), peak memory,
+   and the card's B=1 output against the same tower's on the CPU, within
+   1e-5 of max |x| (beside it, as a control, the same ratio with TF32
+   allowed); (b) ``eva_imagebind``: ``configs.eva_imagebind_damc_7b``
+   at Vicuna-7B width and depth in phase 5's production variant, one 336
+   px image + 10 s audio + 70 text tokens request (698 positions, the
+   1,024 bucket) answered with 32 greedy tokens: tower + projector ms,
+   prefill, decode, peak memory, launches, kernel- against plain-path
+   logits; (c) ``entries``: ``model_qa`` (2 text questions), ``run_inference``
+   (.wav + .npy), ``model_multimodal_loss`` (4 rows, batch 2) and
+   ``retrieval`` (2 records x 4 captions) on phase 6's model, each with
+   its seconds, result and launches, and one loss batch on the kernel path
+   against the plain path within 2e-2.  (b) and (c) record the inputs
+   their K1 and K2 launches got and hold each kernel to its plain version
+   at those shapes, as phase 10 does.
 
 The line before the last is a JSON object with each kernel's launches on the
 main paths, its largest error against the plain version, its time, the plain
@@ -565,20 +586,22 @@ def _k2_measure(q, k, v, kv, layer):
         + (2 * Hkv * 4 if quantized else 0)
     bound_ms, bound_by = bound(4 * H * D * n_valid,
                                n_valid * per_pos + 4 * q.numel() + 4 * B)
+    # a profile that recorded no kernel leaves the cold device time null
+    share_cold = None if device_ms_cold is None else bound_ms / device_ms_cold
     log("K2", case=repr(name), max_abs_err=f"{err:.4g}", rel_err=f"{rel:.3g}",
         rel_err_loop=f"{rel_loop:.3g}", ms_warm_events=f"{ms:.4f}",
         plain_ms_warm_events=f"{plain_ms:.4f}",
-        device_ms_cold=f"{device_ms_cold:.4f}",
+        device_ms_cold=_ms(device_ms_cold),
         events_ms_cold=f"{events_ms_cold:.4f}",
-        plain_device_ms_cold=f"{plain_device_ms_cold:.4f}",
+        plain_device_ms_cold=_ms(plain_device_ms_cold),
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-        share_of_bound_cold=f"{bound_ms / device_ms_cold:.3f}")
+        share_of_bound_cold=_ms(share_cold))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, share_of_bound=bound_ms / ms,
                 library_ms=None, device_ms_cold=device_ms_cold,
                 events_ms_cold=events_ms_cold,
                 plain_device_ms_cold=plain_device_ms_cold,
-                share_of_bound_cold=bound_ms / device_ms_cold)
+                share_of_bound_cold=share_cold)
 
 
 def phase_k2(device, gen):
@@ -2926,13 +2949,14 @@ def _serve_entry_export(device, root, dirs, base_dir, tokenizer, trained):
             "answer": lines[0]["text"], "leaves_checked": n_trained}
 
 
-def _entry_kernel_checks(device, gen, inputs):
-    """Each kernel against its plain version at the inputs phase 10 ran it
-    at (``inputs``, a ``_KernelInputs``): K1 with K3 and K4 on its output
-    (``_k34_case``) at every attention shape, with the row lengths of the
-    first micro-batch or prefill at that shape, and K2 (``_k2_case``) at
-    every cache shape with its first decode step's kv_len; the cases'
-    own tolerances.  Returns the largest error per kernel."""
+def _entry_kernel_checks(device, gen, inputs, phase="train_entry"):
+    """Each kernel against its plain version at the inputs the path
+    ``phase`` ran it at (``inputs``, a ``_KernelInputs``): K1 with K3 and
+    K4 on its output (``_k34_case``) at every attention shape, with the
+    row lengths of the first micro-batch, prefill or loss batch at that
+    shape, and K2 (``_k2_case``) at every cache shape with its first
+    decode step's kv_len; the cases' own tolerances.  Returns the largest
+    error per kernel."""
     import torch
     errs = {"fwd": [], "dq": [], "dkv": [], "decode": []}
     for (B, L, H, D, S, Hkv), (q_seg, kv_seg) in inputs.attention.items():
@@ -2942,7 +2966,7 @@ def _entry_kernel_checks(device, gen, inputs):
         # _k34_case rebuilds each row as one valid prefix, query offset 0
         if L != S or not torch.equal(q_seg, kv_seg) \
                 or not torch.equal(kv_seg, prefix):
-            raise AssertionError(f"train_entry: attention B{B} L{L} S{S} "
+            raise AssertionError(f"{phase}: attention B{B} L{L} S{S} "
                                  "is not one valid prefix a row")
         res = _k34_case(device, gen, B=B, L=L, S=S, H=H, Hkv=Hkv, D=D,
                         q_offset=0, lengths=lengths.tolist())
@@ -2954,15 +2978,458 @@ def _entry_kernel_checks(device, gen, inputs):
                        quantized=dtype == str(torch.int8), layer=NL - 1)
         errs["decode"].append(res["max_abs_err"])
     if not all(errs.values()):
-        raise AssertionError(f"train_entry: no kernel inputs recorded for "
+        raise AssertionError(f"{phase}: no kernel inputs recorded for "
                              f"{[n for n, e in errs.items() if not e]}")
     shapes = [f"B{k[0]} L{k[1]}" for k in inputs.attention] + [
         f"{k[-1]} B{k[1]} S{k[2]}" for k in inputs.decode]
     out = {n: max(e) for n, e in errs.items()}
-    log("train_entry", kernel_checks=json.dumps(shapes),
+    log(phase, kernel_checks=json.dumps(shapes),
         max_abs_err=json.dumps({n: float(f"{e:.4g}") for n, e in
                                 out.items()}))
     return out
+
+
+# Phase 12: the last two towers, the text encoder and the eval entries.
+# (a) each tower alone at its released size, random fp32 weights (TF32 off),
+# timed at these batches (the text encoder also at B=8) and held on the
+# card to the same tower on the CPU at B=1; (b) eva_imagebind_damc_7b
+# serving one image + audio + text request; (c) the four entries on phase
+# 6's MCUB-4 model.
+TOWER_BATCHES = (1, 4)
+TEXT_BATCHES = (1, 4, 8)
+# card against CPU, fp32: summation order only (1.1e-6 to 2.6e-6 measured
+# on the H100); TF32 products would round at about 5e-4, which the
+# control reading of each tower row shows
+TOWER_TOL = 1e-5
+ENTRY_LOSS_TOL = 2e-2  # kernel path's loss against the plain path's
+WAVE_SECONDS = 10.0
+EVA_PRESETS = ("EVA02-CLIP-L-14-336", "EVA01-CLIP-g-14",
+               "EVA01-CLIP-g-14-336")
+
+
+def _on_card(t) -> bool:
+    return t.is_cuda
+
+
+def _median_ms(fn, n: int = 5) -> float:
+    """Median wall time of ``n`` synchronized calls after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[n // 2]
+
+
+def _cpu_copy(tree):
+    from modelcompose_tpu_torch.tree import tree_map_with_path
+    return tree_map_with_path(lambda _, t: t.detach().cpu(), tree)
+
+
+def _tower_row(name, tower, make_inputs, batches, tokens, resident):
+    """Time ``tower`` on the card at each batch (median ms; peak memory of
+    its weights and activations: the peak above the ``resident`` bytes
+    allocated before the tower was built), then hold its B=1 output to the
+    same tower on the CPU (the weights copied there): max |card - CPU| /
+    max |CPU|.  As a control of that check, the same ratio with TF32
+    products allowed on the card is reported (``tf32_card_vs_cpu``), not
+    held."""
+    import torch
+    encode = tower.encode
+    row = {"tokens": tokens, "ms": {}, "peak_mem_gb": {}}
+    for b in batches:
+        inputs = make_inputs(b)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            row["ms"][b] = _median_ms(lambda: encode(*inputs))
+        row["peak_mem_gb"][b] = (torch.cuda.max_memory_allocated()
+                                 - resident) / 2**30
+    inputs = make_inputs(batches[0])
+    with torch.no_grad():
+        card = encode(*inputs)
+        device_params = tower.params
+        tower.params = _cpu_copy(device_params)
+        try:
+            t0 = time.perf_counter()
+            cpu = encode(*[x.cpu() if isinstance(x, torch.Tensor) else x
+                           for x in inputs])
+            row["cpu_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            tower.params = device_params
+    if not (_on_card(card) and cpu.device.type == "cpu"):
+        raise AssertionError(f"{name}: ran on {card.device} / {cpu.device}")
+    if not torch.isfinite(card).all():
+        raise AssertionError(f"{name}: non-finite output")
+    row["shape"] = list(card.shape)
+    row["card_vs_cpu"] = ((card.cpu() - cpu).abs().max()
+                          / cpu.abs().max()).item()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            card_tf32 = encode(*inputs)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    row["tf32_card_vs_cpu"] = ((card_tf32.cpu() - cpu).abs().max()
+                               / cpu.abs().max()).item()
+    log("towers", tower=name, tokens=tokens, shape=row["shape"],
+        ms=json.dumps({b: round(t, 3) for b, t in row["ms"].items()}),
+        peak_mem_gb=json.dumps({b: round(g, 3) for b, g in
+                                row["peak_mem_gb"].items()}),
+        cpu_ms=f"{row['cpu_ms']:.1f}",
+        card_vs_cpu=f"{row['card_vs_cpu']:.3g}", tol=TOWER_TOL,
+        tf32_card_vs_cpu=f"{row['tf32_card_vs_cpu']:.3g}")
+    if not row["card_vs_cpu"] <= TOWER_TOL:
+        raise AssertionError(f"{name}: card differs from the CPU by "
+                             f"{row['card_vs_cpu']:.3g} of max |x|")
+    return row
+
+
+def phase_towers(device):
+    """(a): EVA02-CLIP-L-14-336, EVA01-CLIP-g-14 (224 and 336), ImageBind
+    huge audio from a 10 s waveform through the port's processor, and the
+    text CLIP encoder at ViT-L/14 text width, each alone at full size."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch import ModelConfig
+    from modelcompose_tpu_torch.models.audio_imagebind import (
+        ImageBindAudioProcessor, ImageBindAudioTower)
+    from modelcompose_tpu_torch.models.text_clip import ClipTextEncoder
+    from modelcompose_tpu_torch.models.vision_eva import EvaVisionTower
+    rows = {}
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(SEED + seed)
+
+    def pixels(size):
+        return lambda b: (torch.randn((b, size, size, 3), generator=gen(9),
+                                      device=device),)
+    mcfg = ModelConfig(mm_vision_encoder="EVA02_CLIP_L_336_psz14_s6B.pt")
+    resident = torch.cuda.memory_allocated()  # phase 6's model
+    log("towers", resident_gb=f"{resident / 2**30:.3f}")
+    g14 = None
+    for i, preset in enumerate(EVA_PRESETS):
+        if preset == "EVA01-CLIP-g-14-336":
+            # the same blocks as the 224 tower, 577 positions
+            tower = EvaVisionTower(preset, mcfg, params={})
+            tower.params = dict(g14.params, position_embedding=torch.randn(
+                (tower.cfg.num_patches + 1, tower.cfg.hidden_size),
+                generator=gen(i), device=device) * 0.02)
+        else:
+            tower = EvaVisionTower(preset, mcfg, generator=gen(i),
+                                   device=device)
+        cfg = tower.cfg
+        rows[preset] = _tower_row(
+            preset, tower, pixels(cfg.image_size), TOWER_BATCHES,
+            cfg.num_patches + 1, resident)
+        rows[preset].update(layers_run=cfg.select_layer % (cfg.depth + 1),
+                            width=cfg.hidden_size,
+                            params=sum(t.numel() for t in _leaves(
+                                tower.params)))
+        if preset == "EVA01-CLIP-g-14":
+            g14 = tower
+        del tower
+    del g14
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tower = ImageBindAudioTower("VideoLLaMA/imagebind_huge", generator=gen(3),
+                                device=device)
+    proc = ImageBindAudioProcessor(tower.cfg)
+    rng = np.random.default_rng(SEED)
+    waves = [(rng.normal(size=int(WAVE_SECONDS * 16000)) * 0.1).astype(
+        np.float32) for _ in range(max(TOWER_BATCHES))]
+    proc_ms = _median_ms(lambda: proc(waves[0]))
+    mels = proc(waves)
+    rows["imagebind_huge"] = _tower_row(
+        "imagebind_huge", tower,
+        lambda b: (torch.as_tensor(mels[:b], device=device),),
+        TOWER_BATCHES, tower.cfg.num_patches + 1, resident)
+    rows["imagebind_huge"].update(processor_ms=proc_ms,
+                                  clips=tower.cfg.clips_per_audio)
+    log("towers", tower="imagebind_huge", processor_ms=f"{proc_ms:.2f}",
+        melspec=list(mels.shape))
+    del tower
+
+    text = ClipTextEncoder(generator=gen(4), device=device)
+    tcfg = text.cfg
+    T = tcfg.max_position_embeddings
+    ids = torch.randint(1, tcfg.vocab_size - 1, (max(TEXT_BATCHES), T),
+                        generator=gen(5), device=device)
+    lengths = torch.randint(4, T + 1, (max(TEXT_BATCHES),), generator=gen(6),
+                            device=device)
+    ids[torch.arange(len(ids)), lengths - 1] = tcfg.vocab_size - 1  # EOT
+    mask = (torch.arange(T, device=device)[None] < lengths[:, None]).long()
+    rows["clip_text"] = _tower_row(
+        "clip_text", text, lambda b: (ids[:b], mask[:b]), TEXT_BATCHES, T,
+        resident)
+    del text
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _leaves(tree):
+    from modelcompose_tpu_torch.tree import tree_leaves
+    return [t for _, t in tree_leaves(tree)]
+
+
+def _eva_imagebind_request(cfg, device, gen):
+    """A 336 px image, a 10 s waveform through ImageBind's processor and
+    70 text tokens: ids on the host, pixels on the card, the melspec a host
+    array (as the processor gives it)."""
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.core.packing import MODAL_TOKEN_INDEXES
+    from modelcompose_tpu_torch.models.audio_imagebind import \
+        ImageBindAudioProcessor
+    rng = np.random.default_rng(SEED + 1)
+    ids = [np.concatenate([[1], rng.integers(3, cfg.vocab_size, 35),
+                           [MODAL_TOKEN_INDEXES["vision"],
+                            MODAL_TOKEN_INDEXES["audio"]],
+                           rng.integers(3, cfg.vocab_size, 34)])]
+    wave = (rng.normal(size=int(WAVE_SECONDS * 16000)) * 0.1).astype(
+        np.float32)
+    return ids, {"vision": torch.randn((1, 336, 336, 3), generator=gen,
+                                       device=device),
+                 "audio": ImageBindAudioProcessor()(wave)}
+
+
+def phase_eva_imagebind(device, gen):
+    """(b): ``configs.eva_imagebind_damc_7b`` at Vicuna-7B width and depth,
+    built as phase 6 builds MCUB-4 (its own backbone: the adapter rows
+    differ), in the production variant, one image + audio + text request
+    answered with 32 greedy tokens; then the kernel path's logits against
+    the plain path's."""
+    import torch
+    from modelcompose_tpu_torch.configs import (EVA_IMAGEBIND_SPANS,
+                                                eva_imagebind_damc_7b)
+    cfg = eva_imagebind_damc_7b()
+    resident = torch.cuda.memory_allocated()  # phase 6's model
+    model = build_served_model(cfg, device, gen, "eva_imagebind")
+    kinds = {m: type(e).__name__ for m, e in model.encoders.items()}
+    if kinds != {"vision": "EvaVisionTower", "audio": "ImageBindAudioTower"}:
+        raise AssertionError(f"towers {kinds}")
+    if not all(_on_card(t) for enc in model.encoders.values()
+               for t in _leaves(enc.params)):
+        raise AssertionError("a tower's weights are off the card")
+    ids, inputs = _eva_imagebind_request(cfg, device, gen)
+    towers = _time_towers("eva_imagebind", model, inputs)
+    spans = {m: model.feature_span_len(m) for m in cfg.modalities()}
+    if spans != EVA_IMAGEBIND_SPANS:
+        raise AssertionError(f"spans {spans} != {EVA_IMAGEBIND_SPANS}")
+    with torch.no_grad():
+        embeds, plan = model.prepare_batch(ids, inputs)
+    positions, bucket = int(plan.lengths[0]), int(embeds.shape[1])
+    del embeds
+    if bucket != 1024:
+        raise AssertionError(f"packed {positions} in {bucket}")
+    kw = dict(kv_quant=True, compact_adapters=True)
+    model.generate(ids, inputs, max_new_tokens=2, **kw)  # warm-up
+    reset, read = _attention_counters()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    timings = {}
+    with _KernelInputs() as kernel_inputs:
+        answers = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
+                                 timings=timings, **kw)
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    own = peak - resident / 2**30
+    decode_steps = NEW_TOKENS - 1
+    log("eva_imagebind", positions=positions, bucket=bucket,
+        resident_gb=f"{resident / 2**30:.2f}", own_peak_gb=f"{own:.2f}",
+        prefill_s=f"{timings['prefill_s']:.4f}",
+        decode_s=f"{timings['decode_s']:.4f}",
+        decode_tok_per_s=f"{decode_steps / timings['decode_s']:.2f}",
+        peak_mem_gb=f"{peak:.2f}", answer_len=len(answers[0]),
+        launches=json.dumps(launches))
+    n_layers = cfg.num_hidden_layers
+    if launches["flash_attention_fwd"] < n_layers \
+            or launches["flash_decode"] < n_layers * decode_steps:
+        raise AssertionError(f"launches {launches}")
+    rel = _compare_logits("eva_imagebind", model, ids, inputs, answers,
+                          LOGIT_TOL)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = _entry_kernel_checks(device, gen, kernel_inputs, "eva_imagebind")
+    return {"launches": launches, "towers": towers, "positions": positions,
+            "bucket": bucket, "prefill_s": timings["prefill_s"],
+            "decode_tok_per_s": decode_steps / timings["decode_s"],
+            "peak_mem_gb": peak, "own_peak_gb": own, "logit_rel_err": rel,
+            "kernel_checks": checks}
+
+
+def _entry_files(root):
+    """The entries' question files over phase 7b's clip.wav and
+    cloud.npy: two text questions (model_qa), four gold rows (the loss)
+    and two retrieval records of four captions."""
+    wav, npy = os.path.join(root, "clip.wav"), os.path.join(root, "cloud.npy")
+    paths = {}
+    paths["qa"] = os.path.join(root, "entry_qa.jsonl")
+    with open(paths["qa"], "w") as f:
+        for i, q in enumerate(["Which instrument is usually tuned first?",
+                               "Name three primary colors."]):
+            f.write(json.dumps({"question_id": i, "text": q,
+                                "category": "generic"}) + "\n")
+
+    def row(i, text, answer, **media):
+        return {"id": f"r{i}", "conversations": [
+            {"from": "human", "value": text},
+            {"from": "gpt", "value": answer}], "modal_inputs": media}
+    paths["loss"] = os.path.join(root, "entry_loss.json")
+    with open(paths["loss"], "w") as f:
+        json.dump([row(0, "<audio>\n", "a dog barking in a yard",
+                       audio=[wav]),
+                   row(1, "<point>\n", "a small wooden chair", point=[npy]),
+                   row(2, "<audio>\n<point>\n", "a chair that creaks",
+                       audio=[wav], point=[npy]),
+                   row(3, "Describe a violin.", "a string instrument")], f)
+    paths["retrieval"] = os.path.join(root, "entry_retrieval.json")
+    with open(paths["retrieval"], "w") as f:
+        json.dump([
+            {"id": 0, "conversations": [{"from": "human",
+                                         "value": "<audio>\n"}],
+             "modal_inputs": {"audio": [wav]}, "gold": 1,
+             "candidates": ["rain on a roof", "a dog barking",
+                            "a violin playing", "people talking"]},
+            {"id": 1, "conversations": [{"from": "human",
+                                         "value": "<point>\n"}],
+             "modal_inputs": {"point": [npy]}, "gold": 0,
+             "candidates": ["a chair", "a lamp", "a table", "a mug"]}], f)
+    return wav, npy, paths
+
+
+def phase_entries(device, gen, root, model):
+    """(c): ``model_qa``, ``run_inference``, ``model_multimodal_loss`` and
+    ``retrieval`` on phase 6's MCUB-4 model (``loaded=``, as phase 7b
+    calls the QA loader), over phase 7b's .wav and .npy; the loss and the
+    retrieval under the ``plain`` template (the default v1 mask drops every
+    sample once these entries set the pad id to EOS, in the JAX entries as
+    here); then one loss batch on the kernel path against the plain path,
+    and each kernel against its plain version at every input shape the
+    four entries ran it at (``_entry_kernel_checks``)."""
+    import contextlib
+    import io
+
+    import torch
+    from modelcompose_tpu_torch.data import conversation as conversation_lib
+    from modelcompose_tpu_torch.data.dataset import (
+        ChunkedMultimodalDataset, DataCollatorForSupervisedDataset)
+    from modelcompose_tpu_torch.eval import (model_multimodal_loss,
+                                             model_qa, retrieval,
+                                             run_inference)
+    if not _on_card(model.params["embed_tokens"]):
+        raise AssertionError(f"the model is on {model.device}")
+    tokenizer = WordHashTokenizer()
+    loaded = (tokenizer, model, model.modal_processors(), 2048)
+    wav, npy, files = _entry_files(root)
+    name = os.path.join(root, "mcub4-damc-multimodal")
+    reset, read = _attention_counters()
+    out = {}
+    template = conversation_lib.default_conversation
+    # model_qa prompts in the module's default template, which phase 11's
+    # chat CLI left set to its own conversation (turns and a <point>
+    # included): start from what a fresh process has
+    conversation_lib.default_conversation = \
+        conversation_lib.conv_templates["default"]
+
+    def run(entry, fn, argv):
+        reset()
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            res = fn(argv)
+        out[entry] = {"seconds": time.perf_counter() - t0,
+                      "launches": read(), "result": res,
+                      "stdout": stdout.getvalue().strip().splitlines()}
+        return res
+
+    answers = os.path.join(root, "entry_qa_answers.jsonl")
+    with _KernelInputs() as kernel_inputs:
+        run("model_qa", lambda a: model_qa.eval_model(
+            model_qa.build_arg_parser().parse_args(a), loaded=loaded),
+            ["--model-path", name, "--question-file", files["qa"],
+             "--answers-file", answers, "--temperature", "0",
+             "--max-new-tokens", str(QA_TOKENS)])
+        run("run_inference", lambda a: run_inference.run(
+            run_inference.build_arg_parser().parse_args(a), loaded=loaded),
+            ["--model-path", name, "--audio-file", wav, "--point-file", npy,
+             "--query", "What makes this sound, and what is this object?",
+             "--conv-mode", "vicuna_v1", "--max-new-tokens", str(QA_TOKENS)])
+        run("model_multimodal_loss",
+            lambda a: model_multimodal_loss.eval_loss(
+                model_multimodal_loss.build_arg_parser().parse_args(a),
+                loaded=loaded),
+            ["--model-path", name, "--question-file", files["loss"],
+             "--batch-size", "2", "--conv-mode", "plain"])
+        run("retrieval", lambda a: retrieval.eval_retrieval(
+            retrieval.build_arg_parser().parse_args(a), loaded=loaded),
+            ["--model-path", name, "--question-file", files["retrieval"],
+             "--conv-mode", "plain"])
+    with open(answers) as f:
+        lines = [json.loads(line) for line in f]
+    out["model_qa"]["result"] = [line["text"] for line in lines]
+    if [line["question_id"] for line in lines] != [0, 1] or any(
+            list(line) != ["question_id", "text", "answer_id", "model_id",
+                           "metadata"] for line in lines):
+        raise AssertionError(f"model_qa lines {lines}")
+    for entry, res in out.items():
+        log("entries", entry=entry, seconds=f"{res['seconds']:.3f}",
+            launches=json.dumps(res["launches"]),
+            result=json.dumps(res["result"]))
+    n_layers = model.cfg.num_hidden_layers
+    want_k1 = {"model_qa": 2, "run_inference": 1, "model_multimodal_loss": 2,
+               "retrieval": 8}  # prefills or forwards of 32 layers
+    for entry, calls in want_k1.items():
+        if out[entry]["launches"]["flash_attention_fwd"] < calls * n_layers:
+            raise AssertionError(f"{entry}: launches "
+                                 f"{out[entry]['launches']}")
+    for entry in ("model_qa", "run_inference"):
+        if out[entry]["launches"]["flash_decode"] == 0:
+            raise AssertionError(f"{entry}: K2 never launched")
+    loss = out["model_multimodal_loss"]["result"]
+    metrics = out["retrieval"]["result"]
+    if not (loss > 0 and loss == loss) or not out["run_inference"]["result"]:
+        raise AssertionError(f"loss {loss}, answer "
+                             f"{out['run_inference']['result']!r}")
+    if set(metrics) != {"R@1", "R@5", "R@10", "MedR"}:
+        raise AssertionError(f"metrics {metrics}")
+
+    # one loss batch (the audio and point rows) on both attention paths
+    conversation_lib.default_conversation = \
+        conversation_lib.conv_templates["plain"]
+    procs = model.modal_processors()
+    dataset = ChunkedMultimodalDataset(files["loss"], tokenizer, None, procs)
+    batch = DataCollatorForSupervisedDataset(
+        tokenizer, procs, {"vision": {"image_aspect_ratio": "pad"}})(
+        [dataset[0], dataset[1]])
+    conversation_lib.default_conversation = template
+    with torch.no_grad():
+        kernel, plain = (model.loss(batch["input_ids"], batch["labels"],
+                                    batch["modal_inputs"], attn_impl=impl)
+                         .item() for impl in ("auto", "reference"))
+    rel = abs(kernel - plain) / abs(plain)
+    log("entries", loss_kernel=f"{kernel:.6f}", loss_plain=f"{plain:.6f}",
+        rel_err=f"{rel:.3g}", tol=ENTRY_LOSS_TOL)
+    if not rel <= ENTRY_LOSS_TOL:
+        raise AssertionError(f"kernel path's loss {kernel} differs from the "
+                             f"plain path's {plain} by {rel:.3g}")
+    launches = {k: sum(e["launches"][k] for e in out.values())
+                for k in ("flash_attention_fwd", "flash_decode")}
+    checks = _entry_kernel_checks(device, gen, kernel_inputs, "entries")
+    return {"entries": out, "loss_kernel_vs_plain": rel,
+            "launches": launches, "kernel_checks": checks}
 
 
 def main() -> int:
@@ -3005,6 +3472,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         serve = timed("serve", phase_serve, device, gen, mcub4_model,
                       request, root, merged, base_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        towers = timed("towers", phase_towers, device)
+        eva = timed("eva_imagebind", phase_eva_imagebind, device, gen)
+        entries = timed("entries", phase_entries, device, gen, root,
+                        mcub4_model)
     del mcub4_model, request
     gc.collect()
     torch.cuda.empty_cache()
@@ -3014,14 +3487,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="tmp_entry_", dir=".") as root:
         entry = timed("train_entry", phase_train_entry, device, gen, root)
+    log("phase12", towers_ms=json.dumps(
+        {k: {b: round(t, 3) for b, t in r["ms"].items()}
+         for k, r in towers.items()}),
+        card_vs_cpu=json.dumps({k: float(f"{r['card_vs_cpu']:.3g}")
+                                for k, r in towers.items()}),
+        tf32_card_vs_cpu=json.dumps({
+            k: float(f"{r['tf32_card_vs_cpu']:.3g}")
+            for k, r in towers.items()}),
+        eva_imagebind_prefill_s=f"{eva['prefill_s']:.4f}",
+        eva_imagebind_decode_tok_per_s=f"{eva['decode_tok_per_s']:.2f}",
+        entries_s=json.dumps({k: round(v["seconds"], 3) for k, v in
+                              entries["entries"].items()}))
     log("seconds", phases=json.dumps(seconds),
         total=f"{time.perf_counter() - t_start:.1f}")
     if {"jax", "modelcompose_tpu"} & set(sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     # Launches on the main paths: the two serving runs, the decode variants
-    # and the question-file runs, every step of the training run (train
-    # steps and the accumulation window), and the train entry's two stages
-    # with the served answer of its export.
+    # and the question-file runs, the serving stack, the EVA + ImageBind
+    # request and the four eval entries, every step of the training run
+    # (train steps and the accumulation window), and the train entry's two
+    # stages with the served answer of its export.
     trained = train["launches"] + [train["accum_launches"]]
 
     def train_launches(name):
@@ -3033,6 +3519,8 @@ def main() -> int:
                                        for v in variants.values()),
                 "qa_loader": qa_launches[name],
                 "serve": serve["launches"][name],
+                "eva_imagebind": eva["launches"][name],
+                "entries": entries["launches"][name],
                 "train": train_launches(name),
                 "train_entry": entry["launches"][name]}
 
@@ -3040,10 +3528,11 @@ def main() -> int:
         return {"train": train_launches(name),
                 "train_entry": entry["launches"][name]}
 
-    def worst(row, key):  # the largest error, phases 10-11's shapes included
+    def worst(row, key):  # the largest error, phases 10-12's shapes included
         return dict(row, max_abs_err=max(
             row["max_abs_err"], entry["kernel_checks"][key],
-            serve["max_abs_err"].get(key, 0.0)))
+            serve["max_abs_err"].get(key, 0.0),
+            eva["kernel_checks"][key], entries["kernel_checks"][key]))
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=K1_SOURCE,
              replaces=K1_REPLACES,

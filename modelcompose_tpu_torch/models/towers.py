@@ -1,11 +1,11 @@
 """Modality encoder towers (counterpart of modelcompose_tpu/models/towers.py).
 
 Each tower owns a frozen param tree and an ``encode``; a spec that names a
-local checkpoint (a directory for CLIP and LanguageBind, a ``.pt`` file for
-BEATs and PointBERT) loads it through the tower's converter, a ``test:``
-spec builds a tiny tower, and any other spec gets random weights.
-ImageBind audio and EVA vision are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP items.
+local checkpoint (a directory for CLIP and LanguageBind, a file for EVA,
+BEATs and PointBERT, a file or a directory holding ``imagebind_huge.pth``
+for ImageBind) loads it through the tower's converter, a ``test:`` spec
+(``eva-test:``, ``imagebind-test:``) builds a tiny tower, and any other
+spec gets random weights.
 """
 
 from __future__ import annotations
@@ -19,8 +19,10 @@ import torch
 from ..config import ModelConfig
 from ..devices import resolve_device
 from .audio_beats import BeatsAudioTower
+from .audio_imagebind import ImageBindAudioTower
 from .point_bert import PointBertTower
 from .video_languagebind import LanguageBindVideoTower
+from .vision_eva import EvaVisionTower
 from .vision_clip import (ClipVisionConfig, clip_vision_features,
                           convert_hf_clip_vision, init_clip_vision,
                           load_hf_dir_state)
@@ -92,16 +94,10 @@ def tower_class(modal: str, spec: str):
     """The tower class for one modality's encoder spec (the reference's
     dispatch rules)."""
     if modal == "vision":
-        if "eva" in spec.lower():
-            raise NotImplementedError(
-                f"the EVA vision tower {spec!r} is not ported yet: ROADMAP "
-                "Queue 1 item 7 (EVA vision)")
-        return ClipVisionTower
+        return EvaVisionTower if "eva" in spec.lower() else ClipVisionTower
     if modal == "audio":
         if "VideoLLaMA" in spec or "imagebind" in spec.lower():
-            raise NotImplementedError(
-                f"the ImageBind audio tower {spec!r} is not ported yet: "
-                "ROADMAP Queue 1 item 8 (ImageBind audio)")
+            return ImageBindAudioTower
         return BeatsAudioTower
     if modal == "video":
         return LanguageBindVideoTower

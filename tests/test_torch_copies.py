@@ -674,3 +674,41 @@ def test_controller_http_api(controller_mod):
             chunk = json.loads((await r.read()).split(b"\0")[0])
             assert chunk["error_code"] == 2
     asyncio.run(run())
+
+
+# ---------------------------------------------------------------------------
+# The ImageBind audio processor and the eval entries' helpers
+# ---------------------------------------------------------------------------
+
+import modelcompose_tpu.models.audio_imagebind as jimagebind  # noqa: E402
+import modelcompose_tpu_torch.models.audio_imagebind as timagebind  # noqa: E402,E501
+
+
+@pytest.mark.parametrize("method", ["__init__", "_clip_starts", "__call__"])
+def test_imagebind_processor_methods_are_the_originals(method):
+    """The processor is a copy: every method but ``process_one`` (whose
+    fbank call drops the JAX ``use_native`` switch: the port's fbank is
+    numpy only) is the JAX method's code."""
+    t = getattr(timagebind.ImageBindAudioProcessor, method)
+    j = getattr(jimagebind.ImageBindAudioProcessor, method)
+    assert _code(inspect.getsource(t).strip()) \
+        == _code(inspect.getsource(j).strip())
+
+
+@pytest.mark.parametrize("seconds", [0.5, 2.0, 6.25])
+def test_imagebind_processor_matches_jax(seconds):
+    """Shorter than a clip (padded frames), one clip's length, and a clip
+    start between samples."""
+    wav = np.random.default_rng(int(seconds * 100)).normal(
+        size=int(seconds * 16000)).astype(np.float32) * 0.2
+    np.testing.assert_array_equal(
+        timagebind.ImageBindAudioProcessor()(wav),
+        jimagebind.ImageBindAudioProcessor()(wav))
+
+
+@pytest.mark.parametrize("name", ["infer_conv_mode", "load_image"])
+def test_run_inference_helpers_are_the_originals(name):
+    t = importlib.import_module("modelcompose_tpu_torch.eval.run_inference")
+    j = importlib.import_module("modelcompose_tpu.eval.run_inference")
+    assert _code(inspect.getsource(getattr(t, name))) \
+        == _code(inspect.getsource(getattr(j, name)))

@@ -547,3 +547,76 @@ def test_splice_on_card_matches_cpu(pool_int8, small_int8):
             assert torch.equal(g.cpu(), w)
     assert ptrs == [t.data_ptr() for p in (card.k, card.v)
                     for t in (p.values() if isinstance(p, dict) else [p])]
+
+
+# ---------------------------------------------------------------------------
+# The EVA and ImageBind towers and the text CLIP encoder on the card against
+# the CPU, same weights and inputs, fp32 with TF32 off: within 1e-5 of
+# max |CPU output| (summation order of the card's GEMMs and convolutions)
+# ---------------------------------------------------------------------------
+
+def _tower_on_both(make, inputs, encode="encode"):
+    """(card output, CPU output) of one tower built on the CPU and copied
+    to the card."""
+    from modelcompose_tpu_torch.tree import tree_map_with_path
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = make()
+    card = make()
+    card.params = tree_map_with_path(lambda _, t: t.cuda(), cpu.params)
+    want = getattr(cpu, encode)(*inputs)
+    got = getattr(card, encode)(*inputs)
+    assert got.is_cuda and not want.is_cuda
+    return got.cpu(), want
+
+
+@pytest.mark.parametrize("family", ["eva02", "eva01"])
+def test_eva_tower_on_card_matches_cpu(family):
+    import dataclasses
+    import numpy as np
+    from modelcompose_tpu_torch.config import tiny_test_config
+    from modelcompose_tpu_torch.models.vision_eva import EvaVisionTower
+
+    def make():
+        t = EvaVisionTower("eva-test:64x3", tiny_test_config(),
+                           generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+        if family == "eva01":
+            t.cfg = dataclasses.replace(t.cfg, use_rope=False)
+        return t
+    pixels = np.random.default_rng(1).normal(size=(2, 28, 28, 3)).astype(
+        np.float32)
+    got, want = _tower_on_both(make, (pixels,))
+    assert _rel(got, want) <= 1e-5
+
+
+def test_imagebind_tower_on_card_matches_cpu():
+    import numpy as np
+    from modelcompose_tpu_torch.models.audio_imagebind import \
+        ImageBindAudioTower
+
+    def make():
+        return ImageBindAudioTower("imagebind-test:32x2",
+                                   generator=torch.Generator().manual_seed(0),
+                                   device="cpu")
+    mel = make().modal_processor(np.random.default_rng(2).normal(
+        size=48000).astype(np.float32) * 0.1)
+    got, want = _tower_on_both(make, (mel,))
+    assert got.shape == (1, 3, 32) and _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_clip_text_on_card_matches_cpu(padded):
+    from modelcompose_tpu_torch.models.text_clip import (ClipTextConfig,
+                                                         ClipTextEncoder)
+    cfg = ClipTextConfig(hidden_size=64, intermediate_size=128,
+                         num_hidden_layers=2, num_attention_heads=4,
+                         vocab_size=100, max_position_embeddings=16,
+                         projection_dim=32)
+
+    def make():
+        return ClipTextEncoder(cfg, generator=torch.Generator().manual_seed(0),
+                               device="cpu")
+    ids = torch.tensor([[5, 6, 7, 99, 0, 0], [8, 9, 10, 11, 12, 99]])
+    mask = (torch.arange(6)[None] < torch.tensor([[4], [6]])).long()
+    got, want = _tower_on_both(make, (ids, mask if padded else None))
+    assert got.shape == (2, 1, 32) and _rel(got, want) <= 1e-5

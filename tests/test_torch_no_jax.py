@@ -181,13 +181,34 @@ dec.admit(1, np.array([1, 7, 8]), {},
 dec.step(dec.host_logits().argmax(-1))
 dec.step(dec.host_logits().argmax(-1))
 assert len(ticks) == 4 and dec.kv_lens.tolist()[1] == 3 + 2, dec.kv_lens
+# the EVA + ImageBind towers answering an image + 3 s waveform prompt, and
+# the text CLIP encoder
+from modelcompose_tpu_torch.models.text_clip import (ClipTextConfig,
+                                                     ClipTextEncoder)
+cfg = tiny_test_config(mm_vision_encoder="eva-test:32x2", mm_hidden_size=32,
+                       mm_audio_encoder="imagebind-test:16x2",
+                       mm_audio_hidden_size=16,
+                       mm_audio_projector_type="qformer_4N_2L")
+model = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(3), "cpu")
+mel = model.modal_processors()["audio"](rng.normal(size=48000).astype(np.float32))
+out = model.generate([np.array([1, img, 5, MODAL_TOKEN_INDEXES["audio"], 7])],
+                     {"vision": pixels[:1], "audio": mel}, max_new_tokens=3)
+assert len(out[0]) <= 3, out
+text = ClipTextEncoder(ClipTextConfig(hidden_size=16, intermediate_size=32,
+                                      num_hidden_layers=1,
+                                      num_attention_heads=2, vocab_size=50,
+                                      max_position_embeddings=8,
+                                      projection_dim=8), device="cpu")
+assert text.encode(np.array([[3, 4, 49]])).shape == (1, 1, 8)
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "modelcompose_tpu")]
 assert all(sys.modules[m] is None for m in loaded), loaded
 print("SLICE_OK", out)
 """
 
 
-@pytest.mark.parametrize("module", ["serve.model_worker", "serve.cli"])
+@pytest.mark.parametrize("module", [
+    "serve.model_worker", "serve.cli", "eval.model_qa", "eval.run_inference",
+    "eval.model_multimodal_loss", "eval.retrieval"])
 def test_serving_entry_help_runs_with_jax_blocked(module):
     code = ("import runpy, sys\n"
             "sys.modules['jax'] = None\n"
@@ -232,21 +253,28 @@ def test_no_file_of_the_port_imports(what, pattern):
             "serve/slot_engine.py", "serve/model_worker.py", "serve/cli.py",
             "serve/controller.py", "serve/web_server.py",
             "serve/register_worker.py", "serve/test_message.py",
-            "serve/demo_app.py"} <= names
+            "serve/demo_app.py", "models/vision_eva.py",
+            "models/audio_imagebind.py", "models/text_clip.py",
+            "eval/model_qa.py", "eval/run_inference.py",
+            "eval/model_multimodal_loss.py", "eval/retrieval.py"} <= names
 
 
 @pytest.mark.parametrize("entry", [
     "random_init", "load_pretrained_model", "build_model", "model_from_jax",
     "build_modal_encoders", "ClipVisionTower", "BeatsAudioTower",
-    "LanguageBindVideoTower", "PointBertTower", "eval_model", "train",
-    "SlotDecoder", "ModelWorker", "cli"])
+    "LanguageBindVideoTower", "PointBertTower", "EvaVisionTower",
+    "ImageBindAudioTower", "ClipTextEncoder", "eval_model", "model_qa",
+    "run_inference", "eval_loss", "eval_retrieval", "train", "SlotDecoder",
+    "ModelWorker", "cli"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """No device means the card; without one each entry point raises before
     it builds anything on the CPU."""
     from modelcompose_tpu_torch import MultimodalLM, tiny_test_config
     from modelcompose_tpu_torch.convert import model_from_jax
     from modelcompose_tpu_torch.eval import model_multimodal_qa_loader as qa
-    from modelcompose_tpu_torch.models import towers
+    from modelcompose_tpu_torch.eval import (model_multimodal_loss, model_qa,
+                                             retrieval, run_inference)
+    from modelcompose_tpu_torch.models import text_clip, towers
     from modelcompose_tpu_torch.models.loader import load_pretrained_model
     from modelcompose_tpu_torch.serve import cli, model_worker, slot_engine
     from modelcompose_tpu_torch.train import train_multimodal
@@ -258,6 +286,8 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     args = train_multimodal.build_arg_parser().parse_args([
         "--model_name_or_path", "-", "--data_path", "-", "--output_dir", "-",
         "--random_init_backbone"])
+    entry_argv = ["--model-path", str(tmp_path / "c-multimodal"),
+                  "--model-base", str(tmp_path), "--question-file", "-"]
     call = {
         "random_init": lambda: MultimodalLM.random_init(cfg),
         "load_pretrained_model": lambda: load_pretrained_model(
@@ -271,6 +301,20 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "LanguageBindVideoTower": lambda: towers.LanguageBindVideoTower(
             "test:32x3"),
         "PointBertTower": lambda: towers.PointBertTower("test:16x2"),
+        "EvaVisionTower": lambda: towers.EvaVisionTower("eva-test:32x2",
+                                                        cfg),
+        "ImageBindAudioTower": lambda: towers.ImageBindAudioTower(
+            "imagebind-test:16x2"),
+        "ClipTextEncoder": lambda: text_clip.ClipTextEncoder(),
+        "model_qa": lambda: model_qa.eval_model(
+            model_qa.build_arg_parser().parse_args(entry_argv)),
+        "run_inference": lambda: run_inference.run(
+            run_inference.build_arg_parser().parse_args(
+                entry_argv[:4] + ["--query", "q"])),
+        "eval_loss": lambda: model_multimodal_loss.eval_loss(
+            model_multimodal_loss.build_arg_parser().parse_args(entry_argv)),
+        "eval_retrieval": lambda: retrieval.eval_retrieval(
+            retrieval.build_arg_parser().parse_args(entry_argv)),
         "eval_model": lambda: qa.eval_model(qa.parse_args([
             "--model-path", str(tmp_path / "c-multimodal"), "--model-base",
             str(tmp_path), "--question-file", "-"])),

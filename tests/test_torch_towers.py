@@ -491,15 +491,6 @@ def test_build_modal_encoders_builds_every_tower():
         "vision": 32, "audio": 16, "video": 32, "point": 16}
 
 
-@pytest.mark.parametrize("modal,spec,item", [
-    ("vision", "eva-vit-g", "EVA"),
-    ("audio", "imagebind_huge", "ImageBind")])
-def test_unported_towers_raise_naming_their_item(modal, spec, item):
-    cfg = tiny_test_config(**{f"mm_{modal}_encoder": spec})
-    with pytest.raises(NotImplementedError, match=item):
-        build_modal_encoders(_port(cfg), device="cpu")
-
-
 def test_clip_image_processor_matches_jax():
     from PIL import Image
     from modelcompose_tpu_torch.data.image_processing import \
