@@ -121,7 +121,28 @@ nonzero:
    its seconds, result and launches, and one loss batch on the kernel path
    against the plain path within 2e-2.  (b) and (c) record the inputs
    their K1 and K2 launches got and hold each kernel to its plain version
-   at those shapes, as phase 10 does.
+   at those shapes, as phase 10 does;
+13. legacy_eval (run after 12, on phase 6's model and phase 7's files): (a)
+   four PNGs (RGB 640 x 480, RGBA 333 x 500, a 256-colour palette 200 x
+   300, grey 320 x 240) written by ``write_png`` with the five row filters
+   in turn, read back by ``data.image_io.load_image`` (no PIL) and held to
+   the written pixels, with the host ms of reading and preprocessing each;
+   (b) the four LLaVA-suite entries answering them greedily (16 tokens,
+   ``loaded=``): ``model_vqa`` (two image rows and a text row),
+   ``model_vqa_loader`` (one image, then two), ``model_vqa_science``
+   (``--answer-prompter --single-pred-prompt``, an image and a text row)
+   and ``model_vqa_mmbench`` (two TSV rows with base64 PNGs and four
+   options, ``--all-rounds``), each answer line with the JAX entry's keys;
+   then the same runs with K1 and K2 replaced by their plain versions,
+   every answer equal to the kernel path's or leaving it at a named near
+   tie; (c) at Vicuna-7B width and 2 layers: a LLaVA-LoRA vision
+   checkpoint converted by ``compose.convert_llava_checkpoint``, loaded by
+   ``model_vqa_loader`` and asked a PNG question; ``compose.lifecycle
+   merge-lora`` on phase 7's composition, its dense export held to numpy's
+   fold, loaded by ``model_vqa`` and asked; ``merge_deltas_to_base`` over
+   two peft checkpoints and ``compare`` between phase 7's vision and audio
+   checkpoints, every written tensor held to numpy; K1 and K2 against their
+   plain versions at every shape (b) and (c) ran them at.
 
 The line before the last is a JSON object with each kernel's launches on the
 main paths, its largest error against the plain version, its time, the plain
@@ -540,17 +561,16 @@ def _k2_case(device, gen, *, B, NL, S, H, Hkv, D, kv_len, quantized, layer):
     return _k2_measure(q, k, v, kv, layer)
 
 
-def _k2_measure(q, k, v, kv, layer):
+def _check_k2(q, k, v, kv, layer):
     """K2 against its plain version and the chunked loop on the given
-    inputs (a bf16 or int8 stacked cache), then its times and bound."""
+    inputs: (case name, max abs err, its relative error, relative error
+    against the loop)."""
     import torch
     from modelcompose_tpu_torch.ops.attention import decode_attention
     from modelcompose_tpu_torch.ops.flash_decode import (
         flash_decode_attention, flash_decode_reference)
     quantized = isinstance(k, dict)
     NL, B, S, Hkv, D = (k["q"] if quantized else k).shape
-    H = q.shape[2]
-    kv_len = kv.tolist()
     scale = D ** -0.5
     out = flash_decode_attention(q, k, v, kv, layer, sm_scale=scale)
     ref = flash_decode_reference(q, k, v, kv, layer, sm_scale=scale)
@@ -558,12 +578,26 @@ def _k2_measure(q, k, v, kv, layer):
     torch.cuda.synchronize()
     err, rel = _rel_err(out, ref)
     _, rel_loop = _rel_err(out, loop)
-    name = (f"{'int8' if quantized else 'bf16'} B{B} NL{NL} S{S} H{H}/{Hkv} "
-            f"D{D} kv_len{kv_len}")
+    name = (f"{'int8' if quantized else 'bf16'} B{B} NL{NL} S{S} "
+            f"H{q.shape[2]}/{Hkv} D{D} kv_len{kv.tolist()}")
     if not (rel <= ATTN_TOL and rel_loop <= ATTN_TOL):
         raise AssertionError(f"K2 {name}: rel err {rel:.3g} vs plain, "
                              f"{rel_loop:.3g} vs the chunked loop (tol "
                              f"{ATTN_TOL})")
+    return name, err, rel, rel_loop
+
+
+def _k2_measure(q, k, v, kv, layer):
+    """K2 against its plain version and the chunked loop on the given
+    inputs (a bf16 or int8 stacked cache), then its times and bound."""
+    from modelcompose_tpu_torch.ops.flash_decode import (
+        flash_decode_attention, flash_decode_reference)
+    quantized = isinstance(k, dict)
+    NL, B, S, Hkv, D = (k["q"] if quantized else k).shape
+    H = q.shape[2]
+    kv_len = kv.tolist()
+    scale = D ** -0.5
+    name, err, rel, rel_loop = _check_k2(q, k, v, kv, layer)
     # ms / plain_ms as in earlier runs: CUDA events over 50 launches on
     # one layer, warm in L2 and paced by the host.  Cold: every launch on
     # another layer, 2 x NL x B x S x Hkv x D bytes of cache, far above the
@@ -3432,6 +3466,704 @@ def phase_entries(device, gen, root, model):
             "launches": launches, "kernel_checks": checks}
 
 
+# Phase 13: the LLaVA-suite VQA entries on image files, and the checkpoint
+# lifecycle tools.  PNGs are written here with zlib + struct (the card's
+# machine has no PIL): each row filtered in turn with the five PNG filters.
+PNG_FILTERS = (0, 1, 2, 3, 4)  # None, Sub, Up, Average, Paeth
+
+
+def write_png(path, pixels, *, palette=None, depth=8,
+              filters=PNG_FILTERS):
+    """Write uint8 ``pixels`` as a non-interlaced PNG: [H, W] grey (or
+    palette indices with ``palette`` [N, 3]), [H, W, 2] grey + alpha,
+    [H, W, 3] RGB or [H, W, 4] RGBA; grey and palette images may be packed
+    at ``depth`` 1, 2 or 4 bits.  Row y is filtered with
+    ``filters[y % len(filters)]``."""
+    import struct
+    import zlib
+
+    import numpy as np
+    pixels = np.asarray(pixels, np.uint8)
+    height, width = pixels.shape[:2]
+    channels = 1 if pixels.ndim == 2 else pixels.shape[2]
+    ctype = 3 if palette is not None else {1: 0, 2: 4, 3: 2, 4: 6}[channels]
+    rows = pixels.reshape(height, width * channels)
+    if depth < 8:
+        per_byte = 8 // depth
+        padded = np.zeros((height, -(-width // per_byte) * per_byte),
+                          np.uint8)
+        padded[:, :width] = rows
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        rows = (padded.reshape(height, -1, per_byte) << shifts).sum(
+            -1).astype(np.uint8)
+    bpp = max(1, channels * depth // 8)
+    cur = rows.astype(np.int16)
+    up = np.vstack([np.zeros_like(cur[:1]), cur[:-1]])
+    left = np.hstack([np.zeros_like(cur[:, :bpp]), cur[:, :-bpp]])
+    upleft = np.hstack([np.zeros_like(up[:, :bpp]), up[:, :-bpp]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    preds = (0, left, up, (left + up) >> 1, paeth)
+    kinds = np.asarray([filters[y % len(filters)] for y in range(height)])
+    body = np.empty((height, rows.shape[1] + 1), np.uint8)
+    body[:, 0] = kinds
+    for kind in set(kinds.tolist()):
+        sel = kinds == kind
+        pred = preds[kind][sel] if kind else 0
+        body[sel, 1:] = (cur[sel] - pred) & 0xFF
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+    data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", width, height, depth, ctype, 0, 0, 0))
+    if palette is not None:
+        data += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    data += chunk(b"IDAT", zlib.compress(body.tobytes(), 6))
+    data += chunk(b"IEND", b"")
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+# (a) the images: what the four entries read, in the layouts the port's
+# decoder takes (pixel shape, palette colours or 0), photo-like (gradients
+# plus noise) so the filters carry real residuals.
+VQA_IMAGES = {"rgb.png": ((480, 640, 3), 0), "rgba.png": ((500, 333, 4), 0),
+              "palette.png": ((300, 200), 256), "grey.png": ((240, 320), 0)}
+MMBENCH_KEYS = ["question_id", "round_id", "prompt", "text", "options",
+                "option_char", "answer_id", "model_id", "metadata"]
+PEFT_TARGETS = ("self_attn.q_proj", "self_attn.v_proj")  # peft's default
+DENSE_ATOL = 1e-6  # fp32 sums of |W| ~ 0.1: error ~1e-8
+LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+           "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
+           "mlp.down_proj")
+
+
+def _photo(rng, shape):
+    import numpy as np
+    h, w = shape[:2]
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = xx * 255 // max(w - 1, 1) + yy * 128 // max(h - 1, 1)
+    channels = shape[2] if len(shape) == 3 else 1
+    out = (base[:, :, None] * np.arange(1, channels + 1)
+           + rng.integers(0, 24, (h, w, channels))) % 256
+    return out.astype(np.uint8).reshape(shape)
+
+
+def _vqa_images(root, rng, processor):
+    """(a): each of VQA_IMAGES written by ``write_png``, read back by
+    ``image_io.load_image`` and held to the written pixels exactly; the
+    host ms of ``load_image`` + ``process_images`` (pad, then the model's
+    CLIP processor: 336 px) per image, the median of 3."""
+    import numpy as np
+    from modelcompose_tpu_torch.data.image_io import load_image
+    from modelcompose_tpu_torch.data.image_processing import process_images
+    folder = os.path.join(root, "vqa_images")
+    os.makedirs(folder)
+    host_ms = {}
+    for name, (shape, colours) in VQA_IMAGES.items():
+        path = os.path.join(folder, name)
+        palette = None
+        if colours:
+            palette = rng.integers(0, 256, (colours, 3), dtype=np.uint8)
+            pixels = (_photo(rng, shape).astype(np.int64) * colours
+                      // 256).astype(np.uint8)
+            want = palette[pixels]
+        else:
+            pixels = _photo(rng, shape)
+            want = (np.repeat(pixels[:, :, None], 3, 2) if pixels.ndim == 2
+                    else pixels[:, :, :3])
+        write_png(path, pixels, palette=palette)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = load_image(path)
+            batch = process_images([img], processor, image_aspect_ratio="pad")
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(img, want):
+            raise AssertionError(f"{name}: load_image gives other pixels "
+                                 f"than were written")
+        side = processor.size
+        if batch.shape != (1, side, side, 3) or not np.isfinite(batch).all():
+            raise AssertionError(f"{name}: processed to {batch.shape}")
+        host_ms[name] = sorted(times)[1]
+    log("legacy_eval", images=json.dumps({n: list(s) for n, (s, _) in
+                                          VQA_IMAGES.items()}),
+        host_ms_per_image=json.dumps({n: round(t, 2)
+                                      for n, t in host_ms.items()}))
+    return folder, host_ms
+
+
+def _vqa_files(root, folder):
+    """(b): the four entries' question files over (a)'s PNGs."""
+    import base64
+    paths = {"model_vqa": os.path.join(root, "vqa.jsonl"),
+             "model_vqa_loader": os.path.join(root, "vqa_loader.jsonl"),
+             "model_vqa_science": os.path.join(root, "sqa.json"),
+             "model_vqa_mmbench": os.path.join(root, "mmbench.tsv")}
+    with open(paths["model_vqa"], "w") as f:
+        for row in ({"question_id": 0, "image": "rgb.png",
+                     "text": "Is there a red car in the image?"},
+                    {"question_id": 1, "image": "palette.png",
+                     "text": "<image>\nWhat is written on the sign?"},
+                    {"question_id": 2, "text": "Is the sky blue at noon?"}):
+            f.write(json.dumps(row) + "\n")
+    with open(paths["model_vqa_loader"], "w") as f:
+        for row in ({"question_id": "l0", "image": "rgba.png",
+                     "text": "Describe the picture briefly."},
+                    {"question_id": "l1", "image": ["grey.png", "rgb.png"],
+                     "text": "Which of the two images is brighter?"}):
+            f.write(json.dumps(row) + "\n")
+    with open(paths["model_vqa_science"], "w") as f:
+        json.dump([
+            {"id": "s0", "image": "grey.png", "conversations": [
+                {"from": "human", "value": "<image>\nWhich force moves the "
+                 "ball?\nA. gravity\nB. magnetism"}]},
+            {"id": "s1", "conversations": [
+                {"from": "human", "value": "Which is a mammal?\nA. shark\n"
+                 "B. whale"}]}], f)
+
+    def b64(name):
+        with open(os.path.join(folder, name), "rb") as fh:
+            return base64.b64encode(fh.read()).decode()
+    with open(paths["model_vqa_mmbench"], "w") as f:
+        f.write("index\tquestion\thint\tA\tB\tC\tD\timage\tcategory\n")
+        f.write(f"101\tWhat color dominates?\tLook at the top left.\tred\t"
+                f"green\tblue\tgray\t{b64('rgb.png')}\tcolor\n")
+        f.write(f"102\tHow many objects are there?\tnan\tone\ttwo\tthree\t"
+                f"four\t{b64('palette.png')}\tcount\n")
+    return paths
+
+
+class _GenerateLog:
+    """While active, runs every ``model.generate`` call with ``attn_impl``
+    ('reference' replaces K1 and K2 by their plain versions) and records
+    its prompt, media and answer."""
+
+    def __init__(self, model, attn_impl="auto"):
+        self.model, self.attn_impl = model, attn_impl
+
+    def __enter__(self):
+        self.calls = []
+        generate = type(self.model).generate
+
+        def logged(input_ids, modal_inputs, **kw):
+            out = generate(self.model, input_ids, modal_inputs,
+                           attn_impl=self.attn_impl, **kw)
+            self.calls.append((input_ids, modal_inputs, out))
+            return out
+        self.model.generate = logged
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.generate
+
+
+def _kernel_vs_plain(model, kernel_calls, plain_calls):
+    """Each greedy answer of the kernel path against the plain path's on
+    the same prompt: equal, or leaving it at a near tie: the teacher-forced
+    logits of both paths at the first differing step within LOGIT_TOL of
+    max |logit|, and the plain path's top-2 gap there under LOGIT_TOL."""
+    import torch
+    if len(kernel_calls) != len(plain_calls):
+        raise AssertionError(f"{len(kernel_calls)} kernel-path calls, "
+                             f"{len(plain_calls)} plain-path calls")
+    eos = model.cfg.eos_token_id
+    out = []
+    for (ids, inputs, got), (_, _, want) in zip(kernel_calls, plain_calls):
+        got, want = got[0], want[0]
+        if got == want:
+            out.append({"equal": True, "tokens": len(got)})
+            continue
+        step = next(i for i, (a, b) in enumerate(zip(got + [None],
+                                                     want + [None]))
+                    if a != b)
+        tokens = torch.tensor([(got + [eos])[:step + 1]],
+                              device=model.device)
+        with torch.no_grad():
+            k, p = (_teacher_forced(model, ids, inputs, tokens, impl,
+                                    kv_quant=False)[0, step]
+                    for impl in ("auto", "reference"))
+        scale = p.abs().max()
+        rel = ((k - p).abs().max() / scale).item()
+        top2 = p.topk(2).values
+        gap = ((top2[0] - top2[1]) / scale).item()
+        log("legacy_eval", diverge_step=step, kernel_len=len(got),
+            plain_len=len(want), logit_rel_err=f"{rel:.3g}",
+            plain_top2_gap_rel=f"{gap:.4g}", tol=LOGIT_TOL)
+        if rel > LOGIT_TOL or gap > LOGIT_TOL:
+            raise AssertionError(f"kernel-path answer leaves the plain "
+                                 f"path's at step {step}: logits {rel:.3g}"
+                                 f", top-2 gap {gap:.3g} of max |logit|")
+        out.append({"equal": False, "diverge_step": step, "rel": rel,
+                    "top2_gap_rel": gap})
+    return out
+
+
+def _vqa_runs(root, folder, name):
+    """(b)'s runs: entry -> (module, question file, flags)."""
+    from modelcompose_tpu_torch.eval import (model_vqa, model_vqa_loader,
+                                             model_vqa_mmbench,
+                                             model_vqa_science)
+    files = _vqa_files(root, folder)
+    common = ["--model-path", name, "--temperature", "0",
+              "--max-new-tokens", str(QA_TOKENS)]
+    images = ["--image-folder", folder]
+    return {
+        "model_vqa": (model_vqa, files["model_vqa"], common + images),
+        "model_vqa_loader": (model_vqa_loader, files["model_vqa_loader"],
+                             common + images + ["--num-workers", "2"]),
+        "model_vqa_science": (model_vqa_science, files["model_vqa_science"],
+                              common + images + ["--answer-prompter",
+                                                 "--single-pred-prompt"]),
+        "model_vqa_mmbench": (model_vqa_mmbench, files["model_vqa_mmbench"],
+                              common + ["--all-rounds",
+                                        "--single-pred-prompt"])}
+
+
+def _answer_lines(path, entry):
+    with open(path) as f:
+        lines = [json.loads(line) for line in f]
+    keys = MMBENCH_KEYS if entry == "model_vqa_mmbench" else QA_KEYS
+    if not lines or any(list(line) != keys for line in lines):
+        raise AssertionError(f"{entry}: answer lines {lines[:2]}")
+    if any(not line["text"] for line in lines):
+        raise AssertionError(f"{entry}: an empty answer in {lines}")
+    return lines
+
+
+class _CaptureLoad:
+    """While active, ``models.loader.load_pretrained_model`` (what the
+    entries call) also keeps the model it returned and its load seconds."""
+
+    def __enter__(self):
+        from modelcompose_tpu_torch.models import loader
+        self.module, self.load = loader, loader.load_pretrained_model
+        self.models, self.seconds = [], []
+
+        def load(*args, **kw):
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():  # random towers
+                warnings.simplefilter("ignore")
+                out = self.load(*args, **kw)
+            self.seconds.append(time.perf_counter() - t0)
+            self.models.append(out[1])
+            return out
+        loader.load_pretrained_model = load
+        return self
+
+    def __exit__(self, *exc):
+        self.module.load_pretrained_model = self.load
+
+
+def _bf16(a):
+    """``a`` (fp32) rounded to bf16, as the loader stores it."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _llava_checkpoint(root, gen, device):
+    """(c) 1: a LLaVA-LoRA vision checkpoint at Vicuna-7B width and
+    LOADER_LAYERS depth, as LLaVA saves one: peft's one adapter
+    ``default`` (r=128) under ``base_model.model.``, the ``mlp2x_gelu``
+    ``mm_projector``, bare soft tokens and one base weight the converter
+    drops, bf16, with config.json.  Returns its directory and the DAMC-
+    layout tensors the conversion must give back."""
+    import torch
+    from modelcompose_tpu_torch.compose.convert import params_to_adapter
+    from modelcompose_tpu_torch.configs import damc_unimodal
+    from modelcompose_tpu_torch.core.llama import init_params, torch_dtype
+    from modelcompose_tpu_torch.models.projectors import init_projector
+    cfg = damc_unimodal("vision", num_hidden_layers=LOADER_LAYERS,
+                        lora_strategy="modal")
+    with torch.no_grad():
+        params = init_params(cfg, gen, device)
+        _perturb(params, gen)
+        proj = init_projector(cfg.projector_type("vision"), gen,
+                              cfg.projector_input_size("vision"),
+                              cfg.hidden_size, dtype=torch_dtype(cfg.dtype),
+                              device=device)
+        damc = {k: v for k, v in params_to_adapter(
+            params, cfg, {"vision": proj}).items()
+            if ".lora_A.default." not in k and ".lora_B.default." not in k}
+    del params, proj
+    state = {}
+    for k, v in damc.items():
+        k = (k.replace(".vision.weight", ".default.weight")
+             .replace("modal_projectors.vision", "mm_projector")
+             .replace("prefix_tokens.vision", "prefix_tokens")
+             .replace("suffix_tokens.vision", "suffix_tokens"))
+        state["base_model.model." + k] = torch.from_numpy(v).to(
+            torch.bfloat16)
+    state["base_model.model.model.norm.weight"] = torch.ones(
+        cfg.hidden_size, dtype=torch.bfloat16)
+    path = os.path.join(root, "llava-v1.5-7b-lora")
+    os.makedirs(path)
+    torch.save(state, os.path.join(path, "pytorch_model.bin"))
+    cfg.save(os.path.join(path, "config.json"))
+    return path, damc
+
+
+def _dense_reference(merged, base_dir):
+    """(c) 4: the merge-lora export computed in numpy from the files: per
+    layer and linear, bf16(W + sum_a c_a B_a @ A_a) with W, A and B as the
+    loader holds them (bf16) and c the default route's row."""
+    import numpy as np
+    from modelcompose_tpu_torch.compose.state_io import load_adapter_dir
+    from modelcompose_tpu_torch.config import ModelConfig
+    from modelcompose_tpu_torch.models.loader import load_hf_llama_dir
+    with open(os.path.join(merged, "config.json")) as f:
+        cfg = ModelConfig.from_dict(json.load(f))
+    base = load_hf_llama_dir(base_dir)
+    adapter = load_adapter_dir(merged)
+    row = cfg.routing_table()[0]
+    want = {}
+    for i in range(cfg.num_hidden_layers):
+        for lin in LINEARS:
+            key = f"model.layers.{i}.{lin}"
+            acc = base[f"{key}.weight"].astype(np.float32)
+            for c, name in zip(row, cfg.adapter_names()):
+                if c:
+                    acc = acc + np.float32(c) * (
+                        _bf16(adapter[f"{key}.lora_B.{name}.weight"])
+                        @ _bf16(adapter[f"{key}.lora_A.{name}.weight"]))
+            want[f"{key}.weight"] = _bf16(acc)
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            key = f"model.layers.{i}.{norm}.weight"
+            want[key] = base[key]
+    for key in ("model.embed_tokens.weight", "model.norm.weight",
+                "lm_head.weight"):
+        want[key] = base[key]
+    return want
+
+
+def _peft_checkpoint(root, name, modal, rng, hidden):
+    """(c) 5: a peft-era unimodal LoRA checkpoint at the base's width
+    ``hidden``: r=128 A/B on PEFT_TARGETS of LOADER_LAYERS layers (bf16),
+    an ``mm_projector`` and soft tokens, adapter_config.json and a config
+    stamp."""
+    import numpy as np
+    import torch
+    path = os.path.join(root, name)
+    os.makedirs(path)
+    state = {}
+    for i in range(LOADER_LAYERS):
+        for lin in PEFT_TARGETS:
+            stem = f"base_model.model.model.layers.{i}.{lin}"
+            state[f"{stem}.lora_A.weight"] = rng.normal(
+                0, 0.01, (128, hidden)).astype(np.float32)
+            state[f"{stem}.lora_B.weight"] = rng.normal(
+                0, 0.01, (hidden, 128)).astype(np.float32)
+    state = {k: _bf16(v) for k, v in state.items()}
+    torch.save({k: torch.from_numpy(v).to(torch.bfloat16)
+                for k, v in state.items()},
+               os.path.join(path, "adapter_model.bin"))
+    width = {"vision": 1024, "audio": 768}[modal]
+    extra = {"base_model.model.model.mm_projector.0.weight":
+             rng.normal(0, 0.02, (hidden, width)).astype(np.float32),
+             "base_model.model.model.mm_projector.0.bias":
+             rng.normal(0, 0.02, (hidden,)).astype(np.float32),
+             "base_model.model.prefix_tokens":
+             rng.normal(0, 0.02, (1, 5, hidden)).astype(np.float32)}
+    torch.save({k: torch.from_numpy(v) for k, v in extra.items()},
+               os.path.join(path, "non_lora_trainables.bin"))
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"lora_alpha": 256, "r": 128}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({f"mm_{modal}_encoder": f"{modal}-tower",
+                   f"mm_{modal}_hidden_size": width}, f)
+    return path, state, extra
+
+
+def _checkpoint_tools(device, gen, root, merged, base_dir, folder,
+                      tokenizer, counters):
+    """(c): the LLaVA conversion, merge-lora, merge_deltas_to_base and
+    compare at Vicuna-7B width and LOADER_LAYERS depth, each written tensor
+    held to numpy; the converted checkpoint and the dense export each
+    loaded by an entry onto the card and asked one PNG question."""
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.compose import (compare, lifecycle,
+                                                merge_deltas_to_base)
+    from modelcompose_tpu_torch.compose.convert import params_to_adapter
+    from modelcompose_tpu_torch.compose.convert_llava_checkpoint import \
+        convert_checkpoint
+    from modelcompose_tpu_torch.compose.state_io import load_state
+    from modelcompose_tpu_torch.eval import model_vqa, model_vqa_loader
+    from modelcompose_tpu_torch.models.loader import load_hf_llama_dir
+    reset, read = counters
+    out = {"bytes": {}, "seconds": {}, "launches": {}}
+    question = os.path.join(root, "one_png.jsonl")
+    with open(question, "w") as f:
+        f.write(json.dumps({"question_id": "c0", "image": "rgb.png",
+                            "text": "What is in the image?"}) + "\n")
+
+    def ask(entry, mod, model_path, model_base, extra=()):
+        """One PNG question through ``mod``'s own load (main()-style
+        args): the loaded model; its answer, launches and seconds go into
+        ``out`` under ``entry``."""
+        answers = os.path.join(root, f"{entry}-answers.jsonl")
+        args = mod.build_arg_parser().parse_args([
+            "--model-path", model_path, "--model-base", model_base,
+            "--question-file", question, "--image-folder", folder,
+            "--answers-file", answers, "--temperature", "0",
+            "--max-new-tokens", str(QA_TOKENS)] + list(extra))
+        reset()
+        t0 = time.perf_counter()
+        with _CaptureLoad() as cap:
+            mod.eval_model(args, load_tokenizer_fn=lambda _: tokenizer,
+                           device=device)
+        out["seconds"][f"{entry}_answer"] = (time.perf_counter() - t0
+                                             - sum(cap.seconds))
+        out["seconds"][f"{entry}_load"] = sum(cap.seconds)
+        out["launches"][entry] = read()
+        lines = _answer_lines(answers, mod.__name__.rsplit(".", 1)[1])
+        model = cap.models[0]
+        n_layers = model.cfg.num_hidden_layers
+        if out["launches"][entry]["flash_attention_fwd"] < n_layers \
+                or out["launches"][entry]["flash_decode"] == 0:
+            raise AssertionError(f"{entry}: launches "
+                                 f"{out['launches'][entry]}")
+        log("legacy_eval", tool=entry, answer=lines[0]["text"],
+            launches=json.dumps(out["launches"][entry]))
+        return model
+
+    # 1-3: LLaVA checkpoint -> converted -> loaded, asked
+    t0 = time.perf_counter()
+    llava, damc = _llava_checkpoint(root, gen, device)
+    converted = os.path.join(root, "llava-vision-multimodal")
+    stats = convert_checkpoint(llava, converted)
+    out["seconds"]["convert"] = time.perf_counter() - t0
+    out["bytes"]["llava"] = _dir_bytes(llava)
+    out["bytes"]["converted"] = _dir_bytes(converted)
+    got = {}
+    for fname in ("adapter_model.bin", "non_lora_trainables.bin"):
+        got.update({k[len("base_model.model."):]: v for k, v in load_state(
+            os.path.join(converted, fname)).items()})
+    bad = sorted(set(got) ^ set(damc)) + [
+        k for k in damc if k in got and not np.array_equal(got[k], damc[k])]
+    if bad or stats["adapter_keys"] + stats["non_lora_keys"] != len(damc):
+        raise AssertionError(f"converted keys differ: {bad[:3]} {stats}")
+    model = ask("converted", model_vqa_loader, converted,
+                base_dir, ["--num-workers", "2"])
+    loaded = params_to_adapter(model.params, model.cfg, model.projectors)
+    bad = [k for k in damc if not np.array_equal(loaded[k], damc[k])]
+    if bad:
+        raise AssertionError(f"the converted checkpoint loads other "
+                             f"leaves: {bad[:3]}")
+    del model, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4: merge-lora on phase 7's composition, the dense export asked
+    dense = os.path.join(root, "mcub4-dense-multimodal")
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():  # random towers
+        warnings.simplefilter("ignore")
+        lifecycle.main(["merge-lora", "--model-path", merged, "--model-base",
+                        base_dir, "--save-model-path", dense])
+    out["seconds"]["merge_lora"] = time.perf_counter() - t0
+    out["bytes"]["dense"] = _dir_bytes(dense)
+    lifecycle.main(["extract-projector", "--model-path",
+                    os.path.join(merged, "adapter_model.bin"), "--output",
+                    os.path.join(dense, "mm_projector.bin")])
+    got = load_state(os.path.join(dense, "model.safetensors"))
+    want = _dense_reference(merged, base_dir)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"dense keys {sorted(set(got) ^ set(want))[:3]}")
+    # one bf16 rounding of an fp32 sum taken in another order: a value on
+    # a rounding boundary may land one bf16 step (up to 2^-7 of it) away;
+    # DENSE_ATOL covers the fp32 sums' own error where W + delta nearly
+    # cancels
+    excess = max(float((np.abs(got[k] - want[k]) - 2 ** -7 * np.abs(
+        want[k]) - DENSE_ATOL).max()) for k in want)
+    max_abs = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+    log("legacy_eval", merge_lora_tensors=len(want),
+        max_abs_err_vs_numpy=f"{max_abs:.3g}",
+        tol=f"2^-7 |x| + {DENSE_ATOL}")
+    if excess > 0:
+        raise AssertionError(f"dense export off numpy's fold by {max_abs}")
+    del got, want
+    ask("dense", model_vqa, dense, dense)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5: merge_deltas_to_base over two peft checkpoints
+    rng = np.random.default_rng(SEED + 13)
+    base = load_hf_llama_dir(base_dir)
+    vocab, hidden = base["model.embed_tokens.weight"].shape
+    peft = {m: _peft_checkpoint(root, f"llava-{m}-lora", m, rng, hidden)
+            for m in ("vision", "audio")}
+    with open(os.path.join(base_dir, "config.json"), "w") as f:
+        json.dump({"hidden_size": hidden, "vocab_size": vocab,
+                   "num_hidden_layers": LOADER_LAYERS}, f)
+    naive = os.path.join(root, "naive-merge")
+    t0 = time.perf_counter()
+    stats = merge_deltas_to_base.merge_deltas_to_base(
+        base_dir, {m: p for m, (p, _, _) in peft.items()}, naive, "avg")
+    out["seconds"]["merge_deltas_to_base"] = time.perf_counter() - t0
+    out["bytes"]["naive_merge"] = _dir_bytes(naive)
+    got = load_hf_llama_dir(naive)
+    want = dict(base)
+    for i in range(LOADER_LAYERS):
+        for lin in PEFT_TARGETS:
+            stem = f"base_model.model.model.layers.{i}.{lin}"
+            deltas = [(st[f"{stem}.lora_B.weight"]
+                       @ st[f"{stem}.lora_A.weight"]) * 2.0
+                      for _, st, _ in peft.values()]
+            key = f"model.layers.{i}.{lin}.weight"
+            want[key] = base[key] + np.mean(deltas, axis=0)
+    for modal, (_, _, extra) in peft.items():
+        for k, v in extra.items():
+            k = k[len("base_model.model."):].replace(
+                "mm_projector", f"modal_projectors.{modal}")
+            want[k] = v
+    bad = sorted(set(got) ^ set(want)) + [
+        k for k in want if k in got and not np.array_equal(got[k], want[k])]
+    if bad or stats != {"merged_keys": LOADER_LAYERS * len(PEFT_TARGETS),
+                        "overlay_keys": 5}:
+        raise AssertionError(f"naive merge differs: {bad[:3]} {stats}")
+    del got, base, want
+
+    # 6: compare phase 7's vision and audio checkpoints
+    t0 = time.perf_counter()
+    metrics = compare.compare_checkpoints(os.path.join(root, "ckpt-vision"),
+                                          os.path.join(root, "ckpt-audio"))
+    out["seconds"]["compare"] = time.perf_counter() - t0
+    if set(metrics) != {"L2", "Cosine", "SSD"} or not (
+            metrics["L2"] > 0 and 0 <= metrics["Cosine"] <= 2
+            and 0 <= metrics["SSD"] <= 1):
+        raise AssertionError(f"compare: {metrics}")
+    out["compare"] = metrics
+    log("legacy_eval", tools_seconds=json.dumps(
+        {k: round(v, 2) for k, v in out["seconds"].items()}),
+        bytes_gb=json.dumps({k: round(_gb(v), 3)
+                             for k, v in out["bytes"].items()}),
+        compare=json.dumps(metrics))
+    return out
+
+
+def _k1_k2_checks(device, gen, inputs, phase):
+    """K1 and K2 against their plain versions, untimed, at the inputs the
+    path ``phase`` ran them at (``inputs``, a ``_KernelInputs``): random
+    bf16 q/k/v with each K1 shape's recorded segment ids, random caches of
+    each K2 shape with its recorded kv_len, read at the last layer.
+    Returns the largest error per kernel."""
+    import torch
+    from modelcompose_tpu_torch.core.llama import quantize_kv
+    from modelcompose_tpu_torch.ops.flash_attention import (
+        flash_attention_forward)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+    errs = {"fwd": [], "decode": []}
+    for (B, L, H, D, S, Hkv), (q_seg, kv_seg) in inputs.attention.items():
+        q, k, v = rnd(B, L, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        kw = dict(causal=True, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+                  q_offset=S - L)
+        out, lse = flash_attention_forward(q, k, v, **kw)
+        errs["fwd"].append(_check_k1(f"{phase} B{B} L{L} S{S}", q, k, v, kw,
+                                     out, lse)[0])
+    for (NL, B, S, Hkv, D, H, dtype), kv_len in inputs.decode.items():
+        k, v = rnd(NL, B, S, Hkv, D), rnd(NL, B, S, Hkv, D)
+        if dtype == str(torch.int8):
+            k, v = quantize_kv(k), quantize_kv(v)
+        errs["decode"].append(_check_k2(rnd(B, 1, H, D), k, v, kv_len,
+                                        NL - 1)[1])
+    if not all(errs.values()):
+        raise AssertionError(f"{phase}: no kernel inputs recorded for "
+                             f"{[n for n, e in errs.items() if not e]}")
+    out = {n: max(e) for n, e in errs.items()}
+    log(phase, kernel_checks=json.dumps(
+        [f"B{k[0]} L{k[1]}" for k in inputs.attention]
+        + [f"{k[-1]} B{k[1]} S{k[2]}" for k in inputs.decode]),
+        max_abs_err=json.dumps({n: float(f"{e:.4g}") for n, e in
+                                out.items()}))
+    return out
+
+
+def phase_legacy_eval(device, gen, root, merged, base_dir, model):
+    """Phase 13: (a) PNGs written and read back without PIL; (b) the four
+    LLaVA-suite entries (``model_vqa``, ``model_vqa_loader``,
+    ``model_vqa_science`` with ``--answer-prompter --single-pred-prompt``,
+    ``model_vqa_mmbench`` with ``--all-rounds``) answering them greedily on
+    phase 6's MCUB-4 model (``loaded=``), each answer line with the JAX
+    entry's keys, then the same runs on the plain path (K1 and K2 replaced
+    by their plain versions) with every answer held to the kernel path's;
+    (c) the checkpoint tools on phase 7's files; K1 and K2 held to their
+    plain versions at every shape (b) and (c) ran them at."""
+    import numpy as np
+    from modelcompose_tpu_torch.data import conversation as conversation_lib
+    if not _on_card(model.params["embed_tokens"]):
+        raise AssertionError(f"the model is on {model.device}")
+    tokenizer = WordHashTokenizer()
+    loaded = (tokenizer, model, model.modal_processors(), 2048)
+    template = conversation_lib.default_conversation
+    reset, read = _attention_counters()
+    folder, host_ms = _vqa_images(root, np.random.default_rng(SEED),
+                                  loaded[2]["vision"])
+    runs = _vqa_runs(root, folder, os.path.join(root, "mcub4-damc-multimodal"))
+    entries = {}
+    with _KernelInputs() as kernel_inputs:
+        for entry, (mod, qfile, flags) in runs.items():
+            res = entries[entry] = {}
+            for path, impl in (("kernel", "auto"), ("plain", "reference")):
+                answers = os.path.join(root, f"{entry}-{path}.jsonl")
+                args = mod.build_arg_parser().parse_args(
+                    flags + ["--question-file", qfile, "--answers-file",
+                             answers])
+                reset()
+                t0 = time.perf_counter()
+                with _GenerateLog(model, impl) as calls:
+                    mod.eval_model(args, loaded=loaded)
+                res[f"{path}_s"] = time.perf_counter() - t0
+                res[f"{path}_calls"] = calls.calls
+                res[f"{path}_launches"] = read()
+                res[f"{path}_lines"] = _answer_lines(answers, entry)
+            if res["plain_launches"] != {"flash_attention_fwd": 0,
+                                         "flash_decode": 0}:
+                raise AssertionError(f"{entry}: the plain path launched "
+                                     f"{res['plain_launches']}")
+            res["vs_plain"] = _kernel_vs_plain(model, res["kernel_calls"],
+                                               res["plain_calls"])
+            n = len(res["kernel_calls"])
+            steps = sum(max(len(out[0]) - 1, 0)
+                        for _, _, out in res["kernel_calls"])
+            launches = res["kernel_launches"]
+            n_layers = model.cfg.num_hidden_layers
+            if launches["flash_attention_fwd"] < n * n_layers \
+                    or launches["flash_decode"] < steps * n_layers:
+                raise AssertionError(f"{entry}: {n} answers, launches "
+                                     f"{launches}")
+            log("legacy_eval", entry=entry, answers=n,
+                kernel_s=f"{res['kernel_s']:.3f}",
+                plain_s=f"{res['plain_s']:.3f}",
+                launches=json.dumps(launches),
+                equal_to_plain=sum(v["equal"] for v in res["vs_plain"]),
+                texts=json.dumps([line["text"] for line in
+                                  res["kernel_lines"]][:3]))
+        tools = _checkpoint_tools(device, gen, root, merged, base_dir,
+                                  folder, tokenizer, (reset, read))
+    conversation_lib.default_conversation = template
+    prefills = {f"B{k[0]} L{k[1]}": int((seg[0] != 0).sum(1).max())
+                for k, seg in kernel_inputs.attention.items()}
+    checks = _k1_k2_checks(device, gen, kernel_inputs, "legacy_eval")
+    launches = {k: sum(e["kernel_launches"][k] for e in entries.values())
+                + sum(v[k] for v in tools["launches"].values())
+                for k in ("flash_attention_fwd", "flash_decode")}
+    for res in entries.values():  # the recorded calls hold the pixels
+        res.pop("kernel_calls"), res.pop("plain_calls")
+    return {"images_host_ms": host_ms, "entries": entries, "tools": tools,
+            "prefill_positions": prefills, "launches": launches,
+            "kernel_checks": checks}
+
+
 def main() -> int:
     try:
         import torch
@@ -3478,6 +4210,10 @@ def main() -> int:
         eva = timed("eva_imagebind", phase_eva_imagebind, device, gen)
         entries = timed("entries", phase_entries, device, gen, root,
                         mcub4_model)
+        gc.collect()
+        torch.cuda.empty_cache()
+        legacy = timed("legacy_eval", phase_legacy_eval, device, gen, root,
+                       merged, base_dir, mcub4_model)
     del mcub4_model, request
     gc.collect()
     torch.cuda.empty_cache()
@@ -3499,13 +4235,29 @@ def main() -> int:
         eva_imagebind_decode_tok_per_s=f"{eva['decode_tok_per_s']:.2f}",
         entries_s=json.dumps({k: round(v["seconds"], 3) for k, v in
                               entries["entries"].items()}))
+    log("phase13", entries_s=json.dumps(
+        {k: {"kernel": round(v["kernel_s"], 3), "plain": round(v["plain_s"],
+                                                               3)}
+         for k, v in legacy["entries"].items()}),
+        host_ms_per_image=json.dumps({k: round(v, 2) for k, v in
+                                      legacy["images_host_ms"].items()}),
+        launches=json.dumps(legacy["launches"]),
+        prefill_positions=json.dumps(legacy["prefill_positions"]),
+        equal_to_plain=json.dumps({k: [v["equal"] for v in e["vs_plain"]]
+                                   for k, e in legacy["entries"].items()}),
+        checkpoint_gb=json.dumps({k: round(_gb(v), 3) for k, v in
+                                  legacy["tools"]["bytes"].items()}),
+        checkpoint_s=json.dumps({k: round(v, 2) for k, v in
+                                 legacy["tools"]["seconds"].items()}))
     log("seconds", phases=json.dumps(seconds),
         total=f"{time.perf_counter() - t_start:.1f}")
     if {"jax", "modelcompose_tpu"} & set(sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     # Launches on the main paths: the two serving runs, the decode variants
     # and the question-file runs, the serving stack, the EVA + ImageBind
-    # request and the four eval entries, every step of the training run
+    # request and the four eval entries, the four LLaVA-suite entries and
+    # the answers of the converted and the dense checkpoints, every step
+    # of the training run
     # (train steps and the accumulation window), and the train entry's two
     # stages with the served answer of its export.
     trained = train["launches"] + [train["accum_launches"]]
@@ -3521,6 +4273,7 @@ def main() -> int:
                 "serve": serve["launches"][name],
                 "eva_imagebind": eva["launches"][name],
                 "entries": entries["launches"][name],
+                "legacy_eval": legacy["launches"][name],
                 "train": train_launches(name),
                 "train_entry": entry["launches"][name]}
 
@@ -3528,11 +4281,12 @@ def main() -> int:
         return {"train": train_launches(name),
                 "train_entry": entry["launches"][name]}
 
-    def worst(row, key):  # the largest error, phases 10-12's shapes included
+    def worst(row, key):  # the largest error, phases 10-13's shapes included
         return dict(row, max_abs_err=max(
             row["max_abs_err"], entry["kernel_checks"][key],
             serve["max_abs_err"].get(key, 0.0),
-            eva["kernel_checks"][key], entries["kernel_checks"][key]))
+            eva["kernel_checks"][key], entries["kernel_checks"][key],
+            legacy["kernel_checks"].get(key, 0.0)))
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=K1_SOURCE,
              replaces=K1_REPLACES,

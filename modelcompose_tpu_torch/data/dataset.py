@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from ..constants import IGNORE_INDEX
+from .image_io import load_image
 from .image_processing import process_images
 from .preprocess import preprocess
 
@@ -60,15 +61,15 @@ class MultimodalDataset:
     @staticmethod
     def get_modal_inputs(modal_inputs: Dict[str, list]
                          ) -> Dict[str, list]:
-        """Load media from paths (reference: :91-111).  Vision loads PIL
-        images; audio/video/point keep paths for the collator's
+        """Load media from paths (reference: :91-111).  Vision loads
+        uint8 RGB arrays (``image_io.load_image``); audio/video/point keep
+        paths for the collator's
         processors.  Static: self-free so standalone callers
         (eval/retrieval) can use it without a constructed dataset."""
         out = {}
         for modal, items in modal_inputs.items():
             if modal == "vision":
-                from PIL import Image
-                out[modal] = [Image.open(p).convert("RGB") for p in items]
+                out[modal] = [load_image(p) for p in items]
             else:
                 out[modal] = list(items)
         return out

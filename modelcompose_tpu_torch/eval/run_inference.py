@@ -7,10 +7,11 @@ Usage (on the card)::
     python -m modelcompose_tpu_torch.eval.run_inference --model-path ckpt \\
         --model-base vicuna --audio-file clip.wav --query "what is this?"
 
-PIL is imported only for ``--image-file`` (the card's machine has none);
-audio (``.wav``), video and point (``.npy``) files go through the model's
-processors.  ``--temperature`` above 0 draws from a ``torch.Generator``
-seeded 0 on the model's device.
+``--image-file`` is read by ``data.image_io`` (PNG without PIL, which the
+card's machine lacks; other formats through PIL); audio (``.wav``), video
+and point (``.npy``) files go through the model's processors.
+``--temperature`` above 0 draws from a ``torch.Generator`` seeded 0 on the
+model's device.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ..data import conversation as conversation_lib
+from ..data import image_io
 from ..data.conversation import SeparatorStyle, conv_templates
 from ..data.tokenization import tokenizer_modal_token
 from ..models.loader import load_pretrained_model
@@ -40,15 +42,14 @@ def infer_conv_mode(model_name: str) -> str:
     return "llava_v0"
 
 
-def load_image(image_file: str):
-    """Local path or http(s) URL (reference: run_llava.py:17-23)."""
-    from PIL import Image
+def load_image(image_file: str) -> np.ndarray:
+    """Local path or http(s) URL (reference: run_llava.py:17-23) ->
+    uint8 [H, W, 3] through ``data.image_io.load_image``."""
     if image_file.startswith(("http://", "https://")):
-        import io
         import urllib.request
         with urllib.request.urlopen(image_file) as resp:
-            return Image.open(io.BytesIO(resp.read())).convert("RGB")
-    return Image.open(image_file).convert("RGB")
+            return image_io.load_image(resp.read())
+    return image_io.load_image(image_file)
 
 
 def run(args, loaded=None, *, load_tokenizer_fn=None, device=None) -> str:

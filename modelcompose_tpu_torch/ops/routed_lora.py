@@ -115,19 +115,34 @@ def fold_dense(params, routing_table):
     c = table[0]
 
     def fold_linear(p):
-        la, lb = p["lora_a"], p["lora_b"]
-        n, n_a, d_in, r = la.shape
-        a_cat = (la.float() * c[None, :, None, None]).permute(0, 2, 1, 3)
-        delta = torch.bmm(a_cat.reshape(n, d_in, n_a * r),
-                          lb.float().reshape(n, n_a * r, lb.shape[-1]))
         w = p["w"]
         if is_quantized(w):
-            new_w = quantize_int8(w["q"].float() * w["scale"] + delta, axis=-2)
+            new_w = quantize_int8(fold_default_adapter(
+                w["q"].float() * w["scale"], p["lora_a"], p["lora_b"], c),
+                axis=-2)
         else:
-            new_w = (w.float() + delta).to(w.dtype)
-        return {"w": new_w, "lora_a": la, "lora_b": lb}
+            new_w = fold_default_adapter(w, p["lora_a"], p["lora_b"], c)
+        return {"w": new_w, "lora_a": p["lora_a"], "lora_b": p["lora_b"]}
 
     return _map_linears(params, fold_linear), table - c[None, :]
+
+
+def fold_default_adapter(w, lora_a, lora_b, default_route):
+    """Fold the decode-time ('default' class) adapter mix densely into w:
+    W' = W + sum_a c_a * A_a @ B_a, in fp32.
+
+    Args:
+      w: [..., d_in, d_out]; lora_a: [..., A, d_in, r];
+      lora_b: [..., A, r, d_out] (leading axes: stacked layers, or none);
+      default_route: [A] the routing-table row of the default class
+        (numpy or tensor).
+
+    Returns [..., d_in, d_out] in w.dtype.
+    """
+    c = torch.as_tensor(default_route, dtype=torch.float32, device=w.device)
+    delta = torch.einsum("a,...air,...aro->...io", c, lora_a.float(),
+                         lora_b.float())
+    return (w.float() + delta).to(w.dtype)
 
 
 def active_adapter_set(routing_table, route_classes=None):

@@ -59,10 +59,9 @@ def main(argv=None, *, load_tokenizer_fn=None):
     modal_inputs = {}
     media_prefix = ""
     if args.image_file:
-        from PIL import Image
-
+        from ..data.image_io import load_image
         from ..data.image_processing import process_images
-        img = Image.open(args.image_file).convert("RGB")
+        img = load_image(args.image_file)
         modal_inputs["vision"] = process_images([img], processors["vision"],
                                                 image_aspect_ratio="pad")
         media_prefix += "<image>\n"

@@ -68,12 +68,11 @@ class DemoApp:
         prefix = ""
         # per-file modal prompts (reference: demo_app.py:84-97)
         if getattr(data.get("image"), "file", None):
-            from PIL import Image
-
+            from ..data.image_io import load_image
             from ..data.image_processing import process_images
-            img = Image.open(io.BytesIO(data["image"].file.read()))
+            img = load_image(data["image"].file.read())
             modal_inputs["vision"] = process_images(
-                [img.convert("RGB")], self.processors["vision"],
+                [img], self.processors["vision"],
                 image_aspect_ratio="pad")
             prefix += "image:<image>\n"
         if getattr(data.get("audio"), "file", None):

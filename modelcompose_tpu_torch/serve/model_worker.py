@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import base64
 import functools
-import io
 import json
 import queue
 import threading
@@ -175,10 +174,9 @@ class ModelWorker:
         for modal, items in (modal_inputs or {}).items():
             proc = self.modal_processors[modal]
             if modal == "vision":
-                from PIL import Image
-                imgs = [Image.open(io.BytesIO(base64.b64decode(x)))
-                        .convert("RGB") for x in items]
+                from ..data.image_io import load_image
                 from ..data.image_processing import process_images
+                imgs = [load_image(base64.b64decode(x)) for x in items]
                 out[modal] = process_images(imgs, proc,
                                             image_aspect_ratio="pad")
             elif modal == "audio":

@@ -707,8 +707,154 @@ def test_imagebind_processor_matches_jax(seconds):
 
 
 @pytest.mark.parametrize("name", ["infer_conv_mode", "load_image"])
-def test_run_inference_helpers_are_the_originals(name):
+def test_run_inference_helpers_are_the_originals(name, tmp_path):
+    """``infer_conv_mode`` is the JAX code; ``load_image`` reads through
+    the port's ``data.image_io`` (PNG without PIL) and gives the JAX
+    helper's pixels, as a uint8 array where the JAX one gives a PIL
+    image."""
     t = importlib.import_module("modelcompose_tpu_torch.eval.run_inference")
     j = importlib.import_module("modelcompose_tpu.eval.run_inference")
+    if name == "load_image":
+        path = _image(tmp_path / "x.png", (45, 31))
+        got = t.load_image(path)
+        assert got.dtype == np.uint8 and got.shape == (31, 45, 3)
+        np.testing.assert_array_equal(got, np.asarray(j.load_image(path)))
+        return
     assert _code(inspect.getsource(getattr(t, name))) \
         == _code(inspect.getsource(getattr(j, name)))
+
+
+# ---------------------------------------------------------------------------
+# The checkpoint analysis tools and the dataset converters: copies
+# ---------------------------------------------------------------------------
+
+import modelcompose_tpu.compose.compare as jcompare  # noqa: E402
+import modelcompose_tpu.compose.delta as jdelta  # noqa: E402
+import modelcompose_tpu.compose.metrics as jmetrics  # noqa: E402
+import modelcompose_tpu.data.convert_sqa as jsqa  # noqa: E402
+import modelcompose_tpu.data.convert_to_multimodal as jtomm  # noqa: E402
+import modelcompose_tpu_torch.compose.compare as tcompare  # noqa: E402
+import modelcompose_tpu_torch.compose.delta as tdelta  # noqa: E402
+import modelcompose_tpu_torch.compose.metrics as tmetrics  # noqa: E402
+import modelcompose_tpu_torch.data.convert_sqa as tsqa  # noqa: E402
+import modelcompose_tpu_torch.data.convert_to_multimodal as ttomm  # noqa: E402,E501
+
+COPIES = {"compose/delta": (jdelta, tdelta),
+          "compose/metrics": (jmetrics, tmetrics),
+          "compose/compare": (jcompare, tcompare),
+          "data/convert_sqa": (jsqa, tsqa),
+          "data/convert_to_multimodal": (jtomm, ttomm)}
+
+
+@pytest.mark.parametrize("name", sorted(COPIES))
+def test_numpy_tools_are_the_originals(name):
+    """Each module is the JAX module's code (its docstring aside)."""
+    j, t = COPIES[name]
+    assert _code(inspect.getsource(t)) == _code(inspect.getsource(j))
+
+
+def _lora_ckpt(path, seed, modal, layers=2, d=8, r=2):
+    """A DAMC adapter dir: LoRA A/B for q and up per layer under two
+    adapter names, and a config stamp with the alpha."""
+    rng = np.random.default_rng(seed)
+    state = {}
+    for i in range(layers):
+        for name, d_out in (("self_attn.q_proj", d), ("mlp.up_proj", 2 * d)):
+            for adapter in (modal, "default"):
+                base = f"model.layers.{i}.{name}"
+                state[f"{base}.lora_A.{adapter}.weight"] = rng.normal(
+                    size=(r, d)).astype(np.float32)
+                state[f"{base}.lora_B.{adapter}.weight"] = rng.normal(
+                    size=(d_out, r)).astype(np.float32)
+    os.makedirs(path)
+    jstate.save_state(state, os.path.join(path, "adapter_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"lora_r": r, "lora_alpha": 4 * r,
+                   f"mm_{modal}_encoder": "x"}, f)
+    return str(path)
+
+
+def test_delta_and_compare_match_jax(tmp_path, capsys):
+    a = _lora_ckpt(tmp_path / "ckpt-vision", 1, "vision")
+    b = _lora_ckpt(tmp_path / "ckpt-audio", 2, "audio")
+    for modals in (None, ["vision"], ["default"]):
+        got = tdelta.load_delta_weights(a, modals)
+        want = jdelta.load_delta_weights(a, modals)
+        assert sorted(got) == sorted(want)
+        for m in want:
+            assert sorted(got[m]) == sorted(want[m])
+            for k in want[m]:
+                np.testing.assert_array_equal(got[m][k], want[m][k])
+    for per_key in (False, True):
+        got = tcompare.compare_checkpoints(a, b, per_key=per_key)
+        want = jcompare.compare_checkpoints(a, b, per_key=per_key)
+        assert json.dumps(got, sort_keys=True) \
+            == json.dumps(want, sort_keys=True)
+
+
+def test_merge_metrics_match_jax(tmp_path):
+    """calculate_metrics over a merged checkpoint's provenance, written by
+    each package next to its own copy of the merge."""
+    paths = [_lora_ckpt(tmp_path / f"ckpt-{m}", i, m)
+             for i, m in enumerate(("vision", "audio"))]
+    texts = []
+    for name, mod in (("jax", jmetrics), ("port", tmetrics)):
+        merged = tmp_path / f"merged-{name}"
+        merged.mkdir()
+        state = {}
+        for p in paths:
+            state.update(jstate.load_adapter_dir(p))
+        jstate.save_state(state, str(merged / "adapter_model.bin"))
+        (merged / "merge_info.txt").write_text(
+            "Inputs:\n" + "\n".join(paths) + f"\n\nOutput(sum):{merged}")
+        res = mod.calculate_metrics(str(merged))
+        with open(merged / "merge_metrics.txt") as f:
+            texts.append((json.dumps(res, sort_keys=True, default=str),
+                          f.read()))
+    assert texts[0] == texts[1]
+
+
+@pytest.mark.parametrize("fmt", ["QCM-LEA", "QCM-A", "QCM-LEPA", "CQM-ALE",
+                                 "QCML-EA", "QCMLE-A"])
+def test_convert_sqa_matches_jax(tmp_path, fmt):
+    """The golden test's problems (tests/test_convert_sqa_golden.py):
+    every prompt format, then both converters' files byte for byte."""
+    from tests.test_convert_sqa_golden import PROBLEMS
+    for is_test in (False, True):
+        assert tsqa.build_prompt_chatbot(
+            PROBLEMS, list(PROBLEMS), fmt, use_caption=False,
+            is_test=is_test) == jsqa.build_prompt_chatbot(
+            PROBLEMS, list(PROBLEMS), fmt, use_caption=False,
+            is_test=is_test)
+    outs = []
+    for mod in (jsqa, tsqa):
+        base = tmp_path / mod.__name__
+        base.mkdir()
+        (base / "pid_splits.json").write_text(json.dumps(
+            {"train": list(PROBLEMS)}))
+        (base / "problems.json").write_text(json.dumps(PROBLEMS))
+        recs = mod.convert_to_llava(str(base), "train", prompt_format=fmt)
+        rows = mod.convert_to_jsonl(str(base), "train", prompt_format=fmt)
+        files = sorted(p.name for p in base.iterdir())
+        outs.append((json.dumps([recs, rows]), files,
+                     [(base / f).read_text() for f in files]))
+    assert outs[0] == outs[1]
+
+
+def test_convert_to_multimodal_matches_jax(tmp_path):
+    recs = [{"id": 1, "image": "a.jpg", "conversations": [
+        {"from": "human", "value": "<image>\nWhat?"},
+        {"from": "gpt", "value": "A cat."}]},
+        {"id": 2, "conversations": [{"from": "human", "value": "Hi"},
+                                    {"from": "gpt", "value": "Hello."}]}]
+    src = tmp_path / "llava.json"
+    src.write_text(json.dumps(recs))
+    for modal in sorted(jtomm.LLAVA_KEYS):
+        outs = []
+        for mod in (jtomm, ttomm):
+            dst = tmp_path / f"{mod.__name__}-{modal}.json"
+            mod.convert_file(str(src), str(dst), modal, media_root="/m")
+            outs.append(dst.read_text())
+        assert outs[0] == outs[1]
+        assert ttomm.check_multimodal_exist(str(dst)) \
+            == jtomm.check_multimodal_exist(str(dst))

@@ -54,6 +54,7 @@ def _rel(got, want):
     (2, 256, 1024, 32, 8, 128, 768, (1024, 900)),
     (3, 200, 200, 8, 2, 64, 0, (200, 1, 130)),
     (1, 3328, 3328, 32, 32, 128, 0, (3287,)),  # the MCUB-4 prefill
+    (1, 1024, 1024, 32, 32, 128, 0, (650,)),  # a VQA image question
 ])
 def test_k1_matches_plain(B, Lq, S, H, Hkv, D, q_offset, lengths):
     gen = torch.Generator(device="cuda").manual_seed(Lq + S)
@@ -163,6 +164,8 @@ def test_k1_segments_isolate_packed_samples():
     (32, 1, 3328 + 32, 32, 32, 128, (3287,)),  # MCUB-4 decode, first step
     (32, 2, 3328 + 32, 32, 32, 128, (3318, 3300)),
     (32, 3, 3328 + 32, 32, 32, 128, (3287,) * 3),  # MCUB-4 beam search, B=3
+    (32, 1, 1024 + 32, 32, 32, 128, (650,)),  # a VQA answer, first step
+    (32, 1, 1024 + 32, 32, 32, 128, (665,)),  # and its 16th token
 ])
 def test_k2_matches_plain(quantized, NL, B, S, H, Hkv, D, kv_len):
     gen = torch.Generator(device="cuda").manual_seed(S)

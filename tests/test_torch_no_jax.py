@@ -8,6 +8,7 @@ process where ``import jax`` and ``import modelcompose_tpu`` fail, and no
 file of it (nor ``chip_smoke.py``) imports either.  Its entry points put a model on the
 card unless asked for the CPU, and raise where there is no card."""
 
+import functools
 import os
 import pathlib
 import re
@@ -200,6 +201,63 @@ text = ClipTextEncoder(ClipTextConfig(hidden_size=16, intermediate_size=32,
                                       max_position_embeddings=8,
                                       projection_dim=8), device="cpu")
 assert text.encode(np.array([[3, 4, 49]])).shape == (1, 1, 8)
+# PNG questions through the four LLaVA-suite entries with PIL blocked as
+# well (a PNG needs none), written by the smoke's own writer, then the
+# lifecycle tools on the merged checkpoint and a trace
+sys.modules["PIL"] = None
+import base64
+import chip_smoke
+from modelcompose_tpu_torch.compose import lifecycle
+from modelcompose_tpu_torch.data.image_io import load_image
+from modelcompose_tpu_torch.eval import (model_vqa, model_vqa_loader,
+                                         model_vqa_mmbench, model_vqa_science)
+from modelcompose_tpu_torch.utils.profiling import annotate, trace
+imgs = os.path.join(root, "imgs")
+os.makedirs(imgs)
+px = rng.integers(0, 256, (30, 41, 3), dtype=np.uint8)
+chip_smoke.write_png(os.path.join(imgs, "a.png"), px)
+chip_smoke.write_png(os.path.join(imgs, "b.png"), px[:, :, 0], depth=8)
+assert (load_image(os.path.join(imgs, "a.png")) == px).all()
+cfg = tiny_test_config(mm_vision_encoder="test:32x2", mm_hidden_size=32)
+vis = MultimodalLM.random_init(cfg, torch.Generator().manual_seed(4), "cpu")
+vqa_loaded = (FakeLlamaTokenizer(), vis, vis.modal_processors(), 2048)
+with open(os.path.join(root, "vqa.jsonl"), "w") as f:
+    f.write(json.dumps({"question_id": 0, "image": "a.png", "text": "Cat?"})
+            + "\n" + json.dumps({"question_id": 1, "text": "Why?"}) + "\n")
+with open(os.path.join(root, "loader.jsonl"), "w") as f:
+    f.write(json.dumps({"question_id": 0, "image": ["a.png", "b.png"],
+                        "text": "Same?"}) + "\n")
+with open(os.path.join(root, "sqa.json"), "w") as f:
+    json.dump([{"id": "p0", "image": "a.png", "conversations": [
+        {"from": "human", "value": "<image>\nWhich?\nA. x\nB. y"}]}], f)
+with open(os.path.join(imgs, "a.png"), "rb") as f:
+    b64 = base64.b64encode(f.read()).decode()
+with open(os.path.join(root, "mmbench.tsv"), "w") as f:
+    f.write("index\tquestion\thint\tA\tB\tC\tD\timage\n"
+            f"3\tWhat?\tnan\tred\tblue\t\t\t{b64}\n")
+for mod, qfile, extra in (
+        (model_vqa, "vqa.jsonl", ["--image-folder", imgs]),
+        (model_vqa_loader, "loader.jsonl", ["--image-folder", imgs]),
+        (model_vqa_science, "sqa.json", ["--image-folder", imgs,
+                                         "--answer-prompter"]),
+        (model_vqa_mmbench, "mmbench.tsv", ["--all-rounds"])):
+    ans = os.path.join(root, "vqa-answers.jsonl")
+    mod.eval_model(mod.build_arg_parser().parse_args([
+        "--model-path", "vis-multimodal", "--question-file",
+        os.path.join(root, qfile), "--answers-file", ans, "--temperature",
+        "0", "--max-new-tokens", "2"] + extra), loaded=vqa_loaded)
+    with open(ans) as f:
+        assert len([json.loads(l) for l in f]) >= 1
+lifecycle.main(["merge-lora", "--model-path", merged, "--model-base",
+                os.path.join(root, "base"), "--save-model-path",
+                os.path.join(root, "dense"), "--device", "cpu"])
+lifecycle.main(["extract-projector", "--model-path",
+                os.path.join(merged, "adapter_model.bin"), "--output",
+                os.path.join(root, "dense", "mm_projector.bin")])
+with trace(os.path.join(root, "trace")):
+    with annotate("slice"):
+        vis.generate([np.array([1, 5, 6])], {}, max_new_tokens=2)
+assert os.path.exists(os.path.join(root, "trace", "trace.json"))
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "modelcompose_tpu")]
 assert all(sys.modules[m] is None for m in loaded), loaded
 print("SLICE_OK", out)
@@ -208,7 +266,9 @@ print("SLICE_OK", out)
 
 @pytest.mark.parametrize("module", [
     "serve.model_worker", "serve.cli", "eval.model_qa", "eval.run_inference",
-    "eval.model_multimodal_loss", "eval.retrieval"])
+    "eval.model_multimodal_loss", "eval.retrieval", "eval.model_vqa",
+    "eval.model_vqa_loader", "eval.model_vqa_science",
+    "eval.model_vqa_mmbench"])
 def test_serving_entry_help_runs_with_jax_blocked(module):
     code = ("import runpy, sys\n"
             "sys.modules['jax'] = None\n"
@@ -219,6 +279,45 @@ def test_serving_entry_help_runs_with_jax_blocked(module):
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
     assert "--model-path" in proc.stdout and "--device" in proc.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "compose.lifecycle", "compose.convert_llava_checkpoint",
+    "compose.merge_deltas_to_base", "compose.delta", "compose.metrics",
+    "compose.compare", "data.convert_sqa", "data.convert_to_multimodal"])
+def test_checkpoint_and_data_tools_help_runs_with_jax_blocked(module):
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['modelcompose_tpu'] = None\n"
+            f"runpy.run_module('modelcompose_tpu_torch.{module}', "
+            "run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code, "--help"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert "usage:" in proc.stdout
+
+
+SHARED = ["eval_avqa", "eval_captioning", "eval_msrvtt_qa", "eval_music_avqa",
+          "eval_point_tasks_gpt", "eval_pope", "eval_science_qa",
+          "eval_science_qa_gpt4", "eval_science_qa_gpt4_requery",
+          "eval_textvqa", "m4c_evaluator", "convert_for_submission",
+          "convert_outputs", "collect_scores", "compare_answers",
+          "gpt_review", "summarize_gpt_review", "qa_baseline_gpt35",
+          "webpage"]
+
+
+def test_shared_scorers_import_without_jax():
+    """The JAX package's jsonl scorers, kept shared rather than ported,
+    import with JAX blocked: they run on the card's machine as they are."""
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"for name in {SHARED!r}:\n"
+            "    importlib.import_module('modelcompose_tpu.eval.' + name)\n"
+            "print('SHARED_OK')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert "SHARED_OK" in proc.stdout
 
 
 def test_slice_runs_with_jax_blocked():
@@ -256,7 +355,15 @@ def test_no_file_of_the_port_imports(what, pattern):
             "serve/demo_app.py", "models/vision_eva.py",
             "models/audio_imagebind.py", "models/text_clip.py",
             "eval/model_qa.py", "eval/run_inference.py",
-            "eval/model_multimodal_loss.py", "eval/retrieval.py"} <= names
+            "eval/model_multimodal_loss.py", "eval/retrieval.py",
+            "data/image_io.py", "data/image_processing.py",
+            "eval/model_vqa.py", "eval/model_vqa_loader.py",
+            "eval/model_vqa_science.py", "eval/model_vqa_mmbench.py",
+            "compose/lifecycle.py", "compose/convert_llava_checkpoint.py",
+            "compose/merge_deltas_to_base.py", "compose/delta.py",
+            "compose/metrics.py", "compose/compare.py",
+            "utils/profiling.py", "data/convert_sqa.py",
+            "data/convert_to_multimodal.py"} <= names
 
 
 @pytest.mark.parametrize("entry", [
@@ -265,15 +372,20 @@ def test_no_file_of_the_port_imports(what, pattern):
     "LanguageBindVideoTower", "PointBertTower", "EvaVisionTower",
     "ImageBindAudioTower", "ClipTextEncoder", "eval_model", "model_qa",
     "run_inference", "eval_loss", "eval_retrieval", "train", "SlotDecoder",
-    "ModelWorker", "cli"])
+    "ModelWorker", "cli", "model_vqa", "model_vqa_loader",
+    "model_vqa_science", "model_vqa_mmbench", "merge_lora"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """No device means the card; without one each entry point raises before
     it builds anything on the CPU."""
     from modelcompose_tpu_torch import MultimodalLM, tiny_test_config
     from modelcompose_tpu_torch.convert import model_from_jax
     from modelcompose_tpu_torch.eval import model_multimodal_qa_loader as qa
+    from modelcompose_tpu_torch.compose import lifecycle
     from modelcompose_tpu_torch.eval import (model_multimodal_loss, model_qa,
-                                             retrieval, run_inference)
+                                             model_vqa, model_vqa_loader,
+                                             model_vqa_mmbench,
+                                             model_vqa_science, retrieval,
+                                             run_inference)
     from modelcompose_tpu_torch.models import text_clip, towers
     from modelcompose_tpu_torch.models.loader import load_pretrained_model
     from modelcompose_tpu_torch.serve import cli, model_worker, slot_engine
@@ -326,6 +438,14 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "cli": lambda: cli.main([
             "--model-path", str(tmp_path / "c-multimodal"), "--model-base",
             str(tmp_path)]),
+        "merge_lora": lambda: lifecycle.main([
+            "merge-lora", "--model-path", str(tmp_path / "c-multimodal"),
+            "--model-base", str(tmp_path), "--save-model-path",
+            str(tmp_path / "dense")]),
+        **{mod.__name__.rsplit(".", 1)[1]: functools.partial(
+            mod.main, entry_argv) for mod in (model_vqa, model_vqa_loader,
+                                              model_vqa_science,
+                                              model_vqa_mmbench)},
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
