@@ -142,7 +142,20 @@ nonzero:
    fold, loaded by ``model_vqa`` and asked; ``merge_deltas_to_base`` over
    two peft checkpoints and ``compare`` between phase 7's vision and audio
    checkpoints, every written tensor held to numpy; K1 and K2 against their
-   plain versions at every shape (b) and (c) ran them at.
+   plain versions at every shape (b) and (c) ran them at;
+14. distributed (``parallel/``, in two parts, each in an NCCL process
+   group of this one process on a free local port, left afterwards): (a)
+   after 13, phase 6's model sharded at tp 1 by the loader's
+   tensor-parallel step, the MCUB-4 request answered with greedy ids equal
+   to a no-group run's bit for bit (prefill s and decode tokens/s of both;
+   K1 and K2 counted on the tp 1 path), then K1 and K2 at the tp 2 and 4
+   ranks' shapes (16 and 8 heads, the 3,328 bucket and the int8 3,360
+   cache) against their plain versions, timed by CUDA graph replay, with
+   their bounds (the ``tp_shards`` of the K1 and K2 rows); (b) after 9,
+   phase 9's stage-2 step rebuilt, two steps with no group, then the same
+   two from the same state through the data-parallel path (ZeRO-1
+   moments, gradients and loss summed over the data group): losses and
+   every trainable leaf bit-equal, step seconds of both.
 
 The line before the last is a JSON object with each kernel's launches on the
 main paths, its largest error against the plain version, its time, the plain
@@ -157,8 +170,9 @@ at B=2, L=2,048 with rows of 2,048 and 1,391; K1's and K2's ``mcub4`` hold
 the composed path's shape, K2's ``*_cold`` keys its device time with every
 launch on a cold layer, and K3's and K4's ``train_batch`` and
 ``micro_batch`` the train step's shapes, and K2's ``beam`` beam search's;
-K1's ``serve_chunks`` and K2's ``serve_pool`` hold phase 11's; each
-kernel's ``launches_by_path`` splits its launches by phase.  A time that
+K1's ``serve_chunks`` and K2's ``serve_pool`` hold phase 11's, their
+``tp_shards`` phase 14's; each kernel's ``launches_by_path`` splits its
+launches by phase.  A time that
 could not be taken is null.  The last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits nonzero and prints no
 result.
@@ -425,7 +439,10 @@ def _rel_err(got, want, rows=None):
 
 
 def _k1_case(device, gen, *, B, Lq, S, H, Hkv, D, q_offset, lengths,
-             library=False):
+             library=False, timer=None):
+    """K1 against its plain version at one shape, its time (``timer``, CUDA
+    events over warm launches by default), the plain version's (events),
+    SDPA's (``library``, by the same timer) and its bound."""
     import torch
     from modelcompose_tpu_torch.ops.flash_attention import (
         flash_attention_forward, flash_attention_reference)
@@ -442,7 +459,8 @@ def _k1_case(device, gen, *, B, Lq, S, H, Hkv, D, q_offset, lengths,
     out, lse = flash_attention_forward(q, k, v, **kw)
     name = f"B{B} Lq{Lq} S{S} H{H}/{Hkv} D{D} q_offset{q_offset}"
     err, rel, lse_err = _check_k1(name, q, k, v, kw, out, lse)
-    ms = cuda_time_ms(lambda: flash_attention_forward(q, k, v, **kw))
+    timer = timer or cuda_time_ms
+    ms = timer(lambda: flash_attention_forward(q, k, v, **kw))
     plain_ms = cuda_time_ms(lambda: flash_attention_reference(q, k, v, **kw))
     # What the outputs need, each moved once: q and k on valid rows (a
     # padding row reads no q, padding keys are masked for every row), all
@@ -454,8 +472,8 @@ def _k1_case(device, gen, *, B, Lq, S, H, Hkv, D, q_offset, lengths,
     bound_ms, bound_by = bound(4 * D * H * _valid_pairs(kw, Lq, S), nbytes)
     res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, share_of_bound=bound_ms / ms,
-               library_ms=_k1_library(q, k, v, kw, lengths) if library
-               else None)
+               library_ms=_k1_library(q, k, v, kw, lengths, timer)
+               if library else None)
     log("K1", case=repr(name), max_abs_err=f"{err:.4g}", rel_err=f"{rel:.3g}",
         lse_err=f"{lse_err:.3g}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
@@ -488,14 +506,14 @@ def _sdpa_inputs(q, k, v, kw, lengths, grad=False):
     return args, extra
 
 
-def _k1_library(q, k, v, kw, lengths):
+def _k1_library(q, k, v, kw, lengths, timer=cuda_time_ms):
     """ms of one ``scaled_dot_product_attention`` call computing the same
     attention (timed here only; the port never calls it), and the backend
     PyTorch picked, read from the kernels it launched."""
     import torch.nn.functional as F
     args, extra = _sdpa_inputs(q, k, v, kw, lengths)
     call = lambda: F.scaled_dot_product_attention(*args, **extra)  # noqa
-    ms = cuda_time_ms(call)
+    ms = timer(call)
     log("K1", library="scaled_dot_product_attention",
         mask="is_causal" if "is_causal" in extra else "bool segment+causal",
         kernels=json.dumps(_kernel_names(call)), library_ms=f"{ms:.4f}")
@@ -546,7 +564,8 @@ def phase_k1(device, gen):
                 mcub4=dict(mcub4, shape="B1 Lq=S=3328 (3287 valid)"))
 
 
-def _k2_case(device, gen, *, B, NL, S, H, Hkv, D, kv_len, quantized, layer):
+def _k2_case(device, gen, *, B, NL, S, H, Hkv, D, kv_len, quantized, layer,
+             graph=False):
     import torch
     from modelcompose_tpu_torch.core.llama import quantize_kv
 
@@ -558,7 +577,7 @@ def _k2_case(device, gen, *, B, NL, S, H, Hkv, D, kv_len, quantized, layer):
     if quantized:
         k, v = quantize_kv(k), quantize_kv(v)
     kv = torch.tensor(kv_len, dtype=torch.int32, device=device)
-    return _k2_measure(q, k, v, kv, layer)
+    return _k2_measure(q, k, v, kv, layer, graph)
 
 
 def _check_k2(q, k, v, kv, layer):
@@ -587,9 +606,11 @@ def _check_k2(q, k, v, kv, layer):
     return name, err, rel, rel_loop
 
 
-def _k2_measure(q, k, v, kv, layer):
+def _k2_measure(q, k, v, kv, layer, graph=False):
     """K2 against its plain version and the chunked loop on the given
-    inputs (a bf16 or int8 stacked cache), then its times and bound."""
+    inputs (a bf16 or int8 stacked cache), then its times and bound; with
+    ``graph`` also ``graph_ms``, one launch on ``layer`` by CUDA graph
+    replay."""
     from modelcompose_tpu_torch.ops.flash_decode import (
         flash_decode_attention, flash_decode_reference)
     quantized = isinstance(k, dict)
@@ -630,12 +651,16 @@ def _k2_measure(q, k, v, kv, layer):
         plain_device_ms_cold=_ms(plain_device_ms_cold),
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
         share_of_bound_cold=_ms(share_cold))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, share_of_bound=bound_ms / ms,
-                library_ms=None, device_ms_cold=device_ms_cold,
-                events_ms_cold=events_ms_cold,
-                plain_device_ms_cold=plain_device_ms_cold,
-                share_of_bound_cold=share_cold)
+    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, share_of_bound=bound_ms / ms,
+               library_ms=None, device_ms_cold=device_ms_cold,
+               events_ms_cold=events_ms_cold,
+               plain_device_ms_cold=plain_device_ms_cold,
+               share_of_bound_cold=share_cold)
+    if graph:
+        res["graph_ms"] = graph_time_ms(lambda: kernel(layer))
+        log("K2", case=repr(name), graph_ms=_ms(res["graph_ms"]))
+    return res
 
 
 def phase_k2(device, gen):
@@ -4164,6 +4189,220 @@ def phase_legacy_eval(device, gen, root, merged, base_dir, model):
             "kernel_checks": checks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the distribution layer at world 1 over NCCL
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 2  # train steps of each run of phase 14's train part
+TP_SHARDS = (2, 4)  # the tensor-parallel degrees whose rank shapes K1/K2 run
+DIST_TIMEOUT_S = 120  # the process group's timeout on every collective
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+class _NcclWorld1:
+    """A process group of this one process over NCCL (a free local port),
+    left on exit."""
+
+    def __enter__(self):
+        import datetime
+        from modelcompose_tpu_torch.parallel import distributed
+        distributed.initialize(f"localhost:{_free_port()}", 1, 0,
+                               backend="nccl", timeout=datetime.timedelta(
+                                   seconds=DIST_TIMEOUT_S))
+        return self
+
+    def __exit__(self, *exc):
+        from modelcompose_tpu_torch.parallel import distributed
+        distributed.shutdown()
+        return False
+
+
+def _tp_shard_cases(device, gen):
+    """K1 and K2 at a tensor-parallel rank's shapes on the MCUB-4 path:
+    32 / tp heads at the 3,328 bucket and over the int8 3,360 cache, each
+    against its plain version, timed by CUDA graph replay (SDPA beside
+    K1), with its bound."""
+    k1, k2 = [], []
+    for tp_size in TP_SHARDS:
+        heads = 32 // tp_size
+        case = _k1_case(device, gen, library=True, timer=graph_time_ms,
+                        **dict(MCUB4_K1, H=heads, Hkv=heads))
+        k1.append(dict(case, tp=tp_size, heads=heads,
+                       shape=f"B1 Lq=S=3328 (3287 valid) H={heads}"))
+        case = _k2_case(device, gen, B=1, NL=32, S=3328 + NEW_TOKENS,
+                        H=heads, Hkv=heads, D=128, kv_len=[MCUB4_POSITIONS],
+                        quantized=True, layer=31, graph=True)
+        # the row's time is the graph replay's; events keep their key
+        case = dict(case, ms=case["graph_ms"], events_ms=case["ms"],
+                    share_of_bound=None if case["graph_ms"] is None
+                    else case["bound_ms"] / case["graph_ms"])
+        k2.append(dict(case, tp=tp_size, heads=heads,
+                       shape=f"B1 int8 S=3360 kv_len 3287 H={heads}"))
+    return k1, k2
+
+
+def phase_distributed_serve(device, gen, model, request):
+    """Phase 14a: phase 6's MCUB-4 model sharded at tp 1 through the
+    loader's tensor-parallel step (``apply_tensor_parallel``) in an NCCL
+    process group of one: its greedy ids equal the no-group run's bit for
+    bit, K1 and K2 counted on that path; then K1 and K2 at the tp 2 and 4
+    ranks' shapes."""
+    import torch
+    from modelcompose_tpu_torch.parallel import tp
+    from modelcompose_tpu_torch.parallel.mesh import apply_tensor_parallel
+    reset, read = _attention_counters()
+    ids, inputs = request
+    kw = dict(kv_quant=True, compact_adapters=True)
+    steps = NEW_TOKENS - 1
+    plain_t = {}
+    with torch.no_grad():
+        want = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
+                              timings=plain_t, **kw)
+    params = model.params
+    with _NcclWorld1():
+        mesh = apply_tensor_parallel(model, 1)
+        if model.tp_group is None or tp.model_size(model.tp_group) != 1:
+            raise AssertionError("no model group of one after the TP step")
+        model._compact_cache.clear()  # compaction reruns on the shard
+        got_t = {}
+        with torch.no_grad():
+            model.generate(ids, inputs, max_new_tokens=2, **kw)  # warm-up
+            reset()
+            got = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
+                                 timings=got_t, **kw)
+        launches = read()
+    model.params, model.tp_group, model._serving = params, None, None
+    model._compact_cache.clear()
+    log("distributed", path="mcub4_tp1", mesh=json.dumps(mesh.shape),
+        ids_equal=got == want, no_group_decode_tok_per_s=(
+            f"{steps / plain_t['decode_s']:.2f}"),
+        tp1_decode_tok_per_s=f"{steps / got_t['decode_s']:.2f}",
+        no_group_prefill_s=f"{plain_t['prefill_s']:.4f}",
+        tp1_prefill_s=f"{got_t['prefill_s']:.4f}",
+        launches=json.dumps(launches))
+    if got != want:
+        raise AssertionError(f"greedy ids through the tp 1 group {got} != "
+                             f"the no-group run's {want}")
+    n_layers = model.cfg.num_hidden_layers
+    if launches["flash_attention_fwd"] < n_layers \
+            or launches["flash_decode"] < n_layers * steps:
+        raise AssertionError(f"K1/K2 launches on the tp 1 path {launches}")
+    k1, k2 = _tp_shard_cases(device, gen)
+    return {"launches": launches, "k1_tp_shards": k1, "k2_tp_shards": k2,
+            "decode_tok_per_s": {"no_group": steps / plain_t["decode_s"],
+                                 "tp1": steps / got_t["decode_s"]},
+            "prefill_s": {"no_group": plain_t["prefill_s"],
+                          "tp1": got_t["prefill_s"]}}
+
+
+def phase_distributed_train(device):
+    """Phase 14b: phase 9's stage-2 train step at Vicuna-7B width, two
+    steps with no process group, then the same two steps from the same
+    state through the data-parallel path (``mesh_for_batch``, the
+    valid-target count, gradients and loss all-reduced over the data
+    group) in an NCCL group of one: losses and every trainable leaf
+    bit-equal.  At one rank no leaf has a ZeRO-1 axis (``zero_axis`` needs
+    a data width above 1), so the moment slicing and its all-gather do not
+    run here, nor any tensor-parallel collective or leader broadcast: the
+    CPU gloo tests cover those."""
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_forward)
+    from modelcompose_tpu_torch.parallel.mesh import mesh_for_batch
+    from modelcompose_tpu_torch.train.train_multimodal import (
+        build_arg_parser, build_model, build_model_config, make_batch)
+    from modelcompose_tpu_torch.train.trainer import (
+        TrainConfig, init_train_state, make_optimizer, make_train_step,
+        tree_leaves)
+    counters = {"flash_attention_fwd": flash_attention_forward,
+                "flash_attention_bwd_dq": flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
+    args = build_arg_parser().parse_args([
+        "--model_name_or_path", "vicuna-7b-v1.5", "--data_path", "-",
+        "--output_dir", "-", "--random_init_backbone", "--seed", str(SEED),
+        "--mm_vision_encoder", "clip-vit-large-patch14-336",
+        "--mm_projector_type", "mlp2x_gelu", "--mm_vision_select_layer", "-2",
+        "--lora_strategy", "modal+language", "--lora_r", "128",
+        "--lora_alpha", "256", "--local_prefix_tokens", "5",
+        "--local_suffix_tokens", "5", "--gradient_checkpointing", "True"])
+    cfg = build_model_config(args)
+    with warnings.catch_warnings():  # random tower weights are the point
+        warnings.simplefilter("ignore")
+        model = build_model(args, cfg, device)
+    collated = _train_samples(cfg, np.random.default_rng(SEED))
+    batch, layout = make_batch(model, collated)
+    tc = TrainConfig(learning_rate=2e-4, mm_projector_lr=2e-5,
+                     mm_language_lr=1e-5, warmup_ratio=0.0)
+    tree = {"backbone": model.params, "projectors": model.projectors}
+
+    def run(mesh):
+        tx, _ = make_optimizer(cfg, tc, tree, mesh)
+        state = init_train_state(cfg, tc, model.params, model.projectors,
+                                 tx=tx)
+        step = make_train_step(cfg, tc, tx)
+        for fn in counters.values():
+            fn.launches = 0
+        losses, seconds = [], []
+        for _ in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch, layout)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        trained = {p: t.detach().clone() for p, t in tree_leaves(tree)
+                   if tx.trains(p)}
+        return losses, seconds, trained, launches
+
+    tx0, _ = make_optimizer(cfg, tc, tree)
+    start = {p: t.detach().clone() for p, t in tree_leaves(tree)
+             if tx0.trains(p)}
+
+    def restart():  # the same starting state for the next run
+        with torch.no_grad():
+            for p, t in tree_leaves(tree):
+                if p in start:
+                    t.copy_(start[p])
+    plain = run(None)
+    restart()
+    with _NcclWorld1():
+        mesh = mesh_for_batch(len(collated["input_ids"]), allow_partial=True)
+        dp = run(mesh)
+    differ = [p for p in plain[2] if not torch.equal(plain[2][p], dp[2][p])]
+    if dp[0] != plain[0] or differ:
+        # is it the DP path, or does the no-group run itself vary?
+        restart()
+        again = run(None)
+        log("distributed", no_group_rerun_losses=again[0],
+            no_group_rerun_leaves_differing=sum(
+                not torch.equal(plain[2][p], again[2][p]) for p in plain[2]))
+    log("distributed", path="train_dp_world1", mesh=json.dumps(mesh.shape),
+        no_group_losses=[f"{x:.6f}" for x in plain[0]],
+        dp_losses=[f"{x:.6f}" for x in dp[0]],
+        no_group_step_s=[f"{x:.4f}" for x in plain[1]],
+        dp_step_s=[f"{x:.4f}" for x in dp[1]],
+        trainable_leaves=len(plain[2]), leaves_differing=len(differ),
+        launches=json.dumps(dp[3]))
+    if dp[0] != plain[0] or differ:
+        raise AssertionError(f"the world-1 DP run left the no-group run: "
+                             f"losses {dp[0]} vs {plain[0]}, leaves "
+                             f"{differ[:3]}")
+    n_layers = cfg.num_hidden_layers
+    if min(dp[3].values()) < n_layers * DIST_STEPS:
+        raise AssertionError(f"K1/K3/K4 launches on the DP path {dp[3]}")
+    return {"launches": dp[3], "losses": dp[0],
+            "step_s": {"no_group": plain[1], "dp": dp[1]}}
+
+
 def main() -> int:
     try:
         import torch
@@ -4214,11 +4453,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         legacy = timed("legacy_eval", phase_legacy_eval, device, gen, root,
                        merged, base_dir, mcub4_model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_serve = timed("distributed_serve", phase_distributed_serve, device,
+                       gen, mcub4_model, request)
     del mcub4_model, request
     gc.collect()
     torch.cuda.empty_cache()
     k34 = timed("k34", phase_k34, device, gen)
     train = timed("train", phase_train, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_train = timed("distributed_train", phase_distributed_train, device)
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="tmp_entry_", dir=".") as root:
@@ -4249,6 +4495,19 @@ def main() -> int:
                                   legacy["tools"]["bytes"].items()}),
         checkpoint_s=json.dumps({k: round(v, 2) for k, v in
                                  legacy["tools"]["seconds"].items()}))
+    log("phase14", dp_step_s=json.dumps({
+        k: [round(x, 4) for x in v]
+        for k, v in dist_train["step_s"].items()}),
+        decode_tok_per_s=json.dumps({
+            k: round(v, 2) for k, v in dist_serve["decode_tok_per_s"].items()}),
+        prefill_s=json.dumps({k: round(v, 4) for k, v in
+                              dist_serve["prefill_s"].items()}),
+        tp_shard_ms=json.dumps({
+            f"K{i + 1} tp{c['tp']}": None if c["ms"] is None
+            else round(c["ms"], 4)
+            for i, row in enumerate((dist_serve["k1_tp_shards"],
+                                     dist_serve["k2_tp_shards"]))
+            for c in row}))
     log("seconds", phases=json.dumps(seconds),
         total=f"{time.perf_counter() - t_start:.1f}")
     if {"jax", "modelcompose_tpu"} & set(sys.modules):
@@ -4275,24 +4534,33 @@ def main() -> int:
                 "entries": entries["launches"][name],
                 "legacy_eval": legacy["launches"][name],
                 "train": train_launches(name),
-                "train_entry": entry["launches"][name]}
+                "train_entry": entry["launches"][name],
+                "distributed": dist_serve["launches"][name]
+                + dist_train["launches"].get(name, 0)}
 
     def train_paths(name):
         return {"train": train_launches(name),
-                "train_entry": entry["launches"][name]}
+                "train_entry": entry["launches"][name],
+                "distributed": dist_train["launches"][name]}
 
-    def worst(row, key):  # the largest error, phases 10-13's shapes included
+    tp_err = {"fwd": max(c["max_abs_err"]
+                         for c in dist_serve["k1_tp_shards"]),
+              "decode": max(c["max_abs_err"]
+                            for c in dist_serve["k2_tp_shards"])}
+
+    def worst(row, key):  # the largest error, phases 10-14's shapes included
         return dict(row, max_abs_err=max(
             row["max_abs_err"], entry["kernel_checks"][key],
             serve["max_abs_err"].get(key, 0.0),
             eva["kernel_checks"][key], entries["kernel_checks"][key],
-            legacy["kernel_checks"].get(key, 0.0)))
+            legacy["kernel_checks"].get(key, 0.0), tp_err.get(key, 0.0)))
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=K1_SOURCE,
              replaces=K1_REPLACES,
              launches=sum(by_path("flash_attention_fwd").values()),
              launches_by_path=by_path("flash_attention_fwd"),
              serve_chunks=serve["k1_chunks"],
+             tp_shards=dist_serve["k1_tp_shards"],
              **worst(dict(k1, max_abs_err=max(k1["max_abs_err"],
                                               k34["fwd"]["max_abs_err"])),
                      "fwd")),
@@ -4300,7 +4568,8 @@ def main() -> int:
              replaces=K2_REPLACES,
              launches=sum(by_path("flash_decode").values()),
              launches_by_path=by_path("flash_decode"),
-             serve_pool=serve["k2_pool"], **worst(k2, "decode")),
+             serve_pool=serve["k2_pool"],
+             tp_shards=dist_serve["k2_tp_shards"], **worst(k2, "decode")),
         dict(name="flash_attention_bwd_dq", route="cuda", source=K34_SOURCE,
              replaces=K3_REPLACES,
              launches=sum(train_paths("flash_attention_bwd_dq").values()),

@@ -7,7 +7,7 @@ the slot engine's admission); decode steps run with the 'default' route
 class only, matching the reference's decode semantics.  ``generate`` keeps
 the token choice (argmax, or a draw from an explicit ``torch.Generator``)
 and the EOS/done mask on the device, with no per-step host sync, and
-fetches the tokens once at the end; ``generate_stream`` fetches the [B]
+fetches the tokens once at the end; ``stream_decode`` fetches the [B]
 token ids every step, since it hands each token out as it decodes.
 """
 
@@ -21,7 +21,9 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.routed_lora import as_table, fold_decode_adapters, fold_dense
-from .llama import KVCache, forward, forward_hidden_routed, logits_from_hidden
+from ..parallel import tp
+from .llama import (KVCache, forward, forward_hidden_routed,
+                    local_kv_heads, logits_from_hidden)
 from .sampling import categorical, sample_step, top_p_filter
 
 
@@ -32,7 +34,8 @@ def _prefill(params, cfg: ModelConfig, inputs_embeds, route_ids,
     position's fp32 logits [B, V], cache)."""
     B = inputs_embeds.shape[0]
     cache = KVCache.zeros(cfg, B, max_len, quantized=kv_quant,
-                          device=inputs_embeds.device)
+                          device=inputs_embeds.device,
+                          kv_heads=local_kv_heads(params, cfg))
     hidden, cache = forward_hidden_routed(
         params, cfg, inputs_embeds, route_ids=route_ids,
         routing_table=routing_table, segment_ids=segment_ids, cache=cache,
@@ -66,7 +69,7 @@ def prefill_chunked(params, cfg: ModelConfig, inputs_embeds, route_ids,
     chunk = max(1, min(chunk, L))
     sizes = [chunk] * (L // chunk) + ([L % chunk] if L % chunk else [])
     cache = KVCache.zeros(cfg, B, cache_len, quantized=kv_quant,
-                          device=device)
+                          device=device, kv_heads=local_kv_heads(params, cfg))
     if routing_table is not None:
         routing_table = as_table(routing_table, device)
     if route_ids is not None:
@@ -95,7 +98,7 @@ def _decode_step(params, cfg: ModelConfig, cache, tokens, kv_lens,
                  routing_table, attn_impl: str = "auto"):
     """One decode step.  tokens: [B] ids; kv_lens: [B] valid cache length
     before this token.  Returns (logits [B, V], cache, kv_lens + 1)."""
-    embeds = params["embed_tokens"][tokens.long()][:, None]
+    embeds = tp.vocab_embedding(params["embed_tokens"], tokens.long())[:, None]
     logits, cache = forward(
         params, cfg, embeds, route_ids=None, routing_table=routing_table,
         positions=kv_lens[:, None], cache=cache, cache_write_pos=kv_lens,
@@ -117,9 +120,8 @@ def _sync_clock(device) -> float:
 
 def _prepare(inputs_embeds, lengths, segment_ids, route_ids,
              max_new_tokens: int, cache_len: Optional[int]):
-    """Defaults and device placement shared by generate, generate_stream
-    and beam search: (cache_len, lengths int32, segment_ids int32,
-    route_ids)."""
+    """Defaults and device placement shared by generate and beam search:
+    (cache_len, lengths int32, segment_ids int32, route_ids)."""
     L, device = inputs_embeds.shape[1], inputs_embeds.device
     if cache_len is None:
         cache_len = L + max_new_tokens
@@ -251,24 +253,26 @@ def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
     return outputs
 
 
-def generate_stream(params, cfg: ModelConfig, inputs_embeds, *, lengths,
-                    emit, max_new_tokens: Sequence[int],
-                    temperatures: Sequence[float],
-                    top_ps: Optional[Sequence[float]] = None,
-                    generator: torch.Generator, route_ids=None,
-                    routing_table=None, segment_ids=None, cancelled=None,
-                    eos_token_id: Optional[int] = None,
-                    attn_impl: str = "auto") -> None:
-    """Streaming decode of a packed batch: one prefill, then a decode loop
-    that calls ``emit(b, ("token", id))`` for each row's token the step it
-    decodes and ``emit(b, ("done", None))`` once per row (EOS, its
+def stream_decode(prefill, decode, prompt_len: int, lengths, *,
+                  cfg: ModelConfig, emit, max_new_tokens: Sequence[int],
+                  temperatures: Sequence[float],
+                  top_ps: Optional[Sequence[float]], generator,
+                  cancelled=None, eos_token_id: Optional[int] = None,
+                  device=None) -> None:
+    """Streaming decode of a packed batch over two backbone calls:
+    ``prefill(cache_len)`` (the last valid position's fp32 logits [B, V])
+    and ``decode(tokens, kv_lens)`` (host int32 arrays [B]; the next
+    logits), so a caller can run them elsewhere (the served backbone of a
+    tensor-parallel group, ``MultimodalLM.generate_stream``).
+
+    The loop calls ``emit(b, ("token", id))`` for each row's token the step
+    it decodes and ``emit(b, ("done", None))`` once per row (EOS, its
     ``max_new_tokens[b]``, or ``cancelled(b)`` true; rows with a budget of
     0 or less are done before the prefill).  Per-row temperature and top-p
     draw on the device (``sampling.sample_step``, greedy rows bit-identical
     to argmax) from ``generator``; one host fetch of the [B] ids a step.
     The loop ends as soon as every row is done."""
-    B = inputs_embeds.shape[0]
-    device = inputs_embeds.device
+    B = len(max_new_tokens)
     done = [False] * B
     for b in range(B):
         if max_new_tokens[b] <= 0:
@@ -277,18 +281,13 @@ def generate_stream(params, cfg: ModelConfig, inputs_embeds, *, lengths,
     if all(done):
         return
     steps = max(max_new_tokens)
-    cache_len, lengths, segment_ids, route_ids = _prepare(
-        inputs_embeds, lengths, segment_ids, route_ids, steps, None)
     eos = _eos(cfg, eos_token_id)
-    routing_table, decode_table = _decode_tables(routing_table, device)
-    logits, cache = _prefill(params, cfg, inputs_embeds, route_ids,
-                             routing_table, segment_ids, lengths, cache_len,
-                             attn_impl)
+    logits = prefill(prompt_len + steps)
     temps = torch.tensor(list(temperatures), dtype=torch.float32,
                          device=device)
     tps = torch.tensor([1.0] * B if top_ps is None else list(top_ps),
                        dtype=torch.float32, device=device)
-    kv_lens = lengths
+    kv_lens = np.asarray(_on(lengths, "cpu"), np.int32)
     for step in range(steps):
         sampled = sample_step(generator, logits, temps, tps).cpu().numpy()
         tokens = np.zeros(B, np.int32)
@@ -311,6 +310,5 @@ def generate_stream(params, cfg: ModelConfig, inputs_embeds, *, lengths,
                 emit(b, ("done", None))
         if all(done):
             return
-        logits, cache, kv_lens = _decode_step(
-            params, cfg, cache, torch.from_numpy(tokens).to(device), kv_lens,
-            decode_table, attn_impl)
+        logits = decode(tokens, kv_lens)
+        kv_lens = kv_lens + 1

@@ -24,6 +24,7 @@ from ..ops.norms import rms_norm
 from ..ops.quant import dequant_matmul, is_quantized, matmul_f32, quantize_int8
 from ..ops.rope import apply_rope, rope_tables
 from ..ops.routed_lora import as_table, routed_lora_matmul
+from ..parallel import tp
 
 Params = Dict[str, Any]
 
@@ -145,10 +146,14 @@ class KVCache:
 
     @staticmethod
     def zeros(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-              quantized: bool = False, device=None) -> "KVCache":
+              quantized: bool = False, device=None,
+              kv_heads: Optional[int] = None) -> "KVCache":
+        """A zero cache; ``kv_heads`` (default the config's) is the heads
+        this rank holds: a tensor-parallel rank caches its own heads
+        (``local_kv_heads``)."""
         dtype = dtype or torch_dtype(cfg.dtype)
         shape = (cfg.num_hidden_layers, batch, max_len,
-                 cfg.num_key_value_heads, cfg.head_dim)
+                 kv_heads or cfg.num_key_value_heads, cfg.head_dim)
         if quantized:
             def buf():
                 return {"q": torch.zeros(shape, dtype=torch.int8,
@@ -159,6 +164,30 @@ class KVCache:
             return KVCache(k=buf(), v=buf())
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device))
+
+    def splice(self, small: "KVCache", slot: int) -> "KVCache":
+        """Copy a batch-1 cache into row ``slot`` of this one, in place.
+
+        A bf16 cache going into an int8 one is quantized here; a chunked
+        admission into an int8 pool arrives already quantized
+        (``prefill_chunked(kv_quant=True)`` quantizes at append time), and
+        so does a one-shot one (``_prefill(kv_quant=True)``): then the
+        splice is a plain int8 row copy."""
+        for dst, src in ((self.k, small.k), (self.v, small.v)):
+            if isinstance(dst, dict):
+                if not isinstance(src, dict):
+                    src = quantize_kv(src)
+                for part in dst:
+                    dst[part][:, slot] = src[part][:, 0].to(dst[part].dtype)
+            else:
+                dst[:, slot] = src[:, 0].to(dst.dtype)
+        return self
+
+
+def local_kv_heads(params: Params, cfg: ModelConfig) -> int:
+    """The KV heads of this rank's k weight (all of them unsharded)."""
+    w = params["layers"]["attn"]["k"]["w"]
+    return (w["q"] if is_quantized(w) else w).shape[-1] // cfg.head_dim
 
 
 def quantize_kv(val: torch.Tensor):
@@ -218,19 +247,34 @@ def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
 
     Decode is the mode with ``kv_lens`` (the JAX dispatch rule), so a
     1-token chunk never falls into it.
+
+    Under tensor parallelism the head counts are this rank's, read from
+    its weights: q/k/v/gate/up are column-split and o/down row-split
+    (``parallel="column"`` / ``"row"``, whose products sum over the model
+    group before the residual add).
     """
     B, L, _ = x.shape
-    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    hd = cfg.head_dim
 
     h = rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
     ap = lp["attn"]
 
-    def lin(p, inp):
-        return routed_lora_matmul(inp, p["w"], p["lora_a"], p["lora_b"], route)
+    def lin(p, inp, parallel):
+        return routed_lora_matmul(inp, p["w"], p["lora_a"], p["lora_b"],
+                                  route, parallel=parallel)
 
-    q = lin(ap["q"], h).view(B, L, nh, hd)
-    k = lin(ap["k"], h).view(B, L, nkv, hd)
-    v = lin(ap["v"], h).view(B, L, nkv, hd)
+    q = lin(ap["q"], h, "column")
+    k = lin(ap["k"], h, "column")
+    v = lin(ap["v"], h, "column")
+    nh, nkv = q.shape[-1] // hd, k.shape[-1] // hd
+    if nh * tp.model_size() != cfg.num_attention_heads:
+        raise RuntimeError(
+            f"{nh} query heads x a model group of {tp.model_size()} != "
+            f"{cfg.num_attention_heads}: run sharded weights inside their "
+            "group's tp.scope")
+    q = q.view(B, L, nh, hd)
+    k = k.view(B, L, nkv, hd)
+    v = v.view(B, L, nkv, hd)
     q, k = apply_rope(q, k, cos, sin)
 
     if cache is not None and kv_lens is not None:
@@ -260,11 +304,11 @@ def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
         attn_out = attention(q, k, v, causal=True, q_segment_ids=segment_ids,
                              kv_segment_ids=segment_ids, impl=attn_impl)
 
-    x = x + lin(ap["o"], attn_out.reshape(B, L, nh * hd))
+    x = x + lin(ap["o"], attn_out.reshape(B, L, nh * hd), "row")
     h = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
     mp = lp["mlp"]
-    inter = F.silu(lin(mp["gate"], h)) * lin(mp["up"], h)
-    return x + lin(mp["down"], inter)
+    inter = F.silu(lin(mp["gate"], h, "column")) * lin(mp["up"], h, "column")
+    return x + lin(mp["down"], inter, "row")
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, inputs_embeds, *,
@@ -293,12 +337,14 @@ def forward_hidden(params: Params, cfg: ModelConfig, inputs_embeds, *,
 
     x = inputs_embeds
     layers = _unbind_layers(params["layers"], cfg.num_hidden_layers)
+    group = tp.model_group()  # a recompute in the backward runs in its scope
     for li, lp in enumerate(layers):
         def run(x, lp=lp, li=li):
-            return _layer(cfg, lp, x, route, cos, sin,
-                          segment_ids=segment_ids, cache=cache, layer_idx=li,
-                          cache_write_pos=cache_write_pos, kv_lens=kv_lens,
-                          attn_impl=attn_impl)
+            with tp.scope(group):
+                return _layer(cfg, lp, x, route, cos, sin,
+                              segment_ids=segment_ids, cache=cache,
+                              layer_idx=li, cache_write_pos=cache_write_pos,
+                              kv_lens=kv_lens, attn_impl=attn_impl)
         if cfg.remat and cache is None:
             x = checkpoint(run, x, use_reentrant=False)
         else:
@@ -308,11 +354,16 @@ def forward_hidden(params: Params, cfg: ModelConfig, inputs_embeds, *,
 
 def logits_from_hidden(params: Params, hidden) -> torch.Tensor:
     """fp32 logits from an fp32 accumulation, int8 lm_head included: a
-    product rounded to bf16 before the cast flips near-tied argmaxes."""
+    product rounded to bf16 before the cast flips near-tied argmaxes.
+    Under tensor parallelism each rank computes its vocabulary columns and
+    the group gathers the fp32 logits (every rank gets all of them)."""
+    hidden = tp.copy_to_model(hidden)
     if is_quantized(params["lm_head"]):
-        return dequant_matmul(hidden, params["lm_head"],
-                              out_dtype=torch.float32)
-    return matmul_f32(hidden, params["lm_head"])
+        logits = dequant_matmul(hidden, params["lm_head"],
+                                out_dtype=torch.float32)
+    else:
+        logits = matmul_f32(hidden, params["lm_head"])
+    return tp.gather_vocab(logits)
 
 
 def forward_hidden_routed(params: Params, cfg: ModelConfig, inputs_embeds, *,

@@ -29,6 +29,7 @@ import torch
 
 from ..config import ROUTE_CLASS_INDEX
 from ..constants import IGNORE_INDEX, MODAL_TOKEN_INDEXES
+from ..parallel import tp
 
 _INDEX_TO_MODAL = {v: k for k, v in MODAL_TOKEN_INDEXES.items()}
 
@@ -197,9 +198,10 @@ def assemble_embeds(embed_table: torch.Tensor, plan: PackPlan,
                     feats: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Device-side assembly: [B, L, H] packed input embeddings.
 
-    embed_table: [V, H]; feats: {modal: [n_instances, span_len, H]}
-    projected features with prefix/suffix attached, covering
-    plan.feat_layout."""
+    embed_table: [V, H] (this rank's [V / tp, H] under tensor
+    parallelism: the lookup then sums over the model group); feats:
+    {modal: [n_instances, span_len, H]} projected features with
+    prefix/suffix attached, covering plan.feat_layout."""
     H = embed_table.shape[-1]
     device = embed_table.device
 
@@ -213,7 +215,7 @@ def assemble_embeds(embed_table: torch.Tensor, plan: PackPlan,
             raise ValueError(f"{modal} features {tuple(f.shape)} != plan "
                              f"({n}, {t})")
         tables.append(f.reshape(n * t, H))
-    text = embed_table[dev(plan.token_ids).long()]
+    text = tp.vocab_embedding(embed_table, dev(plan.token_ids).long())
     if tables:
         flat = torch.cat(tables, dim=0).to(embed_table.dtype)
         gathered = flat[dev(plan.feat_idx).long()]

@@ -5,9 +5,10 @@
 ``tRNS`` are dropped (not composited), a palette image goes through its
 ``PLTE``.  Non-interlaced 8-bit images of colour types 0 (L), 2 (RGB), 3
 (P), 4 (LA) and 6 (RGBA) are read, and grey or palette images at 1, 2 or
-4 bits; Adam7 interlacing and 16-bit samples raise ``ValueError``.  Every
-other format (JPEG, ...) is opened through PIL, imported when such a file
-is read; without PIL it raises ``ImportError`` naming the format.
+4 bits.  An Adam7-interlaced or 16-bit PNG goes to PIL, as every other
+format (JPEG, ...) does: PIL is imported when such a file is read.
+Without PIL a PNG of those kinds raises ``ValueError`` naming its kind,
+any other format ``ImportError`` naming the format.
 """
 
 from __future__ import annotations
@@ -42,17 +43,35 @@ def load_image(source: Union[str, os.PathLike, bytes]) -> np.ndarray:
     else:
         with open(source, "rb") as f:
             data = f.read()
-    if data.startswith(PNG_SIGNATURE):
+    png_kind = _png_kind_for_pil(data)
+    if data.startswith(PNG_SIGNATURE) and png_kind is None:
         return decode_png(data)
     fmt = _format_of(data)
     try:
         from PIL import Image
     except ImportError as e:
+        if png_kind is not None:
+            raise ValueError(f"{png_kind} PNG is read through PIL, which is "
+                             "not installed") from e
         raise ImportError(
             f"reading a {fmt} image needs PIL, which is not installed "
             "(PNG files are read without it)") from e
     with Image.open(io.BytesIO(data)) as img:
         return np.asarray(img.convert("RGB"))
+
+
+def _png_kind_for_pil(data: bytes):
+    """"Adam7-interlaced" or "16-bit" for a PNG the decoder leaves to PIL
+    (read from its IHDR, the first chunk), else None."""
+    if not data.startswith(PNG_SIGNATURE) or data[12:16] != b"IHDR" \
+            or len(data) < 29:
+        return None
+    depth, interlace = data[24], data[28]
+    if interlace:
+        return "Adam7-interlaced"
+    if depth == 16:
+        return "16-bit"
+    return None
 
 
 def _chunks(data: bytes):

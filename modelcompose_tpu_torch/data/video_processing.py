@@ -7,7 +7,11 @@ processing_video.py:82-135): sample ``num_frames`` indices with
 ``np.linspace(0, duration-1, num_frames)``, decode via OpenCV, then
 rescale 1/255, normalize with the OpenAI CLIP stats, short-side scale to
 224 (bilinear) and center crop.  Eval path — the training-time random
-horizontal flip is intentionally omitted (eval determinism).
+horizontal flip is intentionally omitted (eval determinism).  A still
+image is a one-frame clip read by ``data/image_io.load_image`` (a PNG
+without PIL); without ``cv2`` the resize is ``resize_bilinear``, a numpy
+copy of cv2's ``INTER_LINEAR`` arithmetic (a video file still needs
+``cv2``).
 
 Output layout is [1, T, H, W, 3] float32 (NHWC frames — TPU conv layout),
 vs the reference's [1, 3, T, H, W].
@@ -29,13 +33,44 @@ def uniform_frame_indices(duration: int, num_frames: int) -> np.ndarray:
 
 
 def _short_side_scale(frame: np.ndarray, size: int) -> np.ndarray:
-    import cv2
     h, w = frame.shape[:2]
     if h <= w:
         nh, nw = size, int(round(w * size / h))
     else:
         nh, nw = int(round(h * size / w)), size
+    try:
+        import cv2
+    except ImportError:  # the numpy bilinear, cv2's arithmetic
+        return resize_bilinear(frame, nh, nw)
     return cv2.resize(frame, (nw, nh), interpolation=cv2.INTER_LINEAR)
+
+
+def _linear_taps(n_out: int, n_in: int):
+    """cv2's INTER_LINEAR taps along one axis: (first source index, second,
+    their float32 weights), the source position (dst + 0.5) * scale - 0.5
+    rounded to float32 and clamped at both borders."""
+    scale = 1.0 / (n_out / n_in)  # cv2's 1 / inv_scale, in double
+    pos = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    lo = np.floor(pos).astype(np.int64)
+    frac = pos - lo.astype(np.float32)
+    clamp = (lo < 0) | (lo >= n_in - 1)
+    lo = np.clip(lo, 0, n_in - 1)
+    frac[clamp] = 0
+    hi = np.minimum(lo + 1, n_in - 1)
+    return lo, hi, np.float32(1) - frac, frac
+
+
+def resize_bilinear(frame: np.ndarray, height: int,
+                    width: int) -> np.ndarray:
+    """``cv2.resize(frame, (width, height), interpolation=INTER_LINEAR)``
+    of a float32 [H, W, C] frame in numpy: the horizontal pass, then the
+    vertical, each a two-tap float32 sum (no area averaging on a
+    downscale, as cv2's linear mode has none)."""
+    frame = np.asarray(frame, np.float32)
+    x0, x1, ax0, ax1 = _linear_taps(width, frame.shape[1])
+    y0, y1, ay0, ay1 = _linear_taps(height, frame.shape[0])
+    rows = frame[:, x0] * ax0[None, :, None] + frame[:, x1] * ax1[None, :, None]
+    return rows[y0] * ay0[:, None, None] + rows[y1] * ay1[:, None, None]
 
 
 def _center_crop(frame: np.ndarray, size: int) -> np.ndarray:
@@ -63,13 +98,12 @@ class LanguageBindVideoProcessor:
         return np.stack(out)  # [T, size, size, 3]
 
     def _decode(self, path: str) -> List[np.ndarray]:
-        import cv2
         if str(path).endswith((".jpg", ".jpeg", ".png")):
             # single image as 1-frame video (reference:
-            # processing_video.py:89-96)
-            from PIL import Image
-            img = np.asarray(Image.open(path).convert("RGB"))
-            return [img]
+            # processing_video.py:89-96); a PNG needs neither PIL nor cv2
+            from .image_io import load_image
+            return [load_image(path)]
+        import cv2
         cap = cv2.VideoCapture(str(path))
         duration = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
         if duration <= 0:

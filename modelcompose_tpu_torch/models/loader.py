@@ -25,6 +25,8 @@ from ..core.llama import torch_dtype
 from ..devices import resolve_device
 from ..ops.quant import quantize_backbone
 from ..ops.routed_lora import fold_dense
+from ..parallel import distributed
+from ..parallel.mesh import apply_tensor_parallel
 from .model import MultimodalLM
 from .projectors import init_projector
 from .towers import build_modal_encoders
@@ -88,11 +90,18 @@ def load_pretrained_model(model_path: str, model_base: Optional[str],
     ``fold_decode_dense`` folds the default-route adapter mix into W and
     rebases the routing table (ops/routed_lora.fold_dense), the production
     serving setup.  Projectors the checkpoint lacks are random (seed 0).
+
+    ``tp`` > 1 then shards the backbone Megatron-style over a (1, ``tp``)
+    mesh of the process group (``parallel.mesh.apply_tensor_parallel``):
+    every rank of the world calls the loader, each keeps its shard, and
+    the model holds its model group (``model.tp_group``).  Raises ValueError where the world
+    has fewer than ``tp`` processes, as the JAX loader raises for too few
+    devices.
     """
-    if tp != 1:
-        raise NotImplementedError(
-            "tensor-parallel serving is not ported yet: ROADMAP Queue 1 "
-            "item 12")
+    if tp > 1 and distributed.world_size() < tp:
+        raise ValueError(f"--tp {tp} needs {tp} processes, have "
+                         f"{distributed.world_size()} (launch under "
+                         f"torchrun --nproc-per-node {tp})")
     model_name = model_name or os.path.basename(model_path.rstrip("/"))
     if "multimodal" not in model_name.lower():
         raise ValueError(
@@ -137,6 +146,8 @@ def load_pretrained_model(model_path: str, model_base: Optional[str],
             model.params, table = fold_dense(model.params,
                                              model.routing_table)
             model.routing_table = table.cpu().numpy()
+        if tp > 1:
+            apply_tensor_parallel(model, tp)
     if load_tokenizer_fn is None:
         load_tokenizer_fn = load_tokenizer
     tokenizer = load_tokenizer_fn(model_base)

@@ -32,8 +32,13 @@ from ..core.sampling import entropy_seed
 from ..devices import resolve_device
 from ..ops.routed_lora import (active_adapter_set, as_table,
                                compact_active_adapters)
+from ..parallel import tp
+from ..parallel.serving import ServingBackbone
 from .projectors import apply_projector, init_projector, output_len
 from .towers import build_modal_encoders
+
+
+STREAM = "stream"  # generate_stream's cache in the served backbone
 
 
 class MultimodalLM:
@@ -46,6 +51,10 @@ class MultimodalLM:
         self.projectors = projectors
         self.routing_table = cfg.routing_table()
         self._compact_cache: Dict[Tuple[int, ...], Any] = {}
+        # the model group of sharded params (parallel.mesh
+        # .apply_tensor_parallel); every backbone call runs in its tp.scope
+        self.tp_group = None
+        self._serving = None
 
     @classmethod
     def random_init(cls, cfg: ModelConfig,
@@ -132,17 +141,38 @@ class MultimodalLM:
                                 self.projectors[modal], x))
         return feats
 
-    def prepare_batch(self, input_ids: Sequence[np.ndarray],
-                      modal_inputs: Dict[str, Any],
-                      labels: Optional[Sequence[np.ndarray]] = None,
-                      bucket_len: Optional[int] = None
-                      ) -> Tuple[torch.Tensor, PackPlan]:
+    def pack(self, input_ids: Sequence[np.ndarray],
+             modal_inputs: Dict[str, Any],
+             labels: Optional[Sequence[np.ndarray]] = None,
+             bucket_len: Optional[int] = None
+             ) -> Tuple[Dict[str, torch.Tensor], PackPlan]:
+        """The towers, projectors and the host pack plan, without the
+        embedding lookup: (features by modality, plan)."""
         feats = self.encode_modal_inputs(modal_inputs)
         feat_spans = {m: (int(f.shape[0]), int(f.shape[1]))
                       for m, f in feats.items()}
         plan = plan_pack(list(input_ids), feat_spans, labels=labels,
                          bucket_len=bucket_len)
-        return assemble_embeds(self.params["embed_tokens"], plan, feats), plan
+        return feats, plan
+
+    def prepare_batch(self, input_ids: Sequence[np.ndarray],
+                      modal_inputs: Dict[str, Any],
+                      labels: Optional[Sequence[np.ndarray]] = None,
+                      bucket_len: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, PackPlan]:
+        feats, plan = self.pack(input_ids, modal_inputs, labels, bucket_len)
+        with tp.scope(self.tp_group):
+            embeds = assemble_embeds(self.params["embed_tokens"], plan, feats)
+        return embeds, plan
+
+    @property
+    def serving(self):
+        """The model's ``parallel.serving.ServingBackbone``, made at first
+        use over ``tp_group``: the serving engines' backbone calls,
+        mirrored to the followers of a tensor-parallel group."""
+        if self._serving is None:
+            self._serving = ServingBackbone(self)
+        return self._serving
 
     def generate(self, input_ids: Sequence[np.ndarray],
                  modal_inputs: Dict[str, Any], max_new_tokens: int = 128,
@@ -162,7 +192,7 @@ class MultimodalLM:
         greedy and sampled decode (see core.generate.generate); beam
         search decodes over a bf16 cache, as the JAX package's does.
         ``timings`` receives the prefill and decode seconds."""
-        with torch.no_grad():
+        with torch.no_grad(), tp.scope(self.tp_group):
             embeds, plan = self.prepare_batch(input_ids, modal_inputs,
                                               bucket_len=bucket_len)
             route_ids = plan.route_ids if self.cfg.routing_active() else None
@@ -203,25 +233,31 @@ class MultimodalLM:
         and a row whose ``cancelled(i)`` turns true is masked done (the
         batch stops once every row is).  Draws come from a
         ``torch.Generator`` on the model's device seeded by ``rng_seed``,
-        else by OS entropy (see core.generate.generate_stream)."""
+        else by OS entropy; the loop is ``core.generate.stream_decode``
+        over ``serving``'s prefill and decode."""
         if all(n <= 0 for n in max_new_tokens):  # nothing to encode
             for i in range(len(input_ids)):
                 emit(i, ("done", None))
             return
         generator = torch.Generator(device=self.device).manual_seed(
             rng_seed if rng_seed is not None else entropy_seed())
+        backbone = self.serving
         with torch.no_grad():
-            embeds, plan = self.prepare_batch(input_ids, modal_inputs,
-                                              bucket_len=bucket_len)
-            generation.generate_stream(
-                self.params, self.cfg, embeds, lengths=plan.lengths,
-                route_ids=(plan.route_ids if self.cfg.routing_active()
-                           else None),
-                routing_table=self.routing_table,
-                segment_ids=plan.segment_ids, emit=emit,
-                max_new_tokens=list(max_new_tokens),
-                temperatures=list(temperatures), top_ps=top_ps,
-                generator=generator, cancelled=cancelled)
+            feats, plan = self.pack(input_ids, modal_inputs,
+                                    bucket_len=bucket_len)
+            try:
+                generation.stream_decode(
+                    lambda cache_len: backbone.prefill(STREAM, feats, plan,
+                                                       cache_len),
+                    lambda tokens, kv_lens: backbone.decode(STREAM, tokens,
+                                                            kv_lens),
+                    plan.segment_ids.shape[1], plan.lengths, cfg=self.cfg,
+                    emit=emit, max_new_tokens=list(max_new_tokens),
+                    temperatures=list(temperatures), top_ps=top_ps,
+                    generator=generator, cancelled=cancelled,
+                    device=self.device)
+            finally:
+                backbone.free(STREAM)
 
     def loss(self, input_ids: Sequence[np.ndarray],
              labels: Sequence[np.ndarray], modal_inputs: Dict[str, Any],
@@ -233,12 +269,13 @@ class MultimodalLM:
                                           labels=labels,
                                           bucket_len=bucket_len)
         route_ids = plan.route_ids if self.cfg.routing_active() else None
-        logits, _ = forward(
-            self.params, self.cfg, embeds, route_ids=route_ids,
-            routing_table=self.routing_table,
-            segment_ids=torch.as_tensor(plan.segment_ids,
-                                        device=embeds.device),
-            attn_impl=attn_impl)
+        with tp.scope(self.tp_group):
+            logits, _ = forward(
+                self.params, self.cfg, embeds, route_ids=route_ids,
+                routing_table=self.routing_table,
+                segment_ids=torch.as_tensor(plan.segment_ids,
+                                            device=embeds.device),
+                attn_impl=attn_impl)
         return causal_lm_loss(logits, torch.as_tensor(plan.labels,
                                                       device=embeds.device))
 
@@ -269,13 +306,17 @@ def attach_soft_tokens(params: Dict[str, Any], modal: str,
     return torch.cat(parts, dim=1)
 
 
-def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   denom=None) -> torch.Tensor:
     """Shifted CE with IGNORE_INDEX masking, the mean over valid targets
-    (the JAX package's ``causal_lm_loss``)."""
+    (the JAX package's ``causal_lm_loss``), or their sum over ``denom``
+    where given (a data-parallel group's count of valid targets)."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:].long()
     valid = shift_labels != IGNORE_INDEX
     safe = torch.where(valid, shift_labels, 0)
     logp = torch.log_softmax(shift_logits, dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp_min(1)
+    if denom is None:
+        denom = valid.sum().clamp_min(1)
+    return (nll * valid).sum() / denom

@@ -14,10 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import tp
 from .quant import dequant_matmul, is_quantized, matmul_f32, quantize_int8
 
 
-def routed_lora_matmul(x, w, lora_a, lora_b, route):
+def routed_lora_matmul(x, w, lora_a, lora_b, route, parallel=None):
     """y = x @ w + sum_a route[..., a] * (x @ A_a) @ B_a.
 
     Args:
@@ -26,21 +27,42 @@ def routed_lora_matmul(x, w, lora_a, lora_b, route):
       lora_a: [A, d_in, r]; lora_b: [A, r, d_out].
       route:  [..., L, A] per-token adapter weights (scales folded in), or
               None to skip the adapter branch.
+      parallel: None, or under tensor parallelism (a model group set in
+              ``parallel.tp``) the layer's split: ``"column"`` (w and B
+              hold this rank's output columns, A is whole) or ``"row"``
+              (x and w hold this rank's input rows, A and B are whole).
+
+    A column-split product's input and its ``[*, r]`` bottleneck pass
+    through ``copy_to_model``, whose backward sums their cotangents over
+    the group, so the replicated A's gradient is the whole one on every
+    rank.  A row-split product multiplies its rows of x by its rows of A,
+    then by the whole B: ``(sum_r x_r A_r) B = sum_r x_r A_r B``, so the
+    LoRA term rides in the one fp32 all-reduce of the base product, and B
+    passes through ``copy_to_model`` so its gradient is summed too.
 
     Returns [..., L, d_out] in x.dtype.  The base product stays fp32 until
-    after the adapter add, as in the JAX package.
+    after the adapter add (and the row-split sum), as in the JAX package.
     """
+    column = parallel == "column"
+    x_base = tp.copy_to_model(x) if column else x
     if is_quantized(w):
-        y = dequant_matmul(x, w, out_dtype=torch.float32)
+        y = dequant_matmul(x_base, w, out_dtype=torch.float32)
     else:
-        y = matmul_f32(x, w)
+        y = matmul_f32(x_base, w)
     if route is not None:
+        if parallel == "row":
+            lora_a = tp.slice_rows(lora_a, -2, x.shape[-1])
+            lora_b = tp.copy_to_model(lora_b)
         n_a, d_in, r = lora_a.shape
         a_cat = lora_a.permute(1, 0, 2).reshape(d_in, n_a * r)
         u = matmul_f32(x, a_cat).view(*x.shape[:-1], n_a, r)
         u = u * route[..., None].float()
         u = u.to(lora_b.dtype).reshape(*x.shape[:-1], n_a * r)
+        if column:
+            u = tp.copy_to_model(u)
         y = y + matmul_f32(u, lora_b.reshape(n_a * r, lora_b.shape[-1]))
+    if parallel == "row":
+        y = tp.reduce_from_model(y)
     return y.to(x.dtype)
 
 
@@ -116,12 +138,14 @@ def fold_dense(params, routing_table):
 
     def fold_linear(p):
         w = p["w"]
+        rows = (w["q"] if is_quantized(w) else w).shape[-2]
+        # a row-split rank folds its rows of the whole A
+        a = tp.slice_rows(p["lora_a"], -2, rows)
         if is_quantized(w):
             new_w = quantize_int8(fold_default_adapter(
-                w["q"].float() * w["scale"], p["lora_a"], p["lora_b"], c),
-                axis=-2)
+                w["q"].float() * w["scale"], a, p["lora_b"], c), axis=-2)
         else:
-            new_w = fold_default_adapter(w, p["lora_a"], p["lora_b"], c)
+            new_w = fold_default_adapter(w, a, p["lora_b"], c)
         return {"w": new_w, "lora_a": p["lora_a"], "lora_b": p["lora_b"]}
 
     return _map_linears(params, fold_linear), table - c[None, :]

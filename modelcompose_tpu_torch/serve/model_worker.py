@@ -17,6 +17,12 @@ run without either.
 Usage: python -m modelcompose_tpu_torch.serve.model_worker \\
     --model-path ckpt --model-base vicuna --controller http://...:21001 \\
     --host 0.0.0.0 --port 21002 --worker-address http://...:21002
+
+Tensor-parallel over N GPUs of one host (``--tp N``, one process a GPU):
+``torchrun --nproc-per-node N -m modelcompose_tpu_torch.serve.model_worker
+--tp N ...``.  Rank 0 serves HTTP, runs the towers, the packing and the
+engines, and mirrors every backbone call to the other ranks
+(``parallel/serving.py``); they hold their shard and ``follow``.
 """
 
 from __future__ import annotations
@@ -66,9 +72,17 @@ class BatchingEngine:
         self._queue.put((request, events))
         return events
 
+    def stop(self, timeout: float = 5.0) -> None:
+        """End the batching thread once the batches before it are done
+        (their backbone calls included)."""
+        self._queue.put(None)
+        self._thread.join(timeout)
+
     def _loop(self):
         while True:
             first = self._queue.get()
+            if first is None:
+                return
             batch = [first]
             deadline = time.time() + self.batch_wait_s
             while len(batch) < self.max_batch:
@@ -76,9 +90,13 @@ class BatchingEngine:
                 if timeout <= 0:
                     break
                 try:
-                    batch.append(self._queue.get(timeout=timeout))
+                    item = self._queue.get(timeout=timeout)
                 except queue.Empty:
                     break
+                if item is None:  # stop after this batch
+                    self._queue.put(None)
+                    break
+                batch.append(item)
             requests = [b[0] for b in batch]
             queues = [b[1] for b in batch]
 
@@ -134,6 +152,15 @@ class ModelWorker:
             self.heart_beat_thread = threading.Thread(
                 target=self.heart_beat_worker, daemon=True)
             self.heart_beat_thread.start()
+
+    def close(self) -> None:
+        """Stop the engine and end the followers of a tensor-parallel
+        group (the leader's last backbone call)."""
+        stop = getattr(self.engine, "stop", None)
+        if stop is not None:
+            stop()
+        if self.model.serving.mirrored:
+            self.model.serving.stop()
 
     # -- controller plumbing (reference: model_worker.py:75-106) ------
     def register_to_controller(self):
@@ -358,8 +385,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="dense-fold the default adapter mix into W "
                              "(production serving setup)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree (only 1: multi-GPU "
-                             "serving is ROADMAP Queue 1 item 12)")
+                        help="tensor-parallel degree: shard the backbone "
+                             "Megatron-style over N GPUs, one process each "
+                             "(torchrun --nproc-per-node N); rank 0 serves "
+                             "HTTP, the others follow its backbone calls")
     parser.add_argument("--continuous-batching", action="store_true",
                         help="slot-based scheduling: arrivals join the "
                              "running packed generation (serve/"
@@ -381,10 +410,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
     from ..models.loader import load_pretrained_model
+    from ..parallel import distributed
+    if args.tp > 1 and not distributed.is_initialized():
+        distributed.initialize()  # torchrun's environment
     loader = functools.partial(load_pretrained_model,
                                load_8bit=args.load_8bit,
                                fold_decode_dense=args.fold_decode,
                                tp=args.tp, device=resolve_device(args.device))
+    if not distributed.is_primary():
+        # a follower: its shard of the backbone, driven by rank 0's calls
+        follow(loader, args.model_path, args.model_base, args.model_name)
+        return
     worker = ModelWorker(args.controller_address, args.worker_address,
                          args.model_path, args.model_base, args.model_name,
                          args.limit_model_concurrency, args.no_register,
@@ -395,7 +431,19 @@ def main(argv=None):
                          slot_kv_quant=args.slot_kv_quant,
                          device=args.device)
     from aiohttp import web
-    web.run_app(build_app(worker), host=args.host, port=args.port)
+    try:
+        web.run_app(build_app(worker), host=args.host, port=args.port)
+    finally:
+        worker.close()
+
+
+def follow(loader, model_path, model_base, model_name=None) -> None:
+    """A tensor-parallel follower rank: load the same checkpoint (its
+    shard) and run the leader's backbone calls until the leader stops."""
+    name = model_name or model_path.rstrip("/").split("/")[-1]
+    _, model, _, _ = loader(model_path, model_base, name,
+                            load_tokenizer_fn=lambda _: None)
+    model.serving.follow()
 
 
 if __name__ == "__main__":

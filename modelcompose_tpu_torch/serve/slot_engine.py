@@ -31,34 +31,20 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..core.generate import _decode_step, _prefill, prefill_chunked
-from ..core.llama import KVCache, quantize_kv
+from ..core.llama import KVCache
 from ..core.sampling import entropy_seed, sample_step
 from ..devices import resolve_device
-from ..ops.routed_lora import as_table
 
-
-def _splice_slot(big: KVCache, small: KVCache, slot: int) -> KVCache:
-    """Copy a batch-1 cache into row ``slot`` of the pooled cache, in place.
-
-    A bf16 cache going into an int8 pool is quantized here; a chunked
-    admission into an int8 pool arrives already quantized
-    (``prefill_chunked(kv_quant=True)`` quantizes at append time), and so
-    does a one-shot one (``_prefill(kv_quant=True)``): then the splice is a
-    plain int8 row copy."""
-    for dst, src in ((big.k, small.k), (big.v, small.v)):
-        if isinstance(dst, dict):
-            if not isinstance(src, dict):
-                src = quantize_kv(src)
-            for part in dst:
-                dst[part][:, slot] = src[part][:, 0].to(dst[part].dtype)
-        else:
-            dst[:, slot] = src[:, 0].to(dst.dtype)
-    return big
+POOL, ADMIT = "pool", "admit"  # the backbone's cache names
 
 
 class SlotDecoder:
-    """Model-side half: the pooled cache and the per-slot decode state."""
+    """Model-side half: the pooled cache and the per-slot decode state.
+
+    The backbone calls go through the model's ``ServingBackbone``
+    (``model.serving``): under tensor parallelism this decoder runs on the
+    leader rank and every prefill, splice and tick is mirrored to the
+    followers, which hold their shard of the pool."""
 
     def __init__(self, model, max_slots: int = 8, cache_len: int = 1024,
                  kv_quant: bool = False, prefill_chunk=None, device=None):
@@ -70,6 +56,7 @@ class SlotDecoder:
         self.device = model.device
         self.model = model
         self.cfg = model.cfg
+        self.backbone = model.serving
         self.max_slots = max_slots
         self.cache_len = cache_len
         self.kv_quant = kv_quant
@@ -78,14 +65,16 @@ class SlotDecoder:
         # copies the int8 rows.
         self.prefill_chunk = prefill_chunk
         with torch.inference_mode():
-            self.cache = KVCache.zeros(self.cfg, max_slots, cache_len,
-                                       quantized=kv_quant, device=self.device)
+            self.backbone.new_cache(POOL, max_slots, cache_len, kv_quant)
             self.logits = torch.zeros((max_slots, self.cfg.vocab_size),
                                       dtype=torch.float32, device=self.device)
         self.kv_lens = np.ones(max_slots, np.int64)  # host-owned
         self.active = np.zeros(max_slots, bool)  # host-owned
-        self.table = as_table(model.routing_table, self.device)
-        self.decode_table = model.decode_routing_table()
+
+    @property
+    def cache(self) -> KVCache:
+        """The pooled cache (this rank's heads)."""
+        return self.backbone.caches[POOL]
 
     @torch.inference_mode()
     def admit(self, slot: int, input_ids, modal_inputs,
@@ -98,15 +87,14 @@ class SlotDecoder:
         # the running ticks for less); fall back to the slot-cache length
         # when that bucket exceeds it or no standard bucket holds the
         # prompt (the fallback encodes the media again).
-        embeds = None
+        plan = None
         try:
-            embeds, plan = self.model.prepare_batch([input_ids],
-                                                    modal_inputs)
+            feats, plan = self.model.pack([input_ids], modal_inputs)
         except ValueError:
             pass
-        if embeds is None or embeds.shape[1] > self.cache_len:
+        if plan is None or plan.segment_ids.shape[1] > self.cache_len:
             try:
-                embeds, plan = self.model.prepare_batch(
+                feats, plan = self.model.pack(
                     [input_ids], modal_inputs, bucket_len=self.cache_len)
             except ValueError as e:
                 raise ValueError(
@@ -117,21 +105,10 @@ class SlotDecoder:
             raise ValueError(
                 f"prompt ({L} packed positions) exceeds the slot cache "
                 f"({self.cache_len})")
-        route_ids = (torch.as_tensor(plan.route_ids, device=self.device)
-                     if self.cfg.routing_active() else None)
-        if self.prefill_chunk:
-            logits1, cache1 = prefill_chunked(
-                self.model.params, self.cfg, embeds, route_ids, self.table,
-                plan.lengths, self.cache_len, chunk=self.prefill_chunk,
-                tick_cb=tick_cb, kv_quant=self.kv_quant)
-        else:
-            logits1, cache1 = _prefill(
-                self.model.params, self.cfg, embeds, route_ids, self.table,
-                torch.as_tensor(plan.segment_ids, device=self.device),
-                torch.as_tensor(plan.lengths, dtype=torch.int32,
-                                device=self.device),
-                self.cache_len, "auto", self.kv_quant)
-        _splice_slot(self.cache, cache1, slot)
+        logits1 = self.backbone.prefill(
+            ADMIT, feats, plan, self.cache_len, kv_quant=self.kv_quant,
+            chunk=self.prefill_chunk, tick_cb=tick_cb)
+        self.backbone.splice(POOL, ADMIT, slot)
         self.logits[slot] = logits1[0]
         self.kv_lens[slot] = L
         self.active[slot] = True
@@ -144,12 +121,7 @@ class SlotDecoder:
         admission).  Only active rows advance their kv_len: an idle row
         stays pinned at 1 however long it idles, so its RoPE position and
         attention span never grow."""
-        self.logits, self.cache, _ = _decode_step(
-            self.model.params, self.cfg, self.cache,
-            torch.as_tensor(np.asarray(tokens), dtype=torch.int32,
-                            device=self.device),
-            torch.as_tensor(self.kv_lens, dtype=torch.int32,
-                            device=self.device), self.decode_table)
+        self.logits = self.backbone.decode(POOL, tokens, self.kv_lens)
         self.kv_lens = np.where(self.active, self.kv_lens + 1, 1)
 
     def host_logits(self) -> np.ndarray:

@@ -38,6 +38,7 @@ from ..compose.convert import (params_to_adapter, params_to_hf_llama,
                                projector_to_reference)
 from ..compose.state_io import save_state
 from ..config import ModelConfig
+from ..parallel import distributed
 from ..tree import Path, tree_leaves
 
 PARAMS_FILE = "train_params.pt"
@@ -67,17 +68,31 @@ def save_step_checkpoint(output_dir: str, step: int, state, tx) -> str:
     """Write ``checkpoint-{step}`` for ``state`` trained by ``tx`` (the
     run's ``trainer.Optimizer``).  The files go to a ``.tmp`` directory
     that is renamed when complete, so a run cut off mid-write leaves no
-    checkpoint that resume would pick."""
+    checkpoint that resume would pick.
+
+    Under ZeRO-1 every rank of the data group calls it: the moments' parts
+    are gathered, and the primary rank alone writes the whole moments (so
+    any world size resumes the checkpoint) while the others wait."""
+    mesh = tx.mesh
+    if mesh is not None and mesh.model > 1:
+        raise NotImplementedError(
+            "step checkpoints hold a data-parallel state: a tensor-parallel "
+            "rank's split leaves are its shard")
+    group = None if mesh is None else mesh.data_group
     ckpt_dir = os.path.join(output_dir, f"checkpoint-{step}")
+    opt = state.opt_state
+    moments = {m: {path_key(p): _host(tx.gather_part(p, t))
+                   for p, t in opt[m].items()} for m in ("mu", "nu")}
+    if not distributed.is_primary():
+        distributed.barrier(group)
+        return ckpt_dir
     tmp = ckpt_dir + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     trained = _trained(state, tx)
-    opt = state.opt_state
     torch.save({k: _host(t) for k, t in trained.items()},
                os.path.join(tmp, PARAMS_FILE))
-    torch.save({m: {path_key(p): _host(t) for p, t in opt[m].items()}
-                for m in ("mu", "nu")}, os.path.join(tmp, OPT_FILE))
+    torch.save(moments, os.path.join(tmp, OPT_FILE))
     with open(os.path.join(tmp, STATE_FILE), "w") as f:
         json.dump({"step": int(state.step), "count": int(opt["count"]),
                    "labels": {path_key(p): tx.labels[p]
@@ -85,6 +100,7 @@ def save_step_checkpoint(output_dir: str, step: int, state, tx) -> str:
                               if tx.trains(p)}}, f, indent=1)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     os.replace(tmp, ckpt_dir)
+    distributed.barrier(group)
     return ckpt_dir
 
 
@@ -103,7 +119,9 @@ def restore_step_checkpoint(ckpt_dir: str, state, tx):
     """Copy a step checkpoint into ``state`` in place (trainable leaves,
     moments, count, step) and return it.  Raises ValueError, naming the
     first differences, when the checkpoint's keys, shapes, dtypes or labels
-    are not those of ``state`` and ``tx``."""
+    are not those of ``state`` and ``tx``.  The saved moments are whole:
+    under ZeRO-1 each rank copies in its part, whatever world size wrote
+    them."""
     with open(os.path.join(ckpt_dir, STATE_FILE)) as f:
         meta = json.load(f)
     saved = torch.load(os.path.join(ckpt_dir, PARAMS_FILE),
@@ -114,6 +132,10 @@ def restore_step_checkpoint(ckpt_dir: str, state, tx):
     paths = {path_key(p): p for p, _ in tree_leaves(state.params)}
     moments = {m: {path_key(p): t for p, t in state.opt_state[m].items()}
                for m in ("mu", "nu")}
+    # a moment's whole shape is its leaf's
+    whole = {m: {k: torch.empty(trained[k].shape, dtype=t.dtype,
+                                device="meta")
+                 for k, t in moments[m].items()} for m in moments}
     problems = [f"{k}: {'missing from' if k in trained else 'not trained in'}"
                 f" this run" for k in sorted(set(trained) ^ set(saved))]
     for k in sorted(set(trained) & set(saved)):
@@ -122,8 +144,8 @@ def restore_step_checkpoint(ckpt_dir: str, state, tx):
             problems.append(f"{k}: label {meta['labels'].get(k)!r}, this "
                             f"run {label!r}")
         for name, got, want in (("param", saved[k], trained[k]),
-                                ("mu", opt["mu"].get(k), moments["mu"][k]),
-                                ("nu", opt["nu"].get(k), moments["nu"][k])):
+                                ("mu", opt["mu"].get(k), whole["mu"][k]),
+                                ("nu", opt["nu"].get(k), whole["nu"][k])):
             if got is None or got.shape != want.shape \
                     or got.dtype != want.dtype:
                 was = None if got is None else (tuple(got.shape), got.dtype)
@@ -137,7 +159,7 @@ def restore_step_checkpoint(ckpt_dir: str, state, tx):
         for k, t in trained.items():
             t.copy_(saved[k])
             for m in ("mu", "nu"):
-                moments[m][k].copy_(opt[m][k])
+                moments[m][k].copy_(tx.local_part(paths[k], opt[m][k]))
     state.opt_state["count"] = meta["count"]
     state.step = meta["step"]
     return state

@@ -1,11 +1,20 @@
 """DAMC training entry (counterpart of
 modelcompose_tpu/train/train_multimodal.py): stage-1 projector pretrain
 (``--tune_mm_mlp_adapter True``) and stage-2 DAMC finetune
-(``--lora_strategy modal+language``) on one device, with the reference's
-flag names, modality-grouped length sampling, the warmup + cosine schedule
-with per-group rates, static-shape bucketed packing, step checkpoints with
+(``--lora_strategy modal+language``), with the reference's flag names,
+modality-grouped length sampling, the warmup + cosine schedule with
+per-group rates, static-shape bucketed packing, step checkpoints with
 resume, and the adapter_model / mm_projector exports in the reference key
-layout.  The global batch is ``--per_device_train_batch_size`` (one GPU).
+layout.
+
+One process trains on one device.  Under ``torchrun`` (an initialized
+process group, ``parallel.distributed``) the run is data-parallel with
+ZeRO-1 moments, as the JAX entry runs on its data mesh: the global batch
+is ``--per_device_train_batch_size`` x the data width, every rank draws
+the same global order and collates its ``local_batch_slice`` of each
+global batch, and the primary rank alone writes checkpoints and exports::
+
+    torchrun --nproc-per-node 4 -m modelcompose_tpu_torch.train.train_multimodal ...
 
 DAMC stage 2 on point clouds, as ``run_finetune_point_damc.sh`` runs it::
 
@@ -52,6 +61,8 @@ from ..models.model import MultimodalLM
 from ..models.projectors import init_projector, output_len
 from ..models.towers import ClipVisionTower, build_modal_encoders
 from ..ops.quant import quantize_backbone
+from ..parallel import distributed
+from ..parallel.mesh import mesh_for_batch
 from .checkpoint import (latest_checkpoint, restore_step_checkpoint,
                          save_adapter_checkpoint, save_full_checkpoint,
                          save_projector_checkpoint, save_step_checkpoint)
@@ -294,9 +305,11 @@ def _sync(device: torch.device) -> None:
 
 def train(args, tokenizer=None, device=None,
           time_skip: int = 0) -> Dict[str, Any]:
-    """Train on one device (the card when ``device`` is None), then export
-    by stage: ``mm_projector`` (stage 1), ``adapter_model`` (a LoRA
-    strategy) or the full backbone (``lora_strategy`` absent).
+    """Train on one device (the card when ``device`` is None; each rank's
+    own under a process group, data-parallel), then export by stage:
+    ``mm_projector`` (stage 1), ``adapter_model`` (a LoRA strategy) or the
+    full backbone (``lora_strategy`` absent).  A rank the data mesh leaves
+    idle returns ``{"idle": True, ...}`` at once.
 
     ``--max_steps``, ``--save_steps`` and the warmup count optimizer steps
     (HF semantics), each ``--gradient_accumulation_steps`` micro-batches.
@@ -334,12 +347,32 @@ def train(args, tokenizer=None, device=None,
         tokenizer, model.modal_processors(),
         {"vision": {"image_aspect_ratio": args.image_aspect_ratio}})
 
-    B = args.per_device_train_batch_size
+    # HF flag semantics: the global batch is per-device x data width (the
+    # reference's bs 16 x 8 GPUs = 128); a dataset smaller than that
+    # shrinks the data width (ranks idle, loudly), as the JAX entry does.
+    world = distributed.world_size()
+    per_dev = args.per_device_train_batch_size
     accum = max(args.gradient_accumulation_steps, 1)
     n = len(dataset)
+    data_width = world
+    if n < per_dev * data_width:
+        data_width = max(n // per_dev, 1)
+        if world > 1:
+            print(f"[train] WARNING: dataset has {n} samples < {per_dev}/"
+                  f"device x {world} processes; shrinking the data-parallel "
+                  f"width to {data_width}", flush=True)
+    B = per_dev * data_width
     if n < B:
         raise ValueError(f"dataset has {n} samples < the batch {B}: the "
                          "epoch loader would yield zero batches")
+    mesh = mesh_for_batch(B, allow_partial=True) \
+        if distributed.is_initialized() else None
+    if mesh is not None and not mesh.active:
+        print(f"[train] rank {distributed.rank()} idle: the data mesh has "
+              f"{mesh.data} processes", flush=True)
+        return {"idle": True, "losses": [], "steps": 0}
+    local = slice(0, B) if mesh is None else \
+        distributed.local_batch_slice(B, mesh.data_rank, mesh.data)
     steps_per_epoch = max(n // (B * accum), 1)
     total_steps = args.max_steps if args.max_steps > 0 else \
         int(steps_per_epoch * args.num_train_epochs)
@@ -370,7 +403,7 @@ def train(args, tokenizer=None, device=None,
     train_tree = {"backbone": model.params, "projectors": model.projectors}
     if tower_params is not None:
         train_tree["towers"] = tower_params
-    tx, _ = make_optimizer(cfg, tc, train_tree)
+    tx, _ = make_optimizer(cfg, tc, train_tree, mesh)
     state = init_train_state(cfg, tc, model.params, model.projectors,
                              tower_params=tower_params, tx=tx)
     if accum > 1:
@@ -424,7 +457,11 @@ def train(args, tokenizer=None, device=None,
                 continue
             order = order[to_skip * B:]
             to_skip = 0
-        loader = PrefetchLoader(dataset, order, B, collator,
+        # this rank's slice of each whole global batch
+        order = [int(i) for b in range(len(order) // B)
+                 for i in order[b * B:(b + 1) * B][local]]
+        loader = PrefetchLoader(dataset, order, local.stop - local.start,
+                                collator,
                                 num_workers=args.dataloader_num_workers,
                                 prefetch=4)
         t_mark = time.perf_counter()
@@ -448,7 +485,8 @@ def train(args, tokenizer=None, device=None,
             if time_skip and step_idx == start_step + time_skip:
                 _sync(device)
                 t_steady = time.perf_counter()
-            if step_idx % (args.logging_steps * accum) == 0:
+            if step_idx % (args.logging_steps * accum) == 0 \
+                    and distributed.is_primary():
                 avg = np.mean([float(l) for l in
                                losses[-args.logging_steps * accum:]])
                 rate = (step_idx - start_step) / (time.perf_counter() - t0)
@@ -466,12 +504,15 @@ def train(args, tokenizer=None, device=None,
     t_export = time.perf_counter()
     backbone = state.params["backbone"]
     projectors = state.params["projectors"]
-    if args.tune_mm_mlp_adapter:
+    if not distributed.is_primary():
+        pass
+    elif args.tune_mm_mlp_adapter:
         save_projector_checkpoint(args.output_dir, cfg, projectors)
     elif cfg.lora_strategy is None:
         save_full_checkpoint(args.output_dir, cfg, backbone, projectors)
     else:
         save_adapter_checkpoint(args.output_dir, cfg, backbone, projectors)
+    distributed.barrier(None if mesh is None else mesh.data_group)
     result = {"final_loss": losses[-1] if losses else None,
               "steps": step_idx, "optimizer_steps": step_idx // accum,
               "losses": losses, "train_loop_seconds": t_loop_end - t0,

@@ -17,6 +17,15 @@
 - **No jit, no donation**: the step runs eagerly, and where the JAX package
   donates the old state to XLA, the port updates parameters, moments and
   accumulated gradients in place under ``torch.no_grad()``.
+- **Data parallelism with ZeRO-1** over a ``parallel.mesh.Mesh``: each data
+  rank computes its micro-batch's loss sum over the global count of valid
+  targets, so the group's summed gradients are those of the global token
+  mean; only the trainable leaves' gradients cross ranks (one all-reduce
+  each over the data group); each rank keeps and steps its part of every
+  moment leaf with a ``zero_axis`` (the JAX ``shard_opt_state`` rule), then
+  the group all-gathers the updated parts.  Under tensor parallelism the
+  split leaves' gradients are this rank's shard, and the clip's norm sums
+  them over the model group.
 
 Parameters are keyed by their tree paths (``modelcompose_tpu_torch.tree``).
 """
@@ -38,6 +47,8 @@ from ..core.llama import (forward, forward_hidden_routed, logits_from_hidden,
 from ..core.packing import assemble_embeds
 from ..models.model import attach_soft_tokens, causal_lm_loss
 from ..models.projectors import apply_projector
+from ..parallel import tp
+from ..parallel.mesh import leaf_specs, split_axis, zero_axis
 from ..tree import Path, tree_leaves, tree_map_with_path
 
 
@@ -197,8 +208,12 @@ class Optimizer:
     """
 
     def __init__(self, tc: TrainConfig, labels: Dict[str, Any],
-                 row_lrs: np.ndarray, tower_layers: Optional[int]):
+                 row_lrs: np.ndarray, tower_layers: Optional[int],
+                 mesh=None):
         self.tc = tc
+        self.mesh = mesh
+        self.zero_axes: Dict[Path, int] = {}
+        self.tp_split: Dict[Path, bool] = {}
         self.labels: Dict[Path, str] = dict(tree_leaves(labels))
         self.sched = normalized_warmup_cosine(
             int(tc.warmup_ratio * tc.total_steps), tc.total_steps)
@@ -224,28 +239,89 @@ class Optimizer:
         return self.labels[path] not in self.discarded
 
     def init(self, params) -> Dict[str, Any]:
+        """Zero moments of the trainable leaves: with a mesh, this data
+        rank's part of each leaf with a ``zero_axis`` (ZeRO-1)."""
+        specs = {("backbone",) + k: v
+                 for k, v in leaf_specs(params["backbone"]).items()} \
+            if "backbone" in params else {}
+        data = self.mesh.data if self.mesh is not None else 1
+        model = self.mesh.model if self.mesh is not None else 1
         mu, nu = {}, {}
         for path, p in tree_leaves(params):
-            if self.trains(path):
-                mu[path] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
-                nu[path] = torch.zeros_like(p)
+            if not self.trains(path):
+                continue
+            spec = specs.get(path, ())
+            self.tp_split[path] = model > 1 and split_axis(spec) is not None
+            axis = zero_axis(p.shape, spec, data)
+            if axis is not None:
+                self.zero_axes[path] = axis
+            part = self.local_part(path, p)
+            mu[path] = torch.zeros_like(part, dtype=self.mu_dtype or p.dtype)
+            nu[path] = torch.zeros_like(part)
         return {"count": 0, "mu": mu, "nu": nu}
+
+    def _part(self, path: Path):
+        """(axis, data rank, data width) of this rank's part of a leaf, or
+        None where the leaf's moments are whole."""
+        axis = self.zero_axes.get(path)
+        if axis is None:
+            return None
+        return axis, self.mesh.data_rank, self.mesh.data
+
+    def local_part(self, path: Path, t: torch.Tensor) -> torch.Tensor:
+        """This data rank's part of a full-shape tensor of leaf ``path``
+        (a view; ``t`` itself where the leaf's moments are whole)."""
+        part = self._part(path)
+        if part is None:
+            return t
+        axis, rank, data = part
+        n = t.shape[axis] // data
+        return t.narrow(axis, rank * n, n)
+
+    def gather_part(self, path: Path, t: torch.Tensor) -> torch.Tensor:
+        """The full-shape tensor of leaf ``path`` from each data rank's part
+        ``t`` (an all-gather over the data group; every rank calls it)."""
+        axis = self.zero_axes.get(path)
+        if axis is None:
+            return t
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.mesh.data)]
+        torch.distributed.all_gather(parts, t, group=self.mesh.data_group)
+        return torch.cat(parts, dim=axis)
 
     def _clip(self, grads: Dict[Path, torch.Tensor]):
         max_norm = self.tc.max_grad_norm
-        norm = torch.sqrt(sum(g.float().square().sum()
-                              for g in grads.values()))
+        if any(self.tp_split.get(p, False) for p in grads):
+            # a split leaf's gradient is this rank's shard: its squares sum
+            # over the model group, a replicated leaf's count once
+            split = [g for p, g in grads.items() if self.tp_split[p]]
+            whole = [g for p, g in grads.items() if not self.tp_split[p]]
+            sq = tp.group_sum(sum(g.float().square().sum() for g in split),
+                              self.mesh.model_group)
+            norm = torch.sqrt(sq + sum(g.float().square().sum()
+                                       for g in whole))
+        else:
+            norm = torch.sqrt(sum(g.float().square().sum()
+                                  for g in grads.values()))
         if bool(norm < max_norm):
             return grads
         return {path: (g / norm.to(g.dtype)) * _weak(max_norm, g)
                 for path, g in grads.items()}
 
     def _final_scale(self, path: Path, label: str, u: torch.Tensor):
+        part = self._part(path)
+
+        def rows(scale, axis):  # this rank's rows of a per-row scale
+            if part is None or part[0] != axis:
+                return scale
+            n = scale.shape[0] // part[2]
+            return scale[part[1] * n:(part[1] + 1) * n]
         if label == "lora":  # [N, A, d1, d2]: adapter axis 1
-            return u * (-self.row_lrs.to(u.device)).view(1, -1, 1, 1)
+            scale = rows(-self.row_lrs.to(u.device), 1)
+            return u * scale.view(1, -1, 1, 1)
         if label.startswith("tower"):
             if "layers" in path:
-                scale = -self.tower_layer_lrs.to(u.device)
+                scale = rows(-self.tower_layer_lrs.to(u.device), 0)
                 return u * scale.view((-1,) + (1,) * (u.dim() - 1))
             lr = self.tower_pre_lr if "pre_layernorm" in path \
                 else self.tower_emb_lr
@@ -258,7 +334,9 @@ class Optimizer:
         """One optimizer step over the trainable leaves (``grads`` holds
         exactly those): params += updates in place, each cast to its
         parameter's dtype (``optax.apply_updates``).  Returns the new
-        state; the old moments are replaced, not modified."""
+        state; the old moments are replaced, not modified.  Under ZeRO-1
+        each data rank updates its part of a split leaf and the group
+        all-gathers the parts into the leaf."""
         tc = self.tc
         f32 = np.float32
         if tc.max_grad_norm:
@@ -271,25 +349,30 @@ class Optimizer:
         mus, nus = {}, {}
         for path, g in grads.items():
             label = self.labels[path]
+            g = self.local_part(path, g)
             mu = _ema(tc.adam_b1, g, state["mu"][path])
             nu = _ema(tc.adam_b2, g.square(), state["nu"][path])
             mu_hat = mu / _weak(bc1, mu)
             nu_hat = nu / _weak(bc2, nu)
             u = mu_hat / (nu_hat.sqrt() + _weak(tc.adam_eps, nu_hat))
+            p = self.local_part(path, flat[path])
             if tc.weight_decay and not label.endswith(":nodecay"):
-                p = flat[path]
                 u = u + _weak(tc.weight_decay, p) * p
             u = _weak(step_size, u) * u
-            flat[path].add_(self._final_scale(path, label, u))
+            p.add_(self._final_scale(path, label, u))
+            if path in self.zero_axes:
+                flat[path].copy_(self.gather_part(path, p))
             mus[path] = mu.to(self.mu_dtype) if self.mu_dtype else mu
             nus[path] = nu
         return {"count": count, "mu": mus, "nu": nus}
 
 
 def make_optimizer(cfg: ModelConfig, tc: TrainConfig,
-                   train_params: Dict[str, Any]):
+                   train_params: Dict[str, Any], mesh=None):
     """(Optimizer, labels) for ``train_params`` = {'backbone',
-    'projectors'[, 'towers']}."""
+    'projectors'[, 'towers']}; with ``mesh`` (a ``parallel.mesh.Mesh``) the
+    optimizer keeps ZeRO-1 moments and the steps reduce gradients over its
+    data group."""
     tower_layers = None
     if "towers" in train_params and tc.mm_vision_tower_lr is not None:
         tower = train_params["towers"]["vision"]
@@ -299,8 +382,8 @@ def make_optimizer(cfg: ModelConfig, tc: TrainConfig,
         splittable = {"base", "proj", "soft"} | (
             {"tower"} if tower_layers is not None else set())
         labels = split_nodecay_labels(labels, splittable)
-    return Optimizer(tc, labels, adapter_row_lrs(cfg, tc), tower_layers), \
-        labels
+    return Optimizer(tc, labels, adapter_row_lrs(cfg, tc), tower_layers,
+                     mesh), labels
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +402,8 @@ def init_train_state(cfg: ModelConfig, tc: TrainConfig, backbone_params,
                      tx: Optional[Optimizer] = None) -> TrainState:
     """Trainable leaves get ``requires_grad=True``, frozen ones False; the
     trees are the caller's tensors, not copies, so a train step updates
-    them in place.  One device, no mesh: the sharded optimizer state waits
-    for the multi-GPU port."""
+    them in place.  The moments are ``tx.init``'s: this data rank's part
+    of each leaf where ``tx`` was made with a mesh (``make_optimizer``)."""
     train_params = {"backbone": backbone_params,
                     "projectors": projector_params}
     if tower_params is not None:
@@ -338,12 +421,13 @@ def init_train_state(cfg: ModelConfig, tc: TrainConfig, backbone_params,
 # Loss
 # ---------------------------------------------------------------------------
 
-def chunked_causal_lm_loss(backbone, hidden, labels, chunk: int):
+def chunked_causal_lm_loss(backbone, hidden, labels, chunk: int,
+                           denom=None):
     """Shifted CE computed ``chunk`` positions at a time, each chunk
     checkpointed: the forward keeps only the scalar sums, the backward
     recomputes each chunk's fp32 logits.  The same value as
     ``causal_lm_loss`` (same shift, IGNORE_INDEX, mean over valid
-    targets)."""
+    targets, or the sum over ``denom`` where given)."""
     B, L, _ = hidden.shape
     if L % chunk:
         raise ValueError(f"sequence length {L} is not a multiple of "
@@ -364,18 +448,22 @@ def chunked_causal_lm_loss(backbone, hidden, labels, chunk: int):
         total = total + checkpoint(piece, hidden[:, i:i + chunk],
                                    targets[:, i:i + chunk],
                                    use_reentrant=False)
-    return total / (targets != IGNORE_INDEX).sum().clamp_min(1)
+    if denom is None:
+        denom = (targets != IGNORE_INDEX).sum().clamp_min(1)
+    return total / denom
 
 
 def multimodal_loss_from_features(train_params, cfg: ModelConfig,
                                   routing_table, batch,
                                   attn_impl: str = "auto",
                                   vision_tower_cfg=None,
-                                  loss_chunk: Optional[int] = None):
+                                  loss_chunk: Optional[int] = None,
+                                  denom=None):
     """Loss over a pre-encoded batch (``make_batch``, with its
     'feat_layout' added): the projector runs here, so its gradient flows;
     with 'tower_pixels' in the batch (vision tower training) the CLIP
-    forward runs here too."""
+    forward runs here too.  The mean over the valid targets, or their sum
+    over ``denom`` (a data-parallel group's global count)."""
     backbone = train_params["backbone"]
     encoder_features = dict(batch["encoder_features"])
     if "towers" in train_params and "tower_pixels" in batch:
@@ -402,9 +490,9 @@ def multimodal_loss_from_features(train_params, cfg: ModelConfig,
     if loss_chunk:
         hidden, _ = forward_hidden_routed(backbone, cfg, embeds, **kw)
         return chunked_causal_lm_loss(backbone, hidden, batch["labels"],
-                                      loss_chunk)
+                                      loss_chunk, denom)
     logits, _ = forward(backbone, cfg, embeds, **kw)
-    return causal_lm_loss(logits, batch["labels"])
+    return causal_lm_loss(logits, batch["labels"], denom)
 
 
 # ---------------------------------------------------------------------------
@@ -412,20 +500,41 @@ def multimodal_loss_from_features(train_params, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def _loss_and_grads(cfg, tc, routing_table, train_params, batch,
-                    feat_layout, attn_impl, vision_tower_cfg):
+                    feat_layout, attn_impl, vision_tower_cfg, mesh=None):
     """(loss, {path: grad}) over the leaves that require grad; a trainable
-    leaf the loss does not reach gets zeros (the JAX gradient)."""
+    leaf the loss does not reach gets zeros (the JAX gradient).
+
+    With a mesh each data rank divides its loss sum by the group's count of
+    valid targets (the global token mean: ranks hold different numbers of
+    them), and the loss and each gradient are summed over the data group:
+    the trainable leaves' gradients are all that crosses ranks.  Under
+    tensor parallelism (a mesh with ``model > 1``) the forward and backward
+    run in its model group's ``tp.scope``."""
     leaves = [(path, p) for path, p in tree_leaves(train_params)
               if p.requires_grad]
-    loss = multimodal_loss_from_features(
-        train_params, cfg, routing_table,
-        {**batch, "feat_layout": list(feat_layout)}, attn_impl,
-        vision_tower_cfg, loss_chunk=tc.loss_chunk)
-    grads = torch.autograd.grad(loss, [p for _, p in leaves],
-                                allow_unused=True)
-    return loss.detach(), {
-        path: g if g is not None else torch.zeros_like(p)
-        for (path, p), g in zip(leaves, grads)}
+    group = None if mesh is None else mesh.data_group
+    denom = None
+    if mesh is not None:
+        labels = batch["labels"]
+        denom = tp.group_sum((labels[:, 1:] != IGNORE_INDEX).sum(),
+                             group).clamp_min(1)
+    tp_group = mesh.model_group if mesh is not None and mesh.model > 1 \
+        else None
+    with tp.scope(tp_group):
+        loss = multimodal_loss_from_features(
+            train_params, cfg, routing_table,
+            {**batch, "feat_layout": list(feat_layout)}, attn_impl,
+            vision_tower_cfg, loss_chunk=tc.loss_chunk, denom=denom)
+        grads = torch.autograd.grad(loss, [p for _, p in leaves],
+                                    allow_unused=True)
+    grads = {path: g if g is not None else torch.zeros_like(p)
+             for (path, p), g in zip(leaves, grads)}
+    if group is not None:
+        with torch.no_grad():
+            for g in grads.values():
+                torch.distributed.all_reduce(g, group=group)
+        return tp.group_sum(loss.detach(), group), grads
+    return loss.detach(), grads
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, tx: Optimizer,
@@ -440,7 +549,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, tx: Optimizer,
     def train_step(state: TrainState, batch: Dict[str, Any], feat_layout):
         loss, grads = _loss_and_grads(cfg, tc, routing_table, state.params,
                                       batch, feat_layout, attn_impl,
-                                      vision_tower_cfg)
+                                      vision_tower_cfg, tx.mesh)
         state.opt_state = tx.step(state.params, grads, state.opt_state)
         state.step += 1
         return state, loss
@@ -474,7 +583,8 @@ def make_grad_and_apply(cfg: ModelConfig, tc: TrainConfig, tx: Optimizer,
 
     def grad_fn(train_params, batch, feat_layout):
         return _loss_and_grads(cfg, tc, routing_table, train_params, batch,
-                               feat_layout, attn_impl, vision_tower_cfg)
+                               feat_layout, attn_impl, vision_tower_cfg,
+                               tx.mesh)
 
     @torch.no_grad()
     def accumulate(acc, grads, weight):

@@ -346,7 +346,12 @@ def _write_towers(root):
         os.makedirs(os.path.join(root, spec))
         save_state(_clip_state(tower_cfg, rng, temporal),
                    os.path.join(root, spec, "pytorch_model.bin"))
-    beats = BeatsAudioTower("test:16x2", device="cpu").cfg
+    # A BEATs file's cfg has no fbank_bins (as a public checkpoint's): the
+    # loaded tower takes BEATs' 128 bins, so the tiny tower patches them as
+    # BEATs does, 16 x 16 (a 64-frame window: 4 x 8 = 32 tokens).
+    beats = dataclasses.replace(
+        BeatsAudioTower("test:16x2", device="cpu").cfg, input_patch_size=16,
+        fbank_bins=128)
     torch.save({"cfg": {k: v for k, v in dataclasses.asdict(beats).items()
                         if k != "fbank_bins"},
                 "model": {k: torch.from_numpy(v) for k, v in
@@ -356,6 +361,30 @@ def _write_towers(root):
     torch.save({k: torch.from_numpy(v) for k, v in
                 _point_state(point, rng).items()},
                os.path.join(root, "test:24x2"))
+    _assert_towers_finite(root)
+
+
+def _assert_towers_finite(root):
+    """Every tower loaded from the files above gives finite features."""
+    from modelcompose_tpu_torch.models.towers import tower_class
+    rng = np.random.default_rng(8)
+    inputs = {"vision": rng.normal(size=(1, 28, 28, 3)),
+              "audio": rng.normal(size=(1, 64, 128)),
+              "video": rng.normal(size=(1, 2, 28, 28, 3)),
+              "point": rng.normal(size=(1, 64, 6))}
+    cwd = os.getcwd()
+    os.chdir(root)  # the ``test:`` specs name files here
+    try:
+        for modal, kw in MODALS.items():
+            cfg = _port(_unimodal_cfg(modal))
+            spec = cfg.encoder_spec(modal)
+            tower = tower_class(modal, spec)(spec, cfg, device="cpu")
+            out = tower.encode(torch.from_numpy(
+                inputs[modal].astype(np.float32)))
+            feats = out[0] if isinstance(out, tuple) else out
+            assert torch.isfinite(feats).all(), modal
+    finally:
+        os.chdir(cwd)
 
 
 @pytest.fixture(scope="module")
@@ -379,7 +408,7 @@ def _requests():
     mask[1, 32:] = True
     inputs = {
         "vision": rng.normal(size=(2, 28, 28, 3)).astype(np.float32),
-        "audio": {"audio_inputs": rng.normal(size=(2, 64, 8)).astype(
+        "audio": {"audio_inputs": rng.normal(size=(2, 64, 128)).astype(
                       np.float32),
                   "audio_padding_mask": mask},
         "video": rng.normal(size=(1, 2, 28, 28, 3)).astype(np.float32),
@@ -448,7 +477,9 @@ def test_loader_argument_checks(composed_model_dirs, tmp_path):
         tloader.load_pretrained_model(merged, base, model_name="vicuna")
     with pytest.raises(ValueError, match="model-base"):
         tloader.load_pretrained_model(merged, None)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # tensor parallelism needs as many processes as tp, as the JAX loader
+    # needs as many devices
+    with pytest.raises(ValueError, match="--tp 2 needs 2 processes, have 1"):
         tloader.load_pretrained_model(merged, base, tp=2)
 
 

@@ -187,13 +187,126 @@ def _with_header(data, **fields):
             + data[33:])
 
 
-def test_unsupported_pngs_raise_value_error():
+def test_unsupported_pngs_raise_value_error(monkeypatch):
+    """Adam7 and 16-bit PNGs go to PIL; without PIL they raise, naming the
+    kind; a bad CRC raises whatever is installed."""
     rgb = _pil_bytes(Image.fromarray(_photo(9, 9, 0)))
+    monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(ValueError, match="Adam7"):
         image_io.load_image(_with_header(rgb, interlace=1))
     with pytest.raises(ValueError, match="16-bit"):
         image_io.load_image(_with_header(rgb, depth=16))
+    monkeypatch.delitem(sys.modules, "PIL")
     with pytest.raises(ValueError, match="CRC"):
         image_io.load_image(rgb[:30] + bytes([rgb[30] ^ 1]) + rgb[31:])
     with pytest.raises(FileNotFoundError):
         image_io.load_image("no-such-image.png")
+
+
+# ---------------------------------------------------------------------------
+# 16-bit and Adam7 PNGs: PIL's pixels
+# ---------------------------------------------------------------------------
+
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))  # x0, y0, dx, dy
+
+
+def _png(pixels, ctype, depth, interlace=False):
+    """A PNG of ``pixels`` [H, W, C] (uint8 or uint16), every row filter 0,
+    Adam7-interlaced on request (the passes' sub-images in order)."""
+    h, w = pixels.shape[:2]
+    dtype = ">u2" if depth == 16 else np.uint8
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    raw = b""
+    for x0, y0, dx, dy in passes:
+        sub = pixels[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        for row in sub.astype(dtype):
+            raw += b"\x00" + row.tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    return (image_io.PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0,
+                                         0, int(interlace)))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("ctype,channels", [(0, 1), (2, 3), (6, 4)])
+def test_sixteen_bit_png_is_pils(ctype, channels):
+    """16-bit L, RGB and RGBA: the pixels PIL's ``convert("RGB")`` gives."""
+    rng = np.random.default_rng(ctype)
+    pixels = rng.integers(0, 65536, (13, 17, channels)).astype(np.uint16)
+    data = _png(pixels, ctype, 16)
+    got = image_io.load_image(data)
+    assert got.dtype == np.uint8 and got.shape == (13, 17, 3)
+    np.testing.assert_array_equal(got, _pil_rgb(data))
+
+
+@pytest.mark.parametrize("ctype,channels", [(0, 1), (2, 3), (6, 4)])
+def test_adam7_png_is_pils(ctype, channels):
+    """An Adam7-interlaced PNG the test builds (7 passes over 19 x 21
+    pixels): PIL's pixels, which are the written ones."""
+    pixels = _photo(19, 21, 3)[:, :, :1].repeat(channels, 2) \
+        if channels != 3 else _photo(19, 21, 3)
+    data = _png(pixels.astype(np.uint8), ctype, 8, interlace=True)
+    got = image_io.load_image(data)
+    np.testing.assert_array_equal(got, _pil_rgb(data))
+    np.testing.assert_array_equal(got, np.repeat(pixels[:, :, :1], 3, 2)
+                                  if channels != 3 else pixels)
+
+
+# ---------------------------------------------------------------------------
+# A PNG as a one-frame video clip without cv2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("src,dst", [((48, 80), (224, 373)),
+                                     ((480, 640), (224, 299)),
+                                     ((333, 250), (298, 224)),
+                                     ((224, 224), (224, 224)),
+                                     ((7, 5), (13, 9))])
+def test_numpy_bilinear_equals_cv2_inter_linear(src, dst):
+    """``resize_bilinear`` against ``cv2.resize(..., INTER_LINEAR)`` on
+    float32 frames, up and down: within float32 rounding (1e-6) of cv2's
+    own arithmetic (``setUseOptimized(False)``), and within 5e-4 of its
+    default path, whose IPP kernels use coefficients of their own (up to
+    1.7e-4 apart on N(0, 1) frames)."""
+    import cv2
+    from modelcompose_tpu_torch.data import video_processing as tvideo
+    frame = np.random.default_rng(sum(src)).normal(
+        size=src + (3,)).astype(np.float32)
+    got = tvideo.resize_bilinear(frame, *dst)
+    default = cv2.resize(frame, dst[::-1], interpolation=cv2.INTER_LINEAR)
+    cv2.setUseOptimized(False)
+    try:
+        plain = cv2.resize(frame, dst[::-1], interpolation=cv2.INTER_LINEAR)
+    finally:
+        cv2.setUseOptimized(True)
+    assert got.dtype == np.float32 and got.shape == plain.shape
+    np.testing.assert_allclose(got, plain, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, default, rtol=0, atol=5e-4)
+
+
+def test_png_clip_without_cv2_or_pil(tmp_path, monkeypatch):
+    """A ``.png`` video question: with ``cv2`` (and PIL) blocked, the frame
+    is read by ``load_image`` and resized by the numpy bilinear, within
+    1e-5 of the processor with ``cv2`` (its unoptimized arithmetic)."""
+    import cv2
+    from modelcompose_tpu_torch.data import video_processing as tvideo
+    path = str(tmp_path / "frame.png")
+    chip_smoke.write_png(path, _photo(120, 160, 5))
+    proc = tvideo.LanguageBindVideoProcessor(num_frames=8, size=224)
+    cv2.setUseOptimized(False)
+    try:
+        want = proc(path)
+    finally:
+        cv2.setUseOptimized(True)
+    for name in ("cv2", "PIL"):
+        monkeypatch.setitem(sys.modules, name, None)
+    got = proc(path)
+    assert got.shape == want.shape == (1, 1, 224, 224, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    with pytest.raises(ImportError):
+        proc(str(tmp_path / "clip.mp4"))

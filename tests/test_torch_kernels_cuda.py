@@ -514,7 +514,6 @@ def test_splice_on_card_matches_cpu(pool_int8, small_int8):
     in the last place, so there the spliced row is held to the card's own
     ``quantize_kv`` bit for bit and to the CPU's within one int8 step."""
     from modelcompose_tpu_torch.core.llama import KVCache
-    from modelcompose_tpu_torch.serve.slot_engine import _splice_slot
     gen = torch.Generator().manual_seed(9)
 
     def cache(batch, quantized):
@@ -530,8 +529,8 @@ def test_splice_on_card_matches_cpu(pool_int8, small_int8):
     cpu, card = on(big, "cpu"), on(big, "cuda")
     ptrs = [t.data_ptr() for p in (card.k, card.v)
             for t in (p.values() if isinstance(p, dict) else [p])]
-    _splice_slot(cpu, on(small, "cpu"), 2)
-    _splice_slot(card, on(small, "cuda"), 2)
+    cpu.splice(on(small, "cpu"), 2)
+    card.splice(on(small, "cuda"), 2)
     requantized = pool_int8 and not small_int8
     for i, (got, want) in enumerate(((card.k, cpu.k), (card.v, cpu.v))):
         if requantized:

@@ -9,6 +9,7 @@ file of it (nor ``chip_smoke.py``) imports either.  Its entry points put a model
 card unless asked for the CPU, and raise where there is no card."""
 
 import functools
+import json
 import os
 import pathlib
 import re
@@ -320,6 +321,37 @@ def test_shared_scorers_import_without_jax():
     assert "SHARED_OK" in proc.stdout
 
 
+def test_parallel_and_dryrun_run_with_jax_blocked(tmp_path):
+    """``parallel/*`` imported, and the multi-process dryrun (a DP x TP
+    train step, a TP decode, the audit) run in 2 gloo processes, every
+    process with ``jax`` and ``modelcompose_tpu`` blocked: a
+    ``sitecustomize`` on the path blocks them at each interpreter's start,
+    the launcher's and its ranks'."""
+    (tmp_path / "sitecustomize.py").write_text(
+        "import sys\nsys.modules['jax'] = None\n"
+        "sys.modules['modelcompose_tpu'] = None\n")
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT)])}
+    code = ("import sys\n"
+            "assert sys.modules['jax'] is None\n"
+            "from modelcompose_tpu_torch.parallel import (distributed, mesh,"
+            " serving, tp)\n"
+            "print('PARALLEL_OK')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert "PARALLEL_OK" in proc.stdout
+    proc = subprocess.run([sys.executable, str(DRYRUN), "--world", "2",
+                           "--out", str(tmp_path / "out"), "--timeout", "60"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=90)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["ok"] and result["world"] == 2, result
+    for log in (tmp_path / "out").glob("*.log"):
+        assert "jax" not in log.read_text().lower(), log
+
+
 def test_slice_runs_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", SLICE], cwd=ROOT,
                           capture_output=True, text=True, timeout=120,
@@ -328,7 +360,8 @@ def test_slice_runs_with_jax_blocked():
     assert "SLICE_OK" in proc.stdout
 
 
-PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+DRYRUN = ROOT / "scripts" / "torch_dryrun_multirank.py"
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", DRYRUN]
 
 
 @pytest.mark.parametrize("what,pattern", [
@@ -363,7 +396,9 @@ def test_no_file_of_the_port_imports(what, pattern):
             "compose/merge_deltas_to_base.py", "compose/delta.py",
             "compose/metrics.py", "compose/compare.py",
             "utils/profiling.py", "data/convert_sqa.py",
-            "data/convert_to_multimodal.py"} <= names
+            "data/convert_to_multimodal.py", "parallel/distributed.py",
+            "parallel/mesh.py", "parallel/tp.py",
+            "parallel/serving.py"} <= names
 
 
 @pytest.mark.parametrize("entry", [

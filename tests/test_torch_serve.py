@@ -19,6 +19,7 @@ import json
 import sys
 import threading
 import time
+import zlib
 
 import jax
 import numpy as np
@@ -33,6 +34,7 @@ from modelcompose_tpu.models.model import MultimodalLM as JaxLM
 from modelcompose_tpu_torch.convert import model_from_jax
 from modelcompose_tpu_torch.core import generate as tgen
 from modelcompose_tpu_torch.serve import model_worker as tworker
+from tests import fake_tokenizer
 from tests.fake_tokenizer import FakeLlamaTokenizer
 from tests.test_torch_generate import _numpy_model
 
@@ -48,6 +50,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _fixed_token_ids(monkeypatch):
+    """The fake tokenizer's builtin hash is salted per process: crc32 fixes
+    the ids, so every run asks the same prompts (a salt that made the tiny
+    model answer EOS early cut the wire chunks short)."""
+    monkeypatch.setattr(fake_tokenizer, "hash",
+                        lambda w: zlib.crc32(w.encode()), raising=False)
 
 
 @pytest.fixture(scope="module")
@@ -499,8 +510,12 @@ def test_external_cancel_event_releases_row(counted_worker):
     assert steps[0] <= 10, steps[0]
 
 
-def test_worker_main_refuses_tensor_parallel(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
+def test_worker_main_refuses_tensor_parallel(tmp_path, monkeypatch):
+    """``--tp 2`` outside a process group of 2 is refused: the worker joins
+    the group torchrun describes, and without one it names torchrun."""
+    for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
         tworker.main(["--model-path", str(tmp_path / "m-multimodal"),
                       "--model-base", str(tmp_path), "--tp", "2",
                       "--device", "cpu", "--no-register"])

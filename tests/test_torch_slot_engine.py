@@ -258,7 +258,7 @@ def test_splice_slot_writes_one_row_in_place(pool_int8, small_int8):
               for p, c in (("k", big.k), ("v", big.v))}
     ptrs = [t.data_ptr() for c in (big.k, big.v)
             for t in (c.values() if isinstance(c, dict) else [c])]
-    out = tslot._splice_slot(big, small, 1)
+    out = big.splice(small, 1)
     assert out is big and ptrs == [t.data_ptr() for c in (big.k, big.v) for t
                                    in (c.values() if isinstance(c, dict)
                                        else [c])]

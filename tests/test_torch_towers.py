@@ -407,7 +407,12 @@ def _point_state(cfg, rng):
         for ln in ("norm1", "norm2"):
             sd[pre + ln + ".weight"] = (D,)
             sd[pre + ln + ".bias"] = (D,)
-    return {k: rng.normal(size=s).astype(np.float32) for k, s in sd.items()}
+    state = {k: rng.normal(size=s).astype(np.float32)
+             for k, s in sd.items()}
+    for k in state:  # a BatchNorm variance is positive (a negative one
+        if k.endswith("running_var"):  # makes the features NaN)
+            state[k] = np.abs(state[k]) + np.float32(0.5)
+    return state
 
 
 def test_convert_point_bert_matches_jax(tmp_path, monkeypatch):
