@@ -22,7 +22,12 @@ nonzero:
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
    answering two image+question requests greedily through
-   ``MultimodalLM.generate``; then prefill and teacher-forced decode on the
+   ``MultimodalLM.generate``: the first request of the shape captures its
+   decode graph (``core/decode_graph``), the second, timed, replays it
+   once a token (capture and replay counts checked, peak allocated and
+   reserved memory); the same request decoded with ``device_loop=False``
+   (each step's launches from Python), its greedy ids bit-equal, decode
+   tokens/s both ways; then prefill and teacher-forced decode on the
    plain path with the same weights and tokens, logits held to a bf16
    tolerance;
 6. composed: the MCUB-4 composition (``configs.mcub4_damc_7b``: CLIP,
@@ -31,12 +36,17 @@ nonzero:
    random weights, in the same production variant plus the adapter stacks
    compacted to the batch's columns: one four-modality request of 3,287
    positions (the 3,328 bucket) answered with 32 greedy tokens; the time
-   of each tower and projector, prefill, decode, peak memory, the kernel
-   path's logits against the plain path's, and torch.profiler over the
-   towers + prefill (``chiprun_out/composed_profile.txt``);
+   of each tower and projector, PointBERT's farthest-point sampling as one
+   graph replay against its eager loop (indices equal), prefill, decode
+   through the graph as in phase 5 (against ``device_loop=False``, ids
+   bit-equal), peak memory, torch.profiler over one replay of the step
+   (``chiprun_out/decode_step_profile.txt``), the kernel path's logits
+   against the plain path's, and torch.profiler over the towers + prefill
+   (``chiprun_out/composed_profile.txt``);
 6b. decode variants on phase 6's model and request: sampled (temperature
    0.2), sampled with top-p 0.7 (every drawn token inside its step's
-   nucleus), the ``concat`` fold (its ids against the unfolded decode's),
+   nucleus; both sampled runs' ids equal to ``device_loop=False`` from the
+   same seed), the ``concat`` fold (its ids against the unfolded decode's),
    beam search and beam sampling (3 beams, 16 tokens, K2 over a bf16
    cache of 3 rows), each with its answer, launches, decode tokens/s and
    peak memory;
@@ -98,6 +108,8 @@ nonzero:
    named near tie; K1 at the admission's chunk shapes (beside SDPA with
    ``causal_lower_right``, both also timed from a CUDA graph) and K2 on
    the pool at its fullest step's kv_len, against their plain versions;
+   the pool decodes through its own decode graph, one replay a tick
+   (each run's captures and replays printed);
    then the micro-batching worker packing 4 requests into one
    ``generate_stream``, and the chat CLI (``serve/cli.main``) on phase 7's
    checkpoint with two turns on stdin;
@@ -147,8 +159,9 @@ nonzero:
    group of this one process on a free local port, left afterwards): (a)
    after 13, phase 6's model sharded at tp 1 by the loader's
    tensor-parallel step, the MCUB-4 request answered with greedy ids equal
-   to a no-group run's bit for bit (prefill s and decode tokens/s of both;
-   K1 and K2 counted on the tp 1 path), then K1 and K2 at the tp 2 and 4
+   to a no-group run's bit for bit (prefill s and decode tokens/s of both,
+   both with ``device_loop=False``: collectives are not captured; K1 and
+   K2 counted on the tp 1 path), then K1 and K2 at the tp 2 and 4
    ranks' shapes (16 and 8 heads, the 3,328 bucket and the int8 3,360
    cache) against their plain versions, timed by CUDA graph replay, with
    their bounds (the ``tp_shards`` of the K1 and K2 rows); (b) after 9,
@@ -173,8 +186,12 @@ launch on a cold layer, and K3's and K4's ``train_batch`` and
 K1's ``serve_chunks`` and K2's ``serve_pool`` hold phase 11's, their
 ``tp_shards`` phase 14's; each kernel's ``launches_by_path`` splits its
 launches by phase.  A time that
-could not be taken is null.  The last line is ``{"ok": true, "device":
-{...}}``.  Without a CUDA device the script exits nonzero and prints no
+could not be taken is null.  K2's launches count each replay of a decode
+graph as the launches its capture recorded, so a replayed step counts as
+an eager one.  Before them, a ``[decode_graph]`` line gives the graph
+replays of each phase (every decoding phase must have some), the captures,
+phase 6's graph-against-eager decode and its sampling times.  The last
+line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits nonzero and prints no
 result.
 """
 
@@ -228,6 +245,9 @@ SAMPLE_TEMPERATURE = 0.2
 SAMPLE_TOP_P = 0.7
 BEAM_SAMPLE_TEMPERATURE = 0.7
 QA_TOKENS = 16  # --max-new-tokens of the question-file runs
+# the phases whose decoding runs through captured decode graphs
+DECODING_PHASES = ("main", "composed", "decode_variants", "qa_loader",
+                   "serve", "eva_imagebind", "entries", "legacy_eval")
 # The MCUB-4 prompt: 586 + 42 + 2,066 + 523 feature positions and 70 text
 # tokens, packed in the 3,328 bucket; K1 at its prefill shape.
 MCUB4_POSITIONS = 3287
@@ -310,6 +330,7 @@ def graph_time_ms(fn, n: int = 20, replays: int = 5):
     between two events.  None, with the reason logged, when ``fn`` cannot
     be captured."""
     import torch
+    from modelcompose_tpu_torch.ops import flash_decode
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the default stream
@@ -319,7 +340,9 @@ def graph_time_ms(fn, n: int = 20, replays: int = 5):
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        # K2's scratch is the capture record's, kept as long as the graph
+        with flash_decode.capturing() as record, torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
             for _ in range(n):
                 fn()
     except Exception as e:  # noqa: BLE001 — reported as not measured
@@ -335,7 +358,86 @@ def graph_time_ms(fn, n: int = 20, replays: int = 5):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
+    del record
     return start.elapsed_time(end) / (n * replays)
+
+
+def _graph_counts():
+    """(captures, replays) of every decode graph so far."""
+    from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
+    return DecodeGraph.captures, DecodeGraph.replays
+
+
+def _peak_gb():
+    """(peak allocated, peak reserved) GB since the last reset: reserved
+    holds the decode graphs' private pools besides the allocator's cache;
+    allocated holds the retained graph caches."""
+    import torch
+    return (torch.cuda.max_memory_allocated() / 2**30,
+            torch.cuda.max_memory_reserved() / 2**30)
+
+
+def _graph_pools_gb():
+    """GB the allocator holds in private pools: the live CUDA graphs' (the
+    decode graphs' and PointBERT's sampling graphs')."""
+    import torch
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 2**30
+
+
+def _graph_vs_eager(phase, model, ids, inputs, answers, timings, **kw):
+    """The request decoded again with ``device_loop=False`` (each step's
+    launches from Python): greedy ids bit-equal to the graph's, and the
+    decode tokens/s of both."""
+    eager_t = {}
+    eager = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
+                           device_loop=False, timings=eager_t, **kw)
+    steps = len(ids) * (NEW_TOKENS - 1)
+    res = {"ids_equal": eager == answers,
+           "graph_decode_tok_per_s": steps / timings["decode_s"],
+           "eager_decode_tok_per_s": steps / eager_t["decode_s"],
+           "eager_prefill_s": eager_t["prefill_s"]}
+    log(phase, decode="graph vs eager", ids_equal=res["ids_equal"],
+        graph_decode_tok_per_s=f"{res['graph_decode_tok_per_s']:.2f}",
+        eager_decode_tok_per_s=f"{res['eager_decode_tok_per_s']:.2f}")
+    if eager != answers:
+        raise AssertionError(f"{phase}: graph decode {answers} != eager "
+                             f"{eager}")
+    return res
+
+
+def _timed_request(phase, model, ids, inputs, **kw):
+    """One request's shape decoded twice through the model's decode graph:
+    the first request captures it (one capture), the second, counted and
+    timed, replays it (no capture, one replay a step).  Returns (answers,
+    timings, launches, graph counts, peak GB)."""
+    import torch
+    reset, read = _attention_counters()
+    c0, _ = _graph_counts()
+    model.generate(ids, inputs, max_new_tokens=NEW_TOKENS, **kw)
+    c1, r1 = _graph_counts()
+    gc.collect()
+    torch.cuda.empty_cache()  # reserved = allocated + graph pools + slack
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    timings = {}
+    answers = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
+                             timings=timings, **kw)
+    launches = read()
+    c2, r2 = _graph_counts()
+    peak, reserved = _peak_gb()
+    graphs = {"first_request_captures": c1 - c0,
+              "second_request_captures": c2 - c1,
+              "second_request_replays": r2 - r1}
+    log(phase, graphs=json.dumps(graphs), peak_mem_gb=f"{peak:.2f}",
+        peak_reserved_gb=f"{reserved:.2f}",
+        graph_pools_gb=f"{_graph_pools_gb():.3f}",
+        retained_graphs=len(model.decode_graphs))
+    if graphs != {"first_request_captures": 1, "second_request_captures": 0,
+                  "second_request_replays": NEW_TOKENS - 1}:
+        raise AssertionError(f"{phase}: decode graphs {graphs}: want one "
+                             f"capture for the shape, reused")
+    return answers, timings, launches, graphs, (peak, reserved)
 
 
 def _ms(t):
@@ -805,21 +907,12 @@ def build_main_model(device, gen):
 
 
 def phase_main_path(device, gen):
-    import torch
-    from modelcompose_tpu_torch.ops.flash_attention import (
-        flash_attention_forward)
-    from modelcompose_tpu_torch.ops.flash_decode import flash_decode_attention
-
     cfg, model = build_main_model(device, gen)
     ids, inputs = _requests(cfg, device, gen)
-    model.generate(ids, inputs, max_new_tokens=2, kv_quant=True)  # warm-up
-    flash_attention_forward.launches = 0
-    flash_decode_attention.launches = 0
-    timings = {}
-    answers = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
-                             kv_quant=True, timings=timings)
-    launches = {"flash_attention_fwd": flash_attention_forward.launches,
-                "flash_decode": flash_decode_attention.launches}
+    # the first request of the shape captures its decode graph (and warms
+    # every kernel up); the second, timed and counted, replays it
+    answers, timings, launches, _, _ = _timed_request(
+        "main", model, ids, inputs, kv_quant=True)
     n_layers = cfg.num_hidden_layers
     decode_steps = NEW_TOKENS - 1
     decode_tok_s = len(ids) * decode_steps / timings["decode_s"]
@@ -832,6 +925,8 @@ def phase_main_path(device, gen):
     if launches["flash_decode"] < n_layers * decode_steps:
         raise AssertionError(f"K2 launched {launches} < "
                              f"{n_layers * decode_steps} times")
+    _graph_vs_eager("main", model, ids, inputs, answers, timings,
+                    kv_quant=True)
     _compare_logits("main", model, ids, inputs, answers, LOGIT_TOL)
     return launches
 
@@ -932,10 +1027,6 @@ def phase_composed(device, gen):
     the kernel path's logits against the plain path's."""
     import torch
     from modelcompose_tpu_torch.configs import MCUB4_SPANS, mcub4_damc_7b
-    from modelcompose_tpu_torch.ops.flash_attention import (
-        flash_attention_forward)
-    from modelcompose_tpu_torch.ops.flash_decode import flash_decode_attention
-
     from modelcompose_tpu_torch.tree import tree_leaves
 
     cfg = mcub4_damc_7b()
@@ -953,17 +1044,10 @@ def phase_composed(device, gen):
     if (int(plan.lengths[0]), embeds.shape[1]) != (MCUB4_POSITIONS, 3328):
         raise AssertionError(f"packed {plan.lengths} in {embeds.shape[1]}")
     del embeds
+    fps = _fps_check("composed", inputs["point"])
     kw = dict(kv_quant=True, compact_adapters=True)
-    model.generate(ids, inputs, max_new_tokens=2, **kw)  # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    flash_attention_forward.launches = 0
-    flash_decode_attention.launches = 0
-    timings = {}
-    answers = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
-                             timings=timings, **kw)
-    launches = {"flash_attention_fwd": flash_attention_forward.launches,
-                "flash_decode": flash_decode_attention.launches}
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    answers, timings, launches, graphs, (peak, reserved) = _timed_request(
+        "composed", model, ids, inputs, **kw)
     active = list(model._compact_cache)
     decode_steps = NEW_TOKENS - 1
     log("composed", prefill_s=f"{timings['prefill_s']:.4f}",
@@ -980,6 +1064,9 @@ def phase_composed(device, gen):
     if launches["flash_decode"] < n_layers * decode_steps:
         raise AssertionError(f"K2 launched {launches} < "
                              f"{n_layers * decode_steps} times")
+    vs_eager = _graph_vs_eager("composed", model, ids, inputs, answers,
+                               timings, **kw)
+    step_prof = _decode_step_profile(model)
     rel = _compare_logits("composed", model, ids, inputs, answers,
                           COMPOSED_LOGIT_TOL)
     prof = _profile("composed_prefill", lambda: model.generate(
@@ -987,8 +1074,57 @@ def phase_composed(device, gen):
     return {"launches": launches, "towers": towers,
             "prefill_s": timings["prefill_s"],
             "decode_tok_per_s": decode_steps / timings["decode_s"],
-            "peak_mem_gb": peak, "logit_rel_err": rel,
+            "peak_mem_gb": peak, "peak_reserved_gb": reserved,
+            "graphs": graphs, "vs_eager": vs_eager, "fps": fps,
+            "decode_step_profile": step_prof, "logit_rel_err": rel,
             "profile": prof}, model, (ids, inputs)
+
+
+def _fps_check(phase, points):
+    """PointBERT's farthest-point sampling of the request's cloud (512 of
+    8,192) as one graph replay against the eager loop on the card: median
+    wall ms of each (synchronized), indices equal."""
+    import torch
+    from modelcompose_tpu_torch.models import point_bert
+    xyz, npoint = points[..., :3], 512
+
+    def eager():
+        out = torch.zeros((xyz.shape[0], npoint), dtype=torch.int64,
+                          device=xyz.device)
+        point_bert._fps_loop(xyz, 0, out)
+        return out.to(torch.int32)
+    c0 = point_bert.farthest_point_sample.captures
+    graph_ms = _median_ms(lambda: point_bert.farthest_point_sample(
+        xyz, npoint))
+    eager_ms = _median_ms(eager)
+    equal = torch.equal(point_bert.farthest_point_sample(xyz, npoint),
+                        eager())
+    res = {"graph_ms": graph_ms, "eager_ms": eager_ms, "equal": equal,
+           "captures": point_bert.farthest_point_sample.captures - c0}
+    log(phase, fps_graph_ms=f"{graph_ms:.3f}", fps_eager_ms=f"{eager_ms:.3f}",
+        fps_indices_equal=equal, fps_captures=res["captures"])
+    if not equal or res["captures"] > 1:
+        raise AssertionError(f"{phase}: FPS graph {res}")
+    return res
+
+
+def _decode_step_profile(model):
+    """torch.profiler over one replay of the model's last decode graph:
+    the device ops of a captured step by time
+    (``chiprun_out/decode_step_profile.txt``); where the profile sees no
+    kernel inside the graph, one eager step over the same cache instead."""
+    import torch
+    from modelcompose_tpu_torch.core.generate import _decode_step
+    graph = list(model.decode_graphs._graphs.values())[-1]
+    res = _profile("decode_step_replay", graph.replay,
+                   "decode_step_profile.txt")
+    if not res["device_kernel_s"]:
+        def eager():
+            with torch.no_grad():
+                _decode_step(graph.params, graph.cfg, graph.cache,
+                             graph.tokens, graph.kv_lens, graph.table)
+        res = _profile("decode_step_eager", eager, "decode_step_profile.txt")
+    return res
 
 
 def _attention_counters():
@@ -1016,6 +1152,8 @@ class _KernelInputs:
     copies stay on the device: recording adds no host sync."""
 
     def __enter__(self):
+        import torch
+        from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
         from modelcompose_tpu_torch.ops import flash_attention, flash_decode
         self.modules = (flash_attention, flash_decode)
         attention_check, decode_check = self.checks = tuple(
@@ -1030,16 +1168,32 @@ class _KernelInputs:
 
         def decode(q, k_q, v_q, k_s, v_s, kv_len):
             key = tuple(k_q.shape) + (q.shape[2], str(k_q.dtype))
-            if key not in self.decode:
+            # a capture records no values: its replays are seen below
+            if key not in self.decode \
+                    and not torch.cuda.is_current_stream_capturing():
                 self.decode[key] = kv_len.clone()
             return decode_check(q, k_q, v_q, k_s, v_s, kv_len)
         flash_attention._check_cuda_inputs = attention
         flash_decode._check_cuda_inputs = decode
+        # a replayed decode graph runs its K2 launches without a call: its
+        # first replay here records them, after it ran (so kv_len holds
+        # that step's values)
+        self.replay, seen = DecodeGraph.replay, set()
+
+        def replay(graph):
+            self.replay(graph)
+            if id(graph) not in seen:
+                seen.add(id(graph))
+                for args in graph.k2.launches:
+                    decode(*args)
+        DecodeGraph.replay = replay
         return self
 
     def __exit__(self, *exc):
+        from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
         for module, check in zip(self.modules, self.checks):
             module._check_cuda_inputs = check
+        DecodeGraph.replay = self.replay
 
     def decode_rows_dtype(self):
         """Sorted (batch rows, cache dtype) of the K2 launches seen."""
@@ -1168,12 +1322,23 @@ def phase_decode_variants(model, request):
     out, answers = {}, {}
     sampled = dict(max_new_tokens=NEW_TOKENS, kv_quant=True,
                    temperature=SAMPLE_TEMPERATURE)
-    out["a_sampled"], _ = _variant(
+    out["a_sampled"], answers["a"] = _variant(
         "a sampled", model, ids, inputs, top_p=1.0, generator=gen(1),
         compact_adapters=True, **sampled)
     out["b_top_p"], answers["b"] = _variant(
         "b top_p", model, ids, inputs, top_p=SAMPLE_TOP_P, generator=gen(2),
         **sampled)
+    # the draws stay outside the graph: the eager loop draws the same ids
+    # from the same seed
+    for key, seed, kw in (("a", 1, dict(top_p=1.0, compact_adapters=True)),
+                          ("b", 2, dict(top_p=SAMPLE_TOP_P))):
+        eager = model.generate(ids, inputs, generator=gen(seed),
+                               device_loop=False, **kw, **sampled)
+        log("decode_variants", variant=f"{key} eager", ids_equal=eager
+            == answers[key])
+        if eager != answers[key]:
+            raise AssertionError(f"{key}: sampled ids through the graph "
+                                 f"{answers[key]} != eager {eager}")
     out["b_top_p"]["nucleus"] = _nucleus_check(model, ids, inputs,
                                                answers["b"])
     # (c) needs a live default route: the folded base with the routing
@@ -1653,8 +1818,10 @@ def _serve_run(part, worker, requests, waves, mcub4=None, stop_str=None):
             if "prepared" in r else prepare(r)
     gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset()
+    captures0, replays0 = _graph_counts()
     recs, threads = {}, {}
     t_start = time.perf_counter()
 
@@ -1692,9 +1859,15 @@ def _serve_run(part, worker, requests, waves, mcub4=None, stop_str=None):
                              f"{SERVE_TIMEOUT_S} s: {hung}")
     torch.cuda.synchronize()
     launches = read()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak, reserved = _peak_gb()
+    captures, replays = _graph_counts()
     out = {"requests": {}, "launches": launches, "peak_mem_gb": peak,
-           "seconds": time.perf_counter() - t_start}
+           "peak_reserved_gb": reserved,
+           "seconds": time.perf_counter() - t_start,
+           "graph_captures": captures - captures0,
+           "graph_replays": replays - replays0}
+    if not out["graph_replays"]:
+        raise AssertionError(f"{part}: no decode graph replayed")
     for name, rec in recs.items():
         if "error" in rec or (rec.get("last") or {}).get("error_code"):
             raise AssertionError(f"{part}/{name}: {rec.get('error') or rec}")
@@ -1720,6 +1893,10 @@ def _serve_run(part, worker, requests, waves, mcub4=None, stop_str=None):
     log("serve", part=part, seconds=f"{out['seconds']:.2f}",
         aggregate_tok_per_s=f"{out['aggregate_tok_per_s']:.2f}",
         tokens=n_tokens, peak_mem_gb=f"{peak:.2f}",
+        peak_reserved_gb=f"{reserved:.2f}",
+        graph_pools_gb=f"{_graph_pools_gb():.3f}",
+        graph_captures=out["graph_captures"],
+        graph_replays=out["graph_replays"],
         launches=json.dumps(launches), tick=json.dumps(out.get("tick")),
         steps=out.get("steps"), step_median_ms=out.get("step_median_ms"))
     for name, r in out["requests"].items():
@@ -3293,7 +3470,8 @@ def phase_eva_imagebind(device, gen):
     if bucket != 1024:
         raise AssertionError(f"packed {positions} in {bucket}")
     kw = dict(kv_quant=True, compact_adapters=True)
-    model.generate(ids, inputs, max_new_tokens=2, **kw)  # warm-up
+    # the warm-up request captures the shape's decode graph
+    model.generate(ids, inputs, max_new_tokens=NEW_TOKENS, **kw)
     reset, read = _attention_counters()
     torch.cuda.reset_peak_memory_stats()
     reset()
@@ -4261,6 +4439,9 @@ def phase_distributed_serve(device, gen, model, request):
     kw = dict(kv_quant=True, compact_adapters=True)
     steps = NEW_TOKENS - 1
     plain_t = {}
+    # collectives are not captured: both sides decode eagerly, so this
+    # compares the collectives' host cost, eager against eager
+    kw["device_loop"] = False
     with torch.no_grad():
         want = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
                               timings=plain_t, **kw)
@@ -4412,10 +4593,14 @@ def main() -> int:
     t_start = time.perf_counter()
     seconds = {}
 
+    replays = {}  # decode-graph replays per phase
+
     def timed(name, fn, *args):
         t0 = time.perf_counter()
+        r0 = _graph_counts()[1]
         out = fn(*args)
         seconds[name] = round(time.perf_counter() - t0, 1)
+        replays[name] = _graph_counts()[1] - r0
         return out
     device = timed("device", phase_device)
     gen = torch.Generator(device=device)
@@ -4510,6 +4695,14 @@ def main() -> int:
             for c in row}))
     log("seconds", phases=json.dumps(seconds),
         total=f"{time.perf_counter() - t_start:.1f}")
+    log("decode_graph", replays_by_phase=json.dumps(replays),
+        captures=_graph_counts()[0],
+        main=json.dumps({k: round(v, 2) if isinstance(v, float) else v
+                         for k, v in composed["vs_eager"].items()}),
+        fps=json.dumps(composed["fps"]))
+    eager = [p for p in DECODING_PHASES if not replays.get(p)]
+    if eager:  # every decoding phase decodes through captured graphs
+        raise AssertionError(f"no decode graph replayed in {eager}")
     if {"jax", "modelcompose_tpu"} & set(sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     # Launches on the main paths: the two serving runs, the decode variants

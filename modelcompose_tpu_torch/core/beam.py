@@ -39,22 +39,23 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.routed_lora import as_table
+from .decode_graph import DecodeGraphs
 from .generate import _decode_step, _prefill, _prepare, _sync_clock
 from .llama import KVCache
 from .sampling import gumbel, top_p_filter
 
 
-def _cache_tensors(cache: KVCache):
-    """The cache's tensors: k and v, or their int8 values and scales."""
-    out = []
-    for part in (cache.k, cache.v):
-        out += list(part.values()) if isinstance(part, dict) else [part]
-    return out
-
-
-def _tile_beams(cache: KVCache, num_beams: int) -> KVCache:
+def _tile_beams(cache: KVCache, num_beams: int,
+                out: Optional[KVCache] = None) -> KVCache:
     """A batch-1 cache tiled to ``num_beams`` rows on axis 1 of the
-    layer-stacked [N, B, S, Hkv, D] tensors (fresh contiguous buffers)."""
+    layer-stacked [N, B, S, Hkv, D] tensors: fresh contiguous buffers, or
+    ``out`` (a ``num_beams``-row cache of the same length, a decode
+    graph's) overwritten in place."""
+    if out is not None:
+        for dst, src in zip(out.tensors(), cache.tensors()):
+            dst.copy_(src.expand_as(dst))
+        return out
+
     def tile(x):
         return x.repeat(1, num_beams, *([1] * (x.dim() - 2)))
 
@@ -76,7 +77,7 @@ def _gather_beams(cache: KVCache, beam_idx: torch.Tensor, start: int = 0,
     prompt length: every beam's prompt rows come from the one tiled
     prefill and are never rewritten, so reordering them changes nothing.
     """
-    for t in _cache_tensors(cache):
+    for t in cache.tensors():
         view = t[:, :, start:stop]
         view.copy_(view.index_select(1, beam_idx))
 
@@ -126,6 +127,8 @@ def beam_generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
                   attn_impl: str = "auto",
                   temperature: float = 0.0, top_p: float = 1.0,
                   generator: Optional[torch.Generator] = None,
+                  device_loop: bool = True,
+                  graphs: Optional[DecodeGraphs] = None,
                   timings: Optional[dict] = None,
                   _draw_override=None) -> List[List[int]]:
     """Beam-search decode for one packed prompt (batch 1).
@@ -144,8 +147,10 @@ def beam_generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
     running beam scores (4.31's accumulation, kept for parity).
     ``_draw_override`` is a test hook: per-step arrays of flat candidate
     indices replacing the random draw, so the bookkeeping can be held to
-    the JAX package's across RNGs.  ``timings`` receives 'prefill_s' and
-    'decode_s'.
+    the JAX package's across RNGs.  ``device_loop`` and ``graphs`` are
+    ``generate``'s: a step replays a graph of ``num_beams`` rows whose
+    cache the prompt's is tiled into (the parent-beam gather reorders that
+    cache in place).  ``timings`` receives 'prefill_s' and 'decode_s'.
     """
     if inputs_embeds.shape[0] != 1:
         raise ValueError("beam_generate packs one prompt (the eval protocol)")
@@ -162,6 +167,18 @@ def beam_generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
     prompt_len = valid_len if scoring_prompt_len is None \
         else int(scoring_prompt_len)
 
+    # decode runs the default route only (reference decode semantics);
+    # beam rows share it
+    decode_table = routing_table
+    if routing_table is not None and not bool(routing_table[0].any()):
+        decode_table = None
+    graph = None
+    if device_loop and max_new_tokens > 1:  # a step to decode
+        if graphs is None:
+            graphs = DecodeGraphs(1)
+        graph = graphs.get(params, cfg, num_beams, cache_len,
+                           routing_table=decode_table, attn_impl=attn_impl)
+
     t0 = _sync_clock(device) if timings is not None else 0.0
     logits, cache = _prefill(params, cfg, inputs_embeds, route_ids,
                              routing_table, segment_ids, lengths, cache_len,
@@ -169,15 +186,10 @@ def beam_generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
     if timings is not None:
         t1 = _sync_clock(device)
         timings["prefill_s"] = t1 - t0
-    cache = _tile_beams(cache, num_beams)
+    cache = _tile_beams(cache, num_beams,
+                        out=None if graph is None else graph.cache)
     logits = logits.repeat(num_beams, 1)
     kv_lens = lengths.repeat(num_beams)
-
-    # decode runs the default route only (reference decode semantics);
-    # beam rows share it
-    decode_table = routing_table
-    if routing_table is not None and not bool(routing_table[0].any()):
-        decode_table = None
 
     hyps = _BeamHypotheses(num_beams, length_penalty, early_stopping)
     beam_scores = np.full(num_beams, -1e9, np.float64)
@@ -270,10 +282,14 @@ def beam_generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
         # rows past the prompt hold this generation's tokens: reorder them
         _gather_beams(cache, torch.as_tensor(next_beams, device=device),
                       valid_len, valid_len + step_i)
-        logits, cache, kv_lens = _decode_step(
-            params, cfg, cache,
-            torch.as_tensor(next_tokens, dtype=torch.int32, device=device),
-            kv_lens, decode_table, attn_impl)
+        if graph is not None:
+            logits = graph(next_tokens, kv_lens)
+            kv_lens = kv_lens + 1
+        else:
+            logits, cache, kv_lens = _decode_step(
+                params, cfg, cache, torch.as_tensor(
+                    next_tokens, dtype=torch.int32, device=device),
+                kv_lens, decode_table, attn_impl)
 
     if not done:  # max length reached: running beams become hypotheses
         cur_len = prompt_len + len(beam_tokens[0])

@@ -7,8 +7,11 @@ the slot engine's admission); decode steps run with the 'default' route
 class only, matching the reference's decode semantics.  ``generate`` keeps
 the token choice (argmax, or a draw from an explicit ``torch.Generator``)
 and the EOS/done mask on the device, with no per-step host sync, and
-fetches the tokens once at the end; ``stream_decode`` fetches the [B]
-token ids every step, since it hands each token out as it decodes.
+fetches the tokens once at the end; with ``device_loop=True`` (the JAX
+parameter and default) each step is one replay of a captured CUDA graph
+(core/decode_graph), the token choice staying outside it.
+``stream_decode`` fetches the [B] token ids every step, since it hands
+each token out as it decodes.
 """
 
 from __future__ import annotations
@@ -21,21 +24,31 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.routed_lora import as_table, fold_decode_adapters, fold_dense
-from ..parallel import tp
-from .llama import (KVCache, forward, forward_hidden_routed,
-                    local_kv_heads, logits_from_hidden)
+from .decode_graph import DecodeGraphs, _decode_step
+from .llama import (KVCache, forward_hidden_routed, local_kv_heads,
+                    logits_from_hidden)
 from .sampling import categorical, sample_step, top_p_filter
 
 
 def _prefill(params, cfg: ModelConfig, inputs_embeds, route_ids,
              routing_table, segment_ids, lengths, max_len: int,
-             attn_impl: str = "auto", kv_quant: bool = False):
-    """Prompt forward that fills a fresh cache.  Returns (last valid
-    position's fp32 logits [B, V], cache)."""
-    B = inputs_embeds.shape[0]
-    cache = KVCache.zeros(cfg, B, max_len, quantized=kv_quant,
-                          device=inputs_embeds.device,
-                          kv_heads=local_kv_heads(params, cfg))
+             attn_impl: str = "auto", kv_quant: bool = False, cache=None):
+    """Prompt forward that fills a fresh cache, or ``cache`` (an existing
+    one of B rows and ``max_len`` positions, a decode graph's): its
+    positions [0, L) are written and [L, max_len) zeroed, so it holds what
+    a fresh cache would.  Returns (last valid position's fp32 logits [B,
+    V], cache)."""
+    B, L = inputs_embeds.shape[:2]
+    if cache is None:
+        cache = KVCache.zeros(cfg, B, max_len, quantized=kv_quant,
+                              device=inputs_embeds.device,
+                              kv_heads=local_kv_heads(params, cfg))
+    else:
+        for t in cache.tensors():
+            if t.shape[1:3] != (B, max_len):
+                raise ValueError(f"cache {tuple(t.shape)} is not {B} rows "
+                                 f"of {max_len} positions")
+            t[:, :, L:].zero_()
     hidden, cache = forward_hidden_routed(
         params, cfg, inputs_embeds, route_ids=route_ids,
         routing_table=routing_table, segment_ids=segment_ids, cache=cache,
@@ -94,18 +107,6 @@ def prefill_chunked(params, cfg: ModelConfig, inputs_embeds, route_ids,
     return logits, cache
 
 
-def _decode_step(params, cfg: ModelConfig, cache, tokens, kv_lens,
-                 routing_table, attn_impl: str = "auto"):
-    """One decode step.  tokens: [B] ids; kv_lens: [B] valid cache length
-    before this token.  Returns (logits [B, V], cache, kv_lens + 1)."""
-    embeds = tp.vocab_embedding(params["embed_tokens"], tokens.long())[:, None]
-    logits, cache = forward(
-        params, cfg, embeds, route_ids=None, routing_table=routing_table,
-        positions=kv_lens[:, None], cache=cache, cache_write_pos=kv_lens,
-        kv_lens=kv_lens + 1, attn_impl=attn_impl)
-    return logits[:, 0], cache, kv_lens + 1
-
-
 def _on(a, device, dtype=None) -> torch.Tensor:
     """An array or tensor as a tensor on ``device``."""
     t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
@@ -158,8 +159,10 @@ def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
              temperature: float = 0.0, top_p: float = 1.0,
              generator: Optional[torch.Generator] = None,
              cache_len: Optional[int] = None,
-             attn_impl: str = "auto", fold_decode=False,
-             kv_quant: bool = False, timings: Optional[dict] = None):
+             attn_impl: str = "auto", device_loop: bool = True,
+             fold_decode=False, kv_quant: bool = False,
+             graphs: Optional[DecodeGraphs] = None,
+             timings: Optional[dict] = None):
     """Greedy or sampled token ids for a packed, right-padded batch.
 
     Args:
@@ -177,6 +180,14 @@ def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
         identical, decode skips the adapter branch; see
         ops/routed_lora.fold_dense).
       kv_quant: int8 KV cache.
+      device_loop: True decodes through a ``DecodeGraph`` (one CUDA-graph
+        replay a step on the card, the same step eagerly on the CPU),
+        prefilling into the graph's cache; False launches each step's
+        kernels from Python.  The ids are the same.
+      graphs: the ``DecodeGraphs`` to take the graph from and keep it in
+        (a model's, so requests of one shape reuse it); None makes one for
+        this call, and so does a fold made here (its params and graph go
+        with the call).
       timings: if a dict, receives 'prefill_s' and 'decode_s' (host clock
         around device-synchronized phases).
 
@@ -196,20 +207,28 @@ def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
         params, routing_table = fold_dense(params, routing_table)
         decode_table = None
     decode_params = params
-
-    t0 = _sync_clock(device) if timings is not None else 0.0
-    logits, cache = _prefill(params, cfg, inputs_embeds, route_ids,
-                             routing_table, segment_ids, lengths, cache_len,
-                             attn_impl, kv_quant)
-    if timings is not None:
-        t1 = _sync_clock(device)
-        timings["prefill_s"] = t1 - t0
-
     if fold_decode in (True, "concat") and routing_table is not None:
         # One concatenated low-rank pair of the default-route adapters, so
         # a step stops reading the inactive adapter rows.
         decode_params, decode_table = fold_decode_adapters(params,
                                                            routing_table[0])
+    graph = None
+    if device_loop and max_new_tokens > 1:  # a step to decode
+        if graphs is None or (fold_decode and routing_table is not None):
+            # a fold's params are this call's: so is its graph
+            graphs = DecodeGraphs(1)
+        graph = graphs.get(
+            decode_params, cfg, B, cache_len, kv_quant=kv_quant,
+            routing_table=decode_table, attn_impl=attn_impl)
+
+    t0 = _sync_clock(device) if timings is not None else 0.0
+    logits, cache = _prefill(params, cfg, inputs_embeds, route_ids,
+                             routing_table, segment_ids, lengths, cache_len,
+                             attn_impl, kv_quant,
+                             cache=None if graph is None else graph.cache)
+    if timings is not None:
+        t1 = _sync_clock(device)
+        timings["prefill_s"] = t1 - t0
 
     do_sample = bool(temperature and temperature > 0.0)
     use_top_p = do_sample and top_p is not None and top_p < 1.0
@@ -238,9 +257,13 @@ def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
         steps.append(tokens)
         if step == max_new_tokens - 1:
             break
-        logits, cache, kv_lens = _decode_step(decode_params, cfg, cache,
-                                              tokens, kv_lens, decode_table,
-                                              attn_impl)
+        if graph is not None:
+            logits = graph(tokens, kv_lens)
+            kv_lens = kv_lens + 1
+        else:
+            logits, cache, kv_lens = _decode_step(
+                decode_params, cfg, cache, tokens, kv_lens, decode_table,
+                attn_impl)
     host = torch.stack(steps, dim=1).cpu().numpy()  # the one host fetch
     if timings is not None:
         timings["decode_s"] = time.perf_counter() - t1

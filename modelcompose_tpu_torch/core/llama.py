@@ -165,6 +165,13 @@ class KVCache:
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device))
 
+    def tensors(self):
+        """The cache's tensors: k and v, or their int8 values and scales."""
+        out = []
+        for part in (self.k, self.v):
+            out += list(part.values()) if isinstance(part, dict) else [part]
+        return out
+
     def splice(self, small: "KVCache", slot: int) -> "KVCache":
         """Copy a batch-1 cache into row ``slot`` of this one, in place.
 

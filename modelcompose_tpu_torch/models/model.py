@@ -26,6 +26,7 @@ from ..config import ModelConfig
 from ..constants import IGNORE_INDEX
 from ..core import generate as generation
 from ..core.beam import beam_generate
+from ..core.decode_graph import DecodeGraphs
 from ..core.llama import forward, init_params, torch_dtype
 from ..core.packing import PackPlan, assemble_embeds, plan_pack
 from ..core.sampling import entropy_seed
@@ -39,6 +40,7 @@ from .towers import build_modal_encoders
 
 
 STREAM = "stream"  # generate_stream's cache in the served backbone
+DECODE_GRAPHS = 2  # the decode graphs (each with its cache) a model keeps
 
 
 class MultimodalLM:
@@ -46,6 +48,10 @@ class MultimodalLM:
                  encoders: Dict[str, Any],
                  projectors: Dict[str, Dict[str, Any]]):
         self.cfg = cfg
+        # the decode graphs of generate / generate_stream (their caches
+        # included), least recently used dropped first; new params drop
+        # them all
+        self.decode_graphs = DecodeGraphs(DECODE_GRAPHS)
         self.params = params
         self.encoders = encoders
         self.projectors = projectors
@@ -78,6 +84,15 @@ class MultimodalLM:
                                   dtype=torch_dtype(cfg.dtype), device=device)
             for modal in cfg.modalities()}
         return cls(cfg, params, encoders, projectors)
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        return self._params
+
+    @params.setter
+    def params(self, params: Dict[str, Any]) -> None:
+        self._params = params
+        self.decode_graphs.clear()  # they read the old tensors
 
     @property
     def device(self) -> torch.device:
@@ -181,7 +196,7 @@ class MultimodalLM:
                  generator: Optional[torch.Generator] = None,
                  bucket_len: Optional[int] = None, attn_impl: str = "auto",
                  compact_adapters: bool = False, fold_decode=False,
-                 kv_quant: bool = False,
+                 kv_quant: bool = False, device_loop: bool = True,
                  timings: Optional[dict] = None) -> List[List[int]]:
         """Answers for a batch of prompts (EOS excluded): greedy, sampled
         (``temperature > 0``, ``top_p``, draws from ``generator`` on the
@@ -191,6 +206,8 @@ class MultimodalLM:
         ``fold_decode`` and ``kv_quant`` select the decode variant of
         greedy and sampled decode (see core.generate.generate); beam
         search decodes over a bf16 cache, as the JAX package's does.
+        ``device_loop`` (core.generate.generate's) decodes through the
+        model's ``decode_graphs``; a tensor-parallel model passes False.
         ``timings`` receives the prefill and decode seconds."""
         with torch.no_grad(), tp.scope(self.tp_group):
             embeds, plan = self.prepare_batch(input_ids, modal_inputs,
@@ -210,14 +227,16 @@ class MultimodalLM:
                     scoring_prompt_len=len(np.asarray(input_ids[0])),
                     temperature=temperature, top_p=top_p,
                     generator=generator, attn_impl=attn_impl,
+                    device_loop=device_loop, graphs=self.decode_graphs,
                     timings=timings)
             return generation.generate(
                 params, self.cfg, embeds, lengths=plan.lengths,
                 route_ids=route_ids, routing_table=table,
                 segment_ids=plan.segment_ids, max_new_tokens=max_new_tokens,
                 temperature=temperature, top_p=top_p, generator=generator,
-                attn_impl=attn_impl, fold_decode=fold_decode,
-                kv_quant=kv_quant, timings=timings)
+                attn_impl=attn_impl, device_loop=device_loop,
+                fold_decode=fold_decode, kv_quant=kv_quant,
+                graphs=self.decode_graphs, timings=timings)
 
     def generate_stream(self, input_ids: Sequence[np.ndarray],
                         modal_inputs: Dict[str, Any], *,
@@ -247,8 +266,8 @@ class MultimodalLM:
                                     bucket_len=bucket_len)
             try:
                 generation.stream_decode(
-                    lambda cache_len: backbone.prefill(STREAM, feats, plan,
-                                                       cache_len),
+                    lambda cache_len: backbone.prefill(
+                        STREAM, feats, plan, cache_len, decode_graph=True),
                     lambda tokens, kv_lens: backbone.decode(STREAM, tokens,
                                                             kv_lens),
                     plan.segment_ids.shape[1], plan.lengths, cfg=self.cfg,

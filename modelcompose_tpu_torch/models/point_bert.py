@@ -12,7 +12,9 @@ centers is re-added before every block -> final LayerNorm -> [B, 513, 384]
 Farthest-point sampling starts at index 0 (the reference seeds it at
 random) and is a loop of ``npoint`` argmax steps, with fp32 distances
 summed x, y, z in order and ties going to the first index, so its indices
-are the JAX package's bit for bit.  The kNN is a top-k over squared
+are the JAX package's bit for bit.  On the card the whole loop is one
+captured CUDA graph per input shape (the counterpart of the JAX
+``fori_loop``), replayed per call; on the CPU it runs eagerly.  The kNN is a top-k over squared
 distances; the order of equal distances may differ, which the max-pools
 after it do not see.
 """
@@ -21,6 +23,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
+from collections import OrderedDict
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -56,22 +60,75 @@ def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return d[..., 0] + d[..., 1] + d[..., 2]
 
 
-def farthest_point_sample(xyz: torch.Tensor, npoint: int,
-                          start_index: int = 0) -> torch.Tensor:
-    """xyz: [B, N, 3] -> [B, npoint] int32 indices."""
+def _fps_loop(xyz: torch.Tensor, start_index: int,
+              centroids: torch.Tensor) -> None:
+    """The sampling loop, writing ``centroids`` [B, npoint] int64."""
     B, N, _ = xyz.shape
     rows = torch.arange(B, device=xyz.device)
-    centroids = torch.zeros((B, npoint), dtype=torch.int64, device=xyz.device)
     distance = torch.full((B, N), 1e10, dtype=torch.float32,
                           device=xyz.device)
     farthest = torch.full((B,), start_index, dtype=torch.int64,
                           device=xyz.device)
-    for i in range(npoint):
+    for i in range(centroids.shape[1]):
         centroids[:, i] = farthest
         dist = _sq_dist(xyz, xyz[rows, farthest][:, None, :])
         distance = torch.minimum(distance, dist)
         farthest = distance.argmax(-1)  # the first index among ties
-    return centroids.to(torch.int32)
+
+
+FPS_GRAPHS = 4  # the sampling graphs kept, least recently used dropped
+_fps_graphs: "OrderedDict[tuple, tuple]" = OrderedDict()
+_fps_lock = threading.Lock()
+
+
+def _fps_graph(xyz: torch.Tensor, npoint: int, start_index: int):
+    """(graph, static xyz, static centroids) of this input shape, captured
+    after a warm-up on a side stream; a failed capture raises."""
+    key = (tuple(xyz.shape), xyz.dtype, str(xyz.device), npoint,
+           start_index, torch.is_inference_mode_enabled())
+    entry = _fps_graphs.pop(key, None)
+    if entry is None:
+        while len(_fps_graphs) >= FPS_GRAPHS:
+            _fps_graphs.popitem(last=False)
+        static = xyz.detach().clone()
+        out = torch.zeros((xyz.shape[0], npoint), dtype=torch.int64,
+                          device=xyz.device)
+        current = torch.cuda.current_stream(xyz.device)
+        side = torch.cuda.Stream(xyz.device)
+        side.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            _fps_loop(static, start_index, out)  # warm-up
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                _fps_loop(static, start_index, out)
+            finally:
+                graph.capture_end()
+        current.wait_stream(side)
+        farthest_point_sample.captures += 1
+        entry = (graph, static, out)
+    _fps_graphs[key] = entry
+    return entry
+
+
+def farthest_point_sample(xyz: torch.Tensor, npoint: int,
+                          start_index: int = 0) -> torch.Tensor:
+    """xyz: [B, N, 3] -> [B, npoint] int32 indices: one graph replay on a
+    CUDA tensor, the eager loop on a CPU tensor."""
+    with torch.no_grad():
+        if not xyz.is_cuda:
+            centroids = torch.zeros((xyz.shape[0], npoint),
+                                    dtype=torch.int64, device=xyz.device)
+            _fps_loop(xyz, start_index, centroids)
+            return centroids.to(torch.int32)
+        with _fps_lock:  # one caller at a time owns the static buffers
+            graph, static, out = _fps_graph(xyz, npoint, start_index)
+            static.copy_(xyz)
+            graph.replay()
+            return out.to(torch.int32)
+
+
+farthest_point_sample.captures = 0  # graphs captured, so reuse shows
 
 
 def knn_point(nsample: int, xyz: torch.Tensor,

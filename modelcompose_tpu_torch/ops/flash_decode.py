@@ -18,6 +18,9 @@ Layout contract (core/llama.KVCache):
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 from .. import _build
@@ -28,8 +31,18 @@ NEG_INF = -1e30
 # int32 counters of the fused combine, one per (row, kv head), which the
 # kernel leaves at zero.  Launches on one stream run one after another (a
 # decode step's layers), so they share it; a launch on another stream gets
-# its own.  A stream keeps only its last shape's set.
+# its own.  A stream keeps only its last shape's set.  A launch captured
+# into a CUDA graph takes its scratch from the capture's record instead
+# (``capturing``): a set replaced here would be freed under the graph.
 _SCRATCH = {}
+
+
+def _new_scratch(device, B: int, H: int, Hkv: int, n_splits: int, D: int):
+    return (torch.empty((B, H, n_splits), dtype=torch.float32, device=device),
+            torch.empty((B, H, n_splits), dtype=torch.float32, device=device),
+            torch.empty((B, H, n_splits, D), dtype=torch.float32,
+                        device=device),
+            torch.zeros(B * Hkv, dtype=torch.int32, device=device))
 
 
 def _scratch(device, stream: int, B: int, H: int, Hkv: int, n_splits: int,
@@ -39,13 +52,43 @@ def _scratch(device, stream: int, B: int, H: int, Hkv: int, n_splits: int,
     shape = (B, H, Hkv, n_splits, D)
     cached = _SCRATCH.get((device, stream))
     if cached is None or cached[0] != shape:
-        cached = _SCRATCH[(device, stream)] = (shape, (
-            torch.empty((B, H, n_splits), dtype=torch.float32, device=device),
-            torch.empty((B, H, n_splits), dtype=torch.float32, device=device),
-            torch.empty((B, H, n_splits, D), dtype=torch.float32,
-                        device=device),
-            torch.zeros(B * Hkv, dtype=torch.int32, device=device)))
+        cached = _SCRATCH[(device, stream)] = (
+            shape, _new_scratch(device, *shape))
     return cached[1]
+
+
+class CaptureRecord:
+    """The K2 launches of one CUDA-graph capture: each launch's inputs
+    ``(q, k, v, k_scale, v_scale, kv_len)`` in order (a replay re-runs them
+    with no Python call, so the graph's owner counts them), and the
+    scratch they wrote, one set per shape, which lives as long as this
+    record: the graph's owner keeps the record as long as the graph."""
+
+    def __init__(self):
+        self.launches = []
+        self._scratch = {}
+
+    def scratch(self, device, *shape):
+        if shape not in self._scratch:
+            self._scratch[shape] = _new_scratch(device, *shape)
+        return self._scratch[shape]
+
+
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capturing():
+    """Record the K2 launches captured on this thread into a CUDA graph
+    while the block runs; yields the ``CaptureRecord``.  A K2 launch made
+    while its stream captures, outside this block, raises: its scratch
+    would not outlive the shape's next launch."""
+    previous = getattr(_CAPTURE, "record", None)
+    record = _CAPTURE.record = CaptureRecord()
+    try:
+        yield record
+    finally:
+        _CAPTURE.record = previous
 
 
 def _parts(cache):
@@ -138,8 +181,18 @@ def flash_decode_attention(q, k_cache, v_cache, kv_len, layer_idx: int, *,
     lib = _build.load("flash_decode")
     n_splits = -(-S // lib.mc_flash_decode_split_len())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    part_m, part_l, part_acc, counters = _scratch(q.device, stream, B, H,
-                                                  Hkv, n_splits, D)
+    record = None
+    if torch.cuda.is_current_stream_capturing():
+        record = getattr(_CAPTURE, "record", None)
+        if record is None:
+            raise RuntimeError(
+                "flash_decode_attention captured into a CUDA graph outside "
+                "flash_decode.capturing(): its scratch would be freed "
+                "while the graph still uses it")
+        scratch = record.scratch(q.device, B, H, Hkv, n_splits, D)
+    else:
+        scratch = _scratch(q.device, stream, B, H, Hkv, n_splits, D)
+    part_m, part_l, part_acc, counters = scratch
     out = torch.empty_like(q)
     quantized = k_s is not None
     err = lib.mc_flash_decode(
@@ -151,8 +204,13 @@ def flash_decode_attention(q, k_cache, v_cache, kv_len, layer_idx: int, *,
         int(layer_idx), int(quantized),
         float(sm_scale), stream)
     _build.check(err, "flash_decode")
-    flash_decode_attention.launches += 1
+    if record is not None:  # recorded, not run: each replay runs it
+        record.launches.append((q, k_q, v_q, k_s, v_s, kv_len))
+    else:
+        flash_decode_attention.launches += 1
     return out
 
 
+# Launches of K2: one per call that ran it, and a replayed graph adds the
+# launches its capture recorded (core/decode_graph).
 flash_decode_attention.launches = 0

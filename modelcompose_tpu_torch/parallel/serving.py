@@ -16,6 +16,16 @@ through the same code.
 
 Caches are named by the caller (``"pool"``, ``"admit"``, ``"stream"``), so
 a follower holds the same caches as the leader.
+
+With no model group a decoded cache belongs to a captured decode graph
+(core/decode_graph), so a tick is one replay: a new cache (the slot pool)
+gets a graph of its own for its life, and a prefill asked for
+``decode_graph`` fills the cache of the model's graph of that shape
+(``MultimodalLM.decode_graphs``), reused by the next request of the shape.
+A graph decodes with the params it was made with, and its logits are its
+static buffer: the caller reads them before the next decode of that
+cache.  Collectives are not captured, so under a model group every call
+runs eagerly.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core.decode_graph import DecodeGraph
 from ..core.generate import _decode_step, _prefill, prefill_chunked
 from ..core.llama import KVCache, local_kv_heads
 from ..core.packing import assemble_embeds
@@ -53,6 +64,7 @@ class ServingBackbone:
         self.is_leader = not self.mirrored or dist.get_rank() == self.leader
         self.caches: Dict[str, Any] = {}
         self.tables: Dict[str, Any] = {}
+        self.graphs: Dict[str, DecodeGraph] = {}  # the graphed caches
 
     # -- transport ------------------------------------------------------
     def _send(self, op: str, args: Dict[str, Any]) -> None:
@@ -111,16 +123,19 @@ class ServingBackbone:
     # -- the calls --------------------------------------------------------
     def prefill(self, key: str, feats, plan, cache_len: int,
                 kv_quant: bool = False, chunk: Optional[int] = None,
-                tick_cb=None) -> torch.Tensor:
+                tick_cb=None, decode_graph: bool = False) -> torch.Tensor:
         """Assemble the packed embeddings and prefill a fresh cache named
         ``key`` (one-shot, or ``chunk``-position pieces with ``tick_cb()``
-        between them): the last valid position's fp32 logits [B, V]."""
+        between them): the last valid position's fp32 logits [B, V].
+        ``decode_graph`` (one-shot, no model group) fills the cache of the
+        model's decode graph of this shape instead, which then decodes
+        it."""
         if not self.is_leader:
             raise RuntimeError("prefill: a follower rank takes its calls "
                                "from the leader (follow())")
         self._send("prefill", dict(key=key, feats=feats, plan=plan,
                                    cache_len=cache_len, kv_quant=kv_quant,
-                                   chunk=chunk))
+                                   chunk=chunk, decode_graph=decode_graph))
 
         def tick():
             if tick_cb is not None:
@@ -128,7 +143,8 @@ class ServingBackbone:
             self._send("tick_end", {})
         with tp.scope(self.group):
             return self._prefill(key, feats, plan, cache_len, kv_quant,
-                                 chunk, tick if chunk else None)
+                                 chunk, tick if chunk else None,
+                                 decode_graph)
 
     def decode(self, key: str, tokens, kv_lens) -> torch.Tensor:
         """One decode step of cache ``key``: tokens [B] and kv_lens [B]
@@ -180,12 +196,19 @@ class ServingBackbone:
         return table, model.decode_routing_table()
 
     def _prefill(self, key, feats, plan, cache_len, kv_quant, chunk,
-                 tick_cb=None):
+                 tick_cb=None, decode_graph=False):
         model = self.model
         device = model.device
         embeds = assemble_embeds(model.params["embed_tokens"], plan, feats)
         table, decode_table = self._tables()
         self.tables[key] = decode_table
+        self.graphs.pop(key, None)
+        cache = None
+        if decode_graph and not chunk and self.group is None:
+            graph = self.graphs[key] = model.decode_graphs.get(
+                model.params, model.cfg, embeds.shape[0], cache_len,
+                kv_quant=kv_quant, routing_table=decode_table)
+            cache = graph.cache
         route_ids = (torch.as_tensor(plan.route_ids, device=device)
                      if model.cfg.routing_active() else None)
         if chunk:
@@ -199,33 +222,45 @@ class ServingBackbone:
                 torch.as_tensor(plan.segment_ids, device=device),
                 torch.as_tensor(plan.lengths, dtype=torch.int32,
                                 device=device),
-                cache_len, "auto", kv_quant)
+                cache_len, "auto", kv_quant, cache=cache)
         self.caches[key] = cache
         return logits
 
     def _decode(self, key, tokens, kv_lens):
-        device = self.model.device
+        model = self.model
+        if key in self.graphs:
+            return self.graphs[key](tokens, kv_lens)
+        device = model.device
         logits, self.caches[key], _ = _decode_step(
-            self.model.params, self.model.cfg, self.caches[key],
+            model.params, model.cfg, self.caches[key],
             torch.as_tensor(tokens, device=device),
             torch.as_tensor(kv_lens, device=device), self.tables[key])
         return logits
 
     def _new_cache(self, key, batch, cache_len, kv_quant):
         model = self.model
+        self.tables[key] = self._tables()[1]
+        self.graphs.pop(key, None)
+        if self.group is None:
+            graph = self.graphs[key] = DecodeGraph(
+                model.params, model.cfg, batch, cache_len,
+                kv_quant=kv_quant, routing_table=self.tables[key])
+            self.caches[key] = graph.cache
+            return
         self.caches[key] = KVCache.zeros(
             model.cfg, batch, cache_len, quantized=kv_quant,
             device=model.device,
             kv_heads=local_kv_heads(model.params, model.cfg))
-        self.tables[key] = self._tables()[1]
 
     def _splice(self, dst, src, slot):
         self.caches[dst].splice(self.caches.pop(src), slot)
         self.tables.pop(src, None)
+        self.graphs.pop(src, None)
 
     def _free(self, key):
         self.caches.pop(key, None)
         self.tables.pop(key, None)
+        self.graphs.pop(key, None)
 
     def _stop(self):
         pass

@@ -120,8 +120,11 @@ class SlotDecoder:
         idle slot feeds a dummy token; its row is rewritten at the next
         admission).  Only active rows advance their kv_len: an idle row
         stays pinned at 1 however long it idles, so its RoPE position and
-        attention span never grow."""
-        self.logits = self.backbone.decode(POOL, tokens, self.kv_lens)
+        attention span never grow.  The logits are copied out of the
+        backbone's (a decode graph's static buffer, which the next tick
+        rewrites), so an admission's row written here stays this
+        decoder's."""
+        self.logits.copy_(self.backbone.decode(POOL, tokens, self.kv_lens))
         self.kv_lens = np.where(self.active, self.kv_lens + 1, 1)
 
     def host_logits(self) -> np.ndarray:

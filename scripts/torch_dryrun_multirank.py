@@ -259,7 +259,8 @@ def case_dpxtp(spec):
     serving_rebuilt = (dec.serving is not served
                        and dec.serving.group is dec.tp_group
                        and dec.serving.mirrored == (world > 1))
-    got = dec.generate(prompt, {}, max_new_tokens=6)
+    # collectives are not captured: a sharded model decodes eagerly
+    got = dec.generate(prompt, {}, max_new_tokens=6, device_loop=False)
     decode_audit = []
     with record_collectives(decode_audit), torch.no_grad(), \
             tp.scope(dec.tp_group):
@@ -380,7 +381,8 @@ def case_tp(spec):
         _, model, _, _ = load_pretrained_model(
             spec["ckpt"], spec["base"], load_tokenizer_fn=lambda _: None,
             tp=world, device="cpu", **kw)
-        out[name] = model.generate(prompts, inputs, max_new_tokens=6)
+        out[name] = model.generate(prompts, inputs, max_new_tokens=6,
+                                   device_loop=False)
     if spec.get("slot"):
         from modelcompose_tpu_torch.serve.slot_engine import SlotDecoder
         with torch.no_grad(), tp.scope(model.tp_group):

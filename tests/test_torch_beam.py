@@ -180,17 +180,17 @@ def test_gather_beams_in_place_matches_index_select():
     for quantized in (False, True):
         cfg = tiny_test_config(dtype="bfloat16")
         one = KVCache.zeros(cfg, 1, 12, quantized=quantized)
-        for t in beam._cache_tensors(one):
+        for t in one.tensors():
             t.copy_(torch.from_numpy(rng.normal(size=t.shape)).to(t.dtype))
         cache = beam._tile_beams(one, 3)
-        for t in beam._cache_tensors(cache):  # rows past 5 differ per beam
+        for t in cache.tensors():  # rows past 5 differ per beam
             t[:, :, 5:] = torch.from_numpy(rng.normal(
                 size=t[:, :, 5:].shape)).to(t.dtype)
         idx = torch.tensor([2, 0, 2])
-        want = [t.index_select(1, idx) for t in beam._cache_tensors(cache)]
-        ptrs = [t.data_ptr() for t in beam._cache_tensors(cache)]
+        want = [t.index_select(1, idx) for t in cache.tensors()]
+        ptrs = [t.data_ptr() for t in cache.tensors()]
         beam._gather_beams(cache, idx, 5, 9)
-        for t, w, p in zip(beam._cache_tensors(cache), want, ptrs):
+        for t, w, p in zip(cache.tensors(), want, ptrs):
             assert t.data_ptr() == p
             assert torch.equal(t[:, :, :9], w[:, :, :9])
 

@@ -564,7 +564,6 @@ def test_prefetch_loader_raises_and_stops_early():
 # ---------------------------------------------------------------------------
 
 import ast  # noqa: E402
-import asyncio  # noqa: E402
 import importlib  # noqa: E402
 import inspect  # noqa: E402
 import time  # noqa: E402
@@ -573,6 +572,7 @@ import modelcompose_tpu.serve.controller as jcontroller  # noqa: E402
 import modelcompose_tpu.utils.logging as jlogging  # noqa: E402
 import modelcompose_tpu_torch.serve.controller as tcontroller  # noqa: E402
 import modelcompose_tpu_torch.utils.logging as tlogging  # noqa: E402
+from tests import torch_async  # noqa: E402
 
 
 def _code(source: str) -> str:
@@ -673,7 +673,7 @@ def test_controller_http_api(controller_mod):
                                   json={"model": "nope"})
             chunk = json.loads((await r.read()).split(b"\0")[0])
             assert chunk["error_code"] == 2
-    asyncio.run(run())
+    torch_async.run(run())
 
 
 # ---------------------------------------------------------------------------

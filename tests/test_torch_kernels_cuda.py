@@ -622,3 +622,163 @@ def test_clip_text_on_card_matches_cpu(padded):
     mask = (torch.arange(6)[None] < torch.tensor([[4], [6]])).long()
     got, want = _tower_on_both(make, (ids, mask if padded else None))
     assert got.shape == (2, 1, 32) and _rel(got, want) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The compiled decode: a DecodeGraph against the eager step it captures, K2
+# inside a graph, a capture that syncs, and PointBERT's sampling graph
+# ---------------------------------------------------------------------------
+
+def _tiny_card_backbone(quantized_base):
+    """A 2-layer bf16 backbone K2 takes (head_dim 64, GQA group 2), with
+    nonzero LoRA B so the adapter branch counts."""
+    from modelcompose_tpu_torch.config import tiny_test_config
+    from modelcompose_tpu_torch.core.llama import init_params
+    from modelcompose_tpu_torch.ops.quant import quantize_backbone
+    cfg = tiny_test_config(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=4, num_key_value_heads=2,
+                           vocab_size=512, dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = init_params(cfg, gen, "cuda")
+    for grp in ("attn", "mlp"):
+        for p in params["layers"][grp].values():
+            p["lora_b"].normal_(0.0, 0.05, generator=gen)
+    if quantized_base:
+        params = quantize_backbone(params)
+    return cfg, params, gen
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("quantized_base", [False, True])
+def test_decode_graph_replays_the_eager_step_bit_for_bit(quantized_base,
+                                                          kv_quant):
+    """Prefill two rows, then 12 greedy steps eagerly and 12 through a
+    DecodeGraph: ids equal and logits bit-equal at every step (the same
+    kernels on the same addresses' data), and each replay counts the K2
+    launches it ran."""
+    from modelcompose_tpu_torch.core import generate as tgen
+    from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
+    from modelcompose_tpu_torch.ops.routed_lora import as_table
+    cfg, params, gen = _tiny_card_backbone(quantized_base)
+    B, L, S = 2, 40, 60
+    embeds = _rnd(gen, B, L, cfg.hidden_size)
+    lengths = torch.tensor([40, 23], dtype=torch.int32, device="cuda")
+    seg = (torch.arange(L, device="cuda")[None] < lengths[:, None]).int()
+    table = as_table(cfg.routing_table(), "cuda")
+    graph = DecodeGraph(params, cfg, B, S, kv_quant=kv_quant,
+                        routing_table=table)
+    runs = []
+    for cache in (None, graph.cache):
+        with torch.no_grad():
+            logits, cache = tgen._prefill(params, cfg, embeds, None, table,
+                                          seg, lengths, S, kv_quant=kv_quant,
+                                          cache=cache)
+        kv, steps = lengths, []
+        for _ in range(12):
+            tokens = logits.argmax(-1)
+            if cache is graph.cache:
+                n = flash_decode_attention.launches
+                logits = graph(tokens, kv).clone()
+                assert flash_decode_attention.launches \
+                    == n + cfg.num_hidden_layers
+            else:
+                with torch.no_grad():
+                    logits, cache, _ = tgen._decode_step(
+                        params, cfg, cache, tokens, kv, table)
+            kv = kv + 1
+            steps.append((tokens, logits))
+        runs.append(steps)
+    assert graph.graph is not None and len(graph.k2.launches) \
+        == cfg.num_hidden_layers
+    for (t_e, l_e), (t_g, l_g) in zip(*runs):
+        assert torch.equal(t_e, t_g)
+        assert torch.equal(l_e, l_g), (l_e - l_g).abs().max().item()
+
+
+def test_k2_graph_scratch_outlives_a_launch_at_another_shape():
+    """Two graphs of K2 at two shapes captured on one stream, then an
+    eager launch at the second shape on that stream (which replaces the
+    stream's own scratch): the first graph, replayed after all that,
+    still writes its partials to scratch it owns and gives the plain
+    version's output."""
+    from modelcompose_tpu_torch.ops import flash_decode
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def case(B, H, Hkv, S, kv):
+        q = _rnd(gen, B, 1, H, 128)
+        k, v = (quantize_kv(_rnd(gen, 2, B, S, Hkv, 128)) for _ in range(2))
+        return q, k, v, torch.tensor(kv, dtype=torch.int32, device="cuda")
+    cases = [case(2, 8, 8, 1100, [1100, 513]), case(1, 16, 8, 700, [650])]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graphs, outs = [], []
+    with torch.cuda.stream(stream):
+        for q, k, v, kv in cases:
+            flash_decode_attention(q, k, v, kv, 1, sm_scale=0.088)  # warm
+            graph = torch.cuda.CUDAGraph()
+            with flash_decode.capturing() as record:
+                graph.capture_begin()
+                outs.append(flash_decode_attention(q, k, v, kv, 1,
+                                                   sm_scale=0.088))
+                graph.capture_end()
+            assert len(record.launches) == 1 and record._scratch
+            graphs.append((graph, record))
+        q, k, v, kv = cases[1]
+        flash_decode_attention(q, k, v, kv, 0, sm_scale=0.088)
+        graphs[0][0].replay()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    q, k, v, kv = cases[0]
+    ref = flash_decode_reference(q, k, v, kv, 1, sm_scale=0.088)
+    assert _rel(outs[0], ref) <= 2e-2
+    # a capture outside the record would leave its scratch unowned
+    with torch.cuda.stream(stream):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            with pytest.raises(RuntimeError, match="capturing"):
+                flash_decode_attention(q, k, v, kv, 1, sm_scale=0.088)
+        finally:
+            graph.capture_end()
+    torch.cuda.synchronize()
+
+
+def test_a_capture_that_syncs_raises_instead_of_running_eagerly(
+        monkeypatch):
+    from modelcompose_tpu_torch.core import decode_graph
+    cfg, params, _ = _tiny_card_backbone(True)
+    graph = decode_graph.DecodeGraph(params, cfg, 1, 32)
+    step = decode_graph._decode_step
+
+    def syncing(*args, **kw):
+        out = step(*args, **kw)
+        out[0].sum().item()  # a host read of a device value
+        return out
+    monkeypatch.setattr(decode_graph, "_decode_step", syncing)
+    tokens = torch.tensor([3], device="cuda")
+    kv = torch.tensor([4], dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError):
+        graph(tokens, kv)
+    assert graph.graph is None
+    monkeypatch.setattr(decode_graph, "_decode_step", step)
+    torch.cuda.synchronize()  # the card still runs work
+    assert torch.isfinite(graph(tokens, kv)).all()
+
+
+def test_fps_graph_equals_the_eager_loop():
+    """PointBERT's farthest-point sampling as one graph replay, against the
+    eager loop on the card and on the CPU; a second cloud of the shape
+    reuses the graph."""
+    from modelcompose_tpu_torch.models import point_bert
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    clouds = [torch.randn((2, 8192, 3), generator=gen, device="cuda")
+              for _ in range(2)]
+    n = point_bert.farthest_point_sample.captures
+    for i, xyz in enumerate(clouds):
+        got = point_bert.farthest_point_sample(xyz, 512)
+        eager = torch.zeros((2, 512), dtype=torch.int64, device="cuda")
+        point_bert._fps_loop(xyz, 0, eager)
+        assert torch.equal(got, eager.int())
+        assert torch.equal(got.cpu(), point_bert.farthest_point_sample(
+            xyz.cpu(), 512))
+        assert point_bert.farthest_point_sample.captures <= n + 1

@@ -1,5 +1,6 @@
 """The port never imports JAX nor the JAX package: its package runs the tiny
-slices end to end (greedy generation, a train step, then four unimodal
+slices end to end (greedy generation through a decode graph and eagerly,
+PointBERT's sampling loop, a train step, then four unimodal
 checkpoints merged, loaded and answering a 4-modality prompt, then the eval
 entry answering a question file greedily, sampled and by beam search, then
 the train entry training, checkpointing and resuming, then a chunked
@@ -47,6 +48,16 @@ pixels = np.random.default_rng(0).normal(size=(2, 28, 28, 3)).astype(np.float32)
 out = model.generate([np.array([1, 5, img, 9]), np.array([1, img])],
                      {"vision": pixels}, max_new_tokens=4, kv_quant=True)
 assert len(out) == 2 and all(len(o) <= 4 for o in out), out
+# that decode ran through the model's decode graph (core/decode_graph),
+# the eager loop gives the same ids, and PointBERT's sampling loop runs
+from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
+from modelcompose_tpu_torch.models.point_bert import farthest_point_sample
+assert len(model.decode_graphs) == 1
+assert isinstance(next(iter(model.decode_graphs._graphs.values())), DecodeGraph)
+assert out == model.generate([np.array([1, 5, img, 9]), np.array([1, img])],
+                             {"vision": pixels}, max_new_tokens=4,
+                             kv_quant=True, device_loop=False)
+assert farthest_point_sample(torch.randn(1, 64, 3), 8).shape == (1, 8)
 
 # one stage-2 train step of a fresh model, through the flash path
 from modelcompose_tpu_torch.train.train_multimodal import make_batch

@@ -10,7 +10,6 @@ models for the wire plumbing, a real tiny model where decode steps are
 counted).  HTTP goes through aiohttp's ``TestClient``.
 """
 
-import asyncio
 import base64
 import dataclasses
 import importlib
@@ -35,6 +34,7 @@ from modelcompose_tpu_torch.convert import model_from_jax
 from modelcompose_tpu_torch.core import generate as tgen
 from modelcompose_tpu_torch.serve import model_worker as tworker
 from tests import fake_tokenizer
+from tests import torch_async
 from tests.fake_tokenizer import FakeLlamaTokenizer
 from tests.test_torch_generate import _numpy_model
 
@@ -189,7 +189,7 @@ def test_worker_wire_chunks_match_jax(pair, continuous):
                 r = await c.post("/worker_generate_stream", json=request)
                 return [p + b"\0" for p in (await r.read()).split(b"\0")
                         if p]
-        routed = asyncio.run(http())
+        routed = torch_async.run(http())
     finally:
         for w in (jw, tw):
             if continuous:
@@ -251,7 +251,7 @@ def test_worker_generate_stream_chunks_and_http():
                                   json={"prompt": "hi", "temperature": 0})
             parts = [p for p in (await r.read()).split(b"\0") if p]
             assert json.loads(parts[-1])["error_code"] == 0
-    asyncio.run(run())
+    torch_async.run(run())
 
 
 def test_worker_reports_engine_errors_in_band():
@@ -286,7 +286,7 @@ def test_demo_app_index_and_generate():
             assert r.status == 200 and "ModelCompose" in await r.text()
             r = await client.post("/generate", data={"question": "what?"})
             assert "hello world" in await r.text()
-    asyncio.run(run())
+    torch_async.run(run())
 
 
 def test_web_server_chat_flow():
@@ -316,7 +316,7 @@ def test_web_server_chat_flow():
             assert "hello world" in await r.text()
         await worker_server.close()
         await ctrl_server.close()
-    asyncio.run(run())
+    torch_async.run(run())
 
 
 def test_batching_engine_coalesces_requests():
@@ -392,7 +392,7 @@ def test_streaming_chunks_arrive_before_generation_completes():
             assert early, "no chunk arrived before generation completed"
             assert len(chunks) >= 2
             assert json.loads(chunks[-1])["error_code"] == 0
-    asyncio.run(run())
+    torch_async.run(run())
 
 
 def test_media_requests_batch_as_one_packed_generation(pair):
