@@ -22,24 +22,32 @@ nonzero:
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
    answering two image+question requests greedily through
-   ``MultimodalLM.generate``: the first request of the shape captures its
-   decode graph (``core/decode_graph``), the second, timed, replays it
-   once a token (capture and replay counts checked, peak allocated and
-   reserved memory); the same request decoded with ``device_loop=False``
-   (each step's launches from Python), its greedy ids bit-equal, decode
-   tokens/s both ways; then prefill and teacher-forced decode on the
-   plain path with the same weights and tokens, logits held to a bf16
-   tolerance;
+   ``MultimodalLM.generate``: the first request of the shape runs the
+   tower and the prefill eagerly and captures its decode graph
+   (``core/decode_graph``), the second captures the tower's and the
+   prefill's graphs (``models/towers``, ``core/prefill_graph``), the
+   third, timed, replays every graph and captures nothing (counts per
+   kind checked, K1 exactly once a layer in the replayed prefill, peak
+   allocated and reserved memory, each kind's graph pool GB, the time to
+   first token of the three calls: eager, capturing, replayed); the same
+   request with the tower, the prefill and the decode launch by launch
+   (no tower or prefill graph, ``device_loop=False``): greedy ids and the
+   prefill's logits bit-equal, time to first token (towers, prefill) and
+   decode tokens/s both ways; then prefill and teacher-forced decode on
+   the plain path with the same weights and tokens, logits held to a
+   bf16 tolerance;
 6. composed: the MCUB-4 composition (``configs.mcub4_damc_7b``: CLIP,
    BEATs + Q-Former, LanguageBind video and PointBERT towers, 9 stacked
    adapter rows, online-merge-reset 0.25 each) at Vicuna-7B width with
    random weights, in the same production variant plus the adapter stacks
    compacted to the batch's columns: one four-modality request of 3,287
    positions (the 3,328 bucket) answered with 32 greedy tokens; the time
-   of each tower and projector, PointBERT's farthest-point sampling as one
-   graph replay against its eager loop (indices equal), prefill, decode
-   through the graph as in phase 5 (against ``device_loop=False``, ids
-   bit-equal), peak memory, torch.profiler over one replay of the step
+   of each tower through its graph and eagerly at B=1 and B=4 (outputs
+   bit-equal) and of its projector, PointBERT's farthest-point sampling
+   as one graph replay against its eager loop (indices equal), prefill,
+   the request through the graphs and launch by launch as in phase 5 (ids
+   and prefill logits bit-equal), peak memory, torch.profiler over one
+   replay of the step
    (``chiprun_out/decode_step_profile.txt``), the kernel path's logits
    against the plain path's, and torch.profiler over the towers + prefill
    (``chiprun_out/composed_profile.txt``);
@@ -98,10 +106,16 @@ nonzero:
    (8 slots of 3,456 positions, int8 pool) answering 12 requests (audio,
    video, point, text and the MCUB-4 request; greedy and sampled; one
    cancelled by its client, one ending on a stop string) with chunked
-   admission (512-position chunks), then with one-shot admission; per
+   admission (512-position chunks), then with one-shot admission, each on
+   a warm server (every request's shapes admitted twice first, so the
+   run's admissions replay their tower, prefill and chunk-step graphs)
+   and again with the towers and prefills launch by launch; per
    request the time to first token and tokens, the tick's median and p95,
    aggregate tokens/s, the in-flight slots' longest stall during each
-   admission, peak memory, K1/K2 launches; every stream ended, and every
+   admission (MCUB-4's beside its own and its prefill's seconds, graphs
+   against eager), peak memory, each kind's graph pool GB, K1/K2 launches
+   (K2 once a layer a tick, K1 once a layer a prefill or chunk, exactly,
+   replays counted); every stream ended, and every
    greedy answer whole and equal to a solo run of the same request (a
    one-shot slot's to ``generate(kv_quant=True)``, a chunked slot's to
    ``prefill_chunked(kv_quant=True)`` and greedy steps) or leaving it at a
@@ -119,15 +133,17 @@ nonzero:
    audio (3 clips of 229 tokens from a 10 s waveform through the port's
    processor, whose host ms it also times) and the text CLIP encoder at
    ViT-L/14 text width (77 tokens), each alone at full size with random
-   fp32 weights: median ms at B=1 and B=4 (text also B=8), peak memory,
+   fp32 weights: median ms at B=1 and B=4 (text also B=8) through the
+   tower's graph and eagerly (outputs bit-equal), peak memory,
    and the card's B=1 output against the same tower's on the CPU, within
    1e-5 of max |x| (beside it, as a control, the same ratio with TF32
    allowed); (b) ``eva_imagebind``: ``configs.eva_imagebind_damc_7b``
    at Vicuna-7B width and depth in phase 5's production variant, one 336
    px image + 10 s audio + 70 text tokens request (698 positions, the
-   1,024 bucket) answered with 32 greedy tokens: tower + projector ms,
-   prefill, decode, peak memory, launches, kernel- against plain-path
-   logits; (c) ``entries``: ``model_qa`` (2 text questions), ``run_inference``
+   1,024 bucket) answered with 32 greedy tokens as phase 5 answers its
+   requests (three calls, graphs against launch by launch): tower +
+   projector ms at B=1 and B=4, prefill, decode, peak memory, launches,
+   kernel- against plain-path logits; (c) ``entries``: ``model_qa`` (2 text questions), ``run_inference``
    (.wav + .npy), ``model_multimodal_loss`` (4 rows, batch 2) and
    ``retrieval`` (2 records x 4 captions) on phase 6's model, each with
    its seconds, result and launches, and one loss batch on the kernel path
@@ -147,7 +163,8 @@ nonzero:
    options, ``--all-rounds``), each answer line with the JAX entry's keys;
    then the same runs with K1 and K2 replaced by their plain versions,
    every answer equal to the kernel path's or leaving it at a named near
-   tie; (c) at Vicuna-7B width and 2 layers: a LLaVA-LoRA vision
+   tie (each entry's seconds and graph captures and replays by kind);
+   (c) at Vicuna-7B width and 2 layers: a LLaVA-LoRA vision
    checkpoint converted by ``compose.convert_llava_checkpoint``, loaded by
    ``model_vqa_loader`` and asked a PNG question; ``compose.lifecycle
    merge-lora`` on phase 7's composition, its dense export held to numpy's
@@ -188,10 +205,17 @@ K1's ``serve_chunks`` and K2's ``serve_pool`` hold phase 11's, their
 launches by phase.  A time that
 could not be taken is null.  K2's launches count each replay of a decode
 graph as the launches its capture recorded, so a replayed step counts as
-an eager one.  Before them, a ``[decode_graph]`` line gives the graph
-replays of each phase (every decoding phase must have some), the captures,
-phase 6's graph-against-eager decode and its sampling times.  The last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits nonzero and prints no
+an eager one, and so do K1's inside a prefill or chunk-step graph.
+Before them, a ``[decode_graph]`` line gives the graph replays of each
+phase (every decoding phase must have some), the captures, phase 6's
+graph-against-eager decode and its sampling times, and a
+``[prefill_graph]`` line the captures and replays of every kind of graph
+(decode, prefill, chunk step, tower) by phase (phases 5, 6, 11 and 12b
+must replay prefill graphs), K1's launches by path, the time to first
+token through the graphs and eager of phases 5, 6 and 12b, the prefill
+logits' bit-equality, each kind's pool GB and the peak memory of phase 6
+and of each serve run, and MCUB-4's admission stall graph against eager.
+The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits nonzero and prints no
 result.
 """
 
@@ -330,7 +354,7 @@ def graph_time_ms(fn, n: int = 20, replays: int = 5):
     between two events.  None, with the reason logged, when ``fn`` cannot
     be captured."""
     import torch
-    from modelcompose_tpu_torch.ops import flash_decode
+    from modelcompose_tpu_torch.ops import flash_attention, flash_decode
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the default stream
@@ -340,9 +364,11 @@ def graph_time_ms(fn, n: int = 20, replays: int = 5):
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     try:
-        # K2's scratch is the capture record's, kept as long as the graph
-        with flash_decode.capturing() as record, torch.cuda.graph(
-                graph, capture_error_mode="thread_local"):
+        # K2's scratch is the capture record's, kept as long as the graph;
+        # K1's launches go to a record nobody counts (timing launches)
+        with flash_decode.capturing() as record, \
+                flash_attention.capturing(), torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
             for _ in range(n):
                 fn()
     except Exception as e:  # noqa: BLE001 — reported as not measured
@@ -368,6 +394,125 @@ def _graph_counts():
     return DecodeGraph.captures, DecodeGraph.replays
 
 
+def _graph_kinds():
+    """{kind: graph class} of every captured step of the port."""
+    from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
+    from modelcompose_tpu_torch.core.prefill_graph import (ChunkStepGraph,
+                                                           PrefillGraph)
+    from modelcompose_tpu_torch.models.towers import TowerGraph
+    return {"decode": DecodeGraph, "prefill": PrefillGraph,
+            "chunk_step": ChunkStepGraph, "tower": TowerGraph}
+
+
+def _all_graph_counts():
+    """{kind: [captures, replays]} of every kind of graph so far."""
+    return {k: [c.captures, c.replays] for k, c in _graph_kinds().items()}
+
+
+def _graph_delta(before):
+    """{kind: [captures, replays]} since ``before`` (``_all_graph_counts``),
+    kinds with neither left out."""
+    now = _all_graph_counts()
+    out = {k: [now[k][0] - before[k][0], now[k][1] - before[k][1]]
+           for k in now}
+    return {k: v for k, v in out.items() if any(v)}
+
+
+def _graph_pools_by_kind_gb(*models):
+    """GB the allocator holds in the private pools of each kind of graph
+    the ``models`` keep: the decode graphs', the prefill graphs' (one pool
+    a model: the one-shot graphs, those in its decode graphs and the chunk
+    steps), the towers' (one a model), and ``other`` for the remaining
+    private pools (PointBERT's sampling graphs, another model's graphs)."""
+    import torch
+    pools = {}
+    for model in models:
+        for graph in model.decode_graphs.values():
+            pools[graph.graph.pool() if graph.graph else None] = "decode"
+            for pre in graph.prefills.values():
+                if pre.graph is not None:
+                    pools[pre.graph.pool()] = "prefill"
+        if model.prefill_graphs is not None:
+            for pre in model.prefill_graphs.one_shot.values():
+                if pre.graph is not None:
+                    pools[pre.graph.pool()] = "prefill"
+            for adm in model.prefill_graphs.admissions.values():
+                for step in adm.steps.values():
+                    if step.graph is not None:  # the one-shot graphs' pool
+                        pools[step.graph.pool()] = "prefill"
+        if model.tower_graphs is not None:
+            for graph in model.tower_graphs._graphs.values():
+                if graph.graph is not None:
+                    pools[graph.graph.pool()] = "tower"
+    out = {k: 0.0 for k in ("decode", "prefill", "tower", "other")}
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg.get("segment_pool_id", (0, 0)))
+        if pool != (0, 0):
+            out[pools.get(pool, "other")] += seg["total_size"] / 2**30
+    return out
+
+
+class _GraphCalls:
+    """While active, counts the calls of every captured step by kind
+    (eager, capturing and replayed calls alike): each prefill-graph or
+    chunk-step call runs K1 once a layer, however it runs."""
+
+    def __enter__(self):
+        from modelcompose_tpu_torch.core.decode_graph import CapturedStep
+        self.cls, self.run, self.calls = CapturedStep, CapturedStep.run, {}
+        kinds = {c: k for k, c in _graph_kinds().items()}
+
+        def counted(step):
+            kind = kinds.get(type(step), type(step).__name__)
+            self.calls[kind] = self.calls.get(kind, 0) + 1
+            return self.run(step)
+        CapturedStep.run = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self.run
+
+    def k1_calls(self):
+        """Backbone forwards through prefill and chunk-step graphs."""
+        return self.calls.get("prefill", 0) + self.calls.get("chunk_step", 0)
+
+
+class _EagerTTFT:
+    """While active, ``model`` runs its towers and prefill launch by launch
+    (the functions' ``graphs=None`` path): its tower and prefill graphs
+    are set aside and put back after."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __enter__(self):
+        self.kept = self.model.tower_graphs, self.model.prefill_graphs
+        self.model.tower_graphs = self.model.prefill_graphs = None
+        return self
+
+    def __exit__(self, *exc):
+        self.model.tower_graphs, self.model.prefill_graphs = self.kept
+
+
+class _PrefillLogits:
+    """While active, records a copy of the logits of every one-shot
+    prefill ``core.generate.generate`` runs (through a graph or not)."""
+
+    def __enter__(self):
+        from modelcompose_tpu_torch.core import generate
+        self.module, self.prefill, self.logits = generate, generate.prefill, []
+
+        def recorded(*args, **kw):
+            logits, cache = self.prefill(*args, **kw)
+            self.logits.append(logits.clone())
+            return logits, cache
+        generate.prefill = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.prefill = self.prefill
+
+
 def _peak_gb():
     """(peak allocated, peak reserved) GB since the last reset: reserved
     holds the decode graphs' private pools besides the allocator's cache;
@@ -385,59 +530,105 @@ def _graph_pools_gb():
                if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 2**30
 
 
-def _graph_vs_eager(phase, model, ids, inputs, answers, timings, **kw):
-    """The request decoded again with ``device_loop=False`` (each step's
-    launches from Python): greedy ids bit-equal to the graph's, and the
-    decode tokens/s of both."""
+def _graph_vs_eager(phase, model, ids, inputs, answers, timings, logits,
+                    **kw):
+    """The request again with everything launch by launch: the towers and
+    the prefill without their graphs (``_EagerTTFT``) and the decode with
+    ``device_loop=False``.  Greedy ids and the prefill's logits bit-equal
+    to the graphs' (``logits``, from ``_PrefillLogits``); time to first
+    token (towers + projectors + packing, then prefill) and decode
+    tokens/s both ways."""
+    import torch
     eager_t = {}
-    eager = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
-                           device_loop=False, timings=eager_t, **kw)
+    with _EagerTTFT(model), _PrefillLogits() as eager_logits:
+        eager = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
+                               device_loop=False, timings=eager_t, **kw)
     steps = len(ids) * (NEW_TOKENS - 1)
     res = {"ids_equal": eager == answers,
+           "logits_equal": torch.equal(eager_logits.logits[0], logits),
            "graph_decode_tok_per_s": steps / timings["decode_s"],
            "eager_decode_tok_per_s": steps / eager_t["decode_s"],
+           "graph_encode_s": timings["encode_s"],
+           "eager_encode_s": eager_t["encode_s"],
+           "graph_prefill_s": timings["prefill_s"],
            "eager_prefill_s": eager_t["prefill_s"]}
-    log(phase, decode="graph vs eager", ids_equal=res["ids_equal"],
+    log(phase, graphs="graph vs eager", ids_equal=res["ids_equal"],
+        prefill_logits_equal=res["logits_equal"],
+        ttft_s=json.dumps({
+            "graph": {"towers": round(timings["encode_s"], 4),
+                      "prefill": round(timings["prefill_s"], 4)},
+            "eager": {"towers": round(eager_t["encode_s"], 4),
+                      "prefill": round(eager_t["prefill_s"], 4)}}),
         graph_decode_tok_per_s=f"{res['graph_decode_tok_per_s']:.2f}",
         eager_decode_tok_per_s=f"{res['eager_decode_tok_per_s']:.2f}")
-    if eager != answers:
-        raise AssertionError(f"{phase}: graph decode {answers} != eager "
-                             f"{eager}")
+    if eager != answers or not res["logits_equal"]:
+        raise AssertionError(f"{phase}: graphs {answers} != eager {eager}, "
+                             f"or prefill logits differ")
     return res
 
 
-def _timed_request(phase, model, ids, inputs, **kw):
-    """One request's shape decoded twice through the model's decode graph:
-    the first request captures it (one capture), the second, counted and
-    timed, replays it (no capture, one replay a step).  Returns (answers,
-    timings, launches, graph counts, peak GB)."""
+def _timed_request(phase, model, ids, inputs, record=None, **kw):
+    """One request's shape answered three times: the first request runs
+    the towers and the prefill eagerly and captures the decode graph, the
+    second captures the towers and the prefill, the third, counted and
+    timed, replays every graph and captures nothing.  Returns (answers,
+    timings, launches, graph counts, peak GB, the third request's prefill
+    logits); ``record`` (a ``_KernelInputs``) is active around the third
+    request."""
     import torch
     reset, read = _attention_counters()
-    c0, _ = _graph_counts()
-    model.generate(ids, inputs, max_new_tokens=NEW_TOKENS, **kw)
-    c1, r1 = _graph_counts()
+    calls = []
+    for _ in range(2):
+        before = _all_graph_counts()
+        t = {}
+        model.generate(ids, inputs, max_new_tokens=NEW_TOKENS, timings=t,
+                       **kw)
+        calls.append((_graph_delta(before), t))
     gc.collect()
     torch.cuda.empty_cache()  # reserved = allocated + graph pools + slack
     torch.cuda.reset_peak_memory_stats()
     reset()
     timings = {}
-    answers = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
-                             timings=timings, **kw)
+    before = _all_graph_counts()
+    with _PrefillLogits() as prefill, record or _KernelInputs():
+        answers = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
+                                 timings=timings, **kw)
     launches = read()
-    c2, r2 = _graph_counts()
+    # K1 ran once a layer in the one replayed prefill, counted by the replay
+    if launches["flash_attention_fwd"] != model.cfg.num_hidden_layers:
+        raise AssertionError(f"{phase}: K1 {launches} in one replayed "
+                             f"prefill of {model.cfg.num_hidden_layers} "
+                             f"layers")
+    third = _graph_delta(before)
     peak, reserved = _peak_gb()
-    graphs = {"first_request_captures": c1 - c0,
-              "second_request_captures": c2 - c1,
-              "second_request_replays": r2 - r1}
+    graphs = {"first_request": calls[0][0], "second_request": calls[1][0],
+              "third_request": third}
+    n_towers = len(inputs)
+    ttft = [{"towers": round(t["encode_s"], 4),
+             "prefill": round(t["prefill_s"], 4)}
+            for t in (calls[0][1], calls[1][1], timings)]
     log(phase, graphs=json.dumps(graphs), peak_mem_gb=f"{peak:.2f}",
         peak_reserved_gb=f"{reserved:.2f}",
         graph_pools_gb=f"{_graph_pools_gb():.3f}",
+        pools_by_kind_gb=json.dumps({k: round(v, 3) for k, v in
+                                     _graph_pools_by_kind_gb(model).items()}),
+        ttft_s_eager_capture_replay=json.dumps(ttft),
         retained_graphs=len(model.decode_graphs))
-    if graphs != {"first_request_captures": 1, "second_request_captures": 0,
-                  "second_request_replays": NEW_TOKENS - 1}:
-        raise AssertionError(f"{phase}: decode graphs {graphs}: want one "
-                             f"capture for the shape, reused")
-    return answers, timings, launches, graphs, (peak, reserved)
+    # the shape's decode graph is captured by the first request, its
+    # prefill graph by the second (the towers' graphs there too, unless an
+    # earlier call of the phase took them); the third captures nothing
+    want = {"decode": [0, NEW_TOKENS - 1], "prefill": [0, 1],
+            "tower": [0, n_towers]}
+    if graphs["first_request"].get("decode", [0])[0] != 1 \
+            or graphs["second_request"].get("prefill", [0])[0] != 1 \
+            or third != want:
+        raise AssertionError(f"{phase}: graphs {graphs}: want one decode "
+                             f"capture, then one prefill capture, then "
+                             f"{want}")
+    timings["capture_call_s"] = calls[1][1]["prefill_s"]
+    timings["eager_call_s"] = calls[0][1]["prefill_s"]
+    return answers, timings, launches, graphs, (peak, reserved), \
+        prefill.logits[0]
 
 
 def _ms(t):
@@ -911,7 +1102,7 @@ def phase_main_path(device, gen):
     ids, inputs = _requests(cfg, device, gen)
     # the first request of the shape captures its decode graph (and warms
     # every kernel up); the second, timed and counted, replays it
-    answers, timings, launches, _, _ = _timed_request(
+    answers, timings, launches, _, _, logits = _timed_request(
         "main", model, ids, inputs, kv_quant=True)
     n_layers = cfg.num_hidden_layers
     decode_steps = NEW_TOKENS - 1
@@ -925,10 +1116,11 @@ def phase_main_path(device, gen):
     if launches["flash_decode"] < n_layers * decode_steps:
         raise AssertionError(f"K2 launched {launches} < "
                              f"{n_layers * decode_steps} times")
-    _graph_vs_eager("main", model, ids, inputs, answers, timings,
-                    kv_quant=True)
+    vs_eager = _graph_vs_eager("main", model, ids, inputs, answers, timings,
+                               logits, kv_quant=True)
     _compare_logits("main", model, ids, inputs, answers, LOGIT_TOL)
-    return launches
+    return launches, dict(vs_eager, capture_call_s=timings["capture_call_s"],
+                          eager_call_s=timings["eager_call_s"])
 
 
 def _compare_logits(phase, model, ids, inputs, answers, tol):
@@ -993,30 +1185,55 @@ def _mcub4_request(cfg, device, gen):
         "point": points}
 
 
-def _time_towers(phase, model, inputs):
-    """Wall time of each tower and its projector (synchronized; the
-    farthest-point sampling is a host loop of small launches)."""
+def _time_towers(phase, model, inputs, batches=(1,)):
+    """Wall time of each tower and its projector (synchronized), the tower
+    through its graph (``tower_graphs``: the median of replays, after the
+    eager call and the capturing one) and eagerly, at each batch (the
+    request's inputs tiled); the graph's output bit-equal to the eager
+    one."""
+    import numpy as np
     import torch
     from modelcompose_tpu_torch.models.projectors import apply_projector
     times = {}
+
+    def tiled(raw, b):
+        if isinstance(raw, dict):
+            return {k: tiled(v, b) for k, v in raw.items()}
+        if not isinstance(raw, torch.Tensor):  # a host array
+            return np.repeat(raw, b, axis=0)
+        return raw.repeat((b,) + (1,) * (raw.dim() - 1))
     for modal, raw in inputs.items():
         spec = model.cfg.projector_type(modal)
-        with torch.no_grad():
-            for _ in range(2):  # the first pass warms up
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                x = model.encode_tower(modal, raw)
+        row = {}
+        for b in batches:
+            x_in = raw if b == 1 else tiled(raw, b)
+            with torch.no_grad():
+                for _ in range(2):  # the eager call, then the capture
+                    model.encode_tower(modal, x_in)
+                graph_ms = _median_ms(lambda: model.encode_tower(modal,
+                                                                 x_in), 3)
+                x = model.encode_tower(modal, x_in)
+                with _EagerTTFT(model):
+                    eager_ms = _median_ms(lambda: model.encode_tower(
+                        modal, x_in), 3)
+                    eager = model.encode_tower(modal, x_in)
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 y = apply_projector(spec, model.projectors[modal], x)
                 torch.cuda.synchronize()
                 t2 = time.perf_counter()
-        if not (x.is_cuda and torch.isfinite(y).all()):
-            raise AssertionError(f"{modal}: tower output off the card or "
-                                 f"not finite")
-        times[modal] = {"tower_ms": round((t1 - t0) * 1e3, 3),
-                        "projector_ms": round((t2 - t1) * 1e3, 3),
-                        "tokens": int(x.shape[1]), "out": int(y.shape[1])}
+            if not (_on_card(x) and torch.isfinite(y).all()):
+                raise AssertionError(f"{modal}: tower output off the card "
+                                     f"or not finite")
+            if not torch.equal(x, eager):
+                raise AssertionError(f"{modal}: tower graph output differs "
+                                     f"from the eager encode at B={b}")
+            row[b] = {"graph_ms": round(graph_ms, 3),
+                      "eager_ms": round(eager_ms, 3),
+                      "projector_ms": round((t2 - t1) * 1e3, 3)}
+        times[modal] = dict(row[1], tokens=int(x.shape[1]),
+                            out=int(y.shape[1]), tower_ms=row[1]["graph_ms"],
+                            by_batch=row)
     log(phase, towers=json.dumps(times))
     return times
 
@@ -1035,7 +1252,7 @@ def phase_composed(device, gen):
            for _, leaf in tree_leaves(enc.params)):
         raise AssertionError("a tower's weights are off the card")
     ids, inputs = _mcub4_request(cfg, device, gen)
-    towers = _time_towers("composed", model, inputs)
+    towers = _time_towers("composed", model, inputs, TOWER_BATCHES)
     spans = {m: model.feature_span_len(m) for m in cfg.modalities()}
     if spans != MCUB4_SPANS:
         raise AssertionError(f"spans {spans} != {MCUB4_SPANS}")
@@ -1046,8 +1263,8 @@ def phase_composed(device, gen):
     del embeds
     fps = _fps_check("composed", inputs["point"])
     kw = dict(kv_quant=True, compact_adapters=True)
-    answers, timings, launches, graphs, (peak, reserved) = _timed_request(
-        "composed", model, ids, inputs, **kw)
+    answers, timings, launches, graphs, (peak, reserved), logits = \
+        _timed_request("composed", model, ids, inputs, **kw)
     active = list(model._compact_cache)
     decode_steps = NEW_TOKENS - 1
     log("composed", prefill_s=f"{timings['prefill_s']:.4f}",
@@ -1065,7 +1282,9 @@ def phase_composed(device, gen):
         raise AssertionError(f"K2 launched {launches} < "
                              f"{n_layers * decode_steps} times")
     vs_eager = _graph_vs_eager("composed", model, ids, inputs, answers,
-                               timings, **kw)
+                               timings, logits, **kw)
+    vs_eager.update(capture_call_s=timings["capture_call_s"],
+                    eager_call_s=timings["eager_call_s"])
     step_prof = _decode_step_profile(model)
     rel = _compare_logits("composed", model, ids, inputs, answers,
                           COMPOSED_LOGIT_TOL)
@@ -1075,6 +1294,7 @@ def phase_composed(device, gen):
             "prefill_s": timings["prefill_s"],
             "decode_tok_per_s": decode_steps / timings["decode_s"],
             "peak_mem_gb": peak, "peak_reserved_gb": reserved,
+            "pools_by_kind_gb": _graph_pools_by_kind_gb(model),
             "graphs": graphs, "vs_eager": vs_eager, "fps": fps,
             "decode_step_profile": step_prof, "logit_rel_err": rel,
             "profile": prof}, model, (ids, inputs)
@@ -1149,51 +1369,58 @@ class _KernelInputs:
     wrappers' own): for every distinct K1/K3/K4 shape ``(B, Lq, H, D, S,
     Hkv)`` its first call's (q, kv) segment ids, and for every distinct K2
     cache ``(NL, B, S, Hkv, D, H, dtype)`` its first call's kv_len.  The
-    copies stay on the device: recording adds no host sync."""
+    copies stay on the device: recording adds no host sync.  A capture
+    records nothing (its launches do not run); a replayed graph's K1 and
+    K2 launches are recorded from its capture records after its first
+    replay here."""
 
     def __enter__(self):
         import torch
-        from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
+        from modelcompose_tpu_torch.core.decode_graph import CapturedStep
         from modelcompose_tpu_torch.ops import flash_attention, flash_decode
         self.modules = (flash_attention, flash_decode)
         attention_check, decode_check = self.checks = tuple(
             m._check_cuda_inputs for m in self.modules)
         self.attention, self.decode = {}, {}
 
-        def attention(q, k, v, q_seg, kv_seg):
-            key = tuple(q.shape) + tuple(k.shape[1:3])
+        def record_attention(q_shape, k_shape, q_seg, kv_seg):
+            key = tuple(q_shape) + tuple(k_shape[1:3])
             if key not in self.attention:
                 self.attention[key] = (q_seg.clone(), kv_seg.clone())
+
+        def attention(q, k, v, q_seg, kv_seg):
+            if not torch.cuda.is_current_stream_capturing():
+                record_attention(q.shape, k.shape, q_seg, kv_seg)
             return attention_check(q, k, v, q_seg, kv_seg)
 
         def decode(q, k_q, v_q, k_s, v_s, kv_len):
             key = tuple(k_q.shape) + (q.shape[2], str(k_q.dtype))
-            # a capture records no values: its replays are seen below
             if key not in self.decode \
                     and not torch.cuda.is_current_stream_capturing():
                 self.decode[key] = kv_len.clone()
             return decode_check(q, k_q, v_q, k_s, v_s, kv_len)
         flash_attention._check_cuda_inputs = attention
         flash_decode._check_cuda_inputs = decode
-        # a replayed decode graph runs its K2 launches without a call: its
-        # first replay here records them, after it ran (so kv_len holds
-        # that step's values)
-        self.replay, seen = DecodeGraph.replay, set()
+        # a replayed graph runs its launches without a call: its first
+        # replay here records them, after it ran (so the segment ids and
+        # kv_len hold that replay's values)
+        self.cls, self.replay, seen = CapturedStep, CapturedStep.replay, set()
 
         def replay(graph):
             self.replay(graph)
             if id(graph) not in seen:
                 seen.add(id(graph))
+                for args in graph.k1.launches:
+                    record_attention(*args)
                 for args in graph.k2.launches:
                     decode(*args)
-        DecodeGraph.replay = replay
+        CapturedStep.replay = replay
         return self
 
     def __exit__(self, *exc):
-        from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
         for module, check in zip(self.modules, self.checks):
             module._check_cuda_inputs = check
-        DecodeGraph.replay = self.replay
+        self.cls.replay = self.replay
 
     def decode_rows_dtype(self):
         """Sorted (batch rows, cache dtype) of the K2 launches seen."""
@@ -1704,15 +1931,38 @@ class _SlotProbe:
     (steps taken, and the kv_len K2 reads at the fullest step)."""
 
     def __init__(self, dec):
+        import torch
         self.admits, self.ticks, self.active, self.steps = [], [], [], 0
         self.fullest, self.kv_fullest = -1, None
         admit, sample, step = dec.admit, dec.sample, dec.step
+        backbone, prefill = dec.backbone, dec.backbone.prefill
+        self.backbone, self.prefill_s = backbone, None
+        self.gc_pauses, self._gc_start = [], None  # (start, end) each
+
+        def gc_probe(phase, info):  # Python's collector stops every thread
+            if phase == "start":
+                self._gc_start = time.perf_counter()
+            elif self._gc_start is not None:
+                self.gc_pauses.append((self._gc_start, time.perf_counter()))
+        self.gc_probe = gc_probe
+        gc.callbacks.append(gc_probe)
+
+        def prefill_probe(*args, **kw):
+            # the admission's prefill apart from its towers: synchronized
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = prefill(*args, **kw)
+            torch.cuda.synchronize()
+            self.prefill_s = time.perf_counter() - t0
+            return out
+        backbone.prefill = prefill_probe
 
         def admit_probe(slot, ids, modal_inputs, tick_cb=None):
             n, t0 = int(dec.active.sum()), time.perf_counter()
             L = admit(slot, ids, modal_inputs, tick_cb=tick_cb)
             self.admits.append({"L": L, "in_flight": n, "start": t0,
-                                "end": time.perf_counter()})
+                                "end": time.perf_counter(),
+                                "prefill_s": self.prefill_s})
             return L
 
         def sample_probe(*args):
@@ -1728,6 +1978,11 @@ class _SlotProbe:
             self.steps += 1
             return step(tokens)
         dec.admit, dec.sample, dec.step = admit_probe, sample_probe, step_probe
+
+    def close(self):
+        """Put the backbone's own prefill back, stop timing collections."""
+        del self.backbone.prefill
+        gc.callbacks.remove(self.gc_probe)
 
     def timeline(self, max_slots):
         """(tick gaps outside admissions in ms, with the median decode
@@ -1747,10 +2002,25 @@ class _SlotProbe:
                 if n == max_slots:
                     full.append(n / (t1 - t0))
         # an admission stalls the slots in flight only once they tick
-        stalls = [{"positions": a["L"], "stall_s": max(
-            t1 - t0 for t0, t1 in pairs if overlaps(t0, t1, a))}
-            for a in self.admits if a["in_flight"]
-            and any(t0 < a["start"] for t0, _ in pairs)]
+        def stall(a):
+            t0, t1 = max(((t0, t1) for t0, t1 in pairs
+                          if overlaps(t0, t1, a)),
+                         key=lambda p: p[1] - p[0])
+            return {"positions": a["L"], "stall_s": t1 - t0,
+                    "admit_s": a["end"] - a["start"],
+                    "prefill_s": a["prefill_s"],
+                    # the gap's parts outside this admission: from the
+                    # tick before it, to the tick after it, and the other
+                    # admissions inside the same gap
+                    "before_s": a["start"] - t0, "after_s": t1 - a["end"],
+                    "others": [b["L"] for b in self.admits if b is not a
+                               and overlaps(t0, t1, b)],
+                    # Python's garbage collections inside the gap
+                    "gc_s": sum(min(e, t1) - max(b, t0)
+                                for b, e in self.gc_pauses
+                                if e > t0 and b < t1)}
+        stalls = [stall(a) for a in self.admits if a["in_flight"]
+                  and any(t0 < a["start"] for t0, _ in pairs)]
         tick = {"median_ms": float(np.median(free)) if free else None,
                 "p95_ms": float(np.percentile(free, 95)) if free else None,
                 "n": len(free), "all_slots_ticks": len(full),
@@ -1822,7 +2092,9 @@ def _serve_run(part, worker, requests, waves, mcub4=None, stop_str=None):
     torch.cuda.reset_peak_memory_stats()
     reset()
     captures0, replays0 = _graph_counts()
+    kinds0 = _all_graph_counts()
     recs, threads = {}, {}
+    calls = _GraphCalls().__enter__()
     t_start = time.perf_counter()
 
     def start(name):
@@ -1858,6 +2130,7 @@ def _serve_run(part, worker, requests, waves, mcub4=None, stop_str=None):
         raise AssertionError(f"{part}: streams still open after "
                              f"{SERVE_TIMEOUT_S} s: {hung}")
     torch.cuda.synchronize()
+    calls.__exit__()
     launches = read()
     peak, reserved = _peak_gb()
     captures, replays = _graph_counts()
@@ -1865,7 +2138,9 @@ def _serve_run(part, worker, requests, waves, mcub4=None, stop_str=None):
            "peak_reserved_gb": reserved,
            "seconds": time.perf_counter() - t_start,
            "graph_captures": captures - captures0,
-           "graph_replays": replays - replays0}
+           "graph_replays": replays - replays0,
+           "graphs_by_kind": _graph_delta(kinds0),
+           "graph_calls": calls.calls}
     if not out["graph_replays"]:
         raise AssertionError(f"{part}: no decode graph replayed")
     for name, rec in recs.items():
@@ -1883,8 +2158,13 @@ def _serve_run(part, worker, requests, waves, mcub4=None, stop_str=None):
     n_tokens = sum(len(r["times"]) for r in recs.values())
     out["aggregate_tok_per_s"] = n_tokens / (last - first)
     if probe is not None:
+        probe.close()
         out["tick"], out["stalls"] = probe.timeline(
             worker.engine.decoder.max_slots)
+        out["gc"] = {"n": len(probe.gc_pauses),
+                     "total_s": sum(e - b for b, e in probe.gc_pauses),
+                     "max_s": max((e - b for b, e in probe.gc_pauses),
+                                  default=0.0)}
         out["steps"], out["kv_fullest"] = probe.steps, probe.kv_fullest
     else:  # the packed decode's step, from its longest request's tokens
         longest = max(recs.values(), key=lambda r: len(r["times"]))["times"]
@@ -1897,7 +2177,10 @@ def _serve_run(part, worker, requests, waves, mcub4=None, stop_str=None):
         graph_pools_gb=f"{_graph_pools_gb():.3f}",
         graph_captures=out["graph_captures"],
         graph_replays=out["graph_replays"],
+        graphs_by_kind=json.dumps(out["graphs_by_kind"]),
+        graph_calls=json.dumps(out["graph_calls"]),
         launches=json.dumps(launches), tick=json.dumps(out.get("tick")),
+        gc=json.dumps(out.get("gc")),
         steps=out.get("steps"), step_median_ms=out.get("step_median_ms"))
     for name, r in out["requests"].items():
         log("serve", part=part, request=name,
@@ -1905,8 +2188,44 @@ def _serve_run(part, worker, requests, waves, mcub4=None, stop_str=None):
     if probe is not None:
         log("serve", part=part, stalls=json.dumps(
             [{"positions": a["positions"],
-              "stall_s": round(a["stall_s"], 4)} for a in out["stalls"]]))
+              "stall_s": round(a["stall_s"], 4),
+              "admit_s": round(a["admit_s"], 4)} for a in out["stalls"]]))
     return out
+
+
+def _mcub4_stall(run):
+    """The admission of MCUB-4's 3,287 positions (the one with every other
+    slot in flight) in a serve run: its stall, the admission's own seconds
+    and its prefill's (the rest is its towers, projectors and packing), the
+    stall's parts before and after the admission and the other admissions
+    inside it; None where not seen."""
+    stalls = [a for a in run.get("stalls", [])
+              if a["positions"] == MCUB4_POSITIONS]
+    if not stalls:
+        return None
+    a = max(stalls, key=lambda a: a["stall_s"])
+    out = {k: None if a[k] is None else round(a[k], 4)
+           for k in ("stall_s", "admit_s", "prefill_s", "before_s",
+                     "after_s", "gc_s")}
+    return dict(out, others=a["others"])
+
+
+def _warm_admissions(worker, prepared):
+    """Each request of ``prepared`` ((ids, inputs) by name) admitted twice
+    with a budget of one token before a timed run: a shape's first
+    admission runs its towers and prefill eagerly, the second captures
+    their graphs, so the run measures a warm server, whose admissions
+    replay.  Returns the graph counts of the warm-up."""
+    prepare = worker.engine.prepare
+    worker.engine.prepare = lambda r: r["prepared"] \
+        if "prepared" in r else prepare(r)
+    before = _all_graph_counts()
+    for _ in range(2):
+        for ids, inputs in prepared.values():
+            for _ in _engine_events(worker.engine.submit(
+                    {"prepared": (ids, inputs, 1, 0.0, 1.0)})):
+                pass
+    return _graph_delta(before)
 
 
 def _slot_vs_solo(part, name, got, solo, solo_logits, budget, whole=True):
@@ -2151,21 +2470,52 @@ def phase_serve(device, gen, model, request, root, merged, base_dir):
     stop_strs = {p: f" t{s['text_stop'][SERVE_STOP_STEP]}"
                  for p, s in solos.items()}
     mcub4 = (request[0][0], request[1], 48, 0.0, 1.0)
-    parts = {}
+    parts, warm, pools = {}, {}, {}
+
+    def eager_run(part, srv):
+        """The same waves again with the towers and the admissions'
+        prefill launch by launch (the decode pool stays a graph): the
+        MCUB-4 admission's stall, the aggregate and the ticks, graph
+        against eager."""
+        with _EagerTTFT(model):
+            parts[part + "_eager"] = _serve_run(
+                part + "_eager", srv, requests, SERVE_WAVES, mcub4,
+                stop_strs[part])
+    # every request's shapes, warmed before each graph run: one request of
+    # each modality (the text prompts share one bucket, as do the media
+    # requests of one modality)
+    warm_inputs = {modal: (request[0][0], request[1]) if modal == "mcub4"
+                   else first._prepare_request(requests[name])[:2]
+                   for name, _, modal, *_ in reversed(SERVE_REQUESTS)}
+    warm["chunked"] = _warm_admissions(first, warm_inputs)
     with _KernelInputs() as shapes:
         parts["chunked"] = _serve_run("chunked", first, requests, SERVE_WAVES,
                                       mcub4, stop_strs["chunked"])
+    pools["chunked"] = _graph_pools_by_kind_gb(model)
+    eager_run("chunked", first)
     first.engine.stop()  # no thread touches the card while K1 is captured
     k1, k2 = _serve_kernel_checks(device, gen, shapes, first.engine.decoder,
                                   parts["chunked"]["kv_fullest"])
     del first
     second = worker(prefill_chunk=None, **slot_kw)
+    warm["one_shot"] = _warm_admissions(second, warm_inputs)
     parts["one_shot"] = _serve_run("one_shot", second, requests, SERVE_WAVES,
                                    mcub4, stop_strs["one_shot"])
+    pools["one_shot"] = _graph_pools_by_kind_gb(model)
+    eager_run("one_shot", second)
     second.engine.stop()
     del second
     gc.collect()
     torch.cuda.empty_cache()
+    stall = {part: {"graph": _mcub4_stall(parts[part]),
+                    "eager": _mcub4_stall(parts[part + "_eager"])}
+             for part in ("chunked", "one_shot")}
+    log("serve", mcub4_stall_s=json.dumps(stall),
+        warm_admission_graphs=json.dumps(warm),
+        pools_by_kind_gb=json.dumps({p: {k: round(v, 3) for k, v in g.items()}
+                                     for p, g in pools.items()}),
+        ticks=json.dumps({p: r["tick"] for p, r in parts.items()
+                          if "tick" in r}))
     checks = {}
     for part in ("chunked", "one_shot"):
         res = parts[part]
@@ -2174,11 +2524,18 @@ def phase_serve(device, gen, model, request, root, merged, base_dir):
                 "audio_cancelled"]["max_new_tokens"]:
             raise AssertionError(f"{part}: the cancelled request ran on")
         n_layers = model.cfg.num_hidden_layers
+        # K2 once a layer a tick; K1 once a layer in each admission's
+        # prefill or chunk, every one through a graph (eager, capturing or
+        # replayed: a replay counts what its capture recorded)
+        pieces = parts[part]["graph_calls"]
+        k1_want = n_layers * (pieces.get("prefill", 0)
+                              + pieces.get("chunk_step", 0))
         if res["launches"]["flash_decode"] != n_layers * res["steps"] \
-                or res["launches"]["flash_attention_fwd"] < n_layers * len(
-                    SERVE_REQUESTS):
+                or res["launches"]["flash_attention_fwd"] != k1_want \
+                or k1_want < n_layers * len(SERVE_REQUESTS):
             raise AssertionError(f"{part}: launches {res['launches']} for "
-                                 f"{res['steps']} steps")
+                                 f"{res['steps']} steps and {pieces} "
+                                 f"prefill graph calls")
         for name, (_, _, budget) in greedy.items():
             checks[f"{part}/{name}"] = _slot_vs_solo(
                 part, name, reqs[name]["ids"], solos[part][name],
@@ -2248,7 +2605,8 @@ def phase_serve(device, gen, model, request, root, merged, base_dir):
     log("serve", launches=json.dumps(launches), greedy_vs_solo=json.dumps(
         {k: v.get("diverge_step", "equal") for k, v in checks.items()}))
     return {"parts": parts, "launches": launches, "vs_solo": checks,
-            "k1_chunks": k1, "k2_pool": k2,
+            "k1_chunks": k1, "k2_pool": k2, "stall": stall, "pools": pools,
+            "warm_graphs": warm,
             "max_abs_err": {"fwd": max(c["max_abs_err"] for c in k1.values()),
                             "decode": k2["max_abs_err"]}}
 
@@ -3267,23 +3625,36 @@ def _cpu_copy(tree):
 
 
 def _tower_row(name, tower, make_inputs, batches, tokens, resident):
-    """Time ``tower`` on the card at each batch (median ms; peak memory of
-    its weights and activations: the peak above the ``resident`` bytes
-    allocated before the tower was built), then hold its B=1 output to the
+    """Time ``tower`` on the card at each batch (median ms of its graph's
+    replays, ``ms``, and of the eager encode, ``eager_ms``, the two outputs
+    bit-equal; peak memory of its weights, activations and graph pool: the
+    peak above the ``resident`` bytes allocated before the tower was
+    built), then hold its B=1 output to the
     same tower on the CPU (the weights copied there): max |card - CPU| /
     max |CPU|.  As a control of that check, the same ratio with TF32
     products allowed on the card is reported (``tf32_card_vs_cpu``), not
     held."""
     import torch
+    from modelcompose_tpu_torch.models.towers import TowerGraphs
     encode = tower.encode
-    row = {"tokens": tokens, "ms": {}, "peak_mem_gb": {}}
+    row = {"tokens": tokens, "ms": {}, "eager_ms": {}, "peak_mem_gb": {}}
     for b in batches:
         inputs = make_inputs(b)
+        graphs = TowerGraphs()  # this batch's graph, dropped after it
+
+        def graph():
+            return graphs.encode(tower, *inputs)
         torch.cuda.reset_peak_memory_stats()
         with torch.no_grad():
-            row["ms"][b] = _median_ms(lambda: encode(*inputs))
+            graph()  # the eager call; _median_ms's warm-up captures
+            row["ms"][b] = _median_ms(graph)
+            row["eager_ms"][b] = _median_ms(lambda: encode(*inputs))
+            if not torch.equal(graph(), encode(*inputs)):
+                raise AssertionError(f"{name}: the tower graph's output "
+                                     f"differs from the eager encode")
         row["peak_mem_gb"][b] = (torch.cuda.max_memory_allocated()
                                  - resident) / 2**30
+        del graphs
     inputs = make_inputs(batches[0])
     with torch.no_grad():
         card = encode(*inputs)
@@ -3316,7 +3687,9 @@ def _tower_row(name, tower, make_inputs, batches, tokens, resident):
     row["tf32_card_vs_cpu"] = ((card_tf32.cpu() - cpu).abs().max()
                                / cpu.abs().max()).item()
     log("towers", tower=name, tokens=tokens, shape=row["shape"],
-        ms=json.dumps({b: round(t, 3) for b, t in row["ms"].items()}),
+        graph_ms=json.dumps({b: round(t, 3) for b, t in row["ms"].items()}),
+        eager_ms=json.dumps({b: round(t, 3)
+                             for b, t in row["eager_ms"].items()}),
         peak_mem_gb=json.dumps({b: round(g, 3) for b, g in
                                 row["peak_mem_gb"].items()}),
         cpu_ms=f"{row['cpu_ms']:.1f}",
@@ -3459,7 +3832,7 @@ def phase_eva_imagebind(device, gen):
                for t in _leaves(enc.params)):
         raise AssertionError("a tower's weights are off the card")
     ids, inputs = _eva_imagebind_request(cfg, device, gen)
-    towers = _time_towers("eva_imagebind", model, inputs)
+    towers = _time_towers("eva_imagebind", model, inputs, TOWER_BATCHES)
     spans = {m: model.feature_span_len(m) for m in cfg.modalities()}
     if spans != EVA_IMAGEBIND_SPANS:
         raise AssertionError(f"spans {spans} != {EVA_IMAGEBIND_SPANS}")
@@ -3470,17 +3843,10 @@ def phase_eva_imagebind(device, gen):
     if bucket != 1024:
         raise AssertionError(f"packed {positions} in {bucket}")
     kw = dict(kv_quant=True, compact_adapters=True)
-    # the warm-up request captures the shape's decode graph
-    model.generate(ids, inputs, max_new_tokens=NEW_TOKENS, **kw)
-    reset, read = _attention_counters()
-    torch.cuda.reset_peak_memory_stats()
-    reset()
-    timings = {}
-    with _KernelInputs() as kernel_inputs:
-        answers = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
-                                 timings=timings, **kw)
-    launches = read()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    # two warm-up requests capture the shape's graphs; the third replays
+    kernel_inputs = _KernelInputs()
+    answers, timings, launches, graphs, (peak, _), logits = _timed_request(
+        "eva_imagebind", model, ids, inputs, record=kernel_inputs, **kw)
     own = peak - resident / 2**30
     decode_steps = NEW_TOKENS - 1
     log("eva_imagebind", positions=positions, bucket=bucket,
@@ -3494,8 +3860,13 @@ def phase_eva_imagebind(device, gen):
     if launches["flash_attention_fwd"] < n_layers \
             or launches["flash_decode"] < n_layers * decode_steps:
         raise AssertionError(f"launches {launches}")
+    vs_eager = _graph_vs_eager("eva_imagebind", model, ids, inputs,
+                               answers, timings, logits, **kw)
+    vs_eager.update(capture_call_s=timings["capture_call_s"],
+                    eager_call_s=timings["eager_call_s"])
     rel = _compare_logits("eva_imagebind", model, ids, inputs, answers,
                           LOGIT_TOL)
+    pools = _graph_pools_by_kind_gb(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3504,7 +3875,8 @@ def phase_eva_imagebind(device, gen):
             "bucket": bucket, "prefill_s": timings["prefill_s"],
             "decode_tok_per_s": decode_steps / timings["decode_s"],
             "peak_mem_gb": peak, "own_peak_gb": own, "logit_rel_err": rel,
-            "kernel_checks": checks}
+            "kernel_checks": checks, "vs_eager": vs_eager, "graphs": graphs,
+            "pools_by_kind_gb": pools}
 
 
 def _entry_files(root):
@@ -4322,10 +4694,12 @@ def phase_legacy_eval(device, gen, root, merged, base_dir, model):
                     flags + ["--question-file", qfile, "--answers-file",
                              answers])
                 reset()
+                before = _all_graph_counts()
                 t0 = time.perf_counter()
                 with _GenerateLog(model, impl) as calls:
                     mod.eval_model(args, loaded=loaded)
                 res[f"{path}_s"] = time.perf_counter() - t0
+                res[f"{path}_graphs"] = _graph_delta(before)
                 res[f"{path}_calls"] = calls.calls
                 res[f"{path}_launches"] = read()
                 res[f"{path}_lines"] = _answer_lines(answers, entry)
@@ -4347,6 +4721,7 @@ def phase_legacy_eval(device, gen, root, merged, base_dir, model):
             log("legacy_eval", entry=entry, answers=n,
                 kernel_s=f"{res['kernel_s']:.3f}",
                 plain_s=f"{res['plain_s']:.3f}",
+                graphs=json.dumps(res["kernel_graphs"]),
                 launches=json.dumps(launches),
                 equal_to_plain=sum(v["equal"] for v in res["vs_plain"]),
                 texts=json.dumps([line["text"] for line in
@@ -4594,13 +4969,16 @@ def main() -> int:
     seconds = {}
 
     replays = {}  # decode-graph replays per phase
+    graphs = {}  # captures and replays of every kind of graph per phase
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
         r0 = _graph_counts()[1]
+        kinds = _all_graph_counts()
         out = fn(*args)
         seconds[name] = round(time.perf_counter() - t0, 1)
         replays[name] = _graph_counts()[1] - r0
+        graphs[name] = _graph_delta(kinds)
         return out
     device = timed("device", phase_device)
     gen = torch.Generator(device=device)
@@ -4608,7 +4986,7 @@ def main() -> int:
     timed("build", phase_build)
     k1 = timed("k1", phase_k1, device, gen)
     k2 = timed("k2", phase_k2, device, gen)
-    launches = timed("main", phase_main_path, device, gen)
+    launches, main = timed("main", phase_main_path, device, gen)
     gc.collect()
     torch.cuda.empty_cache()  # each served model is gone before the next
     composed, mcub4_model, request = timed("composed", phase_composed,
@@ -4628,6 +5006,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         serve = timed("serve", phase_serve, device, gen, mcub4_model,
                       request, root, merged, base_dir)
+        # the admissions' caches and prefill graphs go with the serve phase
+        mcub4_model.prefill_graphs.clear()
         gc.collect()
         torch.cuda.empty_cache()
         towers = timed("towers", phase_towers, device)
@@ -4774,6 +5154,36 @@ def main() -> int:
              launches_by_path=train_paths("flash_attention_bwd_dkv"),
              **worst(k34["dkv"], "dkv")),
     ]
+    log("prefill_graph", graphs_by_phase=json.dumps(graphs),
+        totals=json.dumps(_all_graph_counts()),
+        k1_launches_by_path=json.dumps(by_path("flash_attention_fwd")),
+        ttft_s=json.dumps({p: {k: round(v, 4) for k, v in r.items()
+                               if k.endswith(("encode_s", "prefill_s",
+                                              "call_s"))}
+                           for p, r in (("main", main),
+                                        ("composed", composed["vs_eager"]),
+                                        ("eva_imagebind", eva["vs_eager"]))}),
+        logits_equal={p: r["logits_equal"] for p, r in (
+            ("main", main), ("composed", composed["vs_eager"]),
+            ("eva_imagebind", eva["vs_eager"]))},
+        pools_by_kind_gb=json.dumps({p: {k: round(v, 3) for k, v in g.items()}
+                                     for p, g in (
+            ("composed", composed["pools_by_kind_gb"]),
+            ("eva_imagebind", eva["pools_by_kind_gb"]),
+            *serve["pools"].items())}),
+        peak_gb=json.dumps({"composed": [round(composed["peak_mem_gb"], 2),
+                                         round(composed["peak_reserved_gb"],
+                                               2)],
+                            **{p: [round(r["peak_mem_gb"], 2),
+                                   round(r["peak_reserved_gb"], 2)]
+                               for p, r in serve["parts"].items()
+                               if "peak_mem_gb" in r}}),
+        serve_mcub4_stall_s=json.dumps(serve["stall"]))
+    missing = [p for p in ("main", "composed", "eva_imagebind", "serve")
+               if not graphs[p].get("prefill", [0, 0])[1]
+               and not graphs[p].get("chunk_step", [0, 0])[1]]
+    if missing:  # every prefilling phase replays a prefill graph
+        raise AssertionError(f"no prefill graph replayed in {missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

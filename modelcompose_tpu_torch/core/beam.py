@@ -40,8 +40,9 @@ import torch
 from ..config import ModelConfig
 from ..ops.routed_lora import as_table
 from .decode_graph import DecodeGraphs
-from .generate import _decode_step, _prefill, _prepare, _sync_clock
+from .generate import _decode_step, _prepare, _sync_clock
 from .llama import KVCache
+from .prefill_graph import PrefillGraphs, prefill
 from .sampling import gumbel, top_p_filter
 
 
@@ -129,6 +130,7 @@ def beam_generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
                   generator: Optional[torch.Generator] = None,
                   device_loop: bool = True,
                   graphs: Optional[DecodeGraphs] = None,
+                  prefill_graphs: Optional[PrefillGraphs] = None,
                   timings: Optional[dict] = None,
                   _draw_override=None) -> List[List[int]]:
     """Beam-search decode for one packed prompt (batch 1).
@@ -150,7 +152,8 @@ def beam_generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
     the JAX package's across RNGs.  ``device_loop`` and ``graphs`` are
     ``generate``'s: a step replays a graph of ``num_beams`` rows whose
     cache the prompt's is tiled into (the parent-beam gather reorders that
-    cache in place).  ``timings`` receives 'prefill_s' and 'decode_s'.
+    cache in place).  ``prefill_graphs`` is ``generate``'s too.
+    ``timings`` receives 'prefill_s' and 'decode_s'.
     """
     if inputs_embeds.shape[0] != 1:
         raise ValueError("beam_generate packs one prompt (the eval protocol)")
@@ -180,9 +183,11 @@ def beam_generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
                            routing_table=decode_table, attn_impl=attn_impl)
 
     t0 = _sync_clock(device) if timings is not None else 0.0
-    logits, cache = _prefill(params, cfg, inputs_embeds, route_ids,
-                             routing_table, segment_ids, lengths, cache_len,
-                             attn_impl, False)
+    # the prompt's cache has one row: no decode graph reads it, so it is
+    # the prefill graph's own until it is tiled into the beams' cache
+    logits, cache = prefill(params, cfg, inputs_embeds, route_ids,
+                            routing_table, segment_ids, lengths, cache_len,
+                            attn_impl, False, graphs=prefill_graphs)
     if timings is not None:
         t1 = _sync_clock(device)
         timings["prefill_s"] = t1 - t0

@@ -3,8 +3,10 @@ of modelcompose_tpu/core/generate.py).
 
 Prefill runs the full routed multimodal forward once and fills the cache
 (``_prefill``), or in chunks with work between them (``prefill_chunked``,
-the slot engine's admission); decode steps run with the 'default' route
-class only, matching the reference's decode semantics.  ``generate`` keeps
+the slot engine's admission), each through the captured CUDA graphs of a
+``PrefillGraphs`` when the caller gives one (core/prefill_graph); decode
+steps run with the 'default' route class only, matching the reference's
+decode semantics.  ``generate`` keeps
 the token choice (argmax, or a draw from an explicit ``torch.Generator``)
 and the EOS/done mask on the device, with no per-step host sync, and
 fetches the tokens once at the end; with ``device_loop=True`` (the JAX
@@ -25,45 +27,18 @@ import torch
 from ..config import ModelConfig
 from ..ops.routed_lora import as_table, fold_decode_adapters, fold_dense
 from .decode_graph import DecodeGraphs, _decode_step
-from .llama import (KVCache, forward_hidden_routed, local_kv_heads,
-                    logits_from_hidden)
+from .llama import KVCache, local_kv_heads, logits_from_hidden
+# _prefill stays importable from here (the eager one-shot prefill)
+from .prefill_graph import (PrefillGraphs, _prefill, _prefill_chunk_step,  # noqa: F401
+                            graphable, prefill)
 from .sampling import categorical, sample_step, top_p_filter
-
-
-def _prefill(params, cfg: ModelConfig, inputs_embeds, route_ids,
-             routing_table, segment_ids, lengths, max_len: int,
-             attn_impl: str = "auto", kv_quant: bool = False, cache=None):
-    """Prompt forward that fills a fresh cache, or ``cache`` (an existing
-    one of B rows and ``max_len`` positions, a decode graph's): its
-    positions [0, L) are written and [L, max_len) zeroed, so it holds what
-    a fresh cache would.  Returns (last valid position's fp32 logits [B,
-    V], cache)."""
-    B, L = inputs_embeds.shape[:2]
-    if cache is None:
-        cache = KVCache.zeros(cfg, B, max_len, quantized=kv_quant,
-                              device=inputs_embeds.device,
-                              kv_heads=local_kv_heads(params, cfg))
-    else:
-        for t in cache.tensors():
-            if t.shape[1:3] != (B, max_len):
-                raise ValueError(f"cache {tuple(t.shape)} is not {B} rows "
-                                 f"of {max_len} positions")
-            t[:, :, L:].zero_()
-    hidden, cache = forward_hidden_routed(
-        params, cfg, inputs_embeds, route_ids=route_ids,
-        routing_table=routing_table, segment_ids=segment_ids, cache=cache,
-        attn_impl=attn_impl)
-    # Only the last valid position feeds decoding: gather it BEFORE the
-    # lm_head so prefill skips the [B, L, V] logits product.
-    rows = torch.arange(B, device=hidden.device)
-    last_h = hidden[rows, lengths.long() - 1][:, None]
-    return logits_from_hidden(params, last_h)[:, 0], cache
 
 
 def prefill_chunked(params, cfg: ModelConfig, inputs_embeds, route_ids,
                     routing_table, lengths, cache_len: int,
                     chunk: int = 256, attn_impl: str = "auto",
-                    tick_cb=None, kv_quant: bool = False):
+                    tick_cb=None, kv_quant: bool = False,
+                    graphs: Optional[PrefillGraphs] = None):
     """Chunked prefill of one right-padded prompt (the slot engine's
     admission): ``chunk``-position pieces (full chunks, then a ragged
     tail), with ``tick_cb()`` run after each so the caller can interleave
@@ -74,30 +49,48 @@ def prefill_chunked(params, cfg: ModelConfig, inputs_embeds, route_ids,
     ``kv_quant=True`` quantizes each chunk's k/v into an int8 cache at
     append time and later chunks attend over the dequantized prefix (the
     int8-KV decode approximation, one phase earlier): the transient is
-    the int8 cache, a quarter of the bf16 one's bytes."""
+    the int8 cache, a quarter of the bf16 one's bytes.
+
+    With ``graphs`` (where a graph may run: ``graphable``) each piece is
+    one replay of its ``(offset, size)`` chunk step, and the cache is the
+    persistent admission cache ``graphs`` keeps for ``(cache_len,
+    kv_quant)``, its tail [L, cache_len) zeroed first, so it holds what a
+    fresh cache would: read it before the next admission of the shape.
+    ``graphs=None`` writes a fresh cache, launch by launch."""
     B, L, _ = inputs_embeds.shape
     if B != 1:
         raise ValueError("chunked prefill takes one prompt (batch 1)")
     device = inputs_embeds.device
     chunk = max(1, min(chunk, L))
     sizes = [chunk] * (L // chunk) + ([L % chunk] if L % chunk else [])
-    cache = KVCache.zeros(cfg, B, cache_len, quantized=kv_quant,
-                          device=device, kv_heads=local_kv_heads(params, cfg))
     if routing_table is not None:
         routing_table = as_table(routing_table, device)
     if route_ids is not None:
         route_ids = _on(route_ids, device)
+    admission = None
+    if graphs is not None and graphable():
+        admission = graphs.chunked(params, cfg, inputs_embeds, route_ids,
+                                   routing_table, cache_len,
+                                   kv_quant=kv_quant, attn_impl=attn_impl)
+        cache = admission.cache
+        for t in cache.tensors():
+            t[:, :, L:].zero_()
+    else:
+        cache = KVCache.zeros(cfg, B, cache_len, quantized=kv_quant,
+                              device=device,
+                              kv_heads=local_kv_heads(params, cfg))
     last_idx = int(_on(lengths, "cpu")[0]) - 1
     logits, off = None, 0
     for size in sizes:
         # write k/v at [off, off + size) in place and attend causally with
         # query offset ``off``
+        embeds = inputs_embeds[:, off:off + size]
         rc = None if route_ids is None else route_ids[:, off:off + size]
-        hidden, _ = forward_hidden_routed(
-            params, cfg, inputs_embeds[:, off:off + size], route_ids=rc,
-            routing_table=routing_table,
-            positions=(off + torch.arange(size, device=device))[None],
-            cache=cache, cache_write_pos=off, attn_impl=attn_impl)
+        if admission is not None:
+            hidden = admission.step(off, size)(embeds, rc)
+        else:
+            hidden = _prefill_chunk_step(params, cfg, cache, embeds, rc,
+                                         routing_table, off, attn_impl)
         if off <= last_idx < off + size:
             logits = logits_from_hidden(
                 params, hidden[:, last_idx - off][:, None])[:, 0]
@@ -162,6 +155,7 @@ def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
              attn_impl: str = "auto", device_loop: bool = True,
              fold_decode=False, kv_quant: bool = False,
              graphs: Optional[DecodeGraphs] = None,
+             prefill_graphs: Optional[PrefillGraphs] = None,
              timings: Optional[dict] = None):
     """Greedy or sampled token ids for a packed, right-padded batch.
 
@@ -188,6 +182,9 @@ def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
         (a model's, so requests of one shape reuse it); None makes one for
         this call, and so does a fold made here (its params and graph go
         with the call).
+      prefill_graphs: the ``PrefillGraphs`` whose captured graphs run the
+        prefill (a model's); None prefills launch by launch.  The ids are
+        the same.
       timings: if a dict, receives 'prefill_s' and 'decode_s' (host clock
         around device-synchronized phases).
 
@@ -222,10 +219,10 @@ def generate(params, cfg: ModelConfig, inputs_embeds, *, lengths,
             routing_table=decode_table, attn_impl=attn_impl)
 
     t0 = _sync_clock(device) if timings is not None else 0.0
-    logits, cache = _prefill(params, cfg, inputs_embeds, route_ids,
-                             routing_table, segment_ids, lengths, cache_len,
-                             attn_impl, kv_quant,
-                             cache=None if graph is None else graph.cache)
+    logits, cache = prefill(params, cfg, inputs_embeds, route_ids,
+                            routing_table, segment_ids, lengths, cache_len,
+                            attn_impl, kv_quant, graphs=prefill_graphs,
+                            decode_graph=graph)
     if timings is not None:
         t1 = _sync_clock(device)
         timings["prefill_s"] = t1 - t0

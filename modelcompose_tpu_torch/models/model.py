@@ -10,6 +10,11 @@ tensor work is in plain functions.  Pipeline per batch:
 3. ``assemble_embeds`` and the routed prefill + decode (greedy, sampled
    or beam search), or the forward and ``causal_lm_loss`` for training.
 
+On the card the towers, the prefill and the decode steps run as captured
+CUDA graphs the model keeps (``tower_graphs``, ``prefill_graphs``,
+``decode_graphs``); setting ``tower_graphs`` or ``prefill_graphs`` to None
+runs that step launch by launch (the functions' ``graphs=None`` path).
+
 Only the towers run without gradient: the projector and the soft tokens
 train, as in the JAX package (which stops the gradient at the tower
 output).
@@ -29,6 +34,7 @@ from ..core.beam import beam_generate
 from ..core.decode_graph import DecodeGraphs
 from ..core.llama import forward, init_params, torch_dtype
 from ..core.packing import PackPlan, assemble_embeds, plan_pack
+from ..core.prefill_graph import PrefillGraphs
 from ..core.sampling import entropy_seed
 from ..devices import resolve_device
 from ..ops.routed_lora import (active_adapter_set, as_table,
@@ -36,7 +42,7 @@ from ..ops.routed_lora import (active_adapter_set, as_table,
 from ..parallel import tp
 from ..parallel.serving import ServingBackbone
 from .projectors import apply_projector, init_projector, output_len
-from .towers import build_modal_encoders
+from .towers import TowerGraphs, build_modal_encoders
 
 
 STREAM = "stream"  # generate_stream's cache in the served backbone
@@ -48,10 +54,14 @@ class MultimodalLM:
                  encoders: Dict[str, Any],
                  projectors: Dict[str, Dict[str, Any]]):
         self.cfg = cfg
-        # the decode graphs of generate / generate_stream (their caches
-        # included), least recently used dropped first; new params drop
+        # the decode graphs of generate / generate_stream (their caches and
+        # prefill graphs included) and the prefill graphs on caches of
+        # their own, least recently used dropped first; new params drop
         # them all
         self.decode_graphs = DecodeGraphs(DECODE_GRAPHS)
+        self.prefill_graphs = PrefillGraphs()
+        # the towers' encodes (keyed by the towers' own leaves)
+        self.tower_graphs = TowerGraphs()
         self.params = params
         self.encoders = encoders
         self.projectors = projectors
@@ -93,6 +103,8 @@ class MultimodalLM:
     def params(self, params: Dict[str, Any]) -> None:
         self._params = params
         self.decode_graphs.clear()  # they read the old tensors
+        if self.prefill_graphs is not None:
+            self.prefill_graphs.clear()
 
     @property
     def device(self) -> torch.device:
@@ -124,18 +136,25 @@ class MultimodalLM:
         Audio takes the fbank alone, a ``(fbank, padding_mask)`` pair or an
         ``{"audio_inputs", "audio_padding_mask"}`` dict; BEATs' frame mask
         is discarded, as the reference discards it.  Video [n, t, N, d] is
-        flattened to [n, t*N, d]."""
+        flattened to [n, t*N, d].  The encode runs through the tower's
+        graph of ``tower_graphs`` (eagerly when that is None)."""
         enc = self.encoders[modal]
+        graphs = self.tower_graphs
+
+        def encode(*args, **kwargs):
+            if graphs is None:
+                return enc.encode(*args, **kwargs)
+            return graphs.encode(enc, *args, **kwargs)
         with torch.no_grad():
             if modal == "audio":
                 if isinstance(raw, dict):
-                    out = enc.encode(**raw)
+                    out = encode(**raw)
                 elif isinstance(raw, tuple):
-                    out = enc.encode(*raw)
+                    out = encode(*raw)
                 else:
-                    out = enc.encode(raw)
+                    out = encode(raw)
                 return out[0] if isinstance(out, tuple) else out
-            x = enc.encode(raw)
+            x = encode(raw)
             if modal == "video":
                 b, t, n, d = x.shape
                 x = x.reshape(b, t * n, d)
@@ -208,10 +227,17 @@ class MultimodalLM:
         search decodes over a bf16 cache, as the JAX package's does.
         ``device_loop`` (core.generate.generate's) decodes through the
         model's ``decode_graphs``; a tensor-parallel model passes False.
-        ``timings`` receives the prefill and decode seconds."""
+        The towers and the prefill run through ``tower_graphs`` and
+        ``prefill_graphs`` (the prefill eagerly under a model group).
+        ``timings`` receives the seconds of the towers, projectors and
+        packing ('encode_s'), of the prefill and of the decode."""
         with torch.no_grad(), tp.scope(self.tp_group):
+            t0 = generation._sync_clock(self.device) if timings is not None \
+                else 0.0
             embeds, plan = self.prepare_batch(input_ids, modal_inputs,
                                               bucket_len=bucket_len)
+            if timings is not None:
+                timings["encode_s"] = generation._sync_clock(self.device) - t0
             route_ids = plan.route_ids if self.cfg.routing_active() else None
             params, table = self.params, self.routing_table
             if compact_adapters and route_ids is not None:
@@ -228,7 +254,7 @@ class MultimodalLM:
                     temperature=temperature, top_p=top_p,
                     generator=generator, attn_impl=attn_impl,
                     device_loop=device_loop, graphs=self.decode_graphs,
-                    timings=timings)
+                    prefill_graphs=self.prefill_graphs, timings=timings)
             return generation.generate(
                 params, self.cfg, embeds, lengths=plan.lengths,
                 route_ids=route_ids, routing_table=table,
@@ -236,7 +262,8 @@ class MultimodalLM:
                 temperature=temperature, top_p=top_p, generator=generator,
                 attn_impl=attn_impl, device_loop=device_loop,
                 fold_decode=fold_decode, kv_quant=kv_quant,
-                graphs=self.decode_graphs, timings=timings)
+                graphs=self.decode_graphs,
+                prefill_graphs=self.prefill_graphs, timings=timings)
 
     def generate_stream(self, input_ids: Sequence[np.ndarray],
                         modal_inputs: Dict[str, Any], *,

@@ -14,7 +14,8 @@ random) and is a loop of ``npoint`` argmax steps, with fp32 distances
 summed x, y, z in order and ties going to the first index, so its indices
 are the JAX package's bit for bit.  On the card the whole loop is one
 captured CUDA graph per input shape (the counterpart of the JAX
-``fori_loop``), replayed per call; on the CPU it runs eagerly.  The kNN is a top-k over squared
+``fori_loop``), replayed per call, and inside a captured tower graph it is
+part of that graph; on the CPU it runs eagerly.  The kNN is a top-k over squared
 distances; the order of equal distances may differ, which the max-pools
 after it do not see.
 """
@@ -114,9 +115,11 @@ def _fps_graph(xyz: torch.Tensor, npoint: int, start_index: int):
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
                           start_index: int = 0) -> torch.Tensor:
     """xyz: [B, N, 3] -> [B, npoint] int32 indices: one graph replay on a
-    CUDA tensor, the eager loop on a CPU tensor."""
+    CUDA tensor, the eager loop on a CPU tensor; inside the capture of a
+    tower graph (models/towers.TowerGraph) the loop itself, captured with
+    the rest of the tower."""
     with torch.no_grad():
-        if not xyz.is_cuda:
+        if not xyz.is_cuda or torch.cuda.is_current_stream_capturing():
             centroids = torch.zeros((xyz.shape[0], npoint),
                                     dtype=torch.int64, device=xyz.device)
             _fps_loop(xyz, start_index, centroids)

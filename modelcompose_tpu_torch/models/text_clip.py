@@ -97,8 +97,9 @@ def clip_text_embeds(params: Dict[str, Any], cfg: ClipTextConfig,
         q, k, v = (_proj(lp[n], y).view(B, T, nh, hd) for n in "qkv")
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
             / hd ** 0.5
-        logits = torch.where(mask[:, None], logits,
-                             torch.tensor(-1e30, device=device))
+        # a Python scalar, not a tensor made from the host: the encode is
+        # captured into a CUDA graph (models/towers.TowerGraph)
+        logits = torch.where(mask[:, None], logits, -1e30)
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
         x = x + _proj(lp["o"], ctx.reshape(B, T, -1).to(x.dtype))

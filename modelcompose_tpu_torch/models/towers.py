@@ -6,18 +6,31 @@ BEATs and PointBERT, a file or a directory holding ``imagebind_huge.pth``
 for ImageBind) loads it through the tower's converter, a ``test:`` spec
 (``eva-test:``, ``imagebind-test:``) builds a tiny tower, and any other
 spec gets random weights.
+
+``TowerGraphs`` runs a tower's ``encode`` as a captured CUDA graph (the
+port's counterpart of each JAX tower's jitted ``_encode``): one
+``TowerGraph`` per tower, input shapes and dtypes and grad mode, captured
+at its second call (the capture rules of ``core/decode_graph.CapturedStep``)
+and replayed after; on a CPU tensor the same encode runs eagerly into the
+same buffers.  Inside a capture PointBERT's farthest-point sampling loop is
+captured with the rest (models/point_bert).  The projectors and soft tokens
+stay eager: they train, and are small.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import warnings
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..core.decode_graph import CapturedStep, GraphLRU, SharedPool
 from ..devices import resolve_device
+from ..tree import tree_leaves
 from .audio_beats import BeatsAudioTower
 from .audio_imagebind import ImageBindAudioTower
 from .point_bert import PointBertTower
@@ -130,3 +143,98 @@ def build_modal_encoders(cfg: ModelConfig,
         encoders[modal] = cls(spec, cfg, generator=generator, dtype=mdt,
                               device=device)
     return encoders
+
+
+TOWER_GRAPHS = 8  # the tower graphs a model keeps
+
+
+def _tower_device(tower) -> torch.device:
+    return next(tree_leaves(tower.params))[1].device
+
+
+def _on_device(x, device):
+    """A tower input on ``device``: arrays and tensors moved there, other
+    values (None, a flag) as they are."""
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x, device=device)
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return x
+
+
+def _spec(x):
+    """What a graph's static buffer fixes of an input."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype)
+    return x
+
+
+def _clone(out):
+    if isinstance(out, tuple):
+        return tuple(None if t is None else t.clone() for t in out)
+    return out.clone()
+
+
+class TowerGraph(CapturedStep):
+    """One tower's ``encode`` over static input buffers of fixed shapes;
+    captured at its second call on the card.  It keeps the param tree it
+    was made with, so the leaf ids in its key stay its own."""
+
+    capture_at = 2
+    captures = 0
+    replays = 0
+
+    def __init__(self, tower, args, kwargs, shared=None):
+        super().__init__(_tower_device(tower), shared)
+        self.tower, self.params = tower, tower.params
+
+        def static(x):
+            return torch.empty_like(x) if isinstance(x, torch.Tensor) else x
+        self.args = tuple(static(a) for a in args)
+        self.kwargs = {k: static(v) for k, v in kwargs.items()}
+
+    def __call__(self, args, kwargs):
+        """The encode of these inputs, copied out of the static outputs."""
+        pairs = list(zip(self.args, args)) + [
+            (self.kwargs[k], v) for k, v in kwargs.items()]
+        for dst, src in pairs:
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+        return _clone(self.run())
+
+    def _step(self):
+        return self.tower.encode(*self.args, **self.kwargs)
+
+
+class TowerGraphs:
+    """At most ``limit`` tower graphs, the least recently used dropped
+    first, captured into one ``SharedPool``; one caller at a time runs one
+    (a lock: the serving engines may encode from two threads)."""
+
+    def __init__(self, limit: int = TOWER_GRAPHS):
+        self._graphs = GraphLRU(limit)
+        self._lock = threading.Lock()
+        self.shared = SharedPool()
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def clear(self) -> None:
+        self._graphs.clear()
+
+    def encode(self, tower, *args, **kwargs):
+        """``tower.encode(*args, **kwargs)`` through the graph of these
+        input shapes (inputs moved to the tower's device first): a fresh
+        copy of its output."""
+        device = _tower_device(tower)
+        args = tuple(_on_device(a, device) for a in args)
+        kwargs = {k: _on_device(v, device) for k, v in kwargs.items()}
+        key = (id(tower), getattr(tower, "cfg", None),
+               tuple(id(leaf) for _, leaf in tree_leaves(tower.params)),
+               tuple(_spec(a) for a in args),
+               tuple((k, _spec(v)) for k, v in sorted(kwargs.items())),
+               torch.is_inference_mode_enabled())
+        with self._lock:
+            graph = self._graphs.get_or_make(
+                key, lambda: TowerGraph(tower, args, kwargs, self.shared))
+            return graph(args, kwargs)

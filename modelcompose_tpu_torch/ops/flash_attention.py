@@ -17,10 +17,21 @@ products, dS cast to bf16 before dS.K and dS^T.Q.  Fully masked (padding)
 rows come out of the forward as a mean of V (callers ignore them) and get
 zero gradients: the backward masks P by a select, since exp(S - LSE) of a
 padding row is not 0.
+
+K1 inside a CUDA graph (the prefill and chunk-step graphs of
+core/prefill_graph): a capture records each launch in the thread's
+``capturing()`` record instead of counting it, and the graph's owner adds
+the recorded launches to ``flash_attention_forward.launches`` at each
+replay.  A launch's host work is all baked into what the capture keeps:
+the three tensor maps are encoded from the (static) addresses into the
+kernel's parameters, and the shared-memory attribute, set by the first
+launch outside the capture, stays set.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -28,6 +39,35 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30
+
+
+class CaptureRecord:
+    """The K1 launches of one CUDA-graph capture, in order, each as
+    ``(q shape, k shape, q segment ids, kv segment ids)``: a replay re-runs
+    them with no Python call, so the graph's owner counts them.  The
+    segment ids are the graph's own tensors (after a replay they hold that
+    replay's values); q, k and v are not kept, so the record holds no
+    activation memory in the graph's pool."""
+
+    def __init__(self):
+        self.launches = []
+
+
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capturing():
+    """Record the K1 launches captured on this thread into a CUDA graph
+    while the block runs; yields the ``CaptureRecord``.  A K1 launch made
+    while its stream captures, outside this block, raises: no replay of
+    that graph would be counted."""
+    previous = getattr(_CAPTURE, "record", None)
+    record = _CAPTURE.record = CaptureRecord()
+    try:
+        yield record
+    finally:
+        _CAPTURE.record = previous
 
 
 def _segments(seg, B, L, device):
@@ -90,14 +130,17 @@ def _check_cuda_inputs(q, k, v, q_seg, kv_seg):
 
 
 def _k1_launch(q, k, v, causal, q_segment_ids, kv_segment_ids, q_offset,
-               sm_scale, mask_all=False):
+               sm_scale, mask_all=False, record=None):
     """Launch K1 on CUDA tensors, with every tile through the mask when
-    ``mask_all``.  (out, lse)."""
+    ``mask_all``; a captured launch goes into ``record``.  (out, lse)."""
     B, Lq, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     q_seg = _segments(q_segment_ids, B, Lq, q.device).contiguous()
     kv_seg = _segments(kv_segment_ids, B, S, q.device).contiguous()
     _check_cuda_inputs(q, k, v, q_seg, kv_seg)
+    if record is not None:
+        record.launches.append((tuple(q.shape), tuple(k.shape), q_seg,
+                                kv_seg))
     lib = _build.load("flash_attention_fwd")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
@@ -122,9 +165,18 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
             q, k, v, causal=causal, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, q_offset=q_offset,
             sm_scale=sm_scale)
+    record = None
+    if torch.cuda.is_current_stream_capturing():
+        record = getattr(_CAPTURE, "record", None)
+        if record is None:
+            raise RuntimeError(
+                "flash_attention_forward captured into a CUDA graph outside "
+                "flash_attention.capturing(): its replays would not be "
+                "counted")
     res = _k1_launch(q, k, v, causal, q_segment_ids, kv_segment_ids,
-                     q_offset, sm_scale)
-    flash_attention_forward.launches += 1
+                     q_offset, sm_scale, record=record)
+    if record is None:  # recorded, not run: each replay runs it
+        flash_attention_forward.launches += 1
     return res
 
 
@@ -141,6 +193,8 @@ def flash_attention_forward_mask_all(q, k, v, *, causal: bool = True,
                       q_offset, sm_scale, mask_all=True)
 
 
+# Launches of K1: one per call that ran it, and a replayed graph adds the
+# launches its capture recorded (core/decode_graph.CapturedStep).
 flash_attention_forward.launches = 0
 
 

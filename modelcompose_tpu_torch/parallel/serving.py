@@ -24,8 +24,13 @@ gets a graph of its own for its life, and a prefill asked for
 (``MultimodalLM.decode_graphs``), reused by the next request of the shape.
 A graph decodes with the params it was made with, and its logits are its
 static buffer: the caller reads them before the next decode of that
-cache.  Collectives are not captured, so under a model group every call
-runs eagerly.
+cache.  Prefills go through the model's captured prefill graphs
+(``MultimodalLM.prefill_graphs``, core/prefill_graph): a one-shot prefill
+fills the decode graph's cache, or the admission cache the prefill graphs
+keep, and a chunked one replays one chunk-step graph a piece; the splice
+copies out of that admission cache, which stays for the next admission.
+Collectives are not captured, so under a model group every call runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -38,9 +43,10 @@ import torch
 import torch.distributed as dist
 
 from ..core.decode_graph import DecodeGraph
-from ..core.generate import _decode_step, _prefill, prefill_chunked
+from ..core.generate import _decode_step, prefill_chunked
 from ..core.llama import KVCache, local_kv_heads
 from ..core.packing import assemble_embeds
+from ..core.prefill_graph import prefill
 from ..ops.routed_lora import as_table
 from . import tp
 
@@ -124,11 +130,13 @@ class ServingBackbone:
     def prefill(self, key: str, feats, plan, cache_len: int,
                 kv_quant: bool = False, chunk: Optional[int] = None,
                 tick_cb=None, decode_graph: bool = False) -> torch.Tensor:
-        """Assemble the packed embeddings and prefill a fresh cache named
+        """Assemble the packed embeddings and prefill a cache named
         ``key`` (one-shot, or ``chunk``-position pieces with ``tick_cb()``
-        between them): the last valid position's fp32 logits [B, V].
-        ``decode_graph`` (one-shot, no model group) fills the cache of the
-        model's decode graph of this shape instead, which then decodes
+        between them): the last valid position's fp32 logits [B, V].  The
+        cache is the model's prefill graphs' admission cache where they
+        run (read it, by a splice, before the next prefill), else a fresh
+        one; ``decode_graph`` (one-shot, no model group) fills the cache of
+        the model's decode graph of this shape instead, which then decodes
         it."""
         if not self.is_leader:
             raise RuntimeError("prefill: a follower rank takes its calls "
@@ -203,26 +211,26 @@ class ServingBackbone:
         table, decode_table = self._tables()
         self.tables[key] = decode_table
         self.graphs.pop(key, None)
-        cache = None
+        graph = None
         if decode_graph and not chunk and self.group is None:
             graph = self.graphs[key] = model.decode_graphs.get(
                 model.params, model.cfg, embeds.shape[0], cache_len,
                 kv_quant=kv_quant, routing_table=decode_table)
-            cache = graph.cache
         route_ids = (torch.as_tensor(plan.route_ids, device=device)
                      if model.cfg.routing_active() else None)
         if chunk:
             logits, cache = prefill_chunked(
                 model.params, model.cfg, embeds, route_ids, table,
                 plan.lengths, cache_len, chunk=chunk, tick_cb=tick_cb,
-                kv_quant=kv_quant)
+                kv_quant=kv_quant, graphs=model.prefill_graphs)
         else:
-            logits, cache = _prefill(
+            logits, cache = prefill(
                 model.params, model.cfg, embeds, route_ids, table,
                 torch.as_tensor(plan.segment_ids, device=device),
                 torch.as_tensor(plan.lengths, dtype=torch.int32,
                                 device=device),
-                cache_len, "auto", kv_quant, cache=cache)
+                cache_len, "auto", kv_quant, graphs=model.prefill_graphs,
+                decode_graph=graph)
         self.caches[key] = cache
         return logits
 

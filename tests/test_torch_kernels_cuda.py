@@ -782,3 +782,208 @@ def test_fps_graph_equals_the_eager_loop():
         assert torch.equal(got.cpu(), point_bert.farthest_point_sample(
             xyz.cpu(), 512))
         assert point_bert.farthest_point_sample.captures <= n + 1
+
+
+# ---------------------------------------------------------------------------
+# The compiled encode and prefill: a PrefillGraph, the chunk-step graphs and
+# every tower's TowerGraph against the eager path they capture, bit for bit
+# (the same kernels on the same data), with K1's launches counted through
+# the replays
+# ---------------------------------------------------------------------------
+
+def _prompts(gen, cfg, B, L, lengths):
+    embeds = _rnd(gen, B, L, cfg.hidden_size)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    seg = (torch.arange(L, device="cuda")[None] < lengths[:, None]).int()
+    return embeds, seg, lengths
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("quantized_base", [False, True])
+@pytest.mark.parametrize("into_decode_graph", [False, True])
+def test_prefill_graph_replays_the_eager_prefill_bit_for_bit(
+        quantized_base, kv_quant, into_decode_graph):
+    """Three prompt batches of one shape through a model's prefill graphs
+    (the first call eager, the second captures, the third replays), each
+    against ``_prefill`` into a fresh cache: logits and the whole cache
+    bit-equal, K1 counted once a layer per call."""
+    from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
+    from modelcompose_tpu_torch.core.prefill_graph import (
+        PrefillGraph, PrefillGraphs, _prefill, prefill)
+    from modelcompose_tpu_torch.ops.routed_lora import as_table
+    cfg, params, gen = _tiny_card_backbone(quantized_base)
+    B, L, S = 2, 40, 60
+    table = as_table(cfg.routing_table(), "cuda")
+    route = torch.zeros((B, L), dtype=torch.int32, device="cuda")
+    graphs = PrefillGraphs()
+    decode = DecodeGraph(params, cfg, B, S, kv_quant=kv_quant,
+                         routing_table=table) if into_decode_graph else None
+    captures = PrefillGraph.captures
+    for lengths in ([40, 23], [31, 40], [12, 7]):
+        embeds, seg, lens = _prompts(gen, cfg, B, L, lengths)
+        with torch.no_grad():
+            want, fresh = _prefill(params, cfg, embeds, route, table, seg,
+                                   lens, S, kv_quant=kv_quant)
+            n = flash_attention_forward.launches
+            got, cache = prefill(params, cfg, embeds, route, table, seg,
+                                 lens, S, kv_quant=kv_quant, graphs=graphs,
+                                 decode_graph=decode)
+        assert flash_attention_forward.launches == n + cfg.num_hidden_layers
+        assert torch.equal(got, want), (got - want).abs().max().item()
+        for a, b in zip(cache.tensors(), fresh.tensors()):
+            assert torch.equal(a, b)
+        if decode is not None:
+            assert cache is decode.cache
+    holder = decode.prefills if decode is not None else graphs.one_shot
+    (graph,) = holder.values()
+    assert PrefillGraph.captures == captures + 1 and graph.calls == 3
+    assert len(graph.k1.launches) == cfg.num_hidden_layers
+    # every graph of the shared pool gone: the next capture takes a new
+    # pool (PyTorch releases the old one and refuses its handle)
+    pool = graph.graph.pool()
+    holder.clear()
+    del graph
+    for _ in range(2):
+        with torch.no_grad():
+            again, _ = prefill(params, cfg, embeds, route, table, seg, lens,
+                               S, kv_quant=kv_quant, graphs=graphs,
+                               decode_graph=decode)
+    assert torch.equal(again, got)
+    (graph,) = holder.values()
+    assert graph.graph is not None and graph.graph.pool() != pool
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_chunk_steps_replay_the_eager_chunked_prefill_bit_for_bit(kv_quant):
+    """Three prompts of one bucket through the chunk-step graphs (16, 16
+    and a tail of 8) against ``prefill_chunked``'s eager path: logits and
+    cache bit-equal, K1 once a layer per chunk."""
+    from modelcompose_tpu_torch.core.generate import prefill_chunked
+    from modelcompose_tpu_torch.core.prefill_graph import (ChunkStepGraph,
+                                                           PrefillGraphs)
+    from modelcompose_tpu_torch.ops.routed_lora import as_table
+    cfg, params, gen = _tiny_card_backbone(True)
+    L, S = 40, 64
+    table = as_table(cfg.routing_table(), "cuda")
+    graphs = PrefillGraphs()
+    captures = ChunkStepGraph.captures
+    for n_valid in (40, 29, 33):
+        embeds, _, lens = _prompts(gen, cfg, 1, L, [n_valid])
+        kw = dict(chunk=16, kv_quant=kv_quant)
+        with torch.no_grad():
+            want, fresh = prefill_chunked(params, cfg, embeds, None, table,
+                                          lens.cpu(), S, **kw)
+            n = flash_attention_forward.launches
+            got, cache = prefill_chunked(params, cfg, embeds, None, table,
+                                         lens.cpu(), S, graphs=graphs, **kw)
+        assert flash_attention_forward.launches \
+            == n + 3 * cfg.num_hidden_layers
+        assert torch.equal(got, want), (got - want).abs().max().item()
+        for a, b in zip(cache.tensors(), fresh.tensors()):
+            assert torch.equal(a, b)
+    (admission,) = graphs.admissions.values()
+    assert sorted(admission.steps) == [(0, 16), (16, 16), (32, 8)]
+    assert ChunkStepGraph.captures == captures + 3
+    assert all(s.graph is not None and s.shared is graphs.shared
+               for s in admission.steps.values())
+
+
+def _tiny_towers():
+    """(name, tower, inputs) of every tower kind at its test size, on the
+    card, with the inputs of two calls."""
+    import numpy as np
+    from modelcompose_tpu_torch.config import tiny_test_config
+    from modelcompose_tpu_torch.models import (audio_beats, audio_imagebind,
+                                               point_bert, text_clip, towers,
+                                               video_languagebind,
+                                               vision_eva)
+    rng = np.random.default_rng(4)
+
+    def rnd(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+    cfg = tiny_test_config()
+    text_cfg = text_clip.ClipTextConfig(
+        hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=4, vocab_size=100, max_position_embeddings=16,
+        projection_dim=32)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    pad = np.zeros((2, 64), bool)
+    pad[1, 40:] = True
+    clouds = np.concatenate([rnd(2, 64, 3), rng.random((2, 64, 3))], -1)
+    return [
+        ("clip", towers.ClipVisionTower("test:32x2", cfg, gen, device="cuda"),
+         lambda: ((rnd(2, 28, 28, 3),), {})),
+        ("beats", audio_beats.BeatsAudioTower("test:16x2", cfg, gen,
+                                              device="cuda"),
+         lambda: ((rnd(2, 64, 8),), {"audio_padding_mask": pad})),
+        ("languagebind", video_languagebind.LanguageBindVideoTower(
+            "test:32x3", cfg, gen, device="cuda"),
+         lambda: ((rnd(2, 2, 28, 28, 3),), {})),
+        ("point_bert", point_bert.PointBertTower("test:16x2", cfg, gen,
+                                                 device="cuda"),
+         lambda: ((clouds + rnd(2, 64, 6) * 0.01,), {})),
+        ("eva", vision_eva.EvaVisionTower("eva-test:64x3", cfg, gen,
+                                          device="cuda"),
+         lambda: ((rnd(2, 28, 28, 3),), {})),
+        ("imagebind", audio_imagebind.ImageBindAudioTower(
+            "imagebind-test:32x2", generator=gen, device="cuda"),
+         None),
+        ("clip_text", text_clip.ClipTextEncoder(text_cfg, generator=gen,
+                                                device="cuda"),
+         lambda: ((torch.randint(1, 99, (2, 6), generator=gen,
+                                 device="cuda"),),
+                  {"attention_mask": torch.ones((2, 6), dtype=torch.int64,
+                                                device="cuda")})),
+    ]
+
+
+@pytest.mark.parametrize("index", range(7))
+def test_tower_graph_replays_the_eager_encode_bit_for_bit(index):
+    """Each tower kind's encode through ``TowerGraphs`` three times (eager,
+    capture, replay) against the tower's own eager encode: outputs
+    bit-equal, one capture.  PointBERT's sampling loop is captured inside
+    the tower's graph."""
+    import numpy as np
+    from modelcompose_tpu_torch.models.towers import TowerGraph, TowerGraphs
+    name, tower, make = _tiny_towers()[index]
+    if make is None:  # ImageBind's processor gives its mel clips
+        wave = np.random.default_rng(8).normal(size=48000) * 0.1
+        mel = tower.modal_processor(wave.astype(np.float32))
+
+        def make():
+            return ((mel + np.float32(0.01)
+                     * np.random.default_rng(9).normal(size=mel.shape)
+                     .astype(np.float32),), {})
+    graphs = TowerGraphs()
+    captures = TowerGraph.captures
+    for _ in range(3):
+        args, kwargs = make()
+        with torch.no_grad():
+            want = tower.encode(*args, **kwargs)
+            got = graphs.encode(tower, *args, **kwargs)
+        if isinstance(want, tuple):
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or torch.equal(g, w), name
+        else:
+            assert got.is_cuda and torch.equal(got, want), name
+    assert TowerGraph.captures == captures + 1 and len(graphs) == 1
+
+
+def test_k1_captured_outside_a_record_raises():
+    """A K1 launch captured with no record would run uncounted at every
+    replay: it raises instead."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v = (_rnd(gen, 1, 64, 4, 64) for _ in range(3))
+    flash_attention_forward(q, k, v)  # built, attribute set
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            with pytest.raises(RuntimeError, match="capturing"):
+                flash_attention_forward(q, k, v)
+        finally:
+            graph.capture_end()
+    torch.cuda.synchronize()

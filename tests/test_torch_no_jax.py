@@ -54,6 +54,8 @@ from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
 from modelcompose_tpu_torch.models.point_bert import farthest_point_sample
 assert len(model.decode_graphs) == 1
 assert isinstance(next(iter(model.decode_graphs._graphs.values())), DecodeGraph)
+# and the prefill through that graph's prefill graph (core/prefill_graph)
+assert len(model.decode_graphs.values()[0].prefills) == 1
 assert out == model.generate([np.array([1, 5, img, 9]), np.array([1, img])],
                              {"vision": pixels}, max_new_tokens=4,
                              kv_quant=True, device_loop=False)
@@ -409,7 +411,8 @@ def test_no_file_of_the_port_imports(what, pattern):
             "utils/profiling.py", "data/convert_sqa.py",
             "data/convert_to_multimodal.py", "parallel/distributed.py",
             "parallel/mesh.py", "parallel/tp.py",
-            "parallel/serving.py"} <= names
+            "parallel/serving.py", "core/decode_graph.py",
+            "core/prefill_graph.py"} <= names
 
 
 @pytest.mark.parametrize("entry", [
