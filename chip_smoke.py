@@ -261,7 +261,8 @@ GRAD_NORM_TOL = 0.05
 
 SEED = 0
 NEW_TOKENS = 32
-TRAIN_STEPS = 4
+TRAIN_GRAPH_STEPS = 6  # phase 9's fused steps: eager, capture, 4 replays
+TRAIN_WINDOWS = 3  # phase 9's accumulation windows: eager, capture, replay
 # The decode variants: beam search's width and length, the sampling knobs
 NUM_BEAMS = 3
 BEAM_TOKENS = 16
@@ -400,8 +401,9 @@ def _graph_kinds():
     from modelcompose_tpu_torch.core.prefill_graph import (ChunkStepGraph,
                                                            PrefillGraph)
     from modelcompose_tpu_torch.models.towers import TowerGraph
+    from modelcompose_tpu_torch.train.step_graph import GRAPH_KINDS
     return {"decode": DecodeGraph, "prefill": PrefillGraph,
-            "chunk_step": ChunkStepGraph, "tower": TowerGraph}
+            "chunk_step": ChunkStepGraph, "tower": TowerGraph, **GRAPH_KINDS}
 
 
 def _all_graph_counts():
@@ -1370,9 +1372,9 @@ class _KernelInputs:
     Hkv)`` its first call's (q, kv) segment ids, and for every distinct K2
     cache ``(NL, B, S, Hkv, D, H, dtype)`` its first call's kv_len.  The
     copies stay on the device: recording adds no host sync.  A capture
-    records nothing (its launches do not run); a replayed graph's K1 and
-    K2 launches are recorded from its capture records after its first
-    replay here."""
+    records nothing (its launches do not run); a replayed graph's K1-K4
+    launches are recorded from its capture records after its first replay
+    here."""
 
     def __enter__(self):
         import torch
@@ -1410,7 +1412,8 @@ class _KernelInputs:
             self.replay(graph)
             if id(graph) not in seen:
                 seen.add(id(graph))
-                for args in graph.k1.launches:
+                for args in (graph.k1.launches + graph.k1.bwd_dq
+                             + graph.k1.bwd_dkv):
                     record_attention(*args)
                 for args in graph.k2.launches:
                     decode(*args)
@@ -2804,19 +2807,96 @@ def _compare_grads(name, got, want):
     return {"cosine": cos, "norm_ratio": ratio}
 
 
+class _TrainSnapshot:
+    """The trainable leaves, Adam moments and counts of a train state
+    (device copies), to start runs from and to compare runs by."""
+
+    def __init__(self, state, tx):
+        import torch
+        from modelcompose_tpu_torch.tree import tree_leaves
+        with torch.no_grad():
+            self.leaves = {p: t.detach().clone()
+                           for p, t in tree_leaves(state.params)
+                           if tx.trains(p)}
+            self.moments = {m: {p: t.clone()
+                                for p, t in state.opt_state[m].items()}
+                            for m in ("mu", "nu")}
+        self.count, self.step = state.opt_state["count"], state.step
+
+    def restore(self, state):
+        """Copy this snapshot into ``state`` in place (its tensors keep
+        their addresses, as a step checkpoint's restore does)."""
+        import torch
+        from modelcompose_tpu_torch.tree import tree_leaves
+        flat = dict(tree_leaves(state.params))
+        with torch.no_grad():
+            for p, t in self.leaves.items():
+                flat[p].copy_(t)
+            for m, ts in self.moments.items():
+                for p, t in ts.items():
+                    state.opt_state[m][p].copy_(t)
+        state.opt_state = dict(state.opt_state, count=self.count)
+        state.step = self.step
+
+    def differing(self, other):
+        """Names of the leaves and moments that differ from ``other``'s."""
+        import torch
+        out = [p for p in self.leaves
+               if not torch.equal(self.leaves[p], other.leaves[p])]
+        return out + [(m,) + p for m in self.moments for p in self.moments[m]
+                      if not torch.equal(self.moments[m][p],
+                                         other.moments[m][p])]
+
+    def max_rel_diff(self, other):
+        """The largest difference of a leaf or moment from ``other``'s,
+        over its max |value|."""
+        pairs = [(self.leaves[p], other.leaves[p]) for p in self.leaves] + [
+            (self.moments[m][p], other.moments[m][p])
+            for m in self.moments for p in self.moments[m]]
+        return max(((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp_min(1e-30)).item()
+                   for a, b in pairs)
+
+
+def _train_pool_gb(graphs):
+    """GB the allocator holds in the private pool of the train ``graphs``
+    (one pool an optimizer: ``Optimizer.graph_pool``)."""
+    import torch
+    pools = {g.graph.pool() for g in graphs if g.graph is not None}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) in pools) / 2**30
+
+
+def _idle_share(profile, wall_s):
+    """1 - kernel time / wall time: the share of a step the card idles."""
+    return 1.0 - profile["device_kernel_s"] / wall_s
+
+
 def phase_train(device):
-    """The DAMC stage-2 train step at Vicuna-7B width through the train
-    entry, then kernel-path against plain-path gradients."""
+    """The DAMC stage-2 train step at Vicuna-7B width and depth (B=2 x
+    2,048: rows of 1,400 and 1,100 positions), from one saved trainable
+    state: ``TRAIN_GRAPH_STEPS`` fused steps eagerly, the first step once
+    more (is the card's eager step bit-reproducible?), the same steps
+    through a
+    ``TrainStepGraph`` (one eager call, one capture, replays), and
+    ``TRAIN_WINDOWS`` accumulation windows of two micro-batches eagerly and
+    through the grad and apply graphs: losses, trainable leaves and moments
+    bit-equal; K1 = 64, K3 = K4 = 32 a replayed step; step s and
+    positions/s both ways, the device-idle share of one eager step and one
+    replay (torch.profiler), peak memory and the train pool; then
+    kernel-path against plain-path gradients."""
     import numpy as np
     import torch
     from modelcompose_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_forward)
+    from modelcompose_tpu_torch.train.step_graph import (GradGraph,
+                                                         TrainStepGraph)
     from modelcompose_tpu_torch.train.train_multimodal import (
         build_arg_parser, build_model, build_model_config, make_batch)
     from modelcompose_tpu_torch.train.trainer import (
         TrainConfig, init_train_state, make_grad_and_apply, make_optimizer,
-        make_train_step, scale_grads, tree_leaves)
+        make_train_step, tree_leaves)
 
     counters = (flash_attention_forward, flash_attention_bwd_dq,
                 flash_attention_bwd_dkv)
@@ -2872,6 +2952,8 @@ def phase_train(device):
                "prefix": params["backbone"]["prefix_tokens"]["vision"]}
     before = {n: t.detach().clone() for n, t in {**frozen, **trained}.items()}
     positions = int((batch["segment_ids"] != 0).sum())
+    micro_positions = sum(int((b["segment_ids"] != 0).sum())
+                          for b, _ in micro)
     torch.cuda.synchronize()
     log("train", setup_s=f"{time.perf_counter() - t0:.1f}",
         bucket=tuple(batch["token_ids"].shape), positions=positions,
@@ -2879,68 +2961,198 @@ def phase_train(device):
         trainable_params=sum(p.numel() for _, p in tree_leaves(params)
                              if p.requires_grad),
         gpu_mem_gb=f"{torch.cuda.memory_allocated() / 2**30:.1f}")
-
-    step = make_train_step(cfg, tc, tx)
-    torch.cuda.reset_peak_memory_stats()
-    losses, seconds, launches = [], [], []
-    for i in range(TRAIN_STEPS):
-        reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, loss = step(state, batch, layout)
-        losses.append(float(loss))  # synchronizes
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        launches.append(read())
-        log("train", step=i, loss=f"{losses[-1]:.6f}",
-            step_s=f"{seconds[-1]:.4f}",
-            tokens_per_s=f"{positions / seconds[-1]:.1f}",
-            launches=json.dumps(launches[-1]))
-    peak = torch.cuda.max_memory_allocated()
-
-    grad_fn, apply_fn, _, grad_accum_fn = make_grad_and_apply(cfg, tc, tx)
-    reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss0, acc = grad_fn(state.params, *micro[0])
-    loss1, acc = grad_accum_fn(state.params, acc, *micro[1])
-    state = apply_fn(state, scale_grads(acc, 0.5))
-    torch.cuda.synchronize()
-    accum_s = time.perf_counter() - t0
-    accum_launches = read()
-    del acc
-    log("train", accum_window_s=f"{accum_s:.4f}",
-        micro_losses=[f"{float(loss0):.6f}", f"{float(loss1):.6f}"],
-        launches=json.dumps(accum_launches), steps_taken=state.step,
-        peak_mem_gb=f"{peak / 2**30:.2f}")
-
+    start = _TrainSnapshot(state, tx)
     n_layers = cfg.num_hidden_layers
-    for i, counts in enumerate(launches + [accum_launches]):
-        if min(counts.values()) < n_layers \
-                or counts["flash_attention_fwd"] < 2 * n_layers:
-            raise AssertionError(f"step {i}: kernel launches {counts}: K1 "
-                                 f"must run twice per layer under remat, "
-                                 f"K3 and K4 once per layer")
-    if not all(np.isfinite(losses + [float(loss0), float(loss1)])):
-        raise AssertionError(f"non-finite losses {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not decrease: {losses}")
+    per_step = {"flash_attention_fwd": 2 * n_layers,  # remat: twice
+                "flash_attention_bwd_dq": n_layers,
+                "flash_attention_bwd_dkv": n_layers}
+    launches = []  # every step and window the phase drives
+
+    def steps(step, n, first=None):
+        """``n`` steps from ``start``: (losses, seconds, launches, the
+        state after, the host's seconds to dispatch each step); the state
+        after the first step goes to the list ``first`` where given."""
+        start.restore(state)
+        losses, seconds, counts, dispatch = [], [], [], []
+        for i in range(n):
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, loss = step(state, batch, layout)
+            dispatch.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            counts.append(read())
+            losses.append(loss)
+            if i == 0 and first is not None:
+                first.append(_TrainSnapshot(state, tx))
+        launches.extend(counts)
+        for i, c in enumerate(counts):
+            if c != per_step:
+                raise AssertionError(f"step {i}: kernel launches {c}, want "
+                                     f"{per_step} (K1 twice a layer under "
+                                     f"remat, K3 and K4 once)")
+        return ([float(x) for x in losses], seconds, counts,
+                _TrainSnapshot(state, tx), dispatch)
+
+    # (1) the fused step eagerly, and its first step once more from the
+    # same state: is the eager step bit-reproducible on this card?
+    eager_step = make_train_step(cfg, tc, tx, graphs=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    first = []
+    eager = steps(eager_step, TRAIN_GRAPH_STEPS, first)
+    eager_peak = _peak_gb()
+    again = steps(eager_step, 1)
+    reproducible = again[0][0] == eager[0][0] \
+        and not again[3].differing(first[0])
+    eager_vs_eager = 0.0 if reproducible else again[3].max_rel_diff(
+        first[0])
+    log("train", eager_twice_losses=[f"{x:.6f}" for x in (eager[0][0],
+                                                          again[0][0])],
+        eager_bit_reproducible=reproducible,
+        eager_vs_eager_max_rel=f"{eager_vs_eager:.3g}")
+    del again, first
+
+    # (2) the fused step through its graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    graph_step = make_train_step(cfg, tc, tx)  # graphs: the default here
+    captures = TrainStepGraph.captures
+    graph = steps(graph_step, TRAIN_GRAPH_STEPS)
+    graph_peak = _peak_gb()
+    (step_graph,) = graph_step.graphs.values()
+    if TrainStepGraph.captures != captures + 1 or step_graph.graph is None \
+            or step_graph.calls != TRAIN_GRAPH_STEPS:
+        raise AssertionError(f"fused step: {TrainStepGraph.captures - captures}"
+                             f" captures over {step_graph.calls} calls")
+    differ = graph[3].differing(eager[3])
+    equal = graph[0] == eager[0] and not differ
+    graph_vs_eager = 0.0 if equal else graph[3].max_rel_diff(eager[3])
+    eager_s = float(np.median(eager[1][1:]))
+    replay_s = float(np.median(graph[1][2:]))
+    dispatch_s = {"eager": float(np.median(eager[4][1:])),
+                  "replay": float(np.median(graph[4][2:]))}
+    log("train", fused="graph vs eager", eager_losses=[
+        f"{x:.6f}" for x in eager[0]], graph_losses=[
+        f"{x:.6f}" for x in graph[0]], bit_equal=equal,
+        leaves_differing=len(differ),
+        graph_vs_eager_max_rel=f"{graph_vs_eager:.3g}",
+        eager_step_s=json.dumps([round(x, 4) for x in eager[1]]),
+        graph_step_s=json.dumps([round(x, 4) for x in graph[1]]),
+        eager_median_s=f"{eager_s:.4f}", replay_median_s=f"{replay_s:.4f}",
+        eager_positions_per_s=f"{positions / eager_s:.1f}",
+        replay_positions_per_s=f"{positions / replay_s:.1f}",
+        host_dispatch_s=json.dumps({k: round(v, 4)
+                                    for k, v in dispatch_s.items()}),
+        replay_launches=json.dumps(graph[2][-1]),
+        peak_gb_eager=json.dumps([round(x, 2) for x in eager_peak]),
+        peak_gb_graph=json.dumps([round(x, 2) for x in graph_peak]))
+    # bit-equal where the eager step is reproducible, else within its own
+    # run-to-run difference
+    if (reproducible and not equal) or graph_vs_eager > eager_vs_eager:
+        raise AssertionError(f"fused step graph vs eager: losses "
+                             f"{graph[0]} vs {eager[0]}, {len(differ)} "
+                             f"leaves differ ({differ[:3]})")
+    if not all(np.isfinite(graph[0])) or not graph[0][-1] < graph[0][0]:
+        raise AssertionError(f"losses {graph[0]}: not finite or did not "
+                             f"decrease")
     for n in frozen:
         if not torch.equal(frozen[n], before[n]):
             raise AssertionError(f"frozen {n} changed")
     for n in trained:
         if torch.equal(trained[n], before[n]):
             raise AssertionError(f"trainable {n} did not change")
-    del before
+    del before, eager
 
-    _profile("train_step", lambda: step(state, batch, layout),
-             "train_profile.txt")
+    # (3) accumulation windows of two micro-batches
+    def windows(graphs):
+        start.restore(state)
+        grad_fn, apply_fn, _, grad_accum_fn = make_grad_and_apply(
+            cfg, tc, tx, graphs=graphs)
+        losses, seconds, counts = [], [], []
+        for _ in range(TRAIN_WINDOWS):
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss0, acc = grad_fn(state.params, *micro[0])
+            loss1, acc = grad_accum_fn(state.params, acc, *micro[1])
+            apply_fn(state, acc, scale=0.5)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            counts.append(read())
+            losses += [loss0, loss1]
+        del acc
+        launches.extend(counts)
+        want = {k: 2 * v for k, v in per_step.items()}
+        if any(c != want for c in counts):
+            raise AssertionError(f"window launches {counts}, want {want}")
+        return ([float(x) for x in losses], seconds, counts,
+                _TrainSnapshot(state, tx), grad_fn.graphs)
 
-    # The kernel path against the plain path on one micro-batch, same weights.
+    accum_eager = windows(False)
+    grad_captures = GradGraph.captures
+    accum_graph = windows(True)
+    accum_differ = accum_graph[3].differing(accum_eager[3])
+    accum_equal = accum_graph[0] == accum_eager[0] and not accum_differ
+    accum_max_rel = 0.0 if accum_equal else accum_graph[3].max_rel_diff(
+        accum_eager[3])
+    log("train", accumulation="graph vs eager", windows=TRAIN_WINDOWS,
+        eager_micro_losses=[f"{x:.6f}" for x in accum_eager[0]],
+        graph_micro_losses=[f"{x:.6f}" for x in accum_graph[0]],
+        bit_equal=accum_equal, leaves_differing=len(accum_differ),
+        graph_vs_eager_max_rel=f"{accum_max_rel:.3g}",
+        eager_window_s=json.dumps([round(x, 4) for x in accum_eager[1]]),
+        graph_window_s=json.dumps([round(x, 4) for x in accum_graph[1]]),
+        replay_positions_per_s=f"{micro_positions / accum_graph[1][-1]:.1f}",
+        captures=GradGraph.captures - grad_captures,
+        graphs=len(accum_graph[4]))
+    if not all(np.isfinite(accum_graph[0])):
+        raise AssertionError(f"window losses {accum_graph[0]}")
+    if (reproducible and not accum_equal) or accum_max_rel > eager_vs_eager:
+        raise AssertionError(f"window graph vs eager: {accum_graph[0]} vs "
+                             f"{accum_eager[0]}, {len(accum_differ)} leaves "
+                             f"differ ({accum_differ[:3]})")
+    if GradGraph.captures - grad_captures != 2 or len(accum_graph[4]) != 3 \
+            or any(g.graph is None for g in accum_graph[4].values()):
+        raise AssertionError("the window's write, add and apply graphs: one "
+                             "capture each")
+    pool_gb = _train_pool_gb([step_graph] + accum_graph[4].values())
+    graph_losses = graph[0]
+    del accum_eager, accum_graph, graph
+
+    # (4) where the time goes: one eager step and one replay profiled; the
+    # idle share over the profiled wall and over the unprofiled median
+    profiled = []
+    for name, step_fn, out_file in (
+            ("train_step_eager", eager_step, "train_profile.txt"),
+            ("train_step_replay", graph_step, "train_replay_profile.txt")):
+        reset()
+        profiled.append(_profile(name, lambda: step_fn(state, batch, layout),
+                                 out_file, cpu=False))
+        launches.append(read())
+        if launches[-1] != per_step:
+            raise AssertionError(f"{name} launches {launches[-1]}, want "
+                                 f"{per_step}")
+    prof_eager, prof_replay = profiled
+    idle = {"eager": _idle_share(prof_eager, prof_eager["wall_s"]),
+            "replay": _idle_share(prof_replay, prof_replay["wall_s"]),
+            "eager_unprofiled": _idle_share(prof_eager, eager_s),
+            "replay_unprofiled": _idle_share(prof_replay, replay_s)}
+    log("train", device_idle_share=json.dumps(
+        {k: round(v, 4) for k, v in idle.items()}),
+        train_pool_gb=f"{pool_gb:.3f}")
+
+    # (5) the kernel path against the plain path on one micro-batch, eager,
+    # same weights
+    grad_fn = make_grad_and_apply(cfg, tc, tx, graphs=False)[0]
     reset()
     loss_k, grads_k = grad_fn(state.params, *micro[0])
     k_launches = read()
-    plain_fn = make_grad_and_apply(cfg, tc, tx, attn_impl="reference")[0]
+    plain_fn = make_grad_and_apply(cfg, tc, tx, attn_impl="reference",
+                                   graphs=False)[0]
     loss_p, grads_p = plain_fn(state.params, *micro[0])
     if read() != k_launches:
         raise AssertionError("the plain path launched a kernel")
@@ -2966,11 +3178,16 @@ def phase_train(device):
             want = torch.cat([grads_p[p][select, vision].float().reshape(-1)
                               for p in paths])
         parity[name] = _compare_grads(name, got, want)
-    step_s = float(np.median(seconds[1:]))
-    return {"launches": launches, "accum_launches": accum_launches,
-            "losses": losses, "step_s": seconds,
-            "tokens_per_s": positions / step_s,
-            "peak_mem_gb": peak / 2**30, "parity": parity}
+    return {"launches": launches, "losses": graph_losses,
+            "eager_step_s": eager_s, "replay_step_s": replay_s,
+            "positions_per_s": {"eager": positions / eager_s,
+                                "replay": positions / replay_s},
+            "host_dispatch_s": dispatch_s,
+            "bit_reproducible": reproducible, "graph_bit_equal": equal,
+            "accum_bit_equal": accum_equal, "idle_share": idle,
+            "peak_gb": {"eager": eager_peak, "graph": graph_peak},
+            "pool_gb": pool_gb, "parity": parity,
+            "graphs": len(graph_step.graphs) + 3}
 
 
 # Kernel-name fragments of each profile split: the hand-written kernels,
@@ -2980,15 +3197,17 @@ PROFILE_SPLITS = {"K1": ("fa_fwd_kernel",), "K2": ("fd_split_kernel",),
                   "gemm": ("gemm", "nvjet"), "conv": ("conv",)}
 
 
-def _profile(name, fn, out_file):
+def _profile(name, fn, out_file, cpu=True):
     """torch.profiler over one call of ``fn``: device time by kernel and
-    the shares of PROFILE_SPLITS, the table written to chiprun_out/."""
+    the shares of PROFILE_SPLITS, the table written to chiprun_out/.
+    ``cpu=False`` records the card's activity alone (no host op events:
+    less of the profiler's own host time in the wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3030,7 +3249,8 @@ STAGE2_FLAGS = ["--version", "v1", "--lora_strategy", "modal+language",
                 "--local_prefix_tokens", "5", "--local_suffix_tokens", "5",
                 "--per_device_train_batch_size", "4",
                 "--learning_rate", "2e-4", "--save_steps", "4"]
-ENTRY_STEPS = {"stage1": 3, "stage2": 4, "stage2_resumed": 6}
+ENTRY_STEPS = {"stage1": 3, "stage2": 6, "stage2_resumed": 6}
+ENTRY_CHECKPOINT = 4  # stage 2's step checkpoint (--save_steps), resumed
 # 13.5 GB of base, a 3.9 GB step checkpoint, 5.3 GB of fp32 adapter export
 # (.bin, and .safetensors where the package imports)
 ENTRY_DISK_GB = 24
@@ -3276,12 +3496,14 @@ class _EntryProbe:
 
 def phase_train_entry(device, gen, root):
     """The DAMC train entry at Vicuna-7B width and depth from a base on
-    disk: stage 1 (projector pretrain, B=16, 3 steps), stage 2 on its
-    export (modal+language LoRA r=128, 5+5 soft tokens, B=4, 4 steps and
-    checkpoint-4), the same flags resumed to 6 steps, then the export
-    loaded by ``load_pretrained_model`` and one point question decoded
-    greedily by ``run_questions``; after the path, each kernel against its
-    plain version at the inputs the path gave it."""
+    disk, its steps through the train graphs (the default on the card):
+    stage 1 (projector pretrain, B=16, 3 steps), stage 2 on its export
+    (modal+language LoRA r=128, 5+5 soft tokens, B=4, 6 steps, checkpoint-4
+    on the way), the same flags resumed from checkpoint-4 to 6 steps (its
+    losses bit-equal to the uninterrupted run's), then the export loaded
+    by ``load_pretrained_model`` and one point question decoded greedily by
+    ``run_questions``; after the path, each kernel against its plain
+    version at the inputs the path gave it."""
     import numpy as np
     import torch
     from modelcompose_tpu_torch.compose.convert import projector_to_reference
@@ -3322,6 +3544,7 @@ def phase_train_entry(device, gen, root):
         torch.cuda.reset_peak_memory_stats()
         # train()'s own steady window starts after the profiled step
         skip = 1 if profile_step is None else profile_step + 1
+        kinds = _all_graph_counts()
         with _EntryProbe(entry, read, device, profile_step, watch) as probe, \
                 warnings.catch_warnings():
             warnings.simplefilter("ignore")  # the random PointBERT tower
@@ -3329,6 +3552,7 @@ def phase_train_entry(device, gen, root):
             res = entry.train(args, tokenizer=tokenizer, device=device,
                               time_skip=skip)
             wall = time.perf_counter() - t0
+        graphs = _graph_delta(kinds)
         peak = torch.cuda.max_memory_allocated()
         steps = probe.steps
         # the profiled step's time holds the profiler's: not timed
@@ -3349,7 +3573,10 @@ def phase_train_entry(device, gen, root):
                "export_bytes": _dir_bytes(dirs[name], "adapter_model.*")
                + _dir_bytes(dirs[name], "mm_projector.*"),
                "launches": [s["launches"] for s in steps],
-               "start_step": res["start_step"]}
+               "start_step": res["start_step"], "graphs": graphs,
+               "loop_trace_median_s": {
+                   k: float(np.median([t[k] for t in res["loop_trace"]]))
+                   for k in ("loader_wait", "make_batch", "dispatch")}}
         row.update({k: v for k, v in probe.times.items()
                     if k != "build_model_s"})
         if probe.profile is not None:
@@ -3378,16 +3605,28 @@ def phase_train_entry(device, gen, root):
             loader_wait_s=json.dumps([round(w, 4) for w in waits]),
             losses=json.dumps([round(x, 5) for x in res["losses"]]),
             peak_gb=f"{row['peak_gb']:.2f}", export_s=f"{row['export_s']:.1f}",
+            graphs=json.dumps(graphs), loop_trace_median_s=json.dumps(
+                {k: round(v, 4)
+                 for k, v in row["loop_trace_median_s"].items()}),
             export_gb=f"{_gb(row['export_bytes']):.3f}",
             **{k: (f"{v:.2f}" if isinstance(v, float) else v)
                for k, v in probe.times.items() if k != "build_model_s"})
-        # every micro-batch ran the kernels: K1 twice a layer under
-        # remat, K3 and K4 once
+        # every micro-batch ran the kernels, eager, capturing or replayed:
+        # K1 twice a layer under remat, K3 and K4 once
         for i, counts in enumerate(row["launches"]):
-            if counts["flash_attention_fwd"] < 2 * n_layers \
+            if counts["flash_attention_fwd"] != 2 * n_layers \
                     or counts["flash_attention_bwd_dq"] != n_layers \
                     or counts["flash_attention_bwd_dkv"] != n_layers:
                 raise AssertionError(f"{stage} step {i}: launches {counts}")
+        # a shape's first step runs eagerly, its second captures, the rest
+        # replay
+        per_shape = [row["buckets"].count(b) for b in set(row["buckets"])]
+        want = [sum(n >= 2 for n in per_shape),
+                sum(max(n - 2, 0) for n in per_shape)]
+        if graphs.get("train_step", [0, 0]) != want:
+            raise AssertionError(f"{stage}: train graphs {graphs}, want "
+                                 f"[captures, replays] {want} for steps "
+                                 f"of buckets {row['buckets']}")
         if len(steps) != res["steps"] - res["start_step"] \
                 or not np.isfinite(res["losses"]).all():
             raise AssertionError(f"{stage}: {len(steps)} steps, losses "
@@ -3434,9 +3673,9 @@ def phase_train_entry(device, gen, root):
     with _KernelInputs() as inputs:
         reset()  # the path's launches: from here to the served answer
         for stage in ("stage1", "stage2"):
-            # a profile of stage 2's second step
+            # a profile of stage 2's third step (its first replay)
             probe, res = run(stage, watch=watch_leaves(stage),
-                             profile_step=1 if stage == "stage2" else None)
+                             profile_step=2 if stage == "stage2" else None)
             watch = probe.watched
             before = watch["before"]
             for n, t in watch["frozen"].items():
@@ -3464,12 +3703,20 @@ def phase_train_entry(device, gen, root):
             del probe, res, watch, before, trained
 
         probe, res = run("stage2_resumed")
-        if probe.restored_step != ENTRY_STEPS["stage2"] \
-                or res["start_step"] != ENTRY_STEPS["stage2"] \
+        if probe.restored_step != ENTRY_CHECKPOINT \
+                or res["start_step"] != ENTRY_CHECKPOINT \
                 or not res["resumed_from"].endswith(
-                    f"checkpoint-{ENTRY_STEPS['stage2']}"):
+                    f"checkpoint-{ENTRY_CHECKPOINT}"):
             raise AssertionError(f"resume: step {probe.restored_step}, "
                                  f"{res['resumed_from']}")
+        # the resumed steps are the uninterrupted run's, bit for bit
+        uninterrupted = out["stage2"]["losses"][ENTRY_CHECKPOINT:]
+        log("train_entry", resumed_losses=res["losses"],
+            uninterrupted_losses=uninterrupted,
+            resumed_equal=res["losses"] == uninterrupted)
+        if res["losses"] != uninterrupted:
+            raise AssertionError(f"resumed losses {res['losses']} != the "
+                                 f"uninterrupted run's {uninterrupted}")
         trained = _trainable(probe.model)
         del probe
         out["serve"] = _serve_entry_export(device, root, dirs, base_dir,
@@ -4859,11 +5106,12 @@ def phase_distributed_serve(device, gen, model, request):
 
 def phase_distributed_train(device):
     """Phase 14b: phase 9's stage-2 train step at Vicuna-7B width, two
-    steps with no process group, then the same two steps from the same
-    state through the data-parallel path (``mesh_for_batch``, the
+    eager steps with no process group, then the same two steps from the
+    same state through the data-parallel path (``mesh_for_batch``, the
     valid-target count, gradients and loss all-reduced over the data
-    group) in an NCCL group of one: losses and every trainable leaf
-    bit-equal.  At one rank no leaf has a ZeRO-1 axis (``zero_axis`` needs
+    group) in an NCCL group of one, eager too (a train graph there raises:
+    its all-reduces would not be captured): losses and every trainable
+    leaf bit-equal.  At one rank no leaf has a ZeRO-1 axis (``zero_axis`` needs
     a data width above 1), so the moment slicing and its all-gather do not
     run here, nor any tensor-parallel collective or leader broadcast: the
     CPU gloo tests cover those."""
@@ -4903,7 +5151,17 @@ def phase_distributed_train(device):
         tx, _ = make_optimizer(cfg, tc, tree, mesh)
         state = init_train_state(cfg, tc, model.params, model.projectors,
                                  tx=tx)
-        step = make_train_step(cfg, tc, tx)
+        if mesh is not None:  # a graph would capture no all-reduce: raises
+            try:
+                make_train_step(cfg, tc, tx, graphs=True)(state, batch,
+                                                          layout)
+            except RuntimeError as e:
+                if "data-parallel" not in str(e):  # not the group refusal
+                    raise
+                refused.append(str(e))
+            else:
+                raise AssertionError("a train graph ran under a data group")
+        step = make_train_step(cfg, tc, tx, graphs=False)
         for fn in counters.values():
             fn.launches = 0
         losses, seconds = [], []
@@ -4922,6 +5180,7 @@ def phase_distributed_train(device):
     tx0, _ = make_optimizer(cfg, tc, tree)
     start = {p: t.detach().clone() for p, t in tree_leaves(tree)
              if tx0.trains(p)}
+    refused = []
 
     def restart():  # the same starting state for the next run
         with torch.no_grad():
@@ -4947,7 +5206,7 @@ def phase_distributed_train(device):
         no_group_step_s=[f"{x:.4f}" for x in plain[1]],
         dp_step_s=[f"{x:.4f}" for x in dp[1]],
         trainable_leaves=len(plain[2]), leaves_differing=len(differ),
-        launches=json.dumps(dp[3]))
+        launches=json.dumps(dp[3]), train_graph_refused=refused[0][:120])
     if dp[0] != plain[0] or differ:
         raise AssertionError(f"the world-1 DP run left the no-group run: "
                              f"losses {dp[0]} vs {plain[0]}, leaves "
@@ -5073,6 +5332,37 @@ def main() -> int:
             for i, row in enumerate((dist_serve["k1_tp_shards"],
                                      dist_serve["k2_tp_shards"]))
             for c in row}))
+    train_kinds = ("train_step", "grad", "apply")
+    log("train_graph", captures_replays_by_phase=json.dumps(
+        {p: {k: v for k, v in g.items() if k in train_kinds}
+         for p, g in graphs.items()
+         if any(k in train_kinds for k in g)}),
+        phase9_graphs=train["graphs"], pool_gb=f"{train['pool_gb']:.3f}",
+        step_s={"eager": round(train["eager_step_s"], 4),
+                "replay": round(train["replay_step_s"], 4)},
+        positions_per_s=json.dumps({k: round(v, 1) for k, v in
+                                    train["positions_per_s"].items()}),
+        host_dispatch_s=json.dumps({k: round(v, 4) for k, v in
+                                    train["host_dispatch_s"].items()}),
+        device_idle_share=json.dumps({k: round(v, 4) for k, v in
+                                      train["idle_share"].items()}),
+        peak_gb=json.dumps({k: [round(x, 2) for x in v]
+                            for k, v in train["peak_gb"].items()}),
+        eager_bit_reproducible=train["bit_reproducible"],
+        graph_bit_equal=train["graph_bit_equal"],
+        accum_bit_equal=train["accum_bit_equal"],
+        entry_step_s=json.dumps({k: [x and round(x, 4)
+                                     for x in entry[k]["step_s"]]
+                                 for k in ENTRY_STEPS}),
+        entry_loop_trace_median_s=json.dumps(
+            {k: {n: round(v, 4) for n, v in
+                 entry[k]["loop_trace_median_s"].items()}
+             for k in ENTRY_STEPS}))
+    unreplayed = [p for p in ("train", "train_entry")
+                  if not any(graphs[p].get(k, [0, 0])[1]
+                             for k in train_kinds)]
+    if unreplayed:  # every training phase replays a train graph
+        raise AssertionError(f"no train graph replayed in {unreplayed}")
     log("seconds", phases=json.dumps(seconds),
         total=f"{time.perf_counter() - t_start:.1f}")
     log("decode_graph", replays_by_phase=json.dumps(replays),
@@ -5092,7 +5382,7 @@ def main() -> int:
     # of the training run
     # (train steps and the accumulation window), and the train entry's two
     # stages with the served answer of its export.
-    trained = train["launches"] + [train["accum_launches"]]
+    trained = train["launches"]
 
     def train_launches(name):
         return sum(c.get(name, 0) for c in trained)

@@ -21,11 +21,12 @@ The capture rules (``CapturedStep``): the capturing call runs the step
 eagerly on a side stream (the warm-up a capture needs: every kernel's
 first launch builds it and sets its shared-memory attribute, which a
 capture cannot do), keeps that result as the call's, and captures the step
-on the same stream; K1's and K2's launches inside a capture go into the
-capture's records (``ops.flash_attention.capturing``,
-``ops.flash_decode.capturing``; K2's scratch lives in its record as long as
-the graph), and each replay adds the launches they recorded to the
-kernels' counters, so every call counts one step's.  A decode graph
+on the same stream; K1-K4's launches inside a capture go into the capture's
+records (``ops.flash_attention.capturing``, which a backward on autograd's
+thread finds by the stream, and ``ops.flash_decode.capturing``; K2's
+scratch lives in its record as long as the graph), and each replay adds
+the launches they recorded to the kernels' counters, so every call counts
+one step's.  A decode graph
 captures at its first call; the prefill and tower graphs, whose shapes
 vary more, at their second (core/prefill_graph, models/towers).
 Collectives are not captured: a graph under a tensor-parallel model group
@@ -147,6 +148,11 @@ class CapturedStep:
     capture_at = 1
     captures = 0  # a subclass counts its own: captures of every graph
     replays = 0  # and replays of every graph
+    # release the allocator's cached blocks before the warm-up and before
+    # the capture: a step whose transients are tens of GB (a train step)
+    # would otherwise hold them three times, cached for the caller's
+    # stream, for the capture stream and in the graph's pool
+    release_cached = False
 
     def __init__(self, device, shared: "SharedPool" = None):
         self.device = torch.device(device)
@@ -180,11 +186,13 @@ class CapturedStep:
 
     def replay(self) -> None:
         """Replay the captured step on the current stream, counting the K1
-        and K2 launches it runs."""
+        to K4 launches it runs."""
         self.graph.replay()
         type(self).replays += 1
-        flash_attention.flash_attention_forward.launches += len(
-            self.k1.launches)
+        fa = flash_attention
+        fa.flash_attention_forward.launches += len(self.k1.launches)
+        fa.flash_attention_bwd_dq.launches += len(self.k1.bwd_dq)
+        fa.flash_attention_bwd_dkv.launches += len(self.k1.bwd_dkv)
         flash_decode.flash_decode_attention.launches += len(self.k2.launches)
 
     def _capture(self) -> None:
@@ -195,18 +203,23 @@ class CapturedStep:
         current = torch.cuda.current_stream(self.device)
         pool, side, holders = (None, torch.cuda.Stream(self.device), None) \
             if self.shared is None else self.shared.get(self.device)
+        if self.release_cached:
+            torch.cuda.empty_cache()
         side.wait_stream(current)
         with torch.cuda.stream(side):
             warm = self._compute()
         if self.out is None:
             self.out = _empty_like(warm)
         graph = torch.cuda.CUDAGraph()
-        # thread-local mode: other threads may use the card meanwhile
-        with flash_attention.capturing() as k1, \
+        # thread-local mode: other threads may use the card meanwhile; a
+        # backward's kernels run on autograd's thread, into ``side``
+        with flash_attention.capturing(side) as k1, \
                 flash_decode.capturing() as k2, torch.cuda.stream(side):
             side.wait_stream(current)  # the static outputs' allocation
             _copy_into(self.out, warm)
             del warm
+            if self.release_cached:
+                torch.cuda.empty_cache()
             graph.capture_begin(pool=pool,
                                 capture_error_mode="thread_local")
             del holders  # the pool is this graph's too now

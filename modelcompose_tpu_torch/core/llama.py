@@ -353,7 +353,11 @@ def forward_hidden(params: Params, cfg: ModelConfig, inputs_embeds, *,
                               layer_idx=li, cache_write_pos=cache_write_pos,
                               kv_lens=kv_lens, attn_impl=attn_impl)
         if cfg.remat and cache is None:
-            x = checkpoint(run, x, use_reentrant=False)
+            # No layer draws random numbers, so the recompute needs no
+            # saved RNG state (and a captured train step may not read the
+            # card's generator state).
+            x = checkpoint(run, x, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = run(x)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps), cache

@@ -18,12 +18,15 @@ rows come out of the forward as a mean of V (callers ignore them) and get
 zero gradients: the backward masks P by a select, since exp(S - LSE) of a
 padding row is not 0.
 
-K1 inside a CUDA graph (the prefill and chunk-step graphs of
-core/prefill_graph): a capture records each launch in the thread's
-``capturing()`` record instead of counting it, and the graph's owner adds
-the recorded launches to ``flash_attention_forward.launches`` at each
-replay.  A launch's host work is all baked into what the capture keeps:
-the three tensor maps are encoded from the (static) addresses into the
+K1, K3 and K4 inside a CUDA graph (the prefill and chunk-step graphs of
+core/prefill_graph, the train graphs of train/step_graph): a capture
+records each launch in the ``capturing()`` record instead of counting it,
+and the graph's owner adds the recorded launches to the wrappers'
+``launches`` at each replay.  A backward runs on autograd's device thread,
+not on the thread that captures (and K1 runs there again in a layer's
+remat recompute), so a record is found by the capturing stream as well as
+by the thread.  A launch's host work is all baked into what the capture
+keeps: the tensor maps are encoded from the (static) addresses into the
 kernel's parameters, and the shared-memory attribute, set by the first
 launch outside the capture, stays set.
 """
@@ -42,32 +45,58 @@ NEG_INF = -1e30
 
 
 class CaptureRecord:
-    """The K1 launches of one CUDA-graph capture, in order, each as
-    ``(q shape, k shape, q segment ids, kv segment ids)``: a replay re-runs
-    them with no Python call, so the graph's owner counts them.  The
-    segment ids are the graph's own tensors (after a replay they hold that
-    replay's values); q, k and v are not kept, so the record holds no
-    activation memory in the graph's pool."""
+    """The K1 (``launches``), K3 (``bwd_dq``) and K4 (``bwd_dkv``) launches
+    of one CUDA-graph capture, in order, each as ``(q shape, k shape, q
+    segment ids, kv segment ids)``: a replay re-runs them with no Python
+    call, so the graph's owner counts them.  The segment ids are the
+    graph's own tensors (after a replay they hold that replay's values);
+    q, k, v and dO are not kept, so the record holds no activation memory
+    in the graph's pool."""
 
     def __init__(self):
         self.launches = []
+        self.bwd_dq = []
+        self.bwd_dkv = []
 
 
 _CAPTURE = threading.local()
+_BY_STREAM = {}  # capturing stream handle -> its record, for other threads
 
 
 @contextlib.contextmanager
-def capturing():
-    """Record the K1 launches captured on this thread into a CUDA graph
-    while the block runs; yields the ``CaptureRecord``.  A K1 launch made
-    while its stream captures, outside this block, raises: no replay of
-    that graph would be counted."""
+def capturing(stream: Optional[torch.cuda.Stream] = None):
+    """Record the K1, K3 and K4 launches captured into a CUDA graph while
+    the block runs, on this thread and, given the capturing ``stream``, on
+    any thread that launches into it (autograd's, for a backward); yields
+    the ``CaptureRecord``.  A launch made while its stream captures,
+    outside every such block, raises: no replay of that graph would be
+    counted."""
     previous = getattr(_CAPTURE, "record", None)
     record = _CAPTURE.record = CaptureRecord()
+    if stream is not None:  # one capture at a time on a stream
+        _BY_STREAM[stream.cuda_stream] = record
     try:
         yield record
     finally:
         _CAPTURE.record = previous
+        if stream is not None:
+            _BY_STREAM.pop(stream.cuda_stream, None)
+
+
+def _capture_record(name: str) -> Optional[CaptureRecord]:
+    """The record a launch of kernel ``name`` goes into: None when the
+    current stream is not capturing; this thread's record, else the
+    capturing stream's; raises when there is neither."""
+    if not torch.cuda.is_current_stream_capturing():
+        return None
+    record = getattr(_CAPTURE, "record", None)
+    if record is None:
+        record = _BY_STREAM.get(torch.cuda.current_stream().cuda_stream)
+    if record is None:
+        raise RuntimeError(
+            f"{name} captured into a CUDA graph outside "
+            "flash_attention.capturing(): its replays would not be counted")
+    return record
 
 
 def _segments(seg, B, L, device):
@@ -165,14 +194,7 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
             q, k, v, causal=causal, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, q_offset=q_offset,
             sm_scale=sm_scale)
-    record = None
-    if torch.cuda.is_current_stream_capturing():
-        record = getattr(_CAPTURE, "record", None)
-        if record is None:
-            raise RuntimeError(
-                "flash_attention_forward captured into a CUDA graph outside "
-                "flash_attention.capturing(): its replays would not be "
-                "counted")
+    record = _capture_record("flash_attention_forward")
     res = _k1_launch(q, k, v, causal, q_segment_ids, kv_segment_ids,
                      q_offset, sm_scale, record=record)
     if record is None:  # recorded, not run: each replay runs it
@@ -311,10 +333,12 @@ def _bwd_launch_args(q, k, v, do, lse, di, causal, q_segment_ids,
         torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _k3_launch(q, k, v, do, lse, di, mask_all=False, **kw):
+def _k3_launch(q, k, v, do, lse, di, mask_all=False, record=None, **kw):
     """Launch K3 on CUDA tensors, with every tile through the mask when
-    ``mask_all``: dQ."""
-    ptrs, _keep, sizes = _bwd_launch_args(q, k, v, do, lse, di, **kw)
+    ``mask_all``; a captured launch goes into ``record``.  dQ."""
+    ptrs, keep, sizes = _bwd_launch_args(q, k, v, do, lse, di, **kw)
+    if record is not None:
+        record.bwd_dq.append((tuple(q.shape), tuple(k.shape), *keep))
     lib = _build.load("flash_attention_bwd")
     dq = torch.empty_like(q)
     entry = (lib.mc_flash_attention_bwd_dq_mask_all if mask_all
@@ -323,10 +347,12 @@ def _k3_launch(q, k, v, do, lse, di, mask_all=False, **kw):
     return dq
 
 
-def _k4_launch(q, k, v, do, lse, di, mask_all=False, **kw):
+def _k4_launch(q, k, v, do, lse, di, mask_all=False, record=None, **kw):
     """Launch K4 on CUDA tensors, with every tile through the mask when
-    ``mask_all``: (dK, dV)."""
-    ptrs, _keep, sizes = _bwd_launch_args(q, k, v, do, lse, di, **kw)
+    ``mask_all``; a captured launch goes into ``record``.  (dK, dV)."""
+    ptrs, keep, sizes = _bwd_launch_args(q, k, v, do, lse, di, **kw)
+    if record is not None:
+        record.bwd_dkv.append((tuple(q.shape), tuple(k.shape), *keep))
     lib = _build.load("flash_attention_bwd")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     entry = (lib.mc_flash_attention_bwd_dkv_mask_all if mask_all
@@ -346,11 +372,14 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool = True,
               sm_scale=sm_scale)
     if not q.is_cuda:
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, di, **kw)
-    dq = _k3_launch(q, k, v, do, lse, di, **kw)
-    flash_attention_bwd_dq.launches += 1
+    record = _capture_record("flash_attention_bwd_dq")
+    dq = _k3_launch(q, k, v, do, lse, di, record=record, **kw)
+    if record is None:  # recorded, not run: each replay runs it
+        flash_attention_bwd_dq.launches += 1
     return dq
 
 
+# Launches of K3 (and of K4 below), counted as K1's are.
 flash_attention_bwd_dq.launches = 0
 
 
@@ -364,8 +393,10 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool = True,
               sm_scale=sm_scale)
     if not q.is_cuda:
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, **kw)
-    res = _k4_launch(q, k, v, do, lse, di, **kw)
-    flash_attention_bwd_dkv.launches += 1
+    record = _capture_record("flash_attention_bwd_dkv")
+    res = _k4_launch(q, k, v, do, lse, di, record=record, **kw)
+    if record is None:
+        flash_attention_bwd_dkv.launches += 1
     return res
 
 

@@ -69,7 +69,7 @@ from .checkpoint import (latest_checkpoint, restore_step_checkpoint,
 from .sampler import (get_length_grouped_indices,
                       get_modality_length_grouped_indices)
 from .trainer import (TrainConfig, init_train_state, make_grad_and_apply,
-                      make_optimizer, make_train_step, scale_grads)
+                      make_optimizer, make_train_step)
 
 
 def _flag(s: str) -> bool:
@@ -318,6 +318,11 @@ def train(args, tokenizer=None, device=None,
     the trained batches.  Losses stay on the device until logging and the
     end, so the loop never waits for a step to finish.
 
+    On the card each step replays a captured CUDA graph of its shapes
+    (``train/step_graph``).  Under a process group's data mesh the steps
+    are built with ``graphs=False`` and run op by op (their collectives
+    are not captured), which the run prints once.
+
     Returns the JAX entry's keys: ``losses`` (per micro-batch),
     ``final_loss``, ``steps`` (micro-batches), ``optimizer_steps`` and
     ``train_loop_seconds`` (the loop, synchronized at its end); with
@@ -406,9 +411,16 @@ def train(args, tokenizer=None, device=None,
     tx, _ = make_optimizer(cfg, tc, train_tree, mesh)
     state = init_train_state(cfg, tc, model.params, model.projectors,
                              tower_params=tower_params, tx=tx)
+    graphs = None  # the steps' default: graphs on the card
+    if mesh is not None:
+        graphs = False
+        if distributed.is_primary():
+            print("[train] a process group's data mesh: the steps run op by "
+                  "op (graphs=False), their collectives are not captured",
+                  flush=True)
     if accum > 1:
         grad_fn, apply_fn, _, grad_accum_fn = make_grad_and_apply(
-            cfg, tc, tx, vision_tower_cfg=vision_cfg)
+            cfg, tc, tx, vision_tower_cfg=vision_cfg, graphs=graphs)
         # One running gradient total (the sum so far, added to in place),
         # never a list of per-micro-batch gradients.
         acc: Dict[str, Any] = {"total": None, "n": 0}
@@ -422,11 +434,12 @@ def train(args, tokenizer=None, device=None,
             acc["n"] += 1
             if acc["n"] < accum:
                 return state, loss  # state unchanged mid-window
-            total = scale_grads(acc["total"], 1.0 / accum)
+            total = acc["total"]
             acc["total"], acc["n"] = None, 0
-            return apply_fn(state, total), loss
+            return apply_fn(state, total, scale=1.0 / accum), loss
     else:
-        step_fn = make_train_step(cfg, tc, tx, vision_tower_cfg=vision_cfg)
+        step_fn = make_train_step(cfg, tc, tx, vision_tower_cfg=vision_cfg,
+                                  graphs=graphs)
 
     resume = latest_checkpoint(args.output_dir)
     if resume:

@@ -14,9 +14,14 @@
   learning rate, with the per-adapter-row rates of a stacked LoRA leaf and
   the tower's layerwise decay.  Frozen leaves hold no moments and get
   ``requires_grad=False``.
-- **No jit, no donation**: the step runs eagerly, and where the JAX package
-  donates the old state to XLA, the port updates parameters, moments and
-  accumulated gradients in place under ``torch.no_grad()``.
+- **No donation**: where the JAX package donates the old state to XLA, the
+  port updates parameters, moments and accumulated gradients in place
+  under ``torch.no_grad()``.  **The jit** is a captured CUDA graph per key
+  on the card (``train/step_graph``): the fused step, the accumulation
+  micro-step and the update each replay one, reading the step's bias
+  corrections and schedule multiplier from device scalars that
+  ``Optimizer.prepare`` writes before each call; ``graphs=False`` runs the
+  same step op by op.
 - **Data parallelism with ZeRO-1** over a ``parallel.mesh.Mesh``: each data
   rank computes its micro-batch's loss sum over the global count of valid
   targets, so the group's summed gradients are those of the global token
@@ -42,14 +47,19 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..constants import IGNORE_INDEX
+from ..core.decode_graph import GraphLRU, SharedPool
 from ..core.llama import (forward, forward_hidden_routed, logits_from_hidden,
                           torch_dtype)
 from ..core.packing import assemble_embeds
 from ..models.model import attach_soft_tokens, causal_lm_loss
 from ..models.projectors import apply_projector
+from ..ops.routed_lora import as_table
 from ..parallel import tp
 from ..parallel.mesh import leaf_specs, split_axis, zero_axis
 from ..tree import Path, tree_leaves, tree_map_with_path
+from .step_graph import (TRAIN_GRAPHS, ApplyGraph, GradGraph, TrainStepGraph,
+                         batch_key, held, leaves_key, params_key,
+                         tensor_ids, use_graphs)
 
 
 @dataclasses.dataclass
@@ -179,19 +189,17 @@ def split_nodecay_labels(labels, splittable) -> Dict[str, Any]:
 # Optimizer
 # ---------------------------------------------------------------------------
 
-def _weak(x, like: torch.Tensor) -> torch.Tensor:
-    """A Python scalar as JAX types it next to an array: in the array's
-    dtype (bf16 rounds the constant before the product, as XLA does)."""
-    return torch.tensor(float(x), dtype=like.dtype, device=like.device)
-
-
-def _ema(decay: float, g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """(1 - decay) * g + decay * m in the promoted dtype of g and m, each
-    constant rounded to its operand's dtype: a bf16 moment next to an fp32
-    gradient is read in fp32, as XLA fuses it."""
-    dt = torch.promote_types(g.dtype, m.dtype)
-    return _weak(1 - decay, g).to(dt) * g.to(dt) \
-        + _weak(decay, m).to(dt) * m.to(dt)
+def _make_scalar(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python scalar as JAX types it next to an array: a 0-dim tensor in
+    the array's dtype (bf16 rounds the constant before the product, as XLA
+    does), made by a fill on the array's device, never by a copy from the
+    host.  Never made while the stream captures: a captured fill would
+    replay its capture-time value."""
+    if like.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "an optimizer scalar made inside a CUDA graph capture: the "
+            "step's first, eager call makes every one")
+    return torch.full((), float(x), dtype=like.dtype, device=like.device)
 
 
 class Optimizer:
@@ -234,6 +242,14 @@ class Optimizer:
             self.tower_emb_lr = lr * decay ** (tower_layers + 2)
         self.mu_dtype = torch_dtype(tc.adam_mu_dtype) \
             if tc.adam_mu_dtype else None
+        # device scalars and tables the update reads (``prepare``)
+        self._consts: Dict[tuple, torch.Tensor] = {}
+        self._per_step: Dict[tuple, torch.Tensor] = {}
+        self._step_values: Dict[str, np.float32] = {}
+        self._tables: Dict[tuple, torch.Tensor] = {}
+        # the train graphs of every step made with this optimizer replay one
+        # at a time: one memory pool for them all (train/step_graph)
+        self.graph_pool = SharedPool()
 
     def trains(self, path: Path) -> bool:
         return self.labels[path] not in self.discarded
@@ -289,7 +305,50 @@ class Optimizer:
         torch.distributed.all_gather(parts, t, group=self.mesh.data_group)
         return torch.cat(parts, dim=axis)
 
+    def _const(self, x, like: torch.Tensor) -> torch.Tensor:
+        """The constant ``x`` in ``like``'s dtype on its device, made
+        once."""
+        key = (float(x), like.dtype, like.device)
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = _make_scalar(x, like)
+        return t
+
+    def _scalar(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """This step's ``name`` (``prepare``) in ``like``'s dtype: a device
+        scalar that ``prepare`` rewrites in place before every step."""
+        key = (name, like.dtype, like.device)
+        t = self._per_step.get(key)
+        if t is None:
+            t = self._per_step[key] = _make_scalar(self._step_values[name],
+                                                   like)
+        return t
+
+    def _table(self, name: str, host: torch.Tensor, device) -> torch.Tensor:
+        """``-host`` (a per-row rate) on ``device``, copied there once."""
+        key = (name, torch.device(device))
+        t = self._tables.get(key)
+        if t is None:
+            if key[1].type == "cuda" \
+                    and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"{name} copied to the card inside a CUDA "
+                                   "graph capture")
+            t = self._tables[key] = (-host).to(device)
+        return t
+
+    def _ema(self, decay: float, g: torch.Tensor,
+             m: torch.Tensor) -> torch.Tensor:
+        """(1 - decay) * g + decay * m in the promoted dtype of g and m,
+        each constant rounded to its operand's dtype: a bf16 moment next to
+        an fp32 gradient is read in fp32, as XLA fuses it."""
+        dt = torch.promote_types(g.dtype, m.dtype)
+        return self._const(1 - decay, g).to(dt) * g.to(dt) \
+            + self._const(decay, m).to(dt) * m.to(dt)
+
     def _clip(self, grads: Dict[Path, torch.Tensor]):
+        """optax's ``clip_by_global_norm``: each gradient, or where the
+        norm is not under ``max_grad_norm`` the gradient scaled to it, by a
+        select on the card (no host read of the norm)."""
         max_norm = self.tc.max_grad_norm
         if any(self.tp_split.get(p, False) for p in grads):
             # a split leaf's gradient is this rank's shard: its squares sum
@@ -303,10 +362,10 @@ class Optimizer:
         else:
             norm = torch.sqrt(sum(g.float().square().sum()
                                   for g in grads.values()))
-        if bool(norm < max_norm):
-            return grads
-        return {path: (g / norm.to(g.dtype)) * _weak(max_norm, g)
-                for path, g in grads.items()}
+        keep = norm < max_norm
+        return {path: torch.where(
+            keep, g, (g / norm.to(g.dtype)) * self._const(max_norm, g))
+            for path, g in grads.items()}
 
     def _final_scale(self, path: Path, label: str, u: torch.Tensor):
         part = self._part(path)
@@ -317,54 +376,82 @@ class Optimizer:
             n = scale.shape[0] // part[2]
             return scale[part[1] * n:(part[1] + 1) * n]
         if label == "lora":  # [N, A, d1, d2]: adapter axis 1
-            scale = rows(-self.row_lrs.to(u.device), 1)
+            scale = rows(self._table("row_lrs", self.row_lrs, u.device), 1)
             return u * scale.view(1, -1, 1, 1)
         if label.startswith("tower"):
             if "layers" in path:
-                scale = rows(-self.tower_layer_lrs.to(u.device), 0)
+                scale = rows(self._table("tower_layer_lrs",
+                                         self.tower_layer_lrs, u.device), 0)
                 return u * scale.view((-1,) + (1,) * (u.dim() - 1))
             lr = self.tower_pre_lr if "pre_layernorm" in path \
                 else self.tower_emb_lr
-            return _weak(-lr, u) * u
-        return _weak(-self.lr[label.split(":")[0]], u) * u
+            return self._const(-lr, u) * u
+        return self._const(-self.lr[label.split(":")[0]], u) * u
+
+    def prepare(self, count: int) -> None:
+        """Before step ``count`` (the state's count, 0 first): the bias
+        corrections of count + 1 and the schedule's multiplier at
+        ``count``, numpy float32 on the host as the JAX chain computes
+        them, written into the device scalars the update reads (fill
+        launches, no copy from the host).  A captured step reads each
+        step's own values this way."""
+        tc = self.tc
+        f32 = np.float32
+        self._step_values = {
+            "bc1": f32(1) - f32(tc.adam_b1) ** f32(count + 1),
+            "bc2": f32(1) - f32(tc.adam_b2) ** f32(count + 1),
+            "step_size": self.sched(count)}
+        for (name, _, _), t in self._per_step.items():
+            t.fill_(float(self._step_values[name]))
+
+    @torch.no_grad()
+    def update(self, params, grads: Dict[Path, torch.Tensor],
+               state: Dict[str, Any]) -> None:
+        """The device work of one step, after ``prepare``: params +=
+        updates in place, each cast to its parameter's dtype
+        (``optax.apply_updates``), and the moments rewritten in place (a
+        captured step reads and writes the same tensors).  ``grads`` holds
+        exactly the trainable leaves.  Under ZeRO-1 each data rank updates
+        its part of a split leaf and the group all-gathers the parts into
+        the leaf.  Leaves ``state['count']`` as it is."""
+        tc = self.tc
+        if tc.max_grad_norm:
+            grads = self._clip(grads)
+        flat = dict(tree_leaves(params))
+        for path, g in grads.items():
+            label = self.labels[path]
+            g = self.local_part(path, g)
+            mu_t, nu_t = state["mu"][path], state["nu"][path]
+            mu = self._ema(tc.adam_b1, g, mu_t)
+            nu = self._ema(tc.adam_b2, g.square(), nu_t)
+            mu_hat = mu / self._scalar("bc1", mu)
+            nu_hat = nu / self._scalar("bc2", nu)
+            u = mu_hat / (nu_hat.sqrt() + self._const(tc.adam_eps, nu_hat))
+            p = self.local_part(path, flat[path])
+            if tc.weight_decay and not label.endswith(":nodecay"):
+                u = u + self._const(tc.weight_decay, p) * p
+            u = self._scalar("step_size", u) * u
+            p.add_(self._final_scale(path, label, u))
+            if path in self.zero_axes:
+                flat[path].copy_(self.gather_part(path, p))
+            mu_t.copy_(mu)  # in mu's dtype (``adam_mu_dtype``)
+            nu_t.copy_(nu)
+
+    @staticmethod
+    def advance(state: Dict[str, Any]) -> Dict[str, Any]:
+        """The state after a step: count + 1, the same moment tensors."""
+        return {"count": state["count"] + 1, "mu": state["mu"],
+                "nu": state["nu"]}
 
     @torch.no_grad()
     def step(self, params, grads: Dict[Path, torch.Tensor],
              state: Dict[str, Any]) -> Dict[str, Any]:
-        """One optimizer step over the trainable leaves (``grads`` holds
-        exactly those): params += updates in place, each cast to its
-        parameter's dtype (``optax.apply_updates``).  Returns the new
-        state; the old moments are replaced, not modified.  Under ZeRO-1
-        each data rank updates its part of a split leaf and the group
-        all-gathers the parts into the leaf."""
-        tc = self.tc
-        f32 = np.float32
-        if tc.max_grad_norm:
-            grads = self._clip(grads)
-        count = state["count"] + 1
-        bc1 = f32(1) - f32(tc.adam_b1) ** f32(count)
-        bc2 = f32(1) - f32(tc.adam_b2) ** f32(count)
-        step_size = self.sched(state["count"])
-        flat = dict(tree_leaves(params))
-        mus, nus = {}, {}
-        for path, g in grads.items():
-            label = self.labels[path]
-            g = self.local_part(path, g)
-            mu = _ema(tc.adam_b1, g, state["mu"][path])
-            nu = _ema(tc.adam_b2, g.square(), state["nu"][path])
-            mu_hat = mu / _weak(bc1, mu)
-            nu_hat = nu / _weak(bc2, nu)
-            u = mu_hat / (nu_hat.sqrt() + _weak(tc.adam_eps, nu_hat))
-            p = self.local_part(path, flat[path])
-            if tc.weight_decay and not label.endswith(":nodecay"):
-                u = u + _weak(tc.weight_decay, p) * p
-            u = _weak(step_size, u) * u
-            p.add_(self._final_scale(path, label, u))
-            if path in self.zero_axes:
-                flat[path].copy_(self.gather_part(path, p))
-            mus[path] = mu.to(self.mu_dtype) if self.mu_dtype else mu
-            nus[path] = nu
-        return {"count": count, "mu": mus, "nu": nus}
+        """One optimizer step over the trainable leaves: ``prepare``, then
+        ``update`` (params and moments in place).  Returns the state with
+        count + 1."""
+        self.prepare(state["count"])
+        self.update(params, grads, state)
+        return self.advance(state)
 
 
 def make_optimizer(cfg: ModelConfig, tc: TrainConfig,
@@ -445,9 +532,11 @@ def chunked_causal_lm_loss(backbone, hidden, labels, chunk: int,
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, L, chunk):
+        # no random numbers in a chunk: no RNG state to restore
         total = total + checkpoint(piece, hidden[:, i:i + chunk],
                                    targets[:, i:i + chunk],
-                                   use_reentrant=False)
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
     if denom is None:
         denom = (targets != IGNORE_INDEX).sum().clamp_min(1)
     return total / denom
@@ -537,23 +626,71 @@ def _loss_and_grads(cfg, tc, routing_table, train_params, batch,
     return loss.detach(), grads
 
 
+def _device_of(params) -> torch.device:
+    return next(iter(tree_leaves(params)))[1].device
+
+
+class _DeviceTable:
+    """The config's routing table (numpy) on each device a step runs on,
+    copied there once: a copy from the host at every step would wait for
+    the card (and a capture refuses it)."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.host = cfg.routing_table()
+        self._on = {}
+
+    def on(self, device) -> torch.Tensor:
+        if device not in self._on:
+            self._on[device] = as_table(self.host, device)
+        return self._on[device]
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, tx: Optimizer,
-                    attn_impl: str = "auto", vision_tower_cfg=None):
+                    attn_impl: str = "auto", vision_tower_cfg=None,
+                    graphs: Optional[bool] = None):
     """``train_step(state, batch, feat_layout) -> (state, loss)``.
 
     Where the JAX step donates the old state, this one updates it in place
     under ``torch.no_grad()`` (parameters, moments, step) and returns the
-    same object."""
-    routing_table = cfg.routing_table()
+    same object.  With ``graphs`` (the default on a CUDA device with no
+    process group; see ``train/step_graph``) each step is one replay of a
+    ``TrainStepGraph`` of its key, kept in ``train_step.graphs``;
+    ``graphs=False`` runs it op by op (the eager A/B, and the path under a
+    data or model group, where True raises).  Either way the loss returned
+    is the step's own tensor."""
+    table = _DeviceTable(cfg)
+    lru = GraphLRU(TRAIN_GRAPHS)
+
+    def loss_and_update(params, opt_state, batch, feat_layout):
+        loss, grads = _loss_and_grads(
+            cfg, tc, table.on(_device_of(params)), params, batch,
+            feat_layout, attn_impl, vision_tower_cfg, tx.mesh)
+        tx.update(params, grads, opt_state)
+        return loss
 
     def train_step(state: TrainState, batch: Dict[str, Any], feat_layout):
-        loss, grads = _loss_and_grads(cfg, tc, routing_table, state.params,
-                                      batch, feat_layout, attn_impl,
-                                      vision_tower_cfg, tx.mesh)
-        state.opt_state = tx.step(state.params, grads, state.opt_state)
+        params, opt_state = state.params, state.opt_state
+        device = _device_of(params)
+        graphed = use_graphs(graphs, device, tx)
+        tx.prepare(opt_state["count"])
+        if graphed:
+            graph = lru.get_or_make(
+                ("step",) + batch_key(batch, feat_layout)
+                + params_key(params, opt_state),
+                lambda: TrainStepGraph(
+                    device, tx.graph_pool,
+                    lambda b, layout: loss_and_update(params, opt_state, b,
+                                                      layout),
+                    batch, feat_layout,
+                    keep=held(params, opt_state["mu"], opt_state["nu"])))
+            loss = graph(batch).clone()
+        else:
+            loss = loss_and_update(params, opt_state, batch, feat_layout)
+        state.opt_state = tx.advance(opt_state)
         state.step += 1
         return state, loss
 
+    train_step.graphs = lru
     return train_step
 
 
@@ -566,7 +703,8 @@ def scale_grads(grads: Dict[Path, torch.Tensor], c: float):
 
 
 def make_grad_and_apply(cfg: ModelConfig, tc: TrainConfig, tx: Optimizer,
-                        attn_impl: str = "auto", vision_tower_cfg=None):
+                        attn_impl: str = "auto", vision_tower_cfg=None,
+                        graphs: Optional[bool] = None):
     """Gradient accumulation: ``(grad_fn, apply_fn, accumulate,
     grad_accum_fn)``, the JAX package's four functions.
 
@@ -575,16 +713,57 @@ def make_grad_and_apply(cfg: ModelConfig, tc: TrainConfig, tx: Optimizer,
       acc)`` adds this micro-batch's grads into ``acc`` in place;
     - ``accumulate(acc, grads, weight) -> acc``, acc += grads * weight in
       place;
-    - ``apply_fn(state, grads) -> state``, the optimizer step in place.
+    - ``apply_fn(state, grads, scale=None) -> state``, ``grads`` scaled by
+      ``scale`` in place where given (``scale_grads``, the accumulation
+      average), then the optimizer step in place.
 
     In place stands for the JAX package's donation: peak gradient memory
-    is the running total plus one micro-batch's grads."""
-    routing_table = cfg.routing_table()
+    is the running total plus one micro-batch's grads.  With ``graphs``
+    (as ``make_train_step``'s) ``grad_fn`` and ``grad_accum_fn`` replay a
+    ``GradGraph`` and ``apply_fn`` an ``ApplyGraph``, kept in
+    ``grad_fn.graphs``; ``grad_fn`` then returns the running total, one
+    static set of tensors that its next call rewrites (a window's first
+    micro-batch writes it, ``grad_accum_fn`` adds into it).  ``accumulate``
+    and ``scale_grads`` stay eager, for callers that use them alone."""
+    table = _DeviceTable(cfg)
+    lru = GraphLRU(TRAIN_GRAPHS)
+    totals = GraphLRU(1)  # the running total of the current params
+
+    def loss_and_grads(train_params, batch, feat_layout):
+        return _loss_and_grads(cfg, tc, table.on(_device_of(train_params)),
+                               train_params, batch, feat_layout, attn_impl,
+                               vision_tower_cfg, tx.mesh)
+
+    def grad_graph(train_params, acc, batch, feat_layout):
+        """The loss of a micro-batch through a ``GradGraph`` that writes
+        its grads into ``acc`` (None: the running total) or adds them."""
+        device = _device_of(train_params)
+        add = acc is not None
+        if not add:
+            acc = totals.get_or_make(leaves_key(train_params), lambda: {
+                path: torch.empty_like(p)
+                for path, p in tree_leaves(train_params) if p.requires_grad})
+
+        def body(b, layout):
+            loss, grads = loss_and_grads(train_params, b, layout)
+            with torch.no_grad():
+                for path, g in grads.items():
+                    if add:
+                        acc[path].add_(g)
+                    else:
+                        acc[path].copy_(g)
+            return loss
+        graph = lru.get_or_make(
+            ("grad", add) + batch_key(batch, feat_layout)
+            + leaves_key(train_params) + tensor_ids(acc),
+            lambda: GradGraph(device, tx.graph_pool, body, batch,
+                              feat_layout, keep=held(train_params, acc)))
+        return graph(batch).clone(), acc
 
     def grad_fn(train_params, batch, feat_layout):
-        return _loss_and_grads(cfg, tc, routing_table, train_params, batch,
-                               feat_layout, attn_impl, vision_tower_cfg,
-                               tx.mesh)
+        if use_graphs(graphs, _device_of(train_params), tx):
+            return grad_graph(train_params, None, batch, feat_layout)
+        return loss_and_grads(train_params, batch, feat_layout)
 
     @torch.no_grad()
     def accumulate(acc, grads, weight):
@@ -593,15 +772,40 @@ def make_grad_and_apply(cfg: ModelConfig, tc: TrainConfig, tx: Optimizer,
         return acc
 
     def grad_accum_fn(train_params, acc, batch, feat_layout):
-        loss, grads = grad_fn(train_params, batch, feat_layout)
+        if use_graphs(graphs, _device_of(train_params), tx):
+            return grad_graph(train_params, acc, batch, feat_layout)
+        loss, grads = loss_and_grads(train_params, batch, feat_layout)
         with torch.no_grad():
             for path, g in grads.items():
                 acc[path].add_(g)
         return loss, acc
 
-    def apply_fn(state: TrainState, grads):
-        state.opt_state = tx.step(state.params, grads, state.opt_state)
+    def apply(params, opt_state, grads, scale):
+        if scale is not None:
+            scale_grads(grads, scale)
+        tx.update(params, grads, opt_state)
+        return ()
+
+    def apply_fn(state: TrainState, grads, scale: Optional[float] = None):
+        params, opt_state = state.params, state.opt_state
+        device = _device_of(params)
+        graphed = use_graphs(graphs, device, tx)
+        tx.prepare(opt_state["count"])
+        if graphed:
+            graph = lru.get_or_make(
+                ("apply", scale) + params_key(params, opt_state)
+                + tensor_ids(grads),
+                lambda: ApplyGraph(
+                    device, tx.graph_pool,
+                    lambda: apply(params, opt_state, grads, scale),
+                    keep=held(params, opt_state["mu"], opt_state["nu"],
+                              grads)))
+            graph()
+        else:
+            apply(params, opt_state, grads, scale)
+        state.opt_state = tx.advance(opt_state)
         state.step += 1
         return state
 
+    grad_fn.graphs = lru
     return grad_fn, apply_fn, accumulate, grad_accum_fn

@@ -987,3 +987,183 @@ def test_k1_captured_outside_a_record_raises():
         finally:
             graph.capture_end()
     torch.cuda.synchronize()
+
+
+def _tiny_card_trainer(seed=13):
+    """A 2-layer bf16 vision DAMC model on the card (head_dim 64, remat:
+    K1 twice a layer) with nonzero LoRA B, its stage-2 optimizer and a
+    batch of two image samples."""
+    import numpy as np
+    from modelcompose_tpu_torch.config import tiny_test_config
+    from modelcompose_tpu_torch.constants import (IGNORE_INDEX,
+                                                  MODAL_TOKEN_INDEXES)
+    from modelcompose_tpu_torch.models.model import MultimodalLM
+    from modelcompose_tpu_torch.train import trainer
+    from modelcompose_tpu_torch.train.train_multimodal import make_batch
+    cfg = tiny_test_config(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=4, num_key_value_heads=2,
+                           vocab_size=512, dtype="bfloat16", remat=True,
+                           mm_vision_encoder="test:32x2", mm_hidden_size=32,
+                           mm_projector_type="mlp2x_gelu",
+                           local_prefix_tokens=1, local_suffix_tokens=1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = MultimodalLM.random_init(cfg, gen, "cuda")
+    for grp in ("attn", "mlp"):
+        for p in model.params["layers"][grp].values():
+            p["lora_b"].normal_(0.0, 0.05, generator=gen)
+    rng = np.random.default_rng(seed)
+    img = MODAL_TOKEN_INDEXES["vision"]
+    ids = [np.concatenate([[1, img], rng.integers(3, 512, n)])
+           for n in (40, 23)]
+    labels = [np.concatenate([[IGNORE_INDEX] * 12, i[12:]]) for i in ids]
+    pixels = rng.random((2, 28, 28, 3)).astype(np.float32)
+
+    def batch(rows):  # (batch, feat_layout) of these samples
+        return make_batch(model, {
+            "input_ids": [ids[i] for i in rows],
+            "labels": [labels[i] for i in rows],
+            "modal_inputs": {"vision": pixels[list(rows)]}}, buckets=(64,))
+    tc = trainer.TrainConfig(learning_rate=2e-3, warmup_ratio=0.0,
+                             total_steps=20, weight_decay=0.01,
+                             max_grad_norm=1.0)
+    tree = {"backbone": model.params, "projectors": model.projectors}
+    tx, _ = trainer.make_optimizer(cfg, tc, tree)
+    return cfg, tc, model, tx, batch
+
+
+def test_train_step_graph_replays_the_eager_step_bit_for_bit():
+    """Six steps eagerly and six through a TrainStepGraph (one eager, one
+    capture, four replays) from the same weights: losses, every leaf and
+    every moment bit-equal; each replay counts K1 twice a layer (remat),
+    K3 and K4 once."""
+    from modelcompose_tpu_torch.train import trainer
+    from modelcompose_tpu_torch.tree import tree_leaves
+    cfg, tc, model, tx, make = _tiny_card_trainer()
+    batch, layout = make((0, 1))
+    tree = {"backbone": model.params, "projectors": model.projectors}
+    start = {p: t.detach().clone() for p, t in tree_leaves(tree)}
+    runs = []
+    for graphs in (False, True):
+        with torch.no_grad():
+            for p, t in tree_leaves(tree):
+                t.copy_(start[p])
+        state = trainer.init_train_state(cfg, tc, model.params,
+                                         model.projectors, tx=tx)
+        step = trainer.make_train_step(cfg, tc, tx, graphs=graphs)
+        losses = []
+        for i in range(6):
+            counts = (flash_attention_forward.launches,
+                      flash_attention_bwd_dq.launches,
+                      flash_attention_bwd_dkv.launches)
+            state, loss = step(state, batch, layout)
+            losses.append(loss)
+            now = (flash_attention_forward.launches,
+                   flash_attention_bwd_dq.launches,
+                   flash_attention_bwd_dkv.launches)
+            n = cfg.num_hidden_layers
+            assert [b - a for a, b in zip(counts, now)] == [2 * n, n, n], i
+        torch.cuda.synchronize()
+        runs.append((losses, {p: t.detach().clone()
+                              for p, t in tree_leaves(tree)},
+                     [t.clone() for m in ("mu", "nu")
+                      for t in state.opt_state[m].values()], step))
+    (l_e, p_e, m_e, _), (l_g, p_g, m_g, gstep) = runs
+    (graph,) = gstep.graphs.values()
+    assert graph.graph is not None and type(graph).replays >= 4
+    assert len(graph.k1.launches) == 2 * cfg.num_hidden_layers
+    assert len(graph.k1.bwd_dq) == len(graph.k1.bwd_dkv) \
+        == cfg.num_hidden_layers
+    assert all(torch.equal(a, b) for a, b in zip(l_e, l_g)), (l_e, l_g)
+    for p in p_e:
+        assert torch.equal(p_e[p], p_g[p]), p
+    assert all(torch.equal(a, b) for a, b in zip(m_e, m_g))
+
+
+def test_accumulation_graphs_replay_the_eager_window_bit_for_bit():
+    """Three windows of two micro-batches eagerly and through the grad and
+    apply graphs: losses, leaves and moments bit-equal."""
+    from modelcompose_tpu_torch.train import trainer
+    from modelcompose_tpu_torch.tree import tree_leaves
+    cfg, tc, model, tx, make = _tiny_card_trainer(14)
+    micro = [make((i,)) for i in range(2)]
+    tree = {"backbone": model.params, "projectors": model.projectors}
+    start = {p: t.detach().clone() for p, t in tree_leaves(tree)}
+    runs = []
+    for graphs in (False, True):
+        with torch.no_grad():
+            for p, t in tree_leaves(tree):
+                t.copy_(start[p])
+        state = trainer.init_train_state(cfg, tc, model.params,
+                                         model.projectors, tx=tx)
+        grad_fn, apply_fn, _, grad_accum_fn = trainer.make_grad_and_apply(
+            cfg, tc, tx, graphs=graphs)
+        losses = []
+        for _ in range(3):
+            loss0, acc = grad_fn(state.params, *micro[0])
+            loss1, acc = grad_accum_fn(state.params, acc, *micro[1])
+            state = apply_fn(state, acc, scale=0.5)
+            losses += [loss0, loss1]
+        torch.cuda.synchronize()
+        runs.append((losses, {p: t.detach().clone()
+                              for p, t in tree_leaves(tree)},
+                     [t.clone() for m in ("mu", "nu")
+                      for t in state.opt_state[m].values()]))
+    (l_e, p_e, m_e), (l_g, p_g, m_g) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l_e, l_g)), (l_e, l_g)
+    for p in p_e:
+        assert torch.equal(p_e[p], p_g[p]), p
+    assert all(torch.equal(a, b) for a, b in zip(m_e, m_g))
+
+
+def test_k3_k4_replays_are_counted():
+    """flash_attention forward and backward captured by a graph whose
+    backward runs on autograd's thread: each replay counts K1, K3 and K4
+    once, and the gradients equal the eager ones."""
+    from modelcompose_tpu_torch.train.step_graph import TrainStepGraph
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v = (_rnd(gen, 2, 96, 4, 64).requires_grad_() for _ in range(3))
+    seg = torch.ones((2, 96), dtype=torch.int32, device="cuda")
+    seg[1, 70:] = 0
+
+    def body():
+        out = flash_attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg)
+        return torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    want = body()
+    graph = TrainStepGraph("cuda", None, body)
+    for i in range(4):
+        counts = (flash_attention_forward.launches,
+                  flash_attention_bwd_dq.launches,
+                  flash_attention_bwd_dkv.launches)
+        got = graph()
+        now = (flash_attention_forward.launches,
+               flash_attention_bwd_dq.launches,
+               flash_attention_bwd_dkv.launches)
+        assert [b - a for a, b in zip(counts, now)] == [1, 1, 1], i
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), i
+    assert graph.graph is not None and len(graph.k1.bwd_dq) == 1 \
+        and len(graph.k1.bwd_dkv) == 1
+
+
+def test_k3_k4_captured_outside_a_record_raises():
+    """A K3 or K4 launch captured with no record would run uncounted at
+    every replay: it raises instead."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, do = (_rnd(gen, 1, 64, 4, 64) for _ in range(4))
+    out, lse = flash_attention_forward(q, k, v)
+    di = _di(out, do)
+    flash_attention_bwd_dq(q, k, v, do, lse, di)  # built, attribute set
+    flash_attention_bwd_dkv(q, k, v, do, lse, di)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            with pytest.raises(RuntimeError, match="capturing"):
+                flash_attention_bwd_dq(q, k, v, do, lse, di)
+            with pytest.raises(RuntimeError, match="capturing"):
+                flash_attention_bwd_dkv(q, k, v, do, lse, di)
+        finally:
+            graph.capture_end()
+    torch.cuda.synchronize()
