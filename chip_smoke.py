@@ -175,17 +175,29 @@ nonzero:
 14. distributed (``parallel/``, in two parts, each in an NCCL process
    group of this one process on a free local port, left afterwards): (a)
    after 13, phase 6's model sharded at tp 1 by the loader's
-   tensor-parallel step, the MCUB-4 request answered with greedy ids equal
-   to a no-group run's bit for bit (prefill s and decode tokens/s of both,
-   both with ``device_loop=False``: collectives are not captured; K1 and
-   K2 counted on the tp 1 path), then K1 and K2 at the tp 2 and 4
-   ranks' shapes (16 and 8 heads, the 3,328 bucket and the int8 3,360
-   cache) against their plain versions, timed by CUDA graph replay, with
-   their bounds (the ``tp_shards`` of the K1 and K2 rows); (b) after 9,
-   phase 9's stage-2 step rebuilt, two steps with no group, then the same
-   two from the same state through the data-parallel path (ZeRO-1
-   moments, gradients and loss summed over the data group): losses and
-   every trainable leaf bit-equal, step seconds of both.
+   tensor-parallel step, the MCUB-4 request answered through the prefill
+   and decode graphs under the group (their collectives captured), with
+   greedy ids bit-equal to the same graphs' with no group and to the
+   eager path's under the group; captures and replays under the group
+   and K1 = 32 a prefill, K2 = 32 a decode step from the counters;
+   decode tokens/s and prefill s of the three; one replayed decode step
+   profiled under the group and with none (NCCL's kernels and copies in
+   ``chiprun_out/distributed_decode_profile*.txt``); the slot pool behind
+   the leader's serving backbone under the group and with none (MCUB-4
+   admitted in 512-position chunks beside two short vision requests):
+   answers bit-equal between the two and each held to its solo no-group
+   run, the tick ms of both beside phase 11's; then K1 and K2 at the tp 2
+   and 4 ranks' shapes (16 and 8 heads, the 3,328 bucket and the int8
+   3,360 cache) against their plain versions, timed by CUDA graph replay,
+   with their bounds (the ``tp_shards`` of the K1 and K2 rows); (b) after
+   9, phase 9's stage-2 step rebuilt and run from one state three ways:
+   through the train graphs with no group, through them in the
+   data-parallel path (gradients and loss summed over the data group,
+   captured), and eagerly in that path: 4 fused steps and 3 accumulation
+   windows each, losses, every trainable leaf and the moments bit-equal,
+   K1/K3/K4 = 64/32/32 a step, step seconds, host dispatch seconds and
+   the device-idle share of a replayed step under the group and with
+   none.
 
 The line before the last is a JSON object with each kernel's launches on the
 main paths, its largest error against the plain version, its time, the plain
@@ -272,7 +284,8 @@ BEAM_SAMPLE_TEMPERATURE = 0.7
 QA_TOKENS = 16  # --max-new-tokens of the question-file runs
 # the phases whose decoding runs through captured decode graphs
 DECODING_PHASES = ("main", "composed", "decode_variants", "qa_loader",
-                   "serve", "eva_imagebind", "entries", "legacy_eval")
+                   "serve", "eva_imagebind", "entries", "legacy_eval",
+                   "distributed_serve")
 # The MCUB-4 prompt: 586 + 42 + 2,066 + 523 feature positions and 70 text
 # tokens, packed in the 3,328 bucket; K1 at its prefill shape.
 MCUB4_POSITIONS = 3287
@@ -3223,7 +3236,10 @@ def _profile(name, fn, out_file, cpu=True):
         f.write(events.table(sort_by="cuda_time_total", row_limit=40))
     log("profile", run=name, wall_s=f"{wall:.4f}",
         device_kernel_s=f"{total / 1e6:.4f}", shares=json.dumps(share))
-    return {"wall_s": wall, "device_kernel_s": total / 1e6, "shares": share}
+    counts = {e.key: e.count for e in events
+              if e.device_time_total > 0 and e.device_type.name == "CUDA"}
+    return {"wall_s": wall, "device_kernel_s": total / 1e6, "shares": share,
+            "device_us": dev, "device_counts": counts}
 
 
 # The train_entry phase: Vicuna-7B v1.5 at full width and depth (its
@@ -4993,9 +5009,12 @@ def phase_legacy_eval(device, gen, root, merged, base_dir, model):
 # Phase 14: the distribution layer at world 1 over NCCL
 # ---------------------------------------------------------------------------
 
-DIST_STEPS = 2  # train steps of each run of phase 14's train part
+DIST_STEPS = 4  # fused steps of each run of 14b: eager, capture, 2 replays
+DIST_WINDOWS = 3  # accumulation windows of each run of 14b: the same
+DIST_SLOT_TOKENS = 12  # each request's greedy budget in 14a's slot runs
 TP_SHARDS = (2, 4)  # the tensor-parallel degrees whose rank shapes K1/K2 run
 DIST_TIMEOUT_S = 120  # the process group's timeout on every collective
+SERVE_GRAPH_KINDS = ("decode", "prefill", "chunk_step")
 
 
 def _free_port() -> int:
@@ -5047,73 +5066,249 @@ def _tp_shard_cases(device, gen):
     return k1, k2
 
 
-def phase_distributed_serve(device, gen, model, request):
-    """Phase 14a: phase 6's MCUB-4 model sharded at tp 1 through the
-    loader's tensor-parallel step (``apply_tensor_parallel``) in an NCCL
-    process group of one: its greedy ids equal the no-group run's bit for
-    bit, K1 and K2 counted on that path; then K1 and K2 at the tp 2 and 4
-    ranks' shapes."""
+def _dist_generate(model, request, device_loop):
+    """MCUB-4's greedy request (int8 cache, compacted adapters) of
+    NEW_TOKENS: on the graph path twice untimed (the decode graph of the
+    request's cache length captures at its first step, its prefill graph
+    at its second call), eagerly once with two tokens, then once timed.
+    Returns the timed request's ids, timings, K1/K2 launches and graph
+    counts, and the warm-up's graph counts."""
     import torch
-    from modelcompose_tpu_torch.parallel import tp
-    from modelcompose_tpu_torch.parallel.mesh import apply_tensor_parallel
     reset, read = _attention_counters()
     ids, inputs = request
-    kw = dict(kv_quant=True, compact_adapters=True)
-    steps = NEW_TOKENS - 1
-    plain_t = {}
-    # collectives are not captured: both sides decode eagerly, so this
-    # compares the collectives' host cost, eager against eager
-    kw["device_loop"] = False
+    kw = dict(kv_quant=True, compact_adapters=True, device_loop=device_loop)
+    before = _all_graph_counts()
     with torch.no_grad():
-        want = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
-                              timings=plain_t, **kw)
+        for _ in range(2 if device_loop else 1):
+            model.generate(ids, inputs, max_new_tokens=NEW_TOKENS
+                           if device_loop else 2, **kw)
+        warm = _graph_delta(before)
+        before = _all_graph_counts()
+        timings = {}
+        reset()
+        out = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
+                             timings=timings, **kw)
+        launches = read()
+    return {"ids": out, "timings": timings, "launches": launches,
+            "graphs": _graph_delta(before), "warm": warm}
+
+
+def _dist_slots(model, requests):
+    """The slot pool (SERVE_SLOTS slots of SERVE_CACHE_LEN positions, int8,
+    admissions chunked by SERVE_CHUNK) through the model's serving
+    backbone, answering ``requests`` (name -> (ids, inputs)) greedily,
+    DIST_SLOT_TOKENS tokens each: every request but the last admitted,
+    two ticks, then the last (MCUB-4) admitted with a tick between its
+    chunks, then ticks until every answer is done.  A tick is the
+    engine's: the slots' ids drawn on the card (greedy) and fetched, then
+    one decode step of the pool.  Returns (answers by name, tick seconds,
+    K1/K2 launches, graph counts)."""
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.serve.slot_engine import SlotDecoder
+    reset, read = _attention_counters()
+    before = _all_graph_counts()
+    reset()
+    dec = SlotDecoder(model, SERVE_SLOTS, SERVE_CACHE_LEN, kv_quant=True,
+                      prefill_chunk=SERVE_CHUNK, device=model.device)
+    gen = torch.Generator(device=model.device)  # greedy rows draw nothing
+    temps = np.zeros(SERVE_SLOTS, np.float32)
+    top_ps = np.ones(SERVE_SLOTS, np.float32)
+    names = list(requests)
+    answers = {n: [] for n in names}
+    eos = model.cfg.eos_token_id
+    ticks = []
+
+    def tick():
+        t0 = time.perf_counter()
+        tokens = dec.sample(gen, temps, top_ps)
+        for slot in np.flatnonzero(dec.active):
+            got = answers[names[slot]]
+            if int(tokens[slot]) != eos:
+                got.append(int(tokens[slot]))
+            if int(tokens[slot]) == eos or len(got) == DIST_SLOT_TOKENS:
+                dec.release(slot)
+        dec.step(tokens)
+        ticks.append(time.perf_counter() - t0)
+    for slot, name in enumerate(names[:-1]):
+        dec.admit(slot, *requests[name])
+    for _ in range(2):
+        tick()
+    dec.admit(len(names) - 1, *requests[names[-1]], tick_cb=tick)
+    while dec.active.any():
+        tick()
+    torch.cuda.synchronize()
+    return answers, ticks, read(), _graph_delta(before)
+
+
+def _replay_profile(name, graph, out_file):
+    """torch.profiler over one replay of a captured decode ``graph``: its
+    device activity by name (kernels and copies; the event waits that
+    join a collective's stream are not traced), with the NCCL and copy
+    rows picked out."""
+    res = _profile(name, graph.replay, out_file, cpu=False)
+    picked = {k: {"count": res["device_counts"][k],
+                  "us": round(res["device_us"][k], 2)}
+              for k in res["device_us"]
+              if "nccl" in k.lower() or "memcpy" in k.lower()}
+    return {"kernels": sum(res["device_counts"].values()),
+            "device_us": round(sum(res["device_us"].values()), 1),
+            "nccl_and_copies": picked}
+
+
+def phase_distributed_serve(device, gen, model, request, serve_tick_ms):
+    """Phase 14a: phase 6's MCUB-4 model sharded at tp 1 through the
+    loader's tensor-parallel step (``apply_tensor_parallel``) in an NCCL
+    process group of one.  Its greedy request through the prefill and
+    decode graphs under the group (their NCCL collectives captured: the
+    logits' all-gather copies through NCCL's stream, the all-reduces of
+    one rank record nothing), against the same graphs with no group and
+    the eager path under the group: ids bit-equal, captures and replays
+    under the group counted, K1 = 32 a prefill and K2 = 32 a decode step
+    from the counters, tok/s and prefill s of all three; one replayed
+    decode step profiled under the group and with none.  Then the slot
+    pool behind the leader's serving backbone, under the group and with
+    none: the MCUB-4 request admitted in 512-position chunks beside two
+    short vision requests, the answers bit-equal between the two and each
+    held to its solo no-group run, the tick ms of both beside phase 11's.
+    Then K1 and K2 at the tp 2 and 4 ranks' shapes."""
+    import numpy as np
+    from modelcompose_tpu_torch.parallel import tp
+    from modelcompose_tpu_torch.parallel.mesh import apply_tensor_parallel
+    n_layers = model.cfg.num_hidden_layers
+    steps = NEW_TOKENS - 1
+    per_request = {"flash_attention_fwd": n_layers,
+                   "flash_decode": n_layers * steps}
+    vision_ids, vision_inputs = _requests(model.cfg, device, gen)
+    slot_requests = {
+        f"vision{i}": (vision_ids[i], {"vision": vision_inputs["vision"][
+            i:i + 1]}) for i in range(2)}
+    slot_requests["mcub4"] = (request[0][0], request[1])
+    runs = {"no_group_graph": _dist_generate(model, request, True)}
+    no_group_graph = [g for g in model.decode_graphs.values()][-1]
+    profiles = {"no_group": _replay_profile(
+        "decode_replay_no_group", no_group_graph,
+        "distributed_decode_profile_no_group.txt")}
+    slots = {"no_group": _dist_slots(model, slot_requests)}
     params = model.params
     with _NcclWorld1():
         mesh = apply_tensor_parallel(model, 1)
-        if model.tp_group is None or tp.model_size(model.tp_group) != 1:
+        group = model.tp_group
+        if group is None or tp.model_size(group) != 1:
             raise AssertionError("no model group of one after the TP step")
         model._compact_cache.clear()  # compaction reruns on the shard
-        got_t = {}
-        with torch.no_grad():
-            model.generate(ids, inputs, max_new_tokens=2, **kw)  # warm-up
-            reset()
-            got = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
-                                 timings=got_t, **kw)
-        launches = read()
+        runs["tp1_graph"] = _dist_generate(model, request, True)
+        grouped = [g for g in model.decode_graphs.values()
+                   if g.group is group]
+        if not grouped:
+            raise AssertionError("no decode graph of the tp 1 group")
+        profiles["tp1"] = _replay_profile(
+            "decode_replay_tp1", grouped[-1],
+            "distributed_decode_profile.txt")
+        with _EagerTTFT(model):
+            runs["tp1_eager"] = _dist_generate(model, request, False)
+        slots["tp1"] = _dist_slots(model, slot_requests)
+        made = [g.group is group for g in model.decode_graphs.values()]
     model.params, model.tp_group, model._serving = params, None, None
     model._compact_cache.clear()
+    model.decode_graphs.clear()  # the group's graphs go with the group
+    model.prefill_graphs.clear()
+    rates = {k: steps / r["timings"]["decode_s"] for k, r in runs.items()}
+    prefill_s = {k: r["timings"]["prefill_s"] for k, r in runs.items()}
     log("distributed", path="mcub4_tp1", mesh=json.dumps(mesh.shape),
-        ids_equal=got == want, no_group_decode_tok_per_s=(
-            f"{steps / plain_t['decode_s']:.2f}"),
-        tp1_decode_tok_per_s=f"{steps / got_t['decode_s']:.2f}",
-        no_group_prefill_s=f"{plain_t['prefill_s']:.4f}",
-        tp1_prefill_s=f"{got_t['prefill_s']:.4f}",
-        launches=json.dumps(launches))
-    if got != want:
-        raise AssertionError(f"greedy ids through the tp 1 group {got} != "
-                             f"the no-group run's {want}")
-    n_layers = model.cfg.num_hidden_layers
-    if launches["flash_attention_fwd"] < n_layers \
-            or launches["flash_decode"] < n_layers * steps:
-        raise AssertionError(f"K1/K2 launches on the tp 1 path {launches}")
+        ids_equal={k: r["ids"] == runs["no_group_graph"]["ids"]
+                   for k, r in runs.items()},
+        decode_tok_per_s=json.dumps({k: round(v, 2)
+                                     for k, v in rates.items()}),
+        prefill_s=json.dumps({k: round(v, 4) for k, v in prefill_s.items()}),
+        launches=json.dumps({k: r["launches"] for k, r in runs.items()}),
+        graphs=json.dumps({k: r["graphs"] for k, r in runs.items()}),
+        warm_graphs=json.dumps({k: r["warm"] for k, r in runs.items()}),
+        decode_graphs_under_group=f"{sum(made)} of {len(made)}")
+    for name, r in runs.items():
+        if r["ids"] != runs["no_group_graph"]["ids"]:
+            raise AssertionError(f"greedy ids of {name} {r['ids']} != the "
+                                 f"no-group graph run's "
+                                 f"{runs['no_group_graph']['ids']}")
+        if r["launches"] != per_request:
+            raise AssertionError(f"{name}: K1/K2 launches {r['launches']}, "
+                                 f"want {per_request}")
+    for name in ("no_group_graph", "tp1_graph"):
+        r = runs[name]
+        if r["graphs"].get("decode") != [0, steps] \
+                or r["graphs"].get("prefill") != [0, 1]:
+            raise AssertionError(f"{name}: graph counts {r['graphs']}, want "
+                                 f"{steps} decode replays and a prefill one")
+    warm = runs["tp1_graph"]["warm"]
+    if warm.get("decode", [0])[0] < 1 or warm.get("prefill", [0])[0] < 1:
+        raise AssertionError(f"no capture under the group: {warm}")
+    if runs["tp1_eager"]["graphs"]:
+        raise AssertionError(f"the eager A/B replayed graphs: "
+                             f"{runs['tp1_eager']['graphs']}")
+    log("distributed", decode_replay_profile=json.dumps(profiles))
+    # the slot pool: under the group equal to no group, each held to solo
+    answers = {k: v[0] for k, v in slots.items()}
+    tick_ms = {k: float(np.median(v[1])) * 1e3 for k, v in slots.items()}
+    vs_solo = {}
+    for name, (ids, inputs) in slot_requests.items():
+        solo, logits = _solo_chunked(model, [ids], inputs, DIST_SLOT_TOKENS)
+        vs_solo[name] = _slot_vs_solo("distributed_slots", name,
+                                      answers["no_group"][name], solo,
+                                      lambda i: logits[i], DIST_SLOT_TOKENS)
+    log("distributed", path="slots_tp1", answers_equal=(
+        answers["tp1"] == answers["no_group"]),
+        tick_median_ms=json.dumps({**{k: round(v, 3)
+                                      for k, v in tick_ms.items()},
+                                   "phase11_no_group": serve_tick_ms}),
+        ticks={k: len(v[1]) for k, v in slots.items()},
+        launches=json.dumps({k: v[2] for k, v in slots.items()}),
+        graphs=json.dumps({k: v[3] for k, v in slots.items()}),
+        vs_solo=json.dumps({k: v.get("diverge_step", "equal")
+                            for k, v in vs_solo.items()}))
+    if answers["tp1"] != answers["no_group"]:
+        raise AssertionError(f"slot answers under the tp 1 group "
+                             f"{answers['tp1']} != no group's "
+                             f"{answers['no_group']}")
+    for k, v in slots.items():  # the pool decodes through its graph
+        if not v[3].get("decode", [0, 0])[1]:
+            raise AssertionError(f"slots {k}: no decode replay {v[3]}")
     k1, k2 = _tp_shard_cases(device, gen)
+    launches = {"tp1_graph": runs["tp1_graph"]["launches"],
+                "tp1_eager": runs["tp1_eager"]["launches"],
+                "tp1_slots": slots["tp1"][2],
+                "tp_no_group_ab": _sum_counts(runs["no_group_graph"]["launches"],
+                                           slots["no_group"][2])}
     return {"launches": launches, "k1_tp_shards": k1, "k2_tp_shards": k2,
-            "decode_tok_per_s": {"no_group": steps / plain_t["decode_s"],
-                                 "tp1": steps / got_t["decode_s"]},
-            "prefill_s": {"no_group": plain_t["prefill_s"],
-                          "tp1": got_t["prefill_s"]}}
+            "decode_tok_per_s": rates, "prefill_s": prefill_s,
+            "slot_tick_ms": tick_ms, "profiles": profiles}
+
+
+def _sum_counts(*counts):
+    """The sum of launch-count dicts, key by key."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def phase_distributed_train(device):
-    """Phase 14b: phase 9's stage-2 train step at Vicuna-7B width, two
-    eager steps with no process group, then the same two steps from the
-    same state through the data-parallel path (``mesh_for_batch``, the
-    valid-target count, gradients and loss all-reduced over the data
-    group) in an NCCL group of one, eager too (a train graph there raises:
-    its all-reduces would not be captured): losses and every trainable
-    leaf bit-equal.  At one rank no leaf has a ZeRO-1 axis (``zero_axis`` needs
-    a data width above 1), so the moment slicing and its all-gather do not
-    run here, nor any tensor-parallel collective or leader broadcast: the
+    """Phase 14b: phase 9's stage-2 train step at Vicuna-7B width and
+    depth (B=2 x 2,048, remat) from one starting state, three ways:
+    through the train graphs with no process group, through them in the
+    data-parallel path (``mesh_for_batch``: the valid-target count, each
+    gradient and the loss all-reduced over the data group, captured in
+    the graphs) in an NCCL group of one, and eagerly in that group (the
+    A/B).  Each run takes DIST_STEPS fused steps (eager, capture,
+    replays) and DIST_WINDOWS accumulation windows of two B=1
+    micro-batches (the grad, grad-accum and apply graphs): losses, every
+    trainable leaf and the moments bit-equal across the three, K1 = 64
+    and K3 = K4 = 32 a step from the counters, step s and the host's
+    dispatch s of each, and the device-idle share of one replayed step
+    under the group and with none (torch.profiler, as phase 9 reads it).
+    At one rank no leaf has a ZeRO-1 axis (``zero_axis`` needs a data
+    width above 1), so the moment slicing and its all-gather do not run
+    here, nor any tensor-parallel collective or leader broadcast: the
     CPU gloo tests cover those."""
     import numpy as np
     import torch
@@ -5124,11 +5319,18 @@ def phase_distributed_train(device):
     from modelcompose_tpu_torch.train.train_multimodal import (
         build_arg_parser, build_model, build_model_config, make_batch)
     from modelcompose_tpu_torch.train.trainer import (
-        TrainConfig, init_train_state, make_optimizer, make_train_step,
-        tree_leaves)
+        TrainConfig, init_train_state, make_grad_and_apply, make_optimizer,
+        make_train_step, tree_leaves)
     counters = {"flash_attention_fwd": flash_attention_forward,
                 "flash_attention_bwd_dq": flash_attention_bwd_dq,
                 "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
     args = build_arg_parser().parse_args([
         "--model_name_or_path", "vicuna-7b-v1.5", "--data_path", "-",
         "--output_dir", "-", "--random_init_backbone", "--seed", str(SEED),
@@ -5143,79 +5345,139 @@ def phase_distributed_train(device):
         model = build_model(args, cfg, device)
     collated = _train_samples(cfg, np.random.default_rng(SEED))
     batch, layout = make_batch(model, collated)
+    micro = [make_batch(model, {
+        "input_ids": collated["input_ids"][i:i + 1],
+        "labels": collated["labels"][i:i + 1],
+        "modal_inputs": {"vision": collated["modal_inputs"]["vision"][
+            i:i + 1]}}) for i in range(2)]
     tc = TrainConfig(learning_rate=2e-4, mm_projector_lr=2e-5,
                      mm_language_lr=1e-5, warmup_ratio=0.0)
     tree = {"backbone": model.params, "projectors": model.projectors}
+    n_layers = cfg.num_hidden_layers
+    per_step = {"flash_attention_fwd": 2 * n_layers,  # remat: twice
+                "flash_attention_bwd_dq": n_layers,
+                "flash_attention_bwd_dkv": n_layers}
+    per_window = {k: 2 * v for k, v in per_step.items()}
 
-    def run(mesh):
+    def timed(fn):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        dispatch = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dispatch, read()
+
+    def run(mesh, graphs):
+        """DIST_STEPS fused steps and DIST_WINDOWS windows from the start
+        state: losses, step and window seconds, dispatch seconds, launches,
+        graph counts, the state after, and a replayed step's profile."""
         tx, _ = make_optimizer(cfg, tc, tree, mesh)
         state = init_train_state(cfg, tc, model.params, model.projectors,
                                  tx=tx)
-        if mesh is not None:  # a graph would capture no all-reduce: raises
-            try:
-                make_train_step(cfg, tc, tx, graphs=True)(state, batch,
-                                                          layout)
-            except RuntimeError as e:
-                if "data-parallel" not in str(e):  # not the group refusal
-                    raise
-                refused.append(str(e))
-            else:
-                raise AssertionError("a train graph ran under a data group")
-        step = make_train_step(cfg, tc, tx, graphs=False)
-        for fn in counters.values():
-            fn.launches = 0
-        losses, seconds = [], []
+        step = make_train_step(cfg, tc, tx, graphs=graphs)
+        grad_fn, apply_fn, _, grad_accum_fn = make_grad_and_apply(
+            cfg, tc, tx, graphs=graphs)
+        before = _all_graph_counts()
+        out = {"losses": [], "step_s": [], "window_s": [], "dispatch_s": [],
+               "launches": []}
         for _ in range(DIST_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, loss = step(state, batch, layout)
-            losses.append(float(loss))
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-        launches = {k: fn.launches for k, fn in counters.items()}
-        trained = {p: t.detach().clone() for p, t in tree_leaves(tree)
-                   if tx.trains(p)}
-        return losses, seconds, trained, launches
+            (state, loss), secs, dispatch, counts = timed(
+                lambda: step(state, batch, layout))
+            out["losses"].append(loss)
+            out["step_s"].append(secs)
+            out["dispatch_s"].append(dispatch)
+            out["launches"].append(counts)
+
+        def window():
+            loss0, acc = grad_fn(state.params, *micro[0])
+            loss1, acc = grad_accum_fn(state.params, acc, *micro[1])
+            apply_fn(state, acc, scale=0.5)
+            return [loss0, loss1]
+        for _ in range(DIST_WINDOWS):
+            losses, secs, _, counts = timed(window)
+            out["losses"] += losses
+            out["window_s"].append(secs)
+            out["launches"].append(counts)
+        out["graphs"] = _graph_delta(before)
+        out["losses"] = [float(x) for x in out["losses"]]
+        out["state"] = _TrainSnapshot(state, tx)
+        if graphs is None:  # one more replay, profiled (after the snapshot)
+            out["profile"] = _profile(
+                f"train_step_replay_{'dp' if mesh else 'no_group'}",
+                lambda: step(state, batch, layout),
+                "distributed_train_profile.txt" if mesh
+                else "distributed_train_profile_no_group.txt", cpu=False)
+        return out
 
     tx0, _ = make_optimizer(cfg, tc, tree)
     start = {p: t.detach().clone() for p, t in tree_leaves(tree)
              if tx0.trains(p)}
-    refused = []
 
     def restart():  # the same starting state for the next run
         with torch.no_grad():
             for p, t in tree_leaves(tree):
                 if p in start:
                     t.copy_(start[p])
-    plain = run(None)
-    restart()
+        gc.collect()
+        torch.cuda.empty_cache()
+    runs = {"no_group_graph": run(None, None)}
     with _NcclWorld1():
         mesh = mesh_for_batch(len(collated["input_ids"]), allow_partial=True)
-        dp = run(mesh)
-    differ = [p for p in plain[2] if not torch.equal(plain[2][p], dp[2][p])]
-    if dp[0] != plain[0] or differ:
-        # is it the DP path, or does the no-group run itself vary?
         restart()
-        again = run(None)
-        log("distributed", no_group_rerun_losses=again[0],
-            no_group_rerun_leaves_differing=sum(
-                not torch.equal(plain[2][p], again[2][p]) for p in plain[2]))
+        runs["dp_graph"] = run(mesh, None)
+        restart()
+        runs["dp_eager"] = run(mesh, False)
+    ref = runs["no_group_graph"]
+    differ = {k: r["state"].differing(ref["state"]) for k, r in runs.items()}
+    step_s = {k: float(np.median(r["step_s"][2:] if k.endswith("graph")
+                                 else r["step_s"][1:]))
+              for k, r in runs.items()}
+    dispatch_s = {k: float(np.median(r["dispatch_s"][2:]
+                                     if k.endswith("graph")
+                                     else r["dispatch_s"][1:]))
+                  for k, r in runs.items()}
+    idle = {}
+    for k in ("no_group_graph", "dp_graph"):
+        prof = runs[k]["profile"]
+        idle[k] = _idle_share(prof, prof["wall_s"])
+        idle[k + "_unprofiled"] = _idle_share(prof, step_s[k])
     log("distributed", path="train_dp_world1", mesh=json.dumps(mesh.shape),
-        no_group_losses=[f"{x:.6f}" for x in plain[0]],
-        dp_losses=[f"{x:.6f}" for x in dp[0]],
-        no_group_step_s=[f"{x:.4f}" for x in plain[1]],
-        dp_step_s=[f"{x:.4f}" for x in dp[1]],
-        trainable_leaves=len(plain[2]), leaves_differing=len(differ),
-        launches=json.dumps(dp[3]), train_graph_refused=refused[0][:120])
-    if dp[0] != plain[0] or differ:
-        raise AssertionError(f"the world-1 DP run left the no-group run: "
-                             f"losses {dp[0]} vs {plain[0]}, leaves "
-                             f"{differ[:3]}")
-    n_layers = cfg.num_hidden_layers
-    if min(dp[3].values()) < n_layers * DIST_STEPS:
-        raise AssertionError(f"K1/K3/K4 launches on the DP path {dp[3]}")
-    return {"launches": dp[3], "losses": dp[0],
-            "step_s": {"no_group": plain[1], "dp": dp[1]}}
+        losses=json.dumps({k: [f"{x:.6f}" for x in r["losses"]]
+                           for k, r in runs.items()}),
+        step_s=json.dumps({k: [round(x, 4) for x in r["step_s"]]
+                           for k, r in runs.items()}),
+        window_s=json.dumps({k: [round(x, 4) for x in r["window_s"]]
+                             for k, r in runs.items()}),
+        step_median_s=json.dumps({k: round(v, 4) for k, v in step_s.items()}),
+        host_dispatch_s=json.dumps({k: round(v, 4)
+                                    for k, v in dispatch_s.items()}),
+        device_idle_share=json.dumps({k: round(v, 4)
+                                      for k, v in idle.items()}),
+        graphs=json.dumps({k: r["graphs"] for k, r in runs.items()}),
+        trainable_leaves=len(ref["state"].leaves),
+        differing=json.dumps({k: len(v) for k, v in differ.items()}))
+    for k, r in runs.items():
+        if r["losses"] != ref["losses"] or differ[k]:
+            raise AssertionError(f"{k} left the no-group graph run: losses "
+                                 f"{r['losses']} vs {ref['losses']}, "
+                                 f"{differ[k][:3]} differ")
+        want = [per_step] * DIST_STEPS + [per_window] * DIST_WINDOWS
+        if r["launches"] != want:
+            raise AssertionError(f"{k}: K1/K3/K4 launches {r['launches']}")
+    for k in ("no_group_graph", "dp_graph"):
+        g = runs[k]["graphs"]
+        if g.get("train_step", [0])[0] != 1 or g.get("grad", [0])[0] != 2 \
+                or g.get("apply", [0])[0] != 1 \
+                or g["train_step"][1] != DIST_STEPS - 2:
+            raise AssertionError(f"{k}: graph counts {g}")
+    if runs["dp_eager"]["graphs"]:
+        raise AssertionError(f"the eager A/B replayed graphs: "
+                             f"{runs['dp_eager']['graphs']}")
+    launches = {"dp_" + k.replace("dp_", ""): _sum_counts(*r["launches"])
+                for k, r in runs.items()}
+    return {"launches": launches, "losses": ref["losses"], "step_s": step_s,
+            "dispatch_s": dispatch_s, "idle_share": idle}
 
 
 def main() -> int:
@@ -5280,7 +5542,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dist_serve = timed("distributed_serve", phase_distributed_serve, device,
-                       gen, mcub4_model, request)
+                       gen, mcub4_model, request,
+                       (serve["parts"]["chunked"].get("tick") or {}).get(
+                           "median_ms"))
     del mcub4_model, request
     gc.collect()
     torch.cuda.empty_cache()
@@ -5320,12 +5584,17 @@ def main() -> int:
         checkpoint_s=json.dumps({k: round(v, 2) for k, v in
                                  legacy["tools"]["seconds"].items()}))
     log("phase14", dp_step_s=json.dumps({
-        k: [round(x, 4) for x in v]
-        for k, v in dist_train["step_s"].items()}),
+        k: round(v, 4) for k, v in dist_train["step_s"].items()}),
+        dp_host_dispatch_s=json.dumps({
+            k: round(v, 4) for k, v in dist_train["dispatch_s"].items()}),
+        dp_device_idle_share=json.dumps({
+            k: round(v, 4) for k, v in dist_train["idle_share"].items()}),
         decode_tok_per_s=json.dumps({
             k: round(v, 2) for k, v in dist_serve["decode_tok_per_s"].items()}),
         prefill_s=json.dumps({k: round(v, 4) for k, v in
                               dist_serve["prefill_s"].items()}),
+        slot_tick_median_ms=json.dumps({
+            k: round(v, 3) for k, v in dist_serve["slot_tick_ms"].items()}),
         tp_shard_ms=json.dumps({
             f"K{i + 1} tp{c['tp']}": None if c["ms"] is None
             else round(c["ms"], 4)
@@ -5358,7 +5627,7 @@ def main() -> int:
             {k: {n: round(v, 4) for n, v in
                  entry[k]["loop_trace_median_s"].items()}
              for k in ENTRY_STEPS}))
-    unreplayed = [p for p in ("train", "train_entry")
+    unreplayed = [p for p in ("train", "train_entry", "distributed_train")
                   if not any(graphs[p].get(k, [0, 0])[1]
                              for k in train_kinds)]
     if unreplayed:  # every training phase replays a train graph
@@ -5398,13 +5667,14 @@ def main() -> int:
                 "legacy_eval": legacy["launches"][name],
                 "train": train_launches(name),
                 "train_entry": entry["launches"][name],
-                "distributed": dist_serve["launches"][name]
-                + dist_train["launches"].get(name, 0)}
+                **{p: c.get(name, 0) for p, c in (
+                    *dist_serve["launches"].items(),
+                    *dist_train["launches"].items())}}
 
     def train_paths(name):
         return {"train": train_launches(name),
                 "train_entry": entry["launches"][name],
-                "distributed": dist_train["launches"][name]}
+                **{p: c[name] for p, c in dist_train["launches"].items()}}
 
     tp_err = {"fwd": max(c["max_abs_err"]
                          for c in dist_serve["k1_tp_shards"]),
@@ -5469,7 +5739,8 @@ def main() -> int:
                                for p, r in serve["parts"].items()
                                if "peak_mem_gb" in r}}),
         serve_mcub4_stall_s=json.dumps(serve["stall"]))
-    missing = [p for p in ("main", "composed", "eva_imagebind", "serve")
+    missing = [p for p in ("main", "composed", "eva_imagebind", "serve",
+                           "distributed_serve")
                if not graphs[p].get("prefill", [0, 0])[1]
                and not graphs[p].get("chunk_step", [0, 0])[1]]
     if missing:  # every prefilling phase replays a prefill graph

@@ -29,13 +29,29 @@ the launches they recorded to the kernels' counters, so every call counts
 one step's.  A decode graph
 captures at its first call; the prefill and tower graphs, whose shapes
 vary more, at their second (core/prefill_graph, models/towers).
-Collectives are not captured: a graph under a tensor-parallel model group
-raises (callers at ``--tp`` run eagerly, ``device_loop=False``).
+
+Under a tensor-parallel model group (``tp.scope``, ``--tp``) the step's
+collectives are captured with it, as GSPMD compiles them into the JAX
+package's program: per layer the all-reduces of the attention output and
+of the MLP down projection, the vocab-split embedding's sum and the
+logits' all-gather, in the eager step's order.  ``ProcessGroupNCCL`` runs
+each on its own stream, forked from the capture stream and joined back
+by events, so the capture holds them; their communicators exist before
+any capture (``parallel.distributed.initialize``, ``parallel.mesh.
+make_mesh``).  Every rank of the group makes the same calls, so every
+rank captures at the same call of a graph, and each call runs the step
+once (eagerly, as the capture's warm-up, or as a replay): one set of
+collectives a call on every rank.  A graph belongs to the group it was
+made under (``graph_key`` names the group; a call under another group
+raises): replayed under none, or another, it would run its captured
+collectives or lack them.  On the CPU (gloo) a graph runs its step
+eagerly, collectives included.
 
 ``DecodeGraphs`` keeps a bounded set of graphs, keyed by the identity of
 every tensor a graph reads (the decode params' leaves), the routing
-table's values and the cache's shape; the least recently used graph, with
-its cache, its prefill graphs and its memory pool, goes first.
+table's values, the cache's shape and the model group; the least recently
+used graph, with its cache, its prefill graphs and its memory pool, goes
+first.
 """
 
 from __future__ import annotations
@@ -46,6 +62,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ModelConfig
 from ..ops import flash_attention, flash_decode
@@ -68,13 +85,13 @@ def _decode_step(params, cfg: ModelConfig, cache, tokens, kv_lens,
     return logits[:, 0], cache, kv_lens + 1
 
 
-def refuse_model_group(what: str) -> None:
-    """Raise under a tensor-parallel model group: a graph would capture
-    its collectives, which it does not."""
-    if tp.model_group() is not None:
-        raise RuntimeError(
-            f"{what} under a tensor-parallel model group: its collectives "
-            "are not captured; run it eagerly")
+def group_key(group):
+    """A process group's identity in a graph's key: None for no group,
+    else the object's id (the graph holds the group, so the id is not
+    reused while it lives) and its ranks."""
+    if group is None:
+        return None
+    return id(group), tuple(dist.get_process_group_ranks(group))
 
 
 def _empty_like(out):
@@ -143,9 +160,15 @@ class CapturedStep:
     subclass writes ``_step()``, the step over its static inputs,
     returning a tensor or a tuple of tensors and Nones; ``out`` has that
     structure.  A graph of a ``SharedPool`` captures into its pool on its
-    stream; any other into a pool of its own."""
+    stream; any other into a pool of its own.
+
+    ``group`` is the model group of the scope the graph was made in
+    (``tp.model_group()``).  Where ``in_scope`` (the serving graphs, whose
+    step runs in the caller's ``tp.scope``) a call under another group
+    raises."""
 
     capture_at = 1
+    in_scope = False
     captures = 0  # a subclass counts its own: captures of every graph
     replays = 0  # and replays of every graph
     # release the allocator's cached blocks before the warm-up and before
@@ -161,6 +184,7 @@ class CapturedStep:
         self.graph = None
         self.k1 = self.k2 = None  # the capture's launch records
         self.shared = shared
+        self.group = tp.model_group()
 
     def _step(self):
         raise NotImplementedError
@@ -172,6 +196,11 @@ class CapturedStep:
     def run(self):
         """One call of the step on the static inputs: eagerly, by a
         capture, or by a replay.  Returns the static outputs."""
+        if self.in_scope and tp.model_group() is not self.group:
+            raise RuntimeError(
+                f"{type(self).__name__} made under model group "
+                f"{group_key(self.group)} called under "
+                f"{group_key(tp.model_group())}")
         self.calls += 1
         if self.graph is not None:
             self.replay()
@@ -211,8 +240,10 @@ class CapturedStep:
         if self.out is None:
             self.out = _empty_like(warm)
         graph = torch.cuda.CUDAGraph()
-        # thread-local mode: other threads may use the card meanwhile; a
-        # backward's kernels run on autograd's thread, into ``side``
+        # thread-local mode: other threads may use the card meanwhile
+        # (``ProcessGroupNCCL``'s watchdog queries its events); a
+        # backward's kernels and collectives run on autograd's thread,
+        # into ``side``
         with flash_attention.capturing(side) as k1, \
                 flash_decode.capturing() as k2, torch.cuda.stream(side):
             side.wait_stream(current)  # the static outputs' allocation
@@ -239,17 +270,17 @@ class DecodeGraph(CapturedStep):
     positions, on the params' device, captured at its first call on the
     card (see the module docstring).  Its buffers are made in the caller's
     grad mode (inference tensors inside ``torch.inference_mode``), and it
-    is called in that mode; one thread calls it at a time.  ``prefills``
-    holds the prefill graphs that fill its cache (core/prefill_graph),
-    which go with it."""
+    is called in that mode and in the model group it was made under; one
+    thread calls it at a time.  ``prefills`` holds the prefill graphs that
+    fill its cache (core/prefill_graph), which go with it."""
 
+    in_scope = True
     captures = 0
     replays = 0
 
     def __init__(self, params, cfg: ModelConfig, batch: int, cache_len: int,
                  *, kv_quant: bool = False, routing_table=None,
                  attn_impl: str = "auto"):
-        refuse_model_group("DecodeGraph")
         super().__init__(params["embed_tokens"].device)
         self.params, self.cfg = params, cfg
         self.table, self.attn_impl = routing_table, attn_impl
@@ -307,9 +338,10 @@ def graph_key(params, cfg: ModelConfig, batch: int, cache_len: int,
               kv_quant: bool, routing_table, attn_impl: str):
     """What a graph reads: its params' leaves by identity (a graph keeps
     them referenced, so an id is never reused while it lives), the routing
-    table by value, the config, the cache's shape, and the grad mode its
+    table by value, the config, the cache's shape, the grad mode its
     buffers were made in (an inference tensor is written only in
-    inference mode)."""
+    inference mode), and the model group of the calling scope, whose
+    collectives it captures (``group_key``)."""
     table = None
     if routing_table is not None:
         t = routing_table.detach().cpu().numpy() \
@@ -318,7 +350,8 @@ def graph_key(params, cfg: ModelConfig, batch: int, cache_len: int,
         table = (t.shape, t.tobytes())
     leaves = tuple(id(leaf) for _, leaf in tree_leaves(params))
     return (leaves, table, id(cfg), batch, cache_len, bool(kv_quant),
-            attn_impl, torch.is_inference_mode_enabled())
+            attn_impl, torch.is_inference_mode_enabled(),
+            group_key(tp.model_group()))
 
 
 class GraphLRU:

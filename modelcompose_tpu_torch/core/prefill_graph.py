@@ -52,12 +52,15 @@ its decode graphs, the chunk steps) share one pool and one capture stream
 another, one caller at a time), so a model holds the transients of its
 largest prefill once, not once a bucket.
 
-Every graph refuses a tensor-parallel model group (collectives are not
-captured) and grad mode: ``prefill`` and ``core.generate.prefill_chunked``
-then run eagerly, as they do with ``graphs=None`` (the functions' own
-path, which the tests and the smoke's A/B use).  On a CPU tensor the
-graphs run the same step eagerly into the same buffers.  A capture that
-fails raises; nothing falls back to the eager path.
+Under a tensor-parallel model group (``--tp``) the graphs capture the
+step's collectives with it (core/decode_graph's rules): each graph and
+each shared cache belongs to the group it was made under, and is keyed
+by it.  Under grad a prefill runs eagerly: ``prefill`` and
+``core.generate.prefill_chunked`` then take the functions' own path, as
+they do with ``graphs=None`` (which the tests and the smoke's A/B use).
+On a CPU tensor the graphs run the same step eagerly into the same
+buffers, collectives included.  A capture that fails raises; nothing
+falls back to the eager path.
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ from ..config import ModelConfig
 from ..ops.routed_lora import as_table
 from ..parallel import tp
 from .decode_graph import (CapturedStep, GraphLRU, SharedPool, graph_key,
-                           refuse_model_group)
+                           group_key)
 from .llama import (KVCache, forward_hidden_routed, local_kv_heads,
                     logits_from_hidden)
 
@@ -124,9 +127,9 @@ def _prefill_chunk_step(params, cfg: ModelConfig, cache, embeds_chunk,
 
 
 def graphable() -> bool:
-    """Whether a prefill may run through a graph here: no model group (its
-    collectives are not captured) and no grad."""
-    return tp.model_group() is None and not torch.is_grad_enabled()
+    """Whether a prefill may run through a graph here: no grad (a graph
+    keeps no autograd record), under a model group or none."""
+    return not torch.is_grad_enabled()
 
 
 def _table(routing_table, device):
@@ -138,16 +141,17 @@ class PrefillGraph(CapturedStep):
     """``_prefill`` of a prompt batch of the shape of ``inputs_embeds`` (its
     rows, its bucket) into ``cache`` (see the module docstring); captured
     at its second call on the card.  Its buffers are made in the caller's grad
-    mode and it is called in that mode; one thread calls it at a time."""
+    mode and it is called in that mode and in the model group it was made
+    under; one thread calls it at a time."""
 
     capture_at = 2
+    in_scope = True
     captures = 0
     replays = 0
 
     def __init__(self, params, cfg: ModelConfig, cache: KVCache,
                  inputs_embeds, *, routed: bool, routing_table=None,
                  attn_impl: str = "auto", shared: SharedPool = None):
-        refuse_model_group("PrefillGraph")
         super().__init__(params["embed_tokens"].device, shared)
         self.params, self.cfg, self.cache = params, cfg, cache
         self.table = _table(routing_table, self.device)
@@ -193,6 +197,7 @@ class ChunkStepGraph(CapturedStep):
     the admission's shared pool."""
 
     capture_at = 2
+    in_scope = True
     captures = 0
     replays = 0
 
@@ -267,11 +272,13 @@ class PrefillGraphs:
 
     def cache(self, params, cfg: ModelConfig, batch: int, cache_len: int,
               kv_quant: bool) -> KVCache:
-        """The shared cache of this shape (made when there is none)."""
+        """The shared cache of this shape and model group (made when there
+        is none)."""
         heads = local_kv_heads(params, cfg)
         key = (id(cfg), batch, cache_len, bool(kv_quant), heads,
                params["embed_tokens"].device,
-               torch.is_inference_mode_enabled())
+               torch.is_inference_mode_enabled(),
+               group_key(tp.model_group()))
         if key not in self._caches:
             self._caches[key] = KVCache.zeros(
                 cfg, batch, cache_len, quantized=kv_quant,
@@ -313,9 +320,8 @@ class PrefillGraphs:
     def chunked(self, params, cfg: ModelConfig, inputs_embeds, route_ids,
                 routing_table, cache_len: int, *, kv_quant: bool = False,
                 attn_impl: str = "auto") -> ChunkedAdmission:
-        """The chunked admission of this cache shape, over the shared
-        batch-1 cache of ``cache_len``."""
-        refuse_model_group("ChunkStepGraph")
+        """The chunked admission of this cache shape and model group, over
+        the shared batch-1 cache of ``cache_len``."""
         key = graph_key(params, cfg, 1, cache_len, kv_quant, routing_table,
                         attn_impl) + (inputs_embeds.dtype,
                                       route_ids is not None)

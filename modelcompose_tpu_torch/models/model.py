@@ -226,9 +226,9 @@ class MultimodalLM:
         greedy and sampled decode (see core.generate.generate); beam
         search decodes over a bf16 cache, as the JAX package's does.
         ``device_loop`` (core.generate.generate's) decodes through the
-        model's ``decode_graphs``; a tensor-parallel model passes False.
-        The towers and the prefill run through ``tower_graphs`` and
-        ``prefill_graphs`` (the prefill eagerly under a model group).
+        model's ``decode_graphs``, under ``tp_group`` too (its collectives
+        captured in the graphs).  The towers and the prefill run through
+        ``tower_graphs`` and ``prefill_graphs``.
         ``timings`` receives the seconds of the towers, projectors and
         packing ('encode_s'), of the prefill and of the decode."""
         with torch.no_grad(), tp.scope(self.tp_group):

@@ -60,21 +60,45 @@ def initialize(coordinator_address: Optional[str] = None,
                timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> None:
     """Join the process group.  Each argument left None comes from the
     environment torchrun sets.  ``backend`` None follows the device: NCCL
-    where CUDA is available, gloo on the CPU.  Under NCCL the process
-    takes the card ``LOCAL_RANK`` (else its rank modulo the cards) as its
-    current device.  ``timeout`` bounds every collective, so a rank that
-    skips one fails instead of hanging the group."""
+    where CUDA is available, gloo on the CPU.
+
+    Under NCCL the process takes the card ``LOCAL_RANK`` (else its rank
+    modulo the cards) as its current device, and the group is bound to it
+    (``device_id``), so the world's communicator is made here, eagerly:
+    NCCL otherwise makes a group's communicator at its first collective,
+    which a CUDA graph capture refuses.  ``parallel.mesh.make_mesh`` makes
+    the communicators of the groups it creates the same way (``warm``).
+
+    ``timeout`` bounds every collective run eagerly, so a rank that skips
+    one fails instead of hanging the group.  A collective replayed from a
+    captured graph (a decode, prefill or train step under a group) is not
+    watched by ``ProcessGroupNCCL``'s watchdog: a rank that stops hangs
+    the others' replay.  Under ``--tp`` the leader's broadcast of each
+    call's header (``parallel/serving``) stays eager, before every replay,
+    so a lost follower still fails there, within ``timeout``."""
     init_method = _init_method(coordinator_address)
     world = _env_int("WORLD_SIZE", num_processes)
     rank = _env_int("RANK", process_id)
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    kw = {}
     if backend == "nccl":
         local = int(os.environ.get("LOCAL_RANK",
                                    rank % torch.cuda.device_count()))
         torch.cuda.set_device(local)
+        kw["device_id"] = torch.device("cuda", local)
     dist.init_process_group(backend, init_method=init_method,
-                            world_size=world, rank=rank, timeout=timeout)
+                            world_size=world, rank=rank, timeout=timeout,
+                            **kw)
+
+
+def warm(group) -> None:
+    """One collective over ``group`` (every rank of it calls this), on the
+    current card under NCCL: its communicator exists from here on, before
+    any capture runs a collective of the group."""
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    dist.all_reduce(torch.zeros(1, device=device), group=group)
 
 
 def is_initialized() -> bool:

@@ -63,8 +63,11 @@ def _group(ranks: Sequence[int]):
 def make_mesh(data: int = 1, model: int = 1) -> Mesh:
     """Every rank calls this with the same arguments (it creates the
     groups, a collective step).  Ranks [0, data * model) form the mesh,
-    row-major; the rest are idle.  Raises ValueError when the world has
-    fewer processes than the mesh needs."""
+    row-major; the rest are idle.  Each rank then runs one collective on
+    its data group and one on its model group (``distributed.warm``), so
+    their NCCL communicators exist before a captured step runs their
+    collectives.  Raises ValueError when the world has fewer processes
+    than the mesh needs."""
     need = data * model
     world = distributed.world_size()
     if world < need:
@@ -78,6 +81,10 @@ def make_mesh(data: int = 1, model: int = 1) -> Mesh:
     if rank >= need:
         return Mesh(data, model, None, None)
     i, j = divmod(rank, model)
+    # every rank warms its data group, then its model group: the members
+    # of each group reach its collective at the same point
+    distributed.warm(data_groups[j])
+    distributed.warm(model_groups[i])
     return Mesh(data, model, i, j, data_groups[j], model_groups[i])
 
 

@@ -17,11 +17,11 @@ through the same code.
 Caches are named by the caller (``"pool"``, ``"admit"``, ``"stream"``), so
 a follower holds the same caches as the leader.
 
-With no model group a decoded cache belongs to a captured decode graph
-(core/decode_graph), so a tick is one replay: a new cache (the slot pool)
-gets a graph of its own for its life, and a prefill asked for
-``decode_graph`` fills the cache of the model's graph of that shape
-(``MultimodalLM.decode_graphs``), reused by the next request of the shape.
+A decoded cache belongs to a captured decode graph (core/decode_graph),
+so a tick is one replay: a new cache (the slot pool) gets a graph of its
+own for its life, and a prefill asked for ``decode_graph`` fills the
+cache of the model's graph of that shape (``MultimodalLM.decode_graphs``),
+reused by the next request of the shape.
 A graph decodes with the params it was made with, and its logits are its
 static buffer: the caller reads them before the next decode of that
 cache.  Prefills go through the model's captured prefill graphs
@@ -29,8 +29,15 @@ cache.  Prefills go through the model's captured prefill graphs
 fills the decode graph's cache, or the admission cache the prefill graphs
 keep, and a chunked one replays one chunk-step graph a piece; the splice
 copies out of that admission cache, which stays for the next admission.
-Collectives are not captured, so under a model group every call runs
-eagerly.
+
+Under a model group every rank runs these graphs with the step's
+collectives captured inside (core/decode_graph): a follower runs the same
+``_`` methods as the leader on the same calls, so it makes, captures and
+replays the same graphs at the same calls, and its replays' collectives
+meet the leader's.  The header broadcast (``_send`` / ``_recv``) stays
+eager and outside every graph, before each call: it is the one
+collective the process group's timeout still watches, so a follower that
+is gone fails the leader there instead of hanging a replay.
 """
 
 from __future__ import annotations
@@ -44,7 +51,6 @@ import torch.distributed as dist
 
 from ..core.decode_graph import DecodeGraph
 from ..core.generate import _decode_step, prefill_chunked
-from ..core.llama import KVCache, local_kv_heads
 from ..core.packing import assemble_embeds
 from ..core.prefill_graph import prefill
 from ..ops.routed_lora import as_table
@@ -135,9 +141,8 @@ class ServingBackbone:
         between them): the last valid position's fp32 logits [B, V].  The
         cache is the model's prefill graphs' admission cache where they
         run (read it, by a splice, before the next prefill), else a fresh
-        one; ``decode_graph`` (one-shot, no model group) fills the cache of
-        the model's decode graph of this shape instead, which then decodes
-        it."""
+        one; ``decode_graph`` (one-shot) fills the cache of the model's
+        decode graph of this shape instead, which then decodes it."""
         if not self.is_leader:
             raise RuntimeError("prefill: a follower rank takes its calls "
                                "from the leader (follow())")
@@ -212,7 +217,7 @@ class ServingBackbone:
         self.tables[key] = decode_table
         self.graphs.pop(key, None)
         graph = None
-        if decode_graph and not chunk and self.group is None:
+        if decode_graph and not chunk:
             graph = self.graphs[key] = model.decode_graphs.get(
                 model.params, model.cfg, embeds.shape[0], cache_len,
                 kv_quant=kv_quant, routing_table=decode_table)
@@ -248,17 +253,10 @@ class ServingBackbone:
     def _new_cache(self, key, batch, cache_len, kv_quant):
         model = self.model
         self.tables[key] = self._tables()[1]
-        self.graphs.pop(key, None)
-        if self.group is None:
-            graph = self.graphs[key] = DecodeGraph(
-                model.params, model.cfg, batch, cache_len,
-                kv_quant=kv_quant, routing_table=self.tables[key])
-            self.caches[key] = graph.cache
-            return
-        self.caches[key] = KVCache.zeros(
-            model.cfg, batch, cache_len, quantized=kv_quant,
-            device=model.device,
-            kv_heads=local_kv_heads(model.params, model.cfg))
+        graph = self.graphs[key] = DecodeGraph(
+            model.params, model.cfg, batch, cache_len, kv_quant=kv_quant,
+            routing_table=self.tables[key])
+        self.caches[key] = graph.cache
 
     def _splice(self, dst, src, slot):
         self.caches[dst].splice(self.caches.pop(src), slot)

@@ -22,6 +22,14 @@ backward, which may run on another thread.  Outside every scope the group
 is None and each function is the single-process operation.  Inside one,
 every rank of the group must make the same calls in the same order: a rank
 that skips one hangs the group until the process group's timeout.
+
+Each function is safe inside a CUDA graph capture (core/decode_graph,
+train/step_graph), which holds its collective as GSPMD's are held in the
+JAX package's program: it reads nothing on the host but the group's size
+and this rank's place in it, and allocates only the capture's tensors (the
+all-reduce's clone, the all-gather's parts), in the capture's pool.  The
+rank and size come from the group the call runs over: the scope's, or the
+group an autograd function kept for its backward.
 """
 
 from __future__ import annotations

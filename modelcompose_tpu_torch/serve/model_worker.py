@@ -22,7 +22,9 @@ Tensor-parallel over N GPUs of one host (``--tp N``, one process a GPU):
 ``torchrun --nproc-per-node N -m modelcompose_tpu_torch.serve.model_worker
 --tp N ...``.  Rank 0 serves HTTP, runs the towers, the packing and the
 engines, and mirrors every backbone call to the other ranks
-(``parallel/serving.py``); they hold their shard and ``follow``.
+(``parallel/serving.py``); they hold their shard and ``follow``.  On the
+cards every rank's prefill, chunk step and decode tick is one replay of a
+captured CUDA graph with its NCCL collectives inside.
 """
 
 from __future__ import annotations

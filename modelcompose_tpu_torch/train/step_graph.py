@@ -26,7 +26,8 @@ What a graph reads and writes by address:
 A graph is keyed, as the JAX jit retraces, by the batch's shapes and
 dtypes (B, the ``TRAIN_BUCKETS`` bucket, each modality's feature shape),
 ``feat_layout``, the identity of every parameter and moment leaf (and of
-the gradient tensors it reads or adds into) and which leaves train.  A
+the gradient tensors it reads or adds into), which leaves train, and the
+optimizer's mesh: its data group and model group (``mesh_key``).  A
 key's first call runs eagerly, its second captures
 (``core/decode_graph.CapturedStep``: the step runs once on the capture
 stream as the warm-up, and that run is the call's; then the capture),
@@ -42,11 +43,19 @@ stream, for the capture stream and in the pool (the 7B stage-1 step at
 B=16 x 1,024 ran an 80 GB H100 out of memory so, with 32.9 GiB cached for
 the caller's stream).
 
-Collectives are not captured: a graph raises under a data group (the
-optimizer's mesh) or a tensor-parallel model group, and ``train()`` then
-builds eager steps (``graphs=False``).  On a CPU tensor a graph runs its
-step eagerly through the same static buffers.  A capture that fails
-raises; nothing falls back to the eager step.
+Under a mesh (``torchrun``: data parallelism with ZeRO-1, and tensor
+parallelism where the mesh has a model axis) a graph captures the step's
+collectives with it, as the JAX jit compiles GSPMD's: the valid-target
+count's sum, one all-reduce per trainable gradient over the data group
+(in the backward, the model group's all-reduces of ``parallel/tp``), the
+loss's sum, the clip's sum of squares over the model group and ZeRO-1's
+all-gather of each updated part, in the eager step's order.  Every rank
+makes the same calls, so every rank captures at the same call of a key.
+The batch a graph copies in is this rank's rows (``train()`` slices each
+global batch by ``local_batch_slice``).  On a CPU tensor a graph runs its
+step eagerly through the same static buffers, collectives included (the
+gloo tests).  A capture that fails raises; nothing falls back to the
+eager step.
 """
 
 from __future__ import annotations
@@ -55,8 +64,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ..core.decode_graph import CapturedStep, refuse_model_group
-from ..parallel import tp
+from ..core.decode_graph import CapturedStep, group_key
 from ..tree import tree_leaves
 
 TRAIN_GRAPHS = 8  # graphs a step function keeps (buckets x feature shapes)
@@ -65,27 +73,11 @@ BATCH_TENSORS = ("token_ids", "feat_idx", "is_feat", "route_ids", "labels",
                  "segment_ids")
 
 
-def refuse_groups(tx) -> None:
-    """Raise under a data group (``tx``'s mesh) or a model group: a graph
-    would capture their collectives, which it does not."""
-    refuse_model_group("a train graph")
-    if tx.mesh is not None:
-        raise RuntimeError(
-            "a train graph under a data-parallel group: its all-reduces are "
-            "not captured; build the steps with graphs=False")
-
-
 def use_graphs(graphs: Optional[bool], device, tx) -> bool:
-    """Whether a step runs through a graph: as ``graphs`` says (True raises
-    under a group), or by default on a CUDA device with no process
-    group."""
+    """Whether a step runs through a graph: as ``graphs`` says, or by
+    default on a CUDA device, under a process group or none."""
     if graphs is None:
-        return torch.device(device).type == "cuda" and tx.mesh is None \
-            and tp.model_group() is None \
-            and not (torch.distributed.is_available()
-                     and torch.distributed.is_initialized())
-    if graphs:
-        refuse_groups(tx)
+        return torch.device(device).type == "cuda"
     return bool(graphs)
 
 
@@ -119,18 +111,29 @@ def tensor_ids(*trees) -> tuple:
     return tuple(id(t) for t in held(*trees))
 
 
-def leaves_key(params) -> tuple:
-    """Every parameter leaf by identity, and whether it trains (a graph
-    keeps the leaves themselves, ``held``)."""
+def mesh_key(mesh) -> tuple:
+    """The groups whose collectives a step runs: the mesh's data group and
+    model group by identity (``core.decode_graph.group_key``; the step
+    holds the mesh through its optimizer), or Nones without a mesh."""
+    if mesh is None:
+        return (None, None)
+    return (group_key(mesh.data_group), group_key(mesh.model_group))
+
+
+def leaves_key(params, mesh=None) -> tuple:
+    """Every parameter leaf by identity, whether it trains (a graph keeps
+    the leaves themselves, ``held``), and the groups of ``mesh``
+    (``mesh_key``)."""
     leaves = list(tree_leaves(params))
     return (tuple(id(p) for _, p in leaves),
-            tuple(bool(p.requires_grad) for _, p in leaves))
+            tuple(bool(p.requires_grad) for _, p in leaves)) \
+        + mesh_key(mesh)
 
 
-def params_key(params, opt_state) -> tuple:
+def params_key(params, opt_state, mesh=None) -> tuple:
     """What a step reads of its state: ``leaves_key`` and every moment by
     identity."""
-    return leaves_key(params) + (
+    return leaves_key(params, mesh) + (
         tuple(id(t) for t in opt_state["mu"].values()),
         tuple(id(t) for t in opt_state["nu"].values()))
 

@@ -68,6 +68,7 @@ from .checkpoint import (latest_checkpoint, restore_step_checkpoint,
                          save_projector_checkpoint, save_step_checkpoint)
 from .sampler import (get_length_grouped_indices,
                       get_modality_length_grouped_indices)
+from . import trainer
 from .trainer import (TrainConfig, init_train_state, make_grad_and_apply,
                       make_optimizer, make_train_step)
 
@@ -319,9 +320,8 @@ def train(args, tokenizer=None, device=None,
     end, so the loop never waits for a step to finish.
 
     On the card each step replays a captured CUDA graph of its shapes
-    (``train/step_graph``).  Under a process group's data mesh the steps
-    are built with ``graphs=False`` and run op by op (their collectives
-    are not captured), which the run prints once.
+    (``train/step_graph``), under a process group's data mesh too, with
+    the mesh's collectives captured in it, which the run prints once.
 
     Returns the JAX entry's keys: ``losses`` (per micro-batch),
     ``final_loss``, ``steps`` (micro-batches), ``optimizer_steps`` and
@@ -412,12 +412,10 @@ def train(args, tokenizer=None, device=None,
     state = init_train_state(cfg, tc, model.params, model.projectors,
                              tower_params=tower_params, tx=tx)
     graphs = None  # the steps' default: graphs on the card
-    if mesh is not None:
-        graphs = False
-        if distributed.is_primary():
-            print("[train] a process group's data mesh: the steps run op by "
-                  "op (graphs=False), their collectives are not captured",
-                  flush=True)
+    if mesh is not None and distributed.is_primary() \
+            and trainer.use_graphs(graphs, device, tx):
+        print(f"[train] the steps are graphed under the {mesh.data}-rank "
+              "data mesh, its collectives captured in them", flush=True)
     if accum > 1:
         grad_fn, apply_fn, _, grad_accum_fn = make_grad_and_apply(
             cfg, tc, tx, vision_tower_cfg=vision_cfg, graphs=graphs)

@@ -20,8 +20,8 @@
   on the card (``train/step_graph``): the fused step, the accumulation
   micro-step and the update each replay one, reading the step's bias
   corrections and schedule multiplier from device scalars that
-  ``Optimizer.prepare`` writes before each call; ``graphs=False`` runs the
-  same step op by op.
+  ``Optimizer.prepare`` writes before each call, with a mesh's collectives
+  captured inside; ``graphs=False`` runs the same step op by op.
 - **Data parallelism with ZeRO-1** over a ``parallel.mesh.Mesh``: each data
   rank computes its micro-batch's loss sum over the global count of valid
   targets, so the group's summed gradients are those of the global token
@@ -652,12 +652,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, tx: Optimizer,
 
     Where the JAX step donates the old state, this one updates it in place
     under ``torch.no_grad()`` (parameters, moments, step) and returns the
-    same object.  With ``graphs`` (the default on a CUDA device with no
-    process group; see ``train/step_graph``) each step is one replay of a
-    ``TrainStepGraph`` of its key, kept in ``train_step.graphs``;
-    ``graphs=False`` runs it op by op (the eager A/B, and the path under a
-    data or model group, where True raises).  Either way the loss returned
-    is the step's own tensor."""
+    same object.  With ``graphs`` (the default on a CUDA device, with a
+    mesh or none; see ``train/step_graph``) each step is one replay of a
+    ``TrainStepGraph`` of its key, kept in ``train_step.graphs``, the
+    mesh's collectives inside; ``graphs=False`` runs it op by op (the
+    eager A/B).  Either way the loss returned is the step's own tensor."""
     table = _DeviceTable(cfg)
     lru = GraphLRU(TRAIN_GRAPHS)
 
@@ -676,7 +675,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, tx: Optimizer,
         if graphed:
             graph = lru.get_or_make(
                 ("step",) + batch_key(batch, feat_layout)
-                + params_key(params, opt_state),
+                + params_key(params, opt_state, tx.mesh),
                 lambda: TrainStepGraph(
                     device, tx.graph_pool,
                     lambda b, layout: loss_and_update(params, opt_state, b,
@@ -740,9 +739,11 @@ def make_grad_and_apply(cfg: ModelConfig, tc: TrainConfig, tx: Optimizer,
         device = _device_of(train_params)
         add = acc is not None
         if not add:
-            acc = totals.get_or_make(leaves_key(train_params), lambda: {
-                path: torch.empty_like(p)
-                for path, p in tree_leaves(train_params) if p.requires_grad})
+            acc = totals.get_or_make(
+                leaves_key(train_params, tx.mesh), lambda: {
+                    path: torch.empty_like(p)
+                    for path, p in tree_leaves(train_params)
+                    if p.requires_grad})
 
         def body(b, layout):
             loss, grads = loss_and_grads(train_params, b, layout)
@@ -755,7 +756,7 @@ def make_grad_and_apply(cfg: ModelConfig, tc: TrainConfig, tx: Optimizer,
             return loss
         graph = lru.get_or_make(
             ("grad", add) + batch_key(batch, feat_layout)
-            + leaves_key(train_params) + tensor_ids(acc),
+            + leaves_key(train_params, tx.mesh) + tensor_ids(acc),
             lambda: GradGraph(device, tx.graph_pool, body, batch,
                               feat_layout, keep=held(train_params, acc)))
         return graph(batch).clone(), acc
@@ -793,7 +794,7 @@ def make_grad_and_apply(cfg: ModelConfig, tc: TrainConfig, tx: Optimizer,
         tx.prepare(opt_state["count"])
         if graphed:
             graph = lru.get_or_make(
-                ("apply", scale) + params_key(params, opt_state)
+                ("apply", scale) + params_key(params, opt_state, tx.mesh)
                 + tensor_ids(grads),
                 lambda: ApplyGraph(
                     device, tx.graph_pool,

@@ -13,6 +13,7 @@ itself (capture, replay, K2 inside it) is held on the card by
 tests/test_torch_kernels_cuda.py.
 """
 
+import datetime
 import importlib
 
 import jax
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from modelcompose_tpu.core import beam as jbeam
 from modelcompose_tpu.core import generate as jgenerate
@@ -319,17 +321,63 @@ def test_generate_stream_reuses_the_stream_cache(vision):
     assert runs[0] == runs[1] == want
 
 
-def test_decode_graph_raises_under_a_model_group(vision):
-    """Collectives are not captured: under a tensor-parallel model group
-    a graph refuses to exist, and generate(device_loop=True) with it."""
+@pytest.fixture
+def gloo_group(tmp_path):
+    """A gloo model group of this one process."""
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{tmp_path}/rendezvous",
+            world_size=1, rank=0, timeout=datetime.timedelta(seconds=60))
+    yield dist.new_group([0])
+    if made:
+        dist.destroy_process_group()
+
+
+def test_decode_graph_raises_under_a_model_group(vision, gloo_group):
+    """A decode graph belongs to the model group it was made under: one
+    made with no group raises when called under a group, one made under a
+    group raises when called under none, and ``DecodeGraphs`` keys them
+    apart, and apart from another group of the same ranks (a key without
+    the group would replay a graph without its collectives, or with
+    another group's).  Under a gloo group of one the model's
+    ``generate(device_loop=True)`` decodes through a graph of that group,
+    with the same ids as the eager decode under it and the no-group run."""
     _, tm = vision
     ids, inputs = _batch()
-    group = object()  # never reached: the constructor refuses first
-    with tp.scope(group):
+    graphs = DecodeGraphs(4)
+    table = tm.decode_routing_table()
+
+    def get():
+        return graphs.get(tm.params, tm.cfg, 2, 40, routing_table=table)
+    plain = get()
+    with torch.no_grad():
+        with tp.scope(gloo_group):
+            grouped = get()
+            assert grouped is not plain and get() is grouped
+            assert (grouped.group, plain.group) == (gloo_group, None)
+            with pytest.raises(RuntimeError, match="model group"):
+                plain([3, 5], [4, 6])
+            logits = grouped([3, 5], [4, 6]).clone()
         with pytest.raises(RuntimeError, match="model group"):
-            DecodeGraph(tm.params, tm.cfg, 2, 40)
-        with pytest.raises(RuntimeError, match="model group"):
-            DecodeGraphs(1).get(tm.params, tm.cfg, 2, 40)
+            grouped([3, 5], [4, 6])
+        with tp.scope(dist.new_group([0])):
+            assert get() not in (plain, grouped)
+        assert get() is plain and len(graphs) == 3
+        assert torch.equal(plain([3, 5], [4, 6]), logits)
+    want = tm.generate(ids, inputs, max_new_tokens=STEPS, bucket_len=32)
+    tm.tp_group, tm._serving = gloo_group, None
+    tm.decode_graphs.clear()
+    try:
+        got = tm.generate(ids, inputs, max_new_tokens=STEPS, bucket_len=32)
+        made = tm.decode_graphs.values()
+        eager = tm.generate(ids, inputs, max_new_tokens=STEPS, bucket_len=32,
+                            device_loop=False)
+    finally:
+        tm.tp_group, tm._serving = None, None
+        tm.decode_graphs.clear()
+    assert got == eager == want
+    assert [g.group for g in made] == [gloo_group] and made[0].calls > 1
 
 
 @pytest.mark.parametrize("B,N,npoint", [(1, 256, 32), (2, 300, 64)])

@@ -1167,3 +1167,223 @@ def test_k3_k4_captured_outside_a_record_raises():
         finally:
             graph.capture_end()
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# Graphs under an NCCL process group of one
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_world():
+    """An NCCL process group of this one process on a free local port
+    (``parallel.distributed.initialize``: the card bound, the world's
+    communicator made at once), left after the test."""
+    import socket
+    from modelcompose_tpu_torch.parallel import distributed
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize(f"localhost:{port}", 1, 0, backend="nccl")
+    import torch.distributed as dist
+    yield dist.group.WORLD
+    distributed.shutdown()
+
+
+def test_decode_graph_under_an_nccl_group_replays_the_eager_step(
+        nccl_world):
+    """Under a model group of one (NCCL), 12 greedy steps eagerly and 12
+    through a DecodeGraph made under the group (the vocab lookup's and the
+    layers' all-reduces, the logits' all-gather captured): logits
+    bit-equal at every step; the graph is keyed by the group and refuses
+    a call outside it."""
+    from modelcompose_tpu_torch.core import generate as tgen
+    from modelcompose_tpu_torch.core.decode_graph import DecodeGraphs
+    from modelcompose_tpu_torch.ops.routed_lora import as_table
+    from modelcompose_tpu_torch.parallel import tp
+    cfg, params, gen = _tiny_card_backbone(True)
+    B, L, S = 2, 40, 60
+    embeds = _rnd(gen, B, L, cfg.hidden_size)
+    lengths = torch.tensor([40, 23], dtype=torch.int32, device="cuda")
+    seg = (torch.arange(L, device="cuda")[None] < lengths[:, None]).int()
+    table = as_table(cfg.routing_table(), "cuda")
+    graphs = DecodeGraphs(2)
+    runs = []
+    with tp.scope(nccl_world):
+        graph = graphs.get(params, cfg, B, S, kv_quant=True,
+                           routing_table=table)
+        for cache in (None, graph.cache):
+            with torch.no_grad():
+                logits, cache = tgen._prefill(params, cfg, embeds, None,
+                                              table, seg, lengths, S,
+                                              kv_quant=True, cache=cache)
+            kv, steps = lengths, []
+            for _ in range(12):
+                tokens = logits.argmax(-1)
+                if cache is graph.cache:
+                    logits = graph(tokens, kv).clone()
+                else:
+                    with torch.no_grad():
+                        logits, cache, _ = tgen._decode_step(
+                            params, cfg, cache, tokens, kv, table)
+                kv = kv + 1
+                steps.append((tokens, logits))
+            runs.append(steps)
+    assert graph.graph is not None and graph.group is nccl_world
+    for (t_e, l_e), (t_g, l_g) in zip(*runs):
+        assert torch.equal(t_e, t_g)
+        assert torch.equal(l_e, l_g), (l_e - l_g).abs().max().item()
+    assert graphs.get(params, cfg, B, S, kv_quant=True,
+                      routing_table=table) is not graph
+    with pytest.raises(RuntimeError, match="model group"):
+        graph(tokens, kv)
+
+
+def test_prefill_graph_under_an_nccl_group_replays_the_eager_prefill(
+        nccl_world):
+    """Under a model group of one (NCCL), three prompt batches through the
+    prefill graphs (eager, capture, replay) against ``_prefill`` eagerly
+    under the group: logits and cache bit-equal."""
+    from modelcompose_tpu_torch.core.prefill_graph import (
+        PrefillGraph, PrefillGraphs, _prefill, prefill)
+    from modelcompose_tpu_torch.ops.routed_lora import as_table
+    from modelcompose_tpu_torch.parallel import tp
+    cfg, params, gen = _tiny_card_backbone(True)
+    B, L, S = 2, 40, 60
+    table = as_table(cfg.routing_table(), "cuda")
+    route = torch.zeros((B, L), dtype=torch.int32, device="cuda")
+    graphs = PrefillGraphs()
+    captures = PrefillGraph.captures
+    with tp.scope(nccl_world), torch.no_grad():
+        for lengths in ([40, 23], [31, 40], [12, 7]):
+            embeds, seg, lens = _prompts(gen, cfg, B, L, lengths)
+            want, fresh = _prefill(params, cfg, embeds, route, table, seg,
+                                   lens, S, kv_quant=True)
+            got, cache = prefill(params, cfg, embeds, route, table, seg,
+                                 lens, S, kv_quant=True, graphs=graphs)
+            assert torch.equal(got, want), (got - want).abs().max().item()
+            for a, b in zip(cache.tensors(), fresh.tensors()):
+                assert torch.equal(a, b)
+    (graph,) = graphs.one_shot.values()
+    assert PrefillGraph.captures == captures + 1 and graph.calls == 3
+    assert graph.group is nccl_world
+
+
+def test_train_step_graph_under_an_nccl_mesh_replays_the_eager_step(
+        nccl_world):
+    """In a data mesh of one (NCCL; ``make_mesh`` warms its groups), four
+    steps eagerly and four through a TrainStepGraph (the valid-target
+    count's, every gradient's and the loss's all-reduces captured):
+    losses, leaves and moments bit-equal."""
+    from modelcompose_tpu_torch.parallel.mesh import make_mesh
+    from modelcompose_tpu_torch.train import trainer
+    from modelcompose_tpu_torch.tree import tree_leaves
+    cfg, tc, model, _, make = _tiny_card_trainer(17)
+    batch, layout = make((0, 1))
+    tree = {"backbone": model.params, "projectors": model.projectors}
+    mesh = make_mesh(1, 1)
+    tx, _ = trainer.make_optimizer(cfg, tc, tree, mesh)
+    start = {p: t.detach().clone() for p, t in tree_leaves(tree)}
+    runs = []
+    for graphs in (False, None):  # None: the default, graphs on the card
+        with torch.no_grad():
+            for p, t in tree_leaves(tree):
+                t.copy_(start[p])
+        state = trainer.init_train_state(cfg, tc, model.params,
+                                         model.projectors, tx=tx)
+        step = trainer.make_train_step(cfg, tc, tx, graphs=graphs)
+        losses = []
+        for _ in range(4):
+            state, loss = step(state, batch, layout)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        runs.append((losses, {p: t.detach().clone()
+                              for p, t in tree_leaves(tree)},
+                     [t.clone() for m in ("mu", "nu")
+                      for t in state.opt_state[m].values()], step))
+    (l_e, p_e, m_e, estep), (l_g, p_g, m_g, gstep) = runs
+    assert len(estep.graphs) == 0
+    (graph,) = gstep.graphs.values()
+    assert graph.graph is not None and graph.calls == 4
+    assert all(torch.equal(a, b) for a, b in zip(l_e, l_g)), (l_e, l_g)
+    for p in p_e:
+        assert torch.equal(p_e[p], p_g[p]), p
+    assert all(torch.equal(a, b) for a, b in zip(m_e, m_g))
+
+
+def test_tp_backward_collectives_on_autograd_thread_are_captured(
+        nccl_world):
+    """Flash attention between ``copy_to_model`` and ``reduce_from_model``
+    under a model group of one, forward and backward captured: the
+    backward's all-reduce and K3/K4 run on autograd's thread into the
+    capture, each replay counts K1, K3 and K4 once, and the gradients
+    equal the eager ones."""
+    from modelcompose_tpu_torch.parallel import tp
+    from modelcompose_tpu_torch.train.step_graph import TrainStepGraph
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v = (_rnd(gen, 2, 96, 4, 64).requires_grad_() for _ in range(3))
+
+    def body():
+        with tp.scope(nccl_world):
+            out = flash_attention(tp.copy_to_model(q), k, v)
+            out = tp.reduce_from_model(out)
+        return torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    want = body()
+    graph = TrainStepGraph("cuda", None, body)
+    for i in range(4):
+        counts = (flash_attention_forward.launches,
+                  flash_attention_bwd_dq.launches,
+                  flash_attention_bwd_dkv.launches)
+        got = graph()
+        now = (flash_attention_forward.launches,
+               flash_attention_bwd_dq.launches,
+               flash_attention_bwd_dkv.launches)
+        assert [b - a for a, b in zip(counts, now)] == [1, 1, 1], i
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), i
+    assert graph.graph is not None
+
+
+def test_a_capture_under_a_group_without_its_communicator_raises():
+    """A group whose NCCL communicator was never made (a process group not
+    bound to the card, a ``new_group`` no collective has run on) and a
+    step that reaches the group's first collective only inside the
+    capture: the capture raises, no graph is kept and nothing falls back
+    to the eager step.  The same step on a group ``make_mesh`` made (its
+    communicator warmed there) captures and replays."""
+    import socket
+    import torch.distributed as dist
+    from modelcompose_tpu_torch.core.decode_graph import CapturedStep
+    from modelcompose_tpu_torch.parallel.mesh import make_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+
+        class Step(CapturedStep):
+            def __init__(self, comm):
+                super().__init__("cuda")
+                self.comm = comm
+
+            def _step(self):
+                y = x * 2
+                if torch.cuda.is_current_stream_capturing():
+                    parts = [torch.empty_like(y)]
+                    dist.all_gather(parts, y, group=self.comm)
+                    y = parts[0] + 1
+                return y
+        cold = Step(dist.new_group([0]))
+        with pytest.raises(Exception):
+            cold.run()
+        assert cold.graph is None
+        torch.cuda.synchronize()
+        warmed = Step(make_mesh(1, 1).data_group)
+        warmed.run()  # the warm-up's result: the eager branch
+        x.add_(1)
+        assert torch.equal(warmed.run(), x * 2 + 1)  # the replay
+        assert warmed.graph is not None
+    finally:
+        dist.destroy_process_group()

@@ -10,7 +10,12 @@ Tolerances: losses and exported tensors within 1e-5 relative (fp32, Adam
 eps 1e-2 as in ``tests/test_torch_train_entry.py``: the gradient sums of
 the ranks reorder the one process's sum); each rank's moments 1/N of the
 one process's bytes; only rank 0 writes; a checkpoint of one world size
-resumes at another to the one-process run.
+resumes at another to the one-process run.  Each world also trains
+through the train graph objects (``train()``'s default on the card, forced
+here: on the CPU a graph runs its step eagerly through its own buffers,
+collectives included): losses and exports bit-equal to the eager run of
+the same world.  The script's ``capture`` case (on the cards, NCCL
+collectives inside captured graphs) runs here at world 2 over gloo.
 """
 
 import importlib.util
@@ -98,11 +103,14 @@ def _argv(files, out, per_device):
         "--random_init_backbone"]
 
 
-def _spec(files, name, runs):
+def _spec(files, name, runs, graphs=()):
+    """A ``case_train`` spec of ``runs`` (argvs); the runs whose index is
+    in ``graphs`` go through the train graphs."""
     path = files / f"spec-{name}.json"
     with open(path, "w") as f:
-        json.dump({"adam_eps": 1e-2, "runs": [{"argv": argv}
-                                             for argv in runs]}, f)
+        json.dump({"adam_eps": 1e-2, "runs": [
+            {"argv": argv, "graphs": i in graphs}
+            for i, argv in enumerate(runs)]}, f)
     return str(path)
 
 
@@ -115,20 +123,24 @@ def one(files):
 
 @pytest.fixture(scope="module")
 def world2(files, one):
-    """World 2: a run from scratch, then the one-process run's checkpoint-2
-    resumed to step 3."""
+    """World 2: a run from scratch, the one-process run's checkpoint-2
+    resumed to step 3, then the first run again through the graphs."""
     shutil.copytree(files / "one" / "checkpoint-2",
                     files / "resume2" / "checkpoint-2")
     spec = _spec(files, "w2", [_argv(files, files / "dp2", GLOBAL_B // 2),
                                _argv(files, files / "resume2",
-                                     GLOBAL_B // 2)])
+                                     GLOBAL_B // 2),
+                               _argv(files, files / "dp2g", GLOBAL_B // 2)],
+                 graphs=(2,))
     return dryrun.launch("train", 2, str(files / "out-w2"), spec,
                          timeout=LAUNCH_TIMEOUT, cwd=str(files))
 
 
 @pytest.fixture(scope="module")
 def world4(files):
-    spec = _spec(files, "w4", [_argv(files, files / "dp4", GLOBAL_B // 4)])
+    spec = _spec(files, "w4", [_argv(files, files / "dp4", GLOBAL_B // 4),
+                               _argv(files, files / "dp4g", GLOBAL_B // 4)],
+                 graphs=(1,))
     return dryrun.launch("train", 4, str(files / "out-w4"), spec,
                          timeout=LAUNCH_TIMEOUT, cwd=str(files))
 
@@ -155,6 +167,29 @@ def test_dp_losses_and_trained_leaves_match_one_process(files, one, world2,
         for g, w in zip(got, one["losses"]):
             assert abs(g - w) <= TOL * abs(w), (got, one["losses"])
     _assert_exports_close(files / f"dp{world}", files / "one")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_dp_steps_through_graphs_equal_the_eager_group_path(
+        files, one, world2, world4, world):
+    """``train()`` at world 2 and 4 through the train graphs: on every rank
+    the losses equal the eager run's under the same group bit for bit, and
+    the one process's within 1e-5; the export equals the eager run's; each
+    rank keeps 1/N of the moments."""
+    ranks = {2: world2, 4: world4}[world]
+    graph_run = 2 if world == 2 else 1
+    for rank in ranks:
+        eager, graph = rank[0], rank[graph_run]
+        assert graph["graphed"] > 0 and eager["graphed"] == 0
+        assert graph["losses"] == eager["losses"]
+        assert graph["positions"] == eager["positions"]
+        for g, w in zip(graph["losses"], one["losses"]):
+            assert abs(g - w) <= TOL * abs(w)
+        assert graph["moment_bytes"] * world == one["moment_bytes"]
+    got, want = _export(files / f"dp{world}g"), _export(files / f"dp{world}")
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], k)
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -264,3 +299,18 @@ def test_collectives_are_bounded_by_activations_and_gradients(dpxtp):
             kinds = {name for name, _ in log}
             assert {"all_reduce", "all_gather"} <= kinds, kinds
             assert max(b for _, b in log) <= bound, log
+
+
+def test_capture_case_over_gloo_equals_the_eager_path(tmp_path):
+    """The dryrun's ``capture`` case (on the cards it runs the graphs
+    captured under NCCL) at world 2 over gloo, where a graph runs its
+    step eagerly: the tp 2 greedy ids through the graph objects equal the
+    eager path's, one decode step and four DP x TP train steps through
+    them equal the eager ones bit for bit, with the same collectives."""
+    results = dryrun.launch("capture", 2, str(tmp_path / "capture"),
+                            timeout=LAUNCH_TIMEOUT)
+    assert dryrun.capture_checks(results) == []
+    for r in results:
+        assert r["mesh"] == [1, 2] and r["train_audit_calls"] > 0
+        assert r["graph_ids"][0] == r["eager_ids"]
+        assert all(len(row) == 8 for row in r["eager_ids"])

@@ -10,7 +10,11 @@ part), 4 heads, so it splits 2 and 4 ways, the CLIP tower from a file of
 the working directory.  Greedy ids bit-exact, fp32 logits within 1e-5;
 with and without int8 + the dense fold; at tp 2 also the chunked prefill,
 the slot decoder's schedule (rank 0 leads, rank 1 follows its calls) and
-the model worker's wire chunks with both engines.
+the model worker's wire chunks with both engines.  The ids and the slot
+schedule go through the decode and prefill graphs (``device_loop=True``,
+the chunk-step graphs, the slot pool's decode graph; on the CPU a graph
+runs its step eagerly through its own buffers, collectives included), and
+equal the eager path's under the same group.
 """
 
 import importlib.util
@@ -142,6 +146,26 @@ def test_tp_greedy_ids_equal_jax_tp_load(tp1, tp2, tp4, jax_ids, world,
     assert jax_ids[world, variant] == jax_ids[1, variant]
     assert ranks[0][variant] == jax_ids[world, variant]
     assert tp1[variant] == jax_ids[1, variant]
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("world", [2, 4])
+def test_tp_greedy_ids_through_graphs_equal_the_eager_path(tp1, tp2, tp4,
+                                                          world, variant):
+    """On every rank the greedy ids through the decode and prefill graphs
+    equal the eager decode's under the same group, as at tp 1."""
+    ranks = {2: tp2, 4: tp4}[world]
+    assert tp1[variant] == tp1[variant + "_eager"]
+    for rank in ranks:
+        assert rank[variant] == rank[variant + "_eager"] == tp1[variant]
+
+
+def test_tp2_chunked_prefill_graphs_equal_the_eager_chunks(tp1, tp2):
+    """The chunked prefill through the chunk-step graphs under the group:
+    its last-position logits equal the eager chunks' bit for bit on both
+    ranks, and tp 1's."""
+    for run in (tp1, *tp2):
+        assert run["chunked_logits_graph"] == run["chunked_logits"]
 
 
 def test_tp2_chunked_prefill_and_slot_schedule_equal_tp1(tp1, tp2):

@@ -343,32 +343,49 @@ def gloo_group(tmp_path):
 
 def test_graphs_refuse_a_model_group_and_the_prefill_runs_eagerly(
         gloo_group):
-    """Collectives are not captured: under a model group (gloo, one rank)
-    a prefill graph and a chunked admission refuse to exist, and
-    ``prefill`` / ``prefill_chunked`` given graphs run eagerly, equal to
-    the eager path, keeping none; with grad on they run eagerly too."""
+    """Prefill graphs belong to the model group they were made under:
+    under a gloo group of one, ``prefill`` and ``prefill_chunked`` given
+    graphs run through graphs of that group (a one-shot graph on a shared
+    cache of the group, a chunked admission with its own persistent cache)
+    equal to the eager path; the same calls with no group make graphs and
+    caches of their own, as another group of the same ranks does; a graph
+    made under no group refuses a call under the group.  With grad on the
+    prefill runs eagerly and keeps no graph."""
     _, _, tcfg, tparams, embeds, route, seg = _backbone("float32")
     args = _port_args(tcfg, embeds, route, seg)
-    graphs = pg.PrefillGraphs()
+    graphs = pg.PrefillGraphs(admissions=3)
+
+    def both():
+        logits, cache = pg.prefill(tparams, tcfg, *args, S, graphs=graphs)
+        chunked, admitted = tgen.prefill_chunked(
+            tparams, tcfg, args[0][:1], route[:1], args[2], LENGTHS[:1], S,
+            chunk=5, graphs=graphs)
+        return logits.clone(), chunked.clone(), cache, admitted
     with torch.no_grad():
         want, _ = tgen._prefill(tparams, tcfg, *args, S)
         want_chunk, _ = tgen.prefill_chunked(
             tparams, tcfg, args[0][:1], route[:1], args[2], LENGTHS[:1], S,
             chunk=5)
+        plain = pg.PrefillGraph(tparams, tcfg, graphs.cache(
+            tparams, tcfg, 2, S, False), args[0], routed=True)
         with tp.scope(gloo_group):
+            for _ in range(2):  # eager, then the capture's call
+                logits, chunked, cache, admitted = both()
+                assert torch.equal(logits, want)
+                assert torch.equal(chunked, want_chunk)
+            assert len(graphs) == 2
+            one_shot = graphs.one_shot.values()[0]
+            assert one_shot.group is gloo_group and one_shot.calls == 2
             with pytest.raises(RuntimeError, match="model group"):
-                pg.PrefillGraph(tparams, tcfg, None, args[0], routed=True)
-            with pytest.raises(RuntimeError, match="model group"):
-                graphs.chunked(tparams, tcfg, args[0][:1], args[1][:1],
-                               args[2], S)
-            logits, _ = pg.prefill(tparams, tcfg, *args, S, graphs=graphs)
-            chunked, _ = tgen.prefill_chunked(
-                tparams, tcfg, args[0][:1], route[:1], args[2], LENGTHS[:1],
-                S, chunk=5, graphs=graphs)
-    assert torch.equal(logits, want) and torch.equal(chunked, want_chunk)
+                plain(*args[:1], args[1], args[3], args[4])
+        no_group = both()
+        assert len(graphs) == 4
+        assert no_group[2] is not cache and no_group[3] is not admitted
+        with tp.scope(dist.new_group([0])):
+            assert torch.equal(both()[0], want) and len(graphs) == 6
     with torch.enable_grad():
         logits, _ = pg.prefill(tparams, tcfg, *args, S, graphs=graphs)
-    assert torch.equal(logits.detach(), want) and len(graphs) == 0
+    assert torch.equal(logits.detach(), want) and len(graphs) == 6
 
 
 # ------------------------------------------------------- towers

@@ -15,14 +15,22 @@ decode and prefill graphs' CPU tests run theirs (tiny configs, fp32).
   run; a graph is reused for the same shapes and made anew for another
   bucket, feature count or ``feat_layout``, under the LRU bound; the step
   copies no host data after its first call;
-- groups: the graphs raise under a data or model group, and ``train()``
-  under a mesh builds eager steps; ``train()``'s losses through the graphs
-  are each step's own and equal to its eager run's.
+- groups: under a gloo mesh of one process the graphs run the group's
+  collectives and equal the eager steps under it bit for bit; a graph is
+  keyed by the mesh's groups, so one made under no mesh is never replayed
+  under a mesh, nor the reverse; ``train()`` under a mesh takes the
+  steps' default (graphs on the card, eager on the CPU) and its losses
+  through the graphs (forced on the CPU) equal its eager run's;
+  ``train()``'s losses through the graphs are each step's own and equal
+  to its eager run's.
 """
+
+import datetime
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax
 
@@ -32,6 +40,7 @@ from modelcompose_tpu.train import trainer as jtrainer
 from modelcompose_tpu_torch.compose.state_io import load_state
 from modelcompose_tpu_torch.convert import model_from_jax, params_to_numpy
 from modelcompose_tpu_torch.parallel import distributed, tp
+from modelcompose_tpu_torch.parallel.mesh import make_mesh
 from modelcompose_tpu_torch.train import checkpoint as tckpt
 from modelcompose_tpu_torch.train import step_graph
 from modelcompose_tpu_torch.train import train_multimodal as entry
@@ -385,32 +394,61 @@ def test_train_step_copies_no_host_data_after_its_first_call(monkeypatch,
     assert made == []
 
 
-def test_train_graphs_refuse_a_data_or_model_group():
+@pytest.fixture
+def gloo_mesh(tmp_path):
+    """A (1, 1) mesh over a gloo process group of this one process."""
+    made = not dist.is_initialized()
+    if made:
+        distributed.initialize(f"file://{tmp_path}/rendezvous", 1, 0,
+                               backend="gloo",
+                               timeout=datetime.timedelta(seconds=60))
+    yield make_mesh(1, 1)
+    if made:
+        distributed.shutdown()
+
+
+def test_train_graphs_refuse_a_data_or_model_group(gloo_mesh):
+    """A train graph belongs to the mesh it was made under: under a gloo
+    mesh of one process the fused step and the accumulation window run
+    through graphs of their own (not the no-mesh run's, whose key names no
+    group), with the mesh's collectives, bit-equal to the eager steps
+    under it and to the no-mesh graphs; the graphs are the default on a
+    CUDA device under a mesh or a model group, and never on the CPU."""
     cfg = _cfg()
     nm = _jax_model(cfg, seed=12)
-    tm, state, tx, _, _ = _setup(cfg, nm, {}, False)
-    batch, layout = entry.make_batch(tm, _collated(), buckets=(16,))
-    step = trainer.make_train_step(_port(cfg), tx.tc, tx, graphs=True)
-    grad_fn, apply_fn, _, _ = trainer.make_grad_and_apply(
-        _port(cfg), tx.tc, tx, graphs=True)
-    with tp.scope(object()):  # a model group (--tp)
-        with pytest.raises(RuntimeError, match="model group"):
-            step(state, batch, layout)
-        with pytest.raises(RuntimeError, match="model group"):
-            grad_fn(state.params, batch, layout)
-        assert not step_graph.use_graphs(None, "cuda", tx)
-    tx.mesh = object()  # a data group's mesh (torchrun)
-    try:
-        with pytest.raises(RuntimeError, match="data-parallel"):
-            step(state, batch, layout)
-        with pytest.raises(RuntimeError, match="data-parallel"):
-            apply_fn(state, {})
-        assert not step_graph.use_graphs(None, "cuda", tx)
-    finally:
-        tx.mesh = None
-    assert step_graph.use_graphs(None, "cuda", tx)
+    runs = {}
+    for graphs in (False, True):
+        tm, state, tx, step, (grad_fn, apply_fn, _, grad_accum_fn) = \
+            _setup(cfg, nm, dict(max_grad_norm=0.05), graphs)
+        batch, layout = entry.make_batch(tm, _collated(), buckets=(16,))
+        losses = []
+        for mesh in (None, gloo_mesh, gloo_mesh):
+            tx.mesh = mesh
+            state, loss = step(state, batch, layout)
+            losses.append(loss)
+        loss, acc = grad_fn(state.params, batch, layout)
+        losses.append(loss)
+        loss, acc = grad_accum_fn(state.params, acc, batch, layout)
+        losses.append(loss)
+        state = apply_fn(state, acc, scale=0.5)
+        runs[graphs] = (losses, state, step.graphs, grad_fn.graphs, tx)
+    (eager, e_state, *_), (graph, g_state, steps, accum, tx) = \
+        runs[False], runs[True]
+    assert [float(x) for x in graph] == [float(x) for x in eager]
+    _assert_states_equal(g_state, e_state)
+    # the no-mesh step's graph and the mesh's: two keys, two graphs
+    assert len(steps) == 2 and len(accum) == 3
+    assert [g.calls for g in steps.values()] == [1, 2]
+    params, opt = g_state.params, g_state.opt_state
+    assert step_graph.params_key(params, opt) \
+        != step_graph.params_key(params, opt, gloo_mesh)
+    assert step_graph.leaves_key(params, gloo_mesh)[-2:] == 2 * (
+        (id(gloo_mesh.data_group), (0,)),)
+    assert step_graph.use_graphs(None, "cuda", tx)  # tx.mesh: the mesh
+    with tp.scope(gloo_mesh.model_group):
+        assert step_graph.use_graphs(None, "cuda", tx)
     assert not step_graph.use_graphs(None, "cpu", tx)
-    assert state.step == 0  # nothing ran
+    assert not step_graph.use_graphs(False, "cuda", tx)
 
 
 def _train(files, out, **over):
@@ -451,21 +489,36 @@ def test_train_losses_through_graphs_are_each_steps_own(files, tmp_path,
 def test_train_under_a_mesh_builds_eager_steps(files, tmp_path, monkeypatch,
                                                capsys):
     """In a process group (gloo, one rank) ``train()`` takes the data mesh
-    and builds its steps with ``graphs=False``, saying so once, where the
-    steps' default would take the graphs (forced on the CPU)."""
+    and builds its steps with the steps' default (``graphs=None``): on the
+    CPU they run eagerly, and nothing is printed; where the default takes
+    the graphs (forced on the CPU, as on the card) the steps run through
+    them under the mesh, ``train()`` says so once, and the losses equal the
+    eager run's bit for bit."""
     made = []
     real = entry.make_train_step
 
     def spy(*a, **kw):
         made.append(kw.get("graphs"))
-        return real(*a, **kw)
+        step = real(*a, **kw)
+        steps.append(step)
+        return step
     monkeypatch.setattr(entry, "make_train_step", spy)
-    _force_graphs(monkeypatch)
     distributed.initialize(f"file://{tmp_path}/rendezvous", 1, 0,
                            backend="gloo")
+    res = {}
     try:
-        res = _train(files, tmp_path / "mesh", max_steps=2, **STAGE2)
-        assert made == [False] and len(res["losses"]) == 2
-        assert capsys.readouterr().out.count("graphs=False") == 1
+        for forced in (False, True):
+            steps = []
+            if forced:
+                _force_graphs(monkeypatch)
+            res[forced] = _train(files, tmp_path / f"mesh{forced}",
+                                 max_steps=2, **STAGE2)
+            assert len(res[forced]["losses"]) == 2
+            assert bool(len(steps[0].graphs)) == forced
+            out = capsys.readouterr().out
+            assert out.count("graphed under the 1-rank data mesh") \
+                == int(forced)
+        assert made == [None, None]
+        assert res[True]["losses"] == res[False]["losses"]
     finally:
         distributed.shutdown()
