@@ -18,6 +18,17 @@ nonzero:
    3,360, and at beam search's shape (a bf16 cache of 3 rows of 3,360),
    timed cycling over the 32 layers of the stacked cache so that each
    launch finds its layer cold in L2, as decode does;
+4b. K5 (the W8A16 product of the int8 weights) against its plain version
+   (the convert and the fp32-output GEMM), with a bf16 and an fp32
+   result, at every int8 product of the main paths: Vicuna-7B's q/k/v/o,
+   gate/up, down and lm_head and their tp 2 and 4 shards, at 1, 2, 3, 4 and
+   8 rows; timed by CUDA-graph replay cycling over 32 weight copies (each
+   launch cold in L2, as in a decode step) at the Vicuna-7B shapes for
+   every row count and at the shards for 1 and 8 rows, beside the plain
+   version, ``torch._weight_int8pack_mm`` on an [N, K] copy (the
+   yardstick, never called by the port; its error text where the card's
+   torch has no CUDA version) and the bound; the sum over one decode
+   step's 225 products at each row count;
 5. the serving path at Vicuna-7B width: a vision DAMC composition (CLIP
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
@@ -27,7 +38,9 @@ nonzero:
    (``core/decode_graph``), the second captures the tower's and the
    prefill's graphs (``models/towers``, ``core/prefill_graph``), the
    third, timed, replays every graph and captures nothing (counts per
-   kind checked, K1 exactly once a layer in the replayed prefill, peak
+   kind checked, K1 exactly once a layer in the replayed prefill, K5
+   exactly 7 a layer + 1 a replayed decode step and once in the prefill's
+   lm_head, peak
    allocated and reserved memory, each kind's graph pool GB, the time to
    first token of the three calls: eager, capturing, replayed); the same
    request with the tower, the prefill and the decode launch by launch
@@ -49,8 +62,12 @@ nonzero:
    and prefill logits bit-equal), peak memory, torch.profiler over one
    replay of the step
    (``chiprun_out/decode_step_profile.txt``), the kernel path's logits
-   against the plain path's, and torch.profiler over the towers + prefill
-   (``chiprun_out/composed_profile.txt``);
+   against the plain path's, a decode A/B through the graphs of K5
+   against the plain int8 product with K2 in both (in turns plain, K5, K5,
+   plain: decode tokens/s, one replayed step's device time by kernel in
+   ``chiprun_out/decode_step_profile_{k5,plain}.txt``, greedy ids equal or
+   parting at a named near tie), and torch.profiler over the towers +
+   prefill (``chiprun_out/composed_profile.txt``);
 6b. decode variants on phase 6's model and request: sampled (temperature
    0.2), sampled with top-p 0.7 (every drawn token inside its step's
    nucleus; both sampled runs' ids equal to ``device_loop=False`` from the
@@ -84,11 +101,12 @@ nonzero:
    gradients against the plain path's on one micro-batch;
 10. train_entry: the DAMC train entry (``train()``, what ``python -m
    modelcompose_tpu_torch.train.train_multimodal`` runs) at Vicuna-7B v1.5
-   width and depth: a random fp16 base written to disk in the released
-   layout (two shards, index, config.json), a 48-sample point dataset
-   (8,192 x 6 clouds), stage 1 as ``run_pretrain_point.sh`` (B=16, 3
-   steps, projector only), stage 2 as ``run_finetune_point_damc.sh`` on
-   its export (B=4, 4 steps, checkpoint-4), the same flags resumed to 6
+   width and 16 of its 32 layers: a random fp16 base written to disk in
+   the released layout (two shards, index, config.json), a 48-sample
+   point dataset (8,192 x 6 clouds), stage 1 as ``run_pretrain_point.sh``
+   (B=16, 3 steps, projector only), stage 2 as
+   ``run_finetune_point_damc.sh`` on its export (B=4, 4 steps,
+   checkpoint-4), the same flags resumed to 6
    steps, then the export loaded by ``load_pretrained_model`` and one
    point question decoded greedily; base write and load, setup, step,
    loader-wait, checkpoint and restore seconds, positions/s, peak memory,
@@ -208,7 +226,10 @@ of this run's inputs; ``bound_by`` says which) and one library call's time
 (``library_ms``, or null where no call computes the same function).  Each
 row's own keys keep the shape and timing of earlier runs: K1 at the vision
 bucket and K2 over the vision cache (CUDA events over warm launches), K3/K4
-at B=2, L=2,048 with rows of 2,048 and 1,391; K1's and K2's ``mcub4`` hold
+at B=2, L=2,048 with rows of 2,048 and 1,391, K5 at one row of q/k/v/o
+(its ``shapes``, ``tp_shards`` and ``step`` hold the others and the sum
+over a decode step, its ``decode_ab`` phase 6's A/B); K1's and K2's
+``mcub4`` hold
 the composed path's shape, K2's ``*_cold`` keys its device time with every
 launch on a cold layer, and K3's and K4's ``train_batch`` and
 ``micro_batch`` the train step's shapes, and K2's ``beam`` beam search's;
@@ -250,7 +271,15 @@ K2_REPLACES = "modelcompose_tpu/ops/flash_decode.py:50"
 K34_SOURCE = "modelcompose_tpu_torch/csrc/flash_attention_bwd.cu"
 K3_REPLACES = "modelcompose_tpu/ops/flash_attention.py:287"
 K4_REPLACES = "modelcompose_tpu/ops/flash_attention.py:328"
+K5_SOURCE = "modelcompose_tpu_torch/csrc/w8a16_gemv.cu"
+# no Pallas kernel: XLA's fused int8 convert of the JAX dequant_matmul
+K5_REPLACES = "modelcompose_tpu/ops/quant.py:33"
+# the launch counters of the forward kernels, as the phases read them
+FORWARD_KERNELS = ("flash_attention_fwd", "flash_decode", "w8a16_gemv")
 
+# K5's fp32 result against its plain version, relative to max |plain|: int8
+# and bf16 values are exact in fp32, so only the summation order differs
+K5_F32_TOL = 1e-5
 # bf16 tolerances, relative to max |reference| on the compared rows: bf16
 # keeps 8 mantissa bits (~0.4% per rounding); the kernel and its plain
 # version round P, the output and (K2) the accumulation order differently.
@@ -368,7 +397,7 @@ def graph_time_ms(fn, n: int = 20, replays: int = 5):
     between two events.  None, with the reason logged, when ``fn`` cannot
     be captured."""
     import torch
-    from modelcompose_tpu_torch.ops import flash_attention, flash_decode
+    from modelcompose_tpu_torch.ops import flash_attention, flash_decode, quant
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the default stream
@@ -378,9 +407,11 @@ def graph_time_ms(fn, n: int = 20, replays: int = 5):
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     try:
-        # K2's scratch is the capture record's, kept as long as the graph;
-        # K1's launches go to a record nobody counts (timing launches)
+        # K2's and K5's scratch is the capture records', kept as long as
+        # the graph; K1's launches go to a record nobody counts (timing
+        # launches)
         with flash_decode.capturing() as record, \
+                quant.capturing() as k5_record, \
                 flash_attention.capturing(), torch.cuda.graph(
                     graph, capture_error_mode="thread_local"):
             for _ in range(n):
@@ -398,7 +429,7 @@ def graph_time_ms(fn, n: int = 20, replays: int = 5):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    del record
+    del record, k5_record
     return start.elapsed_time(end) / (n * replays)
 
 
@@ -614,6 +645,15 @@ def _timed_request(phase, model, ids, inputs, record=None, **kw):
         raise AssertionError(f"{phase}: K1 {launches} in one replayed "
                              f"prefill of {model.cfg.num_hidden_layers} "
                              f"layers")
+    # K5 once an int8 product: 7 a layer and the lm_head in each replayed
+    # decode step (225 for a 32-layer int8 model), and the prefill's
+    # lm_head once (its B rows; the prefill's own products are large)
+    k5_step = _k5_per_step(model.params)
+    if k5_step != 7 * model.cfg.num_hidden_layers + 1 \
+            or launches["w8a16_gemv"] != k5_step * (NEW_TOKENS - 1) + 1:
+        raise AssertionError(f"{phase}: K5 {launches} for {NEW_TOKENS - 1} "
+                             f"replayed decode steps of {k5_step} products "
+                             f"and one prefill lm_head")
     third = _graph_delta(before)
     peak, reserved = _peak_gb()
     graphs = {"first_request": calls[0][0], "second_request": calls[1][0],
@@ -622,7 +662,8 @@ def _timed_request(phase, model, ids, inputs, record=None, **kw):
     ttft = [{"towers": round(t["encode_s"], 4),
              "prefill": round(t["prefill_s"], 4)}
             for t in (calls[0][1], calls[1][1], timings)]
-    log(phase, graphs=json.dumps(graphs), peak_mem_gb=f"{peak:.2f}",
+    log(phase, graphs=json.dumps(graphs), k5_per_decode_step=k5_step,
+        peak_mem_gb=f"{peak:.2f}",
         peak_reserved_gb=f"{reserved:.2f}",
         graph_pools_gb=f"{_graph_pools_gb():.3f}",
         pools_by_kind_gb=json.dumps({k: round(v, 3) for k, v in
@@ -648,6 +689,13 @@ def _timed_request(phase, model, ids, inputs, record=None, **kw):
 
 def _ms(t):
     return "not_measured" if t is None else f"{t:.4f}"
+
+
+def _rounded(row):
+    """A result row with its floats to 4 significant digits (the kernels
+    line stays short)."""
+    return {k: float(f"{v:.4g}") if isinstance(v, float) else v
+            for k, v in row.items()}
 
 
 def bound(flops: float, nbytes: float):
@@ -1006,6 +1054,150 @@ def phase_k2(device, gen):
                 beam=dict(beam, shape="B3 bf16 S=3360 kv_len 3287"))
 
 
+# K5's shapes on the main paths, (K, N): Vicuna-7B's int8 products, and the
+# tp 2 and 4 ranks' shards of them (column splits divide N: q/k/v,
+# gate/up, the lm_head; row splits divide K: o, down); each at the decode
+# rows of the paths: 1 (a request), 2 (the vision pair), 3 (beams), 4 (a
+# micro-batching pack) and 8 (the slot pool).
+K5_SHAPES = {"qkvo": (4096, 4096), "gate_up": (4096, 11008),
+             "down": (11008, 4096), "lm_head": (4096, 32000)}
+K5_TP_SHAPES = {f"tp{tp} {name}": (K // tp, N) if name in ("qkvo_row",
+                                                           "down")
+                else (K, N // tp)
+                for tp in (2, 4)
+                for name, (K, N) in (("qkvo", (4096, 4096)),
+                                     ("qkvo_row", (4096, 4096)),
+                                     ("gate_up", (4096, 11008)),
+                                     ("down", (11008, 4096)),
+                                     ("lm_head", (4096, 32000)))}
+K5_ROWS = (1, 2, 3, 4, 8)
+K5_TP_ROWS = (1, 8)  # the tp shards are timed at a request's and the pool's
+K5_LAYERS = 32  # weight copies cycled through, so each launch is cold in L2
+
+
+def _k5_per_step(params):
+    """K5 launches in one decode step (a row count of at most 8) of
+    ``params``: one a layer for each int8 linear, one for an int8
+    lm_head."""
+    from modelcompose_tpu_torch.ops.quant import is_quantized
+    layers = params["layers"]
+    per_layer = sum(is_quantized(p["w"]) for grp in ("attn", "mlp")
+                    for p in layers[grp].values())
+    return per_layer * layers["input_layernorm"].shape[0] \
+        + int(is_quantized(params["lm_head"]))
+
+
+def _k5_case(gen, weights, M, K, N, timed=True):
+    """K5 against its plain version on ``weights[0]`` at M rows (a bf16 and
+    an fp32 result); with ``timed``, the fp32-result product (what the
+    decode path asks for) timed by CUDA-graph replay cycling over the
+    weight copies, the plain version the same way, the library call
+    ``torch._weight_int8pack_mm`` (bf16 scales and result, an [N, K]
+    copy made outside the timing) or its error text, and the bound."""
+    import itertools
+    import torch
+    from modelcompose_tpu_torch.ops.quant import (dequant_matmul,
+                                                  dequant_matmul_reference)
+    x = torch.randn((M, 1, K), generator=gen, device=weights[0]["q"].device
+                    ).to(torch.bfloat16)
+    errs, rels = [], []
+    for out, tol in ((None, ATTN_TOL), (torch.float32, K5_F32_TOL)):
+        got = dequant_matmul(x, weights[0], out_dtype=out)
+        want = dequant_matmul_reference(x, weights[0], out_dtype=out)
+        err, rel = _rel_err(got, want)
+        if not (got.dtype == want.dtype and rel <= tol):
+            raise AssertionError(f"K5 M{M} K{K} N{N} {got.dtype}: rel err "
+                                 f"{rel:.3g} (tol {tol})")
+        errs.append(err)
+        rels.append(rel)
+    res = {"M": M, "K": K, "N": N, "max_abs_err": max(errs),
+           "rel_err_bf16": rels[0], "rel_err_f32": rels[1]}
+    if not timed:
+        return res
+    n = len(weights)
+
+    def cycled(fn):
+        layers = itertools.cycle(range(n))
+        return graph_time_ms(lambda: fn(weights[next(layers)]), n=n)
+    ms = cycled(lambda w: dequant_matmul(x, w, out_dtype=torch.float32))
+    plain_ms = cycled(lambda w: dequant_matmul_reference(
+        x, w, out_dtype=torch.float32))
+    x2 = x.reshape(M, K)
+    try:
+        packed = [(w["q"].t().contiguous(),
+                   w["scale"].reshape(N).to(torch.bfloat16)) for w in weights]
+        torch._weight_int8pack_mm(x2, *packed[0])
+        torch.cuda.synchronize()
+        layers = itertools.cycle(range(n))
+        library_ms = graph_time_ms(lambda: torch._weight_int8pack_mm(
+            x2, *packed[next(layers)]), n=n)
+        library_error = None
+    except (RuntimeError, NotImplementedError) as e:
+        library_ms, library_error = None, repr(e)[:200]
+    packed = None
+    nbytes = K * N + 4 * N + 2 * M * K + 4 * M * N
+    bound_ms, bound_by = bound(2 * M * K * N, nbytes)
+    res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               library_error=library_error, bound_ms=bound_ms,
+               bound_by=bound_by,
+               share_of_bound=None if ms is None else bound_ms / ms)
+    return res
+
+
+def phase_k5(device, gen):
+    """K5 against its plain version at every main-path shape and row count
+    (bf16 and fp32 results), timed at the Vicuna-7B shapes for every row
+    count and at the tp shards for 1 and 8 rows; the sum over one decode
+    step's products at each row count beside its bound."""
+    import torch
+    cases, tp_cases, errs = [], [], []
+    for table, rows, out in ((K5_SHAPES, K5_ROWS, cases),
+                             (K5_TP_SHAPES, K5_TP_ROWS, tp_cases)):
+        for name, (K, N) in table.items():
+            weights = [{"q": torch.randint(-127, 128, (K, N), generator=gen,
+                                           device=device, dtype=torch.int8),
+                        "scale": torch.rand((1, N), generator=gen,
+                                            device=device) * 1e-3 + 1e-4}
+                       for _ in range(K5_LAYERS)]
+            for M in K5_ROWS:
+                res = dict(_k5_case(gen, weights, M, K, N,
+                                    timed=M in rows), shape=name)
+                errs.append(res["max_abs_err"])
+                if "ms" in res:
+                    out.append(res)
+                    log("K5", shape=name, M=M, K=K, N=N,
+                        max_abs_err=f"{res['max_abs_err']:.4g}",
+                        rel_err_bf16=f"{res['rel_err_bf16']:.3g}",
+                        rel_err_f32=f"{res['rel_err_f32']:.3g}",
+                        graph_ms=_ms(res["ms"]),
+                        plain_graph_ms=_ms(res["plain_ms"]),
+                        library_graph_ms=_ms(res["library_ms"]),
+                        bound_ms=f"{res['bound_ms']:.4f}",
+                        share_of_bound=_ms(res["share_of_bound"]),
+                        library_error=res["library_error"])
+            del weights
+            torch.cuda.empty_cache()
+    # one decode step of the 32-layer model at M rows: 32 x (4 qkvo, 2
+    # gate/up, 1 down) + the lm_head
+    per_step = {"qkvo": 4 * 32, "gate_up": 2 * 32, "down": 32, "lm_head": 1}
+    step = {}
+    for M in K5_ROWS:
+        rows = {c["shape"]: c for c in cases if c["M"] == M}
+        if all(rows[s]["ms"] is not None for s in per_step):
+            step[M] = {k: sum(n * rows[s][k] for s, n in per_step.items())
+                       for k in ("ms", "plain_ms", "bound_ms")}
+    log("K5", checked=len(errs), step_sum_ms=json.dumps(
+        {m: {k: round(v, 4) for k, v in s.items()} for m, s in step.items()}))
+    first = cases[0]  # q/k/v/o at one row: the row's own keys
+    return dict({k: first[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "library_error", "bound_ms",
+                                       "bound_by", "share_of_bound")},
+                max_abs_err=max(errs), shape="M1 K4096 N4096 fp32 out, "
+                "cold (32 weights cycled), CUDA graph replay",
+                shapes=cases, tp_shards=tp_cases, checked=len(errs),
+                step=step)
+
+
 def _requests(cfg, device, gen):
     """Two image+question prompts of different text lengths: token ids on
     the host, normalized NHWC pixels on the card."""
@@ -1303,6 +1495,7 @@ def phase_composed(device, gen):
     step_prof = _decode_step_profile(model)
     rel = _compare_logits("composed", model, ids, inputs, answers,
                           COMPOSED_LOGIT_TOL)
+    k5_ab = _k5_decode_ab(model, ids, inputs, kw)
     prof = _profile("composed_prefill", lambda: model.generate(
         ids, inputs, max_new_tokens=1, **kw), "composed_profile.txt")
     return {"launches": launches, "towers": towers,
@@ -1312,7 +1505,112 @@ def phase_composed(device, gen):
             "pools_by_kind_gb": _graph_pools_by_kind_gb(model),
             "graphs": graphs, "vs_eager": vs_eager, "fps": fps,
             "decode_step_profile": step_prof, "logit_rel_err": rel,
-            "profile": prof}, model, (ids, inputs)
+            "k5_ab": k5_ab, "profile": prof}, model, (ids, inputs)
+
+
+class _DequantArm:
+    """One arm of phase 6's decode A/B: the model's decode graphs (and the
+    prefill graphs they keep) dropped on entry and on exit, since a
+    captured step keeps the int8 product it was captured with, and with
+    ``plain`` every int8 product on its plain version
+    (``quant.K5_MAX_ROWS`` 0: the convert and the GEMM) while K2 stays."""
+
+    def __init__(self, model, plain):
+        self.model, self.plain = model, plain
+
+    def __enter__(self):
+        from modelcompose_tpu_torch.ops import quant
+        self.quant, self.rows = quant, quant.K5_MAX_ROWS
+        self.model.decode_graphs.clear()
+        if self.plain:
+            quant.K5_MAX_ROWS = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.quant.K5_MAX_ROWS = self.rows
+        self.model.decode_graphs.clear()
+
+
+def _k5_decode_ab(model, ids, inputs, kw):
+    """Phase 6's request through the graphs with K5 and with the plain int8
+    product, K2 in both, in turns plain, K5, K5, plain: each turn's decode
+    tokens/s (the second of two calls, whose decode replays the graph the
+    first captured), one replayed step's device time by kernel and the
+    decode graph's pool GB (each arm's first turn), and the greedy ids of
+    the two arms equal or parting at a
+    named near tie (teacher-forced logits of both within LOGIT_TOL of max
+    |logit| there, the plain arm's top-2 gap under LOGIT_TOL)."""
+    import torch
+    from modelcompose_tpu_torch.ops.quant import dequant_matmul
+    tok_s, answers, profiles, launches, pools = {}, {}, {}, {}, {}
+    for arm in ("plain", "k5", "k5", "plain"):
+        with _DequantArm(model, arm == "plain"):
+            n5 = dequant_matmul.launches
+            for _ in range(2):
+                timings = {}
+                out = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
+                                     timings=timings, **kw)
+            launches[arm] = dequant_matmul.launches - n5
+            tok_s.setdefault(arm, []).append(
+                (NEW_TOKENS - 1) / timings["decode_s"])
+            answers.setdefault(arm, out[0])
+            if out[0] != answers[arm]:
+                raise AssertionError(f"k5_ab: the {arm} arm answered "
+                                     f"{out[0]}, then {answers[arm]}")
+            if arm not in profiles:
+                graph = list(model.decode_graphs._graphs.values())[-1]
+                profiles[arm] = _profile(f"decode_step_{arm}", graph.replay,
+                                         f"decode_step_profile_{arm}.txt")
+                pools[arm] = _graph_pools_by_kind_gb(model)["decode"]
+        if (launches[arm] == 0) != (arm == "plain"):
+            raise AssertionError(f"k5_ab: {launches[arm]} K5 launches in "
+                                 f"the {arm} arm")
+    res = {"decode_tok_per_s": tok_s, "k5_launches": launches,
+           "step_device_ms": {a: p["device_kernel_s"] * 1e3
+                              for a, p in profiles.items()},
+           "decode_pool_gb": pools,
+           "step_shares": {a: p["shares"] for a, p in profiles.items()},
+           "step_kernels": {a: {s: sum(n for k, n in p["device_counts"].items()
+                                       if any(f in k.lower() for f in
+                                              PROFILE_SPLITS[s]))
+                                for s in ("K2", "K5", "gemm", "copy")}
+                            for a, p in profiles.items()},
+           "ids_equal": answers["k5"] == answers["plain"]}
+    got, want = answers["k5"], answers["plain"]
+    if not res["ids_equal"]:
+        step = next(i for i, (a, b) in enumerate(zip(got + [None],
+                                                     want + [None]))
+                    if a != b)
+        tokens = torch.tensor([(got + [model.cfg.eos_token_id])[:step + 1]],
+                              device=model.device)
+        with torch.no_grad():
+            k = _teacher_forced(model, ids, inputs, tokens, "auto")[0, step]
+            with _DequantArm(model, True):
+                p = _teacher_forced(model, ids, inputs, tokens,
+                                    "auto")[0, step]
+        scale = p.abs().max()
+        top2 = p.topk(2).values
+        res.update(diverge_step=step,
+                   logit_rel_err=((k - p).abs().max() / scale).item(),
+                   plain_top2_gap_rel=((top2[0] - top2[1]) / scale).item())
+    log("composed", k5_ab="K5 vs plain int8 product, K2 in both",
+        decode_tok_per_s=json.dumps({a: [round(v, 2) for v in t]
+                                     for a, t in tok_s.items()}),
+        step_device_ms=json.dumps({a: round(v, 4) for a, v in
+                                   res["step_device_ms"].items()}),
+        step_kernels=json.dumps(res["step_kernels"]),
+        decode_pool_gb=json.dumps({a: round(v, 4) for a, v in
+                                   pools.items()}),
+        k5_launches=json.dumps(launches), ids_equal=res["ids_equal"],
+        diverge=json.dumps({k: res[k] for k in (
+            "diverge_step", "logit_rel_err", "plain_top2_gap_rel")
+            if k in res}), tol=LOGIT_TOL)
+    if not res["ids_equal"] and (res["logit_rel_err"] > LOGIT_TOL
+                                 or res["plain_top2_gap_rel"] > LOGIT_TOL):
+        raise AssertionError(f"k5_ab: K5's answer leaves the plain "
+                             f"product's at step {res['diverge_step']}, not "
+                             f"at a near tie: {res}")
+    return res
 
 
 def _fps_check(phase, points):
@@ -1363,18 +1661,21 @@ def _decode_step_profile(model):
 
 
 def _attention_counters():
-    """(reset, read) of K1's and K2's launch counts."""
+    """(reset, read) of the launch counts of K1, K2 and K5 (the forward
+    path's kernels)."""
     from modelcompose_tpu_torch.ops.flash_attention import (
         flash_attention_forward)
     from modelcompose_tpu_torch.ops.flash_decode import flash_decode_attention
+    from modelcompose_tpu_torch.ops.quant import dequant_matmul
+    fns = dict(zip(FORWARD_KERNELS, (flash_attention_forward,
+                                     flash_decode_attention, dequant_matmul)))
 
     def reset():
-        flash_attention_forward.launches = 0
-        flash_decode_attention.launches = 0
+        for fn in fns.values():
+            fn.launches = 0
 
     def read():
-        return {"flash_attention_fwd": flash_attention_forward.launches,
-                "flash_decode": flash_decode_attention.launches}
+        return {name: fn.launches for name, fn in fns.items()}
     return reset, read
 
 
@@ -1804,7 +2105,7 @@ def phase_qa_loader(device, root, merged, base_dir, model):
     reset, read = _attention_counters()
     qfile, n_q = _question_file(root, np.random.default_rng(SEED))
     tokenizer = WordHashTokenizer()
-    out, totals = {}, {"flash_attention_fwd": 0, "flash_decode": 0}
+    out, totals = {}, dict.fromkeys(FORWARD_KERNELS, 0)
     load_s = []  # eval_model's load, timed apart from its questions
     loader = qa.load_pretrained_model
 
@@ -1853,7 +2154,8 @@ def phase_qa_loader(device, root, merged, base_dir, model):
                     [f"q{i}" for i in range(n_q)] \
                     or any(list(line) != QA_KEYS for line in lines):
                 raise AssertionError(f"{key}: answer lines {lines}")
-            if min(launches.values()) == 0:
+            if min(launches["flash_attention_fwd"],
+                   launches["flash_decode"]) == 0:
                 raise AssertionError(f"{key}: kernels launched {launches}")
             for k in totals:
                 totals[k] += launches[k]
@@ -2614,10 +2916,11 @@ def phase_serve(device, gen, model, request, root, merged, base_dir):
     log("serve", part="cli", seconds=f"{parts['cli']['seconds']:.2f}",
         answers=json.dumps(answers), launches=json.dumps(read()))
     if len(answers) != 2 or not all(answers) \
-            or min(parts["cli"]["launches"].values()) == 0:
+            or min(parts["cli"]["launches"]["flash_attention_fwd"],
+                   parts["cli"]["launches"]["flash_decode"]) == 0:
         raise AssertionError(f"cli: {out.getvalue()!r}")
     launches = {k: sum(p["launches"][k] for p in parts.values())
-                for k in ("flash_attention_fwd", "flash_decode")}
+                for k in FORWARD_KERNELS}
     log("serve", launches=json.dumps(launches), greedy_vs_solo=json.dumps(
         {k: v.get("diverge_step", "equal") for k, v in checks.items()}))
     return {"parts": parts, "launches": launches, "vs_solo": checks,
@@ -3207,7 +3510,9 @@ def phase_train(device):
 # and the library GEMMs (cuBLAS nvjet / xmma, magma) and convolutions.
 PROFILE_SPLITS = {"K1": ("fa_fwd_kernel",), "K2": ("fd_split_kernel",),
                   "K3": ("fa_bwd_dq_kernel",), "K4": ("fa_bwd_dkv_kernel",),
-                  "gemm": ("gemm", "nvjet"), "conv": ("conv",)}
+                  "K5": ("dequant_gemv_kernel",),
+                  "gemm": ("gemm", "nvjet"), "conv": ("conv",),
+                  "copy": ("copy_kernel",)}
 
 
 def _profile(name, fn, out_file, cpu=True):
@@ -3242,12 +3547,14 @@ def _profile(name, fn, out_file, cpu=True):
             "device_us": dev, "device_counts": counts}
 
 
-# The train_entry phase: Vicuna-7B v1.5 at full width and depth (its
-# config.json), and the point recipes' flags
+# The train_entry phase: Vicuna-7B v1.5 at full width (its config.json)
+# with its depth cut from 32 layers to 16 (writing, loading and exporting
+# the 32-layer base took most of the phase's 150 s, a quarter of the
+# smoke), and the point recipes' flags
 # (scripts/model_composition/train/run_pretrain_point.sh,
 # run_finetune_point_damc.sh) cut in steps.
 VICUNA_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
-                 num_hidden_layers=32, num_attention_heads=32,
+                 num_hidden_layers=16, num_attention_heads=32,
                  num_key_value_heads=32, max_position_embeddings=4096,
                  rms_norm_eps=1e-5, rope_theta=10000.0)
 ENTRY_SAMPLES = 48
@@ -3267,8 +3574,8 @@ STAGE2_FLAGS = ["--version", "v1", "--lora_strategy", "modal+language",
                 "--learning_rate", "2e-4", "--save_steps", "4"]
 ENTRY_STEPS = {"stage1": 3, "stage2": 6, "stage2_resumed": 6}
 ENTRY_CHECKPOINT = 4  # stage 2's step checkpoint (--save_steps), resumed
-# 13.5 GB of base, a 3.9 GB step checkpoint, 5.3 GB of fp32 adapter export
-# (.bin, and .safetensors where the package imports)
+# at 32 layers: 13.5 GB of base, a 3.9 GB step checkpoint, 5.3 GB of fp32
+# adapter export (.bin, and .safetensors where the package imports)
 ENTRY_DISK_GB = 24
 WORDS = ("red blue small large round flat wooden metal chair table lamp "
          "vase plane car cup bottle guitar shelf sofa bed mug bowl airplane "
@@ -3296,8 +3603,9 @@ def _host_room(path):
 
 
 def _write_vicuna_base(base_dir, device):
-    """A Vicuna-7B v1.5 directory from SEED: two fp16 shards with their
-    index and the Llama config.json, as the released one has them; weights
+    """A Vicuna-7B v1.5 directory (``VICUNA_7B``'s layers) from SEED: two
+    fp16 shards with their index and the Llama config.json, as the
+    released one has them; weights
     N(0, 0.02), norms 1.  Returns (seconds, bytes)."""
     import torch
     t0 = time.perf_counter()
@@ -3374,15 +3682,17 @@ def _point_dataset(root, rng):
 
 
 def _kernel_counters():
-    """(reset, read) of the launch counts of K1-K4."""
+    """(reset, read) of the launch counts of K1-K5."""
     from modelcompose_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_forward)
     from modelcompose_tpu_torch.ops.flash_decode import flash_decode_attention
+    from modelcompose_tpu_torch.ops.quant import dequant_matmul
     fns = {"flash_attention_fwd": flash_attention_forward,
            "flash_decode": flash_decode_attention,
            "flash_attention_bwd_dq": flash_attention_bwd_dq,
-           "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
+           "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+           "w8a16_gemv": dequant_matmul}
 
     def reset():
         for fn in fns.values():
@@ -4298,7 +4608,7 @@ def phase_entries(device, gen, root, model):
         raise AssertionError(f"kernel path's loss {kernel} differs from the "
                              f"plain path's {plain} by {rel:.3g}")
     launches = {k: sum(e["launches"][k] for e in out.values())
-                for k in ("flash_attention_fwd", "flash_decode")}
+                for k in FORWARD_KERNELS}
     checks = _entry_kernel_checks(device, gen, kernel_inputs, "entries")
     return {"entries": out, "loss_kernel_vs_plain": rel,
             "launches": launches, "kernel_checks": checks}
@@ -4478,8 +4788,8 @@ def _vqa_files(root, folder):
 
 class _GenerateLog:
     """While active, runs every ``model.generate`` call with ``attn_impl``
-    ('reference' replaces K1 and K2 by their plain versions) and records
-    its prompt, media and answer."""
+    ('reference' replaces K1, K2 and K5 by their plain versions) and
+    records its prompt, media and answer."""
 
     def __init__(self, model, attn_impl="auto"):
         self.model, self.attn_impl = model, attn_impl
@@ -4966,8 +5276,7 @@ def phase_legacy_eval(device, gen, root, merged, base_dir, model):
                 res[f"{path}_calls"] = calls.calls
                 res[f"{path}_launches"] = read()
                 res[f"{path}_lines"] = _answer_lines(answers, entry)
-            if res["plain_launches"] != {"flash_attention_fwd": 0,
-                                         "flash_decode": 0}:
+            if res["plain_launches"] != dict.fromkeys(FORWARD_KERNELS, 0):
                 raise AssertionError(f"{entry}: the plain path launched "
                                      f"{res['plain_launches']}")
             res["vs_plain"] = _kernel_vs_plain(model, res["kernel_calls"],
@@ -4997,7 +5306,7 @@ def phase_legacy_eval(device, gen, root, merged, base_dir, model):
     checks = _k1_k2_checks(device, gen, kernel_inputs, "legacy_eval")
     launches = {k: sum(e["kernel_launches"][k] for e in entries.values())
                 + sum(v[k] for v in tools["launches"].values())
-                for k in ("flash_attention_fwd", "flash_decode")}
+                for k in FORWARD_KERNELS}
     for res in entries.values():  # the recorded calls hold the pixels
         res.pop("kernel_calls"), res.pop("plain_calls")
     return {"images_host_ms": host_ms, "entries": entries, "tools": tools,
@@ -5178,7 +5487,8 @@ def phase_distributed_serve(device, gen, model, request, serve_tick_ms):
     n_layers = model.cfg.num_hidden_layers
     steps = NEW_TOKENS - 1
     per_request = {"flash_attention_fwd": n_layers,
-                   "flash_decode": n_layers * steps}
+                   "flash_decode": n_layers * steps,
+                   "w8a16_gemv": _k5_per_step(model.params) * steps + 1}
     vision_ids, vision_inputs = _requests(model.cfg, device, gen)
     slot_requests = {
         f"vision{i}": (vision_ids[i], {"vision": vision_inputs["vision"][
@@ -5231,7 +5541,7 @@ def phase_distributed_serve(device, gen, model, request, serve_tick_ms):
                                  f"no-group graph run's "
                                  f"{runs['no_group_graph']['ids']}")
         if r["launches"] != per_request:
-            raise AssertionError(f"{name}: K1/K2 launches {r['launches']}, "
+            raise AssertionError(f"{name}: K1/K2/K5 launches {r['launches']}, "
                                  f"want {per_request}")
     for name in ("no_group_graph", "tp1_graph"):
         r = runs[name]
@@ -5507,6 +5817,9 @@ def main() -> int:
     timed("build", phase_build)
     k1 = timed("k1", phase_k1, device, gen)
     k2 = timed("k2", phase_k2, device, gen)
+    k5 = timed("k5", phase_k5, device, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches, main = timed("main", phase_main_path, device, gen)
     gc.collect()
     torch.cuda.empty_cache()  # each served model is gone before the next
@@ -5713,6 +6026,15 @@ def main() -> int:
              launches=sum(train_paths("flash_attention_bwd_dkv").values()),
              launches_by_path=train_paths("flash_attention_bwd_dkv"),
              **worst(k34["dkv"], "dkv")),
+        dict(name="w8a16_gemv", route="cuda", source=K5_SOURCE,
+             replaces=K5_REPLACES,
+             launches=sum(by_path("w8a16_gemv").values()),
+             launches_by_path=by_path("w8a16_gemv"),
+             decode_ab={k: composed["k5_ab"][k] for k in (
+                 "decode_tok_per_s", "step_device_ms", "decode_pool_gb",
+                 "ids_equal")},
+             **dict(k5, shapes=[_rounded(c) for c in k5["shapes"]],
+                    tp_shards=[_rounded(c) for c in k5["tp_shards"]])),
     ]
     log("prefill_graph", graphs_by_phase=json.dumps(graphs),
         totals=json.dumps(_all_graph_counts()),

@@ -4,8 +4,8 @@ counterpart of the JAX package's jitted ``_decode_step`` and of the
 machinery every graph of the port shares (``CapturedStep``, ``GraphLRU``).
 
 A decode step of the 7B backbone is a few thousand small launches (per
-layer: the int8 dequant copies, the GEMMs, norms, RoPE, the cache write and
-K2).  Launched from Python one by one, the host sets the pace; captured once
+layer: K5's seven int8 products, norms, RoPE, the cache write and K2).
+Launched from Python one by one, the host sets the pace; captured once
 into a ``torch.cuda.CUDAGraph`` and replayed, the card does.
 
 ``DecodeGraph`` owns what the graph reads and writes by address: the KV
@@ -21,12 +21,12 @@ The capture rules (``CapturedStep``): the capturing call runs the step
 eagerly on a side stream (the warm-up a capture needs: every kernel's
 first launch builds it and sets its shared-memory attribute, which a
 capture cannot do), keeps that result as the call's, and captures the step
-on the same stream; K1-K4's launches inside a capture go into the capture's
+on the same stream; K1-K5's launches inside a capture go into the capture's
 records (``ops.flash_attention.capturing``, which a backward on autograd's
-thread finds by the stream, and ``ops.flash_decode.capturing``; K2's
-scratch lives in its record as long as the graph), and each replay adds
-the launches they recorded to the kernels' counters, so every call counts
-one step's.  A decode graph
+thread finds by the stream, ``ops.flash_decode.capturing`` and
+``ops.quant.capturing``; K2's and K5's scratch lives in their records as
+long as the graph), and each replay adds the launches they recorded to the
+kernels' counters, so every call counts one step's.  A decode graph
 captures at its first call; the prefill and tower graphs, whose shapes
 vary more, at their second (core/prefill_graph, models/towers).
 
@@ -65,7 +65,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import ModelConfig
-from ..ops import flash_attention, flash_decode
+from ..ops import flash_attention, flash_decode, quant
 from ..parallel import tp
 from ..tree import tree_leaves
 from .llama import KVCache, forward, local_kv_heads
@@ -182,7 +182,7 @@ class CapturedStep:
         self.calls = 0
         self.out = None  # the static outputs, made by the first call
         self.graph = None
-        self.k1 = self.k2 = None  # the capture's launch records
+        self.k1 = self.k2 = self.k5 = None  # the capture's launch records
         self.shared = shared
         self.group = tp.model_group()
 
@@ -215,7 +215,7 @@ class CapturedStep:
 
     def replay(self) -> None:
         """Replay the captured step on the current stream, counting the K1
-        to K4 launches it runs."""
+        to K5 launches it runs."""
         self.graph.replay()
         type(self).replays += 1
         fa = flash_attention
@@ -223,6 +223,7 @@ class CapturedStep:
         fa.flash_attention_bwd_dq.launches += len(self.k1.bwd_dq)
         fa.flash_attention_bwd_dkv.launches += len(self.k1.bwd_dkv)
         flash_decode.flash_decode_attention.launches += len(self.k2.launches)
+        quant.dequant_matmul.launches += len(self.k5.launches)
 
     def _capture(self) -> None:
         """Run the step once eagerly on a side stream (the warm-up a
@@ -245,7 +246,8 @@ class CapturedStep:
         # backward's kernels and collectives run on autograd's thread,
         # into ``side``
         with flash_attention.capturing(side) as k1, \
-                flash_decode.capturing() as k2, torch.cuda.stream(side):
+                flash_decode.capturing() as k2, quant.capturing() as k5, \
+                torch.cuda.stream(side):
             side.wait_stream(current)  # the static outputs' allocation
             _copy_into(self.out, warm)
             del warm
@@ -261,7 +263,7 @@ class CapturedStep:
         current.wait_stream(side)
         if self.shared is not None:
             self.shared.add(self.device, graph)
-        self.graph, self.k1, self.k2 = graph, k1, k2
+        self.graph, self.k1, self.k2, self.k5 = graph, k1, k2, k5
         type(self).captures += 1
 
 

@@ -93,7 +93,7 @@ def prefill_chunked(params, cfg: ModelConfig, inputs_embeds, route_ids,
                                          routing_table, off, attn_impl)
         if off <= last_idx < off + size:
             logits = logits_from_hidden(
-                params, hidden[:, last_idx - off][:, None])[:, 0]
+                params, hidden[:, last_idx - off][:, None], attn_impl)[:, 0]
         off += size
         if tick_cb is not None:
             tick_cb()

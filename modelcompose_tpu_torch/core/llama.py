@@ -259,6 +259,9 @@ def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
     its weights: q/k/v/gate/up are column-split and o/down row-split
     (``parallel="column"`` / ``"row"``, whose products sum over the model
     group before the residual add).
+
+    ``attn_impl`` "reference" runs the plain versions of the kernels: of
+    attention and of the int8 products (``quant.dequant_matmul``).
     """
     B, L, _ = x.shape
     hd = cfg.head_dim
@@ -268,7 +271,7 @@ def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
 
     def lin(p, inp, parallel):
         return routed_lora_matmul(inp, p["w"], p["lora_a"], p["lora_b"],
-                                  route, parallel=parallel)
+                                  route, parallel=parallel, impl=attn_impl)
 
     q = lin(ap["q"], h, "column")
     k = lin(ap["k"], h, "column")
@@ -363,15 +366,18 @@ def forward_hidden(params: Params, cfg: ModelConfig, inputs_embeds, *,
     return rms_norm(x, params["norm"], cfg.rms_norm_eps), cache
 
 
-def logits_from_hidden(params: Params, hidden) -> torch.Tensor:
+def logits_from_hidden(params: Params, hidden,
+                       impl: str = "auto") -> torch.Tensor:
     """fp32 logits from an fp32 accumulation, int8 lm_head included: a
     product rounded to bf16 before the cast flips near-tied argmaxes.
     Under tensor parallelism each rank computes its vocabulary columns and
-    the group gathers the fp32 logits (every rank gets all of them)."""
+    the group gathers the fp32 logits (every rank gets all of them).
+    ``impl`` picks an int8 lm_head's product: "auto" (kernel K5 where it
+    applies) or "reference" (its plain version), as ``attn_impl`` does."""
     hidden = tp.copy_to_model(hidden)
     if is_quantized(params["lm_head"]):
         logits = dequant_matmul(hidden, params["lm_head"],
-                                out_dtype=torch.float32)
+                                out_dtype=torch.float32, impl=impl)
     else:
         logits = matmul_f32(hidden, params["lm_head"])
     return tp.gather_vocab(logits)
@@ -413,4 +419,4 @@ def forward(params: Params, cfg: ModelConfig, inputs_embeds, *,
         routing_table=routing_table, segment_ids=segment_ids,
         positions=positions, cache=cache, cache_write_pos=cache_write_pos,
         kv_lens=kv_lens, attn_impl=attn_impl)
-    return logits_from_hidden(params, hidden), cache
+    return logits_from_hidden(params, hidden, attn_impl), cache

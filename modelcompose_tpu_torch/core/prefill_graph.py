@@ -108,7 +108,7 @@ def _prefill(params, cfg: ModelConfig, inputs_embeds, route_ids,
     # lm_head so prefill skips the [B, L, V] logits product.
     rows = torch.arange(B, device=hidden.device)
     last_h = hidden[rows, lengths.long() - 1][:, None]
-    return logits_from_hidden(params, last_h)[:, 0], cache
+    return logits_from_hidden(params, last_h, attn_impl)[:, 0], cache
 
 
 def _prefill_chunk_step(params, cfg: ModelConfig, cache, embeds_chunk,

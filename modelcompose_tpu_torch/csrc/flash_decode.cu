@@ -74,18 +74,6 @@ constexpr int kRowsPerWarp = kSplit / kWarps;
 constexpr float kNegInf = -1e30f;
 static_assert(kBoxRows % kRowsPerWarp == 0, "a warp's rows sit in one box");
 
-// Four int8 of a 32-bit word as fp32, exactly: each byte, biased to
-// unsigned, becomes the low mantissa byte of 2^23 (one byte permute), and
-// one add removes 2^23 + 128.  Integer and fp32 pipes only, where a plain
-// conversion would queue on the quarter-rate I2F unit.
-__device__ __forceinline__ void cvt4(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x80808080u;
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) -
-           8388736.f;
-}
-
 __device__ __forceinline__ void cvt_bf16x2(uint32_t w, float* f) {
   const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
   f[0] = x.x;

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
 // mbarriers, TMA tensor loads and stores, wgmma shared-memory descriptors,
 // fences and the bf16 products of the attention kernels, register
-// reallocation, named barriers, and the host-side encoding of TMA tensor
-// maps.
+// reallocation, named barriers, the exact int8 -> fp32 conversion, and the
+// host-side encoding of TMA tensor maps.
 //
 // cuTensorMapEncodeTiled is a driver API; it is reached through the
 // runtime's driver entry point, so a kernel library built with plain
@@ -276,6 +276,19 @@ __device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t a[4],
 }
 
 // Two fp32 values rounded to bf16 and packed (lo in the low half).
+// Four int8 of a 32-bit word as fp32, exactly: each byte, biased to
+// unsigned, becomes the low mantissa byte of 2^23 (one byte permute), and
+// one add removes 2^23 + 128.  Integer and fp32 pipes only, where a plain
+// conversion would queue on the quarter-rate I2F unit (K2's int8 cache,
+// K5's int8 weights).
+__device__ __forceinline__ void cvt4(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) -
+           8388736.f;
+}
+
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

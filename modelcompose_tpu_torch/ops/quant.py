@@ -1,18 +1,26 @@
-"""Weight-only int8 quantization for decode (counterpart of
-modelcompose_tpu/ops/quant.py).
+"""Weight-only int8 quantization (counterpart of
+modelcompose_tpu/ops/quant.py) and the wrapper of kernel K5.
 
 Per-output-channel symmetric int8 halves the bytes batch-1 decode streams
-per step.  ``dequant_matmul`` is plain PyTorch for now: ``q.to(x.dtype)``
-materializes a bf16 copy of the weight before the product, so the int8
-saving is in residency only, not yet in the bytes the product reads (a
-W8A16 kernel is later work; see PERF.md).
+per step, as long as the int8 tensor is what the product reads: the JAX
+package keeps the convert inside the contraction and XLA fuses it into the
+dot's operand load.  Here ``dequant_matmul`` launches K5
+(``csrc/w8a16_gemv.cu``) for the decode-time products, which reads each
+int8 weight once and converts it in registers.  Products of more than
+``K5_MAX_ROWS`` rows (prefill, prefill chunks, training on an int8 base)
+convert the weight to the activations' type and run the fp32-output GEMM
+(``dequant_matmul_reference``); so do CPU tensors.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Dict
 
 import torch
+
+from .. import _build
 
 
 _HALF = (torch.bfloat16, torch.float16)
@@ -81,22 +89,226 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def quantize_int8(w: torch.Tensor, axis: int = -2) -> Dict[str, torch.Tensor]:
     """Symmetric int8 over ``axis`` (the contraction axis for weights, the
-    vector axis for the KV cache), one fp32 scale per remaining index."""
+    vector axis for the KV cache), one fp32 scale per remaining index.
+    Both come out contiguous whatever ``w``'s strides (a weight converted
+    from the HF layout is a transposed view), the layout K5 reads."""
     wf = w.float()
     amax = wf.abs().amax(dim=axis, keepdim=True)
-    scale = torch.clamp_min(amax / 127.0, 1e-8)
+    scale = torch.clamp_min(amax / 127.0, 1e-8).contiguous()
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
-    return {"q": q, "scale": scale}
+    return {"q": q.contiguous(), "scale": scale}
 
 
-def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
-                   out_dtype=None) -> torch.Tensor:
+def dequant_matmul_reference(x: torch.Tensor, wq: Dict[str, torch.Tensor],
+                             out_dtype=None) -> torch.Tensor:
     """y = x @ dequant(wq), fp32-accumulated; the per-column scale is an
     epilogue multiply.  ``out_dtype`` keeps the fp32 result when the
     consumer wants it (logits, the adapter add).  Differentiable through x
-    only: an int8 weight is frozen."""
+    only: an int8 weight is frozen.  Plain PyTorch: ``q.to(x.dtype)``
+    writes a converted copy of the weight, which the GEMM reads."""
     y = matmul_f32(x, wq["q"].to(x.dtype)) * wq["scale"][..., 0, :]
     return y.to(out_dtype or x.dtype)
+
+
+K5_MAX_ROWS = 8  # rows of x (its leading axes flattened) that K5 takes
+_TILE_N = 512  # K5's column tile (kTileN)
+_BLOCK_ROWS = 512  # the most K rows of one K5 block (kMaxRows)
+_ROW_STEP = 64  # a block's K range: whole 8-row steps of its 8 warps
+_TARGET_BLOCKS = 264  # two blocks an SM of the H100's 132
+_OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _block_rows(K: int, N: int) -> int:
+    """The K range of one K5 block: split K until the grid has about
+    ``_TARGET_BLOCKS`` blocks, with at most ``_BLOCK_ROWS`` rows a block."""
+    tiles = -(-N // _TILE_N)
+    splits = max(-(-_TARGET_BLOCKS // tiles), -(-K // _BLOCK_ROWS))
+    rows = -(-K // splits)
+    return min(_BLOCK_ROWS, -(-rows // _ROW_STEP) * _ROW_STEP)
+
+
+class _Scratch:
+    """K5's split-K scratch: the fp32 partials and the int32 counters of
+    the fused combine, one per column tile, which the kernel leaves at
+    zero.  It grows to the largest launch it serves.  Launches on one
+    stream run one after another, so they share one; ``keep`` also holds
+    the outgrown buffers (a capture's launches keep their addresses)."""
+
+    def __init__(self, keep: bool = False):
+        self.part = self.counters = None
+        self.outgrown = [] if keep else None
+
+    def _retire(self, old):
+        if old is not None and self.outgrown is not None:
+            self.outgrown.append(old)
+
+    def get(self, device, n_part: int, n_tiles: int):
+        if self.part is None or self.part.numel() < n_part:
+            self._retire(self.part)
+            self.part = torch.empty(n_part, dtype=torch.float32,
+                                    device=device)
+        if self.counters is None or self.counters.numel() < n_tiles:
+            self._retire(self.counters)
+            self.counters = torch.zeros(n_tiles, dtype=torch.int32,
+                                        device=device)
+        return self.part, self.counters
+
+
+# K5's scratch, one per (device, CUDA stream).  A launch captured into a
+# CUDA graph takes its scratch from the capture's record instead
+# (``capturing``): a buffer outgrown here would be freed under the graph.
+_SCRATCH = {}
+
+
+class CaptureRecord:
+    """The K5 launches of one CUDA-graph capture: each launch's (M, K, N)
+    in order (a replay re-runs them with no Python call, so the graph's
+    owner counts them), and the split scratch they use, which lives as
+    long as this record: the graph's owner keeps the record as long as the
+    graph."""
+
+    def __init__(self):
+        self.launches = []
+        self.scratch = _Scratch(keep=True)
+
+
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capturing():
+    """Record the K5 launches captured on this thread into a CUDA graph
+    while the block runs; yields the ``CaptureRecord``.  A K5 launch made
+    while its stream captures, outside this block, raises: its replays
+    would go uncounted and its scratch unowned."""
+    previous = getattr(_CAPTURE, "record", None)
+    record = _CAPTURE.record = CaptureRecord()
+    try:
+        yield record
+    finally:
+        _CAPTURE.record = previous
+
+
+def _check_cuda_inputs(x2, q, scale):
+    """Raise on what K5 does not take: x [M, K] bf16/fp16 with unit column
+    stride; q [K, N] int8, N % 16 == 0; scale fp32 with N values; q and
+    scale contiguous and 16-byte aligned, all on one device."""
+    M, K = x2.shape
+    if x2.dtype not in _HALF:
+        raise TypeError(f"K5 takes bf16 or fp16 activations, got {x2.dtype}")
+    if x2.stride(1) != 1:
+        raise ValueError(f"K5 takes activations with unit column stride, "
+                         f"got strides {x2.stride()}")
+    if q.dtype != torch.int8 or q.dim() != 2 or q.shape[0] != K:
+        raise ValueError(f"K5 takes an int8 [{K}, N] weight, got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    N = q.shape[1]
+    if N % 16:
+        raise ValueError(f"K5 takes a multiple of 16 columns, got {N}")
+    if scale.dtype != torch.float32 or scale.numel() != N:
+        raise ValueError(f"K5 takes {N} fp32 scales, got {scale.dtype} "
+                         f"{tuple(scale.shape)}")
+    for name, t in (("q", q), ("scale", scale)):
+        if t.device != x2.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x2.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _k5(x2, q, scale, out_dtype):
+    """Kernel K5 on x2 [M, K] (M <= K5_MAX_ROWS): (x2 @ q) * scale in
+    ``out_dtype``, one launch."""
+    _check_cuda_inputs(x2, q, scale)
+    M, K = x2.shape
+    N = q.shape[1]
+    rows = _block_rows(K, N)
+    n_splits = -(-K // rows)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    record = None
+    if torch.cuda.is_current_stream_capturing():
+        record = getattr(_CAPTURE, "record", None)
+        if record is None:
+            raise RuntimeError(
+                "dequant_matmul captured into a CUDA graph outside "
+                "quant.capturing(): its replays would not be counted")
+    part = counters = None
+    if n_splits > 1:
+        scratch = record.scratch if record is not None \
+            else _SCRATCH.setdefault((x2.device, stream), _Scratch())
+        part, counters = scratch.get(x2.device, n_splits * M * N,
+                                     -(-N // _TILE_N))
+    kind = out_dtype if out_dtype in (torch.float32, x2.dtype) \
+        else torch.float32
+    out = torch.empty((M, N), dtype=kind, device=x2.device)
+    err = _build.load("w8a16_gemv").mc_w8a16_gemv(
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), out.data_ptr(),
+        M, K, N, x2.stride(0) if M > 1 else K, rows,
+        int(x2.dtype == torch.bfloat16), _OUT_TYPES[kind], stream)
+    _build.check(err, "w8a16_gemv")
+    if record is not None:  # recorded, not run: each replay runs it
+        record.launches.append((M, K, N))
+    else:
+        dequant_matmul.launches += 1
+    return out.to(out_dtype)
+
+
+def _dequant_matmul_dx(g, q, scale, dtype):
+    """dL/dx of ``dequant_matmul``: (g * scale) @ q^T in the arithmetic of
+    the plain version's autograd (the fp32 cotangent rounded to x's type,
+    an fp32-accumulated product, cast to x's type), which is what JAX's
+    autodiff of its ``dequant_matmul`` computes."""
+    gs = g.float() * scale.reshape(-1)
+    return _mm_f32(gs.to(dtype), q.to(dtype).t()).to(dtype)
+
+
+class _DequantMatmul(torch.autograd.Function):
+    """K5 forward, plain backward through x (the weight is frozen)."""
+
+    @staticmethod
+    def forward(ctx, x2, q, scale, out_dtype):
+        ctx.save_for_backward(q, scale)
+        ctx.x_dtype = x2.dtype
+        return _k5(x2, q, scale, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, scale = ctx.saved_tensors
+        return _dequant_matmul_dx(g, q, scale, ctx.x_dtype), None, None, None
+
+
+def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
+                   out_dtype=None, impl: str = "auto") -> torch.Tensor:
+    """y = x @ dequant(wq), fp32-accumulated, in ``out_dtype`` (default
+    x.dtype).
+
+    impl "auto": on a CUDA tensor with 1..K5_MAX_ROWS rows (x's leading
+    axes flattened; every decode-time product) kernel K5, which streams the
+    int8 weight; a larger product or a CPU tensor takes
+    ``dequant_matmul_reference`` (the convert and the fp32-output GEMM: at
+    prefill and training sizes the GEMM's operations, not the weight's
+    bytes, set the time).  impl "reference": the plain version everywhere.
+    Differentiable through x."""
+    if impl == "reference":
+        return dequant_matmul_reference(x, wq, out_dtype)
+    if impl != "auto":
+        raise ValueError(f"unknown dequant_matmul impl {impl!r}")
+    K = x.shape[-1]
+    M = x.numel() // K if K else 0
+    if not x.is_cuda or not 0 < M <= K5_MAX_ROWS:
+        return dequant_matmul_reference(x, wq, out_dtype)
+    q, scale = wq["q"], wq["scale"]
+    x2 = x.reshape(M, K)
+    args = (x2, q, scale, out_dtype or x.dtype)
+    y = _DequantMatmul.apply(*args) if torch.is_grad_enabled() \
+        and x.requires_grad else _k5(*args)
+    return y.reshape(*x.shape[:-1], q.shape[-1])
+
+
+# Launches of K5: one per call that ran it, and a replayed graph adds the
+# launches its capture recorded (core/decode_graph).
+dequant_matmul.launches = 0
 
 
 def is_quantized(w) -> bool:

@@ -18,7 +18,8 @@ from ..parallel import tp
 from .quant import dequant_matmul, is_quantized, matmul_f32, quantize_int8
 
 
-def routed_lora_matmul(x, w, lora_a, lora_b, route, parallel=None):
+def routed_lora_matmul(x, w, lora_a, lora_b, route, parallel=None,
+                       impl="auto"):
     """y = x @ w + sum_a route[..., a] * (x @ A_a) @ B_a.
 
     Args:
@@ -31,6 +32,9 @@ def routed_lora_matmul(x, w, lora_a, lora_b, route, parallel=None):
               ``parallel.tp``) the layer's split: ``"column"`` (w and B
               hold this rank's output columns, A is whole) or ``"row"``
               (x and w hold this rank's input rows, A and B are whole).
+      impl:   an int8 ``w``'s product: "auto" (kernel K5 where it applies,
+              see ``quant.dequant_matmul``) or "reference" (its plain
+              version).
 
     A column-split product's input and its ``[*, r]`` bottleneck pass
     through ``copy_to_model``, whose backward sums their cotangents over
@@ -46,7 +50,7 @@ def routed_lora_matmul(x, w, lora_a, lora_b, route, parallel=None):
     column = parallel == "column"
     x_base = tp.copy_to_model(x) if column else x
     if is_quantized(w):
-        y = dequant_matmul(x_base, w, out_dtype=torch.float32)
+        y = dequant_matmul(x_base, w, out_dtype=torch.float32, impl=impl)
     else:
         y = matmul_f32(x_base, w)
     if route is not None:

@@ -167,7 +167,10 @@ class _TrainGraph(CapturedStep):
     static batch, captured at its second call on the card.  ``keep`` holds
     the tensors the graph reads by address (its key names them by
     identity; ``held``) for the graph's life.  The step runs in the
-    caller's grad mode: the backward is captured with the forward."""
+    caller's grad mode: the backward is captured with the forward.  Its
+    products run at B x L rows, far above ``quant.K5_MAX_ROWS``, so an
+    int8 base (``--quantize_frozen_base``) takes the plain product and the
+    capture's K5 record stays empty."""
 
     capture_at = 2
     release_cached = True

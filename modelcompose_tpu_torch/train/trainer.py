@@ -509,12 +509,13 @@ def init_train_state(cfg: ModelConfig, tc: TrainConfig, backbone_params,
 # ---------------------------------------------------------------------------
 
 def chunked_causal_lm_loss(backbone, hidden, labels, chunk: int,
-                           denom=None):
+                           denom=None, impl: str = "auto"):
     """Shifted CE computed ``chunk`` positions at a time, each chunk
     checkpointed: the forward keeps only the scalar sums, the backward
     recomputes each chunk's fp32 logits.  The same value as
     ``causal_lm_loss`` (same shift, IGNORE_INDEX, mean over valid
-    targets, or the sum over ``denom`` where given)."""
+    targets, or the sum over ``denom`` where given).  ``impl`` is
+    ``logits_from_hidden``'s."""
     B, L, _ = hidden.shape
     if L % chunk:
         raise ValueError(f"sequence length {L} is not a multiple of "
@@ -524,7 +525,7 @@ def chunked_causal_lm_loss(backbone, hidden, labels, chunk: int,
                                     device=labels.device)], dim=1)
 
     def piece(h, t):
-        logits = logits_from_hidden(backbone, h).float()
+        logits = logits_from_hidden(backbone, h, impl).float()
         valid = t != IGNORE_INDEX
         safe = torch.where(valid, t, 0)
         nll = -torch.log_softmax(logits, -1).gather(-1, safe[..., None])[..., 0]
@@ -579,7 +580,7 @@ def multimodal_loss_from_features(train_params, cfg: ModelConfig,
     if loss_chunk:
         hidden, _ = forward_hidden_routed(backbone, cfg, embeds, **kw)
         return chunked_causal_lm_loss(backbone, hidden, batch["labels"],
-                                      loss_chunk, denom)
+                                      loss_chunk, denom, attn_impl)
     logits, _ = forward(backbone, cfg, embeds, **kw)
     return causal_lm_loss(logits, batch["labels"], denom)
 

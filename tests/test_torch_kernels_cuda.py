@@ -10,7 +10,10 @@ kernel rounds P at a running max and sums in another order); the LSE
 within 1e-3 of max(|LSE|, 1) (fp32 statistics of identical operands);
 dQ, dK and dV within 2e-2 of max |plain| on valid rows (P and dS are
 rounded to bf16 before the second products, the sums run in another
-order) and zero on padding rows.
+order) and zero on padding rows.  K5 (the int8 product): a bf16 result
+within 2e-2 of max |plain| (one rounding of a sum taken in another order),
+an fp32 result within 1e-5 (int8 and bf16 values are exact in fp32: the
+summation order alone).
 """
 
 import pytest
@@ -25,7 +28,10 @@ from modelcompose_tpu_torch.ops.flash_attention import (
     flash_attention_reference)
 from modelcompose_tpu_torch.ops.flash_decode import (
     _SCRATCH, flash_decode_attention, flash_decode_reference)
-from modelcompose_tpu_torch.ops.quant import matmul_f32
+from modelcompose_tpu_torch.ops import quant
+from modelcompose_tpu_torch.ops.quant import (dequant_matmul,
+                                              dequant_matmul_reference,
+                                              matmul_f32)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -629,6 +635,188 @@ def test_clip_text_on_card_matches_cpu(padded):
 # inside a graph, a capture that syncs, and PointBERT's sampling graph
 # ---------------------------------------------------------------------------
 
+# The int8 products of the main path: Vicuna-7B's (q/k/v/o, gate/up, down,
+# the lm_head) and the tp 2 and 4 shards' column and row splits.
+K5_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+             (4096, 2048), (4096, 1024), (4096, 5504), (4096, 2752),
+             (4096, 16000), (4096, 8000), (2048, 4096), (1024, 4096),
+             (5504, 4096), (2752, 4096)]
+
+
+def _k5_inputs(gen, M, K, N, dtype=torch.bfloat16):
+    x = torch.randn((M, 1, K), generator=gen, device="cuda").to(dtype)
+    wq = {"q": torch.randint(-127, 128, (K, N), generator=gen,
+                             device="cuda", dtype=torch.int8),
+          "scale": torch.rand((1, N), generator=gen, device="cuda") * 1e-3
+          + 1e-4}
+    return x, wq
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("K,N", K5_SHAPES)
+def test_k5_matches_plain(K, N, M):
+    """K5 against the plain product at every main-path shape, with a bf16
+    and an fp32 (the lm_head's logits) result; each call one launch."""
+    gen = torch.Generator(device="cuda").manual_seed(K + N + M)
+    x, wq = _k5_inputs(gen, M, K, N)
+    for out in (None, torch.float32):
+        n = dequant_matmul.launches
+        got = dequant_matmul(x, wq, out_dtype=out)
+        want = dequant_matmul_reference(x, wq, out_dtype=out)
+        assert dequant_matmul.launches == n + 1
+        assert got.shape == want.shape == (M, 1, N)
+        assert got.dtype == want.dtype
+        assert _rel(got, want) <= (1e-5 if out else 2e-2)
+
+
+def test_k5_fp16_and_ragged_k():
+    """fp16 activations, and K not a multiple of a block's rows."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for K, N, M in ((4096, 4096, 2), (344, 48, 3), (1000, 272, 8)):
+        x, wq = _k5_inputs(gen, M, K, N, torch.float16)
+        for out in (None, torch.float32):
+            got = dequant_matmul(x, wq, out_dtype=out)
+            want = dequant_matmul_reference(x, wq, out_dtype=out)
+            assert got.dtype == (out or torch.float16)
+            assert _rel(got, want) <= (1e-5 if out else 2e-2)
+
+
+def test_k5_is_deterministic():
+    """Two launches give the same bits: the split-K partials are added in
+    split order by the last block of a tile, never by float atomics."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for K, N, M in ((11008, 4096, 8), (4096, 32000, 1), (4096, 1024, 3)):
+        x, wq = _k5_inputs(gen, M, K, N)
+        first = dequant_matmul(x, wq, out_dtype=torch.float32)
+        for _ in range(3):
+            assert torch.equal(dequant_matmul(x, wq, out_dtype=torch.float32),
+                               first)
+
+
+def test_k5_large_m_takes_the_plain_product():
+    """Above K5_MAX_ROWS rows (prefill sizes) the product is the plain
+    one, with no launch."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, wq = _k5_inputs(gen, quant.K5_MAX_ROWS + 1, 256, 512)
+    n = dequant_matmul.launches
+    assert torch.equal(dequant_matmul(x, wq), dequant_matmul_reference(x, wq))
+    assert dequant_matmul.launches == n
+
+
+def test_k5_graph_replays_the_eager_call_and_owns_its_scratch():
+    """Three K5 calls captured on one stream, the scratch growing inside
+    the capture, then eager calls at a larger shape on that stream (which
+    outgrow the stream's own scratch): the replay writes to scratch its
+    record keeps, gives the eager outputs bit for bit, and is counted."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [_k5_inputs(gen, M, K, N) for M, K, N in (
+        (1, 1024, 4096), (2, 4096, 11008), (4, 4096, 32000))]
+    eager = [dequant_matmul(x, wq, out_dtype=torch.float32)
+             for x, wq in cases]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph = torch.cuda.CUDAGraph()
+        with quant.capturing() as record:
+            graph.capture_begin()
+            outs = [dequant_matmul(x, wq, out_dtype=torch.float32)
+                    for x, wq in cases]
+            graph.capture_end()
+        assert record.launches == [(1, 1024, 4096), (2, 4096, 11008),
+                                   (4, 4096, 32000)]
+        assert record.scratch.outgrown  # grown inside the capture
+        x, wq = _k5_inputs(gen, 8, 11008, 32000)
+        dequant_matmul(x, wq)
+        n = dequant_matmul.launches
+        graph.replay()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    assert dequant_matmul.launches == n  # a raw replay is the owner's to count
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)
+
+
+def test_k5_in_a_captured_step_is_counted_at_each_replay():
+    """A CapturedStep (the base of every graph of the port) records K5's
+    launches and adds them to the counter at each replay."""
+    from modelcompose_tpu_torch.core.decode_graph import CapturedStep
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x, wq = _k5_inputs(gen, 2, 4096, 4096)
+
+    class Step(CapturedStep):
+        def _step(self):
+            return dequant_matmul(dequant_matmul(x, wq), wq)
+    step = Step("cuda")
+    want = dequant_matmul(dequant_matmul(x, wq), wq)
+    for _ in range(3):
+        n = dequant_matmul.launches
+        assert torch.equal(step.run(), want)
+        assert dequant_matmul.launches == n + 2
+    assert step.graph is not None and len(step.k5.launches) == 2
+
+
+def test_k5_captured_outside_a_record_raises():
+    """A K5 launch captured with no record would run uncounted at every
+    replay: it raises instead."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x, wq = _k5_inputs(gen, 1, 4096, 4096)
+    dequant_matmul(x, wq)  # built
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            with pytest.raises(RuntimeError, match="capturing"):
+                dequant_matmul(x, wq)
+        finally:
+            graph.capture_end()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["n_not_16", "q_not_contiguous", "x_fp32",
+                                  "x_strided", "scale_bf16", "q_on_cpu"])
+def test_k5_rejects(case):
+    """What K5 does not take raises, on the card too (no fallback)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x, wq = _k5_inputs(gen, 2, 256, 64)
+    if case == "n_not_16":
+        wq = {"q": wq["q"][:, :40].contiguous(),
+              "scale": wq["scale"][:, :40].contiguous()}
+    elif case == "q_not_contiguous":
+        wq = dict(wq, q=torch.randint(-127, 128, (64, 256), generator=gen,
+                                      device="cuda", dtype=torch.int8).t())
+    elif case == "x_fp32":
+        x = x.float()
+    elif case == "x_strided":
+        x = torch.zeros((2, 1, 512), dtype=torch.bfloat16,
+                        device="cuda")[..., ::2]
+    elif case == "scale_bf16":
+        wq = dict(wq, scale=wq["scale"].to(torch.bfloat16))
+    elif case == "q_on_cpu":
+        wq = dict(wq, q=wq["q"].cpu())
+    with pytest.raises((TypeError, ValueError)):
+        dequant_matmul(x, wq)
+
+
+@pytest.mark.parametrize("out", [None, torch.float32])
+def test_k5_backward_matches_plain(out):
+    """dL/dx through K5's autograd Function against the plain product's
+    autograd, on the same cotangent."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x, wq = _k5_inputs(gen, 4, 4096, 11008)
+    g = torch.randn((4, 1, 11008), generator=gen, device="cuda").to(
+        out or x.dtype)
+    grads = []
+    for fn in (dequant_matmul, dequant_matmul_reference):
+        xr = x.clone().requires_grad_(True)
+        (dx,) = torch.autograd.grad(fn(xr, wq, out_dtype=out), xr, g)
+        grads.append(dx)
+    assert grads[0].dtype == x.dtype
+    assert _rel(grads[0], grads[1]) <= 2e-2
+
+
+
 def _tiny_card_backbone(quantized_base):
     """A 2-layer bf16 backbone K2 takes (head_dim 64, GQA group 2), with
     nonzero LoRA B so the adapter branch counts."""
@@ -655,7 +843,8 @@ def test_decode_graph_replays_the_eager_step_bit_for_bit(quantized_base,
     """Prefill two rows, then 12 greedy steps eagerly and 12 through a
     DecodeGraph: ids equal and logits bit-equal at every step (the same
     kernels on the same addresses' data), and each replay counts the K2
-    launches it ran."""
+    launches it ran, and with an int8 base the K5 launches (seven products
+    a layer and the lm_head)."""
     from modelcompose_tpu_torch.core import generate as tgen
     from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
     from modelcompose_tpu_torch.ops.routed_lora import as_table
@@ -667,6 +856,7 @@ def test_decode_graph_replays_the_eager_step_bit_for_bit(quantized_base,
     table = as_table(cfg.routing_table(), "cuda")
     graph = DecodeGraph(params, cfg, B, S, kv_quant=kv_quant,
                         routing_table=table)
+    k5_per_step = (7 * cfg.num_hidden_layers + 1) if quantized_base else 0
     runs = []
     for cache in (None, graph.cache):
         with torch.no_grad():
@@ -678,9 +868,11 @@ def test_decode_graph_replays_the_eager_step_bit_for_bit(quantized_base,
             tokens = logits.argmax(-1)
             if cache is graph.cache:
                 n = flash_decode_attention.launches
+                n5 = dequant_matmul.launches
                 logits = graph(tokens, kv).clone()
                 assert flash_decode_attention.launches \
                     == n + cfg.num_hidden_layers
+                assert dequant_matmul.launches == n5 + k5_per_step
             else:
                 with torch.no_grad():
                     logits, cache, _ = tgen._decode_step(
@@ -690,6 +882,7 @@ def test_decode_graph_replays_the_eager_step_bit_for_bit(quantized_base,
         runs.append(steps)
     assert graph.graph is not None and len(graph.k2.launches) \
         == cfg.num_hidden_layers
+    assert len(graph.k5.launches) == k5_per_step
     for (t_e, l_e), (t_g, l_g) in zip(*runs):
         assert torch.equal(t_e, t_g)
         assert torch.equal(l_e, l_g), (l_e - l_g).abs().max().item()
