@@ -391,11 +391,13 @@ def device_time_cycle_ms(fn, n: int, rounds: int = 2) -> float:
     return total_us / 1e3 / (rounds * n) if total_us > 0 else None
 
 
-def graph_time_ms(fn, n: int = 20, replays: int = 5):
+def graph_time_ms(fn, n: int = 20, replays: int = 5, records=()):
     """Device time of one ``fn()`` with the host's launch gaps taken out:
     ``n`` calls captured into one CUDA graph, replayed ``replays`` times
-    between two events.  None, with the reason logged, when ``fn`` cannot
-    be captured."""
+    between two events.  ``records`` are more capture-record context
+    managers to enter (an earlier checkout's wrappers).  None, with the
+    reason logged, when ``fn`` cannot be captured."""
+    import contextlib
     import torch
     from modelcompose_tpu_torch.ops import flash_attention, flash_decode, quant
     side = torch.cuda.Stream()
@@ -412,10 +414,11 @@ def graph_time_ms(fn, n: int = 20, replays: int = 5):
         # launches)
         with flash_decode.capturing() as record, \
                 quant.capturing() as k5_record, \
-                flash_attention.capturing(), torch.cuda.graph(
-                    graph, capture_error_mode="thread_local"):
-            for _ in range(n):
-                fn()
+                flash_attention.capturing(), contextlib.ExitStack() as more:
+            kept = [more.enter_context(r()) for r in records]
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                for _ in range(n):
+                    fn()
     except Exception as e:  # noqa: BLE001 — reported as not measured
         log("graph", not_captured=repr(e)[:200])
         torch.cuda.synchronize()
@@ -429,7 +432,7 @@ def graph_time_ms(fn, n: int = 20, replays: int = 5):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    del record, k5_record
+    del record, k5_record, kept
     return start.elapsed_time(end) / (n * replays)
 
 
@@ -768,15 +771,15 @@ def phase_build():
 
 def _ptxas_report(text: str):
     """{instantiation: "registers, spills"} from nvcc's -Xptxas -v output:
-    the kernel's name and template arguments as mangled (``ILi128ELi1EaE``:
-    128, 1, int8)."""
+    the kernel's name and template arguments, if any, as mangled
+    (``ILi128ELi1EaE``: 128, 1, int8)."""
     import re
     report, current = {}, None
     for ln in text.splitlines():
-        m = re.search(r"Compiling entry function '.*?([a-z]+_[a-z_]*_kernel)"
-                      r"(I\w*?E)E", ln)
+        m = re.search(r"Compiling entry function '.*?([a-z]+_[a-z_]*_kernel"
+                      r"(?:_[a-z]+)*)(I\w*?E)?E", ln)
         if m:
-            current = m.group(1) + m.group(2)
+            current = m.group(1) + (m.group(2) or "")
         elif current and "spill" in ln:
             report[current] = ln.strip()
         elif current and "registers" in ln:
@@ -1071,6 +1074,7 @@ K5_TP_SHAPES = {f"tp{tp} {name}": (K // tp, N) if name in ("qkvo_row",
                                      ("down", (11008, 4096)),
                                      ("lm_head", (4096, 32000)))}
 K5_ROWS = (1, 2, 3, 4, 8)
+K5_CHECKED_ROWS = range(1, 9)  # every row count K5 takes, checked untimed
 K5_TP_ROWS = (1, 8)  # the tp shards are timed at a request's and the pool's
 K5_LAYERS = 32  # weight copies cycled through, so each launch is cold in L2
 
@@ -1145,11 +1149,14 @@ def _k5_case(gen, weights, M, K, N, timed=True):
 
 
 def phase_k5(device, gen):
-    """K5 against its plain version at every main-path shape and row count
-    (bf16 and fp32 results), timed at the Vicuna-7B shapes for every row
-    count and at the tp shards for 1 and 8 rows; the sum over one decode
-    step's products at each row count beside its bound."""
+    """K5 against its plain version at every main-path shape and tp shard
+    at every row count 1-8 (bf16 and fp32 results), with each shape's grid
+    (rows a block, splits, 64-column tiles) printed; timed at the
+    Vicuna-7B shapes at 1, 2, 3, 4 and 8 rows and at the tp shards at 1 and
+    8; the sum over one decode step's products at each timed row count
+    beside its bound."""
     import torch
+    from modelcompose_tpu_torch.ops import quant
     cases, tp_cases, errs = [], [], []
     for table, rows, out in ((K5_SHAPES, K5_ROWS, cases),
                              (K5_TP_SHAPES, K5_TP_ROWS, tp_cases)):
@@ -1159,7 +1166,11 @@ def phase_k5(device, gen):
                         "scale": torch.rand((1, N), generator=gen,
                                             device=device) * 1e-3 + 1e-4}
                        for _ in range(K5_LAYERS)]
-            for M in K5_ROWS:
+            log("K5", shape=name, K=K, N=N, grid=json.dumps(
+                {M: dict(zip(("tile", "rows", "splits", "tiles"),
+                             quant._k5_plan(M, K, N)))
+                 for M in K5_CHECKED_ROWS}))
+            for M in K5_CHECKED_ROWS:
                 res = dict(_k5_case(gen, weights, M, K, N,
                                     timed=M in rows), shape=name)
                 errs.append(res["max_abs_err"])

@@ -73,7 +73,7 @@ SIGNATURES = {
     "w8a16_gemv": {
         "mc_w8a16_gemv": (
             [_P, _P, _P, _P, _P, _P,      # x q scale part counters out
-             _I, _I, _I, _I, _I,          # M K N ldx rows
+             _I, _I, _I, _I, _I, _I,      # M K N ldx rows tile
              _I, _I, _P], _I),            # x_bf16 out_type stream
     },
 }

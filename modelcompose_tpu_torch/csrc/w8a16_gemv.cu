@@ -14,82 +14,182 @@
 // q, k, v, o, gate, up and down in every layer, and the lm_head.
 //
 // What bounds it on the H100: device-memory bytes.  Each weight is one byte
-// read once, and does 2 * M flops (M <= 8: at most 16 flops a byte, far
-// under the ~295 the tensor cores need a byte), so the least time is the
-// weight's bytes over 3.35 TB/s: 5.0 us for a 4096 x 4096 matrix.  The
-// design keeps the memory busy and does nothing else:
-//   - a thread loads 16 contiguous int8 columns of a row as one 16-byte
-//     load; a warp spans a 512-column tile of the row (512 contiguous
-//     bytes), and the 8 warps of a block take interleaved rows of the
-//     block's K range, each with 8 row loads in flight before it converts
-//     any: 32 KB in flight a block;
-//   - K is split across blocks (at most 512 rows a block, about two blocks
-//     an SM over the whole grid), so even a 4096-column matrix puts ~256
-//     blocks on the 132 SMs;
-//   - the block's K-chunk of x is staged once in shared memory as fp32
-//     ([row][M] padded to a vector width), read back as a broadcast;
-//   - the M x 16 fp32 accumulators stay in registers; int8 becomes fp32 by
-//     a byte permute and an add (exact, `cvt4`);
-//   - the 8 warps' sums meet in shared memory in a fixed order; with K
-//     split, each block writes its fp32 partial and bumps a counter of its
-//     column tile, and the last block of the tile adds the partials in
-//     split order (deterministic: no float atomics) and resets the counter
-//     (as K2 combines its splits), so a product is one launch;
-//   - the per-column scale and the cast are the epilogue.
-// Later work: a TMA + wgmma W8A16 GEMM for large M (prefill, chunks,
-// training), which still converts the weight with a copy; `wgmma` and TMA
-// do not pay here, where a row of x meets each weight byte once.
+// read once and does 2 * M flops (at most 16 a byte, far under the ~295 the
+// tensor cores need a byte), so the least time is the weight's bytes over
+// 3.35 TB/s: 5.0 us for a 4096 x 4096 matrix.  Three things stand between a
+// kernel and that bound, and the design answers each:
+//   - the instruction rate at several rows.  Scalar fp32 FMAs cost M a
+//     weight byte, ~10 instructions a byte with the convert at M = 8: more
+//     than the 132 SMs issue at 3.35 TB/s.  At 2-8 rows the products run on
+//     the tensor cores, `mma.sync.m16n8k16` with fp32 accumulators, on the
+//     transposed product y^T[n, m] = sum_k q^T[n, k] x^T[k, m]: 16 weight
+//     columns are the 16-row A operand, x's rows (zero past M) the 8-wide B
+//     operand, so one warp instruction does 16 columns x 16 k x 8 rows
+//     whatever M is.  The int8 A fragment becomes bf16 in registers,
+//     exactly (|q| <= 127), by a byte permute, two masks and one packed add
+//     (two bf16 values that sum to q: 128 + (q & 127), and -128 or -256 by
+//     q's sign bit); fp16 activations take the f16 mma and a magic-number
+//     subtract.  About 2.3 instructions a weight byte at every M.
+//   - the weight stream.  TMA copies [rows][<= 128 B] boxes of q, in its
+//     [K, N] layout, into a ring of 4 stages of 8 KB with mbarriers, fed by
+//     one producer warp; 8 consumer warps each take a 16-row k-step of 64
+//     columns from every stage, read their A words from shared memory (the
+//     transpose the fragment needs) and release the slot once the words are
+//     converted.  How fast a column tile streams grows with its width (long
+//     runs of each weight row): on the H100, the lm_head at two rows
+//     streams at 1.67, 1.97 and 2.28 TB/s with tiles of 64, 128 and 256
+//     columns (scripts/torch_kernel_ab.py --only K5).
+//   - the split-K tail.  A narrow tile lets the grid fill the 132 SMs with
+//     few K splits, so the partials are small; a wide one streams faster.
+//     The caller's rule (ops/quant.py `_k5_plan`) picks the tile (64, 128
+//     or 256 columns) and the split count for each (M, K, N): at 8 rows the
+//     fp32 partials stay under 1/8 of the weight's bytes and the last block
+//     of a tile reads at most 32 KB of them.  The combine: each split
+//     writes its partial and bumps a counter of its column tile, the last
+//     block adds the partials in split order (deterministic: no float
+//     atomics) and resets the counter, so a product is one launch and a
+//     graph replay gives the eager call's bits.
+// At one row the scalar loop of the first K5 stays (its own kernel below):
+// it streams 512 contiguous bytes a warp and row, faster than the ring at
+// one row, and needs neither tensor cores nor a transpose.
+// The A fragment pairs two k of one column, while q is [K, N] with N
+// contiguous: thread (g, t) of a warp reads 8 bytes (8 columns) from each of
+// rows t, t + 4, t + 8, t + 12 of its k-step, and those four rows are the
+// four k slots (2t, 2t + 1, 2t + 8, 2t + 9) of its fragment; each of its 8
+// columns is an A row of one of the four mma tiles.  B uses the same k
+// order: x is staged once a block in shared memory as bf16/fp16 already in
+// fragment order (one 8-byte read a k-step).  The swizzle of the TMA box
+// and the column group given to each g keep a half-warp's 8-byte reads on
+// distinct banks (64-column tiles) or at most two deep (wider ones).
 //
 // Layouts: x [M, K] bf16 or fp16 with row stride ldx (elements); q [K, N]
 // int8 row-major, N % 16 == 0, 16-byte aligned; scale [N] fp32; part
-// [n_splits, M, N] fp32 and counters [n_tiles] uint32, zero between launches
-// (used only when K is split); out [M, N] fp32, bf16 or fp16.
+// [n_splits, M, N] fp32 and counters [ceil(N / tile)] uint32, zero between
+// launches (used only when K is split); out [M, N] fp32, bf16 or fp16.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <type_traits>
+#include <unordered_map>
+
 #include "hopper.cuh"
 
 namespace {
 
-using hopper::cvt4;
+using hopper::fence_barrier_init;
+using hopper::fence_proxy_async;
+using hopper::make_map_3d;
+using hopper::mbar_arrive;
+using hopper::mbar_arrive_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_addr;
+using hopper::tma_load_3d;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 16;               // int8 columns a thread: one 16 B load
-constexpr int kTileN = 32 * kCols;      // columns a block: one warp across
-constexpr int kMaxRows = 512;           // K rows a block
-constexpr int kUnroll = 8;              // row loads a warp keeps in flight
+constexpr int kStep = 16;                    // K rows of one mma
+constexpr int kGroup = 64;                   // columns a warp covers
+constexpr int kWarps = 8;                    // consumer warps
+constexpr int kThreads = (kWarps + 1) * 32;  // + one producer warp
+constexpr int kStageBytes = 8192;            // one stage of the ring
+constexpr int kStages = 4;        // ring depth
+constexpr int kRingBytes = kStages * kStageBytes;
+constexpr int kMaxRows = 2048;               // K rows a block
 constexpr int kMaxM = 8;
 
 enum OutType { kOutF32 = 0, kOutBF16 = 1, kOutF16 = 2 };
 
-// x's row stride in shared memory: M padded to a vector load.
-template <int M>
-__host__ __device__ constexpr int x_stride() {
-  return M == 1 ? 1 : M == 2 ? 2 : M <= 4 ? 4 : 8;
+// The layout of a stage for a column tile of kTile int8 columns: kTile / 64
+// groups of 64 columns, each group's columns read by kSteps warps, one
+// 16-row k-step each, so a stage is kSteps * 16 rows deep; TMA boxes of at
+// most 128 bytes a row (the widest swizzle), kBoxes of them side by side.
+template <int kTile>
+struct Stage {
+  static constexpr int kGroups = kTile / kGroup;
+  static constexpr int kSteps = kWarps / kGroups;
+  static constexpr int kRows = kSteps * kStep;
+  static constexpr int kBox = kTile < 128 ? kTile : 128;
+  static constexpr int kBoxes = kTile / kBox;
+  static constexpr int kRedStride = kTile + 4;  // floats a row of the sums
+  static_assert(kRows * kTile == kStageBytes, "a stage is 8 KB");
+};
+
+// Bytes of x's fragments for `rows` K rows: 32 lanes x 8 bytes a k-step.
+__host__ __device__ constexpr int x_frag_bytes(int rows) {
+  return (rows + kStep - 1) / kStep * 32 * 8;
 }
 
-template <int S>
-__device__ __forceinline__ void load_x(const float* p, float* xr) {
-  if constexpr (S == 1) {
-    xr[0] = p[0];
-  } else if constexpr (S == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    xr[0] = t.x;
-    xr[1] = t.y;
+// Dynamic shared memory of a block: the ring (1024-aligned), x's
+// fragments, the full and empty barriers, and the slack to align.
+__host__ __device__ constexpr int smem_bytes(int rows) {
+  return 1024 + kRingBytes + x_frag_bytes(rows) + 2 * kStages * 8 + 16;
+}
+
+// The 8-byte column group (of a warp's eight) read by A-row group g: the
+// groups of g and g ^ 1 share a 16-byte chunk, and the chunks of g = 0..3
+// (and of 4..7) are {0, 2} (and {1, 3}), so under the 64-byte swizzle a
+// half-warp's reads of its 4 rows meet no bank twice (under the 128-byte
+// swizzle, twice at most).
+__device__ __forceinline__ int col_group(int g) {
+  return ((g & 2) << 1) | ((g & 4) >> 1) | (g & 1);  // 0 1 4 5 2 3 6 7
+}
+
+// Byte offset of (row, byte col) in a stage of kBoxes [kRows][kBox] boxes
+// written by TMA with the kBox-byte swizzle from a 1024-aligned base: the
+// 16-byte chunk index is XORed with bits 1-2 (64 B) or 0-2 (128 B) of the
+// row.
+template <int kTile>
+__device__ __forceinline__ int stage_offset(int row, int col) {
+  using S = Stage<kTile>;
+  const int box = col / S::kBox, c = col % S::kBox;
+  const int chunk = S::kBox == 64 ? ((c >> 4) ^ (row >> 1)) & 3
+                                  : ((c >> 4) ^ row) & 7;
+  return box * S::kRows * S::kBox + row * S::kBox + (chunk << 4) + (c & 15);
+}
+
+// The int8 bytes p of words u and v (one column on two k rows) as a packed
+// pair {u[p], v[p]} of the activations' type, exactly.
+template <typename T>
+__device__ __forceinline__ uint32_t cvt_pair(uint32_t u, uint32_t v, int p) {
+  const uint32_t g = __byte_perm(u, v, p * 0x1111 + 0x4400);
+  uint32_t d;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // 128 + (q & 127) plus -128 (q >= 0) or -256 (q < 0): both exact
+    const uint32_t lo = (g & 0x007F007Fu) | 0x43004300u;
+    const uint32_t hi = (g & 0x00800080u) | 0xC300C300u;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+        : "=r"(d)
+        : "r"(lo), "r"(0x3F803F80u), "r"(hi));
   } else {
-#pragma unroll
-    for (int j = 0; j < S; j += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + j);
-      xr[j] = t.x;
-      xr[j + 1] = t.y;
-      xr[j + 2] = t.z;
-      xr[j + 3] = t.w;
-    }
+    // 1024 + (q + 128) as fp16 bits, minus 1152
+    const uint32_t h = (g & 0x00FF00FFu) ^ 0x64806480u;
+    asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(h), "r"(0x64806480u));
   }
+  return d;
+}
+
+// D[16 x 8] += A[16 x 16] B[16 x 8], fp32 accumulators.
+template <typename T>
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two neighbouring outputs of row m, scaled, in the output's type.
@@ -107,103 +207,140 @@ __device__ __forceinline__ void store2(void* out, int out_type, long idx,
   }
 }
 
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-dequant_gemv_kernel(const void* __restrict__ x, int x_bf16, int ldx,
-                    const int8_t* __restrict__ q,
-                    const float* __restrict__ scale,
-                    float* __restrict__ part, unsigned* __restrict__ counters,
-                    void* __restrict__ out, int out_type, int K, int N,
-                    int rows) {
-  constexpr int S = x_stride<M>();
-  __shared__ __align__(16) float sX[kMaxRows * S];
-  __shared__ __align__(16) float sRed[kWarps * kTileN];
+// x's rows [k0, k0 + n) into fragment order: element (m, k0 + 16s + 4j + t)
+// at half-word (32s + 4m + t) * 4 + j, so lane 4m + t reads its B fragment
+// {b0, b1} of k-step s as one 8-byte word.  Rows m >= M and k past n are
+// zero.  Reads are coalesced along K, 8 elements a thread where `vec`.
+template <typename T>
+__device__ __forceinline__ void stage_x(const T* __restrict__ x, int ldx,
+                                        int vec, int M, int k0, int n,
+                                        int n_steps, uint16_t* sx, int tid) {
+  const int width = n_steps * kStep;  // K rows staged, n rounded up
+  const int chunks = width / 8;
+  for (int i = tid; i < kMaxM * chunks; i += kWarps * 32) {
+    const int m = i / chunks, kl = (i - m * chunks) * 8;
+    uint16_t e[8];
+    if (m < M && vec && kl + 8 <= n) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(
+          x + (long)m * ldx + k0 + kl));
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        e[2 * c] = static_cast<uint16_t>(ws[c] & 0xFFFFu);
+        e[2 * c + 1] = static_cast<uint16_t>(ws[c] >> 16);
+      }
+    } else {
+      const uint16_t* xs = reinterpret_cast<const uint16_t*>(x);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        e[c] = m < M && kl + c < n ? xs[(long)m * ldx + k0 + kl + c] : 0;
+    }
+    const int s = kl / kStep, r = kl % kStep;  // r is 0 or 8
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int j = (r + c) >> 2, t = (r + c) & 3;
+      sx[(s * 32 + 4 * m + t) * 4 + j] = e[c];
+    }
+  }
+}
+
+// One row of x (batch-1 decode): the scalar loop, which streams the weight
+// faster than the tensor-core kernel there (longer runs of each row).  A
+// thread loads 16 int8 columns of a row as one 16-byte load; a warp spans a
+// 512-column tile of the row, and the 8 warps take interleaved rows of the
+// block's K range (at most 512), 8 row loads in flight each; the block's
+// K-chunk of x is staged as fp32; int8 becomes fp32 by a byte permute and
+// an add (`cvt4`); 16 fp32 FMAs a 16-byte load.  The split combine is the
+// one above, over 512-column tiles.
+constexpr int kRowCols = 16;               // int8 columns a thread
+constexpr int kRowTile = 32 * kRowCols;    // 512 columns a block
+constexpr int kRowMaxRows = 512;           // K rows a block
+constexpr int kRowStep = 64;               // a block's rows: whole 8-row steps
+constexpr int kRowUnroll = 8;              // row loads a warp keeps in flight
+constexpr int kRowThreads = kWarps * 32;
+
+__global__ void __launch_bounds__(kRowThreads)
+dequant_gemv_kernel_one_row(const void* __restrict__ x, int x_bf16,
+                            const int8_t* __restrict__ q,
+                            const float* __restrict__ scale,
+                            float* __restrict__ part,
+                            unsigned* __restrict__ counters,
+                            void* __restrict__ out, int out_type, int K,
+                            int N, int rows) {
+  __shared__ __align__(16) float sX[kRowMaxRows];
+  __shared__ __align__(16) float sRed[kWarps * kRowTile];
   __shared__ int sLast;
 
   const int tile = blockIdx.x, split = blockIdx.y, n_splits = gridDim.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int k0 = split * rows;
   const int n = min(rows, K - k0);  // > 0: the host makes ceil(K / rows)
-  const int col = tile * kTileN + lane * kCols;
+  const int col = tile * kRowTile + lane * kRowCols;
 
-  // This block's rows of x as fp32, [row][S]: coalesced along K.
-  for (int i = tid; i < M * n; i += kThreads) {
-    const int m = i / n, r = i - m * n;
-    const long idx = (long)m * ldx + k0 + r;
-    sX[r * S + m] =
-        x_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[idx])
-               : __half2float(static_cast<const __half*>(x)[idx]);
-  }
+  for (int r = tid; r < n; r += kRowThreads)
+    sX[r] = x_bf16
+                ? __bfloat162float(
+                      static_cast<const __nv_bfloat16*>(x)[k0 + r])
+                : __half2float(static_cast<const __half*>(x)[k0 + r]);
   __syncthreads();
 
-  float acc[M][kCols];
+  float acc[kRowCols];
 #pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[m][c] = 0.f;
+  for (int c = 0; c < kRowCols; ++c) acc[c] = 0.f;
   if (col < N) {  // N % 16 == 0: a thread's 16 columns are all in or out
     const int8_t* qp = q + (long)k0 * N + col;
-    for (int r0 = warp; r0 < n; r0 += kWarps * kUnroll) {
-      uint4 w[kUnroll];
+    for (int r0 = warp; r0 < n; r0 += kWarps * kRowUnroll) {
+      uint4 w[kRowUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kRowUnroll; ++u) {
         const int r = r0 + u * kWarps;
         w[u] = r < n ? __ldcs(reinterpret_cast<const uint4*>(qp + (long)r * N))
                      : make_uint4(0u, 0u, 0u, 0u);
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kRowUnroll; ++u) {
         const int r = r0 + u * kWarps;
         if (r < n) {  // warp-uniform
-          float xr[S], wf[kCols];
-          load_x<S>(sX + r * S, xr);
-          cvt4(w[u].x, wf);
-          cvt4(w[u].y, wf + 4);
-          cvt4(w[u].z, wf + 8);
-          cvt4(w[u].w, wf + 12);
+          const float xr = sX[r];
+          float wf[kRowCols];
+          hopper::cvt4(w[u].x, wf);
+          hopper::cvt4(w[u].y, wf + 4);
+          hopper::cvt4(w[u].z, wf + 8);
+          hopper::cvt4(w[u].w, wf + 12);
 #pragma unroll
-          for (int m = 0; m < M; ++m)
-#pragma unroll
-            for (int c = 0; c < kCols; ++c)
-              acc[m][c] = fmaf(xr[m], wf[c], acc[m][c]);
+          for (int c = 0; c < kRowCols; ++c) acc[c] = fmaf(xr, wf[c], acc[c]);
         }
       }
     }
   }
 
-  // The warps' sums, row by row of x, in warp order; each thread then owns
-  // two columns of the tile.
+  // The warps' sums in warp order; each thread then owns two columns.
+#pragma unroll
+  for (int c = 0; c < kRowCols; c += 4)
+    *reinterpret_cast<float4*>(sRed + warp * kRowTile + lane * kRowCols + c) =
+        make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
+  __syncthreads();
   const int c2 = 2 * tid;
-  const int n_col = tile * kTileN + c2;
+  const int n_col = tile * kRowTile + c2;
   float2 sc = make_float2(0.f, 0.f);
-  if (n_col < N) sc = *reinterpret_cast<const float2*>(scale + n_col);
+  float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-  for (int m = 0; m < M; ++m) {
-#pragma unroll
-    for (int c = 0; c < kCols; c += 4)
-      *reinterpret_cast<float4*>(sRed + warp * kTileN + lane * kCols + c) =
-          make_float4(acc[m][c], acc[m][c + 1], acc[m][c + 2], acc[m][c + 3]);
-    __syncthreads();
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float2 t =
-          *reinterpret_cast<const float2*>(sRed + w * kTileN + c2);
-      s0 += t.x;
-      s1 += t.y;
-    }
-    if (n_col < N) {
-      if (n_splits == 1)
-        store2(out, out_type, (long)m * N + n_col, s0 * sc.x, s1 * sc.y);
-      else
-        *reinterpret_cast<float2*>(part + ((long)split * M + m) * N + n_col) =
-            make_float2(s0, s1);
-    }
-    __syncthreads();
+  for (int w = 0; w < kWarps; ++w) {
+    const float2 t =
+        *reinterpret_cast<const float2*>(sRed + w * kRowTile + c2);
+    s0 += t.x;
+    s1 += t.y;
+  }
+  if (n_col < N) {
+    sc = *reinterpret_cast<const float2*>(scale + n_col);
+    if (n_splits == 1)
+      store2(out, out_type, n_col, s0 * sc.x, s1 * sc.y);
+    else
+      *reinterpret_cast<float2*>(part + (long)split * N + n_col) =
+          make_float2(s0, s1);
   }
   if (n_splits == 1) return;
 
-  // The last split of this column tile to finish adds them all, in order.
   __threadfence();
   __syncthreads();
   if (tid == 0) {
@@ -214,66 +351,329 @@ dequant_gemv_kernel(const void* __restrict__ x, int x_bf16, int ldx,
   if (!sLast) return;
   __threadfence();
   if (n_col < N) {
+    float t0 = 0.f, t1 = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < n_splits; ++s) {
+      const float2 v = __ldcg(
+          reinterpret_cast<const float2*>(part + (long)s * N + n_col));
+      t0 += v.x;
+      t1 += v.y;
+    }
+    store2(out, out_type, n_col, t0 * sc.x, t1 * sc.y);
+  }
+  if (tid == 0) counters[tile] = 0;  // ready for the next launch
+}
+
+template <typename T, int kTile>
+__global__ void __launch_bounds__(kThreads, 2)
+dequant_gemv_kernel(const __grid_constant__ CUtensorMap tq,
+                    const T* __restrict__ x, int ldx, int vec,
+                    const float* __restrict__ scale,
+                    float* __restrict__ part, unsigned* __restrict__ counters,
+                    void* __restrict__ out, int out_type, int M, int K, int N,
+                    int rows) {
+  using S = Stage<kTile>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int tile = blockIdx.x, split = blockIdx.y, n_splits = gridDim.y;
+  const int k0 = split * rows;
+  const int n = min(rows, K - k0);  // > 0: the host makes ceil(K / rows)
+  const int n_steps = (n + kStep - 1) / kStep;
+  const int n_stages = (n_steps + S::kSteps - 1) / S::kSteps;
+  uint16_t* sx = reinterpret_cast<uint16_t*>(ring + kRingBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      ring + kRingBytes + n_steps * 32 * 8);
+  int* s_last = reinterpret_cast<int*>(bars + 2 * kStages);
+  const uint32_t full0 = smem_addr(bars), empty0 = smem_addr(bars + kStages);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  float acc[4][4];
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  // Consumer warp w reads the 64 columns of group grp of the tile, and
+  // k-step kstep of every stage.
+  const int grp = warp % S::kGroups, kstep = warp / S::kGroups;
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = kGroup * grp + 8 * col_group(g);
+
+  if (warp == kWarps) {
+    // The producer: one stage at a time, each into a slot all 8 consumer
+    // warps have freed.  The whole warp walks the ring (lane 0 issues), so
+    // it reaches the block's barriers below converged.
+    const uint32_t ring_s = smem_addr(ring);
+    for (int st = 0; st < n_stages; ++st) {
+      const int slot = st % kStages;
+      if (st >= kStages)
+        mbar_wait(empty0 + 8 * slot, (st / kStages - 1) & 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full0 + 8 * slot, kStageBytes);
+#pragma unroll
+        for (int b = 0; b < S::kBoxes; ++b)
+          tma_load_3d(ring_s + slot * kStageBytes + b * S::kRows * S::kBox,
+                      &tq, full0 + 8 * slot, tile * kTile + b * S::kBox,
+                      k0 + st * S::kRows, 0);
+      }
+      __syncwarp();
+    }
+  } else {
+    stage_x<T>(x, ldx, vec, M, k0, n, n_steps, sx, tid);
+    __syncwarp();
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kWarps * 32) : "memory");
+    const uint2* sxf = reinterpret_cast<const uint2*>(sx);
+    for (int st = 0; st < n_stages; ++st) {
+      const int slot = st % kStages;
+      mbar_wait(full0 + 8 * slot, (st / kStages) & 1);
+      const int ks = st * S::kSteps + kstep;
+      const bool live = ks < n_steps;  // warp-uniform
+      uint2 w[4], b = make_uint2(0u, 0u);
+      if (live) {
+        const uint8_t* stage = ring + slot * kStageBytes;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          w[j] = *reinterpret_cast<const uint2*>(
+              stage + stage_offset<kTile>(kStep * kstep + 4 * j + t, col0));
+        b = sxf[ks * 32 + lane];
+      }
+      uint32_t a[4][4];
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // tile i: A rows g and g + 8 are columns col0 + 2i and + 1
+          const uint32_t r0 = i < 2 ? w[0].x : w[0].y;
+          const uint32_t r1 = i < 2 ? w[1].x : w[1].y;
+          const uint32_t r2 = i < 2 ? w[2].x : w[2].y;
+          const uint32_t r3 = i < 2 ? w[3].x : w[3].y;
+          const int p = (2 * i) & 3;
+          a[i][0] = cvt_pair<T>(r0, r1, p);
+          a[i][1] = cvt_pair<T>(r0, r1, p + 1);
+          a[i][2] = cvt_pair<T>(r2, r3, p);
+          a[i][3] = cvt_pair<T>(r2, r3, p + 1);
+        }
+      }
+      // The slot is released only once the words read from it are in
+      // registers (converted), and after a proxy fence: the next box is
+      // written by TMA (the async proxy) over what these loads read.
+      // Arriving right after issuing the loads let TMA overwrite a slot
+      // still being read when two blocks shared an SM.
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma16816<T>(acc[i], a[i], b.x, b.y);
+      }
+    }
+  }
+
+  // The warps' sums meet in shared memory (the ring, whose every box has
+  // been waited for), row by row of x, then in k-step order.
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);  // [kstep][m][kRedStride]
+  if (warp < kWarps) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // acc: rows (columns) col0 + 2i, + 1; cols (rows of x) 2t, 2t + 1
+      float* r = red + (kstep * kMaxM + 2 * t) * S::kRedStride + col0 + 2 * i;
+      if (2 * t < M)
+        *reinterpret_cast<float2*>(r) = make_float2(acc[i][0], acc[i][2]);
+      if (2 * t + 1 < M)
+        *reinterpret_cast<float2*>(r + S::kRedStride) =
+            make_float2(acc[i][1], acc[i][3]);
+    }
+  }
+  __syncthreads();
+  // Thread tid < 256 owns row m = tid / 32 and columns c2, c2 + 1 of each
+  // 64-column group.
+  const int m = tid / 32;
+  const bool row_mine = tid < kWarps * 32 && m < M;
+  float2 sc[S::kGroups];
+#pragma unroll
+  for (int u = 0; u < S::kGroups; ++u) {
+    const int n_col = tile * kTile + kGroup * u + 2 * (tid % 32);
+    sc[u] = make_float2(0.f, 0.f);
+    if (row_mine && n_col < N) {
+      const int c2 = n_col - tile * kTile;
+      sc[u] = *reinterpret_cast<const float2*>(scale + n_col);
+      float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < S::kSteps; ++k) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            red + (k * kMaxM + m) * S::kRedStride + c2);
+        s.x += v.x;
+        s.y += v.y;
+      }
+      if (n_splits == 1)
+        store2(out, out_type, (long)m * N + n_col, s.x * sc[u].x,
+               s.y * sc[u].y);
+      else
+        *reinterpret_cast<float2*>(part + ((long)split * M + m) * N + n_col) =
+            s;
+    }
+  }
+  if (n_splits == 1) return;
+
+  // The last split of this column tile to finish adds them all, in order.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned done = atomicAdd(&counters[tile], 1u);
+    *s_last = done == static_cast<unsigned>(n_splits - 1);
+  }
+  __syncthreads();
+  if (!*s_last) return;
+  __threadfence();
+#pragma unroll
+  for (int u = 0; u < S::kGroups; ++u) {
+    const int n_col = tile * kTile + kGroup * u + 2 * (tid % 32);
+    if (row_mine && n_col < N) {
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll 8
-      for (int s = 0; s < n_splits; ++s) {
-        const float2 t = __ldcg(
-            reinterpret_cast<const float2*>(part + ((long)s * M + m) * N +
-                                            n_col));
-        s0 += t.x;
-        s1 += t.y;
+      for (int sp = 0; sp < n_splits; ++sp) {
+        const float2 v = __ldcg(reinterpret_cast<const float2*>(
+            part + ((long)sp * M + m) * N + n_col));
+        s0 += v.x;
+        s1 += v.y;
       }
-      store2(out, out_type, (long)m * N + n_col, s0 * sc.x, s1 * sc.y);
+      store2(out, out_type, (long)m * N + n_col, s0 * sc[u].x, s1 * sc[u].y);
     }
   }
   if (tid == 0) counters[tile] = 0;  // ready for the next launch
 }
 
-template <int M>
-cudaError_t launch(const void* x, int x_bf16, int ldx, const void* q,
-                   const void* scale, void* part, void* counters, void* out,
-                   int out_type, int K, int N, int rows, cudaStream_t stream) {
-  const dim3 grid((N + kTileN - 1) / kTileN, (K + rows - 1) / rows);
-  dequant_gemv_kernel<M><<<grid, kThreads, 0, stream>>>(
-      x, x_bf16, ldx, static_cast<const int8_t*>(q),
+// The tensor map of a weight [K][N] int8 with a [box_rows][box] box and the
+// box-wide swizzle, encoded once per weight and box shape and kept: a decode
+// step reuses the same ~225 weights every step.  Locked: ctypes releases
+// the GIL, so two host threads may launch at once.
+bool weight_map(CUtensorMap* map, const void* q, int K, int N, int box,
+                int box_rows) {
+  struct Key {
+    const void* q;
+    int K, N, box, box_rows;
+    bool operator==(const Key& o) const {
+      return q == o.q && K == o.K && N == o.N && box == o.box &&
+             box_rows == o.box_rows;
+    }
+  };
+  struct Hash {
+    size_t operator()(const Key& k) const {
+      return std::hash<const void*>()(k.q) ^ (size_t(k.K) << 20) ^
+             (size_t(k.N) << 4) ^ (size_t(k.box_rows) << 40) ^ k.box;
+    }
+  };
+  static std::unordered_map<Key, CUtensorMap, Hash> maps;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
+  const Key key{q, K, N, box, box_rows};
+  auto it = maps.find(key);
+  if (it != maps.end()) {
+    *map = it->second;
+    return true;
+  }
+  if (!make_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, N, K, 1, box,
+                   box_rows,
+                   box == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_128B))
+    return false;
+  if (maps.size() >= 4096) maps.clear();  // a map is a pure function of key
+  maps.emplace(key, *map);
+  return true;
+}
+
+template <typename T, int kTile>
+cudaError_t launch(const void* x, int ldx, const void* q, const void* scale,
+                   void* part, void* counters, void* out, int out_type, int M,
+                   int K, int N, int rows, cudaStream_t stream) {
+  using S = Stage<kTile>;
+  CUtensorMap map;
+  if (!weight_map(&map, q, K, N, S::kBox, S::kRows))
+    return cudaErrorNotSupported;
+  static bool attribute_set = false;  // once per instantiation
+  if (!attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dequant_gemv_kernel<T, kTile>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(kMaxRows));
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  (M == 1 || ldx % 8 == 0);
+  const dim3 grid((N + kTile - 1) / kTile, (K + rows - 1) / rows);
+  dequant_gemv_kernel<T, kTile><<<grid, kThreads, smem_bytes(rows), stream>>>(
+      map, static_cast<const T*>(x), ldx, vec,
       static_cast<const float*>(scale), static_cast<float*>(part),
-      static_cast<unsigned*>(counters), out, out_type, K, N, rows);
+      static_cast<unsigned*>(counters), out, out_type, M, K, N, rows);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int tile, const void* x, int ldx, const void* q,
+                     const void* scale, void* part, void* counters, void* out,
+                     int out_type, int M, int K, int N, int rows,
+                     cudaStream_t st) {
+  switch (tile) {
+    case 64:
+      return launch<T, 64>(x, ldx, q, scale, part, counters, out, out_type,
+                           M, K, N, rows, st);
+    case 128:
+      return launch<T, 128>(x, ldx, q, scale, part, counters, out, out_type,
+                            M, K, N, rows, st);
+    case 256:
+      return launch<T, 256>(x, ldx, q, scale, part, counters, out, out_type,
+                            M, K, N, rows, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// y = (x @ q) * scale for M in 1..8 rows; `rows` is the K range of one
-// block (1..512): K splits into ceil(K / rows) blocks a column tile, and
-// with more than one, `part` and `counters` are the split scratch.
+// y = (x @ q) * scale for M in 1..8 rows over column tiles of `tile`
+// columns: at 2-8 rows the tensor-core kernel (a tile of 64, 128 or 256
+// columns; `rows`, the K range of one block, a multiple of 16 up to 2048),
+// at one row the scalar loop (a tile of 512; `rows` a multiple of 64 up to
+// 512).  K splits into ceil(K / rows)
+// blocks a tile, and with more than one, `part` and `counters` are the
+// split scratch.
 extern "C" int mc_w8a16_gemv(const void* x, const void* q, const void* scale,
                              void* part, void* counters, void* out, int M,
-                             int K, int N, int ldx, int rows, int x_bf16,
-                             int out_type, void* stream) {
-  if (M < 1 || M > kMaxM || K <= 0 || N <= 0 || N % kCols != 0 ||
-      rows <= 0 || rows > kMaxRows || (M > 1 && ldx < K) ||
-      out_type < kOutF32 || out_type > kOutF16)
+                             int K, int N, int ldx, int rows, int tile,
+                             int x_bf16, int out_type, void* stream) {
+  const bool one_row = M == 1;
+  if (M < 1 || M > kMaxM || K <= 0 || N <= 0 || N % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0 || rows <= 0 ||
+      (M > 1 && ldx < K) || out_type < kOutF32 || out_type > kOutF16)
+    return cudaErrorInvalidValue;
+  if (one_row ? tile != kRowTile || rows % kRowStep != 0 ||
+                    rows > kRowMaxRows
+              : (tile != 64 && tile != 128 && tile != 256) ||
+                    rows % kStep != 0 || rows > kMaxRows)
     return cudaErrorInvalidValue;
   const int n_splits = (K + rows - 1) / rows;
   if (n_splits > 65535 || (n_splits > 1 && (!part || !counters)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (M) {
-#define MC_CASE(m)                                                         \
-  case m:                                                                  \
-    return launch<m>(x, x_bf16, ldx, q, scale, part, counters, out,        \
-                     out_type, K, N, rows, st);
-    MC_CASE(1)
-    MC_CASE(2)
-    MC_CASE(3)
-    MC_CASE(4)
-    MC_CASE(5)
-    MC_CASE(6)
-    MC_CASE(7)
-    MC_CASE(8)
-#undef MC_CASE
+  if (one_row) {
+    const dim3 grid((N + kRowTile - 1) / kRowTile, n_splits);
+    dequant_gemv_kernel_one_row<<<grid, kRowThreads, 0, st>>>(
+        x, x_bf16, static_cast<const int8_t*>(q),
+        static_cast<const float*>(scale), static_cast<float*>(part),
+        static_cast<unsigned*>(counters), out, out_type, K, N, rows);
+    return cudaGetLastError();
   }
-  return cudaErrorInvalidValue;
+  if (x_bf16)
+    return dispatch<__nv_bfloat16>(tile, x, ldx, q, scale, part, counters,
+                                   out, out_type, M, K, N, rows, st);
+  return dispatch<__half>(tile, x, ldx, q, scale, part, counters, out,
+                          out_type, M, K, N, rows, st);
 }

@@ -111,20 +111,77 @@ def dequant_matmul_reference(x: torch.Tensor, wq: Dict[str, torch.Tensor],
 
 
 K5_MAX_ROWS = 8  # rows of x (its leading axes flattened) that K5 takes
-_TILE_N = 512  # K5's column tile (kTileN)
-_BLOCK_ROWS = 512  # the most K rows of one K5 block (kMaxRows)
-_ROW_STEP = 64  # a block's K range: whole 8-row steps of its 8 warps
-_TARGET_BLOCKS = 264  # two blocks an SM of the H100's 132
+_K_STEP = 16  # the depth of K5's mma: a block's K range is whole steps
+_BLOCK_ROWS = 2048  # the most K rows of one tensor-core block (kMaxRows)
+# The column tiles of the tensor-core kernel and the rates (TB/s) at which
+# each streamed the lm_head's weight at two rows on an H100 (HBM3, 700 W;
+# the tile sweep of scripts/torch_kernel_ab.py --only K5): a wider tile
+# reads longer runs of each weight row.
+_TILE_RATES = {64: 1.67, 128: 1.97, 256: 2.28}
+_ROW_TILE = 512  # the one-row scalar loop's tile (kRowTile)
+_ROW_MAX_ROWS = 512  # its most K rows a block (kRowMaxRows)
+_ROW_STEP = 64  # its K range: whole 8-row steps of its 8 warps
+_ROW_BLOCKS = 264  # its grid: two blocks an SM
+_SMS = 132  # the H100's SMs
+_MIN_BLOCKS = 128  # a grid that keeps (nearly) every SM streaming
+_BLOCK_START = 16 * 1024  # a block's start-up (x staged, the first box's
+#                           latency), in bytes of the weight stream
+_PART_SHARE = 8  # the split partials at most 1/8 of the weight's bytes
+_LAST_READ = 32 * 1024  # the most partial bytes the last block of a tile reads
 _OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def _block_rows(K: int, N: int) -> int:
-    """The K range of one K5 block: split K until the grid has about
-    ``_TARGET_BLOCKS`` blocks, with at most ``_BLOCK_ROWS`` rows a block."""
-    tiles = -(-N // _TILE_N)
-    splits = max(-(-_TARGET_BLOCKS // tiles), -(-K // _BLOCK_ROWS))
-    rows = -(-K // splits)
-    return min(_BLOCK_ROWS, -(-rows // _ROW_STEP) * _ROW_STEP)
+def _row_plan(K: int, N: int):
+    """The one-row loop's grid: split K until the grid has about 264
+    blocks of a 512-column tile, at most 512 rows a block."""
+    tiles = -(-N // _ROW_TILE)
+    splits = max(-(-_ROW_BLOCKS // tiles), -(-K // _ROW_MAX_ROWS))
+    per_split = -(-K // splits)
+    rows = min(_ROW_MAX_ROWS, -(-per_split // _ROW_STEP) * _ROW_STEP)
+    return rows, -(-K // rows), tiles
+
+
+def _mma_plan(M: int, K: int, N: int, tile: int):
+    """(cost, rows, n_splits, n_tiles) of the tensor-core kernel at one
+    column tile: the split count minimises the time of the busiest SM,
+    ``ceil(blocks / 132)`` blocks of ``rows x tile`` weight bytes and a
+    start-up each at the tile's streaming rate, plus the partials (written
+    by every split, spread over the SMs, and read by the last block of a
+    tile); ties go to fewer splits.  A grid of at least 128 blocks (about
+    one for each SM) comes first where one is possible.  It stays within
+    what the combine can afford: at most ``K / (32 M)`` splits (fp32
+    partials under 1/8 of the weight's bytes) and as many as keep a tile's
+    last block under 32 KB of partials to read, and at least enough that
+    no block takes more than 2048 rows."""
+    tiles = -(-N // tile)
+    lo = -(-K // _BLOCK_ROWS)
+    hi = max(lo, min(K // (4 * _PART_SHARE * M),
+                     _LAST_READ // (4 * M * tile), -(-K // _K_STEP)))
+    best = None
+    for s in range(lo, hi + 1):
+        per_split = -(-K // s)
+        rows = -(-per_split // _K_STEP) * _K_STEP
+        splits = -(-K // rows)
+        cost = -(-tiles * splits // _SMS) * (rows * tile + _BLOCK_START)
+        if splits > 1:
+            cost += splits * M * 4 * (tile + 2 * N // _SMS)
+        cost = (tiles * splits < _MIN_BLOCKS, cost / _TILE_RATES[tile])
+        if best is None or cost < best[0]:
+            best = (cost, rows, splits, tiles)
+    return best
+
+
+def _k5_plan(M: int, K: int, N: int):
+    """K5's grid for x [M, K] @ q [K, N]: (tile, rows, n_splits, n_tiles),
+    the column tile, the K range of one block, the blocks of a tile, and
+    the tiles.  One row takes the scalar loop over 512-column tiles; 2-8
+    rows the tensor-core kernel at the tile (64, 128 or 256 columns) whose
+    plan costs least."""
+    if M == 1:
+        return (_ROW_TILE,) + _row_plan(K, N)
+    plans = {tile: _mma_plan(M, K, N, tile) for tile in _TILE_RATES}
+    tile = min(plans, key=lambda t: plans[t][0])
+    return (tile,) + plans[tile][1:]
 
 
 class _Scratch:
@@ -221,8 +278,7 @@ def _k5(x2, q, scale, out_dtype):
     _check_cuda_inputs(x2, q, scale)
     M, K = x2.shape
     N = q.shape[1]
-    rows = _block_rows(K, N)
-    n_splits = -(-K // rows)
+    tile, rows, n_splits, n_tiles = _k5_plan(M, K, N)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     record = None
     if torch.cuda.is_current_stream_capturing():
@@ -235,8 +291,7 @@ def _k5(x2, q, scale, out_dtype):
     if n_splits > 1:
         scratch = record.scratch if record is not None \
             else _SCRATCH.setdefault((x2.device, stream), _Scratch())
-        part, counters = scratch.get(x2.device, n_splits * M * N,
-                                     -(-N // _TILE_N))
+        part, counters = scratch.get(x2.device, n_splits * M * N, n_tiles)
     kind = out_dtype if out_dtype in (torch.float32, x2.dtype) \
         else torch.float32
     out = torch.empty((M, N), dtype=kind, device=x2.device)
@@ -244,7 +299,7 @@ def _k5(x2, q, scale, out_dtype):
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
         None if part is None else part.data_ptr(),
         None if counters is None else counters.data_ptr(), out.data_ptr(),
-        M, K, N, x2.stride(0) if M > 1 else K, rows,
+        M, K, N, x2.stride(0) if M > 1 else K, rows, tile,
         int(x2.dtype == torch.bfloat16), _OUT_TYPES[kind], stream)
     _build.check(err, "w8a16_gemv")
     if record is not None:  # recorded, not run: each replay runs it

@@ -652,7 +652,7 @@ def _k5_inputs(gen, M, K, N, dtype=torch.bfloat16):
     return x, wq
 
 
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("K,N", K5_SHAPES)
 def test_k5_matches_plain(K, N, M):
     """K5 against the plain product at every main-path shape, with a bf16
@@ -679,6 +679,37 @@ def test_k5_fp16_and_ragged_k():
             want = dequant_matmul_reference(x, wq, out_dtype=out)
             assert got.dtype == (out or torch.float16)
             assert _rel(got, want) <= (1e-5 if out else 2e-2)
+
+
+@pytest.mark.parametrize("K,N", [(4096, 2752), (4096, 8000)])
+def test_k5_fp16_at_eight_rows(K, N):
+    """fp16 activations at the pool's 8 rows on the tp 4 gate/up and
+    lm_head shards (N not a multiple of 128)."""
+    gen = torch.Generator(device="cuda").manual_seed(K + N)
+    x, wq = _k5_inputs(gen, 8, K, N, torch.float16)
+    for out in (None, torch.float32):
+        got = dequant_matmul(x, wq, out_dtype=out)
+        want = dequant_matmul_reference(x, wq, out_dtype=out)
+        assert got.dtype == (out or torch.float16)
+        assert _rel(got, want) <= (1e-5 if out else 2e-2)
+
+
+@pytest.mark.parametrize("M,K,N,pad", [(8, 4096, 4096, 8), (8, 4096, 11008, 3),
+                                       (5, 1000, 272, 24), (2, 344, 48, 1)])
+def test_k5_row_strided_x(M, K, N, pad):
+    """x with a row stride past K (a view of wider rows; an odd pad also
+    breaks the rows' 16-byte alignment): the rows of B past M stay zero
+    and nothing past a row's K columns is read."""
+    gen = torch.Generator(device="cuda").manual_seed(M + K + pad)
+    wide = torch.randn((M, 1, K + pad), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    wide[..., K:] = float("nan")  # read past K, it would poison the sums
+    x = wide[..., :K]
+    _, wq = _k5_inputs(gen, M, K, N)
+    for out in (None, torch.float32):
+        got = dequant_matmul(x, wq, out_dtype=out)
+        want = dequant_matmul_reference(x.contiguous(), wq, out_dtype=out)
+        assert _rel(got, want) <= (1e-5 if out else 2e-2)
 
 
 def test_k5_is_deterministic():
@@ -797,6 +828,29 @@ def test_k5_rejects(case):
         wq = dict(wq, q=wq["q"].cpu())
     with pytest.raises((TypeError, ValueError)):
         dequant_matmul(x, wq)
+
+
+@pytest.mark.parametrize("M,rows,tile", [
+    (2, 512, 32),     # not a tile of either kernel
+    (2, 512, 512),    # the one-row loop's tile at two rows
+    (1, 96, 512),     # the one-row loop takes whole 64-row steps
+    (1, 1024, 512),   # ... and at most 512 rows a block
+    (2, 520, 128),    # the tensor-core kernel takes whole 16-row steps
+    (2, 4096, 128)])  # ... and at most 2048 rows a block
+def test_k5_entry_refuses_other_grids(M, rows, tile):
+    """The C entry refuses a tile or a split the grid rule cannot produce
+    (cudaErrorInvalidValue), before launching anything."""
+    from modelcompose_tpu_torch import _build
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x, wq = _k5_inputs(gen, M, 4096, 1024)
+    part = torch.empty(64 * M * 1024, device="cuda")
+    counters = torch.zeros(64, dtype=torch.int32, device="cuda")
+    out = torch.empty((M, 1024), device="cuda")
+    err = _build.load("w8a16_gemv").mc_w8a16_gemv(
+        x.data_ptr(), wq["q"].data_ptr(), wq["scale"].data_ptr(),
+        part.data_ptr(), counters.data_ptr(), out.data_ptr(), M, 4096, 1024,
+        4096, rows, tile, 1, 0, torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue
 
 
 @pytest.mark.parametrize("out", [None, torch.float32])

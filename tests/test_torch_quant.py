@@ -159,22 +159,63 @@ def test_k5_checks_raise(case, error):
         quant._check_cuda_inputs(*_bad(case))
 
 
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("K,N", [
     (4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
     (4096, 2048), (4096, 1024), (4096, 5504), (4096, 2752),
     (4096, 16000), (4096, 8000), (2048, 4096), (1024, 4096),
     (5504, 4096), (2752, 4096), (344, 48), (7, 16)])
-def test_block_rows_split_k(K, N):
-    """Every shape of the main path (Vicuna-7B, its tp 2 and 4 shards) and
-    two narrow ones: whole 64-row steps, at most 512 rows a block, the
-    splits covering K, and at least 128 blocks (about one for each of the
-    card's 132 SMs) where K allows."""
-    rows = quant._block_rows(K, N)
-    splits = -(-K // rows)
-    assert rows % 64 == 0 and 0 < rows <= 512
-    assert (splits - 1) * rows < K <= splits * rows
+def test_block_rows_split_k(monkeypatch, K, N, M):
+    """K5's grid rule at every shape of the main path (Vicuna-7B, its tp 2
+    and 4 shards) and two narrow ones: the splits cover K in whole steps,
+    the tile and the step multiples of the mma's 16 (the tensor-core
+    kernel's 64-256-column tiles and 16-row steps up to 2048 rows a block
+    at 2-8 rows; the one-row loop's 512 columns and 64-row steps up to 512
+    rows); at least 128 blocks (about one for each of the card's 132 SMs)
+    where K allows; the fp32 partials of 8 rows at most 1/8 of the
+    weight's bytes and at most 32 KB read by a tile's last block; and the
+    scratch ``_k5`` asks for is the rule's (the launch faked: no card
+    here)."""
+    tile, rows, splits, tiles = quant._k5_plan(M, K, N)
+    if M == 1:
+        assert tile == 512 and rows % 64 == 0 and 0 < rows <= 512
+    else:
+        assert tile in (64, 128, 256) and rows % 16 == 0 and 0 < rows <= 2048
+    assert tile % 16 == 0 and tiles == -(-N // tile)
+    assert splits == -(-K // rows) and (splits - 1) * rows < K
     if K >= 1024:
-        assert splits * -(-N // 512) >= 128
+        assert tiles * splits >= 128
+    if M == 8 and splits > 1:
+        assert splits * M * N * 4 <= K * N / 8
+        assert splits * M * tile * 4 <= 32 * 1024
+
+    asked, launched = [], []
+
+    class Lib:
+        def mc_w8a16_gemv(self, *args):
+            launched.append(args)
+            return 0
+
+    get = quant._Scratch.get
+
+    def spy(self, device, n_part, n_tiles):
+        asked.append((n_part, n_tiles))
+        return get(self, device, n_part, n_tiles)
+    monkeypatch.setattr(quant._Scratch, "get", spy)
+    monkeypatch.setattr(quant._build, "load", lambda name: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(quant, "_SCRATCH", {})
+    x2 = torch.zeros((M, K), dtype=torch.bfloat16)
+    q = torch.zeros((K, N), dtype=torch.int8)
+    scale = torch.ones((1, N))
+    quant._k5(x2, q, scale, torch.float32)
+    assert launched[0][6:12] == (M, K, N, x2.stride(0) if M > 1 else K, rows,
+                                 tile)
+    assert asked == ([(splits * M * N, tiles)] if splits > 1 else [])
 
 
 def test_scratch_grows_and_a_capture_keeps_what_it_outgrew():
