@@ -27,8 +27,12 @@ nonzero:
    every row count and at the shards for 1 and 8 rows, beside the plain
    version, ``torch._weight_int8pack_mm`` on an [N, K] copy (the
    yardstick, never called by the port; its error text where the card's
-   torch has no CUDA version) and the bound; the sum over one decode
-   step's 225 products at each row count;
+   torch has no CUDA version) and the bound; the products that share an
+   input (q/k/v, gate/up and their tp shards) as one grouped launch at 1
+   and 2 rows against each member's plain product, the Vicuna-7B groups
+   timed beside their members launched one by one; the sum over one
+   decode step's products at each row count (129 launches at 1-2 rows,
+   grouped, beside the 225 one by one; 225 at 3-8);
 5. the serving path at Vicuna-7B width: a vision DAMC composition (CLIP
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
@@ -39,8 +43,9 @@ nonzero:
    prefill's graphs (``models/towers``, ``core/prefill_graph``), the
    third, timed, replays every graph and captures nothing (counts per
    kind checked, K1 exactly once a layer in the replayed prefill, K5
-   exactly 7 a layer + 1 a replayed decode step and once in the prefill's
-   lm_head, peak
+   exactly 4 a layer + 1 a replayed decode step of 1-2 rows (q/k/v and
+   gate/up one launch each; 7 a layer + 1 at 3-8) and once in the
+   prefill's lm_head, peak
    allocated and reserved memory, each kind's graph pool GB, the time to
    first token of the three calls: eager, capturing, replayed); the same
    request with the tower, the prefill and the decode launch by launch
@@ -648,11 +653,15 @@ def _timed_request(phase, model, ids, inputs, record=None, **kw):
         raise AssertionError(f"{phase}: K1 {launches} in one replayed "
                              f"prefill of {model.cfg.num_hidden_layers} "
                              f"layers")
-    # K5 once an int8 product: 7 a layer and the lm_head in each replayed
-    # decode step (225 for a 32-layer int8 model), and the prefill's
-    # lm_head once (its B rows; the prefill's own products are large)
-    k5_step = _k5_per_step(model.params)
-    if k5_step != 7 * model.cfg.num_hidden_layers + 1 \
+    # K5 once an int8 product in each replayed decode step, q/k/v and
+    # gate/up one launch each at 1-2 rows: 4 a layer and the lm_head (129
+    # for a 32-layer int8 model), 7 a layer and the lm_head at 3-8 (225);
+    # and the prefill's lm_head once (its B rows; the prefill's own
+    # products are large)
+    from modelcompose_tpu_torch.ops.quant import K5_GROUP_ROWS
+    k5_step = _k5_per_step(model.params, len(ids))
+    per_layer = 4 if len(ids) <= K5_GROUP_ROWS else 7
+    if k5_step != per_layer * model.cfg.num_hidden_layers + 1 \
             or launches["w8a16_gemv"] != k5_step * (NEW_TOKENS - 1) + 1:
         raise AssertionError(f"{phase}: K5 {launches} for {NEW_TOKENS - 1} "
                              f"replayed decode steps of {k5_step} products "
@@ -1073,20 +1082,31 @@ K5_TP_SHAPES = {f"tp{tp} {name}": (K // tp, N) if name in ("qkvo_row",
                                      ("gate_up", (4096, 11008)),
                                      ("down", (11008, 4096)),
                                      ("lm_head", (4096, 32000)))}
+# The products that share an input, (K, (N, ...)), one K5 launch at 1-2
+# rows: q/k/v and gate/up, and their tp 2 and 4 ranks' column shards.
+K5_GROUPS = {"qkv": (4096, (4096,) * 3), "gate_up": (4096, (11008,) * 2),
+             **{f"tp{tp} qkv": (4096, (4096 // tp,) * 3) for tp in (2, 4)},
+             **{f"tp{tp} gate_up": (4096, (11008 // tp,) * 2)
+                for tp in (2, 4)}}
 K5_ROWS = (1, 2, 3, 4, 8)
 K5_CHECKED_ROWS = range(1, 9)  # every row count K5 takes, checked untimed
 K5_TP_ROWS = (1, 8)  # the tp shards are timed at a request's and the pool's
 K5_LAYERS = 32  # weight copies cycled through, so each launch is cold in L2
 
 
-def _k5_per_step(params):
-    """K5 launches in one decode step (a row count of at most 8) of
-    ``params``: one a layer for each int8 linear, one for an int8
-    lm_head."""
-    from modelcompose_tpu_torch.ops.quant import is_quantized
+def _k5_per_step(params, rows):
+    """K5 launches in one decode step of ``rows`` rows (at most 8) of
+    ``params``: one a layer for each int8 linear, one for an int8 lm_head;
+    at 1-2 rows a layer's int8 q/k/v are one launch, and so are its
+    gate/up (``routed_lora_matmul_group``)."""
+    from modelcompose_tpu_torch.ops.quant import K5_GROUP_ROWS, is_quantized
     layers = params["layers"]
     per_layer = sum(is_quantized(p["w"]) for grp in ("attn", "mlp")
                     for p in layers[grp].values())
+    if rows <= K5_GROUP_ROWS:
+        for grp, names in (("attn", ("q", "k", "v")), ("mlp", ("gate", "up"))):
+            if all(is_quantized(layers[grp][n]["w"]) for n in names):
+                per_layer -= len(names) - 1
     return per_layer * layers["input_layernorm"].shape[0] \
         + int(is_quantized(params["lm_head"]))
 
@@ -1148,6 +1168,56 @@ def _k5_case(gen, weights, M, K, N, timed=True):
     return res
 
 
+def _k5_group_case(gen, members, M, K, Ns, timed=True):
+    """One grouped K5 launch (the weights of ``members``, each a list of
+    weight copies, sharing x at M rows) against each member's plain
+    product (bf16 and fp32 results; one launch counted); with ``timed``,
+    the fp32-result grouped launch, the members launched one by one and
+    their plain products, each by CUDA-graph replay cycling over the
+    copies, and the bound of the group's bytes."""
+    import itertools
+    import torch
+    from modelcompose_tpu_torch.ops.quant import (dequant_matmul,
+                                                  dequant_matmul_group,
+                                                  dequant_matmul_reference)
+    x = torch.randn((M, 1, K), generator=gen,
+                    device=members[0][0]["q"].device).to(torch.bfloat16)
+    errs, rels = [], []
+    for out, tol in ((None, ATTN_TOL), (torch.float32, K5_F32_TOL)):
+        n = dequant_matmul.launches
+        got = dequant_matmul_group(x, [c[0] for c in members], out_dtype=out)
+        if dequant_matmul.launches != n + 1:
+            raise AssertionError(f"K5 group M{M} K{K} N{Ns}: "
+                                 f"{dequant_matmul.launches - n} launches")
+        for y, copies in zip(got, members):
+            want = dequant_matmul_reference(x, copies[0], out_dtype=out)
+            err, rel = _rel_err(y, want)
+            if not (y.dtype == want.dtype and rel <= tol):
+                raise AssertionError(f"K5 group M{M} K{K} N{Ns} {y.dtype}: "
+                                     f"rel err {rel:.3g} (tol {tol})")
+            errs.append(err)
+            rels.append(rel)
+    res = {"M": M, "K": K, "N": list(Ns), "max_abs_err": max(errs),
+           "rel_err": max(rels)}
+    if not timed:
+        return res
+    n = len(members[0])
+    f32 = torch.float32
+
+    def cycled(fn):
+        layers = itertools.cycle(range(n))
+        return graph_time_ms(lambda: fn(next(layers)), n=n)
+    res["ms"] = cycled(lambda i: dequant_matmul_group(
+        x, [c[i] for c in members], out_dtype=f32))
+    res["one_by_one_ms"] = cycled(lambda i: [dequant_matmul(
+        x, c[i], out_dtype=f32) for c in members])
+    res["plain_ms"] = cycled(lambda i: [dequant_matmul_reference(
+        x, c[i], out_dtype=f32) for c in members])
+    nbytes = sum(K * N + 4 * N + 4 * M * N for N in Ns) + 2 * M * K
+    res["bound_ms"], res["bound_by"] = bound(2 * M * K * sum(Ns), nbytes)
+    return res
+
+
 def phase_k5(device, gen):
     """K5 against its plain version at every main-path shape and tp shard
     at every row count 1-8 (bf16 and fp32 results), with each shape's grid
@@ -1188,15 +1258,54 @@ def phase_k5(device, gen):
                         library_error=res["library_error"])
             del weights
             torch.cuda.empty_cache()
+    # the products of one input, one launch at 1-2 rows: checked at every
+    # shard, the Vicuna-7B q/k/v and gate/up timed
+    groups = []
+    for name, (K, Ns) in K5_GROUPS.items():
+        members = [[{"q": torch.randint(-127, 128, (K, N), generator=gen,
+                                        device=device, dtype=torch.int8),
+                     "scale": torch.rand((1, N), generator=gen,
+                                         device=device) * 1e-3 + 1e-4}
+                    for _ in range(K5_LAYERS)] for N in Ns]
+        for M in range(1, quant.K5_GROUP_ROWS + 1):
+            res = dict(_k5_group_case(gen, members, M, K, Ns,
+                                      timed=name in ("qkv", "gate_up")),
+                       shape=name, grid=dict(zip(
+                           ("tile", "rows", "splits", "tiles"),
+                           quant._k5_group_plan(M, K, Ns))))
+            errs.append(res["max_abs_err"])
+            groups.append(res)
+            log("K5", group=name, M=M, K=K, N=json.dumps(list(Ns)),
+                grid=json.dumps(res["grid"]),
+                max_abs_err=f"{res['max_abs_err']:.4g}",
+                rel_err=f"{res['rel_err']:.3g}",
+                **({k: _ms(res[k]) for k in ("ms", "one_by_one_ms",
+                                             "plain_ms", "bound_ms")}
+                   if "ms" in res else {}))
+        del members
+        torch.cuda.empty_cache()
     # one decode step of the 32-layer model at M rows: 32 x (4 qkvo, 2
-    # gate/up, 1 down) + the lm_head
+    # gate/up, 1 down) + the lm_head, one launch a product (225); at 1-2
+    # rows q/k/v and gate/up one launch each: 32 x 4 + 1 (129)
     per_step = {"qkvo": 4 * 32, "gate_up": 2 * 32, "down": 32, "lm_head": 1}
+    grouped_step = {"group qkv": 32, "qkvo": 32, "group gate_up": 32,
+                    "down": 32, "lm_head": 1}
     step = {}
     for M in K5_ROWS:
         rows = {c["shape"]: c for c in cases if c["M"] == M}
-        if all(rows[s]["ms"] is not None for s in per_step):
-            step[M] = {k: sum(n * rows[s][k] for s, n in per_step.items())
-                       for k in ("ms", "plain_ms", "bound_ms")}
+        rows.update({"group " + g["shape"]: g for g in groups
+                     if g["M"] == M and "ms" in g})
+        if not all(rows[s]["ms"] is not None for s in per_step):
+            continue
+        step[M] = {k: sum(n * rows[s][k] for s, n in per_step.items())
+                   for k in ("ms", "plain_ms", "bound_ms")}
+        step[M]["launches"] = 225
+        if M <= quant.K5_GROUP_ROWS and all(
+                rows[s]["ms"] is not None for s in grouped_step):
+            step[M]["one_by_one_ms"] = step[M]["ms"]
+            step[M]["ms"] = sum(n * rows[s]["ms"]
+                                for s, n in grouped_step.items())
+            step[M]["launches"] = 129
     log("K5", checked=len(errs), step_sum_ms=json.dumps(
         {m: {k: round(v, 4) for k, v in s.items()} for m, s in step.items()}))
     first = cases[0]  # q/k/v/o at one row: the row's own keys
@@ -1205,8 +1314,8 @@ def phase_k5(device, gen):
                                        "bound_by", "share_of_bound")},
                 max_abs_err=max(errs), shape="M1 K4096 N4096 fp32 out, "
                 "cold (32 weights cycled), CUDA graph replay",
-                shapes=cases, tp_shards=tp_cases, checked=len(errs),
-                step=step)
+                shapes=cases, tp_shards=tp_cases, groups=groups,
+                checked=len(errs), step=step)
 
 
 def _requests(cfg, device, gen):
@@ -3521,7 +3630,7 @@ def phase_train(device):
 # and the library GEMMs (cuBLAS nvjet / xmma, magma) and convolutions.
 PROFILE_SPLITS = {"K1": ("fa_fwd_kernel",), "K2": ("fd_split_kernel",),
                   "K3": ("fa_bwd_dq_kernel",), "K4": ("fa_bwd_dkv_kernel",),
-                  "K5": ("dequant_gemv_kernel",),
+                  "K5": ("dequant_gemv",),
                   "gemm": ("gemm", "nvjet"), "conv": ("conv",),
                   "copy": ("copy_kernel",)}
 
@@ -5499,7 +5608,7 @@ def phase_distributed_serve(device, gen, model, request, serve_tick_ms):
     steps = NEW_TOKENS - 1
     per_request = {"flash_attention_fwd": n_layers,
                    "flash_decode": n_layers * steps,
-                   "w8a16_gemv": _k5_per_step(model.params) * steps + 1}
+                   "w8a16_gemv": _k5_per_step(model.params, 1) * steps + 1}
     vision_ids, vision_inputs = _requests(model.cfg, device, gen)
     slot_requests = {
         f"vision{i}": (vision_ids[i], {"vision": vision_inputs["vision"][
@@ -6045,7 +6154,8 @@ def main() -> int:
                  "decode_tok_per_s", "step_device_ms", "decode_pool_gb",
                  "ids_equal")},
              **dict(k5, shapes=[_rounded(c) for c in k5["shapes"]],
-                    tp_shards=[_rounded(c) for c in k5["tp_shards"]])),
+                    tp_shards=[_rounded(c) for c in k5["tp_shards"]],
+                    groups=[_rounded(c) for c in k5["groups"]])),
     ]
     log("prefill_graph", graphs_by_phase=json.dumps(graphs),
         totals=json.dumps(_all_graph_counts()),

@@ -72,8 +72,9 @@ SIGNATURES = {
     },
     "w8a16_gemv": {
         "mc_w8a16_gemv": (
-            [_P, _P, _P, _P, _P, _P,      # x q scale part counters out
-             _I, _I, _I, _I, _I, _I,      # M K N ldx rows tile
+            [_P, _I, _P, _P, _P, _P,      # x n_members q[] scale[] out[] N[]
+             _P, _P,                      # part counters
+             _I, _I, _I, _I, _I,          # M K ldx rows tile
              _I, _I, _P], _I),            # x_bf16 out_type stream
     },
 }

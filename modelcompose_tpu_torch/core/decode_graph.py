@@ -4,7 +4,8 @@ counterpart of the JAX package's jitted ``_decode_step`` and of the
 machinery every graph of the port shares (``CapturedStep``, ``GraphLRU``).
 
 A decode step of the 7B backbone is a few thousand small launches (per
-layer: K5's seven int8 products, norms, RoPE, the cache write and K2).
+layer: K5's int8 products, four launches at 1-2 rows and seven at 3-8,
+norms, RoPE, the cache write and K2).
 Launched from Python one by one, the host sets the pace; captured once
 into a ``torch.cuda.CUDAGraph`` and replayed, the card does.
 

@@ -23,7 +23,8 @@ from ..ops.attention import attention, decode_attention
 from ..ops.norms import rms_norm
 from ..ops.quant import dequant_matmul, is_quantized, matmul_f32, quantize_int8
 from ..ops.rope import apply_rope, rope_tables
-from ..ops.routed_lora import as_table, routed_lora_matmul
+from ..ops.routed_lora import (as_table, routed_lora_matmul,
+                                routed_lora_matmul_group)
 from ..parallel import tp
 
 Params = Dict[str, Any]
@@ -258,7 +259,9 @@ def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
     Under tensor parallelism the head counts are this rank's, read from
     its weights: q/k/v/gate/up are column-split and o/down row-split
     (``parallel="column"`` / ``"row"``, whose products sum over the model
-    group before the residual add).
+    group before the residual add).  q/k/v and gate/up are products of
+    one input each (``routed_lora_matmul_group``): at 1-2 rows on the card
+    their int8 base products are one K5 launch each.
 
     ``attn_impl`` "reference" runs the plain versions of the kernels: of
     attention and of the int8 products (``quant.dequant_matmul``).
@@ -273,9 +276,11 @@ def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
         return routed_lora_matmul(inp, p["w"], p["lora_a"], p["lora_b"],
                                   route, parallel=parallel, impl=attn_impl)
 
-    q = lin(ap["q"], h, "column")
-    k = lin(ap["k"], h, "column")
-    v = lin(ap["v"], h, "column")
+    def lins(ps, inp):  # column-split products of one input
+        return routed_lora_matmul_group(inp, ps, route, parallel="column",
+                                        impl=attn_impl)
+
+    q, k, v = lins((ap["q"], ap["k"], ap["v"]), h)
     nh, nkv = q.shape[-1] // hd, k.shape[-1] // hd
     if nh * tp.model_size() != cfg.num_attention_heads:
         raise RuntimeError(
@@ -317,7 +322,8 @@ def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
     x = x + lin(ap["o"], attn_out.reshape(B, L, nh * hd), "row")
     h = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
     mp = lp["mlp"]
-    inter = F.silu(lin(mp["gate"], h, "column")) * lin(mp["up"], h, "column")
+    gate, up = lins((mp["gate"], mp["up"]), h)
+    inter = F.silu(gate) * up
     return x + lin(mp["down"], inter, "row")
 
 

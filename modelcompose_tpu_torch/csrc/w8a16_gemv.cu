@@ -49,9 +49,11 @@
 //     block adds the partials in split order (deterministic: no float
 //     atomics) and resets the counter, so a product is one launch and a
 //     graph replay gives the eager call's bits.
-// At one row the scalar loop of the first K5 stays (its own kernel below):
-// it streams 512 contiguous bytes a warp and row, faster than the ring at
-// one row, and needs neither tensor cores nor a transpose.
+// At one row, and at two where the caller's cost says so, the streaming
+// kernel below runs instead: 512 contiguous bytes a warp and row stream
+// faster than the ring's 128-byte boxes, and at 1-2 rows the FMAs need no
+// tensor core.  It also takes up to three weights that share x in one
+// launch (q/k/v, gate/up).
 // The A fragment pairs two k of one column, while q is [K, N] with N
 // contiguous: thread (g, t) of a warp reads 8 bytes (8 columns) from each of
 // rows t, t + 4, t + 8, t + 12 of its k-step, and those four rows are the
@@ -63,9 +65,9 @@
 // distinct banks (64-column tiles) or at most two deep (wider ones).
 //
 // Layouts: x [M, K] bf16 or fp16 with row stride ldx (elements); q [K, N]
-// int8 row-major, N % 16 == 0, 16-byte aligned; scale [N] fp32; part
-// [n_splits, M, N] fp32 and counters [ceil(N / tile)] uint32, zero between
-// launches (used only when K is split); out [M, N] fp32, bf16 or fp16.
+// int8 row-major, N % 16 == 0, 16-byte aligned; scale [N] fp32; part fp32
+// and counters uint32, one a column tile, zero between launches (used only
+// when K is split); out [M, N] fp32, bf16 or fp16.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -244,124 +246,246 @@ __device__ __forceinline__ void stage_x(const T* __restrict__ x, int ldx,
   }
 }
 
-// One row of x (batch-1 decode): the scalar loop, which streams the weight
-// faster than the tensor-core kernel there (longer runs of each row).  A
-// thread loads 16 int8 columns of a row as one 16-byte load; a warp spans a
-// 512-column tile of the row, and the 8 warps take interleaved rows of the
-// block's K range (at most 512), 8 row loads in flight each; the block's
-// K-chunk of x is staged as fp32; int8 becomes fp32 by a byte permute and
-// an add (`cvt4`); 16 fp32 FMAs a 16-byte load.  The split combine is the
-// one above, over 512-column tiles.
-constexpr int kRowCols = 16;               // int8 columns a thread
-constexpr int kRowTile = 32 * kRowCols;    // 512 columns a block
-constexpr int kRowMaxRows = 512;           // K rows a block
-constexpr int kRowStep = 64;               // a block's rows: whole 8-row steps
-constexpr int kRowUnroll = 8;              // row loads a warp keeps in flight
-constexpr int kRowThreads = kWarps * 32;
+// One or two rows of x (batch-1 decode, the vision pair): the streaming
+// kernel.  A warp reads 512 contiguous bytes of a weight row (16 int8
+// columns a thread, one 16-byte load), so a block of 8 warps owns a
+// 512-column tile and splits its K range into 8 runs of rows, one a warp.
+// Each launch pays a fixed cost besides its stream (scripts/
+// torch_kernel_ab.py --only K5 took it apart on the first one-row kernel
+// at 4096 x 4096: 1.2 us of launch, 0.4 of x staged before the first
+// weight load, 2.3 of split combine, ~1.2 of the stream's ramp), and at
+// 4096 x 4096 the stream itself is only ~5.5 us.  So:
+//   - weights first: a warp issues its first 8 row loads (16 bytes a
+//     thread each, `ld.global.nc` with a 256-byte L2 prefetch) before it
+//     reads x, and x is read into registers (lane l of a warp holds row
+//     l / 8 of x at the batch's (l % 8)-th row, broadcast by a shuffle),
+//     never through shared memory behind a barrier;
+//   - a ring of 8 loads in flight a thread: each row consumed is replaced
+//     by the load of the row 8 further on, and the next batch's x is read
+//     while this batch's rows land (8 in flight streamed faster than 16 on
+//     the H100, two blocks an SM);
+//   - a short combine: the 8 warps' sums meet in shared memory once; the
+//     split partials lie in thread order (coalesced); one thread a block
+//     bumps the tile's counter with release-acquire semantics (no fence a
+//     thread: 0.5 us less); the last block of a tile reads the partials
+//     with 16 loads in flight a thread and adds them in split order
+//     (deterministic: no float atomics); the caller's rule (ops/quant.py
+//     `_stream_plan`) bounds how many there are;
+//   - one launch for up to three products that share x (q/k/v, gate/up):
+//     the grid's column tiles run over every member's, each member with
+//     its own weight, scale and output, so the group pays the fixed cost
+//     once and the narrow products fill the card beside the others.
+// int8 becomes fp32 by a byte permute and an add (`hopper::cvt4`), then M
+// fp32 FMAs a weight: about 3 instructions a weight byte at two rows,
+// within what the SMs issue at the card's memory rate.
+constexpr int kSCols = 16;                 // int8 columns a thread
+constexpr int kSTile = 32 * kSCols;        // 512 columns a block
+constexpr int kSBatch = 8;                 // row loads a thread keeps in flight
+constexpr int kSPartLoads = 16;            // partial loads of the combine
+constexpr int kSWarps = 8;
+constexpr int kSThreads = kSWarps * 32;
+constexpr int kSMaxM = 2;
+constexpr int kMaxMembers = 3;
 
-__global__ void __launch_bounds__(kRowThreads)
-dequant_gemv_kernel_one_row(const void* __restrict__ x, int x_bf16,
-                            const int8_t* __restrict__ q,
-                            const float* __restrict__ scale,
-                            float* __restrict__ part,
-                            unsigned* __restrict__ counters,
-                            void* __restrict__ out, int out_type, int K,
-                            int N, int rows) {
-  __shared__ __align__(16) float sX[kRowMaxRows];
-  __shared__ __align__(16) float sRed[kWarps * kRowTile];
+// One product of a group: its weight, scales, output [M, N], columns, and
+// the first column tile of the grid that is its.
+struct StreamMember {
+  const int8_t* q;
+  const float* scale;
+  void* out;
+  int N;
+  int tile0;
+};
+
+struct StreamGroup {
+  StreamMember m[kMaxMembers];
+  int n;
+};
+
+// 16 int8 weights, read once: not kept in L1, a 256-byte L2 prefetch.
+__device__ __forceinline__ uint4 ld_weights(const int8_t* p) {
+  uint4 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ float half_bits_to_float(uint16_t h) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __uint_as_float(static_cast<uint32_t>(h) << 16);
+  else
+    return __half2float(__ushort_as_half(h));
+}
+
+template <typename T, int kM>
+__global__ void __launch_bounds__(kSThreads, 2)
+dequant_gemv_stream_kernel(const StreamGroup g, const uint16_t* __restrict__ x,
+                           int ldx, int K, int rows, float* __restrict__ part,
+                           unsigned* __restrict__ counters, int out_type) {
+  __shared__ float4 sRed[kSWarps * kM * 4 * 32];  // 16 KB a row of x
   __shared__ int sLast;
 
-  const int tile = blockIdx.x, split = blockIdx.y, n_splits = gridDim.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int t = blockIdx.x;  // the grid's column tile, over every member
+  StreamMember mem = g.m[0];
+  if (g.n > 1 && t >= g.m[1].tile0) mem = g.m[1];
+  if (g.n > 2 && t >= g.m[2].tile0) mem = g.m[2];
+  const int N = mem.N, tile = t - mem.tile0;
+  const int split = blockIdx.y, n_splits = gridDim.y;
   const int k0 = split * rows;
   const int n = min(rows, K - k0);  // > 0: the host makes ceil(K / rows)
-  const int col = tile * kRowTile + lane * kRowCols;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int per_warp = rows / kSWarps;
+  const int r0 = warp * per_warp;               // the warp's first row
+  const int nw = max(0, min(per_warp, n - r0));  // and its row count
+  const int col = tile * kSTile + lane * kSCols;
+  const bool live = col < N;  // N % 16 == 0: all 16 columns in or out
+  const int8_t* qp = mem.q + (long)(k0 + r0) * N + col;
 
-  for (int r = tid; r < n; r += kRowThreads)
-    sX[r] = x_bf16
-                ? __bfloat162float(
-                      static_cast<const __nv_bfloat16*>(x)[k0 + r])
-                : __half2float(static_cast<const __half*>(x)[k0 + r]);
-  __syncthreads();
+  // The weights first: the first batch of rows is in flight before x is
+  // read.
+  uint4 w[kSBatch];
+#pragma unroll
+  for (int u = 0; u < kSBatch; ++u)
+    w[u] = live && u < nw ? ld_weights(qp + (long)u * N)
+                          : make_uint4(0u, 0u, 0u, 0u);
 
-  float acc[kRowCols];
+  // x of batch b: lane l holds row l / 16 of x at the batch's row l % 16.
+  const int xm = lane / kSBatch, xu = lane % kSBatch;
+  const uint16_t* xp = x + (long)xm * ldx + k0 + r0 + xu;
+  auto x_of = [&](int b) {
+    const int r = b * kSBatch + xu;
+    return xm < kM && r < nw ? half_bits_to_float<T>(__ldg(xp + b * kSBatch))
+                             : 0.f;
+  };
+  float xr = x_of(0);
+
+  // The thread's two output columns of the combine below, and their scales.
+  const int own = tile * kSTile + lane * kSCols + 2 * warp;
+  const bool mine = own < N;
+  const float2 sc = mine ? __ldg(reinterpret_cast<const float2*>(mem.scale +
+                                                                own))
+                         : make_float2(0.f, 0.f);
+
+  float acc[kM][kSCols];
 #pragma unroll
-  for (int c = 0; c < kRowCols; ++c) acc[c] = 0.f;
-  if (col < N) {  // N % 16 == 0: a thread's 16 columns are all in or out
-    const int8_t* qp = q + (long)k0 * N + col;
-    for (int r0 = warp; r0 < n; r0 += kWarps * kRowUnroll) {
-      uint4 w[kRowUnroll];
+  for (int m = 0; m < kM; ++m)
 #pragma unroll
-      for (int u = 0; u < kRowUnroll; ++u) {
-        const int r = r0 + u * kWarps;
-        w[u] = r < n ? __ldcs(reinterpret_cast<const uint4*>(qp + (long)r * N))
-                     : make_uint4(0u, 0u, 0u, 0u);
-      }
+    for (int c = 0; c < kSCols; ++c) acc[m][c] = 0.f;
+  for (int b = 0; b * kSBatch < nw; ++b) {
+    const float xn = x_of(b + 1);  // the next batch's x, in flight now
 #pragma unroll
-      for (int u = 0; u < kRowUnroll; ++u) {
-        const int r = r0 + u * kWarps;
-        if (r < n) {  // warp-uniform
-          const float xr = sX[r];
-          float wf[kRowCols];
-          hopper::cvt4(w[u].x, wf);
-          hopper::cvt4(w[u].y, wf + 4);
-          hopper::cvt4(w[u].z, wf + 8);
-          hopper::cvt4(w[u].w, wf + 12);
+    for (int u = 0; u < kSBatch; ++u) {
+      const int r = b * kSBatch + u;
+      if (r < nw) {  // warp-uniform
+        float xv[kM];
 #pragma unroll
-          for (int c = 0; c < kRowCols; ++c) acc[c] = fmaf(xr, wf[c], acc[c]);
+        for (int m = 0; m < kM; ++m)
+          xv[m] = __shfl_sync(0xffffffffu, xr, m * kSBatch + u);
+        const uint32_t ws[4] = {w[u].x, w[u].y, w[u].z, w[u].w};
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          float wf[4];
+          hopper::cvt4(ws[c4], wf);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int m = 0; m < kM; ++m)
+              acc[m][4 * c4 + e] = fmaf(xv[m], wf[e], acc[m][4 * c4 + e]);
         }
       }
+      // the slot takes the row kSBatch further on
+      w[u] = live && r + kSBatch < nw
+                 ? ld_weights(qp + (long)(r + kSBatch) * N)
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+    xr = xn;
+  }
+
+  // The warps' sums meet once in shared memory, [warp][m][c4][lane] as
+  // float4; thread (warp j, lane l) then adds, over the 8 warps, columns
+  // 2j and 2j + 1 of lane l's 16.
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int c4 = 0; c4 < 4; ++c4)
+      sRed[((warp * kM + m) * 4 + c4) * 32 + lane] =
+          make_float4(acc[m][4 * c4], acc[m][4 * c4 + 1], acc[m][4 * c4 + 2],
+                      acc[m][4 * c4 + 3]);
+  __syncthreads();
+  float2 s[kM];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    s[m] = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int v = 0; v < kSWarps; ++v) {
+      const float2 p = reinterpret_cast<const float2*>(
+          &sRed[((v * kM + m) * 4 + warp / 2) * 32 + lane])[warp % 2];
+      s[m].x += p.x;
+      s[m].y += p.y;
     }
   }
-
-  // The warps' sums in warp order; each thread then owns two columns.
+  if (n_splits == 1) {
+    if (mine)
 #pragma unroll
-  for (int c = 0; c < kRowCols; c += 4)
-    *reinterpret_cast<float4*>(sRed + warp * kRowTile + lane * kRowCols + c) =
-        make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
-  __syncthreads();
-  const int c2 = 2 * tid;
-  const int n_col = tile * kRowTile + c2;
-  float2 sc = make_float2(0.f, 0.f);
-  float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const float2 t =
-        *reinterpret_cast<const float2*>(sRed + w * kRowTile + c2);
-    s0 += t.x;
-    s1 += t.y;
+      for (int m = 0; m < kM; ++m)
+        store2(mem.out, out_type, (long)m * N + own, s[m].x * sc.x,
+               s[m].y * sc.y);
+    return;
   }
-  if (n_col < N) {
-    sc = *reinterpret_cast<const float2*>(scale + n_col);
-    if (n_splits == 1)
-      store2(out, out_type, n_col, s0 * sc.x, s1 * sc.y);
-    else
-      *reinterpret_cast<float2*>(part + (long)split * N + n_col) =
-          make_float2(s0, s1);
-  }
-  if (n_splits == 1) return;
 
-  __threadfence();
+  // Split K: the partials [tile][split][m] of 256 float2 in thread order;
+  // the last block of the tile to finish adds them all, in split order.
+  // One thread bumps the tile's counter with release and acquire
+  // semantics at gpu scope, between two block barriers: the release
+  // publishes every thread's partials (ordered before it by the barrier),
+  // the acquire makes the other blocks' visible to the last block, so no
+  // thread needs a fence of its own.
+  float2* tile_part = reinterpret_cast<float2*>(part) +
+                      (long)t * n_splits * kM * (kSThreads) + tid;
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+    tile_part[(split * kM + m) * kSThreads] = s[m];
   __syncthreads();
   if (tid == 0) {
-    const unsigned done = atomicAdd(&counters[tile], 1u);
+    unsigned done;
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n"
+                 : "=r"(done)
+                 : "l"(counters + t)
+                 : "memory");
     sLast = done == static_cast<unsigned>(n_splits - 1);
   }
   __syncthreads();
   if (!sLast) return;
-  __threadfence();
-  if (n_col < N) {
-    float t0 = 0.f, t1 = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < n_splits; ++s) {
-      const float2 v = __ldcg(
-          reinterpret_cast<const float2*>(part + (long)s * N + n_col));
-      t0 += v.x;
-      t1 += v.y;
-    }
-    store2(out, out_type, n_col, t0 * sc.x, t1 * sc.y);
+  float2 tot[kM];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) tot[m] = make_float2(0.f, 0.f);
+  for (int s0 = 0; s0 < n_splits; s0 += kSPartLoads) {
+    float2 v[kSPartLoads][kM];
+#pragma unroll
+    for (int u = 0; u < kSPartLoads; ++u)
+#pragma unroll
+      for (int m = 0; m < kM; ++m)
+        v[u][m] = s0 + u < n_splits
+                      ? __ldcg(tile_part + ((s0 + u) * kM + m) * kSThreads)
+                      : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int u = 0; u < kSPartLoads; ++u)
+      if (s0 + u < n_splits)
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          tot[m].x += v[u][m].x;
+          tot[m].y += v[u][m].y;
+        }
   }
-  if (tid == 0) counters[tile] = 0;  // ready for the next launch
+  if (mine)
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+      store2(mem.out, out_type, (long)m * N + own, tot[m].x * sc.x,
+             tot[m].y * sc.y);
+  if (tid == 0) counters[t] = 0;  // ready for the next launch
 }
 
 template <typename T, int kTile>
@@ -636,44 +760,78 @@ cudaError_t dispatch(int tile, const void* x, int ldx, const void* q,
   return cudaErrorInvalidValue;
 }
 
+template <typename T>
+cudaError_t launch_stream(const StreamGroup& g, int tiles, const void* x,
+                          int ldx, int M, int K, int rows, void* part,
+                          void* counters, int out_type, cudaStream_t st) {
+  const dim3 grid(tiles, (K + rows - 1) / rows);
+  const uint16_t* xs = static_cast<const uint16_t*>(x);
+  float* p = static_cast<float*>(part);
+  unsigned* c = static_cast<unsigned*>(counters);
+  if (M == 1)
+    dequant_gemv_stream_kernel<T, 1><<<grid, kSThreads, 0, st>>>(
+        g, xs, ldx, K, rows, p, c, out_type);
+  else
+    dequant_gemv_stream_kernel<T, 2><<<grid, kSThreads, 0, st>>>(
+        g, xs, ldx, K, rows, p, c, out_type);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// y = (x @ q) * scale for M in 1..8 rows over column tiles of `tile`
-// columns: at 2-8 rows the tensor-core kernel (a tile of 64, 128 or 256
-// columns; `rows`, the K range of one block, a multiple of 16 up to 2048),
-// at one row the scalar loop (a tile of 512; `rows` a multiple of 64 up to
-// 512).  K splits into ceil(K / rows)
-// blocks a tile, and with more than one, `part` and `counters` are the
-// split scratch.
-extern "C" int mc_w8a16_gemv(const void* x, const void* q, const void* scale,
-                             void* part, void* counters, void* out, int M,
-                             int K, int N, int ldx, int rows, int tile,
-                             int x_bf16, int out_type, void* stream) {
-  const bool one_row = M == 1;
-  if (M < 1 || M > kMaxM || K <= 0 || N <= 0 || N % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(q) % 16 != 0 || rows <= 0 ||
-      (M > 1 && ldx < K) || out_type < kOutF32 || out_type > kOutF16)
+// y_i = (x @ q_i) * scale_i for M in 1..8 rows of x and n_members (1 to 3)
+// weights that share it, over column tiles of `tile` columns: 512 is the
+// streaming kernel (M <= 2, one to three members, one launch; `rows`, the
+// K range of one block, a multiple of 8: a run of rows a warp), 64, 128 or
+// 256 the tensor-core kernel (one member; `rows` a multiple of 16 up to
+// 2048).  K splits into ceil(K / rows) blocks a tile, and with more than
+// one, `part` and `counters` are the split scratch: the streaming kernel's
+// partials are [tiles][splits][M][512] over every member's tiles, the
+// tensor-core kernel's [splits][M][N].
+extern "C" int mc_w8a16_gemv(const void* x, int n_members,
+                             const void* const* q, const void* const* scale,
+                             void* const* out, const int* N, void* part,
+                             void* counters, int M, int K, int ldx, int rows,
+                             int tile, int x_bf16, int out_type,
+                             void* stream) {
+  if (M < 1 || M > kMaxM || K <= 0 || rows <= 0 || n_members < 1 ||
+      n_members > kMaxMembers || (M > 1 && ldx < K) || out_type < kOutF32 ||
+      out_type > kOutF16)
     return cudaErrorInvalidValue;
-  if (one_row ? tile != kRowTile || rows % kRowStep != 0 ||
-                    rows > kRowMaxRows
-              : (tile != 64 && tile != 128 && tile != 256) ||
-                    rows % kStep != 0 || rows > kMaxRows)
+  for (int i = 0; i < n_members; ++i)
+    if (N[i] <= 0 || N[i] % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(q[i]) % 16 != 0)
+      return cudaErrorInvalidValue;
+  const bool streaming = tile == kSTile;
+  if (streaming ? M > kSMaxM || rows % kSWarps != 0
+                : n_members != 1 || (tile != 64 && tile != 128 &&
+                                     tile != 256) ||
+                      rows % kStep != 0 || rows > kMaxRows)
     return cudaErrorInvalidValue;
   const int n_splits = (K + rows - 1) / rows;
   if (n_splits > 65535 || (n_splits > 1 && (!part || !counters)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (one_row) {
-    const dim3 grid((N + kRowTile - 1) / kRowTile, n_splits);
-    dequant_gemv_kernel_one_row<<<grid, kRowThreads, 0, st>>>(
-        x, x_bf16, static_cast<const int8_t*>(q),
-        static_cast<const float*>(scale), static_cast<float*>(part),
-        static_cast<unsigned*>(counters), out, out_type, K, N, rows);
-    return cudaGetLastError();
+  if (streaming) {
+    StreamGroup g{};
+    int tiles = 0;
+    for (int i = 0; i < n_members; ++i) {
+      g.m[i] = StreamMember{static_cast<const int8_t*>(q[i]),
+                            static_cast<const float*>(scale[i]), out[i], N[i],
+                            tiles};
+      tiles += (N[i] + kSTile - 1) / kSTile;
+    }
+    g.n = n_members;
+    if (x_bf16)
+      return launch_stream<__nv_bfloat16>(g, tiles, x, ldx, M, K, rows, part,
+                                          counters, out_type, st);
+    return launch_stream<__half>(g, tiles, x, ldx, M, K, rows, part, counters,
+                                 out_type, st);
   }
   if (x_bf16)
-    return dispatch<__nv_bfloat16>(tile, x, ldx, q, scale, part, counters,
-                                   out, out_type, M, K, N, rows, st);
-  return dispatch<__half>(tile, x, ldx, q, scale, part, counters, out,
-                          out_type, M, K, N, rows, st);
+    return dispatch<__nv_bfloat16>(tile, x, ldx, q[0], scale[0], part,
+                                   counters, out[0], out_type, M, K, N[0],
+                                   rows, st);
+  return dispatch<__half>(tile, x, ldx, q[0], scale[0], part, counters, out[0],
+                          out_type, M, K, N[0], rows, st);
 }

@@ -9,12 +9,15 @@ dot's operand load.  Here ``dequant_matmul`` launches K5
 int8 weight once and converts it in registers.  Products of more than
 ``K5_MAX_ROWS`` rows (prefill, prefill chunks, training on an int8 base)
 convert the weight to the activations' type and run the fp32-output GEMM
-(``dequant_matmul_reference``); so do CPU tensors.
+(``dequant_matmul_reference``); so do CPU tensors.  At 1-2 rows the
+products that share an input (a layer's q/k/v, its gate/up) are one K5
+launch (``dequant_matmul_group``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import threading
 from typing import Any, Dict
 
@@ -111,6 +114,8 @@ def dequant_matmul_reference(x: torch.Tensor, wq: Dict[str, torch.Tensor],
 
 
 K5_MAX_ROWS = 8  # rows of x (its leading axes flattened) that K5 takes
+K5_GROUP_ROWS = 2  # rows at which products that share x are one launch
+K5_GROUP_MAX = 3  # weights one grouped launch takes (q/k/v)
 _K_STEP = 16  # the depth of K5's mma: a block's K range is whole steps
 _BLOCK_ROWS = 2048  # the most K rows of one tensor-core block (kMaxRows)
 # The column tiles of the tensor-core kernel and the rates (TB/s) at which
@@ -118,27 +123,49 @@ _BLOCK_ROWS = 2048  # the most K rows of one tensor-core block (kMaxRows)
 # the tile sweep of scripts/torch_kernel_ab.py --only K5): a wider tile
 # reads longer runs of each weight row.
 _TILE_RATES = {64: 1.67, 128: 1.97, 256: 2.28}
-_ROW_TILE = 512  # the one-row scalar loop's tile (kRowTile)
-_ROW_MAX_ROWS = 512  # its most K rows a block (kRowMaxRows)
-_ROW_STEP = 64  # its K range: whole 8-row steps of its 8 warps
-_ROW_BLOCKS = 264  # its grid: two blocks an SM
 _SMS = 132  # the H100's SMs
 _MIN_BLOCKS = 128  # a grid that keeps (nearly) every SM streaming
 _BLOCK_START = 16 * 1024  # a block's start-up (x staged, the first box's
 #                           latency), in bytes of the weight stream
 _PART_SHARE = 8  # the split partials at most 1/8 of the weight's bytes
 _LAST_READ = 32 * 1024  # the most partial bytes the last block of a tile reads
+# The streaming kernel (1-2 rows): 512-column tiles (kSTile), a block's K
+# range in whole 64-row steps (8 rows a warp), at most 32 splits (the
+# partials a tile's last block reads: 64 KB a row of x).  The split rule
+# and the cost of the choice at two rows are fitted to the split sweep and
+# the tensor-core tile sweep of scripts/torch_kernel_ab.py --only K5 (H100,
+# HBM3, 700 W) at every main-path shape, tp 2 / tp 4 shard and group: the
+# rule picked the fastest split in each of the 40 cases.
+_STREAM_TILE = 512
+_STREAM_STEP = 64
+_STREAM_MAX_SPLITS = 32
+_STREAM_PAIR_ROWS = 192  # two blocks an SM only if each streams this many
+_TWO_ROW_US = {"stream": (6.99, 3.12), "mma": (5.97, 2.52)}  # us, TB/s
 _OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def _row_plan(K: int, N: int):
-    """The one-row loop's grid: split K until the grid has about 264
-    blocks of a 512-column tile, at most 512 rows a block."""
-    tiles = -(-N // _ROW_TILE)
-    splits = max(-(-_ROW_BLOCKS // tiles), -(-K // _ROW_MAX_ROWS))
-    per_split = -(-K // splits)
-    rows = min(_ROW_MAX_ROWS, -(-per_split // _ROW_STEP) * _ROW_STEP)
-    return rows, -(-K // rows), tiles
+def _stream_plan(K: int, tiles: int):
+    """(rows, n_splits) of the streaming kernel over ``tiles`` 512-column
+    tiles (of one weight, or of every weight of a group): K split to fill
+    the card with two blocks an SM (at most 264) where a block then still
+    streams 192 rows or more (three rounds of loads a warp), else with one
+    (at most 132: fewer, longer blocks and fewer partials beat a second
+    block of short ones); at most 32 splits, whole 64-row steps."""
+    steps = -(-K // _STREAM_STEP)
+    for blocks in (2 * _SMS, _SMS):
+        splits = max(1, min(blocks // tiles, _STREAM_MAX_SPLITS, steps))
+        rows = -(-steps // splits) * _STREAM_STEP
+        if rows >= _STREAM_PAIR_ROWS:
+            break
+    return rows, -(-K // rows)
+
+
+def _two_row_us(kernel: str, K: int, N: int) -> float:
+    """A kernel's estimated time (us) for two rows of x @ q [K, N]: its
+    fixed cost and the weight's bytes at its rate (fitted; the streaming
+    kernel starts slower and streams faster)."""
+    start, rate = _TWO_ROW_US[kernel]
+    return start + K * N / (rate * 1e6)
 
 
 def _mma_plan(M: int, K: int, N: int, tile: int):
@@ -174,14 +201,35 @@ def _mma_plan(M: int, K: int, N: int, tile: int):
 def _k5_plan(M: int, K: int, N: int):
     """K5's grid for x [M, K] @ q [K, N]: (tile, rows, n_splits, n_tiles),
     the column tile, the K range of one block, the blocks of a tile, and
-    the tiles.  One row takes the scalar loop over 512-column tiles; 2-8
-    rows the tensor-core kernel at the tile (64, 128 or 256 columns) whose
-    plan costs least."""
-    if M == 1:
-        return (_ROW_TILE,) + _row_plan(K, N)
+    the tiles.  A tile of 512 is the streaming kernel: always at one row,
+    at two rows where its estimated time is at most the tensor-core
+    kernel's (the wide products; the narrow tp shards keep the tensor
+    cores); 3-8 rows take the tensor-core kernel at the tile (64, 128 or
+    256 columns) whose plan costs least."""
+    tiles = -(-N // _STREAM_TILE)
+    if M == 1 or M == 2 and _two_row_us("stream", K, N) \
+            <= _two_row_us("mma", K, N):
+        return (_STREAM_TILE,) + _stream_plan(K, tiles) + (tiles,)
     plans = {tile: _mma_plan(M, K, N, tile) for tile in _TILE_RATES}
     tile = min(plans, key=lambda t: plans[t][0])
     return (tile,) + plans[tile][1:]
+
+
+def _k5_group_plan(M: int, K: int, Ns):
+    """The grid of one grouped launch (1-2 rows; the streaming kernel):
+    (512, rows, n_splits, n_tiles) over every member's 512-column tiles."""
+    tiles = sum(-(-N // _STREAM_TILE) for N in Ns)
+    return (_STREAM_TILE,) + _stream_plan(K, tiles) + (tiles,)
+
+
+def _scratch_sizes(M: int, Ns, plan):
+    """(fp32 partials, counters) of a launch with ``plan``: the streaming
+    kernel's [tiles][splits][M][512], the tensor-core kernel's [splits][M]
+    [N] and a counter per column tile."""
+    tile, _, splits, tiles = plan
+    if tile == _STREAM_TILE:
+        return tiles * splits * M * _STREAM_TILE, tiles
+    return splits * M * Ns[0], tiles
 
 
 class _Scratch:
@@ -272,13 +320,17 @@ def _check_cuda_inputs(x2, q, scale):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _k5(x2, q, scale, out_dtype):
-    """Kernel K5 on x2 [M, K] (M <= K5_MAX_ROWS): (x2 @ q) * scale in
-    ``out_dtype``, one launch."""
-    _check_cuda_inputs(x2, q, scale)
+def _k5(x2, weights, out_dtype):
+    """Kernel K5 on x2 [M, K] (M <= K5_MAX_ROWS): ``[(x2 @ q) * scale]`` in
+    ``out_dtype`` for one weight, or for up to K5_GROUP_MAX weights that
+    share x2 at 1-2 rows, one launch either way."""
+    for wq in weights:
+        _check_cuda_inputs(x2, wq["q"], wq["scale"])
     M, K = x2.shape
-    N = q.shape[1]
-    tile, rows, n_splits, n_tiles = _k5_plan(M, K, N)
+    Ns = [wq["q"].shape[1] for wq in weights]
+    n = len(weights)
+    plan = _k5_plan(M, K, Ns[0]) if n == 1 else _k5_group_plan(M, K, Ns)
+    tile, rows, n_splits, _ = plan
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     record = None
     if torch.cuda.is_current_stream_capturing():
@@ -291,22 +343,27 @@ def _k5(x2, q, scale, out_dtype):
     if n_splits > 1:
         scratch = record.scratch if record is not None \
             else _SCRATCH.setdefault((x2.device, stream), _Scratch())
-        part, counters = scratch.get(x2.device, n_splits * M * N, n_tiles)
+        part, counters = scratch.get(x2.device, *_scratch_sizes(M, Ns, plan))
     kind = out_dtype if out_dtype in (torch.float32, x2.dtype) \
         else torch.float32
-    out = torch.empty((M, N), dtype=kind, device=x2.device)
+    outs = [torch.empty((M, N), dtype=kind, device=x2.device) for N in Ns]
+
+    def pointers(ts):
+        return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
     err = _build.load("w8a16_gemv").mc_w8a16_gemv(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+        x2.data_ptr(), n, pointers([wq["q"] for wq in weights]),
+        pointers([wq["scale"] for wq in weights]), pointers(outs),
+        (ctypes.c_int * n)(*Ns),
         None if part is None else part.data_ptr(),
-        None if counters is None else counters.data_ptr(), out.data_ptr(),
-        M, K, N, x2.stride(0) if M > 1 else K, rows, tile,
+        None if counters is None else counters.data_ptr(),
+        M, K, x2.stride(0) if M > 1 else K, rows, tile,
         int(x2.dtype == torch.bfloat16), _OUT_TYPES[kind], stream)
     _build.check(err, "w8a16_gemv")
     if record is not None:  # recorded, not run: each replay runs it
-        record.launches.append((M, K, N))
+        record.launches.append((M, K, Ns[0] if n == 1 else tuple(Ns)))
     else:
         dequant_matmul.launches += 1
-    return out.to(out_dtype)
+    return [out.to(out_dtype) for out in outs]
 
 
 def _dequant_matmul_dx(g, q, scale, dtype):
@@ -319,18 +376,45 @@ def _dequant_matmul_dx(g, q, scale, dtype):
 
 
 class _DequantMatmul(torch.autograd.Function):
-    """K5 forward, plain backward through x (the weight is frozen)."""
+    """K5 forward (one weight, or a group that shares x), plain backward
+    through x (the weights are frozen): the members' dL/dx summed in their
+    order.  ``flat`` is q, scale of each weight in turn."""
 
     @staticmethod
-    def forward(ctx, x2, q, scale, out_dtype):
-        ctx.save_for_backward(q, scale)
+    def forward(ctx, x2, out_dtype, *flat):
+        ctx.save_for_backward(*flat)
         ctx.x_dtype = x2.dtype
-        return _k5(x2, q, scale, out_dtype)
+        weights = [{"q": q, "scale": s} for q, s in zip(flat[::2], flat[1::2])]
+        return tuple(_k5(x2, weights, out_dtype))
 
     @staticmethod
-    def backward(ctx, g):
-        q, scale = ctx.saved_tensors
-        return _dequant_matmul_dx(g, q, scale, ctx.x_dtype), None, None, None
+    def backward(ctx, *grads):
+        flat = ctx.saved_tensors
+        dx = None
+        for g, q, scale in zip(grads, flat[::2], flat[1::2]):
+            d = _dequant_matmul_dx(g, q, scale, ctx.x_dtype)
+            dx = d if dx is None else dx + d
+        return (dx, None) + (None,) * len(flat)
+
+
+def _rows(x: torch.Tensor) -> int:
+    """x's rows with its leading axes flattened."""
+    K = x.shape[-1]
+    return x.numel() // K if K else 0
+
+
+def _k5_call(x, weights, out_dtype):
+    """K5 on x [..., K] and ``weights`` (one, or a group), differentiable
+    through x; outputs [..., N] each."""
+    K = x.shape[-1]
+    x2 = x.reshape(_rows(x), K)
+    out_dtype = out_dtype or x.dtype
+    if torch.is_grad_enabled() and x.requires_grad:
+        flat = [t for wq in weights for t in (wq["q"], wq["scale"])]
+        ys = _DequantMatmul.apply(x2, out_dtype, *flat)
+    else:
+        ys = _k5(x2, weights, out_dtype)
+    return [y.reshape(*x.shape[:-1], y.shape[-1]) for y in ys]
 
 
 def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
@@ -349,20 +433,34 @@ def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
         return dequant_matmul_reference(x, wq, out_dtype)
     if impl != "auto":
         raise ValueError(f"unknown dequant_matmul impl {impl!r}")
-    K = x.shape[-1]
-    M = x.numel() // K if K else 0
-    if not x.is_cuda or not 0 < M <= K5_MAX_ROWS:
+    if not x.is_cuda or not 0 < _rows(x) <= K5_MAX_ROWS:
         return dequant_matmul_reference(x, wq, out_dtype)
-    q, scale = wq["q"], wq["scale"]
-    x2 = x.reshape(M, K)
-    args = (x2, q, scale, out_dtype or x.dtype)
-    y = _DequantMatmul.apply(*args) if torch.is_grad_enabled() \
-        and x.requires_grad else _k5(*args)
-    return y.reshape(*x.shape[:-1], q.shape[-1])
+    return _k5_call(x, [wq], out_dtype)[0]
 
 
-# Launches of K5: one per call that ran it, and a replayed graph adds the
-# launches its capture recorded (core/decode_graph).
+def k5_groups(x: torch.Tensor, n: int) -> bool:
+    """Whether ``n`` int8 products of x run as one K5 launch: on a CUDA
+    tensor of 1..K5_GROUP_ROWS rows (batch-1 decode, the vision pair), 2
+    to K5_GROUP_MAX weights."""
+    return x.is_cuda and 1 < n <= K5_GROUP_MAX \
+        and 0 < _rows(x) <= min(K5_GROUP_ROWS, K5_MAX_ROWS)
+
+
+def dequant_matmul_group(x: torch.Tensor, weights, out_dtype=None,
+                         impl: str = "auto"):
+    """``[dequant_matmul(x, wq, out_dtype, impl) for wq in weights]``: the
+    products of int8 weights that share x (q/k/v, gate/up), each in its own
+    output.  impl "auto" where ``k5_groups`` says so: one K5 launch whose
+    grid covers every weight's column tiles, differentiable through x.
+    Anywhere else (3-8 rows, larger products, CPU tensors, impl
+    "reference") each weight runs as ``dequant_matmul`` runs it alone."""
+    if impl == "auto" and k5_groups(x, len(weights)):
+        return _k5_call(x, list(weights), out_dtype)
+    return [dequant_matmul(x, wq, out_dtype, impl) for wq in weights]
+
+
+# Launches of K5: one per call that ran it (a grouped call is one), and a
+# replayed graph adds the launches its capture recorded (core/decode_graph).
 dequant_matmul.launches = 0
 
 

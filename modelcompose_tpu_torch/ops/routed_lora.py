@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from ..parallel import tp
-from .quant import dequant_matmul, is_quantized, matmul_f32, quantize_int8
+from .quant import (dequant_matmul, dequant_matmul_group, is_quantized,
+                    k5_groups, matmul_f32, quantize_int8)
 
 
 def routed_lora_matmul(x, w, lora_a, lora_b, route, parallel=None,
@@ -53,6 +54,33 @@ def routed_lora_matmul(x, w, lora_a, lora_b, route, parallel=None,
         y = dequant_matmul(x_base, w, out_dtype=torch.float32, impl=impl)
     else:
         y = matmul_f32(x_base, w)
+    return _adapter_add(x, y, lora_a, lora_b, route, parallel)
+
+
+def routed_lora_matmul_group(x, ps, route, parallel=None, impl="auto"):
+    """``[routed_lora_matmul(x, p["w"], p["lora_a"], p["lora_b"], route,
+    parallel, impl) for p in ps]`` for products that share x (a layer's
+    q/k/v, its gate/up), whose int8 base products run as one K5 launch
+    where ``quant.k5_groups`` says so (1-2 rows on the card): the members
+    then share one ``copy_to_model(x)`` under a column split, and each
+    keeps its own adapter branch.  Anywhere else, or with a float base or
+    a row split, each member runs as ``routed_lora_matmul`` runs it."""
+    ws = [p["w"] for p in ps]
+    if impl != "auto" or parallel == "row" or not k5_groups(x, len(ps)) \
+            or not all(is_quantized(w) for w in ws):
+        return [routed_lora_matmul(x, p["w"], p["lora_a"], p["lora_b"],
+                                   route, parallel=parallel, impl=impl)
+                for p in ps]
+    x_base = tp.copy_to_model(x) if parallel == "column" else x
+    ys = dequant_matmul_group(x_base, ws, out_dtype=torch.float32)
+    return [_adapter_add(x, y, p["lora_a"], p["lora_b"], route, parallel)
+            for y, p in zip(ys, ps)]
+
+
+def _adapter_add(x, y, lora_a, lora_b, route, parallel):
+    """The base product y (fp32) plus the routed adapter branch of x, the
+    row split's sum over the group, in x.dtype."""
+    column = parallel == "column"
     if route is not None:
         if parallel == "row":
             lora_a = tp.slice_rows(lora_a, -2, x.shape[-1])

@@ -32,7 +32,15 @@ cold in L2), the plain convert + GEMM beside them, and the sums over one
 measurement and writes them all to ``chiprun_out/kernel_ab.json``
 (``--only`` runs a subset of K1,K2,K3,K4,K5; K3 and K4 run together).
 At 2-8 rows K5 is also timed at each column tile of its tensor-core kernel
-(64, 128, 256), the rule's split for each, beside the tile the rule picks.
+(64, 128, 256), the rule's split for each, beside the tile the rule picks;
+at 1-2 rows at each split of its streaming kernel; the products of one
+input (q/k/v, gate/up and their shards) grouped in one launch against one
+by one at 1-2 rows.  Before that, the fixed cost of the first one-row
+kernel's launch is taken apart by ``scripts/k5_fixed_cost.cu`` (a copy of
+that kernel with x staging and the split combine switched off, and an
+empty kernel), on the earlier checkout's one-row grid
+(``ops/quant._row_plan``, which a checkout before the streaming kernel
+has).
 """
 
 from __future__ import annotations
@@ -52,8 +60,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (K5_LAYERS, K5_ROWS, K5_SHAPES,  # noqa: E402
-                        K5_TP_SHAPES, cuda_time_cycle_ms,
+from chip_smoke import (K5_GROUPS, K5_LAYERS, K5_ROWS,  # noqa: E402
+                        K5_SHAPES, K5_TP_SHAPES, cuda_time_cycle_ms,
                         device_time_cycle_ms, graph_time_ms)
 from modelcompose_tpu_torch import _build  # noqa: E402
 from modelcompose_tpu_torch.core.llama import quantize_kv  # noqa: E402
@@ -221,8 +229,44 @@ def ab_k34(old_fa, bn_probe, gen, emit):
 
 
 # K5 launches in one decode step of the 32-layer model: 32 x (4 q/k/v/o, 2
-# gate/up, 1 down) + the lm_head.
+# gate/up, 1 down) + the lm_head (225); at 1-2 rows q/k/v and gate/up are one
+# launch each: 32 x 4 + 1 (129).
 K5_PER_STEP = {"qkvo": 4 * 32, "gate_up": 2 * 32, "down": 32, "lm_head": 1}
+K5_GROUPED_STEP = {"group qkv": 32, "qkvo": 32, "group gate_up": 32,
+                   "down": 32, "lm_head": 1}
+K5_SPLITS = (1, 2, 3, 4, 5, 6, 8, 11, 16, 22, 32, 44, 64)
+
+
+def _k5_weights(gen, K, N):
+    return [{"q": torch.randint(-127, 128, (K, N), generator=gen,
+                                device="cuda", dtype=torch.int8),
+             "scale": torch.rand((1, N), generator=gen, device="cuda") * 1e-3
+             + 1e-4} for _ in range(K5_LAYERS)]
+
+
+def _cycled(fn, n, records=()):
+    """ms of one fn(i) by CUDA-graph replay over i = 0..n-1 (each call on
+    the next weight copy: cold in L2)."""
+    import itertools
+    layers = itertools.cycle(range(n))
+    return graph_time_ms(lambda: fn(next(layers)), n=n, records=records)
+
+
+def _lib_call(lib, x, members, outs, part, counters, rows, tile):
+    """One launch of this tree's K5 entry on ``members`` (weight dicts)."""
+    M, K = x.shape
+    n = len(members)
+
+    def pointers(ts):
+        return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
+    err = lib.mc_w8a16_gemv(
+        x.data_ptr(), n, pointers([w["q"] for w in members]),
+        pointers([w["scale"] for w in members]), pointers(outs),
+        (ctypes.c_int * n)(*[w["q"].shape[1] for w in members]),
+        part.data_ptr(), counters.data_ptr(), M, K, x.stride(0), rows, tile,
+        1, 0, _stream())
+    if err:
+        raise RuntimeError(f"K5 tile {tile} rows {rows}: CUDA error {err}")
 
 
 def k5_tiles(x, weights, want):
@@ -230,7 +274,6 @@ def k5_tiles(x, weights, want):
     the rule's split for that tile (``quant._mma_plan``), each by CUDA-graph
     replay over the weight copies: how far the rule's choice is from the
     fastest tile.  Raises if a tile's result leaves the plain one."""
-    import itertools
     lib = _build.load("w8a16_gemv")
     M, K = x.shape
     N = weights[0]["q"].shape[1]
@@ -241,56 +284,155 @@ def k5_tiles(x, weights, want):
         part = torch.empty(splits * M * N, device="cuda")
         counters = torch.zeros(tiles, dtype=torch.int32, device="cuda")
 
-        def call(w, tile=tile, rows=rows, part=part, counters=counters):
-            err = lib.mc_w8a16_gemv(
-                x.data_ptr(), w["q"].data_ptr(), w["scale"].data_ptr(),
-                part.data_ptr(), counters.data_ptr(), out.data_ptr(), M, K, N,
-                x.stride(0), rows, tile, 1, 0, _stream())
-            if err:
-                raise RuntimeError(f"K5 tile {tile}: CUDA error {err}")
-        call(weights[0])
+        def call(i, tile=tile, rows=rows, part=part, counters=counters):
+            _lib_call(lib, x, [weights[i]], [out], part, counters, rows, tile)
+        call(0)
         rel = float((out - want.reshape(M, N)).abs().max()
                     / want.abs().max())
         if rel > 1e-5:
             raise AssertionError(f"K5 tile {tile}: rel err {rel:.3g}")
-        layers = itertools.cycle(range(len(weights)))
-        res[tile] = graph_time_ms(lambda: call(weights[next(layers)]),
-                                  n=len(weights))
+        res[tile] = _cycled(call, len(weights))
     return res
+
+
+def k5_splits(x, members, wants):
+    """{splits: ms} of the streaming kernel over ``members`` (one weight, or
+    a group; a list of weight copies each) at every split count of
+    K5_SPLITS that gives another grid of at most four blocks an SM, by
+    CUDA-graph replay over the copies: the measurements the streaming
+    rule (``quant._stream_plan``) was fitted to.  Raises if a result
+    leaves the plain one."""
+    lib = _build.load("w8a16_gemv")
+    M, K = x.shape
+    Ns = [copies[0]["q"].shape[1] for copies in members]
+    tiles = sum(-(-N // 512) for N in Ns)
+    steps = -(-K // quant._STREAM_STEP)
+    outs = [torch.empty((M, N), device="cuda") for N in Ns]
+    counters = torch.zeros(tiles, dtype=torch.int32, device="cuda")
+    res, seen = {}, set()
+    for s in K5_SPLITS:
+        rows = -(-steps // s) * quant._STREAM_STEP
+        splits = -(-K // rows)
+        if splits in seen or tiles * splits > 4 * quant._SMS:
+            continue
+        seen.add(splits)
+        part = torch.empty(max(1, tiles * splits * M * 512), device="cuda")
+
+        def call(i, rows=rows, part=part):
+            _lib_call(lib, x, [copies[i] for copies in members], outs, part,
+                      counters, rows, 512)
+        call(0)
+        for out, want in zip(outs, wants):
+            rel = float((out - want.reshape(out.shape)).abs().max()
+                        / want.abs().max())
+            if rel > 1e-5:
+                raise AssertionError(f"K5 {splits} splits: rel err {rel:.3g}")
+        res[splits] = _cycled(call, K5_LAYERS)
+    return res
+
+
+def k5_fixed_cost(old_q, scratch, gen, emit):
+    """The fixed cost of the first one-row kernel's launch taken apart
+    (``scripts/k5_fixed_cost.cu``, built into ``scratch``): at q/k/v/o,
+    gate/up, down and the lm_head, on that kernel's grid, the kernel as it
+    was, without x staging, without the split combine, without both, and
+    an empty kernel; and an empty kernel on this tree's one-row grid beside
+    this tree's kernel.  Each by CUDA-graph replay over 32 cold weights,
+    the probes in turns (0-4, then 4-0)."""
+    src = os.path.join(ROOT, "scripts", "k5_fixed_cost.cu")
+    out = os.path.join(scratch, "k5_fixed_cost.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", out, src], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(out)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.k5_probe.argtypes = [I, P, P, P, P, P, P, I, I, I, P]
+    lib.k5_probe.restype = I
+    names = ("as_was", "no_x_staging", "no_combine", "neither", "empty")
+    for case in ("qkvo", "gate_up", "down", "lm_head"):
+        K, N = K5_SHAPES[case]
+        weights = _k5_weights(gen, K, N)
+        x = torch.randn((1, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        old_rows, old_splits, old_tiles = old_q._row_plan(K, N)
+        part = torch.empty(old_splits * N, device="cuda")
+        counters = torch.zeros(old_tiles, dtype=torch.int32, device="cuda")
+        out_ = torch.empty(N, device="cuda")
+
+        def probe(kind, rows=old_rows):
+            def call(i):
+                w = weights[i]
+                err = lib.k5_probe(kind, x.data_ptr(), w["q"].data_ptr(),
+                                   w["scale"].data_ptr(), part.data_ptr(),
+                                   counters.data_ptr(), out_.data_ptr(), K, N,
+                                   rows, _stream())
+                if err:
+                    raise RuntimeError(f"probe {kind}: CUDA error {err}")
+            return call
+        probe(0)(0)
+        want = quant.dequant_matmul_reference(x, weights[0],
+                                              out_dtype=torch.float32)
+        rel = float((out_ - want[0]).abs().max() / want.abs().max())
+        if rel > 1e-5:
+            raise AssertionError(f"K5 probe 0 {case}: rel err {rel:.3g}")
+        ms = {k: [] for k in names}
+        for kind in (0, 1, 2, 3, 4, 4, 3, 2, 1, 0):
+            ms[names[kind]].append(_cycled(probe(kind), K5_LAYERS))
+        _, rows, splits, tiles = quant._k5_plan(1, K, N)
+        new = {"kernel": [], "empty": []}
+        for who in ("kernel", "empty", "empty", "kernel"):
+            new[who].append(_cycled(
+                (lambda i: quant.dequant_matmul(x, weights[i],
+                                                out_dtype=torch.float32))
+                if who == "kernel" else probe(4, rows), K5_LAYERS))
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        emit(kernel="K5", case=case, M=1, K=K, N=N,
+             compare="fixed cost of the first one-row launch",
+             grid={"rows": old_rows, "splits": old_splits,
+                   "tiles": old_tiles}, ms=ms,
+             parts_ms={"empty_launch": mean["empty"],
+                       "x_staging": mean["as_was"] - mean["no_x_staging"],
+                       "combine": mean["as_was"] - mean["no_combine"],
+                       "stream_and_sums": mean["neither"] - mean["empty"]},
+             fixed_ms_at_2_98_tb_s=mean["as_was"] - K * N / 2.98e9,
+             new={"grid": {"rows": rows, "splits": splits, "tiles": tiles},
+                  "ms": new})
+        del weights
+        torch.cuda.empty_cache()
 
 
 def ab_k5(old_q, gen, emit):
     """K5, old against new in turns (old, new, new, old) by CUDA-graph
     replay cycling over 32 weight copies, with the plain product timed
     the same way before and after; fp32 results, as the decode path asks.
-    Then the step sums of each version at every row count."""
-    import itertools
+    At 2-8 rows each tensor-core tile, at 1-2 rows each streaming split.
+    Then the groups (q/k/v, gate/up and their shards) at 1-2 rows: the
+    grouped launch against the members launched one by one (old and new)
+    and each streaming split; and the step sums of each version at every
+    row count (the new one's at 1-2 rows with q/k/v and gate/up grouped:
+    129 launches, beside its 225 products one by one)."""
     means = {}
     for name, (K, N) in {**K5_SHAPES, **K5_TP_SHAPES}.items():
-        weights = [{"q": torch.randint(-127, 128, (K, N), generator=gen,
-                                       device="cuda", dtype=torch.int8),
-                    "scale": torch.rand((1, N), generator=gen,
-                                        device="cuda") * 1e-3 + 1e-4}
-                   for _ in range(K5_LAYERS)]
+        weights = _k5_weights(gen, K, N)
         for M in K5_ROWS:
             x = torch.randn((M, 1, K), generator=gen, device="cuda").to(
                 torch.bfloat16)
             f32 = torch.float32
             versions = {
-                "old": lambda w: old_q.dequant_matmul(x, w, out_dtype=f32),
-                "new": lambda w: quant.dequant_matmul(x, w, out_dtype=f32),
-                "plain": lambda w: quant.dequant_matmul_reference(
-                    x, w, out_dtype=f32)}
-            want = versions["plain"](weights[0])
-            diffs = {who: float((versions[who](weights[0]) - want).abs().max()
+                "old": lambda i: old_q.dequant_matmul(x, weights[i],
+                                                      out_dtype=f32),
+                "new": lambda i: quant.dequant_matmul(x, weights[i],
+                                                      out_dtype=f32),
+                "plain": lambda i: quant.dequant_matmul_reference(
+                    x, weights[i], out_dtype=f32)}
+            want = versions["plain"](0)
+            diffs = {who: float((versions[who](0) - want).abs().max()
                                 / want.abs().max())
                      for who in ("old", "new")}
             times = {"old": [], "new": [], "plain": []}
             for who in ("plain", "old", "new", "new", "old", "plain"):
-                layers = itertools.cycle(range(K5_LAYERS))
-                times[who].append(graph_time_ms(
-                    lambda: versions[who](weights[next(layers)]),
-                    n=K5_LAYERS, records=(old_q.capturing,)))
+                times[who].append(_cycled(versions[who], K5_LAYERS,
+                                          (old_q.capturing,)))
             means[name, M] = {k: sum(v) / len(v) for k, v in times.items()}
             emit(kernel="K5", case=name, M=M, K=K, N=N,
                  compare="old vs new", ms=times,
@@ -301,14 +443,60 @@ def ab_k5(old_q, gen, emit):
                 emit(kernel="K5", case=name, M=M, K=K, N=N,
                      compare="tensor-core tiles",
                      ms=k5_tiles(x.reshape(M, K), weights, want))
+            if M <= 2:
+                emit(kernel="K5", case=name, M=M, K=K, N=N,
+                     compare="streaming splits",
+                     ms=k5_splits(x.reshape(M, K), [weights], [want]))
         del weights
         torch.cuda.empty_cache()
+    for name, (K, Ns) in K5_GROUPS.items():
+        members = [_k5_weights(gen, K, N) for N in Ns]
+        for M in (1, 2):
+            x = torch.randn((M, 1, K), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            f32 = torch.float32
+
+            def each(dm, i):
+                return [dm(x, copies[i], out_dtype=f32) for copies in members]
+            versions = {
+                "old_each": lambda i: each(old_q.dequant_matmul, i),
+                "new_each": lambda i: each(quant.dequant_matmul, i),
+                "grouped": lambda i: quant.dequant_matmul_group(
+                    x, [copies[i] for copies in members], out_dtype=f32)}
+            wants = each(quant.dequant_matmul_reference, 0)
+            grouped = versions["grouped"](0)
+            rel = max(float((g - w).abs().max() / w.abs().max())
+                      for g, w in zip(grouped, wants))
+            if rel > 1e-5:
+                raise AssertionError(f"K5 group {name} M{M}: rel {rel:.3g}")
+            times = {k: [] for k in versions}
+            for who in ("old_each", "new_each", "grouped", "grouped",
+                        "new_each", "old_each"):
+                times[who].append(_cycled(versions[who], K5_LAYERS,
+                                          (old_q.capturing,)))
+            means["group " + name, M] = {k: sum(v) / len(v)
+                                         for k, v in times.items()}
+            emit(kernel="K5", case=name, M=M, K=K, N=list(Ns),
+                 compare="grouped vs one by one", ms=times,
+                 grid=dict(zip(("tile", "rows", "splits", "tiles"),
+                               quant._k5_group_plan(M, K, Ns))),
+                 rel_err_vs_plain=rel)
+            emit(kernel="K5", case=name, M=M, K=K, N=list(Ns),
+                 compare="streaming splits",
+                 ms=k5_splits(x.reshape(M, K), members, wants))
+        del members
+        torch.cuda.empty_cache()
     for M in K5_ROWS:
-        emit(kernel="K5", case="decode step (225 products, 32 layers)", M=M,
-             compare="old vs new", ms_sum={
-                 who: sum(n * means[s, M][who]
-                          for s, n in K5_PER_STEP.items())
-                 for who in ("old", "new", "plain")})
+        sums = {who: sum(n * means[s, M][who]
+                         for s, n in K5_PER_STEP.items())
+                for who in ("old", "new", "plain")}
+        if M <= quant.K5_GROUP_ROWS:
+            sums["new_one_by_one"] = sums["new"]
+            sums["new"] = sum(n * means[s, M]["grouped" if s.startswith(
+                "group") else "new"] for s, n in K5_GROUPED_STEP.items())
+        emit(kernel="K5", case="decode step (32 layers)", M=M,
+             launches=129 if M <= quant.K5_GROUP_ROWS else 225,
+             compare="old vs new", ms_sum=sums)
 
 
 def main() -> int:
@@ -337,7 +525,9 @@ def main() -> int:
         print(json.dumps(row), flush=True)
 
     if "K5" in only:
-        ab_k5(old_quant(args.old), gen, emit)
+        old_q = old_quant(args.old)
+        k5_fixed_cost(old_q, args.old, gen, emit)
+        ab_k5(old_q, gen, emit)
 
     if "K1" in only:
         bn64 = variant(args.old, "flash_attention_fwd",

@@ -672,7 +672,8 @@ def test_k5_matches_plain(K, N, M):
 def test_k5_fp16_and_ragged_k():
     """fp16 activations, and K not a multiple of a block's rows."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for K, N, M in ((4096, 4096, 2), (344, 48, 3), (1000, 272, 8)):
+    for K, N, M in ((4096, 4096, 2), (344, 48, 3), (1000, 272, 8),
+                    (344, 48, 1), (1000, 272, 2), (11008, 2752, 1)):
         x, wq = _k5_inputs(gen, M, K, N, torch.float16)
         for out in (None, torch.float32):
             got = dequant_matmul(x, wq, out_dtype=out)
@@ -695,7 +696,9 @@ def test_k5_fp16_at_eight_rows(K, N):
 
 
 @pytest.mark.parametrize("M,K,N,pad", [(8, 4096, 4096, 8), (8, 4096, 11008, 3),
-                                       (5, 1000, 272, 24), (2, 344, 48, 1)])
+                                       (5, 1000, 272, 24), (2, 344, 48, 1),
+                                       (2, 11008, 4096, 5),
+                                       (1, 4096, 32000, 3)])
 def test_k5_row_strided_x(M, K, N, pad):
     """x with a row stride past K (a view of wider rows; an odd pad also
     breaks the rows' 16-byte alignment): the rows of B past M stay zero
@@ -830,27 +833,149 @@ def test_k5_rejects(case):
         dequant_matmul(x, wq)
 
 
-@pytest.mark.parametrize("M,rows,tile", [
-    (2, 512, 32),     # not a tile of either kernel
-    (2, 512, 512),    # the one-row loop's tile at two rows
-    (1, 96, 512),     # the one-row loop takes whole 64-row steps
-    (1, 1024, 512),   # ... and at most 512 rows a block
-    (2, 520, 128),    # the tensor-core kernel takes whole 16-row steps
-    (2, 4096, 128)])  # ... and at most 2048 rows a block
-def test_k5_entry_refuses_other_grids(M, rows, tile):
-    """The C entry refuses a tile or a split the grid rule cannot produce
-    (cudaErrorInvalidValue), before launching anything."""
+@pytest.mark.parametrize("M,rows,tile,members", [
+    (2, 512, 32, 1),     # not a tile of either kernel
+    (3, 512, 512, 1),    # the streaming kernel's tile at three rows
+    (1, 100, 512, 1),    # the streaming kernel takes whole 8-row runs
+    (2, 512, 128, 2),    # the tensor-core kernel takes one weight
+    (2, 520, 128, 1),    # ... whole 16-row steps
+    (2, 4096, 128, 1),   # ... and at most 2048 rows a block
+    (1, 512, 512, 4)])   # at most three weights a launch
+def test_k5_entry_refuses_other_grids(M, rows, tile, members):
+    """The C entry refuses a tile, a split or a group the grid rule cannot
+    produce (cudaErrorInvalidValue), before launching anything."""
+    import ctypes
     from modelcompose_tpu_torch import _build
     gen = torch.Generator(device="cuda").manual_seed(11)
     x, wq = _k5_inputs(gen, M, 4096, 1024)
-    part = torch.empty(64 * M * 1024, device="cuda")
-    counters = torch.zeros(64, dtype=torch.int32, device="cuda")
-    out = torch.empty((M, 1024), device="cuda")
+    part = torch.empty(64 * M * 1024 * members, device="cuda")
+    counters = torch.zeros(64 * members, dtype=torch.int32, device="cuda")
+    outs = [torch.empty((M, 1024), device="cuda") for _ in range(members)]
+
+    def pointers(ts):
+        return (ctypes.c_void_p * members)(*[t.data_ptr() for t in ts])
     err = _build.load("w8a16_gemv").mc_w8a16_gemv(
-        x.data_ptr(), wq["q"].data_ptr(), wq["scale"].data_ptr(),
-        part.data_ptr(), counters.data_ptr(), out.data_ptr(), M, 4096, 1024,
-        4096, rows, tile, 1, 0, torch.cuda.current_stream().cuda_stream)
+        x.data_ptr(), members, pointers([wq["q"]] * members),
+        pointers([wq["scale"]] * members), pointers(outs),
+        (ctypes.c_int * members)(*[1024] * members), part.data_ptr(),
+        counters.data_ptr(), M, 4096, 4096, rows, tile, 1, 0,
+        torch.cuda.current_stream().cuda_stream)
     assert err == 1  # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("K,N", K5_SHAPES)
+def test_k5_streaming_kernel_fp16(K, N, M):
+    """The streaming kernel (1-2 rows) on fp16 activations at every
+    main-path shape, with an fp16 and an fp32 result."""
+    gen = torch.Generator(device="cuda").manual_seed(K + N + M + 1)
+    x, wq = _k5_inputs(gen, M, K, N, torch.float16)
+    for out in (None, torch.float32):
+        got = dequant_matmul(x, wq, out_dtype=out)
+        want = dequant_matmul_reference(x, wq, out_dtype=out)
+        assert got.dtype == (out or torch.float16)
+        assert _rel(got, want) <= (1e-5 if out else 2e-2)
+
+
+# The products that share an input: q/k/v, gate/up and their tp 2 and 4
+# column shards, and a ragged K with a narrow member.
+K5_GROUPS = [(4096, (4096,) * 3), (4096, (11008,) * 2),
+             (4096, (2048,) * 3), (4096, (5504,) * 2), (4096, (1024,) * 3),
+             (4096, (2752,) * 2), (1000, (272, 48, 1024))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("K,Ns", K5_GROUPS)
+def test_k5_group_matches_plain(K, Ns, M, dtype):
+    """One launch for the weights that share x, each member's output held
+    to its plain product (bf16/fp16 and fp32 results), and bit-equal to
+    nothing else: every member is its own output."""
+    from modelcompose_tpu_torch.ops.quant import dequant_matmul_group
+    gen = torch.Generator(device="cuda").manual_seed(K + M + len(Ns))
+    x, _ = _k5_inputs(gen, M, K, 16, dtype)
+    weights = [_k5_inputs(gen, M, K, N)[1] for N in Ns]
+    for out in (None, torch.float32):
+        n = dequant_matmul.launches
+        got = dequant_matmul_group(x, weights, out_dtype=out)
+        assert dequant_matmul.launches == n + 1
+        for y, wq, N in zip(got, weights, Ns):
+            want = dequant_matmul_reference(x, wq, out_dtype=out)
+            assert y.shape == want.shape == (M, 1, N)
+            assert y.dtype == want.dtype
+            assert _rel(y, want) <= (1e-5 if out else 2e-2)
+
+
+def test_k5_group_row_strided_and_three_rows():
+    """A row-strided x at two rows (each member reads only its K columns),
+    and at three rows a group is each member's own launch, as before."""
+    from modelcompose_tpu_torch.ops.quant import dequant_matmul_group
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    weights = [_k5_inputs(gen, 2, 4096, N)[1] for N in (4096, 1024, 1024)]
+    wide = torch.randn((2, 1, 4096 + 5), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    wide[..., 4096:] = float("nan")
+    x = wide[..., :4096]
+    got = dequant_matmul_group(x, weights, out_dtype=torch.float32)
+    for y, wq in zip(got, weights):
+        want = dequant_matmul_reference(x.contiguous(), wq,
+                                        out_dtype=torch.float32)
+        assert _rel(y, want) <= 1e-5
+    x3 = torch.randn((3, 1, 4096), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    n = dequant_matmul.launches
+    got = dequant_matmul_group(x3, weights, out_dtype=torch.float32)
+    assert dequant_matmul.launches == n + 3
+    for y, wq in zip(got, weights):
+        assert torch.equal(y, dequant_matmul(x3, wq, out_dtype=torch.float32))
+
+
+def test_k5_group_is_deterministic_and_replays_bit_for_bit():
+    """Grouped launches give the same bits every time, and a captured one
+    replays the eager call's bits with scratch its record keeps; the record
+    counts the grouped launch once."""
+    from modelcompose_tpu_torch.ops.quant import dequant_matmul_group
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for M in (1, 2):
+        x, _ = _k5_inputs(gen, M, 4096, 16)
+        weights = [_k5_inputs(gen, M, 4096, N)[1] for N in (11008, 11008)]
+        first = dequant_matmul_group(x, weights, out_dtype=torch.float32)
+        for _ in range(3):
+            again = dequant_matmul_group(x, weights, out_dtype=torch.float32)
+            assert all(torch.equal(a, b) for a, b in zip(again, first))
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            graph = torch.cuda.CUDAGraph()
+            with quant.capturing() as record:
+                graph.capture_begin()
+                outs = dequant_matmul_group(x, weights,
+                                            out_dtype=torch.float32)
+                graph.capture_end()
+            assert record.launches == [(M, 4096, (11008, 11008))]
+            graph.replay()
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, first))
+
+
+def test_k5_group_backward_matches_plain():
+    """dL/dx through a grouped launch: the members' plain dL/dx summed."""
+    from modelcompose_tpu_torch.ops.quant import dequant_matmul_group
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x, _ = _k5_inputs(gen, 2, 4096, 16)
+    weights = [_k5_inputs(gen, 2, 4096, N)[1] for N in (4096, 1024, 1024)]
+    gs = [torch.randn((2, 1, N), generator=gen, device="cuda")
+          for N in (4096, 1024, 1024)]
+    xr = x.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(
+        dequant_matmul_group(xr, weights, out_dtype=torch.float32), xr, gs)
+    xr = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        [dequant_matmul_reference(xr, wq, out_dtype=torch.float32)
+         for wq in weights], xr, gs)
+    assert got.dtype == x.dtype
+    assert _rel(got, want) <= 2e-2
 
 
 @pytest.mark.parametrize("out", [None, torch.float32])
@@ -890,27 +1015,32 @@ def _tiny_card_backbone(quantized_base):
     return cfg, params, gen
 
 
+@pytest.mark.parametrize("B", [1, 2, 3])
 @pytest.mark.parametrize("kv_quant", [False, True])
 @pytest.mark.parametrize("quantized_base", [False, True])
 def test_decode_graph_replays_the_eager_step_bit_for_bit(quantized_base,
-                                                          kv_quant):
-    """Prefill two rows, then 12 greedy steps eagerly and 12 through a
+                                                          kv_quant, B):
+    """Prefill B rows, then 12 greedy steps eagerly and 12 through a
     DecodeGraph: ids equal and logits bit-equal at every step (the same
     kernels on the same addresses' data), and each replay counts the K2
-    launches it ran, and with an int8 base the K5 launches (seven products
-    a layer and the lm_head)."""
+    launches it ran, and with an int8 base the K5 launches: 4 a layer (q/k/v
+    and gate/up one launch each) and the lm_head at 1-2 rows, 7 a layer and
+    the lm_head at 3."""
     from modelcompose_tpu_torch.core import generate as tgen
     from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
     from modelcompose_tpu_torch.ops.routed_lora import as_table
     cfg, params, gen = _tiny_card_backbone(quantized_base)
-    B, L, S = 2, 40, 60
+    L, S = 40, 60
     embeds = _rnd(gen, B, L, cfg.hidden_size)
-    lengths = torch.tensor([40, 23], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([40, 23, 31][:B], dtype=torch.int32,
+                           device="cuda")
     seg = (torch.arange(L, device="cuda")[None] < lengths[:, None]).int()
     table = as_table(cfg.routing_table(), "cuda")
     graph = DecodeGraph(params, cfg, B, S, kv_quant=kv_quant,
                         routing_table=table)
-    k5_per_step = (7 * cfg.num_hidden_layers + 1) if quantized_base else 0
+    per_layer = 4 if B <= quant.K5_GROUP_ROWS else 7
+    k5_per_step = (per_layer * cfg.num_hidden_layers + 1) \
+        if quantized_base else 0
     runs = []
     for cache in (None, graph.cache):
         with torch.no_grad():

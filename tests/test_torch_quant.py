@@ -167,28 +167,73 @@ def test_k5_checks_raise(case, error):
     (5504, 4096), (2752, 4096), (344, 48), (7, 16)])
 def test_block_rows_split_k(monkeypatch, K, N, M):
     """K5's grid rule at every shape of the main path (Vicuna-7B, its tp 2
-    and 4 shards) and two narrow ones: the splits cover K in whole steps,
-    the tile and the step multiples of the mma's 16 (the tensor-core
-    kernel's 64-256-column tiles and 16-row steps up to 2048 rows a block
-    at 2-8 rows; the one-row loop's 512 columns and 64-row steps up to 512
-    rows); at least 128 blocks (about one for each of the card's 132 SMs)
-    where K allows; the fp32 partials of 8 rows at most 1/8 of the
-    weight's bytes and at most 32 KB read by a tile's last block; and the
-    scratch ``_k5`` asks for is the rule's (the launch faked: no card
+    and 4 shards) and two narrow ones: the splits cover K in whole steps;
+    at 1-2 rows the streaming kernel's 512-column tiles (always at one
+    row; at two where its estimated time is below the tensor-core
+    kernel's), whole 64-row steps, one wave (at most two blocks an SM) and
+    at most 32 KB of partials read by a tile's last block; at 2-8 rows the
+    tensor-core kernel's 64-256-column tiles and 16-row steps up to 2048
+    rows a block, at least 128 blocks (about one for each of the card's
+    132 SMs) where K allows, the fp32 partials of 8 rows at most 1/8 of
+    the weight's bytes and at most 32 KB read by a tile's last block; and
+    the scratch ``_k5`` asks for is the rule's (the launch faked: no card
     here)."""
     tile, rows, splits, tiles = quant._k5_plan(M, K, N)
     if M == 1:
-        assert tile == 512 and rows % 64 == 0 and 0 < rows <= 512
+        assert tile == 512
+    if M == 2:  # the kernel the cost picks
+        assert (tile == 512) == (quant._two_row_us("stream", K, N)
+                                 <= quant._two_row_us("mma", K, N))
+        # measured: the streaming kernel is the faster at Vicuna-7B's
+        # shapes, the tensor cores at the tp 2 / tp 4 q/k/v shards
+        assert tile == TWO_ROWS.get((K, N), tile)
+    if tile == 512:
+        _stream_grid_holds(M, K, tiles, rows, splits)
     else:
         assert tile in (64, 128, 256) and rows % 16 == 0 and 0 < rows <= 2048
+        if K >= 1024:
+            assert tiles * splits >= 128
     assert tile % 16 == 0 and tiles == -(-N // tile)
     assert splits == -(-K // rows) and (splits - 1) * rows < K
-    if K >= 1024:
-        assert tiles * splits >= 128
     if M == 8 and splits > 1:
         assert splits * M * N * 4 <= K * N / 8
         assert splits * M * tile * 4 <= 32 * 1024
 
+    asked, launched = _fake_launch(monkeypatch)
+    x2 = torch.zeros((M, K), dtype=torch.bfloat16)
+    q = torch.zeros((K, N), dtype=torch.int8)
+    scale = torch.ones((1, N))
+    quant._k5(x2, [{"q": q, "scale": scale}], torch.float32)
+    args = launched[0]
+    assert args[1] == 1 and list(args[5]) == [N]
+    assert args[8:13] == (M, K, x2.stride(0) if M > 1 else K, rows, tile)
+    part = tiles * splits * M * 512 if tile == 512 else splits * M * N
+    assert asked == ([(part, tiles)] if splits > 1 else [])
+
+
+TWO_ROWS = {(4096, 4096): 512, (4096, 11008): 512, (11008, 4096): 512,
+            (4096, 32000): 512, (4096, 2048): 128, (4096, 1024): 64}
+
+
+def _stream_grid_holds(M, K, tiles, rows, splits):
+    """The streaming kernel's grid: whole 64-row steps, one wave (at most
+    two blocks an SM), two only where a block streams 192 rows or more,
+    and at most 32 splits for a tile's last block to add (64 KB a row of
+    x); one split more would break one of those, where K allows it."""
+    assert rows % 64 == 0 and rows > 0
+    assert tiles * splits <= 2 * 132 or splits == 1
+    assert tiles * splits <= 132 or rows >= 192
+    assert splits <= 32  # a tile's last block reads 32 x 2 KB a row of x
+    steps = -(-K // 64)
+    more_rows = -(-steps // (splits + 1)) * 64
+    more = -(-K // more_rows)
+    if splits < min(32, steps) and tiles <= 132 and more > splits:
+        assert tiles * more > 264 or tiles * more > 132 and more_rows < 192
+
+
+def _fake_launch(monkeypatch):
+    """K5's launches without a card: the library's entry records its
+    arguments, and the scratch records what it was asked for."""
     asked, launched = [], []
 
     class Lib:
@@ -209,13 +254,46 @@ def test_block_rows_split_k(monkeypatch, K, N, M):
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: False)
     monkeypatch.setattr(quant, "_SCRATCH", {})
+    return asked, launched
+
+
+# The products that share an input, (K, [N, ...]): Vicuna-7B's q/k/v and
+# gate/up and their tp 2 and tp 4 column shards, and two narrow ones.
+GROUPS = {"qkv": (4096, [4096] * 3), "gate_up": (4096, [11008] * 2),
+          "tp2 qkv": (4096, [2048] * 3), "tp2 gate_up": (4096, [5504] * 2),
+          "tp4 qkv": (4096, [1024] * 3), "tp4 gate_up": (4096, [2752] * 2),
+          "gqa": (128, [128, 32, 32]), "ragged": (344, [48, 272])}
+
+
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_group_plan_is_one_launch(monkeypatch, group, M):
+    """A grouped launch's grid: one streaming launch over every member's
+    512-column tiles, the splits covering K in whole 64-row steps, one
+    wave, at most 32 KB of partials for a tile's last block, the scratch
+    sized for the group (a counter for each of its tiles), and each
+    member's weight, scale, output and columns passed in order."""
+    K, Ns = GROUPS[group]
+    tile, rows, splits, tiles = quant._k5_group_plan(M, K, Ns)
+    assert tile == 512 and tiles == sum(-(-N // 512) for N in Ns)
+    assert splits == -(-K // rows) and (splits - 1) * rows < K
+    _stream_grid_holds(M, K, tiles, rows, splits)
+
+    asked, launched = _fake_launch(monkeypatch)
     x2 = torch.zeros((M, K), dtype=torch.bfloat16)
-    q = torch.zeros((K, N), dtype=torch.int8)
-    scale = torch.ones((1, N))
-    quant._k5(x2, q, scale, torch.float32)
-    assert launched[0][6:12] == (M, K, N, x2.stride(0) if M > 1 else K, rows,
-                                 tile)
-    assert asked == ([(splits * M * N, tiles)] if splits > 1 else [])
+    weights = [{"q": torch.zeros((K, N), dtype=torch.int8),
+                "scale": torch.ones((1, N))} for N in Ns]
+    outs = quant._k5(x2, weights, torch.float32)
+    assert [tuple(o.shape) for o in outs] == [(M, N) for N in Ns]
+    (args,) = launched
+    n = len(Ns)
+    assert args[1] == n and list(args[5]) == Ns
+    assert list(args[2]) == [w["q"].data_ptr() for w in weights]
+    assert list(args[3]) == [w["scale"].data_ptr() for w in weights]
+    assert list(args[4]) == [o.data_ptr() for o in outs]
+    assert args[8:13] == (M, K, x2.stride(0) if M > 1 else K, rows, 512)
+    assert asked == ([(tiles * splits * M * 512, tiles)] if splits > 1
+                     else [])
 
 
 def test_scratch_grows_and_a_capture_keeps_what_it_outgrew():
