@@ -33,6 +33,17 @@ nonzero:
    timed beside their members launched one by one; the sum over one
    decode step's products at each row count (129 launches at 1-2 rows,
    grouped, beside the 225 one by one; 225 at 3-8);
+4c. K6 (the W8A16 GEMM of the int8 products above 8 rows) against its
+   plain version (the convert, the fp32-output GEMM and the scale pass),
+   with a bf16 and an fp32 result, at every int8 product of the main paths
+   and its tp 2 and 4 shards at 9, 256, 512, 2,048 and 3,328 rows, each
+   one K6 launch and no K5 launch, with each shape's block printed; the
+   seven products of a Vicuna-7B layer timed by CUDA-graph replay over 4
+   weight copies at 512, 2,048 and 3,328 rows and the tp shards of a layer
+   at 3,328, beside the plain route, ``torch.mm`` on bf16 copies of the
+   weights made beforehand (the yardstick, never called by the port),
+   ``torch._weight_int8pack_mm`` (or its error text) and the bound; the
+   sums over a layer and a 32-layer prefill (224 launches);
 5. the serving path at Vicuna-7B width: a vision DAMC composition (CLIP
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
@@ -42,7 +53,8 @@ nonzero:
    (``core/decode_graph``), the second captures the tower's and the
    prefill's graphs (``models/towers``, ``core/prefill_graph``), the
    third, timed, replays every graph and captures nothing (counts per
-   kind checked, K1 exactly once a layer in the replayed prefill, K5
+   kind checked, K1 exactly once a layer in the replayed prefill, K6
+   exactly once an int8 product there (7 a layer: 224), K5
    exactly 4 a layer + 1 a replayed decode step of 1-2 rows (q/k/v and
    gate/up one launch each; 7 a layer + 1 at 3-8) and once in the
    prefill's lm_head, peak
@@ -71,7 +83,13 @@ nonzero:
    against the plain int8 product with K2 in both (in turns plain, K5, K5,
    plain: decode tokens/s, one replayed step's device time by kernel in
    ``chiprun_out/decode_step_profile_{k5,plain}.txt``, greedy ids equal or
-   parting at a named near tie), and torch.profiler over the towers +
+   parting at a named near tie), a prefill A/B of K6 against the plain
+   route above 8 rows with K1 and K5 in both (in turns plain, K6, K6,
+   plain: the one-shot prefill through its graph; a 512-row chunk step
+   through its graph and the prefill graphs' pool GB in each arm's first
+   turn; K6's launches exactly 224 a prefill, the prefill logits within
+   8e-2 and the greedy ids equal or parting at a named near tie), and
+   torch.profiler over the towers +
    prefill (``chiprun_out/composed_profile.txt``);
 6b. decode variants on phase 6's model and request: sampled (temperature
    0.2), sampled with top-p 0.7 (every drawn token inside its step's
@@ -136,9 +154,10 @@ nonzero:
    request the time to first token and tokens, the tick's median and p95,
    aggregate tokens/s, the in-flight slots' longest stall during each
    admission (MCUB-4's beside its own and its prefill's seconds, graphs
-   against eager), peak memory, each kind's graph pool GB, K1/K2 launches
-   (K2 once a layer a tick, K1 once a layer a prefill or chunk, exactly,
-   replays counted); every stream ended, and every
+   against eager), peak memory, each kind's graph pool GB, K1/K2/K6
+   launches (K2 once a layer a tick, K1 once a layer and K6 once an int8
+   product a prefill or chunk, exactly, replays counted); every stream
+   ended, and every
    greedy answer whole and equal to a solo run of the same request (a
    one-shot slot's to ``generate(kv_quant=True)``, a chunked slot's to
    ``prefill_chunked(kv_quant=True)`` and greedy steps) or leaving it at a
@@ -184,9 +203,10 @@ nonzero:
    (``--answer-prompter --single-pred-prompt``, an image and a text row)
    and ``model_vqa_mmbench`` (two TSV rows with base64 PNGs and four
    options, ``--all-rounds``), each answer line with the JAX entry's keys;
-   then the same runs with K1 and K2 replaced by their plain versions,
-   every answer equal to the kernel path's or leaving it at a named near
-   tie (each entry's seconds and graph captures and replays by kind);
+   then the same runs with K1, K2, K5 and K6 replaced by their plain
+   versions, every answer equal to the kernel path's or leaving it at a
+   named near tie (each entry's seconds and graph captures and replays by
+   kind; K6 exactly 7 launches for each K1 launch of a prefill layer);
    (c) at Vicuna-7B width and 2 layers: a LLaVA-LoRA vision
    checkpoint converted by ``compose.convert_llava_checkpoint``, loaded by
    ``model_vqa_loader`` and asked a PNG question; ``compose.lifecycle
@@ -202,7 +222,8 @@ nonzero:
    and decode graphs under the group (their collectives captured), with
    greedy ids bit-equal to the same graphs' with no group and to the
    eager path's under the group; captures and replays under the group
-   and K1 = 32 a prefill, K2 = 32 a decode step from the counters;
+   and K1 = 32 and K6 = 224 a prefill, K2 = 32 a decode step from the
+   counters;
    decode tokens/s and prefill s of the three; one replayed decode step
    profiled under the group and with none (NCCL's kernels and copies in
    ``chiprun_out/distributed_decode_profile*.txt``); the slot pool behind
@@ -233,7 +254,10 @@ row's own keys keep the shape and timing of earlier runs: K1 at the vision
 bucket and K2 over the vision cache (CUDA events over warm launches), K3/K4
 at B=2, L=2,048 with rows of 2,048 and 1,391, K5 at one row of q/k/v/o
 (its ``shapes``, ``tp_shards`` and ``step`` hold the others and the sum
-over a decode step, its ``decode_ab`` phase 6's A/B); K1's and K2's
+over a decode step, its ``decode_ab`` phase 6's A/B), K6 at 3,328 rows of
+q/k/v/o (its ``shapes``, ``tp_shards`` and ``step`` the others and the
+sums over a layer and a prefill, its ``prefill_ab`` phase 6's A/B,
+``library_ms`` ``torch.mm`` on a bf16 copy of the weight); K1's and K2's
 ``mcub4`` hold
 the composed path's shape, K2's ``*_cold`` keys its device time with every
 launch on a cold layer, and K3's and K4's ``train_batch`` and
@@ -279,8 +303,12 @@ K4_REPLACES = "modelcompose_tpu/ops/flash_attention.py:328"
 K5_SOURCE = "modelcompose_tpu_torch/csrc/w8a16_gemv.cu"
 # no Pallas kernel: XLA's fused int8 convert of the JAX dequant_matmul
 K5_REPLACES = "modelcompose_tpu/ops/quant.py:33"
+K6_SOURCE = "modelcompose_tpu_torch/csrc/w8a16_gemm.cu"
+# no Pallas kernel either: the same fused convert at prefill sizes
+K6_REPLACES = "modelcompose_tpu/ops/quant.py:33"
 # the launch counters of the forward kernels, as the phases read them
-FORWARD_KERNELS = ("flash_attention_fwd", "flash_decode", "w8a16_gemv")
+FORWARD_KERNELS = ("flash_attention_fwd", "flash_decode", "w8a16_gemv",
+                   "w8a16_gemm")
 
 # K5's fp32 result against its plain version, relative to max |plain|: int8
 # and bf16 values are exact in fp32, so only the summation order differs
@@ -666,6 +694,11 @@ def _timed_request(phase, model, ids, inputs, record=None, **kw):
         raise AssertionError(f"{phase}: K5 {launches} for {NEW_TOKENS - 1} "
                              f"replayed decode steps of {k5_step} products "
                              f"and one prefill lm_head")
+    # K6 once an int8 product of every layer in the one replayed prefill
+    # (B x its bucket rows: 224 for a 32-layer int8 model)
+    if launches["w8a16_gemm"] != _k6_per_forward(model.params):
+        raise AssertionError(f"{phase}: K6 {launches} in one replayed "
+                             f"prefill, want {_k6_per_forward(model.params)}")
     third = _graph_delta(before)
     peak, reserved = _peak_gb()
     graphs = {"first_request": calls[0][0], "second_request": calls[1][0],
@@ -675,6 +708,7 @@ def _timed_request(phase, model, ids, inputs, record=None, **kw):
              "prefill": round(t["prefill_s"], 4)}
             for t in (calls[0][1], calls[1][1], timings)]
     log(phase, graphs=json.dumps(graphs), k5_per_decode_step=k5_step,
+        k6_per_prefill=launches["w8a16_gemm"],
         peak_mem_gb=f"{peak:.2f}",
         peak_reserved_gb=f"{reserved:.2f}",
         graph_pools_gb=f"{_graph_pools_gb():.3f}",
@@ -767,7 +801,10 @@ def phase_build():
             ptxas=json.dumps(_ptxas_report(_build.build_log.get(name, ""))))
     k1, k2 = _build.load("flash_attention_fwd"), _build.load("flash_decode")
     k34 = _build.load("flash_attention_bwd")
+    k6 = _build.load("w8a16_gemm")
     log("build", dynamic_smem_bytes=json.dumps({
+        **{f"w8a16_gemm rows {r}": k6.mc_w8a16_gemm_smem(r)
+           for r in (64, 128, 256)},
         "flash_attention_fwd D128": k1.mc_flash_attention_fwd_smem(128),
         "flash_attention_fwd D64": k1.mc_flash_attention_fwd_smem(64),
         "flash_decode D128 int8 G1": k2.mc_flash_decode_smem(128, 1),
@@ -783,12 +820,21 @@ def _ptxas_report(text: str):
     the kernel's name and template arguments, if any, as mangled
     (``ILi128ELi1EaE``: 128, 1, int8)."""
     import re
+
+    def entry(ln):
+        """The kernel's mangled name: an identifier ending in ``_kernel``
+        whose length its decimal prefix gives (names may hold digits)."""
+        for m in re.finditer(
+                r"(?=(\d+)([a-z][a-z0-9_]*?_kernel)(I\w*?E)?E)", ln):
+            digits, name = m.group(1), m.group(2)
+            if any(digits[i:] == str(len(name)) for i in range(len(digits))):
+                return name + (m.group(3) or "")
+        return None
     report, current = {}, None
     for ln in text.splitlines():
-        m = re.search(r"Compiling entry function '.*?([a-z]+_[a-z_]*_kernel"
-                      r"(?:_[a-z]+)*)(I\w*?E)?E", ln)
-        if m:
-            current = m.group(1) + (m.group(2) or "")
+        name = entry(ln) if "Compiling entry function" in ln else None
+        if name:
+            current = name
         elif current and "spill" in ln:
             report[current] = ln.strip()
         elif current and "registers" in ln:
@@ -1111,6 +1157,17 @@ def _k5_per_step(params, rows):
         + int(is_quantized(params["lm_head"]))
 
 
+def _k6_per_forward(params):
+    """K6 launches in one prefill or chunk forward of ``params`` (more than
+    8 rows): one for each int8 linear of every layer (224 for the 32-layer
+    int8 Vicuna-7B); the last position's lm_head is K5's (B rows)."""
+    from modelcompose_tpu_torch.ops.quant import is_quantized
+    layers = params["layers"]
+    return sum(is_quantized(p["w"]) for grp in ("attn", "mlp")
+               for p in layers[grp].values()) \
+        * layers["input_layernorm"].shape[0]
+
+
 def _k5_case(gen, weights, M, K, N, timed=True):
     """K5 against its plain version on ``weights[0]`` at M rows (a bf16 and
     an fp32 result); with ``timed``, the fp32-result product (what the
@@ -1315,6 +1372,158 @@ def phase_k5(device, gen):
                 max_abs_err=max(errs), shape="M1 K4096 N4096 fp32 out, "
                 "cold (32 weights cycled), CUDA graph replay",
                 shapes=cases, tp_shards=tp_cases, groups=groups,
+                checked=len(errs), step=step)
+
+
+# K6 at the main path's shapes above 8 rows: every Vicuna-7B product and
+# tp shard checked at K6_CHECKED_ROWS (a 9-row product, a tail chunk, a
+# chunk, the vision pair's 2,048, MCUB-4's bucket); the seven products of a
+# layer timed at a chunk, the vision pair and MCUB-4, the tp 2 / 4 shards
+# of a layer at MCUB-4's bucket.
+K6_SHAPES = {"qkvo": (4096, 4096), "gate_up": (4096, 11008),
+             "down": (11008, 4096), "lm_head": (4096, 32000)}
+K6_CHECKED_ROWS = (9, 256, 512, 2048, 3328)
+K6_ROWS = (512, 2048, 3328)
+K6_TP_ROWS = (3328,)
+K6_COPIES = 4  # weight copies cycled through: more bytes than L2 holds
+# a layer's products: q/k/v/o, gate/up, down (the step sums)
+K6_LAYER = {"qkvo": 4, "gate_up": 2, "down": 1}
+
+
+def _k6_case(gen, weights, M, K, N, timed=True):
+    """K6 against its plain version on ``weights[0]`` at M rows (a bf16 and
+    an fp32 result, each one K6 launch and no K5 launch); with ``timed``,
+    the fp32-result product (what routed LoRA asks for) timed by CUDA-graph
+    replay cycling over the weight copies, beside the plain route (the
+    convert, the fp32-output GEMM and the scale pass: what ran before),
+    ``torch.mm`` on bf16 copies of the weights made beforehand
+    (``library_ms``: the GEMM without the copy, never called by the port),
+    ``torch._weight_int8pack_mm`` (bf16 scales, an [N, K] copy; or its
+    error text; a kernel for a few rows, tens of ms a call at these sizes,
+    so timed by CUDA events over 2 calls) and the bound."""
+    import itertools
+    import torch
+    from modelcompose_tpu_torch.ops.quant import (_k6_plan, dequant_matmul,
+                                                  dequant_matmul_reference,
+                                                  w8a16_gemm)
+    x = torch.randn((M, K), generator=gen, device=weights[0]["q"].device
+                    ).to(torch.bfloat16)
+    errs, rels = [], []
+    for out, tol in ((None, ATTN_TOL), (torch.float32, K5_F32_TOL)):
+        n5, n6 = dequant_matmul.launches, w8a16_gemm.launches
+        got = dequant_matmul(x, weights[0], out_dtype=out)
+        if (dequant_matmul.launches - n5, w8a16_gemm.launches - n6) != (0, 1):
+            raise AssertionError(f"K6 M{M} K{K} N{N}: not one K6 launch")
+        want = dequant_matmul_reference(x, weights[0], out_dtype=out)
+        err, rel = _rel_err(got, want)
+        if not (got.dtype == want.dtype and rel <= tol):
+            raise AssertionError(f"K6 M{M} K{K} N{N} {got.dtype}: rel err "
+                                 f"{rel:.3g} (tol {tol})")
+        errs.append(err)
+        rels.append(rel)
+    res = {"M": M, "K": K, "N": N, "rows": _k6_plan(M, K, N)[0],
+           "max_abs_err": max(errs), "rel_err_bf16": rels[0],
+           "rel_err_f32": rels[1]}
+    if not timed:
+        return res
+    n = len(weights)
+
+    def cycled(fn, ws):
+        layers = itertools.cycle(range(n))
+        return graph_time_ms(lambda: fn(ws[next(layers)]), n=n)
+    f32 = torch.float32
+    res["ms"] = cycled(lambda w: dequant_matmul(x, w, out_dtype=f32),
+                       weights)
+    res["plain_ms"] = cycled(lambda w: dequant_matmul_reference(
+        x, w, out_dtype=f32), weights)
+    dense = [w["q"].to(torch.bfloat16) for w in weights]
+    res["library_ms"] = cycled(lambda w: torch.mm(x, w, out_dtype=f32),
+                               dense)
+    dense = None
+    try:
+        packed = (weights[0]["q"].t().contiguous(),
+                  weights[0]["scale"].reshape(N).to(torch.bfloat16))
+        res["int8pack_ms"] = cuda_time_ms(
+            lambda: torch._weight_int8pack_mm(x, *packed), 2)
+        res["int8pack_error"] = None
+    except (RuntimeError, NotImplementedError) as e:
+        res["int8pack_ms"], res["int8pack_error"] = None, repr(e)[:200]
+    packed = None
+    nbytes = K * N + 4 * N + 2 * M * K + 4 * M * N
+    res["bound_ms"], res["bound_by"] = bound(2 * M * K * N, nbytes)
+    res["share_of_bound"] = None if res["ms"] is None \
+        else res["bound_ms"] / res["ms"]
+    return res
+
+
+def phase_k6(device, gen):
+    """K6 against its plain version at every main-path shape and tp shard at
+    K6_CHECKED_ROWS (bf16 and fp32 results), with each shape's block
+    printed; the seven products of a layer timed at K6_ROWS and the tp
+    shards' at K6_TP_ROWS, each beside its plain route, ``torch.mm`` on a
+    bf16 copy, ``torch._weight_int8pack_mm`` and its bound; the sums over
+    a layer and over a 32-layer prefill at each timed row count."""
+    import torch
+    from modelcompose_tpu_torch.ops import quant
+    cases, tp_cases, errs = [], [], []
+    tp_shapes = {k: v for k, v in K5_TP_SHAPES.items()
+                 if not k.endswith("lm_head")}
+    for table, rows, out in ((K6_SHAPES, K6_ROWS, cases),
+                             (K5_TP_SHAPES, K6_TP_ROWS, tp_cases)):
+        for name, (K, N) in table.items():
+            timed_rows = rows if name in K6_LAYER or name in tp_shapes \
+                else ()
+            weights = [{"q": torch.randint(-127, 128, (K, N), generator=gen,
+                                           device=device, dtype=torch.int8),
+                        "scale": torch.rand((1, N), generator=gen,
+                                            device=device) * 1e-3 + 1e-4}
+                       for _ in range(K6_COPIES if timed_rows else 1)]
+            log("K6", shape=name, K=K, N=N, grid=json.dumps(
+                {M: dict(zip(("rows", "m_tiles", "n_tiles", "group"),
+                             quant._k6_plan(M, K, N)))
+                 for M in K6_CHECKED_ROWS}))
+            for M in K6_CHECKED_ROWS:
+                res = dict(_k6_case(gen, weights, M, K, N,
+                                    timed=M in timed_rows), shape=name)
+                errs.append(res["max_abs_err"])
+                if "ms" in res:
+                    out.append(res)
+                    log("K6", shape=name, M=M, K=K, N=N, rows=res["rows"],
+                        max_abs_err=f"{res['max_abs_err']:.4g}",
+                        rel_err_bf16=f"{res['rel_err_bf16']:.3g}",
+                        rel_err_f32=f"{res['rel_err_f32']:.3g}",
+                        graph_ms=_ms(res["ms"]),
+                        plain_graph_ms=_ms(res["plain_ms"]),
+                        library_graph_ms=_ms(res["library_ms"]),
+                        int8pack_ms=_ms(res["int8pack_ms"]),
+                        bound_ms=f"{res['bound_ms']:.4f}",
+                        share_of_bound=_ms(res["share_of_bound"]),
+                        int8pack_error=res["int8pack_error"])
+            del weights
+            torch.cuda.empty_cache()
+    # a layer's seven products and a 32-layer prefill's 224 at each row count
+    step = {}
+    for M in K6_ROWS:
+        rows = {c["shape"]: c for c in cases if c["M"] == M}
+        if not all(rows[s][k] is not None for s in K6_LAYER
+                   for k in ("ms", "plain_ms", "library_ms")):
+            continue
+        layer = {k: sum(n * rows[s][k] for s, n in K6_LAYER.items())
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        step[M] = {"layer": layer, "prefill_32_layers": {
+            k: 32 * v for k, v in layer.items()}, "launches": 224}
+    log("K6", checked=len(errs), step_sum_ms=json.dumps(
+        {m: {k: round(v, 4) for k, v in s["layer"].items()}
+         for m, s in step.items()}))
+    first = next(c for c in cases
+                 if c["shape"] == "qkvo" and c["M"] == max(K6_ROWS))
+    return dict({k: first[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "int8pack_ms", "int8pack_error",
+                                       "bound_ms", "bound_by",
+                                       "share_of_bound")},
+                max_abs_err=max(errs), shape="M3328 K4096 N4096 fp32 out "
+                "(q/k/v/o at MCUB-4's bucket), 4 weights cycled, CUDA graph "
+                "replay", shapes=cases, tp_shards=tp_cases,
                 checked=len(errs), step=step)
 
 
@@ -1616,6 +1825,7 @@ def phase_composed(device, gen):
     rel = _compare_logits("composed", model, ids, inputs, answers,
                           COMPOSED_LOGIT_TOL)
     k5_ab = _k5_decode_ab(model, ids, inputs, kw)
+    k6_ab = _k6_prefill_ab(model, ids, inputs, kw)
     prof = _profile("composed_prefill", lambda: model.generate(
         ids, inputs, max_new_tokens=1, **kw), "composed_profile.txt")
     return {"launches": launches, "towers": towers,
@@ -1625,30 +1835,67 @@ def phase_composed(device, gen):
             "pools_by_kind_gb": _graph_pools_by_kind_gb(model),
             "graphs": graphs, "vs_eager": vs_eager, "fps": fps,
             "decode_step_profile": step_prof, "logit_rel_err": rel,
-            "k5_ab": k5_ab, "profile": prof}, model, (ids, inputs)
+            "k5_ab": k5_ab, "k6_ab": k6_ab, "profile": prof}, model, \
+        (ids, inputs)
 
 
 class _DequantArm:
-    """One arm of phase 6's decode A/B: the model's decode graphs (and the
-    prefill graphs they keep) dropped on entry and on exit, since a
-    captured step keeps the int8 product it was captured with, and with
-    ``plain`` every int8 product on its plain version
-    (``quant.K5_MAX_ROWS`` 0: the convert and the GEMM) while K2 stays."""
+    """One arm of phase 6's A/Bs: the model's decode and prefill graphs
+    dropped on entry and on exit, since a captured step keeps the int8
+    product it was captured with, and the int8 products of the kernels not
+    in ``kernels`` ("k5", "k6") on their plain version (the convert, the
+    fp32-output GEMM and the scale pass): without "k6" K6's launcher
+    computes the plain product, and without "k5" so does every product
+    (``quant.K5_MAX_ROWS`` 0 sends 1-8 rows there too).  K1 and K2 stay."""
 
-    def __init__(self, model, plain):
-        self.model, self.plain = model, plain
+    def __init__(self, model, kernels):
+        self.model, self.kernels = model, kernels
+
+    def _drop_graphs(self):
+        self.model.decode_graphs.clear()
+        self.model.prefill_graphs.clear()
 
     def __enter__(self):
         from modelcompose_tpu_torch.ops import quant
-        self.quant, self.rows = quant, quant.K5_MAX_ROWS
-        self.model.decode_graphs.clear()
-        if self.plain:
+        self.quant = quant
+        self.rows, self.k6 = quant.K5_MAX_ROWS, quant._k6
+        self._drop_graphs()
+        if "k5" not in self.kernels:
             quant.K5_MAX_ROWS = 0
+        if "k6" not in self.kernels or "k5" not in self.kernels:
+            quant._k6 = lambda x2, weights, out_dtype: [
+                quant.dequant_matmul_reference(x2, weights[0], out_dtype)]
         return self
 
     def __exit__(self, *exc):
-        self.quant.K5_MAX_ROWS = self.rows
-        self.model.decode_graphs.clear()
+        self.quant.K5_MAX_ROWS, self.quant._k6 = self.rows, self.k6
+        self._drop_graphs()
+
+
+def _near_tie(name, model, ids, inputs, got, want, plain_kernels):
+    """Where two greedy answers part: the step, the kernel path's and the
+    plain arm's teacher-forced logits there (within LOGIT_TOL of max
+    |logit|) and the plain arm's top-2 gap (under LOGIT_TOL), or raises."""
+    import torch
+    step = next(i for i, (a, b) in enumerate(zip(got + [None], want + [None]))
+                if a != b)
+    tokens = torch.tensor([(got + [model.cfg.eos_token_id])[:step + 1]],
+                          device=model.device)
+    with torch.no_grad():
+        k = _teacher_forced(model, ids, inputs, tokens, "auto")[0, step]
+        with _DequantArm(model, plain_kernels):
+            p = _teacher_forced(model, ids, inputs, tokens, "auto")[0, step]
+    scale = p.abs().max()
+    top2 = p.topk(2).values
+    res = {"diverge_step": step,
+           "logit_rel_err": ((k - p).abs().max() / scale).item(),
+           "plain_top2_gap_rel": ((top2[0] - top2[1]) / scale).item()}
+    if res["logit_rel_err"] > LOGIT_TOL \
+            or res["plain_top2_gap_rel"] > LOGIT_TOL:
+        raise AssertionError(f"{name}: the kernel path's answer leaves the "
+                             f"plain arm's at step {step}, not at a near "
+                             f"tie: {res}")
+    return res
 
 
 def _k5_decode_ab(model, ids, inputs, kw):
@@ -1660,11 +1907,10 @@ def _k5_decode_ab(model, ids, inputs, kw):
     the two arms equal or parting at a
     named near tie (teacher-forced logits of both within LOGIT_TOL of max
     |logit| there, the plain arm's top-2 gap under LOGIT_TOL)."""
-    import torch
     from modelcompose_tpu_torch.ops.quant import dequant_matmul
     tok_s, answers, profiles, launches, pools = {}, {}, {}, {}, {}
     for arm in ("plain", "k5", "k5", "plain"):
-        with _DequantArm(model, arm == "plain"):
+        with _DequantArm(model, () if arm == "plain" else ("k5", "k6")):
             n5 = dequant_matmul.launches
             for _ in range(2):
                 timings = {}
@@ -1691,28 +1937,13 @@ def _k5_decode_ab(model, ids, inputs, kw):
            "decode_pool_gb": pools,
            "step_shares": {a: p["shares"] for a, p in profiles.items()},
            "step_kernels": {a: {s: sum(n for k, n in p["device_counts"].items()
-                                       if any(f in k.lower() for f in
-                                              PROFILE_SPLITS[s]))
+                                       if _split_of(k) == s)
                                 for s in ("K2", "K5", "gemm", "copy")}
                             for a, p in profiles.items()},
            "ids_equal": answers["k5"] == answers["plain"]}
-    got, want = answers["k5"], answers["plain"]
     if not res["ids_equal"]:
-        step = next(i for i, (a, b) in enumerate(zip(got + [None],
-                                                     want + [None]))
-                    if a != b)
-        tokens = torch.tensor([(got + [model.cfg.eos_token_id])[:step + 1]],
-                              device=model.device)
-        with torch.no_grad():
-            k = _teacher_forced(model, ids, inputs, tokens, "auto")[0, step]
-            with _DequantArm(model, True):
-                p = _teacher_forced(model, ids, inputs, tokens,
-                                    "auto")[0, step]
-        scale = p.abs().max()
-        top2 = p.topk(2).values
-        res.update(diverge_step=step,
-                   logit_rel_err=((k - p).abs().max() / scale).item(),
-                   plain_top2_gap_rel=((top2[0] - top2[1]) / scale).item())
+        res.update(_near_tie("k5_ab", model, ids, inputs, answers["k5"],
+                             answers["plain"], ()))
     log("composed", k5_ab="K5 vs plain int8 product, K2 in both",
         decode_tok_per_s=json.dumps({a: [round(v, 2) for v in t]
                                      for a, t in tok_s.items()}),
@@ -1725,11 +1956,96 @@ def _k5_decode_ab(model, ids, inputs, kw):
         diverge=json.dumps({k: res[k] for k in (
             "diverge_step", "logit_rel_err", "plain_top2_gap_rel")
             if k in res}), tol=LOGIT_TOL)
-    if not res["ids_equal"] and (res["logit_rel_err"] > LOGIT_TOL
-                                 or res["plain_top2_gap_rel"] > LOGIT_TOL):
-        raise AssertionError(f"k5_ab: K5's answer leaves the plain "
-                             f"product's at step {res['diverge_step']}, not "
-                             f"at a near tie: {res}")
+    return res
+
+
+def _chunk_step_ms(model, ids, inputs):
+    """One chunked admission of the request as the slot engine runs it
+    (``prefill_chunked`` through the model's chunk-step graphs, int8 cache
+    of SERVE_CACHE_LEN, SERVE_CHUNK pieces) three times: eager, capturing,
+    replayed; the replayed call's ms of each full chunk, synchronized
+    between pieces (the engine's ticks run there)."""
+    import torch
+    from modelcompose_tpu_torch.core.generate import prefill_chunked
+    from modelcompose_tpu_torch.ops.routed_lora import as_table
+    with torch.inference_mode():
+        embeds, plan = model.prepare_batch(ids, inputs)
+        dev = embeds.device
+        route_ids = (torch.as_tensor(plan.route_ids, device=dev)
+                     if model.cfg.routing_active() else None)
+        table = as_table(model.routing_table, dev)
+        for _ in range(3):
+            marks = []
+
+            def tick():
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            prefill_chunked(model.params, model.cfg, embeds, route_ids,
+                            table, plan.lengths, SERVE_CACHE_LEN,
+                            chunk=SERVE_CHUNK, kv_quant=True, tick_cb=tick,
+                            graphs=model.prefill_graphs)
+    full = embeds.shape[1] // SERVE_CHUNK
+    return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])][:full]
+
+
+def _k6_prefill_ab(model, ids, inputs, kw):
+    """Phase 6's request through the graphs with K6 and with the plain
+    route for the int8 products above 8 rows (K1 and K5 in both), in turns
+    plain, K6, K6, plain: each turn's one-shot prefill through its graph
+    (the third of three one-token requests: eager, capturing, replayed);
+    in each arm's first turn the prefill graphs' pool GB and a 512-row
+    chunk step through its graph (``_chunk_step_ms``: the median of the
+    replayed admission's full chunks); K6's launches; the replayed
+    prefills' logits within LOGIT_TOL of max |logit| and the greedy ids
+    (the prefill's token) equal or parting at a named near tie."""
+    import statistics
+    from modelcompose_tpu_torch.ops.quant import w8a16_gemm
+    prefill_s, chunk_ms, logits, answers = {}, {}, {}, {}
+    launches, pools = {}, {}
+    for arm in ("plain", "k6", "k6", "plain"):
+        with _DequantArm(model, ("k5", "k6") if arm == "k6" else ("k5",)):
+            n6 = w8a16_gemm.launches
+            for _ in range(3):
+                timings = {}
+                with _PrefillLogits() as pl:
+                    out = model.generate(ids, inputs, max_new_tokens=1,
+                                         timings=timings, **kw)
+            prefill_s.setdefault(arm, []).append(timings["prefill_s"])
+            if arm not in launches:
+                launches[arm] = w8a16_gemm.launches - n6
+                logits[arm], answers[arm] = pl.logits[0], out[0]
+                pools[arm] = _graph_pools_by_kind_gb(model)["prefill"]
+                chunk_ms[arm] = statistics.median(
+                    _chunk_step_ms(model, ids, inputs))
+    k6_want = 3 * _k6_per_forward(model.params)
+    if (launches["k6"], launches["plain"]) != (k6_want, 0):
+        raise AssertionError(f"k6_ab: K6 launches {launches}, want "
+                             f"{k6_want} in the K6 arm's three requests")
+    scale = logits["plain"].abs().max()
+    rel = ((logits["k6"] - logits["plain"]).abs().max() / scale).item()
+    res = {"prefill_s": prefill_s, "chunk_step_ms": chunk_ms,
+           "prefill_pool_gb": pools, "k6_launches": launches,
+           "prefill_logit_rel_err": rel,
+           "ids_equal": answers["k6"] == answers["plain"]}
+    if rel > LOGIT_TOL:
+        raise AssertionError(f"k6_ab: the prefill's logits with K6 and with "
+                             f"the plain route {rel:.3g} apart")
+    if not res["ids_equal"]:
+        res.update(_near_tie("k6_ab", model, ids, inputs, answers["k6"],
+                             answers["plain"], ("k5",)))
+    log("composed", k6_ab="K6 vs the plain route above 8 rows, K1/K5 in both",
+        prefill_s=json.dumps({a: [round(v, 4) for v in t]
+                              for a, t in prefill_s.items()}),
+        chunk_step_ms=json.dumps({a: round(v, 3)
+                                  for a, v in chunk_ms.items()}),
+        prefill_pool_gb=json.dumps({a: round(v, 3) for a, v in
+                                    pools.items()}),
+        k6_launches=json.dumps(launches), prefill_logit_rel_err=f"{rel:.3g}",
+        ids_equal=res["ids_equal"], diverge=json.dumps({k: res[k] for k in (
+            "diverge_step", "logit_rel_err", "plain_top2_gap_rel")
+            if k in res}), tol=LOGIT_TOL)
     return res
 
 
@@ -1781,14 +2097,15 @@ def _decode_step_profile(model):
 
 
 def _attention_counters():
-    """(reset, read) of the launch counts of K1, K2 and K5 (the forward
+    """(reset, read) of the launch counts of K1, K2, K5 and K6 (the forward
     path's kernels)."""
     from modelcompose_tpu_torch.ops.flash_attention import (
         flash_attention_forward)
     from modelcompose_tpu_torch.ops.flash_decode import flash_decode_attention
-    from modelcompose_tpu_torch.ops.quant import dequant_matmul
+    from modelcompose_tpu_torch.ops.quant import dequant_matmul, w8a16_gemm
     fns = dict(zip(FORWARD_KERNELS, (flash_attention_forward,
-                                     flash_decode_attention, dequant_matmul)))
+                                     flash_decode_attention, dequant_matmul,
+                                     w8a16_gemm)))
 
     def reset():
         for fn in fns.values():
@@ -2962,14 +3279,18 @@ def phase_serve(device, gen, model, request, root, merged, base_dir):
                 "audio_cancelled"]["max_new_tokens"]:
             raise AssertionError(f"{part}: the cancelled request ran on")
         n_layers = model.cfg.num_hidden_layers
-        # K2 once a layer a tick; K1 once a layer in each admission's
-        # prefill or chunk, every one through a graph (eager, capturing or
-        # replayed: a replay counts what its capture recorded)
+        # K2 once a layer a tick; K1 once a layer and K6 once an int8
+        # product in each admission's prefill or chunk (every chunk of the
+        # 512-position pieces and its bucket's tail has more than 8 rows),
+        # every one through a graph (eager, capturing or replayed: a replay
+        # counts what its capture recorded)
         pieces = parts[part]["graph_calls"]
         k1_want = n_layers * (pieces.get("prefill", 0)
                               + pieces.get("chunk_step", 0))
+        k6_want = _k6_per_forward(model.params) * k1_want // n_layers
         if res["launches"]["flash_decode"] != n_layers * res["steps"] \
                 or res["launches"]["flash_attention_fwd"] != k1_want \
+                or res["launches"]["w8a16_gemm"] != k6_want \
                 or k1_want < n_layers * len(SERVE_REQUESTS):
             raise AssertionError(f"{part}: launches {res['launches']} for "
                                  f"{res['steps']} steps and {pieces} "
@@ -3628,11 +3949,20 @@ def phase_train(device):
 
 # Kernel-name fragments of each profile split: the hand-written kernels,
 # and the library GEMMs (cuBLAS nvjet / xmma, magma) and convolutions.
+# Kernel names to profile splits: a name goes to the first split whose
+# fragment it holds (K6's w8a16_gemm_kernel is K6's, not a library GEMM).
 PROFILE_SPLITS = {"K1": ("fa_fwd_kernel",), "K2": ("fd_split_kernel",),
                   "K3": ("fa_bwd_dq_kernel",), "K4": ("fa_bwd_dkv_kernel",),
-                  "K5": ("dequant_gemv",),
+                  "K5": ("dequant_gemv",), "K6": ("w8a16_gemm",),
                   "gemm": ("gemm", "nvjet"), "conv": ("conv",),
                   "copy": ("copy_kernel",)}
+
+
+def _split_of(kernel: str):
+    """The PROFILE_SPLITS name of a kernel, or None."""
+    k = kernel.lower()
+    return next((name for name, frags in PROFILE_SPLITS.items()
+                 if any(f in k for f in frags)), None)
 
 
 def _profile(name, fn, out_file, cpu=True):
@@ -3654,8 +3984,8 @@ def _profile(name, fn, out_file, cpu=True):
            if e.device_time_total > 0 and e.device_type.name == "CUDA"}
     total = sum(dev.values())
     share = {name: round(sum(t for k, t in dev.items()
-                             if any(f in k.lower() for f in frags)) / total, 4)
-             for name, frags in PROFILE_SPLITS.items()} if total else {}
+                             if _split_of(k) == name) / total, 4)
+             for name in PROFILE_SPLITS} if total else {}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", out_file), "w") as f:
         f.write(events.table(sort_by="cuda_time_total", row_limit=40))
@@ -3802,17 +4132,17 @@ def _point_dataset(root, rng):
 
 
 def _kernel_counters():
-    """(reset, read) of the launch counts of K1-K5."""
+    """(reset, read) of the launch counts of K1-K6."""
     from modelcompose_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_forward)
     from modelcompose_tpu_torch.ops.flash_decode import flash_decode_attention
-    from modelcompose_tpu_torch.ops.quant import dequant_matmul
+    from modelcompose_tpu_torch.ops.quant import dequant_matmul, w8a16_gemm
     fns = {"flash_attention_fwd": flash_attention_forward,
            "flash_decode": flash_decode_attention,
            "flash_attention_bwd_dq": flash_attention_bwd_dq,
            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
-           "w8a16_gemv": dequant_matmul}
+           "w8a16_gemv": dequant_matmul, "w8a16_gemm": w8a16_gemm}
 
     def reset():
         for fn in fns.values():
@@ -5406,8 +5736,13 @@ def phase_legacy_eval(device, gen, root, merged, base_dir, model):
                         for _, _, out in res["kernel_calls"])
             launches = res["kernel_launches"]
             n_layers = model.cfg.num_hidden_layers
+            # every K1 launch is a layer of a prefill, whose int8
+            # products are K6's (a bucket of 512 rows or more)
+            k6_layer = _k6_per_forward(model.params) // n_layers
             if launches["flash_attention_fwd"] < n * n_layers \
-                    or launches["flash_decode"] < steps * n_layers:
+                    or launches["flash_decode"] < steps * n_layers \
+                    or launches["w8a16_gemm"] \
+                    != k6_layer * launches["flash_attention_fwd"]:
                 raise AssertionError(f"{entry}: {n} answers, launches "
                                      f"{launches}")
             log("legacy_eval", entry=entry, answers=n,
@@ -5608,7 +5943,8 @@ def phase_distributed_serve(device, gen, model, request, serve_tick_ms):
     steps = NEW_TOKENS - 1
     per_request = {"flash_attention_fwd": n_layers,
                    "flash_decode": n_layers * steps,
-                   "w8a16_gemv": _k5_per_step(model.params, 1) * steps + 1}
+                   "w8a16_gemv": _k5_per_step(model.params, 1) * steps + 1,
+                   "w8a16_gemm": _k6_per_forward(model.params)}
     vision_ids, vision_inputs = _requests(model.cfg, device, gen)
     slot_requests = {
         f"vision{i}": (vision_ids[i], {"vision": vision_inputs["vision"][
@@ -5938,6 +6274,7 @@ def main() -> int:
     k1 = timed("k1", phase_k1, device, gen)
     k2 = timed("k2", phase_k2, device, gen)
     k5 = timed("k5", phase_k5, device, gen)
+    k6 = timed("k6", phase_k6, device, gen)
     gc.collect()
     torch.cuda.empty_cache()
     launches, main = timed("main", phase_main_path, device, gen)
@@ -6156,6 +6493,15 @@ def main() -> int:
              **dict(k5, shapes=[_rounded(c) for c in k5["shapes"]],
                     tp_shards=[_rounded(c) for c in k5["tp_shards"]],
                     groups=[_rounded(c) for c in k5["groups"]])),
+        dict(name="w8a16_gemm", route="cuda", source=K6_SOURCE,
+             replaces=K6_REPLACES,
+             launches=sum(by_path("w8a16_gemm").values()),
+             launches_by_path=by_path("w8a16_gemm"),
+             prefill_ab={k: composed["k6_ab"][k] for k in (
+                 "prefill_s", "chunk_step_ms", "prefill_pool_gb",
+                 "prefill_logit_rel_err", "ids_equal")},
+             **dict(k6, shapes=[_rounded(c) for c in k6["shapes"]],
+                    tp_shards=[_rounded(c) for c in k6["tp_shards"]])),
     ]
     log("prefill_graph", graphs_by_phase=json.dumps(graphs),
         totals=json.dumps(_all_graph_counts()),

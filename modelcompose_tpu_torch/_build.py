@@ -70,6 +70,13 @@ SIGNATURES = {
              _I, _I,                      # layer quantized
              _F, _P], _I),                # sm_scale stream
     },
+    "w8a16_gemm": {
+        "mc_w8a16_gemm": (
+            [_P, _P, _P, _P,              # x q scale out
+             _I, _I, _I, _I, _I,          # M K N rows group
+             _I, _I, _P], _I),            # x_bf16 out_type stream
+        "mc_w8a16_gemm_smem": ([_I], _I),  # rows
+    },
     "w8a16_gemv": {
         "mc_w8a16_gemv": (
             [_P, _I, _P, _P, _P, _P,      # x n_members q[] scale[] out[] N[]

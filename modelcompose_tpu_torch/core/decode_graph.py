@@ -22,12 +22,12 @@ The capture rules (``CapturedStep``): the capturing call runs the step
 eagerly on a side stream (the warm-up a capture needs: every kernel's
 first launch builds it and sets its shared-memory attribute, which a
 capture cannot do), keeps that result as the call's, and captures the step
-on the same stream; K1-K5's launches inside a capture go into the capture's
-records (``ops.flash_attention.capturing``, which a backward on autograd's
-thread finds by the stream, ``ops.flash_decode.capturing`` and
-``ops.quant.capturing``; K2's and K5's scratch lives in their records as
-long as the graph), and each replay adds the launches they recorded to the
-kernels' counters, so every call counts one step's.  A decode graph
+on the same stream; K1-K6's launches inside a capture go into the capture's
+records (``ops.flash_attention.capturing`` and ``ops.quant.capturing``,
+which a backward on autograd's thread finds by the stream, and
+``ops.flash_decode.capturing``; K2's and K5's scratch lives in their
+records as long as the graph), and each replay adds the launches they
+recorded to the kernels' counters, so every call counts one step's.  A decode graph
 captures at its first call; the prefill and tower graphs, whose shapes
 vary more, at their second (core/prefill_graph, models/towers).
 
@@ -216,7 +216,7 @@ class CapturedStep:
 
     def replay(self) -> None:
         """Replay the captured step on the current stream, counting the K1
-        to K5 launches it runs."""
+        to K6 launches it runs."""
         self.graph.replay()
         type(self).replays += 1
         fa = flash_attention
@@ -225,6 +225,7 @@ class CapturedStep:
         fa.flash_attention_bwd_dkv.launches += len(self.k1.bwd_dkv)
         flash_decode.flash_decode_attention.launches += len(self.k2.launches)
         quant.dequant_matmul.launches += len(self.k5.launches)
+        quant.w8a16_gemm.launches += len(self.k5.gemm)
 
     def _capture(self) -> None:
         """Run the step once eagerly on a side stream (the warm-up a
@@ -247,7 +248,7 @@ class CapturedStep:
         # backward's kernels and collectives run on autograd's thread,
         # into ``side``
         with flash_attention.capturing(side) as k1, \
-                flash_decode.capturing() as k2, quant.capturing() as k5, \
+                flash_decode.capturing() as k2, quant.capturing(side) as k5, \
                 torch.cuda.stream(side):
             side.wait_stream(current)  # the static outputs' allocation
             _copy_into(self.out, warm)

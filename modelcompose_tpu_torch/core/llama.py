@@ -378,8 +378,8 @@ def logits_from_hidden(params: Params, hidden,
     product rounded to bf16 before the cast flips near-tied argmaxes.
     Under tensor parallelism each rank computes its vocabulary columns and
     the group gathers the fp32 logits (every rank gets all of them).
-    ``impl`` picks an int8 lm_head's product: "auto" (kernel K5 where it
-    applies) or "reference" (its plain version), as ``attn_impl`` does."""
+    ``impl`` picks an int8 lm_head's product: "auto" (kernel K5 or K6 on
+    the card) or "reference" (its plain version), as ``attn_impl`` does."""
     hidden = tp.copy_to_model(hidden)
     if is_quantized(params["lm_head"]):
         logits = dequant_matmul(hidden, params["lm_head"],

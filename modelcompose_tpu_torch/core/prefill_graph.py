@@ -3,10 +3,10 @@ counterpart of the JAX package's jitted ``_prefill``) and the chunked
 admission's step (of ``_prefill_chunk_step``, static per ``(offset,
 chunk)``), each one replay a call, with K1 inside.
 
-A 7B prefill is a few thousand launches (per layer: the int8 dequant
-copies, the GEMMs and the LoRA products, norms, RoPE, the cache write and
-K1); a short prompt's device work is smaller than the host's time to
-launch them one by one.  Captured once per shape (the capture rules and
+A 7B prefill is a few thousand launches (per layer: the int8 base
+products (K6, one a weight), the LoRA products, norms, RoPE, the cache
+write and K1); a short prompt's device work is smaller than the host's
+time to launch them one by one.  Captured once per shape (the capture rules and
 the launch counting are ``core/decode_graph.CapturedStep``'s) and
 replayed, the card sets the pace.
 
@@ -44,7 +44,7 @@ eager and 0.129-0.132 s replayed, MCUB-4's 3,328 0.355-0.417 s against
 ``ttft_s_eager_capture_replay``), so capturing at the first call would be
 slower than eager.
 
-A graph's transient memory (the dequant copies, the MLP intermediates)
+A graph's transient memory (the fp32 products, the MLP intermediates)
 stays reserved in a private pool for the graph's life.  All the prefill
 graphs of one ``PrefillGraphs`` (a model's: the one-shot graphs, those in
 its decode graphs, the chunk steps) share one pool and one capture stream

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
 // mbarriers, TMA tensor loads and stores, wgmma shared-memory descriptors,
 // fences and the bf16 products of the attention kernels, register
-// reallocation, named barriers, the exact int8 -> fp32 conversion, and the
-// host-side encoding of TMA tensor maps.
+// reallocation, named barriers, the exact int8 -> fp32 and int8 -> bf16/fp16
+// conversions, and the host-side encoding of TMA tensor maps.
 //
 // cuTensorMapEncodeTiled is a driver API; it is reached through the
 // runtime's driver entry point, so a kernel library built with plain
@@ -12,8 +12,11 @@
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -275,7 +278,6 @@ __device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t a[4],
     wgmma_rs_n128_tb(d, a, db);
 }
 
-// Two fp32 values rounded to bf16 and packed (lo in the low half).
 // Four int8 of a 32-bit word as fp32, exactly: each byte, biased to
 // unsigned, becomes the low mantissa byte of 2^23 (one byte permute), and
 // one add removes 2^23 + 128.  Integer and fp32 pipes only, where a plain
@@ -289,6 +291,29 @@ __device__ __forceinline__ void cvt4(uint32_t w, float* f) {
            8388736.f;
 }
 
+// The int8 bytes p of words u and v (one column on two k rows) as a packed
+// pair {u[p], v[p]} of the activations' type (bf16 or fp16), exactly: the
+// A fragments of K5's mma and K6's wgmma.
+template <typename T>
+__device__ __forceinline__ uint32_t cvt_pair(uint32_t u, uint32_t v, int p) {
+  const uint32_t g = __byte_perm(u, v, p * 0x1111 + 0x4400);
+  uint32_t d;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // 128 + (q & 127) plus -128 (q >= 0) or -256 (q < 0): both exact
+    const uint32_t lo = (g & 0x007F007Fu) | 0x43004300u;
+    const uint32_t hi = (g & 0x00800080u) | 0xC300C300u;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+        : "=r"(d)
+        : "r"(lo), "r"(0x3F803F80u), "r"(hi));
+  } else {
+    // 1024 + (q + 128) as fp16 bits, minus 1152
+    const uint32_t h = (g & 0x00FF00FFu) ^ 0x64806480u;
+    asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(h), "r"(0x64806480u));
+  }
+  return d;
+}
+
+// Two fp32 values rounded to bf16 and packed (lo in the low half).
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

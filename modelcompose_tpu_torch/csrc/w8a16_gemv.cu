@@ -83,6 +83,7 @@
 
 namespace {
 
+using hopper::cvt_pair;
 using hopper::fence_barrier_init;
 using hopper::fence_proxy_async;
 using hopper::make_map_3d;
@@ -151,27 +152,6 @@ __device__ __forceinline__ int stage_offset(int row, int col) {
   const int chunk = S::kBox == 64 ? ((c >> 4) ^ (row >> 1)) & 3
                                   : ((c >> 4) ^ row) & 7;
   return box * S::kRows * S::kBox + row * S::kBox + (chunk << 4) + (c & 15);
-}
-
-// The int8 bytes p of words u and v (one column on two k rows) as a packed
-// pair {u[p], v[p]} of the activations' type, exactly.
-template <typename T>
-__device__ __forceinline__ uint32_t cvt_pair(uint32_t u, uint32_t v, int p) {
-  const uint32_t g = __byte_perm(u, v, p * 0x1111 + 0x4400);
-  uint32_t d;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // 128 + (q & 127) plus -128 (q >= 0) or -256 (q < 0): both exact
-    const uint32_t lo = (g & 0x007F007Fu) | 0x43004300u;
-    const uint32_t hi = (g & 0x00800080u) | 0xC300C300u;
-    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
-        : "=r"(d)
-        : "r"(lo), "r"(0x3F803F80u), "r"(hi));
-  } else {
-    // 1024 + (q + 128) as fp16 bits, minus 1152
-    const uint32_t h = (g & 0x00FF00FFu) ^ 0x64806480u;
-    asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(h), "r"(0x64806480u));
-  }
-  return d;
 }
 
 // D[16 x 8] += A[16 x 16] B[16 x 8], fp32 accumulators.

@@ -1,17 +1,19 @@
 """Weight-only int8 quantization (counterpart of
-modelcompose_tpu/ops/quant.py) and the wrapper of kernel K5.
+modelcompose_tpu/ops/quant.py) and the wrappers of kernels K5 and K6.
 
 Per-output-channel symmetric int8 halves the bytes batch-1 decode streams
 per step, as long as the int8 tensor is what the product reads: the JAX
 package keeps the convert inside the contraction and XLA fuses it into the
-dot's operand load.  Here ``dequant_matmul`` launches K5
-(``csrc/w8a16_gemv.cu``) for the decode-time products, which reads each
-int8 weight once and converts it in registers.  Products of more than
-``K5_MAX_ROWS`` rows (prefill, prefill chunks, training on an int8 base)
-convert the weight to the activations' type and run the fp32-output GEMM
-(``dequant_matmul_reference``); so do CPU tensors.  At 1-2 rows the
-products that share an input (a layer's q/k/v, its gate/up) are one K5
-launch (``dequant_matmul_group``).
+dot's operand load, at every number of rows.  Here ``dequant_matmul`` on a
+CUDA tensor launches K5 (``csrc/w8a16_gemv.cu``) for the decode-time
+products of 1..``K5_MAX_ROWS`` rows, which reads each int8 weight once and
+converts it in registers, and K6 (``csrc/w8a16_gemm.cu``) for larger ones
+(prefill, prefill chunks, training on an int8 base), a tensor-core GEMM
+that converts each int8 tile on its way to the tensor cores: no path on
+the card writes a bf16 copy of a weight.  CPU tensors and ``impl=
+"reference"`` take ``dequant_matmul_reference`` (the convert and the
+fp32-output GEMM).  At 1-2 rows the products that share an input (a
+layer's q/k/v, its gate/up) are one K5 launch (``dequant_matmul_group``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import threading
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -266,32 +268,56 @@ _SCRATCH = {}
 
 
 class CaptureRecord:
-    """The K5 launches of one CUDA-graph capture: each launch's (M, K, N)
-    in order (a replay re-runs them with no Python call, so the graph's
-    owner counts them), and the split scratch they use, which lives as
-    long as this record: the graph's owner keeps the record as long as the
-    graph."""
+    """The K5 (``launches``) and K6 (``gemm``) launches of one CUDA-graph
+    capture: each launch's (M, K, N) in order (a replay re-runs them with
+    no Python call, so the graph's owner counts them), and K5's split
+    scratch, which lives as long as this record: the graph's owner keeps
+    the record as long as the graph."""
 
     def __init__(self):
         self.launches = []
+        self.gemm = []
         self.scratch = _Scratch(keep=True)
 
 
 _CAPTURE = threading.local()
+_BY_STREAM = {}  # capturing stream handle -> its record, for other threads
 
 
 @contextlib.contextmanager
-def capturing():
-    """Record the K5 launches captured on this thread into a CUDA graph
-    while the block runs; yields the ``CaptureRecord``.  A K5 launch made
-    while its stream captures, outside this block, raises: its replays
-    would go uncounted and its scratch unowned."""
+def capturing(stream: Optional[torch.cuda.Stream] = None):
+    """Record the K5 and K6 launches captured into a CUDA graph while the
+    block runs, on this thread and, given the capturing ``stream``, on any
+    thread that launches into it (autograd's: a layer's remat recompute
+    runs K6 in the backward); yields the ``CaptureRecord``.  A K5 or K6
+    launch made while its stream captures, outside every such block,
+    raises: its replays would go uncounted and its scratch unowned."""
     previous = getattr(_CAPTURE, "record", None)
     record = _CAPTURE.record = CaptureRecord()
+    if stream is not None:  # one capture at a time on a stream
+        _BY_STREAM[stream.cuda_stream] = record
     try:
         yield record
     finally:
         _CAPTURE.record = previous
+        if stream is not None:
+            _BY_STREAM.pop(stream.cuda_stream, None)
+
+
+def _capture_record(name: str) -> Optional[CaptureRecord]:
+    """The record a launch of kernel ``name`` goes into: None when the
+    current stream is not capturing; this thread's record, else the
+    capturing stream's; raises when there is neither."""
+    if not torch.cuda.is_current_stream_capturing():
+        return None
+    record = getattr(_CAPTURE, "record", None)
+    if record is None:
+        record = _BY_STREAM.get(torch.cuda.current_stream().cuda_stream)
+    if record is None:
+        raise RuntimeError(
+            f"{name} captured into a CUDA graph outside quant.capturing(): "
+            "its replays would not be counted")
+    return record
 
 
 def _check_cuda_inputs(x2, q, scale):
@@ -332,13 +358,7 @@ def _k5(x2, weights, out_dtype):
     plan = _k5_plan(M, K, Ns[0]) if n == 1 else _k5_group_plan(M, K, Ns)
     tile, rows, n_splits, _ = plan
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    record = None
-    if torch.cuda.is_current_stream_capturing():
-        record = getattr(_CAPTURE, "record", None)
-        if record is None:
-            raise RuntimeError(
-                "dequant_matmul captured into a CUDA graph outside "
-                "quant.capturing(): its replays would not be counted")
+    record = _capture_record("dequant_matmul")
     part = counters = None
     if n_splits > 1:
         scratch = record.scratch if record is not None \
@@ -366,6 +386,92 @@ def _k5(x2, weights, out_dtype):
     return [out.to(out_dtype) for out in outs]
 
 
+# K6 (csrc/w8a16_gemm.cu): its blocks of 128 weight columns by 64, 128 or
+# 256 rows of x, and the rate (TFLOP/s) each kept within a wave on an H100
+# (80GB HBM3, 700 W; one block an SM; the median over the Vicuna-7B layer
+# products at 256-3,328 rows, scripts/torch_k6_blocks.py): a plan's time
+# is its waves over the 132 SMs times a block's flops over that rate.  The
+# conversion is paid once a 64-deep tile whatever the rows, so wider
+# blocks keep more of the tensor cores.
+_K6_RATES = {256: 721.0, 128: 479.0, 64: 314.0}
+_K6_COLS = 128  # weight columns a block
+_K6_GROUP = 8  # row tiles of a raster group (the blocks in flight share L2)
+
+
+def _k6_plan(M: int, K: int, N: int):
+    """K6's grid for x [M, K] @ q [K, N]: (rows, m_tiles, n_tiles, group),
+    the block's rows of x (by 128 weight columns), its row and column tiles
+    (the last of each masked at M and N), and the row tiles of a raster
+    group.  The block is the one whose waves cost least at its rate: 256
+    rows at prefill sizes, 128 or 64 where they fill the card better (a
+    512- or 256-row chunk).  Raises on a K or N that TMA cannot read
+    (K % 8, N % 16: 16-byte row strides)."""
+    if M <= 0 or K <= 0 or K % 8 or N <= 0 or N % 16:
+        raise ValueError(f"K6 takes M > 0, K % 8 == 0 and N % 16 == 0, got "
+                         f"M {M}, K {K}, N {N}")
+    n_tiles = -(-N // _K6_COLS)
+
+    def cost(rows):
+        waves = -(-(-(-M // rows) * n_tiles) // _SMS)
+        return waves * rows / _K6_RATES[rows]
+    rows = min(_K6_RATES, key=cost)
+    m_tiles = -(-M // rows)
+    return rows, m_tiles, n_tiles, min(_K6_GROUP, m_tiles)
+
+
+def _check_k6_inputs(x2, q, scale):
+    """Raise on what K6 does not take: x [M, K] bf16/fp16, K % 8 == 0;
+    q [K, N] int8 contiguous and 16-byte aligned, N % 16 == 0; scale fp32
+    with N values, contiguous and 16-byte aligned; all on one device."""
+    M, K = x2.shape
+    if x2.dtype not in _HALF:
+        raise TypeError(f"K6 takes bf16 or fp16 activations, got {x2.dtype}")
+    if q.dtype != torch.int8 or q.dim() != 2 or q.shape[0] != K:
+        raise ValueError(f"K6 takes an int8 [{K}, N] weight, got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    N = q.shape[1]
+    if K % 8 or N % 16:
+        raise ValueError(f"K6 takes K % 8 == 0 and N % 16 == 0 (TMA's "
+                         f"16-byte row strides), got K {K}, N {N}")
+    if scale.dtype != torch.float32 or scale.numel() != N:
+        raise ValueError(f"K6 takes {N} fp32 scales, got {scale.dtype} "
+                         f"{tuple(scale.shape)}")
+    for name, t in (("q", q), ("scale", scale)):
+        if t.device != x2.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x2.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _k6(x2, weights, out_dtype):
+    """Kernel K6 on x2 [M, K] and one weight: ``[(x2 @ q) * scale]`` in
+    ``out_dtype``, one launch.  x2 goes to the kernel as whole, 16-byte
+    aligned rows (TMA's tiles): a row-strided or misaligned view is copied
+    first."""
+    (wq,) = weights
+    q, scale = wq["q"], wq["scale"]
+    _check_k6_inputs(x2, q, scale)
+    M, K = x2.shape
+    N = q.shape[1]
+    rows, _, _, group = _k6_plan(M, K, N)
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.clone(memory_format=torch.contiguous_format)
+    record = _capture_record("w8a16_gemm")
+    kind = out_dtype if out_dtype in (torch.float32, x2.dtype) \
+        else torch.float32
+    out = torch.empty((M, N), dtype=kind, device=x2.device)
+    err = _build.load("w8a16_gemm").mc_w8a16_gemm(
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K,
+        N, rows, group, int(x2.dtype == torch.bfloat16),
+        _OUT_TYPES[kind], torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check(err, "w8a16_gemm")
+    if record is not None:  # recorded, not run: each replay runs it
+        record.gemm.append((M, K, N))
+    else:
+        w8a16_gemm.launches += 1
+    return [out.to(out_dtype)]
+
+
 def _dequant_matmul_dx(g, q, scale, dtype):
     """dL/dx of ``dequant_matmul``: (g * scale) @ q^T in the arithmetic of
     the plain version's autograd (the fp32 cotangent rounded to x's type,
@@ -376,16 +482,17 @@ def _dequant_matmul_dx(g, q, scale, dtype):
 
 
 class _DequantMatmul(torch.autograd.Function):
-    """K5 forward (one weight, or a group that shares x), plain backward
-    through x (the weights are frozen): the members' dL/dx summed in their
-    order.  ``flat`` is q, scale of each weight in turn."""
+    """A kernel's forward (``kernel``: K5 on one weight or a group that
+    shares x, or K6), plain backward through x (the weights are frozen):
+    the members' dL/dx summed in their order.  ``flat`` is q, scale of each
+    weight in turn."""
 
     @staticmethod
-    def forward(ctx, x2, out_dtype, *flat):
+    def forward(ctx, x2, out_dtype, kernel, *flat):
         ctx.save_for_backward(*flat)
         ctx.x_dtype = x2.dtype
         weights = [{"q": q, "scale": s} for q, s in zip(flat[::2], flat[1::2])]
-        return tuple(_k5(x2, weights, out_dtype))
+        return tuple(kernel(x2, weights, out_dtype))
 
     @staticmethod
     def backward(ctx, *grads):
@@ -394,7 +501,7 @@ class _DequantMatmul(torch.autograd.Function):
         for g, q, scale in zip(grads, flat[::2], flat[1::2]):
             d = _dequant_matmul_dx(g, q, scale, ctx.x_dtype)
             dx = d if dx is None else dx + d
-        return (dx, None) + (None,) * len(flat)
+        return (dx, None, None) + (None,) * len(flat)
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -403,18 +510,38 @@ def _rows(x: torch.Tensor) -> int:
     return x.numel() // K if K else 0
 
 
-def _k5_call(x, weights, out_dtype):
-    """K5 on x [..., K] and ``weights`` (one, or a group), differentiable
-    through x; outputs [..., N] each."""
+def _launch(kernel, x, weights, out_dtype):
+    """``kernel`` (``_k5`` or ``_k6``) on x [..., K] and ``weights``,
+    differentiable through x; outputs [..., N] each."""
     K = x.shape[-1]
     x2 = x.reshape(_rows(x), K)
     out_dtype = out_dtype or x.dtype
     if torch.is_grad_enabled() and x.requires_grad:
         flat = [t for wq in weights for t in (wq["q"], wq["scale"])]
-        ys = _DequantMatmul.apply(x2, out_dtype, *flat)
+        ys = _DequantMatmul.apply(x2, out_dtype, kernel, *flat)
     else:
-        ys = _k5(x2, weights, out_dtype)
+        ys = kernel(x2, weights, out_dtype)
     return [y.reshape(*x.shape[:-1], y.shape[-1]) for y in ys]
+
+
+def _k5_call(x, weights, out_dtype):
+    """K5 on x [..., K] and ``weights`` (one, or a group)."""
+    return _launch(_k5, x, weights, out_dtype)
+
+
+def w8a16_gemm(x: torch.Tensor, wq: Dict[str, torch.Tensor],
+               out_dtype=None) -> torch.Tensor:
+    """Kernel K6 on a CUDA tensor x [..., K] of any number of rows:
+    ``(x @ q) * scale``, fp32-accumulated, in ``out_dtype`` (default
+    x.dtype); differentiable through x.  ``dequant_matmul`` calls it above
+    K5_MAX_ROWS rows."""
+    return _launch(_k6, x, [wq], out_dtype)[0]
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether the kernels take x: a CUDA tensor (the CPU takes the plain
+    version)."""
+    return x.is_cuda
 
 
 def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
@@ -424,25 +551,29 @@ def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
 
     impl "auto": on a CUDA tensor with 1..K5_MAX_ROWS rows (x's leading
     axes flattened; every decode-time product) kernel K5, which streams the
-    int8 weight; a larger product or a CPU tensor takes
-    ``dequant_matmul_reference`` (the convert and the fp32-output GEMM: at
-    prefill and training sizes the GEMM's operations, not the weight's
-    bytes, set the time).  impl "reference": the plain version everywhere.
-    Differentiable through x."""
+    int8 weight; with more rows (prefill, chunks, the train forward on an
+    int8 base) kernel K6, the tensor-core GEMM that converts each int8
+    tile on its way to the tensor cores.  A CPU tensor takes
+    ``dequant_matmul_reference`` (the convert and the fp32-output GEMM).
+    impl "reference": the plain version everywhere.  Differentiable
+    through x."""
     if impl == "reference":
         return dequant_matmul_reference(x, wq, out_dtype)
     if impl != "auto":
         raise ValueError(f"unknown dequant_matmul impl {impl!r}")
-    if not x.is_cuda or not 0 < _rows(x) <= K5_MAX_ROWS:
+    rows = _rows(x)
+    if not _on_card(x) or rows == 0:
         return dequant_matmul_reference(x, wq, out_dtype)
-    return _k5_call(x, [wq], out_dtype)[0]
+    if rows <= K5_MAX_ROWS:
+        return _k5_call(x, [wq], out_dtype)[0]
+    return w8a16_gemm(x, wq, out_dtype)
 
 
 def k5_groups(x: torch.Tensor, n: int) -> bool:
     """Whether ``n`` int8 products of x run as one K5 launch: on a CUDA
     tensor of 1..K5_GROUP_ROWS rows (batch-1 decode, the vision pair), 2
     to K5_GROUP_MAX weights."""
-    return x.is_cuda and 1 < n <= K5_GROUP_MAX \
+    return _on_card(x) and 1 < n <= K5_GROUP_MAX \
         and 0 < _rows(x) <= min(K5_GROUP_ROWS, K5_MAX_ROWS)
 
 
@@ -452,16 +583,18 @@ def dequant_matmul_group(x: torch.Tensor, weights, out_dtype=None,
     products of int8 weights that share x (q/k/v, gate/up), each in its own
     output.  impl "auto" where ``k5_groups`` says so: one K5 launch whose
     grid covers every weight's column tiles, differentiable through x.
-    Anywhere else (3-8 rows, larger products, CPU tensors, impl
+    Anywhere else (3-8 rows, K6's larger products, CPU tensors, impl
     "reference") each weight runs as ``dequant_matmul`` runs it alone."""
     if impl == "auto" and k5_groups(x, len(weights)):
         return _k5_call(x, list(weights), out_dtype)
     return [dequant_matmul(x, wq, out_dtype, impl) for wq in weights]
 
 
-# Launches of K5: one per call that ran it (a grouped call is one), and a
-# replayed graph adds the launches its capture recorded (core/decode_graph).
+# Launches of K5 (``dequant_matmul.launches``: one per call that ran it, a
+# grouped call one) and of K6 (``w8a16_gemm.launches``); a replayed graph
+# adds the launches its capture recorded (core/decode_graph).
 dequant_matmul.launches = 0
+w8a16_gemm.launches = 0
 
 
 def is_quantized(w) -> bool:

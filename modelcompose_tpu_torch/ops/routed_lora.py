@@ -33,9 +33,9 @@ def routed_lora_matmul(x, w, lora_a, lora_b, route, parallel=None,
               ``parallel.tp``) the layer's split: ``"column"`` (w and B
               hold this rank's output columns, A is whole) or ``"row"``
               (x and w hold this rank's input rows, A and B are whole).
-      impl:   an int8 ``w``'s product: "auto" (kernel K5 where it applies,
-              see ``quant.dequant_matmul``) or "reference" (its plain
-              version).
+      impl:   an int8 ``w``'s product: "auto" (kernel K5 or K6 on the
+              card, see ``quant.dequant_matmul``) or "reference" (its
+              plain version).
 
     A column-split product's input and its ``[*, r]`` bottleneck pass
     through ``copy_to_model``, whose backward sums their cotangents over

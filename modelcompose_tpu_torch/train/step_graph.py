@@ -169,8 +169,10 @@ class _TrainGraph(CapturedStep):
     identity; ``held``) for the graph's life.  The step runs in the
     caller's grad mode: the backward is captured with the forward.  Its
     products run at B x L rows, far above ``quant.K5_MAX_ROWS``, so an
-    int8 base (``--quantize_frozen_base``) takes the plain product and the
-    capture's K5 record stays empty."""
+    int8 base (``--quantize_frozen_base``) runs their forward through K6
+    (recorded in the capture's ``quant`` record, which a layer's remat
+    recompute on autograd's thread finds by the capturing stream), and
+    their backward through x as the plain product."""
 
     capture_at = 2
     release_cached = True

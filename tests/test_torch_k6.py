@@ -1,0 +1,359 @@
+"""K6, the int8 product above K5_MAX_ROWS rows (``ops/quant.w8a16_gemm``,
+``csrc/w8a16_gemm.cu``), on the CPU: its grid rule at every main-path
+shape, the checks of its wrapper, the plain version against the JAX
+package's ``dequant_matmul`` at prefill-sized row counts, and the port's
+prefill, chunk, decode and train forward with the card's launch rule
+emulated.
+
+K6 has no CPU build (its card tests are in tests/test_torch_kernels_cuda.py).
+The emulation (``_Card``) runs the real dispatch of ``quant.dequant_matmul``
+and ``dequant_matmul_group`` on CPU tensors: ``quant._on_card`` says yes,
+and the two launchers ``quant._k5`` and ``quant._k6`` are replaced by the
+plain products of the weights they get, each call counted as the launch
+the card would make.  So the launch counts, the autograd Function and the
+results of the kernel path are checked without a card.
+
+Inputs are seeded numpy arrays handed to both packages.  Tolerances,
+relative to max |JAX|: 1e-5 for an fp32 product (int8 and bf16 values are
+exact in fp32, so only the summation order differs), 2e-2 for a bf16 one
+(one bf16 rounding of a sum taken in another order); logits as
+tests/test_torch_llama.py holds them (1e-4 fp32, 2e-2 bf16).
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from modelcompose_tpu.config import tiny_test_config
+from modelcompose_tpu.core import llama as jllama
+from modelcompose_tpu.ops import quant as jquant
+
+from modelcompose_tpu_torch.config import ModelConfig as PortConfig
+from modelcompose_tpu_torch.convert import params_from_jax
+from modelcompose_tpu_torch.core import llama
+from modelcompose_tpu_torch.core.decode_graph import _decode_step
+from modelcompose_tpu_torch.core.prefill_graph import (_prefill,
+                                                       _prefill_chunk_step)
+from modelcompose_tpu_torch.ops import quant
+
+jgen = importlib.import_module("modelcompose_tpu.core.generate")
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+LOGIT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+# The int8 products of the main path (K, N): Vicuna-7B's q/k/v/o, gate/up,
+# down and lm_head, and the tp 2 and 4 shards' column and row splits.
+SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+          (4096, 2048), (4096, 1024), (4096, 5504), (4096, 2752),
+          (4096, 16000), (4096, 8000), (2048, 4096), (1024, 4096),
+          (5504, 4096), (2752, 4096)]
+# K6's rows on the main path: a tail chunk, a chunk and the smallest
+# bucket, the EVA + ImageBind request, the vision pair, MCUB-4 in its
+# bucket, the train batch; and 9, 37.
+ROWS = [9, 37, 256, 512, 698, 2048, 3287, 3328, 4096]
+
+
+def _raster(plan):
+    """The (row tile, column tile) of each block in launch order, as
+    ``w8a16_gemm_kernel`` computes it from blockIdx.x: groups of ``group``
+    row tiles, the group's row tiles walked under each column tile."""
+    _, m_tiles, n_tiles, group = plan
+    out = []
+    for b in range(m_tiles * n_tiles):
+        first = b // (group * n_tiles) * group
+        here = min(m_tiles - first, group)
+        r = b % (group * n_tiles)
+        out.append((first + r % here, r // here))
+    return out
+
+
+@pytest.mark.parametrize("M", ROWS)
+@pytest.mark.parametrize("K,N", SHAPES)
+def test_k6_plan_covers_the_output(K, N, M):
+    """The grid covers y [M, N] once: every block is a whole tile or the
+    last row / column tile masked at M / N, and the raster visits each
+    tile exactly once; the block is one the kernel takes."""
+    plan = quant._k6_plan(M, K, N)
+    rows, m_tiles, n_tiles, group = plan
+    cols = quant._K6_COLS
+    assert rows in quant._K6_RATES
+    assert (m_tiles - 1) * rows < M <= m_tiles * rows
+    assert (n_tiles - 1) * cols < N <= n_tiles * cols
+    assert 1 <= group <= min(quant._K6_GROUP, m_tiles)
+    tiles = _raster(plan)
+    assert sorted(tiles) == [(m, n) for m in range(m_tiles)
+                             for n in range(n_tiles)]
+
+
+def test_k6_plan_picks_by_waves():
+    """256 rows at prefill sizes; a 512-row chunk of a 4096-wide product
+    takes 128 rows (128 blocks fill the card) and a 256-row tail 64."""
+    assert quant._k6_plan(3328, 4096, 4096)[0] == 256
+    assert quant._k6_plan(4096, 11008, 4096)[0] == 256
+    assert quant._k6_plan(512, 4096, 4096)[0] == 128
+    assert quant._k6_plan(256, 4096, 4096)[0] == 64
+
+
+@pytest.mark.parametrize("M,K,N", [(512, 4100, 4096), (512, 4096, 4104),
+                                   (512, 4096, 40), (0, 4096, 4096),
+                                   (512, 0, 4096)])
+def test_k6_plan_refuses_misaligned(M, K, N):
+    """K % 8 and N % 16 (TMA's 16-byte row strides), and empty shapes."""
+    with pytest.raises(ValueError, match="K6"):
+        quant._k6_plan(M, K, N)
+
+
+def _int8(rng, K, N):
+    w = rng.normal(0, 0.02, (K, N)).astype(np.float32)
+    jwq = jquant.quantize_int8(jnp.asarray(w))
+    return jwq, {k: torch.from_numpy(np.array(v)) for k, v in jwq.items()}
+
+
+@pytest.mark.parametrize("case", ["x_fp32", "n_not_16", "k_not_8",
+                                  "q_not_contiguous", "scale_bf16",
+                                  "scale_count"])
+def test_k6_checks_raise(case):
+    """What K6 does not take raises before any launch."""
+    rng = np.random.default_rng(1)
+    K, N = 64, 48
+    _, wq = _int8(rng, K, N)
+    x = torch.zeros((16, K), dtype=torch.bfloat16)
+    q, scale = wq["q"], wq["scale"]
+    if case == "x_fp32":
+        x = x.float()
+    elif case == "n_not_16":
+        q, scale = q[:, :40].contiguous(), scale[:, :40].contiguous()
+    elif case == "k_not_8":
+        x, q = x[:, :60], q[:60].contiguous()
+    elif case == "q_not_contiguous":
+        q = torch.zeros((N, K), dtype=torch.int8).t()
+    elif case == "scale_bf16":
+        scale = scale.to(torch.bfloat16)
+    elif case == "scale_count":
+        scale = scale[:, :32].contiguous()
+    with pytest.raises((TypeError, ValueError)):
+        quant._check_k6_inputs(x, q, scale)
+
+
+@pytest.mark.parametrize("fn", ["reference", "wrapper"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [9, 37, 512])
+@pytest.mark.parametrize("K,N,out", [(128, 128, None), (344, 48, None),
+                                     (64, 272, "float32")])
+def test_dequant_matmul_at_prefill_rows_matches_jax(K, N, out, M, dtype, fn):
+    """``dequant_matmul_reference`` (and ``dequant_matmul`` on a CPU
+    tensor, which takes it) at K6's row counts against the JAX
+    ``dequant_matmul``; no launch is counted."""
+    rng = np.random.default_rng(K + N + M)
+    jwq, twq = _int8(rng, K, N)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    tdt, jdt = DTYPES[dtype]
+    tx, jx = torch.from_numpy(x).to(tdt), jnp.asarray(x, jdt)
+    t_out = out and getattr(torch, out)
+    n5, n6 = quant.dequant_matmul.launches, quant.w8a16_gemm.launches
+    f = quant.dequant_matmul_reference if fn == "reference" \
+        else quant.dequant_matmul
+    got = f(tx, twq, out_dtype=t_out)
+    assert (quant.dequant_matmul.launches, quant.w8a16_gemm.launches) == (
+        n5, n6)
+    want = np.asarray(jnp.asarray(jquant.dequant_matmul(
+        jx, jwq, out_dtype=out and getattr(jnp, out)), jnp.float32))
+    assert got.dtype == (t_out or tdt)
+    err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+    assert err <= TOL["float32" if out else dtype]
+
+
+class _Card:
+    """The card's launch rule on CPU tensors: ``quant._on_card`` says yes,
+    and K5's and K6's launchers compute the plain products of the weights
+    they are given, each call counted as one launch ("K5" or "K6")."""
+
+    def __init__(self, monkeypatch):
+        self.launches = []
+        monkeypatch.setattr(quant, "_on_card", lambda x: True)
+        monkeypatch.setattr(quant, "_k5", self.launcher("K5"))
+        monkeypatch.setattr(quant, "_k6", self.launcher("K6"))
+
+    def launcher(self, name):
+        def run(x2, weights, out_dtype):
+            assert (x2.shape[0] <= quant.K5_MAX_ROWS) == (name == "K5")
+            self.launches.append(name)
+            return [quant.dequant_matmul_reference(x2, wq, out_dtype)
+                    for wq in weights]
+        return run
+
+    def count(self, name):
+        return self.launches.count(name)
+
+
+def _port(cfg):
+    return PortConfig.from_dict(cfg.to_dict())
+
+
+def _model(dtype, seed=0, **cfg_kw):
+    cfg = tiny_test_config(mm_vision_encoder="x", mm_hidden_size=16,
+                           dtype=dtype, **cfg_kw)
+    params = jllama.init_params(cfg, jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+    for grp in ("attn", "mlp"):
+        for p in params["layers"][grp].values():
+            p["lora_b"] = jnp.asarray(rng.normal(0, 0.05, p["lora_b"].shape),
+                                      p["lora_b"].dtype)
+    jp = jquant.quantize_backbone(params)
+    return cfg, jp, params_from_jax(jax.tree.map(np.asarray, jp))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("dtype,B,L", [("float32", 1, 12), ("float32", 2, 9),
+                                       ("bfloat16", 2, 6)])
+def test_forward_above_eight_rows_runs_k6(monkeypatch, dtype, B, L):
+    """``forward_hidden`` over more than 8 rows (B x L) with the card's rule
+    emulated: 7 K6 launches a layer and no K5 launch, the hidden states
+    bit-equal to the CPU path's; its logits (one more K6 launch for the
+    lm_head over every position) within the logits tolerance of the JAX
+    ``forward``."""
+    cfg, jp, tparams = _model(dtype)
+    rng = np.random.default_rng(B * L)
+    embeds = rng.normal(0, 1, (B, L, cfg.hidden_size)).astype(np.float32)
+    route_ids = rng.choice((0, 2), size=(B, L)).astype(np.int32)
+    table = cfg.routing_table()
+    tdt, jdt = DTYPES[dtype]
+    kw = dict(route_ids=_t(route_ids), routing_table=_t(table))
+    plain, _ = llama.forward_hidden_routed(tparams, _port(cfg),
+                                           _t(embeds).to(tdt), **kw)
+    with monkeypatch.context() as m:
+        card = _Card(m)
+        hidden, _ = llama.forward_hidden_routed(tparams, _port(cfg),
+                                                _t(embeds).to(tdt), **kw)
+        n = cfg.num_hidden_layers
+        assert (card.count("K6"), card.count("K5")) == (7 * n, 0)
+        logits = llama.logits_from_hidden(tparams, hidden)
+        assert (card.count("K6"), card.count("K5")) == (7 * n + 1, 0)
+    assert torch.equal(hidden, plain)
+    want, _ = jllama.forward(jp, cfg, jnp.asarray(embeds, jdt),
+                             route_ids=jnp.asarray(route_ids),
+                             routing_table=table)
+    want = np.asarray(want, np.float32)
+    tol = LOGIT_TOL[dtype] * float(np.abs(want).max())
+    np.testing.assert_allclose(logits.float().numpy(), want, rtol=0,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_chunk_step_runs_k6(monkeypatch, kv_quant):
+    """A 16-row chunk of a chunked prefill with the card's rule emulated:
+    7 K6 launches a layer, no K5 launch, the chunk's hidden states and
+    cache bit-equal to the CPU path's."""
+    cfg, _, tparams = _model("bfloat16", seed=2)
+    rng = np.random.default_rng(2)
+    embeds = _t(rng.normal(0, 1, (1, 16, cfg.hidden_size)).astype(
+        np.float32)).to(torch.bfloat16)
+    route = _t(rng.choice((0, 2), size=(1, 16)).astype(np.int32))
+    table = _t(cfg.routing_table())
+    outs = []
+    for emulated in (False, True):
+        cache = llama.KVCache.zeros(_port(cfg), 1, 48, quantized=kv_quant,
+                                    device="cpu")
+        with monkeypatch.context() as m:
+            card = _Card(m) if emulated else None
+            h = _prefill_chunk_step(tparams, _port(cfg), cache, embeds, route,
+                                    table, 16)
+        outs.append((h, cache))
+    n = cfg.num_hidden_layers
+    assert (card.count("K6"), card.count("K5")) == (7 * n, 0)
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][1].tensors(),
+                                                 outs[1][1].tensors()))
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_decode_step_stays_on_k5(monkeypatch, B):
+    """A prefill of more than 8 rows runs K6 (and K5 for the last
+    position's lm_head, B rows), then a 1-2-row decode step runs 4 K5
+    launches a layer + the lm_head (q/k/v and gate/up grouped) and no K6
+    launch; its logits match the JAX decode step."""
+    cfg, jp, tparams = _model("float32", seed=3)
+    rng = np.random.default_rng(B + 3)
+    L, cache_len = 10, 16
+    embeds = rng.normal(0, 1, (B, L, cfg.hidden_size)).astype(np.float32)
+    route_ids = rng.choice((0, 2), size=(B, L)).astype(np.int32)
+    lengths = np.array([L, L - 3][:B], np.int32)
+    seg = (np.arange(L)[None] < lengths[:, None]).astype(np.int32)
+    table = cfg.routing_table()
+    next_tok = np.array([7, 11][:B], np.int32)
+    n = cfg.num_hidden_layers
+    with monkeypatch.context() as m:
+        card = _Card(m)
+        _, cache = _prefill(tparams, _port(cfg), _t(embeds), _t(route_ids),
+                            _t(table), _t(seg), _t(lengths), cache_len)
+        assert card.launches == ["K6"] * (7 * n) + ["K5"]
+        del card.launches[:]
+        logits, _, _ = _decode_step(tparams, _port(cfg), cache,
+                                    _t(next_tok), _t(lengths), _t(table))
+        assert (card.count("K5"), card.count("K6")) == (4 * n + 1, 0)
+    _, jcache = jgen._prefill(jp, cfg, jnp.asarray(embeds),
+                              jnp.asarray(route_ids), table, jnp.asarray(seg),
+                              jnp.asarray(lengths), cache_len, "auto", False)
+    want, _, _ = jgen._decode_step(jp, cfg, jcache, jnp.asarray(next_tok),
+                                   jnp.asarray(lengths), table)
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(logits.float().numpy(), want, rtol=0,
+                               atol=LOGIT_TOL["float32"]
+                               * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k6_is_differentiable_through_x(monkeypatch, dtype):
+    """K6's autograd Function (its forward emulated by the plain product):
+    dL/dx against ``jax.vjp`` of the JAX ``dequant_matmul``."""
+    rng = np.random.default_rng(12)
+    K, N, M = 96, 80, 24
+    jwq, twq = _int8(rng, K, N)
+    x = rng.normal(size=(2, M // 2, K)).astype(np.float32)
+    g = rng.normal(size=(2, M // 2, N)).astype(np.float32)
+    tdt, jdt = DTYPES[dtype]
+    _, vjp = jax.vjp(lambda a: jquant.dequant_matmul(
+        a, jwq, out_dtype=jnp.float32), jnp.asarray(x, jdt))
+    want = np.asarray(jnp.asarray(vjp(jnp.asarray(g))[0], jnp.float32))
+    with monkeypatch.context() as m:
+        card = _Card(m)
+        tx = torch.from_numpy(x).to(tdt).requires_grad_(True)
+        y = quant.dequant_matmul(tx, twq, out_dtype=torch.float32)
+        (got,) = torch.autograd.grad(y, tx, torch.from_numpy(g))
+        assert card.launches == ["K6"]
+    assert got.dtype == tdt
+    err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+    assert err <= TOL[dtype]
+
+
+def test_remat_train_forward_runs_k6_twice(monkeypatch):
+    """The int8-base train forward under remat with the card's rule
+    emulated: K6 runs 7 times a layer forward and again in each layer's
+    recompute during the backward, and the gradient of the embeddings is
+    bit-equal to the CPU path's."""
+    cfg, _, tparams = _model("bfloat16", seed=5, remat=True)
+    rng = np.random.default_rng(5)
+    embeds = _t(rng.normal(0, 1, (2, 8, cfg.hidden_size)).astype(
+        np.float32)).to(torch.bfloat16)
+    n = cfg.num_hidden_layers
+    grads = []
+    for emulated in (False, True):
+        with monkeypatch.context() as m:
+            card = _Card(m) if emulated else None
+            x = embeds.clone().requires_grad_(True)
+            h, _ = llama.forward_hidden(tparams, _port(cfg), x)
+            if card is not None:
+                assert card.launches == ["K6"] * (7 * n)
+            (dx,) = torch.autograd.grad(h.float().square().sum(), x)
+            if card is not None:
+                assert card.launches == ["K6"] * (14 * n)
+        grads.append(dx)
+    assert torch.equal(grads[0], grads[1])

@@ -10,10 +10,10 @@ kernel rounds P at a running max and sums in another order); the LSE
 within 1e-3 of max(|LSE|, 1) (fp32 statistics of identical operands);
 dQ, dK and dV within 2e-2 of max |plain| on valid rows (P and dS are
 rounded to bf16 before the second products, the sums run in another
-order) and zero on padding rows.  K5 (the int8 product): a bf16 result
-within 2e-2 of max |plain| (one rounding of a sum taken in another order),
-an fp32 result within 1e-5 (int8 and bf16 values are exact in fp32: the
-summation order alone).
+order) and zero on padding rows.  K5 and K6 (the int8 products): a bf16
+result within 2e-2 of max |plain| (one rounding of a sum taken in another
+order), an fp32 result within 1e-5 (int8 and bf16 values are exact in
+fp32: the summation order alone).
 """
 
 import pytest
@@ -728,13 +728,16 @@ def test_k5_is_deterministic():
 
 
 def test_k5_large_m_takes_the_plain_product():
-    """Above K5_MAX_ROWS rows (prefill sizes) the product is the plain
-    one, with no launch."""
+    """Above K5_MAX_ROWS rows (prefill sizes) the product is K6's: one K6
+    launch and no K5 launch, held to the plain product."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     x, wq = _k5_inputs(gen, quant.K5_MAX_ROWS + 1, 256, 512)
-    n = dequant_matmul.launches
-    assert torch.equal(dequant_matmul(x, wq), dequant_matmul_reference(x, wq))
-    assert dequant_matmul.launches == n
+    n5, n6 = dequant_matmul.launches, quant.w8a16_gemm.launches
+    got = dequant_matmul(x, wq, out_dtype=torch.float32)
+    assert dequant_matmul.launches == n5
+    assert quant.w8a16_gemm.launches == n6 + 1
+    want = dequant_matmul_reference(x, wq, out_dtype=torch.float32)
+    assert _rel(got, want) <= 1e-5
 
 
 def test_k5_graph_replays_the_eager_call_and_owns_its_scratch():
@@ -994,6 +997,238 @@ def test_k5_backward_matches_plain(out):
     assert grads[0].dtype == x.dtype
     assert _rel(grads[0], grads[1]) <= 2e-2
 
+
+
+# ---------------------------------------------------------------------------
+# K6: the int8 product above K5_MAX_ROWS rows (prefill, chunks, the train
+# forward on an int8 base) against the plain product
+# ---------------------------------------------------------------------------
+
+# The rows of the main path's products above 8: a tail chunk, a chunk (the
+# smallest bucket), the EVA + ImageBind bucket's 698 valid rows, the vision
+# pair, MCUB-4's 3,287 in its 3,328 bucket, the train batch; and 9, 37.
+K6_ROWS = [9, 37, 256, 512, 698, 2048, 3287, 3328, 4096]
+
+
+@pytest.mark.parametrize("M", K6_ROWS)
+@pytest.mark.parametrize("K,N", K5_SHAPES)
+def test_k6_matches_plain(K, N, M):
+    """K6 against the plain product at every main-path shape and tp shard
+    and every row count above, with a bf16 and an fp32 (the routed LoRA's)
+    result; each call one K6 launch and no K5 launch."""
+    gen = torch.Generator(device="cuda").manual_seed(K + N + M)
+    x, wq = _k5_inputs(gen, M, K, N)
+    for out in (None, torch.float32):
+        n5, n6 = dequant_matmul.launches, quant.w8a16_gemm.launches
+        got = dequant_matmul(x, wq, out_dtype=out)
+        assert (dequant_matmul.launches, quant.w8a16_gemm.launches) == (
+            n5, n6 + 1)
+        want = dequant_matmul_reference(x, wq, out_dtype=out)
+        assert got.shape == want.shape == (M, 1, N)
+        assert got.dtype == want.dtype
+        assert _rel(got, want) <= (1e-5 if out else 2e-2)
+
+
+@pytest.mark.parametrize("M", [9, 512, 3328])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (11008, 4096), (4096, 2752),
+                                 (4096, 32000)])
+def test_k6_fp16(K, N, M):
+    """fp16 activations (the f16 wgmma, the magic-number convert), with an
+    fp16 and an fp32 result."""
+    gen = torch.Generator(device="cuda").manual_seed(K + N + M + 2)
+    x, wq = _k5_inputs(gen, M, K, N, torch.float16)
+    for out in (None, torch.float32):
+        got = quant.w8a16_gemm(x, wq, out_dtype=out)
+        want = dequant_matmul_reference(x, wq, out_dtype=out)
+        assert got.dtype == (out or torch.float16)
+        assert _rel(got, want) <= (1e-5 if out else 2e-2)
+
+
+@pytest.mark.parametrize("M,K,N", [(9, 344, 48), (37, 1000, 272),
+                                   (130, 2752, 4112), (200, 8, 16),
+                                   (1, 4096, 4096), (700, 5504, 2752),
+                                   (65, 4104, 8000)])
+def test_k6_ragged_edges(M, K, N):
+    """M, N and K off every tile edge (zero-filled on load, clipped on
+    store; 8-row K, 16-column N), and one row (K6 alone takes any M)."""
+    gen = torch.Generator(device="cuda").manual_seed(M + K + N)
+    x, wq = _k5_inputs(gen, M, K, N)
+    for out in (None, torch.float32):
+        got = quant.w8a16_gemm(x, wq, out_dtype=out)
+        want = dequant_matmul_reference(x, wq, out_dtype=out)
+        assert got.shape == (M, 1, N)
+        assert _rel(got, want) <= (1e-5 if out else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("rows", [64, 128, 256])
+def test_k6_every_block(monkeypatch, rows, dtype):
+    """Each block K6 takes (128 weight columns by 64, 128 or 256 rows),
+    whatever the plan would pick, at ragged M and N with a raster group
+    that does not divide the row tiles, held to the plain product."""
+    assert rows in quant._K6_RATES
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    x, wq = _k5_inputs(gen, 700, 4096, 2752, dtype)
+    monkeypatch.setattr(quant, "_k6_plan", lambda M, K, N: (
+        rows, -(-M // rows), -(-N // 128), 3))
+    for out in (None, torch.float32):
+        got = quant.w8a16_gemm(x, wq, out_dtype=out)
+        want = dequant_matmul_reference(x, wq, out_dtype=out)
+        assert _rel(got, want) <= (1e-5 if out else 2e-2)
+
+
+def test_k6_row_strided_x():
+    """x with a row stride past K (a view of wider rows, NaN past K): the
+    wrapper hands K6 whole rows, and nothing past K is read."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    wide = torch.randn((300, 1, 4096 + 24), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    wide[..., 4096:] = float("nan")
+    x = wide[..., :4096]
+    _, wq = _k5_inputs(gen, 300, 4096, 4096)
+    got = dequant_matmul(x, wq, out_dtype=torch.float32)
+    want = dequant_matmul_reference(x.contiguous(), wq,
+                                    out_dtype=torch.float32)
+    assert _rel(got, want) <= 1e-5
+
+
+def test_k6_is_deterministic():
+    """Every output is one block's sum in a fixed order: repeated launches
+    give the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for M, K, N in ((3328, 11008, 4096), (512, 4096, 32000), (256, 4096,
+                                                              11008)):
+        x, wq = _k5_inputs(gen, M, K, N)
+        first = dequant_matmul(x, wq, out_dtype=torch.float32)
+        for _ in range(3):
+            assert torch.equal(dequant_matmul(x, wq, out_dtype=torch.float32),
+                               first)
+
+
+def test_k6_graph_replays_the_eager_call_and_is_counted():
+    """K6 launches captured in a record replay the eager calls' bits; in a
+    CapturedStep each replay adds the recorded launches to K6's count."""
+    from modelcompose_tpu_torch.core.decode_graph import CapturedStep
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    cases = [_k5_inputs(gen, M, K, N) for M, K, N in (
+        (512, 4096, 4096), (3328, 4096, 11008), (9, 11008, 4096))]
+    eager = [dequant_matmul(x, wq, out_dtype=torch.float32)
+             for x, wq in cases]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph = torch.cuda.CUDAGraph()
+        with quant.capturing() as record:
+            graph.capture_begin()
+            outs = [dequant_matmul(x, wq, out_dtype=torch.float32)
+                    for x, wq in cases]
+            graph.capture_end()
+        assert record.gemm == [(512, 4096, 4096), (3328, 4096, 11008),
+                               (9, 11008, 4096)]
+        assert record.launches == []
+        n = quant.w8a16_gemm.launches
+        graph.replay()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    assert quant.w8a16_gemm.launches == n  # a raw replay is the owner's
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)
+
+    x, wq = cases[0]
+
+    class Step(CapturedStep):
+        def _step(self):
+            return dequant_matmul(dequant_matmul(x, wq), wq)
+    step = Step("cuda")
+    want = dequant_matmul(dequant_matmul(x, wq), wq)
+    for _ in range(3):
+        n = quant.w8a16_gemm.launches
+        assert torch.equal(step.run(), want)
+        assert quant.w8a16_gemm.launches == n + 2
+    assert step.graph is not None and len(step.k5.gemm) == 2
+
+
+def test_k6_captured_outside_a_record_raises():
+    """A K6 launch captured with no record would run uncounted at every
+    replay: it raises instead."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x, wq = _k5_inputs(gen, 64, 4096, 4096)
+    dequant_matmul(x, wq)  # built
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            with pytest.raises(RuntimeError, match="capturing"):
+                dequant_matmul(x, wq)
+        finally:
+            graph.capture_end()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["n_not_16", "k_not_8", "q_not_contiguous",
+                                  "x_fp32", "scale_bf16", "q_on_cpu"])
+def test_k6_rejects(case):
+    """What K6 does not take raises on the card (no fallback)."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    x, wq = _k5_inputs(gen, 64, 256, 64)
+    if case == "n_not_16":
+        wq = {"q": wq["q"][:, :40].contiguous(),
+              "scale": wq["scale"][:, :40].contiguous()}
+    elif case == "k_not_8":
+        x, wq = _k5_inputs(gen, 64, 252, 64)
+    elif case == "q_not_contiguous":
+        wq = dict(wq, q=torch.randint(-127, 128, (64, 256), generator=gen,
+                                      device="cuda", dtype=torch.int8).t())
+    elif case == "x_fp32":
+        x = x.float()
+    elif case == "scale_bf16":
+        wq = dict(wq, scale=wq["scale"].to(torch.bfloat16))
+    elif case == "q_on_cpu":
+        wq = dict(wq, q=wq["q"].cpu())
+    with pytest.raises((TypeError, ValueError)):
+        dequant_matmul(x, wq)
+
+
+@pytest.mark.parametrize("rows,K,N,group", [
+    (32, 4096, 1024, 4), (192, 4096, 1024, 4), (512, 4096, 1024, 4),
+    (256, 4092, 1024, 4), (256, 4096, 1000, 4), (256, 4096, 1024, 0)])
+def test_k6_entry_refuses_other_grids(rows, K, N, group):
+    """The C entry refuses rows the plan cannot produce, a K or N TMA
+    cannot read and an empty raster group (cudaErrorInvalidValue), before
+    launching anything."""
+    from modelcompose_tpu_torch import _build
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((256, K), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q = torch.zeros((K, N), dtype=torch.int8, device="cuda")
+    scale = torch.ones(N, device="cuda")
+    out = torch.empty((256, N), device="cuda")
+    err = _build.load("w8a16_gemm").mc_w8a16_gemm(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), 256, K,
+        N, rows, group, 1, 0, torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("out", [None, torch.float32])
+def test_k6_backward_matches_plain(out):
+    """dL/dx through K6's autograd Function (the int8-base train forward)
+    against the plain product's autograd, on the same cotangent."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x, wq = _k5_inputs(gen, 1024, 4096, 11008)
+    g = torch.randn((1024, 1, 11008), generator=gen, device="cuda").to(
+        out or x.dtype)
+    grads = []
+    for fn in (dequant_matmul, dequant_matmul_reference):
+        xr = x.clone().requires_grad_(True)
+        y = fn(xr, wq, out_dtype=out)
+        (dx,) = torch.autograd.grad(y, xr, g)
+        grads.append((y, dx))
+    (y6, dx6), (yp, dxp) = grads
+    assert dx6.dtype == x.dtype
+    assert _rel(y6, yp) <= (1e-5 if out else 2e-2)
+    assert _rel(dx6, dxp) <= 2e-2
 
 
 def _tiny_card_backbone(quantized_base):
