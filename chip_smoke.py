@@ -44,6 +44,19 @@ nonzero:
    weights made beforehand (the yardstick, never called by the port),
    ``torch._weight_int8pack_mm`` (or its error text) and the bound; the
    sums over a layer and a 32-layer prefill (224 launches);
+4d. K7 (the gradient through x of the int8 products: the scaled cotangent
+   rounded to bf16 times the int8 weight, transposed, in one tensor-core
+   GEMM) against its plain version (the fp32 scaled cotangent, its bf16
+   copy, a bf16 copy of the weight, cuBLAS into fp32 and the cast) for an
+   fp32 cotangent, at every dL/dx of the int8-base train step: q/k/v/o,
+   gate/up and down at 8,192 and 32,768 rows (B=4 and B=16 x 2,048) and
+   the lm_head at a 256-position loss chunk of those batches (1,024 and
+   4,096 rows), one K7 launch each, with each shape's grid printed; each
+   timed by CUDA-graph replay over 4 weight copies beside the plain route,
+   ``torch.mm`` on bf16 copies of the scaled cotangent and of the weight
+   made beforehand (the yardstick, never called by the port) and the
+   bound; the sums over a layer and a 32-layer step (232 launches at 8
+   loss chunks);
 5. the serving path at Vicuna-7B width: a vision DAMC composition (CLIP
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
@@ -122,9 +135,24 @@ nonzero:
    by kernel, the K1/K3/K4 shares; the table goes to
    ``chiprun_out/train_profile.txt``), then the kernel path's loss and
    gradients against the plain path's on one micro-batch;
+9b. train_int8: the same model and recipe on an int8 base, built by the
+   train entry's ``build_model`` with the QLoRA recipe's flags
+   (``--quantize_frozen_base True --loss_chunk 256 --adam_mu_dtype
+   bfloat16``), at B=4 x 2,048 (four rows of about 1,400, 1,100, 1,900 and
+   1,300 positions): 3 fused steps eagerly and 3 through a
+   ``TrainStepGraph`` (eager, capture, replay) from one state, losses,
+   LoRA leaves and Adam moments bit-equal; every step K6 14 times a layer
+   + 2 a loss chunk (forward and remat recompute), K7 7 times a layer + 1
+   a chunk (every int8 product's dL/dx), K1 twice a layer, K3 and K4
+   once, no K5, from the counters and the capture's record; step s,
+   positions/s, the device-idle share of one replayed step (torch.profiler,
+   ``chiprun_out/train_int8_profile.txt``), peak memory; then K7 against
+   the plain dx in turns (plain, K7, K7, plain; two eager steps each from
+   the same state): losses within 1e-2 of the plain arm's, step s and peak
+   memory;
 10. train_entry: the DAMC train entry (``train()``, what ``python -m
    modelcompose_tpu_torch.train.train_multimodal`` runs) at Vicuna-7B v1.5
-   width and 16 of its 32 layers: a random fp16 base written to disk in
+   width and 8 of its 32 layers: a random fp16 base written to disk in
    the released layout (two shards, index, config.json), a 48-sample
    point dataset (8,192 x 6 clouds), stage 1 as ``run_pretrain_point.sh``
    (B=16, 3 steps, projector only), stage 2 as
@@ -257,7 +285,12 @@ at B=2, L=2,048 with rows of 2,048 and 1,391, K5 at one row of q/k/v/o
 over a decode step, its ``decode_ab`` phase 6's A/B), K6 at 3,328 rows of
 q/k/v/o (its ``shapes``, ``tp_shards`` and ``step`` the others and the
 sums over a layer and a prefill, its ``prefill_ab`` phase 6's A/B,
-``library_ms`` ``torch.mm`` on a bf16 copy of the weight); K1's and K2's
+``library_ms`` ``torch.mm`` on a bf16 copy of the weight), K7 at 8,192
+rows of q/k/v/o's dL/dx (its ``shapes`` and ``step`` the others and the
+sums over a layer and a 32-layer step, its ``train_ab`` phase 9b's A/B,
+``library_ms`` ``torch.mm`` on bf16 copies of the scaled cotangent and of
+the weight; its launches phase 9b's, the one path with an int8 base's
+gradient); K1's and K2's
 ``mcub4`` hold
 the composed path's shape, K2's ``*_cold`` keys its device time with every
 launch on a cold layer, and K3's and K4's ``train_batch`` and
@@ -283,6 +316,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -306,6 +340,10 @@ K5_REPLACES = "modelcompose_tpu/ops/quant.py:33"
 K6_SOURCE = "modelcompose_tpu_torch/csrc/w8a16_gemm.cu"
 # no Pallas kernel either: the same fused convert at prefill sizes
 K6_REPLACES = "modelcompose_tpu/ops/quant.py:33"
+K7_SOURCE = "modelcompose_tpu_torch/csrc/w8a16_dx.cu"
+# no Pallas kernel: the fused convert in the transposed dot of the same
+# dequant_matmul's gradient
+K7_REPLACES = "modelcompose_tpu/ops/quant.py:33"
 # the launch counters of the forward kernels, as the phases read them
 FORWARD_KERNELS = ("flash_attention_fwd", "flash_decode", "w8a16_gemv",
                    "w8a16_gemm")
@@ -802,9 +840,12 @@ def phase_build():
     k1, k2 = _build.load("flash_attention_fwd"), _build.load("flash_decode")
     k34 = _build.load("flash_attention_bwd")
     k6 = _build.load("w8a16_gemm")
+    k7 = _build.load("w8a16_dx")
     log("build", dynamic_smem_bytes=json.dumps({
         **{f"w8a16_gemm rows {r}": k6.mc_w8a16_gemm_smem(r)
            for r in (64, 128, 256)},
+        **{f"w8a16_dx g {g}": k7.mc_w8a16_dx_smem(i)
+           for i, g in enumerate(("f32", "bf16", "f16"))},
         "flash_attention_fwd D128": k1.mc_flash_attention_fwd_smem(128),
         "flash_attention_fwd D64": k1.mc_flash_attention_fwd_smem(64),
         "flash_decode D128 int8 G1": k2.mc_flash_decode_smem(128, 1),
@@ -1525,6 +1566,129 @@ def phase_k6(device, gen):
                 "(q/k/v/o at MCUB-4's bucket), 4 weights cycled, CUDA graph "
                 "replay", shapes=cases, tp_shards=tp_cases,
                 checked=len(errs), step=step)
+
+
+# K7's products: dx [M, K] = (g [M, N] * scale) @ q [K, N]^T for the
+# forward's q [K, N] of q/k/v/o, gate/up and down, at the DAMC recipes'
+# B=4 x 2,048 and the QLoRA recipe's B=16 x 2,048 rows; the lm_head's at a
+# 256-position loss chunk of those batches (1,024 and 4,096 rows)
+K7_SHAPES = {"qkvo": (4096, 4096), "gate_up": (4096, 11008),
+             "down": (11008, 4096)}
+K7_ROWS = (8192, 32768)
+K7_LM_HEAD = (4096, 32000)
+K7_LM_HEAD_ROWS = (1024, 4096)
+K7_CHUNKS = 8  # loss chunks of 256 in a 2,048 bucket
+K7_COPIES = 4  # weight copies cycled through: more bytes than L2 holds
+
+
+def _k7_case(gen, weights, M, K, N, timed=True):
+    """K7 against its plain version on ``weights[0]`` for an fp32
+    cotangent g [M, N] (the routed products' and the logits'), bf16 dx,
+    one K7 launch; with ``timed``, K7 timed by CUDA-graph replay cycling
+    over the weight copies, beside the plain route (the fp32 scaled
+    cotangent, its bf16 copy, the bf16 copy of q, cuBLAS into fp32 and the
+    cast: what ran before), ``torch.mm`` on bf16 copies of the scaled
+    cotangent and of q^T made beforehand (``library_ms``: the GEMM alone,
+    never called by the port) and the bound."""
+    import itertools
+    import torch
+    from modelcompose_tpu_torch.ops.quant import _dequant_matmul_dx, w8a16_dx
+    bf16 = torch.bfloat16
+    g = torch.randn((M, N), generator=gen, device=weights[0]["q"].device)
+    n7 = w8a16_dx.launches
+    got = w8a16_dx(g, weights[0], bf16)
+    if w8a16_dx.launches - n7 != 1:
+        raise AssertionError(f"K7 M{M} K{K} N{N}: not one K7 launch")
+    want = _dequant_matmul_dx(g, weights[0]["q"], weights[0]["scale"], bf16)
+    err, rel = _rel_err(got, want)
+    if not (got.dtype == want.dtype and rel <= ATTN_TOL):
+        raise AssertionError(f"K7 M{M} K{K} N{N}: rel err {rel:.3g} (tol "
+                             f"{ATTN_TOL})")
+    res = {"M": M, "K": K, "N": N, "max_abs_err": err, "rel_err": rel,
+           "bit_equal_to_plain": bool(torch.equal(got, want))}
+    if not timed:
+        return res
+    n = len(weights)
+
+    def cycled(fn, ws):
+        layers = itertools.cycle(range(n))
+        return graph_time_ms(lambda: fn(ws[next(layers)]), n=n)
+    res["ms"] = cycled(lambda w: w8a16_dx(g, w, bf16), weights)
+    res["plain_ms"] = cycled(lambda w: _dequant_matmul_dx(
+        g, w["q"], w["scale"], bf16), weights)
+    pairs = [((g * w["scale"].reshape(-1)).to(bf16),
+              w["q"].to(bf16).t().contiguous()) for w in weights]
+    res["library_ms"] = cycled(lambda pair: torch.mm(*pair), pairs)
+    pairs = None
+    nbytes = 4 * M * N + K * N + 4 * N + 2 * M * K
+    res["bound_ms"], res["bound_by"] = bound(2 * M * K * N, nbytes)
+    res["share_of_bound"] = None if res["ms"] is None \
+        else res["bound_ms"] / res["ms"]
+    return res
+
+
+def phase_k7(device, gen):
+    """K7 against its plain version at every dL/dx shape of the int8-base
+    train step (q/k/v/o, gate/up, down at K7_ROWS; the lm_head at
+    K7_LM_HEAD_ROWS), each timed with its plain route, ``torch.mm`` on
+    bf16 copies made beforehand and its bound; the sums over a layer's
+    seven products and a 32-layer step's 224 + K7_CHUNKS lm_head chunks
+    at B=4 and B=16."""
+    import torch
+    from modelcompose_tpu_torch.ops import quant
+    cases, errs = [], []
+    table = [(name, K, N, M) for M in K7_ROWS
+             for name, (K, N) in K7_SHAPES.items()]
+    table += [("lm_head", *K7_LM_HEAD, M) for M in K7_LM_HEAD_ROWS]
+    weights = {}
+    for name, K, N, M in table:
+        if name not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            weights[name] = [
+                {"q": torch.randint(-127, 128, (K, N), generator=gen,
+                                    device=device, dtype=torch.int8),
+                 "scale": torch.rand((1, N), generator=gen, device=device)
+                 * 1e-3 + 1e-4} for _ in range(K7_COPIES)]
+        res = dict(_k7_case(gen, weights[name], M, K, N), shape=name)
+        errs.append(res["max_abs_err"])
+        cases.append(res)
+        log("K7", shape=name, M=M, K=K, N=N,
+            grid=json.dumps(dict(zip(("rows", "m_tiles", "k_tiles", "group"),
+                                     quant._k7_plan(M, K, N)))),
+            max_abs_err=f"{res['max_abs_err']:.4g}",
+            rel_err=f"{res['rel_err']:.3g}",
+            bit_equal_to_plain=res["bit_equal_to_plain"],
+            graph_ms=_ms(res["ms"]), plain_graph_ms=_ms(res["plain_ms"]),
+            library_graph_ms=_ms(res["library_ms"]),
+            bound_ms=f"{res['bound_ms']:.4f}",
+            share_of_bound=_ms(res["share_of_bound"]))
+    weights.clear()
+    torch.cuda.empty_cache()
+    # a layer's seven dx products and a 32-layer step's at B=4 and B=16
+    step = {}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    for M, M_head in zip(K7_ROWS, K7_LM_HEAD_ROWS):
+        rows = {c["shape"]: c for c in cases
+                if c["M"] == (M_head if c["shape"] == "lm_head" else M)}
+        if not all(rows[s][k] is not None for s in rows for k in keys):
+            continue
+        layer = {k: sum(n * rows[s][k] for s, n in K6_LAYER.items())
+                 for k in keys}
+        step[M] = {"layer": layer, "step_32_layers": {
+            k: 32 * layer[k] + K7_CHUNKS * rows["lm_head"][k] for k in keys},
+            "launches": 7 * 32 + K7_CHUNKS}
+    log("K7", checked=len(errs), step_sum_ms=json.dumps(
+        {m: {k: round(v, 4) for k, v in s["step_32_layers"].items()}
+         for m, s in step.items()}))
+    first = next(c for c in cases
+                 if c["shape"] == "qkvo" and c["M"] == K7_ROWS[0])
+    return dict({k: first[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by",
+                                       "share_of_bound")},
+                max_abs_err=max(errs), shape="M8192 K4096 N4096 fp32 g, "
+                "bf16 dx (q/k/v/o's dL/dx at B=4 x 2,048), 4 weights "
+                "cycled, CUDA graph replay", shapes=cases, step=step)
 
 
 def _requests(cfg, device, gen):
@@ -3527,22 +3691,29 @@ def phase_k34(device, gen):
     return out
 
 
-def _train_samples(cfg, rng):
-    """Two image+question+answer samples of about 1,400 and 1,100 packed
-    positions (the image is 576 patches + 5 + 5 soft tokens), labels on the
-    answer span only; random ids and pixels from ``rng``."""
+# Text spans (before the image, question, answer) of phase 9's two samples
+# (about 1,400 and 1,100 packed positions) and of phase 9b's four (those
+# two, about 1,900 and 1,300: real lengths in the 2,048 bucket)
+TRAIN_SPANS = ((100, 400, 313), (50, 250, 213))
+INT8_TRAIN_SPANS = TRAIN_SPANS + ((150, 800, 363), (80, 500, 143))
+
+
+def _train_samples(cfg, rng, spans=TRAIN_SPANS):
+    """Image+question+answer samples of ``spans`` text tokens (the image is
+    576 patches + 5 + 5 soft tokens), labels on the answer span only;
+    random ids and pixels from ``rng``."""
     import numpy as np
     from modelcompose_tpu_torch.core.packing import (IGNORE_INDEX,
                                                      MODAL_TOKEN_INDEXES)
     img = MODAL_TOKEN_INDEXES["vision"]
     ids, labels = [], []
-    for before, question, answer in ((100, 400, 313), (50, 250, 213)):
+    for before, question, answer in spans:
         text = [rng.integers(3, cfg.vocab_size, n) for n in
                 (before, question, answer)]
         ids.append(np.concatenate([[1], text[0], [img], text[1], text[2]]))
         labels.append(np.concatenate([
             np.full(2 + before + question, IGNORE_INDEX), text[2]]))
-    pixels = rng.normal(size=(2, 336, 336, 3)).astype(np.float32)
+    pixels = rng.normal(size=(len(spans), 336, 336, 3)).astype(np.float32)
     return {"input_ids": ids, "labels": labels,
             "modal_inputs": {"vision": pixels}}
 
@@ -3947,6 +4118,236 @@ def phase_train(device):
             "graphs": len(graph_step.graphs) + 3}
 
 
+# Phase 9b: the QLoRA recipe's flags (scripts/legacy/finetune_qlora.sh) on
+# phase 9's DAMC stage-2 model; its steps and the A/B's turns
+QLORA_FLAGS = ["--quantize_frozen_base", "True", "--loss_chunk", "256",
+               "--adam_mu_dtype", "bfloat16"]
+INT8_TRAIN_STEPS = 3  # eager steps; graph steps: eager, capture, replay
+INT8_AB_TURNS = ("plain", "k7", "k7", "plain")
+INT8_AB_STEPS = 2  # eager steps a turn, from the same state
+# K7 against the plain dx on the same steps: the two differ in dx's
+# summation order alone (K7 sums each dx in one block in k order, cuBLAS
+# in its own), so two Adam steps on the random 7B move the second loss by
+# rounding only: 8.3e-6 of it in two smokes (NVIDIA H100 80GB HBM3,
+# 700 W); relative, 12 times that
+INT8_AB_LOSS_TOL = 1e-4
+
+
+class _PlainDx:
+    """The A/B's plain arm: while entered, ``quant.w8a16_dx`` computes the
+    plain route (``_dequant_matmul_dx``) on the card instead of launching
+    K7; nothing else changes."""
+
+    def __enter__(self):
+        from modelcompose_tpu_torch.ops import quant
+        self.k7 = quant._k7
+        quant._k7 = quant._dequant_matmul_dx
+        return self
+
+    def __exit__(self, *exc):
+        from modelcompose_tpu_torch.ops import quant
+        quant._k7 = self.k7
+
+
+def phase_train_int8(device):
+    """Phase 9b: the int8-base (QLoRA) train step at Vicuna-7B width and
+    depth: phase 9's DAMC stage-2 vision model (modal+language LoRA r=128,
+    mlp2x_gelu, CLIP ViT-L/14-336, remat) built by the train entry's
+    ``build_model`` with the QLoRA recipe's ``--quantize_frozen_base True
+    --loss_chunk 256 --adam_mu_dtype bfloat16``, at the DAMC recipes'
+    per-device B=4 x 2,048 (rows of real lengths; the QLoRA recipe's B=16
+    is cut for time).  From one saved trainable state: INT8_TRAIN_STEPS
+    fused steps eagerly and through a ``TrainStepGraph`` (eager call,
+    capture, replay), losses, LoRA leaves and Adam moments bit-equal;
+    every step K6 14 a layer + 2 a loss chunk, K7 7 a layer + 1 a chunk,
+    K1 2 a layer, K3 and K4 1, no K5, from the counters; step s,
+    positions/s, the device-idle share of one replayed step
+    (torch.profiler), peak memory; then the A/B of K7 against the plain dx
+    in turns (INT8_AB_TURNS, INT8_AB_STEPS eager steps each from the same
+    state): losses within INT8_AB_LOSS_TOL, step s and peak memory."""
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.ops import quant
+    from modelcompose_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_forward)
+    from modelcompose_tpu_torch.train.step_graph import TrainStepGraph
+    from modelcompose_tpu_torch.train.train_multimodal import (
+        build_arg_parser, build_model, build_model_config, make_batch)
+    from modelcompose_tpu_torch.train.trainer import (
+        TrainConfig, init_train_state, make_optimizer, make_train_step)
+    counters = {"flash_attention_fwd": flash_attention_forward,
+                "flash_attention_bwd_dq": flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+                "w8a16_gemv": quant.dequant_matmul,
+                "w8a16_gemm": quant.w8a16_gemm, "w8a16_dx": quant.w8a16_dx}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+    args = build_arg_parser().parse_args([
+        "--model_name_or_path", "vicuna-7b-v1.5", "--data_path", "-",
+        "--output_dir", "-", "--random_init_backbone", "--seed", str(SEED),
+        "--mm_vision_encoder", "clip-vit-large-patch14-336",
+        "--mm_projector_type", "mlp2x_gelu", "--mm_vision_select_layer", "-2",
+        "--lora_strategy", "modal+language", "--lora_r", "128",
+        "--lora_alpha", "256", "--local_prefix_tokens", "5",
+        "--local_suffix_tokens", "5", "--gradient_checkpointing", "True",
+        *QLORA_FLAGS])
+    t0 = time.perf_counter()
+    cfg = build_model_config(args)
+    with warnings.catch_warnings():  # random tower weights are the point
+        warnings.simplefilter("ignore")
+        model = build_model(args, cfg, device)
+    layers = model.params["layers"]
+    if not all(quant.is_quantized(p["w"]) for grp in ("attn", "mlp")
+               for p in layers[grp].values()) \
+            or not quant.is_quantized(model.params["lm_head"]):
+        raise AssertionError("--quantize_frozen_base left a bf16 base weight")
+    rng = np.random.default_rng(SEED + 9)
+    batch, layout = make_batch(model, _train_samples(cfg, rng,
+                                                     INT8_TRAIN_SPANS))
+    tc = TrainConfig(learning_rate=2e-4, mm_projector_lr=2e-5,
+                     mm_language_lr=1e-5, warmup_ratio=0.0,
+                     loss_chunk=args.loss_chunk,
+                     adam_mu_dtype=args.adam_mu_dtype)
+    tx, _ = make_optimizer(cfg, tc, {"backbone": model.params,
+                                     "projectors": model.projectors})
+    state = init_train_state(cfg, tc, model.params, model.projectors, tx=tx)
+    B, L = batch["token_ids"].shape
+    positions = int((batch["segment_ids"] != 0).sum())
+    n, chunks = cfg.num_hidden_layers, L // tc.loss_chunk
+    per_step = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+                "flash_attention_bwd_dkv": n, "w8a16_gemv": 0,
+                "w8a16_gemm": 14 * n + 2 * chunks,
+                "w8a16_dx": 7 * n + chunks}
+    torch.cuda.synchronize()
+    log("train_int8", setup_s=f"{time.perf_counter() - t0:.1f}",
+        bucket=(B, L), positions=positions,
+        lengths=[int(x) for x in (batch["segment_ids"] != 0).sum(1)],
+        loss_chunks=chunks, mu_dtype=str(
+            next(iter(state.opt_state["mu"].values())).dtype),
+        gpu_mem_gb=f"{torch.cuda.memory_allocated() / 2**30:.1f}",
+        per_step=json.dumps(per_step))
+    start = _TrainSnapshot(state, tx)
+    launches = []
+
+    def steps(step, k, want=per_step):
+        """``k`` steps from ``start``, each one's launches recorded and
+        held to ``want``: (losses, seconds, the state after, peak GB)."""
+        start.restore(state)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, seconds = [], []
+        for i in range(k):
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, loss = step(state, batch, layout)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            launches.append(read())
+            if launches[-1] != want:
+                raise AssertionError(f"int8-base step {i}: launches "
+                                     f"{launches[-1]}, want {want}")
+        return losses, seconds, _TrainSnapshot(state, tx), _peak_gb()
+
+    # (1) eagerly, then through the step's graph (eager call, capture,
+    # replay), from the same state
+    eager_step = make_train_step(cfg, tc, tx, graphs=False)
+    eager = steps(eager_step, INT8_TRAIN_STEPS)
+    graph_step = make_train_step(cfg, tc, tx)  # graphs: the default here
+    captures = TrainStepGraph.captures
+    graph = steps(graph_step, INT8_TRAIN_STEPS)
+    (step_graph,) = graph_step.graphs.values()
+    if TrainStepGraph.captures != captures + 1 or step_graph.graph is None:
+        raise AssertionError("int8-base step: not one capture")
+    if (len(step_graph.k5.gemm), len(step_graph.k5.dx),
+            len(step_graph.k5.launches)) != (per_step["w8a16_gemm"],
+                                             per_step["w8a16_dx"], 0):
+        raise AssertionError(f"int8-base capture recorded "
+                             f"{len(step_graph.k5.gemm)} K6 and "
+                             f"{len(step_graph.k5.dx)} K7 launches")
+    differ = graph[2].differing(eager[2])
+    equal = graph[0] == eager[0] and not differ
+    log("train_int8", eager_losses=[f"{x:.6f}" for x in eager[0]],
+        graph_losses=[f"{x:.6f}" for x in graph[0]], bit_equal=equal,
+        leaves_differing=len(differ),
+        eager_step_s=json.dumps([round(x, 4) for x in eager[1]]),
+        graph_step_s=json.dumps([round(x, 4) for x in graph[1]]),
+        peak_gb_eager=json.dumps([round(x, 2) for x in eager[3]]),
+        peak_gb_graph=json.dumps([round(x, 2) for x in graph[3]]),
+        replay_launches=json.dumps(launches[-1]))
+    if not equal:
+        raise AssertionError(f"int8-base step graph vs eager: losses "
+                             f"{graph[0]} vs {eager[0]}, {len(differ)} "
+                             f"leaves or moments differ ({differ[:3]})")
+    if not all(np.isfinite(eager[0])) or not eager[0][-1] < eager[0][0]:
+        raise AssertionError(f"int8-base losses {eager[0]}: not finite or "
+                             f"did not decrease")
+    eager_s, replay_s = eager[1][-1], graph[1][-1]
+
+    # (2) where the time goes: one more replay profiled
+    reset()
+    prof = _profile("train_int8_replay", lambda: graph_step(state, batch,
+                                                            layout),
+                    "train_int8_profile.txt", cpu=False)
+    launches.append(read())
+    if launches[-1] != per_step:
+        raise AssertionError(f"profiled int8-base replay launches "
+                             f"{launches[-1]}, want {per_step}")
+    idle = {"replay": _idle_share(prof, prof["wall_s"]),
+            "replay_unprofiled": _idle_share(prof, replay_s)}
+    del graph_step, step_graph  # the graph and its pool go before the A/B
+
+    # (3) K7 against the plain dx, in turns, eager steps from one state
+    ab = {"plain": [], "k7": []}
+    for arm in INT8_AB_TURNS:
+        with (_PlainDx() if arm == "plain" else contextlib.nullcontext()):
+            losses, seconds, _, peak = steps(
+                eager_step, INT8_AB_STEPS,
+                dict(per_step, w8a16_dx=0) if arm == "plain" else per_step)
+        ab[arm].append({"losses": losses, "step_s": seconds[-1],
+                        "peak_gb": peak})
+    base = ab["plain"][0]["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for r in ab["plain"] + ab["k7"]
+                   for a, b in zip(r["losses"], base))
+    log("train_int8", ab="K7 vs plain dx, in turns " + "/".join(
+        INT8_AB_TURNS), step_s=json.dumps(
+            {k: [round(r["step_s"], 4) for r in v] for k, v in ab.items()}),
+        losses=json.dumps({k: [[round(x, 6) for x in r["losses"]]
+                               for r in v] for k, v in ab.items()}),
+        loss_max_rel=f"{loss_rel:.3g}", tol=INT8_AB_LOSS_TOL,
+        peak_gb=json.dumps({k: [round(r["peak_gb"][0], 2) for r in v]
+                            for k, v in ab.items()}))
+    if not loss_rel <= INT8_AB_LOSS_TOL:
+        raise AssertionError(f"K7 arm's losses off the plain dx arm's by "
+                             f"{loss_rel:.3g}")
+    med = {k: float(np.median([r["step_s"] for r in v]))
+           for k, v in ab.items()}
+    log("train_int8", eager_step_s=f"{eager_s:.4f}",
+        replay_step_s=f"{replay_s:.4f}",
+        replay_positions_per_s=f"{positions / replay_s:.1f}",
+        device_idle_share=json.dumps({k: round(v, 4)
+                                      for k, v in idle.items()}),
+        ab_median_step_s=json.dumps({k: round(v, 4) for k, v in med.items()}))
+    return {"launches": launches, "losses": eager[0],
+            "eager_step_s": eager_s, "replay_step_s": replay_s,
+            "positions": positions, "positions_per_s": {
+                "eager": positions / eager_s, "replay": positions / replay_s},
+            "idle_share": idle, "graph_bit_equal": equal,
+            "peak_gb": {"eager": eager[3], "graph": graph[3]},
+            "ab": {"median_step_s": med, "loss_max_rel": loss_rel,
+                   "peak_gb": {k: max(r["peak_gb"][0] for r in v)
+                               for k, v in ab.items()}},
+            "per_step": per_step}
+
+
 # Kernel-name fragments of each profile split: the hand-written kernels,
 # and the library GEMMs (cuBLAS nvjet / xmma, magma) and convolutions.
 # Kernel names to profile splits: a name goes to the first split whose
@@ -3954,6 +4355,7 @@ def phase_train(device):
 PROFILE_SPLITS = {"K1": ("fa_fwd_kernel",), "K2": ("fd_split_kernel",),
                   "K3": ("fa_bwd_dq_kernel",), "K4": ("fa_bwd_dkv_kernel",),
                   "K5": ("dequant_gemv",), "K6": ("w8a16_gemm",),
+                  "K7": ("w8a16_dx",),
                   "gemm": ("gemm", "nvjet"), "conv": ("conv",),
                   "copy": ("copy_kernel",)}
 
@@ -3998,13 +4400,16 @@ def _profile(name, fn, out_file, cpu=True):
 
 
 # The train_entry phase: Vicuna-7B v1.5 at full width (its config.json)
-# with its depth cut from 32 layers to 16 (writing, loading and exporting
+# with its depth cut from 32 layers to 8 (writing, loading and exporting
 # the 32-layer base took most of the phase's 150 s, a quarter of the
-# smoke), and the point recipes' flags
+# smoke; the int8-base train phase 9b needs the room: on an H100 the
+# smoke took 524-549 s with 8 layers here, 600 s with 12 (68 s here),
+# against a budget of 627 s and a spread of ~30 s between runs), and the
+# point recipes' flags
 # (scripts/model_composition/train/run_pretrain_point.sh,
 # run_finetune_point_damc.sh) cut in steps.
 VICUNA_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
-                 num_hidden_layers=16, num_attention_heads=32,
+                 num_hidden_layers=8, num_attention_heads=32,
                  num_key_value_heads=32, max_position_embeddings=4096,
                  rms_norm_eps=1e-5, rope_theta=10000.0)
 ENTRY_SAMPLES = 48
@@ -4271,8 +4676,8 @@ class _EntryProbe:
 
 
 def phase_train_entry(device, gen, root):
-    """The DAMC train entry at Vicuna-7B width and depth from a base on
-    disk, its steps through the train graphs (the default on the card):
+    """The DAMC train entry at Vicuna-7B width (``VICUNA_7B``: 8 of its
+    32 layers) from a base on disk, its steps through the train graphs (the default on the card):
     stage 1 (projector pretrain, B=16, 3 steps), stage 2 on its export
     (modal+language LoRA r=128, 5+5 soft tokens, B=4, 6 steps, checkpoint-4
     on the way), the same flags resumed from checkpoint-4 to 6 steps (its
@@ -5261,21 +5666,38 @@ class _GenerateLog:
 
 
 def _kernel_vs_plain(model, kernel_calls, plain_calls):
-    """Each greedy answer of the kernel path against the plain path's on
-    the same prompt: equal, or leaving it at a near tie: the teacher-forced
-    logits of both paths at the first differing step within LOGIT_TOL of
-    max |logit|, and the plain path's top-2 gap there under LOGIT_TOL."""
+    """Each greedy answer of the kernel path against the plain path's.  On
+    the same prompt: equal, or leaving it at a near tie: the
+    teacher-forced logits of both paths at the first differing step within
+    LOGIT_TOL of max |logit|, and the plain path's top-2 gap there under
+    LOGIT_TOL.  A call whose prompt differs between the paths follows an
+    answer that left the plain path's (ScienceQA's answer prompter puts
+    the first answer into the second prompt), so it has no plain answer to
+    compare with: the kernel path's answer is held to the plain path
+    teacher-forced on the kernel path's prompt (``_follow_up_vs_plain``).
+    A prompt that differs before any answer did raises."""
+    import numpy as np
     import torch
     if len(kernel_calls) != len(plain_calls):
         raise AssertionError(f"{len(kernel_calls)} kernel-path calls, "
                              f"{len(plain_calls)} plain-path calls")
     eos = model.cfg.eos_token_id
     out = []
-    for (ids, inputs, got), (_, _, want) in zip(kernel_calls, plain_calls):
+    diverged = False
+    for (ids, inputs, got), (plain_ids, _, want) in zip(kernel_calls,
+                                                        plain_calls):
         got, want = got[0], want[0]
+        if len(ids) != len(plain_ids) or not all(
+                np.array_equal(a, b) for a, b in zip(ids, plain_ids)):
+            if not diverged:
+                raise AssertionError("the paths' prompts differ before any "
+                                     "answer left the plain path's")
+            out.append(_follow_up_vs_plain(model, ids, inputs, got))
+            continue
         if got == want:
             out.append({"equal": True, "tokens": len(got)})
             continue
+        diverged = True
         step = next(i for i, (a, b) in enumerate(zip(got + [None],
                                                      want + [None]))
                     if a != b)
@@ -5299,6 +5721,34 @@ def _kernel_vs_plain(model, kernel_calls, plain_calls):
         out.append({"equal": False, "diverge_step": step, "rel": rel,
                     "top2_gap_rel": gap})
     return out
+
+
+def _follow_up_vs_plain(model, ids, inputs, got):
+    """The kernel path's answer ``got`` to a prompt the plain path did not
+    see, teacher-forced through both paths on that prompt: at every step
+    the logits within LOGIT_TOL of max |logit|, and the kernel path's
+    token the plain path's greedy pick or within LOGIT_TOL of it."""
+    import torch
+    if not got:
+        return {"equal": False, "follow_up": True, "tokens": 0}
+    tokens = torch.tensor([got], device=model.device)
+    with torch.no_grad():
+        k, p = (_teacher_forced(model, ids, inputs, tokens, impl,
+                                kv_quant=False)[0]
+                for impl in ("auto", "reference"))
+    scale = p.abs().amax(-1)
+    rel = ((k - p).abs().amax(-1) / scale).max().item()
+    picked = p.gather(-1, tokens[0, :, None].long())[:, 0]
+    gap = ((p.amax(-1) - picked) / scale).max().item()
+    log("legacy_eval", follow_up_tokens=len(got), logit_rel_err=f"{rel:.3g}",
+        plain_gap_to_kernel_token_rel=f"{gap:.4g}", tol=LOGIT_TOL)
+    if rel > LOGIT_TOL or gap > LOGIT_TOL:
+        raise AssertionError(f"kernel-path answer to a follow-up prompt off "
+                             f"the plain path's: logits {rel:.3g}, its token "
+                             f"{gap:.3g} of max |logit| under the plain "
+                             f"pick")
+    return {"equal": False, "follow_up": True, "tokens": len(got),
+            "rel": rel, "gap_to_plain_pick_rel": gap}
 
 
 def _vqa_runs(root, folder, name):
@@ -6275,6 +6725,10 @@ def main() -> int:
     k2 = timed("k2", phase_k2, device, gen)
     k5 = timed("k5", phase_k5, device, gen)
     k6 = timed("k6", phase_k6, device, gen)
+    # phase 4d draws its data from a generator of its own, so the later
+    # phases draw the same random weights and inputs as without it
+    k7 = timed("k7", phase_k7, device,
+               torch.Generator(device=device).manual_seed(SEED + 7))
     gc.collect()
     torch.cuda.empty_cache()
     launches, main = timed("main", phase_main_path, device, gen)
@@ -6320,6 +6774,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     k34 = timed("k34", phase_k34, device, gen)
     train = timed("train", phase_train, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = timed("train_int8", phase_train_int8, device)
     gc.collect()
     torch.cuda.empty_cache()
     dist_train = timed("distributed_train", phase_distributed_train, device)
@@ -6390,6 +6847,17 @@ def main() -> int:
         eager_bit_reproducible=train["bit_reproducible"],
         graph_bit_equal=train["graph_bit_equal"],
         accum_bit_equal=train["accum_bit_equal"],
+        int8_step_s={"eager": round(int8["eager_step_s"], 4),
+                     "replay": round(int8["replay_step_s"], 4)},
+        int8_positions_per_s=json.dumps({
+            k: round(v, 1) for k, v in int8["positions_per_s"].items()}),
+        int8_device_idle_share=json.dumps({
+            k: round(v, 4) for k, v in int8["idle_share"].items()}),
+        int8_peak_gb=json.dumps({k: [round(x, 2) for x in v]
+                                 for k, v in int8["peak_gb"].items()}),
+        int8_graph_bit_equal=int8["graph_bit_equal"],
+        int8_k7_vs_plain_dx_step_s=json.dumps({
+            k: round(v, 4) for k, v in int8["ab"]["median_step_s"].items()}),
         entry_step_s=json.dumps({k: [x and round(x, 4)
                                      for x in entry[k]["step_s"]]
                                  for k in ENTRY_STEPS}),
@@ -6397,7 +6865,8 @@ def main() -> int:
             {k: {n: round(v, 4) for n, v in
                  entry[k]["loop_trace_median_s"].items()}
              for k in ENTRY_STEPS}))
-    unreplayed = [p for p in ("train", "train_entry", "distributed_train")
+    unreplayed = [p for p in ("train", "train_int8", "train_entry",
+                              "distributed_train")
                   if not any(graphs[p].get(k, [0, 0])[1]
                              for k in train_kinds)]
     if unreplayed:  # every training phase replays a train graph
@@ -6423,8 +6892,8 @@ def main() -> int:
     # stages with the served answer of its export.
     trained = train["launches"]
 
-    def train_launches(name):
-        return sum(c.get(name, 0) for c in trained)
+    def train_launches(name, runs=trained):
+        return sum(c.get(name, 0) for c in runs)
 
     def by_path(name):
         return {"main": launches[name], "composed": composed["launches"][name],
@@ -6436,6 +6905,7 @@ def main() -> int:
                 "entries": entries["launches"][name],
                 "legacy_eval": legacy["launches"][name],
                 "train": train_launches(name),
+                "train_int8": train_launches(name, int8["launches"]),
                 "train_entry": entry["launches"][name],
                 **{p: c.get(name, 0) for p, c in (
                     *dist_serve["launches"].items(),
@@ -6443,6 +6913,7 @@ def main() -> int:
 
     def train_paths(name):
         return {"train": train_launches(name),
+                "train_int8": train_launches(name, int8["launches"]),
                 "train_entry": entry["launches"][name],
                 **{p: c[name] for p, c in dist_train["launches"].items()}}
 
@@ -6502,7 +6973,22 @@ def main() -> int:
                  "prefill_logit_rel_err", "ids_equal")},
              **dict(k6, shapes=[_rounded(c) for c in k6["shapes"]],
                     tp_shards=[_rounded(c) for c in k6["tp_shards"]])),
+        # the int8-base train step is the one path with an int8 product's
+        # gradient: the other train phases train on a bf16 base
+        dict(name="w8a16_dx", route="cuda", source=K7_SOURCE,
+             replaces=K7_REPLACES,
+             launches=train_launches("w8a16_dx", int8["launches"]),
+             launches_by_path={"train_int8": train_launches(
+                 "w8a16_dx", int8["launches"])},
+             train_ab={"median_step_s": int8["ab"]["median_step_s"],
+                       "loss_max_rel": int8["ab"]["loss_max_rel"],
+                       "peak_gb": int8["ab"]["peak_gb"]},
+             **dict(k7, shapes=[_rounded(c) for c in k7["shapes"]])),
     ]
+    if not all(k["launches"] for k in kernels):
+        raise AssertionError("a kernel of the main paths never launched: "
+                             + str([k["name"] for k in kernels
+                                    if not k["launches"]]))
     log("prefill_graph", graphs_by_phase=json.dumps(graphs),
         totals=json.dumps(_all_graph_counts()),
         k1_launches_by_path=json.dumps(by_path("flash_attention_fwd")),

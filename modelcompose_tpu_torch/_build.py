@@ -77,6 +77,13 @@ SIGNATURES = {
              _I, _I, _P], _I),            # x_bf16 out_type stream
         "mc_w8a16_gemm_smem": ([_I], _I),  # rows
     },
+    "w8a16_dx": {
+        "mc_w8a16_dx": (
+            [_P, _P, _P, _P,              # g q scale dx
+             _I, _I, _I, _I,              # M K N group
+             _I, _I, _P], _I),            # g_type x_bf16 stream
+        "mc_w8a16_dx_smem": ([_I], _I),   # g_type
+    },
     "w8a16_gemv": {
         "mc_w8a16_gemv": (
             [_P, _I, _P, _P, _P, _P,      # x n_members q[] scale[] out[] N[]

@@ -22,7 +22,7 @@ The capture rules (``CapturedStep``): the capturing call runs the step
 eagerly on a side stream (the warm-up a capture needs: every kernel's
 first launch builds it and sets its shared-memory attribute, which a
 capture cannot do), keeps that result as the call's, and captures the step
-on the same stream; K1-K6's launches inside a capture go into the capture's
+on the same stream; K1-K7's launches inside a capture go into the capture's
 records (``ops.flash_attention.capturing`` and ``ops.quant.capturing``,
 which a backward on autograd's thread finds by the stream, and
 ``ops.flash_decode.capturing``; K2's and K5's scratch lives in their
@@ -216,7 +216,7 @@ class CapturedStep:
 
     def replay(self) -> None:
         """Replay the captured step on the current stream, counting the K1
-        to K6 launches it runs."""
+        to K7 launches it runs."""
         self.graph.replay()
         type(self).replays += 1
         fa = flash_attention
@@ -226,6 +226,7 @@ class CapturedStep:
         flash_decode.flash_decode_attention.launches += len(self.k2.launches)
         quant.dequant_matmul.launches += len(self.k5.launches)
         quant.w8a16_gemm.launches += len(self.k5.gemm)
+        quant.w8a16_dx.launches += len(self.k5.dx)
 
     def _capture(self) -> None:
         """Run the step once eagerly on a side stream (the warm-up a

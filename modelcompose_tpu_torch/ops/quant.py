@@ -1,19 +1,25 @@
 """Weight-only int8 quantization (counterpart of
-modelcompose_tpu/ops/quant.py) and the wrappers of kernels K5 and K6.
+modelcompose_tpu/ops/quant.py) and the wrappers of kernels K5, K6 and K7.
 
 Per-output-channel symmetric int8 halves the bytes batch-1 decode streams
 per step, as long as the int8 tensor is what the product reads: the JAX
 package keeps the convert inside the contraction and XLA fuses it into the
-dot's operand load, at every number of rows.  Here ``dequant_matmul`` on a
-CUDA tensor launches K5 (``csrc/w8a16_gemv.cu``) for the decode-time
-products of 1..``K5_MAX_ROWS`` rows, which reads each int8 weight once and
-converts it in registers, and K6 (``csrc/w8a16_gemm.cu``) for larger ones
-(prefill, prefill chunks, training on an int8 base), a tensor-core GEMM
-that converts each int8 tile on its way to the tensor cores: no path on
-the card writes a bf16 copy of a weight.  CPU tensors and ``impl=
-"reference"`` take ``dequant_matmul_reference`` (the convert and the
-fp32-output GEMM).  At 1-2 rows the products that share an input (a
-layer's q/k/v, its gate/up) are one K5 launch (``dequant_matmul_group``).
+dot's operand load, at every number of rows, and into the transposed dot
+of its gradient.  Here ``dequant_matmul`` on a CUDA tensor launches K5
+(``csrc/w8a16_gemv.cu``) for the decode-time products of 1..``K5_MAX_ROWS``
+rows, which reads each int8 weight once and converts it in registers, and
+K6 (``csrc/w8a16_gemm.cu``) for larger ones (prefill, prefill chunks,
+training on an int8 base), a tensor-core GEMM that converts each int8
+tile on its way to the tensor cores; the gradient through x is K7
+(``csrc/w8a16_dx.cu``, ``w8a16_dx``), the same GEMM transposed, which
+scales and rounds the cotangent in shared memory: no path on the card
+writes a bf16 copy of a weight.  The kernels take bf16 or fp16 x; x of
+another float type (fp32) takes ``dequant_matmul_reference`` on every
+device, as the JAX package computes ``x @ q.astype(x.dtype)`` for any
+float x.  CPU tensors and ``impl="reference"`` take
+``dequant_matmul_reference`` (the convert and the fp32-output GEMM).  At
+1-2 rows the products that share an input (a layer's q/k/v, its gate/up)
+are one K5 launch (``dequant_matmul_group``).
 """
 
 from __future__ import annotations
@@ -268,15 +274,16 @@ _SCRATCH = {}
 
 
 class CaptureRecord:
-    """The K5 (``launches``) and K6 (``gemm``) launches of one CUDA-graph
-    capture: each launch's (M, K, N) in order (a replay re-runs them with
-    no Python call, so the graph's owner counts them), and K5's split
-    scratch, which lives as long as this record: the graph's owner keeps
-    the record as long as the graph."""
+    """The K5 (``launches``), K6 (``gemm``) and K7 (``dx``) launches of one
+    CUDA-graph capture: each launch's (M, K, N) in order (a replay re-runs
+    them with no Python call, so the graph's owner counts them), and K5's
+    split scratch, which lives as long as this record: the graph's owner
+    keeps the record as long as the graph."""
 
     def __init__(self):
         self.launches = []
         self.gemm = []
+        self.dx = []
         self.scratch = _Scratch(keep=True)
 
 
@@ -286,12 +293,13 @@ _BY_STREAM = {}  # capturing stream handle -> its record, for other threads
 
 @contextlib.contextmanager
 def capturing(stream: Optional[torch.cuda.Stream] = None):
-    """Record the K5 and K6 launches captured into a CUDA graph while the
-    block runs, on this thread and, given the capturing ``stream``, on any
-    thread that launches into it (autograd's: a layer's remat recompute
-    runs K6 in the backward); yields the ``CaptureRecord``.  A K5 or K6
-    launch made while its stream captures, outside every such block,
-    raises: its replays would go uncounted and its scratch unowned."""
+    """Record the K5, K6 and K7 launches captured into a CUDA graph while
+    the block runs, on this thread and, given the capturing ``stream``, on
+    any thread that launches into it (autograd's: a layer's remat
+    recompute runs K6 in the backward, and every dL/dx runs K7 there);
+    yields the ``CaptureRecord``.  A K5, K6 or K7 launch made while its
+    stream captures, outside every such block, raises: its replays would go
+    uncounted and its scratch unowned."""
     previous = getattr(_CAPTURE, "record", None)
     record = _CAPTURE.record = CaptureRecord()
     if stream is not None:  # one capture at a time on a stream
@@ -476,16 +484,109 @@ def _dequant_matmul_dx(g, q, scale, dtype):
     """dL/dx of ``dequant_matmul``: (g * scale) @ q^T in the arithmetic of
     the plain version's autograd (the fp32 cotangent rounded to x's type,
     an fp32-accumulated product, cast to x's type), which is what JAX's
-    autodiff of its ``dequant_matmul`` computes."""
+    autodiff of its ``dequant_matmul`` computes.  K7's plain version."""
     gs = g.float() * scale.reshape(-1)
     return _mm_f32(gs.to(dtype), q.to(dtype).t()).to(dtype)
 
 
+# K7 (csrc/w8a16_dx.cu): blocks of 256 dx columns by 128 rows of g; a
+# raster group of 8 row tiles walked under each column tile (K6's).
+_K7_ROWS = 128
+_K7_COLS = 256  # dx columns (q rows) a block
+_K7_GROUP = 8
+_G_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _k7_plan(M: int, K: int, N: int):
+    """K7's grid for dx [M, K] = (g [M, N] * scale) @ q [K, N]^T: (rows,
+    m_tiles, k_tiles, group), the block's rows of g (128, by 256 dx
+    columns, for any M), its row and column tiles (the last of each
+    masked at M and K) and the row tiles of a raster group.  Raises on a
+    K or N that TMA cannot read (K % 8: dx's 4-byte column pairs; N % 16:
+    q's 16-byte rows)."""
+    if M <= 0 or K <= 0 or K % 8 or N <= 0 or N % 16:
+        raise ValueError(f"K7 takes M > 0, K % 8 == 0 and N % 16 == 0, got "
+                         f"M {M}, K {K}, N {N}")
+    m_tiles = -(-M // _K7_ROWS)
+    return (_K7_ROWS, m_tiles, -(-K // _K7_COLS),
+            min(_K7_GROUP, m_tiles))
+
+
+def _check_k7_inputs(g2, q, scale, dtype):
+    """Raise on what K7 does not take: g [M, N] fp32/bf16/fp16; x's type
+    ``dtype`` bf16/fp16; q [K, N] int8 contiguous and 16-byte aligned,
+    K % 8 == 0, N % 16 == 0; scale fp32 with N values, contiguous and
+    16-byte aligned; all on one device."""
+    if dtype not in _HALF:
+        raise TypeError(f"K7 writes bf16 or fp16 dx, got {dtype}")
+    if g2.dtype not in _G_TYPES:
+        raise TypeError(f"K7 takes an fp32, bf16 or fp16 cotangent, got "
+                        f"{g2.dtype}")
+    M, N = g2.shape
+    if q.dtype != torch.int8 or q.dim() != 2 or q.shape[1] != N:
+        raise ValueError(f"K7 takes an int8 [K, {N}] weight, got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    K = q.shape[0]
+    if K % 8 or N % 16:
+        raise ValueError(f"K7 takes K % 8 == 0 and N % 16 == 0 (TMA's "
+                         f"16-byte row strides), got K {K}, N {N}")
+    if scale.dtype != torch.float32 or scale.numel() != N:
+        raise ValueError(f"K7 takes {N} fp32 scales, got {scale.dtype} "
+                         f"{tuple(scale.shape)}")
+    for name, t in (("q", q), ("scale", scale)):
+        if t.device != g2.device:
+            raise ValueError(f"{name} is on {t.device}, g on {g2.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _k7(g2, q, scale, dtype):
+    """Kernel K7 on the cotangent g2 [M, N] of ``(x @ q) * scale``: dx
+    [M, K] in ``dtype`` (x's), one launch.  g2 goes to the kernel as whole,
+    16-byte aligned rows (TMA's tiles): a strided or misaligned cotangent
+    is copied first (autograd's are contiguous on the train path)."""
+    _check_k7_inputs(g2, q, scale, dtype)
+    M, N = g2.shape
+    K = q.shape[0]
+    group = _k7_plan(M, K, N)[3]
+    if not g2.is_contiguous() or g2.data_ptr() % 16:
+        g2 = g2.clone(memory_format=torch.contiguous_format)
+    record = _capture_record("w8a16_dx")
+    dx = torch.empty((M, K), dtype=dtype, device=g2.device)
+    err = _build.load("w8a16_dx").mc_w8a16_dx(
+        g2.data_ptr(), q.data_ptr(), scale.data_ptr(), dx.data_ptr(), M, K,
+        N, group, _G_TYPES[g2.dtype], int(dtype == torch.bfloat16),
+        torch.cuda.current_stream(g2.device).cuda_stream)
+    _build.check(err, "w8a16_dx")
+    if record is not None:  # recorded, not run: each replay runs it
+        record.dx.append((M, K, N))
+    else:
+        w8a16_dx.launches += 1
+    return dx
+
+
+def w8a16_dx(g: torch.Tensor, wq: Dict[str, torch.Tensor],
+             dtype) -> torch.Tensor:
+    """dL/dx of ``dequant_matmul(x, wq)`` for its cotangent g [..., N], in
+    x's type ``dtype``: ``(g * scale) @ q^T``, the product of g scaled and
+    rounded to ``dtype`` with the exact int8 weight, fp32-accumulated.  On a
+    CUDA tensor kernel K7 (which writes dx and nothing else), on a CPU
+    tensor its plain version ``_dequant_matmul_dx``.  The backward of
+    every kernel product of ``dequant_matmul`` calls it."""
+    N = g.shape[-1]
+    g2 = g.reshape(-1, N)
+    if _on_card(g2):
+        dx = _k7(g2, wq["q"], wq["scale"], dtype)
+    else:
+        dx = _dequant_matmul_dx(g2, wq["q"], wq["scale"], dtype)
+    return dx.reshape(*g.shape[:-1], dx.shape[-1])
+
+
 class _DequantMatmul(torch.autograd.Function):
     """A kernel's forward (``kernel``: K5 on one weight or a group that
-    shares x, or K6), plain backward through x (the weights are frozen):
-    the members' dL/dx summed in their order.  ``flat`` is q, scale of each
-    weight in turn."""
+    shares x, or K6) and its backward through x (the weights are frozen):
+    each member's dL/dx through ``w8a16_dx`` (K7 on the card), summed in
+    the members' order.  ``flat`` is q, scale of each weight in turn."""
 
     @staticmethod
     def forward(ctx, x2, out_dtype, kernel, *flat):
@@ -499,7 +600,7 @@ class _DequantMatmul(torch.autograd.Function):
         flat = ctx.saved_tensors
         dx = None
         for g, q, scale in zip(grads, flat[::2], flat[1::2]):
-            d = _dequant_matmul_dx(g, q, scale, ctx.x_dtype)
+            d = w8a16_dx(g, {"q": q, "scale": scale}, ctx.x_dtype)
             dx = d if dx is None else dx + d
         return (dx, None, None) + (None,) * len(flat)
 
@@ -544,25 +645,36 @@ def _on_card(x: torch.Tensor) -> bool:
     return x.is_cuda
 
 
+def _kernel_dtype(x: torch.Tensor) -> bool:
+    """Whether x's type is one the kernels take (bf16, fp16): the routing
+    rule by dtype, on every device.  Another float type (an fp32 x) takes
+    the plain version, as the JAX package converts the weight to x's type
+    whatever it is; a bf16 or fp16 x that a kernel refuses raises."""
+    return x.dtype in _HALF
+
+
 def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
                    out_dtype=None, impl: str = "auto") -> torch.Tensor:
     """y = x @ dequant(wq), fp32-accumulated, in ``out_dtype`` (default
     x.dtype).
 
-    impl "auto": on a CUDA tensor with 1..K5_MAX_ROWS rows (x's leading
-    axes flattened; every decode-time product) kernel K5, which streams the
-    int8 weight; with more rows (prefill, chunks, the train forward on an
-    int8 base) kernel K6, the tensor-core GEMM that converts each int8
-    tile on its way to the tensor cores.  A CPU tensor takes
-    ``dequant_matmul_reference`` (the convert and the fp32-output GEMM).
-    impl "reference": the plain version everywhere.  Differentiable
-    through x."""
+    impl "auto": on a CUDA tensor of bf16 or fp16 with 1..K5_MAX_ROWS
+    rows (x's leading axes flattened; every decode-time product) kernel K5,
+    which streams the int8 weight; with more rows (prefill, chunks, the
+    train forward on an int8 base) kernel K6, the tensor-core GEMM that
+    converts each int8 tile on its way to the tensor cores.  Either one's
+    gradient through x is kernel K7 (``w8a16_dx``).  A CPU tensor, and x of
+    any other float type (fp32) on every device, takes
+    ``dequant_matmul_reference`` (the convert and the fp32-output GEMM),
+    differentiated by autograd: the routing rule by dtype, not a fallback
+    (a bf16 or fp16 x that a kernel refuses raises).  impl "reference":
+    the plain version everywhere.  Differentiable through x."""
     if impl == "reference":
         return dequant_matmul_reference(x, wq, out_dtype)
     if impl != "auto":
         raise ValueError(f"unknown dequant_matmul impl {impl!r}")
     rows = _rows(x)
-    if not _on_card(x) or rows == 0:
+    if not _on_card(x) or not _kernel_dtype(x) or rows == 0:
         return dequant_matmul_reference(x, wq, out_dtype)
     if rows <= K5_MAX_ROWS:
         return _k5_call(x, [wq], out_dtype)[0]
@@ -571,9 +683,9 @@ def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
 
 def k5_groups(x: torch.Tensor, n: int) -> bool:
     """Whether ``n`` int8 products of x run as one K5 launch: on a CUDA
-    tensor of 1..K5_GROUP_ROWS rows (batch-1 decode, the vision pair), 2
-    to K5_GROUP_MAX weights."""
-    return _on_card(x) and 1 < n <= K5_GROUP_MAX \
+    tensor of bf16 or fp16 of 1..K5_GROUP_ROWS rows (batch-1 decode, the
+    vision pair), 2 to K5_GROUP_MAX weights."""
+    return _on_card(x) and _kernel_dtype(x) and 1 < n <= K5_GROUP_MAX \
         and 0 < _rows(x) <= min(K5_GROUP_ROWS, K5_MAX_ROWS)
 
 
@@ -591,10 +703,12 @@ def dequant_matmul_group(x: torch.Tensor, weights, out_dtype=None,
 
 
 # Launches of K5 (``dequant_matmul.launches``: one per call that ran it, a
-# grouped call one) and of K6 (``w8a16_gemm.launches``); a replayed graph
-# adds the launches its capture recorded (core/decode_graph).
+# grouped call one), of K6 (``w8a16_gemm.launches``) and of K7
+# (``w8a16_dx.launches``); a replayed graph adds the launches its capture
+# recorded (core/decode_graph).
 dequant_matmul.launches = 0
 w8a16_gemm.launches = 0
+w8a16_dx.launches = 0
 
 
 def is_quantized(w) -> bool:

@@ -170,9 +170,9 @@ class _TrainGraph(CapturedStep):
     caller's grad mode: the backward is captured with the forward.  Its
     products run at B x L rows, far above ``quant.K5_MAX_ROWS``, so an
     int8 base (``--quantize_frozen_base``) runs their forward through K6
-    (recorded in the capture's ``quant`` record, which a layer's remat
-    recompute on autograd's thread finds by the capturing stream), and
-    their backward through x as the plain product."""
+    and their backward through x through K7 (both recorded in the capture's
+    ``quant`` record, which a layer's remat recompute and the backward on
+    autograd's thread find by the capturing stream)."""
 
     capture_at = 2
     release_cached = True

@@ -2,9 +2,11 @@
 """K1-K5 of the PyTorch port against an earlier version of their sources,
 on one CUDA card, in turns (old, new, new, old), plus K1's kv-tile probe
 (64 against 128 rows), K2's split probe (256 against 128 positions per
-block) and K3's kv-tile probe (128 against 64 rows), in turns.
+block) and K3's kv-tile probe (128 against 64 rows), in turns; K7 against
+its plain route and the library GEMM.
 
     python3 scripts/torch_kernel_ab.py --old DIR [--only K5]
+    python3 scripts/torch_kernel_ab.py --only K7
 
 DIR is the root of a checkout of the earlier commit (``git archive``).  Its
 kernels are called through its own wrappers (``ops/flash_attention.py``,
@@ -40,7 +42,13 @@ kernel's launch is taken apart by ``scripts/k5_fixed_cost.cu`` (a copy of
 that kernel with x staging and the split combine switched off, and an
 empty kernel), on the earlier checkout's one-row grid
 (``ops/quant._row_plan``, which a checkout before the streaming kernel
-has).
+has).  K7 (the int8 products' dL/dx, ``ops/quant.w8a16_dx``; no earlier
+version, so no ``--old``) runs at phase 4d's shapes (``chip_smoke.
+K7_SHAPES`` at ``K7_ROWS``, the lm_head at ``K7_LM_HEAD_ROWS``) for an fp32
+cotangent, against the plain route (``_dequant_matmul_dx``) and
+``torch.mm`` on bf16 copies of the scaled cotangent and of q^T made
+beforehand, in turns (plain, K7, mm, mm, K7, plain), each by CUDA-graph
+replay over 4 weight copies, with the bound.
 """
 
 from __future__ import annotations
@@ -61,8 +69,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (K5_GROUPS, K5_LAYERS, K5_ROWS,  # noqa: E402
-                        K5_SHAPES, K5_TP_SHAPES, cuda_time_cycle_ms,
-                        device_time_cycle_ms, graph_time_ms)
+                        K5_SHAPES, K5_TP_SHAPES, K7_COPIES, K7_LM_HEAD,
+                        K7_LM_HEAD_ROWS, K7_ROWS, K7_SHAPES, bound,
+                        cuda_time_cycle_ms, device_time_cycle_ms,
+                        graph_time_ms)
 from modelcompose_tpu_torch import _build  # noqa: E402
 from modelcompose_tpu_torch.core.llama import quantize_kv  # noqa: E402
 from modelcompose_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -499,14 +509,51 @@ def ab_k5(old_q, gen, emit):
              compare="old vs new", ms_sum=sums)
 
 
+def ab_k7(gen, emit):
+    """K7 against the plain route and the library GEMM, in turns, at
+    phase 4d's shapes."""
+    bf16 = torch.bfloat16
+    table = [(name, K, N, M) for M in K7_ROWS
+             for name, (K, N) in K7_SHAPES.items()]
+    table += [("lm_head", *K7_LM_HEAD, M) for M in K7_LM_HEAD_ROWS]
+    for name, K, N, M in table:
+        weights = [{"q": torch.randint(-127, 128, (K, N), generator=gen,
+                                       device="cuda", dtype=torch.int8),
+                    "scale": torch.rand((1, N), generator=gen,
+                                        device="cuda") * 1e-3 + 1e-4}
+                   for _ in range(K7_COPIES)]
+        g = torch.randn((M, N), generator=gen, device="cuda")
+        pairs = [((g * w["scale"].reshape(-1)).to(bf16),
+                  w["q"].to(bf16).t().contiguous()) for w in weights]
+        versions = {
+            "k7": lambda i: quant.w8a16_dx(g, weights[i], bf16),
+            "plain": lambda i: quant._dequant_matmul_dx(
+                g, weights[i]["q"], weights[i]["scale"], bf16),
+            "mm": lambda i: torch.mm(*pairs[i])}
+        want = versions["plain"](0)
+        err = float((versions["k7"](0).float() - want.float()).abs().max())
+        times = {who: [] for who in versions}
+        for who in ("plain", "k7", "mm", "mm", "k7", "plain"):
+            times[who].append(_cycled(versions[who], K7_COPIES))
+        t_bound, by = bound(2 * M * K * N, 4 * M * N + K * N + 4 * N
+                            + 2 * M * K)
+        emit(kernel="K7", case=name, M=M, K=K, N=N,
+             compare="plain / k7 / mm", ms=times, bound_ms=t_bound,
+             bound_by=by, max_abs_diff_from_plain=err)
+        del weights, g, pairs
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--old", required=True,
-                    help="root of a checkout of the earlier sources")
+    ap.add_argument("--old",
+                    help="root of a checkout of the earlier sources (K1-K5)")
     ap.add_argument("--only", default="K1,K2,K3,K4,K5",
-                    help="comma-separated kernels to compare")
+                    help="comma-separated kernels to compare (K1-K5, K7)")
     args = ap.parse_args()
     only = set(args.only.split(","))
+    if only - {"K7"} and not args.old:
+        ap.error("K1-K5 are compared with an earlier checkout: --old DIR")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -514,7 +561,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    old_fa, old_fd = old_wrappers(args.old)
+    old_fa, old_fd = old_wrappers(args.old) if args.old else (None, None)
     device_time_cycle_ms(lambda _: torch.ones(1, device="cuda").sum(), 1, 1)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -523,6 +570,9 @@ def main() -> int:
         row["card"] = card
         rows.append(row)
         print(json.dumps(row), flush=True)
+
+    if "K7" in only:
+        ab_k7(gen, emit)
 
     if "K5" in only:
         old_q = old_quant(args.old)

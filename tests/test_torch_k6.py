@@ -8,10 +8,12 @@ emulated.
 K6 has no CPU build (its card tests are in tests/test_torch_kernels_cuda.py).
 The emulation (``_Card``) runs the real dispatch of ``quant.dequant_matmul``
 and ``dequant_matmul_group`` on CPU tensors: ``quant._on_card`` says yes,
-and the two launchers ``quant._k5`` and ``quant._k6`` are replaced by the
-plain products of the weights they get, each call counted as the launch
-the card would make.  So the launch counts, the autograd Function and the
-results of the kernel path are checked without a card.
+and the launchers ``quant._k5``, ``quant._k6`` and ``quant._k7`` (the
+gradient through x) are replaced by the plain versions of what they get,
+each call counted as the launch the card would make.  So the launch
+counts, the autograd Function and the results of the kernel path are
+checked without a card.  fp32 x takes the plain product on every device
+(the kernels take bf16 and fp16), so an fp32 model launches nothing.
 
 Inputs are seeded numpy arrays handed to both packages.  Tolerances,
 relative to max |JAX|: 1e-5 for an fp32 product (int8 and bf16 values are
@@ -171,13 +173,19 @@ def test_dequant_matmul_at_prefill_rows_matches_jax(K, N, out, M, dtype, fn):
 class _Card:
     """The card's launch rule on CPU tensors: ``quant._on_card`` says yes,
     and K5's and K6's launchers compute the plain products of the weights
-    they are given, each call counted as one launch ("K5" or "K6")."""
+    they are given, K7's the plain dL/dx, each call counted as one launch
+    ("K5", "K6" or "K7")."""
 
     def __init__(self, monkeypatch):
         self.launches = []
         monkeypatch.setattr(quant, "_on_card", lambda x: True)
         monkeypatch.setattr(quant, "_k5", self.launcher("K5"))
         monkeypatch.setattr(quant, "_k6", self.launcher("K6"))
+        monkeypatch.setattr(quant, "_k7", self.k7)
+
+    def k7(self, g2, q, scale, dtype):
+        self.launches.append("K7")
+        return quant._dequant_matmul_dx(g2, q, scale, dtype)
 
     def launcher(self, name):
         def run(x2, weights, out_dtype):
@@ -216,7 +224,8 @@ def _t(a):
                                        ("bfloat16", 2, 6)])
 def test_forward_above_eight_rows_runs_k6(monkeypatch, dtype, B, L):
     """``forward_hidden`` over more than 8 rows (B x L) with the card's rule
-    emulated: 7 K6 launches a layer and no K5 launch, the hidden states
+    emulated: 7 K6 launches a layer and no K5 launch (none at all for fp32
+    activations, which take the plain product), the hidden states
     bit-equal to the CPU path's; its logits (one more K6 launch for the
     lm_head over every position) within the logits tolerance of the JAX
     ``forward``."""
@@ -233,10 +242,11 @@ def test_forward_above_eight_rows_runs_k6(monkeypatch, dtype, B, L):
         card = _Card(m)
         hidden, _ = llama.forward_hidden_routed(tparams, _port(cfg),
                                                 _t(embeds).to(tdt), **kw)
-        n = cfg.num_hidden_layers
+        n = cfg.num_hidden_layers if dtype != "float32" else 0
         assert (card.count("K6"), card.count("K5")) == (7 * n, 0)
         logits = llama.logits_from_hidden(tparams, hidden)
-        assert (card.count("K6"), card.count("K5")) == (7 * n + 1, 0)
+        assert (card.count("K6"), card.count("K5")) == (
+            7 * n + (dtype != "float32"), 0)
     assert torch.equal(hidden, plain)
     want, _ = jllama.forward(jp, cfg, jnp.asarray(embeds, jdt),
                              route_ids=jnp.asarray(route_ids),
@@ -276,11 +286,14 @@ def test_chunk_step_runs_k6(monkeypatch, kv_quant):
 
 @pytest.mark.parametrize("B", [1, 2])
 def test_decode_step_stays_on_k5(monkeypatch, B):
-    """A prefill of more than 8 rows runs K6 (and K5 for the last
-    position's lm_head, B rows), then a 1-2-row decode step runs 4 K5
-    launches a layer + the lm_head (q/k/v and gate/up grouped) and no K6
-    launch; its logits match the JAX decode step."""
+    """With bf16 activations a prefill of more than 8 rows runs K6 (and K5
+    for the last position's lm_head, B rows), then a 1-2-row decode step
+    runs 4 K5 launches a layer + the lm_head (q/k/v and gate/up grouped)
+    and no K6 launch, its logits bit-equal to the CPU path's and matching
+    the JAX bf16 decode step; with fp32 activations (the plain product, no
+    launch) the decode step's logits match the JAX fp32 decode step."""
     cfg, jp, tparams = _model("float32", seed=3)
+    bcfg, bjp, bparams = _model("bfloat16", seed=3)
     rng = np.random.default_rng(B + 3)
     L, cache_len = 10, 16
     embeds = rng.normal(0, 1, (B, L, cfg.hidden_size)).astype(np.float32)
@@ -290,30 +303,46 @@ def test_decode_step_stays_on_k5(monkeypatch, B):
     table = cfg.routing_table()
     next_tok = np.array([7, 11][:B], np.int32)
     n = cfg.num_hidden_layers
+
+    def run(params, c, dtype, card=None):
+        """(decode logits, the prefill's launches)."""
+        _, cache = _prefill(params, _port(c), _t(embeds).to(dtype),
+                            _t(route_ids), _t(table), _t(seg), _t(lengths),
+                            cache_len)
+        prefill = None if card is None else list(card.launches)
+        if card is not None:
+            del card.launches[:]
+        logits, _, _ = _decode_step(params, _port(c), cache, _t(next_tok),
+                                    _t(lengths), _t(table))
+        return logits, prefill
     with monkeypatch.context() as m:
         card = _Card(m)
-        _, cache = _prefill(tparams, _port(cfg), _t(embeds), _t(route_ids),
-                            _t(table), _t(seg), _t(lengths), cache_len)
-        assert card.launches == ["K6"] * (7 * n) + ["K5"]
-        del card.launches[:]
-        logits, _, _ = _decode_step(tparams, _port(cfg), cache,
-                                    _t(next_tok), _t(lengths), _t(table))
+        logits, prefill = run(tparams, cfg, torch.float32, card)
+        assert prefill == [] and card.launches == []
+        half, prefill = run(bparams, bcfg, torch.bfloat16, card)
+        assert prefill == ["K6"] * (7 * n) + ["K5"]
         assert (card.count("K5"), card.count("K6")) == (4 * n + 1, 0)
-    _, jcache = jgen._prefill(jp, cfg, jnp.asarray(embeds),
-                              jnp.asarray(route_ids), table, jnp.asarray(seg),
-                              jnp.asarray(lengths), cache_len, "auto", False)
-    want, _, _ = jgen._decode_step(jp, cfg, jcache, jnp.asarray(next_tok),
-                                   jnp.asarray(lengths), table)
-    want = np.asarray(want, np.float32)
-    np.testing.assert_allclose(logits.float().numpy(), want, rtol=0,
-                               atol=LOGIT_TOL["float32"]
-                               * float(np.abs(want).max()))
+    assert torch.equal(half, run(bparams, bcfg, torch.bfloat16)[0])
+    for got, p, c, dtype in ((logits, jp, cfg, "float32"),
+                             (half, bjp, bcfg, "bfloat16")):
+        jdt = DTYPES[dtype][1]
+        _, jcache = jgen._prefill(p, c, jnp.asarray(embeds, jdt),
+                                  jnp.asarray(route_ids), table,
+                                  jnp.asarray(seg), jnp.asarray(lengths),
+                                  cache_len, "auto", False)
+        want, _, _ = jgen._decode_step(p, c, jcache, jnp.asarray(next_tok),
+                                       jnp.asarray(lengths), table)
+        want = np.asarray(jnp.asarray(want, jnp.float32))
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=LOGIT_TOL[dtype]
+                                   * float(np.abs(want).max()))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k6_is_differentiable_through_x(monkeypatch, dtype):
-    """K6's autograd Function (its forward emulated by the plain product):
-    dL/dx against ``jax.vjp`` of the JAX ``dequant_matmul``."""
+    """K6's autograd Function (its forward emulated by the plain product,
+    its dL/dx by K7's plain version; fp32 x takes the plain product and
+    autograd): dL/dx against ``jax.vjp`` of the JAX ``dequant_matmul``."""
     rng = np.random.default_rng(12)
     K, N, M = 96, 80, 24
     jwq, twq = _int8(rng, K, N)
@@ -328,7 +357,7 @@ def test_k6_is_differentiable_through_x(monkeypatch, dtype):
         tx = torch.from_numpy(x).to(tdt).requires_grad_(True)
         y = quant.dequant_matmul(tx, twq, out_dtype=torch.float32)
         (got,) = torch.autograd.grad(y, tx, torch.from_numpy(g))
-        assert card.launches == ["K6"]
+        assert card.launches == ([] if dtype == "float32" else ["K6", "K7"])
     assert got.dtype == tdt
     err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
     assert err <= TOL[dtype]
@@ -337,8 +366,9 @@ def test_k6_is_differentiable_through_x(monkeypatch, dtype):
 def test_remat_train_forward_runs_k6_twice(monkeypatch):
     """The int8-base train forward under remat with the card's rule
     emulated: K6 runs 7 times a layer forward and again in each layer's
-    recompute during the backward, and the gradient of the embeddings is
-    bit-equal to the CPU path's."""
+    recompute during the backward (and K7 once an int8 product for its
+    dL/dx), and the gradient of the embeddings is bit-equal to the CPU
+    path's."""
     cfg, _, tparams = _model("bfloat16", seed=5, remat=True)
     rng = np.random.default_rng(5)
     embeds = _t(rng.normal(0, 1, (2, 8, cfg.hidden_size)).astype(
@@ -354,6 +384,6 @@ def test_remat_train_forward_runs_k6_twice(monkeypatch):
                 assert card.launches == ["K6"] * (7 * n)
             (dx,) = torch.autograd.grad(h.float().square().sum(), x)
             if card is not None:
-                assert card.launches == ["K6"] * (14 * n)
+                assert (card.count("K6"), card.count("K7")) == (14 * n, 7 * n)
         grads.append(dx)
     assert torch.equal(grads[0], grads[1])

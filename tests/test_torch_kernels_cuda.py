@@ -10,10 +10,10 @@ kernel rounds P at a running max and sums in another order); the LSE
 within 1e-3 of max(|LSE|, 1) (fp32 statistics of identical operands);
 dQ, dK and dV within 2e-2 of max |plain| on valid rows (P and dS are
 rounded to bf16 before the second products, the sums run in another
-order) and zero on padding rows.  K5 and K6 (the int8 products): a bf16
-result within 2e-2 of max |plain| (one rounding of a sum taken in another
-order), an fp32 result within 1e-5 (int8 and bf16 values are exact in
-fp32: the summation order alone).
+order) and zero on padding rows.  K5 and K6 (the int8 products) and K7
+(their dL/dx): a bf16 or fp16 result within 2e-2 of max |plain| (one
+rounding of a sum taken in another order), an fp32 result within 1e-5
+(int8 and bf16 values are exact in fp32: the summation order alone).
 """
 
 import pytest
@@ -833,7 +833,9 @@ def test_k5_rejects(case):
     elif case == "q_on_cpu":
         wq = dict(wq, q=wq["q"].cpu())
     with pytest.raises((TypeError, ValueError)):
-        dequant_matmul(x, wq)
+        # fp32 x takes the plain product by dtype in dequant_matmul: K5's
+        # own wrapper is what refuses it
+        quant._k5_call(x, [wq], None)
 
 
 @pytest.mark.parametrize("M,rows,tile,members", [
@@ -1188,7 +1190,9 @@ def test_k6_rejects(case):
     elif case == "q_on_cpu":
         wq = dict(wq, q=wq["q"].cpu())
     with pytest.raises((TypeError, ValueError)):
-        dequant_matmul(x, wq)
+        # fp32 x takes the plain product by dtype in dequant_matmul: K6's
+        # own wrapper is what refuses it
+        quant.w8a16_gemm(x, wq)
 
 
 @pytest.mark.parametrize("rows,K,N,group", [
@@ -1229,6 +1233,282 @@ def test_k6_backward_matches_plain(out):
     assert dx6.dtype == x.dtype
     assert _rel(y6, yp) <= (1e-5 if out else 2e-2)
     assert _rel(dx6, dxp) <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# K7: dL/dx of the int8 products (the train step on an int8 base) against
+# its plain version; fp32 x on an int8 weight
+# ---------------------------------------------------------------------------
+
+# dL/dx's shapes on the train path (M, K, N): dx [M, K] = (g [M, N] *
+# scale) @ q [K, N]^T at the DAMC recipes' B=4 x 2,048 and the QLoRA
+# recipe's B=16 x 2,048 rows (q/k/v/o, gate/up, down), and the lm_head at a
+# loss chunk of 256 positions of one, four and sixteen rows.
+K7_SHAPES = [(M, K, N) for M in (8192, 32768)
+             for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))] + [
+    (M, 4096, 32000) for M in (256, 1024, 4096)]
+
+
+def _k7_inputs(gen, M, K, N, g_dtype=torch.float32, x_dtype=torch.bfloat16):
+    """A cotangent g [M, N] (rows of 1,024-scale values: the logits' and
+    the routed products' grads are O(1) after a loss over ~1e3 rows) and
+    a weight [K, N] as ``_k5_inputs`` makes it."""
+    g = torch.randn((M, N), generator=gen, device="cuda").to(g_dtype)
+    _, wq = _k5_inputs(gen, 1, K, N, x_dtype)
+    return g, wq
+
+
+def _k7_plain(g, wq, dtype):
+    return quant._dequant_matmul_dx(g, wq["q"], wq["scale"], dtype)
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", K7_SHAPES)
+def test_k7_matches_plain(M, K, N, g_dtype):
+    """K7 against its plain version at every dL/dx shape of the train path,
+    with an fp32 (the routed products', the logits') and a bf16 cotangent:
+    the same bf16 operands, so only the summation order differs before
+    the one rounding to bf16; one K7 launch each."""
+    gen = torch.Generator(device="cuda").manual_seed(M + K + N)
+    g, wq = _k7_inputs(gen, M, K, N, g_dtype)
+    n7 = quant.w8a16_dx.launches
+    got = quant.w8a16_dx(g, wq, torch.bfloat16)
+    assert quant.w8a16_dx.launches == n7 + 1
+    want = _k7_plain(g, wq, torch.bfloat16)
+    assert got.shape == want.shape == (M, K) and got.dtype == torch.bfloat16
+    assert _rel(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.float16,
+                                     torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(8192, 4096, 11008), (1024, 4096, 32000),
+                                   (700, 11008, 4096)])
+def test_k7_fp16(M, K, N, g_dtype):
+    """fp16 x (the f16 wgmma, the magic-number convert, dx in fp16) with an
+    fp32, fp16 or bf16 cotangent."""
+    gen = torch.Generator(device="cuda").manual_seed(M + K + N + 3)
+    g, wq = _k7_inputs(gen, M, K, N, g_dtype, torch.float16)
+    got = quant.w8a16_dx(g, wq, torch.float16)
+    assert got.dtype == torch.float16
+    assert _rel(got, _k7_plain(g, wq, torch.float16)) <= 2e-2
+
+
+@pytest.mark.parametrize("M,K,N", [(9, 344, 48), (37, 1000, 272),
+                                   (130, 2752, 4112), (200, 8, 16),
+                                   (1, 4096, 4096), (2, 4096, 11008),
+                                   (700, 5504, 2752), (65, 4104, 8000)])
+def test_k7_ragged_edges(M, K, N):
+    """M, K and N off every tile edge (zero-filled on load, clipped on
+    store; 8-column K, 16-deep N) and one or two rows (K7 takes any M)."""
+    gen = torch.Generator(device="cuda").manual_seed(M + K + N + 5)
+    for g_dtype in (torch.float32, torch.bfloat16):
+        g, wq = _k7_inputs(gen, M, K, N, g_dtype)
+        got = quant.w8a16_dx(g, wq, torch.bfloat16)
+        assert got.shape == (M, K)
+        assert _rel(got, _k7_plain(g, wq, torch.bfloat16)) <= 2e-2
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16,
+                                     torch.float16])
+def test_k7_every_block(monkeypatch, g_dtype):
+    """K7's block (256 dx columns by 128 rows of g) with each cotangent
+    type, at ragged M and K with a raster group that does not divide the
+    row tiles."""
+    rows = quant._K7_ROWS
+    gen = torch.Generator(device="cuda").manual_seed(rows + 7)
+    g, wq = _k7_inputs(gen, 700, 2752, 4096, g_dtype)
+    monkeypatch.setattr(quant, "_k7_plan", lambda M, K, N: (
+        rows, -(-M // rows), -(-K // quant._K7_COLS), 3))
+    got = quant.w8a16_dx(g, wq, torch.bfloat16)
+    assert _rel(got, _k7_plain(g, wq, torch.bfloat16)) <= 2e-2
+
+
+def test_k7_strided_cotangent():
+    """A cotangent that is a view of wider rows (NaN past N) goes to K7 as
+    whole rows, and nothing past N is read."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    wide = torch.randn((300, 4096 + 32), generator=gen, device="cuda")
+    wide[:, 4096:] = float("nan")
+    g = wide[:, :4096]
+    _, wq = _k7_inputs(gen, 1, 2048, 4096)
+    got = quant.w8a16_dx(g, wq, torch.bfloat16)
+    assert _rel(got, _k7_plain(g.contiguous(), wq, torch.bfloat16)) <= 2e-2
+
+
+def test_k7_is_deterministic():
+    """Every dx is one block's sum in a fixed order (no split of the
+    contraction): repeated launches give the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    for M, K, N in ((8192, 4096, 11008), (1024, 4096, 32000),
+                    (256, 4096, 32000), (8192, 11008, 4096)):
+        g, wq = _k7_inputs(gen, M, K, N)
+        first = quant.w8a16_dx(g, wq, torch.bfloat16)
+        for _ in range(3):
+            assert torch.equal(quant.w8a16_dx(g, wq, torch.bfloat16), first)
+
+
+def test_k7_graph_replays_the_eager_call_and_is_counted():
+    """K7 launches captured in a record replay the eager calls' bits; in a
+    CapturedStep each replay adds the recorded launches to K7's count,
+    those of a backward run on autograd's thread too."""
+    from modelcompose_tpu_torch.core.decode_graph import CapturedStep
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    cases = [_k7_inputs(gen, M, K, N) for M, K, N in (
+        (512, 4096, 4096), (1024, 4096, 32000), (9, 11008, 4096))]
+    eager = [quant.w8a16_dx(g, wq, torch.bfloat16) for g, wq in cases]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph = torch.cuda.CUDAGraph()
+        with quant.capturing() as record:
+            graph.capture_begin()
+            outs = [quant.w8a16_dx(g, wq, torch.bfloat16) for g, wq in cases]
+            graph.capture_end()
+        assert record.dx == [(512, 4096, 4096), (1024, 4096, 32000),
+                             (9, 11008, 4096)]
+        assert record.launches == record.gemm == []
+        n = quant.w8a16_dx.launches
+        graph.replay()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    assert quant.w8a16_dx.launches == n  # a raw replay is the owner's
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    x, wq = _k5_inputs(gen, 512, 4096, 4096)
+    g = torch.randn((512, 1, 4096), generator=gen, device="cuda")
+    x.requires_grad_(True)
+
+    def grad():
+        y = dequant_matmul(x, wq, out_dtype=torch.float32)
+        return torch.autograd.grad(y, x, g)[0]
+
+    class Step(CapturedStep):
+        def _compute(self):  # a backward: the step in grad mode
+            return grad()
+    step = Step("cuda")
+    want = grad()
+    for _ in range(3):
+        n6, n7 = quant.w8a16_gemm.launches, quant.w8a16_dx.launches
+        assert torch.equal(step.run(), want)
+        assert (quant.w8a16_gemm.launches, quant.w8a16_dx.launches) == (
+            n6 + 1, n7 + 1)
+    assert step.graph is not None
+    assert len(step.k5.gemm) == len(step.k5.dx) == 1
+
+
+def test_k7_captured_outside_a_record_raises():
+    """A K7 launch captured with no record would run uncounted at every
+    replay: it raises instead."""
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    g, wq = _k7_inputs(gen, 64, 4096, 4096)
+    quant.w8a16_dx(g, wq, torch.bfloat16)  # built
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            with pytest.raises(RuntimeError, match="capturing"):
+                quant.w8a16_dx(g, wq, torch.bfloat16)
+        finally:
+            graph.capture_end()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["x_fp32", "g_fp64", "n_not_16", "k_not_8",
+                                  "q_not_contiguous", "scale_bf16",
+                                  "q_on_cpu"])
+def test_k7_rejects(case):
+    """What K7 does not take raises on the card (no fallback)."""
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    g, wq = _k7_inputs(gen, 64, 256, 64)
+    dtype = torch.bfloat16
+    if case == "x_fp32":
+        dtype = torch.float32
+    elif case == "g_fp64":
+        g = g.double()
+    elif case == "n_not_16":
+        g = g[:, :40].contiguous()
+        wq = {"q": wq["q"][:, :40].contiguous(),
+              "scale": wq["scale"][:, :40].contiguous()}
+    elif case == "k_not_8":
+        _, wq = _k7_inputs(gen, 1, 252, 64)
+    elif case == "q_not_contiguous":
+        wq = dict(wq, q=torch.randint(-127, 128, (64, 256), generator=gen,
+                                      device="cuda", dtype=torch.int8).t())
+    elif case == "scale_bf16":
+        wq = dict(wq, scale=wq["scale"].to(torch.bfloat16))
+    elif case == "q_on_cpu":
+        wq = dict(wq, q=wq["q"].cpu())
+    with pytest.raises((TypeError, ValueError)):
+        quant.w8a16_dx(g, wq, dtype)
+
+
+@pytest.mark.parametrize("K,N,group,g_type", [
+    (4092, 1024, 4, 0), (4096, 1000, 4, 0), (4096, 1024, 0, 0),
+    (4096, 1024, 4, 3)])
+def test_k7_entry_refuses_other_grids(K, N, group, g_type):
+    """The C entry refuses a K or N TMA cannot read, an empty raster
+    group and an unknown cotangent type (cudaErrorInvalidValue), before
+    launching anything."""
+    from modelcompose_tpu_torch import _build
+    g = torch.zeros((256, N), device="cuda")
+    q = torch.zeros((K, N), dtype=torch.int8, device="cuda")
+    scale = torch.ones(N, device="cuda")
+    dx = torch.empty((256, K), dtype=torch.bfloat16, device="cuda")
+    err = _build.load("w8a16_dx").mc_w8a16_dx(
+        g.data_ptr(), q.data_ptr(), scale.data_ptr(), dx.data_ptr(), 256, K,
+        N, group, g_type, 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("M", [9, 1024])
+@pytest.mark.parametrize("out", [None, torch.float32])
+def test_k7_backward_matches_plain(M, out):
+    """dL/dx through ``dequant_matmul``'s autograd Function (K6 forward, K7
+    backward; one launch each) against the plain product's autograd, on
+    the same cotangent."""
+    gen = torch.Generator(device="cuda").manual_seed(29 + M)
+    x, wq = _k5_inputs(gen, M, 4096, 11008)
+    g = torch.randn((M, 1, 11008), generator=gen, device="cuda").to(
+        out or x.dtype)
+    n6, n7 = quant.w8a16_gemm.launches, quant.w8a16_dx.launches
+    xr = x.clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad(dequant_matmul(xr, wq, out_dtype=out), xr, g)
+    assert (quant.w8a16_gemm.launches, quant.w8a16_dx.launches) == (
+        n6 + 1, n7 + 1)
+    xr = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(dequant_matmul_reference(
+        xr, wq, out_dtype=out), xr, g)
+    assert dx.dtype == x.dtype
+    assert _rel(dx, want) <= 2e-2
+
+
+@pytest.mark.parametrize("M", [1, 2, 9, 37])
+def test_fp32_x_on_card_takes_the_plain_product(M):
+    """fp32 x on an int8 weight on the card: the plain product (no K5, K6
+    or K7 launch) instead of a refusal, bit-equal to
+    ``dequant_matmul_reference``, alone, as a group and through autograd."""
+    gen = torch.Generator(device="cuda").manual_seed(30 + M)
+    x, wq = _k5_inputs(gen, M, 4096, 4096, torch.float32)
+    counts = (dequant_matmul.launches, quant.w8a16_gemm.launches,
+              quant.w8a16_dx.launches)
+    for out in (None, torch.float32):
+        assert torch.equal(dequant_matmul(x, wq, out_dtype=out),
+                           dequant_matmul_reference(x, wq, out_dtype=out))
+    group = quant.dequant_matmul_group(x, [wq, wq], out_dtype=torch.float32)
+    want = dequant_matmul_reference(x, wq, out_dtype=torch.float32)
+    assert all(torch.equal(y, want) for y in group)
+    xr = x.clone().requires_grad_(True)
+    g = torch.randn((M, 1, 4096), generator=gen, device="cuda")
+    (dx,) = torch.autograd.grad(dequant_matmul(xr, wq), xr, g)
+    xr = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(dequant_matmul_reference(xr, wq), xr, g)
+    assert torch.equal(dx, want)
+    assert (dequant_matmul.launches, quant.w8a16_gemm.launches,
+            quant.w8a16_dx.launches) == counts
 
 
 def _tiny_card_backbone(quantized_base):
@@ -1601,10 +1881,12 @@ def test_k1_captured_outside_a_record_raises():
     torch.cuda.synchronize()
 
 
-def _tiny_card_trainer(seed=13):
+def _tiny_card_trainer(seed=13, quantized_base=False, **tc_kw):
     """A 2-layer bf16 vision DAMC model on the card (head_dim 64, remat:
     K1 twice a layer) with nonzero LoRA B, its stage-2 optimizer and a
-    batch of two image samples."""
+    batch of two image samples; ``quantized_base`` quantizes its base as
+    ``--quantize_frozen_base`` does, ``tc_kw`` adds to the optimizer's
+    settings."""
     import numpy as np
     from modelcompose_tpu_torch.config import tiny_test_config
     from modelcompose_tpu_torch.constants import (IGNORE_INDEX,
@@ -1623,6 +1905,8 @@ def _tiny_card_trainer(seed=13):
     for grp in ("attn", "mlp"):
         for p in model.params["layers"][grp].values():
             p["lora_b"].normal_(0.0, 0.05, generator=gen)
+    if quantized_base:
+        model.params = quant.quantize_backbone(model.params)
     rng = np.random.default_rng(seed)
     img = MODAL_TOKEN_INDEXES["vision"]
     ids = [np.concatenate([[1, img], rng.integers(3, 512, n)])
@@ -1635,9 +1919,9 @@ def _tiny_card_trainer(seed=13):
             "input_ids": [ids[i] for i in rows],
             "labels": [labels[i] for i in rows],
             "modal_inputs": {"vision": pixels[list(rows)]}}, buckets=(64,))
-    tc = trainer.TrainConfig(learning_rate=2e-3, warmup_ratio=0.0,
-                             total_steps=20, weight_decay=0.01,
-                             max_grad_norm=1.0)
+    tc = trainer.TrainConfig(**dict(dict(
+        learning_rate=2e-3, warmup_ratio=0.0, total_steps=20,
+        weight_decay=0.01, max_grad_norm=1.0), **tc_kw))
     tree = {"backbone": model.params, "projectors": model.projectors}
     tx, _ = trainer.make_optimizer(cfg, tc, tree)
     return cfg, tc, model, tx, batch
@@ -1686,6 +1970,57 @@ def test_train_step_graph_replays_the_eager_step_bit_for_bit():
     assert len(graph.k1.bwd_dq) == len(graph.k1.bwd_dkv) \
         == cfg.num_hidden_layers
     assert all(torch.equal(a, b) for a, b in zip(l_e, l_g)), (l_e, l_g)
+    for p in p_e:
+        assert torch.equal(p_e[p], p_g[p]), p
+    assert all(torch.equal(a, b) for a, b in zip(m_e, m_g))
+
+
+def test_int8_base_train_step_graph_runs_k6_k7_bit_for_bit():
+    """The QLoRA step (int8 base, remat, loss chunks of 16, bf16 first
+    moments): six steps eagerly and six through a TrainStepGraph from the
+    same weights, losses, leaves and moments bit-equal; every step K6 14
+    times a layer + 2 a loss chunk, K7 7 times a layer + 1 a chunk, K1
+    twice a layer, K3 and K4 once, no K5 (replays counted from the
+    capture's record)."""
+    from modelcompose_tpu_torch.train import trainer
+    from modelcompose_tpu_torch.tree import tree_leaves
+    cfg, tc, model, tx, make = _tiny_card_trainer(
+        15, quantized_base=True, loss_chunk=16, adam_mu_dtype="bfloat16")
+    batch, layout = make((0, 1))
+    n = cfg.num_hidden_layers
+    chunks = batch["token_ids"].shape[1] // tc.loss_chunk
+    want = [14 * n + 2 * chunks, 7 * n + chunks, 0, 2 * n, n, n]
+    counters = (quant.w8a16_gemm, quant.w8a16_dx, dequant_matmul,
+                flash_attention_forward, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv)
+    tree = {"backbone": model.params, "projectors": model.projectors}
+    start = {p: t.detach().clone() for p, t in tree_leaves(tree)}
+    runs = []
+    for graphs in (False, True):
+        with torch.no_grad():
+            for p, t in tree_leaves(tree):
+                t.copy_(start[p])
+        state = trainer.init_train_state(cfg, tc, model.params,
+                                         model.projectors, tx=tx)
+        step = trainer.make_train_step(cfg, tc, tx, graphs=graphs)
+        losses = []
+        for i in range(6):
+            before = [c.launches for c in counters]
+            state, loss = step(state, batch, layout)
+            losses.append(loss)
+            got = [c.launches - b for c, b in zip(counters, before)]
+            assert got == want, (i, got, want)
+        torch.cuda.synchronize()
+        runs.append((losses, {p: t.detach().clone()
+                              for p, t in tree_leaves(tree)},
+                     [t.clone() for m in ("mu", "nu")
+                      for t in state.opt_state[m].values()], step))
+    (l_e, p_e, m_e, _), (l_g, p_g, m_g, gstep) = runs
+    (graph,) = gstep.graphs.values()
+    assert graph.graph is not None
+    assert (len(graph.k5.gemm), len(graph.k5.dx)) == tuple(want[:2])
+    assert all(torch.equal(a, b) for a, b in zip(l_e, l_g)), (l_e, l_g)
+    assert all(torch.isfinite(x).all() for x in l_g)
     for p in p_e:
         assert torch.equal(p_e[p], p_g[p]), p
     assert all(torch.equal(a, b) for a, b in zip(m_e, m_g))

@@ -15,10 +15,11 @@
   cosine differs by as much between jit and eager);
 - (e) two train steps of the tiny vision model against JAX
   ``make_train_step`` (Pallas attention in interpret mode; the port's
-  flash path, K1/K3/K4's plain versions), stage 2, stage 1, full finetune
-  and stage 2 with the vision tower training (CLIP forward inside the
-  step): loss and every trainable leaf within 1e-4 relative, frozen leaves
-  bit for bit;
+  flash path, K1/K3/K4's plain versions), stage 2, stage 1, full finetune,
+  stage 2 with the vision tower training (CLIP forward inside the step)
+  and QLoRA (stage 2 on the JAX package's int8 base, remat, loss chunks,
+  bf16 first moments): loss and every trainable leaf within 1e-4
+  relative, frozen leaves (the int8 weights and scales too) bit for bit;
 - (f) port-internal: remat equals no remat, ``loss_chunk`` equals the
   plain loss, two B=1 micro-batches accumulated equal one B=2 batch.
 """
@@ -36,6 +37,7 @@ from modelcompose_tpu.config import tiny_test_config
 from modelcompose_tpu.constants import IGNORE_INDEX, MODAL_TOKEN_INDEXES
 from modelcompose_tpu.models import model as jmodel
 from modelcompose_tpu.models.towers import ClipVisionTower as JaxClipTower
+from modelcompose_tpu.ops import quant as jquant
 from modelcompose_tpu.ops.routed_lora import routed_lora_matmul as j_rlm
 from modelcompose_tpu.train import train_multimodal as jentry
 from modelcompose_tpu.train import trainer as jtrainer
@@ -391,14 +393,26 @@ STEP_CASES = {
     "tower": (dict(), dict(mm_vision_tower_lr=2e-3,
                            mm_vision_tower_layerwise_lr_decay=0.5,
                            adam_eps=1e-6)),
+    # QLoRA (scripts/legacy/finetune_qlora.sh): stage 2 on the JAX
+    # package's int8 base (quantize_backbone), remat, and the recipe's
+    # optimizer: loss chunks, bf16 Adam first moments, one learning rate
+    # of 2e-5 for every group
+    "qlora": (dict(quantize_base=True, remat=True),
+              dict(loss_chunk=4, adam_mu_dtype="bfloat16",
+                   learning_rate=2e-5, mm_projector_lr=None,
+                   mm_language_lr=None)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(STEP_CASES))
 def test_train_steps_match_jax(case):
     cfg_kw, tc_kw = STEP_CASES[case]
+    cfg_kw = dict(cfg_kw)
+    quantized = cfg_kw.pop("quantize_base", False)
     cfg = _cfg(**cfg_kw)
     nm = _jax_model(cfg, seed=4)
+    if quantized:  # the JAX package's int8 base, in both packages
+        nm.params = _np(jquant.quantize_backbone(nm.params))
     tc_kw = dict(dict(learning_rate=5e-3, mm_projector_lr=2e-3,
                       mm_language_lr=1e-3, total_steps=10, warmup_ratio=0.0),
                  **tc_kw)
@@ -464,7 +478,7 @@ def test_train_steps_match_jax(case):
             np.testing.assert_array_equal(g, w, str(path))
     # the tower case trains the 20 stage-2 leaves and all 21 tower leaves
     assert n_trained == {"stage2": 20, "stage1": 4, "full_finetune": 32,
-                         "tower": 41}[case]
+                         "tower": 41, "qlora": 20}[case]
 
 
 # ---------------------------------------------------------------------------
