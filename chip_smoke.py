@@ -844,8 +844,8 @@ def phase_build():
     log("build", dynamic_smem_bytes=json.dumps({
         **{f"w8a16_gemm rows {r}": k6.mc_w8a16_gemm_smem(r)
            for r in (64, 128, 256)},
-        **{f"w8a16_dx g {g}": k7.mc_w8a16_dx_smem(i)
-           for i, g in enumerate(("f32", "bf16", "f16"))},
+        **{f"w8a16_dx rows {r}": k7.mc_w8a16_dx_smem(r)
+           for r in (128, 256)},
         "flash_attention_fwd D128": k1.mc_flash_attention_fwd_smem(128),
         "flash_attention_fwd D64": k1.mc_flash_attention_fwd_smem(64),
         "flash_decode D128 int8 G1": k2.mc_flash_decode_smem(128, 1),
@@ -1584,28 +1584,39 @@ K7_COPIES = 4  # weight copies cycled through: more bytes than L2 holds
 def _k7_case(gen, weights, M, K, N, timed=True):
     """K7 against its plain version on ``weights[0]`` for an fp32
     cotangent g [M, N] (the routed products' and the logits'), bf16 dx,
-    one K7 launch; with ``timed``, K7 timed by CUDA-graph replay cycling
-    over the weight copies, beside the plain route (the fp32 scaled
-    cotangent, its bf16 copy, the bf16 copy of q, cuBLAS into fp32 and the
-    cast: what ran before), ``torch.mm`` on bf16 copies of the scaled
-    cotangent and of q^T made beforehand (``library_ms``: the GEMM alone,
-    never called by the port) and the bound."""
+    one K7 launch, and its first pass alone bit-equal to the plain
+    scaled cotangent (``_scale_cotangent``); with ``timed``, K7 timed by
+    CUDA-graph replay cycling over the weight copies, each pass alone the
+    same way (pass 1 over the copies' scales, pass 2 on one gs), beside
+    the plain route (the fp32 scaled cotangent, its bf16 copy, the bf16
+    copy of q, cuBLAS into fp32 and the cast: what ran before), ``torch.mm``
+    on bf16 copies of the scaled cotangent and of q^T made beforehand
+    (``library_ms``: the GEMM alone, never called by the port), and the
+    bounds of K7 and of each pass."""
     import itertools
     import torch
-    from modelcompose_tpu_torch.ops.quant import _dequant_matmul_dx, w8a16_dx
+    from modelcompose_tpu_torch.ops import quant
     bf16 = torch.bfloat16
     g = torch.randn((M, N), generator=gen, device=weights[0]["q"].device)
-    n7 = w8a16_dx.launches
-    got = w8a16_dx(g, weights[0], bf16)
-    if w8a16_dx.launches - n7 != 1:
+    n7 = quant.w8a16_dx.launches
+    got = quant.w8a16_dx(g, weights[0], bf16)
+    if quant.w8a16_dx.launches - n7 != 1:
         raise AssertionError(f"K7 M{M} K{K} N{N}: not one K7 launch")
-    want = _dequant_matmul_dx(g, weights[0]["q"], weights[0]["scale"], bf16)
+    want = quant._dequant_matmul_dx(g, weights[0]["q"],
+                                    weights[0]["scale"], bf16)
     err, rel = _rel_err(got, want)
     if not (got.dtype == want.dtype and rel <= ATTN_TOL):
         raise AssertionError(f"K7 M{M} K{K} N{N}: rel err {rel:.3g} (tol "
                              f"{ATTN_TOL})")
-    res = {"M": M, "K": K, "N": N, "max_abs_err": err, "rel_err": rel,
-           "bit_equal_to_plain": bool(torch.equal(got, want))}
+    gs = quant._k7_scale(g, weights[0]["scale"], bf16)
+    if not torch.equal(gs, quant._scale_cotangent(g, weights[0]["scale"],
+                                                  bf16)):
+        raise AssertionError(f"K7 M{M} K{K} N{N}: pass 1 differs from "
+                             "_scale_cotangent")
+    res = {"M": M, "K": K, "N": N, "rows": quant._k7_plan(M, K, N)[0],
+           "max_abs_err": err, "rel_err": rel,
+           "bit_equal_to_plain": bool(torch.equal(got, want)),
+           "pass1_bit_equal": True}
     if not timed:
         return res
     n = len(weights)
@@ -1613,8 +1624,15 @@ def _k7_case(gen, weights, M, K, N, timed=True):
     def cycled(fn, ws):
         layers = itertools.cycle(range(n))
         return graph_time_ms(lambda: fn(ws[next(layers)]), n=n)
-    res["ms"] = cycled(lambda w: w8a16_dx(g, w, bf16), weights)
-    res["plain_ms"] = cycled(lambda w: _dequant_matmul_dx(
+    res["ms"] = cycled(lambda w: quant.w8a16_dx(g, w, bf16), weights)
+    res["pass1_ms"] = cycled(lambda w: quant._k7_scale(g, w["scale"], bf16),
+                             weights)
+    res["pass2_ms"] = cycled(lambda w: quant._k7_product(gs, w["q"]),
+                             weights)
+    res["passes_sum_ms"] = None if None in (res["pass1_ms"],
+                                            res["pass2_ms"]) \
+        else res["pass1_ms"] + res["pass2_ms"]
+    res["plain_ms"] = cycled(lambda w: quant._dequant_matmul_dx(
         g, w["q"], w["scale"], bf16), weights)
     pairs = [((g * w["scale"].reshape(-1)).to(bf16),
               w["q"].to(bf16).t().contiguous()) for w in weights]
@@ -1622,6 +1640,9 @@ def _k7_case(gen, weights, M, K, N, timed=True):
     pairs = None
     nbytes = 4 * M * N + K * N + 4 * N + 2 * M * K
     res["bound_ms"], res["bound_by"] = bound(2 * M * K * N, nbytes)
+    res["pass1_bound_ms"] = bound(0, 6 * M * N + 4 * N)[0]
+    res["pass2_bound_ms"] = bound(2 * M * K * N, 2 * M * N + K * N
+                                  + 2 * M * K)[0]
     res["share_of_bound"] = None if res["ms"] is None \
         else res["bound_ms"] / res["ms"]
     return res
@@ -1630,10 +1651,11 @@ def _k7_case(gen, weights, M, K, N, timed=True):
 def phase_k7(device, gen):
     """K7 against its plain version at every dL/dx shape of the int8-base
     train step (q/k/v/o, gate/up, down at K7_ROWS; the lm_head at
-    K7_LM_HEAD_ROWS), each timed with its plain route, ``torch.mm`` on
-    bf16 copies made beforehand and its bound; the sums over a layer's
-    seven products and a 32-layer step's 224 + K7_CHUNKS lm_head chunks
-    at B=4 and B=16."""
+    K7_LM_HEAD_ROWS), its first pass bit-equal to the plain scaled
+    cotangent, each timed whole and pass by pass with its plain route,
+    ``torch.mm`` on bf16 copies made beforehand and its bound, with the
+    product's block; the sums over a layer's seven products and a
+    32-layer step's 224 + K7_CHUNKS lm_head chunks at B=4 and B=16."""
     import torch
     from modelcompose_tpu_torch.ops import quant
     cases, errs = [], []
@@ -1659,15 +1681,22 @@ def phase_k7(device, gen):
             max_abs_err=f"{res['max_abs_err']:.4g}",
             rel_err=f"{res['rel_err']:.3g}",
             bit_equal_to_plain=res["bit_equal_to_plain"],
-            graph_ms=_ms(res["ms"]), plain_graph_ms=_ms(res["plain_ms"]),
+            pass1_bit_equal=res["pass1_bit_equal"],
+            graph_ms=_ms(res["ms"]), pass1_graph_ms=_ms(res["pass1_ms"]),
+            pass2_graph_ms=_ms(res["pass2_ms"]),
+            passes_sum_ms=_ms(res["passes_sum_ms"]),
+            plain_graph_ms=_ms(res["plain_ms"]),
             library_graph_ms=_ms(res["library_ms"]),
             bound_ms=f"{res['bound_ms']:.4f}",
+            pass1_bound_ms=f"{res['pass1_bound_ms']:.4f}",
+            pass2_bound_ms=f"{res['pass2_bound_ms']:.4f}",
             share_of_bound=_ms(res["share_of_bound"]))
     weights.clear()
     torch.cuda.empty_cache()
     # a layer's seven dx products and a 32-layer step's at B=4 and B=16
     step = {}
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "pass1_ms", "pass2_ms", "plain_ms", "library_ms",
+            "bound_ms")
     for M, M_head in zip(K7_ROWS, K7_LM_HEAD_ROWS):
         rows = {c["shape"]: c for c in cases
                 if c["M"] == (M_head if c["shape"] == "lm_head" else M)}
@@ -1683,8 +1712,9 @@ def phase_k7(device, gen):
          for m, s in step.items()}))
     first = next(c for c in cases
                  if c["shape"] == "qkvo" and c["M"] == K7_ROWS[0])
-    return dict({k: first[k] for k in ("ms", "plain_ms", "library_ms",
-                                       "bound_ms", "bound_by",
+    return dict({k: first[k] for k in ("ms", "pass1_ms", "pass2_ms",
+                                       "passes_sum_ms", "rows", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by",
                                        "share_of_bound")},
                 max_abs_err=max(errs), shape="M8192 K4096 N4096 fp32 g, "
                 "bf16 dx (q/k/v/o's dL/dx at B=4 x 2,048), 4 weights "
@@ -4351,7 +4381,9 @@ def phase_train_int8(device):
 # Kernel-name fragments of each profile split: the hand-written kernels,
 # and the library GEMMs (cuBLAS nvjet / xmma, magma) and convolutions.
 # Kernel names to profile splits: a name goes to the first split whose
-# fragment it holds (K6's w8a16_gemm_kernel is K6's, not a library GEMM).
+# fragment it holds (K6's w8a16_gemm_kernel is K6's, not a library GEMM;
+# K7's two passes, w8a16_dx_scale_kernel and w8a16_dx_kernel, are both
+# K7's).  tests/test_torch_k7.py holds every kernel of csrc/ to its split.
 PROFILE_SPLITS = {"K1": ("fa_fwd_kernel",), "K2": ("fd_split_kernel",),
                   "K3": ("fa_bwd_dq_kernel",), "K4": ("fa_bwd_dkv_kernel",),
                   "K5": ("dequant_gemv",), "K6": ("w8a16_gemm",),
@@ -4404,7 +4436,8 @@ def _profile(name, fn, out_file, cpu=True):
 # the 32-layer base took most of the phase's 150 s, a quarter of the
 # smoke; the int8-base train phase 9b needs the room: on an H100 the
 # smoke took 524-549 s with 8 layers here, 600 s with 12 (68 s here),
-# against a budget of 627 s and a spread of ~30 s between runs), and the
+# against a working budget of 627 s, inside the smoke's limit of 1,200 s,
+# and a spread of ~30 s between runs), and the
 # point recipes' flags
 # (scripts/model_composition/train/run_pretrain_point.sh,
 # run_finetune_point_damc.sh) cut in steps.

@@ -79,10 +79,18 @@ SIGNATURES = {
     },
     "w8a16_dx": {
         "mc_w8a16_dx": (
-            [_P, _P, _P, _P,              # g q scale dx
-             _I, _I, _I, _I,              # M K N group
+            [_P, _P, _P, _P, _P,          # g q scale gs dx
+             _I, _I, _I, _I, _I,          # M K N rows group
              _I, _I, _P], _I),            # g_type x_bf16 stream
-        "mc_w8a16_dx_smem": ([_I], _I),   # g_type
+        "mc_w8a16_dx_scale": (
+            [_P, _P, _P,                  # g scale gs
+             _I, _I,                      # M N
+             _I, _I, _P], _I),            # g_type x_bf16 stream
+        "mc_w8a16_dx_product": (
+            [_P, _P, _P,                  # gs q dx
+             _I, _I, _I, _I, _I,          # M K N rows group
+             _I, _P], _I),                # x_bf16 stream
+        "mc_w8a16_dx_smem": ([_I], _I),   # rows
     },
     "w8a16_gemv": {
         "mc_w8a16_gemv": (

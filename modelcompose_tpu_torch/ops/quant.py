@@ -11,9 +11,9 @@ rows, which reads each int8 weight once and converts it in registers, and
 K6 (``csrc/w8a16_gemm.cu``) for larger ones (prefill, prefill chunks,
 training on an int8 base), a tensor-core GEMM that converts each int8
 tile on its way to the tensor cores; the gradient through x is K7
-(``csrc/w8a16_dx.cu``, ``w8a16_dx``), the same GEMM transposed, which
-scales and rounds the cotangent in shared memory: no path on the card
-writes a bf16 copy of a weight.  The kernels take bf16 or fp16 x; x of
+(``csrc/w8a16_dx.cu``, ``w8a16_dx``), a pass that scales and rounds the
+cotangent once and the same GEMM transposed: no path on the card writes a
+bf16 copy of a weight.  The kernels take bf16 or fp16 x; x of
 another float type (fp32) takes ``dequant_matmul_reference`` on every
 device, as the JAX package computes ``x @ q.astype(x.dtype)`` for any
 float x.  CPU tensors and ``impl="reference"`` take
@@ -480,82 +480,121 @@ def _k6(x2, weights, out_dtype):
     return [out.to(out_dtype)]
 
 
+def _scale_cotangent(g, scale, dtype):
+    """The cotangent times the scale in fp32, rounded once to x's type:
+    K7's first pass, and the first line of its plain version."""
+    return (g.float() * scale.reshape(-1)).to(dtype)
+
+
 def _dequant_matmul_dx(g, q, scale, dtype):
     """dL/dx of ``dequant_matmul``: (g * scale) @ q^T in the arithmetic of
     the plain version's autograd (the fp32 cotangent rounded to x's type,
     an fp32-accumulated product, cast to x's type), which is what JAX's
     autodiff of its ``dequant_matmul`` computes.  K7's plain version."""
-    gs = g.float() * scale.reshape(-1)
-    return _mm_f32(gs.to(dtype), q.to(dtype).t()).to(dtype)
+    gs = _scale_cotangent(g, scale, dtype)
+    return _mm_f32(gs, q.to(dtype).t()).to(dtype)
 
 
-# K7 (csrc/w8a16_dx.cu): blocks of 256 dx columns by 128 rows of g; a
-# raster group of 8 row tiles walked under each column tile (K6's).
-_K7_ROWS = 128
-_K7_COLS = 256  # dx columns (q rows) a block
+# K7 (csrc/w8a16_dx.cu), its product pass: blocks of 128 dx columns by 256
+# or 128 rows of the scaled cotangent, and the rate (TFLOP/s) each kept
+# within a wave on an H100 (80GB HBM3, 700 W; the median over phase 4d's
+# layer products at 8,192 rows and the lm_head's at 1,024 and 256,
+# scripts/torch_k7_parts.py); a raster group of 8 row tiles walked under
+# each column tile (K6's).
+_K7_RATES = {256: 721.0, 128: 497.0}
+_K7_COLS = 128  # dx columns (q rows) a block
 _K7_GROUP = 8
 _G_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _k7_plan(M: int, K: int, N: int):
-    """K7's grid for dx [M, K] = (g [M, N] * scale) @ q [K, N]^T: (rows,
-    m_tiles, k_tiles, group), the block's rows of g (128, by 256 dx
-    columns, for any M), its row and column tiles (the last of each
-    masked at M and K) and the row tiles of a raster group.  Raises on a
-    K or N that TMA cannot read (K % 8: dx's 4-byte column pairs; N % 16:
-    q's 16-byte rows)."""
+    """K7's product grid for dx [M, K] = gs [M, N] @ q [K, N]^T: (rows,
+    m_tiles, k_tiles, group), the block's rows of gs (by 128 dx columns),
+    its row and column tiles (the last of each masked at M and K) and the
+    row tiles of a raster group.  The block is the one whose waves over the
+    132 SMs cost least at its rate: 256 rows at the train sizes, 128 where
+    they fill the card better (the lm_head's 512-row loss chunk at B=2,
+    scripts/bench_train_pipeline.py's per-device batch: one wave of 128
+    blocks, not half a wave of 64).
+    Raises on a K or N that TMA cannot read (K % 8: dx's 16-byte rows;
+    N % 16: q's)."""
     if M <= 0 or K <= 0 or K % 8 or N <= 0 or N % 16:
         raise ValueError(f"K7 takes M > 0, K % 8 == 0 and N % 16 == 0, got "
                          f"M {M}, K {K}, N {N}")
-    m_tiles = -(-M // _K7_ROWS)
-    return (_K7_ROWS, m_tiles, -(-K // _K7_COLS),
-            min(_K7_GROUP, m_tiles))
+    k_tiles = -(-K // _K7_COLS)
+
+    def cost(rows):
+        waves = -(-(-(-M // rows) * k_tiles) // _SMS)
+        return waves * rows / _K7_RATES[rows]
+    rows = min(_K7_RATES, key=cost)
+    m_tiles = -(-M // rows)
+    return rows, m_tiles, k_tiles, min(_K7_GROUP, m_tiles)
 
 
 def _check_k7_inputs(g2, q, scale, dtype):
     """Raise on what K7 does not take: g [M, N] fp32/bf16/fp16; x's type
     ``dtype`` bf16/fp16; q [K, N] int8 contiguous and 16-byte aligned,
     K % 8 == 0, N % 16 == 0; scale fp32 with N values, contiguous and
-    16-byte aligned; all on one device."""
+    16-byte aligned; all on one device.  A pass alone passes None for the
+    operand it does not read (q for the first, scale for the second)."""
     if dtype not in _HALF:
         raise TypeError(f"K7 writes bf16 or fp16 dx, got {dtype}")
     if g2.dtype not in _G_TYPES:
         raise TypeError(f"K7 takes an fp32, bf16 or fp16 cotangent, got "
                         f"{g2.dtype}")
     M, N = g2.shape
-    if q.dtype != torch.int8 or q.dim() != 2 or q.shape[1] != N:
-        raise ValueError(f"K7 takes an int8 [K, {N}] weight, got "
-                         f"{q.dtype} {tuple(q.shape)}")
-    K = q.shape[0]
-    if K % 8 or N % 16:
-        raise ValueError(f"K7 takes K % 8 == 0 and N % 16 == 0 (TMA's "
-                         f"16-byte row strides), got K {K}, N {N}")
-    if scale.dtype != torch.float32 or scale.numel() != N:
+    if N % 16:
+        raise ValueError(f"K7 takes N % 16 == 0 (TMA's 16-byte row "
+                         f"strides), got N {N}")
+    if q is not None:
+        if q.dtype != torch.int8 or q.dim() != 2 or q.shape[1] != N:
+            raise ValueError(f"K7 takes an int8 [K, {N}] weight, got "
+                             f"{q.dtype} {tuple(q.shape)}")
+        if q.shape[0] % 8:
+            raise ValueError(f"K7 takes K % 8 == 0 (dx's 16-byte rows), "
+                             f"got K {q.shape[0]}")
+    if scale is not None and (scale.dtype != torch.float32
+                              or scale.numel() != N):
         raise ValueError(f"K7 takes {N} fp32 scales, got {scale.dtype} "
                          f"{tuple(scale.shape)}")
     for name, t in (("q", q), ("scale", scale)):
+        if t is None:
+            continue
         if t.device != g2.device:
             raise ValueError(f"{name} is on {t.device}, g on {g2.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _whole_rows(g2):
+    """g2, or a contiguous copy where it is not contiguous and 16-byte
+    aligned (the rows K7's first pass reads in 16-byte vectors)."""
+    if not g2.is_contiguous() or g2.data_ptr() % 16:
+        return g2.clone(memory_format=torch.contiguous_format)
+    return g2
+
+
 def _k7(g2, q, scale, dtype):
     """Kernel K7 on the cotangent g2 [M, N] of ``(x @ q) * scale``: dx
-    [M, K] in ``dtype`` (x's), one launch.  g2 goes to the kernel as whole,
-    16-byte aligned rows (TMA's tiles): a strided or misaligned cotangent
-    is copied first (autograd's are contiguous on the train path)."""
+    [M, K] in ``dtype`` (x's), one C call that runs both passes' entries
+    (``_k7_scale``'s, then ``_k7_product``'s) on the current stream: the
+    scaled cotangent gs [M, N] in ``dtype`` (scratch, from
+    ``torch.empty``: a capture's comes from the graph's pool), then the
+    product.  g2 goes to the kernel as whole, 16-byte aligned rows: a
+    strided or misaligned cotangent is copied first (autograd's are
+    contiguous on the train path)."""
     _check_k7_inputs(g2, q, scale, dtype)
     M, N = g2.shape
     K = q.shape[0]
-    group = _k7_plan(M, K, N)[3]
-    if not g2.is_contiguous() or g2.data_ptr() % 16:
-        g2 = g2.clone(memory_format=torch.contiguous_format)
+    rows, _, _, group = _k7_plan(M, K, N)
+    g2 = _whole_rows(g2)
     record = _capture_record("w8a16_dx")
+    gs = torch.empty((M, N), dtype=dtype, device=g2.device)
     dx = torch.empty((M, K), dtype=dtype, device=g2.device)
     err = _build.load("w8a16_dx").mc_w8a16_dx(
-        g2.data_ptr(), q.data_ptr(), scale.data_ptr(), dx.data_ptr(), M, K,
-        N, group, _G_TYPES[g2.dtype], int(dtype == torch.bfloat16),
+        g2.data_ptr(), q.data_ptr(), scale.data_ptr(), gs.data_ptr(),
+        dx.data_ptr(), M, K, N, rows, group, _G_TYPES[g2.dtype],
+        int(dtype == torch.bfloat16),
         torch.cuda.current_stream(g2.device).cuda_stream)
     _build.check(err, "w8a16_dx")
     if record is not None:  # recorded, not run: each replay runs it
@@ -565,13 +604,49 @@ def _k7(g2, q, scale, dtype):
     return dx
 
 
+def _k7_scale(g2, scale, dtype):
+    """K7's first pass alone (``mc_w8a16_dx_scale``, the first half of
+    ``_k7``'s call) on a CUDA cotangent: gs = ``_scale_cotangent``.  Not
+    counted: for measuring and testing the passes one by one."""
+    _check_k7_inputs(g2, None, scale, dtype)
+    M, N = g2.shape
+    g2 = _whole_rows(g2)
+    gs = torch.empty((M, N), dtype=dtype, device=g2.device)
+    err = _build.load("w8a16_dx").mc_w8a16_dx_scale(
+        g2.data_ptr(), scale.data_ptr(), gs.data_ptr(), M, N,
+        _G_TYPES[g2.dtype], int(dtype == torch.bfloat16),
+        torch.cuda.current_stream(g2.device).cuda_stream)
+    _build.check(err, "w8a16_dx_scale")
+    return gs
+
+
+def _k7_product(gs, q):
+    """K7's second pass alone (``mc_w8a16_dx_product``, the second half of
+    ``_k7``'s call): dx = gs @ q^T on the plan's block, gs [M, N] in x's
+    type, contiguous and 16-byte aligned.  Not counted: for measuring and
+    testing the passes one by one."""
+    _check_k7_inputs(gs, q, None, gs.dtype)
+    if not gs.is_contiguous() or gs.data_ptr() % 16:
+        raise ValueError("gs must be contiguous and 16-byte aligned")
+    M, N = gs.shape
+    K = q.shape[0]
+    rows, _, _, group = _k7_plan(M, K, N)
+    dx = torch.empty((M, K), dtype=gs.dtype, device=gs.device)
+    err = _build.load("w8a16_dx").mc_w8a16_dx_product(
+        gs.data_ptr(), q.data_ptr(), dx.data_ptr(), M, K, N, rows, group,
+        int(gs.dtype == torch.bfloat16),
+        torch.cuda.current_stream(gs.device).cuda_stream)
+    _build.check(err, "w8a16_dx_product")
+    return dx
+
+
 def w8a16_dx(g: torch.Tensor, wq: Dict[str, torch.Tensor],
              dtype) -> torch.Tensor:
     """dL/dx of ``dequant_matmul(x, wq)`` for its cotangent g [..., N], in
     x's type ``dtype``: ``(g * scale) @ q^T``, the product of g scaled and
     rounded to ``dtype`` with the exact int8 weight, fp32-accumulated.  On a
-    CUDA tensor kernel K7 (which writes dx and nothing else), on a CPU
-    tensor its plain version ``_dequant_matmul_dx``.  The backward of
+    CUDA tensor kernel K7 (the scaled cotangent, then the product), on a
+    CPU tensor its plain version ``_dequant_matmul_dx``.  The backward of
     every kernel product of ``dequant_matmul`` calls it."""
     N = g.shape[-1]
     g2 = g.reshape(-1, N)

@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
-"""Where K7's time goes: copies of ``csrc/w8a16_dx.cu`` with one part of a
-tile's work taken out, each timed beside the kernel itself on one CUDA
-card, at q/k/v/o's and gate/up's dL/dx at 8,192 rows (B=4 x 2,048) with an
-fp32 cotangent.
+"""Where K7's time goes, pass by pass, on one CUDA card: its first pass
+(the scaled cotangent) alone, its second (the product) at each block the
+plan can pick, and copies of ``csrc/w8a16_dx.cu`` with one part of the
+product's tile work taken out, each timed beside the kernel itself, at
+phase 4d's layer products at 8,192 rows (B=4 x 2,048; ``chip_smoke.
+K7_SHAPES``) and the lm_head's at the loss chunks of B=4, B=2 and B=1
+(1,024, 512 and 256 rows at ``--loss_chunk 256``; B=2 is the int8-base
+pipeline bench's per-device batch, scripts/bench_train_pipeline.py), with
+an fp32 cotangent and bf16 dx.
 
     python3 scripts/torch_k7_parts.py   # -> chiprun_out/k7_parts.json
 
 The copies compute wrong values (each skips work the result needs); they
 only say what each part costs:
 
-- ``no_convert_g``: the B tile is not written from g's tile (the scale,
-  the rounding and the shared-memory stores go; g's tile still lands);
-- ``no_convert_q``: the A words are not converted from the q tile;
-- ``no_g_load``: g's tile is not loaded by TMA (its L2 traffic goes);
-- ``mma_only``: none of the three: the pipeline, the barriers and the
+- ``no_convert``: the A words are constants, not read from the q tile and
+  converted (K6's ``noconvert`` in scripts/torch_k6_blocks.py);
+- ``mma_only``: that, and no TMA loads either (the producer arrives on a
+  stage's barrier without bytes): the pipeline, the barriers and the
   products alone.
 
-Each row gives ms (CUDA-graph replay over 4 weight copies, in turns:
-kernel, copy, copy, kernel), TFLOP/s, and the bytes the blocks read from
-L2 (every block reads its g tile and q tile each 64-deep step) over the
-time.  The copies are built with ``_build.NVCC_FLAGS`` into
-``tmp_k7_parts/`` (gitignored) and called through the same C entry.
+Each row gives ms by CUDA-graph replay over 4 weight copies (the copies
+in turns: kernel, copy, copy, kernel), TFLOP/s, and for the product at
+each block its rate within a wave (the flops of one wave of the 132 SMs,
+one block an SM, over the time of a wave: what ``ops/quant._K7_RATES``
+holds, as ``_K6_RATES`` for K6); for pass 1 its bytes (g read, gs
+written) over the time against the card's 3.35 TB/s.  The copies are
+built with ``_build.NVCC_FLAGS`` into ``tmp_k7_parts/`` (gitignored) and
+called through the same C entry.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import itertools
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -39,27 +47,28 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import graph_time_ms  # noqa: E402
+from chip_smoke import K7_LM_HEAD, K7_SHAPES, graph_time_ms  # noqa: E402
 from modelcompose_tpu_torch import _build  # noqa: E402
 from modelcompose_tpu_torch.ops import quant  # noqa: E402
 
 OUT = os.path.join(ROOT, "tmp_k7_parts")
-CONVERT = """      convert_q(s, cur);
-      convert_g(s, b);
-"""
-G_LOAD = """          mbar_arrive_expect_tx(full0 + 8 * s,
-                                C::kGBytes + kQBytes + kBN * 4);
+CONVERT = "      convert(s, cur);\n"
+CONSTANT_A = ("      for (int i = 0; i < 16; ++i)\n"
+              "        cur[i] = 0x3F803F80u + (s & 1);\n")
+LOADS = """          mbar_arrive_expect_tx(full0 + 8 * s, C::kStageBytes);
           tma_load_3d(st, &tg, full0 + 8 * s, t * kBN, m0, 0);
+          tma_load_3d(st + C::kGBytes, &tq, full0 + 8 * s, t * kBN, k0, 0);
 """
-NO_G_LOAD = """          mbar_arrive_expect_tx(full0 + 8 * s, kQBytes + kBN * 4);
+NO_LOADS = """          mbar_arrive(full0 + 8 * s + 0 * st);
 """
 CUTS = {
-    "no_convert_g": [(CONVERT, "      convert_q(s, cur);\n")],
-    "no_convert_q": [(CONVERT, "      convert_g(s, b);\n")],
-    "no_g_load": [(G_LOAD, NO_G_LOAD)],
-    "mma_only": [(CONVERT, ""), (G_LOAD, NO_G_LOAD)],
+    "no_convert": [(CONVERT, CONSTANT_A)],
+    "mma_only": [(CONVERT, CONSTANT_A), (LOADS, NO_LOADS)],
 }
-SHAPES = {"qkvo": (8192, 4096, 4096), "gate_up": (8192, 4096, 11008)}
+SHAPES = {**{name: (8192, K, N) for name, (K, N) in K7_SHAPES.items()},
+          "lm_head_1024": (1024, *K7_LM_HEAD),
+          "lm_head_512": (512, *K7_LM_HEAD),
+          "lm_head_256": (256, *K7_LM_HEAD)}
 COPIES = 4
 
 
@@ -92,58 +101,72 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
     os.makedirs(OUT, exist_ok=True)
-    src_dir = os.path.join(ROOT, "modelcompose_tpu_torch", "csrc")
-    shutil.copy(os.path.join(src_dir, "hopper.cuh"), OUT)
-    with open(os.path.join(src_dir, "w8a16_dx.cu")) as f:
+    shutil.copy(os.path.join(_build.CSRC, "hopper.cuh"), OUT)
+    with open(os.path.join(_build.CSRC, "w8a16_dx.cu")) as f:
         source = f.read()
     libs = {"kernel": _build.load("w8a16_dx")}
     with ThreadPoolExecutor(len(CUTS)) as pool:
         libs.update(zip(CUTS, pool.map(lambda n: build(n, source), CUTS)))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
+    bf16 = torch.bfloat16
+    rows_out, wave_rates = [], {}
     for shape, (M, K, N) in SHAPES.items():
         weights = [{"q": torch.randint(-127, 128, (K, N), generator=gen,
                                        device="cuda", dtype=torch.int8),
-                    "scale": torch.rand(N, generator=gen, device="cuda")
+                    "scale": torch.rand((1, N), generator=gen, device="cuda")
                     * 1e-3 + 1e-4} for _ in range(COPIES)]
         g = torch.randn((M, N), generator=gen, device="cuda")
-        dx = torch.empty((M, K), dtype=torch.bfloat16, device="cuda")
-        block, m_tiles, k_tiles, group = quant._k7_plan(M, K, N)
-        steps = -(-N // 64)
-        per_step = {"kernel": block * 64 * 4 + quant._K7_COLS * 64,
-                    "no_convert_g": block * 64 * 4 + quant._K7_COLS * 64,
-                    "no_convert_q": block * 64 * 4 + quant._K7_COLS * 64,
-                    "no_g_load": quant._K7_COLS * 64,
-                    "mma_only": quant._K7_COLS * 64}
+        gs = quant._k7_scale(g, weights[0]["scale"], bf16)
+        dx = torch.empty((M, K), dtype=bf16, device="cuda")
+        plan_rows = quant._k7_plan(M, K, N)[0]
+        flops = 2 * M * K * N
 
-        def timed(lib):
+        def cycled(fn):
             layers = itertools.cycle(range(COPIES))
+            return graph_time_ms(lambda: fn(weights[next(layers)]), n=COPIES)
 
-            def call():
-                w = weights[next(layers)]
-                err = lib.mc_w8a16_dx(
-                    g.data_ptr(), w["q"].data_ptr(), w["scale"].data_ptr(),
-                    dx.data_ptr(), M, K, N, group, 0, 1,
+        def product(lib, rows):
+            m_tiles = -(-M // rows)
+
+            def call(w):
+                err = lib.mc_w8a16_dx_product(
+                    gs.data_ptr(), w["q"].data_ptr(), dx.data_ptr(), M, K, N,
+                    rows, min(quant._K7_GROUP, m_tiles), 1,
                     torch.cuda.current_stream().cuda_stream)
                 if err:
-                    raise RuntimeError(f"w8a16_dx: CUDA error {err}")
-            return graph_time_ms(call, n=COPIES)
+                    raise RuntimeError(f"w8a16_dx product: CUDA error {err}")
+            return call
+        row = {"shape": shape, "M": M, "K": K, "N": N, "card": card,
+               "plan_rows": plan_rows}
+        row["k7_ms"] = cycled(lambda w: quant.w8a16_dx(g, w, bf16))
+        row["pass1_ms"] = cycled(lambda w: quant._k7_scale(g, w["scale"],
+                                                           bf16))
+        row["pass1_tb_per_s"] = (6 * M * N + 4 * N) / row["pass1_ms"] / 1e9
+        row["pass2"] = {}
+        for rows in quant._K7_RATES:
+            ms = cycled(product(libs["kernel"], rows))
+            waves = -(-(-(-M // rows) * -(-K // quant._K7_COLS)) // quant._SMS)
+            wave = (2 * rows * quant._K7_COLS * N * quant._SMS
+                    / (ms / waves) / 1e9)
+            row["pass2"][rows] = {"ms": ms, "tflops": flops / ms / 1e9,
+                                  "wave_tflops": wave, "waves": waves}
+            wave_rates.setdefault(rows, []).append(wave)
         for name in CUTS:
             ms = {"kernel": [], name: []}
             for who in ("kernel", name, name, "kernel"):
-                ms[who].append(timed(libs[who]))
-            row = {"shape": shape, "M": M, "K": K, "N": N, "block": block,
-                   "part_taken_out": name, "ms": ms, "card": card}
-            for who, t in ms.items():
-                best = min(t)
-                row[f"{who}_tflops"] = 2 * M * K * N / best / 1e9
-                row[f"{who}_l2_tb_per_s"] = (m_tiles * k_tiles * steps
-                                             * per_step[who] / best / 1e9)
-            rows.append(row)
-            print(json.dumps(row), flush=True)
+                ms[who].append(cycled(product(libs[who], plan_rows)))
+            row[name] = {"ms": ms, "tflops": {
+                who: flops / min(t) / 1e9 for who, t in ms.items()}}
+        rows_out.append(row)
+        print(json.dumps(row), flush=True)
+        del weights, g, gs, dx
+        torch.cuda.empty_cache()
+    median = {rows: statistics.median(v) for rows, v in wave_rates.items()}
+    print(json.dumps({"median_wave_tflops": median}), flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "k7_parts.json"), "w") as f:
-        json.dump(rows, f, indent=1)
+        json.dump({"rows": rows_out, "median_wave_tflops": median}, f,
+                  indent=1)
     return 0
 
 

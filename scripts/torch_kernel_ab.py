@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""K1-K5 of the PyTorch port against an earlier version of their sources,
-on one CUDA card, in turns (old, new, new, old), plus K1's kv-tile probe
-(64 against 128 rows), K2's split probe (256 against 128 positions per
-block) and K3's kv-tile probe (128 against 64 rows), in turns; K7 against
-its plain route and the library GEMM.
+"""K1-K5 and K7 of the PyTorch port against an earlier version of their
+sources, on one CUDA card, in turns (old, new, new, old), plus K1's kv-tile
+probe (64 against 128 rows), K2's split probe (256 against 128 positions
+per block) and K3's kv-tile probe (128 against 64 rows), in turns; K7 also
+against its plain route and the library GEMM; K6 at the train forward's
+products.
 
     python3 scripts/torch_kernel_ab.py --old DIR [--only K5]
-    python3 scripts/torch_kernel_ab.py --only K7
+    python3 scripts/torch_kernel_ab.py [--old DIR] --only K7,K6
 
 DIR is the root of a checkout of the earlier commit (``git archive``).  Its
 kernels are called through its own wrappers (``ops/flash_attention.py``,
@@ -42,13 +43,22 @@ kernel's launch is taken apart by ``scripts/k5_fixed_cost.cu`` (a copy of
 that kernel with x staging and the split combine switched off, and an
 empty kernel), on the earlier checkout's one-row grid
 (``ops/quant._row_plan``, which a checkout before the streaming kernel
-has).  K7 (the int8 products' dL/dx, ``ops/quant.w8a16_dx``; no earlier
-version, so no ``--old``) runs at phase 4d's shapes (``chip_smoke.
-K7_SHAPES`` at ``K7_ROWS``, the lm_head at ``K7_LM_HEAD_ROWS``) for an fp32
-cotangent, against the plain route (``_dequant_matmul_dx``) and
-``torch.mm`` on bf16 copies of the scaled cotangent and of q^T made
-beforehand, in turns (plain, K7, mm, mm, K7, plain), each by CUDA-graph
-replay over 4 weight copies, with the bound.
+has).  K7 (the int8 products' dL/dx, ``ops/quant.w8a16_dx``) runs at phase
+4d's shapes (``chip_smoke.K7_SHAPES`` at ``K7_ROWS``, the lm_head at
+``K7_LM_HEAD_ROWS``) for an fp32 cotangent, against the plain route
+(``_dequant_matmul_dx``), ``torch.mm`` on bf16 copies of the scaled
+cotangent and of q^T made beforehand and, given ``--old``, the earlier
+checkout's K7 through its own wrapper, in turns (plain, old, K7, mm, mm,
+K7, old, plain), each by CUDA-graph replay over 4 weight copies, with the
+bound; without ``--old`` K7 needs no earlier checkout.  K6 (``--only
+K6``, no ``--old``) runs the int8-base train forward's products
+(q/k/v/o, gate/up, down at 8,192 rows, fp32 out) twice through
+``chip_smoke._k6_case``: K6, its plain route and ``torch.mm`` on a bf16
+copy of the weight, each by CUDA-graph replay over 4 weight copies, with
+the bound.
+
+    git archive ef20600 modelcompose_tpu_torch | tar -x -C tmp_old
+    python3 scripts/torch_kernel_ab.py --old tmp_old --only K7,K6
 """
 
 from __future__ import annotations
@@ -69,8 +79,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (K5_GROUPS, K5_LAYERS, K5_ROWS,  # noqa: E402
-                        K5_SHAPES, K5_TP_SHAPES, K7_COPIES, K7_LM_HEAD,
-                        K7_LM_HEAD_ROWS, K7_ROWS, K7_SHAPES, bound,
+                        K5_SHAPES, K5_TP_SHAPES, K6_COPIES, K6_LAYER,
+                        K6_SHAPES, K7_COPIES, K7_LM_HEAD, K7_LM_HEAD_ROWS,
+                        K7_ROWS, K7_SHAPES, _k6_case, bound,
                         cuda_time_cycle_ms, device_time_cycle_ms,
                         graph_time_ms)
 from modelcompose_tpu_torch import _build  # noqa: E402
@@ -509,13 +520,16 @@ def ab_k5(old_q, gen, emit):
              compare="old vs new", ms_sum=sums)
 
 
-def ab_k7(gen, emit):
-    """K7 against the plain route and the library GEMM, in turns, at
+def ab_k7(gen, emit, old_q=None):
+    """K7 against the plain route, the library GEMM and (``old_q``, an
+    earlier checkout's ``ops/quant``) its earlier version, in turns, at
     phase 4d's shapes."""
     bf16 = torch.bfloat16
     table = [(name, K, N, M) for M in K7_ROWS
              for name, (K, N) in K7_SHAPES.items()]
     table += [("lm_head", *K7_LM_HEAD, M) for M in K7_LM_HEAD_ROWS]
+    records = () if old_q is None else (old_q.capturing,)
+    turns = ("plain", "old", "k7", "mm", "mm", "k7", "old", "plain")
     for name, K, N, M in table:
         weights = [{"q": torch.randint(-127, 128, (K, N), generator=gen,
                                        device="cuda", dtype=torch.int8),
@@ -530,29 +544,71 @@ def ab_k7(gen, emit):
             "plain": lambda i: quant._dequant_matmul_dx(
                 g, weights[i]["q"], weights[i]["scale"], bf16),
             "mm": lambda i: torch.mm(*pairs[i])}
+        if old_q is not None:
+            versions["old"] = lambda i: old_q.w8a16_dx(g, weights[i], bf16)
         want = versions["plain"](0)
-        err = float((versions["k7"](0).float() - want.float()).abs().max())
+        err = {who: float((versions[who](0).float() - want.float()).abs()
+                          .max()) for who in ("k7", "old") if who in versions}
         times = {who: [] for who in versions}
-        for who in ("plain", "k7", "mm", "mm", "k7", "plain"):
-            times[who].append(_cycled(versions[who], K7_COPIES))
+        for who in turns:
+            if who in versions:
+                times[who].append(_cycled(versions[who], K7_COPIES, records))
         t_bound, by = bound(2 * M * K * N, 4 * M * N + K * N + 4 * N
                             + 2 * M * K)
         emit(kernel="K7", case=name, M=M, K=K, N=N,
-             compare="plain / k7 / mm", ms=times, bound_ms=t_bound,
-             bound_by=by, max_abs_diff_from_plain=err)
+             rows=quant._k7_plan(M, K, N)[0],
+             compare="/".join(w for w in turns[:4] if w in versions),
+             ms=times, bound_ms=t_bound, bound_by=by,
+             max_abs_diff_from_plain=err)
         del weights, g, pairs
         torch.cuda.empty_cache()
+
+
+# The int8-base train forward's K6 products: B=4 x 2,048 rows
+K6_TRAIN_ROWS = 8192
+
+
+def ab_k6(gen, emit):
+    """K6 at the int8-base train forward's products (q/k/v/o, gate/up,
+    down at K6_TRAIN_ROWS, fp32 out), twice each through
+    ``chip_smoke._k6_case``: K6, its plain route and ``torch.mm`` on a bf16
+    copy, with the bound; and the sum over a layer's seven."""
+    layer = {}
+    for name, n in K6_LAYER.items():
+        K, N = K6_SHAPES[name]
+        weights = [{"q": torch.randint(-127, 128, (K, N), generator=gen,
+                                       device="cuda", dtype=torch.int8),
+                    "scale": torch.rand((1, N), generator=gen,
+                                        device="cuda") * 1e-3 + 1e-4}
+                   for _ in range(K6_COPIES)]
+        runs = [_k6_case(gen, weights, K6_TRAIN_ROWS, K, N)
+                for _ in range(2)]
+        keys = ("ms", "plain_ms", "library_ms")
+        emit(kernel="K6", case=name, M=K6_TRAIN_ROWS, K=K, N=N,
+             rows=runs[0]["rows"], compare="k6 / plain / mm, twice",
+             **{k: [r[k] for r in runs] for k in keys},
+             bound_ms=runs[0]["bound_ms"], bound_by=runs[0]["bound_by"],
+             max_abs_err=max(r["max_abs_err"] for r in runs))
+        for k in keys + ("bound_ms",):
+            layer.setdefault(k, [0.0, 0.0])
+            for i, r in enumerate(runs):
+                layer[k][i] += n * r[k]
+        del weights
+        torch.cuda.empty_cache()
+    emit(kernel="K6", case="a layer's seven", M=K6_TRAIN_ROWS,
+         compare="k6 / plain / mm, twice", ms_sum=layer)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old",
-                    help="root of a checkout of the earlier sources (K1-K5)")
+                    help="root of a checkout of the earlier sources (K1-K5, "
+                    "K7)")
     ap.add_argument("--only", default="K1,K2,K3,K4,K5",
-                    help="comma-separated kernels to compare (K1-K5, K7)")
+                    help="comma-separated kernels to compare (K1-K7)")
     args = ap.parse_args()
     only = set(args.only.split(","))
-    if only - {"K7"} and not args.old:
+    if only - {"K6", "K7"} and not args.old:
         ap.error("K1-K5 are compared with an earlier checkout: --old DIR")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -572,7 +628,10 @@ def main() -> int:
         print(json.dumps(row), flush=True)
 
     if "K7" in only:
-        ab_k7(gen, emit)
+        ab_k7(gen, emit, old_quant(args.old) if args.old else None)
+
+    if "K6" in only:
+        ab_k6(gen, emit)
 
     if "K5" in only:
         old_q = old_quant(args.old)

@@ -8,12 +8,15 @@
 - (b) K7's plain version (``_dequant_matmul_dx``, and ``w8a16_dx`` on a CPU
   tensor) against ``jax.vjp`` of the JAX ``dequant_matmul`` for fp32 and
   bf16 cotangents, bf16 and fp16 x, at the shape ratios of Vicuna-7B's
-  q/k/v/o, gate/up, down and lm_head at narrow widths;
+  q/k/v/o, gate/up, down and lm_head at narrow widths; K7's two passes in
+  their plain form (``_scale_cotangent``, then the product) bit-equal to
+  it, and against ``jax.vjp`` for fp32, bf16 and fp16 cotangents;
 - (c) the int8-base (QLoRA) train step under remat with the card's rule
   emulated: K6 14 times a layer and twice a loss chunk (forward and
   recompute), K7 7 times a layer and once a loss chunk, counted exactly,
   and the step's loss, leaves and moments bit-equal to the CPU path's;
-  K7's grid rule and the wrapper's checks.
+  K7's grid rule (the product's block picked by its waves) and the
+  wrapper's checks.
 
 K7 has no CPU build (its card tests are in tests/test_torch_kernels_cuda.py).
 The emulation is tests/test_torch_k6.py's ``_Card`` with a counting K7
@@ -28,6 +31,8 @@ rounds the scaled cotangent to x's type before the product, as a TPU's
 DEFAULT-precision dot does, where XLA on a CPU keeps it in fp32, and dx is
 rounded once).
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -207,6 +212,58 @@ def test_k7_plain_matches_jax_vjp(shape, x_dtype, g_dtype, fn):
     assert err <= HALF_TOL
 
 
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float16"])
+def test_k7_two_passes_equal_the_plain_dx(x_dtype, g_dtype):
+    """K7's two passes in their plain form, ``_scale_cotangent`` and then
+    the fp32-accumulated product with the exact int8 weight, equal
+    ``_dequant_matmul_dx`` (and ``w8a16_dx`` on a CPU tensor) bit for bit,
+    at every cotangent and x type, at the lm_head's shape ratio with a
+    ragged row count; the scaled cotangent is one rounding of the fp32
+    product."""
+    K, N = NARROW["lm_head"]
+    rng = np.random.default_rng(11)
+    _, twq = _int8(rng, K, N)
+    tdt, gdt = DTYPES[x_dtype][0], DTYPES[g_dtype][0]
+    g = torch.from_numpy(rng.normal(size=(37, N)).astype(np.float32)).to(gdt)
+    gs = quant._scale_cotangent(g, twq["scale"], tdt)
+    assert gs.dtype == tdt and gs.shape == (37, N)
+    assert torch.equal(gs, (g.float() * twq["scale"][0]).to(tdt))
+    two = quant._mm_f32(gs, twq["q"].to(tdt).t()).to(tdt)
+    assert torch.equal(two, quant._dequant_matmul_dx(g, twq["q"],
+                                                     twq["scale"], tdt))
+    assert torch.equal(two, quant.w8a16_dx(g, twq, tdt))
+
+
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape", ["qkvo", "down"])
+def test_k7_two_passes_match_jax_vjp(shape, x_dtype, g_dtype):
+    """The two passes (``_scale_cotangent``, then the product) against
+    ``jax.vjp`` of the JAX ``dequant_matmul`` for each cotangent type (fp32:
+    the routed products' and the logits'; bf16 or fp16: a half result)
+    and each x type, within 2e-2 of max |JAX| in x's type."""
+    K, N = NARROW[shape]
+    rng = np.random.default_rng(K + 3 * N)
+    jwq, twq = _int8(rng, K, N)
+    x = rng.normal(size=(2, 19, K)).astype(np.float32)
+    g = rng.normal(size=(2, 19, N)).astype(np.float32)
+    tdt, jdt = DTYPES[x_dtype]
+    gdt, jgdt = DTYPES[g_dtype]
+    out = jnp.float32 if g_dtype == "float32" else jgdt
+    g_in = np.array(jnp.asarray(g, jgdt).astype(jnp.float32))
+    _, vjp = jax.vjp(lambda a: jquant.dequant_matmul(a, jwq, out),
+                     jnp.asarray(x, jdt))
+    want = np.asarray(jnp.asarray(vjp(jnp.asarray(g_in, out))[0],
+                                  jnp.float32))
+    tg = torch.from_numpy(g_in).to(gdt).reshape(-1, N)
+    gs = quant._scale_cotangent(tg, twq["scale"], tdt)
+    got = quant._mm_f32(gs, twq["q"].to(tdt).t()).to(tdt).reshape(2, 19, K)
+    assert got.dtype == tdt
+    err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+    assert err <= HALF_TOL
+
+
 def test_k7_group_backward_sums_members(monkeypatch):
     """A group's backward (q/k/v at 2 rows, one grouped K5 launch
     forward) runs K7 once a member and sums their dx in order, bit-equal
@@ -321,33 +378,46 @@ def test_int8_base_train_step_runs_k6_and_k7(monkeypatch, graphs):
 
 @pytest.mark.parametrize("M,K,N", [(8192, 4096, 4096), (8192, 4096, 11008),
                                    (8192, 11008, 4096), (32768, 4096, 11008),
-                                   (1024, 4096, 32000), (256, 4096, 32000),
-                                   (4096, 4096, 32000), (1, 4096, 4096),
-                                   (37, 344, 48)])
+                                   (1024, 4096, 32000), (512, 4096, 32000),
+                                   (256, 4096, 32000), (4096, 4096, 32000),
+                                   (1, 4096, 4096), (37, 344, 48)])
 def test_k7_plan_covers_dx(M, K, N):
-    """K7's grid covers dx [M, K] once: 128-row blocks for any M; the
-    last row and column tiles masked at M and K; K6's raster
+    """K7's product grid covers dx [M, K] once: blocks of 256 or 128 rows
+    of the scaled cotangent (the two the kernel takes) by 128 dx columns;
+    the last row and column tiles masked at M and K; K6's raster
     (tests/test_torch_k6._raster) visits every tile once."""
     from test_torch_k6 import _raster
     plan = quant._k7_plan(M, K, N)
     rows, m_tiles, k_tiles, group = plan
-    assert rows == quant._K7_ROWS == 128
+    assert rows in quant._K7_RATES and set(quant._K7_RATES) == {256, 128}
     assert (m_tiles - 1) * rows < M <= m_tiles * rows
     assert (k_tiles - 1) * quant._K7_COLS < K <= k_tiles * quant._K7_COLS
+    assert quant._K7_COLS == 128
     assert 1 <= group <= min(quant._K7_GROUP, m_tiles)
     assert sorted(_raster(plan)) == [(m, k) for m in range(m_tiles)
                                      for k in range(k_tiles)]
 
 
 def test_k7_plan_at_the_train_shapes():
-    """The train step's products, a loss chunk of B=4 or B=16 and a
-    256-row loss chunk of the lm_head all take one block shape, 128 rows
-    of g by 256 dx columns."""
-    for M, K, N in ((8192, 4096, 11008), (32768, 11008, 4096),
-                    (1024, 4096, 32000), (256, 4096, 32000)):
-        rows, m_tiles, k_tiles, _ = quant._k7_plan(M, K, N)
-        assert (rows, m_tiles, k_tiles) == (128, -(-M // 128),
-                                            -(-K // 256))
+    """The block the plan picks at each recipe shape: 256 rows of gs by
+    128 dx columns for the layer products at B=2, B=4 and B=16 and for the
+    lm_head's loss chunk of B=4 (1,024 rows, one wave of 128 blocks) and
+    B=16; the loss chunk of B=2 (512 rows: the int8-base pipeline bench's
+    per-device batch, scripts/bench_train_pipeline.py, --loss_chunk 256)
+    takes 128 rows, one wave of 128 blocks, not half a wave of 64 blocks
+    of 256; so does a 256-row loss chunk (B=1), 64 blocks, not 32, on the
+    132 SMs."""
+    for M, K, N in ((8192, 4096, 4096), (8192, 4096, 11008),
+                    (8192, 11008, 4096), (32768, 4096, 11008),
+                    (32768, 11008, 4096), (4096, 4096, 4096),
+                    (4096, 4096, 11008), (4096, 11008, 4096),
+                    (1024, 4096, 32000), (4096, 4096, 32000)):
+        rows, m_tiles, k_tiles, group = quant._k7_plan(M, K, N)
+        assert (rows, m_tiles, k_tiles, group) == (
+            256, -(-M // 256), -(-K // 128), min(8, -(-M // 256)))
+    for M, blocks in ((512, 128), (256, 64)):
+        rows, m_tiles, k_tiles, group = quant._k7_plan(M, 4096, 32000)
+        assert (rows, m_tiles * k_tiles, group) == (128, blocks, M // 128)
 
 
 @pytest.mark.parametrize("M,K,N", [(64, 4100, 4096), (64, 4096, 4104),
@@ -362,13 +432,20 @@ def test_k7_plan_refuses_misaligned(M, K, N):
                                   "k_not_8", "q_not_contiguous",
                                   "scale_bf16", "scale_count", "n_mismatch"])
 def test_k7_checks_raise(case):
-    """What K7 does not take raises before any launch."""
+    """What K7 does not take raises before any launch; each pass alone
+    (``_k7_scale``, ``_k7_product``) is held to the checks of the operands
+    it reads (the first g, x's type and the scale; the second gs in x's
+    type and q), and not to the other's."""
     rng = np.random.default_rng(2)
     K, N = 64, 48
     _, wq = _int8(rng, K, N)
     g = torch.zeros((16, N))
     q, scale, dtype = wq["q"], wq["scale"], torch.bfloat16
     quant._check_k7_inputs(g, q, scale, dtype)  # the unbroken inputs pass
+    first = case in ("x_fp32", "g_fp64", "n_not_16", "scale_bf16",
+                     "scale_count", "n_mismatch")
+    second = case in ("x_fp32", "n_not_16", "k_not_8", "q_not_contiguous",
+                      "n_mismatch")
     if case == "x_fp32":
         dtype = torch.float32
     elif case == "g_fp64":
@@ -388,3 +465,38 @@ def test_k7_checks_raise(case):
         g = torch.zeros((16, 32))
     with pytest.raises((TypeError, ValueError)):
         quant._check_k7_inputs(g, q, scale, dtype)
+    for broken, args in ((first, (g, None, scale, dtype)),
+                         (second, (g.to(dtype), q, None, dtype))):
+        if broken:
+            with pytest.raises((TypeError, ValueError)):
+                quant._check_k7_inputs(*args)
+        else:
+            quant._check_k7_inputs(*args)
+
+
+def test_every_kernel_has_its_profile_split():
+    """Each ``__global__`` kernel of the port's CUDA sources lands in its
+    own split of the smoke's profiles (``chip_smoke.PROFILE_SPLITS``), by
+    its bare name and as the profiler prints it: a kernel that matches no
+    split, or another kernel's, would drop out of its kernel's share."""
+    import re
+    import chip_smoke
+    want = {"fa_fwd_kernel": "K1", "fd_split_kernel": "K2",
+            "fa_bwd_dq_kernel": "K3", "fa_bwd_dkv_kernel": "K4",
+            "dequant_gemv_stream_kernel": "K5", "dequant_gemv_kernel": "K5",
+            "w8a16_gemm_kernel": "K6", "w8a16_dx_scale_kernel": "K7",
+            "w8a16_dx_kernel": "K7"}
+    csrc = os.path.join(os.path.dirname(quant.__file__), os.pardir, "csrc")
+    found = set()
+    for name in os.listdir(csrc):
+        if name.endswith(".cu"):
+            with open(os.path.join(csrc, name)) as f:
+                found.update(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                    r"(\w+)\s*\(", f.read()))
+    assert found == set(want)
+    for kernel, split in want.items():
+        assert chip_smoke._split_of(kernel) == split
+        assert chip_smoke._split_of(
+            f"void (anonymous namespace)::{kernel}<__nv_bfloat16, float>("
+            f"...)") == split

@@ -1308,19 +1308,58 @@ def test_k7_ragged_edges(M, K, N):
         assert _rel(got, _k7_plain(g, wq, torch.bfloat16)) <= 2e-2
 
 
+@pytest.mark.parametrize("rows", [256, 128])
 @pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16,
                                      torch.float16])
-def test_k7_every_block(monkeypatch, g_dtype):
-    """K7's block (256 dx columns by 128 rows of g) with each cotangent
-    type, at ragged M and K with a raster group that does not divide the
-    row tiles."""
-    rows = quant._K7_ROWS
+def test_k7_every_block(monkeypatch, g_dtype, rows):
+    """K7's product at each block the plan can pick (``rows`` of the
+    scaled cotangent by 128 dx columns) with each cotangent type, at
+    ragged M and K with a raster group that does not divide the row
+    tiles."""
+    assert rows in quant._K7_RATES
     gen = torch.Generator(device="cuda").manual_seed(rows + 7)
     g, wq = _k7_inputs(gen, 700, 2752, 4096, g_dtype)
     monkeypatch.setattr(quant, "_k7_plan", lambda M, K, N: (
         rows, -(-M // rows), -(-K // quant._K7_COLS), 3))
     got = quant.w8a16_dx(g, wq, torch.bfloat16)
     assert _rel(got, _k7_plain(g, wq, torch.bfloat16)) <= 2e-2
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16,
+                                     torch.float16])
+@pytest.mark.parametrize("M,N", [(8192, 4096), (1024, 32000), (37, 272),
+                                 (1, 48)])
+def test_k7_scale_pass_is_the_plain_one(M, N, g_dtype, x_dtype):
+    """K7's first pass alone, gs = T(g * scale), bit-equal to
+    ``_scale_cotangent`` for each cotangent and x type, at the train
+    shapes and at a ragged N and M, on contiguous rows and on a view of
+    wider rows (NaN past N; copied to whole rows first)."""
+    gen = torch.Generator(device="cuda").manual_seed(M + N)
+    wide = torch.randn((M, N + 64), generator=gen, device="cuda").to(g_dtype)
+    wide[:, N:] = float("nan")
+    scale = torch.rand((1, N), generator=gen, device="cuda") * 1e-3 + 1e-4
+    for g in (wide[:, :N].contiguous(), wide[:, :N]):
+        got = quant._k7_scale(g, scale, x_dtype)
+        want = quant._scale_cotangent(g, scale, x_dtype)
+        assert got.dtype == x_dtype and got.shape == (M, N)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,N", [(8192, 4096, 4096), (1024, 4096, 32000),
+                                   (512, 4096, 32000), (256, 4096, 32000),
+                                   (9, 344, 48)])
+def test_k7_product_pass_matches_plain(M, K, N):
+    """K7's second pass alone on a given gs against the fp32-accumulated
+    product of the same bf16 operands, and the two passes called one by
+    one bit-equal to the one call of ``w8a16_dx``."""
+    gen = torch.Generator(device="cuda").manual_seed(M + K + N + 9)
+    g, wq = _k7_inputs(gen, M, K, N)
+    gs = quant._k7_scale(g, wq["scale"], torch.bfloat16)
+    got = quant._k7_product(gs, wq["q"])
+    want = quant._mm_f32(gs, wq["q"].to(torch.bfloat16).t()).bfloat16()
+    assert _rel(got, want) <= 2e-2
+    assert torch.equal(got, quant.w8a16_dx(g, wq, torch.bfloat16))
 
 
 def test_k7_strided_cotangent():
@@ -1332,19 +1371,23 @@ def test_k7_strided_cotangent():
     g = wide[:, :4096]
     _, wq = _k7_inputs(gen, 1, 2048, 4096)
     got = quant.w8a16_dx(g, wq, torch.bfloat16)
+    assert torch.isfinite(got).all()
     assert _rel(got, _k7_plain(g.contiguous(), wq, torch.bfloat16)) <= 2e-2
 
 
 def test_k7_is_deterministic():
     """Every dx is one block's sum in a fixed order (no split of the
-    contraction): repeated launches give the same bits."""
+    contraction): repeated launches give the same bits; each call of
+    ``w8a16_dx`` (both passes) counts one K7 launch."""
     gen = torch.Generator(device="cuda").manual_seed(24)
     for M, K, N in ((8192, 4096, 11008), (1024, 4096, 32000),
                     (256, 4096, 32000), (8192, 11008, 4096)):
         g, wq = _k7_inputs(gen, M, K, N)
         first = quant.w8a16_dx(g, wq, torch.bfloat16)
         for _ in range(3):
+            n7 = quant.w8a16_dx.launches
             assert torch.equal(quant.w8a16_dx(g, wq, torch.bfloat16), first)
+            assert quant.w8a16_dx.launches == n7 + 1
 
 
 def test_k7_graph_replays_the_eager_call_and_is_counted():
@@ -1356,14 +1399,26 @@ def test_k7_graph_replays_the_eager_call_and_is_counted():
     cases = [_k7_inputs(gen, M, K, N) for M, K, N in (
         (512, 4096, 4096), (1024, 4096, 32000), (9, 11008, 4096))]
     eager = [quant.w8a16_dx(g, wq, torch.bfloat16) for g, wq in cases]
+    # the scaled cotangent of each captured call, by its address
+    lib = quant._build.load("w8a16_dx")
+    entry, scratch = lib.mc_w8a16_dx, []
+
+    def recording(*args):
+        scratch.append(args[3])
+        return entry(*args)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         graph = torch.cuda.CUDAGraph()
         with quant.capturing() as record:
-            graph.capture_begin()
-            outs = [quant.w8a16_dx(g, wq, torch.bfloat16) for g, wq in cases]
-            graph.capture_end()
+            lib.mc_w8a16_dx = recording
+            try:
+                graph.capture_begin()
+                outs = [quant.w8a16_dx(g, wq, torch.bfloat16)
+                        for g, wq in cases]
+                graph.capture_end()
+            finally:
+                lib.mc_w8a16_dx = entry
         assert record.dx == [(512, 4096, 4096), (1024, 4096, 32000),
                              (9, 11008, 4096)]
         assert record.launches == record.gemm == []
@@ -1372,6 +1427,21 @@ def test_k7_graph_replays_the_eager_call_and_is_counted():
     torch.cuda.current_stream().wait_stream(stream)
     torch.cuda.synchronize()
     assert quant.w8a16_dx.launches == n  # a raw replay is the owner's
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)
+    # gs came from the graph's private pool
+    pool = tuple(graph.pool())
+    segments = [seg for seg in torch.cuda.memory_snapshot()
+                if tuple(seg["segment_pool_id"]) == pool]
+    assert len(scratch) == len(cases) and all(
+        any(seg["address"] <= p < seg["address"] + seg["total_size"]
+            for seg in segments) for p in scratch)
+    for g, wq in cases:  # eager calls between replays leave them unchanged
+        quant.w8a16_dx(g, wq, torch.bfloat16)
+    with torch.cuda.stream(stream):
+        graph.replay()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
     for got, want in zip(outs, eager):
         assert torch.equal(got, want)
 
@@ -1446,22 +1516,35 @@ def test_k7_rejects(case):
         quant.w8a16_dx(g, wq, dtype)
 
 
-@pytest.mark.parametrize("K,N,group,g_type", [
-    (4092, 1024, 4, 0), (4096, 1000, 4, 0), (4096, 1024, 0, 0),
-    (4096, 1024, 4, 3)])
-def test_k7_entry_refuses_other_grids(K, N, group, g_type):
+@pytest.mark.parametrize("K,N,rows,group,g_type", [
+    (4092, 1024, 256, 4, 0), (4096, 1000, 256, 4, 0), (4096, 1024, 256, 0, 0),
+    (4096, 1024, 256, 4, 3), (4096, 1024, 64, 4, 0)])
+def test_k7_entry_refuses_other_grids(K, N, rows, group, g_type):
     """The C entry refuses a K or N TMA cannot read, an empty raster
-    group and an unknown cotangent type (cudaErrorInvalidValue), before
-    launching anything."""
+    group, an unknown cotangent type and a block of other rows than 128
+    or 256 (cudaErrorInvalidValue), before launching anything; so does the
+    entry of the pass that reads the refused argument (the first: N and
+    the cotangent type; the second: K, N, the rows and the group)."""
     from modelcompose_tpu_torch import _build
+    lib = _build.load("w8a16_dx")
+    stream = torch.cuda.current_stream().cuda_stream
     g = torch.zeros((256, N), device="cuda")
     q = torch.zeros((K, N), dtype=torch.int8, device="cuda")
     scale = torch.ones(N, device="cuda")
+    gs = torch.empty((256, N), dtype=torch.bfloat16, device="cuda")
     dx = torch.empty((256, K), dtype=torch.bfloat16, device="cuda")
-    err = _build.load("w8a16_dx").mc_w8a16_dx(
-        g.data_ptr(), q.data_ptr(), scale.data_ptr(), dx.data_ptr(), 256, K,
-        N, group, g_type, 1, torch.cuda.current_stream().cuda_stream)
+    err = lib.mc_w8a16_dx(
+        g.data_ptr(), q.data_ptr(), scale.data_ptr(), gs.data_ptr(),
+        dx.data_ptr(), 256, K, N, rows, group, g_type, 1, stream)
     assert err == 1  # cudaErrorInvalidValue
+    if N % 16 or g_type == 3:
+        assert lib.mc_w8a16_dx_scale(
+            g.data_ptr(), scale.data_ptr(), gs.data_ptr(), 256, N, g_type,
+            1, stream) == 1
+    if K % 8 or N % 16 or rows not in (128, 256) or group < 1:
+        assert lib.mc_w8a16_dx_product(
+            gs.data_ptr(), q.data_ptr(), dx.data_ptr(), 256, K, N, rows,
+            group, 1, stream) == 1
 
 
 @pytest.mark.parametrize("M", [9, 1024])
