@@ -1444,7 +1444,8 @@ def _k6_case(gen, weights, M, K, N, timed=True):
     so timed by CUDA events over 2 calls) and the bound."""
     import itertools
     import torch
-    from modelcompose_tpu_torch.ops.quant import (_k6_plan, dequant_matmul,
+    from modelcompose_tpu_torch.ops.quant import (_k6_active, _k6_plan,
+                                                  dequant_matmul,
                                                   dequant_matmul_reference,
                                                   w8a16_gemm)
     x = torch.randn((M, K), generator=gen, device=weights[0]["q"].device
@@ -1462,7 +1463,8 @@ def _k6_case(gen, weights, M, K, N, timed=True):
                                  f"{rel:.3g} (tol {tol})")
         errs.append(err)
         rels.append(rel)
-    res = {"M": M, "K": K, "N": N, "rows": _k6_plan(M, K, N)[0],
+    plan = _k6_plan(M, K, N, _k6_active(x.device))
+    res = {"M": M, "K": K, "N": N, "rows": plan.rows, "split": plan.split,
            "max_abs_err": max(errs), "rel_err_bf16": rels[0],
            "rel_err_f32": rels[1]}
     if not timed:
@@ -1497,15 +1499,33 @@ def _k6_case(gen, weights, M, K, N, timed=True):
     return res
 
 
+def _k6_schedule_row(M, K, N, active):
+    """K6's schedule at one shape on the card's clusters: the block's rows,
+    the split, the clusters launched (of ``active`` for that block and
+    split), the whole-tile units and the split units (``split`` a split
+    tile)."""
+    from modelcompose_tpu_torch.ops.quant import _k6_plan
+    plan = _k6_plan(M, K, N, active)
+    tiles = plan.m_tiles * plan.n_tiles
+    return {"rows": plan.rows, "split": plan.split,
+            "clusters": plan.clusters,
+            "active": active[plan.rows, plan.split], "whole": plan.whole,
+            "split_units": (tiles - plan.whole) * plan.split}
+
+
 def phase_k6(device, gen):
     """K6 against its plain version at every main-path shape and tp shard at
-    K6_CHECKED_ROWS (bf16 and fp32 results), with each shape's block
-    printed; the seven products of a layer timed at K6_ROWS and the tp
+    K6_CHECKED_ROWS (bf16 and fp32 results), with the card's active
+    clusters and each shape's schedule printed (``_k6_schedule_row``); the
+    seven products of a layer timed at K6_ROWS and the tp
     shards' at K6_TP_ROWS, each beside its plain route, ``torch.mm`` on a
     bf16 copy, ``torch._weight_int8pack_mm`` and its bound; the sums over
     a layer and over a 32-layer prefill at each timed row count."""
     import torch
     from modelcompose_tpu_torch.ops import quant
+    active = quant._k6_active(torch.device(device))
+    log("K6", active_clusters=json.dumps(
+        {f"{rows}x{split}": n for (rows, split), n in sorted(active.items())}))
     cases, tp_cases, errs = [], [], []
     tp_shapes = {k: v for k, v in K5_TP_SHAPES.items()
                  if not k.endswith("lm_head")}
@@ -1519,9 +1539,8 @@ def phase_k6(device, gen):
                         "scale": torch.rand((1, N), generator=gen,
                                             device=device) * 1e-3 + 1e-4}
                        for _ in range(K6_COPIES if timed_rows else 1)]
-            log("K6", shape=name, K=K, N=N, grid=json.dumps(
-                {M: dict(zip(("rows", "m_tiles", "n_tiles", "group"),
-                             quant._k6_plan(M, K, N)))
+            log("K6", shape=name, K=K, N=N, schedule=json.dumps(
+                {M: _k6_schedule_row(M, K, N, active)
                  for M in K6_CHECKED_ROWS}))
             for M in K6_CHECKED_ROWS:
                 res = dict(_k6_case(gen, weights, M, K, N,
@@ -1530,6 +1549,7 @@ def phase_k6(device, gen):
                 if "ms" in res:
                     out.append(res)
                     log("K6", shape=name, M=M, K=K, N=N, rows=res["rows"],
+                        split=res["split"],
                         max_abs_err=f"{res['max_abs_err']:.4g}",
                         rel_err_bf16=f"{res['rel_err_bf16']:.3g}",
                         rel_err_f32=f"{res['rel_err_f32']:.3g}",

@@ -74,7 +74,9 @@ SIGNATURES = {
         "mc_w8a16_gemm": (
             [_P, _P, _P, _P,              # x q scale out
              _I, _I, _I, _I, _I,          # M K N rows group
+             _I, _I, _I,                  # split clusters whole
              _I, _I, _P], _I),            # x_bf16 out_type stream
+        "mc_w8a16_gemm_clusters": ([_I, _I], _I),  # rows split
         "mc_w8a16_gemm_smem": ([_I], _I),  # rows
     },
     "w8a16_dx": {

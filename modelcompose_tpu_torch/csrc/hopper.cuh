@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
 // mbarriers, TMA tensor loads and stores, wgmma shared-memory descriptors,
 // fences and the bf16 products of the attention kernels, register
-// reallocation, named barriers, the exact int8 -> fp32 and int8 -> bf16/fp16
+// reallocation, named barriers, the cluster barrier and stores into a
+// cluster peer's shared memory, the exact int8 -> fp32 and int8 -> bf16/fp16
 // conversions, and the host-side encoding of TMA tensor maps.
 //
 // cuTensorMapEncodeTiled is a driver API; it is reached through the
@@ -631,6 +632,34 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
 __device__ __forceinline__ void tma_store_commit_and_wait() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Thread-block clusters (K6's split of K).  The address, in the shared
+// memory of the cluster's block `rank`, of the offset that `addr` has in
+// this block's (a shared::cluster address).
+__device__ __forceinline__ uint32_t mapa_shared(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Four fp32 to a shared::cluster address (distributed shared memory): a
+// store into a peer block's shared memory, visible to it after the next
+// cluster barrier.
+__device__ __forceinline__ void st_cluster_f4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// The cluster barrier: every thread of every block of the cluster that has
+// not exited arrives (release), then waits for all of them (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
 // Byte offset of bf16 element (row, col) in a TMA box of 64 columns (128

@@ -27,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -394,37 +394,159 @@ def _k5(x2, weights, out_dtype):
     return [out.to(out_dtype) for out in outs]
 
 
-# K6 (csrc/w8a16_gemm.cu): its blocks of 128 weight columns by 64, 128 or
-# 256 rows of x, and the rate (TFLOP/s) each kept within a wave on an H100
-# (80GB HBM3, 700 W; one block an SM; the median over the Vicuna-7B layer
-# products at 256-3,328 rows, scripts/torch_k6_blocks.py): a plan's time
-# is its waves over the 132 SMs times a block's flops over that rate.  The
-# conversion is paid once a 64-deep tile whatever the rows, so wider
-# blocks keep more of the tensor cores.
-_K6_RATES = {256: 721.0, 128: 479.0, 64: 314.0}
+# K6 (csrc/w8a16_gemm.cu): persistent blocks of 128 weight columns by 256,
+# 128 or 64 rows of x, in clusters of 1, 2 or 4 blocks that split a tile's
+# K, and the rate (TFLOP/s, for 132 SMs) each (rows, split) kept within a
+# round of units (one unit a block) on an H100 (80GB HBM3, 700 W; the
+# median over the Vicuna-7B layer products at 256-8,192 rows,
+# scripts/torch_k6_blocks.py): a plan's time is its rounds of whole units
+# and of split units, each unit's flops over its rate.  A split unit does
+# 1/split of a tile's steps and its part of the sum of the partials.  The
+# conversion is paid once a 64-deep tile whatever the rows, so wider blocks
+# keep more of the tensor cores.
+_K6_RATES = {(256, 1): 719.1, (256, 2): 572.7, (256, 4): 440.3,
+             (128, 1): 532.7, (128, 2): 418.1, (128, 4): 345.2,
+             (64, 1): 330.6, (64, 2): 270.1, (64, 4): 221.2}
 _K6_COLS = 128  # weight columns a block
-_K6_GROUP = 8  # row tiles of a raster group (the blocks in flight share L2)
+_K6_STEP = 64  # the depth of a stage: a split's K ranges are whole steps
+_K6_GROUP = 8  # row tiles of a raster group (the units in flight share L2)
+# The most K a split takes.  The tensor cores' fp32 sum of a whole tile's
+# K is the plain product's (cuBLAS's) bit for bit; a split adds partial
+# sums of shorter chains, which moves an fp32 output by a share of max |y|
+# that grows linearly with K: at K = 4,096 up to 3.2e-6 (split 2) and
+# 4.0e-6 (split 4), at 11,008 up to 8.5e-6 and 1.12e-5
+# (scripts/torch_k6_blocks.py, ``rel_err``), against the 1e-5 the fp32
+# result is held to.  A split stays within about half of that: down's
+# K = 11,008 is never split.
+_K6_SPLIT_MAX_K = {2: 6144, 4: 4608}
+# The clusters of each (rows, split) an H100 80GB HBM3 ran at once
+# (cudaOccupancyMaxActiveClusters; its GPCs hold 30, not 33, clusters of
+# 4): the plan's default off the card; on the card the kernel's own query
+# (``_k6_active``) replaces it.
+_K6_ACTIVE = {(rows, split): {1: 132, 2: 66, 4: 30}[split]
+              for rows, split in _K6_RATES}
 
 
-def _k6_plan(M: int, K: int, N: int):
-    """K6's grid for x [M, K] @ q [K, N]: (rows, m_tiles, n_tiles, group),
-    the block's rows of x (by 128 weight columns), its row and column tiles
-    (the last of each masked at M and N), and the row tiles of a raster
-    group.  The block is the one whose waves cost least at its rate: 256
-    rows at prefill sizes, 128 or 64 where they fill the card better (a
-    512- or 256-row chunk).  Raises on a K or N that TMA cannot read
-    (K % 8, N % 16: 16-byte row strides)."""
+class K6Plan(NamedTuple):
+    """K6's launch: the block's rows of x (by 128 weight columns), the
+    blocks of a cluster (``split``: 1, 2 or 4), the row and column tiles of
+    y (the last of each masked at M and N), the row tiles of a raster
+    group, the clusters launched, and the tiles, first in the raster, that
+    are whole units; the rest are split along K over a cluster."""
+    rows: int
+    split: int
+    m_tiles: int
+    n_tiles: int
+    group: int
+    clusters: int
+    whole: int
+
+
+def _k6_plan(M: int, K: int, N: int, active=None, blocks=None) -> K6Plan:
+    """K6's schedule for x [M, K] @ q [K, N] on a card that runs
+    ``active[rows, split]`` clusters at once (default ``_K6_ACTIVE``), over
+    the (rows, split) of ``blocks`` (default every one of ``_K6_RATES``).
+    Split 1: every tile whole, over min(tiles, active) blocks.  Split 2 or
+    4 over P = active * split blocks, at K up to ``_K6_SPLIT_MAX_K``: the
+    whole waves of P tiles whole, the tail (at least one tile) split, a
+    tile a cluster in turn.  The cost is the rounds of units each block
+    takes at the rate of its kind; the least wins, ties to the wider block
+    and the smaller split.  Raises on a K or N that TMA cannot read
+    (K % 8, N % 16: 16-byte row strides), and where none of ``blocks``
+    takes the shape."""
     if M <= 0 or K <= 0 or K % 8 or N <= 0 or N % 16:
         raise ValueError(f"K6 takes M > 0, K % 8 == 0 and N % 16 == 0, got "
                          f"M {M}, K {K}, N {N}")
+    active = active or _K6_ACTIVE
     n_tiles = -(-N // _K6_COLS)
+    n_k = -(-K // _K6_STEP)
+    best = None
+    for rows, split in sorted(blocks or _K6_RATES,
+                              key=lambda b: (-b[0], b[1])):
+        m_tiles = -(-M // rows)
+        tiles = m_tiles * n_tiles
+        clusters = active[rows, split]
+        unit = rows / _K6_RATES[rows, 1]
+        if split == 1:
+            cost = -(-tiles // clusters) * unit
+            plan = K6Plan(rows, 1, m_tiles, n_tiles,
+                          min(_K6_GROUP, m_tiles), min(tiles, clusters),
+                          tiles)
+        else:
+            wave = clusters * split
+            whole = tiles // wave * wave
+            if whole == tiles or n_k < split or K > _K6_SPLIT_MAX_K[split]:
+                continue
+            cost = whole // wave * unit + -(-(tiles - whole) // clusters) \
+                * rows / (split * _K6_RATES[rows, split])
+            plan = K6Plan(rows, split, m_tiles, n_tiles,
+                          min(_K6_GROUP, m_tiles),
+                          clusters if whole else min(tiles, clusters), whole)
+        if best is None or cost < best[0]:
+            best = (cost, plan)
+    if best is None:
+        raise ValueError(f"K6: no schedule of {sorted(blocks)} takes "
+                         f"M {M}, K {K}, N {N}")
+    return best[1]
 
-    def cost(rows):
-        waves = -(-(-(-M // rows) * n_tiles) // _SMS)
-        return waves * rows / _K6_RATES[rows]
-    rows = min(_K6_RATES, key=cost)
-    m_tiles = -(-M // rows)
-    return rows, m_tiles, n_tiles, min(_K6_GROUP, m_tiles)
+
+def _k6_tile(t: int, plan: K6Plan):
+    """The (row tile, column tile) of tile t of the grouped raster: groups
+    of ``plan.group`` row tiles, the group's row tiles walked under each
+    column tile (``Units::at`` in the kernel)."""
+    per_group = plan.group * plan.n_tiles
+    first = t // per_group * plan.group
+    here = min(plan.m_tiles - first, plan.group)
+    r = t % per_group
+    return first + r % here, r // here
+
+
+def _k6_schedule(plan: K6Plan, K: int):
+    """Each block's units in the order it runs them, as the kernel builds
+    them (``Units``): ``(row tile, column tile, k0, k1, part)`` with the
+    64-deep steps [k0, k1) and ``part`` None for a whole tile, else the
+    block's rank in its cluster (its k range's place in the sum)."""
+    n_k = -(-K // _K6_STEP)
+    tiles = plan.m_tiles * plan.n_tiles
+    blocks = plan.clusters * plan.split
+    out = []
+    for b in range(blocks):
+        cluster, rank = divmod(b, plan.split)
+        units = [_k6_tile(t, plan) + (0, n_k, None)
+                 for t in range(b, plan.whole, blocks)]
+        units += [_k6_tile(t, plan) + (rank * n_k // plan.split,
+                                       (rank + 1) * n_k // plan.split, rank)
+                  for t in range(plan.whole + cluster, tiles,
+                                 plan.clusters)]
+        out.append(units)
+    return out
+
+
+# The card's clusters of each (rows, split), by device index, asked once
+# (``mc_w8a16_gemm_clusters``, which also sets each instantiation's shared
+# memory): at the first K6 call on the device, an eager one on every path
+# (each graph's capture follows an eager run of its step).
+_K6_ACTIVE_ON = {}
+
+
+def _k6_active(device) -> Dict:
+    """``{(rows, split): clusters}`` the card of ``device`` runs at once."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    found = _K6_ACTIVE_ON.get(index)
+    if found is None:
+        lib = _build.load("w8a16_gemm")
+        found = {}
+        with torch.cuda.device(index):
+            for rows, split in _K6_RATES:
+                n = lib.mc_w8a16_gemm_clusters(rows, split)
+                if n <= 0:
+                    raise RuntimeError(f"w8a16_gemm: no cluster of {split} "
+                                       f"blocks of {rows} rows fits the "
+                                       f"card ({n})")
+                found[rows, split] = n
+        _K6_ACTIVE_ON[index] = found
+    return found
 
 
 def _check_k6_inputs(x2, q, scale):
@@ -453,7 +575,8 @@ def _check_k6_inputs(x2, q, scale):
 
 def _k6(x2, weights, out_dtype):
     """Kernel K6 on x2 [M, K] and one weight: ``[(x2 @ q) * scale]`` in
-    ``out_dtype``, one launch.  x2 goes to the kernel as whole, 16-byte
+    ``out_dtype``, one launch on ``_k6_plan``'s schedule for the card's
+    clusters.  x2 goes to the kernel as whole, 16-byte
     aligned rows (TMA's tiles): a row-strided or misaligned view is copied
     first."""
     (wq,) = weights
@@ -461,7 +584,7 @@ def _k6(x2, weights, out_dtype):
     _check_k6_inputs(x2, q, scale)
     M, K = x2.shape
     N = q.shape[1]
-    rows, _, _, group = _k6_plan(M, K, N)
+    plan = _k6_plan(M, K, N, _k6_active(x2.device))
     if not x2.is_contiguous() or x2.data_ptr() % 16:
         x2 = x2.clone(memory_format=torch.contiguous_format)
     record = _capture_record("w8a16_gemm")
@@ -470,8 +593,9 @@ def _k6(x2, weights, out_dtype):
     out = torch.empty((M, N), dtype=kind, device=x2.device)
     err = _build.load("w8a16_gemm").mc_w8a16_gemm(
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K,
-        N, rows, group, int(x2.dtype == torch.bfloat16),
-        _OUT_TYPES[kind], torch.cuda.current_stream(x2.device).cuda_stream)
+        N, plan.rows, plan.group, plan.split, plan.clusters, plan.whole,
+        int(x2.dtype == torch.bfloat16), _OUT_TYPES[kind],
+        torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "w8a16_gemm")
     if record is not None:  # recorded, not run: each replay runs it
         record.gemm.append((M, K, N))

@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
-"""K1-K5 and K7 of the PyTorch port against an earlier version of their
+"""K1-K7 of the PyTorch port against an earlier version of their
 sources, on one CUDA card, in turns (old, new, new, old), plus K1's kv-tile
 probe (64 against 128 rows), K2's split probe (256 against 128 positions
-per block) and K3's kv-tile probe (128 against 64 rows), in turns; K7 also
-against its plain route and the library GEMM; K6 at the train forward's
-products.
+per block) and K3's kv-tile probe (128 against 64 rows), in turns; K6 and
+K7 also against the library GEMM, K7 against its plain route.
 
     python3 scripts/torch_kernel_ab.py --old DIR [--only K5]
     python3 scripts/torch_kernel_ab.py [--old DIR] --only K7,K6
@@ -51,14 +50,16 @@ cotangent and of q^T made beforehand and, given ``--old``, the earlier
 checkout's K7 through its own wrapper, in turns (plain, old, K7, mm, mm,
 K7, old, plain), each by CUDA-graph replay over 4 weight copies, with the
 bound; without ``--old`` K7 needs no earlier checkout.  K6 (``--only
-K6``, no ``--old``) runs the int8-base train forward's products
-(q/k/v/o, gate/up, down at 8,192 rows, fp32 out) twice through
-``chip_smoke._k6_case``: K6, its plain route and ``torch.mm`` on a bf16
-copy of the weight, each by CUDA-graph replay over 4 weight copies, with
-the bound.
+K6``) runs a layer's products (q/k/v/o, gate/up, down) at 512, 2,048,
+3,328 and 8,192 rows and the tp 2 / tp 4 shards at 3,328 (fp32 out)
+against ``torch.mm`` on bf16 copies of the weights made beforehand and,
+given ``--old``, the earlier checkout's K6 through its own wrapper, in
+turns (old, new, mm, mm, new, old), each by CUDA-graph replay over 4
+weight copies, with the new schedule, the bound and the sums over a
+layer's seven.
 
-    git archive ef20600 modelcompose_tpu_torch | tar -x -C tmp_old
-    python3 scripts/torch_kernel_ab.py --old tmp_old --only K7,K6
+    git archive df22bc8 modelcompose_tpu_torch | tar -x -C tmp_old
+    python3 scripts/torch_kernel_ab.py --old tmp_old --only K6
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ sys.path.insert(0, ROOT)
 from chip_smoke import (K5_GROUPS, K5_LAYERS, K5_ROWS,  # noqa: E402
                         K5_SHAPES, K5_TP_SHAPES, K6_COPIES, K6_LAYER,
                         K6_SHAPES, K7_COPIES, K7_LM_HEAD, K7_LM_HEAD_ROWS,
-                        K7_ROWS, K7_SHAPES, _k6_case, bound,
+                        K7_ROWS, K7_SHAPES, bound,
                         cuda_time_cycle_ms, device_time_cycle_ms,
                         graph_time_ms)
 from modelcompose_tpu_torch import _build  # noqa: E402
@@ -564,46 +565,86 @@ def ab_k7(gen, emit, old_q=None):
         torch.cuda.empty_cache()
 
 
-# The int8-base train forward's K6 products: B=4 x 2,048 rows
-K6_TRAIN_ROWS = 8192
+# K6's rows in turns: a 512-row chunk, the vision pair's 2,048, MCUB-4's
+# 3,328 bucket and the int8-base train forward's B=4 x 2,048; the tp 2 / tp
+# 4 shards at 3,328
+K6_AB_ROWS = (512, 2048, 3328, 8192)
+K6_TP_ROWS = 3328
 
 
-def ab_k6(gen, emit):
-    """K6 at the int8-base train forward's products (q/k/v/o, gate/up,
-    down at K6_TRAIN_ROWS, fp32 out), twice each through
-    ``chip_smoke._k6_case``: K6, its plain route and ``torch.mm`` on a bf16
-    copy, with the bound; and the sum over a layer's seven."""
+def ab_k6(gen, emit, old_q=None):
+    """K6 (fp32 out) at a layer's products (q/k/v/o, gate/up, down) at
+    K6_AB_ROWS and the tp 2 / tp 4 shards at K6_TP_ROWS, against
+    ``torch.mm`` on bf16 copies of the weights made beforehand and, given
+    ``old_q`` (an earlier checkout's ``ops/quant``), the earlier K6
+    through its own wrapper, in turns (old, new, mm, mm, new, old), each
+    by CUDA-graph replay over K6_COPIES weight copies, with the new
+    schedule and the bound; and the sums over a layer's seven at each row
+    count, one per reading."""
+    records = () if old_q is None else (old_q.capturing,)
+    turns = ("old", "new", "mm", "mm", "new", "old")
+    tp = {k: v for k, v in K5_TP_SHAPES.items() if not k.endswith("lm_head")}
+    table = [(name, *K6_SHAPES[name], M) for M in K6_AB_ROWS
+             for name in K6_LAYER]
+    table += [(name, K, N, K6_TP_ROWS) for name, (K, N) in tp.items()]
+    active = quant._k6_active(torch.device("cuda"))
     layer = {}
-    for name, n in K6_LAYER.items():
-        K, N = K6_SHAPES[name]
+    f32 = torch.float32
+    for name, K, N, M in table:
         weights = [{"q": torch.randint(-127, 128, (K, N), generator=gen,
                                        device="cuda", dtype=torch.int8),
                     "scale": torch.rand((1, N), generator=gen,
                                         device="cuda") * 1e-3 + 1e-4}
                    for _ in range(K6_COPIES)]
-        runs = [_k6_case(gen, weights, K6_TRAIN_ROWS, K, N)
-                for _ in range(2)]
-        keys = ("ms", "plain_ms", "library_ms")
-        emit(kernel="K6", case=name, M=K6_TRAIN_ROWS, K=K, N=N,
-             rows=runs[0]["rows"], compare="k6 / plain / mm, twice",
-             **{k: [r[k] for r in runs] for k in keys},
-             bound_ms=runs[0]["bound_ms"], bound_by=runs[0]["bound_by"],
-             max_abs_err=max(r["max_abs_err"] for r in runs))
-        for k in keys + ("bound_ms",):
-            layer.setdefault(k, [0.0, 0.0])
-            for i, r in enumerate(runs):
-                layer[k][i] += n * r[k]
-        del weights
+        dense = [w["q"].to(torch.bfloat16) for w in weights]
+        x = torch.randn((M, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        versions = {
+            "new": lambda i: quant.dequant_matmul(x, weights[i],
+                                                  out_dtype=f32),
+            "mm": lambda i: torch.mm(x, dense[i], out_dtype=f32)}
+        if old_q is not None:
+            versions["old"] = lambda i: old_q.dequant_matmul(
+                x, weights[i], out_dtype=f32)
+        want = quant.dequant_matmul_reference(x, weights[0], out_dtype=f32)
+        err = {who: float(((versions[who](0) - want).abs().max()
+                           / want.abs().max()))
+               for who in ("new", "old") if who in versions}
+        if err["new"] > 1e-5:
+            raise AssertionError(f"K6 {name} M{M}: rel err {err['new']:.3g}")
+        times = {who: [] for who in versions}
+        for who in turns:
+            if who in versions:
+                times[who].append(_cycled(versions[who], K6_COPIES, records))
+        t_bound, by = bound(2 * M * K * N, K * N + 4 * N + 2 * M * K
+                            + 4 * M * N)
+        plan = quant._k6_plan(M, K, N, active)
+        emit(kernel="K6", case=name, M=M, K=K, N=N,
+             schedule={"rows": plan.rows, "split": plan.split,
+                       "clusters": plan.clusters, "whole": plan.whole,
+                       "tiles": plan.m_tiles * plan.n_tiles},
+             compare="/".join(w for w in turns[:3] if w in versions),
+             ms=times, bound_ms=t_bound, bound_by=by,
+             rel_err_vs_plain=err)
+        if name in K6_LAYER:
+            sums = layer.setdefault(M, {"bound_ms": 0.0})
+            sums["bound_ms"] += K6_LAYER[name] * t_bound
+            for who, ts in times.items():
+                acc = sums.setdefault(who, [0.0] * len(ts))
+                for i, t in enumerate(ts):
+                    acc[i] += K6_LAYER[name] * t
+        del weights, dense, x
         torch.cuda.empty_cache()
-    emit(kernel="K6", case="a layer's seven", M=K6_TRAIN_ROWS,
-         compare="k6 / plain / mm, twice", ms_sum=layer)
+    for M, sums in layer.items():
+        emit(kernel="K6", case="a layer's seven", M=M,
+             compare="/".join(w for w in turns[:3] if w in sums),
+             ms_sum=sums)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old",
-                    help="root of a checkout of the earlier sources (K1-K5, "
-                    "K7)")
+                    help="root of a checkout of the earlier sources (K1-K7)")
     ap.add_argument("--only", default="K1,K2,K3,K4,K5",
                     help="comma-separated kernels to compare (K1-K7)")
     args = ap.parse_args()
@@ -631,7 +672,7 @@ def main() -> int:
         ab_k7(gen, emit, old_quant(args.old) if args.old else None)
 
     if "K6" in only:
-        ab_k6(gen, emit)
+        ab_k6(gen, emit, old_quant(args.old) if args.old else None)
 
     if "K5" in only:
         old_q = old_quant(args.old)

@@ -60,11 +60,11 @@ SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
 ROWS = [9, 37, 256, 512, 698, 2048, 3287, 3328, 4096]
 
 
-def _raster(plan):
-    """The (row tile, column tile) of each block in launch order, as
-    ``w8a16_gemm_kernel`` computes it from blockIdx.x: groups of ``group``
-    row tiles, the group's row tiles walked under each column tile."""
-    _, m_tiles, n_tiles, group = plan
+def _raster(m_tiles, n_tiles, group):
+    """The (row tile, column tile) of each tile in raster order, as the
+    kernels compute it (K6's ``Units::at``, K7's blockIdx.x): groups of
+    ``group`` row tiles, the group's row tiles walked under each column
+    tile."""
     out = []
     for b in range(m_tiles * n_tiles):
         first = b // (group * n_tiles) * group
@@ -74,31 +74,191 @@ def _raster(plan):
     return out
 
 
+# The clusters the plan may find on a card: an H100's nominal counts, and
+# an uneven split of the SMs over its GPCs (fewer clusters of 2 and 4).
+ACTIVE = {"nominal": quant._K6_ACTIVE,
+          "uneven": {(rows, split): {1: 132, 2: 64, 4: 30}[split]
+                     for rows, split in quant._K6_RATES}}
+
+
+def _check_schedule(plan, M, K, N, active):
+    """The schedule of ``plan`` covers y [M, N] once: each whole tile in
+    one unit over every 64-deep step; each split tile in ``split`` units,
+    one to each block of one cluster, their ranges partitioning the steps
+    contiguously in rank order (k order), none empty; the tiles in raster
+    order; each block within one unit of the others, and every block of a
+    cluster with the same split units (they meet at its barriers)."""
+    cols, step = quant._K6_COLS, quant._K6_STEP
+    n_k = -(-K // step)
+    assert plan.rows in {64, 128, 256} and plan.split in {1, 2, 4}
+    assert (plan.rows, plan.split) in quant._K6_RATES
+    assert (plan.m_tiles - 1) * plan.rows < M <= plan.m_tiles * plan.rows
+    assert (plan.n_tiles - 1) * cols < N <= plan.n_tiles * cols
+    assert 1 <= plan.group <= min(quant._K6_GROUP, plan.m_tiles)
+    tiles = plan.m_tiles * plan.n_tiles
+    blocks = plan.clusters * plan.split
+    assert 1 <= plan.clusters <= active[plan.rows, plan.split]
+    if plan.split == 1:
+        assert plan.whole == tiles
+    else:
+        assert 0 <= plan.whole < tiles and plan.whole % blocks == 0
+        assert n_k >= plan.split
+    raster = _raster(plan.m_tiles, plan.n_tiles, plan.group)
+    assert sorted(raster) == [(m, n) for m in range(plan.m_tiles)
+                              for n in range(plan.n_tiles)]
+    schedule = quant._k6_schedule(plan, K)
+    assert len(schedule) == blocks
+    seen = {}
+    for b, units in enumerate(schedule):
+        for mt, nt, k0, k1, part in units:
+            seen.setdefault((mt, nt), []).append((part, k0, k1, b))
+    assert sorted(seen) == sorted(raster)
+    for t, tile in enumerate(raster):
+        units = sorted(seen[tile], key=lambda u: (u[0] is not None, u[0]))
+        if t < plan.whole:
+            assert units == [(None, 0, n_k, units[0][3])]
+            continue
+        assert [u[0] for u in units] == list(range(plan.split))
+        assert len({u[3] // plan.split for u in units}) == 1
+        assert [u[3] % plan.split for u in units] == list(range(plan.split))
+        assert units[0][1] == 0 and units[-1][2] == n_k
+        assert all(a[2] == b[1] for a, b in zip(units, units[1:]))
+        assert all(u[1] < u[2] for u in units)
+    counts = [len(units) for units in schedule]
+    assert max(counts) - min(counts) <= 1
+    for c in range(plan.clusters):
+        split_units = {sum(u[4] is not None for u in schedule[b])
+                       for b in range(c * plan.split, (c + 1) * plan.split)}
+        assert len(split_units) == 1
+
+
+@pytest.mark.parametrize("active", sorted(ACTIVE))
 @pytest.mark.parametrize("M", ROWS)
 @pytest.mark.parametrize("K,N", SHAPES)
-def test_k6_plan_covers_the_output(K, N, M):
-    """The grid covers y [M, N] once: every block is a whole tile or the
-    last row / column tile masked at M / N, and the raster visits each
-    tile exactly once; the block is one the kernel takes."""
-    plan = quant._k6_plan(M, K, N)
-    rows, m_tiles, n_tiles, group = plan
-    cols = quant._K6_COLS
-    assert rows in quant._K6_RATES
-    assert (m_tiles - 1) * rows < M <= m_tiles * rows
-    assert (n_tiles - 1) * cols < N <= n_tiles * cols
-    assert 1 <= group <= min(quant._K6_GROUP, m_tiles)
-    tiles = _raster(plan)
-    assert sorted(tiles) == [(m, n) for m in range(m_tiles)
-                             for n in range(n_tiles)]
+def test_k6_plan_covers_the_output(K, N, M, active):
+    """The plan's schedule (``_k6_schedule``, the kernel's ``Units``
+    mirrored) covers y [M, N] once, at every main-path shape and tp shard,
+    on a card with the nominal clusters and on one with fewer clusters of
+    2 and 4; the block and split are ones the kernel takes."""
+    plan = quant._k6_plan(M, K, N, ACTIVE[active])
+    _check_schedule(plan, M, K, N, ACTIVE[active])
+
+
+@pytest.mark.parametrize("rows,split", sorted(quant._K6_RATES))
+@pytest.mark.parametrize("M,K,N", [(300, 4104, 2752), (3400, 4104, 4112),
+                                   (9, 344, 48), (3328, 11008, 4096)])
+def test_k6_every_schedule_covers_the_output(rows, split, M, K, N):
+    """Each (rows, split) the kernel takes, forced, at ragged M, N and K:
+    every tile split (300 rows) or a tail after whole waves (3,400 rows)."""
+    active = quant._K6_ACTIVE
+    blocks = [(rows, split)]
+    tiles = -(-M // rows) * -(-N // quant._K6_COLS)
+    if split > 1 and (tiles % (active[rows, split] * split) == 0
+                      or -(-K // quant._K6_STEP) < split
+                      or K > quant._K6_SPLIT_MAX_K[split]):
+        with pytest.raises(ValueError, match="no schedule"):
+            quant._k6_plan(M, K, N, active, blocks)
+        return
+    plan = quant._k6_plan(M, K, N, active, blocks)
+    assert (plan.rows, plan.split) == (rows, split)
+    _check_schedule(plan, M, K, N, active)
 
 
 def test_k6_plan_picks_by_waves():
-    """256 rows at prefill sizes; a 512-row chunk of a 4096-wide product
-    takes 128 rows (128 blocks fill the card) and a 256-row tail 64."""
-    assert quant._k6_plan(3328, 4096, 4096)[0] == 256
-    assert quant._k6_plan(4096, 11008, 4096)[0] == 256
-    assert quant._k6_plan(512, 4096, 4096)[0] == 128
-    assert quant._k6_plan(256, 4096, 4096)[0] == 64
+    """256-row blocks at prefill sizes; a 512-row chunk of a 4096-wide
+    product splits K over clusters of 256-row blocks (64 tiles: half the
+    card as whole tiles), and the 3,328-row bucket's q/k/v/o splits its
+    last, partial wave (416 tiles: 3 whole waves and a tail of 20)."""
+    chunk = quant._k6_plan(512, 4096, 4096)
+    assert (chunk.rows, chunk.whole) == (256, 0) and chunk.split > 1
+    bucket = quant._k6_plan(3328, 4096, 4096)
+    assert bucket.rows == 256 and bucket.split > 1
+    assert 0 < bucket.whole < bucket.m_tiles * bucket.n_tiles
+    assert quant._k6_plan(4096, 11008, 4096).rows == 256
+    assert quant._k6_plan(8192, 4096, 4096).rows == 256
+
+
+@pytest.mark.parametrize("active", sorted(ACTIVE))
+@pytest.mark.parametrize("M", ROWS)
+@pytest.mark.parametrize("K,N", SHAPES)
+def test_k6_plan_splits_only_short_k(K, N, M, active):
+    """A split's partial sums move an fp32 output by a share of max |y|
+    that grows with K: the plan splits only up to ``_K6_SPLIT_MAX_K`` (so
+    never down's K = 11,008), and the limits keep the largest move the
+    card showed, scaled linearly in K from K = 4,096 (3.2e-6 at split 2,
+    4.0e-6 at 4), within half the 1e-5 tolerance."""
+    plan = quant._k6_plan(M, K, N, ACTIVE[active])
+    if plan.split > 1:
+        assert K <= quant._K6_SPLIT_MAX_K[plan.split]
+    for split, worst in ((2, 3.2e-6), (4, 4.0e-6)):
+        assert worst * quant._K6_SPLIT_MAX_K[split] / 4096 <= 0.5e-5
+    assert quant._k6_plan(512, 11008, 4096, ACTIVE[active]).split == 1
+
+
+def _emulate(x, wq, plan, K):
+    """y of K6's schedule in plain PyTorch: each unit's fp32 product over
+    its k range (the int8 and half values exact in fp32), a whole tile's
+    scaled as it is, a split tile's partials summed in rank order (k order)
+    and then scaled, as the kernel's epilogue and cluster sum do.  Every
+    output is written exactly once."""
+    xf, qf = x.float(), wq["q"].float()
+    sc = wq["scale"].reshape(-1)
+    M, N = xf.shape[0], qf.shape[1]
+    y = torch.full((M, N), float("nan"))
+    parts = {}
+    for units in quant._k6_schedule(plan, K):
+        for mt, nt, k0, k1, part in units:
+            rs = slice(mt * plan.rows, min(M, (mt + 1) * plan.rows))
+            cs = slice(nt * quant._K6_COLS, min(N, (nt + 1) * quant._K6_COLS))
+            ks = slice(k0 * quant._K6_STEP, min(K, k1 * quant._K6_STEP))
+            p = xf[rs, ks] @ qf[ks, cs]
+            if part is None:
+                assert torch.isnan(y[rs, cs]).all()
+                y[rs, cs] = p * sc[cs]
+            else:
+                parts.setdefault((rs.start, cs.start), {})[part] = (rs, cs, p)
+    for tile in parts.values():
+        rs, cs, total = tile[0]
+        for r in range(1, len(tile)):
+            total = total + tile[r][2]
+        assert torch.isnan(y[rs, cs]).all()
+        y[rs, cs] = total * sc[cs]
+    assert not torch.isnan(y).any()
+    return y
+
+
+# Main-path products scaled down (the 512-row chunk of a narrow layer, the
+# 3,328 bucket's tail in miniature), ragged M, N and K, with few clusters
+# so that whole waves and split tails both occur.
+EMULATED = [(512, 512, 512), (700, 1000, 272), (9, 344, 48), (300, 4104, 144),
+            (1100, 768, 400)]
+FEW = {(rows, split): {1: 8, 2: 3, 4: 2}[split]
+       for rows, split in quant._K6_RATES}
+
+
+@pytest.mark.parametrize("blocks", [None] + [[b] for b in sorted(
+    quant._K6_RATES)])
+@pytest.mark.parametrize("M,K,N", EMULATED)
+def test_k6_schedule_arithmetic_matches_jax(M, K, N, blocks):
+    """K6's arithmetic on its schedule (``_emulate``: fp32 partials per k
+    range, summed in rank order, scaled), on bf16 x, against the JAX
+    ``dequant_matmul`` and ``dequant_matmul_reference`` at fp32 within
+    1e-5 of max |y|: the split changes only the summation order."""
+    try:
+        plan = quant._k6_plan(M, K, N, FEW, blocks)
+    except ValueError:
+        assert blocks is not None and blocks[0][1] > 1  # nothing to split
+        return
+    rng = np.random.default_rng(M + K + N)
+    jwq, twq = _int8(rng, K, N)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    got = _emulate(tx, twq, plan, K).numpy()
+    want = np.asarray(jquant.dequant_matmul(
+        jnp.asarray(x, jnp.bfloat16), jwq, out_dtype=jnp.float32))
+    ref = quant.dequant_matmul_reference(tx, twq, torch.float32).numpy()
+    for other in (want, ref):
+        assert np.abs(got - other).max() / np.abs(other).max() <= 1e-5
 
 
 @pytest.mark.parametrize("M,K,N", [(512, 4100, 4096), (512, 4096, 4104),

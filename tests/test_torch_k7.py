@@ -394,8 +394,8 @@ def test_k7_plan_covers_dx(M, K, N):
     assert (k_tiles - 1) * quant._K7_COLS < K <= k_tiles * quant._K7_COLS
     assert quant._K7_COLS == 128
     assert 1 <= group <= min(quant._K7_GROUP, m_tiles)
-    assert sorted(_raster(plan)) == [(m, k) for m in range(m_tiles)
-                                     for k in range(k_tiles)]
+    assert sorted(_raster(m_tiles, k_tiles, group)) == [
+        (m, k) for m in range(m_tiles) for k in range(k_tiles)]
 
 
 def test_k7_plan_at_the_train_shapes():

@@ -1063,20 +1063,48 @@ def test_k6_ragged_edges(M, K, N):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("rows", [64, 128, 256])
-def test_k6_every_block(monkeypatch, rows, dtype):
-    """Each block K6 takes (128 weight columns by 64, 128 or 256 rows),
-    whatever the plan would pick, at ragged M and N with a raster group
-    that does not divide the row tiles, held to the plain product."""
-    assert rows in quant._K6_RATES
-    gen = torch.Generator(device="cuda").manual_seed(rows)
-    x, wq = _k5_inputs(gen, 700, 4096, 2752, dtype)
-    monkeypatch.setattr(quant, "_k6_plan", lambda M, K, N: (
-        rows, -(-M // rows), -(-N // 128), 3))
-    for out in (None, torch.float32):
-        got = quant.w8a16_gemm(x, wq, out_dtype=out)
-        want = dequant_matmul_reference(x, wq, out_dtype=out)
-        assert _rel(got, want) <= (1e-5 if out else 2e-2)
+@pytest.mark.parametrize("rows,split", sorted(quant._K6_RATES))
+def test_k6_every_block(monkeypatch, rows, split, dtype):
+    """Each block and split K6 takes (128 weight columns by 64, 128 or 256
+    rows, K split over clusters of 1, 2 or 4), whatever the plan would
+    pick, on the card's clusters, at ragged M, N and K: every tile split
+    (or, split 1, whole) at 300 rows, whole waves and a split tail at
+    3,400 rows (a raster group that does not divide the row tiles), held
+    to the plain product."""
+    assert (rows, split) in quant._K6_RATES
+    plan = quant._k6_plan
+    forced = []
+
+    def force(M, K, N, active=None):
+        forced.append(plan(M, K, N, active, blocks=[(rows, split)]))
+        return forced[-1]
+    monkeypatch.setattr(quant, "_k6_plan", force)
+    gen = torch.Generator(device="cuda").manual_seed(rows + split)
+    for M, K, N in ((300, 4104, 2752), (3400, 4104, 4112)):
+        x, wq = _k5_inputs(gen, M, K, N, dtype)
+        for out in (None, torch.float32):
+            got = quant.w8a16_gemm(x, wq, out_dtype=out)
+            want = dequant_matmul_reference(x, wq, out_dtype=out)
+            assert _rel(got, want) <= (1e-5 if out else 2e-2)
+        tiles = forced[-1].m_tiles * forced[-1].n_tiles
+        assert (forced[-1].rows, forced[-1].split) == (rows, split)
+        if split > 1:
+            assert forced[-1].whole == 0 if M == 300 \
+                else 0 < forced[-1].whole < tiles
+
+
+def test_k6_active_clusters():
+    """The card's clusters of each (rows, split), asked once: at least one,
+    at most the SMs' worth; the plan on them splits a 512-row chunk's
+    4096-wide product over clusters of 256-row blocks."""
+    active = quant._k6_active(torch.device("cuda"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert set(active) == set(quant._K6_RATES)
+    for (rows, split), n in active.items():
+        assert 1 <= n * split <= sms
+    assert quant._k6_active(torch.device("cuda")) is active
+    chunk = quant._k6_plan(512, 4096, 4096, active)
+    assert chunk.rows == 256 and chunk.split > 1
 
 
 def test_k6_row_strided_x():
@@ -1095,11 +1123,18 @@ def test_k6_row_strided_x():
 
 
 def test_k6_is_deterministic():
-    """Every output is one block's sum in a fixed order: repeated launches
-    give the same bits."""
+    """Every output is one block's sum, or a cluster's partial sums added
+    in rank order, in a fixed order: repeated launches give the same bits,
+    at shapes whose plan splits K (a 512-row chunk, the 3,328 bucket's
+    tail) and at ones that do not."""
     gen = torch.Generator(device="cuda").manual_seed(17)
+    active = quant._k6_active(torch.device("cuda"))
+    assert quant._k6_plan(512, 4096, 4096, active).split > 1
+    assert quant._k6_plan(3328, 4096, 4096, active).split > 1
     for M, K, N in ((3328, 11008, 4096), (512, 4096, 32000), (256, 4096,
-                                                              11008)):
+                                                              11008),
+                    (512, 4096, 4096), (3328, 4096, 4096),
+                    (300, 4104, 2752)):
         x, wq = _k5_inputs(gen, M, K, N)
         first = dequant_matmul(x, wq, out_dtype=torch.float32)
         for _ in range(3):
@@ -1108,9 +1143,14 @@ def test_k6_is_deterministic():
 
 
 def test_k6_graph_replays_the_eager_call_and_is_counted():
-    """K6 launches captured in a record replay the eager calls' bits; in a
-    CapturedStep each replay adds the recorded launches to K6's count."""
+    """K6 launches captured in a record replay the eager calls' bits, at
+    shapes whose plan splits K in clusters (the first two) and at one row
+    tile; in a CapturedStep each replay adds the recorded launches to K6's
+    count."""
     from modelcompose_tpu_torch.core.decode_graph import CapturedStep
+    active = quant._k6_active(torch.device("cuda"))
+    assert quant._k6_plan(512, 4096, 4096, active).split > 1
+    assert quant._k6_plan(3328, 4096, 11008, active).split > 1
     gen = torch.Generator(device="cuda").manual_seed(18)
     cases = [_k5_inputs(gen, M, K, N) for M, K, N in (
         (512, 4096, 4096), (3328, 4096, 11008), (9, 11008, 4096))]
@@ -1195,13 +1235,21 @@ def test_k6_rejects(case):
         quant.w8a16_gemm(x, wq)
 
 
-@pytest.mark.parametrize("rows,K,N,group", [
-    (32, 4096, 1024, 4), (192, 4096, 1024, 4), (512, 4096, 1024, 4),
-    (256, 4092, 1024, 4), (256, 4096, 1000, 4), (256, 4096, 1024, 0)])
-def test_k6_entry_refuses_other_grids(rows, K, N, group):
-    """The C entry refuses rows the plan cannot produce, a K or N TMA
-    cannot read and an empty raster group (cudaErrorInvalidValue), before
-    launching anything."""
+@pytest.mark.parametrize("rows,K,N,group,split,clusters,whole", [
+    (32, 4096, 1024, 4, 1, 8, 8), (192, 4096, 1024, 4, 1, 8, 8),
+    (512, 4096, 1024, 4, 1, 8, 8), (256, 4092, 1024, 4, 1, 8, 8),
+    (256, 4096, 1000, 4, 1, 8, 8), (256, 4096, 1024, 0, 1, 8, 8),
+    (256, 4096, 1024, 1, 3, 2, 0), (256, 4096, 1024, 1, 8, 1, 0),
+    (256, 4096, 1024, 1, 1, 0, 8), (256, 4096, 1024, 1, 1, 8, 7),
+    (256, 4096, 1024, 1, 2, 4, 8), (256, 4096, 1024, 1, 2, 1, 3),
+    (256, 64, 1024, 1, 2, 4, 0), (256, 4096, 1024, 1, 2, 4, -2)])
+def test_k6_entry_refuses_other_grids(rows, K, N, group, split, clusters,
+                                      whole):
+    """The C entry refuses rows and splits the plan cannot produce, a K or
+    N TMA cannot read, an empty raster group, no clusters, and schedules
+    the plan cannot make (split 1 with a tile not whole, a split with no
+    tile or fewer steps to split, whole tiles not whole waves of the
+    grid): cudaErrorInvalidValue, before launching anything."""
     from modelcompose_tpu_torch import _build
     gen = torch.Generator(device="cuda").manual_seed(21)
     x = torch.randn((256, K), generator=gen, device="cuda").to(
@@ -1211,7 +1259,8 @@ def test_k6_entry_refuses_other_grids(rows, K, N, group):
     out = torch.empty((256, N), device="cuda")
     err = _build.load("w8a16_gemm").mc_w8a16_gemm(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), 256, K,
-        N, rows, group, 1, 0, torch.cuda.current_stream().cuda_stream)
+        N, rows, group, split, clusters, whole, 1, 0,
+        torch.cuda.current_stream().cuda_stream)
     assert err == 1  # cudaErrorInvalidValue
 
 
