@@ -57,6 +57,17 @@ nonzero:
    made beforehand (the yardstick, never called by the port) and the
    bound; the sums over a layer and a 32-layer step (232 launches at 8
    loss chunks);
+4e. K8 (the residual add and RMSNorm), K9 (RoPE and the KV-cache write)
+   and K10 (the SiLU product), the decode layer's fused passes, against
+   their plain versions at the MCUB-4 decode shapes: 1 and 8 rows, hidden
+   4,096, 32 heads of 128 (and the tp 2 / tp 4 ranks' 16 and 8, intermediate
+   5,504 and 2,752), int8 and bf16 caches of 3,360 positions with a
+   different position a row: K8's sum bit-equal and its normed output
+   within one ulp (a weight of ones), K9's rotated q and whole caches and
+   K10 bit-equal; each timed by CUDA-graph replay beside its plain version
+   and its bound (the bytes at 3.35 TB/s); no one PyTorch call computes any
+   of them (``library_ms`` null); the sum over a decode step (65 K8, 32 K9,
+   32 K10);
 5. the serving path at Vicuna-7B width: a vision DAMC composition (CLIP
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
@@ -70,7 +81,8 @@ nonzero:
    exactly once an int8 product there (7 a layer: 224), K5
    exactly 4 a layer + 1 a replayed decode step of 1-2 rows (q/k/v and
    gate/up one launch each; 7 a layer + 1 at 3-8) and once in the
-   prefill's lm_head, peak
+   prefill's lm_head, K8 2 a layer + 1, K9 and K10 once a layer a replayed
+   decode step and none in the prefill, peak
    allocated and reserved memory, each kind's graph pool GB, the time to
    first token of the three calls: eager, capturing, replayed); the same
    request with the tower, the prefill and the decode launch by launch
@@ -96,7 +108,15 @@ nonzero:
    against the plain int8 product with K2 in both (in turns plain, K5, K5,
    plain: decode tokens/s, one replayed step's device time by kernel in
    ``chiprun_out/decode_step_profile_{k5,plain}.txt``, greedy ids equal or
-   parting at a named near tie), a prefill A/B of K6 against the plain
+   parting at a named near tie), a decode A/B through the graphs of the
+   fused decode layer (K8-K10, K5 writing bf16) against the unfused one
+   (the layer's ops as PyTorch kernels, K5 writing fp32 and a cast), K2
+   and K5 in both (in turns plain, fused, fused, plain: decode tokens/s,
+   one replayed step's device time and its kernels counted by profile
+   split in ``chiprun_out/decode_step_profile_fused_ab_{fused,plain}.txt``,
+   K8-K10 exactly a step's in each fused decode step and none in the
+   plain arm, greedy ids equal or parting at a named near tie), a prefill
+   A/B of K6 against the plain
    route above 8 rows with K1 and K5 in both (in turns plain, K6, K6,
    plain: the one-shot prefill through its graph; a 512-row chunk step
    through its graph and the prefill graphs' pool GB in each arm's first
@@ -290,7 +310,9 @@ rows of q/k/v/o's dL/dx (its ``shapes`` and ``step`` the others and the
 sums over a layer and a 32-layer step, its ``train_ab`` phase 9b's A/B,
 ``library_ms`` ``torch.mm`` on bf16 copies of the scaled cotangent and of
 the weight; its launches phase 9b's, the one path with an int8 base's
-gradient); K1's and K2's
+gradient), K8, K9 and K10 at one row of the MCUB-4 decode (their
+``shapes`` the others and ``step`` the sum over a decode step, their
+``decode_ab`` phase 6's third A/B); K1's and K2's
 ``mcub4`` hold
 the composed path's shape, K2's ``*_cold`` keys its device time with every
 launch on a cold layer, and K3's and K4's ``train_batch`` and
@@ -344,9 +366,19 @@ K7_SOURCE = "modelcompose_tpu_torch/csrc/w8a16_dx.cu"
 # no Pallas kernel: the fused convert in the transposed dot of the same
 # dequant_matmul's gradient
 K7_REPLACES = "modelcompose_tpu/ops/quant.py:33"
+K8_SOURCE = K9_SOURCE = K10_SOURCE = \
+    "modelcompose_tpu_torch/csrc/decode_fused.cu"
+# no Pallas kernels: the counterparts of the XLA fusions of the JAX decode
+# step's elementwise work (RMSNorm with the residual add; RoPE with the
+# int8 KV quantize and the scatter; the SiLU product)
+K8_REPLACES = "modelcompose_tpu/ops/norms.py:9"
+K9_REPLACES = "modelcompose_tpu/ops/rope.py:36"
+K10_REPLACES = "modelcompose_tpu/core/llama.py:323"
+# the decode layer's fused passes, by their launch counters' names
+FUSED_KERNELS = ("add_rms_norm", "rope_kv_write", "silu_mul")
 # the launch counters of the forward kernels, as the phases read them
 FORWARD_KERNELS = ("flash_attention_fwd", "flash_decode", "w8a16_gemv",
-                   "w8a16_gemm")
+                   "w8a16_gemm") + FUSED_KERNELS
 
 # K5's fp32 result against its plain version, relative to max |plain|: int8
 # and bf16 values are exact in fp32, so only the summation order differs
@@ -399,6 +431,7 @@ LOADER_LAYERS = 2
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores
 # and HBM3.  A card set below 700 W runs under them.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores (the fused passes' math)
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -737,6 +770,14 @@ def _timed_request(phase, model, ids, inputs, record=None, **kw):
     if launches["w8a16_gemm"] != _k6_per_forward(model.params):
         raise AssertionError(f"{phase}: K6 {launches} in one replayed "
                              f"prefill, want {_k6_per_forward(model.params)}")
+    # K8-K10 in each replayed decode step (65, 32, 32 at 32 layers), none
+    # in the prefill
+    fused = {k: v * (NEW_TOKENS - 1) for k, v in _fused_per_step(
+        model.cfg.num_hidden_layers).items()}
+    if {k: launches[k] for k in FUSED_KERNELS} != fused:
+        raise AssertionError(f"{phase}: K8-K10 {launches} for "
+                             f"{NEW_TOKENS - 1} replayed decode steps, "
+                             f"want {fused}")
     third = _graph_delta(before)
     peak, reserved = _peak_gb()
     graphs = {"first_request": calls[0][0], "second_request": calls[1][0],
@@ -782,9 +823,11 @@ def _rounded(row):
             for k, v in row.items()}
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms the card could take, what sets it)."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    """(least ms the card could take, what sets it): ``flops`` at
+    ``peak_flops`` (the tensor cores' bf16 rate by default) or ``nbytes``
+    at the memory rate, whichever is longer."""
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1196,6 +1239,16 @@ def _k5_per_step(params, rows):
                 per_layer -= len(names) - 1
     return per_layer * layers["input_layernorm"].shape[0] \
         + int(is_quantized(params["lm_head"]))
+
+
+def _fused_per_step(n_layers):
+    """K8-K10 launches in one decode step of an ``n_layers`` backbone on
+    bf16 activations: K8 twice a layer (the input norm with the previous
+    layer's down residual, the post-attention norm with the o residual) and
+    once for the final norm, K9 and K10 once a layer (65, 32, 32 for
+    Vicuna-7B), whatever the rows."""
+    return {"add_rms_norm": 2 * n_layers + 1, "rope_kv_write": n_layers,
+            "silu_mul": n_layers}
 
 
 def _k6_per_forward(params):
@@ -1741,6 +1794,168 @@ def phase_k7(device, gen):
                 "cycled, CUDA graph replay", shapes=cases, step=step)
 
 
+# The decode layer's fused passes at the MCUB-4 decode shapes: a request's
+# one row and the slot pool's eight, hidden 4,096, 32 heads of 128 (and the
+# tp 2 / tp 4 ranks' 16 and 8, intermediate 5,504 and 2,752), caches of
+# 3,360 positions (the composed request's length) with a position a row.
+FUSED_ROWS = (1, 8)
+FUSED_HIDDEN = 4096
+FUSED_HEADS = {"mcub4": 32, "tp2": 16, "tp4": 8}
+FUSED_INTER = {"mcub4": 11008, "tp2": 5504, "tp4": 2752}
+FUSED_HEAD_DIM = 128
+FUSED_CACHE_LEN = 3360
+FUSED_LAYERS = 2  # K9 writes one slot a row: the cache's depth is not read
+
+
+def _ulps(got, want):
+    """The largest distance in units in the last place between two half
+    tensors (their 16-bit patterns on a monotone line)."""
+    import torch
+
+    def line(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (line(got) - line(want)).abs().max().item()
+
+
+def _fused_timed(res, fn, plain, nbytes, flops):
+    """``res`` with the kernel's and the plain version's time (CUDA-graph
+    replay of 20 calls) and the bound: the bytes at 3.35 TB/s or the fp32
+    operations at 67 TFLOP/s (``bound_by``).  No one PyTorch call computes
+    any of the three functions, so ``library_ms`` is null."""
+    res.update(ms=graph_time_ms(fn), plain_ms=graph_time_ms(plain),
+               library_ms=None)
+    res["bound_ms"], res["bound_by"] = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    res["share_of_bound"] = None if res["ms"] is None \
+        else res["bound_ms"] / res["ms"]
+    return res
+
+
+def phase_fused(device, gen):
+    """K8, K9 and K10 against their plain versions at the MCUB-4 decode
+    shapes (1 and 8 rows; the tp 2 and 4 ranks' heads and intermediate
+    widths): K8's sum bit-equal and its normed output within one ulp (a
+    weight of ones) or 2e-2 (a random weight), K9's rotated q and whole
+    int8 or bf16 caches bit-equal, K10 bit-equal; each timed by CUDA-graph
+    replay beside its plain version and its bound from the bytes it moves;
+    and the sum over one decode step of the 32-layer model (65 K8, 32 K9,
+    32 K10)."""
+    import torch
+    from modelcompose_tpu_torch.core.llama import KVCache
+    from modelcompose_tpu_torch.config import ModelConfig
+    from modelcompose_tpu_torch.ops import decode_fused as df
+    from modelcompose_tpu_torch.ops.rope import rope_tables
+    bf = torch.bfloat16
+    H, D, S = FUSED_HIDDEN, FUSED_HEAD_DIM, FUSED_CACHE_LEN
+    rows = {"K8": [], "K9": [], "K10": []}
+    errs = {"K8": 0.0, "K9": 0.0, "K10": 0.0}
+    for M in FUSED_ROWS:
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=device)
+                    * scale).to(bf)
+        x, y = rnd(M, 1, H, scale=3.0), rnd(M, 1, H, scale=3.0)
+        for w, residual in ((torch.ones(H, device=device, dtype=bf), True),
+                            (rnd(H, scale=0.1) + 1, True),
+                            (rnd(H, scale=0.1) + 1, False)):
+            yy = y if residual else None
+            s, out = df.add_rms_norm(x, yy, w, 1e-5)
+            want_s, want = df.add_rms_norm_reference(x, yy, w, 1e-5)
+            ulps, (err, rel) = _ulps(out, want), _rel_err(out, want)
+            ones = bool((w == 1).all())
+            if not torch.equal(s, want_s) or (ones and ulps > 1) \
+                    or rel > ATTN_TOL:
+                raise AssertionError(f"K8 M{M} residual {residual}: sum "
+                                     f"equal {torch.equal(s, want_s)}, "
+                                     f"{ulps} ulps, rel {rel:.3g}")
+            errs["K8"] = max(errs["K8"], err)
+            if ones:
+                continue
+            res = {"M": M, "H": H, "residual": residual, "ulps": ulps}
+            n_in = (2 if residual else 1) * M * H
+            nbytes = 2 * (n_in + H + (2 if residual else 1) * M * H)
+            rows["K8"].append(_fused_timed(
+                res, lambda: df.add_rms_norm(x, yy, w, 1e-5),
+                lambda: df.add_rms_norm_reference(x, yy, w, 1e-5), nbytes,
+                5 * M * H))
+        for name, heads in FUSED_HEADS.items():
+            for int8 in (True, False) if name == "mcub4" else (True,):
+                q, k, v = (rnd(M, 1, h, D) for h in (heads, heads, heads))
+                pos = torch.randperm(S, generator=gen, device=device)[:M] \
+                    .to(torch.int32)
+                cos, sin = rope_tables(pos[:, None], D)
+                cfg = ModelConfig(hidden_size=heads * D,
+                                  num_attention_heads=heads,
+                                  num_key_value_heads=heads,
+                                  num_hidden_layers=FUSED_LAYERS,
+                                  dtype="bfloat16")
+                kc, pc = (KVCache.zeros(cfg, M, S, quantized=int8,
+                                        device=device) for _ in range(2))
+                got = df.rope_kv_write(q, k, v, cos, sin, kc.k, kc.v, 1, pos)
+                want = df.rope_kv_write_reference(q, k, v, cos, sin, pc.k,
+                                                  pc.v, 1, pos)
+                if not torch.equal(got, want) or not all(
+                        torch.equal(a, b) for a, b in zip(kc.tensors(),
+                                                          pc.tensors())):
+                    raise AssertionError(f"K9 M{M} {name} int8 {int8}: "
+                                         f"differs from its plain version")
+                res = {"M": M, "shape": name, "heads": heads, "D": D,
+                       "cache": "int8" if int8 else "bf16", "S": S}
+                vec = M * heads * D
+                cache_bytes = 2 * (vec + 4 * M * heads) if int8 \
+                    else 2 * 2 * vec
+                nbytes = 2 * 4 * vec + 2 * 4 * M * D + 4 * M + cache_bytes
+                rows["K9"].append(_fused_timed(
+                    res, lambda: df.rope_kv_write(q, k, v, cos, sin, kc.k,
+                                                  kc.v, 1, pos),
+                    lambda: df.rope_kv_write_reference(q, k, v, cos, sin,
+                                                       pc.k, pc.v, 1, pos),
+                    nbytes, 6 * vec + (10 * vec if int8 else 0)))
+                del kc, pc
+        for name, inter in FUSED_INTER.items():
+            gate, up = rnd(M, 1, inter, scale=4.0), rnd(M, 1, inter)
+            got = df.silu_mul(gate, up)
+            if not torch.equal(got, df.silu_mul_reference(gate, up)):
+                raise AssertionError(f"K10 M{M} {name}: differs from its "
+                                     f"plain version")
+            rows["K10"].append(_fused_timed(
+                {"M": M, "shape": name, "I": inter},
+                lambda: df.silu_mul(gate, up),
+                lambda: df.silu_mul_reference(gate, up), 3 * 2 * M * inter,
+                6 * M * inter))
+        torch.cuda.empty_cache()
+    for key, cases in rows.items():
+        for c in cases:
+            log(key, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                        for k, v in c.items()})
+    # one decode step of the 32-layer model at each row count: 64 K8 with
+    # a residual and 1 without, 32 K9 into the int8 cache, 32 K10
+    step = {}
+    for M in FUSED_ROWS:
+        k8 = {c["residual"]: c for c in rows["K8"] if c["M"] == M}
+        k9 = next(c for c in rows["K9"] if c["M"] == M
+                  and c["shape"] == "mcub4" and c["cache"] == "int8")
+        k10 = next(c for c in rows["K10"] if c["M"] == M
+                   and c["shape"] == "mcub4")
+        parts = ((k8[True], 64), (k8[False], 1), (k9, 32), (k10, 32))
+        if all(c[k] is not None for c, _ in parts for k in ("ms",
+                                                            "plain_ms")):
+            step[M] = {k: sum(n * c[k] for c, n in parts)
+                       for k in ("ms", "plain_ms", "bound_ms")}
+            step[M]["launches"] = 129
+    log("fused", step_sum_ms=json.dumps(
+        {m: {k: round(v, 4) for k, v in s.items()} for m, s in step.items()}))
+    out = {}
+    for key, note in (("K8", "none: F.rms_norm rounds in another order "
+                             "(no cast before the weight)"),
+                      ("K9", "none"), ("K10", "none")):
+        first = rows[key][0]  # one row of the Vicuna-7B shape
+        out[key] = dict({k: first[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "share_of_bound")}, max_abs_err=errs[key], library_call=note,
+            shapes=[_rounded(c) for c in rows[key]], step=step)
+    return out
+
+
 def _requests(cfg, device, gen):
     """Two image+question prompts of different text lengths: token ids on
     the host, normalized NHWC pixels on the card."""
@@ -2039,6 +2254,7 @@ def phase_composed(device, gen):
     rel = _compare_logits("composed", model, ids, inputs, answers,
                           COMPOSED_LOGIT_TOL)
     k5_ab = _k5_decode_ab(model, ids, inputs, kw)
+    fused_ab = _fused_decode_ab(model, ids, inputs, kw)
     k6_ab = _k6_prefill_ab(model, ids, inputs, kw)
     prof = _profile("composed_prefill", lambda: model.generate(
         ids, inputs, max_new_tokens=1, **kw), "composed_profile.txt")
@@ -2049,7 +2265,8 @@ def phase_composed(device, gen):
             "pools_by_kind_gb": _graph_pools_by_kind_gb(model),
             "graphs": graphs, "vs_eager": vs_eager, "fps": fps,
             "decode_step_profile": step_prof, "logit_rel_err": rel,
-            "k5_ab": k5_ab, "k6_ab": k6_ab, "profile": prof}, model, \
+            "k5_ab": k5_ab, "fused_ab": fused_ab, "k6_ab": k6_ab,
+            "profile": prof}, model, \
         (ids, inputs)
 
 
@@ -2086,10 +2303,11 @@ class _DequantArm:
         self._drop_graphs()
 
 
-def _near_tie(name, model, ids, inputs, got, want, plain_kernels):
+def _near_tie(name, model, ids, inputs, got, want, plain_kernels, arm=None):
     """Where two greedy answers part: the step, the kernel path's and the
-    plain arm's teacher-forced logits there (within LOGIT_TOL of max
-    |logit|) and the plain arm's top-2 gap (under LOGIT_TOL), or raises."""
+    plain arm's (``arm``, or ``_DequantArm(model, plain_kernels)``)
+    teacher-forced logits there (within LOGIT_TOL of max |logit|) and the
+    plain arm's top-2 gap (under LOGIT_TOL), or raises."""
     import torch
     step = next(i for i, (a, b) in enumerate(zip(got + [None], want + [None]))
                 if a != b)
@@ -2097,7 +2315,7 @@ def _near_tie(name, model, ids, inputs, got, want, plain_kernels):
                           device=model.device)
     with torch.no_grad():
         k = _teacher_forced(model, ids, inputs, tokens, "auto")[0, step]
-        with _DequantArm(model, plain_kernels):
+        with arm or _DequantArm(model, plain_kernels):
             p = _teacher_forced(model, ids, inputs, tokens, "auto")[0, step]
     scale = p.abs().max()
     top2 = p.topk(2).values
@@ -2167,6 +2385,98 @@ def _k5_decode_ab(model, ids, inputs, kw):
         decode_pool_gb=json.dumps({a: round(v, 4) for a, v in
                                    pools.items()}),
         k5_launches=json.dumps(launches), ids_equal=res["ids_equal"],
+        diverge=json.dumps({k: res[k] for k in (
+            "diverge_step", "logit_rel_err", "plain_top2_gap_rel")
+            if k in res}), tol=LOGIT_TOL)
+    return res
+
+
+class _FusedArm(_DequantArm):
+    """The plain arm of phase 6's third A/B: the decode layer unfused, as
+    the parent route ran it (``llama.fused_decode`` off: RMSNorm, RoPE,
+    the KV quantize and writes, the SiLU product and the residual adds as
+    PyTorch ops, K5 writing fp32 and a cast after it), the graphs dropped
+    as ``_DequantArm`` drops them.  K2, K5 and K6 stay."""
+
+    def __init__(self, model):
+        super().__init__(model, ("k5", "k6"))
+
+    def __enter__(self):
+        from modelcompose_tpu_torch.core import llama
+        self.llama, self.fused = llama, llama.fused_decode
+        llama.fused_decode = lambda x, attn_impl: False
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self.llama.fused_decode = self.fused
+        super().__exit__(*exc)
+
+
+def _fused_decode_ab(model, ids, inputs, kw):
+    """Phase 6's request through the graphs with the decode layer fused
+    (K8-K10, K5 rounding to bf16) and unfused (``_FusedArm``), K2 and K5
+    in both, in turns plain, fused, fused, plain: each turn's decode
+    tokens/s (the second of two calls: its decode replays the graph the
+    first captured), one replayed step's device time and its kernels by
+    profile split (each arm's first turn), K8-K10's launches (exactly a
+    step's for every decode step of the fused arm, none in the plain one),
+    and the greedy ids of the two arms equal or parting at a named near
+    tie."""
+    tok_s, answers, profiles, launches = {}, {}, {}, {}
+    fns = _fused_fns()
+    steps = 2 * (NEW_TOKENS - 1)
+    want = {k: v * steps for k, v in _fused_per_step(
+        model.cfg.num_hidden_layers).items()}
+    for arm in ("plain", "fused", "fused", "plain"):
+        ctx = _FusedArm(model) if arm == "plain" \
+            else _DequantArm(model, ("k5", "k6"))
+        with ctx:
+            before = {k: f.launches for k, f in fns.items()}
+            for _ in range(2):
+                timings = {}
+                out = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
+                                     timings=timings, **kw)
+            counted = {k: f.launches - before[k] for k, f in fns.items()}
+            tok_s.setdefault(arm, []).append(
+                (NEW_TOKENS - 1) / timings["decode_s"])
+            answers.setdefault(arm, out[0])
+            if out[0] != answers[arm]:
+                raise AssertionError(f"fused_ab: the {arm} arm answered "
+                                     f"{out[0]}, then {answers[arm]}")
+            if arm not in profiles:
+                launches[arm] = counted
+                graph = list(model.decode_graphs._graphs.values())[-1]
+                profiles[arm] = _profile(
+                    f"decode_step_fused_ab_{arm}", graph.replay,
+                    f"decode_step_profile_fused_ab_{arm}.txt")
+        if counted != (want if arm == "fused" else dict.fromkeys(want, 0)):
+            raise AssertionError(f"fused_ab: K8-K10 launches {counted} in "
+                                 f"the {arm} arm of {steps} decode steps")
+
+    def by_split(p):
+        counts = {name: 0 for name in PROFILE_SPLITS}
+        counts["other"] = 0
+        for k, n in p["device_counts"].items():
+            counts[_split_of(k) or "other"] += n
+        counts["total"] = sum(p["device_counts"].values())
+        return counts
+    res = {"decode_tok_per_s": tok_s, "fused_launches": launches,
+           "step_device_ms": {a: p["device_kernel_s"] * 1e3
+                              for a, p in profiles.items()},
+           "step_shares": {a: p["shares"] for a, p in profiles.items()},
+           "step_kernels": {a: by_split(p) for a, p in profiles.items()},
+           "ids_equal": answers["fused"] == answers["plain"]}
+    if not res["ids_equal"]:
+        res.update(_near_tie("fused_ab", model, ids, inputs,
+                             answers["fused"], answers["plain"], (),
+                             arm=_FusedArm(model)))
+    log("composed", fused_ab="K8-K10 + K5 bf16 vs the unfused decode layer, "
+        "K2/K5 in both", decode_tok_per_s=json.dumps(
+            {a: [round(v, 2) for v in t] for a, t in tok_s.items()}),
+        step_device_ms=json.dumps({a: round(v, 4) for a, v in
+                                   res["step_device_ms"].items()}),
+        step_kernels=json.dumps(res["step_kernels"]),
+        fused_launches=json.dumps(launches), ids_equal=res["ids_equal"],
         diverge=json.dumps({k: res[k] for k in (
             "diverge_step", "logit_rel_err", "plain_top2_gap_rel")
             if k in res}), tol=LOGIT_TOL)
@@ -2310,9 +2620,15 @@ def _decode_step_profile(model):
     return res
 
 
+def _fused_fns():
+    """{name: wrapper} of K8-K10 (their launch counters)."""
+    from modelcompose_tpu_torch.ops import decode_fused
+    return {name: getattr(decode_fused, name) for name in FUSED_KERNELS}
+
+
 def _attention_counters():
-    """(reset, read) of the launch counts of K1, K2, K5 and K6 (the forward
-    path's kernels)."""
+    """(reset, read) of the launch counts of K1, K2, K5, K6 and K8-K10 (the
+    forward path's kernels)."""
     from modelcompose_tpu_torch.ops.flash_attention import (
         flash_attention_forward)
     from modelcompose_tpu_torch.ops.flash_decode import flash_decode_attention
@@ -2320,6 +2636,7 @@ def _attention_counters():
     fns = dict(zip(FORWARD_KERNELS, (flash_attention_forward,
                                      flash_decode_attention, dequant_matmul,
                                      w8a16_gemm)))
+    fns.update(_fused_fns())
 
     def reset():
         for fn in fns.values():
@@ -4407,7 +4724,8 @@ def phase_train_int8(device):
 PROFILE_SPLITS = {"K1": ("fa_fwd_kernel",), "K2": ("fd_split_kernel",),
                   "K3": ("fa_bwd_dq_kernel",), "K4": ("fa_bwd_dkv_kernel",),
                   "K5": ("dequant_gemv",), "K6": ("w8a16_gemm",),
-                  "K7": ("w8a16_dx",),
+                  "K7": ("w8a16_dx",), "K8": ("add_rms_norm",),
+                  "K9": ("rope_kv_write",), "K10": ("silu_mul",),
                   "gemm": ("gemm", "nvjet"), "conv": ("conv",),
                   "copy": ("copy_kernel",)}
 
@@ -4590,7 +4908,7 @@ def _point_dataset(root, rng):
 
 
 def _kernel_counters():
-    """(reset, read) of the launch counts of K1-K6."""
+    """(reset, read) of the launch counts of K1-K6 and K8-K10."""
     from modelcompose_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_forward)
@@ -4600,7 +4918,8 @@ def _kernel_counters():
            "flash_decode": flash_decode_attention,
            "flash_attention_bwd_dq": flash_attention_bwd_dq,
            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
-           "w8a16_gemv": dequant_matmul, "w8a16_gemm": w8a16_gemm}
+           "w8a16_gemv": dequant_matmul, "w8a16_gemm": w8a16_gemm,
+           **_fused_fns()}
 
     def reset():
         for fn in fns.values():
@@ -6447,7 +6766,9 @@ def phase_distributed_serve(device, gen, model, request, serve_tick_ms):
     per_request = {"flash_attention_fwd": n_layers,
                    "flash_decode": n_layers * steps,
                    "w8a16_gemv": _k5_per_step(model.params, 1) * steps + 1,
-                   "w8a16_gemm": _k6_per_forward(model.params)}
+                   "w8a16_gemm": _k6_per_forward(model.params),
+                   **{k: v * steps for k, v in
+                      _fused_per_step(n_layers).items()}}
     vision_ids, vision_inputs = _requests(model.cfg, device, gen)
     slot_requests = {
         f"vision{i}": (vision_ids[i], {"vision": vision_inputs["vision"][
@@ -6500,7 +6821,7 @@ def phase_distributed_serve(device, gen, model, request, serve_tick_ms):
                                  f"no-group graph run's "
                                  f"{runs['no_group_graph']['ids']}")
         if r["launches"] != per_request:
-            raise AssertionError(f"{name}: K1/K2/K5 launches {r['launches']}, "
+            raise AssertionError(f"{name}: launches {r['launches']}, "
                                  f"want {per_request}")
     for name in ("no_group_graph", "tp1_graph"):
         r = runs[name]
@@ -6782,6 +7103,9 @@ def main() -> int:
     # phases draw the same random weights and inputs as without it
     k7 = timed("k7", phase_k7, device,
                torch.Generator(device=device).manual_seed(SEED + 7))
+    # so does phase 4e
+    fused = timed("fused", phase_fused, device,
+                  torch.Generator(device=device).manual_seed(SEED + 8))
     gc.collect()
     torch.cuda.empty_cache()
     launches, main = timed("main", phase_main_path, device, gen)
@@ -7028,6 +7352,16 @@ def main() -> int:
                     tp_shards=[_rounded(c) for c in k6["tp_shards"]])),
         # the int8-base train step is the one path with an int8 product's
         # gradient: the other train phases train on a bf16 base
+        *[dict(name=name, route="cuda", source=source, replaces=replaces,
+               launches=sum(by_path(name).values()),
+               launches_by_path=by_path(name),
+               decode_ab={k: composed["fused_ab"][k] for k in (
+                   "decode_tok_per_s", "step_device_ms", "step_kernels",
+                   "ids_equal")}, **fused[key])
+          for key, name, source, replaces in (
+              ("K8", "add_rms_norm", K8_SOURCE, K8_REPLACES),
+              ("K9", "rope_kv_write", K9_SOURCE, K9_REPLACES),
+              ("K10", "silu_mul", K10_SOURCE, K10_REPLACES))],
         dict(name="w8a16_dx", route="cuda", source=K7_SOURCE,
              replaces=K7_REPLACES,
              launches=train_launches("w8a16_dx", int8["launches"]),

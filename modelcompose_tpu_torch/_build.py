@@ -30,10 +30,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C signature of every entry point: (argtypes, restype).  A pointer or the
 # stream passed as a 32-bit int would be cut, so every one is c_void_p.
 SIGNATURES = {
+    "decode_fused": {
+        "mc_add_rms_norm": (
+            [_P, _P, _P, _P, _P,          # x y w sum out
+             _I, _I, _F, _I, _P], _I),    # M H eps x_bf16 stream
+        "mc_rope_kv_write": (
+            [_P, _P, _P, _P, _P, _P,      # q k v cos sin q_out
+             _P, _P, _P, _P, _P, _I,      # cache_k cache_v scale_k scale_v
+             #                              pos pos64
+             _I, _I, _I, _I, _I,          # B S H Hkv D
+             _I, _I, _I, _P], _I),        # layer int8 x_bf16 stream
+        "mc_silu_mul": (
+            [_P, _P, _P, _L, _I, _P], _I),  # gate up out n x_bf16 stream
+    },
     "flash_attention_fwd": {
         "mc_flash_attention_fwd": (
             [_P, _P, _P, _P, _P, _P, _P,  # q k v q_seg kv_seg out lse

@@ -3,9 +3,10 @@ counterpart of the JAX package's jitted ``_decode_step`` and of the
 ``device_loop`` scan in modelcompose_tpu/core/generate.py), and the capture
 machinery every graph of the port shares (``CapturedStep``, ``GraphLRU``).
 
-A decode step of the 7B backbone is a few thousand small launches (per
-layer: K5's int8 products, four launches at 1-2 rows and seven at 3-8,
-norms, RoPE, the cache write and K2).
+A decode step of the 7B backbone is a few hundred launches (per layer:
+K5's int8 products, four launches at 1-2 rows and seven at 3-8, K8 twice
+(the residual adds and the norms), K9 (RoPE and the cache write), K2 and
+K10 (the SiLU product); a few thousand on the unfused ops).
 Launched from Python one by one, the host sets the pace; captured once
 into a ``torch.cuda.CUDAGraph`` and replayed, the card does.
 
@@ -22,7 +23,7 @@ The capture rules (``CapturedStep``): the capturing call runs the step
 eagerly on a side stream (the warm-up a capture needs: every kernel's
 first launch builds it and sets its shared-memory attribute, which a
 capture cannot do), keeps that result as the call's, and captures the step
-on the same stream; K1-K7's launches inside a capture go into the capture's
+on the same stream; K1-K10's launches inside a capture go into the capture's
 records (``ops.flash_attention.capturing`` and ``ops.quant.capturing``,
 which a backward on autograd's thread finds by the stream, and
 ``ops.flash_decode.capturing``; K2's and K5's scratch lives in their
@@ -66,7 +67,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import ModelConfig
-from ..ops import flash_attention, flash_decode, quant
+from ..ops import decode_fused, flash_attention, flash_decode, quant
 from ..parallel import tp
 from ..tree import tree_leaves
 from .llama import KVCache, forward, local_kv_heads
@@ -216,7 +217,7 @@ class CapturedStep:
 
     def replay(self) -> None:
         """Replay the captured step on the current stream, counting the K1
-        to K7 launches it runs."""
+        to K10 launches it runs."""
         self.graph.replay()
         type(self).replays += 1
         fa = flash_attention
@@ -227,6 +228,9 @@ class CapturedStep:
         quant.dequant_matmul.launches += len(self.k5.launches)
         quant.w8a16_gemm.launches += len(self.k5.gemm)
         quant.w8a16_dx.launches += len(self.k5.dx)
+        decode_fused.add_rms_norm.launches += len(self.k5.norm)
+        decode_fused.rope_kv_write.launches += len(self.k5.rope)
+        decode_fused.silu_mul.launches += len(self.k5.silu)
 
     def _capture(self) -> None:
         """Run the step once eagerly on a side stream (the warm-up a

@@ -20,6 +20,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.attention import attention, decode_attention
+from ..ops.decode_fused import (add_rms_norm, fused_decode, rope_kv_write,
+                                silu_mul, write_token)
 from ..ops.norms import rms_norm
 from ..ops.quant import dequant_matmul, is_quantized, matmul_f32, quantize_int8
 from ..ops.rope import apply_rope, rope_tables
@@ -238,6 +240,18 @@ def _unbind_layers(tree, n: int):
     return tree.unbind(0)
 
 
+def _local_heads(cfg: ModelConfig, q, k) -> Tuple[int, int]:
+    """(query heads, KV heads) of this rank's q and k products; raises
+    where sharded weights run outside their model group's ``tp.scope``."""
+    nh, nkv = q.shape[-1] // cfg.head_dim, k.shape[-1] // cfg.head_dim
+    if nh * tp.model_size() != cfg.num_attention_heads:
+        raise RuntimeError(
+            f"{nh} query heads x a model group of {tp.model_size()} != "
+            f"{cfg.num_attention_heads}: run sharded weights inside their "
+            "group's tp.scope")
+    return nh, nkv
+
+
 def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
            cache: Optional[KVCache], layer_idx: int, cache_write_pos,
            kv_lens, attn_impl: str):
@@ -281,12 +295,7 @@ def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
                                         impl=attn_impl)
 
     q, k, v = lins((ap["q"], ap["k"], ap["v"]), h)
-    nh, nkv = q.shape[-1] // hd, k.shape[-1] // hd
-    if nh * tp.model_size() != cfg.num_attention_heads:
-        raise RuntimeError(
-            f"{nh} query heads x a model group of {tp.model_size()} != "
-            f"{cfg.num_attention_heads}: run sharded weights inside their "
-            "group's tp.scope")
+    nh, nkv = _local_heads(cfg, q, k)
     q = q.view(B, L, nh, hd)
     k = k.view(B, L, nkv, hd)
     v = v.view(B, L, nkv, hd)
@@ -295,9 +304,8 @@ def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
     if cache is not None and kv_lens is not None:
         # Decode: write the token's slot IN PLACE (cache[layer, b, pos[b]]),
         # which saves a copy of the multi-GB cache per step.
-        rows = torch.arange(B, device=x.device)
-        for c, val in _cache_parts(cache.k, k) + _cache_parts(cache.v, v):
-            c[layer_idx, rows, cache_write_pos] = val[:, 0].to(c.dtype)
+        write_token(cache.k, layer_idx, cache_write_pos, k)
+        write_token(cache.v, layer_idx, cache_write_pos, v)
         attn_out = decode_attention(q, cache.k, cache.v, kv_lens,
                                     layer_idx=layer_idx, impl=attn_impl)
     elif cache is not None and cache_write_pos is not None:
@@ -327,6 +335,50 @@ def _layer(cfg: ModelConfig, lp, x, route, cos, sin, *, segment_ids,
     return x + lin(mp["down"], inter, "row")
 
 
+def _fused_decode_layer(cfg: ModelConfig, lp, x, res, route, cos, sin, *,
+                        cache: KVCache, layer_idx: int, pos, kv_lens):
+    """``_layer``'s decode mode on the card (``ops.decode_fused.
+    fused_decode``), with the layer's elementwise work fused as the JAX
+    program's XLA fusions fuse it: K8 (the residual add and RMSNorm), K9
+    (RoPE and the cache write) and K10 (the SiLU product), and the int8
+    base products rounding to x's type themselves where nothing follows
+    them in fp32 (``rounded``).
+
+    The down product's residual add is carried into the next layer's K8
+    (and the final norm's): the layer takes the residual stream ``x`` and
+    the previous layer's down output ``res`` (None before the first layer)
+    and returns its own pair.  Each sum is ``x + res`` rounded once, as the
+    unfused ``x + lin(...)`` rounds it, so the result is ``_layer``'s
+    with the normed values within one unit in the last place (K8's sum of
+    squares runs in another order)."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    eps = cfg.rms_norm_eps
+    ap, mp = lp["attn"], lp["mlp"]
+
+    def lin(p, inp, parallel):
+        return routed_lora_matmul(inp, p["w"], p["lora_a"], p["lora_b"],
+                                  route, parallel=parallel, rounded=True)
+
+    def lins(ps, inp):  # column-split products of one input
+        return routed_lora_matmul_group(inp, ps, route, parallel="column",
+                                        rounded=True)
+
+    x, h = add_rms_norm(x, res, lp["input_layernorm"], eps)
+    q, k, v = lins((ap["q"], ap["k"], ap["v"]), h)
+    nh, nkv = _local_heads(cfg, q, k)
+    q = rope_kv_write(q.view(B, 1, nh, hd), k.view(B, 1, nkv, hd),
+                      v.view(B, 1, nkv, hd), cos, sin, cache.k, cache.v,
+                      layer_idx, pos)
+    attn_out = decode_attention(q, cache.k, cache.v, kv_lens,
+                                layer_idx=layer_idx)
+    x, h = add_rms_norm(x, lin(ap["o"], attn_out.reshape(B, 1, nh * hd),
+                               "row"),
+                        lp["post_attention_layernorm"], eps)
+    gate, up = lins((mp["gate"], mp["up"]), h)
+    return x, lin(mp["down"], silu_mul(gate, up), "row")
+
+
 def forward_hidden(params: Params, cfg: ModelConfig, inputs_embeds, *,
                    route=None, segment_ids=None, positions=None,
                    cache: Optional[KVCache] = None, cache_write_pos=None,
@@ -354,6 +406,17 @@ def forward_hidden(params: Params, cfg: ModelConfig, inputs_embeds, *,
     x = inputs_embeds
     layers = _unbind_layers(params["layers"], cfg.num_hidden_layers)
     group = tp.model_group()  # a recompute in the backward runs in its scope
+    if cache is not None and kv_lens is not None \
+            and fused_decode(x, attn_impl):
+        res = None  # the previous layer's down output, added by K8
+        pos = torch.as_tensor(cache_write_pos, device=device)  # K9 reads it
+        with tp.scope(group):
+            for li, lp in enumerate(layers):
+                x, res = _fused_decode_layer(
+                    cfg, lp, x, res, route, cos, sin, cache=cache,
+                    layer_idx=li, pos=pos, kv_lens=kv_lens)
+            return add_rms_norm(x, res, params["norm"],
+                                cfg.rms_norm_eps)[1], cache
     for li, lp in enumerate(layers):
         def run(x, lp=lp, li=li):
             with tp.scope(group):

@@ -278,12 +278,17 @@ class CaptureRecord:
     CUDA-graph capture: each launch's (M, K, N) in order (a replay re-runs
     them with no Python call, so the graph's owner counts them), and K5's
     split scratch, which lives as long as this record: the graph's owner
-    keeps the record as long as the graph."""
+    keeps the record as long as the graph.  The decode layer's fused
+    passes (ops/decode_fused) record their launches here too: K8
+    (``norm``), K9 (``rope``) and K10 (``silu``), each launch's shape."""
 
     def __init__(self):
         self.launches = []
         self.gemm = []
         self.dx = []
+        self.norm = []
+        self.rope = []
+        self.silu = []
         self.scratch = _Scratch(keep=True)
 
 

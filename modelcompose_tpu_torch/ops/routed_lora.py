@@ -20,7 +20,7 @@ from .quant import (dequant_matmul, dequant_matmul_group, is_quantized,
 
 
 def routed_lora_matmul(x, w, lora_a, lora_b, route, parallel=None,
-                       impl="auto"):
+                       impl="auto", rounded=False):
     """y = x @ w + sum_a route[..., a] * (x @ A_a) @ B_a.
 
     Args:
@@ -36,6 +36,11 @@ def routed_lora_matmul(x, w, lora_a, lora_b, route, parallel=None,
       impl:   an int8 ``w``'s product: "auto" (kernel K5 or K6 on the
               card, see ``quant.dequant_matmul``) or "reference" (its
               plain version).
+      rounded: the decode step's products: an int8 base product with
+              nothing after it in fp32 (no adapter branch, no row-split
+              sum over a model group of more than one) writes x.dtype
+              itself (K5 rounds in its epilogue the fp32 value the cast
+              would round), so no cast pass follows it.
 
     A column-split product's input and its ``[*, r]`` bottleneck pass
     through ``copy_to_model``, whose backward sums their cotangents over
@@ -51,35 +56,50 @@ def routed_lora_matmul(x, w, lora_a, lora_b, route, parallel=None,
     column = parallel == "column"
     x_base = tp.copy_to_model(x) if column else x
     if is_quantized(w):
-        y = dequant_matmul(x_base, w, out_dtype=torch.float32, impl=impl)
+        y = dequant_matmul(x_base, w, impl=impl,
+                           out_dtype=_base_dtype(x, route, parallel, rounded))
     else:
         y = matmul_f32(x_base, w)
     return _adapter_add(x, y, lora_a, lora_b, route, parallel)
 
 
-def routed_lora_matmul_group(x, ps, route, parallel=None, impl="auto"):
+def _base_dtype(x, route, parallel, rounded):
+    """The int8 base product's output type: x.dtype for a ``rounded``
+    product that nothing follows in fp32 (no adapter branch, no row-split
+    sum), else fp32."""
+    if rounded and route is None and (parallel != "row"
+                                      or tp.model_size() == 1):
+        return x.dtype
+    return torch.float32
+
+
+def routed_lora_matmul_group(x, ps, route, parallel=None, impl="auto",
+                             rounded=False):
     """``[routed_lora_matmul(x, p["w"], p["lora_a"], p["lora_b"], route,
-    parallel, impl) for p in ps]`` for products that share x (a layer's
-    q/k/v, its gate/up), whose int8 base products run as one K5 launch
-    where ``quant.k5_groups`` says so (1-2 rows on the card): the members
-    then share one ``copy_to_model(x)`` under a column split, and each
-    keeps its own adapter branch.  Anywhere else, or with a float base or
-    a row split, each member runs as ``routed_lora_matmul`` runs it."""
+    parallel, impl, rounded) for p in ps]`` for products that share x (a
+    layer's q/k/v, its gate/up), whose int8 base products run as one K5
+    launch where ``quant.k5_groups`` says so (1-2 rows on the card): the
+    members then share one ``copy_to_model(x)`` under a column split, and
+    each keeps its own adapter branch.  Anywhere else, or with a float base
+    or a row split, each member runs as ``routed_lora_matmul`` runs it."""
     ws = [p["w"] for p in ps]
     if impl != "auto" or parallel == "row" or not k5_groups(x, len(ps)) \
             or not all(is_quantized(w) for w in ws):
         return [routed_lora_matmul(x, p["w"], p["lora_a"], p["lora_b"],
-                                   route, parallel=parallel, impl=impl)
+                                   route, parallel=parallel, impl=impl,
+                                   rounded=rounded)
                 for p in ps]
     x_base = tp.copy_to_model(x) if parallel == "column" else x
-    ys = dequant_matmul_group(x_base, ws, out_dtype=torch.float32)
+    ys = dequant_matmul_group(x_base, ws, out_dtype=_base_dtype(
+        x, route, parallel, rounded))
     return [_adapter_add(x, y, p["lora_a"], p["lora_b"], route, parallel)
             for y, p in zip(ys, ps)]
 
 
 def _adapter_add(x, y, lora_a, lora_b, route, parallel):
-    """The base product y (fp32) plus the routed adapter branch of x, the
-    row split's sum over the group, in x.dtype."""
+    """The base product y (fp32, or x.dtype where nothing follows it) plus
+    the routed adapter branch of x, the row split's sum over the group, in
+    x.dtype."""
     column = parallel == "column"
     if route is not None:
         if parallel == "row":

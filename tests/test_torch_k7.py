@@ -485,7 +485,8 @@ def test_every_kernel_has_its_profile_split():
             "fa_bwd_dq_kernel": "K3", "fa_bwd_dkv_kernel": "K4",
             "dequant_gemv_stream_kernel": "K5", "dequant_gemv_kernel": "K5",
             "w8a16_gemm_kernel": "K6", "w8a16_dx_scale_kernel": "K7",
-            "w8a16_dx_kernel": "K7"}
+            "w8a16_dx_kernel": "K7", "add_rms_norm_kernel": "K8",
+            "rope_kv_write_kernel": "K9", "silu_mul_kernel": "K10"}
     csrc = os.path.join(os.path.dirname(quant.__file__), os.pardir, "csrc")
     found = set()
     for name in os.listdir(csrc):

@@ -2466,3 +2466,287 @@ def test_a_capture_under_a_group_without_its_communicator_raises():
         assert warmed.graph is not None
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- K8-K10
+# The decode layer's fused passes (ops/decode_fused, csrc/decode_fused.cu)
+# at the decode shapes: 1-8 rows, hidden 4,096, the MCUB-4 heads (32 of
+# 128) and the tp 2 / tp 4 ranks' (16, 8), a cache of 3,360 positions with
+# a different position a row.  K9 and K10 bit-equal to their plain
+# versions; K8's sum bit-equal and its normed output within one unit in
+# the last place of the activations' type (its sum of squares runs in
+# another order).
+
+def _ulps(got, want):
+    """The largest distance in units in the last place between two half
+    tensors (their 16-bit patterns on a monotone line)."""
+    def line(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (line(got) - line(want)).abs().max().item()
+
+
+def _fused_counts():
+    from modelcompose_tpu_torch.ops import decode_fused
+    return (decode_fused.add_rms_norm.launches,
+            decode_fused.rope_kv_write.launches,
+            decode_fused.silu_mul.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("M", [1, 2, 3, 8])
+@pytest.mark.parametrize("H", [4096, 5120, 200])
+def test_k8_matches_plain(H, M, residual, dtype):
+    """K8 against (x + y, rms_norm(x + y)): the sum bit-equal, the normed
+    output within one ulp (a weight of ones: the normed values themselves)
+    and, with a random weight, within the half tolerance; one launch."""
+    from modelcompose_tpu_torch.ops import decode_fused
+    gen = torch.Generator(device="cuda").manual_seed(H + M + residual)
+    x = (torch.randn((M, 1, H), generator=gen, device="cuda") * 3).to(dtype)
+    y = (torch.randn((M, 1, H), generator=gen, device="cuda") * 3).to(dtype) \
+        if residual else None
+    for w in (torch.ones(H, device="cuda", dtype=dtype),
+              (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")
+               ).to(dtype)):
+        n = decode_fused.add_rms_norm.launches
+        s, out = decode_fused.add_rms_norm(x, y, w, 1e-5)
+        assert decode_fused.add_rms_norm.launches == n + 1
+        want_s, want = decode_fused.add_rms_norm_reference(x, y, w, 1e-5)
+        assert s.dtype == out.dtype == dtype
+        assert torch.equal(s, want_s)
+        if bool((w == 1).all()):
+            assert _ulps(out, want) <= 1
+        assert _rel(out, want) <= 2e-2
+
+
+def _k9_case(gen, B, H, Hkv, D, S, NL, int8, dtype, pos_dtype):
+    from modelcompose_tpu_torch.config import ModelConfig
+    from modelcompose_tpu_torch.core.llama import KVCache
+    from modelcompose_tpu_torch.ops.rope import rope_tables
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, 1, Hkv, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, 1, Hkv, D), generator=gen, device="cuda").to(dtype)
+    pos = torch.randperm(S, generator=gen, device="cuda")[:B].to(pos_dtype)
+    cos, sin = rope_tables(pos[:, None], D)
+    cfg = ModelConfig(hidden_size=H * D, num_attention_heads=H,
+                      num_key_value_heads=Hkv, num_hidden_layers=NL,
+                      dtype="bfloat16" if dtype == torch.bfloat16
+                      else "float16")
+    caches = [KVCache.zeros(cfg, B, S, quantized=int8, device="cuda")
+              for _ in range(2)]
+    for c in caches[0].tensors():  # filled, so the writes are what differ
+        c.copy_(torch.randint(-100, 100, c.shape, generator=gen,
+                              device="cuda").to(c.dtype))
+    for a, b in zip(caches[0].tensors(), caches[1].tensors()):
+        b.copy_(a)
+    return (q, k, v, cos, sin), caches, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B", [1, 2, 3, 8])
+@pytest.mark.parametrize("H,Hkv,D", [(32, 32, 128), (16, 16, 128),
+                                     (8, 8, 128), (32, 8, 128), (4, 2, 64)])
+def test_k9_matches_plain(H, Hkv, D, B, int8, dtype):
+    """K9 against apply_rope and the cache writes: the rotated q and the
+    whole caches (int8 values and scales, or the half entries) bit-equal,
+    over a 3,360-position cache with a different position a row (int32
+    and int64 positions); one launch."""
+    from modelcompose_tpu_torch.ops import decode_fused
+    gen = torch.Generator(device="cuda").manual_seed(H + Hkv + D + B)
+    for pos_dtype in (torch.int32, torch.int64):
+        args, (kc, pc), pos = _k9_case(gen, B, H, Hkv, D, 3360, 2, int8,
+                                       dtype, pos_dtype)
+        n = decode_fused.rope_kv_write.launches
+        got = decode_fused.rope_kv_write(*args, kc.k, kc.v, 1, pos)
+        assert decode_fused.rope_kv_write.launches == n + 1
+        want = decode_fused.rope_kv_write_reference(*args, pc.k, pc.v, 1, pos)
+        assert got.dtype == dtype and torch.equal(got, want)
+        for a, b in zip(kc.tensors(), pc.tensors()):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M", [1, 2, 3, 8])
+@pytest.mark.parametrize("I", [11008, 5504, 2752, 200])
+def test_k10_matches_plain(I, M, dtype):
+    """K10 against F.silu(gate) * up, bit-equal; one launch."""
+    from modelcompose_tpu_torch.ops import decode_fused
+    gen = torch.Generator(device="cuda").manual_seed(I + M)
+    gate = (torch.randn((M, 1, I), generator=gen, device="cuda") * 4
+            ).to(dtype)
+    up = torch.randn((M, 1, I), generator=gen, device="cuda").to(dtype)
+    n = decode_fused.silu_mul.launches
+    got = decode_fused.silu_mul(gate, up)
+    assert decode_fused.silu_mul.launches == n + 1
+    assert torch.equal(got, decode_fused.silu_mul_reference(gate, up))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 11008), (11008, 4096),
+                                 (4096, 2048), (2048, 4096), (4096, 1024)])
+def test_k5_half_epilogue_is_the_fp32_output_rounded(K, N, M, dtype):
+    """K5 asked for x's type rounds in its epilogue the fp32 value it
+    writes when asked for fp32: bit-equal to its fp32 output cast."""
+    gen = torch.Generator(device="cuda").manual_seed(K + N + M)
+    x, wq = _k5_inputs(gen, M, K, N, dtype)
+    got = dequant_matmul(x, wq, out_dtype=dtype)
+    assert got.dtype == dtype
+    assert torch.equal(got, dequant_matmul(x, wq, out_dtype=torch.float32)
+                       .to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("K,Ns", K5_GROUPS)
+def test_k5_group_half_epilogue_is_the_fp32_output_rounded(K, Ns, M, dtype):
+    """The grouped K5 launch asked for x's type: each member bit-equal to
+    its fp32 output cast."""
+    gen = torch.Generator(device="cuda").manual_seed(K + sum(Ns) + M)
+    x = torch.randn((M, 1, K), generator=gen, device="cuda").to(dtype)
+    ws = [_k5_inputs(gen, 1, K, N)[1] for N in Ns]
+    got = quant.dequant_matmul_group(x, ws, out_dtype=dtype)
+    f32 = quant.dequant_matmul_group(x, ws, out_dtype=torch.float32)
+    for a, b in zip(got, f32):
+        assert a.dtype == dtype and torch.equal(a, b.to(dtype))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_k8_k9_k10_in_a_graph_replay_at_two_positions(int8):
+    """K8, K9 and K10 captured in a CapturedStep (their launches recorded,
+    counted at each replay), replayed at two different positions copied
+    into the static position buffer: each replay's outputs and cache
+    writes bit-equal to eager calls at those positions."""
+    from modelcompose_tpu_torch.core.decode_graph import CapturedStep
+    from modelcompose_tpu_torch.ops import decode_fused
+    from modelcompose_tpu_torch.ops.rope import rope_tables
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    B, H, D, S = 2, 32, 128, 3360
+    (q, k, v, _, _), (kc, pc), pos = _k9_case(gen, B, H, H, D, S, 2, int8,
+                                              torch.bfloat16, torch.int32)
+    static_pos = pos.clone()
+    x = _rnd(gen, B, 1, 4096)
+    y = _rnd(gen, B, 1, 4096)
+    w = torch.ones(4096, device="cuda", dtype=torch.bfloat16)
+    gate, up = _rnd(gen, B, 1, 11008), _rnd(gen, B, 1, 11008)
+
+    def step(cache, p):
+        cos, sin = rope_tables(p[:, None], D)
+        s, h = decode_fused.add_rms_norm(x, y, w, 1e-5)
+        qr = decode_fused.rope_kv_write(q, k, v, cos, sin, cache.k, cache.v,
+                                        1, p)
+        return s, h, qr, decode_fused.silu_mul(gate, up)
+
+    class Step(CapturedStep):
+        def _step(self):
+            return step(kc, static_pos)
+    graph = Step("cuda")
+    graph.run()  # eager warm-up and capture
+    step(pc, pos)  # the warm-up's writes
+    assert graph.graph is not None
+    assert (len(graph.k5.norm), len(graph.k5.rope), len(graph.k5.silu)) \
+        == (1, 1, 1)
+    for new in (pos + 5, pos + 17):
+        static_pos.copy_(new)
+        before = _fused_counts()
+        got = graph.run()
+        assert tuple(a - b for a, b in zip(_fused_counts(), before)) \
+            == (1, 1, 1)
+        want = step(pc, new)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        for a, b in zip(kc.tensors(), pc.tensors()):
+            assert torch.equal(a, b)
+
+
+def test_fused_kernels_refuse_what_they_do_not_take():
+    """On the card a wrapper launches or raises: fp32 activations given to
+    it directly, a non-contiguous input, a head dim other than 64 or 128."""
+    from modelcompose_tpu_torch.ops import decode_fused
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = _rnd(gen, 2, 1, 4096)
+    w = torch.ones(4096, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        decode_fused.add_rms_norm(x.float(), None, w.float(), 1e-5)
+    with pytest.raises(ValueError):
+        decode_fused.add_rms_norm(_rnd(gen, 2, 8192)[:, ::2], None, w, 1e-5)
+    with pytest.raises(TypeError):
+        decode_fused.silu_mul(x.float(), x.float())
+    with pytest.raises(ValueError):
+        decode_fused.silu_mul(_rnd(gen, 2, 8192)[:, ::2], x.view(2, 4096))
+    for D, strided in ((32, False), (128, True)):
+        args, (kc, _), pos = _k9_case(gen, 2, 4, 4, D, 64, 1, True,
+                                      torch.bfloat16, torch.int32)
+        q = args[0]
+        if strided:
+            q = torch.cat([q, q], dim=-1)[..., ::2]
+        with pytest.raises(ValueError):
+            decode_fused.rope_kv_write(q, *args[1:], kc.k, kc.v, 0, pos)
+    args, (kc, _), pos = _k9_case(gen, 2, 4, 4, 128, 64, 1, True,
+                                  torch.bfloat16, torch.int32)
+    with pytest.raises(TypeError):
+        decode_fused.rope_kv_write(*(a.float() for a in args[:3]), *args[3:],
+                                   kc.k, kc.v, 0, pos)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_fused_decode_step_against_the_unfused_step(kv_quant, B):
+    """One eager decode step of the tiny int8 backbone with the dense fold
+    (no decode table) through K8-K10 and K5's bf16 output, against the
+    same step on the unfused ops (``fused_decode`` off): K8 2 a layer + 1,
+    K9 and K10 once a layer; logits within 2e-2 of max |logit| and the
+    caches within one int8 step (K8's normed values may differ by one
+    ulp); through a DecodeGraph the same counts at each replay and the
+    logits bit-equal to the eager fused step's."""
+    from modelcompose_tpu_torch.core import generate as tgen
+    from modelcompose_tpu_torch.core import llama as tllama
+    from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
+    cfg, params, gen = _tiny_card_backbone(True)
+    L, S = 40, 60
+    embeds = _rnd(gen, B, L, cfg.hidden_size)
+    lengths = torch.tensor([40, 23, 31][:B], dtype=torch.int32,
+                           device="cuda")
+    seg = (torch.arange(L, device="cuda")[None] < lengths[:, None]).int()
+    tokens = torch.tensor([7, 9, 11][:B], device="cuda")
+    n = cfg.num_hidden_layers
+    outs = []
+    for fused in (True, False):
+        with torch.no_grad():
+            _, cache = tgen._prefill(params, cfg, embeds, None, None, seg,
+                                     lengths, S, kv_quant=kv_quant)
+            before = _fused_counts()
+            if fused:
+                logits, cache, _ = tgen._decode_step(params, cfg, cache,
+                                                     tokens, lengths, None)
+            else:
+                kept = tllama.fused_decode
+                tllama.fused_decode = lambda x, impl: False
+                try:
+                    logits, cache, _ = tgen._decode_step(
+                        params, cfg, cache, tokens, lengths, None)
+                finally:
+                    tllama.fused_decode = kept
+        delta = tuple(a - b for a, b in zip(_fused_counts(), before))
+        assert delta == ((2 * n + 1, n, n) if fused else (0, 0, 0))
+        outs.append((logits, cache))
+    (lf, cf), (lu, cu) = outs
+    assert _rel(lf, lu) <= 2e-2
+    for a, b in zip(cf.tensors(), cu.tensors()):
+        if a.dtype == torch.int8:
+            assert (a.int() - b.int()).abs().max().item() <= 1
+        else:
+            assert _rel(a, b) <= 2e-2
+    graph = DecodeGraph(params, cfg, B, S, kv_quant=kv_quant)
+    with torch.no_grad():
+        tgen._prefill(params, cfg, embeds, None, None, seg, lengths, S,
+                      kv_quant=kv_quant, cache=graph.cache)
+    for _ in range(3):  # eager (capture), replay, replay
+        before = _fused_counts()
+        got = graph(tokens, lengths).clone()
+        assert tuple(a - b for a, b in zip(_fused_counts(), before)) \
+            == (2 * n + 1, n, n)
+    # the replays rewrote the same slots: the logits are the eager step's
+    assert torch.equal(got, lf)
