@@ -66,8 +66,17 @@ nonzero:
    within one ulp (a weight of ones), K9's rotated q and whole caches and
    K10 bit-equal; each timed by CUDA-graph replay beside its plain version
    and its bound (the bytes at 3.35 TB/s); no one PyTorch call computes any
-   of them (``library_ms`` null); the sum over a decode step (65 K8, 32 K9,
-   32 K10);
+   of them (``library_ms`` null, but for K8 with no residual, the final
+   norm: ``F.rms_norm``); the sum over a decode step (65 K8, 32 K9, 32
+   K10); then K8 and K9 inside K5's streaming launch at 1 and 2 rows: the
+   Vicuna-7B q/k/v group and its tp 2 / tp 4 shards with K8 in the
+   prologue and K9 in the epilogue (int8 cache, and bf16 for the whole
+   group), gate/up and its shards and the lm_head with K8 in the
+   prologue, each bit-equal to K8, K5 and K9 launched in turn (s, the
+   outputs, the whole caches) and within 2e-2 of its plain version, timed
+   by CUDA-graph replay over 8 weight copies beside that chain (in one
+   graph, and launch by launch), its plain version and its bound; the sum
+   over a step's 64 fused launches;
 5. the serving path at Vicuna-7B width: a vision DAMC composition (CLIP
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
@@ -81,8 +90,12 @@ nonzero:
    exactly once an int8 product there (7 a layer: 224), K5
    exactly 4 a layer + 1 a replayed decode step of 1-2 rows (q/k/v and
    gate/up one launch each; 7 a layer + 1 at 3-8) and once in the
-   prefill's lm_head, K8 2 a layer + 1, K9 and K10 once a layer a replayed
-   decode step and none in the prefill, peak
+   prefill's lm_head, K8-K10 a replayed decode step as
+   ``_fused_per_step`` counts them (at 1-2 rows K8 alone only for the
+   final norm, each layer's norms in the prologue of the K5 launch that
+   reads them and RoPE with the cache write in the q/k/v launch's
+   epilogue; at 3-8 rows K8 2 a layer + 1 and K9 once a layer), K10 once
+   a layer, and none in the prefill, peak
    allocated and reserved memory, each kind's graph pool GB, the time to
    first token of the three calls: eager, capturing, replayed); the same
    request with the tower, the prefill and the decode launch by launch
@@ -108,14 +121,15 @@ nonzero:
    against the plain int8 product with K2 in both (in turns plain, K5, K5,
    plain: decode tokens/s, one replayed step's device time by kernel in
    ``chiprun_out/decode_step_profile_{k5,plain}.txt``, greedy ids equal or
-   parting at a named near tie), a decode A/B through the graphs of the
-   fused decode layer (K8-K10, K5 writing bf16) against the unfused one
-   (the layer's ops as PyTorch kernels, K5 writing fp32 and a cast), K2
-   and K5 in both (in turns plain, fused, fused, plain: decode tokens/s,
+   parting at a named near tie), a decode A/B through the graphs of three
+   routes of the decode layer: K8 and K9 inside K5's launches, K8-K10 as
+   launches of their own, and unfused (the layer's ops as PyTorch
+   kernels, K5 writing fp32 and a cast), K2 and K5 in all (in turns
+   unfused, separate, in_k5, in_k5, separate, unfused: decode tokens/s,
    one replayed step's device time and its kernels counted by profile
-   split in ``chiprun_out/decode_step_profile_fused_ab_{fused,plain}.txt``,
-   K8-K10 exactly a step's in each fused decode step and none in the
-   plain arm, greedy ids equal or parting at a named near tie), a prefill
+   split in ``chiprun_out/decode_step_profile_fused_ab_<route>.txt``, the
+   K5 and K8-K10 launches of every turn checked exactly, greedy ids equal
+   or parting at a named near tie), a prefill
    A/B of K6 against the plain
    route above 8 rows with K1 and K5 in both (in turns plain, K6, K6,
    plain: the one-shot prefill through its graph; a 512-row chunk step
@@ -312,7 +326,11 @@ sums over a layer and a 32-layer step, its ``train_ab`` phase 9b's A/B,
 the weight; its launches phase 9b's, the one path with an int8 base's
 gradient), K8, K9 and K10 at one row of the MCUB-4 decode (their
 ``shapes`` the others and ``step`` the sum over a decode step, their
-``decode_ab`` phase 6's third A/B); K1's and K2's
+``decode_ab`` phase 6's third A/B), and K8 and K9 inside K5's launch,
+named by their counters (``norm_matmul_group``: K8 in the prologue, at
+one row of gate/up; ``norm_qkv_rope``: K8 and K9, at one row of q/k/v;
+their ``shapes`` the others with the unfused chain's times, ``step`` the
+sum over a step's 64 fused launches); K1's and K2's
 ``mcub4`` hold
 the composed path's shape, K2's ``*_cold`` keys its device time with every
 launch on a cold layer, and K3's and K4's ``train_batch`` and
@@ -374,8 +392,11 @@ K8_SOURCE = K9_SOURCE = K10_SOURCE = \
 K8_REPLACES = "modelcompose_tpu/ops/norms.py:9"
 K9_REPLACES = "modelcompose_tpu/ops/rope.py:36"
 K10_REPLACES = "modelcompose_tpu/core/llama.py:323"
-# the decode layer's fused passes, by their launch counters' names
-FUSED_KERNELS = ("add_rms_norm", "rope_kv_write", "silu_mul")
+# the decode layer's fused passes, by their launch counters' names: K8, K9
+# and K10 as launches of their own, then K5's launches with K8 in their
+# prologue and with K8 and K9 (each also counted as a K5 launch)
+FUSED_KERNELS = ("add_rms_norm", "rope_kv_write", "silu_mul",
+                 "norm_matmul_group", "norm_qkv_rope")
 # the launch counters of the forward kernels, as the phases read them
 FORWARD_KERNELS = ("flash_attention_fwd", "flash_decode", "w8a16_gemv",
                    "w8a16_gemm") + FUSED_KERNELS
@@ -770,10 +791,10 @@ def _timed_request(phase, model, ids, inputs, record=None, **kw):
     if launches["w8a16_gemm"] != _k6_per_forward(model.params):
         raise AssertionError(f"{phase}: K6 {launches} in one replayed "
                              f"prefill, want {_k6_per_forward(model.params)}")
-    # K8-K10 in each replayed decode step (65, 32, 32 at 32 layers), none
+    # K8-K10 (alone or in K5's launches) in each replayed decode step, none
     # in the prefill
     fused = {k: v * (NEW_TOKENS - 1) for k, v in _fused_per_step(
-        model.cfg.num_hidden_layers).items()}
+        model.params, len(ids)).items()}
     if {k: launches[k] for k in FUSED_KERNELS} != fused:
         raise AssertionError(f"{phase}: K8-K10 {launches} for "
                              f"{NEW_TOKENS - 1} replayed decode steps, "
@@ -1241,14 +1262,29 @@ def _k5_per_step(params, rows):
         + int(is_quantized(params["lm_head"]))
 
 
-def _fused_per_step(n_layers):
-    """K8-K10 launches in one decode step of an ``n_layers`` backbone on
-    bf16 activations: K8 twice a layer (the input norm with the previous
-    layer's down residual, the post-attention norm with the o residual) and
-    once for the final norm, K9 and K10 once a layer (65, 32, 32 for
-    Vicuna-7B), whatever the rows."""
-    return {"add_rms_norm": 2 * n_layers + 1, "rope_kv_write": n_layers,
-            "silu_mul": n_layers}
+def _fused_per_step(params, rows, routed=False, in_k5=True):
+    """K8-K10 launches in one decode step of ``rows`` rows of ``params``
+    (bf16 activations, head_dim 128), by counter: at 1-2 rows each norm
+    that a grouped int8 K5 launch reads runs in its prologue
+    (``norm_matmul_group``) and, with no adapter branch (``routed`` False:
+    the dense fold), RoPE and the cache write in the q/k/v launch's
+    epilogue (``norm_qkv_rope``); K8 alone then only for the final norm
+    (65, 32, 32 for Vicuna-7B at 3-8 rows, or with ``in_k5`` False; 1, 0,
+    32 with 32 + 32 fused launches at 1-2).  K10 once a layer."""
+    from modelcompose_tpu_torch.ops.quant import K5_GROUP_ROWS, is_quantized
+    layers = params["layers"]
+    n = layers["input_layernorm"].shape[0]
+
+    def grouped(grp, names):
+        return in_k5 and rows <= K5_GROUP_ROWS and all(
+            is_quantized(layers[grp][k]["w"]) for k in names)
+    qkv, gate_up = grouped("attn", ("q", "k", "v")), grouped("mlp", ("gate",
+                                                                     "up"))
+    rope = qkv and not routed
+    return {"add_rms_norm": 1 + n * ((not qkv) + (not gate_up)),
+            "rope_kv_write": 0 if rope else n, "silu_mul": n,
+            "norm_matmul_group": n * ((qkv and not rope) + gate_up),
+            "norm_qkv_rope": n if rope else 0}
 
 
 def _k6_per_forward(params):
@@ -1831,15 +1867,163 @@ def _fused_timed(res, fn, plain, nbytes, flops):
     return res
 
 
+# K8 and K9 inside K5's streaming launch at 1-2 rows: (member N..., the
+# RoPE epilogue's head_dim or None) of the groups whose input is a norm's
+# output, with K = 4,096 (the hidden width): Vicuna-7B's q/k/v (K8 + K9)
+# and gate/up (K8) and the tp 2 / tp 4 ranks' column shards, and the
+# lm_head (the final norm, one member: what folding it would cost).
+FUSED_K5 = {"qkv": ((4096,) * 3, 128), "tp2 qkv": ((2048,) * 3, 128),
+            "tp4 qkv": ((1024,) * 3, 128), "gate_up": ((11008,) * 2, None),
+            "tp2 gate_up": ((5504,) * 2, None),
+            "tp4 gate_up": ((2752,) * 2, None), "lm_head": ((32000,), None)}
+FUSED_K5_ROWS = (1, 2)
+FUSED_K5_COPIES = 8  # weight copies cycled: each launch finds them cold
+
+
+def _fused_k5_case(device, gen, name, M, int8=True):
+    """One fused launch (``norm_qkv_rope`` for a group with a head_dim,
+    else ``norm_matmul_group``; x, the residual and a random norm weight;
+    the q/k/v's outputs in bf16, gate/up's in bf16, the lm_head's fp32)
+    against K8, K5 and K9 launched in turn on the same inputs: s, every
+    output and the whole caches bit-equal; against its plain version
+    within ATTN_TOL of max |plain| (K8's normed values may differ from the
+    plain rms_norm's by one ulp, and the products sum in another order;
+    int8 cache values within one step).  Timed by CUDA-graph replay over
+    ``FUSED_K5_COPIES`` weight copies: the fused launch, the unfused chain
+    in one graph and each of its launches alone, and the plain version;
+    the bound from the bytes the fused launch must move."""
+    import itertools
+    import torch
+    from modelcompose_tpu_torch.config import ModelConfig
+    from modelcompose_tpu_torch.core.llama import KVCache
+    from modelcompose_tpu_torch.ops import decode_fused as df
+    from modelcompose_tpu_torch.ops import quant
+    from modelcompose_tpu_torch.ops.rope import rope_tables
+    bf = torch.bfloat16
+    Ns, D = FUSED_K5[name]
+    K = FUSED_HIDDEN
+    out = torch.float32 if name == "lm_head" else bf
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(bf)
+    x, y = rnd(M, 1, K, scale=3.0), rnd(M, 1, K, scale=3.0)
+    w = rnd(K, scale=0.1) + 1
+    copies = [[{"q": torch.randint(-127, 128, (K, N), generator=gen,
+                                   device=device, dtype=torch.int8),
+                "scale": torch.rand((1, N), generator=gen, device=device)
+                * 1e-3 + 1e-4} for N in Ns] for _ in range(FUSED_K5_COPIES)]
+    caches = rope = None
+    if D:
+        Hkv = Ns[1] // D
+        cfg = ModelConfig(hidden_size=Ns[0], num_attention_heads=Ns[0] // D,
+                          num_key_value_heads=Hkv,
+                          num_hidden_layers=FUSED_LAYERS, dtype="bfloat16")
+        caches = [KVCache.zeros(cfg, M, FUSED_CACHE_LEN, quantized=int8,
+                                device=device) for _ in range(3)]
+        pos = torch.randperm(FUSED_CACHE_LEN, generator=gen,
+                             device=device)[:M].to(torch.int32)
+        cos, sin = rope_tables(pos[:, None], D)
+        rope = [df.RopeWrite(cos, sin, c.k, c.v, 1, pos) for c in caches]
+
+    def fused(ws):
+        if D:
+            return df.norm_qkv_rope(x, y, w, 1e-5, ws, rope[0])
+        s, _, outs = df.norm_matmul_group(x, y, w, 1e-5, ws, out)
+        return [s] + outs
+
+    def products(h, ws):
+        return [quant.dequant_matmul(h, ws[0], out_dtype=out)] \
+            if len(ws) == 1 else quant.dequant_matmul_group(h, ws,
+                                                            out_dtype=out)
+
+    def chain(ws):
+        s, h = df.add_rms_norm(x, y, w, 1e-5)
+        outs = products(h, ws)
+        if D:
+            return s, df.rotate_and_write(outs, rope[1], df.rope_kv_write)
+        return [s] + outs
+
+    def plain(ws):
+        s, _, outs = df.norm_matmul_group_reference(
+            x, y, w, 1e-5, ws, out, rope[2] if D else None)
+        return [s] + outs
+    before = (df.norm_matmul_group.launches, df.norm_qkv_rope.launches)
+    got = fused(copies[0])
+    counted = (df.norm_matmul_group.launches - before[0],
+               df.norm_qkv_rope.launches - before[1])
+    if counted != ((0, 1) if D else (1, 0)):
+        raise AssertionError(f"fused K5 {name} M{M}: launches {counted}")
+    want = chain(copies[0])
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    if D:
+        equal = equal and all(torch.equal(a, b) for a, b in zip(
+            caches[0].tensors(), caches[1].tensors()))
+    if not equal:
+        raise AssertionError(f"fused K5 {name} M{M} int8 {int8}: differs "
+                             f"from K8, K5 and K9 in turn")
+    ref = plain(copies[0])
+    err = rel = 0.0
+    for a, b in zip(got, ref):
+        e, r = _rel_err(a, b)
+        err, rel = max(err, e), max(rel, r)
+    if D and int8:
+        steps = max((a.int() - b.int()).abs().max().item() for a, b in zip(
+            (caches[0].k["q"], caches[0].v["q"]),
+            (caches[2].k["q"], caches[2].v["q"])))
+        if steps > 1:
+            raise AssertionError(f"fused K5 {name} M{M}: int8 cache {steps} "
+                                 f"steps from the plain version")
+    if rel > ATTN_TOL:
+        raise AssertionError(f"fused K5 {name} M{M}: rel err {rel:.3g} "
+                             f"against the plain version")
+    res = {"shape": name, "M": M, "K": K, "N": list(Ns),
+           "form": "K8+K9 in K5" if D else "K8 in K5",
+           "cache": ("int8" if int8 else "bf16") if D else None,
+           "max_abs_err": err, "rel_err": rel, "chain_bit_equal": True}
+    layers = itertools.cycle(range(FUSED_K5_COPIES))
+
+    def cycled(fn):
+        return graph_time_ms(lambda: fn(copies[next(layers)]),
+                             n=FUSED_K5_COPIES)
+    s0, h0 = df.add_rms_norm(x, y, w, 1e-5)
+    res.update(ms=cycled(fused), chain_ms=cycled(chain),
+               k8_ms=graph_time_ms(lambda: df.add_rms_norm(x, y, w, 1e-5)),
+               k5_ms=cycled(lambda ws: products(h0, ws)),
+               plain_ms=cycled(plain), library_ms=None)
+    if D:
+        qkv = products(h0, copies[0])
+        res["k9_ms"] = graph_time_ms(lambda: df.rotate_and_write(
+            qkv, rope[1], df.rope_kv_write))
+    parts = [res[k] for k in ("k8_ms", "k5_ms", "k9_ms") if k in res]
+    res["parts_sum_ms"] = None if None in parts else sum(parts)
+    out_bytes = out.itemsize * M * sum(Ns)
+    if D:
+        Hkv = Ns[1] // D
+        vec = M * Hkv * D
+        out_bytes = 2 * M * Ns[0] + 2 * 4 * M * D + 4 * M + (
+            2 * (vec + 4 * M * Hkv) if int8 else 2 * 2 * vec)
+    nbytes = sum(K * N + 4 * N for N in Ns) + 2 * (3 * M * K + K) \
+        + out_bytes
+    res["bound_ms"], res["bound_by"] = bound(2 * M * K * sum(Ns), nbytes)
+    res["share_of_bound"] = None if res["ms"] is None \
+        else res["bound_ms"] / res["ms"]
+    del copies, caches
+    return res
+
+
 def phase_fused(device, gen):
     """K8, K9 and K10 against their plain versions at the MCUB-4 decode
     shapes (1 and 8 rows; the tp 2 and 4 ranks' heads and intermediate
     widths): K8's sum bit-equal and its normed output within one ulp (a
     weight of ones) or 2e-2 (a random weight), K9's rotated q and whole
     int8 or bf16 caches bit-equal, K10 bit-equal; each timed by CUDA-graph
-    replay beside its plain version and its bound from the bytes it moves;
-    and the sum over one decode step of the 32-layer model (65 K8, 32 K9,
-    32 K10)."""
+    replay beside its plain version and its bound from the bytes it moves
+    (and K8 without a residual beside ``F.rms_norm``); the sum over one
+    decode step of the 32-layer model (65 K8, 32 K9, 32 K10); then K8 and
+    K9 inside K5's streaming launch at 1 and 2 rows (``_fused_k5_case`` for
+    every ``FUSED_K5`` group) and the sum over a step's 64 fused
+    launches."""
     import torch
     from modelcompose_tpu_torch.core.llama import KVCache
     from modelcompose_tpu_torch.config import ModelConfig
@@ -1877,6 +2061,9 @@ def phase_fused(device, gen):
                 res, lambda: df.add_rms_norm(x, yy, w, 1e-5),
                 lambda: df.add_rms_norm_reference(x, yy, w, 1e-5), nbytes,
                 5 * M * H))
+            if not residual:  # the final norm: one PyTorch call computes it
+                res["library_ms"] = graph_time_ms(
+                    lambda: torch.nn.functional.rms_norm(x, (H,), w, 1e-5))
         for name, heads in FUSED_HEADS.items():
             for int8 in (True, False) if name == "mcub4" else (True,):
                 q, k, v = (rnd(M, 1, h, D) for h in (heads, heads, heads))
@@ -1923,6 +2110,13 @@ def phase_fused(device, gen):
                 lambda: df.silu_mul_reference(gate, up), 3 * 2 * M * inter,
                 6 * M * inter))
         torch.cuda.empty_cache()
+    rows["K8 in K5"], rows["K8+K9 in K5"] = [], []
+    for M in FUSED_K5_ROWS:
+        for name, (_, D) in FUSED_K5.items():
+            for int8 in (True, False) if name == "qkv" else (True,):
+                c = _fused_k5_case(device, gen, name, M, int8)
+                rows[c["form"]].append(c)
+        torch.cuda.empty_cache()
     for key, cases in rows.items():
         for c in cases:
             log(key, **{k: (f"{v:.4g}" if isinstance(v, float) else v)
@@ -1942,17 +2136,41 @@ def phase_fused(device, gen):
             step[M] = {k: sum(n * c[k] for c, n in parts)
                        for k in ("ms", "plain_ms", "bound_ms")}
             step[M]["launches"] = 129
+    # the 64 norm -> product launch groups of a 32-layer step at 1-2 rows:
+    # 32 q/k/v (int8 cache) and 32 gate/up, fused against K8, K5 and K9
+    # launched in turn (one graph: ``chain_ms``; each alone: the parts)
+    in_k5 = {}
+    for M in FUSED_K5_ROWS:
+        qkv = next(c for c in rows["K8+K9 in K5"] if c["M"] == M
+                   and c["shape"] == "qkv" and c["cache"] == "int8")
+        gu = next(c for c in rows["K8 in K5"] if c["M"] == M
+                  and c["shape"] == "gate_up")
+        in_k5[M] = {k: None if qkv[k] is None or gu[k] is None
+                    else 32 * (qkv[k] + gu[k]) for k in (
+                        "ms", "chain_ms", "parts_sum_ms", "plain_ms",
+                        "bound_ms")}
+        in_k5[M]["launches"] = 64
     log("fused", step_sum_ms=json.dumps(
-        {m: {k: round(v, 4) for k, v in s.items()} for m, s in step.items()}))
+        {m: {k: round(v, 4) for k, v in s.items()} for m, s in step.items()}),
+        in_k5_step_sum_ms=json.dumps(
+            {m: {k: v if v is None else round(v, 4) for k, v in s.items()}
+             for m, s in in_k5.items()}))
     out = {}
-    for key, note in (("K8", "none: F.rms_norm rounds in another order "
-                             "(no cast before the weight)"),
-                      ("K9", "none"), ("K10", "none")):
+    k8_alone = next(c for c in rows["K8"] if not c["residual"])
+    for key, note in (("K8", "F.rms_norm on the no-residual case (the "
+                             "final norm; it rounds in another order); "
+                             "none with the residual"),
+                      ("K9", "none"), ("K10", "none"),
+                      ("K8 in K5", "none"), ("K8+K9 in K5", "none")):
         first = rows[key][0]  # one row of the Vicuna-7B shape
         out[key] = dict({k: first[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "share_of_bound")}, max_abs_err=errs[key], library_call=note,
-            shapes=[_rounded(c) for c in rows[key]], step=step)
+            "share_of_bound")}, library_call=note,
+            shapes=[_rounded(c) for c in rows[key]],
+            step=in_k5 if "K5" in key else step)
+        out[key]["max_abs_err"] = errs[key] if key in errs \
+            else max(c["max_abs_err"] for c in rows[key])
+    out["K8"]["library_ms"] = k8_alone["library_ms"]
     return out
 
 
@@ -2392,45 +2610,67 @@ def _k5_decode_ab(model, ids, inputs, kw):
 
 
 class _FusedArm(_DequantArm):
-    """The plain arm of phase 6's third A/B: the decode layer unfused, as
-    the parent route ran it (``llama.fused_decode`` off: RMSNorm, RoPE,
-    the KV quantize and writes, the SiLU product and the residual adds as
-    PyTorch ops, K5 writing fp32 and a cast after it), the graphs dropped
-    as ``_DequantArm`` drops them.  K2, K5 and K6 stay."""
+    """An arm of phase 6's third A/B, the graphs dropped on entry and exit
+    as ``_DequantArm`` drops them, K2, K5 and K6 kept: ``route``
+    "unfused", the decode layer as the route before K8-K10 ran it
+    (``llama.fused_decode`` off: RMSNorm, RoPE, the KV quantize and
+    writes, the SiLU product and the residual adds as PyTorch ops, K5
+    writing fp32 and a cast after it); "separate", K8-K10 each a launch of
+    its own (``decode_fused.norm_fuses`` off); "in_k5", the main path (K8
+    in the prologue of the K5 launch that reads it, K9 in the q/k/v
+    launch's epilogue)."""
 
-    def __init__(self, model):
+    def __init__(self, model, route="unfused"):
         super().__init__(model, ("k5", "k6"))
+        self.route = route
 
     def __enter__(self):
         from modelcompose_tpu_torch.core import llama
-        self.llama, self.fused = llama, llama.fused_decode
-        llama.fused_decode = lambda x, attn_impl: False
+        from modelcompose_tpu_torch.ops import decode_fused
+        self.llama, self.df = llama, decode_fused
+        self.fused, self.norm = llama.fused_decode, decode_fused.norm_fuses
+        if self.route == "unfused":
+            llama.fused_decode = lambda x, attn_impl: False
+        if self.route == "separate":
+            decode_fused.norm_fuses = lambda x, weights: False
         return super().__enter__()
 
     def __exit__(self, *exc):
-        self.llama.fused_decode = self.fused
+        self.llama.fused_decode, self.df.norm_fuses = self.fused, self.norm
         super().__exit__(*exc)
 
 
+# phase 6's third A/B: its arms in turns
+FUSED_AB_TURNS = ("unfused", "separate", "in_k5", "in_k5", "separate",
+                  "unfused")
+
+
 def _fused_decode_ab(model, ids, inputs, kw):
-    """Phase 6's request through the graphs with the decode layer fused
-    (K8-K10, K5 rounding to bf16) and unfused (``_FusedArm``), K2 and K5
-    in both, in turns plain, fused, fused, plain: each turn's decode
-    tokens/s (the second of two calls: its decode replays the graph the
-    first captured), one replayed step's device time and its kernels by
-    profile split (each arm's first turn), K8-K10's launches (exactly a
-    step's for every decode step of the fused arm, none in the plain one),
-    and the greedy ids of the two arms equal or parting at a named near
+    """Phase 6's request through the graphs on the three routes of the
+    decode layer (``_FusedArm``: unfused, K8-K10 as launches of their own,
+    K8 and K9 inside K5's launches), K2 and K5 in all, in turns unfused,
+    separate, in_k5, in_k5, separate, unfused: each turn's decode tokens/s
+    (the second of two calls: its decode replays the graph the first
+    captured), one replayed step's device time and its kernels by profile
+    split (each arm's first turn), the K5 and K8-K10 launches of every
+    turn checked exactly (``_k5_per_step``, ``_fused_per_step``: K8-K10
+    none on the unfused route, their separate launches on the separate
+    one), and the greedy ids of the arms equal or parting at a named near
     tie."""
+    from modelcompose_tpu_torch.ops.quant import dequant_matmul
     tok_s, answers, profiles, launches = {}, {}, {}, {}
-    fns = _fused_fns()
+    fns = dict(_fused_fns(), w8a16_gemv=dequant_matmul)
     steps = 2 * (NEW_TOKENS - 1)
-    want = {k: v * steps for k, v in _fused_per_step(
-        model.cfg.num_hidden_layers).items()}
-    for arm in ("plain", "fused", "fused", "plain"):
-        ctx = _FusedArm(model) if arm == "plain" \
-            else _DequantArm(model, ("k5", "k6"))
-        with ctx:
+    rows = len(ids)
+    k5 = {"w8a16_gemv": 2 * (_k5_per_step(model.params, rows)
+                             * (NEW_TOKENS - 1) + 1)}
+    want = {"in_k5": dict(k5, **{k: v * steps for k, v in _fused_per_step(
+                model.params, rows).items()}),
+            "separate": dict(k5, **{k: v * steps for k, v in _fused_per_step(
+                model.params, rows, in_k5=False).items()}),
+            "unfused": dict(k5, **dict.fromkeys(FUSED_KERNELS, 0))}
+    for arm in FUSED_AB_TURNS:
+        with _FusedArm(model, arm):
             before = {k: f.launches for k, f in fns.items()}
             for _ in range(2):
                 timings = {}
@@ -2449,9 +2689,10 @@ def _fused_decode_ab(model, ids, inputs, kw):
                 profiles[arm] = _profile(
                     f"decode_step_fused_ab_{arm}", graph.replay,
                     f"decode_step_profile_fused_ab_{arm}.txt")
-        if counted != (want if arm == "fused" else dict.fromkeys(want, 0)):
-            raise AssertionError(f"fused_ab: K8-K10 launches {counted} in "
-                                 f"the {arm} arm of {steps} decode steps")
+        if counted != want[arm]:
+            raise AssertionError(f"fused_ab: launches {counted} in the {arm} "
+                                 f"arm of {steps} decode steps, want "
+                                 f"{want[arm]}")
 
     def by_split(p):
         counts = {name: 0 for name in PROFILE_SPLITS}
@@ -2465,21 +2706,23 @@ def _fused_decode_ab(model, ids, inputs, kw):
                               for a, p in profiles.items()},
            "step_shares": {a: p["shares"] for a, p in profiles.items()},
            "step_kernels": {a: by_split(p) for a, p in profiles.items()},
-           "ids_equal": answers["fused"] == answers["plain"]}
-    if not res["ids_equal"]:
-        res.update(_near_tie("fused_ab", model, ids, inputs,
-                             answers["fused"], answers["plain"], (),
-                             arm=_FusedArm(model)))
-    log("composed", fused_ab="K8-K10 + K5 bf16 vs the unfused decode layer, "
-        "K2/K5 in both", decode_tok_per_s=json.dumps(
+           "ids_equal": len({tuple(a) for a in answers.values()}) == 1}
+    for arm in ("separate", "in_k5"):
+        if answers[arm] != answers["unfused"]:
+            res[arm] = _near_tie("fused_ab", model, ids, inputs,
+                                 answers[arm], answers["unfused"], (),
+                                 arm=_FusedArm(model))
+    log("composed", fused_ab="K8-K10 inside K5, K8-K10 separate and the "
+        "unfused decode layer, K2/K5 in all", decode_tok_per_s=json.dumps(
             {a: [round(v, 2) for v in t] for a, t in tok_s.items()}),
         step_device_ms=json.dumps({a: round(v, 4) for a, v in
                                    res["step_device_ms"].items()}),
         step_kernels=json.dumps(res["step_kernels"]),
         fused_launches=json.dumps(launches), ids_equal=res["ids_equal"],
-        diverge=json.dumps({k: res[k] for k in (
+        diverge=json.dumps({a: {k: res[a][k] for k in (
             "diverge_step", "logit_rel_err", "plain_top2_gap_rel")
-            if k in res}), tol=LOGIT_TOL)
+            if k in res[a]} for a in ("separate", "in_k5") if a in res}),
+        tol=LOGIT_TOL)
     return res
 
 
@@ -6768,7 +7011,7 @@ def phase_distributed_serve(device, gen, model, request, serve_tick_ms):
                    "w8a16_gemv": _k5_per_step(model.params, 1) * steps + 1,
                    "w8a16_gemm": _k6_per_forward(model.params),
                    **{k: v * steps for k, v in
-                      _fused_per_step(n_layers).items()}}
+                      _fused_per_step(model.params, 1).items()}}
     vision_ids, vision_inputs = _requests(model.cfg, device, gen)
     slot_requests = {
         f"vision{i}": (vision_ids[i], {"vision": vision_inputs["vision"][
@@ -7361,7 +7604,11 @@ def main() -> int:
           for key, name, source, replaces in (
               ("K8", "add_rms_norm", K8_SOURCE, K8_REPLACES),
               ("K9", "rope_kv_write", K9_SOURCE, K9_REPLACES),
-              ("K10", "silu_mul", K10_SOURCE, K10_REPLACES))],
+              ("K10", "silu_mul", K10_SOURCE, K10_REPLACES),
+              # K8 and K9 inside K5's streaming launch
+              ("K8 in K5", "norm_matmul_group", K5_SOURCE, K8_REPLACES),
+              ("K8+K9 in K5", "norm_qkv_rope", K5_SOURCE,
+               f"{K8_REPLACES} + {K9_REPLACES}"))],
         dict(name="w8a16_dx", route="cuda", source=K7_SOURCE,
              replaces=K7_REPLACES,
              launches=train_launches("w8a16_dx", int8["launches"]),

@@ -114,6 +114,14 @@ SIGNATURES = {
              _P, _P,                      # part counters
              _I, _I, _I, _I, _I,          # M K ldx rows tile
              _I, _I, _P], _I),            # x_bf16 out_type stream
+        "mc_w8a16_gemv_norm": (
+            [_P, _P, _P, _P, _P, _F,      # x y norm_w sum h eps
+             _I, _P, _P, _P, _P,          # n_members q[] scale[] out[] N[]
+             _P, _P,                      # part counters
+             _I, _I, _I, _I, _I, _I,      # M K rows x_bf16 out_type head_dim
+             _P, _P, _P, _P, _P, _P, _P,  # cos sin cache_k cache_v scale_k
+             #                              scale_v pos
+             _I, _I, _I, _I, _P], _I),    # pos64 S Hkv layer stream
     },
 }
 

@@ -231,6 +231,8 @@ class CapturedStep:
         decode_fused.add_rms_norm.launches += len(self.k5.norm)
         decode_fused.rope_kv_write.launches += len(self.k5.rope)
         decode_fused.silu_mul.launches += len(self.k5.silu)
+        decode_fused.norm_matmul_group.launches += len(self.k5.norm_group)
+        decode_fused.norm_qkv_rope.launches += len(self.k5.norm_rope)
 
     def _capture(self) -> None:
         """Run the step once eagerly on a side stream (the warm-up a

@@ -20,13 +20,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.attention import attention, decode_attention
-from ..ops.decode_fused import (add_rms_norm, fused_decode, rope_kv_write,
+from ..ops.decode_fused import (RopeWrite, add_rms_norm, fused_decode,
                                 silu_mul, write_token)
 from ..ops.norms import rms_norm
 from ..ops.quant import dequant_matmul, is_quantized, matmul_f32, quantize_int8
 from ..ops.rope import apply_rope, rope_tables
 from ..ops.routed_lora import (as_table, routed_lora_matmul,
-                                routed_lora_matmul_group)
+                                routed_lora_matmul_group,
+                                routed_lora_norm_group)
 from ..parallel import tp
 
 Params = Dict[str, Any]
@@ -342,7 +343,9 @@ def _fused_decode_layer(cfg: ModelConfig, lp, x, res, route, cos, sin, *,
     program's XLA fusions fuse it: K8 (the residual add and RMSNorm), K9
     (RoPE and the cache write) and K10 (the SiLU product), and the int8
     base products rounding to x's type themselves where nothing follows
-    them in fp32 (``rounded``).
+    them in fp32 (``rounded``).  At 1-2 rows each norm runs in the
+    prologue of the K5 launch that reads it, and RoPE with the cache write
+    in the epilogue of the q/k/v launch (``routed_lora_norm_group``).
 
     The down product's residual add is carried into the next layer's K8
     (and the final norm's): the layer takes the residual stream ``x`` and
@@ -360,23 +363,28 @@ def _fused_decode_layer(cfg: ModelConfig, lp, x, res, route, cos, sin, *,
         return routed_lora_matmul(inp, p["w"], p["lora_a"], p["lora_b"],
                                   route, parallel=parallel, rounded=True)
 
-    def lins(ps, inp):  # column-split products of one input
-        return routed_lora_matmul_group(inp, ps, route, parallel="column",
-                                        rounded=True)
+    def normed(inp, res_in, norm, ps, rope=None):  # column-split products
+        return routed_lora_norm_group(inp, res_in, norm, eps, ps, route,
+                                      parallel="column", rope=rope)
 
-    x, h = add_rms_norm(x, res, lp["input_layernorm"], eps)
-    q, k, v = lins((ap["q"], ap["k"], ap["v"]), h)
-    nh, nkv = _local_heads(cfg, q, k)
-    q = rope_kv_write(q.view(B, 1, nh, hd), k.view(B, 1, nkv, hd),
-                      v.view(B, 1, nkv, hd), cos, sin, cache.k, cache.v,
-                      layer_idx, pos)
+    qkv = (ap["q"], ap["k"], ap["v"])
+    nh, _ = _local_heads(cfg, *(_out_features(p) for p in qkv[:2]))
+    x, (q,) = normed(x, res, lp["input_layernorm"], qkv,
+                     RopeWrite(cos, sin, cache.k, cache.v, layer_idx, pos))
     attn_out = decode_attention(q, cache.k, cache.v, kv_lens,
                                 layer_idx=layer_idx)
-    x, h = add_rms_norm(x, lin(ap["o"], attn_out.reshape(B, 1, nh * hd),
-                               "row"),
-                        lp["post_attention_layernorm"], eps)
-    gate, up = lins((mp["gate"], mp["up"]), h)
+    x, (gate, up) = normed(x, lin(ap["o"], attn_out.reshape(B, 1, nh * hd),
+                                  "row"),
+                           lp["post_attention_layernorm"],
+                           (mp["gate"], mp["up"]))
     return x, lin(mp["down"], silu_mul(gate, up), "row")
+
+
+def _out_features(p) -> torch.Tensor:
+    """A linear's base weight (its int8 values where quantized): its last
+    axis is the product's output columns."""
+    w = p["w"]
+    return w["q"] if is_quantized(w) else w
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, inputs_embeds, *,

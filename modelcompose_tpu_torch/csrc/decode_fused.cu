@@ -34,7 +34,10 @@
 //     normed row written from the registers.  The sum's order is not
 //     PyTorch's reduction order, so the normed value may differ from the
 //     plain version's by one unit in the last place of T; x + y is
-//     bit-equal.
+//     bit-equal.  The arithmetic lives in decode_norm.cuh, shared with
+//     the norm prologue of K5's streaming kernel (w8a16_gemv.cu), which
+//     takes K8's place at 1-2 rows where a grouped int8 product reads the
+//     norm's output; this launch stays for the final norm and 3-8 rows.
 //   - K9: one warp a head vector (q's heads, then k's, then v's of a row;
 //     four warps a block), lane l holding elements [E l, E l + E) of each
 //     half (E = D / 64), so a rotate-half partner is in the same lane.  The
@@ -47,6 +50,9 @@
 //     rintf(v / scale) (an IEEE division; round half to even) clamped to
 //     [-127, 127].  The slot position is read from device memory inside the
 //     kernel, so a captured decode graph replays with each step's position.
+//     At 1-2 rows with no adapter branch the epilogue of K5's q/k/v launch
+//     does this work instead (w8a16_gemv.cu); this launch stays for 3-8
+//     rows and the adapter-branch decode.
 //   - K10: a flat grid over 16-byte vectors of gate and up (8 elements a
 //     thread); silu as ATen computes it, x / (1 + expf(-x)) in fp32 (the
 //     build uses no fast math), rounded to T before the product.
@@ -57,60 +63,17 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "decode_norm.cuh"
+
 namespace {
 
 // ------------------------------------------------------------------ helpers
 
-// The low (p = 0) or high (p = 1) half of a word of two T values, as fp32.
-template <typename T>
-__device__ __forceinline__ float half_at(uint32_t w, int p) {
-  const uint16_t h = static_cast<uint16_t>(w >> (16 * p));
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return __uint_as_float(static_cast<uint32_t>(h) << 16);
-  } else {
-    return __half2float(__ushort_as_half(h));
-  }
-}
-
-// Two fp32 values rounded to T and packed (lo in the low half).
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  } else {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return __bfloat162float(v);
-  else
-    return __half2float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float f) {  // round to nearest even
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return __float2bfloat16_rn(f);
-  else
-    return __float2half_rn(f);
-}
-
-// fp32 rounded to T and back: the value a T tensor holds.
-template <typename T>
-__device__ __forceinline__ float round_t(float f) {
-  return to_f<T>(from_f<T>(f));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using decode_norm::from_f;
+using decode_norm::half_at;
+using decode_norm::pack2;
+using decode_norm::round_t;
+using decode_norm::to_f;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -125,14 +88,15 @@ bool aligned16(const void* p) {
 
 // ------------------------------------------------------------------ K8
 
-constexpr int kNormThreads = 256;
-constexpr int kNormVecs = 4;  // 16-byte vectors a thread: H <= 8,192
-constexpr int kNormMaxH = kNormThreads * kNormVecs * 8;
+constexpr int kNormThreads = decode_norm::kThreads;
+constexpr int kNormVecs = decode_norm::kVecs;  // 16-byte vectors a thread
+constexpr int kNormMaxH = decode_norm::kMaxH;  // 8,192
 
 // Row blockIdx.x of x [M, H] (and y): thread t takes the row's 16-byte
 // vectors t, t + 256, ...; with kAdd the rounded sum s = T(x + y) is
 // written to `sum`, else s = x.  out = T(w * T(s * r)), r = rsqrt(sum of s^2
-// / H + eps).
+// / H + eps).  The arithmetic is decode_norm.cuh's, which K5's norm
+// prologue shares.
 template <typename T, bool kAdd>
 __global__ void __launch_bounds__(kNormThreads)
 add_rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ y,
@@ -150,50 +114,23 @@ add_rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ y,
     if (v >= nv) break;
     s[u] = xr[v];
     if constexpr (kAdd) {
-      const uint4 b = (reinterpret_cast<const uint4*>(y) + base)[v];
-      const uint32_t a4[4] = {s[u].x, s[u].y, s[u].z, s[u].w};
-      const uint32_t b4[4] = {b.x, b.y, b.z, b.w};
-      uint32_t r4[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        r4[e] = pack2<T>(__fadd_rn(half_at<T>(a4[e], 0), half_at<T>(b4[e], 0)),
-                         __fadd_rn(half_at<T>(a4[e], 1), half_at<T>(b4[e], 1)));
-      s[u] = make_uint4(r4[0], r4[1], r4[2], r4[3]);
+      s[u] = decode_norm::add8<T>(
+          s[u], (reinterpret_cast<const uint4*>(y) + base)[v]);
       (reinterpret_cast<uint4*>(sum) + base)[v] = s[u];
     }
-    const uint32_t s4[4] = {s[u].x, s[u].y, s[u].z, s[u].w};
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float f = half_at<T>(s4[e / 2], e % 2);
-      ss += f * f;
-    }
+    ss = decode_norm::sum_squares8<T>(s[u], ss);
   }
-  ss = warp_sum(ss);
+  ss = decode_norm::warp_sum(ss);
   if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = ss;
   __syncthreads();
-  float total = 0.f;
-#pragma unroll
-  for (int i = 0; i < kNormThreads / 32; ++i) total += warp_sums[i];
-  // PyTorch: mean = sum * (1 / H), then rsqrt(mean + eps)
-  const float r = rsqrtf(__fadd_rn(__fmul_rn(total, 1.0f / H), eps));
+  const float r = decode_norm::rms_rsqrt(warp_sums, H, eps);
   const uint4* wr = reinterpret_cast<const uint4*>(w);
   uint4* orow = reinterpret_cast<uint4*>(out) + base;
 #pragma unroll
   for (int u = 0; u < kNormVecs; ++u) {
     const int v = threadIdx.x + u * kNormThreads;
     if (v >= nv) break;
-    const uint4 wv = __ldg(wr + v);
-    const uint32_t s4[4] = {s[u].x, s[u].y, s[u].z, s[u].w};
-    const uint32_t w4[4] = {wv.x, wv.y, wv.z, wv.w};
-    uint32_t o4[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float n0 = round_t<T>(__fmul_rn(half_at<T>(s4[e], 0), r));
-      const float n1 = round_t<T>(__fmul_rn(half_at<T>(s4[e], 1), r));
-      o4[e] = pack2<T>(__fmul_rn(half_at<T>(w4[e], 0), n0),
-                       __fmul_rn(half_at<T>(w4[e], 1), n1));
-    }
-    orow[v] = make_uint4(o4[0], o4[1], o4[2], o4[3]);
+    orow[v] = decode_norm::norm8<T>(s[u], __ldg(wr + v), r);
   }
 }
 

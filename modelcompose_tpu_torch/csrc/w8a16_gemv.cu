@@ -54,6 +54,31 @@
 // faster than the ring's 128-byte boxes, and at 1-2 rows the FMAs need no
 // tensor core.  It also takes up to three weights that share x in one
 // launch (q/k/v, gate/up).
+// At 1-2 rows the streaming kernel also takes the decode layer's
+// elementwise work around a product group into the same launch (kernels
+// K8 and K9 of decode_fused.cu, which otherwise run as launches of their
+// own, each ~2 us of fixed cost for a few kilobytes): mc_w8a16_gemv_norm.
+//   - K8 in the prologue (kNorm): every block reads the whole row(s) of x
+//     and of the residual y (16 KB a row at Vicuna-7B's 4,096, from L2)
+//     after issuing its first weight loads and its first batch's x, y and
+//     w, so the norm runs under the stream's ramp; it sums the squares in
+//     K8's own thread and warp order (decode_norm.cuh: 256 threads, the
+//     same 16-byte vectors) for each row's r, one block barrier, and the
+//     loop then forms each element of h it multiplies from x, y and w
+//     (loaded a batch ahead, as x is), so the products see K8's h bit for
+//     bit.  Block (0, 0) writes the new residual stream s = x + y (out of
+//     place) and, where an adapter branch needs it, h.
+//   - K9 in the epilogue (kRopeD 64 or 128, the q/k/v group with its
+//     products rounded to the activations' type): the block that holds a
+//     tile's final sums rotates q's and k's heads (a rotate-half partner is
+//     in the same warp, D / 32 lanes away, at the same column pair: one
+//     shuffle) with K9's roundings, stores q rotated, and quantizes k and
+//     v per head vector (the amax by shuffles over the head's lanes, then
+//     over the 8 warps through shared memory) into the cache slot read from
+//     device memory, or stores them in T: k and v never reach device memory
+//     but in the cache.
+// Both are bit-equal to K8, this kernel and K9 launched in turn.
+//
 // The A fragment pairs two k of one column, while q is [K, N] with N
 // contiguous: thread (g, t) of a warp reads 8 bytes (8 columns) from each of
 // rows t, t + 4, t + 8, t + 12 of its k-step, and those four rows are the
@@ -79,6 +104,7 @@
 #include <type_traits>
 #include <unordered_map>
 
+#include "decode_norm.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -266,20 +292,56 @@ constexpr int kSWarps = 8;
 constexpr int kSThreads = kSWarps * 32;
 constexpr int kSMaxM = 2;
 constexpr int kMaxMembers = 3;
+constexpr int kSNormMaxK = decode_norm::kMaxH;  // K of a normed x: 8,192
+static_assert(kSThreads == decode_norm::kThreads,
+              "the norm prologue sums squares in K8's thread order");
 
-// One product of a group: its weight, scales, output [M, N], columns, and
-// the first column tile of the grid that is its.
+// What the block that holds a member's final sums does with them: store
+// them (every product), or, in the RoPE epilogue, rotate q's and store
+// them, rotate k's and write them to the cache, write v's to the cache.
+enum Role { kStore = 0, kRopeQ = 1, kRopeK = 2, kCacheV = 3 };
+
+// One product of a group: its weight, scales, output [M, N], columns, the
+// first column tile of the grid that is its, and its role.
 struct StreamMember {
   const int8_t* q;
   const float* scale;
   void* out;
   int N;
   int tile0;
+  int role;
 };
 
 struct StreamGroup {
   StreamMember m[kMaxMembers];
   int n;
+};
+
+// The norm prologue's operands (kernel K8 folded in): x is then the
+// residual stream [M, K] (contiguous rows), and the products read
+// h = T(w * T(s * r)) of s = T(x + y) (or x where y is null).
+struct NormArgs {
+  const uint16_t* y;  // the residual to add [M, K], or null
+  const uint16_t* w;  // the norm's weight [K]
+  uint16_t* sum;      // s [M, K] where y is given: written by block (0, 0)
+  uint16_t* h;        // h [M, K], written by block (0, 0), or null
+  float eps;
+};
+
+// The RoPE + KV-cache epilogue's operands (kernel K9 folded in): cos and
+// sin [M, D] fp32; the layer-stacked caches [NL, M, S, Hkv, D], int8 with
+// fp32 scales [NL, M, S, Hkv, 1] (scale_k non-null) or T; the token's
+// position of each row, int32 or int64 (pos64), read on the card.
+struct RopeArgs {
+  const float* cos;
+  const float* sin;
+  void* cache_k;
+  void* cache_v;
+  float* scale_k;
+  float* scale_v;
+  const void* pos;
+  int pos64;
+  int S, Hkv, layer;
 };
 
 // 16 int8 weights, read once: not kept in L1, a 256-byte L2 prefetch.
@@ -300,12 +362,186 @@ __device__ __forceinline__ float half_bits_to_float(uint16_t h) {
     return __half2float(__ushort_as_half(h));
 }
 
+// The norm prologue (kNorm): kernel K8's arithmetic (decode_norm.cuh) in
+// K8's thread order.  Each block reads the whole row(s) of x (and y), forms
+// s = T(x + y), sums each row's squares as K8 does (thread t the 16-byte
+// vectors t, t + 256, ...; the warps' shuffles; the 8 warps in order) and
+// returns r = rsqrt(mean + eps) of each row; the stream loop forms each
+// element of h = T(w * T(s * r)) it multiplies from that element's x, y
+// and w (decode_norm::norm_at), so the products see K8's h bit for bit.
+// Block (0, 0) also writes s (where y is given) and, where asked, h, out of
+// place: the other blocks are still reading x.  The caller has issued the
+// block's first weight loads and its first batch's x, y and w, so this
+// runs under the stream's ramp.
 template <typename T, int kM>
+__device__ __forceinline__ void norm_prologue(const uint16_t* __restrict__ x,
+                                              int K, const NormArgs& na,
+                                              float (&r)[kM], int tid) {
+  namespace dn = decode_norm;
+  __shared__ float sSq[kM][kSWarps];
+  const int nv = K / 8;
+  const bool first = blockIdx.x == 0 && blockIdx.y == 0;
+  auto s_at = [&](int m, int v) {  // T(x + y) (or x) of vector v of row m
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(x + (long)m * K) + v);
+    return na.y == nullptr
+               ? a
+               : dn::add8<T>(a, __ldg(reinterpret_cast<const uint4*>(
+                                          na.y + (long)m * K) + v));
+  };
+  float ss[kM];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) ss[m] = 0.f;
+#pragma unroll
+  for (int u = 0; u < dn::kVecs; ++u) {
+    const int v = tid + u * kSThreads;
+    if (v >= nv) break;
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const uint4 s = s_at(m, v);
+      if (first && na.y != nullptr)
+        reinterpret_cast<uint4*>(na.sum + (long)m * K)[v] = s;
+      ss[m] = dn::sum_squares8<T>(s, ss[m]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    ss[m] = dn::warp_sum(ss[m]);
+    if (tid % 32 == 0) sSq[m][tid / 32] = ss[m];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < kM; ++m) r[m] = dn::rms_rsqrt(sSq[m], K, na.eps);
+  if (!first || na.h == nullptr) return;
+  // h for an adapter branch (block (0, 0) alone; the rows again from L2)
+#pragma unroll
+  for (int u = 0; u < dn::kVecs; ++u) {
+    const int v = tid + u * kSThreads;
+    if (v >= nv) break;
+    const uint4 wv = __ldg(reinterpret_cast<const uint4*>(na.w) + v);
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+      reinterpret_cast<uint4*>(na.h + (long)m * K)[v] =
+          dn::norm8<T>(s_at(m, v), wv, r[m]);
+  }
+}
+
+// The RoPE + KV-cache epilogue (kernel K9's work) on a q, k or v member's
+// final sums v (unscaled) of columns own, own + 1 of every row, in the block
+// that holds them.  The products are first rounded to T as K5's store
+// rounds them; a head of D columns lies in one 512-column tile (a member's
+// N is a multiple of D), over D / 16 neighbouring lanes of every warp, so a
+// rotate-half partner (D / 2 columns away) is in the same warp, D / 32
+// lanes away, at the same pair of columns: one shuffle.  The rotation is
+// K9's `__fmul_rn` / `__fadd_rn` sequence; q is stored rotated; k (rotated)
+// and v are quantized per head vector (the amax over the head's lanes by
+// shuffles, then over the 8 warps through shared memory; K9's scale and
+// `rintf(v / scale)`) into an int8 cache, or stored in T, at the row's
+// slot [layer, m, pos[m], head].  Block-uniform: every thread calls it.
+template <typename T, int kM, int D>
+__device__ __forceinline__ void rope_epilogue(const StreamMember& mem,
+                                              const float2 (&v)[kM],
+                                              float2 sc, int own, bool mine,
+                                              const RopeArgs& ra,
+                                              float* sAmax, int warp,
+                                              int lane) {
+  namespace dn = decode_norm;
+  constexpr int kHeadLanes = D / kSCols;  // 8 (D 128) or 4 (D 64)
+  constexpr int kHalf = D / 2;
+  const int j = own % D;  // the thread's first column within its head
+  float a[kM][2];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    a[m][0] = dn::round_t<T>(v[m].x * sc.x);
+    a[m][1] = dn::round_t<T>(v[m].y * sc.y);
+  }
+  if (mem.role != kCacheV) {
+    // q * cos + rotate_half(q) * sin, rotate_half(q) = [-q2, q1]
+    const bool lo = j < kHalf;
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const float* c = ra.cos + m * D + j;
+      const float* sn = ra.sin + m * D + j;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = __shfl_xor_sync(0xffffffffu, a[m][e], kHeadLanes / 2);
+        const float rot =
+            lo ? __fadd_rn(__fmul_rn(a[m][e], __ldg(c + e)),
+                           __fmul_rn(-p, __ldg(sn + e)))
+               : __fadd_rn(__fmul_rn(a[m][e], __ldg(c + e)),
+                           __fmul_rn(p, __ldg(sn + e)));
+        a[m][e] = dn::round_t<T>(rot);
+      }
+    }
+  }
+  if (mem.role == kRopeQ) {
+    if (mine)
+#pragma unroll
+      for (int m = 0; m < kM; ++m)
+        *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(mem.out) +
+                                     (long)m * mem.N + own) =
+            dn::pack2<T>(a[m][0], a[m][1]);
+    return;
+  }
+  const bool int8 = ra.scale_k != nullptr;
+  const bool is_k = mem.role == kRopeK;
+  float scale[kM];
+  if (int8) {
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      float am = fmaxf(fabsf(a[m][0]), fabsf(a[m][1]));
+#pragma unroll
+      for (int o = 1; o < kHeadLanes; o <<= 1)
+        am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, o));
+      sAmax[(m * kSWarps + warp) * 32 + lane] = am;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      float am = 0.f;
+#pragma unroll
+      for (int w = 0; w < kSWarps; ++w)
+        am = fmaxf(am, sAmax[(m * kSWarps + w) * 32 + lane]);
+      // clamp_min(amax / 127.0, 1e-8), as K9 computes it
+      scale[m] = fmaxf(__fmul_rn(am, 1.0f / 127.0f), static_cast<float>(1e-8));
+    }
+  }
+  if (!mine) return;
+  const int head = own / D;
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    const long p = ra.pos64 ? static_cast<const long long*>(ra.pos)[m]
+                            : static_cast<const int*>(ra.pos)[m];
+    if (p < 0 || p >= ra.S) continue;  // no slot: the wrapper's are < S
+    const long slot =
+        ((static_cast<long>(ra.layer) * kM + m) * ra.S + p) * ra.Hkv + head;
+    void* cache = is_k ? ra.cache_k : ra.cache_v;
+    if (int8) {
+      char2 q2;
+      q2.x = static_cast<signed char>(
+          fminf(fmaxf(rintf(a[m][0] / scale[m]), -127.f), 127.f));
+      q2.y = static_cast<signed char>(
+          fminf(fmaxf(rintf(a[m][1] / scale[m]), -127.f), 127.f));
+      *reinterpret_cast<char2*>(static_cast<int8_t*>(cache) + slot * D + j) =
+          q2;
+      if (j == 0) (is_k ? ra.scale_k : ra.scale_v)[slot] = scale[m];
+    } else {
+      *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(cache) + slot * D +
+                                   j) = dn::pack2<T>(a[m][0], a[m][1]);
+    }
+  }
+}
+
+// kNorm: the norm prologue above (K8 folded into the launch that reads its
+// output); kRopeD (64 or 128, else 0): the RoPE + KV-cache epilogue for the
+// members whose role asks for it (K9 folded into the q/k/v launch).
+template <typename T, int kM, bool kNorm, int kRopeD>
 __global__ void __launch_bounds__(kSThreads, 2)
 dequant_gemv_stream_kernel(const StreamGroup g, const uint16_t* __restrict__ x,
                            int ldx, int K, int rows, float* __restrict__ part,
-                           unsigned* __restrict__ counters, int out_type) {
+                           unsigned* __restrict__ counters, int out_type,
+                           const NormArgs na, const RopeArgs ra) {
   __shared__ float4 sRed[kSWarps * kM * 4 * 32];  // 16 KB a row of x
+  __shared__ float sAmax[kRopeD > 0 ? kM * kSWarps * 32 : 1];
   __shared__ int sLast;
 
   const int t = blockIdx.x;  // the grid's column tile, over every member
@@ -340,7 +576,38 @@ dequant_gemv_stream_kernel(const StreamGroup g, const uint16_t* __restrict__ x,
     return xm < kM && r < nw ? half_bits_to_float<T>(__ldg(xp + b * kSBatch))
                              : 0.f;
   };
-  float xr = x_of(0);
+  // With the norm, the lane's element of h comes from the bits of x and y
+  // (x | y << 16) and of w, loaded a batch ahead as x is (zero past the
+  // rows), and its row's r.
+  const uint16_t* yp = !kNorm || na.y == nullptr
+                           ? nullptr
+                           : na.y + (long)xm * ldx + k0 + r0 + xu;
+  const uint16_t* wp = kNorm ? na.w + k0 + r0 + xu : nullptr;
+  auto raw_of = [&](int b) {
+    const int r = b * kSBatch + xu;
+    uint2 v = make_uint2(0u, 0u);
+    if (xm < kM && r < nw) {
+      v.x = __ldg(xp + b * kSBatch);
+      if (yp != nullptr)
+        v.x |= static_cast<uint32_t>(__ldg(yp + b * kSBatch)) << 16;
+      v.y = __ldg(wp + b * kSBatch);
+    }
+    return v;
+  };
+  float rr = 0.f;
+  auto h_of = [&](uint2 v) {
+    return decode_norm::norm_at<T>(v, yp != nullptr, rr);
+  };
+  float xr;
+  if constexpr (kNorm) {
+    const uint2 raw = raw_of(0);
+    float r[kM];
+    norm_prologue<T, kM>(x, K, na, r, tid);
+    rr = xm == 0 ? r[0] : r[kM - 1];
+    xr = h_of(raw);
+  } else {
+    xr = x_of(0);
+  }
 
   // The thread's two output columns of the combine below, and their scales.
   const int own = tile * kSTile + lane * kSCols + 2 * warp;
@@ -355,7 +622,13 @@ dequant_gemv_stream_kernel(const StreamGroup g, const uint16_t* __restrict__ x,
 #pragma unroll
     for (int c = 0; c < kSCols; ++c) acc[m][c] = 0.f;
   for (int b = 0; b * kSBatch < nw; ++b) {
-    const float xn = x_of(b + 1);  // the next batch's x, in flight now
+    // the next batch's x (or its raw operands), in flight now
+    [[maybe_unused]] float xn = 0.f;
+    [[maybe_unused]] uint2 rn = make_uint2(0u, 0u);
+    if constexpr (kNorm)
+      rn = raw_of(b + 1);
+    else
+      xn = x_of(b + 1);
 #pragma unroll
     for (int u = 0; u < kSBatch; ++u) {
       const int r = b * kSBatch + u;
@@ -381,7 +654,10 @@ dequant_gemv_stream_kernel(const StreamGroup g, const uint16_t* __restrict__ x,
                  ? ld_weights(qp + (long)(r + kSBatch) * N)
                  : make_uint4(0u, 0u, 0u, 0u);
     }
-    xr = xn;
+    if constexpr (kNorm)
+      xr = h_of(rn);
+    else
+      xr = xn;
   }
 
   // The warps' sums meet once in shared memory, [warp][m][c4][lane] as
@@ -407,12 +683,24 @@ dequant_gemv_stream_kernel(const StreamGroup g, const uint16_t* __restrict__ x,
       s[m].y += p.y;
     }
   }
-  if (n_splits == 1) {
+  // The final sums of the tile's columns, scaled and stored (or, for a
+  // member of the RoPE epilogue, taken on by it).
+  auto finish = [&](const float2 (&y)[kM]) {
+    if constexpr (kRopeD > 0) {
+      if (mem.role != kStore) {
+        rope_epilogue<T, kM, kRopeD>(mem, y, sc, own, mine, ra, sAmax, warp,
+                                     lane);
+        return;
+      }
+    }
     if (mine)
 #pragma unroll
       for (int m = 0; m < kM; ++m)
-        store2(mem.out, out_type, (long)m * N + own, s[m].x * sc.x,
-               s[m].y * sc.y);
+        store2(mem.out, out_type, (long)m * N + own, y[m].x * sc.x,
+               y[m].y * sc.y);
+  };
+  if (n_splits == 1) {
+    finish(s);
     return;
   }
 
@@ -460,11 +748,7 @@ dequant_gemv_stream_kernel(const StreamGroup g, const uint16_t* __restrict__ x,
           tot[m].y += v[u][m].y;
         }
   }
-  if (mine)
-#pragma unroll
-    for (int m = 0; m < kM; ++m)
-      store2(mem.out, out_type, (long)m * N + own, tot[m].x * sc.x,
-             tot[m].y * sc.y);
+  finish(tot);
   if (tid == 0) counters[t] = 0;  // ready for the next launch
 }
 
@@ -740,21 +1024,72 @@ cudaError_t dispatch(int tile, const void* x, int ldx, const void* q,
   return cudaErrorInvalidValue;
 }
 
+// The streaming kernel over `tiles` column tiles of the group: with kNorm
+// the norm prologue, with kRopeD > 0 the RoPE + KV-cache epilogue.
+template <typename T, int kM, bool kNorm, int kRopeD>
+cudaError_t launch_stream_mode(const StreamGroup& g, int tiles, const void* x,
+                               int ldx, int K, int rows, void* part,
+                               void* counters, int out_type,
+                               const NormArgs& na, const RopeArgs& ra,
+                               cudaStream_t st) {
+  const dim3 grid(tiles, (K + rows - 1) / rows);
+  dequant_gemv_stream_kernel<T, kM, kNorm, kRopeD><<<grid, kSThreads, 0, st>>>(
+      g, static_cast<const uint16_t*>(x), ldx, K, rows,
+      static_cast<float*>(part), static_cast<unsigned*>(counters), out_type,
+      na, ra);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_stream(const StreamGroup& g, int tiles, const void* x,
                           int ldx, int M, int K, int rows, void* part,
                           void* counters, int out_type, cudaStream_t st) {
-  const dim3 grid(tiles, (K + rows - 1) / rows);
-  const uint16_t* xs = static_cast<const uint16_t*>(x);
-  float* p = static_cast<float*>(part);
-  unsigned* c = static_cast<unsigned*>(counters);
+  const NormArgs na{};
+  const RopeArgs ra{};
   if (M == 1)
-    dequant_gemv_stream_kernel<T, 1><<<grid, kSThreads, 0, st>>>(
-        g, xs, ldx, K, rows, p, c, out_type);
-  else
-    dequant_gemv_stream_kernel<T, 2><<<grid, kSThreads, 0, st>>>(
-        g, xs, ldx, K, rows, p, c, out_type);
-  return cudaGetLastError();
+    return launch_stream_mode<T, 1, false, 0>(g, tiles, x, ldx, K, rows, part,
+                                              counters, out_type, na, ra, st);
+  return launch_stream_mode<T, 2, false, 0>(g, tiles, x, ldx, K, rows, part,
+                                            counters, out_type, na, ra, st);
+}
+
+template <typename T, int kM>
+cudaError_t launch_norm_rows(const StreamGroup& g, int tiles, const void* x,
+                             int K, int rows, void* part, void* counters,
+                             int out_type, const NormArgs& na,
+                             const RopeArgs& ra, int head_dim,
+                             cudaStream_t st) {
+  switch (head_dim) {
+    case 0:
+      return launch_stream_mode<T, kM, true, 0>(g, tiles, x, K, K, rows, part,
+                                                counters, out_type, na, ra,
+                                                st);
+    case 64:
+      return launch_stream_mode<T, kM, true, 64>(g, tiles, x, K, K, rows,
+                                                 part, counters, out_type, na,
+                                                 ra, st);
+    case 128:
+      return launch_stream_mode<T, kM, true, 128>(g, tiles, x, K, K, rows,
+                                                  part, counters, out_type,
+                                                  na, ra, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_norm(const StreamGroup& g, int tiles, const void* x, int M,
+                        int K, int rows, void* part, void* counters,
+                        int out_type, const NormArgs& na, const RopeArgs& ra,
+                        int head_dim, cudaStream_t st) {
+  if (M == 1)
+    return launch_norm_rows<T, 1>(g, tiles, x, K, rows, part, counters,
+                                  out_type, na, ra, head_dim, st);
+  return launch_norm_rows<T, 2>(g, tiles, x, K, rows, part, counters,
+                                out_type, na, ra, head_dim, st);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -798,7 +1133,7 @@ extern "C" int mc_w8a16_gemv(const void* x, int n_members,
     for (int i = 0; i < n_members; ++i) {
       g.m[i] = StreamMember{static_cast<const int8_t*>(q[i]),
                             static_cast<const float*>(scale[i]), out[i], N[i],
-                            tiles};
+                            tiles, kStore};
       tiles += (N[i] + kSTile - 1) / kSTile;
     }
     g.n = n_members;
@@ -814,4 +1149,76 @@ extern "C" int mc_w8a16_gemv(const void* x, int n_members,
                                    rows, st);
   return dispatch<__half>(tile, x, ldx, q[0], scale[0], part, counters, out[0],
                           out_type, M, K, N[0], rows, st);
+}
+
+// The streaming kernel (1-2 rows, one to three members that share x) with
+// kernel K8 folded into its prologue and, where head_dim is 64 or 128,
+// kernel K9 into its epilogue.  x [M, K] (and y, or null) bf16 (x_bf16) or
+// fp16 with contiguous rows, the norm's weight [K]: the products read
+// h = rms_norm(s) * w of s = x + y (or x), eps as given; `sum` (where y is
+// given) receives s and `h` (or null) h, both [M, K].  `rows`, `part` and
+// `counters` as mc_w8a16_gemv's streaming kernel takes them.  With
+// head_dim, the members are q, k and v in that order, the outputs of x's
+// type (out_type), each N a multiple of head_dim and k's and v's Hkv heads:
+// out[0] receives q rotated (cos, sin [M, head_dim] fp32), out[1] and
+// out[2] are not written, and k (rotated) and v go to row m's slot [layer,
+// m, pos[m]] of the caches [NL, M, S, Hkv, head_dim]: int8 with fp32
+// scales [NL, M, S, Hkv, 1] where scale_k and scale_v are given, else of
+// x's type.  Returns cudaErrorInvalidValue, launching nothing, for M
+// outside 1..2, K % 8, K > 8,192, a pointer the kernel reads 16 bytes at a
+// time that is not 16-byte aligned, or a RoPE group it does not take.
+extern "C" int mc_w8a16_gemv_norm(
+    const void* x, const void* y, const void* norm_w, void* sum, void* h,
+    float eps, int n_members, const void* const* q, const void* const* scale,
+    void* const* out, const int* N, void* part, void* counters, int M, int K,
+    int rows, int x_bf16, int out_type, int head_dim, const void* cos,
+    const void* sin, void* cache_k, void* cache_v, void* scale_k,
+    void* scale_v, const void* pos, int pos64, int S, int Hkv, int layer,
+    void* stream) {
+  if (M < 1 || M > kSMaxM || K < 8 || K % 8 || K > kSNormMaxK || rows <= 0 ||
+      rows % kSWarps != 0 || n_members < 1 || n_members > kMaxMembers ||
+      out_type < kOutF32 || out_type > kOutF16 || !aligned16(x) ||
+      !aligned16(norm_w) || (y != nullptr && (!aligned16(y) || !aligned16(sum)))
+      || (h != nullptr && !aligned16(h)))
+    return cudaErrorInvalidValue;
+  for (int i = 0; i < n_members; ++i)
+    if (N[i] <= 0 || N[i] % 16 != 0 || !aligned16(q[i]))
+      return cudaErrorInvalidValue;
+  const int n_splits = (K + rows - 1) / rows;
+  if (n_splits > 65535 || (n_splits > 1 && (!part || !counters)))
+    return cudaErrorInvalidValue;
+  RopeArgs ra{};
+  if (head_dim != 0) {
+    const int half_type = x_bf16 ? kOutBF16 : kOutF16;
+    if ((head_dim != 64 && head_dim != 128) || n_members != 3 ||
+        out_type != half_type || Hkv < 1 || N[1] != Hkv * head_dim ||
+        N[2] != Hkv * head_dim || N[0] % head_dim != 0 || S < 1 ||
+        layer < 0 || !cos || !sin || !cache_k || !cache_v || !pos || !out[0]
+        || (scale_k == nullptr) != (scale_v == nullptr))
+      return cudaErrorInvalidValue;
+    ra = RopeArgs{static_cast<const float*>(cos),
+                  static_cast<const float*>(sin), cache_k, cache_v,
+                  static_cast<float*>(scale_k), static_cast<float*>(scale_v),
+                  pos, pos64, S, Hkv, layer};
+  }
+  StreamGroup g{};
+  int tiles = 0;
+  for (int i = 0; i < n_members; ++i) {
+    const int role = head_dim == 0 ? kStore : kRopeQ + i;
+    g.m[i] = StreamMember{static_cast<const int8_t*>(q[i]),
+                          static_cast<const float*>(scale[i]), out[i], N[i],
+                          tiles, role};
+    tiles += (N[i] + kSTile - 1) / kSTile;
+  }
+  g.n = n_members;
+  const NormArgs na{static_cast<const uint16_t*>(y),
+                    static_cast<const uint16_t*>(norm_w),
+                    static_cast<uint16_t*>(sum), static_cast<uint16_t*>(h),
+                    eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return launch_norm<__nv_bfloat16>(g, tiles, x, M, K, rows, part, counters,
+                                      out_type, na, ra, head_dim, st);
+  return launch_norm<__half>(g, tiles, x, M, K, rows, part, counters,
+                             out_type, na, ra, head_dim, st);
 }

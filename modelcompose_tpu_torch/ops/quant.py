@@ -19,7 +19,9 @@ device, as the JAX package computes ``x @ q.astype(x.dtype)`` for any
 float x.  CPU tensors and ``impl="reference"`` take
 ``dequant_matmul_reference`` (the convert and the fp32-output GEMM).  At
 1-2 rows the products that share an input (a layer's q/k/v, its gate/up)
-are one K5 launch (``dequant_matmul_group``).
+are one K5 launch (``dequant_matmul_group``); in the decode layer that
+launch also takes the norm before it and the RoPE + KV-cache write after
+it (``ops/decode_fused.norm_matmul_group``, ``norm_qkv_rope``).
 """
 
 from __future__ import annotations
@@ -280,7 +282,9 @@ class CaptureRecord:
     split scratch, which lives as long as this record: the graph's owner
     keeps the record as long as the graph.  The decode layer's fused
     passes (ops/decode_fused) record their launches here too: K8
-    (``norm``), K9 (``rope``) and K10 (``silu``), each launch's shape."""
+    (``norm``), K9 (``rope``) and K10 (``silu``), each launch's shape, and
+    K5's launches with K8 in their prologue (``norm_group``) or with K8 and
+    K9 (``norm_rope``), each also one of ``launches``."""
 
     def __init__(self):
         self.launches = []
@@ -289,6 +293,8 @@ class CaptureRecord:
         self.norm = []
         self.rope = []
         self.silu = []
+        self.norm_group = []
+        self.norm_rope = []
         self.scratch = _Scratch(keep=True)
 
 
@@ -359,6 +365,26 @@ def _check_cuda_inputs(x2, q, scale):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _ptr(t) -> Optional[int]:
+    """A tensor's address for a C entry, or None (a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
+def _pointers(ts):
+    """A ctypes array of the tensors' addresses (null for None)."""
+    return (ctypes.c_void_p * len(ts))(*[_ptr(t) for t in ts])
+
+
+def _split_scratch(device, stream, record, M: int, Ns, plan):
+    """(part, counters) of a K5 launch with ``plan`` on ``stream``: None
+    without a split; else the capture record's scratch, or the stream's."""
+    if plan[2] == 1:
+        return None, None
+    scratch = record.scratch if record is not None \
+        else _SCRATCH.setdefault((device, stream), _Scratch())
+    return scratch.get(device, *_scratch_sizes(M, Ns, plan))
+
+
 def _k5(x2, weights, out_dtype):
     """Kernel K5 on x2 [M, K] (M <= K5_MAX_ROWS): ``[(x2 @ q) * scale]`` in
     ``out_dtype`` for one weight, or for up to K5_GROUP_MAX weights that
@@ -369,26 +395,17 @@ def _k5(x2, weights, out_dtype):
     Ns = [wq["q"].shape[1] for wq in weights]
     n = len(weights)
     plan = _k5_plan(M, K, Ns[0]) if n == 1 else _k5_group_plan(M, K, Ns)
-    tile, rows, n_splits, _ = plan
+    tile, rows, _, _ = plan
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     record = _capture_record("dequant_matmul")
-    part = counters = None
-    if n_splits > 1:
-        scratch = record.scratch if record is not None \
-            else _SCRATCH.setdefault((x2.device, stream), _Scratch())
-        part, counters = scratch.get(x2.device, *_scratch_sizes(M, Ns, plan))
+    part, counters = _split_scratch(x2.device, stream, record, M, Ns, plan)
     kind = out_dtype if out_dtype in (torch.float32, x2.dtype) \
         else torch.float32
     outs = [torch.empty((M, N), dtype=kind, device=x2.device) for N in Ns]
-
-    def pointers(ts):
-        return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
     err = _build.load("w8a16_gemv").mc_w8a16_gemv(
-        x2.data_ptr(), n, pointers([wq["q"] for wq in weights]),
-        pointers([wq["scale"] for wq in weights]), pointers(outs),
-        (ctypes.c_int * n)(*Ns),
-        None if part is None else part.data_ptr(),
-        None if counters is None else counters.data_ptr(),
+        x2.data_ptr(), n, _pointers([wq["q"] for wq in weights]),
+        _pointers([wq["scale"] for wq in weights]), _pointers(outs),
+        (ctypes.c_int * n)(*Ns), _ptr(part), _ptr(counters),
         M, K, x2.stride(0) if M > 1 else K, rows, tile,
         int(x2.dtype == torch.bfloat16), _OUT_TYPES[kind], stream)
     _build.check(err, "w8a16_gemv")

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..parallel import tp
+from . import decode_fused
 from .quant import (dequant_matmul, dequant_matmul_group, is_quantized,
                     k5_groups, matmul_f32, quantize_int8)
 
@@ -94,6 +95,49 @@ def routed_lora_matmul_group(x, ps, route, parallel=None, impl="auto",
         x, route, parallel, rounded))
     return [_adapter_add(x, y, p["lora_a"], p["lora_b"], route, parallel)
             for y, p in zip(ys, ps)]
+
+
+def routed_lora_norm_group(x, res, norm_weight, eps: float, ps, route,
+                           parallel=None, rope=None):
+    """The decode layer's residual add and RMSNorm and the products of its
+    output h that share it (q/k/v, or gate/up): ``s, h =
+    decode_fused.add_rms_norm(x, res, norm_weight, eps)``, then
+    ``routed_lora_matmul_group(h, ps, route, parallel, rounded=True)``, and
+    with ``rope`` (a ``decode_fused.RopeWrite``, for q/k/v)
+    ``decode_fused.rope_kv_write`` on the three outputs.  Returns (s, the
+    outputs): with ``rope`` [the rotated q [B, 1, H, D]].
+
+    Where ``decode_fused.norm_fuses`` says so (1-2 rows on the card, int8
+    weights that share one K5 launch; column-split or unsplit members),
+    that launch runs K8 in its prologue (``norm_matmul_group``), and h
+    reaches device memory only where an adapter branch reads it; where
+    besides no adapter branch follows (``route`` None: the products round
+    to x's type) and the heads fit (``decode_fused.rope_fuses``), K9 runs
+    in its epilogue too (``norm_qkv_rope``).  Anywhere else (3-8 rows, the
+    CPU, a float base) K8, the products and K9 are launches of their
+    own."""
+    ws = [p["w"] for p in ps]
+    if parallel == "row" or not decode_fused.norm_fuses(x, ws):
+        s, h = decode_fused.add_rms_norm(x, res, norm_weight, eps)
+        outs = routed_lora_matmul_group(h, ps, route, parallel=parallel,
+                                        rounded=True)
+    elif rope is not None and route is None \
+            and decode_fused.rope_fuses(ws, rope.cos.shape[-1]):
+        s, q = decode_fused.norm_qkv_rope(x, res, norm_weight, eps, ws,
+                                          rope)
+        return s, [q]
+    else:
+        s, h, ys = decode_fused.norm_matmul_group(
+            x, res, norm_weight, eps, ws,
+            out_dtype=_base_dtype(x, route, parallel, True),
+            keep_h=route is not None)
+        outs = ys if route is None else [
+            _adapter_add(h, y, p["lora_a"], p["lora_b"], route, parallel)
+            for y, p in zip(ys, ps)]
+    if rope is not None:
+        outs = [decode_fused.rotate_and_write(outs, rope,
+                                              decode_fused.rope_kv_write)]
+    return s, outs
 
 
 def _adapter_add(x, y, lora_a, lora_b, route, parallel):

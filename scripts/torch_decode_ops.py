@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """The small kernels of one eager decode step, named by the op that launched
-them, on the unfused route and through K8-K10, on one CUDA card.
+them, on the unfused route, through K8-K10 as launches of their own, and
+with K8 and K9 inside K5's launches, on one CUDA card.
 
 The step is MCUB-4's decode at Vicuna-7B width and depth (32 layers, 32
 heads of 128, random weights from a seed, int8 base, the dense fold: no
 adapter branch at decode) over an int8 cache of 3,360 positions, one row
 at position 3,303.  Each route (``unfused``: ``core.llama.fused_decode``
 off, the layer's ops as PyTorch kernels and K5 writing fp32 and a cast
-after it; ``fused``: K8 add + RMSNorm, K9 RoPE + cache write, K10 SiLU
-product, K5 writing bf16) is warmed up, then one step is profiled by
-torch.profiler with ``record_shapes``, in turns unfused, fused, fused,
+after it; ``separate``: K8 add + RMSNorm, K9 RoPE + cache write, K10 SiLU
+product, K5 writing bf16, each its own launch (``decode_fused.norm_fuses``
+off); ``in_k5``: the main path, each norm in the prologue of the K5
+launch that reads it and RoPE + the cache write in the q/k/v launch's
+epilogue) is warmed up, then one step is profiled by torch.profiler with
+``record_shapes``, in turns unfused, separate, in_k5, in_k5, separate,
 unfused.  Every device kernel goes under the outermost aten op that
 launched it (with that op's input shapes), or, launched by no aten op (the
 hand-written kernels, called through ctypes), under its kernel's name: per
@@ -34,7 +38,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CACHE_LEN = 3360
 POSITION = 3303  # MCUB-4's 3,287 prompt positions and 16 answer tokens
-TURNS = ("unfused", "fused", "fused", "unfused")
+TURNS = ("unfused", "separate", "in_k5", "in_k5", "separate", "unfused")
 
 
 def _label(fe):
@@ -81,6 +85,7 @@ def main() -> int:
     from modelcompose_tpu_torch.configs import mcub4_damc_7b
     from modelcompose_tpu_torch.core import llama
     from modelcompose_tpu_torch.core.decode_graph import _decode_step
+    from modelcompose_tpu_torch.ops import decode_fused
     from modelcompose_tpu_torch.ops.quant import quantize_backbone
     if not torch.cuda.is_available():
         raise SystemExit("torch_decode_ops: no CUDA device")
@@ -100,15 +105,17 @@ def main() -> int:
             part["scale"].uniform_(1e-3, 2e-2, generator=gen)
     tokens = torch.tensor([100], device=device)
     kv_lens = torch.tensor([POSITION], dtype=torch.int32, device=device)
-    fused = llama.fused_decode
+    fused, norm_fuses = llama.fused_decode, decode_fused.norm_fuses
 
     def step():
         with torch.no_grad():
             return _decode_step(params, cfg, cache, tokens, kv_lens, None)[0]
     os.makedirs("chiprun_out", exist_ok=True)
     for turn, route in enumerate(TURNS):
-        llama.fused_decode = fused if route == "fused" \
-            else (lambda x, attn_impl: False)
+        if route == "unfused":
+            llama.fused_decode = lambda x, attn_impl: False
+        if route == "separate":
+            decode_fused.norm_fuses = lambda x, weights: False
         try:
             for _ in range(3):
                 step()
@@ -119,7 +126,7 @@ def main() -> int:
                 step()
                 torch.cuda.synchronize()
         finally:
-            llama.fused_decode = fused
+            llama.fused_decode, decode_fused.norm_fuses = fused, norm_fuses
         rows = step_ops(prof, chip_smoke._split_of)
         ranked = sorted(rows.items(), key=lambda kv: -kv[1][1])
         with open(os.path.join("chiprun_out",

@@ -42,8 +42,9 @@ kernel's launch is taken apart by ``scripts/k5_fixed_cost.cu`` (a copy of
 that kernel with x staging and the split combine switched off, and an
 empty kernel), on the earlier checkout's one-row grid
 (``ops/quant._row_plan``, which a checkout before the streaming kernel
-has).  K7 (the int8 products' dL/dx, ``ops/quant.w8a16_dx``) runs at phase
-4d's shapes (``chip_smoke.K7_SHAPES`` at ``K7_ROWS``, the lm_head at
+has; a later checkout skips this part).  K7 (the int8 products' dL/dx,
+``ops/quant.w8a16_dx``) runs at phase 4d's shapes
+(``chip_smoke.K7_SHAPES`` at ``K7_ROWS``, the lm_head at
 ``K7_LM_HEAD_ROWS``) for an fp32 cotangent, against the plain route
 (``_dequant_matmul_dx``), ``torch.mm`` on bf16 copies of the scaled
 cotangent and of q^T made beforehand and, given ``--old``, the earlier
@@ -676,7 +677,8 @@ def main() -> int:
 
     if "K5" in only:
         old_q = old_quant(args.old)
-        k5_fixed_cost(old_q, args.old, gen, emit)
+        if hasattr(old_q, "_row_plan"):  # only before the streaming kernel
+            k5_fixed_cost(old_q, args.old, gen, emit)
         ab_k5(old_q, gen, emit)
 
     if "K1" in only:

@@ -330,8 +330,10 @@ class _Card:
     """The card's launch rule on CPU tensors: ``quant._on_card`` and
     ``decode_fused._on_card`` say yes, K5's launcher computes the plain
     products in the output type it was asked for (recorded), K6's (a
-    prefill's) the plain product, and K8-K10's launchers their plain
-    versions; each call counted as one launch."""
+    prefill's) the plain product, K8-K10's launchers their plain versions,
+    and the fused K5 launcher (K8 in its prologue, K9 in its epilogue with
+    ``rope``) the fused launch's plain version; each call counted as one
+    launch, a fused one as "K5" and as "K8 in K5" or "K8+K9 in K5"."""
 
     def __init__(self, monkeypatch):
         self.launches = []
@@ -340,6 +342,7 @@ class _Card:
         monkeypatch.setattr(decode_fused, "_on_card", lambda x: True)
         monkeypatch.setattr(quant, "_k5", self.k5)
         monkeypatch.setattr(quant, "_k6", self.k6)
+        monkeypatch.setattr(decode_fused, "_k5_norm", self.k5_norm)
         for name, fn in (("_k8", decode_fused.add_rms_norm_reference),
                          ("_k9", decode_fused.rope_kv_write_reference),
                          ("_k10", decode_fused.silu_mul_reference)):
@@ -352,6 +355,15 @@ class _Card:
         self.k5_out.append(out_dtype)
         return [quant.dequant_matmul_reference(x2, wq, out_dtype)
                 for wq in weights]
+
+    def k5_norm(self, x, y, weight, eps, weights, out_dtype, rope, keep_h,
+                wrapper):
+        assert x.numel() // x.shape[-1] <= quant.K5_GROUP_ROWS
+        self.launches += ["K5", "K8 in K5" if rope is None
+                          else "K8+K9 in K5"]
+        self.k5_out.append(out_dtype or x.dtype)
+        return decode_fused.norm_matmul_group_reference(
+            x, y, weight, eps, weights, out_dtype, rope, keep_h)
 
     def k6(self, x2, weights, out_dtype):  # the prefill's products
         self.launches.append("K6")
@@ -371,9 +383,14 @@ def _port(cfg):
     return PortConfig.from_dict(cfg.to_dict())
 
 
-def _model(seed=0):
+def _model(seed=0, hidden=256, heads=4, kv_heads=2, dtype="bfloat16"):
+    """A 2-layer int8 backbone of ``hidden`` (head_dim hidden / heads: 64
+    by default, a width K9 takes) with GQA and nonzero LoRA B."""
     cfg = tiny_test_config(mm_vision_encoder="x", mm_hidden_size=16,
-                           dtype="bfloat16", num_key_value_heads=2)
+                           dtype=dtype, hidden_size=hidden,
+                           intermediate_size=2 * hidden,
+                           num_attention_heads=heads,
+                           num_key_value_heads=kv_heads)
     params = jllama.init_params(cfg, jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)
     for grp in ("attn", "mlp"):
@@ -384,18 +401,36 @@ def _model(seed=0):
     return cfg, jp, params_from_jax(jax.tree.map(np.asarray, jp))
 
 
+def _routes(n, B, routed):
+    """The launches of one decode step of an ``n``-layer int8 backbone at
+    B rows under the card's rule, by kind: at 1-2 rows each norm in the
+    prologue of the K5 launch that reads it and, with no adapter branch
+    (the dense fold), RoPE and the cache write in the q/k/v launch's
+    epilogue, so K8 runs alone only for the final norm and K9 only where
+    an adapter branch follows; at 3-8 rows every K8, K9 and K5 launch of
+    its own.  K5 counts the fused launches too."""
+    if B > quant.K5_GROUP_ROWS:
+        return {"K8": 2 * n + 1, "K9": n, "K10": n, "K5": 7 * n + 1,
+                "K8 in K5": 0, "K8+K9 in K5": 0}
+    return {"K8": 1, "K9": n if routed else 0, "K10": n, "K5": 4 * n + 1,
+            "K8 in K5": n if not routed else 2 * n,
+            "K8+K9 in K5": 0 if routed else n}
+
+
 @pytest.mark.parametrize("kv_quant", [False, True])
 @pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("routed", [False, True])
 def test_decode_step_with_the_card_rule(monkeypatch, kv_quant, B, routed):
     """A decode step after a prefill whose rows end at different positions,
-    with the card's rule emulated: K8 2 a layer + the final norm, K9 and
-    K10 once a layer, K5 4 a layer + 1 at 1-2 rows (7 + 1 at 3-8); K5
-    writes bf16 for every layer product where no adapter branch follows
-    (the dense fold: no decode table) and fp32 where one does (a routed
-    table), the lm_head fp32; logits and cache bit-equal to the CPU
-    path's (the unfused ops), and the logits within the bf16 tolerance of
-    the JAX decode step's."""
+    with the card's rule emulated (``_routes``): at 1-2 rows the fused K5
+    launches (K8 in the prologue; K9 in the q/k/v launch's epilogue with
+    no adapter branch), the final norm a K8 of its own and, with a routed
+    table, K9 too; at 3 and 8 rows K8 2 a layer + the final norm, K9 and
+    K10 once a layer, K5 7 a layer + 1.  K5 writes bf16 for every layer
+    product where no adapter branch follows (the dense fold: no decode
+    table) and fp32 where one does (a routed table), the lm_head fp32;
+    logits and cache bit-equal to the CPU path's (the unfused ops), and
+    the logits within the bf16 tolerance of the JAX decode step's."""
     cfg, jp, tparams = _model(seed=B)
     rng = np.random.default_rng(B + 10 * kv_quant)
     L, cache_len = 10, 16
@@ -424,10 +459,9 @@ def test_decode_step_with_the_card_rule(monkeypatch, kv_quant, B, routed):
     with monkeypatch.context() as m:
         card = _Card(m)
         got, cache = run(card)
-        per_layer = 4 if B <= quant.K5_GROUP_ROWS else 7
-        assert (card.count("K8"), card.count("K9"), card.count("K10"),
-                card.count("K5")) == (2 * n + 1, n, n, per_layer * n + 1)
-        layer_out = card.k5_out[-(per_layer * n + 1):-1]
+        want = _routes(n, B, routed)
+        assert {k: card.count(k) for k in want} == want
+        layer_out = card.k5_out[-want["K5"]:-1]
         assert set(layer_out) == {torch.float32 if routed
                                   else torch.bfloat16}
         assert card.k5_out[-1] == torch.float32

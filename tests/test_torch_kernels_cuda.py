@@ -2691,16 +2691,35 @@ def test_fused_kernels_refuse_what_they_do_not_take():
                                    kc.k, kc.v, 0, pos)
 
 
+def _fused_step_counts(n, B):
+    """(K8, K9, K10, K5 with K8 in its prologue, with K8 and K9) launches
+    of one fused decode step of an ``n``-layer int8 backbone with the dense
+    fold at B rows: at 1-2 rows each norm in the prologue of the K5 launch
+    that reads it and RoPE + the cache write in the q/k/v launch's
+    epilogue, K8 alone only for the final norm; at 3-8 rows K8 2 a layer
+    + 1, K9 once a layer."""
+    if B <= quant.K5_GROUP_ROWS:
+        return (1, 0, n, n, n)
+    return (2 * n + 1, n, n, 0, 0)
+
+
+def _all_fused_counts():
+    from modelcompose_tpu_torch.ops import decode_fused
+    return _fused_counts() + (decode_fused.norm_matmul_group.launches,
+                              decode_fused.norm_qkv_rope.launches)
+
+
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("kv_quant", [False, True])
 def test_fused_decode_step_against_the_unfused_step(kv_quant, B):
     """One eager decode step of the tiny int8 backbone with the dense fold
-    (no decode table) through K8-K10 and K5's bf16 output, against the
-    same step on the unfused ops (``fused_decode`` off): K8 2 a layer + 1,
-    K9 and K10 once a layer; logits within 2e-2 of max |logit| and the
-    caches within one int8 step (K8's normed values may differ by one
-    ulp); through a DecodeGraph the same counts at each replay and the
-    logits bit-equal to the eager fused step's."""
+    (no decode table) through K8-K10 and K5's bf16 output (at one row K8
+    and K9 inside K5's launches), against the same step on the unfused ops
+    (``fused_decode`` off): the launches of ``_fused_step_counts``; logits
+    within 2e-2 of max |logit| and the caches within one int8 step (K8's
+    normed values may differ by one ulp); through a DecodeGraph the same
+    counts at each replay and the logits bit-equal to the eager fused
+    step's."""
     from modelcompose_tpu_torch.core import generate as tgen
     from modelcompose_tpu_torch.core import llama as tllama
     from modelcompose_tpu_torch.core.decode_graph import DecodeGraph
@@ -2717,7 +2736,7 @@ def test_fused_decode_step_against_the_unfused_step(kv_quant, B):
         with torch.no_grad():
             _, cache = tgen._prefill(params, cfg, embeds, None, None, seg,
                                      lengths, S, kv_quant=kv_quant)
-            before = _fused_counts()
+            before = _all_fused_counts()
             if fused:
                 logits, cache, _ = tgen._decode_step(params, cfg, cache,
                                                      tokens, lengths, None)
@@ -2729,8 +2748,8 @@ def test_fused_decode_step_against_the_unfused_step(kv_quant, B):
                         params, cfg, cache, tokens, lengths, None)
                 finally:
                     tllama.fused_decode = kept
-        delta = tuple(a - b for a, b in zip(_fused_counts(), before))
-        assert delta == ((2 * n + 1, n, n) if fused else (0, 0, 0))
+        delta = tuple(a - b for a, b in zip(_all_fused_counts(), before))
+        assert delta == (_fused_step_counts(n, B) if fused else (0,) * 5)
         outs.append((logits, cache))
     (lf, cf), (lu, cu) = outs
     assert _rel(lf, lu) <= 2e-2
@@ -2744,9 +2763,243 @@ def test_fused_decode_step_against_the_unfused_step(kv_quant, B):
         tgen._prefill(params, cfg, embeds, None, None, seg, lengths, S,
                       kv_quant=kv_quant, cache=graph.cache)
     for _ in range(3):  # eager (capture), replay, replay
-        before = _fused_counts()
+        before = _all_fused_counts()
         got = graph(tokens, lengths).clone()
-        assert tuple(a - b for a, b in zip(_fused_counts(), before)) \
-            == (2 * n + 1, n, n)
+        assert tuple(a - b for a, b in zip(_all_fused_counts(), before)) \
+            == _fused_step_counts(n, B)
     # the replays rewrote the same slots: the logits are the eager step's
     assert torch.equal(got, lf)
+
+
+# ---------------------------------------------------------------- K8, K9 in K5
+# K8 in the prologue of the K5 streaming launch that reads its output, and
+# K9 in the epilogue of the q/k/v launch (ops/decode_fused.norm_matmul_group
+# and norm_qkv_rope), at the decode shapes of 1-2 rows: Vicuna-7B's q/k/v,
+# gate/up and lm_head, the tp 2 / tp 4 ranks' column shards, a head_dim of
+# 64 with GQA.  Each is held bit-equal to K8, the grouped K5 and K9 launched
+# one after another on the same inputs: s, h where written, every product,
+# the rotated q, the whole caches (values and scales).
+
+# (K, member N..., head_dim): q/k/v groups name their head_dim
+NORM_GROUPS = {"qkv": (4096, (4096,) * 3, 128),
+               "tp2 qkv": (4096, (2048,) * 3, 128),
+               "tp4 qkv": (4096, (1024,) * 3, 128),
+               "gqa64 qkv": (4096, (2048, 512, 512), 64),
+               "gate_up": (4096, (11008,) * 2, None),
+               "tp2 gate_up": (4096, (5504,) * 2, None),
+               "tp4 gate_up": (4096, (2752,) * 2, None),
+               "lm_head": (4096, (32000,), None)}
+
+
+def _norm_inputs(gen, M, K, Ns, dtype, residual):
+    x = (torch.randn((M, 1, K), generator=gen, device="cuda") * 3).to(dtype)
+    y = (torch.randn((M, 1, K), generator=gen, device="cuda") * 3).to(dtype) \
+        if residual else None
+    w = (1 + 0.1 * torch.randn(K, generator=gen, device="cuda")).to(dtype)
+    weights = [_k5_inputs(gen, 1, K, N)[1] for N in Ns]
+    return x, y, w, weights
+
+
+def _unfused_products(h, weights, out):
+    """The products as the unfused route launches them: one grouped K5 for
+    2-3 members, K5 alone for one."""
+    if len(weights) == 1:
+        return [dequant_matmul(h, weights[0], out_dtype=out)]
+    return quant.dequant_matmul_group(h, weights, out_dtype=out)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("group", list(NORM_GROUPS))
+def test_norm_k5_matches_k8_then_k5(group, M, dtype, residual):
+    """K8 in K5's prologue against K8, then K5: s and h (kept) bit-equal,
+    every product bit-equal in x's type and in fp32; one K5 launch counted
+    on K5 and on ``norm_matmul_group``, none on K8."""
+    from modelcompose_tpu_torch.ops import decode_fused as df
+    K, Ns, _ = NORM_GROUPS[group]
+    gen = torch.Generator(device="cuda").manual_seed(K + sum(Ns) + M)
+    x, y, w, weights = _norm_inputs(gen, M, K, Ns, dtype, residual)
+    for out in (dtype, torch.float32):
+        before = (dequant_matmul.launches, df.norm_matmul_group.launches,
+                  df.add_rms_norm.launches)
+        s, h, got = df.norm_matmul_group(x, y, w, 1e-5, weights, out,
+                                         keep_h=True)
+        assert (dequant_matmul.launches, df.norm_matmul_group.launches,
+                df.add_rms_norm.launches) == (before[0] + 1, before[1] + 1,
+                                              before[2])
+        want_s, want_h = df.add_rms_norm(x, y, w, 1e-5)
+        want = _unfused_products(want_h, weights, out)
+        assert torch.equal(s, want_s) and torch.equal(h, want_h)
+        assert (s is x) == (y is None)
+        for a, b in zip(got, want):
+            assert a.dtype == out and a.shape == b.shape
+            assert torch.equal(a, b)
+        _, none, again = df.norm_matmul_group(x, y, w, 1e-5, weights, out)
+        assert none is None
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def _rope_case(gen, M, K, Ns, D, dtype, int8, residual, S=3360, NL=2):
+    from modelcompose_tpu_torch.config import ModelConfig
+    from modelcompose_tpu_torch.core.llama import KVCache
+    from modelcompose_tpu_torch.ops.rope import rope_tables
+    x, y, w, weights = _norm_inputs(gen, M, K, Ns, dtype, residual)
+    Hkv = Ns[1] // D
+    cfg = ModelConfig(hidden_size=Ns[0], num_attention_heads=Ns[0] // D,
+                      num_key_value_heads=Hkv, num_hidden_layers=NL,
+                      dtype="bfloat16" if dtype == torch.bfloat16
+                      else "float16")
+    caches = [KVCache.zeros(cfg, M, S, quantized=int8, device="cuda")
+              for _ in range(2)]
+    for c in caches[0].tensors():  # filled, so the writes are what differ
+        c.copy_(torch.randint(-100, 100, c.shape, generator=gen,
+                              device="cuda").to(c.dtype))
+    for a, b in zip(caches[0].tensors(), caches[1].tensors()):
+        b.copy_(a)
+    pos = torch.randperm(S, generator=gen, device="cuda")[:M]
+    cos, sin = rope_tables(pos[:, None], D)
+    return (x, y, w, weights), caches, cos, sin, pos
+
+
+def _k8_k5_k9(x, y, w, weights, rope):
+    """K8, the grouped K5 in x's type and K9, launched one after another."""
+    from modelcompose_tpu_torch.ops import decode_fused as df
+    s, h = df.add_rms_norm(x, y, w, 1e-5)
+    q = df.rotate_and_write(
+        quant.dequant_matmul_group(h, weights, out_dtype=x.dtype), rope,
+        df.rope_kv_write)
+    return s, q
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("group", [g for g in NORM_GROUPS
+                                   if NORM_GROUPS[g][2]])
+def test_norm_qkv_rope_matches_k8_k5_k9(group, M, dtype, int8, residual):
+    """K8 in the q/k/v launch's prologue and K9 in its epilogue against K8,
+    the grouped K5 and K9 launched in turn, over a 3,360-position cache
+    with a different position a row (int32 and int64 positions): s, the
+    rotated q and the whole caches (int8 values and scales, or the half
+    entries) bit-equal; one K5 launch counted on K5 and on
+    ``norm_qkv_rope``, none on K8 or K9."""
+    from modelcompose_tpu_torch.ops import decode_fused as df
+    K, Ns, D = NORM_GROUPS[group]
+    gen = torch.Generator(device="cuda").manual_seed(K + sum(Ns) + M + int8)
+    (x, y, w, weights), (fc, pc), cos, sin, pos = _rope_case(
+        gen, M, K, Ns, D, dtype, int8, residual)
+    for p in (pos.int(), pos):
+        before = (dequant_matmul.launches, df.norm_qkv_rope.launches,
+                  df.add_rms_norm.launches, df.rope_kv_write.launches)
+        s, q = df.norm_qkv_rope(x, y, w, 1e-5, weights, df.RopeWrite(
+            cos, sin, fc.k, fc.v, 1, p))
+        assert (dequant_matmul.launches, df.norm_qkv_rope.launches,
+                df.add_rms_norm.launches, df.rope_kv_write.launches) == (
+            before[0] + 1, before[1] + 1, before[2], before[3])
+        want_s, want_q = _k8_k5_k9(x, y, w, weights, df.RopeWrite(
+            cos, sin, pc.k, pc.v, 1, p))
+        assert torch.equal(s, want_s)
+        assert q.shape == want_q.shape == (M, 1, Ns[0] // D, D)
+        assert q.dtype == dtype and torch.equal(q, want_q)
+        for a, b in zip(fc.tensors(), pc.tensors()):
+            assert torch.equal(a, b)
+
+
+def test_norm_qkv_rope_in_a_graph_replay_at_new_positions():
+    """The two fused forms captured in a CapturedStep (recorded as K5
+    launches and as their own, counted at each replay), replayed at new
+    positions copied into the static position buffer: each replay's s, q,
+    gate/up products and cache writes bit-equal to K8, K5 and K9 launched
+    eagerly at those positions."""
+    from modelcompose_tpu_torch.core.decode_graph import CapturedStep
+    from modelcompose_tpu_torch.ops import decode_fused as df
+    from modelcompose_tpu_torch.ops.rope import rope_tables
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    K, Ns, D = NORM_GROUPS["qkv"]
+    (x, y, w, weights), (fc, pc), _, _, pos = _rope_case(
+        gen, 1, K, Ns, D, torch.bfloat16, True, True)
+    up_w = [_k5_inputs(gen, 1, K, 11008)[1] for _ in range(2)]
+    static_pos = pos.clone()
+
+    def fused(p):
+        cos, sin = rope_tables(p[:, None], D)
+        s, q = df.norm_qkv_rope(x, y, w, 1e-5, weights,
+                                df.RopeWrite(cos, sin, fc.k, fc.v, 1, p))
+        s2, _, gu = df.norm_matmul_group(s, y, w, 1e-5, up_w)
+        return [s, q, s2] + gu
+
+    def unfused(p):
+        cos, sin = rope_tables(p[:, None], D)
+        s, q = _k8_k5_k9(x, y, w, weights,
+                         df.RopeWrite(cos, sin, pc.k, pc.v, 1, p))
+        s2, h2 = df.add_rms_norm(s, y, w, 1e-5)
+        return [s, q, s2] + quant.dequant_matmul_group(h2, up_w,
+                                                       out_dtype=x.dtype)
+
+    class Step(CapturedStep):
+        def _step(self):
+            return tuple(fused(static_pos))
+    graph = Step("cuda")
+    graph.run()  # eager warm-up and capture
+    unfused(pos)  # the warm-up's writes
+    assert graph.graph is not None
+    assert (len(graph.k5.norm_rope), len(graph.k5.norm_group),
+            len(graph.k5.launches)) == (1, 1, 2)
+    for new in (pos + 5, pos + 17):
+        static_pos.copy_(new)
+        before = (dequant_matmul.launches, df.norm_qkv_rope.launches,
+                  df.norm_matmul_group.launches)
+        got = graph.run()
+        assert (dequant_matmul.launches - before[0],
+                df.norm_qkv_rope.launches - before[1],
+                df.norm_matmul_group.launches - before[2]) == (2, 1, 1)
+        for a, b in zip(got, unfused(new)):
+            assert torch.equal(a, b)
+        for a, b in zip(fc.tensors(), pc.tensors()):
+            assert torch.equal(a, b)
+
+
+def test_fused_k5_raises_and_does_not_fall_back():
+    """On the card the fused launch runs or raises: a refused shape raises
+    before launching and leaves every count unchanged (no K8, K5 or K9
+    launch in its place), and the C entry refuses what the launcher would
+    not send (an x of K past 8,192, three rows, a RoPE group of two)."""
+    import ctypes
+    from modelcompose_tpu_torch import _build
+    from modelcompose_tpu_torch.ops import decode_fused as df
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    (x, y, w, weights), (fc, _), cos, sin, pos = _rope_case(
+        gen, 1, 4096, (4096, 1024, 1024), 128, torch.bfloat16, True, True,
+        S=64)
+    counts = (dequant_matmul.launches, df.add_rms_norm.launches,
+              df.rope_kv_write.launches, df.norm_qkv_rope.launches)
+    bad = df.RopeWrite(cos[..., :32].contiguous(), sin[..., :32].contiguous(),
+                       fc.k, fc.v, 1, pos)
+    with pytest.raises(ValueError):
+        df.norm_qkv_rope(x, y, w, 1e-5, weights, bad)
+    with pytest.raises(ValueError):
+        df.norm_qkv_rope(x.expand(3, 1, 4096).contiguous(), None, w, 1e-5,
+                         weights, df.RopeWrite(cos, sin, fc.k, fc.v, 1, pos))
+    assert (dequant_matmul.launches, df.add_rms_norm.launches,
+            df.rope_kv_write.launches, df.norm_qkv_rope.launches) == counts
+    lib = _build.load("w8a16_gemv")
+    out = torch.empty(1, 4096, dtype=torch.bfloat16, device="cuda")
+
+    def call(M=1, K=4096, n=3, head_dim=128):
+        ptrs = (ctypes.c_void_p * n)
+        return lib.mc_w8a16_gemv_norm(
+            x.data_ptr(), None, w.data_ptr(), None, None, 1e-5, n,
+            ptrs(*[wq["q"].data_ptr() for wq in weights[:n]]),
+            ptrs(*[wq["scale"].data_ptr() for wq in weights[:n]]),
+            ptrs(*[out.data_ptr()] + [None] * (n - 1)),
+            (ctypes.c_int * n)(*[4096, 1024, 1024][:n]), None, None, M, K,
+            4096, 1, 1, head_dim, cos.data_ptr(), sin.data_ptr(),
+            fc.k["q"].data_ptr(), fc.v["q"].data_ptr(),
+            fc.k["scale"].data_ptr(), fc.v["scale"].data_ptr(),
+            pos.data_ptr(), 1, 64, 8, 1,
+            torch.cuda.current_stream().cuda_stream)
+    for kw in ({"K": 8200}, {"M": 3}, {"n": 2}, {"head_dim": 96}):
+        assert call(**kw) == 1  # cudaErrorInvalidValue
+    torch.cuda.synchronize()
