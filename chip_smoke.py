@@ -10,14 +10,17 @@ nonzero:
 2. build: every hand-written kernel compiled by nvcc from ``csrc/``, one
    nvcc per source, all started together;
 3. K1 (flash-attention forward) against its plain PyTorch version, at
-   the vision path's 1,024 bucket and the composed path's 3,328, with its
-   bound and the time of ``scaled_dot_product_attention`` on the same
-   inputs (the yardstick, never called by the port);
+   the vision path's 1,024 bucket and the composed path's 3,328 (bf16, and
+   fp16: the reference's eval dtype), with its bound and the time of
+   ``scaled_dot_product_attention`` on the same inputs (the yardstick,
+   never called by the port); both types at a ragged length, GQA with a
+   query offset, D=64 and a prefill chunk;
 4. K2 (split-KV flash-decode) against its plain PyTorch version, over the
    vision path's int8 cache of 1,056 positions and the composed path's
-   3,360, and at beam search's shape (a bf16 cache of 3 rows of 3,360),
-   timed cycling over the 32 layers of the stacked cache so that each
-   launch finds its layer cold in L2, as decode does;
+   3,360 (a bf16 q, and an fp16 one), and at beam search's shape (a bf16
+   and an fp16 cache of 3 rows of 3,360), timed cycling over the 32 layers
+   of the stacked cache so that each launch finds its layer cold in L2, as
+   decode does;
 4b. K5 (the W8A16 product of the int8 weights) against its plain version
    (the convert and the fp32-output GEMM), with a bf16 and an fp32
    result, at every int8 product of the main paths: Vicuna-7B's q/k/v/o,
@@ -76,7 +79,12 @@ nonzero:
    outputs, the whole caches) and within 2e-2 of its plain version, timed
    by CUDA-graph replay over 8 weight copies beside that chain (in one
    graph, and launch by launch), its plain version and its bound; the sum
-   over a step's 64 fused launches;
+   over a step's 64 fused launches; then K10 inside the down product's K5
+   launch at 1 and 2 rows (K 11,008, 5,504 and 2,752; bf16, and fp16 at
+   11,008), bit-equal to K10 and the streaming K5 in turn (h written out
+   and not, the product in x's type and in fp32), timed the same way
+   beside K10 -> K5 in one graph, and the sum over a step's 32 down
+   launches;
 5. the serving path at Vicuna-7B width: a vision DAMC composition (CLIP
    ViT-L/14-336, linear projector, routed LoRA r=128) with random weights,
    int8 base, the default adapter mix folded into W, int8 KV cache,
@@ -93,9 +101,9 @@ nonzero:
    prefill's lm_head, K8-K10 a replayed decode step as
    ``_fused_per_step`` counts them (at 1-2 rows K8 alone only for the
    final norm, each layer's norms in the prologue of the K5 launch that
-   reads them and RoPE with the cache write in the q/k/v launch's
-   epilogue; at 3-8 rows K8 2 a layer + 1 and K9 once a layer), K10 once
-   a layer, and none in the prefill, peak
+   reads them, RoPE with the cache write in the q/k/v launch's epilogue
+   and the SiLU product in the down product's prologue; at 3-8 rows K8 2
+   a layer + 1, K9 and K10 once a layer), and none in the prefill, peak
    allocated and reserved memory, each kind's graph pool GB, the time to
    first token of the three calls: eager, capturing, replayed); the same
    request with the tower, the prefill and the decode launch by launch
@@ -117,27 +125,25 @@ nonzero:
    and prefill logits bit-equal), peak memory, torch.profiler over one
    replay of the step
    (``chiprun_out/decode_step_profile.txt``), the kernel path's logits
-   against the plain path's, a decode A/B through the graphs of K5
-   against the plain int8 product with K2 in both (in turns plain, K5, K5,
-   plain: decode tokens/s, one replayed step's device time by kernel in
+   against the plain path's, the request through the graphs on each arm
+   of three A/Bs once (their timing in turns is ``scripts/torch_path_ab.py
+   --workload routes``): K5 against the plain int8 product with K2 in both
+   (decode tokens/s, one replayed step's device time by kernel in
    ``chiprun_out/decode_step_profile_{k5,plain}.txt``, greedy ids equal or
-   parting at a named near tie), a decode A/B through the graphs of three
-   routes of the decode layer: K8 and K9 inside K5's launches, K8-K10 as
-   launches of their own, and unfused (the layer's ops as PyTorch
-   kernels, K5 writing fp32 and a cast), K2 and K5 in all (in turns
-   unfused, separate, in_k5, in_k5, separate, unfused: decode tokens/s,
-   one replayed step's device time and its kernels counted by profile
-   split in ``chiprun_out/decode_step_profile_fused_ab_<route>.txt``, the
-   K5 and K8-K10 launches of every turn checked exactly, greedy ids equal
-   or parting at a named near tie), a prefill
-   A/B of K6 against the plain
-   route above 8 rows with K1 and K5 in both (in turns plain, K6, K6,
-   plain: the one-shot prefill through its graph; a 512-row chunk step
-   through its graph and the prefill graphs' pool GB in each arm's first
-   turn; K6's launches exactly 224 a prefill, the prefill logits within
-   8e-2 and the greedy ids equal or parting at a named near tie), and
-   torch.profiler over the towers +
-   prefill (``chiprun_out/composed_profile.txt``);
+   parting at a named near tie), three routes of the decode layer: K8-K10
+   inside K5's launches, K8-K10 as launches of their own, and unfused (the
+   layer's ops as PyTorch kernels, K5 writing fp32 and a cast), K2 and K5
+   in all (decode tokens/s, one replayed step's device time and its
+   kernels counted by profile split in
+   ``chiprun_out/decode_step_profile_fused_ab_<route>.txt``, the K5 and
+   K8-K10 launches of every arm checked exactly, greedy ids equal or
+   parting at a named near tie), and K6 against the plain route above 8
+   rows with K1 and K5 in both (the one-shot prefill through its graph; a
+   512-row chunk step through its graph and the prefill graphs' pool GB;
+   K6's launches exactly 224 a prefill, the prefill logits within 8e-2 and
+   the greedy ids equal or parting at a named near tie), and
+   torch.profiler over the towers + prefill
+   (``chiprun_out/composed_profile.txt``);
 6b. decode variants on phase 6's model and request: sampled (temperature
    0.2), sampled with top-p 0.7 (every drawn token inside its step's
    nucleus; both sampled runs' ids equal to ``device_loop=False`` from the
@@ -145,6 +151,26 @@ nonzero:
    beam search and beam sampling (3 beams, 16 tokens, K2 over a bf16
    cache of 3 rows), each with its answer, launches, decode tokens/s and
    peak memory;
+6c. fp16 (run after phase 14, once phase 6's model is gone): the MCUB-4
+   composition of phase 6 with ``dtype="float16"`` (the reference's eval
+   dtype) at Vicuna-7B width and its 32 layers, in the same production
+   variant: the request through the tower, prefill and
+   decode graphs as in phase 5 (every count exact), the launches of each
+   kernel equal to phase 6's bf16 request's (K1 32, K2 992), the
+   teacher-forced logits within 8e-2 of the plain path's (attention and
+   the int8 products on their plain versions) and finite, the greedy ids
+   equal to the plain path's or parting at a named near tie;
+6d. tiny: attention's dtypes end to end on small models (2 layers of
+   256, head_dim 128, text only): an fp32 model's request raises at K1's
+   checks with no K1 or K2 launch (the kernels take bf16 and fp16; a CUDA
+   tensor gets no plain version) and answers on the CPU; an fp16 model
+   through the prefill and decode graphs with K1 once a layer and K2 once
+   a layer a step, within 2e-2 of the same weights on the CPU; an fp16
+   stage-2 train step eagerly and through its graph, K1 twice a layer
+   (remat), K3 and K4 once, counted exactly, the first loss finite and the
+   graph's losses the eager ones (fp16 Adam's first update overflows, as
+   the JAX optimizer's does, so later losses are NaN on every route); its
+   first loss, gradients and update held to the plain attention's;
 7. loader: four unimodal r=128 DAMC checkpoints and a sharded
    Vicuna-layout base at full width and 2 layers, written to disk, merged
    and loaded onto the card by the port; every loaded leaf held to what
@@ -157,9 +183,10 @@ nonzero:
    benchmark protocol and sampled with top-p; seconds per question;
 8. K3 (flash-attention dQ) and K4 (dK, dV) against their plain versions,
    on K1's output and LSE, which are held against theirs at each of these
-   shapes too: the shape K3/K4 have been timed at since their port, the
-   train step's batch and its micro-batches, with SDPA's backward beside
-   them (a boolean mask at B=2, ``is_causal`` at B=1);
+   shapes too: the shape K3/K4 have been timed at since their port (bf16,
+   and fp16), the train step's batch and its micro-batches, with SDPA's
+   backward beside them (a boolean mask at B=2, ``is_causal`` at B=1);
+   both types at a ragged length, GQA with a query offset and D=64;
 9. the training path at Vicuna-7B width: the vision DAMC stage-2 recipe
    (bf16 base, modal+language LoRA r=128, 5+5 soft tokens, mlp2x_gelu
    projector, remat) built through the train entry, four
@@ -396,7 +423,7 @@ K10_REPLACES = "modelcompose_tpu/core/llama.py:323"
 # and K10 as launches of their own, then K5's launches with K8 in their
 # prologue and with K8 and K9 (each also counted as a K5 launch)
 FUSED_KERNELS = ("add_rms_norm", "rope_kv_write", "silu_mul",
-                 "norm_matmul_group", "norm_qkv_rope")
+                 "norm_matmul_group", "norm_qkv_rope", "silu_matmul")
 # the launch counters of the forward kernels, as the phases read them
 FORWARD_KERNELS = ("flash_attention_fwd", "flash_decode", "w8a16_gemv",
                    "w8a16_gemm") + FUSED_KERNELS
@@ -958,17 +985,19 @@ def _rel_err(got, want, rows=None):
 
 
 def _k1_case(device, gen, *, B, Lq, S, H, Hkv, D, q_offset, lengths,
-             library=False, timer=None):
-    """K1 against its plain version at one shape, its time (``timer``, CUDA
-    events over warm launches by default), the plain version's (events),
-    SDPA's (``library``, by the same timer) and its bound."""
+             library=False, timer=None, dtype="bfloat16"):
+    """K1 against its plain version at one shape, on operands of
+    ``dtype`` (bf16 or fp16), its time (``timer``, CUDA events over warm
+    launches by default), the plain version's (events), SDPA's
+    (``library``, by the same timer, on the same operands) and its
+    bound."""
     import torch
     from modelcompose_tpu_torch.ops.flash_attention import (
         flash_attention_forward, flash_attention_reference)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device,
-                           dtype=torch.float32).to(torch.bfloat16)
+                           dtype=torch.float32).to(getattr(torch, dtype))
     q, k, v = rnd(B, Lq, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
     kv_seg = (torch.arange(S, device=device)[None]
               < torch.tensor(lengths, device=device)[:, None]).to(torch.int32)
@@ -976,7 +1005,7 @@ def _k1_case(device, gen, *, B, Lq, S, H, Hkv, D, q_offset, lengths,
     kw = dict(causal=True, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
               q_offset=q_offset)
     out, lse = flash_attention_forward(q, k, v, **kw)
-    name = f"B{B} Lq{Lq} S{S} H{H}/{Hkv} D{D} q_offset{q_offset}"
+    name = f"{dtype} B{B} Lq{Lq} S{S} H{H}/{Hkv} D{D} q_offset{q_offset}"
     err, rel, lse_err = _check_k1(name, q, k, v, kw, out, lse)
     timer = timer or cuda_time_ms
     ms = timer(lambda: flash_attention_forward(q, k, v, **kw))
@@ -1070,27 +1099,40 @@ def phase_k1(device, gen):
     vision = _k1_case(device, gen, B=2, Lq=1024, S=1024, H=32, Hkv=32,
                       D=128, q_offset=0, lengths=[1024, 637], library=True)
     mcub4 = _k1_case(device, gen, library=True, **MCUB4_K1)
-    errs = [mcub4["max_abs_err"], vision["max_abs_err"]]
-    for case in (dict(B=2, Lq=150, S=150, H=32, Hkv=32, D=128, q_offset=0,
-                      lengths=[150, 97]),
-                 dict(B=2, Lq=256, S=1024, H=32, Hkv=8, D=128, q_offset=768,
-                      lengths=[1024, 900]),
-                 dict(B=2, Lq=150, S=150, H=8, Hkv=4, D=64, q_offset=0,
-                      lengths=[150, 61])):
-        errs.append(_k1_case(device, gen, **case)["max_abs_err"])
+    # the fp16 model's prefill (the reference's eval dtype), beside SDPA
+    # on the same fp16 operands
+    mcub4_fp16 = _k1_case(device, gen, library=True, dtype="float16",
+                          **MCUB4_K1)
+    errs = [mcub4["max_abs_err"], vision["max_abs_err"],
+            mcub4_fp16["max_abs_err"]]
+    for dtype in ("bfloat16", "float16"):
+        for case in (dict(B=2, Lq=150, S=150, H=32, Hkv=32, D=128,
+                          q_offset=0, lengths=[150, 97]),
+                     dict(B=2, Lq=256, S=1024, H=32, Hkv=8, D=128,
+                          q_offset=768, lengths=[1024, 900]),
+                     dict(B=2, Lq=150, S=150, H=8, Hkv=4, D=64, q_offset=0,
+                          lengths=[150, 61]),
+                     dict(B=1, Lq=512, S=3072, H=32, Hkv=32, D=128,
+                          q_offset=2560, lengths=[3072])):
+            errs.append(_k1_case(device, gen, dtype=dtype,
+                                 **case)["max_abs_err"])
     return dict(vision, max_abs_err=max(errs),
                 shape="B2 Lq=S=1024 (1024, 637 valid)",
-                mcub4=dict(mcub4, shape="B1 Lq=S=3328 (3287 valid)"))
+                mcub4=dict(mcub4, shape="B1 Lq=S=3328 (3287 valid)"),
+                mcub4_fp16=dict(mcub4_fp16,
+                                shape="fp16 B1 Lq=S=3328 (3287 valid)"))
 
 
 def _k2_case(device, gen, *, B, NL, S, H, Hkv, D, kv_len, quantized, layer,
-             graph=False):
+             graph=False, dtype="bfloat16"):
+    """K2 on a q of ``dtype`` (bf16 or fp16) over a cache of that type or
+    int8 (``quantized``), measured by ``_k2_measure``."""
     import torch
     from modelcompose_tpu_torch.core.llama import quantize_kv
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device,
-                           dtype=torch.float32).to(torch.bfloat16)
+                           dtype=torch.float32).to(getattr(torch, dtype))
     q = rnd(B, 1, H, D)
     k, v = rnd(NL, B, S, Hkv, D), rnd(NL, B, S, Hkv, D)
     if quantized:
@@ -1116,7 +1158,8 @@ def _check_k2(q, k, v, kv, layer):
     torch.cuda.synchronize()
     err, rel = _rel_err(out, ref)
     _, rel_loop = _rel_err(out, loop)
-    name = (f"{'int8' if quantized else 'bf16'} B{B} NL{NL} S{S} "
+    cache = "int8" if quantized else str(k.dtype).split(".")[-1]
+    name = (f"q {str(q.dtype).split('.')[-1]} {cache} B{B} NL{NL} S{S} "
             f"H{q.shape[2]}/{Hkv} D{D} kv_len{kv.tolist()}")
     if not (rel <= ATTN_TOL and rel_loop <= ATTN_TOL):
         raise AssertionError(f"K2 {name}: rel err {rel:.3g} vs plain, "
@@ -1209,12 +1252,30 @@ def phase_k2(device, gen):
     beam = _k2_case(device, gen, B=NUM_BEAMS, NL=32, S=3328 + NEW_TOKENS,
                     H=32, Hkv=32, D=128, kv_len=[MCUB4_POSITIONS] * NUM_BEAMS,
                     quantized=False, layer=31)
-    errs += [c["max_abs_err"] for c in cases + [vision, beam]]
+    # the fp16 model's decode: an fp16 q over the int8 cache (the main
+    # path's), and over an fp16 cache (beam search's)
+    fp16 = _k2_case(device, gen, B=1, NL=32, S=3328 + NEW_TOKENS, H=32,
+                    Hkv=32, D=128, kv_len=[MCUB4_POSITIONS], quantized=True,
+                    layer=31, dtype="float16")
+    fp16_beam = _k2_case(device, gen, B=NUM_BEAMS, NL=32,
+                         S=3328 + NEW_TOKENS, H=32, Hkv=32, D=128,
+                         kv_len=[MCUB4_POSITIONS] * NUM_BEAMS,
+                         quantized=False, layer=31, dtype="float16")
+    for quantized in (False, True):  # GQA, S not a multiple of 128
+        errs.append(_k2_case(device, gen, B=2, NL=4, S=1000, H=32, Hkv=8,
+                             D=128, kv_len=[1000, 517], quantized=quantized,
+                             layer=2, dtype="float16")["max_abs_err"])
+    errs += [c["max_abs_err"] for c in cases + [vision, beam, fp16,
+                                                fp16_beam]]
     return dict(vision, max_abs_err=max(errs),
                 shape="B2 int8 S=1056 kv_len 660/630",
                 mcub4=dict(cases[0], shape="B1 int8 S=3360 kv_len 3287"),
                 mcub4_last_step=dict(cases[1], shape="kv_len 3318"),
-                beam=dict(beam, shape="B3 bf16 S=3360 kv_len 3287"))
+                beam=dict(beam, shape="B3 bf16 S=3360 kv_len 3287"),
+                mcub4_fp16=dict(fp16, shape="fp16 q, B1 int8 S=3360 kv_len "
+                                "3287"),
+                beam_fp16=dict(fp16_beam, shape="B3 fp16 S=3360 kv_len "
+                               "3287"))
 
 
 # K5's shapes on the main paths, (K, N): Vicuna-7B's int8 products, and the
@@ -1264,13 +1325,17 @@ def _k5_per_step(params, rows):
 
 def _fused_per_step(params, rows, routed=False, in_k5=True):
     """K8-K10 launches in one decode step of ``rows`` rows of ``params``
-    (bf16 activations, head_dim 128), by counter: at 1-2 rows each norm
-    that a grouped int8 K5 launch reads runs in its prologue
+    (bf16 or fp16 activations, head_dim 128), by counter: at 1-2 rows each
+    norm that a grouped int8 K5 launch reads runs in its prologue
     (``norm_matmul_group``) and, with no adapter branch (``routed`` False:
     the dense fold), RoPE and the cache write in the q/k/v launch's
     epilogue (``norm_qkv_rope``); K8 alone then only for the final norm
     (65, 32, 32 for Vicuna-7B at 3-8 rows, or with ``in_k5`` False; 1, 0,
-    32 with 32 + 32 fused launches at 1-2).  K10 once a layer."""
+    0 with 32 + 32 + 32 fused launches at 1-2).  The SiLU product runs in
+    the prologue of the int8 down product's K5 launch (``silu_matmul``)
+    where K5 streams that product (``decode_fused._silu_streams``: 1-2
+    rows of Vicuna-7B's down product), else K10 once a layer."""
+    from modelcompose_tpu_torch.ops.decode_fused import _silu_streams
     from modelcompose_tpu_torch.ops.quant import K5_GROUP_ROWS, is_quantized
     layers = params["layers"]
     n = layers["input_layernorm"].shape[0]
@@ -1281,10 +1346,15 @@ def _fused_per_step(params, rows, routed=False, in_k5=True):
     qkv, gate_up = grouped("attn", ("q", "k", "v")), grouped("mlp", ("gate",
                                                                      "up"))
     rope = qkv and not routed
+    w = layers["mlp"]["down"]["w"]
+    down = in_k5 and is_quantized(w) and _silu_streams(rows,
+                                                       *w["q"].shape[-2:])
     return {"add_rms_norm": 1 + n * ((not qkv) + (not gate_up)),
-            "rope_kv_write": 0 if rope else n, "silu_mul": n,
+            "rope_kv_write": 0 if rope else n,
+            "silu_mul": 0 if down else n,
             "norm_matmul_group": n * ((qkv and not rope) + gate_up),
-            "norm_qkv_rope": n if rope else 0}
+            "norm_qkv_rope": n if rope else 0,
+            "silu_matmul": n if down else 0}
 
 
 def _k6_per_forward(params):
@@ -2012,6 +2082,94 @@ def _fused_k5_case(device, gen, name, M, int8=True):
     return res
 
 
+def _silu_k5_case(device, gen, name, M, dtype="bfloat16"):
+    """The down product with K10 in its K5 prologue (``silu_matmul``; gate
+    and up of ``dtype`` [M, 1, I], I the ``FUSED_INTER`` width of ``name``,
+    the weight [I, 4,096]) against K10 and then the streaming K5 on the
+    same grid: h (written out) and the product bit-equal, in x's type and
+    in fp32; against its plain version within ATTN_TOL.  Where K5 takes
+    the product on the tensor cores (two rows of the tp 4 shard) the fused
+    launch must refuse it, uncounted, and the case returns None.  Timed by
+    CUDA-graph replay over ``FUSED_K5_COPIES`` weight copies: the fused
+    launch, K10 -> K5 as the route without the fusion runs them
+    (``dequant_matmul``'s own plan) in one graph and each alone, and the
+    plain version; the bound from the bytes the fused launch moves."""
+    import itertools
+    import torch
+    from modelcompose_tpu_torch.ops import decode_fused as df
+    from modelcompose_tpu_torch.ops import quant
+    dt = getattr(torch, dtype)
+    K, N = FUSED_INTER[name], FUSED_HIDDEN
+    gate = (torch.randn((M, 1, K), generator=gen, device=device) * 4).to(dt)
+    up = torch.randn((M, 1, K), generator=gen, device=device).to(dt)
+    copies = [{"q": torch.randint(-127, 128, (K, N), generator=gen,
+                                  device=device, dtype=torch.int8),
+               "scale": torch.rand((1, N), generator=gen, device=device)
+               * 1e-3 + 1e-4} for _ in range(FUSED_K5_COPIES)]
+    if not df._silu_streams(M, K, N):
+        before = (quant.dequant_matmul.launches, df.silu_matmul.launches)
+        try:
+            df.silu_matmul(gate, up, copies[0])
+        except ValueError as e:
+            if (quant.dequant_matmul.launches,
+                    df.silu_matmul.launches) != before \
+                    or df.silu_fuses(gate, copies[0]):
+                raise AssertionError(f"K10 in K5 {name} M{M}: counted or "
+                                     f"routed where it refuses") from e
+            log("K10 in K5", shape=name, M=M, dtype=dtype,
+                route="K10 then K5 on the tensor cores", refused=str(e))
+            return None
+        raise AssertionError(f"K10 in K5 {name} M{M}: the fused launch took "
+                             f"a shape K5 runs on the tensor cores")
+    for out in (dt, torch.float32):
+        before = (df.silu_matmul.launches, df.silu_mul.launches)
+        h, y = df.silu_matmul(gate, up, copies[0], out, keep_h=True)
+        counted = (df.silu_matmul.launches - before[0],
+                   df.silu_mul.launches - before[1])
+        if counted != (1, 0):
+            raise AssertionError(f"K10 in K5 {name} M{M}: launches {counted}")
+        h_ref = df.silu_mul(gate, up)
+        (y_ref,) = quant._k5(h_ref.view(M, K), [copies[0]], out)
+        y_nokeep = df.silu_matmul(gate, up, copies[0], out)[1]
+        if not (torch.equal(h, h_ref) and torch.equal(y.view(M, N), y_ref)
+                and torch.equal(y_nokeep, y)):
+            raise AssertionError(f"K10 in K5 {name} M{M} {dtype} out {out}: "
+                                 f"differs from K10 and K5 in turn")
+        h_plain, y_plain = df.silu_matmul_reference(gate, up, copies[0], out)
+        err, rel = _rel_err(y, y_plain)
+        if rel > (ATTN_TOL if out is dt else K5_F32_TOL) \
+                or not torch.equal(h, h_plain):
+            raise AssertionError(f"K10 in K5 {name} M{M} {dtype}: rel err "
+                                 f"{rel:.3g} against the plain version")
+    res = {"shape": name, "M": M, "K": K, "N": N, "dtype": dtype,
+           "form": "K10 in K5", "max_abs_err": err, "rel_err": rel,
+           "chain_bit_equal": True}
+    layers = itertools.cycle(range(FUSED_K5_COPIES))
+
+    def cycled(fn):
+        return graph_time_ms(lambda: fn(copies[next(layers)]),
+                             n=FUSED_K5_COPIES)
+
+    def chain(ws):
+        return quant.dequant_matmul(df.silu_mul(gate, up), ws, out_dtype=dt)
+    h0 = df.silu_mul(gate, up)
+    res.update(ms=cycled(lambda ws: df.silu_matmul(gate, up, ws)),
+               chain_ms=cycled(chain),
+               k10_ms=graph_time_ms(lambda: df.silu_mul(gate, up)),
+               k5_ms=cycled(lambda ws: quant.dequant_matmul(h0, ws,
+                                                            out_dtype=dt)),
+               plain_ms=cycled(lambda ws: df.silu_matmul_reference(
+                   gate, up, ws)), library_ms=None)
+    parts = [res["k10_ms"], res["k5_ms"]]
+    res["parts_sum_ms"] = None if None in parts else sum(parts)
+    nbytes = K * N + 4 * N + 2 * 2 * M * K + 2 * M * N
+    res["bound_ms"], res["bound_by"] = bound(2 * M * K * N, nbytes)
+    res["share_of_bound"] = None if res["ms"] is None \
+        else res["bound_ms"] / res["ms"]
+    del copies
+    return res
+
+
 def phase_fused(device, gen):
     """K8, K9 and K10 against their plain versions at the MCUB-4 decode
     shapes (1 and 8 rows; the tp 2 and 4 ranks' heads and intermediate
@@ -2110,12 +2268,18 @@ def phase_fused(device, gen):
                 lambda: df.silu_mul_reference(gate, up), 3 * 2 * M * inter,
                 6 * M * inter))
         torch.cuda.empty_cache()
-    rows["K8 in K5"], rows["K8+K9 in K5"] = [], []
+    rows["K8 in K5"], rows["K8+K9 in K5"], rows["K10 in K5"] = [], [], []
     for M in FUSED_K5_ROWS:
         for name, (_, D) in FUSED_K5.items():
             for int8 in (True, False) if name == "qkv" else (True,):
                 c = _fused_k5_case(device, gen, name, M, int8)
                 rows[c["form"]].append(c)
+        for name in FUSED_INTER:  # the down product and its row shards
+            for dtype in ("bfloat16", "float16") if name == "mcub4" \
+                    else ("bfloat16",):
+                c = _silu_k5_case(device, gen, name, M, dtype)
+                if c is not None:
+                    rows["K10 in K5"].append(c)
         torch.cuda.empty_cache()
     for key, cases in rows.items():
         for c in cases:
@@ -2150,24 +2314,39 @@ def phase_fused(device, gen):
                         "ms", "chain_ms", "parts_sum_ms", "plain_ms",
                         "bound_ms")}
         in_k5[M]["launches"] = 64
+    # the 32 down products of a step at 1-2 rows, with K10 in their
+    # prologue against K10 -> K5 (one graph; each alone: the parts)
+    silu_in_k5 = {}
+    for M in FUSED_K5_ROWS:
+        down = next(c for c in rows["K10 in K5"] if c["M"] == M
+                    and c["shape"] == "mcub4" and c["dtype"] == "bfloat16")
+        silu_in_k5[M] = {k: None if down[k] is None else 32 * down[k]
+                         for k in ("ms", "chain_ms", "parts_sum_ms",
+                                   "plain_ms", "bound_ms")}
+        silu_in_k5[M]["launches"] = 32
     log("fused", step_sum_ms=json.dumps(
         {m: {k: round(v, 4) for k, v in s.items()} for m, s in step.items()}),
         in_k5_step_sum_ms=json.dumps(
             {m: {k: v if v is None else round(v, 4) for k, v in s.items()}
-             for m, s in in_k5.items()}))
+             for m, s in in_k5.items()}),
+        silu_in_k5_step_sum_ms=json.dumps(
+            {m: {k: v if v is None else round(v, 4) for k, v in s.items()}
+             for m, s in silu_in_k5.items()}))
     out = {}
     k8_alone = next(c for c in rows["K8"] if not c["residual"])
     for key, note in (("K8", "F.rms_norm on the no-residual case (the "
                              "final norm; it rounds in another order); "
                              "none with the residual"),
                       ("K9", "none"), ("K10", "none"),
-                      ("K8 in K5", "none"), ("K8+K9 in K5", "none")):
+                      ("K8 in K5", "none"), ("K8+K9 in K5", "none"),
+                      ("K10 in K5", "none")):
         first = rows[key][0]  # one row of the Vicuna-7B shape
         out[key] = dict({k: first[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "share_of_bound")}, library_call=note,
             shapes=[_rounded(c) for c in rows[key]],
-            step=in_k5 if "K5" in key else step)
+            step=silu_in_k5 if key == "K10 in K5"
+            else in_k5 if "K5" in key else step)
         out[key]["max_abs_err"] = errs[key] if key in errs \
             else max(c["max_abs_err"] for c in rows[key])
     out["K8"]["library_ms"] = k8_alone["library_ms"]
@@ -2488,6 +2667,365 @@ def phase_composed(device, gen):
         (ids, inputs)
 
 
+def phase_fp16(device, gen, bf16_launches):
+    """The MCUB-4 composition at Vicuna-7B width and depth in fp16 (the
+    reference's eval dtype), in the production decode variant (int8 base
+    and KV cache, the dense fold) as phase 6 serves it in bf16: one
+    request through the tower, prefill and decode graphs
+    (``_timed_request``: every kernel's count exact), its counts equal to
+    the bf16 request's, its greedy answer held to the plain path on the
+    card at fp16 (``attn_impl="reference"``: teacher-forced logits within
+    COMPOSED_LOGIT_TOL of max |logit|, finite on both routes, and the ids
+    equal or parting only at a near tie)."""
+    import torch
+    from modelcompose_tpu_torch.configs import mcub4_damc_7b
+
+    cfg = mcub4_damc_7b(dtype="float16")
+    model = build_served_model(cfg, device, gen, "fp16")
+    ids, inputs = _mcub4_request(cfg, device, gen)
+    kw = dict(kv_quant=True, compact_adapters=True)
+    answers, timings, launches, graphs, (peak, reserved), logits = \
+        _timed_request("fp16", model, ids, inputs, **kw)
+    n_layers = cfg.num_hidden_layers
+    decode_steps = NEW_TOKENS - 1
+    if launches["flash_attention_fwd"] != n_layers \
+            or launches["flash_decode"] != n_layers * decode_steps \
+            or launches != bf16_launches:
+        raise AssertionError(f"fp16: launches {launches}, want K1 "
+                             f"{n_layers}, K2 {n_layers * decode_steps} and "
+                             f"the bf16 request's {bf16_launches}")
+    if logits.dtype != torch.float32 or not torch.isfinite(logits).all():
+        raise AssertionError("fp16: prefill logits not finite fp32")
+    rel = _compare_logits("fp16", model, ids, inputs, answers,
+                          COMPOSED_LOGIT_TOL)
+    plain = model.generate(ids, inputs, max_new_tokens=NEW_TOKENS,
+                           attn_impl="reference", **kw)
+    vs_plain = _kernel_vs_plain(model, [(ids, inputs, answers)],
+                                [(ids, inputs, plain)], kv_quant=True,
+                                phase="fp16")
+    log("fp16", prefill_s=f"{timings['prefill_s']:.4f}",
+        decode_s=f"{timings['decode_s']:.4f}",
+        decode_tok_per_s=f"{decode_steps / timings['decode_s']:.2f}",
+        peak_mem_gb=f"{peak:.2f}", answer_len=len(answers[0]),
+        launches=json.dumps(launches), equal_to_bf16_counts=True,
+        max_abs_logit=f"{logits.abs().max().item():.4g}",
+        vs_plain=json.dumps(vs_plain), logit_rel_err=f"{rel:.3g}")
+    del model
+    return {"launches": launches, "prefill_s": timings["prefill_s"],
+            "decode_tok_per_s": decode_steps / timings["decode_s"],
+            "logit_rel_err": rel, "vs_plain": vs_plain}
+
+
+# The tiny models of phase 6d: 2 layers of 256, head_dim 128 (a width the
+# kernels take), text only, a float base, the int8 KV cache.
+TINY_CFG = dict(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                num_attention_heads=2, num_key_value_heads=2, vocab_size=1024,
+                max_position_embeddings=512)
+TINY_TOKENS = 12
+
+
+def _tiny_models(device, dtype):
+    """A tiny ``dtype`` model made on the CPU from a seed, on the CPU and
+    copied to the card, and two text requests (40 and 23 tokens)."""
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.config import ModelConfig
+    from modelcompose_tpu_torch.core.llama import init_params
+    from modelcompose_tpu_torch.models.model import MultimodalLM
+    from modelcompose_tpu_torch.tree import tree_map_with_path
+    cfg = ModelConfig(dtype=dtype, lora_r=4, lora_alpha=8, **TINY_CFG)
+    cpu_gen = torch.Generator().manual_seed(SEED + 6)
+    params = init_params(cfg, cpu_gen, "cpu")
+    for grp in ("attn", "mlp"):
+        for p in params["layers"][grp].values():
+            p["lora_b"].normal_(0.0, 0.05, generator=cpu_gen)
+    cpu = MultimodalLM(cfg, params, {}, {})
+    card = MultimodalLM(cfg, tree_map_with_path(
+        lambda _, t: t.to(device), params), {}, {})
+    rng = np.random.default_rng(SEED + 6)
+    ids = [np.concatenate([[1], rng.integers(3, cfg.vocab_size, n)])
+           for n in (40, 23)]
+    return cfg, cpu, card, ids
+
+
+def _tiny_fp32_raises(device):
+    """The tiny fp32 model: on the card its request raises TypeError at
+    K1's checks with no K1 or K2 launch (the kernels take bf16 and fp16,
+    and a CUDA tensor gets no plain version); on the CPU it answers by the
+    plain versions."""
+    cfg, cpu, card, ids = _tiny_models(device, "float32")
+    reset, read = _attention_counters()
+    reset()
+    try:
+        card.generate(ids, {}, max_new_tokens=TINY_TOKENS, kv_quant=True)
+    except TypeError as e:
+        error = str(e)
+    else:
+        raise AssertionError("tiny float32: the card answered an fp32 "
+                             "request; K1 must refuse it")
+    counted = read()
+    launches = {k: counted[k] for k in ("flash_attention_fwd",
+                                        "flash_decode")}
+    if "bf16 or fp16" not in error or any(launches.values()):
+        raise AssertionError(f"tiny float32: {error!r}, launches "
+                             f"{launches}")
+    answers = cpu.generate(ids, {}, max_new_tokens=TINY_TOKENS, kv_quant=True)
+    if not all(answers):
+        raise AssertionError(f"tiny float32 on the CPU: answers {answers}")
+    res = {"dtype": "float32", "card_raised": error, "launches": launches,
+           "cpu_answer_lengths": [len(a) for a in answers]}
+    log("tiny", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                   for k, v in res.items()})
+    return res
+
+
+def _tiny_case(device, dtype):
+    """The tiny ``dtype`` model (``_tiny_models``): its two requests
+    answered three times on the card (the decode graph captured, then the
+    prefill graph, then every graph replayed, the third counted), against
+    the same weights on the CPU: teacher-forced fp32 logits within
+    ATTN_TOL of max |logit| and the greedy ids equal or parting where the
+    CPU's top-2 gap is under the tolerance.  Returns the third request's
+    K1 and K2 launches and the comparison."""
+    import torch
+    cfg, cpu, card, ids = _tiny_models(device, dtype)
+    reset, read = _attention_counters()
+    before = _all_graph_counts()
+    for _ in range(3):
+        reset()
+        answers = card.generate(ids, {}, max_new_tokens=TINY_TOKENS,
+                                kv_quant=True)
+    launches = read()
+    graphs = _graph_delta(before)
+    want = cpu.generate(ids, {}, max_new_tokens=TINY_TOKENS, kv_quant=True)
+    eos = cfg.eos_token_id
+    tokens = torch.tensor([a + [eos] * (TINY_TOKENS - len(a))
+                           for a in answers])
+    with torch.no_grad():
+        got = _teacher_forced(card, ids, {}, tokens.to(device), "auto")
+        ref = _teacher_forced(cpu, ids, {}, tokens, "auto")
+    got = got.cpu()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    tol = ATTN_TOL
+    res = {"dtype": dtype, "launches": {k: launches[k] for k in (
+        "flash_attention_fwd", "flash_decode")}, "logit_rel_err": rel,
+        "ids_equal": answers == want, "graphs": graphs}
+    if not (torch.isfinite(got).all() and rel <= tol):
+        raise AssertionError(f"tiny {dtype}: card logits {rel:.3g} of max "
+                             f"|logit| from the CPU's (tol {tol})")
+    for row, (a, b) in enumerate(zip(answers, want)):
+        if a == b:
+            continue
+        step = next(i for i, (x, y) in enumerate(zip(a + [None], b + [None]))
+                    if x != y)
+        top2 = ref[row, step].topk(2).values
+        gap = ((top2[0] - top2[1]) / ref[row, step].abs().max()).item()
+        res.setdefault("near_ties", []).append(
+            {"row": row, "step": step, "cpu_top2_gap_rel": gap})
+        if gap > tol:
+            raise AssertionError(f"tiny {dtype}: row {row} leaves the CPU's "
+                                 f"answer at step {step}, top-2 gap {gap:.3g}")
+    n = cfg.num_hidden_layers
+    steps = TINY_TOKENS - 1  # decode steps a request: every row to the end
+    want_launches = {"flash_attention_fwd": n, "flash_decode": n * steps}
+    if res["launches"] != want_launches:
+        raise AssertionError(f"tiny {dtype}: launches {res['launches']}, "
+                             f"want {want_launches}")
+    if not graphs.get("decode", [0, 0])[1] or not graphs.get("prefill",
+                                                              [0, 0])[1]:
+        raise AssertionError(f"tiny {dtype}: graphs {graphs}: no prefill or "
+                             f"decode replay")
+    log("tiny", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                   for k, v in res.items()})
+    return res
+
+
+def _tiny_train_fp16(device):
+    """A tiny fp16 stage-2 DAMC step (2 layers of 256, head_dim 64, a test
+    CLIP tower, remat, nonzero LoRA B, two image samples) eagerly and
+    through its train graph (one eager call, the capture, replays) from the
+    same weights: every step K1 twice a layer (remat) and K3 and K4 once,
+    counted exactly; the first step's loss finite, and every step's loss
+    through the graph equal to the eager step's (NaN where the eager one
+    is: see below).  Then by values, from the same weights, against the
+    plain attention (``attn_impl="reference"``): the first step's loss
+    within ATTN_TOL and each trainable leaf's gradient as phase 9 holds
+    them (cosine, norm ratio), and the parameters after the first update:
+    non-finite at the same elements but for under 1% of them, and within
+    ATTN_TOL of max |plain| where the plain route's second moment is a
+    normal fp16 number (elsewhere Adam divides by a subnormal of a bit or
+    two, and the update is as uncertain as that)."""
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.config import ModelConfig
+    from modelcompose_tpu_torch.constants import (IGNORE_INDEX,
+                                                  MODAL_TOKEN_INDEXES)
+    from modelcompose_tpu_torch.models.model import MultimodalLM
+    from modelcompose_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_forward)
+    from modelcompose_tpu_torch.train import trainer
+    from modelcompose_tpu_torch.train.train_multimodal import make_batch
+    from modelcompose_tpu_torch.tree import tree_leaves
+    cfg = ModelConfig(hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, vocab_size=512,
+                      max_position_embeddings=256, lora_r=4, lora_alpha=8,
+                      lora_strategy="modal+language", dtype="float16",
+                      remat=True, mm_vision_encoder="test:32x2",
+                      mm_hidden_size=32, mm_projector_type="mlp2x_gelu",
+                      local_prefix_tokens=1, local_suffix_tokens=1)
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    model = MultimodalLM.random_init(cfg, gen, device)
+    for grp in ("attn", "mlp"):
+        for p in model.params["layers"][grp].values():
+            p["lora_b"].normal_(0.0, 0.05, generator=gen)
+    rng = np.random.default_rng(SEED + 13)
+    img = MODAL_TOKEN_INDEXES["vision"]
+    ids = [np.concatenate([[1, img], rng.integers(3, 512, n)])
+           for n in (40, 23)]
+    labels = [np.concatenate([[IGNORE_INDEX] * 12, i[12:]]) for i in ids]
+    batch, layout = make_batch(model, {
+        "input_ids": ids, "labels": labels,
+        "modal_inputs": {"vision": rng.random((2, 28, 28, 3)).astype(
+            np.float32)}}, buckets=(64,))
+    tc = trainer.TrainConfig(learning_rate=2e-3, warmup_ratio=0.0,
+                             total_steps=20)
+    tree = {"backbone": model.params, "projectors": model.projectors}
+    tx, _ = trainer.make_optimizer(cfg, tc, tree)
+    start = {p: t.detach().clone() for p, t in tree_leaves(tree)}
+    n = cfg.num_hidden_layers
+    fns = (flash_attention_forward, flash_attention_bwd_dq,
+           flash_attention_bwd_dkv)
+    runs, counts = [], []
+    for graphs in (False, True):
+        with torch.no_grad():
+            for p, t in tree_leaves(tree):
+                t.copy_(start[p])
+        state = trainer.init_train_state(cfg, tc, model.params,
+                                         model.projectors, tx=tx)
+        step = trainer.make_train_step(cfg, tc, tx, graphs=graphs)
+        losses = []
+        for i in range(4):
+            before = [f.launches for f in fns]
+            state, loss = step(state, batch, layout)
+            losses.append(float(loss))
+            counted = [f.launches - b for f, b in zip(fns, before)]
+            counts.append(counted)
+            if counted != [2 * n, n, n]:
+                raise AssertionError(f"tiny fp16 train step {i} (graphs "
+                                     f"{graphs}): K1/K3/K4 {counted}, want "
+                                     f"{[2 * n, n, n]}")
+        runs.append(losses)
+        if graphs:
+            (graph,) = step.graphs.values()
+            if graph.graph is None:
+                raise AssertionError("tiny fp16 train step: not captured")
+    eager, replayed = np.array(runs[0]), np.array(runs[1])
+    if not (np.isfinite(eager[0])
+            and np.array_equal(eager, replayed, equal_nan=True)):
+        raise AssertionError(f"tiny fp16 train step: eager losses {runs[0]}, "
+                             f"graph losses {runs[1]}")
+    # Adam's second moment (1e-3 g^2) underflows in fp16 and its eps (1e-8)
+    # rounds to 0, as in the JAX optimizer (tests/test_torch_train.py
+    # holds both packages to it): the first update sends most trained
+    # elements to +-inf (0 / 0 to NaN), so the losses after it are NaN on
+    # every route alike (the reference trains in bf16)
+    log("tiny", train="fp16 stage-2 step, eager and through its graph",
+        losses=json.dumps(runs[1]), finite_losses=int(
+            np.isfinite(replayed).sum()), k1_k3_k4_per_step=[2 * n, n, n],
+        steps=len(counts))
+    values = _tiny_train_values(cfg, tc, tx, tree, start, model, batch,
+                                layout)
+    log("tiny", train="fp16 first step against the plain attention",
+        **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+           for k, v in values.items()})
+    return {"flash_attention_fwd": sum(c[0] for c in counts),
+            "flash_attention_bwd_dq": sum(c[1] for c in counts),
+            "flash_attention_bwd_dkv": sum(c[2] for c in counts)}
+
+
+def _tiny_train_values(cfg, tc, tx, tree, start, model, batch, layout):
+    """The tiny fp16 step's first gradients and first update through K1,
+    K3 and K4 against the plain attention, from the weights ``start``
+    (``_tiny_train_fp16``)."""
+    import numpy as np
+    import torch
+    from modelcompose_tpu_torch.train import trainer
+    from modelcompose_tpu_torch.tree import tree_leaves
+
+    def restart():
+        with torch.no_grad():
+            for p, t in tree_leaves(tree):
+                t.copy_(start[p])
+        return trainer.init_train_state(cfg, tc, model.params,
+                                        model.projectors, tx=tx)
+    res, grads, updated = {}, {}, {}
+    for impl in ("auto", "reference"):
+        grad_fn = trainer.make_grad_and_apply(cfg, tc, tx, attn_impl=impl,
+                                              graphs=False)[0]
+        loss, g = grad_fn(restart().params, batch, layout)
+        grads[impl] = (float(loss), {p: t.float() for p, t in g.items()})
+        state = restart()
+        trainer.make_train_step(cfg, tc, tx, attn_impl=impl,
+                                graphs=False)(state, batch, layout)
+        nu = state.opt_state["nu"]
+        updated[impl] = {p: (t.detach().float().clone(), nu[p].float())
+                         for p, t in tree_leaves(state.params)
+                         if tx.trains(p)}
+    (loss_k, g_k), (loss_p, g_p) = grads["auto"], grads["reference"]
+    res["loss_rel"] = abs(loss_k - loss_p) / abs(loss_p)
+    if not (np.isfinite(loss_k) and res["loss_rel"] <= ATTN_TOL):
+        raise AssertionError(f"tiny fp16 train: kernel-path loss {loss_k} "
+                             f"vs plain {loss_p}")
+    worst = None
+    for p in g_p:
+        if not (g_p[p].any() or g_k[p].any()):
+            continue  # a leaf this batch does not reach: zero on both
+        cmp = _compare_grads("tiny_fp16_" + "/".join(map(str, p)),
+                             g_k[p].reshape(-1), g_p[p].reshape(-1))
+        if worst is None or cmp["cosine"] < worst["cosine"]:
+            worst = dict(cmp, leaf="/".join(map(str, p)))
+    res["grad_leaves"], res["worst_grad"] = len(g_p), worst
+    bad = differ = total = normal = 0
+    normal_rel = 0.0
+    for p, (want, nu) in updated["reference"].items():
+        got = updated["auto"][p][0]
+        fin = torch.isfinite(want)
+        same = (got == want) | (got.isnan() & want.isnan())
+        differ += int(((torch.isfinite(got) != fin) | (~fin & ~same)).sum())
+        bad += int((~fin).sum())
+        total += want.numel()
+        held = nu.reshape(want.shape) >= torch.finfo(torch.float16).tiny
+        normal += int(held.sum())
+        if held.any():
+            normal_rel = max(normal_rel, _rel_err(got[held], want[held])[1])
+    res.update(update_nonfinite=bad, update_differ=differ,
+               update_elements=total, update_normal_moment=normal,
+               update_normal_rel=normal_rel)
+    if differ > total // 100 or not normal or normal_rel > ATTN_TOL:
+        raise AssertionError(f"tiny fp16 train: the first update differs "
+                             f"from the plain route's: {res}")
+    return res
+
+
+def phase_tiny(device):
+    """Phase 6d: attention's dtypes on the card end to end.  A tiny fp32
+    model's request raises at K1's checks with no K1 or K2 launch and
+    answers on the CPU (``_tiny_fp32_raises``); a tiny fp16 model runs K1
+    once a layer and K2 once a layer a step through the graphs within 2e-2
+    of the same weights on the CPU; a tiny fp16 train step runs K3 and K4
+    through its graph, held to the plain attention by values
+    (``_tiny_train_fp16``)."""
+    cases = {"float32": _tiny_fp32_raises(device),
+             "float16": _tiny_case(device, "float16")}
+    train = _tiny_train_fp16(device)
+    launches = {k: sum(c["launches"][k] for c in cases.values())
+                for k in ("flash_attention_fwd", "flash_decode")}
+    launches["flash_attention_fwd"] += train["flash_attention_fwd"]
+    return {"cases": cases, "train_launches": train, "launches": launches}
+
+
 class _DequantArm:
     """One arm of phase 6's A/Bs: the model's decode and prefill graphs
     dropped on entry and on exit, since a captured step keeps the int8
@@ -2548,18 +3086,19 @@ def _near_tie(name, model, ids, inputs, got, want, plain_kernels, arm=None):
     return res
 
 
-def _k5_decode_ab(model, ids, inputs, kw):
+def _k5_decode_ab(model, ids, inputs, kw, turns=("plain", "k5")):
     """Phase 6's request through the graphs with K5 and with the plain int8
-    product, K2 in both, in turns plain, K5, K5, plain: each turn's decode
-    tokens/s (the second of two calls, whose decode replays the graph the
-    first captured), one replayed step's device time by kernel and the
-    decode graph's pool GB (each arm's first turn), and the greedy ids of
-    the two arms equal or parting at a
-    named near tie (teacher-forced logits of both within LOGIT_TOL of max
-    |logit| there, the plain arm's top-2 gap under LOGIT_TOL)."""
+    product, K2 in both, in ``turns`` (the smoke runs each arm once;
+    ``K5_AB_TURNS`` times them in turns): each turn's decode tokens/s (the
+    second of two calls, whose decode replays the graph the first
+    captured), one replayed step's device time by kernel and the decode
+    graph's pool GB (each arm's first turn), and the greedy ids of the two
+    arms equal or parting at a named near tie (teacher-forced logits of
+    both within LOGIT_TOL of max |logit| there, the plain arm's top-2 gap
+    under LOGIT_TOL)."""
     from modelcompose_tpu_torch.ops.quant import dequant_matmul
     tok_s, answers, profiles, launches, pools = {}, {}, {}, {}, {}
-    for arm in ("plain", "k5", "k5", "plain"):
+    for arm in turns:
         with _DequantArm(model, () if arm == "plain" else ("k5", "k6")):
             n5 = dequant_matmul.launches
             for _ in range(2):
@@ -2616,9 +3155,10 @@ class _FusedArm(_DequantArm):
     (``llama.fused_decode`` off: RMSNorm, RoPE, the KV quantize and
     writes, the SiLU product and the residual adds as PyTorch ops, K5
     writing fp32 and a cast after it); "separate", K8-K10 each a launch of
-    its own (``decode_fused.norm_fuses`` off); "in_k5", the main path (K8
-    in the prologue of the K5 launch that reads it, K9 in the q/k/v
-    launch's epilogue)."""
+    its own (``decode_fused.norm_fuses`` and ``silu_fuses`` off); "in_k5",
+    the main path (K8 in the prologue of the K5 launch that reads it, K9 in
+    the q/k/v launch's epilogue, K10 in the prologue of the down product's
+    launch)."""
 
     def __init__(self, model, route="unfused"):
         super().__init__(model, ("k5", "k6"))
@@ -2629,27 +3169,36 @@ class _FusedArm(_DequantArm):
         from modelcompose_tpu_torch.ops import decode_fused
         self.llama, self.df = llama, decode_fused
         self.fused, self.norm = llama.fused_decode, decode_fused.norm_fuses
+        self.silu = decode_fused.silu_fuses
         if self.route == "unfused":
             llama.fused_decode = lambda x, attn_impl: False
         if self.route == "separate":
             decode_fused.norm_fuses = lambda x, weights: False
+        if self.route == "separate":
+            decode_fused.silu_fuses = lambda gate, w: False
         return super().__enter__()
 
     def __exit__(self, *exc):
         self.llama.fused_decode, self.df.norm_fuses = self.fused, self.norm
+        self.df.silu_fuses = self.silu
         super().__exit__(*exc)
 
 
-# phase 6's third A/B: its arms in turns
+# phase 6's A/Bs timed in turns (``scripts/torch_path_ab.py --workload
+# routes``); the smoke runs each arm once
+K5_AB_TURNS = ("plain", "k5", "k5", "plain")
 FUSED_AB_TURNS = ("unfused", "separate", "in_k5", "in_k5", "separate",
                   "unfused")
+K6_AB_TURNS = ("plain", "k6", "k6", "plain")
 
 
-def _fused_decode_ab(model, ids, inputs, kw):
+def _fused_decode_ab(model, ids, inputs, kw,
+                     turns=("unfused", "separate", "in_k5")):
     """Phase 6's request through the graphs on the three routes of the
     decode layer (``_FusedArm``: unfused, K8-K10 as launches of their own,
-    K8 and K9 inside K5's launches), K2 and K5 in all, in turns unfused,
-    separate, in_k5, in_k5, separate, unfused: each turn's decode tokens/s
+    K8-K10 inside K5's launches), K2 and K5 in all, in ``turns`` (the
+    smoke runs each arm once; ``FUSED_AB_TURNS`` times them in turns):
+    each turn's decode tokens/s
     (the second of two calls: its decode replays the graph the first
     captured), one replayed step's device time and its kernels by profile
     split (each arm's first turn), the K5 and K8-K10 launches of every
@@ -2669,7 +3218,7 @@ def _fused_decode_ab(model, ids, inputs, kw):
             "separate": dict(k5, **{k: v * steps for k, v in _fused_per_step(
                 model.params, rows, in_k5=False).items()}),
             "unfused": dict(k5, **dict.fromkeys(FUSED_KERNELS, 0))}
-    for arm in FUSED_AB_TURNS:
+    for arm in turns:
         with _FusedArm(model, arm):
             before = {k: f.launches for k, f in fns.items()}
             for _ in range(2):
@@ -2712,8 +3261,9 @@ def _fused_decode_ab(model, ids, inputs, kw):
             res[arm] = _near_tie("fused_ab", model, ids, inputs,
                                  answers[arm], answers["unfused"], (),
                                  arm=_FusedArm(model))
-    log("composed", fused_ab="K8-K10 inside K5, K8-K10 separate and the "
-        "unfused decode layer, K2/K5 in all", decode_tok_per_s=json.dumps(
+    log("composed", fused_ab="K8-K10 inside K5, K8-K10 "
+        "separate and the unfused decode layer, K2/K5 in all",
+        decode_tok_per_s=json.dumps(
             {a: [round(v, 2) for v in t] for a, t in tok_s.items()}),
         step_device_ms=json.dumps({a: round(v, 4) for a, v in
                                    res["step_device_ms"].items()}),
@@ -2721,7 +3271,8 @@ def _fused_decode_ab(model, ids, inputs, kw):
         fused_launches=json.dumps(launches), ids_equal=res["ids_equal"],
         diverge=json.dumps({a: {k: res[a][k] for k in (
             "diverge_step", "logit_rel_err", "plain_top2_gap_rel")
-            if k in res[a]} for a in ("separate", "in_k5") if a in res}),
+            if k in res[a]} for a in ("separate", "in_k5")
+            if a in res}),
         tol=LOGIT_TOL)
     return res
 
@@ -2757,10 +3308,11 @@ def _chunk_step_ms(model, ids, inputs):
     return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])][:full]
 
 
-def _k6_prefill_ab(model, ids, inputs, kw):
+def _k6_prefill_ab(model, ids, inputs, kw, turns=("plain", "k6")):
     """Phase 6's request through the graphs with K6 and with the plain
-    route for the int8 products above 8 rows (K1 and K5 in both), in turns
-    plain, K6, K6, plain: each turn's one-shot prefill through its graph
+    route for the int8 products above 8 rows (K1 and K5 in both), in
+    ``turns`` (the smoke runs each arm once; ``K6_AB_TURNS`` times them in
+    turns): each turn's one-shot prefill through its graph
     (the third of three one-token requests: eager, capturing, replayed);
     in each arm's first turn the prefill graphs' pool GB and a 512-row
     chunk step through its graph (``_chunk_step_ms``: the median of the
@@ -2771,7 +3323,7 @@ def _k6_prefill_ab(model, ids, inputs, kw):
     from modelcompose_tpu_torch.ops.quant import w8a16_gemm
     prefill_s, chunk_ms, logits, answers = {}, {}, {}, {}
     launches, pools = {}, {}
-    for arm in ("plain", "k6", "k6", "plain"):
+    for arm in turns:
         with _DequantArm(model, ("k5", "k6") if arm == "k6" else ("k5",)):
             n6 = w8a16_gemm.launches
             for _ in range(3):
@@ -4146,7 +4698,7 @@ def phase_serve(device, gen, model, request, root, merged, base_dir):
 
 
 def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths,
-              library=False):
+              library=False, dtype="bfloat16"):
     """K1 forward against its plain version at the case's shape, then K3
     and K4 on K1's output and LSE, with a cotangent zero on padding rows,
     against their plain versions on valid rows.  With ``library``, also
@@ -4160,7 +4712,7 @@ def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths,
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device,
-                           dtype=torch.float32).to(torch.bfloat16)
+                           dtype=torch.float32).to(getattr(torch, dtype))
     q, k, v = rnd(B, L, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
     kv_seg = (torch.arange(S, device=device)[None]
               < torch.tensor(lengths, device=device)[:, None]).to(torch.int32)
@@ -4168,7 +4720,7 @@ def _k34_case(device, gen, *, B, L, S, H, Hkv, D, q_offset, lengths,
     kw = dict(causal=True, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
               q_offset=q_offset)
     out, lse = flash_attention_forward(q, k, v, **kw)
-    name = f"B{B} L{L} S{S} H{H}/{Hkv} D{D} q_offset{q_offset}"
+    name = f"{dtype} B{B} L{L} S{S} H{H}/{Hkv} D{D} q_offset{q_offset}"
     k1_err, k1_rel, k1_lse_err = _check_k1(name, q, k, v, kw, out, lse)
     do = (rnd(B, L, H, D) * (q_seg != 0)[..., None, None]).contiguous()
     di = _di(out, do)
@@ -4274,18 +4826,23 @@ def phase_k34(device, gen):
     train = _k34_case(device, gen, B=2, lengths=TRAIN_ROWS, **shape)
     micro = _k34_case(device, gen, B=1, lengths=TRAIN_ROWS[:1], library=True,
                       **shape)
-    errs = {n: [r[n]["max_abs_err"] for r in (main, train, micro)]
+    # the fp16 model's train step at the same shape, beside SDPA's
+    # backward on the same fp16 operands
+    main_fp16 = _k34_case(device, gen, B=2, lengths=[2048, 1391],
+                          library=True, dtype="float16", **shape)
+    errs = {n: [r[n]["max_abs_err"] for r in (main, train, micro, main_fp16)]
             for n in main}
-    for case in (dict(B=1, lengths=TRAIN_ROWS[1:], **shape),
-                 dict(B=2, L=150, S=150, H=32, Hkv=32, D=128, q_offset=0,
-                      lengths=[150, 97]),
-                 dict(B=2, L=256, S=1024, H=32, Hkv=8, D=128, q_offset=768,
-                      lengths=[1024, 900]),
-                 dict(B=2, L=150, S=150, H=8, Hkv=4, D=64, q_offset=0,
-                      lengths=[150, 61])):
-        res = _k34_case(device, gen, **case)
-        for n in errs:
-            errs[n].append(res[n]["max_abs_err"])
+    for dtype in ("bfloat16", "float16"):
+        for case in (dict(B=1, lengths=TRAIN_ROWS[1:], **shape),
+                     dict(B=2, L=150, S=150, H=32, Hkv=32, D=128, q_offset=0,
+                          lengths=[150, 97]),
+                     dict(B=2, L=256, S=1024, H=32, Hkv=8, D=128,
+                          q_offset=768, lengths=[1024, 900]),
+                     dict(B=2, L=150, S=150, H=8, Hkv=4, D=64, q_offset=0,
+                          lengths=[150, 61])):
+            res = _k34_case(device, gen, dtype=dtype, **case)
+            for n in errs:
+                errs[n].append(res[n]["max_abs_err"])
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")
     out = {"fwd": dict(max_abs_err=max(errs["fwd"]))}
     for n in ("dq", "dkv"):
@@ -4297,7 +4854,9 @@ def phase_k34(device, gen):
             micro_batch=dict({k: micro[n][k] for k in timed},
                              shape="B1 L=2048 (1400 valid)",
                              **{k: v for k, v in micro[n].items()
-                                if k.startswith("library_bwd_causal")}))
+                                if k.startswith("library_bwd_causal")}),
+            fp16=dict(main_fp16[n], shape="fp16 B2 L=2048 (2048, 1391 "
+                      "valid)"))
     return out
 
 
@@ -6280,7 +6839,8 @@ class _GenerateLog:
         del self.model.generate
 
 
-def _kernel_vs_plain(model, kernel_calls, plain_calls):
+def _kernel_vs_plain(model, kernel_calls, plain_calls, kv_quant=False,
+                     phase="legacy_eval"):
     """Each greedy answer of the kernel path against the plain path's.  On
     the same prompt: equal, or leaving it at a near tie: the
     teacher-forced logits of both paths at the first differing step within
@@ -6320,13 +6880,13 @@ def _kernel_vs_plain(model, kernel_calls, plain_calls):
                               device=model.device)
         with torch.no_grad():
             k, p = (_teacher_forced(model, ids, inputs, tokens, impl,
-                                    kv_quant=False)[0, step]
+                                    kv_quant=kv_quant)[0, step]
                     for impl in ("auto", "reference"))
         scale = p.abs().max()
         rel = ((k - p).abs().max() / scale).item()
         top2 = p.topk(2).values
         gap = ((top2[0] - top2[1]) / scale).item()
-        log("legacy_eval", diverge_step=step, kernel_len=len(got),
+        log(phase, diverge_step=step, kernel_len=len(got),
             plain_len=len(want), logit_rel_err=f"{rel:.3g}",
             plain_top2_gap_rel=f"{gap:.4g}", tol=LOGIT_TOL)
         if rel > LOGIT_TOL or gap > LOGIT_TOL:
@@ -7392,6 +7952,16 @@ def main() -> int:
     del mcub4_model, request
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 6c runs once phase 6's model is gone (two 7B models at once
+    # would crowd the card), on a generator of its own, as 4d and 4e do
+    fp16 = timed("fp16", phase_fp16, device,
+                 torch.Generator(device=device).manual_seed(SEED + 16),
+                 composed["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny = timed("tiny", phase_tiny, device)
+    gc.collect()
+    torch.cuda.empty_cache()
     k34 = timed("k34", phase_k34, device, gen)
     train = timed("train", phase_train, device)
     gc.collect()
@@ -7519,6 +8089,8 @@ def main() -> int:
         return {"main": launches[name], "composed": composed["launches"][name],
                 "decode_variants": sum(v["launches"][name]
                                        for v in variants.values()),
+                "fp16": fp16["launches"][name],
+                "tiny": tiny["launches"].get(name, 0),
                 "qa_loader": qa_launches[name],
                 "serve": serve["launches"][name],
                 "eva_imagebind": eva["launches"][name],
@@ -7535,6 +8107,7 @@ def main() -> int:
         return {"train": train_launches(name),
                 "train_int8": train_launches(name, int8["launches"]),
                 "train_entry": entry["launches"][name],
+                "tiny": tiny["train_launches"][name],
                 **{p: c[name] for p, c in dist_train["launches"].items()}}
 
     tp_err = {"fwd": max(c["max_abs_err"]
@@ -7608,7 +8181,8 @@ def main() -> int:
               # K8 and K9 inside K5's streaming launch
               ("K8 in K5", "norm_matmul_group", K5_SOURCE, K8_REPLACES),
               ("K8+K9 in K5", "norm_qkv_rope", K5_SOURCE,
-               f"{K8_REPLACES} + {K9_REPLACES}"))],
+               f"{K8_REPLACES} + {K9_REPLACES}"),
+              ("K10 in K5", "silu_matmul", K5_SOURCE, K10_REPLACES))],
         dict(name="w8a16_dx", route="cuda", source=K7_SOURCE,
              replaces=K7_REPLACES,
              launches=train_launches("w8a16_dx", int8["launches"]),

@@ -52,11 +52,13 @@ SIGNATURES = {
         "mc_flash_attention_fwd": (
             [_P, _P, _P, _P, _P, _P, _P,  # q k v q_seg kv_seg out lse
              _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
-             _F, _I, _I, _P], _I),        # sm_scale causal q_offset stream
+             _F, _I, _I, _I, _P], _I),    # sm_scale causal q_offset x_bf16
+        #                                   stream
         "mc_flash_attention_fwd_mask_all": (
             [_P, _P, _P, _P, _P, _P, _P,  # q k v q_seg kv_seg out lse
              _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
-             _F, _I, _I, _P], _I),        # sm_scale causal q_offset stream
+             _F, _I, _I, _I, _P], _I),    # sm_scale causal q_offset x_bf16
+        #                                   stream
         "mc_flash_attention_fwd_smem": ([_I], _I),  # D
     },
     "flash_attention_bwd": {
@@ -64,13 +66,15 @@ SIGNATURES = {
             [_P, _P, _P, _P, _P, _P,      # q k v dout lse di
              _P, _P, _P,                  # q_seg kv_seg dq
              _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
-             _F, _I, _I, _P], _I)         # sm_scale causal q_offset stream
+             _F, _I, _I, _I, _P], _I)     # sm_scale causal q_offset x_bf16
+           #                                stream
            for tail in ("", "_mask_all")},
         **{f"mc_flash_attention_bwd_dkv{tail}": (
             [_P, _P, _P, _P, _P, _P,      # q k v dout lse di
              _P, _P, _P, _P,              # q_seg kv_seg dk dv
              _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
-             _F, _I, _I, _P], _I)         # sm_scale causal q_offset stream
+             _F, _I, _I, _I, _P], _I)     # sm_scale causal q_offset x_bf16
+           #                                stream
            for tail in ("", "_mask_all")},
         "mc_flash_attention_bwd_smem": ([_I, _I], _I),  # dkv D
     },
@@ -81,7 +85,7 @@ SIGNATURES = {
             [_P, _P, _P, _P, _P, _P,      # q kc vc ks vs kv_len
              _P, _P, _P, _P, _P,          # part_m part_l part_acc counters out
              _I, _I, _I, _I, _I, _I,      # NL B H Hkv S D
-             _I, _I,                      # layer quantized
+             _I, _I, _I,                  # layer quantized x_bf16
              _F, _P], _I),                # sm_scale stream
     },
     "w8a16_gemm": {
@@ -122,6 +126,11 @@ SIGNATURES = {
              _P, _P, _P, _P, _P, _P, _P,  # cos sin cache_k cache_v scale_k
              #                              scale_v pos
              _I, _I, _I, _I, _P], _I),    # pos64 S Hkv layer stream
+        "mc_w8a16_gemv_silu": (
+            [_P, _P, _P, _P, _P, _P,      # gate up h q scale out
+             _I, _P, _P,                  # N part counters
+             _I, _I, _I, _I, _I, _P], _I),  # M K rows x_bf16 out_type
+        #                                     stream
     },
 }
 

@@ -233,6 +233,7 @@ class CapturedStep:
         decode_fused.silu_mul.launches += len(self.k5.silu)
         decode_fused.norm_matmul_group.launches += len(self.k5.norm_group)
         decode_fused.norm_qkv_rope.launches += len(self.k5.norm_rope)
+        decode_fused.silu_matmul.launches += len(self.k5.silu_group)
 
     def _capture(self) -> None:
         """Run the step once eagerly on a side stream (the warm-up a

@@ -21,13 +21,13 @@ from torch.utils.checkpoint import checkpoint
 from ..config import ModelConfig
 from ..ops.attention import attention, decode_attention
 from ..ops.decode_fused import (RopeWrite, add_rms_norm, fused_decode,
-                                silu_mul, write_token)
+                                write_token)
 from ..ops.norms import rms_norm
 from ..ops.quant import dequant_matmul, is_quantized, matmul_f32, quantize_int8
 from ..ops.rope import apply_rope, rope_tables
 from ..ops.routed_lora import (as_table, routed_lora_matmul,
                                 routed_lora_matmul_group,
-                                routed_lora_norm_group)
+                                routed_lora_norm_group, routed_lora_silu)
 from ..parallel import tp
 
 Params = Dict[str, Any]
@@ -344,8 +344,10 @@ def _fused_decode_layer(cfg: ModelConfig, lp, x, res, route, cos, sin, *,
     (RoPE and the cache write) and K10 (the SiLU product), and the int8
     base products rounding to x's type themselves where nothing follows
     them in fp32 (``rounded``).  At 1-2 rows each norm runs in the
-    prologue of the K5 launch that reads it, and RoPE with the cache write
-    in the epilogue of the q/k/v launch (``routed_lora_norm_group``).
+    prologue of the K5 launch that reads it, RoPE with the cache write in
+    the epilogue of the q/k/v launch (``routed_lora_norm_group``), and the
+    SiLU product in the prologue of the down product's launch
+    (``routed_lora_silu``).
 
     The down product's residual add is carried into the next layer's K8
     (and the final norm's): the layer takes the residual stream ``x`` and
@@ -377,7 +379,7 @@ def _fused_decode_layer(cfg: ModelConfig, lp, x, res, route, cos, sin, *,
                                   "row"),
                            lp["post_attention_layernorm"],
                            (mp["gate"], mp["up"]))
-    return x, lin(mp["down"], silu_mul(gate, up), "row")
+    return x, routed_lora_silu(gate, up, mp["down"], route, parallel="row")
 
 
 def _out_features(p) -> torch.Tensor:

@@ -55,7 +55,11 @@
 //     rows and the adapter-branch decode.
 //   - K10: a flat grid over 16-byte vectors of gate and up (8 elements a
 //     thread); silu as ATen computes it, x / (1 + expf(-x)) in fp32 (the
-//     build uses no fast math), rounded to T before the product.
+//     build uses no fast math), rounded to T before the product.  The
+//     arithmetic lives in decode_silu.cuh, shared with the SiLU prologue of
+//     K5's streaming kernel, which takes K10's place at 1-2 rows (the down
+//     product reads h = silu(gate) * up as it streams); this launch stays
+//     for 3-8 rows.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -64,6 +68,7 @@
 #include <type_traits>
 
 #include "decode_norm.cuh"
+#include "decode_silu.cuh"
 
 namespace {
 
@@ -292,9 +297,8 @@ silu_mul_kernel(const T* __restrict__ gate, const T* __restrict__ up,
     float r[2];
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
-      const float xg = half_at<T>(g4[e], p);
-      const float silu = round_t<T>(xg / (1.0f + expf(-xg)));
-      r[p] = __fmul_rn(silu, half_at<T>(u4[e], p));
+      r[p] = decode_silu::silu_mul<T>(half_at<T>(g4[e], p),
+                                      half_at<T>(u4[e], p));
     }
     o4[e] = pack2<T>(r[0], r[1]);
   }

@@ -30,7 +30,7 @@
 //     by log2(e) for exp2f, and Di);
 //   - products where both operands are tiles are wgmma from shared memory,
 //     K-major; the second products take the just-computed P^T or dS (dS^T)
-//     from registers in bf16 (the JAX kernels' _gemm2_cast) as the A
+//     from registers in T (the JAX kernels' _gemm2_cast) as the A
 //     operand and the streamed tile as the MN-major B operand, as K1 does
 //     with P.V;
 //   - per tile a warpgroup issues its two score products together, turns
@@ -57,12 +57,18 @@
 // in the fp32 accumulators: dK/dV are written once as [B, S, Hkv, D], with
 // no atomics and no [B, H, S, D] buffer, and the result is deterministic.
 //
+// The element type T is bf16 or fp16 (the model's dtype, as K1's): the
+// products are wgmma's .bf16 or .f16 forms, P and dS are rounded to T
+// (fp16's subnormals kept, as the JAX cast keeps them) and the gradients
+// are stored in T; the scores, LSE, Di and the accumulators are fp32.
+//
 // Layouts (the JAX package's public layout): q, dO [B, Lq, H, D];
-// k, v [B, S, Hkv, D], all bf16 and contiguous; LSE, Di fp32 [B, H, Lq];
-// segment ids int32 [B, Lq] / [B, S]; dq [B, Lq, H, D], dk/dv
-// [B, S, Hkv, D] bf16.  GQA: kv head = h / (H / Hkv).  D in {64, 128}.
+// k, v [B, S, Hkv, D], all of type T and contiguous; LSE, Di fp32
+// [B, H, Lq]; segment ids int32 [B, Lq] / [B, S]; dq [B, Lq, H, D], dk/dv
+// [B, S, Hkv, D] T.  GQA: kv head = h / (H / Hkv).  D in {64, 128}.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -76,7 +82,7 @@ using namespace hopper;
 
 constexpr int kRows = 128;     // rows a block owns: two warpgroups of 64
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int kBox = 64;       // bf16 columns per TMA box: the 128-byte swizzle span
+constexpr int kBox = 64;       // 2-byte columns per TMA box: the 128-byte swizzle span
 constexpr int kHalf = 64 * 128;  // bytes of one 64-row, 64-column box
 constexpr float kLog2e = 1.4426950408889634f;
 // K3's kv rows per tile, timed against the other length by
@@ -147,10 +153,11 @@ __device__ __forceinline__ bool warpgroup_any(bool mine, int* flags, int cw,
 }
 
 // Zeros into rows [r0, min(r0 + kRows, L)) of head `head` of a
-// [B][L][heads][D] bf16 tensor, 16 bytes a store: the gradient of a block
-// whose own rows are all padding.
+// [B][L][heads][D] tensor of 2-byte elements, 16 bytes a store: the
+// gradient of a block whose own rows are all padding (zero bits are 0 in
+// bf16 and fp16 alike).
 template <int D>
-__device__ __forceinline__ void zero_rows(__nv_bfloat16* base, int b, int L,
+__device__ __forceinline__ void zero_rows(uint16_t* base, int b, int L,
                                           int heads, int head, int r0,
                                           int tid) {
   constexpr int kChunks = D / 8;
@@ -163,9 +170,9 @@ __device__ __forceinline__ void zero_rows(__nv_bfloat16* base, int b, int L,
   }
 }
 
-// A 64 x D fp32 accumulator of this warpgroup, rounded to bf16, into the
+// A 64 x D fp32 accumulator of this warpgroup, rounded to T, into the
 // swizzled 64-row box layout at `tile` ([D/64 boxes][64 rows][128 B]).
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void stage_rows(uint8_t* tile, const float* acc,
                                            int warp, int g, int c4) {
   const int row0 = warp * 16 + g, row1 = row0 + 8;
@@ -174,9 +181,9 @@ __device__ __forceinline__ void stage_rows(uint8_t* tile, const float* acc,
     const int box = dt / 8, col = (dt % 8) * 8 + c4 * 2;
     uint8_t* base = tile + box * kHalf;
     *reinterpret_cast<uint32_t*>(base + sw128_offset(row0, col)) =
-        pack_f32(acc[dt * 4 + 0], acc[dt * 4 + 1]);
+        pack2<T>(acc[dt * 4 + 0], acc[dt * 4 + 1]);
     *reinterpret_cast<uint32_t*>(base + sw128_offset(row1, col)) =
-        pack_f32(acc[dt * 4 + 2], acc[dt * 4 + 3]);
+        pack2<T>(acc[dt * 4 + 2], acc[dt * 4 + 3]);
   }
 }
 
@@ -184,14 +191,14 @@ __device__ __forceinline__ void stage_rows(uint8_t* tile, const float* acc,
 // K3: dQ
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap tdo,
                  const __grid_constant__ CUtensorMap tdq,
-                 __nv_bfloat16* __restrict__ dq_out,
+                 uint16_t* __restrict__ dq_out,
                  const float* __restrict__ lse, const float* __restrict__ di,
                  const int* __restrict__ q_seg,
                  const int* __restrict__ kv_seg, int H, int Hkv, int Lq,
@@ -335,7 +342,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
     float sc[BN / 2];           // S of the tile, then P in fp32
     float dp[BN / 2];           // dP of the tile, then dS
-    uint32_t da[BN / 16][4];    // dS in bf16: the A fragments of dS.K
+    uint32_t da[BN / 16][4];    // dS in T: the A fragments of dS.K
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
 #pragma unroll
@@ -350,7 +357,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int c = kk / 4, w = kk % 4;  // box, 32-byte step inside it
-        wgmma_ss<BN>(sc, sw128_desc(q_tile + c * kHalf + w * 32, 16, 1024),
+        wgmma_ss<T, BN>(sc, sw128_desc(q_tile + c * kHalf + w * 32, 16, 1024),
                      sw128_desc(k_tile + c * BN * 128 + w * 32, 16, 1024),
                      kk > 0);
       }
@@ -360,7 +367,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int c = kk / 4, w = kk % 4;
-        wgmma_ss<BN>(dp, sw128_desc(do_tile + c * kHalf + w * 32, 16, 1024),
+        wgmma_ss<T, BN>(dp, sw128_desc(do_tile + c * kHalf + w * 32, 16, 1024),
                      sw128_desc(v_tile + c * BN * 128 + w * 32, 16, 1024),
                      kk > 0);
       }
@@ -370,7 +377,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       const uint32_t k_tile = sbase + L::kK + s * L::kKVBytes;
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs_tb<D>(dq, da[kk],
+        wgmma_rs_tb<T, D>(dq, da[kk],
                        sw128_desc(k_tile + kk * 16 * 128, BN * 128, 1024));
     };
     auto release = [&](int s) {
@@ -445,7 +452,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       }
       wgmma_wait<0>();  // dP of this tile
       fence_regs(dp);
-      // dS = P (dP - Di) scale, then to bf16 (the JAX kernel's _gemm2_cast)
+      // dS = P (dP - Di) scale, then to T (the JAX kernel's _gemm2_cast)
 #pragma unroll
       for (int nt = 0; nt < BN / 8; ++nt) {
         dp[nt * 4 + 0] = sc[nt * 4 + 0] * (dp[nt * 4 + 0] - di0) * sm_scale;
@@ -455,10 +462,10 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       }
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
-        da[kk][0] = pack_f32(dp[8 * kk + 0], dp[8 * kk + 1]);
-        da[kk][1] = pack_f32(dp[8 * kk + 2], dp[8 * kk + 3]);
-        da[kk][2] = pack_f32(dp[8 * kk + 4], dp[8 * kk + 5]);
-        da[kk][3] = pack_f32(dp[8 * kk + 6], dp[8 * kk + 7]);
+        da[kk][0] = pack2<T>(dp[8 * kk + 0], dp[8 * kk + 1]);
+        da[kk][1] = pack2<T>(dp[8 * kk + 2], dp[8 * kk + 3]);
+        da[kk][2] = pack2<T>(dp[8 * kk + 4], dp[8 * kk + 5]);
+        da[kk][3] = pack2<T>(dp[8 * kk + 6], dp[8 * kk + 7]);
       }
       fence_regs(da);
       fence_regs(dq);
@@ -474,10 +481,10 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(da);
     if (pending >= 0) release(pending);
 
-    // dQ of these 64 rows in bf16 through this warpgroup's own Q tile
+    // dQ of these 64 rows in T through this warpgroup's own Q tile
     // (no other warpgroup reads it), out by TMA stores.
     bar_sync(1 + cw, 128);  // every warp's products are done with Q
-    stage_rows<D>(smem + L::kQ + cw * L::kBoxes * kHalf, dq, warp, g, c4);
+    stage_rows<T, D>(smem + L::kQ + cw * L::kBoxes * kHalf, dq, warp, g, c4);
     fence_proxy_async();
     bar_sync(1 + cw, 128);
     if (t == 0 && q0 + cw * 64 < Lq) {
@@ -494,7 +501,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 // K4: dK, dV
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -502,8 +509,8 @@ fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tdo,
                   const __grid_constant__ CUtensorMap tdk,
                   const __grid_constant__ CUtensorMap tdv,
-                  __nv_bfloat16* __restrict__ dk_out,
-                  __nv_bfloat16* __restrict__ dv_out,
+                  uint16_t* __restrict__ dk_out,
+                  uint16_t* __restrict__ dv_out,
                   const float* __restrict__ lse, const float* __restrict__ di,
                   const int* __restrict__ q_seg,
                   const int* __restrict__ kv_seg, int H, int Hkv, int Lq,
@@ -657,8 +664,8 @@ fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
     float sc[BQ / 2];         // S^T of the tile, then P^T in fp32
     float dp[BQ / 2];         // dP^T of the tile, then dS^T
-    uint32_t pa[BQ / 16][4];  // P^T in bf16: the A fragments of P^T.dO
-    uint32_t da[BQ / 16][4];  // dS^T in bf16: the A fragments of dS^T.Q
+    uint32_t pa[BQ / 16][4];  // P^T in T: the A fragments of P^T.dO
+    uint32_t da[BQ / 16][4];  // dS^T in T: the A fragments of dS^T.Q
 #pragma unroll
     for (int i = 0; i < BQ / 2; ++i) sc[i] = dp[i] = 0.f;
 #pragma unroll
@@ -674,7 +681,7 @@ fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int c = kk / 4, w = kk % 4;
-        wgmma_ss<BQ>(sc, sw128_desc(k_tile + c * kHalf + w * 32, 16, 1024),
+        wgmma_ss<T, BQ>(sc, sw128_desc(k_tile + c * kHalf + w * 32, 16, 1024),
                      sw128_desc(q_tile + c * BQ * 128 + w * 32, 16, 1024),
                      kk > 0);
       }
@@ -684,7 +691,7 @@ fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int c = kk / 4, w = kk % 4;
-        wgmma_ss<BQ>(dp, sw128_desc(v_tile + c * kHalf + w * 32, 16, 1024),
+        wgmma_ss<T, BQ>(dp, sw128_desc(v_tile + c * kHalf + w * 32, 16, 1024),
                      sw128_desc(do_tile + c * BQ * 128 + w * 32, 16, 1024),
                      kk > 0);
       }
@@ -695,14 +702,14 @@ fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
       const uint32_t do_tile = sbase + L::kDO + s * L::kQBytes;
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs_tb<D>(dv, pa[kk],
+        wgmma_rs_tb<T, D>(dv, pa[kk],
                        sw128_desc(do_tile + kk * 16 * 128, BQ * 128, 1024));
     };
     auto issue_dk = [&](int s) {
       const uint32_t q_tile = sbase + L::kQ + s * L::kQBytes;
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs_tb<D>(dk, da[kk],
+        wgmma_rs_tb<T, D>(dk, da[kk],
                        sw128_desc(q_tile + kk * 16 * 128, BQ * 128, 1024));
     };
     auto release = [&](int s) {
@@ -714,7 +721,7 @@ fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     // Per tile: S^T and dP^T issued together; P^T from S^T while the
     // tensor cores do dP^T; dS^T; then dV and dK issued together, dK left
     // in flight across the next tile's S^T and dP^T.  Only dS^T's
-    // fragments stay live across tiles, and P^T's bf16 fragments are made
+    // fragments stay live across tiles, and P^T's T fragments are made
     // after dS^T: the accumulators and one tile's scores fill the 240
     // registers (dV issued before dS^T, to overlap it, held 16 more and
     // ran slower).
@@ -794,7 +801,7 @@ fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
       }
       wgmma_wait<0>();  // dP^T of this tile
       fence_regs(dp);
-      // dS^T = P^T (dP^T - Di) scale; then P^T and dS^T to bf16
+      // dS^T = P^T (dP^T - Di) scale; then P^T and dS^T to T
       const float* dis = sDi + s * BQ;
 #pragma unroll
       for (int nt = 0; nt < BQ / 8; ++nt) {
@@ -807,14 +814,14 @@ fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
       }
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
-        pa[kk][0] = pack_f32(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[kk][1] = pack_f32(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_f32(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_f32(sc[8 * kk + 6], sc[8 * kk + 7]);
-        da[kk][0] = pack_f32(dp[8 * kk + 0], dp[8 * kk + 1]);
-        da[kk][1] = pack_f32(dp[8 * kk + 2], dp[8 * kk + 3]);
-        da[kk][2] = pack_f32(dp[8 * kk + 4], dp[8 * kk + 5]);
-        da[kk][3] = pack_f32(dp[8 * kk + 6], dp[8 * kk + 7]);
+        pa[kk][0] = pack2<T>(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack2<T>(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack2<T>(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack2<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
+        da[kk][0] = pack2<T>(dp[8 * kk + 0], dp[8 * kk + 1]);
+        da[kk][1] = pack2<T>(dp[8 * kk + 2], dp[8 * kk + 3]);
+        da[kk][2] = pack2<T>(dp[8 * kk + 4], dp[8 * kk + 5]);
+        da[kk][3] = pack2<T>(dp[8 * kk + 6], dp[8 * kk + 7]);
       }
       fence_regs(pa);
       fence_regs(da);
@@ -841,11 +848,11 @@ fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(da);
     if (pending >= 0) release(pending);
 
-    // dK and dV of these 64 rows in bf16 through this warpgroup's own K and
+    // dK and dV of these 64 rows in T through this warpgroup's own K and
     // V tiles (no other warpgroup reads them), out by TMA stores.
     bar_sync(1 + cw, 128);  // every warp's products are done with K, V
-    stage_rows<D>(smem + L::kK + cw * L::kBoxes * kHalf, dk, warp, g, c4);
-    stage_rows<D>(smem + L::kV + cw * L::kBoxes * kHalf, dv, warp, g, c4);
+    stage_rows<T, D>(smem + L::kK + cw * L::kBoxes * kHalf, dk, warp, g, c4);
+    stage_rows<T, D>(smem + L::kV + cw * L::kBoxes * kHalf, dv, warp, g, c4);
     fence_proxy_async();
     bar_sync(1 + cw, 128);
     if (t == 0 && kv_w0 < S) {
@@ -863,42 +870,42 @@ struct Args {
   const void *q, *k, *v, *dout, *lse, *di, *q_seg, *kv_seg;
   int B, H, Hkv, Lq, S;
   float sm_scale;
-  int causal, q_offset, mask_all;
+  int causal, q_offset, mask_all, x_bf16;
   cudaStream_t stream;
 };
 
-constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 constexpr CUtensorMapSwizzle kSw128 = CU_TENSOR_MAP_SWIZZLE_128B;
 
-// A [B][L][heads * D] bf16 tensor map with a [64 columns] x [rows] box.
+// A [B][L][heads * D] tensor map of T with a [64 columns] x [rows] box.
+template <typename T>
 bool map_rows(CUtensorMap* map, const void* base, int B, int L, int heads,
               int D, int rows) {
-  return make_map_3d(map, kBf16, 2, base, (uint64_t)heads * D, L, B, kBox,
-                     rows, kSw128);
+  return make_map_3d(map, tma_type<T>(), 2, base, (uint64_t)heads * D, L, B,
+                     kBox, rows, kSw128);
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_dq(const Args& a, void* dq) {
   CUtensorMap tq, tk, tv, tdo, tdq;
-  if (!map_rows(&tq, a.q, a.B, a.Lq, a.H, D, 64) ||
-      !map_rows(&tdo, a.dout, a.B, a.Lq, a.H, D, 64) ||
-      !map_rows(&tdq, dq, a.B, a.Lq, a.H, D, 64) ||
-      !map_rows(&tk, a.k, a.B, a.S, a.Hkv, D, kBlockN) ||
-      !map_rows(&tv, a.v, a.B, a.S, a.Hkv, D, kBlockN))
+  if (!map_rows<T>(&tq, a.q, a.B, a.Lq, a.H, D, 64) ||
+      !map_rows<T>(&tdo, a.dout, a.B, a.Lq, a.H, D, 64) ||
+      !map_rows<T>(&tdq, dq, a.B, a.Lq, a.H, D, 64) ||
+      !map_rows<T>(&tk, a.k, a.B, a.S, a.Hkv, D, kBlockN) ||
+      !map_rows<T>(&tv, a.v, a.B, a.S, a.Hkv, D, kBlockN))
     return cudaErrorNotSupported;
   constexpr int smem = SmemDq<D>::kAlloc;
   static bool attribute_set = false;  // once per instantiation
   if (!attribute_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        fa_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fa_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return err;
     attribute_set = true;
   }
   const int n_qtiles = (a.Lq + kRows - 1) / kRows;
   dim3 grid(a.H, a.B, n_qtiles);
-  fa_bwd_dq_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-      tq, tk, tv, tdo, tdq, static_cast<__nv_bfloat16*>(dq),
+  fa_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+      tq, tk, tv, tdo, tdq, static_cast<uint16_t*>(dq),
       static_cast<const float*>(a.lse),
       static_cast<const float*>(a.di), static_cast<const int*>(a.q_seg),
       static_cast<const int*>(a.kv_seg), a.H, a.Hkv, a.Lq, a.S, a.sm_scale,
@@ -906,29 +913,29 @@ cudaError_t launch_dq(const Args& a, void* dq) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   CUtensorMap tq, tk, tv, tdo, tdk, tdv;
-  if (!map_rows(&tq, a.q, a.B, a.Lq, a.H, D, kBlockQ) ||
-      !map_rows(&tdo, a.dout, a.B, a.Lq, a.H, D, kBlockQ) ||
-      !map_rows(&tk, a.k, a.B, a.S, a.Hkv, D, 64) ||
-      !map_rows(&tv, a.v, a.B, a.S, a.Hkv, D, 64) ||
-      !map_rows(&tdk, dk, a.B, a.S, a.Hkv, D, 64) ||
-      !map_rows(&tdv, dv, a.B, a.S, a.Hkv, D, 64))
+  if (!map_rows<T>(&tq, a.q, a.B, a.Lq, a.H, D, kBlockQ) ||
+      !map_rows<T>(&tdo, a.dout, a.B, a.Lq, a.H, D, kBlockQ) ||
+      !map_rows<T>(&tk, a.k, a.B, a.S, a.Hkv, D, 64) ||
+      !map_rows<T>(&tv, a.v, a.B, a.S, a.Hkv, D, 64) ||
+      !map_rows<T>(&tdk, dk, a.B, a.S, a.Hkv, D, 64) ||
+      !map_rows<T>(&tdv, dv, a.B, a.S, a.Hkv, D, 64))
     return cudaErrorNotSupported;
   constexpr int smem = SmemDkv<D>::kAlloc;
   static bool attribute_set = false;
   if (!attribute_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        fa_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fa_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return err;
     attribute_set = true;
   }
   dim3 grid(a.Hkv, a.B, (a.S + kRows - 1) / kRows);
-  fa_bwd_dkv_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-      tq, tk, tv, tdo, tdk, tdv, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), static_cast<const float*>(a.lse),
+  fa_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+      tq, tk, tv, tdo, tdk, tdv, static_cast<uint16_t*>(dk),
+      static_cast<uint16_t*>(dv), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.di), static_cast<const int*>(a.q_seg),
       static_cast<const int*>(a.kv_seg), a.H, a.Hkv, a.Lq, a.S, a.sm_scale,
       a.sm_scale * kLog2e, a.causal, a.q_offset, a.mask_all);
@@ -945,13 +952,17 @@ int dq_entry(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* di, const void* q_seg,
              const void* kv_seg, void* dq, int B, int H, int Hkv, int Lq,
              int S, int D, float sm_scale, int causal, int q_offset,
-             int mask_all, void* stream) {
+             int mask_all, int x_bf16, void* stream) {
   if (!valid(B, H, Hkv, Lq, S, q_offset)) return cudaErrorInvalidValue;
   const Args a{q, k, v, dout, lse, di, q_seg, kv_seg, B, H, Hkv, Lq, S,
-               sm_scale, causal, q_offset, mask_all,
+               sm_scale, causal, q_offset, mask_all, x_bf16,
                static_cast<cudaStream_t>(stream)};
-  if (D == 128) return launch_dq<128>(a, dq);
-  if (D == 64) return launch_dq<64>(a, dq);
+  if (D == 128)
+    return a.x_bf16 ? launch_dq<__nv_bfloat16, 128>(a, dq)
+                    : launch_dq<__half, 128>(a, dq);
+  if (D == 64)
+    return a.x_bf16 ? launch_dq<__nv_bfloat16, 64>(a, dq)
+                    : launch_dq<__half, 64>(a, dq);
   return cudaErrorInvalidValue;
 }
 
@@ -959,13 +970,17 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* di, const void* q_seg,
               const void* kv_seg, void* dk, void* dv, int B, int H, int Hkv,
               int Lq, int S, int D, float sm_scale, int causal, int q_offset,
-              int mask_all, void* stream) {
+              int mask_all, int x_bf16, void* stream) {
   if (!valid(B, H, Hkv, Lq, S, q_offset)) return cudaErrorInvalidValue;
   const Args a{q, k, v, dout, lse, di, q_seg, kv_seg, B, H, Hkv, Lq, S,
-               sm_scale, causal, q_offset, mask_all,
+               sm_scale, causal, q_offset, mask_all, x_bf16,
                static_cast<cudaStream_t>(stream)};
-  if (D == 128) return launch_dkv<128>(a, dk, dv);
-  if (D == 64) return launch_dkv<64>(a, dk, dv);
+  if (D == 128)
+    return a.x_bf16 ? launch_dkv<__nv_bfloat16, 128>(a, dk, dv)
+                    : launch_dkv<__half, 128>(a, dk, dv);
+  if (D == 64)
+    return a.x_bf16 ? launch_dkv<__nv_bfloat16, 64>(a, dk, dv)
+                    : launch_dkv<__half, 64>(a, dk, dv);
   return cudaErrorInvalidValue;
 }
 
@@ -975,18 +990,18 @@ extern "C" int mc_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, const void* q_seg, const void* kv_seg,
     void* dq, int B, int H, int Hkv, int Lq, int S, int D, float sm_scale,
-    int causal, int q_offset, void* stream) {
+    int causal, int q_offset, int x_bf16, void* stream) {
   return dq_entry(q, k, v, dout, lse, di, q_seg, kv_seg, dq, B, H, Hkv, Lq,
-                  S, D, sm_scale, causal, q_offset, 0, stream);
+                  S, D, sm_scale, causal, q_offset, 0, x_bf16, stream);
 }
 
 extern "C" int mc_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, const void* q_seg, const void* kv_seg,
     void* dk, void* dv, int B, int H, int Hkv, int Lq, int S, int D,
-    float sm_scale, int causal, int q_offset, void* stream) {
+    float sm_scale, int causal, int q_offset, int x_bf16, void* stream) {
   return dkv_entry(q, k, v, dout, lse, di, q_seg, kv_seg, dk, dv, B, H, Hkv,
-                   Lq, S, D, sm_scale, causal, q_offset, 0, stream);
+                   Lq, S, D, sm_scale, causal, q_offset, 0, x_bf16, stream);
 }
 
 // The same with every tile through the per-element mask: the fast-path
@@ -995,18 +1010,18 @@ extern "C" int mc_flash_attention_bwd_dq_mask_all(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, const void* q_seg, const void* kv_seg,
     void* dq, int B, int H, int Hkv, int Lq, int S, int D, float sm_scale,
-    int causal, int q_offset, void* stream) {
+    int causal, int q_offset, int x_bf16, void* stream) {
   return dq_entry(q, k, v, dout, lse, di, q_seg, kv_seg, dq, B, H, Hkv, Lq,
-                  S, D, sm_scale, causal, q_offset, 1, stream);
+                  S, D, sm_scale, causal, q_offset, 1, x_bf16, stream);
 }
 
 extern "C" int mc_flash_attention_bwd_dkv_mask_all(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, const void* q_seg, const void* kv_seg,
     void* dk, void* dv, int B, int H, int Hkv, int Lq, int S, int D,
-    float sm_scale, int causal, int q_offset, void* stream) {
+    float sm_scale, int causal, int q_offset, int x_bf16, void* stream) {
   return dkv_entry(q, k, v, dout, lse, di, q_seg, kv_seg, dk, dv, B, H, Hkv,
-                   Lq, S, D, sm_scale, causal, q_offset, 1, stream);
+                   Lq, S, D, sm_scale, causal, q_offset, 1, x_bf16, stream);
 }
 
 // Dynamic shared memory of one block (bytes) of K3 (dkv = 0) or K4, for

@@ -23,7 +23,7 @@
 //     math (232,016 bytes of shared memory at D = 128);
 //   - S = Q K^T is wgmma m64nBNk16 with both operands in shared memory
 //     (K-major); the online softmax runs in fp32 with exp2f and the scale
-//     pre-multiplied by log2(e); P is cast to bf16 in registers (the JAX
+//     pre-multiplied by log2(e); P is cast to T in registers (the JAX
 //     kernel's _gemm2_cast) and is the register A operand of wgmma
 //     m64nDk16 with V as the transposed (MN-major) B operand;
 //   - within a warpgroup the kv loop is pipelined: S of tile j and P.V of
@@ -36,12 +36,21 @@
 //     tiles run heaviest first (the q tile index is the slowest grid axis,
 //     reversed), so the causal tail is made of light blocks.
 //
+// The element type T is bf16 or fp16 (the model's dtype; the JAX kernel
+// takes its operands in their own dtype): the products are wgmma's
+// .bf16 or .f16 forms, P is rounded to T (for fp16 with its subnormals
+// kept, as the JAX cast keeps them) and O is stored in T; the softmax,
+// the LSE and the accumulators are fp32 either way.  fp16's narrower
+// exponent touches only P (in [0, 1], so below 6.1e-5 it is subnormal,
+// never out of range) and O (a convex mix of V's rows).
+//
 // Layouts (the JAX package's public layout, no padding, no lifted
-// segment ids): q [B, Lq, H, D], k/v [B, S, Hkv, D], all bf16 and
-// contiguous; segment ids int32 [B, Lq] / [B, S]; out [B, Lq, H, D] bf16;
+// segment ids): q [B, Lq, H, D], k/v [B, S, Hkv, D], all of type T and
+// contiguous; segment ids int32 [B, Lq] / [B, S]; out [B, Lq, H, D] T;
 // lse [B, H, Lq] fp32.  GQA: kv head = h / (H / Hkv).  D in {64, 128}.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -56,7 +65,7 @@ using namespace hopper;
 constexpr int kBlockM = 128;   // q rows per block: two warpgroups of 64
 constexpr int kStages = 3;     // K/V ring depth
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int kBox = 64;       // bf16 columns per TMA box: the 128-byte swizzle span
+constexpr int kBox = 64;       // 2-byte columns per TMA box: the 128-byte swizzle span
 // kv rows per tile: 128 beat 64 on the H100 (PERF.md), timed by
 // scripts/torch_kernel_ab.py from a copy of this file with 64 here.
 constexpr int kBlockN = 128;
@@ -83,13 +92,13 @@ struct Smem {
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv,
               const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+              T* __restrict__ out, float* __restrict__ lse,
               int H, int Hkv, int Lq, int S, float scale_log2, int causal,
               int q_offset, int n_qtiles, int mask_all) {
   using L = Smem<D>;
@@ -192,7 +201,7 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float sc[BN / 2];       // S of the current tile, then its P in fp32
-    uint32_t pa[BN / 16][4];  // P in bf16: the A fragments of P.V
+    uint32_t pa[BN / 16][4];  // P in T: the A fragments of P.V
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
     const uint32_t q_tile = sbase + L::kQ + cw * L::kBoxes * 64 * 128;
 
@@ -203,7 +212,7 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int c = kk / 4, w = kk % 4;  // box, 32-byte step inside it
-        wgmma_ss<BN>(sc, sw128_desc(q_tile + c * 64 * 128 + w * 32, 16, 1024),
+        wgmma_ss<T, BN>(sc, sw128_desc(q_tile + c * 64 * 128 + w * 32, 16, 1024),
                      sw128_desc(k_tile + c * BN * 128 + w * 32, 16, 1024),
                      kk > 0);
       }
@@ -214,7 +223,7 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       const uint32_t v_tile = sbase + L::kV + s * L::kKVBytes;
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs_tb<D>(o, pa[kk],
+        wgmma_rs_tb<T, D>(o, pa[kk],
                        sw128_desc(v_tile + kk * 16 * 128, BN * 128, 1024));
     };
     // Scale (log2 units), mask where the tile needs it, online softmax:
@@ -283,7 +292,7 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       m0 = mn0;
       m1 = mn1;
     };
-    // O to the new max, and P to bf16 (the JAX kernel's _gemm2_cast).
+    // O to the new max, and P to T (the JAX kernel's _gemm2_cast).
     auto rescale_and_pack = [&](float a0, float a1) {
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
@@ -294,10 +303,10 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       }
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
-        pa[kk][0] = pack_f32(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[kk][1] = pack_f32(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_f32(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_f32(sc[8 * kk + 6], sc[8 * kk + 7]);
+        pa[kk][0] = pack2<T>(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack2<T>(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack2<T>(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack2<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
     };
     auto release = [&](int s) {
@@ -362,16 +371,16 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     const float sl1 = l1 == 0.f ? 1.f : l1;
     const float inv0 = 1.f / sl0, inv1 = 1.f / sl1;
     const long q_stride = (long)H * D;
-    __nv_bfloat16* ob = out + (long)b * Lq * q_stride + (long)h * D;
+    T* ob = out + (long)b * Lq * q_stride + (long)h * D;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
       const int c = dt * 8 + c4 * 2;
       if (r0 < Lq)
         *reinterpret_cast<uint32_t*>(ob + r0 * q_stride + c) =
-            pack_f32(o[dt * 4 + 0] * inv0, o[dt * 4 + 1] * inv0);
+            pack2<T>(o[dt * 4 + 0] * inv0, o[dt * 4 + 1] * inv0);
       if (r1 < Lq)
         *reinterpret_cast<uint32_t*>(ob + r1 * q_stride + c) =
-            pack_f32(o[dt * 4 + 2] * inv1, o[dt * 4 + 3] * inv1);
+            pack2<T>(o[dt * 4 + 2] * inv1, o[dt * 4 + 3] * inv1);
     }
     if (c4 == 0) {
       // back to natural log; a row with no valid key keeps the -1e30 floor
@@ -384,30 +393,31 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_seg, const void* kv_seg, void* out,
                    void* lse, int B, int H, int Hkv, int Lq, int S,
                    float sm_scale, int causal, int q_offset, int mask_all,
                    cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto type = tma_type<T>();
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  if (!make_map_3d(&tq, bf16, 2, q, (uint64_t)H * D, Lq, B, kBox, 64, sw) ||
-      !make_map_3d(&tk, bf16, 2, k, (uint64_t)Hkv * D, S, B, kBox, kBlockN,
+  if (!make_map_3d(&tq, type, 2, q, (uint64_t)H * D, Lq, B, kBox, 64, sw) ||
+      !make_map_3d(&tk, type, 2, k, (uint64_t)Hkv * D, S, B, kBox, kBlockN,
                    sw) ||
-      !make_map_3d(&tv, bf16, 2, v, (uint64_t)Hkv * D, S, B, kBox, kBlockN,
+      !make_map_3d(&tv, type, 2, v, (uint64_t)Hkv * D, S, B, kBox, kBlockN,
                    sw))
     return cudaErrorNotSupported;
   constexpr int smem = Smem<D>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
   const int n_qtiles = (Lq + kBlockM - 1) / kBlockM;
   dim3 grid(H, B, n_qtiles);
-  fa_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  fa_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<const int*>(q_seg),
-      static_cast<const int*>(kv_seg), static_cast<__nv_bfloat16*>(out),
+      static_cast<const int*>(kv_seg), static_cast<T*>(out),
       static_cast<float*>(lse), H, Hkv, Lq, S, sm_scale * kLog2e, causal,
       q_offset, n_qtiles, mask_all);
   return cudaGetLastError();
@@ -417,18 +427,22 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* q_seg, const void* kv_seg, void* out,
                      void* lse, int B, int H, int Hkv, int Lq, int S, int D,
                      float sm_scale, int causal, int q_offset, int mask_all,
-                     void* stream) {
+                     int x_bf16, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Lq <= 0 || S <= 0 ||
       B > 65535 || q_offset < 0 || (Lq + kBlockM - 1) / kBlockM > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch<128>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq, S,
-                       sm_scale, causal, q_offset, mask_all, s);
-  if (D == 64)
-    return launch<64>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq, S,
-                      sm_scale, causal, q_offset, mask_all, s);
-  return cudaErrorInvalidValue;
+  auto run = [&](auto t) {
+    using T = decltype(t);
+    if (D == 128)
+      return launch<T, 128>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq,
+                            S, sm_scale, causal, q_offset, mask_all, s);
+    if (D == 64)
+      return launch<T, 64>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq,
+                           S, sm_scale, causal, q_offset, mask_all, s);
+    return cudaErrorInvalidValue;
+  };
+  return x_bf16 ? run(__nv_bfloat16()) : run(__half());
 }
 
 }  // namespace
@@ -438,10 +452,10 @@ extern "C" int mc_flash_attention_fwd(const void* q, const void* k,
                                       const void* kv_seg, void* out,
                                       void* lse, int B, int H, int Hkv,
                                       int Lq, int S, int D, float sm_scale,
-                                      int causal, int q_offset,
+                                      int causal, int q_offset, int x_bf16,
                                       void* stream) {
   return dispatch(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq, S, D,
-                  sm_scale, causal, q_offset, 0, stream);
+                  sm_scale, causal, q_offset, 0, x_bf16, stream);
 }
 
 // The same with every kv tile through the per-element mask: the fast-path
@@ -449,9 +463,10 @@ extern "C" int mc_flash_attention_fwd(const void* q, const void* k,
 extern "C" int mc_flash_attention_fwd_mask_all(
     const void* q, const void* k, const void* v, const void* q_seg,
     const void* kv_seg, void* out, void* lse, int B, int H, int Hkv, int Lq,
-    int S, int D, float sm_scale, int causal, int q_offset, void* stream) {
+    int S, int D, float sm_scale, int causal, int q_offset, int x_bf16,
+    void* stream) {
   return dispatch(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq, S, D,
-                  sm_scale, causal, q_offset, 1, stream);
+                  sm_scale, causal, q_offset, 1, x_bf16, stream);
 }
 
 // Dynamic shared memory of one block (bytes), for the build report.

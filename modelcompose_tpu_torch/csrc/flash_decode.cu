@@ -45,19 +45,25 @@
 // `layer` is an offset into the stacked cache, so no per-layer slice is
 // ever materialized, and any S is taken.
 //
-// Layouts: q [B, H, D] bf16; caches [NL, B, S, Hkv, D] bf16, or int8 with
+// q and out are of the model's type QT, bf16 or fp16; the cache is of
+// QT too, or int8.  Everything inside is fp32, as in the JAX kernel (which
+// upcasts q, k and v): only the loads and the one store convert.
+//
+// Layouts: q [B, H, D] QT; caches [NL, B, S, Hkv, D] QT, or int8 with
 // fp32 scales [NL, B, S, Hkv] (the trailing 1 of [..., Hkv, 1] dropped);
 // kv_len [B] int32; partials m, l [B, H, n_splits] and acc
 // [B, H, n_splits, D] fp32; counters [B * Hkv] uint32, zero between
-// launches; out [B, H, D] bf16.  D in {64, 128}; the GQA group H / Hkv in
+// launches; out [B, H, D] QT.  D in {64, 128}; the GQA group H / Hkv in
 // {1, 2, 4, 8}.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -74,50 +80,69 @@ constexpr int kRowsPerWarp = kSplit / kWarps;
 constexpr float kNegInf = -1e30f;
 static_assert(kBoxRows % kRowsPerWarp == 0, "a warp's rows sit in one box");
 
-__device__ __forceinline__ void cvt_bf16x2(uint32_t w, float* f) {
-  const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+template <typename T>
+__host__ __device__ constexpr bool is_int8() {
+  return std::is_same<T, int8_t>::value;
+}
+
+// A bf16 or fp16 value as fp32, and fp32 rounded to one (nearest even).
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float f) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __float2bfloat16_rn(f);
+  else
+    return __float2half_rn(f);
+}
+
+// Two bf16 or fp16 values of a word as fp32.
+template <typename T>
+__device__ __forceinline__ void cvt2(uint32_t w, float* f) {
+  float2 x;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+  else
+    x = __half22float2(*reinterpret_cast<__half2*>(&w));
   f[0] = x.x;
   f[1] = x.y;
 }
 
-// Sixteen bytes of a cache row as fp32 (16 int8 or 8 bf16).
-__device__ __forceinline__ void load16(const int8_t* p, float* f) {
+// Sixteen bytes of a cache row as fp32 (16 int8, or 8 bf16 or fp16).
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* f) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  cvt4(raw.x, f);
-  cvt4(raw.y, f + 4);
-  cvt4(raw.z, f + 8);
-  cvt4(raw.w, f + 12);
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  cvt_bf16x2(raw.x, f);
-  cvt_bf16x2(raw.y, f + 2);
-  cvt_bf16x2(raw.z, f + 4);
-  cvt_bf16x2(raw.w, f + 6);
+  if constexpr (is_int8<T>()) {
+    cvt4(raw.x, f);
+    cvt4(raw.y, f + 4);
+    cvt4(raw.z, f + 8);
+    cvt4(raw.w, f + 12);
+  } else {
+    cvt2<T>(raw.x, f);
+    cvt2<T>(raw.y, f + 2);
+    cvt2<T>(raw.z, f + 4);
+    cvt2<T>(raw.w, f + 6);
+  }
 }
 
 // N (2 or 4) consecutive cache elements as fp32.
-template <int N>
-__device__ __forceinline__ void load_n(const int8_t* p, float* f) {
-  if constexpr (N == 4) {
+template <int N, typename T>
+__device__ __forceinline__ void load_n(const T* p, float* f) {
+  if constexpr (is_int8<T>() && N == 4) {
     cvt4(*reinterpret_cast<const uint32_t*>(p), f);
-  } else {
+  } else if constexpr (is_int8<T>()) {
     float t[4];
     cvt4(*reinterpret_cast<const uint16_t*>(p), t);
     f[0] = t[0];
     f[1] = t[1];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_n(const __nv_bfloat16* p, float* f) {
-  if constexpr (N == 4) {
+  } else if constexpr (N == 4) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    cvt_bf16x2(raw.x, f);
-    cvt_bf16x2(raw.y, f + 2);
+    cvt2<T>(raw.x, f);
+    cvt2<T>(raw.y, f + 2);
   } else {
-    cvt_bf16x2(*reinterpret_cast<const uint32_t*>(p), f);
+    cvt2<T>(*reinterpret_cast<const uint32_t*>(p), f);
   }
 }
 
@@ -158,16 +183,16 @@ __device__ __forceinline__ void block_max(float v[G], float* red) {
   }
 }
 
-template <int D, int G, typename T>
+template <int D, int G, typename T, typename QT>
 __global__ void __launch_bounds__(kThreads)
 fd_split_kernel(const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                const __nv_bfloat16* __restrict__ q,
+                const QT* __restrict__ q,
                 const float* __restrict__ ks, const float* __restrict__ vs,
                 const int* __restrict__ kv_len, float* __restrict__ part_m,
                 float* __restrict__ part_l, float* __restrict__ part_acc,
                 unsigned* __restrict__ counters,
-                __nv_bfloat16* __restrict__ out, int B, int H, int Hkv,
+                QT* __restrict__ out, int B, int H, int Hkv,
                 int S, int n_splits, int layer, float sm_scale) {
   using L = Smem<D, G, T>;
   constexpr int kLanes = L::kRow / 16;     // lanes per K row, 16 B each
@@ -198,7 +223,7 @@ fd_split_kernel(const __grid_constant__ CUtensorMap tk,
   if (len <= 0) {  // nothing to attend to: the combine's empty-row output
     if (sp == 0)
       for (int i = tid; i < G * D; i += kThreads)
-        out[((long)b * H + hk * G) * D + i] = __float2bfloat16(0.f);
+        out[((long)b * H + hk * G) * D + i] = from_f<QT>(0.f);
     return;
   }
   const int s0 = sp * kSplit;
@@ -237,10 +262,9 @@ fd_split_kernel(const __grid_constant__ CUtensorMap tk,
   float qr[G][kElems];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const __nv_bfloat16* qp = q + ((long)b * H + hk * G + g) * D + tl * kElems;
+    const QT* qp = q + ((long)b * H + hk * G + g) * D + tl * kElems;
 #pragma unroll
-    for (int e = 0; e < kElems; ++e)
-      qr[g][e] = __bfloat162float(qp[e]) * sm_scale;
+    for (int e = 0; e < kElems; ++e) qr[g][e] = to_f(qp[e]) * sm_scale;
   }
   __syncthreads();  // scales visible
 
@@ -382,7 +406,7 @@ fd_split_kernel(const __grid_constant__ CUtensorMap tk,
       a += w * __ldcg(part_acc + (base + s) * D + d);
     }
     out[((long)b * H + hk * G + g) * D + d] =
-        __float2bfloat16(a / fmaxf(ll, 1e-30f));
+        from_f<QT>(a / fmaxf(ll, 1e-30f));
   }
   if (tid == 0) counters[b * Hkv + hk] = 0;  // ready for the next launch
 }
@@ -391,10 +415,12 @@ fd_split_kernel(const __grid_constant__ CUtensorMap tk,
 // [64][D] box, encoded once per cache and kept: a decode loop reuses the
 // same few caches for every step and layer.  Locked: ctypes releases the
 // GIL, so two host threads may launch at once.
-bool cache_map(CUtensorMap* map, const void* base, int elem_bytes,
-               uint64_t cols, uint64_t rows, uint64_t planes, uint32_t box0) {
+bool cache_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+               int elem_bytes, uint64_t cols, uint64_t rows, uint64_t planes,
+               uint32_t box0) {
   struct Entry {
     const void* base;
+    CUtensorMapDataType type;
     int elem_bytes;
     uint64_t cols, rows, planes;
     uint32_t box0;
@@ -406,24 +432,24 @@ bool cache_map(CUtensorMap* map, const void* base, int elem_bytes,
   std::lock_guard<std::mutex> guard(lock);
   for (int i = 0; i < n_entries; ++i) {
     const Entry& e = entries[i];
-    if (e.base == base && e.elem_bytes == elem_bytes && e.cols == cols &&
+    if (e.base == base && e.type == type && e.elem_bytes == elem_bytes &&
+        e.cols == cols &&
         e.rows == rows && e.planes == planes && e.box0 == box0) {
       *map = e.map;
       return true;
     }
   }
-  const auto type = elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   if (!make_map_3d(map, type, elem_bytes, base, cols, rows, planes, box0,
                    kBoxRows, CU_TENSOR_MAP_SWIZZLE_NONE))
     return false;
-  entries[next] = Entry{base, elem_bytes, cols, rows, planes, box0, *map};
+  entries[next] =
+      Entry{base, type, elem_bytes, cols, rows, planes, box0, *map};
   next = (next + 1) % 16;
   n_entries = n_entries < 16 ? n_entries + 1 : 16;
   return true;
 }
 
-template <int D, int G, typename T>
+template <int D, int G, typename T, typename QT>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const void* ks, const void* vs, const void* kv_len,
                    void* part_m, void* part_l, void* part_acc,
@@ -432,30 +458,33 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
                    cudaStream_t stream) {
   const uint64_t planes = (uint64_t)NL * B;
   CUtensorMap tk, tv;
-  if (!cache_map(&tk, kc, sizeof(T), (uint64_t)Hkv * D, S, planes, D) ||
-      !cache_map(&tv, vc, sizeof(T), (uint64_t)Hkv * D, S, planes, D))
+  const auto type =
+      is_int8<T>() ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : tma_type<T>();
+  if (!cache_map(&tk, kc, type, sizeof(T), (uint64_t)Hkv * D, S, planes,
+                 D) ||
+      !cache_map(&tv, vc, type, sizeof(T), (uint64_t)Hkv * D, S, planes, D))
     return cudaErrorNotSupported;
   constexpr int smem = Smem<D, G, T>::kAlloc;
   static bool attribute_set = false;  // once per instantiation
   if (!attribute_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        fd_split_kernel<D, G, T>,
+        fd_split_kernel<D, G, T, QT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     attribute_set = true;
   }
   dim3 grid(n_splits, Hkv, B);
-  fd_split_kernel<D, G, T><<<grid, kThreads, smem, stream>>>(
-      tk, tv, static_cast<const __nv_bfloat16*>(q),
+  fd_split_kernel<D, G, T, QT><<<grid, kThreads, smem, stream>>>(
+      tk, tv, static_cast<const QT*>(q),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(kv_len), static_cast<float*>(part_m),
       static_cast<float*>(part_l), static_cast<float*>(part_acc),
-      static_cast<unsigned*>(counters), static_cast<__nv_bfloat16*>(out), B,
+      static_cast<unsigned*>(counters), static_cast<QT*>(out), B,
       H, Hkv, S, n_splits, layer, sm_scale);
   return cudaGetLastError();
 }
 
-template <int D, typename T>
+template <int D, typename T, typename QT>
 cudaError_t dispatch_group(int G, const void* q, const void* kc,
                            const void* vc, const void* ks, const void* vs,
                            const void* kv_len, void* pm, void* pl, void* pa,
@@ -464,16 +493,16 @@ cudaError_t dispatch_group(int G, const void* q, const void* kc,
                            float sm_scale, cudaStream_t st) {
   switch (G) {
     case 1:
-      return launch<D, 1, T>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, cnt, out,
+      return launch<D, 1, T, QT>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, cnt, out,
                              NL, B, H, Hkv, S, n_splits, layer, sm_scale, st);
     case 2:
-      return launch<D, 2, T>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, cnt, out,
+      return launch<D, 2, T, QT>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, cnt, out,
                              NL, B, H, Hkv, S, n_splits, layer, sm_scale, st);
     case 4:
-      return launch<D, 4, T>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, cnt, out,
+      return launch<D, 4, T, QT>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, cnt, out,
                              NL, B, H, Hkv, S, n_splits, layer, sm_scale, st);
     case 8:
-      return launch<D, 8, T>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, cnt, out,
+      return launch<D, 8, T, QT>(q, kc, vc, ks, vs, kv_len, pm, pl, pa, cnt, out,
                              NL, B, H, Hkv, S, n_splits, layer, sm_scale, st);
     default:
       return cudaErrorInvalidValue;
@@ -500,30 +529,32 @@ extern "C" int mc_flash_decode(const void* q, const void* kc, const void* vc,
                                void* part_l, void* part_acc, void* counters,
                                void* out, int NL, int B, int H, int Hkv,
                                int S, int D, int layer, int quantized,
-                               float sm_scale, void* stream) {
+                               int x_bf16, float sm_scale, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || H % Hkv != 0 ||
-      S <= 0 || layer < 0 || layer >= NL || (quantized && (!ks || !vs)))
+      S <= 0 || layer < 0 || layer >= NL || (quantized && (!ks || !vs)) ||
+      (D != 64 && D != 128))
     return cudaErrorInvalidValue;
   const int G = H / Hkv;
   const int n_splits = (S + kSplit - 1) / kSplit;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128 && quantized)
-    return dispatch_group<128, int8_t>(G, q, kc, vc, ks, vs, kv_len, part_m,
-                                       part_l, part_acc, counters, out, NL, B,
-                                       H, Hkv, S, n_splits, layer, sm_scale,
-                                       st);
-  if (D == 128)
-    return dispatch_group<128, __nv_bfloat16>(
-        G, q, kc, vc, nullptr, nullptr, kv_len, part_m, part_l, part_acc,
-        counters, out, NL, B, H, Hkv, S, n_splits, layer, sm_scale, st);
-  if (D == 64 && quantized)
-    return dispatch_group<64, int8_t>(G, q, kc, vc, ks, vs, kv_len, part_m,
-                                      part_l, part_acc, counters, out, NL, B,
-                                      H, Hkv, S, n_splits, layer, sm_scale,
-                                      st);
-  if (D == 64)
-    return dispatch_group<64, __nv_bfloat16>(
-        G, q, kc, vc, nullptr, nullptr, kv_len, part_m, part_l, part_acc,
-        counters, out, NL, B, H, Hkv, S, n_splits, layer, sm_scale, st);
-  return cudaErrorInvalidValue;
+  // The cache's type T (int8, or q's) and q's type QT.
+  auto run = [&](auto cache, auto qt) {
+    using T = decltype(cache);
+    using QT = decltype(qt);
+    const void* kss = quantized ? ks : nullptr;
+    const void* vss = quantized ? vs : nullptr;
+    if (D == 128)
+      return dispatch_group<128, T, QT>(G, q, kc, vc, kss, vss, kv_len,
+                                        part_m, part_l, part_acc, counters,
+                                        out, NL, B, H, Hkv, S, n_splits,
+                                        layer, sm_scale, st);
+    return dispatch_group<64, T, QT>(G, q, kc, vc, kss, vss, kv_len, part_m,
+                                     part_l, part_acc, counters, out, NL, B,
+                                     H, Hkv, S, n_splits, layer, sm_scale,
+                                     st);
+  };
+  if (x_bf16)
+    return quantized ? run(int8_t(), __nv_bfloat16())
+                     : run(__nv_bfloat16(), __nv_bfloat16());
+  return quantized ? run(int8_t(), __half()) : run(__half(), __half());
 }

@@ -58,7 +58,7 @@
 // elementwise work around a product group into the same launch (kernels
 // K8 and K9 of decode_fused.cu, which otherwise run as launches of their
 // own, each ~2 us of fixed cost for a few kilobytes): mc_w8a16_gemv_norm.
-//   - K8 in the prologue (kNorm): every block reads the whole row(s) of x
+//   - K8 in the prologue (kProNorm): every block reads the whole row(s) of x
 //     and of the residual y (16 KB a row at Vicuna-7B's 4,096, from L2)
 //     after issuing its first weight loads and its first batch's x, y and
 //     w, so the norm runs under the stream's ramp; it sums the squares in
@@ -77,7 +77,14 @@
 //     over the 8 warps through shared memory) into the cache slot read from
 //     device memory, or stores them in T: k and v never reach device memory
 //     but in the cache.
-// Both are bit-equal to K8, this kernel and K9 launched in turn.
+//   - K10 in the prologue (kProSilu, the down product): each lane loads
+//     the bits of gate and up for its own element of x a batch ahead (in
+//     place of x) and forms h = T(T(silu(gate)) * up) with K10's
+//     roundings (decode_silu.cuh); no row reduction, no barrier, each block
+//     reads only the K range it streams.  Where an adapter branch needs h,
+//     the blocks of the first column tile write the elements they form
+//     (each split its K range); otherwise h never reaches device memory.
+// All three are bit-equal to K8, K10, this kernel and K9 launched in turn.
 //
 // The A fragment pairs two k of one column, while q is [K, N] with N
 // contiguous: thread (g, t) of a warp reads 8 bytes (8 columns) from each of
@@ -105,6 +112,7 @@
 #include <unordered_map>
 
 #include "decode_norm.cuh"
+#include "decode_silu.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -317,14 +325,23 @@ struct StreamGroup {
   int n;
 };
 
-// The norm prologue's operands (kernel K8 folded in): x is then the
+// What the stream's prologue does to x before the products read it:
+// nothing, K8's norm, or K10's SiLU product.
+enum Prologue { kProNone = 0, kProNorm = 1, kProSilu = 2 };
+
+// The prologue's operands.  The norm (kernel K8 folded in): x is then the
 // residual stream [M, K] (contiguous rows), and the products read
-// h = T(w * T(s * r)) of s = T(x + y) (or x where y is null).
+// h = T(w * T(s * r)) of s = T(x + y) (or x where y is null).  The SiLU
+// product (kernel K10 folded in): x is gate and y up, both [M, K]
+// (contiguous rows), and the products read h = T(T(silu(x)) * y); w, sum
+// and eps are unused.
 struct NormArgs {
-  const uint16_t* y;  // the residual to add [M, K], or null
+  const uint16_t* y;  // the residual to add [M, K] (or null), or up
   const uint16_t* w;  // the norm's weight [K]
   uint16_t* sum;      // s [M, K] where y is given: written by block (0, 0)
-  uint16_t* h;        // h [M, K], written by block (0, 0), or null
+  uint16_t* h;        // h [M, K], or null: the norm's written by block
+                      // (0, 0), the SiLU product's by the first column
+                      // tile's blocks
   float eps;
 };
 
@@ -362,7 +379,7 @@ __device__ __forceinline__ float half_bits_to_float(uint16_t h) {
     return __half2float(__ushort_as_half(h));
 }
 
-// The norm prologue (kNorm): kernel K8's arithmetic (decode_norm.cuh) in
+// The norm prologue (kProNorm): kernel K8's arithmetic (decode_norm.cuh) in
 // K8's thread order.  Each block reads the whole row(s) of x (and y), forms
 // s = T(x + y), sums each row's squares as K8 does (thread t the 16-byte
 // vectors t, t + 256, ...; the warps' shuffles; the 8 warps in order) and
@@ -531,10 +548,11 @@ __device__ __forceinline__ void rope_epilogue(const StreamMember& mem,
   }
 }
 
-// kNorm: the norm prologue above (K8 folded into the launch that reads its
-// output); kRopeD (64 or 128, else 0): the RoPE + KV-cache epilogue for the
-// members whose role asks for it (K9 folded into the q/k/v launch).
-template <typename T, int kM, bool kNorm, int kRopeD>
+// kPro: the prologue (kProNorm, the norm prologue above: K8 folded into the
+// launch that reads its output; kProSilu, K10 folded into the down
+// product); kRopeD (64 or 128, else 0): the RoPE + KV-cache epilogue for
+// the members whose role asks for it (K9 folded into the q/k/v launch).
+template <typename T, int kM, int kPro, int kRopeD>
 __global__ void __launch_bounds__(kSThreads, 2)
 dequant_gemv_stream_kernel(const StreamGroup g, const uint16_t* __restrict__ x,
                            int ldx, int K, int rows, float* __restrict__ part,
@@ -576,13 +594,13 @@ dequant_gemv_stream_kernel(const StreamGroup g, const uint16_t* __restrict__ x,
     return xm < kM && r < nw ? half_bits_to_float<T>(__ldg(xp + b * kSBatch))
                              : 0.f;
   };
-  // With the norm, the lane's element of h comes from the bits of x and y
-  // (x | y << 16) and of w, loaded a batch ahead as x is (zero past the
-  // rows), and its row's r.
-  const uint16_t* yp = !kNorm || na.y == nullptr
+  // With a prologue, the lane's element of h comes from the bits of x and
+  // y (x | y << 16) and, for the norm, of w, loaded a batch ahead as x is
+  // (zero past the rows), and for the norm its row's r.
+  const uint16_t* yp = kPro == kProNone || na.y == nullptr
                            ? nullptr
                            : na.y + (long)xm * ldx + k0 + r0 + xu;
-  const uint16_t* wp = kNorm ? na.w + k0 + r0 + xu : nullptr;
+  const uint16_t* wp = kPro == kProNorm ? na.w + k0 + r0 + xu : nullptr;
   auto raw_of = [&](int b) {
     const int r = b * kSBatch + xu;
     uint2 v = make_uint2(0u, 0u);
@@ -590,21 +608,36 @@ dequant_gemv_stream_kernel(const StreamGroup g, const uint16_t* __restrict__ x,
       v.x = __ldg(xp + b * kSBatch);
       if (yp != nullptr)
         v.x |= static_cast<uint32_t>(__ldg(yp + b * kSBatch)) << 16;
-      v.y = __ldg(wp + b * kSBatch);
+      if constexpr (kPro == kProNorm) v.y = __ldg(wp + b * kSBatch);
     }
     return v;
   };
   float rr = 0.f;
   auto h_of = [&](uint2 v) {
-    return decode_norm::norm_at<T>(v, yp != nullptr, rr);
+    if constexpr (kPro == kProSilu)
+      return decode_silu::silu_mul_at<T>(v.x);
+    else
+      return decode_norm::norm_at<T>(v, yp != nullptr, rr);
+  };
+  // The SiLU product's h for an adapter branch: the first column tile's
+  // blocks write the elements of their K range as they form them.
+  uint16_t* hp = kPro == kProSilu && na.h != nullptr && t == 0
+                     ? na.h + (long)xm * ldx + k0 + r0 + xu
+                     : nullptr;
+  auto keep_h = [&](int b, float v) {
+    if (hp != nullptr && xm < kM && b * kSBatch + xu < nw)
+      hp[b * kSBatch] = static_cast<uint16_t>(decode_norm::pack2<T>(v, 0.f));
   };
   float xr;
-  if constexpr (kNorm) {
+  if constexpr (kPro == kProNorm) {
     const uint2 raw = raw_of(0);
     float r[kM];
     norm_prologue<T, kM>(x, K, na, r, tid);
     rr = xm == 0 ? r[0] : r[kM - 1];
     xr = h_of(raw);
+  } else if constexpr (kPro == kProSilu) {
+    xr = h_of(raw_of(0));
+    keep_h(0, xr);
   } else {
     xr = x_of(0);
   }
@@ -625,7 +658,7 @@ dequant_gemv_stream_kernel(const StreamGroup g, const uint16_t* __restrict__ x,
     // the next batch's x (or its raw operands), in flight now
     [[maybe_unused]] float xn = 0.f;
     [[maybe_unused]] uint2 rn = make_uint2(0u, 0u);
-    if constexpr (kNorm)
+    if constexpr (kPro != kProNone)
       rn = raw_of(b + 1);
     else
       xn = x_of(b + 1);
@@ -654,10 +687,12 @@ dequant_gemv_stream_kernel(const StreamGroup g, const uint16_t* __restrict__ x,
                  ? ld_weights(qp + (long)(r + kSBatch) * N)
                  : make_uint4(0u, 0u, 0u, 0u);
     }
-    if constexpr (kNorm)
+    if constexpr (kPro != kProNone) {
       xr = h_of(rn);
-    else
+      if constexpr (kPro == kProSilu) keep_h(b + 1, xr);
+    } else {
       xr = xn;
+    }
   }
 
   // The warps' sums meet once in shared memory, [warp][m][c4][lane] as
@@ -1024,16 +1059,16 @@ cudaError_t dispatch(int tile, const void* x, int ldx, const void* q,
   return cudaErrorInvalidValue;
 }
 
-// The streaming kernel over `tiles` column tiles of the group: with kNorm
-// the norm prologue, with kRopeD > 0 the RoPE + KV-cache epilogue.
-template <typename T, int kM, bool kNorm, int kRopeD>
+// The streaming kernel over `tiles` column tiles of the group: with kPro
+// a prologue, with kRopeD > 0 the RoPE + KV-cache epilogue.
+template <typename T, int kM, int kPro, int kRopeD>
 cudaError_t launch_stream_mode(const StreamGroup& g, int tiles, const void* x,
                                int ldx, int K, int rows, void* part,
                                void* counters, int out_type,
                                const NormArgs& na, const RopeArgs& ra,
                                cudaStream_t st) {
   const dim3 grid(tiles, (K + rows - 1) / rows);
-  dequant_gemv_stream_kernel<T, kM, kNorm, kRopeD><<<grid, kSThreads, 0, st>>>(
+  dequant_gemv_stream_kernel<T, kM, kPro, kRopeD><<<grid, kSThreads, 0, st>>>(
       g, static_cast<const uint16_t*>(x), ldx, K, rows,
       static_cast<float*>(part), static_cast<unsigned*>(counters), out_type,
       na, ra);
@@ -1047,9 +1082,9 @@ cudaError_t launch_stream(const StreamGroup& g, int tiles, const void* x,
   const NormArgs na{};
   const RopeArgs ra{};
   if (M == 1)
-    return launch_stream_mode<T, 1, false, 0>(g, tiles, x, ldx, K, rows, part,
+    return launch_stream_mode<T, 1, kProNone, 0>(g, tiles, x, ldx, K, rows, part,
                                               counters, out_type, na, ra, st);
-  return launch_stream_mode<T, 2, false, 0>(g, tiles, x, ldx, K, rows, part,
+  return launch_stream_mode<T, 2, kProNone, 0>(g, tiles, x, ldx, K, rows, part,
                                             counters, out_type, na, ra, st);
 }
 
@@ -1061,15 +1096,15 @@ cudaError_t launch_norm_rows(const StreamGroup& g, int tiles, const void* x,
                              cudaStream_t st) {
   switch (head_dim) {
     case 0:
-      return launch_stream_mode<T, kM, true, 0>(g, tiles, x, K, K, rows, part,
+      return launch_stream_mode<T, kM, kProNorm, 0>(g, tiles, x, K, K, rows, part,
                                                 counters, out_type, na, ra,
                                                 st);
     case 64:
-      return launch_stream_mode<T, kM, true, 64>(g, tiles, x, K, K, rows,
+      return launch_stream_mode<T, kM, kProNorm, 64>(g, tiles, x, K, K, rows,
                                                  part, counters, out_type, na,
                                                  ra, st);
     case 128:
-      return launch_stream_mode<T, kM, true, 128>(g, tiles, x, K, K, rows,
+      return launch_stream_mode<T, kM, kProNorm, 128>(g, tiles, x, K, K, rows,
                                                   part, counters, out_type,
                                                   na, ra, st);
   }
@@ -1221,4 +1256,52 @@ extern "C" int mc_w8a16_gemv_norm(
                                       out_type, na, ra, head_dim, st);
   return launch_norm<__half>(g, tiles, x, M, K, rows, part, counters,
                              out_type, na, ra, head_dim, st);
+}
+
+// The streaming kernel (1-2 rows, one weight) with kernel K10 folded into
+// its prologue: y = (h @ q) * scale of h = T(T(silu(gate)) * up), the down
+// product of the decode layer's MLP.  gate and up [M, K] bf16 (x_bf16) or
+// fp16 with contiguous rows; `h` (or null) receives h [M, K] (an adapter
+// branch's input); `rows`, `part` and `counters` as mc_w8a16_gemv's
+// streaming kernel takes them (the grid over the weight's 512-column
+// tiles).  Bit-equal to K10, then mc_w8a16_gemv's streaming kernel with
+// the same rows.  Returns cudaErrorInvalidValue, launching nothing, for M
+// outside 1..2, rows not a positive multiple of 8, N % 16, a misaligned
+// weight or pointer read 16 bytes at a time, or an output type it does
+// not write.
+extern "C" int mc_w8a16_gemv_silu(const void* gate, const void* up, void* h,
+                                  const void* q, const void* scale,
+                                  void* out, int N, void* part,
+                                  void* counters, int M, int K, int rows,
+                                  int x_bf16, int out_type, void* stream) {
+  if (M < 1 || M > kSMaxM || K <= 0 || rows <= 0 || rows % kSWarps != 0 ||
+      N <= 0 || N % 16 != 0 || !aligned16(q) || !aligned16(scale) ||
+      !aligned16(gate) || !aligned16(up) || out_type < kOutF32 ||
+      out_type > kOutF16)
+    return cudaErrorInvalidValue;
+  const int n_splits = (K + rows - 1) / rows;
+  if (n_splits > 65535 || (n_splits > 1 && (!part || !counters)))
+    return cudaErrorInvalidValue;
+  StreamGroup g{};
+  g.m[0] = StreamMember{static_cast<const int8_t*>(q),
+                        static_cast<const float*>(scale), out, N, 0, kStore};
+  g.n = 1;
+  const int tiles = (N + kSTile - 1) / kSTile;
+  const NormArgs na{static_cast<const uint16_t*>(up), nullptr, nullptr,
+                    static_cast<uint16_t*>(h), 0.f};
+  const RopeArgs ra{};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return M == 1 ? launch_stream_mode<__nv_bfloat16, 1, kProSilu, 0>(
+                        g, tiles, gate, K, K, rows, part, counters, out_type,
+                        na, ra, st)
+                  : launch_stream_mode<__nv_bfloat16, 2, kProSilu, 0>(
+                        g, tiles, gate, K, K, rows, part, counters, out_type,
+                        na, ra, st);
+  return M == 1 ? launch_stream_mode<__half, 1, kProSilu, 0>(
+                      g, tiles, gate, K, K, rows, part, counters, out_type,
+                      na, ra, st)
+                : launch_stream_mode<__half, 2, kProSilu, 0>(
+                      g, tiles, gate, K, K, rows, part, counters, out_type,
+                      na, ra, st);
 }

@@ -19,6 +19,8 @@ from typing import Optional
 
 import torch
 
+from . import _route
+
 NEG_INF = -1e30
 
 
@@ -99,7 +101,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, sm_scale=None,
             return {n: x[None] for n, x in c.items()} if isinstance(c, dict) \
                 else c[None]
         k_cache, v_cache, layer_idx = stack(k_cache), stack(v_cache), 0
-    if impl == "auto" and q.is_cuda:
+    if impl == "auto" and _route.on_card(q, "attention"):
         from .flash_decode import flash_decode_attention
         return flash_decode_attention(q, k_cache, v_cache,
                                       kv_len.contiguous(), layer_idx,

@@ -16,14 +16,17 @@ each, called by ``core/llama``'s fused decode layer:
   returns the rotated q;
 - K10 ``silu_mul(gate, up)``: ``silu(gate) * up``.
 
-At 1-2 rows K8 and K9 run inside the K5 launch next to them instead
-(``csrc/w8a16_gemv.cu`` ``mc_w8a16_gemv_norm``): ``norm_matmul_group``
-puts K8 in the prologue of the grouped int8 product of its output (a
-layer's gate/up, or q/k/v), ``norm_qkv_rope`` also K9 in the q/k/v
-launch's epilogue, both bit-equal to K8, the grouped K5 and K9 launched in
-turn; ``ops/routed_lora.routed_lora_norm_group`` routes by ``norm_fuses``
-and ``rope_fuses``, and ``norm_matmul_group_reference`` is their plain
-version.
+At 1-2 rows K8, K9 and K10 run inside the K5 launch next to them instead
+(``csrc/w8a16_gemv.cu`` ``mc_w8a16_gemv_norm``, ``mc_w8a16_gemv_silu``):
+``norm_matmul_group`` puts K8 in the prologue of the grouped int8 product
+of its output (a layer's gate/up, or q/k/v), ``norm_qkv_rope`` also K9 in
+the q/k/v launch's epilogue, both bit-equal to K8, the grouped K5 and K9
+launched in turn; ``silu_matmul`` puts K10 in the prologue of the down
+product, bit-equal to K10 and the streaming K5 in turn.
+``ops/routed_lora.routed_lora_norm_group`` routes by ``norm_fuses`` and
+``rope_fuses``, ``routed_lora_silu`` by ``silu_fuses``;
+``norm_matmul_group_reference`` and ``silu_matmul_reference`` are the plain
+versions.
 
 Each plain version is the composition of the port's own ops that the
 unfused decode layer runs (``ops/norms.rms_norm``, ``ops/rope.apply_rope``,
@@ -46,28 +49,22 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from . import quant
+from . import _route, quant
 from .flash_decode import _parts
 from .norms import rms_norm
 from .rope import apply_rope
 
-_HALF = (torch.bfloat16, torch.float16)
 _NORM_MAX_H = 8192  # K8 holds a row in registers: 256 threads x 4 vectors
 _HEAD_DIMS = (64, 128)
 
 
-def _on_card(x: torch.Tensor) -> bool:
-    """Whether the kernels take x: a CUDA tensor (the CPU takes the plain
-    version)."""
-    return x.is_cuda
-
-
 def fused_decode(x: torch.Tensor, attn_impl: str) -> bool:
     """Whether a decode step on activations ``x`` runs the fused passes:
-    ``attn_impl`` "auto" on the card (``_on_card``) with bf16 or fp16
-    activations.  "reference" (the plain path), the CPU and fp32
-    activations run the unfused ops."""
-    return attn_impl == "auto" and _on_card(x) and x.dtype in _HALF
+    ``attn_impl`` "auto" on the card with bf16 or fp16 activations.
+    "reference" (the plain path), the CPU and fp32 activations run the
+    unfused ops."""
+    return attn_impl == "auto" and _route.on_card(x, "decode") \
+        and x.dtype in _route.HALF
 
 
 # ---------------------------------------------------------------- plain
@@ -110,7 +107,7 @@ def silu_mul_reference(gate, up):
 # ---------------------------------------------------------------- checks
 
 def _check_half(name, t, dtype=None):
-    if t.dtype not in _HALF:
+    if t.dtype not in _route.HALF:
         raise TypeError(f"{name}: the fused decode kernels take bf16 or fp16, "
                         f"got {t.dtype}")
     if dtype is not None and t.dtype != dtype:
@@ -132,7 +129,8 @@ def _record(kind: str, shape) -> bool:
     if record is not None:  # recorded, not run: each replay runs it
         getattr(record, {"add_rms_norm": "norm", "rope_kv_write": "rope",
                          "silu_mul": "silu", "norm_matmul_group":
-                         "norm_group", "norm_qkv_rope": "norm_rope"}[kind]
+                         "norm_group", "norm_qkv_rope": "norm_rope",
+                         "silu_matmul": "silu_group"}[kind]
                 ).append(shape)
         return True
     return False
@@ -184,7 +182,7 @@ def add_rms_norm(x: torch.Tensor, y: Optional[torch.Tensor],
                  weight: torch.Tensor, eps: float = 1e-5):
     """(x + y, rms_norm(x + y, weight, eps)), or (x, rms_norm(x)) where y
     is None: kernel K8 on a CUDA tensor, its plain version on a CPU one."""
-    if not _on_card(x):
+    if not _route.on_card(x, "decode"):
         return add_rms_norm_reference(x, y, weight, eps)
     return _k8(x, y, weight, eps)
 
@@ -286,7 +284,7 @@ def rope_kv_write(q, k, v, cos, sin, cache_k, cache_v, layer_idx: int,
     returns the rotated q.  Kernel K9 on a CUDA tensor (one launch; ``pos``
     is read on the card, so a captured step replays with each step's
     positions), its plain version on a CPU one."""
-    if not _on_card(q):
+    if not _route.on_card(q, "decode"):
         return rope_kv_write_reference(q, k, v, cos, sin, cache_k, cache_v,
                                        layer_idx, pos)
     return _k9(q, k, v, cos, sin, cache_k, cache_v, layer_idx, pos)
@@ -322,7 +320,7 @@ def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """``silu(gate) * up`` (silu rounded to the activations' type before
     the product): kernel K10 on a CUDA tensor, its plain version on a CPU
     one."""
-    if not _on_card(gate):
+    if not _route.on_card(gate, "decode"):
         return silu_mul_reference(gate, up)
     return _k10(gate, up)
 
@@ -374,7 +372,8 @@ def norm_fuses(x: torch.Tensor, weights) -> bool:
     takes, and 2-3 int8 weights that ``quant.k5_groups`` puts in one
     launch."""
     H = x.shape[-1]
-    return _on_card(x) and not (torch.is_grad_enabled() and x.requires_grad) \
+    return _route.on_card(x, "decode") \
+        and not (torch.is_grad_enabled() and x.requires_grad) \
         and quant.k5_groups(x, len(weights)) and H % 8 == 0 \
         and H <= _NORM_MAX_H and all(quant.is_quantized(w) for w in weights)
 
@@ -472,7 +471,7 @@ def norm_matmul_group(x: torch.Tensor, y: Optional[torch.Tensor],
     products read K8's h bit for bit; h reaches device memory only where
     kept), counted as a K5 launch and on this wrapper; on a CPU tensor the
     plain version."""
-    if not _on_card(x):
+    if not _route.on_card(x, "decode"):
         return norm_matmul_group_reference(x, y, weight, eps, weights,
                                            out_dtype, keep_h=keep_h)
     return _k5_norm(x, y, weight, eps, weights, out_dtype, None, keep_h,
@@ -489,7 +488,7 @@ def norm_qkv_rope(x: torch.Tensor, y: Optional[torch.Tensor],
     epilogue, bit-equal to K8, the grouped K5 and K9 in turn (k and v never
     reach device memory but in the cache), counted as a K5 launch and on
     this wrapper; on a CPU tensor the plain version."""
-    if _on_card(x):
+    if _route.on_card(x, "decode"):
         s, _, (q,) = _k5_norm(x, y, weight, eps, weights, x.dtype, rope,
                               False, norm_qkv_rope)
         return s, q.view(q.shape[0], 1, -1, rope.cos.shape[-1])
@@ -498,12 +497,110 @@ def norm_qkv_rope(x: torch.Tensor, y: Optional[torch.Tensor],
     return s, q
 
 
+# ------------------------------------------------------- K10 inside K5
+
+def silu_matmul_reference(gate, up, wq, out_dtype=None):
+    """The fused launch's plain version: K10's (``silu_mul_reference``),
+    then the down product's ``dequant_matmul_reference`` of its output h.
+    Returns (h, the product)."""
+    h = silu_mul_reference(gate, up)
+    return h, quant.dequant_matmul_reference(h, wq, out_dtype)
+
+
+def _silu_streams(M: int, K: int, N: int) -> bool:
+    """Whether the down product [M, K] @ [K, N] runs on K5's streaming
+    grid, the one K10's prologue is written for: 1..``quant.K5_GROUP_ROWS``
+    rows where ``quant._k5_plan`` picks it (always at one row; at two rows
+    not for the narrow tp 4 shard, which keeps the tensor cores)."""
+    return 0 < M <= min(quant.K5_GROUP_ROWS, quant.K5_MAX_ROWS) \
+        and quant._k5_plan(M, K, N)[0] == quant._STREAM_TILE
+
+
+def silu_fuses(gate: torch.Tensor, w) -> bool:
+    """Whether K10 runs in the prologue of the K5 launch of the down
+    product ``w`` (which reads its output): on the card, bf16 or fp16 gate
+    that no gradient flows through, an int8 weight, and a shape that K5
+    streams (``_silu_streams``)."""
+    return _route.on_card(gate, "decode") and gate.dtype in _route.HALF \
+        and not (torch.is_grad_enabled() and gate.requires_grad) \
+        and quant.is_quantized(w) \
+        and _silu_streams(quant._rows(gate), gate.shape[-1],
+                          w["q"].shape[-1])
+
+
+def _k5_silu(gate, up, wq, out_dtype, keep_h: bool):
+    """One K5 streaming launch of the int8 weight ``wq`` with K10 in its
+    prologue: (h or None, the product [..., N]), counted on
+    ``silu_matmul`` and as a K5 launch."""
+    _check_half("gate", gate)
+    _check_half("up", up, gate.dtype)
+    if up.shape != gate.shape:
+        raise ValueError(f"up {tuple(up.shape)} != gate "
+                         f"{tuple(gate.shape)}")
+    for name, t in (("gate", gate), ("up", up)):
+        _check_dense(name, t, gate.device)
+    K = gate.shape[-1]
+    M = quant._rows(gate)
+    if not 0 < M <= quant.K5_GROUP_ROWS:
+        raise ValueError(f"the fused K5 launch takes 1..{quant.K5_GROUP_ROWS}"
+                         f" rows, got {M}")
+    x2 = gate.reshape(M, K)
+    quant._check_cuda_inputs(x2, wq["q"], wq["scale"])
+    N = wq["q"].shape[1]
+    if not _silu_streams(M, K, N):
+        raise ValueError(f"the fused K5 launch streams; K5 takes {M} x {K} x "
+                         f"{N} on the tensor cores")
+    out_dtype = out_dtype or gate.dtype
+    if out_dtype not in (torch.float32, gate.dtype):
+        raise TypeError(f"the fused K5 launch writes fp32 or {gate.dtype}, "
+                        f"not {out_dtype}")
+    plan = quant._k5_plan(M, K, N)
+    _, rows, _, _ = plan
+    stream = torch.cuda.current_stream(gate.device).cuda_stream
+    record = quant._capture_record("silu_matmul")
+    part, counters = quant._split_scratch(gate.device, stream, record, M,
+                                          [N], plan)
+    out = torch.empty((M, N), dtype=out_dtype, device=gate.device)
+    h = torch.empty_like(gate) if keep_h else None
+    err = _build.load("w8a16_gemv").mc_w8a16_gemv_silu(
+        gate.data_ptr(), up.data_ptr(), quant._ptr(h), wq["q"].data_ptr(),
+        wq["scale"].data_ptr(), out.data_ptr(), N, quant._ptr(part),
+        quant._ptr(counters), M, K, rows, int(gate.dtype == torch.bfloat16),
+        quant._OUT_TYPES[out_dtype], stream)
+    _build.check(err, "w8a16_gemv_silu")
+    shape = (M, K, N)
+    if record is not None:  # recorded, not run: each replay runs it
+        record.launches.append(shape)
+    else:
+        quant.dequant_matmul.launches += 1
+    if not _record("silu_matmul", shape):
+        silu_matmul.launches += 1
+    return h, out.view(*gate.shape[:-1], N)
+
+
+def silu_matmul(gate: torch.Tensor, up: torch.Tensor, wq, out_dtype=None,
+                keep_h: bool = False):
+    """``silu_mul(gate, up)`` and its int8 product with ``wq`` (a layer's
+    down weight), in ``out_dtype`` (default gate's): (h where ``keep_h``
+    else None, the product).  On a CUDA tensor one K5 launch with K10 in
+    its prologue, bit-equal to K10 and K5 in turn (h reaches device memory
+    only where kept), counted as a K5 launch and on this wrapper; it
+    raises on a shape K5 does not stream (``_silu_streams``).  On a CPU
+    tensor the plain version."""
+    if not _route.on_card(gate, "decode"):
+        h, y = silu_matmul_reference(gate, up, wq, out_dtype)
+        return (h if keep_h else None), y
+    return _k5_silu(gate, up, wq, out_dtype, keep_h)
+
+
 # Launches of K8, K9 and K10, and of K5 with K8 in its prologue
-# (``norm_matmul_group``) or with K8 and K9 (``norm_qkv_rope``; each also
-# one of K5's): one per call that ran the kernel; a replayed graph adds
-# the launches its capture recorded (core/decode_graph).
+# (``norm_matmul_group``), with K8 and K9 (``norm_qkv_rope``) or with K10
+# (``silu_matmul``; each also one of K5's): one per call that ran the
+# kernel; a replayed graph adds the launches its capture recorded
+# (core/decode_graph).
 add_rms_norm.launches = 0
 rope_kv_write.launches = 0
 silu_mul.launches = 0
 norm_matmul_group.launches = 0
 norm_qkv_rope.launches = 0
+silu_matmul.launches = 0

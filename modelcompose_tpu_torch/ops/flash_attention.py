@@ -11,9 +11,14 @@ the query offset ``q_offset``.  The TPU's 128-lane padding and lifted
 segment ids and mask ragged edges themselves.  The LSE crosses from the
 forward to the backward at the true Lq.
 
-Numerics (flash-attn-2, as the JAX kernels): bf16 operands, fp32
-accumulation and softmax, P cast to bf16 before the P.V and P^T.dO
-products, dS cast to bf16 before dS.K and dS^T.Q.  Fully masked (padding)
+Numerics (flash-attn-2, as the JAX kernels): operands in the model's
+dtype, fp32 accumulation and softmax, P cast to the operand dtype before
+the P.V and P^T.dO products, dS cast to it before dS.K and dS^T.Q.
+
+The kernels take bf16 and fp16 operands, as the JAX kernels feed the dot
+either (``ops/_route``): a wrapper takes the plain version for a CPU
+tensor, and on a CUDA tensor launches its kernel or raises (fp32, a head
+dim, a GQA group or a layout it does not take).  Fully masked (padding)
 rows come out of the forward as a mean of V (callers ignore them) and get
 zero gradients: the backward masks P by a select, since exp(S - LSE) of a
 padding row is not 0.
@@ -40,6 +45,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from . import _route
 
 NEG_INF = -1e30
 
@@ -144,10 +150,13 @@ def _check_cuda_inputs(q, k, v, q_seg, kv_seg):
     if D not in (64, 128):
         raise ValueError(f"flash-attention kernel takes head_dim 64 or 128, "
                          f"not {D}")
+    if q.dtype not in _route.HALF:
+        raise TypeError(f"flash-attention kernel takes bf16 or fp16 q, "
+                        f"got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash-attention kernel takes bf16 {name}, "
-                            f"got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash-attention kernel takes {name} of q's "
+                            f"{q.dtype}, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     for name, t in (("q", q), ("k", k), ("v", v), ("q_seg", q_seg),
@@ -178,7 +187,8 @@ def _k1_launch(q, k, v, causal, q_segment_ids, kv_segment_ids, q_offset,
     err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(),
                 kv_seg.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, Hkv,
                 Lq, S, D, float(_scale(sm_scale, D)), int(bool(causal)),
-                int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
+                int(q_offset), int(q.dtype == torch.bfloat16),
+                torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_fwd")
     return out, lse
 
@@ -189,7 +199,7 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
                             sm_scale: Optional[float] = None):
     """Kernel K1 on a CUDA tensor, its plain version on a CPU tensor.
     Returns (out [B, Lq, H, D], lse [B, H, Lq] fp32)."""
-    if not q.is_cuda:
+    if not _route.on_card(q, "attention"):
         return flash_attention_reference(
             q, k, v, causal=causal, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, q_offset=q_offset,
@@ -209,7 +219,7 @@ def flash_attention_forward_mask_all(q, k, v, *, causal: bool = True,
     """K1 with every kv tile through the per-element mask, for the test
     that holds the unmasked fast path to it on the card.  Not counted as a
     launch."""
-    if not q.is_cuda:
+    if not _route.on_card(q, "attention"):
         raise ValueError("the masked-path K1 runs only on a CUDA tensor")
     return _k1_launch(q, k, v, causal, q_segment_ids, kv_segment_ids,
                       q_offset, sm_scale, mask_all=True)
@@ -285,8 +295,8 @@ def flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, *,
 
 
 def _di(o, do):
-    """Di = rowsum(O * dO) in fp32 from the saved (bf16) output, as the JAX
-    wrapper computes it outside the kernels: [B, H, Lq]."""
+    """Di = rowsum(O * dO) in fp32 from the saved (bf16 or fp16) output,
+    as the JAX wrapper computes it outside the kernels: [B, H, Lq]."""
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -329,7 +339,7 @@ def _bwd_launch_args(q, k, v, do, lse, di, causal, q_segment_ids,
             lse.data_ptr(), di.data_ptr(), q_seg.data_ptr(),
             kv_seg.data_ptr()), (q_seg, kv_seg), (
         B, H, k.shape[2], Lq, S, D, float(_scale(sm_scale, D)),
-        int(bool(causal)), int(q_offset),
+        int(bool(causal)), int(q_offset), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
 
 
@@ -370,7 +380,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool = True,
     kw = dict(causal=causal, q_segment_ids=q_segment_ids,
               kv_segment_ids=kv_segment_ids, q_offset=q_offset,
               sm_scale=sm_scale)
-    if not q.is_cuda:
+    if not _route.on_card(q, "attention"):
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, di, **kw)
     record = _capture_record("flash_attention_bwd_dq")
     dq = _k3_launch(q, k, v, do, lse, di, record=record, **kw)
@@ -391,7 +401,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool = True,
     kw = dict(causal=causal, q_segment_ids=q_segment_ids,
               kv_segment_ids=kv_segment_ids, q_offset=q_offset,
               sm_scale=sm_scale)
-    if not q.is_cuda:
+    if not _route.on_card(q, "attention"):
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, **kw)
     record = _capture_record("flash_attention_bwd_dkv")
     res = _k4_launch(q, k, v, do, lse, di, record=record, **kw)
@@ -410,7 +420,7 @@ def flash_attention_bwd_mask_all(q, k, v, do, lse, di, *,
     """K3 and K4 with every tile through the per-element mask, for the test
     that holds their unmasked fast path to it on the card: (dQ, dK, dV).
     Not counted as launches."""
-    if not q.is_cuda:
+    if not _route.on_card(q, "attention"):
         raise ValueError("the masked-path K3/K4 run only on a CUDA tensor")
     kw = dict(causal=causal, q_segment_ids=q_segment_ids,
               kv_segment_ids=kv_segment_ids, q_offset=q_offset,

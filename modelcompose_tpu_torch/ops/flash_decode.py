@@ -8,9 +8,12 @@ combined by the last block of each row and kv head).  On the TPU that kernel was
 to the XLA loop; on the card the kernel is the decode path, and the loop
 (ops/attention.decode_attention) defines its semantics.
 
+K2 takes a q of bf16 or fp16 and a cache of q's type or int8 (it raises on
+an fp32 CUDA tensor); everything inside is fp32, as in the JAX kernel.
+
 Layout contract (core/llama.KVCache):
-  q:      [B, 1, H, D]
-  cache:  [NL, B, S, Hkv, D] bf16, or {"q": int8, "scale": fp32
+  q:      [B, 1, H, D] bf16 or fp16
+  cache:  [NL, B, S, Hkv, D] of q's type, or {"q": int8, "scale": fp32
           [NL, B, S, Hkv, 1]} with the scales factored out of both
           contractions (k scale on the logits, v scale on the probabilities)
   kv_len: [B] valid entries, the new token's slot included
@@ -24,6 +27,7 @@ import threading
 import torch
 
 from .. import _build
+from . import _route
 
 NEG_INF = -1e30
 
@@ -140,10 +144,11 @@ def _check_cuda_inputs(q, k_q, v_q, k_s, v_s, kv_len):
     if D not in (64, 128):
         raise ValueError(f"flash-decode kernel takes head_dim 64 or 128, "
                          f"not {D}")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash-decode kernel takes a bf16 q, got {q.dtype}")
+    if q.dtype not in _route.HALF:
+        raise TypeError(f"flash-decode kernel takes a bf16 or fp16 q, got "
+                        f"{q.dtype}")
     quantized = k_s is not None
-    want = torch.int8 if quantized else torch.bfloat16
+    want = torch.int8 if quantized else q.dtype
     tensors = [("q", q), ("k", k_q), ("v", v_q), ("kv_len", kv_len)]
     if quantized:
         tensors += [("k scale", k_s), ("v scale", v_s)]
@@ -153,8 +158,8 @@ def _check_cuda_inputs(q, k_q, v_q, k_s, v_s, kv_len):
             raise ValueError(
                 "int8 cache scales must be fp32 [NL, B, S, Hkv, 1]")
     if k_q.dtype != want or v_q.dtype != want:
-        raise TypeError(f"cache must be bf16 or int8 with scales, got "
-                        f"{k_q.dtype}/{v_q.dtype}")
+        raise TypeError(f"cache must be of q's {q.dtype} or int8 with "
+                        f"scales, got {k_q.dtype}/{v_q.dtype}")
     for name, t in tensors:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -168,9 +173,15 @@ def flash_decode_attention(q, k_cache, v_cache, kv_len, layer_idx: int, *,
                            sm_scale: float):
     """Kernel K2 on a CUDA tensor, its plain version on a CPU tensor.
     Any cache length S is taken.  Returns [B, 1, H, D] in q.dtype."""
-    if not q.is_cuda:
+    if not _route.on_card(q, "attention"):
         return flash_decode_reference(q, k_cache, v_cache, kv_len, layer_idx,
                                       sm_scale=sm_scale)
+    return _k2(q, k_cache, v_cache, kv_len, layer_idx, sm_scale)
+
+
+def _k2(q, k_cache, v_cache, kv_len, layer_idx: int, sm_scale: float):
+    """Kernel K2 on CUDA tensors: one launch, counted (or recorded into
+    the capturing graph's record).  Returns [B, 1, H, D] in q.dtype."""
     k_q, k_s = _parts(k_cache)
     v_q, v_s = _parts(v_cache)
     _check_cuda_inputs(q, k_q, v_q, k_s, v_s, kv_len)
@@ -201,7 +212,7 @@ def flash_decode_attention(q, k_cache, v_cache, kv_len, layer_idx: int, *,
         v_s.data_ptr() if quantized else None, kv_len.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
         counters.data_ptr(), out.data_ptr(), NL, B, H, Hkv, S, D,
-        int(layer_idx), int(quantized),
+        int(layer_idx), int(quantized), int(q.dtype == torch.bfloat16),
         float(sm_scale), stream)
     _build.check(err, "flash_decode")
     if record is not None:  # recorded, not run: each replay runs it

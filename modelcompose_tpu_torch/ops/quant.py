@@ -34,9 +34,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from .. import _build
-
-
-_HALF = (torch.bfloat16, torch.float16)
+from . import _route
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -44,7 +42,7 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for half-precision operands on the card, upcast operands elsewhere
     (products of bf16 values are exact in fp32, so only the summation order
     differs)."""
-    if a.is_cuda and a.dtype == b.dtype and a.dtype in _HALF:
+    if a.is_cuda and a.dtype == b.dtype and a.dtype in _route.HALF:
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 
@@ -94,7 +92,7 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
-    if x.dtype == w.dtype and x.dtype in _HALF:
+    if x.dtype == w.dtype and x.dtype in _route.HALF:
         y = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
@@ -284,7 +282,8 @@ class CaptureRecord:
     passes (ops/decode_fused) record their launches here too: K8
     (``norm``), K9 (``rope``) and K10 (``silu``), each launch's shape, and
     K5's launches with K8 in their prologue (``norm_group``) or with K8 and
-    K9 (``norm_rope``), each also one of ``launches``."""
+    K9 (``norm_rope``), and with K10 in their prologue (``silu_group``),
+    each also one of ``launches``."""
 
     def __init__(self):
         self.launches = []
@@ -295,6 +294,7 @@ class CaptureRecord:
         self.silu = []
         self.norm_group = []
         self.norm_rope = []
+        self.silu_group = []
         self.scratch = _Scratch(keep=True)
 
 
@@ -344,7 +344,7 @@ def _check_cuda_inputs(x2, q, scale):
     stride; q [K, N] int8, N % 16 == 0; scale fp32 with N values; q and
     scale contiguous and 16-byte aligned, all on one device."""
     M, K = x2.shape
-    if x2.dtype not in _HALF:
+    if x2.dtype not in _route.HALF:
         raise TypeError(f"K5 takes bf16 or fp16 activations, got {x2.dtype}")
     if x2.stride(1) != 1:
         raise ValueError(f"K5 takes activations with unit column stride, "
@@ -576,7 +576,7 @@ def _check_k6_inputs(x2, q, scale):
     q [K, N] int8 contiguous and 16-byte aligned, N % 16 == 0; scale fp32
     with N values, contiguous and 16-byte aligned; all on one device."""
     M, K = x2.shape
-    if x2.dtype not in _HALF:
+    if x2.dtype not in _route.HALF:
         raise TypeError(f"K6 takes bf16 or fp16 activations, got {x2.dtype}")
     if q.dtype != torch.int8 or q.dim() != 2 or q.shape[0] != K:
         raise ValueError(f"K6 takes an int8 [{K}, N] weight, got "
@@ -683,7 +683,7 @@ def _check_k7_inputs(g2, q, scale, dtype):
     K % 8 == 0, N % 16 == 0; scale fp32 with N values, contiguous and
     16-byte aligned; all on one device.  A pass alone passes None for the
     operand it does not read (q for the first, scale for the second)."""
-    if dtype not in _HALF:
+    if dtype not in _route.HALF:
         raise TypeError(f"K7 writes bf16 or fp16 dx, got {dtype}")
     if g2.dtype not in _G_TYPES:
         raise TypeError(f"K7 takes an fp32, bf16 or fp16 cotangent, got "
@@ -796,7 +796,7 @@ def w8a16_dx(g: torch.Tensor, wq: Dict[str, torch.Tensor],
     every kernel product of ``dequant_matmul`` calls it."""
     N = g.shape[-1]
     g2 = g.reshape(-1, N)
-    if _on_card(g2):
+    if _route.on_card(g2, "products"):
         dx = _k7(g2, wq["q"], wq["scale"], dtype)
     else:
         dx = _dequant_matmul_dx(g2, wq["q"], wq["scale"], dtype)
@@ -860,20 +860,6 @@ def w8a16_gemm(x: torch.Tensor, wq: Dict[str, torch.Tensor],
     return _launch(_k6, x, [wq], out_dtype)[0]
 
 
-def _on_card(x: torch.Tensor) -> bool:
-    """Whether the kernels take x: a CUDA tensor (the CPU takes the plain
-    version)."""
-    return x.is_cuda
-
-
-def _kernel_dtype(x: torch.Tensor) -> bool:
-    """Whether x's type is one the kernels take (bf16, fp16): the routing
-    rule by dtype, on every device.  Another float type (an fp32 x) takes
-    the plain version, as the JAX package converts the weight to x's type
-    whatever it is; a bf16 or fp16 x that a kernel refuses raises."""
-    return x.dtype in _HALF
-
-
 def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
                    out_dtype=None, impl: str = "auto") -> torch.Tensor:
     """y = x @ dequant(wq), fp32-accumulated, in ``out_dtype`` (default
@@ -895,7 +881,8 @@ def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
     if impl != "auto":
         raise ValueError(f"unknown dequant_matmul impl {impl!r}")
     rows = _rows(x)
-    if not _on_card(x) or not _kernel_dtype(x) or rows == 0:
+    if not _route.on_card(x, "products") or not _route.kernel_dtype(x) \
+            or rows == 0:
         return dequant_matmul_reference(x, wq, out_dtype)
     if rows <= K5_MAX_ROWS:
         return _k5_call(x, [wq], out_dtype)[0]
@@ -906,7 +893,8 @@ def k5_groups(x: torch.Tensor, n: int) -> bool:
     """Whether ``n`` int8 products of x run as one K5 launch: on a CUDA
     tensor of bf16 or fp16 of 1..K5_GROUP_ROWS rows (batch-1 decode, the
     vision pair), 2 to K5_GROUP_MAX weights."""
-    return _on_card(x) and _kernel_dtype(x) and 1 < n <= K5_GROUP_MAX \
+    return _route.on_card(x, "products") and _route.kernel_dtype(x) \
+        and 1 < n <= K5_GROUP_MAX \
         and 0 < _rows(x) <= min(K5_GROUP_ROWS, K5_MAX_ROWS)
 
 

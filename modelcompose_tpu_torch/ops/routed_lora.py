@@ -140,6 +140,28 @@ def routed_lora_norm_group(x, res, norm_weight, eps: float, ps, route,
     return s, outs
 
 
+def routed_lora_silu(gate, up, p, route, parallel=None):
+    """The decode layer's SiLU product and the down product of its output
+    h: ``routed_lora_matmul(decode_fused.silu_mul(gate, up), p["w"],
+    p["lora_a"], p["lora_b"], route, parallel, rounded=True)``.
+
+    Where ``decode_fused.silu_fuses`` says so (on the card, an int8
+    weight, unsplit or row-split, at the rows where K5 streams it: one,
+    and two but for the tp 4 shard), one K5 launch runs K10 in its
+    prologue (``silu_matmul``), and h reaches device memory only where an
+    adapter branch reads it.  Anywhere else (3-8 rows, the CPU, a float
+    base) K10 and the product are launches of their own."""
+    if not decode_fused.silu_fuses(gate, p["w"]):
+        return routed_lora_matmul(decode_fused.silu_mul(gate, up), p["w"],
+                                  p["lora_a"], p["lora_b"], route,
+                                  parallel=parallel, rounded=True)
+    h, y = decode_fused.silu_matmul(
+        gate, up, p["w"], out_dtype=_base_dtype(gate, route, parallel, True),
+        keep_h=route is not None)
+    return _adapter_add(gate if h is None else h, y, p["lora_a"],
+                        p["lora_b"], route, parallel)
+
+
 def _adapter_add(x, y, lora_a, lora_b, route, parallel):
     """The base product y (fp32, or x.dtype where nothing follows it) plus
     the routed adapter branch of x, the row split's sum over the group, in

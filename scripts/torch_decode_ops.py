@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The small kernels of one eager decode step, named by the op that launched
 them, on the unfused route, through K8-K10 as launches of their own, and
-with K8 and K9 inside K5's launches, on one CUDA card.
+with K8-K10 inside K5's launches, on one CUDA card.
 
 The step is MCUB-4's decode at Vicuna-7B width and depth (32 layers, 32
 heads of 128, random weights from a seed, int8 base, the dense fold: no
@@ -10,11 +10,13 @@ at position 3,303.  Each route (``unfused``: ``core.llama.fused_decode``
 off, the layer's ops as PyTorch kernels and K5 writing fp32 and a cast
 after it; ``separate``: K8 add + RMSNorm, K9 RoPE + cache write, K10 SiLU
 product, K5 writing bf16, each its own launch (``decode_fused.norm_fuses``
-off); ``in_k5``: the main path, each norm in the prologue of the K5
-launch that reads it and RoPE + the cache write in the q/k/v launch's
-epilogue) is warmed up, then one step is profiled by torch.profiler with
-``record_shapes``, in turns unfused, separate, in_k5, in_k5, separate,
-unfused.  Every device kernel goes under the outermost aten op that
+and ``silu_fuses`` off); ``in_k5``: the main path, each norm in the
+prologue of the K5 launch that reads it, RoPE + the cache write in the
+q/k/v launch's epilogue and the SiLU product in the prologue of the down
+product's launch) is warmed up, then one step is profiled by
+torch.profiler with ``record_shapes``, in turns unfused, separate, in_k5,
+in_k5, separate, unfused.  Every device kernel goes under the outermost
+aten op that
 launched it (with that op's input shapes), or, launched by no aten op (the
 hand-written kernels, called through ctypes), under its kernel's name: per
 op the kernels and device microseconds of one step.
@@ -106,6 +108,7 @@ def main() -> int:
     tokens = torch.tensor([100], device=device)
     kv_lens = torch.tensor([POSITION], dtype=torch.int32, device=device)
     fused, norm_fuses = llama.fused_decode, decode_fused.norm_fuses
+    silu_fuses = decode_fused.silu_fuses
 
     def step():
         with torch.no_grad():
@@ -116,6 +119,7 @@ def main() -> int:
             llama.fused_decode = lambda x, attn_impl: False
         if route == "separate":
             decode_fused.norm_fuses = lambda x, weights: False
+            decode_fused.silu_fuses = lambda gate, w: False
         try:
             for _ in range(3):
                 step()
@@ -127,6 +131,7 @@ def main() -> int:
                 torch.cuda.synchronize()
         finally:
             llama.fused_decode, decode_fused.norm_fuses = fused, norm_fuses
+            decode_fused.silu_fuses = silu_fuses
         rows = step_ops(prof, chip_smoke._split_of)
         ranked = sorted(rows.items(), key=lambda kv: -kv[1][1])
         with open(os.path.join("chiprun_out",

@@ -6,9 +6,10 @@ the port's decode step with the card's launch rule emulated.
 
 The kernels have no CPU build (their card tests are in
 tests/test_torch_kernels_cuda.py).  The emulation (``_Card``) runs the real
-dispatch of the decode step on CPU tensors: ``quant._on_card`` and
-``decode_fused._on_card`` say yes, and the launchers ``quant._k5`` and
-``decode_fused._k8`` / ``_k9`` / ``_k10`` are replaced by the plain
+dispatch of the decode step on CPU tensors: ``ops/_route.on_card`` says
+yes for the products and the decode kernels, and the launchers
+``quant._k5`` and ``decode_fused._k8`` / ``_k9`` / ``_k10`` are replaced
+by the plain
 versions of what they get, each call counted as the launch the card would
 make (K5's with the output type it was asked for).  So the launch counts,
 the residual carried into the next layer's K8, K5's bf16 output and the
@@ -16,8 +17,8 @@ results of the fused route are checked without a card.
 
 Inputs are seeded numpy arrays handed to both packages.  Tolerances,
 relative to max |JAX|: 1e-5 in fp32 (one rounding of an fp32 sum taken in
-another order), 2e-2 in bf16 (a bf16 rounding); int8 cache values bit-exact
-wherever the two scales agree; logits as tests/test_torch_llama.py holds
+another order), 2e-2 in bf16 and fp16 (a rounding in that type); int8
+cache values bit-exact wherever the two scales agree; logits as tests/test_torch_llama.py holds
 them (2e-2 bf16).
 """
 
@@ -41,13 +42,13 @@ from modelcompose_tpu_torch.convert import params_from_jax
 from modelcompose_tpu_torch.core import decode_graph, llama
 from modelcompose_tpu_torch.core.decode_graph import _decode_step
 from modelcompose_tpu_torch.core.prefill_graph import _prefill
-from modelcompose_tpu_torch.ops import decode_fused, quant
+from modelcompose_tpu_torch.ops import _route, decode_fused, quant
 from modelcompose_tpu_torch.ops.norms import rms_norm
 from modelcompose_tpu_torch.ops.rope import apply_rope, rope_tables
 
 jgen = importlib.import_module("modelcompose_tpu.core.generate")
 
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
 LOGIT_TOL = 2e-2
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16),
@@ -252,7 +253,8 @@ def test_fused_decode_rule(monkeypatch):
     ops."""
     x = torch.zeros(1, 1, 8, dtype=torch.bfloat16)
     assert not decode_fused.fused_decode(x, "auto")
-    monkeypatch.setattr(decode_fused, "_on_card", lambda t: True)
+    monkeypatch.setattr(_route, "on_card",
+                        lambda t, kernels: kernels == "decode")
     assert decode_fused.fused_decode(x, "auto")
     assert decode_fused.fused_decode(x.half(), "auto")
     assert not decode_fused.fused_decode(x, "reference")
@@ -327,22 +329,24 @@ def test_replay_counts_the_fused_launches():
 # ---------------------------------------------------------------- the step
 
 class _Card:
-    """The card's launch rule on CPU tensors: ``quant._on_card`` and
-    ``decode_fused._on_card`` say yes, K5's launcher computes the plain
+    """The card's launch rule on CPU tensors: ``_route.on_card`` says yes
+    for the products and the decode kernels, K5's launcher computes the plain
     products in the output type it was asked for (recorded), K6's (a
     prefill's) the plain product, K8-K10's launchers their plain versions,
-    and the fused K5 launcher (K8 in its prologue, K9 in its epilogue with
-    ``rope``) the fused launch's plain version; each call counted as one
-    launch, a fused one as "K5" and as "K8 in K5" or "K8+K9 in K5"."""
+    and the fused K5 launchers (K8 in the prologue, K9 in the epilogue with
+    ``rope``; K10 in the prologue) the fused launches' plain versions; each
+    call counted as one launch, a fused one as "K5" and as "K8 in K5",
+    "K8+K9 in K5" or "K10 in K5"."""
 
     def __init__(self, monkeypatch):
         self.launches = []
         self.k5_out = []
-        monkeypatch.setattr(quant, "_on_card", lambda x: True)
-        monkeypatch.setattr(decode_fused, "_on_card", lambda x: True)
+        monkeypatch.setattr(_route, "on_card", lambda x, kernels: kernels
+                            in ("products", "decode"))
         monkeypatch.setattr(quant, "_k5", self.k5)
         monkeypatch.setattr(quant, "_k6", self.k6)
         monkeypatch.setattr(decode_fused, "_k5_norm", self.k5_norm)
+        monkeypatch.setattr(decode_fused, "_k5_silu", self.k5_silu)
         for name, fn in (("_k8", decode_fused.add_rms_norm_reference),
                          ("_k9", decode_fused.rope_kv_write_reference),
                          ("_k10", decode_fused.silu_mul_reference)):
@@ -364,6 +368,13 @@ class _Card:
         self.k5_out.append(out_dtype or x.dtype)
         return decode_fused.norm_matmul_group_reference(
             x, y, weight, eps, weights, out_dtype, rope, keep_h)
+
+    def k5_silu(self, gate, up, wq, out_dtype, keep_h):
+        assert quant._rows(gate) <= quant.K5_GROUP_ROWS
+        self.launches += ["K5", "K10 in K5"]
+        self.k5_out.append(out_dtype or gate.dtype)
+        h, y = decode_fused.silu_matmul_reference(gate, up, wq, out_dtype)
+        return (h if keep_h else None), y
 
     def k6(self, x2, weights, out_dtype):  # the prefill's products
         self.launches.append("K6")
@@ -402,19 +413,23 @@ def _model(seed=0, hidden=256, heads=4, kv_heads=2, dtype="bfloat16"):
 
 
 def _routes(n, B, routed):
-    """The launches of one decode step of an ``n``-layer int8 backbone at
-    B rows under the card's rule, by kind: at 1-2 rows each norm in the
-    prologue of the K5 launch that reads it and, with no adapter branch
-    (the dense fold), RoPE and the cache write in the q/k/v launch's
-    epilogue, so K8 runs alone only for the final norm and K9 only where
-    an adapter branch follows; at 3-8 rows every K8, K9 and K5 launch of
-    its own.  K5 counts the fused launches too."""
+    """The launches of one decode step of an ``n``-layer int8 backbone of
+    ``_model``'s width at B rows under the card's rule, by kind: at 1-2
+    rows each norm in the prologue of the K5 launch that reads it and, with
+    no adapter branch (the dense fold), RoPE and the cache write in the
+    q/k/v launch's epilogue, so K8 runs alone only for the final norm and
+    K9 only where an adapter branch follows; the SiLU product in the
+    prologue of the down product's launch at one row, while at two rows K5
+    takes the narrow down product (512 x 256) on the tensor cores and K10
+    stays a launch of its own; at 3-8 rows every K8, K9, K10 and K5 launch
+    of its own.  K5 counts the fused launches too."""
     if B > quant.K5_GROUP_ROWS:
         return {"K8": 2 * n + 1, "K9": n, "K10": n, "K5": 7 * n + 1,
-                "K8 in K5": 0, "K8+K9 in K5": 0}
-    return {"K8": 1, "K9": n if routed else 0, "K10": n, "K5": 4 * n + 1,
-            "K8 in K5": n if not routed else 2 * n,
-            "K8+K9 in K5": 0 if routed else n}
+                "K8 in K5": 0, "K8+K9 in K5": 0, "K10 in K5": 0}
+    silu = B == 1
+    return {"K8": 1, "K9": n if routed else 0, "K10": 0 if silu else n,
+            "K5": 4 * n + 1, "K8 in K5": n if not routed else 2 * n,
+            "K8+K9 in K5": 0 if routed else n, "K10 in K5": n if silu else 0}
 
 
 @pytest.mark.parametrize("kv_quant", [False, True])
@@ -424,9 +439,9 @@ def test_decode_step_with_the_card_rule(monkeypatch, kv_quant, B, routed):
     """A decode step after a prefill whose rows end at different positions,
     with the card's rule emulated (``_routes``): at 1-2 rows the fused K5
     launches (K8 in the prologue; K9 in the q/k/v launch's epilogue with
-    no adapter branch), the final norm a K8 of its own and, with a routed
-    table, K9 too; at 3 and 8 rows K8 2 a layer + the final norm, K9 and
-    K10 once a layer, K5 7 a layer + 1.  K5 writes bf16 for every layer
+    no adapter branch; K10 in the down product's prologue), the final norm
+    a K8 of its own and, with a routed table, K9 too; at 3 and 8 rows K8 2
+    a layer + the final norm, K9 and K10 once a layer, K5 7 a layer + 1.  K5 writes bf16 for every layer
     product where no adapter branch follows (the dense fold: no decode
     table) and fp32 where one does (a routed table), the lm_head fp32;
     logits and cache bit-equal to the CPU path's (the unfused ops), and

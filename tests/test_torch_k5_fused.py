@@ -37,7 +37,7 @@ from modelcompose_tpu_torch.convert import params_from_jax
 from modelcompose_tpu_torch.core import decode_graph, llama
 from modelcompose_tpu_torch.core.decode_graph import _decode_step
 from modelcompose_tpu_torch.core.prefill_graph import _prefill
-from modelcompose_tpu_torch.ops import decode_fused, quant
+from modelcompose_tpu_torch.ops import _route, decode_fused, quant
 from modelcompose_tpu_torch.ops.rope import rope_tables
 
 from test_torch_decode_fused import (DTYPES, LOGIT_TOL, _Card, _close,
@@ -178,8 +178,8 @@ def test_the_fusion_rule(monkeypatch):
     _, tw = _weights(np.random.default_rng(0), (256, 128, 128))
     x = torch.zeros(1, 1, H, dtype=torch.bfloat16)
     assert not decode_fused.norm_fuses(x, tw)  # the CPU
-    monkeypatch.setattr(quant, "_on_card", lambda t: True)
-    monkeypatch.setattr(decode_fused, "_on_card", lambda t: True)
+    monkeypatch.setattr(_route, "on_card", lambda t, kernels: kernels
+                        in ("products", "decode"))
     assert decode_fused.norm_fuses(x, tw)
     assert decode_fused.norm_fuses(x.half(), tw[:2])
     assert decode_fused.norm_fuses(torch.zeros(2, 1, H, dtype=torch.bfloat16),
@@ -210,6 +210,10 @@ def _fake_lib(monkeypatch):
 
     class Lib:
         def mc_w8a16_gemv_norm(self, *args):
+            launched.append(args)
+            return 0
+
+        def mc_w8a16_gemv_silu(self, *args):
             launched.append(args)
             return 0
     monkeypatch.setattr(quant._build, "load", lambda name: Lib())
@@ -457,9 +461,164 @@ def test_smoke_counts_the_routes(B, routed):
     assert got == {"add_rms_norm": want["K8"], "rope_kv_write": want["K9"],
                    "silu_mul": want["K10"],
                    "norm_matmul_group": want["K8 in K5"],
-                   "norm_qkv_rope": want["K8+K9 in K5"]}
+                   "norm_qkv_rope": want["K8+K9 in K5"],
+                   "silu_matmul": want["K10 in K5"]}
     assert chip_smoke._k5_per_step(tparams, B) == want["K5"]
     separate = _routes(n, 8, routed)
     assert chip_smoke._fused_per_step(tparams, B, routed, in_k5=False) == {
         "add_rms_norm": separate["K8"], "rope_kv_write": separate["K9"],
-        "silu_mul": n, "norm_matmul_group": 0, "norm_qkv_rope": 0}
+        "silu_mul": n, "norm_matmul_group": 0, "norm_qkv_rope": 0,
+        "silu_matmul": 0}
+
+
+# ------------------------------------------------------- K10 inside K5
+
+# Vicuna-7B's down product (I = 11,008 -> 4,096) and its tp 2 / tp 4 row
+# shards, narrowed 64x with the ratios kept (N a multiple of 16)
+SILU_SHAPES = {"down": (176, 64), "tp2": (88, 64), "tp4": (48, 64)}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("shape", sorted(SILU_SHAPES))
+def test_silu_matmul_plain_matches_jax(shape, M, dtype):
+    """The fused launch's plain version (``silu_matmul_reference``, and
+    ``silu_matmul`` on CPU tensors) against the JAX layer's
+    ``jax.nn.silu(gate) * up`` and its ``dequant_matmul`` (fp32 and
+    x-typed results); h bit-equal to K10's plain version and the product
+    to ``dequant_matmul_reference`` of it."""
+    K, N = SILU_SHAPES[shape]
+    rng = np.random.default_rng(M + K)
+    gate = rng.normal(0, 2, (M, 1, K)).astype(np.float32)
+    up = rng.normal(0, 1, (M, 1, K)).astype(np.float32)
+    jw, (tw,) = _weights(rng, (N,), K=K)
+    tdt, jdt = DTYPES[dtype]
+    tg, tu = _t(gate).to(tdt), _t(up).to(tdt)
+    jh = jax.nn.silu(jnp.asarray(gate, jdt)) * jnp.asarray(up, jdt)
+    for out in (None, torch.float32):
+        h, y = decode_fused.silu_matmul_reference(tg, tu, tw, out)
+        assert torch.equal(h, decode_fused.silu_mul_reference(tg, tu))
+        assert torch.equal(y, quant.dequant_matmul_reference(h, tw, out))
+        assert y.dtype == (out or tdt) and y.shape == (M, 1, N)
+        _close(h, jh, dtype)
+        _close(y, jquant.dequant_matmul(
+            jh, jw[0], None if out is None else jnp.float32), dtype)
+        kept, y2 = decode_fused.silu_matmul(tg, tu, tw, out, keep_h=True)
+        assert torch.equal(kept, h) and torch.equal(y2, y)
+        assert decode_fused.silu_matmul(tg, tu, tw, out)[0] is None
+
+
+def test_the_silu_fusion_rule(monkeypatch):
+    """K10 goes into the down product's K5 prologue on the card where K5
+    streams that product (one row; two rows of a wide one) of bf16/fp16
+    with an int8 weight and no gradient; not on the CPU, at two rows of a
+    product K5 takes on the tensor cores, at 3 rows, in fp32, with a float
+    weight, where gate needs a gradient, or with K5 switched off
+    (``quant.K5_MAX_ROWS`` 0, the A/Bs' plain arm)."""
+    _, (tw,) = _weights(np.random.default_rng(0), (64,), K=176)
+    g = torch.zeros(1, 1, 176, dtype=torch.bfloat16)
+    assert not decode_fused.silu_fuses(g, tw)  # the CPU
+    monkeypatch.setattr(_route, "on_card",
+                        lambda t, kernels: kernels == "decode")
+    assert decode_fused.silu_fuses(g, tw)
+    assert decode_fused.silu_fuses(g.half(), tw)
+    two = torch.zeros(2, 1, 176, dtype=torch.bfloat16)
+    assert quant._k5_plan(2, 176, 64)[0] != quant._STREAM_TILE
+    assert not decode_fused.silu_fuses(two, tw)
+    wide = {"q": torch.zeros(4096, 4096, dtype=torch.int8),
+            "scale": torch.ones(1, 4096)}
+    assert quant._k5_plan(2, 4096, 4096)[0] == quant._STREAM_TILE
+    assert decode_fused.silu_fuses(torch.zeros(2, 1, 4096,
+                                               dtype=torch.bfloat16), wide)
+    assert not decode_fused.silu_fuses(
+        torch.zeros(3, 1, 176, dtype=torch.bfloat16), tw)
+    assert not decode_fused.silu_fuses(g.float(), tw)
+    assert not decode_fused.silu_fuses(g, torch.zeros(176, 64))
+    assert not decode_fused.silu_fuses(g.clone().requires_grad_(True), tw)
+    with torch.no_grad():
+        assert decode_fused.silu_fuses(g.clone().requires_grad_(True), tw)
+    monkeypatch.setattr(quant, "K5_MAX_ROWS", 0)
+    assert not decode_fused.silu_fuses(g, tw)
+
+
+@pytest.mark.parametrize("keep_h", [False, True])
+@pytest.mark.parametrize("M", [1, 2])
+def test_silu_launch_arguments_and_counts(monkeypatch, M, keep_h):
+    """The fused entry gets gate, up, h's buffer (null where not kept), the
+    weight, its scales, the output, N, the split scratch of the down
+    product's grid (``_k5_plan``'s, which streams it), M, K, its rows, the
+    type flags and the stream; one launch counts on K5 and on
+    ``silu_matmul``."""
+    launched = _fake_lib(monkeypatch)
+    K, N = 11008, 4096
+    tw = {"q": torch.zeros((K, N), dtype=torch.int8),
+          "scale": torch.ones((1, N), dtype=torch.float32)}
+    gate, up = (torch.zeros((M, 1, K), dtype=torch.float16)
+                for _ in range(2))
+    k5, wrapper = quant.dequant_matmul.launches, \
+        decode_fused.silu_matmul.launches
+    h, y = decode_fused._k5_silu(gate, up, tw, torch.float32, keep_h)
+    (args,) = launched
+    assert quant.dequant_matmul.launches == k5 + 1
+    assert decode_fused.silu_matmul.launches == wrapper + 1
+    assert (h is not None) == keep_h and y.shape == (M, 1, N)
+    assert y.dtype == torch.float32
+    tile, rows, splits, _ = quant._k5_plan(M, K, N)
+    assert tile == quant._STREAM_TILE
+    assert args[:6] == (gate.data_ptr(), up.data_ptr(),
+                        h.data_ptr() if keep_h else None,
+                        tw["q"].data_ptr(), tw["scale"].data_ptr(),
+                        y.data_ptr())
+    assert args[6] == N and (args[7] is None) == (splits == 1)
+    assert args[9:14] == (M, K, rows, 0, 0)
+
+
+def test_silu_launcher_refuses_what_the_kernel_does_not_take():
+    """Raised before anything is built: 3 rows, two rows of a product K5
+    takes on the tensor cores, an fp32 gate, an up of another type or
+    shape, an output type other than fp32 or gate's, a weight whose rows
+    are not gate's width."""
+    rng = np.random.default_rng(6)
+    _, (tw,) = _weights(rng, (64,), K=176)
+    bf = torch.bfloat16
+    g = torch.zeros(1, 1, 176, dtype=bf)
+
+    def launch(gate=g, up=None, w=tw, out=bf):
+        decode_fused._k5_silu(gate, gate if up is None else up, w, out,
+                              False)
+    with pytest.raises(ValueError, match="rows"):
+        launch(gate=torch.zeros(3, 1, 176, dtype=bf))
+    with pytest.raises(ValueError, match="tensor cores"):
+        launch(gate=torch.zeros(2, 1, 176, dtype=bf))
+    with pytest.raises(TypeError):
+        launch(gate=g.float())
+    with pytest.raises(TypeError):
+        launch(up=g.half())
+    with pytest.raises(ValueError):
+        launch(up=torch.zeros(1, 1, 160, dtype=bf))
+    with pytest.raises(TypeError):
+        launch(out=torch.float16)
+    _, (narrow,) = _weights(rng, (64,), K=160)
+    with pytest.raises(ValueError):
+        launch(w=narrow)
+
+
+def test_replay_counts_the_silu_launches():
+    """A replayed graph adds the fused SiLU launches its capture recorded
+    (``CaptureRecord.silu_group``) to ``silu_matmul``."""
+    class _Graph:
+        def replay(self):
+            pass
+    step = decode_graph.CapturedStep("cpu")
+    step.graph = _Graph()
+    step.k1 = types.SimpleNamespace(launches=[], bwd_dq=[], bwd_dkv=[])
+    step.k2 = types.SimpleNamespace(launches=[])
+    step.k5 = quant.CaptureRecord()
+    step.k5.silu_group += [(1, 11008, 4096)] * 3
+    step.k5.launches += step.k5.silu_group
+    before = (quant.dequant_matmul.launches,
+              decode_fused.silu_matmul.launches)
+    step.replay()
+    after = (quant.dequant_matmul.launches,
+             decode_fused.silu_matmul.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 3)

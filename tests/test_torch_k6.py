@@ -7,9 +7,10 @@ emulated.
 
 K6 has no CPU build (its card tests are in tests/test_torch_kernels_cuda.py).
 The emulation (``_Card``) runs the real dispatch of ``quant.dequant_matmul``
-and ``dequant_matmul_group`` on CPU tensors: ``quant._on_card`` says yes,
-and the launchers ``quant._k5``, ``quant._k6`` and ``quant._k7`` (the
-gradient through x) are replaced by the plain versions of what they get,
+and ``dequant_matmul_group`` on CPU tensors: ``_route.on_card`` says yes
+for the products, and the launchers ``quant._k5``, ``quant._k6`` and
+``quant._k7`` (the gradient through x) are replaced by the plain versions
+of what they get,
 each call counted as the launch the card would make.  So the launch
 counts, the autograd Function and the results of the kernel path are
 checked without a card.  fp32 x takes the plain product on every device
@@ -40,7 +41,7 @@ from modelcompose_tpu_torch.core import llama
 from modelcompose_tpu_torch.core.decode_graph import _decode_step
 from modelcompose_tpu_torch.core.prefill_graph import (_prefill,
                                                        _prefill_chunk_step)
-from modelcompose_tpu_torch.ops import quant
+from modelcompose_tpu_torch.ops import _route, quant
 
 jgen = importlib.import_module("modelcompose_tpu.core.generate")
 
@@ -331,14 +332,16 @@ def test_dequant_matmul_at_prefill_rows_matches_jax(K, N, out, M, dtype, fn):
 
 
 class _Card:
-    """The card's launch rule on CPU tensors: ``quant._on_card`` says yes,
+    """The card's launch rule on CPU tensors: ``_route.on_card`` says yes
+    for the products,
     and K5's and K6's launchers compute the plain products of the weights
     they are given, K7's the plain dL/dx, each call counted as one launch
     ("K5", "K6" or "K7")."""
 
     def __init__(self, monkeypatch):
         self.launches = []
-        monkeypatch.setattr(quant, "_on_card", lambda x: True)
+        monkeypatch.setattr(_route, "on_card",
+                            lambda x, kernels: kernels == "products")
         monkeypatch.setattr(quant, "_k5", self.launcher("K5"))
         monkeypatch.setattr(quant, "_k6", self.launcher("K6"))
         monkeypatch.setattr(quant, "_k7", self.k7)

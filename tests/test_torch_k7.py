@@ -20,9 +20,9 @@
 
 K7 has no CPU build (its card tests are in tests/test_torch_kernels_cuda.py).
 The emulation is tests/test_torch_k6.py's ``_Card`` with a counting K7
-launcher: ``quant._on_card`` says yes, and ``quant._k5``, ``quant._k6``
-and ``quant._k7`` compute their plain versions, each call counted as the
-launch the card would make.
+launcher: ``_route.on_card`` says yes for the products, and
+``quant._k5``, ``quant._k6`` and ``quant._k7`` compute their plain
+versions, each call counted as the launch the card would make.
 
 Inputs are seeded numpy arrays handed to both packages.  Tolerances,
 relative to max |JAX|: 1e-5 for an fp32 product (int8 and fp32 values, the
@@ -46,7 +46,7 @@ from modelcompose_tpu_torch.config import tiny_test_config
 from modelcompose_tpu_torch.core.packing import (IGNORE_INDEX,
                                                  MODAL_TOKEN_INDEXES)
 from modelcompose_tpu_torch.models.model import MultimodalLM
-from modelcompose_tpu_torch.ops import quant
+from modelcompose_tpu_torch.ops import _route, quant
 from modelcompose_tpu_torch.train import train_multimodal as entry
 from modelcompose_tpu_torch.train import trainer
 
@@ -69,12 +69,14 @@ def _int8(rng, K, N):
 
 class _Card:
     """The card's launch rule on CPU tensors (tests/test_torch_k6.py's, with
-    K7): ``quant._on_card`` says yes, and the launchers of K5, K6 and K7
+    K7): ``_route.on_card`` says yes for the products, and the launchers
+    of K5, K6 and K7
     compute their plain versions, each call counted as one launch."""
 
     def __init__(self, monkeypatch):
         self.launches = []
-        monkeypatch.setattr(quant, "_on_card", lambda x: True)
+        monkeypatch.setattr(_route, "on_card",
+                            lambda x, kernels: kernels == "products")
         monkeypatch.setattr(quant, "_k5", self.launcher("K5"))
         monkeypatch.setattr(quant, "_k6", self.launcher("K6"))
         monkeypatch.setattr(quant, "_k7", self.k7)

@@ -2692,29 +2692,32 @@ def test_fused_kernels_refuse_what_they_do_not_take():
 
 
 def _fused_step_counts(n, B):
-    """(K8, K9, K10, K5 with K8 in its prologue, with K8 and K9) launches
-    of one fused decode step of an ``n``-layer int8 backbone with the dense
-    fold at B rows: at 1-2 rows each norm in the prologue of the K5 launch
-    that reads it and RoPE + the cache write in the q/k/v launch's
-    epilogue, K8 alone only for the final norm; at 3-8 rows K8 2 a layer
-    + 1, K9 once a layer."""
+    """(K8, K9, K10, K5 with K8 in its prologue, with K8 and K9, with
+    K10) launches of one fused decode step of an ``n``-layer int8 backbone
+    with the dense fold at B rows: at 1-2 rows each norm in the prologue of
+    the K5 launch that reads it, RoPE + the cache write in the q/k/v
+    launch's epilogue and the SiLU product in the down product's prologue,
+    K8 alone only for the final norm; at 3-8 rows K8 2 a layer + 1, K9 and
+    K10 once a layer."""
     if B <= quant.K5_GROUP_ROWS:
-        return (1, 0, n, n, n)
-    return (2 * n + 1, n, n, 0, 0)
+        return (1, 0, 0, n, n, n)
+    return (2 * n + 1, n, n, 0, 0, 0)
 
 
 def _all_fused_counts():
     from modelcompose_tpu_torch.ops import decode_fused
     return _fused_counts() + (decode_fused.norm_matmul_group.launches,
-                              decode_fused.norm_qkv_rope.launches)
+                              decode_fused.norm_qkv_rope.launches,
+                              decode_fused.silu_matmul.launches)
 
 
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("kv_quant", [False, True])
 def test_fused_decode_step_against_the_unfused_step(kv_quant, B):
     """One eager decode step of the tiny int8 backbone with the dense fold
-    (no decode table) through K8-K10 and K5's bf16 output (at one row K8
-    and K9 inside K5's launches), against the same step on the unfused ops
+    (no decode table) through K8-K10 and K5's bf16 output (at one row K8,
+    K9 and K10 inside K5's launches), against the same step on the unfused
+    ops
     (``fused_decode`` off): the launches of ``_fused_step_counts``; logits
     within 2e-2 of max |logit| and the caches within one int8 step (K8's
     normed values may differ by one ulp); through a DecodeGraph the same
@@ -2749,7 +2752,7 @@ def test_fused_decode_step_against_the_unfused_step(kv_quant, B):
                 finally:
                     tllama.fused_decode = kept
         delta = tuple(a - b for a, b in zip(_all_fused_counts(), before))
-        assert delta == (_fused_step_counts(n, B) if fused else (0,) * 5)
+        assert delta == (_fused_step_counts(n, B) if fused else (0,) * 6)
         outs.append((logits, cache))
     (lf, cf), (lu, cu) = outs
     assert _rel(lf, lu) <= 2e-2
@@ -3001,5 +3004,334 @@ def test_fused_k5_raises_and_does_not_fall_back():
             pos.data_ptr(), 1, 64, 8, 1,
             torch.cuda.current_stream().cuda_stream)
     for kw in ({"K": 8200}, {"M": 3}, {"n": 2}, {"head_dim": 96}):
+        assert call(**kw) == 1  # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------- fp16
+# K1-K4 and K2 take fp16 as the JAX kernels take any float type: the
+# products are wgmma's .f16 forms (K1, K3, K4), P and dS rounded to fp16
+# (its subnormals kept), the outputs stored in fp16; K2 reads an fp16 q and
+# an fp16 or int8 cache and works in fp32.  Each at the bf16 tests' shapes
+# (the 3,328 bucket, a prefill chunk, the train shapes, the MCUB-4 decode)
+# within 2e-2 of its plain version on the same fp16 inputs; fp32 attention
+# raises on the card.
+
+def _rnd_as(gen, dtype, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(
+        dtype)
+
+
+@pytest.mark.parametrize("B,Lq,S,H,Hkv,D,q_offset,lengths,scale", [
+    (1, 3328, 3328, 32, 32, 128, 0, (3287,), 1.0),  # the MCUB-4 prefill
+    (2, 150, 150, 32, 32, 128, 0, (150, 97), 1.0),
+    (3, 200, 200, 8, 2, 64, 0, (200, 1, 130), 1.0),
+    (1, 512, 3072, 32, 32, 128, 2560, (3072,), 1.0),  # a prefill chunk
+    (1, 256, 3328, 32, 32, 128, 3072, (3287,), 1.0),  # the last chunk
+    # wide logits: most of P lies under fp16's smallest normal (6.1e-5)
+    (1, 300, 300, 4, 4, 128, 0, (300,), 4.0),
+])
+def test_k1_fp16_matches_plain(B, Lq, S, H, Hkv, D, q_offset, lengths,
+                               scale):
+    gen = torch.Generator(device="cuda").manual_seed(Lq + S + 16)
+    f16 = torch.float16
+    q = _rnd_as(gen, f16, B, Lq, H, D, scale=scale)
+    k, v = _rnd_as(gen, f16, B, S, Hkv, D), _rnd_as(gen, f16, B, S, Hkv, D)
+    kv_seg = (torch.arange(S, device="cuda")[None]
+              < torch.tensor(lengths, device="cuda")[:, None]).int()
+    q_seg = kv_seg[:, q_offset:q_offset + Lq].contiguous()
+    kw = dict(causal=True, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+              q_offset=q_offset)
+    n = flash_attention_forward.launches
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    assert flash_attention_forward.launches == n + 1
+    assert out.dtype == f16
+    _check_k1(q, k, v, kw, out, lse)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_k1_k3_k4_fp16_fast_path_equals_masked_path(causal):
+    """fp16's unmasked fast path bit-equal to every tile through the mask,
+    forward and backward."""
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    f16 = torch.float16
+    q, k, v, do = (_rnd_as(gen, f16, 2, 384, 8, 128) for _ in range(4))
+    seg = torch.ones((2, 384), dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    out_m, lse_m = flash_attention_forward_mask_all(q, k, v, **kw)
+    assert torch.equal(out, out_m) and torch.equal(lse, lse_m)
+    di = _di(out, do)
+    fast = (flash_attention_bwd_dq(q, k, v, do, lse, di, **kw),
+            *flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw))
+    for a, b in zip(fast, flash_attention_bwd_mask_all(q, k, v, do, lse, di,
+                                                      **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,B,Lq,S,H,Hkv,D,q_offset,lengths", [
+    ("ms_shape", 2, 2048, 2048, 32, 32, 128, 0, (2048, 1391)),
+    ("micro_1400", 1, 2048, 2048, 32, 32, 128, 0, (1400,)),
+    ("q_offset_gqa4", 2, 256, 1024, 32, 8, 128, 768, (1024, 900)),
+    ("d64_gqa2", 2, 150, 150, 8, 4, 64, 0, (150, 61)),
+])
+def test_k3_k4_fp16_match_plain(name, B, Lq, S, H, Hkv, D, q_offset,
+                                lengths):
+    gen = torch.Generator(device="cuda").manual_seed(Lq + S + D + 16)
+    f16 = torch.float16
+    q = _rnd_as(gen, f16, B, Lq, H, D)
+    k, v = _rnd_as(gen, f16, B, S, Hkv, D), _rnd_as(gen, f16, B, S, Hkv, D)
+    kv_seg = (torch.arange(S, device="cuda")[None]
+              < torch.tensor(lengths, device="cuda")[:, None]).int()
+    q_seg = kv_seg[:, q_offset:q_offset + Lq].contiguous()
+    kw = dict(causal=True, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+              q_offset=q_offset)
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    do = (_rnd_as(gen, f16, B, Lq, H, D)
+          * (q_seg != 0)[..., None, None]).contiguous()
+    di = _di(out, do)
+    n = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    assert dq.dtype == dk.dtype == dv.dtype == f16
+    _check_k3_k4((q, k, v, out, lse, do), kw, dq, dk, dv)
+
+
+@pytest.mark.parametrize("cache", ["fp16", "int8"])
+@pytest.mark.parametrize("NL,B,S,H,Hkv,D,kv_len", [
+    (32, 1, 3328 + 32, 32, 32, 128, (3287,)),  # MCUB-4 decode, first step
+    (32, 2, 3328 + 32, 32, 32, 128, (3318, 3300)),
+    (32, 3, 3328 + 32, 32, 32, 128, (3287,) * 3),  # beams
+    (2, 3, 257, 8, 1, 64, (1, 256, 257)),
+    (4, 2, 1000, 32, 8, 128, (1000, 517)),
+])
+def test_k2_fp16_matches_plain(cache, NL, B, S, H, Hkv, D, kv_len):
+    gen = torch.Generator(device="cuda").manual_seed(S + 16)
+    f16 = torch.float16
+    q = _rnd_as(gen, f16, B, 1, H, D)
+    k, v = (_rnd_as(gen, f16, NL, B, S, Hkv, D) for _ in range(2))
+    if cache == "int8":
+        k, v = quantize_kv(k), quantize_kv(v)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    for layer in (0, NL - 1):
+        n = flash_decode_attention.launches
+        out = flash_decode_attention(q, k, v, lens, layer, sm_scale=D ** -0.5)
+        assert flash_decode_attention.launches == n + 1
+        ref = flash_decode_reference(q, k, v, lens, layer, sm_scale=D ** -0.5)
+        assert out.dtype == f16 and torch.isfinite(out).all()
+        assert _rel(out, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_k2_fp16_split_edges_and_groups(quantized, group):
+    D, Hkv = 128, 4
+    lens = (1, 127, 128, 129, 256, 700)
+    gen = torch.Generator(device="cuda").manual_seed(group + 16)
+    f16 = torch.float16
+    q = _rnd_as(gen, f16, len(lens), 1, Hkv * group, D)
+    k, v = (_rnd_as(gen, f16, 2, len(lens), 700, Hkv, D) for _ in range(2))
+    if quantized:
+        k, v = quantize_kv(k), quantize_kv(v)
+    kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = flash_decode_attention(q, k, v, kv, 1, sm_scale=D ** -0.5)
+    ref = flash_decode_reference(q, k, v, kv, 1, sm_scale=D ** -0.5)
+    assert torch.isfinite(out).all() and _rel(out, ref) <= 2e-2
+
+
+def test_bf16_and_fp16_kernels_live_in_one_process_and_one_graph():
+    """bf16 and fp16 launches of K1, K3, K4 and K2 interleave in one
+    process (one library a source, both types instantiated in it) and in
+    one captured CUDA graph: each replay gives the eager launches' bits,
+    and the graph's records count both types' launches."""
+    from modelcompose_tpu_torch.ops import flash_attention as fa
+    from modelcompose_tpu_torch.ops import flash_decode as fd
+    gen = torch.Generator(device="cuda").manual_seed(71)
+
+    def inputs(dtype):
+        q, k, v, do = (_rnd_as(gen, dtype, 1, 256, 4, 128) for _ in range(4))
+        cache = _rnd_as(gen, dtype, 2, 1, 300, 4, 128)
+        return q, k, v, do, cache
+    ins = {dt: inputs(dt) for dt in (torch.bfloat16, torch.float16)}
+    lens = torch.tensor([211], dtype=torch.int32, device="cuda")
+
+    def step():
+        outs = []
+        for q, k, v, do, cache in ins.values():
+            out, lse = fa.flash_attention_forward(q, k, v)
+            di = _di(out, do)
+            outs += [out, fa.flash_attention_bwd_dq(q, k, v, do, lse, di),
+                     *fa.flash_attention_bwd_dkv(q, k, v, do, lse, di),
+                     fd.flash_decode_attention(q[:, :1].contiguous(), cache,
+                                               cache, lens, 1,
+                                               sm_scale=0.125)]
+        return outs
+    eager = step()
+    for (q, k, v, _, _), got in zip(ins.values(), (eager[:5], eager[5:])):
+        ref, _ = flash_attention_reference(q, k, v)
+        assert got[0].dtype == q.dtype and _rel(got[0], ref) <= 2e-2
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        step()  # warm-up on the capturing stream
+        with fa.capturing(side) as k1, fd.capturing() as k2:
+            graph.capture_begin()
+            static = step()
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    assert (len(k1.launches), len(k1.bwd_dq), len(k1.bwd_dkv),
+            len(k2.launches)) == (2, 2, 2, 2)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(static, eager):
+            assert torch.equal(a, b)
+
+
+def test_fp32_attention_on_card_raises():
+    """fp32 q, k and v on the card: ``attention`` (K1's checks) and
+    ``decode_attention`` (K2's) raise TypeError before any launch; the
+    kernels take bf16 and fp16, and a CUDA tensor gets no plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    q = torch.randn((2, 96, 4, 64), generator=gen, device="cuda")
+    counts = (flash_attention_forward.launches,
+              flash_decode_attention.launches)
+    with pytest.raises(TypeError, match="bf16 or fp16"):
+        attention.attention(q, q, q)
+    cache = torch.randn((2, 2, 80, 4, 64), generator=gen, device="cuda")
+    with pytest.raises(TypeError, match="bf16 or fp16"):
+        attention.decode_attention(q[:, :1], cache, cache, 50, layer_idx=1)
+    assert (flash_attention_forward.launches,
+            flash_decode_attention.launches) == counts
+
+
+def test_fp16_refusals_still_raise():
+    """An fp16 input the kernels refuse for another reason than its type
+    raises on the card: a head dim of 96, k of another type than q, a GQA
+    group of 3, a cache of the other half type."""
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    f16 = torch.float16
+    odd = _rnd_as(gen, f16, 1, 16, 2, 96)
+    with pytest.raises(ValueError):
+        attention.attention(odd, odd, odd)
+    q = _rnd_as(gen, f16, 1, 16, 2, 64)
+    with pytest.raises(TypeError):
+        flash_attention_forward(q, q.bfloat16(), q)
+    cache = _rnd_as(gen, f16, 1, 1, 32, 1, 64)
+    lens = torch.tensor([4], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        flash_decode_attention(_rnd_as(gen, f16, 1, 1, 3, 64), cache, cache,
+                               lens, 0, sm_scale=0.125)
+    with pytest.raises(TypeError):
+        flash_decode_attention(q[:, :1].contiguous(), cache.bfloat16(),
+                               cache.bfloat16(), lens, 0, sm_scale=0.125)
+
+
+# ---------------------------------------------------------------- K10 in K5
+# K10 in the prologue of the down product's K5 streaming launch
+# (ops/decode_fused.silu_matmul) at 1-2 rows: Vicuna-7B's down product (K
+# 11,008) and its tp 2 / tp 4 row shards (5,504, 2,752), bf16 and fp16,
+# held bit-equal to K10 and then K5 on its own plan (the same streaming
+# grid), with h written out or not, in the activations' type (the dense
+# fold) and fp32 (an adapter branch, a row-split sum).  At two rows K5
+# takes the tp 4 shard on the tensor cores, and the fused launch refuses it.
+
+@pytest.mark.parametrize("keep_h", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("K", [11008, 5504, 2752])
+def test_silu_in_k5_bit_equal_to_k10_then_k5(K, M, dtype, keep_h):
+    from modelcompose_tpu_torch.ops import decode_fused as df
+    gen = torch.Generator(device="cuda").manual_seed(K + M)
+    N = 4096
+    gate = (torch.randn((M, 1, K), generator=gen, device="cuda") * 3).to(
+        dtype)
+    up = torch.randn((M, 1, K), generator=gen, device="cuda").to(dtype)
+    _, wq = _k5_inputs(gen, M, K, N, dtype)
+    assert df._silu_streams(M, K, N) == ((K, M) != (2752, 2))
+    if (K, M) == (2752, 2):
+        before = (dequant_matmul.launches, df.silu_matmul.launches)
+        assert not df.silu_fuses(gate, wq)
+        with pytest.raises(ValueError):
+            df.silu_matmul(gate, up, wq, keep_h=keep_h)
+        assert (dequant_matmul.launches, df.silu_matmul.launches) == before
+        return
+    for out in (dtype, torch.float32):
+        before = (dequant_matmul.launches, df.silu_matmul.launches,
+                  df.silu_mul.launches)
+        h, y = df.silu_matmul(gate, up, wq, out_dtype=out, keep_h=keep_h)
+        assert (dequant_matmul.launches - before[0],
+                df.silu_matmul.launches - before[1],
+                df.silu_mul.launches - before[2]) == (1, 1, 0)
+        h_ref = df.silu_mul(gate, up)  # K10
+        (y_ref,) = quant._k5(h_ref.view(M, K), [wq], out)
+        assert (h is not None) == keep_h
+        if keep_h:
+            assert torch.equal(h, h_ref)
+        assert y.dtype == out and torch.equal(y.view(M, N), y_ref)
+        assert _rel(y.view(M, N), dequant_matmul_reference(h_ref, wq, out)
+                    .view(M, N)) <= (2e-2 if out != torch.float32 else 1e-5)
+
+
+def test_silu_in_k5_replays_and_is_counted():
+    """The fused launch captured in a CapturedStep: recorded (one K5 launch,
+    one ``silu_matmul``), each replay counted and bit-equal to the eager
+    call on new inputs."""
+    from modelcompose_tpu_torch.core.decode_graph import CapturedStep
+    from modelcompose_tpu_torch.ops import decode_fused as df
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    K, N = 11008, 4096
+    gate, up = (torch.randn((1, 1, K), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    _, wq = _k5_inputs(gen, 1, K, N)
+
+    class Step(CapturedStep):
+        def _step(self):
+            return df.silu_matmul(gate, up, wq)[1]
+    graph = Step("cuda")
+    graph.run()  # eager warm-up and capture
+    assert (len(graph.k5.silu_group), len(graph.k5.launches)) == (1, 1)
+    for _ in range(2):
+        gate.copy_(torch.randn((1, 1, K), generator=gen,
+                               device="cuda").to(torch.bfloat16))
+        before = (dequant_matmul.launches, df.silu_matmul.launches)
+        got = graph.run().clone()
+        assert (dequant_matmul.launches - before[0],
+                df.silu_matmul.launches - before[1]) == (1, 1)
+        assert torch.equal(got, df.silu_matmul(gate, up, wq)[1])
+
+
+def test_silu_in_k5_raises_and_does_not_fall_back():
+    """A refused input raises before launching and leaves the counts
+    unchanged; the C entry refuses three rows, rows that are not whole
+    warps' runs and a weight of N % 16."""
+    import ctypes
+    from modelcompose_tpu_torch import _build
+    from modelcompose_tpu_torch.ops import decode_fused as df
+    gen = torch.Generator(device="cuda").manual_seed(82)
+    K, N = 2752, 4096
+    gate = torch.randn((3, 1, K), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    _, wq = _k5_inputs(gen, 3, K, N)
+    counts = (dequant_matmul.launches, df.silu_matmul.launches,
+              df.silu_mul.launches)
+    with pytest.raises(ValueError):
+        df.silu_matmul(gate, gate, wq)
+    with pytest.raises(TypeError):
+        df.silu_matmul(gate[:1].float(), gate[:1].float(), wq)
+    assert (dequant_matmul.launches, df.silu_matmul.launches,
+            df.silu_mul.launches) == counts
+    lib = _build.load("w8a16_gemv")
+    out = torch.empty((3, N), dtype=torch.float32, device="cuda")
+
+    def call(M=1, rows=2752, n=N):
+        return lib.mc_w8a16_gemv_silu(
+            gate.data_ptr(), gate.data_ptr(), None, wq["q"].data_ptr(),
+            wq["scale"].data_ptr(), out.data_ptr(), n, None, None, M, K,
+            rows, 1, 0, torch.cuda.current_stream().cuda_stream)
+    for kw in ({"M": 3}, {"rows": 100}, {"n": 4090}):
         assert call(**kw) == 1  # cudaErrorInvalidValue
     torch.cuda.synchronize()

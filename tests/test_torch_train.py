@@ -21,7 +21,10 @@
   bf16 first moments): loss and every trainable leaf within 1e-4
   relative, frozen leaves (the int8 weights and scales too) bit for bit;
 - (f) port-internal: remat equals no remat, ``loss_chunk`` equals the
-  plain loss, two B=1 micro-batches accumulated equal one B=2 batch.
+  plain loss, two B=1 micro-batches accumulated equal one B=2 batch;
+- (g) the stage-2 step in fp16 against the JAX package: gradients within
+  2e-2, and fp16 Adam's first update failing alike in both (the losses
+  NaN from the second step on).
 """
 
 import types
@@ -651,3 +654,91 @@ def test_build_model_tower_dtypes_match_jax(vision_trains):
                                                          jnp.floating)]
         assert sorted(got) == sorted(jax_dtypes), modal
         assert set(got) == {want}, modal
+
+
+# ---------------------------------------------------------------------------
+# (g) fp16
+# ---------------------------------------------------------------------------
+
+def test_fp16_train_steps_match_jax_and_fail_alike():
+    """The stage-2 step of the tiny vision model in fp16 (the reference's
+    eval dtype; it trains in bf16), from the same weights in each package:
+    the loss and every trainable gradient within the fp16 tolerance (2e-2
+    of max |grad|) of the JAX ``grad_fn``'s, then four steps with the
+    losses turning NaN at the same step in both.  Adam's second moment
+    (1e-3 g^2) underflows in fp16 and its eps (1e-8) rounds to 0, in optax
+    as in the port, so the first update sends most trained elements to
+    +-inf (0 / 0 to NaN): the non-finite elements agree but for those whose
+    moment sits at fp16's underflow edge, under 1% of them, and the
+    elements whose second moment is a normal fp16 number (elsewhere Adam
+    divides by a subnormal of a bit or two) within 2e-2."""
+    cfg = _cfg(dtype="float16")
+    nm = _jax_model(cfg, seed=4)
+    nm.params = jax.tree.map(lambda a: a.astype(np.float16)
+                             if a.dtype == np.float32 else a, nm.params)
+    tc_kw = dict(learning_rate=5e-3, mm_projector_lr=2e-3,
+                 mm_language_lr=1e-3, total_steps=10, warmup_ratio=0.0)
+    col = _collated()
+    jm = _jax_lm(nm)
+    jbatch, jlayout = jentry.make_batch(jm, col, buckets=(16,))
+    jtc = jtrainer.TrainConfig(**tc_kw)
+    jtx, _ = jtrainer.make_optimizer(cfg, jtc, {"backbone": jm.params,
+                                                "projectors": jm.projectors})
+    jstate = jtrainer.init_train_state(cfg, jtc, jm.params, jm.projectors,
+                                       tx=jtx)
+    jgrad_fn = jtrainer.make_grad_and_apply(cfg, jtc, jtx, attn_impl="pallas",
+                                            donate=False)[0]
+    jstep = jtrainer.make_train_step(cfg, jtc, jtx, attn_impl="pallas",
+                                     donate=False)
+    tm = model_from_jax(nm, device="cpu")
+    batch, layout = entry.make_batch(tm, col, buckets=(16,))
+    tc = trainer.TrainConfig(**tc_kw)
+    tx, _ = trainer.make_optimizer(_port(cfg), tc, {
+        "backbone": tm.params, "projectors": tm.projectors})
+    state = trainer.init_train_state(_port(cfg), tc, tm.params,
+                                     tm.projectors, tx=tx)
+    grad_fn = trainer.make_grad_and_apply(_port(cfg), tc, tx)[0]
+    step = trainer.make_train_step(_port(cfg), tc, tx)
+
+    jloss, jgrads = jgrad_fn(jstate.params, jbatch, jlayout)
+    loss, grads = grad_fn(state.params, batch, layout)
+    assert np.isfinite(float(loss))
+    assert abs(float(loss) - float(jloss)) <= 2e-2 * abs(float(jloss))
+    paths = [path for path, _ in trainer.tree_leaves(state.params)]
+    want = dict(zip(paths, jax.tree_util.tree_leaves(jgrads)))
+    assert len(want) == len(paths) and len(grads) == 20
+    for path, g in grads.items():
+        assert g.dtype == torch.float16, path
+        assert _rel_max(g.numpy(), want[path]) <= 2e-2, path
+
+    losses, jlosses = [], []
+    for i in range(4):
+        jstate, jl = jstep(jstate, jbatch, jlayout)
+        state, l = step(state, batch, layout)
+        losses.append(float(l))
+        jlosses.append(float(jl))
+        if i:
+            continue
+        got = dict(trainer.tree_leaves(params_to_numpy(state.params)))
+        bad = n = differ = normal = 0
+        for path, w in zip(paths, jax.tree_util.tree_leaves(jstate.params)):
+            g, w = got[path], np.asarray(w)
+            if not tx.trains(path):
+                np.testing.assert_array_equal(g, w, str(path))
+                continue
+            fin = np.isfinite(w)
+            bad += int((~fin).sum())
+            n += w.size
+            same = (g == w) | (np.isnan(g) & np.isnan(w))
+            differ += int(((np.isfinite(g) != fin) | (~fin & ~same)).sum())
+            nu = state.opt_state["nu"][path].float().numpy()
+            held = nu.reshape(w.shape) >= np.finfo(np.float16).tiny
+            normal += int(held.sum())
+            if held.any():
+                assert _rel_max(g[held], w[held]) <= 2e-2, path
+        assert bad > n // 2 and differ <= n // 100, (bad, differ, n)
+        assert normal, "no element with a normal second moment"
+    assert np.isfinite(losses[0]) and np.isfinite(jlosses[0])
+    assert abs(losses[0] - jlosses[0]) <= 2e-2 * abs(jlosses[0])
+    np.testing.assert_array_equal(np.isnan(losses), np.isnan(jlosses))
+    assert np.isnan(losses[1:]).all()
