@@ -52,40 +52,40 @@ SIGNATURES = {
         "mc_flash_attention_fwd": (
             [_P, _P, _P, _P, _P, _P, _P,  # q k v q_seg kv_seg out lse
              _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
-             _F, _I, _I, _I, _P], _I),    # sm_scale causal q_offset x_bf16
+             _F, _I, _I, _I, _P], _I),    # sm_scale causal q_offset dtype
         #                                   stream
         "mc_flash_attention_fwd_mask_all": (
             [_P, _P, _P, _P, _P, _P, _P,  # q k v q_seg kv_seg out lse
              _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
-             _F, _I, _I, _I, _P], _I),    # sm_scale causal q_offset x_bf16
+             _F, _I, _I, _I, _P], _I),    # sm_scale causal q_offset dtype
         #                                   stream
-        "mc_flash_attention_fwd_smem": ([_I], _I),  # D
+        "mc_flash_attention_fwd_smem": ([_I, _I], _I),  # D dtype
     },
     "flash_attention_bwd": {
         **{f"mc_flash_attention_bwd_dq{tail}": (
             [_P, _P, _P, _P, _P, _P,      # q k v dout lse di
              _P, _P, _P,                  # q_seg kv_seg dq
              _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
-             _F, _I, _I, _I, _P], _I)     # sm_scale causal q_offset x_bf16
+             _F, _I, _I, _I, _P], _I)     # sm_scale causal q_offset dtype
            #                                stream
            for tail in ("", "_mask_all")},
         **{f"mc_flash_attention_bwd_dkv{tail}": (
             [_P, _P, _P, _P, _P, _P,      # q k v dout lse di
              _P, _P, _P, _P,              # q_seg kv_seg dk dv
              _I, _I, _I, _I, _I, _I,      # B H Hkv Lq S D
-             _F, _I, _I, _I, _P], _I)     # sm_scale causal q_offset x_bf16
+             _F, _I, _I, _I, _P], _I)     # sm_scale causal q_offset dtype
            #                                stream
            for tail in ("", "_mask_all")},
-        "mc_flash_attention_bwd_smem": ([_I, _I], _I),  # dkv D
+        "mc_flash_attention_bwd_smem": ([_I, _I, _I], _I),  # dkv D dtype
     },
     "flash_decode": {
         "mc_flash_decode_split_len": ([], _I),
-        "mc_flash_decode_smem": ([_I, _I], _I),  # D quantized
+        "mc_flash_decode_smem": ([_I, _I, _I], _I),  # D quantized dtype
         "mc_flash_decode": (
             [_P, _P, _P, _P, _P, _P,      # q kc vc ks vs kv_len
              _P, _P, _P, _P, _P,          # part_m part_l part_acc counters out
              _I, _I, _I, _I, _I, _I,      # NL B H Hkv S D
-             _I, _I, _I,                  # layer quantized x_bf16
+             _I, _I, _I,                  # layer quantized dtype
              _F, _P], _I),                # sm_scale stream
     },
     "w8a16_gemm": {

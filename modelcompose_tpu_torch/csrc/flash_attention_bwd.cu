@@ -62,10 +62,16 @@
 // (fp16's subnormals kept, as the JAX cast keeps them) and the gradients
 // are stored in T; the scores, LSE, Di and the accumulators are fp32.
 //
+// At fp32 (a float32 model, `--bf16 False` training) kernels of their own,
+// fa_bwd_dq_f32_kernel and fa_bwd_dkv_f32_kernel below, compute the same
+// functions with every product in 3xTF32 and P and dS kept fp32; the C
+// entries pick them by the dtype code.
+//
 // Layouts (the JAX package's public layout): q, dO [B, Lq, H, D];
-// k, v [B, S, Hkv, D], all of type T and contiguous; LSE, Di fp32
-// [B, H, Lq]; segment ids int32 [B, Lq] / [B, S]; dq [B, Lq, H, D], dk/dv
-// [B, S, Hkv, D] T.  GQA: kv head = h / (H / Hkv).  D in {64, 128}.
+// k, v [B, S, Hkv, D], all of type T (bf16, fp16 or fp32) and
+// contiguous; LSE, Di fp32 [B, H, Lq]; segment ids int32 [B, Lq] /
+// [B, S]; dq [B, Lq, H, D], dk/dv [B, S, Hkv, D] T.  GQA: kv head =
+// h / (H / Hkv).  D in {64, 128}.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -75,6 +81,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -866,11 +873,297 @@ fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------------------------- fp32
+// The fp32 instantiations: K3 and K4 at fp32 operands, as the JAX kernels
+// compute them (dots at fp32 with fp32 accumulation, _gemm2_cast the
+// identity: P and dS stay fp32 in the second products).  Every product is
+// 3xTF32 on the tensor cores through mma.sync (csrc/tf32x3.cuh): wgmma's
+// tf32 form takes no transposed operand, and dS.K, P^T.dO and dS^T.Q read
+// their streamed tile along its rows.  Simple first, as K1's fp32 kernel:
+// eight warps of 16 rows a block, no warp specialization, no TMA; the
+// block's own 128 rows (and their two tiles) are loaded once and the other
+// side streams in 32-row tiles through two stages of cp.async; every
+// element goes through the mask (`mask_all` changes nothing).  Bounded by
+// operations: three tf32 products for each fp32 one.
+// K3: one block per (128-row q tile, q head, batch row): S = Q K^T and
+// dP = dO V^T per kv tile, dS in registers, dQ += dS K.
+// K4: one block per (128-row kv tile, kv head, batch row): S^T = K Q^T and
+// dP^T = V dO^T per q tile of every q head of the GQA group (from the
+// first that can see the block's rows), dV += P^T dO and dK += dS^T Q, the
+// group summed in the fp32 accumulators.
+constexpr int kRowsF32 = 128;  // the block's own rows: eight warps of 16
+constexpr int kTileF32 = 32;   // rows of a streamed tile
+constexpr int kThreadsF32 = 256;
+
+// Shared memory of the fp32 blocks, in bytes: row-major fp32 tiles of row
+// stride D + 4 (tf32x3.cuh).  The block's own two tiles (K3: Q, dO; K4: K,
+// V), then two stages of the two streamed tiles (K3: K, V; K4: Q, dO) with
+// their rows' segment ids (and for K4 the LSE, scaled by log2(e), and Di).
+template <int D>
+struct SmemF32 {
+  static constexpr int kLd = tf32x3::stride<D>();
+  static constexpr int kOwn = kRowsF32 * kLd * 4;
+  static constexpr int kTile = kTileF32 * kLd * 4;
+  static constexpr int kA = 0;
+  static constexpr int kB = kA + kOwn;
+  static constexpr int kS0 = kB + kOwn;         // [2 stages]
+  static constexpr int kS1 = kS0 + 2 * kTile;   // [2 stages]
+  static constexpr int kSeg = kS1 + 2 * kTile;  // int [2][kTileF32]
+  static constexpr int kLse = kSeg + 2 * kTileF32 * 4;  // float [2][kTileF32]
+  static constexpr int kDi = kLse + 2 * kTileF32 * 4;   // float [2][kTileF32]
+  static constexpr int kBytes = kDi + 2 * kTileF32 * 4;
+};
+static_assert(SmemF32<128>::kBytes <= 232448, "one fp32 block fits an SM");
+
+// Rows r0 and r0 + 8 of this warp's 16 x D accumulator into head `head` of
+// a [B][L][heads][D] fp32 tensor, rows past L dropped.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* out,
+                                               const float (&acc)[D / 8][4],
+                                               int b, int L, int heads,
+                                               int head, int r0, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= L) continue;
+    float* row = out + (((long)b * L + r) * heads + head) * D + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<float2*>(row + dt * 8) =
+          make_float2(acc[dt][2 * half], acc[dt][2 * half + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32, 1)
+fa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ di,
+                     const int* __restrict__ q_seg,
+                     const int* __restrict__ kv_seg, float* __restrict__ dq,
+                     int H, int Hkv, int Lq, int S, float sm_scale,
+                     float scale_log2, int causal, int q_offset,
+                     int n_qtiles) {
+  using L = SmemF32<D>;
+  constexpr int BN = kTileF32;
+  extern __shared__ __align__(16) uint8_t smem_f32[];
+  const uint32_t sbase = smem_addr(smem_f32);
+  const uint8_t* smem = smem_f32;
+  auto tile = [=](int off) {
+    return reinterpret_cast<const float*>(smem + off);
+  };
+  int* sSeg = reinterpret_cast<int*>(smem_f32 + L::kSeg);
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (n_qtiles - 1 - static_cast<int>(blockIdx.z)) * kRowsF32;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  int n_tiles = (S + BN - 1) / BN;
+  if (causal) n_tiles = min(n_tiles, (q_offset + q0 + kRowsF32 - 1) / BN + 1);
+
+  auto load_tile = [&](int j) {  // K, V and kv segment ids into stage j % 2
+    const int s = j & 1, k0 = j * BN;
+    tf32x3::load_rows<BN, D>(sbase + L::kS0 + s * L::kTile, k, b, S, Hkv, hk,
+                             k0, tid, kThreadsF32);
+    tf32x3::load_rows<BN, D>(sbase + L::kS1 + s * L::kTile, v, b, S, Hkv, hk,
+                             k0, tid, kThreadsF32);
+    for (int i = tid; i < BN; i += kThreadsF32)
+      sSeg[s * BN + i] = k0 + i < S ? kv_seg[(long)b * S + k0 + i] : 0;
+  };
+  tf32x3::load_rows<kRowsF32, D>(sbase + L::kA, q, b, Lq, H, h, q0, tid,
+                                 kThreadsF32);
+  tf32x3::load_rows<kRowsF32, D>(sbase + L::kB, dout, b, Lq, H, h, q0, tid,
+                                 kThreadsF32);
+  load_tile(0);
+  tf32x3::cp_async_commit();
+
+  const int r0 = q0 + warp * 16 + g;
+  const int r1 = r0 + 8;
+  const long row_base = ((long)b * H + h) * Lq;
+  const int seg0 = r0 < Lq ? q_seg[(long)b * Lq + r0] : 0;
+  const int seg1 = r1 < Lq ? q_seg[(long)b * Lq + r1] : 0;
+  const float lse0 = r0 < Lq ? lse[row_base + r0] * kLog2e : 0.f;
+  const float lse1 = r1 < Lq ? lse[row_base + r1] * kLog2e : 0.f;
+  const float di0 = r0 < Lq ? di[row_base + r0] : 0.f;
+  const float di1 = r1 < Lq ? di[row_base + r1] : 0.f;
+  const int pos0 = q_offset + r0, pos1 = q_offset + r1;
+
+  float acc[D / 8][4];
+  tf32x3::zero(acc);
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      load_tile(j + 1);
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int s = j & 1, k0 = j * BN;
+    const float* sK = tile(L::kS0 + s * L::kTile);
+    const float* sV = tile(L::kS1 + s * L::kTile);
+    const int* seg = sSeg + s * BN;
+    float sc[BN / 8][4], dp[BN / 8][4];
+    tf32x3::scores<D>(sc, tile(L::kA), warp * 16, sK, g, t);   // S = Q K^T
+    tf32x3::scores<D>(dp, tile(L::kB), warp * 16, sV, g, t);   // dP = dO V^T
+    // P = where(mask, exp2(S scale log2(e) - LSE log2(e)), 0), then
+    // dS = P (dP - Di) scale into sc
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nt * 8 + 2 * t + e;
+        const int kseg = seg[col];
+        const int kpos = k0 + col;
+        const bool ok0 =
+            kseg != 0 && kseg == seg0 && (!causal || pos0 >= kpos);
+        const bool ok1 =
+            kseg != 0 && kseg == seg1 && (!causal || pos1 >= kpos);
+        const float p0 = ok0 ? exp2f(sc[nt][e] * scale_log2 - lse0) : 0.f;
+        const float p1 =
+            ok1 ? exp2f(sc[nt][2 + e] * scale_log2 - lse1) : 0.f;
+        sc[nt][e] = p0 * (dp[nt][e] - di0) * sm_scale;
+        sc[nt][2 + e] = p1 * (dp[nt][2 + e] - di1) * sm_scale;
+      }
+    }
+    tf32x3::accumulate<D, BN / 8, 8>(acc, sc, sK, g, t);  // dQ += dS K
+    __syncthreads();  // stage s is free for tile j + 2
+  }
+  store_rows_f32<D>(dq, acc, b, Lq, H, h, r0, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32, 1)
+fa_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ di,
+                      const int* __restrict__ q_seg,
+                      const int* __restrict__ kv_seg, float* __restrict__ dk,
+                      float* __restrict__ dv, int H, int Hkv, int Lq, int S,
+                      float sm_scale, float scale_log2, int causal,
+                      int q_offset) {
+  using L = SmemF32<D>;
+  constexpr int BQ = kTileF32;
+  extern __shared__ __align__(16) uint8_t smem_f32[];
+  const uint32_t sbase = smem_addr(smem_f32);
+  const uint8_t* smem = smem_f32;
+  auto tile = [=](int off) {
+    return reinterpret_cast<const float*>(smem + off);
+  };
+  int* sSeg = reinterpret_cast<int*>(smem_f32 + L::kSeg);
+  float* sLse = reinterpret_cast<float*>(smem_f32 + L::kLse);
+  float* sDi = reinterpret_cast<float*>(smem_f32 + L::kDi);
+
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  // kv tile 0 is seen by every q row (causal): the heaviest blocks first
+  const int k0 = static_cast<int>(blockIdx.z) * kRowsF32;
+  const int group = H / Hkv;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  const int n_qtiles = (Lq + BQ - 1) / BQ;
+  // first q tile whose last row can see kv row k0 (causal):
+  // q_offset + q0 + BQ - 1 >= k0
+  const int first = causal ? min(max(k0 - q_offset, 0) / BQ, n_qtiles) : 0;
+  const int per_head = n_qtiles - first;
+  const int n_items = group * per_head;
+
+  // q tile `first + i % per_head` of q head `hk group + i / per_head`:
+  // Q, dO, and its rows' segment ids, LSE (log2 units) and Di, into
+  // stage i % 2
+  auto load_tile = [&](int i) {
+    const int s = i & 1;
+    const int hq = hk * group + i / per_head;
+    const int q0 = (first + i % per_head) * BQ;
+    tf32x3::load_rows<BQ, D>(sbase + L::kS0 + s * L::kTile, q, b, Lq, H, hq,
+                             q0, tid, kThreadsF32);
+    tf32x3::load_rows<BQ, D>(sbase + L::kS1 + s * L::kTile, dout, b, Lq, H,
+                             hq, q0, tid, kThreadsF32);
+    for (int r = tid; r < BQ; r += kThreadsF32) {
+      const bool in = q0 + r < Lq;
+      const long row = ((long)b * H + hq) * Lq + q0 + r;
+      sSeg[s * BQ + r] = in ? q_seg[(long)b * Lq + q0 + r] : 0;
+      sLse[s * BQ + r] = in ? lse[row] * kLog2e : 0.f;
+      sDi[s * BQ + r] = in ? di[row] : 0.f;
+    }
+  };
+  tf32x3::load_rows<kRowsF32, D>(sbase + L::kA, k, b, S, Hkv, hk, k0, tid,
+                                 kThreadsF32);
+  tf32x3::load_rows<kRowsF32, D>(sbase + L::kB, v, b, S, Hkv, hk, k0, tid,
+                                 kThreadsF32);
+  if (n_items > 0) load_tile(0);
+  tf32x3::cp_async_commit();
+
+  const int r0 = k0 + warp * 16 + g;  // this thread's kv rows
+  const int r1 = r0 + 8;
+  const int kseg0 = r0 < S ? kv_seg[(long)b * S + r0] : 0;
+  const int kseg1 = r1 < S ? kv_seg[(long)b * S + r1] : 0;
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+  tf32x3::zero(acc_k);
+  tf32x3::zero(acc_v);
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) {
+      load_tile(i + 1);
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int s = i & 1;
+    const int q0 = (first + i % per_head) * BQ;
+    const float* sQ = tile(L::kS0 + s * L::kTile);
+    const float* sDO = tile(L::kS1 + s * L::kTile);
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+    tf32x3::scores<D>(st, tile(L::kA), warp * 16, sQ, g, t);   // S^T = K Q^T
+    tf32x3::scores<D>(dpt, tile(L::kB), warp * 16, sDO, g, t); // dP^T = V dO^T
+    // P^T into st, dS^T into dpt (columns are q rows)
+#pragma unroll
+    for (int nt = 0; nt < BQ / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nt * 8 + 2 * t + e;
+        const int qseg = sSeg[s * BQ + col];
+        const int qpos = q_offset + q0 + col;
+        const float ls = sLse[s * BQ + col], d_i = sDi[s * BQ + col];
+        const bool ok0 =
+            kseg0 != 0 && qseg == kseg0 && (!causal || qpos >= r0);
+        const bool ok1 =
+            kseg1 != 0 && qseg == kseg1 && (!causal || qpos >= r1);
+        const float p0 = ok0 ? exp2f(st[nt][e] * scale_log2 - ls) : 0.f;
+        const float p1 = ok1 ? exp2f(st[nt][2 + e] * scale_log2 - ls) : 0.f;
+        st[nt][e] = p0;
+        st[nt][2 + e] = p1;
+        dpt[nt][e] = p0 * (dpt[nt][e] - d_i) * sm_scale;
+        dpt[nt][2 + e] = p1 * (dpt[nt][2 + e] - d_i) * sm_scale;
+      }
+    }
+    tf32x3::accumulate<D, BQ / 8, 4>(acc_v, st, sDO, g, t);  // dV += P^T dO
+    tf32x3::accumulate<D, BQ / 8, 4>(acc_k, dpt, sQ, g, t);  // dK += dS^T Q
+    __syncthreads();  // stage s is free for item i + 2
+  }
+  if (n_items == 0) tf32x3::cp_async_wait<0>();
+  store_rows_f32<D>(dk, acc_k, b, S, Hkv, hk, r0, t);
+  store_rows_f32<D>(dv, acc_v, b, S, Hkv, hk, r0, t);
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *di, *q_seg, *kv_seg;
   int B, H, Hkv, Lq, S;
   float sm_scale;
-  int causal, q_offset, mask_all, x_bf16;
+  int causal, q_offset, mask_all, dtype;
   cudaStream_t stream;
 };
 
@@ -942,6 +1235,51 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_f32(const Args& a, void* dq) {
+  constexpr int smem = SmemF32<D>::kBytes;
+  static bool attribute_set = false;  // once per instantiation
+  if (!attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_bwd_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  const int n_qtiles = (a.Lq + kRowsF32 - 1) / kRowsF32;
+  dim3 grid(a.H, a.B, n_qtiles);
+  fa_bwd_dq_f32_kernel<D><<<grid, kThreadsF32, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<const int*>(a.q_seg), static_cast<const int*>(a.kv_seg),
+      static_cast<float*>(dq), a.H, a.Hkv, a.Lq, a.S, a.sm_scale,
+      a.sm_scale * kLog2e, a.causal, a.q_offset, n_qtiles);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
+  constexpr int smem = SmemF32<D>::kBytes;
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_bwd_dkv_f32_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  dim3 grid(a.Hkv, a.B, (a.S + kRowsF32 - 1) / kRowsF32);
+  fa_bwd_dkv_f32_kernel<D><<<grid, kThreadsF32, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<const int*>(a.q_seg), static_cast<const int*>(a.kv_seg),
+      static_cast<float*>(dk), static_cast<float*>(dv), a.H, a.Hkv, a.Lq,
+      a.S, a.sm_scale, a.sm_scale * kLog2e, a.causal, a.q_offset);
+  return cudaGetLastError();
+}
+
 bool valid(int B, int H, int Hkv, int Lq, int S, int q_offset) {
   return B > 0 && H > 0 && Hkv > 0 && H % Hkv == 0 && Lq > 0 && S > 0 &&
          B <= 65535 && q_offset >= 0 && (Lq + kRows - 1) / kRows <= 65535 &&
@@ -952,36 +1290,49 @@ int dq_entry(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* di, const void* q_seg,
              const void* kv_seg, void* dq, int B, int H, int Hkv, int Lq,
              int S, int D, float sm_scale, int causal, int q_offset,
-             int mask_all, int x_bf16, void* stream) {
-  if (!valid(B, H, Hkv, Lq, S, q_offset)) return cudaErrorInvalidValue;
+             int mask_all, int dtype, void* stream) {
+  if (!valid(B, H, Hkv, Lq, S, q_offset) || (D != 64 && D != 128))
+    return cudaErrorInvalidValue;
   const Args a{q, k, v, dout, lse, di, q_seg, kv_seg, B, H, Hkv, Lq, S,
-               sm_scale, causal, q_offset, mask_all, x_bf16,
+               sm_scale, causal, q_offset, mask_all, dtype,
                static_cast<cudaStream_t>(stream)};
-  if (D == 128)
-    return a.x_bf16 ? launch_dq<__nv_bfloat16, 128>(a, dq)
-                    : launch_dq<__half, 128>(a, dq);
-  if (D == 64)
-    return a.x_bf16 ? launch_dq<__nv_bfloat16, 64>(a, dq)
-                    : launch_dq<__half, 64>(a, dq);
-  return cudaErrorInvalidValue;
+  switch (dtype) {
+    case kBfloat16:
+      return D == 128 ? launch_dq<__nv_bfloat16, 128>(a, dq)
+                      : launch_dq<__nv_bfloat16, 64>(a, dq);
+    case kFloat16:
+      return D == 128 ? launch_dq<__half, 128>(a, dq)
+                      : launch_dq<__half, 64>(a, dq);
+    case kFloat32:
+      return D == 128 ? launch_dq_f32<128>(a, dq) : launch_dq_f32<64>(a, dq);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* di, const void* q_seg,
               const void* kv_seg, void* dk, void* dv, int B, int H, int Hkv,
               int Lq, int S, int D, float sm_scale, int causal, int q_offset,
-              int mask_all, int x_bf16, void* stream) {
-  if (!valid(B, H, Hkv, Lq, S, q_offset)) return cudaErrorInvalidValue;
+              int mask_all, int dtype, void* stream) {
+  if (!valid(B, H, Hkv, Lq, S, q_offset) || (D != 64 && D != 128))
+    return cudaErrorInvalidValue;
   const Args a{q, k, v, dout, lse, di, q_seg, kv_seg, B, H, Hkv, Lq, S,
-               sm_scale, causal, q_offset, mask_all, x_bf16,
+               sm_scale, causal, q_offset, mask_all, dtype,
                static_cast<cudaStream_t>(stream)};
-  if (D == 128)
-    return a.x_bf16 ? launch_dkv<__nv_bfloat16, 128>(a, dk, dv)
-                    : launch_dkv<__half, 128>(a, dk, dv);
-  if (D == 64)
-    return a.x_bf16 ? launch_dkv<__nv_bfloat16, 64>(a, dk, dv)
-                    : launch_dkv<__half, 64>(a, dk, dv);
-  return cudaErrorInvalidValue;
+  switch (dtype) {
+    case kBfloat16:
+      return D == 128 ? launch_dkv<__nv_bfloat16, 128>(a, dk, dv)
+                      : launch_dkv<__nv_bfloat16, 64>(a, dk, dv);
+    case kFloat16:
+      return D == 128 ? launch_dkv<__half, 128>(a, dk, dv)
+                      : launch_dkv<__half, 64>(a, dk, dv);
+    case kFloat32:
+      return D == 128 ? launch_dkv_f32<128>(a, dk, dv)
+                      : launch_dkv_f32<64>(a, dk, dv);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -990,18 +1341,18 @@ extern "C" int mc_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, const void* q_seg, const void* kv_seg,
     void* dq, int B, int H, int Hkv, int Lq, int S, int D, float sm_scale,
-    int causal, int q_offset, int x_bf16, void* stream) {
+    int causal, int q_offset, int dtype, void* stream) {
   return dq_entry(q, k, v, dout, lse, di, q_seg, kv_seg, dq, B, H, Hkv, Lq,
-                  S, D, sm_scale, causal, q_offset, 0, x_bf16, stream);
+                  S, D, sm_scale, causal, q_offset, 0, dtype, stream);
 }
 
 extern "C" int mc_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, const void* q_seg, const void* kv_seg,
     void* dk, void* dv, int B, int H, int Hkv, int Lq, int S, int D,
-    float sm_scale, int causal, int q_offset, int x_bf16, void* stream) {
+    float sm_scale, int causal, int q_offset, int dtype, void* stream) {
   return dkv_entry(q, k, v, dout, lse, di, q_seg, kv_seg, dk, dv, B, H, Hkv,
-                   Lq, S, D, sm_scale, causal, q_offset, 0, x_bf16, stream);
+                   Lq, S, D, sm_scale, causal, q_offset, 0, dtype, stream);
 }
 
 // The same with every tile through the per-element mask: the fast-path
@@ -1010,23 +1361,25 @@ extern "C" int mc_flash_attention_bwd_dq_mask_all(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, const void* q_seg, const void* kv_seg,
     void* dq, int B, int H, int Hkv, int Lq, int S, int D, float sm_scale,
-    int causal, int q_offset, int x_bf16, void* stream) {
+    int causal, int q_offset, int dtype, void* stream) {
   return dq_entry(q, k, v, dout, lse, di, q_seg, kv_seg, dq, B, H, Hkv, Lq,
-                  S, D, sm_scale, causal, q_offset, 1, x_bf16, stream);
+                  S, D, sm_scale, causal, q_offset, 1, dtype, stream);
 }
 
 extern "C" int mc_flash_attention_bwd_dkv_mask_all(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, const void* q_seg, const void* kv_seg,
     void* dk, void* dv, int B, int H, int Hkv, int Lq, int S, int D,
-    float sm_scale, int causal, int q_offset, int x_bf16, void* stream) {
+    float sm_scale, int causal, int q_offset, int dtype, void* stream) {
   return dkv_entry(q, k, v, dout, lse, di, q_seg, kv_seg, dk, dv, B, H, Hkv,
-                   Lq, S, D, sm_scale, causal, q_offset, 1, x_bf16, stream);
+                   Lq, S, D, sm_scale, causal, q_offset, 1, dtype, stream);
 }
 
-// Dynamic shared memory of one block (bytes) of K3 (dkv = 0) or K4, for
-// the build report.
-extern "C" int mc_flash_attention_bwd_smem(int dkv, int D) {
+// Dynamic shared memory of one block (bytes) of K3 (dkv = 0) or K4 at
+// `dtype`, for the build report.
+extern "C" int mc_flash_attention_bwd_smem(int dkv, int D, int dtype) {
+  if (dtype == kFloat32)
+    return D == 128 ? SmemF32<128>::kBytes : SmemF32<64>::kBytes;
   if (dkv) return D == 128 ? SmemDkv<128>::kAlloc : SmemDkv<64>::kAlloc;
   return D == 128 ? SmemDq<128>::kAlloc : SmemDq<64>::kAlloc;
 }

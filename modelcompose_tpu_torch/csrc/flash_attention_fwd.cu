@@ -44,10 +44,15 @@
 // exponent touches only P (in [0, 1], so below 6.1e-5 it is subnormal,
 // never out of range) and O (a convex mix of V's rows).
 //
+// At fp32 (a float32 model, `--bf16 False` training) a kernel of its own,
+// fa_fwd_f32_kernel below, computes the same function with both products
+// in 3xTF32 and P kept fp32; the C entries pick it by the dtype code.
+//
 // Layouts (the JAX package's public layout, no padding, no lifted
-// segment ids): q [B, Lq, H, D], k/v [B, S, Hkv, D], all of type T and
-// contiguous; segment ids int32 [B, Lq] / [B, S]; out [B, Lq, H, D] T;
-// lse [B, H, Lq] fp32.  GQA: kv head = h / (H / Hkv).  D in {64, 128}.
+// segment ids): q [B, Lq, H, D], k/v [B, S, Hkv, D], all of type T (bf16,
+// fp16 or fp32) and contiguous; segment ids int32 [B, Lq] / [B, S]; out
+// [B, Lq, H, D] T; lse [B, H, Lq] fp32.  GQA: kv head = h / (H / Hkv).
+// D in {64, 128}.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -57,6 +62,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -423,11 +429,213 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------- fp32
+// The fp32 instantiation: the same function at fp32 operands, as the JAX
+// kernel computes it (its dots at fp32 with fp32 accumulation, and
+// _gemm2_cast the identity, so P stays fp32 for P.V).  Both products are
+// 3xTF32 on the tensor cores through mma.sync (csrc/tf32x3.cuh): wgmma's
+// tf32 form takes no transposed V.  Simple first: one block per (128-row q
+// tile, head, batch row), eight warps of 16 rows, each warp its rows'
+// whole online softmax in registers (no warp specialization, no TMA); Q is
+// loaded once and K/V (with the tile's kv segment ids) pass through two
+// stages of cp.async, the next tile's copies in flight during this one's
+// math; every element goes through the mask (`mask_all` changes nothing).
+// Bounded by operations: three tf32 products for each fp32 one.
+constexpr int kRowsF32 = 128;  // q rows per block: eight warps of 16
+constexpr int kColsF32 = 64;   // kv rows per tile
+constexpr int kThreadsF32 = 256;
+
+// Shared memory of the fp32 block, in bytes: row-major fp32 tiles of row
+// stride D + 4 (tf32x3.cuh), Q, then two stages of K, V and segment ids.
+template <int D>
+struct SmemF32 {
+  static constexpr int kLd = tf32x3::stride<D>();
+  static constexpr int kTile = kColsF32 * kLd * 4;  // one K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kRowsF32 * kLd * 4;
+  static constexpr int kV = kK + 2 * kTile;
+  static constexpr int kSeg = kV + 2 * kTile;  // int [2][kColsF32]
+  static constexpr int kBytes = kSeg + 2 * kColsF32 * 4;
+};
+static_assert(SmemF32<128>::kBytes <= 232448, "one fp32 block fits an SM");
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32, 1)
+fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const int* __restrict__ q_seg,
+                  const int* __restrict__ kv_seg, float* __restrict__ out,
+                  float* __restrict__ lse, int H, int Hkv, int Lq, int S,
+                  float scale_log2, int causal, int q_offset, int n_qtiles) {
+  using L = SmemF32<D>;
+  constexpr int BN = kColsF32;
+  extern __shared__ __align__(16) uint8_t smem_f32[];
+  const uint32_t sbase = smem_addr(smem_f32);
+  const float* sQ = reinterpret_cast<const float*>(smem_f32 + L::kQ);
+  int* sSeg = reinterpret_cast<int*>(smem_f32 + L::kSeg);
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (n_qtiles - 1 - static_cast<int>(blockIdx.z)) * kRowsF32;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  int n_tiles = (S + BN - 1) / BN;
+  if (causal) n_tiles = min(n_tiles, (q_offset + q0 + kRowsF32 - 1) / BN + 1);
+
+  // kv tile j (K, V and its segment ids) into stage j % 2
+  auto load_tile = [&](int j) {
+    const int s = j & 1, k0 = j * BN;
+    tf32x3::load_rows<BN, D>(sbase + L::kK + s * L::kTile, k, b, S, Hkv, hk,
+                             k0, tid, kThreadsF32);
+    tf32x3::load_rows<BN, D>(sbase + L::kV + s * L::kTile, v, b, S, Hkv, hk,
+                             k0, tid, kThreadsF32);
+    for (int i = tid; i < BN; i += kThreadsF32)
+      sSeg[s * BN + i] = k0 + i < S ? kv_seg[(long)b * S + k0 + i] : 0;
+  };
+  tf32x3::load_rows<kRowsF32, D>(sbase + L::kQ, q, b, Lq, H, h, q0, tid,
+                                 kThreadsF32);
+  load_tile(0);
+  tf32x3::cp_async_commit();
+
+  const int r0 = q0 + warp * 16 + g;
+  const int r1 = r0 + 8;
+  const int seg0 = r0 < Lq ? q_seg[(long)b * Lq + r0] : 0;
+  const int seg1 = r1 < Lq ? q_seg[(long)b * Lq + r1] : 0;
+  const int pos0 = q_offset + r0, pos1 = q_offset + r1;
+
+  float o[D / 8][4];
+  tf32x3::zero(o);
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      load_tile(j + 1);
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j (and Q) visible to every warp
+    const int s = j & 1, k0 = j * BN;
+    const float* sK = reinterpret_cast<const float*>(smem_f32 + L::kK +
+                                                     s * L::kTile);
+    const float* sV = reinterpret_cast<const float*>(smem_f32 + L::kV +
+                                                     s * L::kTile);
+    const int* seg = sSeg + s * BN;
+
+    // S = Q K^T, 16 x BN per warp
+    float sc[BN / 8][4];
+    tf32x3::scores<D>(sc, sQ, warp * 16, sK, g, t);
+
+    // mask and scale (log2 units), then the online softmax: sc becomes P
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nt * 8 + 2 * t + e;
+        const int kseg = seg[col];
+        const int kpos = k0 + col;
+        const bool ok0 =
+            kseg != 0 && kseg == seg0 && (!causal || pos0 >= kpos);
+        const bool ok1 =
+            kseg != 0 && kseg == seg1 && (!causal || pos1 >= kpos);
+        sc[nt][e] = ok0 ? sc[nt][e] * scale_log2 : kNegInf;
+        sc[nt][2 + e] = ok1 ? sc[nt][2 + e] * scale_log2 : kNegInf;
+        mx0 = fmaxf(mx0, sc[nt][e]);
+        mx1 = fmaxf(mx1, sc[nt][2 + e]);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      sc[nt][0] = exp2f(sc[nt][0] - mn0);
+      sc[nt][1] = exp2f(sc[nt][1] - mn0);
+      sc[nt][2] = exp2f(sc[nt][2] - mn1);
+      sc[nt][3] = exp2f(sc[nt][3] - mn1);
+      rs0 += sc[nt][0] + sc[nt][1];
+      rs1 += sc[nt][2] + sc[nt][3];
+    }
+    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      o[dt][0] *= a0;
+      o[dt][1] *= a0;
+      o[dt][2] *= a1;
+      o[dt][3] *= a1;
+    }
+
+    // O += P V, P in fp32 (the JAX kernel's _gemm2_cast is the identity)
+    tf32x3::accumulate<D, BN / 8, 8>(o, sc, sV, g, t);
+    __syncthreads();  // stage s is free for tile j + 2
+  }
+
+  const float sl0 = l0 == 0.f ? 1.f : l0;
+  const float sl1 = l1 == 0.f ? 1.f : l1;
+  const float inv0 = 1.f / sl0, inv1 = 1.f / sl1;
+  const long q_stride = (long)H * D;
+  float* ob = out + (long)b * Lq * q_stride + (long)h * D;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int c = dt * 8 + 2 * t;
+    if (r0 < Lq)
+      *reinterpret_cast<float2*>(ob + r0 * q_stride + c) =
+          make_float2(o[dt][0] * inv0, o[dt][1] * inv0);
+    if (r1 < Lq)
+      *reinterpret_cast<float2*>(ob + r1 * q_stride + c) =
+          make_float2(o[dt][2] * inv1, o[dt][3] * inv1);
+  }
+  if (t == 0) {
+    float* lb = lse + ((long)b * H + h) * Lq;
+    if (r0 < Lq)
+      lb[r0] = (m0 == kNegInf ? kNegInf : m0 * kLn2) + logf(sl0);
+    if (r1 < Lq)
+      lb[r1] = (m1 == kNegInf ? kNegInf : m1 * kLn2) + logf(sl1);
+  }
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* q_seg, const void* kv_seg, void* out,
+                       void* lse, int B, int H, int Hkv, int Lq, int S,
+                       float sm_scale, int causal, int q_offset,
+                       cudaStream_t stream) {
+  constexpr int smem = SmemF32<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const int n_qtiles = (Lq + kRowsF32 - 1) / kRowsF32;
+  dim3 grid(H, B, n_qtiles);
+  fa_fwd_f32_kernel<D><<<grid, kThreadsF32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(q_seg),
+      static_cast<const int*>(kv_seg), static_cast<float*>(out),
+      static_cast<float*>(lse), H, Hkv, Lq, S, sm_scale * kLog2e, causal,
+      q_offset, n_qtiles);
+  return cudaGetLastError();
+}
+
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* q_seg, const void* kv_seg, void* out,
                      void* lse, int B, int H, int Hkv, int Lq, int S, int D,
                      float sm_scale, int causal, int q_offset, int mask_all,
-                     int x_bf16, void* stream) {
+                     int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Lq <= 0 || S <= 0 ||
       B > 65535 || q_offset < 0 || (Lq + kBlockM - 1) / kBlockM > 65535)
     return cudaErrorInvalidValue;
@@ -442,7 +650,22 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                            S, sm_scale, causal, q_offset, mask_all, s);
     return cudaErrorInvalidValue;
   };
-  return x_bf16 ? run(__nv_bfloat16()) : run(__half());
+  switch (dtype) {
+    case kBfloat16:
+      return run(__nv_bfloat16());
+    case kFloat16:
+      return run(__half());
+    case kFloat32:
+      if (D == 128)
+        return launch_f32<128>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv,
+                               Lq, S, sm_scale, causal, q_offset, s);
+      if (D == 64)
+        return launch_f32<64>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv,
+                              Lq, S, sm_scale, causal, q_offset, s);
+      return cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -452,10 +675,10 @@ extern "C" int mc_flash_attention_fwd(const void* q, const void* k,
                                       const void* kv_seg, void* out,
                                       void* lse, int B, int H, int Hkv,
                                       int Lq, int S, int D, float sm_scale,
-                                      int causal, int q_offset, int x_bf16,
+                                      int causal, int q_offset, int dtype,
                                       void* stream) {
   return dispatch(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq, S, D,
-                  sm_scale, causal, q_offset, 0, x_bf16, stream);
+                  sm_scale, causal, q_offset, 0, dtype, stream);
 }
 
 // The same with every kv tile through the per-element mask: the fast-path
@@ -463,13 +686,16 @@ extern "C" int mc_flash_attention_fwd(const void* q, const void* k,
 extern "C" int mc_flash_attention_fwd_mask_all(
     const void* q, const void* k, const void* v, const void* q_seg,
     const void* kv_seg, void* out, void* lse, int B, int H, int Hkv, int Lq,
-    int S, int D, float sm_scale, int causal, int q_offset, int x_bf16,
+    int S, int D, float sm_scale, int causal, int q_offset, int dtype,
     void* stream) {
   return dispatch(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv, Lq, S, D,
-                  sm_scale, causal, q_offset, 1, x_bf16, stream);
+                  sm_scale, causal, q_offset, 1, dtype, stream);
 }
 
-// Dynamic shared memory of one block (bytes), for the build report.
-extern "C" int mc_flash_attention_fwd_smem(int D) {
+// Dynamic shared memory of one block (bytes) at `dtype`, for the build
+// report.
+extern "C" int mc_flash_attention_fwd_smem(int D, int dtype) {
+  if (dtype == kFloat32)
+    return D == 128 ? SmemF32<128>::kBytes : SmemF32<64>::kBytes;
   return D == 128 ? Smem<128>::kAlloc : Smem<64>::kAlloc;
 }

@@ -45,9 +45,11 @@
 // `layer` is an offset into the stacked cache, so no per-layer slice is
 // ever materialized, and any S is taken.
 //
-// q and out are of the model's type QT, bf16 or fp16; the cache is of
-// QT too, or int8.  Everything inside is fp32, as in the JAX kernel (which
-// upcasts q, k and v): only the loads and the one store convert.
+// q and out are of the model's type QT, bf16, fp16 or fp32; the cache is
+// of QT too, or int8.  Everything inside is fp32, as in the JAX kernel
+// (which upcasts q, k and v): only the loads and the one store convert.
+// At fp32 a 16-byte load holds 4 elements (a K row is 32 lanes' loads at
+// D = 128, one row a warp step) and the block's cache tiles take 128 KB.
 //
 // Layouts: q [B, H, D] QT; caches [NL, B, S, Hkv, D] QT, or int8 with
 // fp32 scales [NL, B, S, Hkv] (the trailing 1 of [..., Hkv, 1] dropped);
@@ -85,14 +87,18 @@ __host__ __device__ constexpr bool is_int8() {
   return std::is_same<T, int8_t>::value;
 }
 
-// A bf16 or fp16 value as fp32, and fp32 rounded to one (nearest even).
+// A bf16, fp16 or fp32 value as fp32, and fp32 rounded to one (nearest
+// even).
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
 template <typename T>
 __device__ __forceinline__ T from_f(float f) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+  if constexpr (std::is_same<T, float>::value)
+    return f;
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
     return __float2bfloat16_rn(f);
   else
     return __float2half_rn(f);
@@ -110,11 +116,17 @@ __device__ __forceinline__ void cvt2(uint32_t w, float* f) {
   f[1] = x.y;
 }
 
-// Sixteen bytes of a cache row as fp32 (16 int8, or 8 bf16 or fp16).
+// Sixteen bytes of a cache row as fp32 (16 int8, 8 bf16 or fp16, or 4
+// fp32).
 template <typename T>
 __device__ __forceinline__ void load16(const T* p, float* f) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  if constexpr (is_int8<T>()) {
+  if constexpr (std::is_same<T, float>::value) {
+    f[0] = __uint_as_float(raw.x);
+    f[1] = __uint_as_float(raw.y);
+    f[2] = __uint_as_float(raw.z);
+    f[3] = __uint_as_float(raw.w);
+  } else if constexpr (is_int8<T>()) {
     cvt4(raw.x, f);
     cvt4(raw.y, f + 4);
     cvt4(raw.z, f + 8);
@@ -130,7 +142,17 @@ __device__ __forceinline__ void load16(const T* p, float* f) {
 // N (2 or 4) consecutive cache elements as fp32.
 template <int N, typename T>
 __device__ __forceinline__ void load_n(const T* p, float* f) {
-  if constexpr (is_int8<T>() && N == 4) {
+  if constexpr (std::is_same<T, float>::value && N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    f[0] = x.x;
+    f[1] = x.y;
+    f[2] = x.z;
+    f[3] = x.w;
+  } else if constexpr (std::is_same<T, float>::value) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    f[0] = x.x;
+    f[1] = x.y;
+  } else if constexpr (is_int8<T>() && N == 4) {
     cvt4(*reinterpret_cast<const uint32_t*>(p), f);
   } else if constexpr (is_int8<T>()) {
     float t[4];
@@ -161,6 +183,8 @@ struct Smem {
   static constexpr int kBytes = kFlag + 16;
   static constexpr int kAlloc = kBytes + 128;  // room to align the base
 };
+static_assert(Smem<128, 8, float>::kAlloc <= 232448,
+              "the widest block (fp32 cache, group 8) fits an SM");
 
 // Block-wide max of G values per thread; every thread gets the result.
 template <int G>
@@ -513,14 +537,17 @@ cudaError_t dispatch_group(int G, const void* q, const void* kc,
 
 extern "C" int mc_flash_decode_split_len(void) { return kSplit; }
 
-// Dynamic shared memory of one block (bytes) at GQA group 1, for the build
-// report.
-extern "C" int mc_flash_decode_smem(int D, int quantized) {
-  if (D == 128)
-    return quantized ? Smem<128, 1, int8_t>::kAlloc
-                     : Smem<128, 1, __nv_bfloat16>::kAlloc;
-  return quantized ? Smem<64, 1, int8_t>::kAlloc
-                   : Smem<64, 1, __nv_bfloat16>::kAlloc;
+// Dynamic shared memory of one block (bytes) at GQA group 1 over an int8
+// cache (`quantized`) or one of q's `dtype`, for the build report.
+extern "C" int mc_flash_decode_smem(int D, int quantized, int dtype) {
+  if (quantized)
+    return D == 128 ? Smem<128, 1, int8_t>::kAlloc
+                    : Smem<64, 1, int8_t>::kAlloc;
+  if (dtype == kFloat32)
+    return D == 128 ? Smem<128, 1, float>::kAlloc
+                    : Smem<64, 1, float>::kAlloc;
+  return D == 128 ? Smem<128, 1, __nv_bfloat16>::kAlloc
+                  : Smem<64, 1, __nv_bfloat16>::kAlloc;
 }
 
 extern "C" int mc_flash_decode(const void* q, const void* kc, const void* vc,
@@ -529,7 +556,7 @@ extern "C" int mc_flash_decode(const void* q, const void* kc, const void* vc,
                                void* part_l, void* part_acc, void* counters,
                                void* out, int NL, int B, int H, int Hkv,
                                int S, int D, int layer, int quantized,
-                               int x_bf16, float sm_scale, void* stream) {
+                               int dtype, float sm_scale, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || H % Hkv != 0 ||
       S <= 0 || layer < 0 || layer >= NL || (quantized && (!ks || !vs)) ||
       (D != 64 && D != 128))
@@ -553,8 +580,15 @@ extern "C" int mc_flash_decode(const void* q, const void* kc, const void* vc,
                                      H, Hkv, S, n_splits, layer, sm_scale,
                                      st);
   };
-  if (x_bf16)
-    return quantized ? run(int8_t(), __nv_bfloat16())
-                     : run(__nv_bfloat16(), __nv_bfloat16());
-  return quantized ? run(int8_t(), __half()) : run(__half(), __half());
+  switch (dtype) {
+    case kBfloat16:
+      return quantized ? run(int8_t(), __nv_bfloat16())
+                       : run(__nv_bfloat16(), __nv_bfloat16());
+    case kFloat16:
+      return quantized ? run(int8_t(), __half()) : run(__half(), __half());
+    case kFloat32:
+      return quantized ? run(int8_t(), float()) : run(float(), float());
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

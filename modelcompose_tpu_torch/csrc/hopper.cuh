@@ -567,12 +567,17 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-// The TMA data type of T.
+// The TMA data type of T (bf16, fp16 or fp32).
 template <typename T>
 constexpr CUtensorMapDataType tma_type() {
-  return is_bf16<T>() ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : is_bf16<T>()                ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 }
+
+// The element type the attention kernels' C entries (K1-K4, K2) are given
+// as an int: the codes of the wrappers' ``_route.dtype_code``.
+enum DType : int { kFloat16 = 0, kBfloat16 = 1, kFloat32 = 2 };
 
 // Shuffle reductions over one warp.
 __device__ __forceinline__ int warp_min(int v) {

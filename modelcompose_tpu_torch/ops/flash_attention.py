@@ -13,15 +13,19 @@ forward to the backward at the true Lq.
 
 Numerics (flash-attn-2, as the JAX kernels): operands in the model's
 dtype, fp32 accumulation and softmax, P cast to the operand dtype before
-the P.V and P^T.dO products, dS cast to it before dS.K and dS^T.Q.
+the P.V and P^T.dO products, dS cast to it before dS.K and dS^T.Q (at fp32
+the casts are the identity, so P and dS stay fp32).
 
-The kernels take bf16 and fp16 operands, as the JAX kernels feed the dot
-either (``ops/_route``): a wrapper takes the plain version for a CPU
-tensor, and on a CUDA tensor launches its kernel or raises (fp32, a head
-dim, a GQA group or a layout it does not take).  Fully masked (padding)
-rows come out of the forward as a mean of V (callers ignore them) and get
-zero gradients: the backward masks P by a select, since exp(S - LSE) of a
-padding row is not 0.
+The kernels take bf16, fp16 and fp32 operands, as the JAX kernels feed the
+dot any of them (``ops/_route``), and are told which by a dtype code: at
+bf16 and fp16 the wgmma kernels, at fp32 kernels of their own in the same
+sources with every product in 3xTF32 (``csrc/tf32x3.cuh``).  A wrapper
+takes the plain version for a CPU tensor, and on a CUDA tensor launches
+its kernel or raises (a head dim, a GQA group or a layout it does not
+take); it never falls back to the plain version on the card.  Fully
+masked (padding) rows come out of the forward as a mean of V (callers
+ignore them) and get zero gradients: the backward masks P by a select,
+since exp(S - LSE) of a padding row is not 0.
 
 K1, K3 and K4 inside a CUDA graph (the prefill and chunk-step graphs of
 core/prefill_graph, the train graphs of train/step_graph): a capture
@@ -150,9 +154,9 @@ def _check_cuda_inputs(q, k, v, q_seg, kv_seg):
     if D not in (64, 128):
         raise ValueError(f"flash-attention kernel takes head_dim 64 or 128, "
                          f"not {D}")
-    if q.dtype not in _route.HALF:
-        raise TypeError(f"flash-attention kernel takes bf16 or fp16 q, "
-                        f"got {q.dtype}")
+    if q.dtype not in _route.ATTENTION:
+        raise TypeError(f"flash-attention kernel takes bf16, fp16 or fp32 "
+                        f"q, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise TypeError(f"flash-attention kernel takes {name} of q's "
@@ -187,7 +191,7 @@ def _k1_launch(q, k, v, causal, q_segment_ids, kv_segment_ids, q_offset,
     err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(),
                 kv_seg.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, Hkv,
                 Lq, S, D, float(_scale(sm_scale, D)), int(bool(causal)),
-                int(q_offset), int(q.dtype == torch.bfloat16),
+                int(q_offset), _route.dtype_code(q),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_fwd")
     return out, lse
@@ -295,7 +299,7 @@ def flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, *,
 
 
 def _di(o, do):
-    """Di = rowsum(O * dO) in fp32 from the saved (bf16 or fp16) output,
+    """Di = rowsum(O * dO) in fp32 from the saved output (of q's type),
     as the JAX wrapper computes it outside the kernels: [B, H, Lq]."""
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
@@ -339,7 +343,7 @@ def _bwd_launch_args(q, k, v, do, lse, di, causal, q_segment_ids,
             lse.data_ptr(), di.data_ptr(), q_seg.data_ptr(),
             kv_seg.data_ptr()), (q_seg, kv_seg), (
         B, H, k.shape[2], Lq, S, D, float(_scale(sm_scale, D)),
-        int(bool(causal)), int(q_offset), int(q.dtype == torch.bfloat16),
+        int(bool(causal)), int(q_offset), _route.dtype_code(q),
         torch.cuda.current_stream(q.device).cuda_stream)
 
 

@@ -8,11 +8,14 @@ combined by the last block of each row and kv head).  On the TPU that kernel was
 to the XLA loop; on the card the kernel is the decode path, and the loop
 (ops/attention.decode_attention) defines its semantics.
 
-K2 takes a q of bf16 or fp16 and a cache of q's type or int8 (it raises on
-an fp32 CUDA tensor); everything inside is fp32, as in the JAX kernel.
+K2 takes a q of bf16, fp16 or fp32 (a float32 model) and a cache of q's
+type or int8, as the JAX kernel takes any of them, and is told q's type by
+a dtype code (``ops/_route``); everything inside is fp32, as in the JAX
+kernel.  On a CUDA tensor it launches or raises; it never falls back to
+the plain version on the card.
 
 Layout contract (core/llama.KVCache):
-  q:      [B, 1, H, D] bf16 or fp16
+  q:      [B, 1, H, D] bf16, fp16 or fp32
   cache:  [NL, B, S, Hkv, D] of q's type, or {"q": int8, "scale": fp32
           [NL, B, S, Hkv, 1]} with the scales factored out of both
           contractions (k scale on the logits, v scale on the probabilities)
@@ -144,9 +147,9 @@ def _check_cuda_inputs(q, k_q, v_q, k_s, v_s, kv_len):
     if D not in (64, 128):
         raise ValueError(f"flash-decode kernel takes head_dim 64 or 128, "
                          f"not {D}")
-    if q.dtype not in _route.HALF:
-        raise TypeError(f"flash-decode kernel takes a bf16 or fp16 q, got "
-                        f"{q.dtype}")
+    if q.dtype not in _route.ATTENTION:
+        raise TypeError(f"flash-decode kernel takes a bf16, fp16 or fp32 q, "
+                        f"got {q.dtype}")
     quantized = k_s is not None
     want = torch.int8 if quantized else q.dtype
     tensors = [("q", q), ("k", k_q), ("v", v_q), ("kv_len", kv_len)]
@@ -212,7 +215,7 @@ def _k2(q, k_cache, v_cache, kv_len, layer_idx: int, sm_scale: float):
         v_s.data_ptr() if quantized else None, kv_len.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
         counters.data_ptr(), out.data_ptr(), NL, B, H, Hkv, S, D,
-        int(layer_idx), int(quantized), int(q.dtype == torch.bfloat16),
+        int(layer_idx), int(quantized), _route.dtype_code(q),
         float(sm_scale), stream)
     _build.check(err, "flash_decode")
     if record is not None:  # recorded, not run: each replay runs it

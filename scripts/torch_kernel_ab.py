@@ -61,6 +61,11 @@ layer's seven.
 
     git archive df22bc8 modelcompose_tpu_torch | tar -x -C tmp_old
     python3 scripts/torch_kernel_ab.py --old tmp_old --only K6
+
+``--only K1F32`` (no earlier checkout needed; its copies are built into
+DIR or a gitignored ``tmp_kernel_ab``) times K1's fp32 kernel at the
+MCUB-4 bucket against a copy with 1xTF32 products and one with 32-row kv
+tiles (``k1_f32_probe``).
 """
 
 from __future__ import annotations
@@ -88,6 +93,7 @@ from chip_smoke import (K5_GROUPS, K5_LAYERS, K5_ROWS,  # noqa: E402
                         graph_time_ms)
 from modelcompose_tpu_torch import _build  # noqa: E402
 from modelcompose_tpu_torch.core.llama import quantize_kv  # noqa: E402
+from modelcompose_tpu_torch.ops import _route  # noqa: E402
 from modelcompose_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from modelcompose_tpu_torch.ops import flash_decode as fd  # noqa: E402
 from modelcompose_tpu_torch.ops import quant  # noqa: E402
@@ -145,6 +151,31 @@ def variant(scratch, name, line, value):
     return lib
 
 
+def variant_header(scratch, name, header, old, new, tag):
+    """``csrc/<name>.cu`` of this tree built against a copy of its header
+    ``csrc/<header>`` with ``old`` replaced by ``new`` (both written into
+    ``scratch/<tag>``, where the source's quoted include finds the copy
+    first), loaded with the port's signatures."""
+    text = (_build.CSRC / header).read_text()
+    if old not in text:
+        raise RuntimeError(f"{header} no longer holds {old!r}")
+    folder = os.path.join(scratch, tag)
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, header), "w") as f:
+        f.write(text.replace(old, new))
+    path = os.path.join(folder, f"{name}.cu")
+    with open(path, "w") as f:
+        f.write((_build.CSRC / f"{name}.cu").read_text())
+    out = path[:-3] + ".so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                    "-o", out, path], check=True, capture_output=True)
+    lib = ctypes.CDLL(out)
+    for fn, (argtypes, restype) in _build.SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
 def _host_us(fn, n, calls=320):
     """Host microseconds to enqueue one fn(i) call (no synchronization
     inside the loop; the card runs behind)."""
@@ -171,7 +202,7 @@ def lib_k1(lib, q, k, v, seg):
         err = lib.mc_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
             seg.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H_, H_, L, L,
-            D_, D_ ** -0.5, 1, 0, _stream())
+            D_, D_ ** -0.5, 1, 0, _route.dtype_code(q), _stream())
         if err:
             raise RuntimeError(f"K1 variant: CUDA error {err}")
         return out, lse
@@ -194,7 +225,8 @@ def lib_k2(lib, q, k, v, kv):
             q.data_ptr(), kq.data_ptr(), v["q"].data_ptr(),
             k["scale"].data_ptr(), v["scale"].data_ptr(), kv.data_ptr(),
             pm.data_ptr(), pl.data_ptr(), pa.data_ptr(), cnt.data_ptr(),
-            out.data_ptr(), NL_, B, H, H, S, D, i, 1, D ** -0.5, _stream())
+            out.data_ptr(), NL_, B, H, H, S, D, i, 1, _route.dtype_code(q),
+            D ** -0.5, _stream())
         if err:
             raise RuntimeError(f"K2 variant: CUDA error {err}")
         return out
@@ -210,7 +242,8 @@ def lib_k3(lib, q, k, v, do, lse, di, seg):
         err = lib.mc_flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), di.data_ptr(), seg.data_ptr(), seg.data_ptr(),
-            dq.data_ptr(), B, H_, H_, L, L, D_, D_ ** -0.5, 1, 0, _stream())
+            dq.data_ptr(), B, H_, H_, L, L, D_, D_ ** -0.5, 1, 0,
+            _route.dtype_code(q), _stream())
         if err:
             raise RuntimeError(f"K3 variant: CUDA error {err}")
         return dq
@@ -249,6 +282,41 @@ def ab_k34(old_fa, bn_probe, gen, emit):
                     times[who].append(cuda_time_cycle_ms(versions[who], 1, 20))
                 emit(kernel=kernel, case=name, compare=f"{a} vs new",
                      ms=times, max_abs_diff_from_new=diff)
+
+
+def k1_f32_probe(scratch, gen, emit):
+    """K1's fp32 kernel at the MCUB-4 prefill bucket (fp32 operands)
+    against two copies of its source, in turns (copy, new, new, copy), each
+    by CUDA-graph replay: ``1xtf32``, its products at one TF32 mma a step
+    (the two cross-term mma of 3xTF32 dropped: what the extra products
+    cost, at TF32's accuracy), and ``cols32``, kv tiles of 32 rows
+    (``kColsF32``); each with its error against the plain version."""
+    one = variant_header(scratch, "flash_attention_fwd", "tf32x3.cuh",
+                         "  mma(small, al, bh);\n  mma(small, ah, bl);\n",
+                         "", "1xtf32")
+    cols32 = variant(scratch, "flash_attention_fwd",
+                     "constexpr int kColsF32 = 64;", 32)
+    B, L, H_, D_, lengths = K1_CASES["mcub4_3328"]
+    q, k, v = (torch.randn((B, L, H_, D_), generator=gen, device="cuda")
+               for _ in range(3))
+    seg = (torch.arange(L, device="cuda")[None]
+           < torch.tensor(lengths, device="cuda")[:, None]).int()
+    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    valid = seg != 0
+    ref = fa.flash_attention_reference(q, k, v, **kw)[0][valid]
+    versions = {"new": lambda _: fa.flash_attention_forward(q, k, v, **kw),
+                "1xtf32": lib_k1(one, q, k, v, seg),
+                "cols32": lib_k1(cols32, q, k, v, seg)}
+    errs = {who: float((fn(0)[0][valid] - ref).abs().max()
+                       / ref.abs().max()) for who, fn in versions.items()}
+    for a in ("1xtf32", "cols32"):
+        times = {a: [], "new": []}
+        for who in (a, "new", "new", a):
+            times[who].append(graph_time_ms(
+                lambda fn=versions[who]: fn(0)))
+        emit(kernel="K1 fp32", case="mcub4_3328", compare=f"{a} vs new",
+             ms_graph=times, rel_err_vs_plain={a: errs[a],
+                                               "new": errs["new"]})
 
 
 # K5 launches in one decode step of the 32-layer model: 32 x (4 q/k/v/o, 2
@@ -647,10 +715,11 @@ def main() -> int:
     ap.add_argument("--old",
                     help="root of a checkout of the earlier sources (K1-K7)")
     ap.add_argument("--only", default="K1,K2,K3,K4,K5",
-                    help="comma-separated kernels to compare (K1-K7)")
+                    help="comma-separated kernels to compare (K1-K7, "
+                         "K1F32)")
     args = ap.parse_args()
     only = set(args.only.split(","))
-    if only - {"K6", "K7"} and not args.old:
+    if only - {"K6", "K7", "K1F32"} and not args.old:
         ap.error("K1-K5 are compared with an earlier checkout: --old DIR")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -671,6 +740,11 @@ def main() -> int:
 
     if "K7" in only:
         ab_k7(gen, emit, old_quant(args.old) if args.old else None)
+
+    if "K1F32" in only:  # its copies built into DIR or a gitignored folder
+        scratch = args.old or os.path.join(ROOT, "tmp_kernel_ab")
+        os.makedirs(scratch, exist_ok=True)
+        k1_f32_probe(scratch, gen, emit)
 
     if "K6" in only:
         ab_k6(gen, emit, old_quant(args.old) if args.old else None)

@@ -1,32 +1,37 @@
 """Attention's dtypes on the CPU, with the card's launch rule emulated:
-the kernels (K1-K4, K2) take bf16 and fp16 q, as the JAX kernels feed
-their dots either, and raise on an fp32 q on the card (no plain version
-for a CUDA tensor); the CPU runs the plain versions at every dtype.
+the kernels (K1-K4, K2) take bf16, fp16 and fp32 q, as the JAX kernels
+feed their dots any of them; the CPU runs the plain versions at every
+dtype.
 
-The kernels have no CPU build (their card tests, fp16 included, are in
-tests/test_torch_kernels_cuda.py).  The emulation (``_Card``) runs the real
-dispatch on CPU tensors: ``ops/_route.on_card`` says yes for attention, no
-stream captures, and the launchers ``_k1_launch``, ``_k3_launch``,
-``_k4_launch`` and ``flash_decode._k2`` run the wrappers' own input checks
-and then the kernels' plain versions, each call counted as the launch the
-card would make.  So the routing (which dtype reaches a kernel wrapper),
-the refusals and the results are checked without a card:
+The kernels have no CPU build (their card tests, fp16 and fp32 included,
+are in tests/test_torch_kernels_cuda.py).  The emulation (``_Card``) runs
+the real dispatch on CPU tensors: ``ops/_route.on_card`` says yes for
+attention, no stream captures, and the launchers ``_k1_launch``,
+``_k3_launch``, ``_k4_launch`` and ``flash_decode._k2`` run the wrappers'
+own input checks and then the kernels' plain versions, each call counted
+as the launch the card would make, with the dtype code its C entry would
+be given.  So the routing (which dtype reaches a kernel wrapper), the
+refusals and the results are checked without a card:
 
-- bf16 and fp16 reach K1, K3 and K4 (K2 for a decode step) once a call;
-  fp32 raises there before any launch, forward and decode;
+- bf16, fp16 and fp32 reach K1, K3 and K4 (K2 for a decode step) once a
+  call; the real launchers hand their C entries the dtype codes 1, 0 and
+  2 (a stand-in library records them);
 - the results match the JAX ``flash_attention`` (its Pallas kernels in
   interpret mode, differentiated by ``jax.vjp``) and
   ``flash_decode_attention`` at fp32 (1e-5, the plain versions on the
   CPU) and fp16 (2e-2 of max |JAX|: an fp16 rounding of P and of the
   output);
-- a bf16 or fp16 q a kernel refuses for another reason (a head dim of 32,
-  a GQA group of 3) raises too; nothing catches it;
+- a q a kernel refuses for another reason (a head dim of 32, a GQA group
+  of 3, fp64) raises; nothing catches it;
 - a tiny fp16 model (head_dim 64) prefills and decodes through the
   kernels' route: its prefill logits within 2e-2 of the JAX package's and
-  its greedy ids equal to them.
+  its greedy ids equal to them;
+- ``--bf16 False`` gives an fp32 model config in both train entries alike.
 """
 
+import argparse
 import importlib
+import json
 import types
 
 import jax
@@ -41,11 +46,14 @@ from modelcompose_tpu.core import generate as jax_generate
 from modelcompose_tpu.core import llama as jllama
 from modelcompose_tpu.core.llama import quantize_kv as jax_quantize_kv
 from modelcompose_tpu.models.model import MultimodalLM as JaxLM
+from modelcompose_tpu.train import train_multimodal as jentry
 
 from modelcompose_tpu_torch.convert import model_from_jax
 from modelcompose_tpu_torch.core import llama
+from modelcompose_tpu_torch import _build
 from modelcompose_tpu_torch.ops import (_route, attention, flash_attention,
                                         flash_decode)
+from modelcompose_tpu_torch.train import train_multimodal as entry
 
 jfa = importlib.import_module("modelcompose_tpu.ops.flash_attention")
 jfd = importlib.import_module("modelcompose_tpu.ops.flash_decode")
@@ -75,6 +83,7 @@ class _Card:
 
     def __init__(self, monkeypatch):
         self.launches = []
+        self.codes = []  # the dtype code of each launch
         fa = flash_attention
         monkeypatch.setattr(_route, "on_card",
                             lambda x, kernels: kernels == "attention")
@@ -90,6 +99,7 @@ class _Card:
             q, k, v, flash_attention._segments(q_seg, B, Lq, q.device),
             flash_attention._segments(kv_seg, B, k.shape[1], q.device))
         self.launches.append(name)
+        self.codes.append(_route.dtype_code(q))
 
     def k1(self, q, k, v, causal, q_segment_ids, kv_segment_ids, q_offset,
            sm_scale, mask_all=False, record=None):
@@ -116,6 +126,7 @@ class _Card:
         v_q, v_s = flash_decode._parts(v_cache)
         flash_decode._check_cuda_inputs(q, k_q, v_q, k_s, v_s, kv_len)
         self.launches.append("K2")
+        self.codes.append(_route.dtype_code(q))
         return flash_decode.flash_decode_reference(
             q, k_cache, v_cache, kv_len, layer_idx, sm_scale=sm_scale)
 
@@ -141,11 +152,10 @@ def _close(got, want, dtype, what):
 @pytest.mark.parametrize("D,H,Hkv", [(64, 4, 2), (128, 2, 2)])
 def test_attention_routes_by_dtype(monkeypatch, dtype, D, H, Hkv):
     """``attention(impl="auto")`` forward and backward with the card's rule
-    emulated: bf16 and fp16 run K1, K3 and K4 once each, fp32 raises
-    before any launch and runs the plain versions on the CPU; out and the
-    gradients of q, k and v against ``jax.vjp`` of the JAX
-    ``flash_attention`` (interpret mode) on the same inputs, segment ids
-    and a ragged row included, compared on the valid rows."""
+    emulated: bf16, fp16 and fp32 run K1, K3 and K4 once each, at their
+    dtype code; out and the gradients of q, k and v against ``jax.vjp`` of
+    the JAX ``flash_attention`` (interpret mode) on the same inputs,
+    segment ids and a ragged row included, compared on the valid rows."""
     tdt, jdt = DTYPES[dtype]
     rng = np.random.default_rng(D + H + len(dtype))
     B, L = 2, 80
@@ -174,15 +184,9 @@ def test_attention_routes_by_dtype(monkeypatch, dtype, D, H, Hkv):
                                         torch.from_numpy(do).to(tdt))
     with monkeypatch.context() as m:
         card = _Card(m)
-        if dtype == "float32":
-            with pytest.raises(TypeError, match="bf16 or fp16"):
-                run()
-            assert card.launches == []
-        else:
-            out, grads = run()
-            assert [card.count(k) for k in ("K1", "K3", "K4")] == [1, 1, 1]
-    if dtype == "float32":  # the CPU
         out, grads = run()
+        assert [card.count(k) for k in ("K1", "K3", "K4")] == [1, 1, 1]
+        assert card.codes == [_route.DTYPE_CODES[tdt]] * 3
     assert out.dtype == tdt and all(g.dtype == tdt for g in grads)
     _close(_f32(out)[valid], _f32(want)[valid], dtype, "out")
     for name, g, w in zip("qkv", grads, want_grads):
@@ -190,13 +194,12 @@ def test_attention_routes_by_dtype(monkeypatch, dtype, D, H, Hkv):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])
-def test_fp32_raises_on_the_card(monkeypatch, dtype):
-    """The autograd Function on the card: an fp32 q raises at K1's checks
-    with no launch (the kernels take bf16 and fp16; a CUDA tensor gets no
-    plain version), where an fp16 q goes through the kernel wrappers,
-    bit-equal to K1's plain version forward and K3/K4's written-out
-    backward (the emulated launchers run them); on the CPU fp32 runs those
-    plain versions, bit-equal too."""
+def test_autograd_function_launches_on_the_card(monkeypatch, dtype):
+    """The autograd Function on the card: an fp32 or fp16 q goes through
+    the kernel wrappers, K1 then K3 and K4, at its dtype code (fp32: 2,
+    fp16: 0), bit-equal to K1's plain version forward and K3/K4's
+    written-out backward (the emulated launchers run them); on the CPU
+    the same plain versions, bit-equal too."""
     tdt, _ = DTYPES[dtype]
     rng = np.random.default_rng(5)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(1, 40, 2, 64)).astype(
@@ -208,21 +211,17 @@ def test_fp32_raises_on_the_card(monkeypatch, dtype):
         return out, torch.autograd.grad(out, (tq, tk, tv), do)
     with monkeypatch.context() as m:
         card = _Card(m)
-        if dtype == "float32":
-            with pytest.raises(TypeError, match="bf16 or fp16"):
-                run()
-            assert card.launches == []
-        else:
-            out, grads = run()
-            assert card.launches == ["K1", "K3", "K4"]
-    if dtype == "float32":  # the CPU
-        out, grads = run()
+        on_card = run()
+        assert card.launches == ["K1", "K3", "K4"]
+        assert card.codes == [_route.DTYPE_CODES[tdt]] * 3
     want, lse = flash_attention.flash_attention_reference(q, k, v,
                                                           causal=True)
-    assert torch.equal(out, want)
-    for g, w in zip(grads, flash_attention.flash_attention_backward_reference(
-            q, k, v, want, lse, do, causal=True)):
-        assert torch.equal(g, w)
+    wants = flash_attention.flash_attention_backward_reference(
+        q, k, v, want, lse, do, causal=True)
+    for out, grads in (on_card, run()):  # the card's route, then the CPU's
+        assert torch.equal(out, want)
+        for g, w in zip(grads, wants):
+            assert torch.equal(g, w)
 
 
 # ----------------------------------------------------------------- decode
@@ -232,9 +231,9 @@ def test_fp32_raises_on_the_card(monkeypatch, dtype):
 def test_decode_attention_routes_by_dtype(monkeypatch, dtype, quantized):
     """``decode_attention(impl="auto")`` over a layer-stacked cache (the
     model's type, or int8 quantized once by the JAX package) with the
-    card's rule emulated: bf16 and fp16 reach K2 once, fp32 raises there
-    with no launch and takes the chunked loop on the CPU; against the JAX
-    ``flash_decode_attention`` (interpret mode) at the same dtype."""
+    card's rule emulated: bf16, fp16 and fp32 reach K2 once, at their dtype
+    code; against the JAX ``flash_decode_attention`` (interpret mode) at
+    the same dtype."""
     tdt, jdt = DTYPES[dtype]
     rng = np.random.default_rng(13 + quantized)
     NL, B, S, H, Hkv, D = 3, 2, 384, 8, 2, 64
@@ -259,15 +258,9 @@ def test_decode_attention_routes_by_dtype(monkeypatch, dtype, quantized):
             layer_idx=1)
     with monkeypatch.context() as m:
         card = _Card(m)
-        if dtype == "float32":
-            with pytest.raises(TypeError, match="bf16 or fp16"):
-                run()
-            assert card.launches == []
-        else:
-            got = run()
-            assert card.launches == ["K2"]
-    if dtype == "float32":  # the CPU
         got = run()
+        assert card.launches == ["K2"]
+        assert card.codes == [_route.DTYPE_CODES[tdt]]
     assert got.dtype == tdt and got.shape == (B, 1, H, D)
     _close(got, want, dtype, "decode")
 
@@ -277,9 +270,9 @@ def test_decode_attention_routes_by_dtype(monkeypatch, dtype, quantized):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_a_refused_half_input_still_raises(monkeypatch, dtype):
     """A bf16 or fp16 q that a kernel refuses for another reason than its
-    dtype raises on the card as fp32 does, with no fallback: a head dim of
-    32 at K1 (and so in the autograd Function), a GQA group of 3 at K2, a
-    k of another type than q at K1."""
+    dtype raises on the card as an fp64 q does, with no fallback: a head
+    dim of 32 at K1 (and so in the autograd Function), a GQA group of 3 at
+    K2, a k of another type than q at K1."""
     tdt, _ = DTYPES[dtype]
     with monkeypatch.context() as m:
         _Card(m)
@@ -298,6 +291,12 @@ def test_a_refused_half_input_still_raises(monkeypatch, dtype):
                 else torch.bfloat16
             attention.decode_attention(torch.zeros((1, 1, 2, 64), dtype=tdt),
                                        cache.to(other), cache.to(other), 4,
+                                       layer_idx=0)
+        with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
+            attention.attention(q.double(), q.double(), q.double())
+        with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
+            attention.decode_attention(torch.zeros((1, 1, 2, 64)).double(),
+                                       cache.double(), cache.double(), 4,
                                        layer_idx=0)
     assert _route.kernel_dtype(q) and not _route.kernel_dtype(q.float())
 
@@ -369,3 +368,101 @@ def test_tiny_fp16_model_matches_jax(monkeypatch):
         / np.abs(want[valid]).max()
     assert err <= LOGIT_TOL, err
     assert got_ids == want_ids
+
+
+# ------------------------------------------ the dtype codes of the C entries
+
+class _Lib:
+    """A stand-in for the built kernel libraries: each C entry records the
+    dtype code it is handed (the argument after ``causal, q_offset`` for
+    K1, K3 and K4; after ``layer, quantized`` for K2) and returns 0."""
+
+    def __init__(self):
+        self.codes = {}
+
+    def _entry(self, name, index):
+        def call(*args):
+            self.codes.setdefault(name, []).append(args[index])
+            return 0
+        return call
+
+    def __getattr__(self, fn):
+        if fn == "mc_flash_decode_split_len":
+            return lambda: 128
+        # q k v q_seg kv_seg out lse B H Hkv Lq S D sm_scale causal
+        # q_offset dtype stream; K3 adds dout and dq, K4 dout, dk and dv;
+        # K2: q kc vc ks vs kv_len m l acc counters out NL B H Hkv S D
+        # layer quantized dtype sm_scale stream
+        index = {"mc_flash_attention_fwd": 16,
+                 "mc_flash_attention_bwd_dq": 18,
+                 "mc_flash_attention_bwd_dkv": 19,
+                 "mc_flash_decode": 19}[fn]
+        return self._entry(fn, index)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_launchers_hand_the_dtype_code(monkeypatch, dtype):
+    """The real launchers of K1, K3, K4 and K2 on CPU tensors, with a
+    stand-in library (no card: nothing runs): each hands its C entry the
+    code of q's type, fp16 0, bf16 1, fp32 2, as csrc/hopper.cuh's
+    ``DType`` reads it; K2 over a cache of q's type and over int8."""
+    tdt, _ = DTYPES[dtype]
+    lib = _Lib()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(flash_decode, "_SCRATCH", {})
+    q = torch.zeros((1, 16, 2, 64), dtype=tdt)
+    lse = torch.zeros((1, 2, 16))
+    kw = dict(causal=True, q_segment_ids=None, kv_segment_ids=None,
+              q_offset=0, sm_scale=None)
+    fa = flash_attention
+    fa._k1_launch(q, q, q, True, None, None, 0, None)
+    fa._k3_launch(q, q, q, q, lse, lse, **kw)
+    fa._k4_launch(q, q, q, q, lse, lse, **kw)
+    cache = torch.zeros((2, 1, 32, 2, 64), dtype=tdt)
+    lens = torch.tensor([5], dtype=torch.int32)
+    flash_decode._k2(q[:, :1].contiguous(), cache, cache, lens, 1, 0.125)
+    int8 = {"q": torch.zeros((2, 1, 32, 2, 64), dtype=torch.int8),
+            "scale": torch.ones((2, 1, 32, 2, 1))}
+    flash_decode._k2(q[:, :1].contiguous(), int8, int8, lens, 1, 0.125)
+    code = {"float16": 0, "bfloat16": 1, "float32": 2}[dtype]
+    assert _route.dtype_code(q) == code
+    assert lib.codes == {"mc_flash_attention_fwd": [code],
+                         "mc_flash_attention_bwd_dq": [code],
+                         "mc_flash_attention_bwd_dkv": [code],
+                         "mc_flash_decode": [code, code]}
+
+
+# ------------------------------------------------ the train entry's --bf16
+
+def test_bf16_false_builds_an_fp32_config_in_both_entries(tmp_path):
+    """``--bf16 False`` on the train entry's flags (the stage-2 point
+    recipe's, over a base directory with a Llama config.json) gives a
+    float32 ModelConfig in the port as in the JAX package, equal field by
+    field; ``--bf16 True`` (the default) bfloat16 in both."""
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(dict(vocab_size=1024, hidden_size=256,
+                       intermediate_size=512, num_hidden_layers=2,
+                       num_attention_heads=2, num_key_value_heads=2,
+                       max_position_embeddings=512), f)
+    flags = ["--model_name_or_path", str(tmp_path), "--data_path", "x.json",
+             "--output_dir", str(tmp_path / "out"), "--version", "v1",
+             "--lora_strategy", "modal+language", "--lora_r", "8",
+             "--lora_alpha", "16", "--mm_point_encoder", "test:32x2",
+             "--mm_point_projector_type", "mlp2x_gelu",
+             "--gradient_checkpointing", "True"]
+    for bf16, want in (("False", "float32"), ("True", "bfloat16"),
+                       (None, "bfloat16")):
+        extra = [] if bf16 is None else ["--bf16", bf16]
+        args = entry.build_arg_parser().parse_args(flags + extra)
+        jargs = jentry.build_arg_parser().parse_args(flags + extra)
+        assert isinstance(args, argparse.Namespace)
+        cfg, jcfg = (entry.build_model_config(args),
+                     jentry.build_model_config(jargs))
+        assert cfg.dtype == jcfg.dtype == want
+        assert cfg.to_dict() == jcfg.to_dict()
+        assert cfg.num_hidden_layers == 2 and cfg.remat

@@ -485,6 +485,8 @@ def test_every_kernel_has_its_profile_split():
     import chip_smoke
     want = {"fa_fwd_kernel": "K1", "fd_split_kernel": "K2",
             "fa_bwd_dq_kernel": "K3", "fa_bwd_dkv_kernel": "K4",
+            "fa_fwd_f32_kernel": "K1", "fa_bwd_dq_f32_kernel": "K3",
+            "fa_bwd_dkv_f32_kernel": "K4",
             "dequant_gemv_stream_kernel": "K5", "dequant_gemv_kernel": "K5",
             "w8a16_gemm_kernel": "K6", "w8a16_dx_scale_kernel": "K7",
             "w8a16_dx_kernel": "K7", "add_rms_norm_kernel": "K8",

@@ -81,14 +81,14 @@ def test_k1_matches_plain(B, Lq, S, H, Hkv, D, q_offset, lengths):
         want_lse.abs().max().item(), 1.0)
 
 
-def _check_k1(q, k, v, kw, out, lse):
+def _check_k1(q, k, v, kw, out, lse, tol=2e-2, lse_tol=1e-3):
     ref, ref_lse = flash_attention_reference(q, k, v, **kw)
     valid = kw["q_segment_ids"] != 0
     assert torch.isfinite(out[valid]).all()
-    assert _rel(out[valid], ref[valid]) <= 2e-2
+    assert _rel(out[valid], ref[valid]) <= tol
     got_lse = lse.transpose(1, 2)[valid]
     want_lse = ref_lse.transpose(1, 2)[valid]
-    assert (got_lse - want_lse).abs().max().item() <= 1e-3 * max(
+    assert (got_lse - want_lse).abs().max().item() <= lse_tol * max(
         want_lse.abs().max().item(), 1.0)
 
 
@@ -297,8 +297,8 @@ def test_dispatchers_launch_the_kernels_and_count():
 def test_wrappers_raise_instead_of_falling_back():
     gen = torch.Generator(device="cuda").manual_seed(3)
     q = _rnd(gen, 1, 16, 2, 64)
-    with pytest.raises(TypeError):
-        flash_attention_forward(q.float(), q.float(), q.float())
+    with pytest.raises(TypeError):  # fp64: no kernel takes it
+        flash_attention_forward(q.double(), q.double(), q.double())
     with pytest.raises(ValueError):
         odd = _rnd(gen, 1, 16, 2, 96)
         flash_attention_forward(odd, odd, odd)
@@ -330,9 +330,10 @@ def _bwd_inputs(gen, B, Lq, S, H, Hkv, D, q_offset, lengths):
     return (q, k, v, out, lse, do.contiguous()), kw
 
 
-def _check_k3_k4(args, kw, dq, dk, dv):
-    """dQ, dK and dV against the plain versions on valid rows, and zero on
-    padding rows (a padding row's P is masked to 0 on both sides)."""
+def _check_k3_k4(args, kw, dq, dk, dv, tol=2e-2):
+    """dQ, dK and dV against the plain versions on valid rows (within
+    ``tol`` of max |plain|), and zero on padding rows (a padding row's P is
+    masked to 0 on both sides)."""
     q, k, v, out, lse, do = args
     ref = flash_attention_backward_reference(q, k, v, out, lse, do, **kw)
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
@@ -340,7 +341,7 @@ def _check_k3_k4(args, kw, dq, dk, dv):
     for got, want, rows in ((dq, ref[0], q_valid), (dk, ref[1], kv_valid),
                             (dv, ref[2], kv_valid)):
         assert torch.isfinite(got).all()
-        assert _rel(got[rows], want[rows]) <= 2e-2
+        assert _rel(got[rows], want[rows]) <= tol
     assert not dq[~q_valid].any()
     assert not dk[~kv_valid].any() and not dv[~kv_valid].any()
 
@@ -449,9 +450,9 @@ def test_backward_wrappers_raise_instead_of_falling_back():
     gen = torch.Generator(device="cuda").manual_seed(6)
     q = _rnd(gen, 1, 16, 2, 64)
     lse = torch.zeros(1, 2, 16, device="cuda")
-    for bad in (q.float(), _rnd(gen, 1, 16, 2, 96)):
+    for bad in (q.double(), _rnd(gen, 1, 16, 2, 96)):
         lse_b = torch.zeros(1, 2, 16, device="cuda")
-        err = TypeError if bad.dtype == torch.float32 else ValueError
+        err = TypeError if bad.dtype == torch.float64 else ValueError
         with pytest.raises(err):
             flash_attention_bwd_dq(bad, bad, bad, bad, lse_b, lse_b)
         with pytest.raises(err):
@@ -459,7 +460,7 @@ def test_backward_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError):  # an LSE laid out [B, Lq, H]
         flash_attention_bwd_dq(q, q, q, q, lse.transpose(1, 2), lse)
     with pytest.raises(TypeError):
-        flash_attention(q.float(), q.float(), q.float())
+        flash_attention(q.double(), q.double(), q.double())
 
 
 # ---------------------------------------------------------------------------
@@ -3014,8 +3015,7 @@ def test_fused_k5_raises_and_does_not_fall_back():
 # (its subnormals kept), the outputs stored in fp16; K2 reads an fp16 q and
 # an fp16 or int8 cache and works in fp32.  Each at the bf16 tests' shapes
 # (the 3,328 bucket, a prefill chunk, the train shapes, the MCUB-4 decode)
-# within 2e-2 of its plain version on the same fp16 inputs; fp32 attention
-# raises on the card.
+# within 2e-2 of its plain version on the same fp16 inputs.
 
 def _rnd_as(gen, dtype, *shape, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(
@@ -3191,21 +3191,35 @@ def test_bf16_and_fp16_kernels_live_in_one_process_and_one_graph():
             assert torch.equal(a, b)
 
 
-def test_fp32_attention_on_card_raises():
-    """fp32 q, k and v on the card: ``attention`` (K1's checks) and
-    ``decode_attention`` (K2's) raise TypeError before any launch; the
-    kernels take bf16 and fp16, and a CUDA tensor gets no plain version."""
+def test_fp32_attention_on_card_launches():
+    """fp32 q, k and v on the card: ``attention`` launches K1 (and K3/K4 in
+    its backward) and ``decode_attention`` K2, each once, each within 1e-5
+    of its plain version; nothing raises and nothing falls back."""
     gen = torch.Generator(device="cuda").manual_seed(72)
-    q = torch.randn((2, 96, 4, 64), generator=gen, device="cuda")
+    q, k, v, do = (torch.randn((2, 96, 4, 64), generator=gen, device="cuda")
+                   for _ in range(4))
     counts = (flash_attention_forward.launches,
+              flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches,
               flash_decode_attention.launches)
-    with pytest.raises(TypeError, match="bf16 or fp16"):
-        attention.attention(q, q, q)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attention.attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    want, lse = flash_attention_reference(q, k, v)
+    assert out.dtype == torch.float32 and _rel(out, want) <= 1e-5
+    for g, w in zip(grads, flash_attention_backward_reference(
+            q, k, v, want, lse, do)):
+        assert _rel(g, w) <= 1e-5
     cache = torch.randn((2, 2, 80, 4, 64), generator=gen, device="cuda")
-    with pytest.raises(TypeError, match="bf16 or fp16"):
-        attention.decode_attention(q[:, :1], cache, cache, 50, layer_idx=1)
+    lens = torch.full((2,), 50, dtype=torch.int32, device="cuda")
+    q1 = q[:, :1].contiguous()
+    got = attention.decode_attention(q1, cache, cache, lens, layer_idx=1)
+    ref = flash_decode_reference(q1, cache, cache, lens, 1, sm_scale=0.125)
+    assert got.dtype == torch.float32 and _rel(got, ref) <= 1e-5
     assert (flash_attention_forward.launches,
-            flash_decode_attention.launches) == counts
+            flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches,
+            flash_decode_attention.launches) == tuple(c + 1 for c in counts)
 
 
 def test_fp16_refusals_still_raise():
@@ -3335,3 +3349,214 @@ def test_silu_in_k5_raises_and_does_not_fall_back():
     for kw in ({"M": 3}, {"rows": 100}, {"n": 4090}):
         assert call(**kw) == 1  # cudaErrorInvalidValue
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------- fp32
+# K1-K4 and K2 at fp32 (a float32 model, ``--bf16 False`` training), as the
+# JAX kernels take it: K1, K3 and K4 through their fp32 kernels (every
+# product 3xTF32 on mma.sync, P and dS kept fp32), K2 with fp32 loads.
+# Each at the bf16 and fp16 tests' shapes within 1e-5 of max |plain| on the
+# same fp32 inputs (the plain versions in full fp32: TF32 off), the LSE
+# within 1e-5 of max(|LSE|, 1); padding rows' gradients zero.
+
+F32_TOL = 1e-5
+
+
+def _f32(gen, *shape):
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("B,Lq,S,H,Hkv,D,q_offset,lengths", [
+    (1, 3328, 3328, 32, 32, 128, 0, (3287,)),  # the MCUB-4 prefill
+    (2, 1024, 1024, 32, 32, 128, 0, (1024, 637)),
+    (2, 150, 150, 32, 32, 128, 0, (150, 97)),
+    (1, 1, 77, 8, 8, 64, 76, (77,)),
+    (2, 256, 1024, 32, 8, 128, 768, (1024, 900)),
+    (3, 200, 200, 8, 2, 64, 0, (200, 1, 130)),
+    (1, 512, 3072, 32, 32, 128, 2560, (3072,)),  # a prefill chunk
+    (1, 256, 3328, 32, 32, 128, 3072, (3287,)),  # the last chunk
+])
+def test_k1_fp32_matches_plain(B, Lq, S, H, Hkv, D, q_offset, lengths):
+    gen = torch.Generator(device="cuda").manual_seed(Lq + S + 32)
+    q = _f32(gen, B, Lq, H, D)
+    k, v = _f32(gen, B, S, Hkv, D), _f32(gen, B, S, Hkv, D)
+    kv_seg = (torch.arange(S, device="cuda")[None]
+              < torch.tensor(lengths, device="cuda")[:, None]).int()
+    q_seg = kv_seg[:, q_offset:q_offset + Lq].contiguous()
+    kw = dict(causal=True, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+              q_offset=q_offset)
+    n = flash_attention_forward.launches
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    assert flash_attention_forward.launches == n + 1
+    assert out.dtype == torch.float32
+    _check_k1(q, k, v, kw, out, lse, tol=F32_TOL, lse_tol=F32_TOL)
+
+
+@pytest.mark.parametrize("name,B,L,H,Hkv,D,bounds,causal", [
+    ("ragged", 1, 77, 4, 4, 64, (77,), True),
+    ("three_segments", 2, 300, 8, 8, 64, (70, 190, 290), True),
+    ("boundary_d128", 1, 256, 4, 4, 128, (100, 256), True),
+    ("noncausal", 2, 200, 8, 4, 128, (50, 160), False),
+])
+def test_k1_k3_k4_fp32_segments_and_masks(name, B, L, H, Hkv, D, bounds,
+                                          causal):
+    """Packed segments, padding, causal and not, forward and backward at
+    fp32; the masked-path entries (``mask_all``) bit-equal to the others,
+    since every fp32 element goes through the mask."""
+    gen = torch.Generator(device="cuda").manual_seed(L + D + 33)
+    q, do = _f32(gen, B, L, H, D), _f32(gen, B, L, H, D)
+    k, v = _f32(gen, B, L, Hkv, D), _f32(gen, B, L, Hkv, D)
+    seg = _packed_segments(B, L, bounds)
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    _check_k1(q, k, v, kw, out, lse, tol=F32_TOL, lse_tol=F32_TOL)
+    do = (do * (seg != 0)[..., None, None]).contiguous()
+    di = _di(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+    _check_k3_k4((q, k, v, out, lse, do), kw, dq, dk, dv, tol=F32_TOL)
+    out_m, lse_m = flash_attention_forward_mask_all(q, k, v, **kw)
+    assert torch.equal(out, out_m) and torch.equal(lse, lse_m)
+    for a, b in zip((dq, dk, dv), flash_attention_bwd_mask_all(
+            q, k, v, do, lse, di, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,B,Lq,S,H,Hkv,D,q_offset,lengths", [
+    ("ms_shape", 2, 2048, 2048, 32, 32, 128, 0, (2048, 1391)),
+    ("micro_1400", 1, 2048, 2048, 32, 32, 128, 0, (1400,)),
+    ("ragged", 2, 150, 150, 32, 32, 128, 0, (150, 97)),
+    ("q_offset_gqa4", 2, 256, 1024, 32, 8, 128, 768, (1024, 900)),
+    ("gqa8", 2, 300, 300, 32, 4, 128, 0, (300, 211)),
+    ("d64_gqa2", 2, 150, 150, 8, 4, 64, 0, (150, 61)),
+    ("d64_one_valid_row", 3, 200, 200, 8, 2, 64, 0, (200, 1, 130)),
+    ("batch_edge", 2, 100, 100, 4, 4, 128, 0, (100, 100)),
+])
+def test_k3_k4_fp32_match_plain(name, B, Lq, S, H, Hkv, D, q_offset,
+                                lengths):
+    gen = torch.Generator(device="cuda").manual_seed(Lq + S + D + 32)
+    q = _f32(gen, B, Lq, H, D)
+    k, v = _f32(gen, B, S, Hkv, D), _f32(gen, B, S, Hkv, D)
+    kv_seg = (torch.arange(S, device="cuda")[None]
+              < torch.tensor(lengths, device="cuda")[:, None]).int()
+    q_seg = kv_seg[:, q_offset:q_offset + Lq].contiguous()
+    kw = dict(causal=True, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+              q_offset=q_offset)
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    do = (_f32(gen, B, Lq, H, D) * (q_seg != 0)[..., None, None]).contiguous()
+    di = _di(out, do)
+    n = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.float32
+    _check_k3_k4((q, k, v, out, lse, do), kw, dq, dk, dv, tol=F32_TOL)
+
+
+@pytest.mark.parametrize("cache", ["fp32", "int8"])
+@pytest.mark.parametrize("NL,B,S,H,Hkv,D,kv_len", [
+    (32, 1, 3328 + 32, 32, 32, 128, (3287,)),  # MCUB-4 decode, first step
+    (32, 2, 3328 + 32, 32, 32, 128, (3318, 3300)),
+    (32, 3, 3328 + 32, 32, 32, 128, (3287,) * 3),  # beams
+    (2, 3, 257, 8, 1, 64, (1, 256, 257)),
+    (4, 2, 1000, 32, 8, 128, (1000, 517)),
+])
+def test_k2_fp32_matches_plain(cache, NL, B, S, H, Hkv, D, kv_len):
+    gen = torch.Generator(device="cuda").manual_seed(S + 32)
+    q = _f32(gen, B, 1, H, D)
+    k, v = (_f32(gen, NL, B, S, Hkv, D) for _ in range(2))
+    if cache == "int8":
+        k, v = quantize_kv(k), quantize_kv(v)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    for layer in (0, NL - 1):
+        n = flash_decode_attention.launches
+        out = flash_decode_attention(q, k, v, lens, layer, sm_scale=D ** -0.5)
+        assert flash_decode_attention.launches == n + 1
+        ref = flash_decode_reference(q, k, v, lens, layer, sm_scale=D ** -0.5)
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+        assert _rel(out, ref) <= F32_TOL
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_k2_fp32_split_edges_and_groups(quantized, group):
+    D, Hkv = 128, 4
+    lens = (1, 127, 128, 129, 256, 700)
+    gen = torch.Generator(device="cuda").manual_seed(group + 32)
+    q = _f32(gen, len(lens), 1, Hkv * group, D)
+    k, v = (_f32(gen, 2, len(lens), 700, Hkv, D) for _ in range(2))
+    if quantized:
+        k, v = quantize_kv(k), quantize_kv(v)
+    kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = flash_decode_attention(q, k, v, kv, 1, sm_scale=D ** -0.5)
+    ref = flash_decode_reference(q, k, v, kv, 1, sm_scale=D ** -0.5)
+    assert torch.isfinite(out).all() and _rel(out, ref) <= F32_TOL
+
+
+def test_three_types_live_in_one_process_and_one_graph():
+    """bf16, fp16 and fp32 launches of K1, K3, K4 and K2 interleave in one
+    process (one library a source) and in one captured CUDA graph: each
+    replay gives the eager launches' bits, and the graph's records count
+    every type's launches."""
+    from modelcompose_tpu_torch.ops import flash_attention as fa
+    from modelcompose_tpu_torch.ops import flash_decode as fd
+    gen = torch.Generator(device="cuda").manual_seed(74)
+    types = (torch.bfloat16, torch.float16, torch.float32)
+    ins = {dt: [_rnd_as(gen, dt, 1, 256, 4, 128) for _ in range(4)]
+           + [_rnd_as(gen, dt, 2, 1, 300, 4, 128)] for dt in types}
+    lens = torch.tensor([211], dtype=torch.int32, device="cuda")
+
+    def step():
+        outs = []
+        for q, k, v, do, cache in ins.values():
+            out, lse = fa.flash_attention_forward(q, k, v)
+            di = _di(out, do)
+            outs += [out, fa.flash_attention_bwd_dq(q, k, v, do, lse, di),
+                     *fa.flash_attention_bwd_dkv(q, k, v, do, lse, di),
+                     fd.flash_decode_attention(q[:, :1].contiguous(), cache,
+                                               cache, lens, 1,
+                                               sm_scale=0.125)]
+        return outs
+    eager = step()
+    q, k, v = ins[torch.float32][:3]
+    assert eager[10].dtype == torch.float32
+    assert _rel(eager[10], flash_attention_reference(q, k, v)[0]) <= F32_TOL
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        step()  # warm-up on the capturing stream
+        with fa.capturing(side) as k1, fd.capturing() as k2:
+            graph.capture_begin()
+            static = step()
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    assert (len(k1.launches), len(k1.bwd_dq), len(k1.bwd_dkv),
+            len(k2.launches)) == (3, 3, 3, 3)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(static, eager):
+            assert torch.equal(a, b)
+
+
+def test_fp32_kernels_raise_instead_of_falling_back():
+    """An fp32 input the kernels refuse for another reason than its type
+    raises on the card: a head dim of 96, k of another type than q, a GQA
+    group of 3, a cache of another type than q."""
+    gen = torch.Generator(device="cuda").manual_seed(75)
+    odd = _f32(gen, 1, 16, 2, 96)
+    with pytest.raises(ValueError):
+        attention.attention(odd, odd, odd)
+    q = _f32(gen, 1, 16, 2, 64)
+    with pytest.raises(TypeError):
+        flash_attention_forward(q, q.bfloat16(), q)
+    cache = _f32(gen, 1, 1, 32, 1, 64)
+    lens = torch.tensor([4], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        flash_decode_attention(_f32(gen, 1, 1, 3, 64), cache, cache, lens, 0,
+                               sm_scale=0.125)
+    with pytest.raises(TypeError):
+        flash_decode_attention(q[:, :1].contiguous(), cache.half(),
+                               cache.half(), lens, 0, sm_scale=0.125)
