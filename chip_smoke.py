@@ -1239,6 +1239,41 @@ def _check_k2(q, k, v, kv, layer):
     return name, err, rel, rel_loop
 
 
+def _k2_library(q, k, v, kv, out, layer):
+    """Over a cache of q's type (not int8: its per-vector scales have no
+    library call), one ``scaled_dot_product_attention`` call computes K2's
+    function: q [B, H, 1, D] against views of one layer's k and v sliced to
+    the longest kv_len (a boolean mask where rows differ; ``enable_gqa``
+    for a group), held to K2's output ``out``.  Its device time, cold as
+    K2's (each call on another layer), timed here only."""
+    import torch
+    import torch.nn.functional as F
+    NL, B, S, Hkv, D = k.shape
+    H = q.shape[2]
+    n = max(kv.tolist())
+    lens = kv.tolist()
+    mask = None if len(set(lens)) == 1 else (
+        torch.arange(n, device=q.device)[None] < kv[:, None])[:, None, None]
+    qv = q.transpose(1, 2)
+
+    def call(i):
+        return F.scaled_dot_product_attention(
+            qv, k[i, :, :n].transpose(1, 2), v[i, :, :n].transpose(1, 2),
+            attn_mask=mask, scale=D ** -0.5, enable_gqa=H != Hkv)
+    got = call(layer).transpose(1, 2)
+    _, rel = _rel_err(got, out)
+    tol = _attn_tols(q.dtype)[0]
+    if rel > tol:
+        raise AssertionError(f"K2's library call: rel err {rel:.3g} from the "
+                             f"kernel (tol {tol})")
+    ms = device_time_cycle_ms(call, NL)
+    log("K2", library="scaled_dot_product_attention",
+        cache=str(k.dtype).split(".")[-1], B=B, kv_len=json.dumps(lens),
+        kernels=json.dumps(_kernel_names(lambda: call(layer))),
+        rel_err_from_kernel=f"{rel:.3g}", library_device_ms_cold=_ms(ms))
+    return ms
+
+
 def _k2_measure(q, k, v, kv, layer, graph=False):
     """K2 against its plain version and the chunked loop on the given
     inputs (a bf16 or int8 stacked cache), then its times and bound; with
@@ -1286,7 +1321,9 @@ def _k2_measure(q, k, v, kv, layer, graph=False):
         share_of_bound_cold=_ms(share_cold))
     res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, share_of_bound=bound_ms / ms,
-               library_ms=None, device_ms_cold=device_ms_cold,
+               library_ms=None if quantized
+               else _k2_library(q, k, v, kv, kernel(layer), layer),
+               device_ms_cold=device_ms_cold,
                events_ms_cold=events_ms_cold,
                plain_device_ms_cold=plain_device_ms_cold,
                share_of_bound_cold=share_cold)
@@ -1342,6 +1379,11 @@ def phase_k2(device, gen):
                          S=3328 + NEW_TOKENS, H=32, Hkv=32, D=128,
                          kv_len=[MCUB4_POSITIONS] * NUM_BEAMS,
                          quantized=False, layer=31, dtype="float32")
+    # a phase-10 answer's shape: B=1 over a bf16 cache (553 positions, what
+    # the bound of its earlier timing implies), here for the library call
+    answer = _k2_case(device, gen, B=1, NL=32, S=576 + NEW_TOKENS, H=32,
+                      Hkv=32, D=128, kv_len=[553], quantized=False, layer=31)
+    errs.append(answer["max_abs_err"])
     errs_fp32 = [fp32["max_abs_err"], fp32_beam["max_abs_err"]]
     for dtype in ("float16", "float32"):
         for quantized in (False, True):  # GQA, S not a multiple of 128
@@ -1367,7 +1409,8 @@ def phase_k2(device, gen):
                 fp32=dict(fp32, max_abs_err=max(errs_fp32),
                           shape="fp32 q, B1 int8 S=3360 kv_len 3287"),
                 beam_fp32=dict(fp32_beam, shape="B3 fp32 S=3360 kv_len "
-                               "3287"))
+                               "3287"),
+                answer=dict(answer, shape="B1 bf16 S=608 kv_len 553"))
 
 
 # K5's shapes on the main paths, (K, N): Vicuna-7B's int8 products, and the

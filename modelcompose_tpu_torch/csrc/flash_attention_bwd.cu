@@ -874,31 +874,27 @@ fa_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ------------------------------------------------------------------- fp32
-// The fp32 instantiations: K3 and K4 at fp32 operands, as the JAX kernels
-// compute them (dots at fp32 with fp32 accumulation, _gemm2_cast the
-// identity: P and dS stay fp32 in the second products).  Every product is
-// 3xTF32 on the tensor cores through mma.sync (csrc/tf32x3.cuh): wgmma's
-// tf32 form takes no transposed operand, and dS.K, P^T.dO and dS^T.Q read
-// their streamed tile along its rows.  Simple first, as K1's fp32 kernel:
-// eight warps of 16 rows a block, no warp specialization, no TMA; the
-// block's own 128 rows (and their two tiles) are loaded once and the other
-// side streams in 32-row tiles through two stages of cp.async; every
-// element goes through the mask (`mask_all` changes nothing).  Bounded by
-// operations: three tf32 products for each fp32 one.
-// K3: one block per (128-row q tile, q head, batch row): S = Q K^T and
-// dP = dO V^T per kv tile, dS in registers, dQ += dS K.
-// K4: one block per (128-row kv tile, kv head, batch row): S^T = K Q^T and
-// dP^T = V dO^T per q tile of every q head of the GQA group (from the
-// first that can see the block's rows), dV += P^T dO and dK += dS^T Q, the
-// group summed in the fp32 accumulators.
+// The fp32 kernels: K3 and K4 at fp32 operands, as the JAX kernels compute
+// them (dots at fp32 with fp32 accumulation, _gemm2_cast the identity: P
+// and dS stay fp32 in the second products), every product 3xTF32 on the
+// tensor cores (csrc/tf32x3.cuh).  Bounded by operations: three tf32
+// products for each fp32 one.
+// K3 (simple first, through mma.sync): one block per (128-row q tile, q
+// head, batch row), eight warps of 16 rows, no warp specialization, no
+// TMA; Q and dO are loaded once and K and V stream in 32-row tiles through
+// two stages of cp.async; every element goes through the mask (`mask_all`
+// changes nothing).  S = Q K^T and dP = dO V^T per kv tile, dS in
+// registers, dQ += dS K.
+// K4 (on wgmma, below): S^T = K Q^T and dP^T = V dO^T per q tile of every
+// q head of the GQA group (from the first that can see the block's rows),
+// dV += P^T dO and dK += dS^T Q, the group summed in the fp32 accumulators.
 constexpr int kRowsF32 = 128;  // the block's own rows: eight warps of 16
 constexpr int kTileF32 = 32;   // rows of a streamed tile
 constexpr int kThreadsF32 = 256;
 
-// Shared memory of the fp32 blocks, in bytes: row-major fp32 tiles of row
-// stride D + 4 (tf32x3.cuh).  The block's own two tiles (K3: Q, dO; K4: K,
-// V), then two stages of the two streamed tiles (K3: K, V; K4: Q, dO) with
-// their rows' segment ids (and for K4 the LSE, scaled by log2(e), and Di).
+// Shared memory of K3's fp32 block, in bytes: row-major fp32 tiles of row
+// stride D + 4 (tf32x3.cuh).  The block's own two tiles (Q, dO), then two
+// stages of the two streamed tiles (K, V) with their rows' segment ids.
 template <int D>
 struct SmemF32 {
   static constexpr int kLd = tf32x3::stride<D>();
@@ -909,9 +905,7 @@ struct SmemF32 {
   static constexpr int kS0 = kB + kOwn;         // [2 stages]
   static constexpr int kS1 = kS0 + 2 * kTile;   // [2 stages]
   static constexpr int kSeg = kS1 + 2 * kTile;  // int [2][kTileF32]
-  static constexpr int kLse = kSeg + 2 * kTileF32 * 4;  // float [2][kTileF32]
-  static constexpr int kDi = kLse + 2 * kTileF32 * 4;   // float [2][kTileF32]
-  static constexpr int kBytes = kDi + 2 * kTileF32 * 4;
+  static constexpr int kBytes = kSeg + 2 * kTileF32 * 4;
 };
 static_assert(SmemF32<128>::kBytes <= 232448, "one fp32 block fits an SM");
 
@@ -1038,125 +1032,484 @@ fa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows_f32<D>(dq, acc, b, Lq, H, h, r0, t);
 }
 
+// K4 at fp32, on wgmma: every product 3xTF32 from TMA-fed shared memory,
+// each operand split once (csrc/tf32x3.cuh).  Shared memory decides the
+// shape: at D = 128 a 64-row fp32 tile is 32 KB, and wgmma's tf32 form
+// reads both shared-memory operands K-major only, so Q and dO would be
+// needed twice (rows for S^T and dP^T, transposed for dK and dV), hi and
+// lo, with K and V hi and lo beside them: more than an SM holds.  So:
+//   - one block per (64-row kv tile, kv head, batch row), 384 threads:
+//     warp 0 issues the TMA loads, warps 1-3 split each streamed tile in
+//     place (hi over x, lo beside it); warpgroup 1 computes S^T, P^T, dS^T
+//     and dK, warpgroup 2 dP^T and dV;
+//   - K and V are loaded once; warpgroup 1 splits K (hi in place, lo into
+//     its registers: the register A operand of K_lo Q_hi^T), warpgroup 2
+//     V the same way;
+//   - Q and dO stream in 32-row tiles (with their rows' segment ids, LSE
+//     log2(e) and Di) through a two-stage ring, over every q head of the
+//     GQA group from the first q tile that can see the block's rows;
+//   - S^T = K Q^T and dP^T = V dO^T run at once, one a warpgroup, m64n32k8;
+//     warpgroup 1 turns S^T into P^T (the mask skipped on interior tiles)
+//     and writes it split, as a [kv rows][q] tile (the K-major B operand of
+//     dV^T = dO^T P); warpgroup 2 writes dP^T whole; warpgroup 1 forms
+//     dS^T = P^T (dP^T - Di) scale over it, split (the B operand of
+//     dK^T = Q^T dS);
+//   - the second products take dO^T and Q^T as register A fragments read
+//     by hand from the row tiles (already split), so no transposed Q or dO
+//     is kept; each 64-row d block and 32-column kv chunk of a tile's
+//     product starts from zero and is added to the running sum in fp32, and
+//     the GQA group's sum stays in those accumulators;
+//   - one-way named barriers pace the exchange (P^T written; dV done with
+//     it; dP^T written; dK done with the dS^T tiles), so that one
+//     warpgroup's products run while the other forms P^T or dS^T.
+constexpr int kRowsDkvF32 = 64;  // kv rows a block owns
+constexpr int kTileQF32 = 32;    // q rows a streamed tile
+constexpr int kStagesDkvF32 = 2;
+constexpr int kConvertersF32 = 96;  // warps 1-3 split the streamed tiles
+// Named barriers of K4's fp32 exchange (1 and 2 are each warpgroup's own;
+// each is arrived at by one warpgroup and waited on by the other)
+constexpr int kBarPFull = 3;    // P^T written (warpgroup 1 to 2)
+constexpr int kBarPFree = 4;    // dV done with P^T (2 to 1)
+constexpr int kBarDPFull = 5;   // dP^T written (2 to 1)
+constexpr int kBarDPFree = 6;   // dK done with the dS^T tiles (1 to 2)
+
+// Shared memory of K4's fp32 block, in bytes from a 1024-aligned base: K
+// and V [D/32 boxes][64 rows][128 B] (hi once split); per stage Q, Q lo,
+// dO, dO lo [D/32 boxes][32 rows][128 B]; the exchange P^T hi, P^T lo,
+// dS^T hi, dS^T lo (first dP^T), each [64 kv rows][32 q][4 B] swizzled.
 template <int D>
-__global__ void __launch_bounds__(kThreadsF32, 1)
-fa_bwd_dkv_f32_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
+struct SmemDkvF32 {
+  static constexpr int BQ = kTileQF32;
+  static constexpr int kBoxes = D / 32;
+  static constexpr int kOwn = kRowsDkvF32 * D * 4;
+  static constexpr int kTile = BQ * D * 4;
+  static constexpr int kK = 0;
+  static constexpr int kV = kOwn;
+  static constexpr int kRing = 2 * kOwn;
+  static constexpr int kQ = 0, kQlo = kTile, kDO = 2 * kTile,
+                       kDOlo = 3 * kTile;  // within a stage
+  static constexpr int kStage = 4 * kTile;
+  static constexpr int kX = kRing + kStagesDkvF32 * kStage;
+  static constexpr int kXTile = kRowsDkvF32 * BQ * 4;
+  static constexpr int kPhi = 0, kPlo = kXTile, kShi = 2 * kXTile,
+                       kSlo = 3 * kXTile;  // within the exchange
+  static constexpr int kSeg = kX + 4 * kXTile;  // int [stages][BQ]
+  static constexpr int kLse = kSeg + kStagesDkvF32 * BQ * 4;
+  static constexpr int kDi = kLse + kStagesDkvF32 * BQ * 4;
+  static constexpr int kInfo = kDi + kStagesDkvF32 * BQ * 4;  // int [stages][2]
+  static constexpr int kBar = kInfo + kStagesDkvF32 * 2 * 4;  // kv, full, ready, empty
+  static constexpr int kBytes = kBar + (1 + 3 * kStagesDkvF32) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+};
+static_assert(SmemDkvF32<128>::kAlloc <= 232448, "one fp32 block fits an SM");
+
+// C[64 x 32] = A B^T over D from shared memory (A: 64 own rows, hi in
+// place, lo in registers; B: a 32-row streamed tile and its lo), 3xTF32:
+// the hi-hi chain into `big`, the cross terms into `small` (S^T = K Q^T,
+// dP^T = V dO^T).  Issued and committed, not waited for.
+template <int D>
+__device__ __forceinline__ void issue_scores(float* big, float* small,
+                                             uint32_t own,
+                                             const uint32_t (&lo)[D / 8][4],
+                                             uint32_t b_hi, uint32_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint64_t da =
+        sw128_desc(own + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024);
+    const uint32_t step = (kk / 4) * kTileQF32 * 128 + (kk % 4) * 32;
+    const uint64_t db = sw128_desc(b_hi + step, 16, 1024);
+    tf32x3::wgmma_ss32(big, da, db, kk > 0);
+    tf32x3::wgmma_rs32(small, lo[kk], db, kk > 0);
+    tf32x3::wgmma_ss32(small, da, sw128_desc(b_lo + step, 16, 1024), 1);
+  }
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      float* __restrict__ dk_out, float* __restrict__ dv_out,
                       const float* __restrict__ lse,
                       const float* __restrict__ di,
                       const int* __restrict__ q_seg,
-                      const int* __restrict__ kv_seg, float* __restrict__ dk,
-                      float* __restrict__ dv, int H, int Hkv, int Lq, int S,
-                      float sm_scale, float scale_log2, int causal,
-                      int q_offset) {
-  using L = SmemF32<D>;
-  constexpr int BQ = kTileF32;
-  extern __shared__ __align__(16) uint8_t smem_f32[];
-  const uint32_t sbase = smem_addr(smem_f32);
-  const uint8_t* smem = smem_f32;
-  auto tile = [=](int off) {
-    return reinterpret_cast<const float*>(smem + off);
-  };
-  int* sSeg = reinterpret_cast<int*>(smem_f32 + L::kSeg);
-  float* sLse = reinterpret_cast<float*>(smem_f32 + L::kLse);
-  float* sDi = reinterpret_cast<float*>(smem_f32 + L::kDi);
+                      const int* __restrict__ kv_seg, int H, int Hkv, int Lq,
+                      int S, float sm_scale, float scale_log2, int causal,
+                      int q_offset, int mask_all) {
+  using L = SmemDkvF32<D>;
+  constexpr int BQ = kTileQF32;
+  constexpr int kStages = kStagesDkvF32;
+  constexpr int MB = D / 64;  // 64-row d blocks of dK^T and dV^T
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sbase = smem_addr(smem);
+  int* sSeg = reinterpret_cast<int*>(smem + L::kSeg);
+  float* sLse = reinterpret_cast<float*>(smem + L::kLse);
+  float* sDi = reinterpret_cast<float*>(smem + L::kDi);
+  int* sInfo = reinterpret_cast<int*>(smem + L::kInfo);
+  const uint32_t bar_kv = sbase + L::kBar;
+  const uint32_t bar_full = bar_kv + 8;
+  const uint32_t bar_ready = bar_full + 8 * kStages;
+  const uint32_t bar_empty = bar_ready + 8 * kStages;
 
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
   // kv tile 0 is seen by every q row (causal): the heaviest blocks first
-  const int k0 = static_cast<int>(blockIdx.z) * kRowsF32;
+  const int k0 = static_cast<int>(blockIdx.z) * kRowsDkvF32;
   const int group = H / Hkv;
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
 
   const int n_qtiles = (Lq + BQ - 1) / BQ;
-  // first q tile whose last row can see kv row k0 (causal):
-  // q_offset + q0 + BQ - 1 >= k0
+  // first q tile whose last row can see kv row k0 (causal)
   const int first = causal ? min(max(k0 - q_offset, 0) / BQ, n_qtiles) : 0;
   const int per_head = n_qtiles - first;
-  const int n_items = group * per_head;
+  const int n_tiles = group * per_head;
 
-  // q tile `first + i % per_head` of q head `hk group + i / per_head`:
-  // Q, dO, and its rows' segment ids, LSE (log2 units) and Di, into
-  // stage i % 2
-  auto load_tile = [&](int i) {
-    const int s = i & 1;
-    const int hq = hk * group + i / per_head;
-    const int q0 = (first + i % per_head) * BQ;
-    tf32x3::load_rows<BQ, D>(sbase + L::kS0 + s * L::kTile, q, b, Lq, H, hq,
-                             q0, tid, kThreadsF32);
-    tf32x3::load_rows<BQ, D>(sbase + L::kS1 + s * L::kTile, dout, b, Lq, H,
-                             hq, q0, tid, kThreadsF32);
-    for (int r = tid; r < BQ; r += kThreadsF32) {
-      const bool in = q0 + r < Lq;
-      const long row = ((long)b * H + hq) * Lq + q0 + r;
-      sSeg[s * BQ + r] = in ? q_seg[(long)b * Lq + q0 + r] : 0;
-      sLse[s * BQ + r] = in ? lse[row] * kLog2e : 0.f;
-      sDi[s * BQ + r] = in ? di[row] : 0.f;
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);
+      mbar_init(bar_ready + 8 * s, kConvertersF32);
+      mbar_init(bar_empty + 8 * s, 8);
     }
-  };
-  tf32x3::load_rows<kRowsF32, D>(sbase + L::kA, k, b, S, Hkv, hk, k0, tid,
-                                 kThreadsF32);
-  tf32x3::load_rows<kRowsF32, D>(sbase + L::kB, v, b, S, Hkv, hk, k0, tid,
-                                 kThreadsF32);
-  if (n_items > 0) load_tile(0);
-  tf32x3::cp_async_commit();
-
-  const int r0 = k0 + warp * 16 + g;  // this thread's kv rows
-  const int r1 = r0 + 8;
-  const int kseg0 = r0 < S ? kv_seg[(long)b * S + r0] : 0;
-  const int kseg1 = r1 < S ? kv_seg[(long)b * S + r1] : 0;
-
-  float acc_k[D / 8][4], acc_v[D / 8][4];
-  tf32x3::zero(acc_k);
-  tf32x3::zero(acc_v);
-  for (int i = 0; i < n_items; ++i) {
-    if (i + 1 < n_items) {
-      load_tile(i + 1);
-      tf32x3::cp_async_commit();
-      tf32x3::cp_async_wait<1>();
-    } else {
-      tf32x3::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int s = i & 1;
-    const int q0 = (first + i % per_head) * BQ;
-    const float* sQ = tile(L::kS0 + s * L::kTile);
-    const float* sDO = tile(L::kS1 + s * L::kTile);
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-    tf32x3::scores<D>(st, tile(L::kA), warp * 16, sQ, g, t);   // S^T = K Q^T
-    tf32x3::scores<D>(dpt, tile(L::kB), warp * 16, sDO, g, t); // dP^T = V dO^T
-    // P^T into st, dS^T into dpt (columns are q rows)
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = nt * 8 + 2 * t + e;
-        const int qseg = sSeg[s * BQ + col];
-        const int qpos = q_offset + q0 + col;
-        const float ls = sLse[s * BQ + col], d_i = sDi[s * BQ + col];
-        const bool ok0 =
-            kseg0 != 0 && qseg == kseg0 && (!causal || qpos >= r0);
-        const bool ok1 =
-            kseg1 != 0 && qseg == kseg1 && (!causal || qpos >= r1);
-        const float p0 = ok0 ? exp2f(st[nt][e] * scale_log2 - ls) : 0.f;
-        const float p1 = ok1 ? exp2f(st[nt][2 + e] * scale_log2 - ls) : 0.f;
-        st[nt][e] = p0;
-        st[nt][2 + e] = p1;
-        dpt[nt][e] = p0 * (dpt[nt][e] - d_i) * sm_scale;
-        dpt[nt][2 + e] = p1 * (dpt[nt][2 + e] - d_i) * sm_scale;
+    fence_barrier_init();
+  }
+  if (!__syncthreads_or(tid < kRowsDkvF32 && k0 + tid < S &&
+                        kv_seg[(long)b * S + k0 + tid] != 0)) {
+    // 64 padding rows: zero gradients
+    for (int i = tid; i < kRowsDkvF32 * D; i += kThreads) {
+      const int r = k0 + i / D;
+      if (r < S) {
+        const long at = (((long)b * S + r) * Hkv + hk) * D + i % D;
+        dk_out[at] = 0.f;
+        dv_out[at] = 0.f;
       }
     }
-    tf32x3::accumulate<D, BQ / 8, 4>(acc_v, st, sDO, g, t);  // dV += P^T dO
-    tf32x3::accumulate<D, BQ / 8, 4>(acc_k, dpt, sQ, g, t);  // dK += dS^T Q
-    __syncthreads();  // stage s is free for item i + 2
+    return;
   }
-  if (n_items == 0) tf32x3::cp_async_wait<0>();
-  store_rows_f32<D>(dk, acc_k, b, S, Hkv, hk, r0, t);
-  store_rows_f32<D>(dv, acc_v, b, S, Hkv, hk, r0, t);
+
+  if (tid < 128) {
+    reg_dealloc<40>();
+    if (tid < 32) {
+      // ------------------------------------------------------ producer
+      const int lane = tid;
+      if (lane == 0) {
+        prefetch_tensormap(&tk);
+        prefetch_tensormap(&tv);
+        prefetch_tensormap(&tq);
+        prefetch_tensormap(&tdo);
+        mbar_arrive_expect_tx(bar_kv, 2 * L::kOwn);
+#pragma unroll
+        for (int c = 0; c < L::kBoxes; ++c) {
+          tma_load_3d(sbase + L::kK + c * 64 * 128, &tk, bar_kv, hk * D + c * 32,
+                      k0, b);
+          tma_load_3d(sbase + L::kV + c * 64 * 128, &tv, bar_kv, hk * D + c * 32,
+                      k0, b);
+        }
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const uint32_t st = sbase + L::kRing + s * L::kStage;
+        const int h = hk * group + j / per_head;
+        const int q0 = (first + j % per_head) * BQ;
+        const int r = q0 + lane;
+        const bool in = r < Lq;
+        const long row = ((long)b * H + h) * Lq + r;
+        const int seg = in ? q_seg[(long)b * Lq + r] : 0;
+        const float ls = in ? lse[row] * kLog2e : 0.f;
+        const float d_i = in ? di[row] : 0.f;
+        const int mn = warp_min(seg), mx = warp_max(seg);
+        mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
+        sSeg[s * BQ + lane] = seg;
+        sLse[s * BQ + lane] = ls;
+        sDi[s * BQ + lane] = d_i;
+        if (lane == 0) {
+          sInfo[2 * s] = mn;
+          sInfo[2 * s + 1] = mx;
+          if (mn == 0 && mx == 0) {  // all padding: nobody reads the tile
+            mbar_arrive(bar_full + 8 * s);
+            continue;
+          }
+          mbar_arrive_expect_tx(bar_full + 8 * s, 2 * L::kTile);
+#pragma unroll
+          for (int c = 0; c < L::kBoxes; ++c) {
+            tma_load_3d(st + L::kQ + c * BQ * 128, &tq, bar_full + 8 * s,
+                        h * D + c * 32, q0, b);
+            tma_load_3d(st + L::kDO + c * BQ * 128, &tdo, bar_full + 8 * s,
+                        h * D + c * 32, q0, b);
+          }
+        } else {
+          mbar_arrive(bar_full + 8 * s);
+        }
+      }
+    } else {
+      // ---------------------------------------------------- converters
+      const int ct = tid - 32;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        uint8_t* st = smem + L::kRing + s * L::kStage;
+        mbar_wait(bar_full + 8 * s, (j / kStages) & 1);
+        if (sInfo[2 * s] != 0 || sInfo[2 * s + 1] != 0) {  // loaded
+          tf32x3::split_tile<BQ, D>(st + L::kQ, st + L::kQlo, ct,
+                                    kConvertersF32);
+          tf32x3::split_tile<BQ, D>(st + L::kDO, st + L::kDOlo, ct,
+                                    kConvertersF32);
+          fence_proxy_async();
+        }
+        mbar_arrive(bar_ready + 8 * s);
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    reg_alloc<232>();
+    const int cw = tid / 128 - 1;  // 0: S^T, P^T, dS^T, dK; 1: dP^T, dV
+    const int t = tid % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int g = lane / 4, c4 = lane % 4;
+    const int r0 = k0 + warp * 16 + g;  // the kv rows of this thread
+    const int r1 = r0 + 8;
+    const int kseg0 = r0 < S ? kv_seg[(long)b * S + r0] : 0;
+    const int kseg1 = r1 < S ? kv_seg[(long)b * S + r1] : 0;
+    const int k_mn = warp_min(min(kseg0, kseg1));
+    const int k_mx = warp_max(max(kseg0, kseg1));
+    const int warp_last = k0 + warp * 16 + 15;  // its last kv row
+    uint8_t* x = smem + L::kX;
+    const uint32_t xs = sbase + L::kX;
+
+    mbar_wait(bar_kv, 0);
+    uint32_t own_lo[D / 8][4];
+    tf32x3::split_rows<D>(smem + (cw == 0 ? L::kK : L::kV), own_lo, warp,
+                          g, c4);
+    fence_proxy_async();
+    bar_sync(1 + cw, 128);  // the warpgroup's K or V hi in place
+    const uint32_t own = sbase + (cw == 0 ? L::kK : L::kV);
+
+    // dK^T (warpgroup 1) or dV^T (warpgroup 2): d rows 64 m + (0..63) by
+    // kv columns 32 c + (0..31), in the m64n32 layout
+    float acc[MB][2][16];
+#pragma unroll
+    for (int m = 0; m < MB; ++m)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[m][c][i] = 0.f;
+    // Byte offsets in a row tile ([D/32 boxes][32 q rows][128 B]) of this
+    // thread's A fragment of dO^T or Q^T at d block 0, k step 0: a0 (d0,
+    // q c4), a1 (d0 + 8, c4), a2 (d0, c4 + 4), a3 (d0 + 8, c4 + 4); k step
+    // kk adds 8 rows (1,024 bytes), d block m two boxes.
+    uint32_t a_off[4];
+    {
+      const int d0 = warp * 16 + g;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = d0 + (i & 1) * 8, q = c4 + (i >> 1) * 4;
+        a_off[i] = (d / 32) * BQ * 128 + tf32x3::sw128_f32(q, d % 32);
+      }
+    }
+
+    // acc += (A^T B), A^T the register fragments of the row tile `rows`
+    // (hi) and `rows_lo`, read by hand, B the exchange tile `bh` / `bl`
+    // ([64 kv rows][32 q], K-major): each d block and 32-column chunk from
+    // zero (hi-hi apart from the cross terms), added in fp32
+    auto accumulate = [&](const uint8_t* rows, const uint8_t* rows_lo,
+                          uint32_t bh, uint32_t bl) {
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        uint32_t ah[BQ / 8][4], al[BQ / 8][4];
+#pragma unroll
+        for (int kk = 0; kk < BQ / 8; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint32_t off = a_off[i] + m * 2 * BQ * 128 + kk * 1024;
+            ah[kk][i] = *reinterpret_cast<const uint32_t*>(rows + off);
+            al[kk][i] = *reinterpret_cast<const uint32_t*>(rows_lo + off);
+          }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float big[16], small[16];
+          fence_regs(ah);
+          fence_regs(al);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 8; ++kk) {
+            const uint32_t off = c * 32 * 128 + kk * 32;
+            const uint64_t dh = sw128_desc(bh + off, 16, 1024);
+            tf32x3::wgmma_rs32(big, ah[kk], dh, kk > 0);
+            tf32x3::wgmma_rs32(small, al[kk], dh, kk > 0);
+            tf32x3::wgmma_rs32(small, ah[kk], sw128_desc(bl + off, 16, 1024),
+                               1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(big);
+          fence_regs(small);
+          fence_regs(ah);
+          fence_regs(al);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) acc[m][c][i] += big[i] + small[i];
+        }
+      }
+    };
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    };
+    // (m, element) of the exchange tiles this thread writes or reads: the
+    // m64n32 accumulator's rows kv 16 warp + g (+ 8), columns q
+    auto xoff = [&](int nt, int hf) {
+      return tf32x3::sw128_f32(warp * 16 + g + 8 * hf, nt * 8 + c4 * 2);
+    };
+
+    bool any = false;  // a tile processed: the exchange barriers are primed
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(bar_ready + 8 * s, (j / kStages) & 1);
+      const int q0 = (first + j % per_head) * BQ;
+      const int q_mn = sInfo[2 * s], q_mx = sInfo[2 * s + 1];
+      if ((q_mn == 0 && q_mx == 0) ||
+          (causal && q_offset + q0 + BQ - 1 < k0)) {  // nothing to see
+        release(s);
+        continue;
+      }
+      uint8_t* st = smem + L::kRing + s * L::kStage;
+      const uint32_t sts = sbase + L::kRing + s * L::kStage;
+      float sc[16], sx[16];  // S^T (or dP^T): the hi-hi chain, cross terms
+      fence_regs(sc);
+      fence_regs(sx);
+      wgmma_fence();
+      // S^T against Q (warpgroup 1) or dP^T against dO (warpgroup 2): one
+      // call with the operands selected, not two branches (wgmma in a
+      // divergent path is serialized)
+      issue_scores<D>(sc, sx, own, own_lo, sts + (cw == 0 ? L::kQ : L::kDO),
+                      sts + (cw == 0 ? L::kQlo : L::kDOlo));
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(sx);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sc[i] += sx[i];
+      if (cw == 0) {
+        // P^T = where(mask, exp2(S^T scale log2(e) - LSE log2(e)), 0): rows
+        // kv, columns q (the bf16 kernel's, at 32 columns)
+        const float* lse2 = sLse + s * BQ;
+        const bool interior = !mask_all && q_mn != 0 && q_mn == q_mx &&
+                              k_mn == q_mn && k_mx == q_mn &&
+                              (!causal || q_offset + q0 >= warp_last);
+        if (interior) {
+#pragma unroll
+          for (int nt = 0; nt < BQ / 8; ++nt) {
+            const float2 l =
+                *reinterpret_cast<const float2*>(lse2 + nt * 8 + c4 * 2);
+            sc[nt * 4 + 0] = exp2f(fmaf(sc[nt * 4 + 0], scale_log2, -l.x));
+            sc[nt * 4 + 1] = exp2f(fmaf(sc[nt * 4 + 1], scale_log2, -l.y));
+            sc[nt * 4 + 2] = exp2f(fmaf(sc[nt * 4 + 2], scale_log2, -l.x));
+            sc[nt * 4 + 3] = exp2f(fmaf(sc[nt * 4 + 3], scale_log2, -l.y));
+          }
+        } else {
+          const int* qs = sSeg + s * BQ;
+#pragma unroll
+          for (int nt = 0; nt < BQ / 8; ++nt) {
+            const int col = nt * 8 + c4 * 2;
+            const float2 l = *reinterpret_cast<const float2*>(lse2 + col);
+            const int2 qseg = *reinterpret_cast<const int2*>(qs + col);
+            const int qpos = q_offset + q0 + col;
+            const bool ok00 = kseg0 != 0 && qseg.x == kseg0 &&
+                              (!causal || qpos >= r0);
+            const bool ok01 = kseg0 != 0 && qseg.y == kseg0 &&
+                              (!causal || qpos + 1 >= r0);
+            const bool ok10 = kseg1 != 0 && qseg.x == kseg1 &&
+                              (!causal || qpos >= r1);
+            const bool ok11 = kseg1 != 0 && qseg.y == kseg1 &&
+                              (!causal || qpos + 1 >= r1);
+            const float p00 = exp2f(fmaf(sc[nt * 4 + 0], scale_log2, -l.x));
+            const float p01 = exp2f(fmaf(sc[nt * 4 + 1], scale_log2, -l.y));
+            const float p10 = exp2f(fmaf(sc[nt * 4 + 2], scale_log2, -l.x));
+            const float p11 = exp2f(fmaf(sc[nt * 4 + 3], scale_log2, -l.y));
+            sc[nt * 4 + 0] = ok00 ? p00 : 0.f;
+            sc[nt * 4 + 1] = ok01 ? p01 : 0.f;
+            sc[nt * 4 + 2] = ok10 ? p10 : 0.f;
+            sc[nt * 4 + 3] = ok11 ? p11 : 0.f;
+          }
+        }
+        if (any) bar_sync(kBarPFree, 256);  // dV of the last tile is done
+        // P^T, split, for warpgroup 2's dV
+#pragma unroll
+        for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            uint32_t h0, l0, h1, l1;
+            tf32x3::split(sc[nt * 4 + 2 * hf], h0, l0);
+            tf32x3::split(sc[nt * 4 + 2 * hf + 1], h1, l1);
+            *reinterpret_cast<uint2*>(x + L::kPhi + xoff(nt, hf)) =
+                make_uint2(h0, h1);
+            *reinterpret_cast<uint2*>(x + L::kPlo + xoff(nt, hf)) =
+                make_uint2(l0, l1);
+          }
+        fence_proxy_async();
+        bar_arrive(kBarPFull, 256);
+        bar_sync(kBarDPFull, 256);  // dP^T in the dS^T lo tile
+        // dS^T = P^T (dP^T - Di) scale, split, over dP^T (each thread reads
+        // the elements it then writes)
+        const float* dis = sDi + s * BQ;
+#pragma unroll
+        for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float2 d = *reinterpret_cast<const float2*>(dis + nt * 8 +
+                                                              c4 * 2);
+            const float2 dp =
+                *reinterpret_cast<const float2*>(x + L::kSlo + xoff(nt, hf));
+            const float s0 = sc[nt * 4 + 2 * hf] * (dp.x - d.x) * sm_scale;
+            const float s1 = sc[nt * 4 + 2 * hf + 1] * (dp.y - d.y) * sm_scale;
+            uint32_t h0, l0, h1, l1;
+            tf32x3::split(s0, h0, l0);
+            tf32x3::split(s1, h1, l1);
+            *reinterpret_cast<uint2*>(x + L::kShi + xoff(nt, hf)) =
+                make_uint2(h0, h1);
+            *reinterpret_cast<uint2*>(x + L::kSlo + xoff(nt, hf)) =
+                make_uint2(l0, l1);
+          }
+        fence_proxy_async();
+        bar_sync(1, 128);  // dS^T whole for this warpgroup's products
+        accumulate(st + L::kQ, st + L::kQlo, xs + L::kShi, xs + L::kSlo);
+        bar_arrive(kBarDPFree, 256);  // the dS^T tiles may take dP^T again
+      } else {
+        if (any) bar_sync(kBarDPFree, 256);  // dK of the last tile is done
+        // dP^T, whole, for warpgroup 1
+#pragma unroll
+        for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            *reinterpret_cast<float2*>(x + L::kSlo + xoff(nt, hf)) =
+                make_float2(sc[nt * 4 + 2 * hf], sc[nt * 4 + 2 * hf + 1]);
+        bar_arrive(kBarDPFull, 256);
+        bar_sync(kBarPFull, 256);  // P^T ready
+        accumulate(st + L::kDO, st + L::kDOlo, xs + L::kPhi, xs + L::kPlo);
+        bar_arrive(kBarPFree, 256);
+      }
+      release(s);
+      any = true;
+    }
+    // the last tile's free barrier, so that every arrival is matched
+    if (any) bar_sync(cw == 0 ? kBarPFree : kBarDPFree, 256);
+
+    // dK (warpgroup 1) or dV: element (e of chunk c, d block m) of acc is
+    // d row 64 m + 16 warp + g (+ 8), kv row k0 + 32 c + 8 (e / 4) + 2 c4
+    // (+ 1)
+    float* outp = cw == 0 ? dk_out : dv_out;
+#pragma unroll
+    for (int m = 0; m < MB; ++m)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int d = 64 * m + warp * 16 + g + (i & 2 ? 8 : 0);
+          const int r = k0 + c * 32 + (i / 4) * 8 + c4 * 2 + (i & 1);
+          if (r < S)
+            outp[(((long)b * S + r) * Hkv + hk) * D + d] = acc[m][c][i];
+        }
+  }
 }
 
 struct Args {
@@ -1260,7 +1613,18 @@ cudaError_t launch_dq_f32(const Args& a, void* dq) {
 
 template <int D>
 cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
-  constexpr int smem = SmemF32<D>::kBytes;
+  CUtensorMap tq, tk, tv, tdo;
+  auto map = [&](CUtensorMap* m, const void* base, int L, int heads,
+                 int rows) {
+    return make_map_3d(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base,
+                       (uint64_t)heads * D, L, a.B, 32, rows, kSw128);
+  };
+  if (!map(&tq, a.q, a.Lq, a.H, kTileQF32) ||
+      !map(&tdo, a.dout, a.Lq, a.H, kTileQF32) ||
+      !map(&tk, a.k, a.S, a.Hkv, kRowsDkvF32) ||
+      !map(&tv, a.v, a.S, a.Hkv, kRowsDkvF32))
+    return cudaErrorNotSupported;
+  constexpr int smem = SmemDkvF32<D>::kAlloc;
   static bool attribute_set = false;
   if (!attribute_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1269,14 +1633,13 @@ cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
     if (err != cudaSuccess) return err;
     attribute_set = true;
   }
-  dim3 grid(a.Hkv, a.B, (a.S + kRowsF32 - 1) / kRowsF32);
-  fa_bwd_dkv_f32_kernel<D><<<grid, kThreadsF32, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+  dim3 grid(a.Hkv, a.B, (a.S + kRowsDkvF32 - 1) / kRowsDkvF32);
+  fa_bwd_dkv_f32_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<float*>(dk), static_cast<float*>(dv),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
       static_cast<const int*>(a.q_seg), static_cast<const int*>(a.kv_seg),
-      static_cast<float*>(dk), static_cast<float*>(dv), a.H, a.Hkv, a.Lq,
-      a.S, a.sm_scale, a.sm_scale * kLog2e, a.causal, a.q_offset);
+      a.H, a.Hkv, a.Lq, a.S, a.sm_scale, a.sm_scale * kLog2e, a.causal,
+      a.q_offset, a.mask_all);
   return cudaGetLastError();
 }
 
@@ -1378,6 +1741,8 @@ extern "C" int mc_flash_attention_bwd_dkv_mask_all(
 // Dynamic shared memory of one block (bytes) of K3 (dkv = 0) or K4 at
 // `dtype`, for the build report.
 extern "C" int mc_flash_attention_bwd_smem(int dkv, int D, int dtype) {
+  if (dtype == kFloat32 && dkv)
+    return D == 128 ? SmemDkvF32<128>::kAlloc : SmemDkvF32<64>::kAlloc;
   if (dtype == kFloat32)
     return D == 128 ? SmemF32<128>::kBytes : SmemF32<64>::kBytes;
   if (dkv) return D == 128 ? SmemDkv<128>::kAlloc : SmemDkv<64>::kAlloc;

@@ -430,182 +430,368 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }
 
 // ------------------------------------------------------------------- fp32
-// The fp32 instantiation: the same function at fp32 operands, as the JAX
-// kernel computes it (its dots at fp32 with fp32 accumulation, and
-// _gemm2_cast the identity, so P stays fp32 for P.V).  Both products are
-// 3xTF32 on the tensor cores through mma.sync (csrc/tf32x3.cuh): wgmma's
-// tf32 form takes no transposed V.  Simple first: one block per (128-row q
-// tile, head, batch row), eight warps of 16 rows, each warp its rows'
-// whole online softmax in registers (no warp specialization, no TMA); Q is
-// loaded once and K/V (with the tile's kv segment ids) pass through two
-// stages of cp.async, the next tile's copies in flight during this one's
-// math; every element goes through the mask (`mask_all` changes nothing).
-// Bounded by operations: three tf32 products for each fp32 one.
-constexpr int kRowsF32 = 128;  // q rows per block: eight warps of 16
-constexpr int kColsF32 = 64;   // kv rows per tile
-constexpr int kThreadsF32 = 256;
+// The fp32 kernel: the same function at fp32 operands, as the JAX kernel
+// computes it (its dots at fp32 with fp32 accumulation, and _gemm2_cast the
+// identity, so P stays fp32 for P.V).  Both products are 3xTF32 on wgmma
+// (csrc/tf32x3.cuh: each operand split once into tf32 hi and lo, the
+// hi-hi chain and the cross terms in accumulators of their own).  Bounded
+// by operations: three tf32 products for each fp32 one.  The design:
+//   - one block per (128-row q tile, head, batch row), 384 threads: warp 0
+//     issues every TMA load; warps 1-3 (the converters) split each kv tile
+//     once it lands (warp 0 splitting too, after its loads, was 6% slower:
+//     the next load waited on its share); warpgroups 1 and 2 (setmaxnreg
+//     232) own 64 q rows each;
+//   - TMA maps as the bf16 kernel's, with 32-column (128-byte) boxes: Q
+//     once, K and V through a two-stage ring of 32-row tiles (barriers:
+//     full, landed; ready, split; empty, read by the products);
+//   - the converters split K in place (hi over the landed words, lo into a
+//     tile beside it) and write V transposed, hi and lo, with each 8-row
+//     block in the permuted k order, as the K-major B operand of P.V;
+//   - each consumer warpgroup splits its own 64 Q rows once: hi in place
+//     (the shared-memory A operand), lo into registers (the register A
+//     operand of Q_lo K_hi);
+//   - S = Q_hi K_hi (from zero) and Q_lo K_hi + Q_hi K_lo (an accumulator
+//     of its own) are m64n32k8 wgmma; the online softmax is the bf16
+//     kernel's, with the mask skipped on interior tiles; P, split, is the
+//     register A operand of P.V against V^T hi and lo, 32 columns of D at
+//     a time, each tile's product added to O in fp32;
+//   - shared memory is the limit: Q (64 KB at D = 128) and two stages of
+//     K, K lo, raw V, V^T hi and V^T lo (80 KB each) fill 224 KB, so kv
+//     tiles are 32 rows and Q's lo lives in registers.
+constexpr int kRowsF32 = 128;   // q rows per block: two warpgroups of 64
+constexpr int kColsF32 = 32;    // kv rows per tile
+constexpr int kStagesF32 = 2;   // K/V ring depth
+constexpr int kConverters = 96;  // warps 1-3 split the kv tiles
+constexpr int kBoxF32 = 32;     // fp32 columns per TMA box: 128 bytes
 
-// Shared memory of the fp32 block, in bytes: row-major fp32 tiles of row
-// stride D + 4 (tf32x3.cuh), Q, then two stages of K, V and segment ids.
+// Shared memory of the fp32 block, in bytes from a 1024-aligned base.  Q
+// is [2 halves][D/32 boxes][64 rows][128 B] (hi once split); a stage holds
+// K (split in place), K lo and the raw V as [D/32 boxes][32 rows][128 B],
+// and V^T hi and lo as [D rows][128 B].
 template <int D>
 struct SmemF32 {
-  static constexpr int kLd = tf32x3::stride<D>();
-  static constexpr int kTile = kColsF32 * kLd * 4;  // one K or V tile
+  static constexpr int BN = kColsF32;
+  static constexpr int kBoxes = D / kBoxF32;
+  static constexpr int kTile = BN * D * 4;  // one 32-row tile, any layout
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kRowsF32 * kLd * 4;
-  static constexpr int kV = kK + 2 * kTile;
-  static constexpr int kSeg = kV + 2 * kTile;  // int [2][kColsF32]
-  static constexpr int kBytes = kSeg + 2 * kColsF32 * 4;
+  static constexpr int kRing = kQ + kRowsF32 * D * 4;
+  static constexpr int kK = 0, kKlo = kTile, kV = 2 * kTile, kVhi = 3 * kTile,
+                       kVlo = 4 * kTile;  // within a stage
+  static constexpr int kStage = 5 * kTile;
+  static constexpr int kSeg = kRing + kStagesF32 * kStage;  // int [stages][BN]
+  static constexpr int kInfo = kSeg + kStagesF32 * BN * 4;  // int [stages][2]
+  // q, full[stages] (landed), ready[stages] (split), empty[stages] (read)
+  static constexpr int kBar = kInfo + kStagesF32 * 2 * 4;
+  static constexpr int kBytes = kBar + (1 + 3 * kStagesF32) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
 };
-static_assert(SmemF32<128>::kBytes <= 232448, "one fp32 block fits an SM");
+static_assert(SmemF32<128>::kAlloc <= 232448, "one fp32 block fits an SM");
+static_assert(kColsF32 == 32 && kConverters % 32 == 0,
+              "transpose_split_tile: 32 rows, a row a lane");
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsF32, 1)
-fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const int* __restrict__ q_seg,
+__global__ void __launch_bounds__(kThreads, 1)
+fa_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const int* __restrict__ q_seg,
                   const int* __restrict__ kv_seg, float* __restrict__ out,
                   float* __restrict__ lse, int H, int Hkv, int Lq, int S,
-                  float scale_log2, int causal, int q_offset, int n_qtiles) {
+                  float scale_log2, int causal, int q_offset, int n_qtiles,
+                  int mask_all) {
   using L = SmemF32<D>;
   constexpr int BN = kColsF32;
-  extern __shared__ __align__(16) uint8_t smem_f32[];
-  const uint32_t sbase = smem_addr(smem_f32);
-  const float* sQ = reinterpret_cast<const float*>(smem_f32 + L::kQ);
-  int* sSeg = reinterpret_cast<int*>(smem_f32 + L::kSeg);
+  constexpr int kStages = kStagesF32;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sbase = smem_addr(smem);
+  int* sSeg = reinterpret_cast<int*>(smem + L::kSeg);
+  int* sInfo = reinterpret_cast<int*>(smem + L::kInfo);
+  const uint32_t bar_q = sbase + L::kBar;
+  const uint32_t bar_full = bar_q + 8;                 // + 8 * stage
+  const uint32_t bar_ready = bar_full + 8 * kStages;   // + 8 * stage
+  const uint32_t bar_empty = bar_ready + 8 * kStages;  // + 8 * stage
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int q0 = (n_qtiles - 1 - static_cast<int>(blockIdx.z)) * kRowsF32;
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
 
   int n_tiles = (S + BN - 1) / BN;
   if (causal) n_tiles = min(n_tiles, (q_offset + q0 + kRowsF32 - 1) / BN + 1);
 
-  // kv tile j (K, V and its segment ids) into stage j % 2
-  auto load_tile = [&](int j) {
-    const int s = j & 1, k0 = j * BN;
-    tf32x3::load_rows<BN, D>(sbase + L::kK + s * L::kTile, k, b, S, Hkv, hk,
-                             k0, tid, kThreadsF32);
-    tf32x3::load_rows<BN, D>(sbase + L::kV + s * L::kTile, v, b, S, Hkv, hk,
-                             k0, tid, kThreadsF32);
-    for (int i = tid; i < BN; i += kThreadsF32)
-      sSeg[s * BN + i] = k0 + i < S ? kv_seg[(long)b * S + k0 + i] : 0;
-  };
-  tf32x3::load_rows<kRowsF32, D>(sbase + L::kQ, q, b, Lq, H, h, q0, tid,
-                                 kThreadsF32);
-  load_tile(0);
-  tf32x3::cp_async_commit();
-
-  const int r0 = q0 + warp * 16 + g;
-  const int r1 = r0 + 8;
-  const int seg0 = r0 < Lq ? q_seg[(long)b * Lq + r0] : 0;
-  const int seg1 = r1 < Lq ? q_seg[(long)b * Lq + r1] : 0;
-  const int pos0 = q_offset + r0, pos1 = q_offset + r1;
-
-  float o[D / 8][4];
-  tf32x3::zero(o);
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      load_tile(j + 1);
-      tf32x3::cp_async_commit();
-      tf32x3::cp_async_wait<1>();
-    } else {
-      tf32x3::cp_async_wait<0>();
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);            // every producer lane
+      mbar_init(bar_ready + 8 * s, kConverters);  // every converter thread
+      mbar_init(bar_empty + 8 * s, 8);            // every consumer warp
     }
-    __syncthreads();  // tile j (and Q) visible to every warp
-    const int s = j & 1, k0 = j * BN;
-    const float* sK = reinterpret_cast<const float*>(smem_f32 + L::kK +
-                                                     s * L::kTile);
-    const float* sV = reinterpret_cast<const float*>(smem_f32 + L::kV +
-                                                     s * L::kTile);
-    const int* seg = sSeg + s * BN;
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    // S = Q K^T, 16 x BN per warp
-    float sc[BN / 8][4];
-    tf32x3::scores<D>(sc, sQ, warp * 16, sK, g, t);
-
-    // mask and scale (log2 units), then the online softmax: sc becomes P
-    float mx0 = kNegInf, mx1 = kNegInf;
+  if (tid < 128) {
+    reg_dealloc<40>();
+    if (tid < 32) {
+      // ------------------------------------------------------ producer
+      const int lane = tid;
+      if (lane == 0) {
+        prefetch_tensormap(&tq);
+        prefetch_tensormap(&tk);
+        prefetch_tensormap(&tv);
+        mbar_arrive_expect_tx(bar_q, kRowsF32 * D * 4);
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
+        for (int half = 0; half < 2; ++half)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = nt * 8 + 2 * t + e;
-        const int kseg = seg[col];
-        const int kpos = k0 + col;
-        const bool ok0 =
-            kseg != 0 && kseg == seg0 && (!causal || pos0 >= kpos);
-        const bool ok1 =
-            kseg != 0 && kseg == seg1 && (!causal || pos1 >= kpos);
-        sc[nt][e] = ok0 ? sc[nt][e] * scale_log2 : kNegInf;
-        sc[nt][2 + e] = ok1 ? sc[nt][2 + e] * scale_log2 : kNegInf;
-        mx0 = fmaxf(mx0, sc[nt][e]);
-        mx1 = fmaxf(mx1, sc[nt][2 + e]);
+          for (int c = 0; c < L::kBoxes; ++c)
+            tma_load_3d(sbase + L::kQ + (half * L::kBoxes + c) * 64 * 128,
+                        &tq, bar_q, h * D + c * kBoxF32, q0 + half * 64, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const uint32_t st = sbase + L::kRing + s * L::kStage;
+        mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
+        const int k0 = j * BN;
+        const int seg = k0 + lane < S ? kv_seg[(long)b * S + k0 + lane] : 0;
+        sSeg[s * BN + lane] = seg;
+        const int mn = warp_min(seg), mx = warp_max(seg);
+        if (lane == 0) {
+          sInfo[2 * s] = mn;
+          sInfo[2 * s + 1] = mx;
+          mbar_arrive_expect_tx(bar_full + 8 * s, 2 * L::kTile);
+#pragma unroll
+          for (int c = 0; c < L::kBoxes; ++c) {
+            tma_load_3d(st + L::kK + c * BN * 128, &tk, bar_full + 8 * s,
+                        hk * D + c * kBoxF32, k0, b);
+            tma_load_3d(st + L::kV + c * BN * 128, &tv, bar_full + 8 * s,
+                        hk * D + c * kBoxF32, k0, b);
+          }
+        } else {
+          mbar_arrive(bar_full + 8 * s);
+        }
+      }
+    } else {
+      // ---------------------------------------------------- converters
+      // K split in place (hi over x, lo beside it); V transposed into
+      // V^T hi and lo; then the stage is ready for the products.
+      const int ct = tid - 32;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        uint8_t* st = smem + L::kRing + s * L::kStage;
+        mbar_wait(bar_full + 8 * s, (j / kStages) & 1);
+        tf32x3::split_tile<BN, D>(st + L::kK, st + L::kKlo, ct, kConverters);
+        tf32x3::transpose_split_tile<D>(st + L::kV, st + L::kVhi,
+                                        st + L::kVlo, ct, kConverters);
+        fence_proxy_async();  // the generic writes, before wgmma reads them
+        mbar_arrive(bar_ready + 8 * s);
       }
     }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-    float rs0 = 0.f, rs1 = 0.f;
+  } else {
+    // ----------------------------------------------------------- consumers
+    reg_alloc<232>();
+    const int cw = tid / 128 - 1;  // which 64 rows of the q tile
+    const int t = tid % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int g = lane / 4;   // accumulator row within the warp's 8
+    const int c4 = lane % 4;  // accumulator column pair
+    const int r0 = q0 + cw * 64 + warp * 16 + g;
+    const int r1 = r0 + 8;
+    const int seg0 = r0 < Lq ? q_seg[(long)b * Lq + r0] : 0;
+    const int seg1 = r1 < Lq ? q_seg[(long)b * Lq + r1] : 0;
+    const int q_mn = warp_min(min(seg0, seg1));
+    const int q_mx = warp_max(max(seg0, seg1));
+    const int pos0 = q_offset + r0, pos1 = q_offset + r1;
+    const int warp_pos = q_offset + q0 + cw * 64 + warp * 16;  // its first row
+    int n_mine = n_tiles;  // kv tiles these 64 rows read
+    if (causal) n_mine = min(n_tiles, (q_offset + q0 + cw * 64 + 63) / BN + 1);
+    const uint32_t q_tile = sbase + L::kQ + cw * L::kBoxes * 64 * 128;
+
+    // Q, once: hi in place, lo as the register A operand of Q_lo K_hi
+    mbar_wait(bar_q, 0);
+    uint32_t qlo[D / 8][4];
+    tf32x3::split_rows<D>(smem + L::kQ + cw * L::kBoxes * 64 * 128, qlo, warp,
+                          g, c4);
+    fence_proxy_async();
+    bar_sync(1 + cw, 128);  // the warpgroup's Q hi in place for wgmma
+
+    float o[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      sc[nt][0] = exp2f(sc[nt][0] - mn0);
-      sc[nt][1] = exp2f(sc[nt][1] - mn0);
-      sc[nt][2] = exp2f(sc[nt][2] - mn1);
-      sc[nt][3] = exp2f(sc[nt][3] - mn1);
-      rs0 += sc[nt][0] + sc[nt][1];
-      rs1 += sc[nt][2] + sc[nt][3];
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float sc[BN / 2];  // S: the hi-hi chain, then S, then P
+    float sx[BN / 2];  // S: the cross terms
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+    // Scale (log2 units), mask where the tile needs it, online softmax:
+    // sc becomes P, (m, l) move on, and (a0, a1) rescale O.  The bf16
+    // kernel's, at 32 columns.
+    auto softmax = [&](int j, int s, float& a0, float& a1) {
+      const int k0 = j * BN;
+      const int k_mn = sInfo[2 * s], k_mx = sInfo[2 * s + 1];
+      const bool interior = !mask_all && k_mn != 0 && k_mn == k_mx &&
+                            q_mn == k_mn && q_mx == k_mn &&
+                            (!causal || k0 + BN - 1 <= warp_pos);
+      float mx0 = kNegInf, mx1 = kNegInf;
+      if (interior) {
+#pragma unroll
+        for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            sc[nt * 4 + e] *= scale_log2;
+            sc[nt * 4 + 2 + e] *= scale_log2;
+            mx0 = fmaxf(mx0, sc[nt * 4 + e]);
+            mx1 = fmaxf(mx1, sc[nt * 4 + 2 + e]);
+          }
+        }
+      } else {
+        const int* seg = sSeg + s * BN;
+#pragma unroll
+        for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = nt * 8 + c4 * 2 + e;
+            const int kseg = seg[col];
+            const int kpos = k0 + col;
+            const bool ok0 =
+                kseg != 0 && kseg == seg0 && (!causal || pos0 >= kpos);
+            const bool ok1 =
+                kseg != 0 && kseg == seg1 && (!causal || pos1 >= kpos);
+            sc[nt * 4 + e] = ok0 ? sc[nt * 4 + e] * scale_log2 : kNegInf;
+            sc[nt * 4 + 2 + e] = ok1 ? sc[nt * 4 + 2 + e] * scale_log2 : kNegInf;
+            mx0 = fmaxf(mx0, sc[nt * 4 + e]);
+            mx1 = fmaxf(mx1, sc[nt * 4 + 2 + e]);
+          }
+        }
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      a0 = exp2f(m0 - mn0);
+      a1 = exp2f(m1 - mn1);
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        sc[nt * 4 + 0] = exp2f(sc[nt * 4 + 0] - mn0);
+        sc[nt * 4 + 1] = exp2f(sc[nt * 4 + 1] - mn0);
+        sc[nt * 4 + 2] = exp2f(sc[nt * 4 + 2] - mn1);
+        sc[nt * 4 + 3] = exp2f(sc[nt * 4 + 3] - mn1);
+        rs0 += sc[nt * 4 + 0] + sc[nt * 4 + 1];
+        rs1 += sc[nt * 4 + 2] + sc[nt * 4 + 3];
+      }
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+      l0 = l0 * a0 + rs0;
+      l1 = l1 * a1 + rs1;
+      m0 = mn0;
+      m1 = mn1;
+    };
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    };
+
+    for (int j = 0; j < n_mine; ++j) {
+      const int s = j % kStages;
+      const uint32_t st = sbase + L::kRing + s * L::kStage;
+      mbar_wait(bar_ready + 8 * s, (j / kStages) & 1);
+      // S = Q_hi K_hi + (Q_lo K_hi + Q_hi K_lo), 8 columns of D a step
+      fence_regs(sc);
+      fence_regs(sx);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint32_t step = (kk / 4) * BN * 128 + (kk % 4) * 32;
+        const uint64_t dq =
+            sw128_desc(q_tile + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024);
+        const uint64_t dk = sw128_desc(st + L::kK + step, 16, 1024);
+        tf32x3::wgmma_ss32(sc, dq, dk, kk > 0);
+        tf32x3::wgmma_rs32(sx, qlo[kk], dk, kk > 0);
+        tf32x3::wgmma_ss32(sx, dq, sw128_desc(st + L::kKlo + step, 16, 1024),
+                           1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(sx);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sc[i] += sx[i];
+      float a0, a1;
+      softmax(j, s, a0, a1);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        o[dt * 4 + 0] *= a0;
+        o[dt * 4 + 1] *= a0;
+        o[dt * 4 + 2] *= a1;
+        o[dt * 4 + 3] *= a1;
+      }
+      // P, split once: the register A fragments of P.V
+      uint32_t ph[BN / 8][4], pl[BN / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk)
+        tf32x3::a_from_acc(sc + kk * 4, ph[kk], pl[kk]);
+      // O += P V, 32 columns of D at a time: the tile's hi-hi chain and
+      // cross terms from zero, added to O in fp32
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) {
+        float big[16], small[16];
+        fence_regs(ph);
+        fence_regs(pl);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 8; ++kk) {
+          const uint32_t off = c * 32 * 128 + kk * 32;
+          const uint64_t vh = sw128_desc(st + L::kVhi + off, 16, 1024);
+          tf32x3::wgmma_rs32(big, ph[kk], vh, kk > 0);
+          tf32x3::wgmma_rs32(small, pl[kk], vh, kk > 0);
+          tf32x3::wgmma_rs32(small, ph[kk],
+                             sw128_desc(st + L::kVlo + off, 16, 1024), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(big);
+        fence_regs(small);
+        fence_regs(ph);
+        fence_regs(pl);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) o[c * 16 + i] += big[i] + small[i];
+      }
+      release(s);
     }
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
-    m0 = mn0;
-    m1 = mn1;
+    // kv tiles wholly in the future of these 64 rows: released unread
+    for (int j = n_mine; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(bar_ready + 8 * s, (j / kStages) & 1);
+      release(s);
+    }
+
+    const float sl0 = l0 == 0.f ? 1.f : l0;
+    const float sl1 = l1 == 0.f ? 1.f : l1;
+    const float inv0 = 1.f / sl0, inv1 = 1.f / sl1;
+    const long q_stride = (long)H * D;
+    float* ob = out + (long)b * Lq * q_stride + (long)h * D;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
-      o[dt][0] *= a0;
-      o[dt][1] *= a0;
-      o[dt][2] *= a1;
-      o[dt][3] *= a1;
+      const int c = dt * 8 + c4 * 2;
+      if (r0 < Lq)
+        *reinterpret_cast<float2*>(ob + r0 * q_stride + c) =
+            make_float2(o[dt * 4 + 0] * inv0, o[dt * 4 + 1] * inv0);
+      if (r1 < Lq)
+        *reinterpret_cast<float2*>(ob + r1 * q_stride + c) =
+            make_float2(o[dt * 4 + 2] * inv1, o[dt * 4 + 3] * inv1);
     }
-
-    // O += P V, P in fp32 (the JAX kernel's _gemm2_cast is the identity)
-    tf32x3::accumulate<D, BN / 8, 8>(o, sc, sV, g, t);
-    __syncthreads();  // stage s is free for tile j + 2
-  }
-
-  const float sl0 = l0 == 0.f ? 1.f : l0;
-  const float sl1 = l1 == 0.f ? 1.f : l1;
-  const float inv0 = 1.f / sl0, inv1 = 1.f / sl1;
-  const long q_stride = (long)H * D;
-  float* ob = out + (long)b * Lq * q_stride + (long)h * D;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (r0 < Lq)
-      *reinterpret_cast<float2*>(ob + r0 * q_stride + c) =
-          make_float2(o[dt][0] * inv0, o[dt][1] * inv0);
-    if (r1 < Lq)
-      *reinterpret_cast<float2*>(ob + r1 * q_stride + c) =
-          make_float2(o[dt][2] * inv1, o[dt][3] * inv1);
-  }
-  if (t == 0) {
-    float* lb = lse + ((long)b * H + h) * Lq;
-    if (r0 < Lq)
-      lb[r0] = (m0 == kNegInf ? kNegInf : m0 * kLn2) + logf(sl0);
-    if (r1 < Lq)
-      lb[r1] = (m1 == kNegInf ? kNegInf : m1 * kLn2) + logf(sl1);
+    if (c4 == 0) {
+      float* lb = lse + ((long)b * H + h) * Lq;
+      if (r0 < Lq)
+        lb[r0] = (m0 == kNegInf ? kNegInf : m0 * kLn2) + logf(sl0);
+      if (r1 < Lq)
+        lb[r1] = (m1 == kNegInf ? kNegInf : m1 * kLn2) + logf(sl1);
+    }
   }
 }
 
@@ -613,21 +799,34 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* q_seg, const void* kv_seg, void* out,
                        void* lse, int B, int H, int Hkv, int Lq, int S,
-                       float sm_scale, int causal, int q_offset,
+                       float sm_scale, int causal, int q_offset, int mask_all,
                        cudaStream_t stream) {
-  constexpr int smem = SmemF32<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  const auto type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!make_map_3d(&tq, type, 4, q, (uint64_t)H * D, Lq, B, kBoxF32, 64,
+                   sw) ||
+      !make_map_3d(&tk, type, 4, k, (uint64_t)Hkv * D, S, B, kBoxF32,
+                   kColsF32, sw) ||
+      !make_map_3d(&tv, type, 4, v, (uint64_t)Hkv * D, S, B, kBoxF32,
+                   kColsF32, sw))
+    return cudaErrorNotSupported;
+  constexpr int smem = SmemF32<D>::kAlloc;
+  static bool attribute_set = false;  // once per instantiation
+  if (!attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
   const int n_qtiles = (Lq + kRowsF32 - 1) / kRowsF32;
   dim3 grid(H, B, n_qtiles);
-  fa_fwd_f32_kernel<D><<<grid, kThreadsF32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(q_seg),
+  fa_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<const int*>(q_seg),
       static_cast<const int*>(kv_seg), static_cast<float*>(out),
       static_cast<float*>(lse), H, Hkv, Lq, S, sm_scale * kLog2e, causal,
-      q_offset, n_qtiles);
+      q_offset, n_qtiles, mask_all);
   return cudaGetLastError();
 }
 
@@ -658,10 +857,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
     case kFloat32:
       if (D == 128)
         return launch_f32<128>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv,
-                               Lq, S, sm_scale, causal, q_offset, s);
+                               Lq, S, sm_scale, causal, q_offset, mask_all,
+                               s);
       if (D == 64)
         return launch_f32<64>(q, k, v, q_seg, kv_seg, out, lse, B, H, Hkv,
-                              Lq, S, sm_scale, causal, q_offset, s);
+                              Lq, S, sm_scale, causal, q_offset, mask_all, s);
       return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
@@ -696,6 +896,6 @@ extern "C" int mc_flash_attention_fwd_mask_all(
 // report.
 extern "C" int mc_flash_attention_fwd_smem(int D, int dtype) {
   if (dtype == kFloat32)
-    return D == 128 ? SmemF32<128>::kBytes : SmemF32<64>::kBytes;
+    return D == 128 ? SmemF32<128>::kAlloc : SmemF32<64>::kAlloc;
   return D == 128 ? Smem<128>::kAlloc : Smem<64>::kAlloc;
 }

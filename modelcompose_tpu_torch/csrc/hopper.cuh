@@ -599,6 +599,12 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrives on named barrier `id` without waiting: the barrier completes when
+// `threads` threads have arrived or synced on it.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Orders this thread's earlier shared-memory writes before later reads by
 // the async proxy (a TMA store of that shared memory).
 __device__ __forceinline__ void fence_proxy_async() {

@@ -1,6 +1,8 @@
-// fp32 products of the attention kernels' fp32 instantiations (K1, K3, K4):
-// 3xTF32 on the tensor cores through mma.sync, with every fragment loaded
-// from shared memory by hand, and the cp.async tile loads that feed them.
+// fp32 products of the attention kernels' fp32 instantiations: 3xTF32 on
+// the tensor cores.  K3's fa_bwd_dq_f32_kernel runs them through mma.sync,
+// with every fragment loaded from shared memory by hand and fed by the
+// cp.async tile loads below; K1's and K4's fp32 kernels run them on wgmma
+// (the last section).
 //
 // Why 3xTF32: the JAX kernels feed fp32 operands to the dot with fp32
 // accumulation, which the TPU's matrix unit runs in multiple passes at
@@ -19,11 +21,12 @@
 // one's), the big chain runs over one tile's depth only, and a caller adds
 // each tile's product into its running sum with an fp32 add.
 //
-// Why mma.sync and not wgmma: wgmma's tf32 form reads both shared-memory
-// operands K-major only (the transposed layout exists for 16-bit types),
-// while the second products (P.V, dS.K, P^T.dO, dS^T.Q) read their
-// streamed operand along its rows.  mma.sync m16n8k8 takes fragments from
-// registers, loaded here from row-major tiles in either direction.
+// mma.sync: wgmma's tf32 form reads both shared-memory operands K-major
+// only (the transposed layout exists for 16-bit types), while the second
+// products (P.V, dS.K, P^T.dO, dS^T.Q) read their streamed operand along
+// its rows.  mma.sync m16n8k8 takes fragments from registers, loaded here
+// from row-major tiles in either direction.  (The wgmma kernels of the
+// last section take such an operand as a transposed tile instead.)
 //
 // Fragment layout of mma.m16n8k8 .tf32 (lane = 4 g + t): A a0 (g, t),
 // a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (k t, n g),
@@ -41,6 +44,7 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tf32x3 {
@@ -238,6 +242,198 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const float* base,
               : base;
     cp_async16(dst + (r * stride<D>() + c * 4) * 4, src, valid);
   }
+}
+
+// ------------------------------------------------------------------ wgmma
+// The redesigned fp32 kernels (K1's fa_fwd_f32_kernel, K4's
+// fa_bwd_dkv_f32_kernel) run every product on wgmma's tf32 form from
+// TMA-fed shared memory instead, with each operand split once: once per
+// block for the block's own rows, once per tile for a streamed tile.
+//
+// wgmma m64nNk8 .tf32 reads both shared-memory operands K-major only (the
+// 8-deep k axis contiguous; there is no transposed form for 4-byte types),
+// so a product whose streamed operand is read along its rows (P.V, P^T.dO,
+// dS^T.Q) takes that tile transposed: row n of the transposed tile holds
+// column n of the streamed one, its k axis along the 128-byte row.  Its A
+// operand is P, P^T or dS^T from registers: wgmma's tf32 A fragment (warp
+// w, lane 4g + t: a0 (16w + g, t), a1 (16w + g + 8, t), a2 (16w + g, t + 4),
+// a3 (16w + g + 8, t + 4)) is the first product's accumulator (c0 (g, 2t),
+// c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1) of each 8 columns) as
+// (c0, c2, c1, c3) when the k step is permuted: logical k = t is column 2t
+// and k = t + 4 column 2t + 1.  So each 8-row block of the streamed tile
+// goes into the transposed tile in the order 0, 2, 4, 6, 1, 3, 5, 7
+// (`kpos`), and the accumulator serves as the A fragment with no shuffle.
+//
+// hi and lo are written as tf32 values (low 13 bits zero), so the product
+// does not depend on how wgmma reads the low bits of an fp32 word.
+
+// Position of row r of an 8-row block in the transposed tile's k order.
+__host__ __device__ constexpr int kpos(int r) {
+  return (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
+}
+
+// Byte offset of fp32 element (row, col) in a TMA box of 32 columns (128
+// bytes a row) written with the 128-byte swizzle from a 1024-aligned base.
+__device__ __forceinline__ uint32_t sw128_f32(int row, int col) {
+  return row * 128 + ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
+}
+
+// x - hi (exact, finite and small where x is finite) rounded to tf32 as
+// cvt.rna rounds (to nearest, ties away from zero) in two integer ops.
+__device__ __forceinline__ float lo_of(float x, float hi) {
+  return __uint_as_float((__float_as_uint(x - hi) + 0x1000u) & 0xFFFFE000u);
+}
+
+// hi by cvt.rna (NaN and Inf kept), lo beside it: the converters' split.
+__device__ __forceinline__ float4 split4(float4 x, float4& lo) {
+  const float4 h = make_float4(__uint_as_float(to_tf32(x.x)),
+                               __uint_as_float(to_tf32(x.y)),
+                               __uint_as_float(to_tf32(x.z)),
+                               __uint_as_float(to_tf32(x.w)));
+  lo = make_float4(lo_of(x.x, h.x), lo_of(x.y, h.y), lo_of(x.z, h.z),
+                   lo_of(x.w, h.w));
+  return h;
+}
+
+// A TMA-landed tile of R rows by D fp32 columns ([D/32 boxes][R rows]
+// [128 B], swizzled) split in place: hi over x, lo into a tile of the same
+// layout.  The `threads` threads from `tid` share the 16-byte chunks, four
+// loads in flight a thread.
+template <int R, int D>
+__device__ __forceinline__ void split_tile(uint8_t* tile, uint8_t* lo,
+                                           int tid, int threads) {
+  constexpr int kChunks = R * D / 4;
+  float4* x4 = reinterpret_cast<float4*>(tile);
+  for (int i0 = tid; i0 < kChunks; i0 += 4 * threads) {
+    float4 x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * threads;
+      if (i < kChunks) x[u] = x4[i];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * threads;
+      if (i < kChunks) {
+        float4 l;
+        x4[i] = split4(x[u], l);
+        reinterpret_cast<float4*>(lo)[i] = l;
+      }
+    }
+  }
+}
+
+// A 32-row tile of D fp32 columns transposed and split: element (r, d) to
+// row d, k position kpos(r) of the hi and lo tiles ([D rows][128 B],
+// swizzled), the K-major B operand of a product that sums over the 32
+// rows.  Each thread keeps one row (tid % 32, so `threads` is a multiple
+// of 32) and walks its 4-column chunks, four loads in flight: a warp's
+// reads hit eight distinct 16-byte columns a quarter warp and its writes
+// 32 banks.
+template <int D>
+__device__ __forceinline__ void transpose_split_tile(const uint8_t* tile,
+                                                     uint8_t* hi, uint8_t* lo,
+                                                     int tid, int threads) {
+  constexpr int kDc = D / 4;  // 4-column chunks
+  const int r = tid % 32, w = tid / 32, nw = threads / 32;
+  const int p = kpos(r);
+  const uint8_t* src = tile + r * 128;
+  for (int dc0 = w; dc0 < kDc; dc0 += 4 * nw) {
+    float4 x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int dc = dc0 + u * nw;
+      if (dc < kDc)
+        x[u] = *reinterpret_cast<const float4*>(
+            src + (dc / 8) * 32 * 128 + (((dc ^ r) & 7) << 4));
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int dc = dc0 + u * nw;
+      if (dc < kDc) {
+        float4 l;
+        const float4 h = split4(x[u], l);
+        const float hv[4] = {h.x, h.y, h.z, h.w}, lv[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t off = sw128_f32(dc * 4 + e, p);
+          *reinterpret_cast<float*>(hi + off) = hv[e];
+          *reinterpret_cast<float*>(lo + off) = lv[e];
+        }
+      }
+    }
+  }
+}
+
+// A warpgroup's 64 own rows ([D/32 boxes][64 rows][128 B], swizzled) split
+// once: hi in place (the shared-memory A operand), lo as the register A
+// fragments of each 8-deep step (a0 (row, t), a1 (row + 8, t), a2 (row,
+// t + 4), a3 (row + 8, t + 4), row = 16 warp + g).  Each element of the 64
+// rows belongs to one thread.
+template <int D>
+__device__ __forceinline__ void split_rows(uint8_t* tile,
+                                           uint32_t (&lo)[D / 8][4],
+                                           int warp, int g, int t) {
+  const int row = warp * 16 + g;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint8_t* box = tile + (kk / 4) * 64 * 128;
+    const int col = (kk % 4) * 8 + t;
+    float* p[4] = {reinterpret_cast<float*>(box + sw128_f32(row, col)),
+                   reinterpret_cast<float*>(box + sw128_f32(row + 8, col)),
+                   reinterpret_cast<float*>(box + sw128_f32(row, col + 4)),
+                   reinterpret_cast<float*>(box + sw128_f32(row + 8, col + 4))};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t hi;
+      split(*p[i], hi, lo[kk][i]);
+      *p[i] = __uint_as_float(hi);
+    }
+  }
+}
+
+#define TF32X3_ACC16 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define TF32X3_REGS16 \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+    "%8, %9, %10, %11, %12, %13, %14, %15}"
+
+// D[64 x 32] (+)= A[64 x 8] B[8 x 32] in tf32 (fp32 accumulators in the
+// m64n32 layout), both operands from shared memory, K-major, 128-byte
+// swizzle; `accumulate` 0 starts the chain from zero (scale-d).
+__device__ __forceinline__ void wgmma_ss32(float* d, uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " TF32X3_REGS16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : TF32X3_ACC16 : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same with A (64 rows by 8) from registers: each warp's m16k8 tf32
+// fragment (see above).
+__device__ __forceinline__ void wgmma_rs32(float* d, const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " TF32X3_REGS16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : TF32X3_ACC16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// The A fragment of 8 columns of an m64n32 accumulator (c = its 4 floats
+// of those columns, in the layout above), split: (c0, c2, c1, c3) under
+// the permuted k step.
+__device__ __forceinline__ void a_from_acc(const float* c, uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split(c[0], hi[0], lo[0]);
+  split(c[2], hi[1], lo[1]);
+  split(c[1], hi[2], lo[2]);
+  split(c[3], hi[3], lo[3]);
 }
 
 }  // namespace tf32x3

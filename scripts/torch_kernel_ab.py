@@ -62,10 +62,15 @@ layer's seven.
     git archive df22bc8 modelcompose_tpu_torch | tar -x -C tmp_old
     python3 scripts/torch_kernel_ab.py --old tmp_old --only K6
 
-``--only K1F32`` (no earlier checkout needed; its copies are built into
-DIR or a gitignored ``tmp_kernel_ab``) times K1's fp32 kernel at the
-MCUB-4 bucket against a copy with 1xTF32 products and one with 32-row kv
-tiles (``k1_f32_probe``).
+``--only K1F32`` and ``--only K4F32`` time K1's and K4's fp32 kernels
+against the earlier checkout's (built from its own sources into DIR) and
+one ``scaled_dot_product_attention`` call on the same fp32 operands (the
+memory-efficient backend PyTorch picks at fp32; for K4 its backward, dQ,
+dK and dV together), in turns, by CUDA-graph replay: K1 at the MCUB-4
+bucket, K4 at the smoke's `ms` shape and the train step's batch.
+
+    git archive 828894d modelcompose_tpu_torch | tar -x -C tmp_old
+    python3 scripts/torch_kernel_ab.py --old tmp_old --only K1F32,K4F32
 """
 
 from __future__ import annotations
@@ -88,7 +93,7 @@ sys.path.insert(0, ROOT)
 from chip_smoke import (K5_GROUPS, K5_LAYERS, K5_ROWS,  # noqa: E402
                         K5_SHAPES, K5_TP_SHAPES, K6_COPIES, K6_LAYER,
                         K6_SHAPES, K7_COPIES, K7_LM_HEAD, K7_LM_HEAD_ROWS,
-                        K7_ROWS, K7_SHAPES, bound,
+                        K7_ROWS, K7_SHAPES, bound, cuda_time_ms,
                         cuda_time_cycle_ms, device_time_cycle_ms,
                         graph_time_ms)
 from modelcompose_tpu_torch import _build  # noqa: E402
@@ -141,31 +146,6 @@ def variant(scratch, name, line, value):
     path = os.path.join(scratch, f"{name}_{value}.cu")
     with open(path, "w") as f:
         f.write(src.replace(line, new_line))
-    out = path[:-3] + ".so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-                    "-o", out, path], check=True, capture_output=True)
-    lib = ctypes.CDLL(out)
-    for fn, (argtypes, restype) in _build.SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
-    return lib
-
-
-def variant_header(scratch, name, header, old, new, tag):
-    """``csrc/<name>.cu`` of this tree built against a copy of its header
-    ``csrc/<header>`` with ``old`` replaced by ``new`` (both written into
-    ``scratch/<tag>``, where the source's quoted include finds the copy
-    first), loaded with the port's signatures."""
-    text = (_build.CSRC / header).read_text()
-    if old not in text:
-        raise RuntimeError(f"{header} no longer holds {old!r}")
-    folder = os.path.join(scratch, tag)
-    os.makedirs(folder, exist_ok=True)
-    with open(os.path.join(folder, header), "w") as f:
-        f.write(text.replace(old, new))
-    path = os.path.join(folder, f"{name}.cu")
-    with open(path, "w") as f:
-        f.write((_build.CSRC / f"{name}.cu").read_text())
     out = path[:-3] + ".so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                     "-o", out, path], check=True, capture_output=True)
@@ -284,39 +264,108 @@ def ab_k34(old_fa, bn_probe, gen, emit):
                      ms=times, max_abs_diff_from_new=diff)
 
 
-def k1_f32_probe(scratch, gen, emit):
-    """K1's fp32 kernel at the MCUB-4 prefill bucket (fp32 operands)
-    against two copies of its source, in turns (copy, new, new, copy), each
-    by CUDA-graph replay: ``1xtf32``, its products at one TF32 mma a step
-    (the two cross-term mma of 3xTF32 dropped: what the extra products
-    cost, at TF32's accuracy), and ``cols32``, kv tiles of 32 rows
-    (``kColsF32``); each with its error against the plain version."""
-    one = variant_header(scratch, "flash_attention_fwd", "tf32x3.cuh",
-                         "  mma(small, al, bh);\n  mma(small, ah, bl);\n",
-                         "", "1xtf32")
-    cols32 = variant(scratch, "flash_attention_fwd",
-                     "constexpr int kColsF32 = 64;", 32)
-    B, L, H_, D_, lengths = K1_CASES["mcub4_3328"]
-    q, k, v = (torch.randn((B, L, H_, D_), generator=gen, device="cuda")
-               for _ in range(3))
-    seg = (torch.arange(L, device="cuda")[None]
-           < torch.tensor(lengths, device="cuda")[:, None]).int()
-    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
-    valid = seg != 0
-    ref = fa.flash_attention_reference(q, k, v, **kw)[0][valid]
-    versions = {"new": lambda _: fa.flash_attention_forward(q, k, v, **kw),
-                "1xtf32": lib_k1(one, q, k, v, seg),
-                "cols32": lib_k1(cols32, q, k, v, seg)}
-    errs = {who: float((fn(0)[0][valid] - ref).abs().max()
-                       / ref.abs().max()) for who, fn in versions.items()}
-    for a in ("1xtf32", "cols32"):
-        times = {a: [], "new": []}
-        for who in (a, "new", "new", a):
-            times[who].append(graph_time_ms(
-                lambda fn=versions[who]: fn(0)))
-        emit(kernel="K1 fp32", case="mcub4_3328", compare=f"{a} vs new",
-             ms_graph=times, rel_err_vs_plain={a: errs[a],
-                                               "new": errs["new"]})
+def _seg(L, lengths):
+    return (torch.arange(L, device="cuda")[None]
+            < torch.tensor(lengths, device="cuda")[:, None]).int()
+
+
+def _turns(versions, order, records):
+    """{version: [ms, ms]} by CUDA-graph replay in turns: ``order``, then
+    the same backwards (each run once eagerly first); a version that a
+    graph cannot capture (SDPA's backward with a boolean mask, at some
+    shapes) is timed by CUDA events over 10 calls instead, and named in
+    ``events``."""
+    for who in order:
+        versions[who]()
+    torch.cuda.synchronize()
+    times = {who: [] for who in order}
+    events = []
+    for who in (*order, *reversed(order)):
+        ms = graph_time_ms(versions[who], records=records.get(who, ()))
+        if ms is None:
+            ms = cuda_time_ms(versions[who])
+            events.append(who)
+        times[who].append(ms)
+    return dict(times, events=sorted(set(events)))
+
+
+def ab_f32(old_fa, gen, emit, only):
+    """K1's (``K1F32``) and K4's (``K4F32``) fp32 kernels against the
+    earlier checkout's through its own wrappers, and one
+    ``scaled_dot_product_attention`` call on the same fp32 operands (its
+    forward, or its backward through autograd: dQ, dK and dV together),
+    in turns (old, new, sdpa, sdpa, new, old), each by CUDA-graph replay,
+    with the bound (3 TF32 products for each fp32 one at 494.7 TFLOP/s)
+    and each version's error against the plain version."""
+    import torch.nn.functional as F
+    from chip_smoke import _sdpa_inputs, _valid_pairs, attention_bound
+    records = {"old": (old_fa.capturing,)}
+    if "K1F32" in only:
+        B, L, H_, D_, lengths = K1_CASES["mcub4_3328"]
+        q, k, v = (torch.randn((B, L, H_, D_), generator=gen, device="cuda")
+                   for _ in range(3))
+        seg = _seg(L, lengths)
+        kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+        valid = seg != 0
+        args, extra = _sdpa_inputs(q, k, v, dict(kw, q_offset=0), lengths)
+        versions = {
+            "old": lambda: old_fa.flash_attention_forward(q, k, v, **kw),
+            "new": lambda: fa.flash_attention_forward(q, k, v, **kw),
+            "sdpa": lambda: F.scaled_dot_product_attention(*args, **extra)}
+        ref = fa.flash_attention_reference(q, k, v, **kw)[0][valid]
+        errs = {who: float((versions[who]()[0][valid] - ref).abs().max()
+                           / ref.abs().max()) for who in ("old", "new")}
+        n = int(valid.sum())
+        nbytes = 4 * D_ * H_ * (2 * n + 2 * L) + 4 * B * H_ * L + 8 * B * L
+        bound_ms, bound_by = attention_bound(
+            4 * D_ * H_ * _valid_pairs(dict(kw, q_offset=0), L, L), nbytes,
+            torch.float32)
+        times = _turns(versions, ("old", "new", "sdpa"), records)
+        emit(kernel="K1 fp32", case="mcub4_3328", ms_graph=times,
+             bound_ms=bound_ms, bound_by=bound_by, rel_err_vs_plain=errs)
+    if "K4F32" in only:
+        for name in ("ms_2048", "train_2048"):
+            B, L, lengths = K34_CASES[name]
+            q, k, v, do = (torch.randn((B, L, H, D), generator=gen,
+                                       device="cuda") for _ in range(4))
+            seg = _seg(L, lengths)
+            kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+            out, lse = fa.flash_attention_forward(q, k, v, **kw)
+            do = (do * (seg != 0)[..., None, None]).contiguous()
+            di = fa._di(out, do)
+            bwd = (q, k, v, do, lse, di)
+            sargs, extra = _sdpa_inputs(q, k, v, dict(kw, q_offset=0),
+                                        lengths, grad=True)
+            sout = F.scaled_dot_product_attention(*sargs, **extra)
+            g = do[:, :sargs[0].shape[2]].transpose(1, 2)
+
+            def sdpa_bwd():
+                for t in sargs:
+                    t.grad = None
+                sout.backward(g, retain_graph=True)
+            versions = {
+                "old": lambda: old_fa.flash_attention_bwd_dkv(*bwd, **kw),
+                "new": lambda: fa.flash_attention_bwd_dkv(*bwd, **kw),
+                "sdpa": sdpa_bwd}
+            ref = fa.flash_attention_backward_reference(q, k, v, out, lse,
+                                                        do, **kw)
+            kv_valid = seg != 0
+            errs = {}
+            for who in ("old", "new"):
+                dk, dv = versions[who]()
+                errs[who] = max(
+                    float((g_[kv_valid] - w[kv_valid]).abs().max()
+                          / w[kv_valid].abs().max())
+                    for g_, w in ((dk, ref[1]), (dv, ref[2])))
+            n = int(kv_valid.sum())
+            nbytes = 4 * D * H * 4 * n + 8 * H * n + 4 * 2 * k.numel()
+            bound_ms, bound_by = attention_bound(
+                8 * D * H * _valid_pairs(dict(kw, q_offset=0), L, L), nbytes,
+                torch.float32)
+            times = _turns(versions, ("old", "new", "sdpa"), records)
+            emit(kernel="K4 fp32", case=name, ms_graph=times,
+                 sdpa="backward, dQ dK dV together", bound_ms=bound_ms,
+                 bound_by=bound_by, rel_err_vs_plain=errs)
 
 
 # K5 launches in one decode step of the 32-layer model: 32 x (4 q/k/v/o, 2
@@ -716,10 +765,10 @@ def main() -> int:
                     help="root of a checkout of the earlier sources (K1-K7)")
     ap.add_argument("--only", default="K1,K2,K3,K4,K5",
                     help="comma-separated kernels to compare (K1-K7, "
-                         "K1F32)")
+                         "K1F32, K4F32)")
     args = ap.parse_args()
     only = set(args.only.split(","))
-    if only - {"K6", "K7", "K1F32"} and not args.old:
+    if only - {"K6", "K7"} and not args.old:
         ap.error("K1-K5 are compared with an earlier checkout: --old DIR")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -741,10 +790,8 @@ def main() -> int:
     if "K7" in only:
         ab_k7(gen, emit, old_quant(args.old) if args.old else None)
 
-    if "K1F32" in only:  # its copies built into DIR or a gitignored folder
-        scratch = args.old or os.path.join(ROOT, "tmp_kernel_ab")
-        os.makedirs(scratch, exist_ok=True)
-        k1_f32_probe(scratch, gen, emit)
+    if only & {"K1F32", "K4F32"}:
+        ab_f32(old_fa, gen, emit, only)
 
     if "K6" in only:
         ab_k6(gen, emit, old_quant(args.old) if args.old else None)

@@ -3354,7 +3354,8 @@ def test_silu_in_k5_raises_and_does_not_fall_back():
 # ---------------------------------------------------------------- fp32
 # K1-K4 and K2 at fp32 (a float32 model, ``--bf16 False`` training), as the
 # JAX kernels take it: K1, K3 and K4 through their fp32 kernels (every
-# product 3xTF32 on mma.sync, P and dS kept fp32), K2 with fp32 loads.
+# product 3xTF32, on wgmma in K1 and K4 and on mma.sync in K3; P and dS
+# kept fp32), K2 with fp32 loads.
 # Each at the bf16 and fp16 tests' shapes within 1e-5 of max |plain| on the
 # same fp32 inputs (the plain versions in full fp32: TF32 off), the LSE
 # within 1e-5 of max(|LSE|, 1); padding rows' gradients zero.
@@ -3401,8 +3402,8 @@ def test_k1_fp32_matches_plain(B, Lq, S, H, Hkv, D, q_offset, lengths):
 def test_k1_k3_k4_fp32_segments_and_masks(name, B, L, H, Hkv, D, bounds,
                                           causal):
     """Packed segments, padding, causal and not, forward and backward at
-    fp32; the masked-path entries (``mask_all``) bit-equal to the others,
-    since every fp32 element goes through the mask."""
+    fp32; the masked-path entries (``mask_all``) bit-equal to the others
+    (K1 and K4 skip the mask on interior tiles; K3 masks every element)."""
     gen = torch.Generator(device="cuda").manual_seed(L + D + 33)
     q, do = _f32(gen, B, L, H, D), _f32(gen, B, L, H, D)
     k, v = _f32(gen, B, L, Hkv, D), _f32(gen, B, L, Hkv, D)
@@ -3451,6 +3452,63 @@ def test_k3_k4_fp32_match_plain(name, B, Lq, S, H, Hkv, D, q_offset,
     assert (flash_attention_bwd_dq.launches,
             flash_attention_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
     assert dq.dtype == dk.dtype == dv.dtype == torch.float32
+    _check_k3_k4((q, k, v, out, lse, do), kw, dq, dk, dv, tol=F32_TOL)
+
+
+# K1's fp32 kernel works in 128-row q blocks over 32-row kv tiles, K4's in
+# 64-row kv blocks over 32-row q tiles of every head of the GQA group; the
+# edges of those tiles, prefill chunks (q_offset), GQA groups 1, 4 and 8,
+# and D 64, each against the plain versions at 1e-5.
+@pytest.mark.parametrize("name,B,Lq,S,H,Hkv,D,q_offset,lengths", [
+    ("ragged_d128", 2, 161, 161, 8, 8, 128, 0, (161, 95)),
+    ("ragged_d64", 2, 97, 97, 8, 8, 64, 0, (97, 40)),
+    ("one_tile_each", 1, 31, 33, 4, 4, 128, 2, (33,)),
+    ("chunk_q_offset", 1, 96, 613, 8, 8, 128, 517, (613,)),
+    ("chunk_d64_gqa4", 2, 70, 330, 16, 4, 64, 260, (330, 300)),
+    ("gqa1", 1, 200, 200, 8, 8, 128, 0, (200,)),
+    ("gqa4", 2, 130, 130, 16, 4, 128, 0, (130, 77)),
+    ("gqa8", 1, 257, 257, 32, 4, 128, 0, (257,)),
+    ("gqa8_d64", 1, 65, 65, 16, 2, 64, 0, (65,)),
+])
+def test_k1_k4_fp32_tile_edges_chunks_and_groups(name, B, Lq, S, H, Hkv, D,
+                                                 q_offset, lengths):
+    gen = torch.Generator(device="cuda").manual_seed(Lq + 7 * S + D)
+    q = _f32(gen, B, Lq, H, D)
+    k, v = _f32(gen, B, S, Hkv, D), _f32(gen, B, S, Hkv, D)
+    kv_seg = (torch.arange(S, device="cuda")[None]
+              < torch.tensor(lengths, device="cuda")[:, None]).int()
+    q_seg = kv_seg[:, q_offset:q_offset + Lq].contiguous()
+    kw = dict(causal=True, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+              q_offset=q_offset)
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    _check_k1(q, k, v, kw, out, lse, tol=F32_TOL, lse_tol=F32_TOL)
+    do = (_f32(gen, B, Lq, H, D) * (q_seg != 0)[..., None, None]).contiguous()
+    di = _di(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+    _check_k3_k4((q, k, v, out, lse, do), kw, dq, dk, dv, tol=F32_TOL)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_k1_k4_fp32_fast_path_equals_masked_path(causal, D):
+    """Interior tiles skip the per-element mask in K1's and K4's fp32
+    kernels; forcing the mask on every tile gives the same bits, and both
+    match the plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(9 + D)
+    q, k, v, do = (_f32(gen, 2, 640, 8, D) for _ in range(4))
+    seg = _packed_segments(2, 640, (384, 600))
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    out, lse = flash_attention_forward(q, k, v, **kw)
+    out_m, lse_m = flash_attention_forward_mask_all(q, k, v, **kw)
+    assert torch.equal(out, out_m) and torch.equal(lse, lse_m)
+    _check_k1(q, k, v, kw, out, lse, tol=F32_TOL, lse_tol=F32_TOL)
+    do = (do * (seg != 0)[..., None, None]).contiguous()
+    di = _di(out, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+    _, dk_m, dv_m = flash_attention_bwd_mask_all(q, k, v, do, lse, di, **kw)
+    assert torch.equal(dk, dk_m) and torch.equal(dv, dv_m)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
     _check_k3_k4((q, k, v, out, lse, do), kw, dq, dk, dv, tol=F32_TOL)
 
 
